@@ -3,16 +3,11 @@
 Counterpart of ``neuralmonkey_tpu/config/builder.py``: each
 ``[section]`` with a ``class=`` key becomes one object; ``<section>``
 references resolve recursively with memoization and cycle detection.
-Reference-era class names (bare ``encoders.recurrent.SentenceEncoder``
-or ``neuralmonkey.encoders...``) resolve through :data:`MODULE_ALIASES`
-into ``neuralmonkey_tpu_torch`` for the ported modules and into the
-JAX package's JAX-free host modules (data, vocabularies, evaluators,
-processors, readers) for the rest.
-
-The JAX package's ``ClassSymbol.create()`` resolves through the JAX
-builder and would build ``neuralmonkey_tpu`` parts, so this builder
-resolves ``ClassSymbol.clazz`` itself and never calls ``create()``. A
-symbol that resolves nowhere in the port (a trainer, say) raises; the
+Reference-era class names (bare ``encoders.recurrent.SentenceEncoder``,
+``neuralmonkey.encoders...``, or the JAX package's
+``neuralmonkey_tpu.`` paths) resolve through :data:`MODULE_ALIASES`
+and :data:`CLASS_ALIASES` into ``neuralmonkey_tpu_torch`` and nowhere
+else. A symbol the port lacks (an unported encoder, say) raises; the
 builder reports it as a ConfigBuildException naming the section.
 """
 
@@ -22,18 +17,13 @@ import importlib
 import inspect
 from typing import Any, Dict, List, Set
 
-from neuralmonkey_tpu.config.exceptions import (ConfigBuildException,
-                                                ConfigInvalidValueException)
-from neuralmonkey_tpu.config.parsing import ClassSymbol, ObjectRef
-from neuralmonkey_tpu.logging import debug, warn
+from ..logging import debug, warn
+from .exceptions import ConfigBuildException, ConfigInvalidValueException
+from .parsing import ClassSymbol, ObjectRef
 
 _PORT = "neuralmonkey_tpu_torch"
-# the JAX package's modules the port may use: they import no JAX
-JAX_FREE_MODULES = ("neuralmonkey_tpu.dataset", "neuralmonkey_tpu.vocabulary",
-                    "neuralmonkey_tpu.evaluators", "neuralmonkey_tpu.processors",
-                    "neuralmonkey_tpu.readers")
 
-# reference-relative module prefix -> module
+# reference-relative module prefix -> module of the port
 MODULE_ALIASES = {
     "encoders": f"{_PORT}.models.encoders",
     "decoders": f"{_PORT}.models.decoders",
@@ -41,25 +31,31 @@ MODULE_ALIASES = {
     "model": f"{_PORT}.model",
     "trainers": f"{_PORT}.trainers",
     "runners": f"{_PORT}.runners",
+    "evaluators": f"{_PORT}.evaluators",
+    "readers": f"{_PORT}.readers",
+    "dataset": f"{_PORT}.dataset",
+    "vocabulary": f"{_PORT}.vocabulary",
+    "functions": f"{_PORT}.functions",
     "tf_manager": f"{_PORT}.runtime",
     "config": f"{_PORT}.config",
-    "evaluators": "neuralmonkey_tpu.evaluators",
-    "processors": "neuralmonkey_tpu.processors",
-    "readers": "neuralmonkey_tpu.readers",
-    "dataset": "neuralmonkey_tpu.dataset",
-    "vocabulary": "neuralmonkey_tpu.vocabulary",
 }
 
+# class renames a module alias cannot express; TF optimizer names map
+# to the port's optimizers so reference [optimizer] sections load
+_OPT = f"{_PORT}.trainers.optimizers."
 CLASS_ALIASES = {
     "tf_manager.TensorFlowManager": f"{_PORT}.runtime.CUDAManager",
     "neuralmonkey.tf_manager.TensorFlowManager":
         f"{_PORT}.runtime.CUDAManager",
+    "tf.train.AdamOptimizer": _OPT + "AdamOptimizer",
+    "tf.train.GradientDescentOptimizer":
+        _OPT + "GradientDescentOptimizer",
+    "tf.train.MomentumOptimizer": _OPT + "MomentumOptimizer",
+    "tf.train.AdadeltaOptimizer": _OPT + "AdadeltaOptimizer",
+    "tf.train.RMSPropOptimizer": _OPT + "RMSPropOptimizer",
+    "tf.contrib.opt.LazyAdamOptimizer": _OPT + "LazyAdamOptimizer",
+    "tensorflow.train.AdamOptimizer": _OPT + "AdamOptimizer",
 }
-
-
-def _allowed(dotted: str) -> bool:
-    return dotted.startswith(_PORT + ".") or any(
-        dotted == m or dotted.startswith(m + ".") for m in JAX_FREE_MODULES)
 
 
 def _import_symbol(dotted: str) -> Any:
@@ -81,7 +77,7 @@ def _import_symbol(dotted: str) -> Any:
 
 
 def resolve_class_symbol(clazz: str) -> Any:
-    """Resolve a class symbol into the port or a JAX-free module."""
+    """Resolve a class symbol into the port."""
     stripped = clazz
     for prefix in (_PORT + ".", "neuralmonkey_tpu.", "neuralmonkey."):
         if stripped.startswith(prefix):
@@ -97,11 +93,7 @@ def resolve_class_symbol(clazz: str) -> Any:
     if head in MODULE_ALIASES:
         candidates.append(MODULE_ALIASES[head] + stripped[len(head):])
     candidates.append(f"{_PORT}.{stripped}")
-    if clazz.startswith("neuralmonkey_tpu."):
-        candidates.append(clazz)
     for cand in candidates:
-        if not _allowed(cand):
-            continue
         try:
             return _import_symbol(cand)
         except ImportError:

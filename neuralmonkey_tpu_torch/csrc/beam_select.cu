@@ -27,19 +27,11 @@
 // under the order (value descending, index ascending); a round only considers
 // entries that come after the previous winner in that order, so winners need
 // no knocking out and an index is never picked twice.
-#include "common.cuh"
+#include "logit_tile.cuh"
 
 namespace {
 
-constexpr int kBM = 128;      // rows per block tile
-constexpr int kBN = 128;      // columns per block tile = one rowmax group
-constexpr int kBK = 16;       // depth per shared-memory stage
-constexpr int kTM = 8;        // rows per thread
-constexpr int kTN = 8;        // columns per thread, strided by 16
-constexpr int kGemmThreads = 256;
-constexpr int kAPad = 4;      // As row padding against bank conflicts
-
-__global__ void __launch_bounds__(kGemmThreads)
+__global__ void __launch_bounds__(nm::kTileThreads)
 fused_logits_kernel(const float* __restrict__ x,     // (N, Dm)
                     const float* __restrict__ w,     // (Dm, Vp)
                     const float* __restrict__ bias,  // (Vp)
@@ -47,83 +39,37 @@ fused_logits_kernel(const float* __restrict__ x,     // (N, Dm)
                     float* __restrict__ rowmax,      // (N, R)
                     float* __restrict__ psum,        // (N, R) scratch
                     int N, int Dm, int Vp) {
-  __shared__ __align__(16) float As[kBK][kBM + kAPad];  // x tile, transposed
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tr = tid / 16;  // rows tr * kTM .. + kTM
-  const int tc = tid % 16;  // columns tc + 16 * j
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int R = Vp / kBN;
+  using namespace nm;
+  __shared__ __align__(16) TileStage st;
+  const int tr = tile_row(), tc = tile_col();
+  const int n0 = blockIdx.x * kTileN;
+  const int m0 = blockIdx.y * kTileM;
+  const int R = Vp / kTileN;
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  float acc[kThreadM][kThreadN];
+  logit_tile<false>(x, w, N, Dm, Vp, m0, n0, st, acc);
 
-  for (int k0 = 0; k0 < Dm; k0 += kBK) {
+  float bv[kThreadN];
 #pragma unroll
-    for (int q = 0; q < kBM * kBK / kGemmThreads; ++q) {
-      const int e = tid + q * kGemmThreads;
-      const int m = e / kBK, k = e % kBK;
-      const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < N && gk < Dm) ? x[static_cast<size_t>(gm) * Dm + gk] : 0.f;
-    }
+  for (int j = 0; j < kThreadN; ++j) bv[j] = bias[n0 + tc + 16 * j];
 #pragma unroll
-    for (int q = 0; q < kBK * kBN / kGemmThreads; ++q) {
-      const int e = tid + q * kGemmThreads;
-      const int k = e / kBN, n = e % kBN;
-      const int gk = k0 + k;
-      Bs[k][n] = gk < Dm ? w[static_cast<size_t>(gk) * Vp + n0 + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float av[kTM];
-#pragma unroll
-      for (int i = 0; i < kTM; i += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[k][tr * kTM + i]);
-        av[i] = a.x;
-        av[i + 1] = a.y;
-        av[i + 2] = a.z;
-        av[i + 3] = a.w;
-      }
-      float bv[kTN];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = Bs[k][tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float bv[kTN];
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) bv[j] = bias[n0 + tc + 16 * j];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gm = m0 + tr * kTM + i;
+  for (int i = 0; i < kThreadM; ++i) {
+    const int gm = m0 + tr * kThreadM + i;
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
+    for (int j = 0; j < kThreadN; ++j) {
       acc[i][j] += bv[j];
       mx = fmaxf(mx, acc[i][j]);
     }
-    // the 16 threads sharing tr are 16 consecutive lanes of one warp
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, off));
+    mx = row_reduce_max(mx);
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) s += expf(acc[i][j] - mx);
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(nm::kFullMask, s, off);
+    for (int j = 0; j < kThreadN; ++j) s += expf(acc[i][j] - mx);
+    s = row_reduce_sum(s);
     if (gm < N) {
       float* row = logits + static_cast<size_t>(gm) * Vp + n0;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) row[tc + 16 * j] = acc[i][j];
+      for (int j = 0; j < kThreadN; ++j) row[tc + 16 * j] = acc[i][j];
       if (tc == 0) {
         rowmax[static_cast<size_t>(gm) * R + blockIdx.x] = mx;
         psum[static_cast<size_t>(gm) * R + blockIdx.x] = s;
@@ -231,9 +177,9 @@ NM_EXPORT int nm_fused_logits(const void* x, const void* w, const void* bias, vo
                               void* rowmax, void* psum, void* lse, int N, int Dm, int Vp,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = Vp / kBN;
-  const dim3 grid(R, (N + kBM - 1) / kBM);
-  fused_logits_kernel<<<grid, kGemmThreads, 0, s>>>(
+  const int R = Vp / nm::kTileN;
+  const dim3 grid(R, (N + nm::kTileM - 1) / nm::kTileM);
+  fused_logits_kernel<<<grid, nm::kTileThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(logits),
       static_cast<float*>(rowmax), static_cast<float*>(psum), N, Dm, Vp);

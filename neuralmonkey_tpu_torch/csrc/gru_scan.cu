@@ -8,7 +8,10 @@
 // writes m_t * h' as the output and carries m_t * h' + (1 - m_t) * h, so padding
 // holds the state. A reversed direction walks time from T-1 down to 0. The
 // input projections xg, xc are hoisted out of the scan into one matmul by the
-// caller (as in the TPU version).
+// caller (as in the TPU version). When the caller will take gradients it passes
+// `carries` (B, T, D * H), and the kernel also writes the carry after every
+// step there, as `_gru_scan_kernel` does with `save_carries`: the BPTT kernel
+// (gru_bptt.cu) restarts each step from it.
 //
 // What bounds it on the H100: each step must read both recurrent matrices
 // (3 H^2 floats, 3 MB at H = 512), far more than one SM's 227 KB of shared
@@ -88,6 +91,7 @@ gru_scan_kernel(const float* __restrict__ x,     // (B, T, D * 3H): [xg | xc] pe
                 const float* __restrict__ wch,   // (D, H, H)
                 float* __restrict__ out,         // (B, T, D * H)
                 float* __restrict__ fin,         // (B, D * H)
+                float* __restrict__ carries,     // (B, T, D * H) or null
                 int B, int T, int H, int D, int reverse_mask) {
   extern __shared__ float smem[];
   const int Hs = (H + 3) & ~3;  // row stride: keeps float4 reads aligned
@@ -147,8 +151,10 @@ gru_scan_kernel(const float* __restrict__ x,     // (B, T, D * 3H): [xg | xc] pe
           const float prev = h[r * Hs + j];
           const float u = ug[r * Hs + j];
           const float nh = u * prev + (1.0f - u) * cand;
+          const float carry = m * nh + (1.0f - m) * prev;
           out[bt * o_width + static_cast<size_t>(dir) * H + j] = m * nh;
-          h[r * Hs + j] = m * nh + (1.0f - m) * prev;
+          if (carries != nullptr) carries[bt * o_width + static_cast<size_t>(dir) * H + j] = carry;
+          h[r * Hs + j] = carry;
         }
       }
     }
@@ -165,8 +171,8 @@ gru_scan_kernel(const float* __restrict__ x,     // (B, T, D * 3H): [xg | xc] pe
 }  // namespace
 
 NM_EXPORT int nm_gru_scan(const void* x, const void* mask, const void* wgh, const void* wch,
-                          void* out, void* fin, int B, int T, int H, int D, int reverse_mask,
-                          void* stream) {
+                          void* out, void* fin, void* carries, int B, int T, int H, int D,
+                          int reverse_mask, void* stream) {
   const dim3 grid((B + kRows - 1) / kRows, D);
   const size_t smem = 3 * static_cast<size_t>(kRows) * ((H + 3) & ~3) * sizeof(float);
   if (smem > 48 * 1024) {  // past the default: opt in, up to the SM's 227 KB
@@ -177,6 +183,7 @@ NM_EXPORT int nm_gru_scan(const void* x, const void* mask, const void* wgh, cons
   gru_scan_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(mask),
       static_cast<const float*>(wgh), static_cast<const float*>(wch),
-      static_cast<float*>(out), static_cast<float*>(fin), B, T, H, D, reverse_mask);
+      static_cast<float*>(out), static_cast<float*>(fin), static_cast<float*>(carries), B, T, H,
+      D, reverse_mask);
   return nm::launch_status();
 }

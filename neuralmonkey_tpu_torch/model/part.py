@@ -1,7 +1,8 @@
 """ModelPart base and the forward-pass Context.
 
 Counterpart of ``neuralmonkey_tpu/model/part.py``. A part method takes
-a :class:`Context` (parameters, featurized batch, train flag) and
+a :class:`Context` (parameters, featurized batch, train flag, dropout
+seed) and
 returns tensors. The :func:`tensor` decorator memoizes per Context, so
 a sub-result shared by several consumers (an encoder feeding two
 attentions) is computed once per pass.
@@ -19,23 +20,32 @@ from __future__ import annotations
 
 import functools
 import zlib
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from neuralmonkey_tpu.logging import debug
+from ..logging import debug
+from ..ops.nn import dropout as nn_dropout
 
 
 class Context:
-    """One forward pass: memoization plus params and batch access."""
+    """One forward pass: memoization plus params, batch and dropout
+    generators. ``rng`` is the pass's integer seed (the run seed folded
+    with the step, see :func:`fold_seed`); train-mode dropout draws
+    from a generator per (part, site) seeded from it, as the JAX
+    ``Context.make_rng`` folds its key."""
 
     def __init__(self, params: Dict[str, Any], batch: Dict[str, Any],
-                 train: bool = False) -> None:
+                 train: bool = False, rng: Optional[int] = None) -> None:
         self.params = params
         self.batch = batch
         self.train = train
+        self.rng = rng
         self._cache: Dict = {}
+        # auxiliary losses parts register during the forward pass;
+        # GenericTrainer.total_loss folds them into the objective
+        self.aux_losses: Dict[str, Any] = {}
 
     def cached(self, part: "ModelPart", attr: str, fn: Callable) -> Any:
         key = (id(part), attr)
@@ -51,15 +61,42 @@ class Context:
                 f"{sorted(self.params.keys())})")
         return self.params[key]
 
+    def add_aux_loss(self, part: "ModelPart", name: str, value) -> None:
+        """Register an auxiliary loss term (already weighted by the
+        owning part); repeated adds under one key accumulate."""
+        key = f"{part.name}/{name}"
+        if key in self.aux_losses:
+            self.aux_losses[key] = self.aux_losses[key] + value
+        else:
+            self.aux_losses[key] = value
+
+    def make_rng(self, part: "ModelPart", site: str,
+                 device: torch.device) -> torch.Generator:
+        """A generator on ``device`` for one (part, site) of this pass."""
+        if self.rng is None:
+            raise ValueError(
+                "Context has no rng (pass one for train-mode dropout)")
+        salt = zlib.crc32(f"{part.name}/{site}".encode()) & 0x7FFFFFFF
+        return torch.Generator(device=device).manual_seed(
+            fold_seed(self.rng, salt))
+
     def dropout(self, part: "ModelPart", x: torch.Tensor,
                 keep_prob: float, site: str = "dropout") -> torch.Tensor:
-        """Identity at inference. Train-mode dropout comes with the
-        training port."""
+        """Part-scoped inverted dropout; identity at inference."""
         if not self.train or keep_prob >= 1.0:
             return x
-        raise NotImplementedError(
-            f"train-mode dropout ({part.name}/{site}) is not ported to "
-            "neuralmonkey_tpu_torch yet")
+        return nn_dropout(x, keep_prob,
+                          self.make_rng(part, site, x.device), True)
+
+
+def fold_seed(seed: int, salt: int) -> int:
+    """A 63-bit seed from ``seed`` and ``salt`` (splitmix64 finalizer of
+    their combination): distinct salts give unrelated streams, like
+    ``jax.random.fold_in``."""
+    z = (seed * 0x9E3779B97F4A7C15 + salt + 1) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
 
 
 def tensor(fn: Callable) -> Callable:

@@ -10,8 +10,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from neuralmonkey_tpu.vocabulary import Vocabulary
-
+from ..vocabulary import Vocabulary
 from .part import Context, ModelPart, tensor
 from .stateful import TemporalStateful
 

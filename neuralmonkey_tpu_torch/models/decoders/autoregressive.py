@@ -1,5 +1,5 @@
 """Autoregressive decoder base (counterpart of
-``neuralmonkey_tpu/models/decoders/autoregressive.py``, inference half).
+``neuralmonkey_tpu/models/decoders/autoregressive.py``).
 
 Subclass contract, used by greedy decoding and beam search:
 
@@ -21,15 +21,15 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
 
+import numpy as np
 import torch
-
-from neuralmonkey_tpu.vocabulary import (END_TOKEN_INDEX, PAD_TOKEN_INDEX,
-                                         START_TOKEN_INDEX, UNK_TOKEN_INDEX,
-                                         Vocabulary)
 
 from ...model.part import Context, ModelPart, tensor
 from ...model.sequence import EmbeddedSequence
+from ...ops import fused_xent
 from ...ops.beam_select import fused_logits_rowmax_lse
+from ...vocabulary import (END_TOKEN_INDEX, PAD_TOKEN_INDEX,
+                           START_TOKEN_INDEX, UNK_TOKEN_INDEX, Vocabulary)
 
 FINISHED_CHECK_PERIOD = 8
 # the fused logit projection pads the vocabulary to a multiple of this
@@ -57,7 +57,6 @@ class AutoregressiveDecoder(ModelPart):
         self.data_id = data_id
         self.max_output_len = max_output_len
         self.dropout_keep_prob = dropout_keep_prob
-        # a training-only knob, kept so training configs build
         self.label_smoothing = label_smoothing
         self.tie_embeddings = tie_embeddings
         self.supress_unk = supress_unk
@@ -83,6 +82,110 @@ class AutoregressiveDecoder(ModelPart):
 
         if max_output_len <= 0:
             raise ValueError("max_output_len must be positive")
+
+    # ------------------------------------------------------------------ #
+    # featurization: teacher inputs <s> w1..wn, targets w1..wn </s>
+    # ------------------------------------------------------------------ #
+    @property
+    def input_ids_key(self) -> str:
+        return f"{self.name}.train_inputs"
+
+    @property
+    def target_ids_key(self) -> str:
+        return f"{self.name}.train_targets"
+
+    @property
+    def target_mask_key(self) -> str:
+        return f"{self.name}.train_mask"
+
+    def featurize(self, dataset, train: bool = False
+                  ) -> Dict[str, np.ndarray]:
+        if not dataset.has_series(self.data_id):
+            return {}  # inference dataset without targets
+        full, mask = self.vocabulary.sentences_to_tensor(
+            dataset.get_series(self.data_id),
+            max_len=self.max_output_len, train_mode=train,
+            add_start_symbol=True, add_end_symbol=True)
+        return {self.input_ids_key: full[:, :-1],
+                self.target_ids_key: full[:, 1:],
+                self.target_mask_key: mask[:, 1:]}
+
+    @tensor
+    def train_inputs(self, ctx: Context):
+        return ctx.batch[self.input_ids_key]
+
+    @tensor
+    def train_targets(self, ctx: Context):
+        return ctx.batch[self.target_ids_key]
+
+    @tensor
+    def train_mask(self, ctx: Context):
+        return ctx.batch[self.target_mask_key]
+
+    def train_logits(self, ctx: Context):
+        """(B, T, V) teacher-forced logits."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------ #
+    # losses
+    # ------------------------------------------------------------------ #
+    def _xent(self, logits: torch.Tensor, targets: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        """Per-token masked cross-entropy (B, T), label-smoothed when
+        the decoder says so."""
+        log_probs = torch.log_softmax(logits, dim=-1)
+        target_ll = log_probs.gather(
+            -1, targets.long()[..., None])[..., 0]
+        if self.label_smoothing:
+            eps = self.label_smoothing
+            nll = -((1.0 - eps) * target_ll + eps * log_probs.mean(dim=-1))
+        else:
+            nll = -target_ll
+        return nll * mask
+
+    def _fused_token_nll(self, ctx: Context):
+        """(B, T) per-token nll through the fused cross-entropy
+        (``ops/fused_xent.py``), or ``None`` when the decoder has no
+        prelogit seam or the fused path is off or ineligible."""
+        proj_fn = getattr(self, "train_logit_projection", None)
+        states_fn = getattr(self, "train_prelogit_states", None)
+        if proj_fn is None or states_fn is None:
+            return None
+        states = states_fn(ctx)
+        w, b, transposed = proj_fn(ctx)
+        if not fused_xent.eligible(states, w):
+            return None
+        bsz, time, dim = states.shape
+        nll = fused_xent.fused_softmax_xent(
+            states.reshape(bsz * time, dim), w, b,
+            self.train_targets(ctx).reshape(bsz * time),
+            eps=self.label_smoothing or 0.0, transposed=transposed)
+        return nll.reshape(bsz, time)
+
+    @tensor
+    def train_token_nll(self, ctx: Context):
+        """(B, T) masked per-token cross-entropy, fused when eligible."""
+        mask = self.train_mask(ctx)
+        fused = self._fused_token_nll(ctx)
+        if fused is not None:
+            return fused * mask
+        return self._xent(self.train_logits(ctx), self.train_targets(ctx),
+                          mask)
+
+    @tensor
+    def train_xents(self, ctx: Context):
+        """Per-sentence summed cross-entropy (B,)."""
+        return self.train_token_nll(ctx).sum(dim=1)
+
+    @tensor
+    def train_loss(self, ctx: Context):
+        """Mean per-token cross-entropy: the training objective."""
+        return (self.train_token_nll(ctx).sum()
+                / self.train_mask(ctx).sum().clamp_min(1.0))
+
+    # the reference's name for the decoder's objective value
+    def cost(self, ctx: Context):
+        return self.train_loss(ctx)
 
     # ------------------------------------------------------------------ #
     # subclass contract

@@ -30,11 +30,9 @@ from typing import List, NamedTuple
 
 import torch
 
-from neuralmonkey_tpu.vocabulary import (END_TOKEN_INDEX, PAD_TOKEN_INDEX,
-                                         START_TOKEN_INDEX)
-
 from ...model.part import Context, ModelPart
 from ...ops.beam_select import LANE, rowmax_lse, small_topk
+from ...vocabulary import END_TOKEN_INDEX, PAD_TOKEN_INDEX, START_TOKEN_INDEX
 from .autoregressive import FINISHED_CHECK_PERIOD, AutoregressiveDecoder
 
 NEG_INF = -1e9

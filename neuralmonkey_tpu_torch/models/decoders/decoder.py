@@ -1,5 +1,5 @@
 """Attentive RNN decoder (counterpart of
-``neuralmonkey_tpu/models/decoders/decoder.py``, inference half).
+``neuralmonkey_tpu/models/decoders/decoder.py``).
 
 Supports the RNNsearch step (attention queried with the previous state,
 the cell fed ``[prev_emb, context]``) and the Nematus-style conditional
@@ -206,6 +206,57 @@ class Decoder(AutoregressiveDecoder):
                                   enc_out))
         return ctx.dropout(self, s0, self.dropout_keep_prob,
                            "initial_state_dropout")
+
+    # ------------------------------------------------------------------ #
+    # teacher-forced training
+    # ------------------------------------------------------------------ #
+    @tensor
+    def train_outputs(self, ctx: Context):
+        """Teacher-forced pass over the target inputs, a Python loop
+        over the steps where JAX scans: (prelogits (B, T, P), attention
+        weight histories, one (B, T, T_src) per attention)."""
+        constants = self._make_constants(ctx)
+        embedded = self.embeddings.embed(ctx, self.train_inputs(ctx))
+        embedded = ctx.dropout(self, embedded, self.dropout_keep_prob,
+                               "embedding_dropout")
+        state = self.initial_state(ctx)
+        prelogit_in, weights = [], []
+        for t in range(embedded.shape[1]):
+            state, step_in, step_weights = self._cell_step(
+                constants, state, embedded[:, t])
+            prelogit_in.append(step_in)
+            weights.append(step_weights)
+        prelogit_in = ctx.dropout(self, torch.stack(prelogit_in, dim=1),
+                                  self.dropout_keep_prob,
+                                  "prelogit_dropout")
+        prelogits = self._prelogit(constants["params"], prelogit_in)
+        histories = tuple(torch.stack([w[i] for w in weights], dim=1)
+                          for i in range(len(self.attentions)))
+        return prelogits, histories
+
+    @tensor
+    def train_prelogit_states(self, ctx: Context):
+        """(B, T, P) prelogit states: the fused cross-entropy's input."""
+        prelogits, _ = self.train_outputs(ctx)
+        return prelogits
+
+    def train_logit_projection(self, ctx: Context):
+        """(w, b, transposed) of the output projection in its own
+        layout (tied: the (V, P) embedding table)."""
+        params = ctx.get_params(self)
+        if self.tie_embeddings:
+            table = ctx.get_params(self.embeddings)["embeddings"]
+            return table, params["logit_bias"], True
+        logit = params["logit"]
+        b = logit.get("b")
+        if b is None:
+            b = logit["w"].new_zeros(logit["w"].shape[1])
+        return logit["w"], b, False
+
+    @tensor
+    def train_logits(self, ctx: Context):
+        prelogits, _ = self.train_outputs(ctx)
+        return self._logits(self._make_constants(ctx), prelogits)
 
     def _finish_step(self, constants, state, prev_ids, beam=None):
         embedded_prev = F.embedding(prev_ids, constants["embed_table"])

@@ -13,13 +13,12 @@ from typing import Any, Dict, List
 
 import torch
 
-from neuralmonkey_tpu.vocabulary import Vocabulary
-
 from ...model.part import Context, ModelPart, tensor
 from ...model.sequence import EmbeddedSequence
 from ...model.stateful import TemporalStatefulWithOutput
 from ...ops import nn
 from ...ops.rnn import bidirectional_rnn, unidirectional_rnn
+from ...vocabulary import Vocabulary
 
 _DIRECTIONS = ("bidirectional", "forward", "backward")
 

@@ -2,7 +2,8 @@
 
 Counterpart of the Bahdanau half of
 ``neuralmonkey_tpu/ops/pallas_attention.py`` (``fused_bahdanau_step``).
-The kernel is ``csrc/bahdanau.cu``.
+The kernel is ``csrc/bahdanau.cu``; it runs inside an autograd
+Function whose backward recomputes through the plain version.
 """
 
 from __future__ import annotations
@@ -33,22 +34,9 @@ def bahdanau_reference(keys: torch.Tensor, states: torch.Tensor,
     return context, weights
 
 
-def fused_bahdanau_step(keys: torch.Tensor, states: torch.Tensor,
-                        mask: torch.Tensor, projected_query: torch.Tensor,
-                        similarity_v: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder attention step: (context (B, D), weights (B, T)).
-
-    ``keys`` (B, T, A) are the precomputed key projections, ``states``
-    (B, T, D) the attended values, ``projected_query`` (B, A) the
-    projected decoder state. Launches K2 for CUDA tensors, runs the
-    plain version otherwise. Forward only."""
-    if not keys.is_cuda:
-        return bahdanau_reference(keys, states, mask, projected_query,
-                                  similarity_v)
+def _bahdanau_kernel(keys, states, mask, projected_query, similarity_v):
     batch, time, att_dim = keys.shape
     state_dim = states.shape[-1]
-    mask = mask.to(torch.float32).contiguous()
     kernel_config.check_cuda_inputs(
         "fused_bahdanau_step", keys=keys, states=states, mask=mask,
         projected_query=projected_query, similarity_v=similarity_v)
@@ -69,3 +57,62 @@ def fused_bahdanau_step(keys: torch.Tensor, states: torch.Tensor,
                          projected_query, similarity_v, context, weights,
                          batch, time, att_dim, state_dim)
     return context, weights
+
+
+class _BahdanauStep(torch.autograd.Function):
+    """``pallas_attention.fused_bahdanau_step``'s custom VJP: the
+    forward is K2 on CUDA tensors (the plain version on the CPU); the
+    backward recomputes through the plain version and differentiates
+    it (``_bahdanau_bwd``), as the JAX package has no backward
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, keys, states, mask, projected_query, similarity_v):
+        if keys.is_cuda:
+            out = _bahdanau_kernel(keys, states, mask, projected_query,
+                                   similarity_v)
+        else:
+            out = bahdanau_reference(keys, states, mask, projected_query,
+                                     similarity_v)
+        ctx.save_for_backward(keys, states, mask, projected_query,
+                              similarity_v)
+        return out
+
+    @staticmethod
+    def backward(ctx, dcontext, dweights):
+        keys, states, mask, projected_query, similarity_v = \
+            ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(needs)
+                  for t, needs in zip((keys, states, projected_query,
+                                       similarity_v),
+                                      (ctx.needs_input_grad[0],
+                                       ctx.needs_input_grad[1],
+                                       ctx.needs_input_grad[3],
+                                       ctx.needs_input_grad[4]))]
+        with torch.enable_grad():
+            context, weights = bahdanau_reference(
+                inputs[0], inputs[1], mask, inputs[2], inputs[3])
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                (context, weights), wanted, (dcontext, dweights),
+                allow_unused=True))
+        k, s, q, v = (next(grads) if t.requires_grad else None
+                      for t in inputs)
+        return k, s, None, q, v
+
+
+def fused_bahdanau_step(keys: torch.Tensor, states: torch.Tensor,
+                        mask: torch.Tensor, projected_query: torch.Tensor,
+                        similarity_v: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder attention step: (context (B, D), weights (B, T)).
+
+    ``keys`` (B, T, A) are the precomputed key projections, ``states``
+    (B, T, D) the attended values, ``projected_query`` (B, A) the
+    projected decoder state. Launches K2 for CUDA tensors, runs the
+    plain version otherwise; differentiable through the plain
+    version."""
+    if keys.is_cuda:
+        mask = mask.to(torch.float32).contiguous()
+    return _BahdanauStep.apply(keys, states, mask, projected_query,
+                               similarity_v)

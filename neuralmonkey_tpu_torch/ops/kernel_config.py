@@ -2,8 +2,9 @@
 
 Counterpart of ``neuralmonkey_tpu/ops/kernel_config.py``. The kernels
 are CUDA C++ in ``neuralmonkey_tpu_torch/csrc/`` with a plain C
-interface. At first use one ``nvcc`` call compiles all of them for
-``sm_90a`` into ``build/neuralmonkey_tpu_torch/``, in a library whose
+interface. At first use ``nvcc`` compiles them for ``sm_90a``, one
+process per source, all at once, and links them into
+``build/neuralmonkey_tpu_torch/``, in a library whose
 file name carries a hash of the sources and flags, and ``ctypes`` loads
 it. That build, together with the status check after every launch, is
 what the JAX package's Mosaic probe ``_pallas_compiles`` did: it finds
@@ -38,22 +39,30 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build",
                          "neuralmonkey_tpu_torch")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> the C entry point its wrapper launches
 ENTRY_POINTS = {
     "gru_scan": "nm_gru_scan",
+    "gru_bptt": "nm_gru_bptt",
     "fused_bahdanau_step": "nm_bahdanau_step",
     "fused_logits_rowmax_lse": "nm_fused_logits",
     "small_topk": "nm_small_topk",
+    "fused_xent_fwd": "nm_xent_fwd",
+    "fused_xent_bwd_dx": "nm_xent_bwd_dx",
+    "fused_xent_bwd_dw": "nm_xent_bwd_dw",
 }
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # pointers..., sizes..., stream
-    "nm_gru_scan": [_PTR] * 6 + [_INT] * 5 + [_PTR],
+    # pointers..., sizes and flags..., stream
+    "nm_gru_scan": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    "nm_gru_bptt": [_PTR] * 10 + [_INT] * 5 + [_PTR],
     "nm_bahdanau_step": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "nm_fused_logits": [_PTR] * 7 + [_INT] * 3 + [_PTR],
     "nm_small_topk": [_PTR] * 3 + [_INT] * 3 + [_PTR],
+    "nm_xent_fwd": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],
+    "nm_xent_bwd_dx": [_PTR] * 7 + [_INT] * 4 + [_FLOAT, _PTR],
+    "nm_xent_bwd_dw": [_PTR] * 8 + [_INT] * 4 + [_FLOAT, _PTR],
 }
 
 _LOCK = threading.Lock()
@@ -89,23 +98,44 @@ def _nvcc() -> str:
         "of neuralmonkey_tpu_torch cannot be built on this host")
 
 
+def _run_nvcc(cmds: List[List[str]]) -> None:
+    """Run the ``nvcc`` commands all at once; raise if any fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{stderr[-4000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> str:
     """Compile every kernel source into one shared library, unless a
-    build of exactly these sources exists. Returns its path."""
+    build of exactly these sources exists: one ``nvcc`` per source, all
+    started together, then one link. Returns its path."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     sources = [p for p in kernel_sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr[-4000:]}")
-    os.replace(tmp, path)
+    objects = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+               for src in sources]
+    try:
+        _run_nvcc([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                   for src, obj in zip(sources, objects)])
+        _run_nvcc([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{path}.{tag}",
+                    *objects]])
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(f"{path}.{tag}", path)
     return path
 
 
@@ -152,7 +182,8 @@ def check_cuda_inputs(kernel: str, **tensors: torch.Tensor) -> None:
 
 def launch(kernel: str, *args) -> None:
     """Launch ``kernel`` on the current stream of the device of the
-    first tensor argument. Tensors pass as pointers, ints as ints.
+    first tensor argument. Tensors pass as pointers (``None`` as a null
+    pointer), numbers as the entry point declares them.
     Raises on a nonzero cudaError_t; counts the launch otherwise."""
     lib = library()
     device = next(a.device for a in args if isinstance(a, torch.Tensor))

@@ -1,4 +1,4 @@
-"""NN primitives: initializers, projections, GRU cells.
+"""NN primitives: initializers, projections, dropout, GRU cells.
 
 Counterpart of ``neuralmonkey_tpu/ops/nn.py`` for the parts the RNN
 translation path uses. Parameters are plain dicts of tensors with the
@@ -75,6 +75,19 @@ def maxout(params: Params, x: torch.Tensor,
     y = linear(params, x)
     y = y.reshape(y.shape[:-1] + (y.shape[-1] // pool_size, pool_size))
     return y.amax(dim=-1)
+
+
+def dropout(x: torch.Tensor, keep_prob: float,
+            generator: torch.Generator, train: bool) -> torch.Tensor:
+    """Inverted dropout: keeps each entry with probability
+    ``keep_prob`` and scales it by ``1 / keep_prob``; the identity when
+    not training or when ``keep_prob >= 1``. The keep draws come from
+    ``generator``, which must live on ``x``'s device."""
+    if not train or keep_prob >= 1.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 # ---------------------------------------------------------------------- #

@@ -15,7 +15,7 @@ import argparse
 import sys
 from typing import List, Optional
 
-from neuralmonkey_tpu.logging import log
+from .logging import log
 
 from .config.configuration import Configuration
 from .experiment import Experiment

@@ -1,7 +1,7 @@
 """Greedy runner (counterpart of ``neuralmonkey_tpu/runners/runner.py``):
 greedy decode on the device, ids -> tokens on the host, optional
-postprocess. The loss fetches (``train_xent``, ``runtime_xent``) come
-with the training port."""
+postprocess. The JAX runner's loss fetches (``train_xent``,
+``runtime_xent``) are not ported yet."""
 
 from __future__ import annotations
 

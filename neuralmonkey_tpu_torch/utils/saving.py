@@ -8,8 +8,9 @@ renames and no transposes (``params_from_jax``).
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,8 +34,10 @@ def _join(prefix: str, key: Any) -> str:
     return f"{prefix}/{key}" if prefix else str(key)
 
 
-def save_tree(path: str, tree: Any) -> None:
-    """Write a tree of tensors as an ``.npz`` file at exactly ``path``."""
+def save_tree(path: str, tree: Any, meta: Dict[str, Any] = None) -> None:
+    """Write a tree of tensors as an ``.npz`` file at exactly ``path``,
+    and ``meta`` (step, epoch, best score) beside it as
+    ``<path>.meta.json``, as the JAX package does."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     flat = {key: value.detach().cpu().numpy()
             for key, value in flatten_tree(tree).items()}
@@ -43,6 +46,19 @@ def save_tree(path: str, tree: Any) -> None:
     with open(tmp_path, "wb") as f:
         np.savez(f, **flat)
     os.replace(tmp_path, path)
+    if meta is not None:
+        with open(path + ".meta.json", "w", encoding="utf-8") as f:
+            json.dump(meta, f)
+
+
+def load_meta(path: str) -> Optional[Dict[str, Any]]:
+    """The meta of a checkpoint (through a ``.best`` link to its
+    target), or None."""
+    meta_path = os.path.realpath(path) + ".meta.json"
+    if not os.path.exists(meta_path):
+        return None
+    with open(meta_path, encoding="utf-8") as f:
+        return json.load(f)
 
 
 def load_flat(path: str) -> Dict[str, np.ndarray]:
@@ -52,9 +68,9 @@ def load_flat(path: str) -> Dict[str, np.ndarray]:
 
 def params_from_jax(flat: Dict[str, np.ndarray],
                     template: Any) -> Any:
-    """The JAX package's parameters (flat keys, numpy arrays, as
-    ``neuralmonkey_tpu.utils.saving.flatten_tree`` or a checkpoint give
-    them) as a tree of float32 tensors shaped like ``template``, the
+    """The JAX package's parameters (flat keys, numpy arrays, as its
+    ``utils/saving.py`` ``flatten_tree`` or a checkpoint give them) as
+    a tree of float32 tensors shaped like ``template``, the
     port's own initialization. Every key and shape must match the
     template: a missing or extra key or a shape mismatch raises."""
     expected = flatten_tree(template)

@@ -184,8 +184,9 @@ def test_library_path_follows_the_sources(monkeypatch, tmp_path):
 def test_every_kernel_has_an_entry_point_in_the_sources():
     sources = "".join(open(p).read() for p in kernel_config.kernel_sources())
     assert set(kernel_config.ENTRY_POINTS) == {
-        "gru_scan", "fused_bahdanau_step", "fused_logits_rowmax_lse",
-        "small_topk"}
+        "gru_scan", "gru_bptt", "fused_bahdanau_step",
+        "fused_logits_rowmax_lse", "small_topk", "fused_xent_fwd",
+        "fused_xent_bwd_dx", "fused_xent_bwd_dw"}
     for entry in kernel_config.ENTRY_POINTS.values():
         assert f"NM_EXPORT int {entry}(" in sources
 

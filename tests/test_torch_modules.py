@@ -31,7 +31,7 @@ from neuralmonkey_tpu.ops.rnn import \
 from neuralmonkey_tpu.ops.rnn import unidirectional_rnn as jax_rnn
 from neuralmonkey_tpu.utils.saving import flatten_tree as jax_flatten
 from neuralmonkey_tpu.utils.saving import restore_into as jax_restore
-from neuralmonkey_tpu.vocabulary import Vocabulary
+from neuralmonkey_tpu.vocabulary import Vocabulary as JaxVocabulary
 
 from neuralmonkey_tpu_torch.config.builder import resolve_class_symbol
 from neuralmonkey_tpu_torch.model.part import (Context, collect_parts,
@@ -44,6 +44,7 @@ from neuralmonkey_tpu_torch.models.encoders.recurrent import SentenceEncoder
 from neuralmonkey_tpu_torch.ops import nn, rnn
 from neuralmonkey_tpu_torch.utils.saving import (flatten_tree, load_flat,
                                                  params_from_jax, save_tree)
+from neuralmonkey_tpu_torch.vocabulary import Vocabulary
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -53,12 +54,13 @@ BATCH, SRC, WIDTH, VOCAB, BEAM = 3, 7, 16, 300, 4
 ATOL = 1e-5
 
 
-def _vocabulary():
-    return Vocabulary([f"w{i}" for i in range(VOCAB - 4)])
+def _vocabulary(cls):
+    return cls([f"w{i}" for i in range(VOCAB - 4)])
 
 
 def _build(enc_cls, att_cls, dec_cls, conditional_gru):
-    vocab = _vocabulary()
+    vocab = _vocabulary(JaxVocabulary if enc_cls is JaxSentenceEncoder
+                        else Vocabulary)
     enc = enc_cls(name="encoder", vocabulary=vocab, data_id="source",
                   embedding_size=WIDTH, rnn_size=WIDTH, max_input_len=SRC)
     att = att_cls(name="attention", encoder=enc, state_size=WIDTH)
@@ -305,8 +307,10 @@ def test_length_penalty_matches_jax():
                jax_length_penalty(jnp.asarray(lengths), alpha))
 
 
-def test_resolver_builds_port_and_jax_free_modules_only():
-    from neuralmonkey_tpu.evaluators.bleu import BLEU
+def test_resolver_builds_port_modules_only():
+    from neuralmonkey_tpu_torch.evaluators.bleu import BLEU
+    from neuralmonkey_tpu_torch.trainers.optimizers import AdamOptimizer
+    from neuralmonkey_tpu_torch.vocabulary import from_wordlist
     assert resolve_class_symbol("encoders.recurrent.SentenceEncoder") \
         is SentenceEncoder
     assert resolve_class_symbol(
@@ -315,8 +319,12 @@ def test_resolver_builds_port_and_jax_free_modules_only():
     assert resolve_class_symbol(
         "neuralmonkey_tpu.models.attention.feed_forward.Attention") \
         is Attention
+    # the JAX package's JAX-free modules resolve to the port's copies
     assert resolve_class_symbol("evaluators.bleu.BLEU") is BLEU
-    with pytest.raises(ImportError, match="not ported"):
-        resolve_class_symbol("tf.train.AdamOptimizer")
+    assert resolve_class_symbol(
+        "neuralmonkey_tpu.vocabulary.from_wordlist") is from_wordlist
+    assert resolve_class_symbol("tf.train.AdamOptimizer") is AdamOptimizer
     with pytest.raises(ImportError, match="not ported"):
         resolve_class_symbol("neuralmonkey_tpu.trainers.optimizers.Adam")
+    with pytest.raises(ImportError, match="not ported"):
+        resolve_class_symbol("processors.bpe.BPEPreprocessor")

@@ -4,7 +4,10 @@ One inference-only copy of tests/configs/beamsearch.ini (greedy and
 hierarchical beam search, small widths) is built by both packages; the
 port loads the JAX parameters and must decode the same ids with the
 same beam scores, through the runners' fetches and through the ``run``
-CLI. A subprocess checks that the port never imports JAX.
+CLI. The port's copy of the INI asks for the CPU
+(``[tf_manager] device="cpu"``), which the JAX manager does not take.
+Subprocesses check that neither the port nor ``chip_smoke.py`` imports
+JAX or the JAX package.
 """
 
 import os
@@ -15,13 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from neuralmonkey_tpu.config.exceptions import ConfigBuildException
-from neuralmonkey_tpu.dataset import Dataset
 from neuralmonkey_tpu.experiment import Experiment as JaxExperiment
 from neuralmonkey_tpu.model.part import Context as JaxContext
 from neuralmonkey_tpu.utils.saving import flatten_tree as jax_flatten
 
 from neuralmonkey_tpu_torch import run as torch_run
+from neuralmonkey_tpu_torch import runtime
+from neuralmonkey_tpu_torch.config.exceptions import ConfigBuildException
+from neuralmonkey_tpu_torch.dataset import Dataset
 from neuralmonkey_tpu_torch.experiment import Experiment
 from neuralmonkey_tpu_torch.model.part import Context
 from neuralmonkey_tpu_torch.utils.saving import params_from_jax
@@ -49,6 +53,7 @@ random_seed=1234
 [tf_manager]
 class=tf_manager.TensorFlowManager
 num_sessions=1
+{manager_extra}
 
 [train_data]
 class=dataset.load_dataset_from_files
@@ -128,11 +133,15 @@ s_target_beam_out="{out}/beam.txt"
 """
 
 
-def _write_experiment(tmp_path, selection="hierarchical", decoder_extra=""):
-    path = tmp_path / f"exp_{selection}.ini"
+def _write_experiment(tmp_path, selection="hierarchical", decoder_extra="",
+                      port=False):
+    """The INI for the JAX package, or with ``port`` the port's copy,
+    which asks for the CPU."""
+    path = tmp_path / f"exp_{selection}{'_port' if port else ''}.ini"
     path.write_text(EXPERIMENT_INI.format(
         out=tmp_path / "out", batch=BATCH, data=DATA, selection=selection,
-        decoder_extra=decoder_extra))
+        decoder_extra=decoder_extra,
+        manager_extra='device="cpu"' if port else ""))
     return str(path)
 
 
@@ -145,7 +154,7 @@ def _source_dataset(n):
 def _both_models(ini):
     jax_exp = JaxExperiment(ini, train_mode=False)
     jax_exp.build_model()
-    torch_exp = Experiment(ini)
+    torch_exp = Experiment(ini, config_changes=['tf_manager.device="cpu"'])
     torch_exp.build_model()
     manager = torch_exp.tf_manager
     manager.params = params_from_jax(
@@ -194,13 +203,14 @@ def test_run_cli_writes_jax_outputs(tmp_path):
     ini = _write_experiment(tmp_path)
     jax_exp = JaxExperiment(ini, train_mode=False)
     jax_exp.build_model()
+    port_ini = _write_experiment(tmp_path, port=True)
     ckpt = tmp_path / "jax_params.npz"
     with open(ckpt, "wb") as f:
         np.savez(f, **jax_flatten(jax_exp.tf_manager.params))
     data_ini = tmp_path / "data.ini"
     data_ini.write_text(DATA_INI.format(data=DATA, out=tmp_path / "out"))
 
-    assert torch_run.main([ini, str(data_ini), str(ckpt)]) == 0
+    assert torch_run.main([port_ini, str(data_ini), str(ckpt)]) == 0
 
     dataset = _source_dataset(None)
     _, jax_outputs = jax_exp.run_model(dataset)
@@ -213,39 +223,62 @@ def test_run_cli_writes_jax_outputs(tmp_path):
 
 
 def test_unported_section_names_itself(tmp_path):
-    """A config section whose class the port lacks (here a trainer)
-    raises a ConfigBuildException naming that section."""
-    ini = _write_experiment(tmp_path)
+    """A config section whose class the port lacks (here an optimizer
+    not ported yet) raises a ConfigBuildException naming that
+    section."""
+    ini = _write_experiment(tmp_path, port=True)
     text = open(ini).read().replace(
         "random_seed=1234",
         "random_seed=1234\ntrainer=<trainer>") + (
         "\n[trainer]\nclass=trainers.cross_entropy_trainer."
-        "CrossEntropyTrainer\ndecoders=[<decoder>]\n")
+        "CrossEntropyTrainer\ndecoders=[<decoder>]\noptimizer=<rmsprop>\n"
+        "\n[rmsprop]\nclass=tf.train.RMSPropOptimizer\n")
     with open(ini, "w") as f:
         f.write(text)
-    with pytest.raises(ConfigBuildException, match="trainer"):
+    with pytest.raises(ConfigBuildException, match="rmsprop"):
         Experiment(ini).build_model()
 
 
 def test_compute_dtype_raises(tmp_path):
-    ini = _write_experiment(tmp_path)
+    ini = _write_experiment(tmp_path, port=True)
     with pytest.raises(ValueError, match="bf16 policy not yet ported"):
         Experiment(ini, config_changes=['main.compute_dtype="bfloat16"']
                    ).build_model()
 
 
-def test_port_imports_no_jax():
-    """Importing every module of the port leaves JAX unimported."""
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import neuralmonkey_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "import neuralmonkey_tpu.evaluators.bleu\n"
-        "assert 'jax' not in sys.modules, sorted(\n"
-        "    k for k in sys.modules if k.startswith('jax'))[:5]\n"
-        "print('ok')\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+_NO_JAX_CHECK = (
+    "import sys\n"
+    "bad = sorted(k for k in sys.modules if k == 'jax'\n"
+    "             or k.startswith('jax.') or k == 'neuralmonkey_tpu'\n"
+    "             or k.startswith('neuralmonkey_tpu.'))\n"
+    "assert not bad, bad[:5]\n"
+    "print('ok')\n")
+
+
+@pytest.mark.parametrize("imports", [
+    # every module of the port
+    "import importlib, pkgutil\n"
+    "import neuralmonkey_tpu_torch as p\n"
+    "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+    "    importlib.import_module(m.name)\n",
+    # chip_smoke.py, with everything its phases import
+    "import chip_smoke\n"
+    "chip_smoke.import_everything()\n",
+], ids=["port", "chip_smoke"])
+def test_port_imports_no_jax(imports):
+    """Importing every module of the port, or ``chip_smoke.py`` and all
+    it imports, leaves JAX and the JAX package unimported."""
+    proc = subprocess.run([sys.executable, "-c", imports + _NO_JAX_CHECK],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == "ok"
+
+
+def test_manager_without_a_card_raises(monkeypatch):
+    """With no visible card and no ``device``, the manager raises and
+    names the way to ask for the CPU; nothing falls back to it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        runtime.CUDAManager()
+    assert runtime.CUDAManager(device="cpu").device.type == "cpu"
