@@ -41,10 +41,45 @@ Phases (any failure raises and the script exits non-zero):
    (kernels, with and without the fused cross-entropy) against the CPU
    (plain versions): loss to 1e-5 relative, each parameter's gradient
    to 1e-3 of its largest entry (float32 sums in another order through
-   80 recurrent steps; TF32 off).
+   80 recurrent steps; TF32 off);
+8. Transformer kernels: flash attention forward, dq and dkv at the
+   encoder's (32 x 32), the decoder's causal (48 x 48) and cross
+   (48 x 32) shapes of bench.py's Transformer (batch 64, 8 heads, head
+   dim 64) and at a ragged shape, with and without attention dropout
+   (keep 0.9): outputs and lse to 1e-5, the gradients to 1e-4 of their
+   largest entry against autograd of the plain version, and the
+   dropout mask read back from the kernel equal to the hash's; lineage
+   attention at batch 64, 8 heads, beam 10, 48 steps, windows 12, 24
+   and 48, and a ragged shape, to 1e-5;
+9. Transformer serving: bench.py's Transformer (512 wide, FFN 2048, 6 +
+   6 layers, 8 heads, vocabulary 30000, tied target embeddings) with
+   random seeded weights decodes the 128 sentences greedily and with
+   beam 10 through ``run``, then with beam 10 again under
+   ``NM_LINEAGE_KERNEL=1``; the flash forward, K3 and K4 must launch in
+   the first run, lineage attention in the second;
+10. Transformer parity: 8 sentences on the CPU and on the card, greedy
+   and beam 10 (lineage kernel form), by the margin rule of phase 5;
+11. Transformer training: 20 steps through ``train`` (delayed updates
+   every 2 batches, Adam on the noam schedule, label smoothing 0.1,
+   attention dropout keep 0.9, residual dropout keep 0.9); the loss
+   must fall and the flash forward, dq and dkv kernels must launch;
+12. Transformer training parity: from that checkpoint, residual
+   dropout off and attention dropout on (both devices draw the same
+   hash mask from the same key words), the loss and every gradient of
+   one step on the card, without and with the fused cross-entropy (tied
+   (V, D) layout, label smoothing 0.1), against the CPU, by the limits
+   of phase 7; an attention key bias, whose exact gradient is 0, is held
+   against the largest entry of its key weight's gradient, and the CPU
+   follows the card's ReLU branch, every unit whose sign differs
+   between the devices being within 1e-4 of 0 on the CPU.
 
-The line before the last is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+Kernel times are device times: CUDA events between back-to-back calls
+queued behind a spin kernel (``call_ms`` times one call of the wrapper
+alone, with its host cost).
+
+Every phase prints its seconds. The line before the last is a JSON
+object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -72,6 +107,15 @@ XENT_N, XENT_D = BATCH * TGT_LEN, EMB
 # the H100's published peaks (SXM, 700 W): float32 on the CUDA cores,
 # and HBM3
 F32_PEAK, HBM_RATE = 67e12, 3.35e12
+# a spin of about 50 ms at the H100's clock: long enough for the host to
+# queue every timed call behind it
+SPIN_CYCLES = 100_000_000
+# training parity: a ReLU pre-activation this close to 0 may take either
+# side on either device
+RELU_MARGIN = 1e-4
+# training parity against a float64 step: the card's float32 gradient may
+# lie this many times as far from it as the CPU's float32 gradient does
+GRAD_SPREAD = 4.0
 
 KERNELS = {
     "gru_scan": ("neuralmonkey_tpu_torch/csrc/gru_scan.cu",
@@ -90,7 +134,26 @@ KERNELS = {
                           "neuralmonkey_tpu/ops/fused_xent.py:290"),
     "fused_xent_bwd_dw": ("neuralmonkey_tpu_torch/csrc/fused_xent.cu",
                           "neuralmonkey_tpu/ops/fused_xent.py:316"),
+    "flash_attention_fwd": (
+        "neuralmonkey_tpu_torch/csrc/flash_attention.cu",
+        "neuralmonkey_tpu/ops/pallas_attention.py:85"),
+    "flash_attention_bwd_dq": (
+        "neuralmonkey_tpu_torch/csrc/flash_attention.cu",
+        "neuralmonkey_tpu/ops/pallas_attention.py:359"),
+    "flash_attention_bwd_dkv": (
+        "neuralmonkey_tpu_torch/csrc/flash_attention.cu",
+        "neuralmonkey_tpu/ops/pallas_attention.py:425"),
+    "lineage_attention": ("neuralmonkey_tpu_torch/csrc/lineage_attention.cu",
+                          "neuralmonkey_tpu/ops/lineage_attention.py:71"),
 }
+# bench.py build_transformer: 512 wide, FFN 2048, 6 + 6 layers, 8 heads
+T_DIM, T_FF, T_DEPTH, T_HEADS = 512, 2048, 6, 8
+T_HEAD_DIM = T_DIM // T_HEADS
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+T_SERVING_KERNELS = ("flash_attention_fwd", "fused_logits_rowmax_lse",
+                     "small_topk")
+T_ATT_KEEP = 0.9
 
 
 def import_everything() -> None:
@@ -100,11 +163,15 @@ def import_everything() -> None:
 
     from neuralmonkey_tpu_torch import experiment, run, train  # noqa: F401
     from neuralmonkey_tpu_torch.model import part  # noqa: F401
-    from neuralmonkey_tpu_torch.models.decoders import \
-        beam_search_decoder  # noqa: F401
+    from neuralmonkey_tpu_torch.models.decoders import (  # noqa: F401
+        beam_search_decoder, transformer)
+    from neuralmonkey_tpu_torch.models.encoders import \
+        transformer as _  # noqa: F401
     from neuralmonkey_tpu_torch.ops import (  # noqa: F401
-        beam_select, cuda_attention, cuda_rnn, fused_xent, kernel_config,
-        nn)
+        beam_select, cuda_attention, cuda_rnn, flash_attention, fused_xent,
+        kernel_config, lineage_attention, nn)
+    from neuralmonkey_tpu_torch.trainers import \
+        delayed_update_trainer  # noqa: F401
     from neuralmonkey_tpu_torch.utils import saving  # noqa: F401
 
 
@@ -113,7 +180,29 @@ def log(message: str) -> None:
 
 
 def time_ms(fn, runs: int = 25) -> float:
-    """Median milliseconds of ``fn`` on the card, from CUDA events."""
+    """Median device milliseconds of one call of ``fn``: CUDA events
+    between ``runs`` back-to-back calls, all queued while the card runs a
+    spin kernel, so the host's cost of a call does not reach the card's
+    clock (a call that synchronizes falls back to its wall time)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(runs + 1)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    events[0].record()
+    for event in events[1:]:
+        fn()
+        event.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b)
+                             for a, b in zip(events, events[1:]))
+
+
+def call_ms(fn, runs: int = 25) -> float:
+    """Median milliseconds of one call of ``fn`` from CUDA events around
+    it alone: the device time, or the host's cost of the call where that
+    is longer."""
     import torch
     for _ in range(3):
         fn()
@@ -166,9 +255,10 @@ def check_kernels(device):
     results = {}
 
     def record(name, err, tol, shape, ms=None, plain_ms=None, work=None,
-               library_ms=None):
-        """Check ``err <= tol``; for the timed shape keep the times and
-        the bound of ``work`` = (flops, bytes)."""
+               library_ms=None, call=None):
+        """Check ``err <= tol``; for the timed shape keep the times, the
+        bound of ``work`` = (flops, bytes) and, given the kernel's
+        wrapper as ``call``, its time alone with the host's cost."""
         log(f"{name} {shape}: max_abs_err {err:.3g} (tol {tol:g})"
             + ("" if ms is None else f", kernel {ms:.4f} ms, plain "
                f"{plain_ms:.4f} ms"))
@@ -177,7 +267,8 @@ def check_kernels(device):
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if ms is not None:
-            entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         call_ms=call_ms(call) if call else None)
             entry["bound_ms"], entry["bound_by"] = bound(*work)
 
     # K1: the encoder's BiGRU through the wrapper it calls (input
@@ -296,6 +387,7 @@ def check_kernels(device):
                            if timed else None))
 
     check_train_kernels(device, randn, lengths_mask, record)
+    check_transformer_kernels(device, randn, lengths_mask, record)
     torch.cuda.synchronize()
     return results
 
@@ -386,6 +478,166 @@ def check_train_kernels(device, randn, lengths_mask, record):
                              read + 8 * n + 4 * (d * v + v)))
 
 
+def check_transformer_kernels(device, randn, lengths_mask, record):
+    """Flash attention (forward, dq, dkv) and lineage attention against
+    their plain versions at the Transformer's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    from neuralmonkey_tpu_torch.ops import lineage_attention as la
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    key_words = (SEED, -7 * SEED)
+
+    def source_lengths(batch, time_):
+        return torch.randint(1, time_ + 1, (batch,), generator=gen).tolist()
+
+    # (case, batch, heads, q len, kv len, head dim, causal, key lengths):
+    # the encoder's and the cross-attention's keys are ragged sources;
+    # the decoder's self-attention sees every key under the causal mask;
+    # the ragged case spans two key tiles with an odd head dimension
+    cases = (
+        ("encoder", BATCH, T_HEADS, SRC_LEN, SRC_LEN, T_HEAD_DIM, False,
+         source_lengths(BATCH, SRC_LEN)),
+        ("decoder self", BATCH, T_HEADS, TGT_LEN, TGT_LEN, T_HEAD_DIM, True,
+         [TGT_LEN] * BATCH),
+        ("cross", BATCH, T_HEADS, TGT_LEN, SRC_LEN, T_HEAD_DIM, False,
+         source_lengths(BATCH, SRC_LEN)),
+        ("ragged", 3, 5, 37, 70, 40, False, [70, 33, 1]),
+    )
+    for case, b, h, tq, tk, d, causal, lengths in cases:
+        mask = lengths_mask(lengths, tk)
+        q, k, v, g = (randn(b, h, t, d) for t in (tq, tk, tk, tq))
+        for keep in (1.0, T_ATT_KEEP):
+            drop = (key_words if keep < 1.0 else None, keep)
+            shape = (case, b, h, tq, tk, d, f"keep {keep}")
+            timed = case == "encoder" and keep == 1.0
+            out, lse = fa.flash_forward(q, k, v, mask, causal, *drop)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref_out, ref_lse = fa.flash_forward_reference(*leaves, mask,
+                                                          causal, *drop)
+            ref_grads = torch.autograd.grad(ref_out, leaves, g)
+            dcap = (g * out).sum(dim=-1)
+            bwd = (q, k, v, mask, lse, g, dcap, causal, *drop)
+            dq = fa.flash_backward_dq(*bwd)
+            dk, dv = fa.flash_backward_dkv(*bwd)
+            # work of one call; the causal mask halves what is needed.
+            # The forward reads q, k, v and the mask and writes out and
+            # lse; the backward reads those but out, and dO and dcap
+            pairs = b * h * tq * tk * (0.5 if causal else 1.0)
+            qo, kv = 4 * b * h * tq * d, 4 * b * h * tk * d
+            fwd_work = (4 * pairs * d, 2 * qo + 2 * kv + 4 * b * tk
+                        + 4 * b * h * tq)
+            bwd_read = 2 * qo + 2 * kv + 4 * b * tk + 8 * b * h * tq
+            timing = {"fwd": {}, "dq": {}, "dkv": {}}
+            if timed:
+                bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+                lib_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                lib_out = F.scaled_dot_product_attention(*lib_leaves,
+                                                         attn_mask=bias)
+                # the plain and the library backward each compute dq, dk
+                # and dv together: both backward rows show that one call
+                timing = {
+                    "fwd": timings(
+                        lambda: fa.flash_forward(q, k, v, mask, causal, *drop),
+                        lambda: fa.flash_forward_reference(q, k, v, mask,
+                                                           causal, *drop),
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=bias)),
+                    "dq": timings(
+                        lambda: fa.flash_backward_dq(*bwd),
+                        lambda: fa.flash_backward_reference(
+                            q, k, v, mask, out, lse, g, causal, *drop),
+                        lambda: torch.autograd.grad(
+                            lib_out, lib_leaves, g, retain_graph=True))}
+                timing["dkv"] = dict(
+                    timing["dq"], ms=time_ms(lambda: fa.flash_backward_dkv(
+                        *bwd)), call=lambda: fa.flash_backward_dkv(*bwd))
+            err = max(max_err(out, ref_out.detach()),
+                      max_err(lse, ref_lse.detach()))
+            record("flash_attention_fwd", err, 1e-5, shape, work=fwd_work,
+                   **timing["fwd"])
+
+            def grad_err(got, want):
+                return max(max_err(a, w) / max(1e-6, float(w.abs().max()))
+                           for a, w in zip(got, want))
+            record("flash_attention_bwd_dq", grad_err([dq], ref_grads[:1]),
+                   1e-4, shape, work=(6 * pairs * d, bwd_read + qo),
+                   **timing["dq"])
+            record("flash_attention_bwd_dkv",
+                   grad_err([dk, dv], ref_grads[1:]), 1e-4, shape,
+                   work=(8 * pairs * d, bwd_read + 2 * kv), **timing["dkv"])
+            if keep < 1.0 and tk <= d:
+                check_dropout_mask(q, k, mask, causal, key_words, keep,
+                                   shape)
+
+    # lineage attention: a beam step's self-attention over the K slots'
+    # unpermuted caches at the full decode shape, windows 12, 24 and 48
+    # positions, and a ragged shape; timed at the full window
+    for b, h, beam, t, d, windows in (
+            (BATCH, T_HEADS, BEAM, TGT_LEN, T_HEAD_DIM, (12, 24, TGT_LEN)),
+            (3, 2, 7, 9, 40, (5,))):
+        q = randn(b, h, beam, d)
+        kq = randn(b, h, d, beam * t)
+        vq = randn(b, h, beam * t, d)
+        for win in windows:
+            anc = torch.randint(0, beam, (b, beam, t), generator=gen,
+                                dtype=torch.int32).to(device)
+            lanes = la.lane_window(win, beam, beam * t)
+            bias = la.lineage_bias(anc, win - 1, win, beam, lanes, t)
+            got = la.lineage_attention(q, kq, vq, bias)
+            ref = la.lineage_attention_reference(q, kq, vq, bias)
+            timing = {}
+            if (b, win) == (BATCH, TGT_LEN):
+                timing = timings(
+                    lambda: la.lineage_attention(q, kq, vq, bias),
+                    lambda: la.lineage_attention_reference(q, kq, vq, bias),
+                    lambda: F.scaled_dot_product_attention(
+                        q, kq[..., :lanes].transpose(-1, -2),
+                        vq[:, :, :lanes], attn_mask=bias[:, None]))
+            work = (4 * b * h * beam * lanes * d,
+                    4 * (2 * b * h * beam * d + 2 * b * h * lanes * d
+                         + b * beam * lanes))
+            record("lineage_attention", max_err(got, ref), 1e-5,
+                   (b, h, beam, t, d, f"window {win}"), work=work, **timing)
+
+
+def timings(kernel, plain, library):
+    """``record``'s timing arguments: the device times of the kernel's
+    wrapper, its plain version and the library call, and the wrapper to
+    time alone."""
+    return dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
+                library_ms=time_ms(library), call=kernel)
+
+
+def check_dropout_mask(q, k, mask, causal, key_words, keep, shape):
+    """With one-hot value rows the context shows which weights the
+    forward kernel kept: they must be the hash's keep mask wherever a
+    key is visible."""
+    import torch
+
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    onehot = torch.eye(tk, d, device=q.device).expand(b, h, tk,
+                                                      d).contiguous()
+    # small scores, so every visible weight is far from underflow
+    out, _ = fa.flash_forward(q * 0.1, k * 0.1, onehot, mask, causal,
+                              key_words, keep)
+    visible = (mask > 0)[:, None, None, :]
+    if causal:
+        visible = visible & torch.ones(tq, tk, dtype=torch.bool,
+                                       device=q.device).tril()
+    want = fa.keep_mask_dense(key_words, b, h, tq, tk, keep,
+                              q.device) & visible
+    if not torch.equal(out[..., :tk] != 0, want):
+        raise AssertionError(f"flash_attention_fwd {shape}: the kernel's "
+                             "dropout mask differs from the keep hash")
+    log(f"flash_attention_fwd {shape}: dropout mask equal to the hash "
+        f"({float(want.float().mean()):.4f} of the weights kept)")
+
+
 # ---------------------------------------------------------------------- #
 # phase 4: the full-width slice through the run CLI
 # ---------------------------------------------------------------------- #
@@ -458,8 +710,8 @@ test_datasets=[<test_data>]
 [test_data]
 class=dataset.load_dataset_from_files
 s_source="{tmp}/source.txt"
-s_target_out="{tmp}/greedy.txt"
-s_target_beam_out="{tmp}/beam.txt"
+s_target_out="{tmp}/{prefix}greedy.txt"
+s_target_beam_out="{tmp}/{prefix}beam.txt"
 """
 
 
@@ -480,49 +732,76 @@ def write_inputs(tmp: str):
             emb=EMB, att=ATT, max_out=MAX_OUT, beam=BEAM))
     data_ini = os.path.join(tmp, "data.ini")
     with open(data_ini, "w") as f:
-        f.write(DATA_INI.format(tmp=tmp))
+        f.write(DATA_INI.format(tmp=tmp, prefix=""))
     return exp_ini, data_ini
 
 
 def run_slice(tmp: str):
-    import torch
-
-    from neuralmonkey_tpu_torch import run
     from neuralmonkey_tpu_torch.experiment import Experiment
-    from neuralmonkey_tpu_torch.ops import kernel_config
 
     exp_ini, data_ini = write_inputs(tmp)
     exp = Experiment(exp_ini)
     exp.build_model()
     ckpt = exp.tf_manager.save(os.path.join(tmp, "params"))
+    launches, outputs = serve_through_run(
+        exp_ini, data_ini, ckpt, SERVING_KERNELS,
+        [os.path.join(tmp, name) for name in ("greedy.txt", "beam.txt")],
+        "slice")
+    lengths = mean_lengths(outputs)
+    speed = serving_speed(exp, ckpt, data_ini, exp.model.runners)
+    log(f"slice: mean output tokens {lengths}, {speed}")
+    return launches, lengths, speed, exp, ckpt, data_ini
+
+
+def serve_through_run(exp_ini: str, data_ini: str, ckpt: str, expected,
+                      outputs, label: str):
+    """One ``run`` CLI pass from ``ckpt`` with the launch counts set to 0
+    just before it: (its launches, the lines of each output file). Every
+    kernel in ``expected`` must have launched."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.ops import kernel_config
 
     kernel_config.reset_launch_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
     if run.main([exp_ini, data_ini, ckpt]) != 0:
-        raise AssertionError("neuralmonkey_tpu_torch.run failed")
+        raise AssertionError(f"{label}: neuralmonkey_tpu_torch.run failed")
     torch.cuda.synchronize()
     run_seconds = time.perf_counter() - start
     launches = kernel_config.launch_counts()
-    log(f"run CLI: {run_seconds:.2f} s, launches {launches}")
-    missing = [k for k in SERVING_KERNELS if launches[k] == 0]
+    log(f"{label}: run CLI {run_seconds:.2f} s, launches {launches}")
+    missing = [k for k in expected if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched by the run: "
+        raise AssertionError(f"{label}: kernels never launched by the run: "
                              f"{missing}")
-    lengths = {}
-    for name in ("greedy.txt", "beam.txt"):
-        with open(os.path.join(tmp, name)) as f:
-            lines = f.read().splitlines()
-        if len(lines) != N_SENTENCES:
-            raise AssertionError(f"{name}: {len(lines)} lines, expected "
-                                 f"{N_SENTENCES}")
-        lengths[name] = statistics.mean(len(x.split()) for x in lines)
+    lines = {}
+    for path in outputs:
+        with open(path) as f:
+            lines[os.path.basename(path)] = f.read().splitlines()
+        if len(lines[os.path.basename(path)]) != N_SENTENCES:
+            raise AssertionError(f"{label}: {path} does not hold "
+                                 f"{N_SENTENCES} lines")
+    return launches, lines
 
-    # throughput per runner on the same model, steady state
+
+def mean_lengths(outputs):
+    return {name: statistics.mean(len(x.split()) for x in lines)
+            for name, lines in outputs.items()}
+
+
+def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix=""):
+    """Sentences/s and peak memory of each runner over the test data on
+    ``exp``'s model restored from ``ckpt``, after a warm-up pass."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+
     exp.tf_manager.restore(ckpt)
     dataset = run.load_data_config(data_ini)[0]
     speed = {}
-    for runner in exp.model.runners:
+    for runner in runners:
         exp.tf_manager.execute(dataset, [runner], BATCH)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -530,17 +809,16 @@ def run_slice(tmp: str):
         exp.tf_manager.execute(dataset, [runner], BATCH)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-        speed[runner.output_series] = {
+        speed[runner.output_series + suffix] = {
             "sentences_per_s": N_SENTENCES / seconds,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    log(f"slice: mean output tokens {lengths}, {speed}")
-    return launches, lengths, speed, exp, ckpt, data_ini
+    return speed
 
 
 # ---------------------------------------------------------------------- #
 # phase 5: CPU (plain versions) against the card (kernels)
 # ---------------------------------------------------------------------- #
-def check_parity(tmp: str, data_ini: str, gpu_exp, ckpt: str):
+def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
     import torch
 
     from neuralmonkey_tpu_torch import run
@@ -549,8 +827,7 @@ def check_parity(tmp: str, data_ini: str, gpu_exp, ckpt: str):
     from neuralmonkey_tpu_torch.models.decoders import beam_search_decoder
 
     dataset = run.load_data_config(data_ini)[0].subset(0, N_PARITY)
-    cpu_exp = Experiment(os.path.join(tmp, "exp.ini"),
-                         config_changes=['tf_manager.device="cpu"'])
+    cpu_exp = Experiment(exp_ini, config_changes=['tf_manager.device="cpu"'])
     cpu_exp.build_model()
     cpu_exp.tf_manager.restore(ckpt)
 
@@ -802,16 +1079,19 @@ def write_training_inputs(tmp: str) -> str:
     return path
 
 
-def run_training(tmp: str, train_ini: str, fused: bool):
+def run_training(tmp: str, train_ini: str, fused: bool, name: str = "train",
+                 expected=("gru_scan", "gru_bptt", "fused_bahdanau_step")):
     """One epoch through the train CLI, then ``run`` from its best
     checkpoint; returns the launch counts of the training run, its
-    record and the checkpoint."""
+    record and the checkpoint. Every kernel in ``expected`` must launch
+    in the training run, the cross-entropy kernels exactly when
+    ``fused``."""
     import torch
 
     from neuralmonkey_tpu_torch import run, train
     from neuralmonkey_tpu_torch.ops import kernel_config
 
-    out = os.path.join(tmp, "train_fused" if fused else "train_plain")
+    out = os.path.join(tmp, f"{name}_fused" if fused else f"{name}_plain")
     if fused:
         os.environ["NM_FUSED_XENT"] = "1"
     try:
@@ -831,8 +1111,7 @@ def run_training(tmp: str, train_ini: str, fused: bool):
     losses = [r["loss"] for r in windows]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
-    expected = ("gru_scan", "gru_bptt", "fused_bahdanau_step")
-    xent = ("fused_xent_fwd", "fused_xent_bwd_dx", "fused_xent_bwd_dw")
+    xent =("fused_xent_fwd", "fused_xent_bwd_dx", "fused_xent_bwd_dw")
     missing = [k for k in expected if launches[k] == 0]
     wrong = [k for k in xent if (launches[k] > 0) != fused]
     if missing or wrong:
@@ -840,15 +1119,15 @@ def run_training(tmp: str, train_ini: str, fused: bool):
                              f"launched {missing}, cross-entropy kernels "
                              f"wrong for fused={fused}: {wrong}")
     best = os.path.join(out, "variables.data.best")
-    data_ini = os.path.join(tmp, "train_data.ini")
+    data_ini = os.path.join(tmp, f"{name}_data.ini")
     with open(data_ini, "w") as f:
         f.write(TRAIN_DATA_INI.format(tmp=tmp, out=out))
     if run.main([train_ini, data_ini, best]) != 0:
         raise AssertionError("neuralmonkey_tpu_torch.run failed")
-    for name in ("greedy.txt", "beam.txt"):
-        with open(os.path.join(out, name)) as f:
+    for output in ("greedy.txt", "beam.txt"):
+        with open(os.path.join(out, output)) as f:
             if len(f.read().splitlines()) != N_VAL:
-                raise AssertionError(f"run from {best}: {name} is short")
+                raise AssertionError(f"run from {best}: {output} is short")
     # tokens/s of the logging windows after the first (the first holds
     # the warm-up)
     rates = [r["tokens_per_sec"] for r in windows]
@@ -859,69 +1138,344 @@ def run_training(tmp: str, train_ini: str, fused: bool):
               "val": {k: v for r in records if r["kind"] == "val"
                       for k, v in r.items() if k not in ("kind", "time")},
               "launches": launches}
-    log(f"training (fused xent {fused}): {record}")
+    log(f"{name} (fused xent {fused}): {record}")
     return launches, record, best
 
 
 # ---------------------------------------------------------------------- #
 # phase 7: one training step on the card against the CPU
 # ---------------------------------------------------------------------- #
-def check_train_parity(train_ini: str, ckpt: str):
-    """Loss and every parameter gradient of one step, dropout off, from
-    ``ckpt`` on 8 sentences: card (kernels) against CPU (plain)."""
+def check_train_parity(train_ini: str, ckpt: str,
+                       parts=("encoder", "attention", "decoder"),
+                       float64: bool = False, check: bool = True):
+    """Loss and every parameter gradient of one step from ``ckpt`` on 8
+    sentences, the dropout of ``parts`` off (attention dropout, where a
+    part has it, stays on: the keep hash draws the same mask on both
+    devices): card (kernels) against CPU (plain).
+
+    A ReLU is not differentiable at 0: a pre-activation within rounding
+    of 0 may fall on the other side on the card, and one such unit moves
+    a weight's gradient by one token's share. So the card's passes record
+    which units are on, the CPU's passes take the card's (the same
+    piecewise-linear branch), and every unit where the devices'
+    pre-activations differ in sign must be a near-tie: at most
+    ``RELU_MARGIN`` from 0 on the CPU.
+
+    Each gradient on the card must lie within 1e-3 of its largest entry
+    of the CPU's. With ``float64`` the CPU also takes the step in
+    float64, and the card's gradient must lie within 1e-3 of the largest
+    entry of that one, or no further from it than ``GRAD_SPREAD`` times
+    the CPU's float32 gradient lies: where a gradient is a small
+    difference of large float32 sums (the softmax backward's dq cancels
+    the keys' common part), both devices' rounding is amplified alike.
+    The report gives, for each pass, the least spread it would pass
+    under (``spread_needed``); ``check=False`` reports without raising
+    (``scripts/grad_rule_faults.py`` reads planted faults so)."""
     import torch
 
     from neuralmonkey_tpu_torch.dataset import BatchingScheme
     from neuralmonkey_tpu_torch.experiment import Experiment
     from neuralmonkey_tpu_torch.utils.saving import flatten_tree
 
-    changes = [f"{part}.dropout_keep_prob=1.0"
-               for part in ("encoder", "attention", "decoder")]
+    changes = [f"{part}.dropout_keep_prob=1.0" for part in parts]
+    plain_relu = torch.relu
 
-    def loss_and_grads(device_change, fused):
+    def cast(tree, dtype):
+        if isinstance(tree, dict):
+            return {k: cast(v, dtype) for k, v in tree.items()}
+        return tree.to(dtype) if tree.is_floating_point() else tree
+
+    def loss_and_grads(device_change, fused, relu, dtype=torch.float32):
         exp = Experiment(train_ini, train_mode=True,
                          config_changes=changes + device_change)
         exp.build_model()
         manager = exp.tf_manager
         manager.restore(ckpt)
+        manager.params = cast(manager.params, dtype)
         dataset = next(exp.model.train_dataset.batches(
             BatchingScheme(batch_size=N_PARITY), shuffled=False))
-        batch, _ = manager.build_batch(dataset, N_PARITY, train=True)
+        batch = cast(manager.build_batch(dataset, N_PARITY, train=True)[0],
+                     dtype)
         flat = flatten_tree(manager.params)
         for p in flat.values():
             p.requires_grad_(True)
         if fused:
             os.environ["NM_FUSED_XENT"] = "1"
+        torch.relu = relu
         try:
             total, _ = exp.model.trainer.total_loss(manager.params, batch,
                                                     rng=0)
             total.backward()
         finally:
+            torch.relu = plain_relu
             os.environ.pop("NM_FUSED_XENT", None)
-        return (total.item(), {k: p.grad.detach().cpu()
+        return (total.item(), {k: p.grad.detach().cpu().double()
                                for k, p in flat.items()})
 
-    ref_loss, ref_grads = loss_and_grads(['tf_manager.device="cpu"'], False)
-    report = {}
+    def recording(masks):
+        def relu(x):
+            masks.append((x > 0).cpu())
+            return plain_relu(x)
+        return relu
+
+    flipped = []
+
+    def following(masks):
+        calls = iter(masks)
+
+        def relu(x):
+            on = next(calls)
+            flipped.append(x.detach()[on != (x > 0)].abs().float())
+            return torch.where(on, x, 0.0)
+        return relu
+
+    card, card_masks = {}, {}
     for fused in (False, True):
-        loss, grads = loss_and_grads([], fused)
+        card_masks[fused] = []
+        card[fused] = loss_and_grads([], fused, recording(card_masks[fused]))
+    if not all(torch.equal(a, b) for a, b in zip(*card_masks.values())):
+        raise AssertionError("the card's two passes switched different "
+                             "ReLU units on")
+    cpu = ['tf_manager.device="cpu"']
+    ref_loss, ref_grads = loss_and_grads(cpu, False,
+                                         following(card_masks[False]))
+    truth = ref_grads
+    if float64:
+        truth = loss_and_grads(cpu, False, following(card_masks[False]),
+                               torch.float64)[1]
+    flips = torch.cat([f.flatten() for f in flipped] + [torch.zeros(1)])
+    units = sum(m.numel() for m in card_masks[False])
+    # the float32 pass's flips (the float64 pass follows in ``flipped``)
+    n_flips = sum(len(f) for f in flipped[:len(card_masks[False])])
+    log(f"training parity: {n_flips} of {units} ReLU units differ in sign "
+        f"between the card and the CPU, at most {float(flips.max()):.3g} "
+        "from 0 on the CPU")
+    if not float(flips.max()) <= RELU_MARGIN:
+        raise AssertionError(f"a ReLU unit {float(flips.max())} from 0 on the "
+                             "CPU is off on one device and on on the other")
+
+    def scale(key):
+        """The largest entry of the reference gradient of ``key``; for an
+        attention key bias, whose exact gradient is 0 (it shifts every
+        score of a row alike) so that its entries are rounding noise,
+        that of its key weight."""
+        if key.endswith("/k/b"):
+            key = key[:-1] + "w"
+        return max(float(truth[key].abs().max()), 1e-30)
+
+    # the CPU's float32 gradients' deviation from the reference (0 when
+    # the reference is the CPU's float32 step itself)
+    cpu_dev = {k: max_err(g, truth[k]) / scale(k) for k, g in ref_grads.items()}
+    report = {"relu_units": units, "relu_units_flipped": n_flips,
+              "reference": "cpu float64" if float64 else "cpu float32"}
+    for fused in (False, True):
+        loss, grads = card[fused]
         loss_err = abs(loss - ref_loss) / abs(ref_loss)
-        worst_key, worst = max(
-            ((k, max_err(g, ref_grads[k])
-              / max(float(ref_grads[k].abs().max()), 1e-30))
-             for k, g in grads.items()), key=lambda kv: kv[1])
+        dev = {k: max_err(g, truth[k]) / scale(k) for k, g in grads.items()}
+        worst = max(dev, key=lambda k: dev[k] / max(1e-3,
+                                                    GRAD_SPREAD * cpu_dev[k]))
+        # the pass holds iff every leaf beyond 1e-3 lies within
+        # GRAD_SPREAD times the CPU float32's deviation
+        beyond = {k: dev[k] / max(cpu_dev[k], 1e-30) for k in dev
+                  if dev[k] > 1e-3}
+        spread = max(beyond.values(), default=0.0)
         log(f"training parity (fused xent {fused}): loss {loss:.6f} vs "
-            f"CPU {ref_loss:.6f} (relative {loss_err:.3g}); largest "
-            f"gradient deviation {worst:.3g} of the largest entry, at "
-            f"{worst_key}")
-        if not (loss_err <= 1e-5 and worst <= 1e-3):
+            f"CPU {ref_loss:.6f} (relative {loss_err:.3g}); against the "
+            f"{report['reference']} gradient the card's largest deviation "
+            f"{max(dev.values()):.3g} of the largest entry, relative to the "
+            f"limit at {worst}: card {dev[worst]:.3g}, CPU float32 "
+            f"{cpu_dev[worst]:.3g}; least spread that passes {spread:.3g}")
+        if check and not (loss_err <= 1e-5 and spread <= GRAD_SPREAD):
             raise AssertionError(
                 f"training step on the card differs from the CPU: loss "
-                f"{loss_err}, gradient {worst} at {worst_key}")
+                f"{loss_err}, gradient {dev[worst]} at {worst} (CPU float32 "
+                f"{cpu_dev[worst]})")
         report["fused" if fused else "plain"] = {
             "loss": loss, "cpu_loss": ref_loss, "loss_rel_err": loss_err,
-            "grad_rel_err": worst, "grad_rel_err_at": worst_key}
+            "grad_rel_err_max": max(dev.values()),
+            "grad_rel_err_max_at": max(dev, key=dev.get),
+            "closest_to_limit": worst, "grad_rel_err": dev[worst],
+            "cpu_float32_grad_rel_err": cpu_dev[worst],
+            "spread_needed": spread,
+            "spread_needed_at": max(beyond, key=beyond.get, default=None)}
     return report
+
+
+# ---------------------------------------------------------------------- #
+# phases 9-12: bench.py's Transformer
+# ---------------------------------------------------------------------- #
+T_MODEL_INI = """\
+[tf_manager]
+class=tf_manager.TensorFlowManager
+num_sessions=1
+
+[vocabulary]
+class=vocabulary.from_wordlist
+path="{tmp}/words.txt"
+
+[encoder]
+class=encoders.transformer.TransformerEncoder
+name="encoder"
+embedding_size={dim}
+ff_hidden_size={ff}
+depth={depth}
+n_heads={heads}
+max_input_len={src_len}
+dropout_keep_prob={keep}
+attention_dropout_keep_prob={att_keep}
+data_id="source"
+vocabulary=<vocabulary>
+
+[decoder]
+class=decoders.transformer.TransformerDecoder
+name="decoder"
+encoders=[<encoder>]
+embedding_size={dim}
+ff_hidden_size={ff}
+depth={depth}
+n_heads_self={heads}
+n_heads_enc={heads}
+tie_embeddings=True
+label_smoothing=0.1
+dropout_keep_prob={keep}
+attention_dropout_keep_prob={att_keep}
+data_id="target"
+max_output_len={max_out}
+vocabulary=<vocabulary>
+
+[bs_decoder]
+class=decoders.beam_search_decoder.BeamSearchDecoder
+name="bs_decoder"
+parent_decoder=<decoder>
+beam_size={beam}
+length_normalization=0.6
+
+[runner]
+class=runners.runner.GreedyRunner
+decoder=<decoder>
+output_series="target"
+
+[bs_runner]
+class=runners.beam_search_runner.BeamSearchRunner
+decoder=<bs_decoder>
+output_series="target_beam"
+"""
+
+T_SERVING_MAIN = """\
+[main]
+name="chip smoke transformer"
+tf_manager=<tf_manager>
+output="{tmp}/t_output"
+batch_size={batch}
+runners=[<runner>, <bs_runner>]
+random_seed={seed}
+
+"""
+
+T_TRAINING_MAIN = """\
+[main]
+name="chip smoke transformer training"
+tf_manager=<tf_manager>
+output="{tmp}/t_train_out"
+overwrite_output_dir=True
+batch_size={batch}
+epochs=1
+train_dataset=<train_data>
+val_dataset=<val_data>
+trainer=<trainer>
+runners=[<runner>, <bs_runner>]
+evaluation=[("target", evaluators.bleu.BLEU)]
+logging_period=5
+validation_period=1000
+random_seed={seed}
+
+[train_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/train.src"
+s_target="{tmp}/train.tgt"
+lazy=False
+
+[val_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/val.src"
+s_target="{tmp}/val.tgt"
+
+[trainer]
+class=trainers.delayed_update_trainer.DelayedUpdateTrainer
+batches_per_update=2
+decoders=[<decoder>]
+clip_norm=1.0
+optimizer=<adam>
+
+[adam]
+class=tf.train.AdamOptimizer
+learning_rate=<noam>
+beta1=0.9
+beta2=0.98
+epsilon=1.0e-9
+
+[noam]
+class=functions.noam_decay
+learning_rate=0.2
+model_dimension={dim}
+warmup_steps=10
+
+"""
+
+
+def write_transformer_ini(tmp: str, name: str, main_section: str,
+                          keep: float, att_keep: float) -> str:
+    """bench.py's Transformer (``build_transformer``) as an INI over the
+    smoke's 30000 words: 512 wide, FFN 2048, 6 + 6 layers, 8 heads,
+    tied target embeddings, label smoothing 0.1, beam 10 with length
+    normalisation 0.6, 48 output steps."""
+    path = os.path.join(tmp, name)
+    sizes = dict(tmp=tmp, batch=BATCH, seed=SEED, dim=T_DIM, ff=T_FF,
+                 depth=T_DEPTH, heads=T_HEADS, src_len=SRC_LEN,
+                 max_out=MAX_OUT, beam=BEAM, keep=keep, att_keep=att_keep)
+    with open(path, "w") as f:
+        f.write(main_section.format(**sizes) + T_MODEL_INI.format(**sizes))
+    return path
+
+
+def run_transformer_serving(tmp: str):
+    """Phase 9: 128 sentences through ``run``, greedy and beam 10 with
+    the einsum lineage step, then again with ``NM_LINEAGE_KERNEL=1``."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    exp_ini = write_transformer_ini(tmp, "t_exp.ini", T_SERVING_MAIN, 1.0,
+                                    1.0)
+    data_ini = os.path.join(tmp, "t_data.ini")
+    with open(data_ini, "w") as f:
+        f.write(DATA_INI.format(tmp=tmp, prefix="t_"))
+    exp = Experiment(exp_ini)
+    exp.build_model()
+    ckpt = exp.tf_manager.save(os.path.join(tmp, "t_params"))
+    outputs = [os.path.join(tmp, f"t_{name}.txt")
+               for name in ("greedy", "beam")]
+    launches, einsum_out = serve_through_run(
+        exp_ini, data_ini, ckpt, T_SERVING_KERNELS, outputs,
+        "transformer serving")
+    os.environ["NM_LINEAGE_KERNEL"] = "1"
+    try:
+        lineage_launches, kernel_out = serve_through_run(
+            exp_ini, data_ini, ckpt, T_SERVING_KERNELS + ("lineage_attention",),
+            outputs, "transformer serving, NM_LINEAGE_KERNEL=1")
+        speed = serving_speed(exp, ckpt, data_ini, exp.model.runners[1:],
+                              " (lineage kernel)")
+    finally:
+        os.environ.pop("NM_LINEAGE_KERNEL")
+    speed.update(serving_speed(exp, ckpt, data_ini, exp.model.runners))
+    launches = {k: n + lineage_launches[k] for k, n in launches.items()}
+    # the two lineage forms on the card: equal ids unless a near-tie
+    # falls the other way (phase 10 holds each form to the CPU's)
+    same = sum(a == b for a, b in zip(einsum_out["t_beam.txt"],
+                                      kernel_out["t_beam.txt"]))
+    report = {"mean_output_tokens": mean_lengths(einsum_out),
+              "speed": speed,
+              "beam_forms_identical": f"{same}/{N_SENTENCES}"}
+    log(f"transformer serving: {report}")
+    return launches, report, exp, exp_ini, data_ini, ckpt
 
 
 def main() -> int:
@@ -958,38 +1512,75 @@ def main() -> int:
     log(f"build: {time.perf_counter() - start:.1f} s "
         f"({kernel_config.library_path()})")
 
-    kernels = check_kernels(device)
+    seconds = {"build": time.perf_counter() - start}
+
+    def phase(name, fn, *args):
+        begin = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - begin
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    kernels = phase("kernels", check_kernels, device)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, lengths, speed, gpu_exp, ckpt, data_ini = run_slice(tmp)
-        parity = check_parity(tmp, data_ini, gpu_exp, ckpt)
+        # launches: the sum over the main-path runs (each counted from 0)
+        launches, lengths, speed, gpu_exp, ckpt, data_ini = phase(
+            "slice", run_slice, tmp)
+        parity = phase("parity", check_parity, os.path.join(tmp, "exp.ini"),
+                       data_ini, gpu_exp, ckpt)
         del gpu_exp
         train_ini = write_training_inputs(tmp)
         training = []
         for fused in (False, True):
-            train_launches, record, best = run_training(tmp, train_ini,
-                                                        fused)
+            train_launches, record, best = phase(
+                f"training (fused xent {fused})", run_training, tmp,
+                train_ini, fused)
             training.append(record)
             launches = {k: n + train_launches[k]
                         for k, n in launches.items()}
             if not fused:
-                train_parity = check_train_parity(train_ini, best)
+                train_parity = phase("training parity", check_train_parity,
+                                     train_ini, best)
+
+        t_launches, t_serving, t_exp, t_ini, t_data_ini, t_ckpt = phase(
+            "transformer serving", run_transformer_serving, tmp)
+        launches = {k: n + t_launches[k] for k, n in launches.items()}
+        os.environ["NM_LINEAGE_KERNEL"] = "1"
+        try:
+            t_serving["parity"] = phase(
+                "transformer parity", check_parity, t_ini, t_data_ini, t_exp,
+                t_ckpt)
+        finally:
+            os.environ.pop("NM_LINEAGE_KERNEL")
+        del t_exp
+        t_train_ini = write_transformer_ini(
+            tmp, "t_train.ini", T_TRAINING_MAIN, 0.9, T_ATT_KEEP)
+        t_launches, t_record, t_best = phase(
+            "transformer training", run_training, tmp, t_train_ini, False,
+            "t_train", FLASH_KERNELS)
+        launches = {k: n + t_launches[k] for k, n in launches.items()}
+        t_train_parity = phase("transformer training parity",
+                               check_train_parity, t_train_ini, t_best,
+                               ("encoder", "decoder"), True)
 
     print(smi)
     print(json.dumps({
         "device": smi,
+        "phase_seconds": seconds,
         "slice": {"sentences": N_SENTENCES, "batch": BATCH, "beam": BEAM,
                   "mean_output_tokens": lengths, "speed": speed,
                   "parity": parity},
         "training": {"batch": BATCH, "source": SRC_LEN, "target": TGT_LEN,
                      "runs": training, "parity": train_parity},
+        "transformer": {"serving": t_serving, "training": t_record,
+                        "training_parity": t_train_parity},
     }))
-    # launches: the run CLI's serving pass plus both training runs
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
          **{key: kernels[name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "library_ms", "call_ms")}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

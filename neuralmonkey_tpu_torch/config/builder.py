@@ -33,6 +33,7 @@ MODULE_ALIASES = {
     "runners": f"{_PORT}.runners",
     "evaluators": f"{_PORT}.evaluators",
     "readers": f"{_PORT}.readers",
+    "processors": f"{_PORT}.processors",
     "dataset": f"{_PORT}.dataset",
     "vocabulary": f"{_PORT}.vocabulary",
     "functions": f"{_PORT}.functions",

@@ -70,15 +70,19 @@ class Context:
         else:
             self.aux_losses[key] = value
 
-    def make_rng(self, part: "ModelPart", site: str,
-                 device: torch.device) -> torch.Generator:
-        """A generator on ``device`` for one (part, site) of this pass."""
+    def site_seed(self, part: "ModelPart", site: str) -> int:
+        """The seed of one (part, site) of this pass."""
         if self.rng is None:
             raise ValueError(
                 "Context has no rng (pass one for train-mode dropout)")
         salt = zlib.crc32(f"{part.name}/{site}".encode()) & 0x7FFFFFFF
+        return fold_seed(self.rng, salt)
+
+    def make_rng(self, part: "ModelPart", site: str,
+                 device: torch.device) -> torch.Generator:
+        """A generator on ``device`` for one (part, site) of this pass."""
         return torch.Generator(device=device).manual_seed(
-            fold_seed(self.rng, salt))
+            self.site_seed(part, site))
 
     def dropout(self, part: "ModelPart", x: torch.Tensor,
                 keep_prob: float, site: str = "dropout") -> torch.Tensor:

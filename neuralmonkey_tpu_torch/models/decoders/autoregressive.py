@@ -202,17 +202,32 @@ class AutoregressiveDecoder(ModelPart):
 
     # Decoders that support lineage beam decoding (the only beam search
     # ported) implement these two: beam search then never reorders the
-    # loop state after a step; ``decode_step_lineage`` takes the previous
-    # step's ``parents`` (B, K), the beam slot each hypothesis came from.
+    # loop state after a step. ``decode_step_lineage`` takes the composed
+    # ancestry ``anc`` (B, K, max_output_len): ``anc[b, k, t]`` is the
+    # slot whose step t lies on hypothesis k's lineage (its own slot for
+    # positions not written yet), so ``anc[:, :, step - 1]`` are the
+    # previous step's parents; ``window`` bounds the positions a cache
+    # read needs (``step + 1`` is exact). A decoder that reads no more of
+    # ``anc`` than column ``step - 1`` sets ``reads_ancestry`` False: the
+    # search then writes each step's parents into that column instead of
+    # composing the whole ancestry every step.
     lineage_decode = False
+    reads_ancestry = True
 
     def decode_step_lineage(self, constants: Dict[str, Any],
                             loop_state: Any, prev_ids: torch.Tensor,
-                            step: int, parents: torch.Tensor, beam: int):
+                            step: int, anc: torch.Tensor, beam: int,
+                            window: int = None):
         raise NotImplementedError
 
     def tile_decode_constants_lineage(self, constants, k: int):
         raise NotImplementedError
+
+    def tile_decode_state(self, state: Any, beam: int) -> Any:
+        """The loop state for B·K beam rows (row ``b·K + k``) from a
+        (B, ...) tensor; decoders whose state has another layout override
+        this."""
+        return state.repeat_interleave(beam, dim=0)
 
     # ------------------------------------------------------------------ #
     # fused logit projection for the hierarchical beam selector

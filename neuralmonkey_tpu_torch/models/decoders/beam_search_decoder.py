@@ -15,9 +15,13 @@ with the Wu et al. (2016) length penalty and keeps the best K:
   top K groups by its maximum;
 - ``flat`` selection takes the top K over the whole (B, K·V) matrix.
 
-The parent decoder must support lineage decoding (the RNN decoder
-does): its attention constants stay untiled, shared by the K beams, and
-each step gathers the recurrent state by the previous step's parents.
+The parent decoder must support lineage decoding (the RNN and
+Transformer decoders do): its beam-invariant constants stay untiled,
+shared by the K beams, the loop state is never reordered, and the
+search carries the composed ancestry ``anc`` (B, K, T) that each step
+reads: the Transformer resolves its unpermuted caches in score space;
+the RNN gathers its state by the previous parents, column ``step - 1``,
+so for it the search writes only that column.
 The loop asks the device whether every hypothesis has finished only
 every ``FINISHED_CHECK_PERIOD`` steps: a finished hypothesis is a fixed
 point of the step (it emits PAD at zero cost and keeps its length and
@@ -229,7 +233,7 @@ class BeamSearchDecoder(ModelPart):
         if method == "hierarchical":
             constants = parent.prepare_selection_fusion(constants)
         constants = parent.tile_decode_constants_lineage(constants, beam)
-        state = state.repeat_interleave(beam, dim=0)
+        state = parent.tile_decode_state(state, beam)
 
         # beam 0 live, the others dead (standard first-step trick)
         logprob0 = torch.full((batch, beam), NEG_INF, device=device)
@@ -245,20 +249,35 @@ class BeamSearchDecoder(ModelPart):
                                  device=device))
         prev_ids = torch.full((batch * beam,), START_TOKEN_INDEX,
                               dtype=torch.int32, device=device)
-        # every beam slot starts as its own parent
-        parents = torch.arange(beam, dtype=torch.int32,
-                               device=device).expand(batch, beam)
+        # the ancestry starts as the identity: every position of every
+        # slot is (to be) written by that slot itself
+        cache_len = parent.max_output_len
+        anc0 = torch.arange(beam, dtype=torch.int32, device=device)[
+            None, :, None].expand(batch, beam, cache_len)
+        anc = anc0 if parent.reads_ancestry else anc0.clone()
+        positions = torch.arange(cache_len, device=device)
 
         for step in range(self.max_steps):
             if step and step % FINISHED_CHECK_PERIOD == 0 \
                     and bool(search.finished.all()):
                 break
             state, x, aux = parent.decode_step_lineage(
-                constants, state, prev_ids, step, parents, beam)
+                constants, state, prev_ids, step, anc, beam,
+                window=step + 1)
             sel = ((aux["sel_rowmax"], aux["sel_lse"])
                    if "sel_rowmax" in aux else None)
             parents, tokens, new_logprob, _ = select_fn(
                 x, search, batch, precomputed=sel)
+            # the state is never reordered; compose the ancestry: written
+            # positions inherit the parent's lineage, later ones stay the
+            # identity. Column ``step`` holds the parents either way, and
+            # it is all a decoder that does not read the ancestry needs.
+            if parent.reads_ancestry:
+                inherited = torch.gather(
+                    anc, 1, parents.long()[..., None].expand_as(anc))
+                anc = torch.where(positions <= step, inherited, anc0)
+            else:
+                anc[:, :, step] = parents
 
             old_finished = _gather(search.finished, parents)
             old_lengths = _gather(search.lengths, parents)

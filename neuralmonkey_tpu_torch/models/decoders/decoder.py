@@ -286,6 +286,7 @@ class Decoder(AutoregressiveDecoder):
     # gain is that attention constants stay shared across the beam
     # ------------------------------------------------------------------ #
     lineage_decode = True
+    reads_ancestry = False
 
     def tile_decode_constants_lineage(self, constants, k: int):
         """Constants for K beams: parameters, the embedding table and
@@ -297,15 +298,15 @@ class Decoder(AutoregressiveDecoder):
         return tiled
 
     def decode_step_lineage(self, constants, loop_state, prev_ids, step,
-                            parents, beam: int):
+                            anc, beam: int, window: int = None):
         """The recurrent state is gathered here by the previous
-        selection's ``parents`` (B, K), the identity at step 0. The JAX
-        version reads them from its ancestry as ``anc[:, :, step - 1]``;
-        an RNN state is one vector per beam, so the parents are all the
-        lineage it needs."""
-        del step
+        selection's parents, ``anc[:, :, step - 1]`` (the identity at
+        step 0); an RNN state is one vector per beam, so the parents are
+        all of the lineage it reads. ``window`` bounds cache reads; the
+        RNN has no position-indexed cache."""
+        del window
         batch = prev_ids.shape[0] // beam
-        parents = parents.long()
+        parents = anc[:, :, max(step - 1, 0)].long()
         rows = (torch.arange(batch, device=parents.device)[:, None] * beam
                 + parents).reshape(-1)
         return self._finish_step(constants, loop_state.index_select(0, rows),

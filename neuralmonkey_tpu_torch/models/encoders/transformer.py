@@ -1,0 +1,206 @@
+"""Transformer encoder (counterpart of
+``neuralmonkey_tpu/models/encoders/transformer.py``).
+
+Pre-norm residual blocks (LN -> self-attention -> +res, LN -> FFN ->
++res) with a final LN; sinusoidal, learned or no positions. The
+self-attention takes the source mask as a key mask, so it runs through
+flash attention (``ops/flash_attention.py``). With ``remat=True`` each
+layer runs under ``torch.utils.checkpoint`` in training; the layer
+takes its dropout seeds as arguments, drawn outside it, so the
+recomputation replays the same masks.
+
+Mixture-of-experts FFNs and pipeline stages are not ported yet (queues
+A12 and A15 of ROADMAP.md): setting them raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ...model.part import Context, ModelPart, tensor
+from ...model.sequence import EmbeddedSequence
+from ...model.stateful import TemporalStatefulWithOutput
+from ...ops.attention import (ffn, ffn_init, layer_norm, layer_norm_init,
+                              mha_init, multi_head_attention,
+                              seeded_dropout, sinusoidal_position_encoding)
+from ...vocabulary import Vocabulary
+
+_POSITION_TYPES = ("sinusoidal", "learned", "none")
+
+
+def refuse_unported(name: str, moe_experts: int,
+                    pipeline_stages: int) -> None:
+    """Raise for the Transformer options the port does not have yet."""
+    if moe_experts > 1:
+        raise NotImplementedError(
+            f"{name}: mixture-of-experts FFNs (moe_experts > 1) are not "
+            "ported to neuralmonkey_tpu_torch yet (ROADMAP queue A12)")
+    if pipeline_stages > 1:
+        raise NotImplementedError(
+            f"{name}: pipeline stages (pipeline_stages > 1) are not "
+            "ported to neuralmonkey_tpu_torch yet (ROADMAP queue A15)")
+
+
+def run_layer(layer_fn, remat: bool, *args):
+    """``layer_fn(*args)``, recomputed in the backward pass when
+    ``remat`` is set and a gradient is wanted."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer_fn, *args, use_reentrant=False)
+    return layer_fn(*args)
+
+
+class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
+
+    def __init__(self, name: str,
+                 input_sequence=None,
+                 ff_hidden_size: int = None,
+                 depth: int = 6,
+                 n_heads: int = 8,
+                 dropout_keep_prob: float = 0.9,
+                 attention_dropout_keep_prob: float = 1.0,
+                 position_encoding: str = "sinusoidal",
+                 max_position: int = 512,
+                 remat: bool = False,
+                 pipeline_stages: int = 0,
+                 pipeline_microbatches: int = 0,
+                 moe_experts: int = 0,
+                 moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.5,
+                 moe_aux_weight: float = 0.01,
+                 moe_router_noise: float = 0.0,
+                 moe_z_loss_weight: float = 0.0,
+                 vocabulary: Vocabulary = None,
+                 data_id: str = None,
+                 embedding_size: int = None,
+                 max_input_len: int = None,
+                 reuse: ModelPart = None,
+                 save_checkpoint: str = None,
+                 load_checkpoint: str = None) -> None:
+        ModelPart.__init__(self, name, reuse, save_checkpoint,
+                           load_checkpoint)
+        del (pipeline_microbatches, moe_top_k, moe_capacity_factor,
+             moe_aux_weight, moe_router_noise, moe_z_loss_weight)
+        refuse_unported(name, moe_experts, pipeline_stages)
+        if input_sequence is None:
+            if vocabulary is None or data_id is None \
+                    or embedding_size is None:
+                raise ValueError(
+                    "Provide input_sequence or vocabulary+data_id+"
+                    "embedding_size")
+            input_sequence = EmbeddedSequence(
+                name=f"{name}_input", vocabulary=vocabulary,
+                data_id=data_id, embedding_size=embedding_size,
+                max_length=max_input_len,
+                scale_embeddings_by_depth=True)
+        if position_encoding not in _POSITION_TYPES:
+            raise ValueError(
+                f"position_encoding must be one of {_POSITION_TYPES}")
+        self.input_sequence = input_sequence
+        self.model_dim = input_sequence.state_dim
+        self.ff_hidden_size = ff_hidden_size or 4 * self.model_dim
+        self.depth = depth
+        self.n_heads = n_heads
+        if self.model_dim % n_heads:
+            raise ValueError(
+                f"model dim {self.model_dim} not divisible by "
+                f"{n_heads} heads")
+        self.dropout_keep_prob = dropout_keep_prob
+        self.attention_dropout_keep_prob = attention_dropout_keep_prob
+        self.position_encoding = position_encoding
+        self.max_position = max_position
+        self.remat = remat
+
+    @property
+    def state_dim(self) -> int:
+        return self.model_dim
+
+    @property
+    def output_dim(self) -> int:
+        return self.model_dim
+
+    def init_params(self, gen: torch.Generator) -> Dict[str, Any]:
+        params: Dict[str, Any] = {}
+        if self.position_encoding == "learned":
+            params["position_emb"] = torch.randn(
+                self.max_position, self.model_dim, generator=gen) * 0.01
+        for i in range(self.depth):
+            params[f"layer_{i}"] = {
+                "ln_att": layer_norm_init(self.model_dim),
+                "att": mha_init(gen, self.model_dim, self.model_dim,
+                                self.model_dim),
+                "ln_ff": layer_norm_init(self.model_dim),
+                "ff": ffn_init(gen, self.model_dim, self.ff_hidden_size),
+            }
+        params["ln_out"] = layer_norm_init(self.model_dim)
+        return params
+
+    # ------------------------------------------------------------------ #
+    @tensor
+    def temporal_mask(self, ctx: Context):
+        return self.input_sequence.temporal_mask(ctx)
+
+    def _add_positions(self, params, states):
+        time = states.shape[1]
+        if self.position_encoding == "sinusoidal":
+            return states + sinusoidal_position_encoding(
+                time, self.model_dim, states.dtype, states.device)[None]
+        if self.position_encoding == "learned":
+            return states + params["position_emb"][None, :time]
+        return states
+
+    def _layer_fn(self, layer, states, mask, seeds):
+        """One encoder layer; ``seeds`` holds the dropout seeds of its
+        sites (None outside training)."""
+        keep = self.dropout_keep_prob
+        normed = layer_norm(layer["ln_att"], states)
+        att_out = multi_head_attention(
+            layer["att"], normed, normed, normed, self.n_heads,
+            dropout_seed=seeds["att"],
+            dropout_keep_prob=self.attention_dropout_keep_prob,
+            key_mask=mask)
+        states = states + seeded_dropout(att_out, keep, seeds["res_att"])
+        normed = layer_norm(layer["ln_ff"], states)
+        ff_out = ffn(layer["ff"], normed, dropout_seed=seeds["ff"],
+                     dropout_keep_prob=keep)
+        return states + seeded_dropout(ff_out, keep, seeds["res_ff"])
+
+    def _layer_seeds(self, ctx: Context, i: int) -> Dict[str, Optional[int]]:
+        """Per-layer dropout seeds at the JAX package's sites
+        (``_layer_rngs``), drawn outside the layer."""
+        res_drop = ctx.train and self.dropout_keep_prob < 1.0
+        att_drop = ctx.train and self.attention_dropout_keep_prob < 1.0
+
+        def seed(site, on):
+            return ctx.site_seed(self, site) if on else None
+        return {"att": seed(f"att_drop_{i}", att_drop),
+                "ff": seed(f"ff_drop_{i}", res_drop),
+                "res_att": seed(f"res_drop_att_{i}", res_drop),
+                "res_ff": seed(f"res_drop_ff_{i}", res_drop)}
+
+    @tensor
+    def temporal_states(self, ctx: Context):
+        params = ctx.get_params(self)
+        states = self.input_sequence.temporal_states(ctx)
+        mask = self.input_sequence.temporal_mask(ctx).to(torch.float32)
+        states = self._add_positions(params, states)
+        states = ctx.dropout(self, states, self.dropout_keep_prob,
+                             "input_dropout")
+        for i in range(self.depth):
+            states = run_layer(self._layer_fn, self.remat and ctx.train,
+                               params[f"layer_{i}"], states, mask,
+                               self._layer_seeds(ctx, i))
+        states = layer_norm(params["ln_out"], states)
+        # padding positions are zero for clean downstream pooling
+        return states * mask[..., None]
+
+    @tensor
+    def output(self, ctx: Context):
+        """Masked mean-pool over time (the reference's encoder
+        output)."""
+        states = self.temporal_states(ctx)
+        mask = self.temporal_mask(ctx)
+        count = mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+        return states.sum(dim=1) / count

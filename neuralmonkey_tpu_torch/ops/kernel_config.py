@@ -51,6 +51,10 @@ ENTRY_POINTS = {
     "fused_xent_fwd": "nm_xent_fwd",
     "fused_xent_bwd_dx": "nm_xent_bwd_dx",
     "fused_xent_bwd_dw": "nm_xent_bwd_dw",
+    "flash_attention_fwd": "nm_flash_fwd",
+    "flash_attention_bwd_dq": "nm_flash_bwd_dq",
+    "flash_attention_bwd_dkv": "nm_flash_bwd_dkv",
+    "lineage_attention": "nm_lineage_attention",
 }
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -63,6 +67,10 @@ _ARGTYPES = {
     "nm_xent_fwd": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],
     "nm_xent_bwd_dx": [_PTR] * 7 + [_INT] * 4 + [_FLOAT, _PTR],
     "nm_xent_bwd_dw": [_PTR] * 8 + [_INT] * 4 + [_FLOAT, _PTR],
+    "nm_flash_fwd": [_PTR] * 6 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
+    "nm_flash_bwd_dq": [_PTR] * 8 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
+    "nm_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
+    "nm_lineage_attention": [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR],
 }
 
 _LOCK = threading.Lock()

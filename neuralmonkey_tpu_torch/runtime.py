@@ -61,7 +61,8 @@ class CUDAManager:
                  report_gpu_memory_consumption: bool = False,
                  enable_tf_debug: bool = False,
                  device: str = None,
-                 random_seed: int = None) -> None:
+                 random_seed: int = None,
+                 num_context_shards: int = 1) -> None:
         del (num_threads, gpu_allow_growth,
              per_process_gpu_memory_fraction,
              report_gpu_memory_consumption, enable_tf_debug)
@@ -69,6 +70,11 @@ class CUDAManager:
             raise NotImplementedError(
                 "checkpoint ensembles (num_sessions > 1) are not ported "
                 "to neuralmonkey_tpu_torch yet")
+        if num_context_shards != 1:
+            raise NotImplementedError(
+                "context parallelism (num_context_shards > 1, the ring "
+                "attention) is not ported to neuralmonkey_tpu_torch yet "
+                "(ROADMAP queue A15)")
         self.device = resolve_device(device)
         self.seed = random_seed or 0
         self.save_n_best = max(save_n_best, 1)

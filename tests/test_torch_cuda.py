@@ -364,3 +364,190 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     w = torch.zeros(256, 128)  # on the CPU
     with pytest.raises(ValueError, match="'w' is on cpu"):
         beam_select.fused_logits_rowmax_lse(x, w, torch.zeros(128))
+
+
+# ---------------------------------------------------------------------- #
+# the Transformer's kernels
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("batch,heads,tq,tk,dim,causal,lengths", [
+    (3, 2, 32, 32, 64, False, [32, 17, 0]),
+    (2, 8, 48, 48, 64, True, [48, 48]),
+    (2, 4, 48, 33, 64, False, [33, 5]),
+    (2, 3, 70, 70, 32, True, [70, 70]),
+    (1, 2, 9, 130, 8, False, [100]),
+    (2, 2, 40, 40, 128, False, [40, 31]),
+])
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_flash_kernels(cuda_device, batch, heads, tq, tk, dim, causal,
+                       lengths, keep):
+    """Forward (out, lse) and dq, dk, dv against the plain versions on
+    the card, with and without the hash dropout."""
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    q = _randn(cuda_device, batch, heads, tq, dim, seed=1)
+    k = _randn(cuda_device, batch, heads, tk, dim, seed=2)
+    v = _randn(cuda_device, batch, heads, tk, dim, seed=3)
+    g = _randn(cuda_device, batch, heads, tq, dim, seed=4)
+    mask = _mask(cuda_device, lengths, tk)
+    key = (123456789, -987654321) if keep < 1.0 else None
+    kernel_config.reset_launch_counts()
+    out, lse = fa.flash_forward(q, k, v, mask, causal, key, keep)
+    grads = fa.flash_backward(q, k, v, mask, out, lse, g, causal, key, keep)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert [counts[f"flash_attention_{n}"] for n in ("fwd", "bwd_dq",
+                                                     "bwd_dkv")] == [1, 1, 1]
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, mask, causal, key,
+                                                  keep)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    ref = fa.flash_backward_reference(q, k, v, mask, ref_out, ref_lse, g,
+                                      causal, key, keep)
+    for name, got, want in zip("qkv", grads, ref):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
+                                   msg=f"d{name}")
+
+
+def test_flash_dropout_mask_equals_the_hash(cuda_device):
+    """With one-hot value rows, the context shows which weights the
+    kernel dropped: exactly the plain version's keep mask."""
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    batch, heads, time = 3, 4, 48
+    q = _randn(cuda_device, batch, heads, time, 64, scale=0.1)
+    k = _randn(cuda_device, batch, heads, time, 64, seed=1, scale=0.1)
+    v = torch.eye(time, 64, device=cuda_device).expand(
+        batch, heads, time, 64).contiguous()
+    mask = torch.ones(batch, time, device=cuda_device)
+    key = (-5, 77)
+    out, _ = fa.flash_forward(q, k, v, mask, False, key, 0.9)
+    kept = out[..., :time] != 0
+    want = fa.keep_mask_dense(key, batch, heads, time, time, 0.9,
+                              cuda_device)
+    assert torch.equal(kept, want)
+
+
+def test_flash_attention_function_gradients(cuda_device, monkeypatch):
+    """The autograd Function through the backward kernels on the card
+    against the remat path (NM_FLASH_BWD=0) on CPU copies; on the card
+    that switch raises."""
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    args = [_randn(cuda_device, 2, 4, 24, 64, seed=s) for s in range(3)]
+    mask = _mask(cuda_device, [24, 10], 24)
+
+    def grads(device):
+        leaves = [a.to(device, copy=True).requires_grad_() for a in args]
+        fa.flash_attention(*leaves, mask.to(device), True, (3, 4),
+                           0.9).square().sum().backward()
+        return [t.grad.cpu() for t in leaves]
+
+    kernel_config.reset_launch_counts()
+    got = grads(cuda_device)
+    assert kernel_config.launch_counts()["flash_attention_bwd_dkv"] == 1
+    monkeypatch.setenv("NM_FLASH_BWD", "0")
+    for g, want in zip(got, grads("cpu")):
+        torch.testing.assert_close(g, want, atol=1e-4, rtol=1e-4)
+    with pytest.raises(NotImplementedError, match="NM_FLASH_BWD"):
+        grads(cuda_device)
+
+
+def test_flash_dropout_switch_raises_on_the_card(cuda_device, monkeypatch):
+    """NM_FLASH_DROPOUT=0 sends attention dropout to the dense path on
+    the CPU only: on the card it raises instead of leaving the
+    kernels."""
+    from neuralmonkey_tpu_torch.ops import attention
+    params = attention.mha_init(torch.Generator().manual_seed(0), 16, 16,
+                                16)
+    x = _randn("cpu", 2, 6, 16)
+    mask = _mask("cpu", [6, 3], 6)
+    monkeypatch.setenv("NM_FLASH_DROPOUT", "0")
+    attention.multi_head_attention(params, x, x, x, 4, key_mask=mask,
+                                   dropout_seed=3, dropout_keep_prob=0.5)
+    on_card = {k: {n: t.to(cuda_device) for n, t in v.items()}
+               for k, v in params.items()}
+    with pytest.raises(NotImplementedError, match="NM_FLASH_DROPOUT"):
+        attention.multi_head_attention(
+            on_card, x.to(cuda_device), x.to(cuda_device),
+            x.to(cuda_device), 4, key_mask=mask.to(cuda_device),
+            dropout_seed=3, dropout_keep_prob=0.5)
+
+
+@pytest.mark.parametrize("batch,heads,beam,time,dim", [
+    (4, 8, 10, 48, 64), (2, 2, 20, 7, 32), (3, 2, 3, 5, 8)])
+def test_lineage_kernel(cuda_device, batch, heads, beam, time, dim):
+    from neuralmonkey_tpu_torch.ops import lineage_attention as la
+    gen = torch.Generator().manual_seed(0)
+    q = _randn(cuda_device, batch, heads, beam, dim)
+    kq = _randn(cuda_device, batch, heads, dim, beam * time, seed=1)
+    vq = _randn(cuda_device, batch, heads, beam * time, dim, seed=2)
+    for step in sorted({0, time // 4, time // 2, time - 1}):
+        anc = torch.randint(0, beam, (batch, beam, time), generator=gen,
+                            dtype=torch.int32).to(cuda_device)
+        win = step + 1
+        bias = la.lineage_bias(anc, step, win, beam,
+                               la.lane_window(win, beam, beam * time), time)
+        kernel_config.reset_launch_counts()
+        got = la.lineage_attention(q, kq, vq, bias)
+        torch.cuda.synchronize()
+        assert kernel_config.launch_counts()["lineage_attention"] == 1
+        ref = la.lineage_attention_reference(q, kq, vq, bias)
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5,
+                                   msg=f"step {step}")
+
+
+def _transformer_pass(device):
+    """Loss and flat gradients of one train-mode pass of a small
+    Transformer, residual dropout off and attention dropout on (the
+    keep hash draws the same mask on both devices)."""
+    from neuralmonkey_tpu_torch.models.decoders.transformer import \
+        TransformerDecoder
+    from neuralmonkey_tpu_torch.models.encoders.transformer import \
+        TransformerEncoder
+    vocab = Vocabulary([f"w{i}" for i in range(296)])
+    enc = TransformerEncoder(name="encoder", vocabulary=vocab,
+                             data_id="source", embedding_size=64,
+                             ff_hidden_size=128, depth=2, n_heads=2,
+                             dropout_keep_prob=1.0,
+                             attention_dropout_keep_prob=0.9)
+    dec = TransformerDecoder(name="decoder", vocabulary=vocab,
+                             data_id="target", max_output_len=6,
+                             encoders=[enc], embedding_size=64,
+                             ff_hidden_size=128, depth=2, n_heads_self=2,
+                             n_heads_enc=2, label_smoothing=0.1,
+                             dropout_keep_prob=1.0,
+                             attention_dropout_keep_prob=0.9)
+    def to_device(tree):
+        if isinstance(tree, dict):
+            return {k: to_device(v) for k, v in tree.items()}
+        return tree.to(device).requires_grad_()
+    params = to_device(init_all_params(collect_parts([dec]), seed=3))
+    leaves = flatten_tree(params)
+    gen = torch.Generator().manual_seed(0)
+    mask = torch.ones(4, 7)
+    mask[1, 5:] = 0
+    tmask = torch.ones(4, 6)
+    tmask[3, 1:] = 0
+    batch = {"encoder_input.ids": torch.randint(4, 300, (4, 7), generator=gen,
+                                                dtype=torch.int32),
+             "encoder_input.mask": mask,
+             "decoder.train_inputs": torch.randint(
+                 1, 300, (4, 6), generator=gen, dtype=torch.int32),
+             "decoder.train_targets": torch.randint(
+                 2, 300, (4, 6), generator=gen, dtype=torch.int32),
+             "decoder.train_mask": tmask}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    loss = dec.train_loss(Context(params, batch, train=True, rng=0))
+    loss.backward()
+    return loss.detach().cpu(), {k: p.grad.cpu() for k, p in leaves.items()}
+
+
+def test_transformer_training_step_on_card_matches_cpu(cuda_device):
+    kernel_config.reset_launch_counts()
+    loss, grads = _transformer_pass(cuda_device)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        assert counts[f"flash_attention_{name}"] > 0, counts
+    ref_loss, ref_grads = _transformer_pass(torch.device("cpu"))
+    torch.testing.assert_close(loss, ref_loss, atol=1e-5, rtol=1e-5)
+    for key, g in grads.items():
+        torch.testing.assert_close(g, ref_grads[key], atol=1e-5, rtol=1e-4,
+                                   msg=key)

@@ -186,7 +186,9 @@ def test_every_kernel_has_an_entry_point_in_the_sources():
     assert set(kernel_config.ENTRY_POINTS) == {
         "gru_scan", "gru_bptt", "fused_bahdanau_step",
         "fused_logits_rowmax_lse", "small_topk", "fused_xent_fwd",
-        "fused_xent_bwd_dx", "fused_xent_bwd_dw"}
+        "fused_xent_bwd_dx", "fused_xent_bwd_dw", "flash_attention_fwd",
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+        "lineage_attention"}
     for entry in kernel_config.ENTRY_POINTS.values():
         assert f"NM_EXPORT int {entry}(" in sources
 

@@ -242,10 +242,10 @@ def test_decode_step_matches_jax(conditional_gru):
 
 @pytest.mark.parametrize("step,fused", [(0, False), (3, False), (3, True)])
 def test_decode_step_lineage_matches_jax(monkeypatch, step, fused):
-    """Lineage step over beam-shared attention constants. The JAX
-    version takes the ancestry and reads the parents from its column
-    step - 1 (column -1 at step 0, where a search's ancestry is the
-    identity); the port takes those parents. With ``fused`` the decode
+    """Lineage step over beam-shared attention constants. Both take the
+    ancestry and read the parents from its column step - 1 (at step 0
+    the JAX version reads column -1 and the port column 0; a search's
+    ancestry is the identity in both). With ``fused`` the decode
     constants are armed for the fused logit projection in both."""
     monkeypatch.setenv("NM_FUSED_LOGITS", "1" if fused else "0")
     pair = Pair()
@@ -269,7 +269,7 @@ def test_decode_step_lineage_matches_jax(monkeypatch, step, fused):
         jnp.asarray(anc), BEAM)
     new, logits, aux = dec.decode_step_lineage(
         const, torch.from_numpy(state), torch.from_numpy(prev), step,
-        torch.from_numpy(anc[:, :, step - 1]), BEAM)
+        torch.from_numpy(anc), BEAM)
     _close(new, jnew)
     _close(logits, jlogits)
     if fused:
@@ -289,8 +289,10 @@ def test_lineage_step_zero_reads_the_first_ancestry_column():
     rows = BATCH * BEAM
     state = torch.from_numpy(pair.rng.randn(rows, WIDTH).astype(np.float32))
     prev = torch.from_numpy(pair.rng.randint(4, VOCAB, rows).astype(np.int32))
-    identity = torch.arange(BEAM, dtype=torch.int32).expand(BATCH, BEAM)
-    flipped = identity.flip(1)
+    identity = torch.arange(BEAM, dtype=torch.int32)[None, :, None].repeat(
+        BATCH, 1, 4)
+    flipped = identity.clone()
+    flipped[:, :, 1] = flipped[:, :, 1].flip(1)
     ref = dec._finish_step(const, state, prev, beam=BEAM)
     got = dec.decode_step_lineage(const, state, prev, 0, identity, BEAM)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
@@ -309,6 +311,7 @@ def test_length_penalty_matches_jax():
 
 def test_resolver_builds_port_modules_only():
     from neuralmonkey_tpu_torch.evaluators.bleu import BLEU
+    from neuralmonkey_tpu_torch.processors.bpe import BPEPreprocessor
     from neuralmonkey_tpu_torch.trainers.optimizers import AdamOptimizer
     from neuralmonkey_tpu_torch.vocabulary import from_wordlist
     assert resolve_class_symbol("encoders.recurrent.SentenceEncoder") \
@@ -326,5 +329,7 @@ def test_resolver_builds_port_modules_only():
     assert resolve_class_symbol("tf.train.AdamOptimizer") is AdamOptimizer
     with pytest.raises(ImportError, match="not ported"):
         resolve_class_symbol("neuralmonkey_tpu.trainers.optimizers.Adam")
+    assert resolve_class_symbol("processors.bpe.BPEPreprocessor") \
+        is BPEPreprocessor
     with pytest.raises(ImportError, match="not ported"):
-        resolve_class_symbol("processors.bpe.BPEPreprocessor")
+        resolve_class_symbol("processors.wordpiece.WordpiecePreprocessor")
