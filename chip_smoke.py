@@ -11,12 +11,13 @@ Phases (any failure raises and the script exits non-zero):
    power limit as nvidia-smi reports them;
 2. build: compiles the port's CUDA kernels from csrc/ with nvcc;
 3. kernels: each hand-written kernel (K1 GRU scan, K2 Bahdanau step,
-   K3 fused logits + selection reductions, K4 small top-k, the GRU BPTT
-   and the three fused cross-entropy kernels) against its plain
-   PyTorch version on the card, at the shapes the serving and training
-   paths give it and at one ragged shape, with median times from CUDA
-   events, the bound of the same work on this card and, where one
-   PyTorch call computes the same function, that call's time;
+   K3 fused logits + selection reductions, K4 small top-k, the GRU BPTT,
+   the three fused cross-entropy kernels, the LSTM scan and its BPTT,
+   and ``rowmax_lse``) against its plain PyTorch version on the card, at
+   the shapes the serving and training paths give it and at one ragged
+   shape, with median times from CUDA events, the bound of the same work
+   on this card and, where one PyTorch call computes the same function,
+   that call's time (cuDNN's LSTM for the LSTM kernels);
 4. slice: the flagship RNN model (bench.py widths: vocabulary 30000,
    embeddings 512, BiGRU 512, attention 512, conditional-GRU decoder)
    with random seeded weights decodes 128 synthetic sentences greedily
@@ -71,7 +72,19 @@ Phases (any failure raises and the script exits non-zero):
    of phase 7; an attention key bias, whose exact gradient is 0, is held
    against the largest entry of its key weight's gradient, and the CPU
    follows the card's ReLU branch, every unit whose sign differs
-   between the devices being within 1e-4 of 0 on the CPU.
+   between the devices being within 1e-4 of 0 on the CPU;
+13. LSTM serving: the flagship model with ``rnn_cell="LSTM"`` in its
+   encoder (a bidirectional LSTM of 512, TF1 gate order, forget bias
+   1.0) decodes the 128 sentences greedily and with beam 10 through
+   ``run``, then with beam 10 again under ``NM_FUSED_LOGITS=0``; the
+   LSTM scan, K2, K3 and K4 must launch in the first run, ``rowmax_lse``
+   and not K3 in the second, and the GRU scan in neither;
+14. LSTM parity: phase 5's rule for that model, with the fused logit
+   projection and under ``NM_FUSED_LOGITS=0``;
+15. LSTM training: 20 steps through ``train`` as in phase 6 (the
+   unfused cross-entropy); the loss must fall and the LSTM scan, its
+   BPTT and K2 must launch;
+16. LSTM training parity: phase 7 from that checkpoint.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -145,6 +158,12 @@ KERNELS = {
         "neuralmonkey_tpu/ops/pallas_attention.py:425"),
     "lineage_attention": ("neuralmonkey_tpu_torch/csrc/lineage_attention.cu",
                           "neuralmonkey_tpu/ops/lineage_attention.py:71"),
+    "lstm_scan": ("neuralmonkey_tpu_torch/csrc/lstm_scan.cu",
+                  "neuralmonkey_tpu/ops/pallas_rnn.py:473"),
+    "lstm_bptt": ("neuralmonkey_tpu_torch/csrc/lstm_bptt.cu",
+                  "neuralmonkey_tpu/ops/pallas_rnn.py:514"),
+    "rowmax_lse": ("neuralmonkey_tpu_torch/csrc/beam_select.cu",
+                   "neuralmonkey_tpu/ops/beam_select.py:52"),
 }
 # bench.py build_transformer: 512 wide, FFN 2048, 6 + 6 layers, 8 heads
 T_DIM, T_FF, T_DEPTH, T_HEADS = 512, 2048, 6, 8
@@ -154,6 +173,11 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 T_SERVING_KERNELS = ("flash_attention_fwd", "fused_logits_rowmax_lse",
                      "small_topk")
 T_ATT_KEEP = 0.9
+# the flagship model with rnn_cell="LSTM" in its encoder
+LSTM_SERVING_KERNELS = ("lstm_scan", "fused_bahdanau_step",
+                        "fused_logits_rowmax_lse", "small_topk")
+LSTM_UNFUSED_KERNELS = ("lstm_scan", "rowmax_lse", "small_topk")
+LSTM_TRAINING_KERNELS = ("lstm_scan", "lstm_bptt", "fused_bahdanau_step")
 
 
 def import_everything() -> None:
@@ -255,10 +279,11 @@ def check_kernels(device):
     results = {}
 
     def record(name, err, tol, shape, ms=None, plain_ms=None, work=None,
-               library_ms=None, call=None):
+               library_ms=None, call=None, **extra):
         """Check ``err <= tol``; for the timed shape keep the times, the
-        bound of ``work`` = (flops, bytes) and, given the kernel's
-        wrapper as ``call``, its time alone with the host's cost."""
+        bound of ``work`` = (flops, bytes), ``extra`` times and, given the
+        kernel's wrapper as ``call``, its time alone with the host's
+        cost."""
         log(f"{name} {shape}: max_abs_err {err:.3g} (tol {tol:g})"
             + ("" if ms is None else f", kernel {ms:.4f} ms, plain "
                f"{plain_ms:.4f} ms"))
@@ -268,7 +293,7 @@ def check_kernels(device):
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if ms is not None:
             entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         call_ms=call_ms(call) if call else None)
+                         call_ms=call_ms(call) if call else None, **extra)
             entry["bound_ms"], entry["bound_by"] = bound(*work)
 
     # K1: the encoder's BiGRU through the wrapper it calls (input
@@ -388,6 +413,7 @@ def check_kernels(device):
 
     check_train_kernels(device, randn, lengths_mask, record)
     check_transformer_kernels(device, randn, lengths_mask, record)
+    check_lstm_kernels(device, randn, lengths_mask, record)
     torch.cuda.synchronize()
     return results
 
@@ -603,6 +629,159 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
                    (b, h, beam, t, d, f"window {win}"), work=work, **timing)
 
 
+def cudnn_lstm(params, reverse, forget_bias):
+    """``torch.nn.LSTM`` (cuDNN) computing what ``lstm_scan`` computes
+    for the bidirectional ``params``: the gates permuted from TF1's i, j,
+    f, o to PyTorch's i, f, g, o, the forget bias folded into the f
+    slice of ``bias_ih``, ``bias_hh`` zero."""
+    import torch
+    width, gates = params[0]["kernel_x"].shape
+    hidden = gates // 4
+    lstm = torch.nn.LSTM(width, hidden, batch_first=True,
+                         bidirectional=len(params) == 2).to(
+                             params[0]["kernel_x"].device)
+    perm = torch.cat([torch.arange(a * hidden, (a + 1) * hidden)
+                      for a in (0, 2, 1, 3)])
+    fold = torch.zeros(gates, device=lstm.weight_ih_l0.device)
+    fold[hidden:2 * hidden] = forget_bias
+    with torch.no_grad():
+        for p, rev in zip(params, reverse):
+            suffix = "_l0_reverse" if rev else "_l0"
+            getattr(lstm, "weight_ih" + suffix).copy_(p["kernel_x"][:, perm].T)
+            getattr(lstm, "weight_hh" + suffix).copy_(p["kernel_h"][:, perm].T)
+            getattr(lstm, "bias_ih" + suffix).copy_(p["bias"][perm] + fold)
+            getattr(lstm, "bias_hh" + suffix).zero_()
+    return lstm
+
+
+def check_lstm_kernels(device, randn, lengths_mask, record):
+    """``lstm_scan``, ``lstm_bptt`` and ``rowmax_lse`` against their plain
+    versions: the LSTM encoder's shapes with ragged sources, a ragged odd
+    shape, and the unfused beam step's logits."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    from neuralmonkey_tpu_torch.ops import beam_select, cuda_rnn, nn
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    slice_lengths = torch.randint(1, SRC_LEN + 1, (BATCH,),
+                                  generator=gen).tolist()
+    # (batch, time, width, hidden, directions, lengths): the encoder's
+    # BiLSTM, and one reversed direction of an odd size with a length of 1
+    for batch, time_, width, hidden, reverse, lengths in (
+            (BATCH, SRC_LEN, EMB, RNN, (False, True), slice_lengths),
+            (5, 7, 24, 200, (True,), [7, 5, 3, 1, 6])):
+        timed = batch == BATCH
+        shape = (batch, time_, hidden, f"{len(reverse)} directions")
+        params = [{k: v.to(device) for k, v in
+                   nn.LSTMCell(width, hidden).init(gen).items()}
+                  for _ in reverse]
+        directions = list(zip(params, reverse))
+        reverse_mask = sum(1 << d for d, rev in enumerate(reverse) if rev)
+        inputs = randn(batch, time_, width)
+        mask = lengths_mask(lengths, time_)
+        xz = cuda_rnn.lstm_hoisted_inputs(params, inputs)
+        wh = torch.stack([p["kernel_h"] for p in params])
+        got = cuda_rnn.lstm_scan_forward(xz, mask, wh, 1.0, reverse_mask,
+                                         True)
+        ref = cuda_rnn.lstm_scan_reference(xz, mask, wh, 1.0, reverse)
+        err = max(max_err(g, r) for g, r in zip(got, ref))
+        # the wrapper's work, K1's convention: the hoisted input product
+        # and the scan
+        n_dirs = len(reverse)
+        work = (2 * batch * time_ * width * n_dirs * 4 * hidden
+                + n_dirs * time_ * batch * 8 * hidden * hidden,
+                4 * (batch * time_ * width + n_dirs * (width + hidden + 1)
+                     * 4 * hidden + batch * time_
+                     + batch * time_ * n_dirs * hidden
+                     + batch * n_dirs * hidden))
+        timing = {}
+        if timed:
+            lstm = cudnn_lstm(params, reverse, 1.0)
+            packed = pack_padded_sequence(inputs, torch.tensor(lengths),
+                                          batch_first=True,
+                                          enforce_sorted=False)
+            with torch.no_grad():
+                lib_out, (lib_h, _) = lstm(packed)
+            lib_out = pad_packed_sequence(lib_out, batch_first=True,
+                                          total_length=time_)[0]
+            lib_err = max(max_err(lib_out, got[0]), max_err(
+                lib_h.transpose(0, 1).reshape(batch, -1), got[1]))
+
+            def library_forward():
+                with torch.no_grad():
+                    return lstm(packed)
+            timing = timings(
+                lambda: cuda_rnn.lstm_scan(directions, inputs, mask),
+                lambda: cuda_rnn.lstm_scan_reference(
+                    cuda_rnn.lstm_hoisted_inputs(params, inputs), mask, wh,
+                    1.0, reverse),
+                library_forward)
+            timing["cudnn_max_abs_err"] = lib_err
+            log(f"lstm_scan {shape}: cuDNN LSTM on the packed sources "
+                f"differs from the kernel by {lib_err:.3g} (the same "
+                "function; another order of float32 sums)")
+        record("lstm_scan", err, 1e-5, shape, work=work, **timing)
+
+        # BPTT: the pre-activation gradients grow through the reverse
+        # steps, so the error is held against their largest entry
+        cprev = randn(batch, time_, n_dirs * hidden)
+        hprev = randn(batch, time_, n_dirs * hidden, scale=0.5)
+        gout = randn(batch, time_, n_dirs * hidden)
+        gfinal = randn(batch, n_dirs * hidden)
+        args = (xz, mask, cprev, hprev, gout, gfinal, wh, 1.0)
+        got = cuda_rnn.lstm_bptt(*args, reverse_mask)
+        ref = cuda_rnn.lstm_bptt_reference(*args, reverse)
+        work = (n_dirs * batch * time_ * (16 * hidden * hidden + 40 * hidden),
+                4 * (2 * batch * time_ * n_dirs * 4 * hidden + batch * time_
+                     + 3 * batch * time_ * n_dirs * hidden
+                     + batch * n_dirs * hidden
+                     + n_dirs * hidden * 4 * hidden))
+        timing = {}
+        if timed:
+            # autograd through the same cuDNN call: the input, weight
+            # and bias gradients together
+            leaves = [inputs.clone().requires_grad_(), *lstm.parameters()]
+            lib_out = lstm(pack_padded_sequence(
+                leaves[0], torch.tensor(lengths), batch_first=True,
+                enforce_sorted=False))[0].data
+            lib_grad = torch.randn(lib_out.shape, generator=gen).to(device)
+            timing = timings(
+                lambda: cuda_rnn.lstm_bptt(*args, reverse_mask),
+                lambda: cuda_rnn.lstm_bptt_reference(*args, reverse),
+                lambda: torch.autograd.grad(lib_out, leaves, lib_grad,
+                                            retain_graph=True))
+        record("lstm_bptt", max_err(got, ref) / max(1.0, float(
+            ref.abs().max())), 1e-4, shape, work=work, **timing)
+
+    # rowmax_lse: an unfused beam step's logits (B·K rows, the vocabulary
+    # padded with 4·NEG_INF to whole 128-column groups), and a small
+    # ragged case
+    vp = -(-VOCAB // 128) * 128
+    for n, v_real, vp_ in ((BATCH * BEAM, VOCAB, vp), (13, 300, 384)):
+        timed = n == BATCH * BEAM
+        x = torch.full((n, vp_), -4e9, device=device)
+        x[:, :v_real] = randn(n, v_real, scale=4.0)
+        got = beam_select.rowmax_lse(x)
+        ref = beam_select.rowmax_lse_reference(x)
+        if not torch.equal(got[0], ref[0]):
+            raise AssertionError(f"rowmax_lse {(n, vp_)}: the group maxima "
+                                 "differ from the plain version")
+        groups = vp_ // 128
+        work = (4 * n * vp_, 4 * (n * vp_ + n * groups + n))
+        timing = {}
+        if timed:
+            # no one PyTorch call computes both reductions; the plain
+            # version is the two calls (amax over the groups, logsumexp)
+            timing = dict(
+                ms=time_ms(lambda: beam_select.rowmax_lse(x)),
+                plain_ms=time_ms(lambda: beam_select.rowmax_lse_reference(x)),
+                call=lambda: beam_select.rowmax_lse(x))
+        record("rowmax_lse", float(((got[1] - ref[1]).abs()
+                                    / ref[1].abs()).max()), 1e-5, (n, vp_),
+               work=work, **timing)
+
+
 def timings(kernel, plain, library):
     """``record``'s timing arguments: the device times of the kernel's
     wrapper, its plain version and the library call, and the wrapper to
@@ -662,6 +841,7 @@ path="{tmp}/words.txt"
 class=encoders.recurrent.SentenceEncoder
 name="sentence_encoder"
 rnn_size={rnn}
+rnn_cell="{cell}"
 max_input_len={src_len}
 embedding_size={emb}
 data_id="source"
@@ -715,7 +895,9 @@ s_target_beam_out="{tmp}/{prefix}beam.txt"
 """
 
 
-def write_inputs(tmp: str):
+def write_inputs(tmp: str, cell: str = "GRU", prefix: str = ""):
+    """The words, the 128 sources, and the serving INIs of the model with
+    ``cell`` in its encoder (``{prefix}exp.ini``, ``{prefix}data.ini``)."""
     import numpy as np
     words = [f"w{i}" for i in range(VOCAB - 4)]
     with open(os.path.join(tmp, "words.txt"), "w") as f:
@@ -725,14 +907,14 @@ def write_inputs(tmp: str):
         for _ in range(N_SENTENCES):
             f.write(" ".join(words[i] for i in rng.randint(
                 0, len(words), SRC_LEN)) + "\n")
-    exp_ini = os.path.join(tmp, "exp.ini")
+    exp_ini = os.path.join(tmp, f"{prefix}exp.ini")
     with open(exp_ini, "w") as f:
         f.write(EXPERIMENT_INI.format(
             tmp=tmp, batch=BATCH, seed=SEED, rnn=RNN, src_len=SRC_LEN,
-            emb=EMB, att=ATT, max_out=MAX_OUT, beam=BEAM))
-    data_ini = os.path.join(tmp, "data.ini")
+            emb=EMB, att=ATT, max_out=MAX_OUT, beam=BEAM, cell=cell))
+    data_ini = os.path.join(tmp, f"{prefix}data.ini")
     with open(data_ini, "w") as f:
-        f.write(DATA_INI.format(tmp=tmp, prefix=""))
+        f.write(DATA_INI.format(tmp=tmp, prefix=prefix))
     return exp_ini, data_ini
 
 
@@ -987,6 +1169,7 @@ s_target="{tmp}/val.tgt"
 class=encoders.recurrent.SentenceEncoder
 name="sentence_encoder"
 rnn_size={rnn}
+rnn_cell="{cell}"
 max_input_len={src_len}
 embedding_size={emb}
 dropout_keep_prob={keep}
@@ -1054,11 +1237,13 @@ s_target_beam_out="{out}/beam.txt"
 """
 
 
-def write_training_inputs(tmp: str) -> str:
+def write_training_inputs(tmp: str, cell: str = "GRU",
+                          name: str = "train.ini") -> str:
     """Synthetic pairs (the words of ``write_inputs``): a source of 32
     words from the first 2000, and as its target the source and its
     first 15 words again, each through a fixed map onto the whole
-    vocabulary, so 47 words and </s> fill the 48 decoder steps."""
+    vocabulary, so 47 words and </s> fill the 48 decoder steps; and the
+    training INI of the model with ``cell`` in its encoder."""
     import numpy as np
     n_words = VOCAB - 4
     rng = np.random.RandomState(SEED + 2)
@@ -1070,12 +1255,12 @@ def write_training_inputs(tmp: str) -> str:
             with open(os.path.join(tmp, f"{split}.{name}"), "w") as f:
                 f.writelines(" ".join(f"w{i}" for i in row) + "\n"
                              for row in ids)
-    path = os.path.join(tmp, "train.ini")
+    path = os.path.join(tmp, name)
     with open(path, "w") as f:
         f.write(TRAIN_INI.format(
             tmp=tmp, out=os.path.join(tmp, "train_out"), batch=BATCH,
             seed=SEED, rnn=RNN, src_len=SRC_LEN, emb=EMB, att=ATT,
-            tgt_len=TGT_LEN, beam=BEAM, keep=KEEP_PROB))
+            tgt_len=TGT_LEN, beam=BEAM, keep=KEEP_PROB, cell=cell))
     return path
 
 
@@ -1478,6 +1663,66 @@ def run_transformer_serving(tmp: str):
     return launches, report, exp, exp_ini, data_ini, ckpt
 
 
+# ---------------------------------------------------------------------- #
+# phases 13-16: the flagship model with an LSTM encoder
+# ---------------------------------------------------------------------- #
+def run_lstm_serving(tmp: str):
+    """Phase 13: 128 sentences through ``run``, greedy and beam 10 with
+    the fused logit projection, then again with ``NM_FUSED_LOGITS=0``,
+    where the selector reduces the plain logits with ``rowmax_lse``."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    exp_ini, data_ini = write_inputs(tmp, "LSTM", "lstm_")
+    exp = Experiment(exp_ini)
+    exp.build_model()
+    ckpt = exp.tf_manager.save(os.path.join(tmp, "lstm_params"))
+    outputs = [os.path.join(tmp, f"lstm_{name}.txt")
+               for name in ("greedy", "beam")]
+    launches, fused_out = serve_through_run(
+        exp_ini, data_ini, ckpt, LSTM_SERVING_KERNELS, outputs,
+        "lstm serving")
+    speed = serving_speed(exp, ckpt, data_ini, exp.model.runners)
+    os.environ["NM_FUSED_LOGITS"] = "0"
+    try:
+        unfused, unfused_out = serve_through_run(
+            exp_ini, data_ini, ckpt, LSTM_UNFUSED_KERNELS, outputs,
+            "lstm serving, NM_FUSED_LOGITS=0")
+        speed.update(serving_speed(exp, ckpt, data_ini, exp.model.runners[1:],
+                                   " (NM_FUSED_LOGITS=0)"))
+    finally:
+        os.environ.pop("NM_FUSED_LOGITS")
+    wrong = [k for k, n in (("gru_scan", launches["gru_scan"]
+                             + unfused["gru_scan"]),
+                            ("rowmax_lse", launches["rowmax_lse"]),
+                            ("fused_logits_rowmax_lse",
+                             unfused["fused_logits_rowmax_lse"])) if n]
+    if wrong:
+        raise AssertionError(f"lstm serving launched {wrong}: the GRU scan "
+                             "in the LSTM model, or the reductions of the "
+                             "other selection form")
+    launches = {k: n + unfused[k] for k, n in launches.items()}
+    # the two selection forms on the card: equal ids unless a near-tie
+    # falls the other way (phase 14 holds each form to the CPU's)
+    same = sum(a == b for a, b in zip(fused_out["lstm_beam.txt"],
+                                      unfused_out["lstm_beam.txt"]))
+    report = {"mean_output_tokens": mean_lengths(fused_out), "speed": speed,
+              "beam_forms_identical": f"{same}/{N_SENTENCES}"}
+    log(f"lstm serving: {report}")
+    return launches, report, exp, exp_ini, data_ini, ckpt
+
+
+def check_lstm_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
+    """Phase 14: phase 5's rule for the LSTM model, with the fused logit
+    projection and under ``NM_FUSED_LOGITS=0``."""
+    report = {"fused": check_parity(exp_ini, data_ini, gpu_exp, ckpt)}
+    os.environ["NM_FUSED_LOGITS"] = "0"
+    try:
+        report["unfused"] = check_parity(exp_ini, data_ini, gpu_exp, ckpt)
+    finally:
+        os.environ.pop("NM_FUSED_LOGITS")
+    return report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "neuralmonkey_tpu_torch")):
         log("neuralmonkey_tpu_torch not found beside chip_smoke.py: run "
@@ -1563,6 +1808,20 @@ def main() -> int:
                                check_train_parity, t_train_ini, t_best,
                                ("encoder", "decoder"), True)
 
+        l_launches, l_serving, l_exp, l_ini, l_data_ini, l_ckpt = phase(
+            "lstm serving", run_lstm_serving, tmp)
+        launches = {k: n + l_launches[k] for k, n in launches.items()}
+        l_serving["parity"] = phase("lstm parity", check_lstm_parity, l_ini,
+                                    l_data_ini, l_exp, l_ckpt)
+        del l_exp
+        l_train_ini = write_training_inputs(tmp, "LSTM", "lstm_train.ini")
+        l_launches, l_record, l_best = phase(
+            "lstm training", run_training, tmp, l_train_ini, False,
+            "lstm_train", LSTM_TRAINING_KERNELS)
+        launches = {k: n + l_launches[k] for k, n in launches.items()}
+        l_train_parity = phase("lstm training parity", check_train_parity,
+                               l_train_ini, l_best)
+
     print(smi)
     print(json.dumps({
         "device": smi,
@@ -1574,6 +1833,10 @@ def main() -> int:
                      "runs": training, "parity": train_parity},
         "transformer": {"serving": t_serving, "training": t_record,
                         "training_parity": t_train_parity},
+        "lstm": {"serving": l_serving, "training": l_record,
+                 "training_parity": l_train_parity},
+        "lstm_scan_cudnn_max_abs_err": kernels["lstm_scan"][
+            "cudnn_max_abs_err"],
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -1,5 +1,6 @@
 // K3: logit projection with the beam selector's reductions in its epilogue.
 // K4: exact small top-k with lowest-index tie-breaking.
+// rowmax_lse: the same reductions over logits that already exist.
 //
 // K3 replaces neuralmonkey_tpu/ops/beam_select.py `_fused_kernel` (called by
 // `_fused_pallas`): logits = x W + b for x (N, Dm), W (Dm, Vp), b (Vp), with
@@ -18,6 +19,18 @@
 // exp(logit - rowmax) into an (N, R) scratch and a second small kernel folds
 // the R partials of a row into lse. The logits are written once and never
 // re-read. Tensor cores (wgmma, TF32 or bf16) are left for a later change.
+//
+// rowmax_lse replaces `_kernel` (called by `_rowmax_lse_pallas`): for (N, Vp)
+// logits, Vp a multiple of 128, the maximum of every 128-column group and each
+// row's log-sum-exp, in one read of the logits. The beam search runs it when
+// the fused projection is switched off (NM_FUSED_LOGITS=0). What bounds it:
+// the bytes of the logits (77 MB at N = 640, Vp = 30080); it does a few
+// operations per element. The design reuses K3's reductions: one warp per
+// (row, group) reads its 128 columns as one float4 per lane and writes the
+// group's maximum and its sum of exp(x - max); K3's fold kernel then turns the
+// R partials of a row into lse, rescaling each by exp(max_r - M), in one fixed
+// order with no atomics. Any N >= 1 (the TPU's 8-row blocks do not carry
+// over).
 //
 // K4 replaces `_topk_kernel` (called by `_topk_pallas`): the k largest values
 // of each short row (k = beam, rows of K * R or K * 128 entries) in
@@ -94,6 +107,28 @@ __global__ void lse_fold_kernel(const float* __restrict__ rowmax,
   for (int r = lane; r < R; r += 32) s += ps[r] * expf(rm[r] - mx);
   s = nm::warp_sum(s);
   if (lane == 0) lse[n] = mx + logf(s);
+}
+
+constexpr int kGroupWarps = 8;  // 128-column groups per rowmax_lse block
+
+__global__ void __launch_bounds__(32 * kGroupWarps)
+rowmax_lse_kernel(const float* __restrict__ x,  // (N, Vp)
+                  float* __restrict__ rowmax,   // (N, R)
+                  float* __restrict__ psum,     // (N, R) scratch
+                  int Vp) {
+  const int R = Vp / 128;
+  const int g = blockIdx.y * kGroupWarps + threadIdx.x / 32;
+  if (g >= R) return;
+  const int lane = threadIdx.x & 31;
+  const size_t n = blockIdx.x;
+  const float4 v = *reinterpret_cast<const float4*>(x + n * Vp + g * 128 + lane * 4);
+  const float mx = nm::warp_max(fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+  const float s = nm::warp_sum(expf(v.x - mx) + expf(v.y - mx) + expf(v.z - mx) +
+                               expf(v.w - mx));
+  if (lane == 0) {
+    rowmax[n * R + g] = mx;
+    psum[n * R + g] = s;
+  }
 }
 
 constexpr int kTopkThreads = 256;
@@ -183,6 +218,22 @@ NM_EXPORT int nm_fused_logits(const void* x, const void* w, const void* bias, vo
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(logits),
       static_cast<float*>(rowmax), static_cast<float*>(psum), N, Dm, Vp);
+  int status = nm::launch_status();
+  if (status != 0) return status;
+  constexpr int kRowsPerBlock = 8;
+  lse_fold_kernel<<<(N + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, s>>>(
+      static_cast<const float*>(rowmax), static_cast<const float*>(psum),
+      static_cast<float*>(lse), N, R);
+  return nm::launch_status();
+}
+
+NM_EXPORT int nm_rowmax_lse(const void* x, void* rowmax, void* psum, void* lse, int N, int Vp,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = Vp / 128;
+  const dim3 grid(N, (R + kGroupWarps - 1) / kGroupWarps);
+  rowmax_lse_kernel<<<grid, 32 * kGroupWarps, 0, s>>>(
+      static_cast<const float*>(x), static_cast<float*>(rowmax), static_cast<float*>(psum), Vp);
   int status = nm::launch_status();
   if (status != 0) return status;
   constexpr int kRowsPerBlock = 8;

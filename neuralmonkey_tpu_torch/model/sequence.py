@@ -1,10 +1,12 @@
 """Embedded input sequences (counterpart of
-``neuralmonkey_tpu/model/sequence.py``, ``EmbeddedSequence`` only)."""
+``neuralmonkey_tpu/model/sequence.py``): ``EmbeddedSequence`` maps a
+tokenized series to embeddings; ``EmbeddedFactorSequence`` concatenates
+the embeddings of several aligned series (words and their factors)."""
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -104,3 +106,78 @@ class EmbeddedSequence(ModelPart, TemporalStateful):
     @tensor
     def temporal_states(self, ctx: Context):
         return self.embed(ctx, self.data(ctx))
+
+
+class EmbeddedFactorSequence(ModelPart, TemporalStateful):
+    """Concatenation of per-factor embeddings over aligned series."""
+
+    def __init__(self, name: str,
+                 vocabularies: List[Vocabulary],
+                 data_ids: List[str],
+                 embedding_sizes: List[int],
+                 max_length: int = None,
+                 add_start_symbol: bool = False,
+                 add_end_symbol: bool = False,
+                 reuse: ModelPart = None,
+                 save_checkpoint: str = None,
+                 load_checkpoint: str = None) -> None:
+        ModelPart.__init__(self, name, reuse, save_checkpoint,
+                           load_checkpoint)
+        if not (len(vocabularies) == len(data_ids)
+                == len(embedding_sizes)):
+            raise ValueError(
+                "vocabularies, data_ids and embedding_sizes must have "
+                "the same length")
+        self.vocabularies = vocabularies
+        self.data_ids = data_ids
+        self.embedding_sizes = embedding_sizes
+        self.max_length = max_length
+        self.add_start_symbol = add_start_symbol
+        self.add_end_symbol = add_end_symbol
+
+    @property
+    def state_dim(self) -> int:
+        return sum(self.embedding_sizes)
+
+    def _ids_key(self, factor: int) -> str:
+        return f"{self.name}.{factor}.ids"
+
+    @property
+    def mask_key(self) -> str:
+        return f"{self.name}.mask"
+
+    def init_params(self, gen: torch.Generator) -> Dict[str, Any]:
+        return {f"embeddings_{i}": torch.randn((len(vocab), size),
+                                               generator=gen) * 0.01
+                for i, (vocab, size) in enumerate(
+                    zip(self.vocabularies, self.embedding_sizes))}
+
+    def featurize(self, dataset, train: bool = False
+                  ) -> Dict[str, np.ndarray]:
+        """Each factor's ids; the mask of the longest factor."""
+        out: Dict[str, np.ndarray] = {}
+        mask = None
+        for i, (vocab, data_id) in enumerate(
+                zip(self.vocabularies, self.data_ids)):
+            ids, m = vocab.sentences_to_tensor(
+                dataset.get_series(data_id), max_len=self.max_length,
+                train_mode=train, add_start_symbol=self.add_start_symbol,
+                add_end_symbol=self.add_end_symbol)
+            out[self._ids_key(i)] = ids
+            if mask is None or m.shape[1] > mask.shape[1]:
+                mask = m
+        out[self.mask_key] = mask
+        return out
+
+    @tensor
+    def temporal_mask(self, ctx: Context):
+        return ctx.batch[self.mask_key]
+
+    @tensor
+    def temporal_states(self, ctx: Context):
+        params = ctx.get_params(self)
+        time = ctx.batch[self.mask_key].shape[1]
+        return torch.cat(
+            [F.embedding(ctx.batch[self._ids_key(i)][:, :time],
+                         params[f"embeddings_{i}"])
+             for i in range(len(self.data_ids))], dim=-1)

@@ -26,7 +26,7 @@ import torch
 
 from ...model.part import Context, ModelPart, tensor
 from ...model.sequence import EmbeddedSequence
-from ...ops import fused_xent
+from ...ops import fused_xent, kernel_config
 from ...ops.beam_select import fused_logits_rowmax_lse
 from ...vocabulary import (END_TOKEN_INDEX, PAD_TOKEN_INDEX,
                            START_TOKEN_INDEX, UNK_TOKEN_INDEX, Vocabulary)
@@ -240,7 +240,11 @@ class AutoregressiveDecoder(ModelPart):
         steps emit the logits AND the hierarchical selector's two
         reductions from one kernel (K3). The pad columns are never
         selected, so the selection is the same as from the plain
-        logits."""
+        logits. Returns the constants unchanged under
+        ``NM_FUSED_LOGITS=0`` (``kernel_config.use_fused_logits``): the
+        selector then reduces the plain logits with ``rowmax_lse``."""
+        if not kernel_config.use_fused_logits():
+            return constants
         params = constants["params"]
         if self.tie_embeddings:
             w = constants["embed_table"].T

@@ -11,8 +11,9 @@ with the Wu et al. (2016) length penalty and keeps the best K:
   the top K of those (K4), then the exact top K over the chosen
   columns (K4 again). The reductions come from the fused logit
   projection (K3), which the search arms for every hierarchical
-  search. Exact: a column group holding a top-K element ranks in the
-  top K groups by its maximum;
+  search, or under ``NM_FUSED_LOGITS=0`` from ``rowmax_lse`` over the
+  plain logits padded to whole 128-column groups. Exact: a column group
+  holding a top-K element ranks in the top K groups by its maximum;
 - ``flat`` selection takes the top K over the whole (B, K·V) matrix.
 
 The parent decoder must support lineage decoding (the RNN and
@@ -148,7 +149,8 @@ class BeamSearchDecoder(ModelPart):
                      precomputed=None):
         """Exact two-stage selection without (B, K, V) intermediates;
         ``precomputed`` carries (rowmax, lse) from the fused logit
-        projection when the decode step emitted them."""
+        projection when the decode step emitted them, and ``rowmax_lse``
+        computes them otherwise."""
         beam = self.beam_size
         vocab = x.shape[-1]
         rows_per_beam = -(-vocab // LANE)
@@ -231,6 +233,7 @@ class BeamSearchDecoder(ModelPart):
         select_fn = (self._select_hier if method == "hierarchical"
                      else self._select_flat)
         if method == "hierarchical":
+            # a no-op under NM_FUSED_LOGITS=0
             constants = parent.prepare_selection_fusion(constants)
         constants = parent.tile_decode_constants_lineage(constants, beam)
         state = parent.tile_decode_state(state, beam)

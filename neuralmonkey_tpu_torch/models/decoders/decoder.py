@@ -62,6 +62,13 @@ class Decoder(AutoregressiveDecoder):
         self.output_projection = output_projection
         self.rnn_cell_type = rnn_cell
         self.conditional_gru = conditional_gru
+        if rnn_cell == "LSTM":
+            # the JAX Decoder fails for it too: its state is one (B, H)
+            # array, which LSTMCell unpacks as (c, h)
+            raise ValueError(
+                "Decoder: rnn_cell 'LSTM' is not supported (the decoder "
+                "state is a single (B, H) tensor); LSTM cells serve the "
+                "encoders")
         for att in self.attentions:
             if getattr(att, "stateful_attention", False):
                 raise NotImplementedError(

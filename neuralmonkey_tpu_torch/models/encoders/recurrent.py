@@ -3,8 +3,10 @@
 
 ``RecurrentEncoder`` runs a (stacked, optionally bidirectional) RNN over
 any TemporalStateful input; ``SentenceEncoder`` owns its own
-``EmbeddedSequence``. Plain GRU layers run the fused scan (kernel K1)
-on the GPU, both directions in one launch (``ops/rnn.py``).
+``EmbeddedSequence``, ``FactoredEncoder`` an ``EmbeddedFactorSequence``,
+and ``DeepSentenceEncoder`` stacks layers of equal size. GRU layers run
+the fused GRU scan (kernel K1) on the GPU, LSTM layers the fused LSTM
+scan, both directions of a layer in one launch (``ops/rnn.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Any, Dict, List
 import torch
 
 from ...model.part import Context, ModelPart, tensor
-from ...model.sequence import EmbeddedSequence
+from ...model.sequence import EmbeddedFactorSequence, EmbeddedSequence
 from ...model.stateful import TemporalStatefulWithOutput
 from ...ops import nn
 from ...ops.rnn import bidirectional_rnn, unidirectional_rnn
@@ -153,3 +155,63 @@ class SentenceEncoder(RecurrentEncoder):
         self.data_id = data_id
         self.embedding_size = embedding_size
         self.max_input_len = max_input_len
+
+
+class FactoredEncoder(RecurrentEncoder):
+    """Recurrent encoder over concatenated factor embeddings."""
+
+    def __init__(self, name: str,
+                 vocabularies: List[Vocabulary],
+                 data_ids: List[str],
+                 embedding_sizes: List[int],
+                 rnn_size: int,
+                 rnn_cell: str = "GRU",
+                 rnn_direction: str = "bidirectional",
+                 max_input_len: int = None,
+                 dropout_keep_prob: float = 1.0,
+                 reuse: ModelPart = None,
+                 save_checkpoint: str = None,
+                 load_checkpoint: str = None) -> None:
+        input_sequence = EmbeddedFactorSequence(
+            name=f"{name}_input",
+            vocabularies=vocabularies,
+            data_ids=data_ids,
+            embedding_sizes=embedding_sizes,
+            max_length=max_input_len)
+        super().__init__(
+            name=name, input_sequence=input_sequence, rnn_size=rnn_size,
+            rnn_cell=rnn_cell, rnn_direction=rnn_direction,
+            dropout_keep_prob=dropout_keep_prob,
+            reuse=reuse, save_checkpoint=save_checkpoint,
+            load_checkpoint=load_checkpoint)
+        self.vocabularies = vocabularies
+        self.data_ids = data_ids
+
+
+class DeepSentenceEncoder(SentenceEncoder):
+    """Multi-layer sentence encoder (depth from per-layer sizes, which
+    must be equal)."""
+
+    def __init__(self, name: str,
+                 vocabulary: Vocabulary,
+                 data_id: str,
+                 embedding_size: int,
+                 rnn_sizes: List[int],
+                 rnn_cell: str = "GRU",
+                 rnn_direction: str = "bidirectional",
+                 max_input_len: int = None,
+                 dropout_keep_prob: float = 1.0,
+                 reuse: ModelPart = None,
+                 save_checkpoint: str = None,
+                 load_checkpoint: str = None) -> None:
+        if len(set(rnn_sizes)) != 1:
+            raise ValueError(
+                "DeepSentenceEncoder requires equal per-layer sizes")
+        super().__init__(
+            name=name, vocabulary=vocabulary, data_id=data_id,
+            embedding_size=embedding_size, rnn_size=rnn_sizes[0],
+            rnn_cell=rnn_cell, rnn_direction=rnn_direction,
+            num_layers=len(rnn_sizes), max_input_len=max_input_len,
+            dropout_keep_prob=dropout_keep_prob, reuse=reuse,
+            save_checkpoint=save_checkpoint,
+            load_checkpoint=load_checkpoint)

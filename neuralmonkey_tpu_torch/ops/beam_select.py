@@ -1,13 +1,14 @@
-"""Beam-selection kernels: K3 (fused logits + reductions), K4 (top-k).
+"""Beam-selection kernels: K3 (fused logits + reductions), ``rowmax_lse``
+and K4 (top-k).
 
 Counterpart of ``neuralmonkey_tpu/ops/beam_select.py``. The
 hierarchical beam selector (``models/decoders/beam_search_decoder.py``
 ``_select_hier``) needs, per step, the maximum of every 128-column
 group of each row of logits (``rowmax``) and each row's log-sum-exp
 (``lse``). ``fused_logits_rowmax_lse`` computes both in the epilogue of
-the logit projection itself (K3, ``csrc/beam_select.cu``); the beam
-search arms it for every single-model hierarchical search, so
-``rowmax_lse`` over existing logits only has its plain version here.
+the logit projection itself (K3, ``csrc/beam_select.cu``), which the
+beam search arms unless ``NM_FUSED_LOGITS=0``; ``rowmax_lse`` computes
+them over existing logits, in one read, when it does not.
 ``small_topk`` is the exact top-k both selection stages use (K4).
 """
 
@@ -25,18 +26,35 @@ LANE = 128
 MAX_TOPK_ROW = 12000
 
 
-def rowmax_lse(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-128-column-group maxima (N, R) and per-row log-sum-exp (N,)
-    of (N, R·128) logits. The TPU kernel (``beam_select._kernel``) is
-    not ported: the beam path takes the reductions from K3."""
-    if x.is_cuda:
-        raise NotImplementedError(
-            "rowmax_lse has no CUDA kernel yet (neuralmonkey_tpu/ops/"
-            "beam_select.py _rowmax_lse_pallas is not ported); the beam "
-            "search takes these reductions from fused_logits_rowmax_lse")
+def rowmax_lse_reference(x: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``rowmax_lse``."""
     n, vp = x.shape
     rowmax = x.reshape(n, vp // LANE, LANE).amax(dim=2)
     return rowmax, torch.logsumexp(x, dim=1)
+
+
+def rowmax_lse(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-128-column-group maxima (N, R) and per-row log-sum-exp (N,)
+    of (N, R·128) f32 logits. Launches ``rowmax_lse`` for CUDA tensors,
+    runs the plain version otherwise."""
+    n, vp = x.shape
+    if vp % LANE:
+        raise ValueError(f"rowmax_lse: x {tuple(x.shape)}; the row length "
+                         f"must be a multiple of {LANE}")
+    if not x.is_cuda:
+        return rowmax_lse_reference(x)
+    if n == 0 or vp == 0:
+        raise ValueError(f"rowmax_lse: empty x {(n, vp)}")
+    kernel_config.check_cuda_inputs("rowmax_lse", x=x)
+    if x.data_ptr() % 16:
+        raise ValueError("rowmax_lse: x is not 16-byte aligned")
+    groups = vp // LANE
+    rowmax = x.new_empty(n, groups)
+    partial_sums = x.new_empty(n, groups)
+    lse = x.new_empty(n)
+    kernel_config.launch("rowmax_lse", x, rowmax, partial_sums, lse, n, vp)
+    return rowmax, lse
 
 
 def fused_logits_reference(x: torch.Tensor, w: torch.Tensor,
@@ -46,9 +64,7 @@ def fused_logits_reference(x: torch.Tensor, w: torch.Tensor,
     """Plain version of K3: (logits (N, Vp), rowmax (N, Vp/128),
     lse (N,)) of ``x @ w + b``."""
     logits = torch.matmul(x, w) + b
-    n, vp = logits.shape
-    rowmax = logits.reshape(n, vp // LANE, LANE).amax(dim=2)
-    return logits, rowmax, torch.logsumexp(logits, dim=1)
+    return (logits, *rowmax_lse_reference(logits))
 
 
 def fused_logits_rowmax_lse(x: torch.Tensor, w: torch.Tensor,

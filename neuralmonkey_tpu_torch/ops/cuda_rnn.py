@@ -1,26 +1,30 @@
-"""Fused masked GRU scan and its BPTT: kernels K1 and B1-backward with
-their plain PyTorch versions.
+"""Fused masked GRU and LSTM scans and their BPTT: kernels K1,
+``gru_bptt``, ``lstm_scan`` and ``lstm_bptt`` with their plain PyTorch
+versions.
 
 Counterpart of ``neuralmonkey_tpu/ops/pallas_rnn.py``. The input-side
-products ``x @ gates_x`` and ``x @ cand_x`` are hoisted out of the time
-loop into one matmul over every direction (``pallas_rnn.py``
-``_hoisted_inputs_tm``); the serial part runs in one launch for all
-directions: the forward in ``csrc/gru_scan.cu`` (K1), the reverse-time
-pass of the backward in ``csrc/gru_bptt.cu`` (``gru_bptt``), or in
-their plain versions for tensors on the CPU.
+products (``x @ gates_x`` and ``x @ cand_x`` for the GRU, ``x @ kernel_x``
+for the LSTM) are hoisted out of the time loop into one matmul over
+every direction (``pallas_rnn.py`` ``_hoisted_inputs_tm``,
+``_lstm_hoisted_inputs_tm``); the serial part runs in one launch for all
+directions: the forward in ``csrc/gru_scan.cu`` (K1) or
+``csrc/lstm_scan.cu``, the reverse-time pass of the backward in
+``csrc/gru_bptt.cu`` or ``csrc/lstm_bptt.cu``, or in their plain
+versions for tensors on the CPU.
 
-:class:`_GRUScan` is the autograd Function around both, as
-``pallas_rnn.gru_scan``'s custom VJP is. Its gradient with respect to
-the hoisted inputs is exactly the per-step pre-activation gradients the
-BPTT pass emits, so autograd carries it through the hoisted matmul into
-``gates_x``/``cand_x``/the biases/the inputs; the recurrent weights'
-gradients are two large products over B·T (``torch.matmul``, where the
-JAX package leaves them to XLA, ``_gru_scan_bwd``).
+:class:`_GRUScan` and :class:`_LSTMScan` are the autograd Functions
+around them, as ``pallas_rnn.gru_scan``'s and ``lstm_scan``'s custom
+VJPs are. The gradient with respect to the hoisted inputs is exactly the
+per-step pre-activation gradients the BPTT pass emits, so autograd
+carries it through the hoisted matmul into the input weights, the
+biases and the inputs; the recurrent weights' gradients are large
+products over B·T (``torch.matmul``, where the JAX package leaves them
+to XLA, ``_gru_scan_bwd``, ``_lstm_scan_bwd``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +37,9 @@ _KERNEL_ROWS = 1
 _SHARED_BYTES = 227 * 1024
 # csrc/gru_bptt.cu keeps eight H-wide f32 vectors of one row in shared memory
 _BPTT_VECTORS = 8
+# csrc/lstm_bptt.cu keeps seven (h_prev, dz of 4H, dc, dh); csrc/lstm_scan.cu
+# three (h twice, c)
+_LSTM_VECTORS = 7
 
 
 def scan_fits(hidden: int) -> bool:
@@ -44,6 +51,12 @@ def scan_fits(hidden: int) -> bool:
 def bptt_fits(hidden: int) -> bool:
     """The same for the BPTT kernel (H <= 7264)."""
     return _BPTT_VECTORS * -(-hidden // 4) * 4 * 4 <= _SHARED_BYTES
+
+
+def lstm_scan_fits(hidden: int) -> bool:
+    """Whether the LSTM kernels, forward and BPTT, take this hidden size:
+    any size whose vectors fit one SM's shared memory (H <= 8300)."""
+    return _LSTM_VECTORS * -(-hidden // 4) * 4 * 4 <= _SHARED_BYTES
 
 
 def hoisted_inputs(directions: Sequence[Params],
@@ -265,3 +278,218 @@ def gru_scan(directions: Sequence[Tuple[Params, bool]],
                        if rev)
     return _GRUScan.apply(x.contiguous(), mask.contiguous(), wgh, wch,
                           reverse_mask)
+
+
+# ---------------------------------------------------------------------- #
+# LSTM
+# ---------------------------------------------------------------------- #
+def lstm_hoisted_inputs(directions: Sequence[Params],
+                        inputs: torch.Tensor) -> torch.Tensor:
+    """(B, T, D·4H): per direction ``x @ kernel_x + bias``, gates in
+    i, j, f, o order, from one matmul."""
+    w = torch.cat([p["kernel_x"] for p in directions], dim=1)
+    b = torch.cat([p["bias"] for p in directions])
+    return torch.matmul(inputs, w) + b
+
+
+def _lstm_gates(z: torch.Tensor, forget_bias: float):
+    """σ(i), tanh(j), σ(f + forget_bias), σ(o) of pre-activations
+    ``z`` (..., 4H), as ``pallas_rnn._lstm_scan_kernel`` computes them."""
+    i, j, f, o = z.chunk(4, dim=-1)
+    return (torch.sigmoid(i), torch.tanh(j), torch.sigmoid(f + forget_bias),
+            torch.sigmoid(o))
+
+
+def lstm_scan_reference(xz: torch.Tensor, mask: torch.Tensor,
+                        wh: torch.Tensor, forget_bias: float,
+                        reverse: Sequence[bool]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """Plain version of ``lstm_scan``. ``xz`` (B, T, D·4H) hoisted
+    inputs, ``mask`` (B, T), ``wh`` (D, H, 4H). Returns outputs
+    (B, T, D·H), zero at padding, the final carried h (B, D·H), and the
+    c and h carries after every step (B, T, D·H each), which the BPTT
+    reads; direction d fills columns d·H .. (d+1)·H."""
+    batch, time, _ = xz.shape
+    n_dirs, hidden, _ = wh.shape
+    outputs, finals, c_carries, h_carries = [], [], [], []
+    for d in range(n_dirs):
+        xd = xz[:, :, 4 * hidden * d:4 * hidden * (d + 1)]
+        c = xz.new_zeros(batch, hidden)
+        h = xz.new_zeros(batch, hidden)
+        out = xz.new_zeros(batch, time, hidden)
+        c_car = xz.new_zeros(batch, time, hidden)
+        h_car = xz.new_zeros(batch, time, hidden)
+        steps = range(time - 1, -1, -1) if reverse[d] else range(time)
+        for t in steps:
+            m = mask[:, t, None]
+            si, tj, sf, so = _lstm_gates(xd[:, t] + h @ wh[d], forget_bias)
+            new_c = c * sf + si * tj
+            new_h = torch.tanh(new_c) * so
+            out[:, t] = m * new_h
+            c = m * new_c + (1.0 - m) * c
+            h = m * new_h + (1.0 - m) * h
+            c_car[:, t] = c
+            h_car[:, t] = h
+        outputs.append(out)
+        finals.append(h)
+        c_carries.append(c_car)
+        h_carries.append(h_car)
+    return (torch.cat(outputs, dim=-1), torch.cat(finals, dim=-1),
+            torch.cat(c_carries, dim=-1), torch.cat(h_carries, dim=-1))
+
+
+def lstm_bptt_reference(xz: torch.Tensor, mask: torch.Tensor,
+                        cprev: torch.Tensor, hprev: torch.Tensor,
+                        gout: torch.Tensor, gfinal: torch.Tensor,
+                        wh: torch.Tensor, forget_bias: float,
+                        reverse: Sequence[bool]) -> torch.Tensor:
+    """Plain version of ``lstm_bptt``, step for step the arithmetic of
+    ``pallas_rnn._lstm_bwd_kernel``: the reverse-time pass from
+    ``dc = 0``, ``dh = gfinal``, recomputing each step's gates from the
+    saved pre-step ``cprev`` and ``hprev``. Returns the pre-activation
+    gradients ``dz`` (B, T, D·4H) laid out as ``xz``."""
+    batch, time, _ = xz.shape
+    n_dirs, hidden, _ = wh.shape
+    dxz = torch.zeros_like(xz)
+    for d in range(n_dirs):
+        cols = slice(d * hidden, (d + 1) * hidden)
+        zcols = slice(4 * hidden * d, 4 * hidden * (d + 1))
+        dc = xz.new_zeros(batch, hidden)
+        dh = gfinal[:, cols]
+        steps = range(time) if reverse[d] else range(time - 1, -1, -1)
+        for t in steps:
+            m = mask[:, t, None]
+            c_prev = cprev[:, t, cols]
+            si, tj, sf, so = _lstm_gates(
+                xz[:, t, zcols] + hprev[:, t, cols] @ wh[d], forget_bias)
+            tc = torch.tanh(c_prev * sf + si * tj)
+            dh_new = m * (dh + gout[:, t, cols])
+            dc_new = m * dc + dh_new * so * (1.0 - tc * tc)
+            dz = torch.cat([dc_new * tj * si * (1.0 - si),
+                            dc_new * si * (1.0 - tj * tj),
+                            dc_new * c_prev * sf * (1.0 - sf),
+                            dh_new * tc * so * (1.0 - so)], dim=-1)
+            dxz[:, t, zcols] = dz
+            dc = (1.0 - m) * dc + dc_new * sf
+            dh = (1.0 - m) * dh + dz @ wh[d].T
+    return dxz
+
+
+def lstm_bptt(xz: torch.Tensor, mask: torch.Tensor, cprev: torch.Tensor,
+              hprev: torch.Tensor, gout: torch.Tensor, gfinal: torch.Tensor,
+              wh: torch.Tensor, forget_bias: float,
+              reverse_mask: int) -> torch.Tensor:
+    """The LSTM BPTT's serial pass: launches ``lstm_bptt`` for CUDA
+    tensors, runs the plain version otherwise."""
+    n_dirs, hidden, _ = wh.shape
+    if not xz.is_cuda:
+        return lstm_bptt_reference(xz, mask, cprev, hprev, gout, gfinal, wh,
+                                   forget_bias,
+                                   _directions(reverse_mask, n_dirs))
+    if not lstm_scan_fits(hidden):
+        raise ValueError(f"lstm_bptt: hidden size {hidden} does not fit "
+                         "the kernel's shared memory")
+    batch, time, _ = xz.shape
+    gout, gfinal = gout.contiguous(), gfinal.contiguous()
+    wht = wh.transpose(1, 2).contiguous()
+    kernel_config.check_cuda_inputs(
+        "lstm_bptt", xz=xz, mask=mask, cprev=cprev, hprev=hprev, gout=gout,
+        gfinal=gfinal, wh=wh, wht=wht)
+    dxz = torch.empty_like(xz)
+    kernel_config.launch("lstm_bptt", xz, mask, cprev, hprev, gout, gfinal,
+                         wh, wht, dxz, batch, time, hidden, n_dirs,
+                         reverse_mask, float(forget_bias))
+    return dxz
+
+
+def lstm_scan_forward(xz: torch.Tensor, mask: torch.Tensor,
+                      wh: torch.Tensor, forget_bias: float,
+                      reverse_mask: int, save_carries: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+    """The LSTM scan's serial pass: launches ``lstm_scan`` for CUDA
+    tensors, runs the plain version otherwise. Returns outputs, final h
+    and, with ``save_carries``, the c and h carries (else ``None``)."""
+    batch, time, _ = xz.shape
+    n_dirs, hidden, _ = wh.shape
+    if (xz.shape[2] != n_dirs * 4 * hidden
+            or mask.shape != (batch, time)
+            or wh.shape != (n_dirs, hidden, 4 * hidden)):
+        raise ValueError(
+            f"lstm_scan: inconsistent shapes xz {tuple(xz.shape)}, mask "
+            f"{tuple(mask.shape)}, wh {tuple(wh.shape)}")
+    if not xz.is_cuda:
+        out, final, c_car, h_car = lstm_scan_reference(
+            xz, mask, wh, forget_bias, _directions(reverse_mask, n_dirs))
+        return (out, final, *((c_car, h_car) if save_carries
+                               else (None, None)))
+    if not lstm_scan_fits(hidden):
+        raise ValueError(f"lstm_scan: hidden size {hidden} does not fit "
+                         "the kernel's shared memory")
+    if batch == 0 or time == 0:
+        raise ValueError(f"lstm_scan: empty input {tuple(xz.shape)}")
+    kernel_config.check_cuda_inputs("lstm_scan", xz=xz, mask=mask, wh=wh)
+    out = xz.new_empty(batch, time, n_dirs * hidden)
+    final = xz.new_empty(batch, n_dirs * hidden)
+    c_car, h_car = ((xz.new_empty(batch, time, n_dirs * hidden)
+                     for _ in range(2)) if save_carries else (None, None))
+    kernel_config.launch("lstm_scan", xz, mask, wh, out, final, c_car, h_car,
+                         batch, time, hidden, n_dirs, reverse_mask,
+                         float(forget_bias))
+    return out, final, c_car, h_car
+
+
+class _LSTMScan(torch.autograd.Function):
+    """The LSTM scan with its hand-written BPTT (``pallas_rnn.lstm_scan``'s
+    custom VJP): ``lstm_scan`` and ``lstm_bptt`` on CUDA tensors, their
+    plain versions on the CPU. The forward keeps the c and h carries
+    only when a gradient will be asked for."""
+
+    @staticmethod
+    def forward(ctx, xz, mask, wh, forget_bias: float, reverse_mask: int):
+        save = any(ctx.needs_input_grad)
+        out, final, c_car, h_car = lstm_scan_forward(
+            xz, mask, wh, forget_bias, reverse_mask, save)
+        if save:
+            ctx.save_for_backward(xz, mask, wh, c_car, h_car)
+            ctx.forget_bias = forget_bias
+            ctx.reverse_mask = reverse_mask
+        return out, final
+
+    @staticmethod
+    def backward(ctx, gout, gfinal):
+        xz, mask, wh, c_car, h_car = ctx.saved_tensors
+        n_dirs, hidden, _ = wh.shape
+        reverse = _directions(ctx.reverse_mask, n_dirs)
+        cprev = shift_carries(c_car, n_dirs, reverse)
+        hprev = shift_carries(h_car, n_dirs, reverse)
+        dxz = lstm_bptt(xz, mask, cprev, hprev, gout, gfinal, wh,
+                        ctx.forget_bias, ctx.reverse_mask)
+        dwh = torch.stack([
+            hprev[:, :, d * hidden:(d + 1) * hidden].reshape(-1, hidden).T
+            @ dxz[:, :, 4 * hidden * d:4 * hidden * (d + 1)].reshape(
+                -1, 4 * hidden)
+            for d in range(n_dirs)])
+        return dxz, None, dwh, None, None
+
+
+def lstm_scan(directions: Sequence[Tuple[Params, bool]],
+              inputs: torch.Tensor, mask: torch.Tensor,
+              forget_bias: float = 1.0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked TF1-LSTM over (B, T, E) ``inputs`` for each
+    ``(params, reverse)`` direction, directions concatenated on the
+    feature axis: outputs (B, T, D·H), final h (B, D·H). Same semantics
+    as ``ops.rnn.unidirectional_rnn`` per direction. Launches
+    ``lstm_scan`` (and ``lstm_bptt`` in the backward) for CUDA tensors,
+    runs the plain versions otherwise."""
+    params = [p for p, _ in directions]
+    xz = lstm_hoisted_inputs(params, inputs)
+    wh = torch.stack([p["kernel_h"] for p in params])
+    mask = mask.to(xz.dtype)
+    reverse_mask = sum(1 << d for d, (_, rev) in enumerate(directions)
+                       if rev)
+    return _LSTMScan.apply(xz.contiguous(), mask.contiguous(), wh,
+                           forget_bias, reverse_mask)

@@ -10,11 +10,13 @@ it. That build, together with the status check after every launch, is
 what the JAX package's Mosaic probe ``_pallas_compiles`` did: it finds
 out whether kernels build and run on this host.
 
-There is no switch. Each kernel wrapper takes the kernel's plain
-PyTorch version for a tensor on the CPU and launches the kernel for a
-CUDA tensor. On a CUDA device below compute capability 9.0, when the
-build fails, or when a launch returns a CUDA error, the wrapper raises;
-nothing falls back quietly.
+No switch selects between a kernel and its plain version. Each kernel
+wrapper takes the kernel's plain PyTorch version for a tensor on the CPU
+and launches the kernel for a CUDA tensor. On a CUDA device below
+compute capability 9.0, when the build fails, or when a launch returns a
+CUDA error, the wrapper raises; nothing falls back quietly. The switches
+that remain choose between two paths of the model, each with its own
+kernels, as in the JAX package (``use_fused_logits``).
 
 Each kernel has one launch counter, raised by one where its wrapper
 launches it, so a run can show that its main path went through the
@@ -55,6 +57,9 @@ ENTRY_POINTS = {
     "flash_attention_bwd_dq": "nm_flash_bwd_dq",
     "flash_attention_bwd_dkv": "nm_flash_bwd_dkv",
     "lineage_attention": "nm_lineage_attention",
+    "lstm_scan": "nm_lstm_scan",
+    "lstm_bptt": "nm_lstm_bptt",
+    "rowmax_lse": "nm_rowmax_lse",
 }
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
@@ -71,11 +76,27 @@ _ARGTYPES = {
     "nm_flash_bwd_dq": [_PTR] * 8 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_lineage_attention": [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR],
+    "nm_lstm_scan": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR],
+    "nm_lstm_bptt": [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _PTR],
+    "nm_rowmax_lse": [_PTR] * 4 + [_INT] * 2 + [_PTR],
 }
 
 _LOCK = threading.Lock()
 _LIBRARY: Optional[ctypes.CDLL] = None
 _LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
+
+
+def use_fused_logits() -> bool:
+    """Whether beam search arms the decode constants for the fused logit
+    projection (``beam_select.fused_logits_rowmax_lse``); when off, the
+    hierarchical selector takes its reductions from ``rowmax_lse`` over
+    the plain logits. ``NM_FUSED_LOGITS=0``/``1`` decides, read as the
+    JAX package reads it; unset means on, as on the TPU, where the
+    kernels always build."""
+    env = os.environ.get("NM_FUSED_LOGITS")
+    if env is not None:
+        return env not in ("0", "false", "False", "")
+    return True
 
 
 def kernel_sources() -> List[str]:

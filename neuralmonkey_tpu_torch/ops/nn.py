@@ -1,4 +1,4 @@
-"""NN primitives: initializers, projections, dropout, GRU cells.
+"""NN primitives: initializers, projections, dropout, GRU and LSTM cells.
 
 Counterpart of ``neuralmonkey_tpu/ops/nn.py`` for the parts the RNN
 translation path uses. Parameters are plain dicts of tensors with the
@@ -9,13 +9,15 @@ explicit ``torch.Generator`` on the CPU.
 The GRU follows TF1 (``tf.nn.rnn_cell.GRUCell``): the reset gate
 multiplies ``h`` *before* the candidate's recurrent product, and the
 gate bias starts at 1.0. ``torch.nn.GRU`` and cuDNN apply the reset
-gate after that product, so they cannot stand in for it.
+gate after that product, so they cannot stand in for it. The LSTM
+follows TF1 too (``tf.nn.rnn_cell.BasicLSTMCell``): one ``z`` of gates
+in i, j, f, o order, with ``forget_bias`` added to f.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -132,10 +134,44 @@ class OrthoGRUCell(GRUCell):
         super().__init__(input_dim, hidden_dim, recurrent_init=orthogonal)
 
 
-CELL_TYPES = {"GRU": GRUCell, "OrthoGRU": OrthoGRUCell}
+class LSTMCell:
+    """TF1-convention LSTM. State: (c, h), each (B, H); output h."""
+
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 forget_bias: float = 1.0) -> None:
+        self.input_dim = input_dim
+        self.hidden_dim = hidden_dim
+        self.forget_bias = forget_bias
+
+    def init(self, gen: torch.Generator) -> Params:
+        h = self.hidden_dim
+        return {
+            "kernel_x": glorot_uniform(gen, (self.input_dim, 4 * h)),
+            "kernel_h": glorot_uniform(gen, (h, 4 * h)),
+            "bias": torch.zeros(4 * h),
+        }
+
+    def __call__(self, params: Params,
+                 state: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor
+                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        c, h = state
+        z = x @ params["kernel_x"] + h @ params["kernel_h"] + params["bias"]
+        i, j, f, o = z.chunk(4, dim=-1)
+        new_c = (c * torch.sigmoid(f + self.forget_bias)
+                 + torch.sigmoid(i) * torch.tanh(j))
+        new_h = torch.tanh(new_c) * torch.sigmoid(o)
+        return (new_c, new_h), new_h
+
+    @staticmethod
+    def output(state: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        return state[1]
 
 
-def make_cell(cell_type: str, input_dim: int, hidden_dim: int) -> GRUCell:
+Cell = Union[GRUCell, LSTMCell]
+CELL_TYPES = {"GRU": GRUCell, "OrthoGRU": OrthoGRUCell, "LSTM": LSTMCell}
+
+
+def make_cell(cell_type: str, input_dim: int, hidden_dim: int) -> Cell:
     if cell_type not in CELL_TYPES:
         raise ValueError(
             f"rnn_cell '{cell_type}' is not ported to neuralmonkey_tpu_torch "

@@ -4,12 +4,14 @@ its time on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
-    python3 scripts/profile_port_train.py [--model rnn|transformer]
-        [--fused-xent] [--steps N] [--decode greedy|beam|beam-lineage]
+    python3 scripts/profile_port_train.py [--model rnn|lstm|transformer]
+        [--fused-xent] [--steps N]
+        [--decode greedy|beam|beam-lineage|beam-unfused]
 
 It builds the model of ``chip_smoke.py``'s phases: the flagship RNN
 (vocabulary 30000, embeddings 512, BiGRU 512, attention 512, conditional
-GRU 512, maxout 512, Adam, clip 1.0, keep-prob 0.8) or bench.py's
+GRU 512, maxout 512, Adam, clip 1.0, keep-prob 0.8), the same with a
+bidirectional LSTM encoder of 512 (``lstm``), or bench.py's
 Transformer (512 wide, FFN 2048, 6 + 6 layers, 8 heads, tied target
 embeddings, delayed updates every 2 batches, Adam on the noam schedule,
 label smoothing 0.1, dropout and attention dropout keep 0.9), at batch
@@ -17,7 +19,8 @@ label smoothing 0.1, dropout and attention dropout keep 0.9), at batch
 ``--decode`` it runs three warm-up training steps, then ``N`` steps
 (default 6) under ``torch.profiler``. With ``--decode`` it decodes one
 batch of 64 of the smoke's random sentences with random seeded weights
-(greedy, beam 10, or beam 10 under ``NM_LINEAGE_KERNEL=1``) twice as a
+(greedy, beam 10, beam 10 under ``NM_LINEAGE_KERNEL=1``, or beam 10
+under ``NM_FUSED_LOGITS=0``) twice as a
 warm-up, then ``N`` times under the profiler. It prints the card's name
 and power limit, the wall time per step (or batch), the target tokens
 (or sentences) per second, the share of the window in which the device
@@ -59,8 +62,9 @@ def training_steps(args, tmp):
     from neuralmonkey_tpu_torch.dataset import BatchingScheme
     from neuralmonkey_tpu_torch.experiment import Experiment
 
+    cell = "LSTM" if args.model == "lstm" else "GRU"
     chip_smoke.write_inputs(tmp)
-    train_ini = chip_smoke.write_training_inputs(tmp)
+    train_ini = chip_smoke.write_training_inputs(tmp, cell)
     if args.model == "transformer":
         train_ini = chip_smoke.write_transformer_ini(
             tmp, "t_train.ini", chip_smoke.T_TRAINING_MAIN, 0.9,
@@ -87,12 +91,15 @@ def decode_steps(args, tmp):
     from neuralmonkey_tpu_torch import run
     from neuralmonkey_tpu_torch.experiment import Experiment
 
-    exp_ini, data_ini = chip_smoke.write_inputs(tmp)
+    exp_ini, data_ini = chip_smoke.write_inputs(
+        tmp, "LSTM" if args.model == "lstm" else "GRU")
     if args.model == "transformer":
         exp_ini = chip_smoke.write_transformer_ini(
             tmp, "t_exp.ini", chip_smoke.T_SERVING_MAIN, 1.0, 1.0)
     if args.decode == "beam-lineage":
         os.environ["NM_LINEAGE_KERNEL"] = "1"
+    if args.decode == "beam-unfused":
+        os.environ["NM_FUSED_LOGITS"] = "0"
     exp = Experiment(exp_ini)
     exp.build_model()
     runner = exp.model.runners[0 if args.decode == "greedy" else 1]
@@ -105,12 +112,12 @@ def decode_steps(args, tmp):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--model", choices=("rnn", "transformer"),
+    parser.add_argument("--model", choices=("rnn", "lstm", "transformer"),
                         default="rnn")
     parser.add_argument("--fused-xent", action="store_true",
                         help="train with NM_FUSED_XENT=1")
     parser.add_argument("--decode", choices=("greedy", "beam",
-                                             "beam-lineage"),
+                                             "beam-lineage", "beam-unfused"),
                         help="profile decoding instead of training")
     parser.add_argument("--steps", type=int, default=6)
     args = parser.parse_args()

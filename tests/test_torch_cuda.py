@@ -341,12 +341,115 @@ def test_small_topk_rejects_rows_beyond_shared_memory(cuda_device):
             1)
 
 
-def test_rowmax_lse_raises_on_cuda(cuda_device):
-    with pytest.raises(NotImplementedError, match="_rowmax_lse_pallas"):
-        beam_select.rowmax_lse(torch.zeros(8, 128, device=cuda_device))
+@pytest.mark.parametrize("n,vocab,vp", [(640, 30000, 30080), (13, 300, 384),
+                                        (1, 128, 128)])
+def test_rowmax_lse_kernel(cuda_device, n, vocab, vp):
+    """Beam-step logits padded with 4·NEG_INF as the selector pads them:
+    the group maxima exactly, the log-sum-exp to 1e-5 relative."""
+    x = torch.full((n, vp), -4e9, device=cuda_device)
+    x[:, :vocab] = _randn(cuda_device, n, vocab, scale=4.0)
+    kernel_config.reset_launch_counts()
+    got = beam_select.rowmax_lse(x)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["rowmax_lse"] == 1
+    ref = beam_select.rowmax_lse_reference(x)
+    assert torch.equal(got[0], ref[0])
+    torch.testing.assert_close(got[1], ref[1], atol=0, rtol=1e-5)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        beam_select.rowmax_lse(x[:, :100].contiguous())
+
+
+@pytest.mark.parametrize("hidden,reverse", [(16, (False,)),
+                                            (64, (False, True)),
+                                            (200, (True,)),
+                                            (6, (True, False)),
+                                            (512, (False, True))])
+def test_lstm_scan_kernel(cuda_device, hidden, reverse):
+    """Outputs, finals and both carries against the plain version on the
+    same CUDA inputs, ragged mask included."""
+    batch, time = 6, 5
+    n_dirs = len(reverse)
+    xz = _randn(cuda_device, batch, time, n_dirs * 4 * hidden, scale=0.5)
+    mask = _mask(cuda_device, [5, 4, 1, 0, 3, 5], time)
+    wh = _randn(cuda_device, n_dirs, hidden, 4 * hidden, scale=hidden ** -0.5,
+                seed=1)
+    reverse_mask = sum(1 << d for d, rev in enumerate(reverse) if rev)
+    kernel_config.reset_launch_counts()
+    got = cuda_rnn.lstm_scan_forward(xz, mask, wh, 0.7, reverse_mask, True)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["lstm_scan"] == 1
+    ref = cuda_rnn.lstm_scan_reference(xz, mask, wh, 0.7, reverse)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("hidden,reverse", [(16, (False,)),
+                                            (64, (False, True)),
+                                            (6, (True, False)),
+                                            (517, (False, True))])
+def test_lstm_bptt_kernel(cuda_device, hidden, reverse):
+    """The LSTM BPTT pass against its plain version on the same CUDA
+    inputs, ragged mask included."""
+    batch, time = 6, 5
+    n_dirs = len(reverse)
+    xz = _randn(cuda_device, batch, time, n_dirs * 4 * hidden, scale=0.5)
+    mask = _mask(cuda_device, [5, 4, 1, 0, 3, 5], time)
+    cprev = _randn(cuda_device, batch, time, n_dirs * hidden, seed=1)
+    hprev = _randn(cuda_device, batch, time, n_dirs * hidden, scale=0.5,
+                   seed=2)
+    gout = _randn(cuda_device, batch, time, n_dirs * hidden, seed=3)
+    gfinal = _randn(cuda_device, batch, n_dirs * hidden, seed=4)
+    wh = _randn(cuda_device, n_dirs, hidden, 4 * hidden, scale=hidden ** -0.5,
+                seed=5)
+    reverse_mask = sum(1 << d for d, rev in enumerate(reverse) if rev)
+    args = (xz, mask, cprev, hprev, gout, gfinal, wh, 1.0)
+    kernel_config.reset_launch_counts()
+    got = cuda_rnn.lstm_bptt(*args, reverse_mask)
+    ref = cuda_rnn.lstm_bptt_reference(*args, reverse)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["lstm_bptt"] == 1
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hidden", [6, 64])
+def test_lstm_scan_gradients_match_cpu(cuda_device, hidden):
+    """The encoder's bidirectional LSTM through ``ops.rnn``: one launch of
+    each kernel, outputs and every gradient against CPU copies."""
+    batch, time, width = 5, 7, 24
+    lengths = [7, 5, 3, 1, 6]
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        cells, params = [], []
+        for seed in (1, 2):
+            cell = nn.LSTMCell(width, hidden)
+            cells.append(cell)
+            params.append({k: v.to(device).requires_grad_()
+                           for k, v in cell.init(
+                               torch.Generator().manual_seed(seed)).items()})
+        inputs = _randn(device, batch, time, width).requires_grad_()
+        kernel_config.reset_launch_counts()
+        out, final = rnn.bidirectional_rnn(cells[0], params[0], cells[1],
+                                           params[1], inputs,
+                                           _mask(device, lengths, time))
+        ((out * _randn(device, *out.shape, seed=8)).sum()
+         + (final * _randn(device, *final.shape, seed=9)).sum()).backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            counts = kernel_config.launch_counts()
+            assert counts["lstm_scan"] == 1 and counts["lstm_bptt"] == 1
+        leaves = [p for tree in params for p in tree.values()] + [inputs]
+        results.append([out.detach().cpu(), final.detach().cpu()]
+                       + [p.grad.cpu() for p in leaves])
+    for g, r in zip(*results):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
 
 
 def test_wrappers_reject_bad_inputs(cuda_device):
+    with pytest.raises(ValueError, match="lstm_scan: inconsistent shapes"):
+        cuda_rnn.lstm_scan_forward(
+            _randn(cuda_device, 2, 3, 4 * 8), torch.ones(2, 3,
+                                                         device=cuda_device),
+            _randn(cuda_device, 1, 8, 24), 1.0, 0, False)
     with pytest.raises(ValueError, match="gru_scan: inconsistent shapes"):
         cuda_rnn._GRUScan.apply(
             _randn(cuda_device, 2, 3, 3 * 8),

@@ -188,7 +188,7 @@ def test_every_kernel_has_an_entry_point_in_the_sources():
         "fused_logits_rowmax_lse", "small_topk", "fused_xent_fwd",
         "fused_xent_bwd_dx", "fused_xent_bwd_dw", "flash_attention_fwd",
         "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-        "lineage_attention"}
+        "lineage_attention", "lstm_scan", "lstm_bptt", "rowmax_lse"}
     for entry in kernel_config.ENTRY_POINTS.values():
         assert f"NM_EXPORT int {entry}(" in sources
 
