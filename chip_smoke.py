@@ -28,7 +28,9 @@ Phases (any failure raises and the script exits non-zero):
    step where the CPU's top-two logit margin is below 1e-3; and each
    beam search picks the same candidates on both, or first picks
    differently at a step and slot where the CPU's gap to its next
-   candidate is below 1e-3;
+   candidate is below 1e-3 (the next over every candidate: after the
+   last slot, the better of the chosen column groups' next and the best
+   group that the selector's first stage left out);
 6. training: ``python -m neuralmonkey_tpu_torch.train`` trains the same
    model (batch 64, source 32, target 48, Adam, clip 1.0, keep-prob
    0.8) on synthetic pairs whose target is a fixed map of the source
@@ -49,7 +51,9 @@ Phases (any failure raises and the script exits non-zero):
    dim 64) and at a ragged shape, with and without attention dropout
    (keep 0.9): outputs and lse to 1e-5, the gradients to 1e-4 of their
    largest entry against autograd of the plain version, and the
-   dropout mask read back from the kernel equal to the hash's; lineage
+   dropout mask read back from the kernel equal to the hash's; the
+   forward also at a long source (batch 8, 512 x 512, ragged keys),
+   timed with SDPA beside it (``long_source_*`` fields); lineage
    attention at batch 64, 8 heads, beam 10, 48 steps, windows 12, 24
    and 48, and a ragged shape, to 1e-5;
 9. Transformer serving: bench.py's Transformer (512 wide, FFN 2048, 6 +
@@ -90,8 +94,11 @@ Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
 alone, with its host cost).
 
-Every phase prints its seconds. The line before the last is a JSON
-object with one entry per kernel; the last line is
+Every phase prints its seconds. Standard output holds the launch plans
+of the redesigned kernels (``lstm_scan``, the flash forward) as one
+JSON line, the card's name and power limit, a JSON object of the
+phases' results, then, on the line before the last, a JSON object with
+one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -412,7 +419,9 @@ def check_kernels(device):
                            if timed else None))
 
     check_train_kernels(device, randn, lengths_mask, record)
-    check_transformer_kernels(device, randn, lengths_mask, record)
+    long = check_transformer_kernels(device, randn, lengths_mask, record)
+    results["flash_attention_fwd"].update(
+        {f"long_source_{key}": value for key, value in long.items()})
     check_lstm_kernels(device, randn, lengths_mask, record)
     torch.cuda.synchronize()
     return results
@@ -598,6 +607,29 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
                 check_dropout_mask(q, k, mask, causal, key_words, keep,
                                    shape)
 
+    # a long source (ROADMAP's transformer_src512 shape): the forward
+    # checked and timed with SDPA beside it, kept as extra fields of the
+    # forward's entry
+    b, h, t, d = 8, T_HEADS, 512, T_HEAD_DIM
+    mask = lengths_mask(source_lengths(b, t), t)
+    q, k, v = (randn(b, h, t, d) for _ in range(3))
+    out, lse = fa.flash_forward(q, k, v, mask, False)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, mask, False)
+    record("flash_attention_fwd", max(max_err(out, ref_out),
+                                      max_err(lse, ref_lse)), 1e-5,
+           ("long source", b, h, t, t, d))
+    bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+    long = timings(
+        lambda: fa.flash_forward(q, k, v, mask, False),
+        lambda: fa.flash_forward_reference(q, k, v, mask, False),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+    qkv = 4 * b * h * t * d
+    long["bound_ms"], long["bound_by"] = bound(
+        4 * b * h * t * t * d, 4 * qkv + 4 * b * t + 4 * b * h * t)
+    long["call_ms"] = call_ms(long.pop("call"))
+    long["shape"] = [b, h, t, t, d]
+    log(f"flash_attention_fwd long source: {long}")
+
     # lineage attention: a beam step's self-attention over the K slots'
     # unpermuted caches at the full decode shape, windows 12, 24 and 48
     # positions, and a ragged shape; timed at the full window
@@ -627,6 +659,7 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
                          + b * beam * lanes))
             record("lineage_attention", max_err(got, ref), 1e-5,
                    (b, h, beam, t, d, f"window {win}"), work=work, **timing)
+    return long
 
 
 def cudnn_lstm(params, reverse, forget_bias):
@@ -718,6 +751,12 @@ def check_lstm_kernels(device, randn, lengths_mask, record):
                     1.0, reverse),
                 library_forward)
             timing["cudnn_max_abs_err"] = lib_err
+            # the wrapper's two parts: the persistent scan (with its
+            # scratch) and the hoisted input GEMM
+            timing["scan_ms"] = time_ms(lambda: cuda_rnn.lstm_scan_forward(
+                xz, mask, wh, 1.0, reverse_mask, False))
+            timing["hoisted_gemm_ms"] = time_ms(
+                lambda: cuda_rnn.lstm_hoisted_inputs(params, inputs))
             log(f"lstm_scan {shape}: cuDNN LSTM on the packed sources "
                 f"differs from the kernel by {lib_err:.3g} (the same "
                 "function; another order of float32 sums)")
@@ -780,6 +819,25 @@ def check_lstm_kernels(device, randn, lengths_mask, record):
         record("rowmax_lse", float(((got[1] - ref[1]).abs()
                                     / ref[1].abs()).max()), 1e-5, (n, vp_),
                work=work, **timing)
+
+
+def launch_plans():
+    """The launch plans of the redesigned kernels at the smoke's shapes
+    on this card."""
+    from neuralmonkey_tpu_torch.ops import cuda_rnn
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    limits = cuda_rnn.device_limits(0)
+    return {
+        "sm_count": limits[0], "smem_per_block_optin": limits[1],
+        "lstm_scan": cuda_rnn.lstm_scan_plan(BATCH, RNN, 2,
+                                             *limits)._asdict(),
+        "flash_attention_fwd": {
+            case: fa.flash_forward_plan(*shape)._asdict()
+            for case, shape in (
+                ("encoder", (BATCH, T_HEADS, SRC_LEN, SRC_LEN, T_HEAD_DIM)),
+                ("decoder self", (BATCH, T_HEADS, TGT_LEN, TGT_LEN,
+                                  T_HEAD_DIM)),
+                ("long source", (8, T_HEADS, 512, 512, T_HEAD_DIM)))}}
 
 
 def timings(kernel, plain, library):
@@ -1014,9 +1072,9 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
     cpu_exp.tf_manager.restore(ckpt)
 
     # per step, on the CPU: greedy's top-two logit gap per row, and the
-    # beam's gaps between neighbours among the top K+1 exact candidate
-    # scores, (rows, K); on both devices: the beam's (parent, token)
-    # picks, (rows, K, 2)
+    # beam's gaps between neighbours among the top K+1 candidate scores
+    # over the whole vocabulary of every beam, (rows, K); on both devices:
+    # the beam's (parent, token) picks, (rows, K, 2)
     greedy_margins, beam_gaps = [], []
     picks = {"cpu": [], "gpu": []}
     decoder = cpu_exp.model.runners[0].decoder
@@ -1029,11 +1087,20 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
         return out
 
     plain_topk = beam_search_decoder.small_topk
+    # per step, the best score of the column groups stage 1 left out: the
+    # (K+1)-th group maximum
+    left_out = []
 
     def recording_topk(x, k):
+        top = torch.sort(x, dim=1, descending=True).values[:, :k + 1]
         if x.shape[1] == k * beam_search_decoder.LANE:  # stage 2
-            top = torch.sort(x, dim=1, descending=True).values[:, :k + 1]
-            beam_gaps.append(top[:, :-1] - top[:, 1:])
+            # candidate K+1 is the better of stage 2's and the best one
+            # in a group that stage 1 left out
+            after = top[:, 1:].clone()
+            after[:, -1] = torch.maximum(after[:, -1], left_out[-1])
+            beam_gaps.append(top[:, :-1] - after)
+        else:  # stage 1: the column groups' maxima
+            left_out.append(top[:, k])
         return plain_topk(x, k)
 
     def record_picks(exp, log):
@@ -1767,6 +1834,8 @@ def main() -> int:
         return out
 
     kernels = phase("kernels", check_kernels, device)
+    plans = launch_plans()
+    log(f"launch plans: {plans}")
     with tempfile.TemporaryDirectory() as tmp:
         # launches: the sum over the main-path runs (each counted from 0)
         launches, lengths, speed, gpu_exp, ckpt, data_ini = phase(
@@ -1822,6 +1891,7 @@ def main() -> int:
         l_train_parity = phase("lstm training parity", check_train_parity,
                                l_train_ini, l_best)
 
+    print(json.dumps({"plans": plans}))
     print(smi)
     print(json.dumps({
         "device": smi,
@@ -1843,7 +1913,8 @@ def main() -> int:
          "replaces": replaces, "launches": launches[name],
          **{key: kernels[name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "call_ms")}}
+             "library_ms", "call_ms")},
+         **kernels[name]}
         for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ to XLA, ``_gru_scan_bwd``, ``_lstm_scan_bwd``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,8 +38,8 @@ _KERNEL_ROWS = 1
 _SHARED_BYTES = 227 * 1024
 # csrc/gru_bptt.cu keeps eight H-wide f32 vectors of one row in shared memory
 _BPTT_VECTORS = 8
-# csrc/lstm_bptt.cu keeps seven (h_prev, dz of 4H, dc, dh); csrc/lstm_scan.cu
-# three (h twice, c)
+# csrc/lstm_bptt.cu keeps seven H-wide vectors (h_prev, dz of 4H, dc, dh);
+# csrc/lstm_scan.cu's plan (``lstm_scan_plan``) lays out any size it takes
 _LSTM_VECTORS = 7
 
 
@@ -57,6 +58,83 @@ def lstm_scan_fits(hidden: int) -> bool:
     """Whether the LSTM kernels, forward and BPTT, take this hidden size:
     any size whose vectors fit one SM's shared memory (H <= 8300)."""
     return _LSTM_VECTORS * -(-hidden // 4) * 4 * 4 <= _SHARED_BYTES
+
+
+# csrc/lstm_scan.cu: threads per block; a thread's tile is 4 rows x 4 gate
+# columns, and the k split parts a tile's sum over at most 8 threads
+LSTM_SCAN_THREADS = 256
+
+
+class LSTMScanPlan(NamedTuple):
+    """The launch of ``lstm_scan``: ``blocks_per_dir`` blocks for each
+    direction, each owning ``units`` hidden units (the last block of a
+    direction may own fewer); ``rows`` batch rows of h staged per tile;
+    the W_h slice in shared memory ``k_tile`` rows at a time (all of it,
+    ``resident``, when ``k_tile`` covers H rounded up to 4); each 4 x 4
+    tile's sum split over ``k_split`` threads; ``smem_bytes`` of shared
+    memory per block."""
+    blocks_per_dir: int
+    units: int
+    rows: int
+    k_tile: int
+    k_split: int
+    smem_bytes: int
+    resident: bool
+
+
+def lstm_scan_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
+                   smem_limit: int) -> LSTMScanPlan:
+    """The layout of the persistent scan (csrc/lstm_scan.cu) on a card of
+    ``sm_count`` SMs with ``smem_limit`` bytes of shared memory a block:
+    at most one block per SM, every block resident (the launch is
+    cooperative). The W_h slice stays in shared memory whenever it fits
+    beside a tile of at least min(B, 16) rows of h; otherwise it streams
+    in k tiles of about a quarter of the shared memory. Raises
+    ``ValueError`` where no layout fits."""
+    if min(batch, hidden, n_dirs, sm_count) < 1 or sm_count < n_dirs:
+        raise ValueError(f"lstm_scan: no plan for B {batch}, H {hidden}, "
+                         f"{n_dirs} directions on {sm_count} SMs")
+    units = -(-hidden // (sm_count // n_dirs))
+    blocks = -(-hidden // units)
+    cols = 4 * units
+    h4 = -(-hidden // 4) * 4
+    row_floats = h4 + 4 + 1  # the h row (padded stride) and its mask
+
+    def rows_for(k_tile: int, k_split: int) -> int:
+        free = smem_limit // 4 - k_tile * cols
+        rows = min(batch, free // (row_floats + k_split * cols))
+        return rows if rows >= batch or rows < 4 else rows // 4 * 4
+
+    def layout(k_tile: int):
+        for k_split in (8, 4, 2, 1):
+            rows = rows_for(k_tile, k_split)
+            tasks = units * -(-max(rows, 1) // 4)
+            if k_split == 1 or tasks * k_split <= LSTM_SCAN_THREADS:
+                return rows, k_split
+        raise AssertionError("unreachable")
+
+    rows, k_split = layout(h4)
+    resident = rows >= min(batch, 16)
+    k_tile = h4
+    if not resident:
+        quarter_rows = smem_limit // 4 // (4 * cols)
+        k_tile = min(h4, max(4, quarter_rows // 4 * 4))
+        rows, k_split = layout(k_tile)
+    if rows < 1:
+        raise ValueError(f"lstm_scan: B {batch}, H {hidden} does not fit "
+                         f"{smem_limit} bytes of shared memory")
+    smem = 4 * (k_tile * cols + rows * (h4 + 4) + k_split * rows * cols
+                + rows)
+    return LSTMScanPlan(blocks, units, rows, k_tile, k_split, smem, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> Tuple[int, int]:
+    """(SM count, opt-in shared bytes per block) of CUDA device
+    ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", _SHARED_BYTES))
 
 
 def hoisted_inputs(directions: Sequence[Params],
@@ -435,10 +513,37 @@ def lstm_scan_forward(xz: torch.Tensor, mask: torch.Tensor,
     final = xz.new_empty(batch, n_dirs * hidden)
     c_car, h_car = ((xz.new_empty(batch, time, n_dirs * hidden)
                      for _ in range(2)) if save_carries else (None, None))
-    kernel_config.launch("lstm_scan", xz, mask, wh, out, final, c_car, h_car,
-                         batch, time, hidden, n_dirs, reverse_mask,
-                         float(forget_bias))
+    scratch, sync = lstm_scan_scratch(xz, n_dirs, hidden)
+    launch_lstm_scan(xz, mask, wh, out, final, c_car, h_car, scratch, sync,
+                     forget_bias, reverse_mask)
     return out, final, c_car, h_car
+
+
+def lstm_scan_scratch(xz: torch.Tensor, n_dirs: int, hidden: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's exchange buffers: (3, D, B, H) float32 for h (twice)
+    and c, which it writes before it reads, and the (D, 2) barrier words,
+    which must start at 0 (each barrier leaves them so)."""
+    return (xz.new_empty(3, n_dirs, xz.shape[0], hidden),
+            torch.zeros(n_dirs, 2, dtype=torch.int32, device=xz.device))
+
+
+def launch_lstm_scan(xz, mask, wh, out, final, c_car, h_car, scratch, sync,
+                     forget_bias: float, reverse_mask: int) -> LSTMScanPlan:
+    """One cooperative launch of ``lstm_scan`` on checked CUDA tensors,
+    laid out by :func:`lstm_scan_plan` for their device; returns the
+    plan."""
+    batch, time, _ = xz.shape
+    n_dirs, hidden, _ = wh.shape
+    index = xz.device.index
+    plan = lstm_scan_plan(batch, hidden, n_dirs, *device_limits(
+        torch.cuda.current_device() if index is None else index))
+    kernel_config.launch("lstm_scan", xz, mask, wh, out, final, c_car, h_car,
+                         scratch, sync, batch, time, hidden, n_dirs,
+                         reverse_mask, plan.blocks_per_dir, plan.units,
+                         plan.rows, plan.k_tile, plan.k_split,
+                         plan.smem_bytes, float(forget_bias))
+    return plan
 
 
 class _LSTMScan(torch.autograd.Function):

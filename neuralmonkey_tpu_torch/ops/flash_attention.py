@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -172,6 +172,38 @@ def _backward_reference(q, k, v, mask, lse, g, dcap, causal: bool,
 # ---------------------------------------------------------------------- #
 # kernel wrappers
 # ---------------------------------------------------------------------- #
+# csrc/flash_attention.cu's forward: threads, query rows and keys a tile
+FWD_THREADS, FWD_ROWS, FWD_KEYS = 128, 32, 32
+
+
+class FlashForwardPlan(NamedTuple):
+    """The launch of ``flash_attention_fwd``: a (``grid``) of blocks of
+    ``threads``, each owning ``rows`` queries of one (batch, head) and
+    walking the keys ``key_tile`` at a time through ``stages`` buffers;
+    the head dimension padded to ``width``; ``smem_bytes`` of shared
+    memory a block."""
+    grid: Tuple[int, int]
+    threads: int
+    rows: int
+    key_tile: int
+    stages: int
+    width: int
+    smem_bytes: int
+
+
+def flash_forward_plan(batch: int, heads: int, q_len: int, kv_len: int,
+                       head_dim: int) -> FlashForwardPlan:
+    """What ``nm_flash_fwd`` launches for these sizes (the same
+    arithmetic as the C entry point)."""
+    if not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_fwd: head dim {head_dim}")
+    width = next(w for w in (32, 64, 128) if head_dim <= w)
+    stages = 2 if kv_len > FWD_KEYS else 1
+    stage = FWD_KEYS * (width + 4) + FWD_KEYS * width + FWD_KEYS
+    smem = 4 * (FWD_ROWS * (width + 4) + stages * stage)
+    return FlashForwardPlan((batch * heads, -(-q_len // FWD_ROWS)),
+                            FWD_THREADS, FWD_ROWS, FWD_KEYS, stages, width,
+                            smem)
 def _dropout_args(key_words: Optional[KeyWords], keep_prob: float):
     """(dropout, k0, k1, threshold, 1/keep_prob) as the kernels take
     them."""

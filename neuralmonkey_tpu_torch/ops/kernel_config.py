@@ -76,7 +76,7 @@ _ARGTYPES = {
     "nm_flash_bwd_dq": [_PTR] * 8 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_lineage_attention": [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR],
-    "nm_lstm_scan": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR],
+    "nm_lstm_scan": [_PTR] * 9 + [_INT] * 11 + [_FLOAT, _PTR],
     "nm_lstm_bptt": [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _PTR],
     "nm_rowmax_lse": [_PTR] * 4 + [_INT] * 2 + [_PTR],
 }

@@ -383,6 +383,59 @@ def test_lstm_scan_kernel(cuda_device, hidden, reverse):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("batch,time,hidden,reverse,resident", [
+    (64, 32, 512, (False, True), True),    # the encoder's shape
+    (1, 9, 512, (True, False), True),
+    (160, 6, 512, (False, True), True),    # rows in several tiles
+    (64, 5, 1024, (False, True), False),   # W_h streamed in k tiles
+    (3, 4, 8300, (True,), False)])         # the largest H lstm_scan_fits
+def test_lstm_scan_persistent_plans(cuda_device, batch, time, hidden,
+                                    reverse, resident):
+    """The persistent scan in each of its layouts against the plain
+    version: outputs, finals and both carries, ragged lengths."""
+    n_dirs = len(reverse)
+    gen = torch.Generator().manual_seed(batch)
+    lengths = torch.randint(1, time + 1, (batch,), generator=gen).tolist()
+    xz = _randn(cuda_device, batch, time, n_dirs * 4 * hidden, scale=0.5)
+    mask = _mask(cuda_device, lengths, time)
+    wh = _randn(cuda_device, n_dirs, hidden, 4 * hidden, scale=hidden ** -0.5,
+                seed=1)
+    reverse_mask = sum(1 << d for d, rev in enumerate(reverse) if rev)
+    plan = cuda_rnn.lstm_scan_plan(batch, hidden, n_dirs,
+                                   *cuda_rnn.device_limits(0))
+    assert plan.resident == resident
+    kernel_config.reset_launch_counts()
+    got = cuda_rnn.lstm_scan_forward(xz, mask, wh, 1.0, reverse_mask, True)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["lstm_scan"] == 1
+    ref = cuda_rnn.lstm_scan_reference(xz, mask, wh, 1.0, reverse)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+
+
+def test_lstm_scan_barrier_resets_between_launches(cuda_device):
+    """Two launches on one scratch: the barrier words return to a zero
+    count, the generation moves T - 1 barriers a launch, and both
+    launches give the plain version's result."""
+    batch, time, hidden = 5, 7, 64
+    xz = _randn(cuda_device, batch, time, 2 * 4 * hidden, scale=0.5)
+    mask = _mask(cuda_device, [7, 5, 3, 1, 6], time)
+    wh = _randn(cuda_device, 2, hidden, 4 * hidden, scale=hidden ** -0.5,
+                seed=1)
+    ref = cuda_rnn.lstm_scan_reference(xz, mask, wh, 1.0, [False, True])
+    scratch, sync = cuda_rnn.lstm_scan_scratch(xz, 2, hidden)
+    for launch in (1, 2):
+        out, final = (torch.full_like(ref[0], float("nan")),
+                      torch.full_like(ref[1], float("nan")))
+        cuda_rnn.launch_lstm_scan(xz, mask, wh, out, final, None, None,
+                                  scratch, sync, 1.0, 2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(final, ref[1], atol=1e-5, rtol=0)
+        assert sync[:, 0].tolist() == [0, 0]
+        assert sync[:, 1].tolist() == [launch * (time - 1)] * 2
+
+
 @pytest.mark.parametrize("hidden,reverse", [(16, (False,)),
                                             (64, (False, True)),
                                             (6, (True, False)),
@@ -508,6 +561,50 @@ def test_flash_kernels(cuda_device, batch, heads, tq, tk, dim, causal,
     for name, got, want in zip("qkv", grads, ref):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
                                    msg=f"d{name}")
+
+
+@pytest.mark.parametrize("batch,heads,tq,tk,dim,causal", [
+    (4, 2, 32, 1, 64, False), (4, 2, 32, 31, 64, False),
+    (4, 2, 32, 32, 64, False), (4, 2, 32, 33, 64, False),
+    (2, 2, 64, 512, 64, False), (4, 8, 48, 48, 64, True),
+    (2, 3, 33, 70, 6, False)])
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_flash_forward_tiles(cuda_device, batch, heads, tq, tk, dim, causal,
+                             keep):
+    """The register-tiled forward at key lengths around its 32-key tile,
+    a long source, the causal decoder and an unaligned head dim, with and
+    without dropout, against the plain version; off the causal case one
+    batch row has every key masked (uniform weights), and the causal case
+    sees every key, as the decoder's self-attention does (a row whose
+    visible keys were all padding would spread its weight over the
+    skipped tiles in the plain version). With one-hot value rows the
+    weights the kernel kept are the plain version's, so the hash's."""
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(tk)
+    mask = _mask(cuda_device, torch.randint(1, tk + 1, (batch,),
+                                            generator=gen).tolist(), tk)
+    mask[0] = 0.0
+    if causal:
+        mask = torch.ones_like(mask)
+    q = _randn(cuda_device, batch, heads, tq, dim, seed=1)
+    k = _randn(cuda_device, batch, heads, tk, dim, seed=2)
+    v = _randn(cuda_device, batch, heads, tk, dim, seed=3)
+    key = (77, -3) if keep < 1.0 else None
+    kernel_config.reset_launch_counts()
+    out, lse = fa.flash_forward(q, k, v, mask, causal, key, keep)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["flash_attention_fwd"] == 1
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, mask, causal, key,
+                                                  keep)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    if key is not None and tk <= dim:
+        onehot = torch.eye(tk, dim, device=cuda_device).expand(
+            batch, heads, tk, dim).contiguous()
+        small = (q * 0.1, k * 0.1, onehot, mask, causal, key, keep)
+        kept, _ = fa.flash_forward(*small)
+        want, _ = fa.flash_forward_reference(*small)
+        assert torch.equal(kept != 0, want != 0)
 
 
 def test_flash_dropout_mask_equals_the_hash(cuda_device):
