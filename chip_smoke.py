@@ -52,8 +52,11 @@ Phases (any failure raises and the script exits non-zero):
    (keep 0.9): outputs and lse to 1e-5, the gradients to 1e-4 of their
    largest entry against autograd of the plain version, and the
    dropout mask read back from the kernel equal to the hash's; the
-   forward also at a long source (batch 8, 512 x 512, ragged keys),
-   timed with SDPA beside it (``long_source_*`` fields); lineage
+   forward and the backward also at a long source (batch 8, 512 x 512,
+   ragged keys), the forward timed with SDPA beside it
+   (``long_source_*`` fields); dq, dkv and the whole backward (dcap, dq,
+   dkv) timed beside SDPA's backward at the encoder, decoder, cross and
+   long-source shapes (``backward_by_shape``); lineage
    attention at batch 64, 8 heads, beam 10, 48 steps, windows 12, 24
    and 48, and a ragged shape, to 1e-5;
 9. Transformer serving: bench.py's Transformer (512 wide, FFN 2048, 6 +
@@ -95,8 +98,8 @@ queued behind a spin kernel (``call_ms`` times one call of the wrapper
 alone, with its host cost).
 
 Every phase prints its seconds. Standard output holds the launch plans
-of the redesigned kernels (``lstm_scan``, the flash forward) as one
-JSON line, the card's name and power limit, a JSON object of the
+of the redesigned kernels (``lstm_scan``, the flash forward and
+backward) as one JSON line, the card's name and power limit, a JSON object of the
 phases' results, then, on the line before the last, a JSON object with
 one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -180,6 +183,13 @@ FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 T_SERVING_KERNELS = ("flash_attention_fwd", "fused_logits_rowmax_lse",
                      "small_topk")
 T_ATT_KEEP = 0.9
+# the flash kernels' main-path shapes (batch, heads, q len, kv len, head
+# dim, causal) and the long source
+FLASH_SHAPES = {
+    "encoder": (BATCH, T_HEADS, SRC_LEN, SRC_LEN, T_HEAD_DIM, False),
+    "decoder self": (BATCH, T_HEADS, TGT_LEN, TGT_LEN, T_HEAD_DIM, True),
+    "cross": (BATCH, T_HEADS, TGT_LEN, SRC_LEN, T_HEAD_DIM, False),
+    "long source": (8, T_HEADS, 512, 512, T_HEAD_DIM, False)}
 # the flagship model with rnn_cell="LSTM" in its encoder
 LSTM_SERVING_KERNELS = ("lstm_scan", "fused_bahdanau_step",
                         "fused_logits_rowmax_lse", "small_topk")
@@ -419,9 +429,12 @@ def check_kernels(device):
                            if timed else None))
 
     check_train_kernels(device, randn, lengths_mask, record)
-    long = check_transformer_kernels(device, randn, lengths_mask, record)
+    long, by_shape = check_transformer_kernels(device, randn, lengths_mask,
+                                               record)
     results["flash_attention_fwd"].update(
         {f"long_source_{key}": value for key, value in long.items()})
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        results[name]["backward_by_shape"] = by_shape
     check_lstm_kernels(device, randn, lengths_mask, record)
     torch.cuda.synchronize()
     return results
@@ -541,6 +554,7 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
          source_lengths(BATCH, SRC_LEN)),
         ("ragged", 3, 5, 37, 70, 40, False, [70, 33, 1]),
     )
+    by_shape = {}  # the backward's times at each main-path shape
     for case, b, h, tq, tk, d, causal, lengths in cases:
         mask = lengths_mask(lengths, tk)
         q, k, v, g = (randn(b, h, t, d) for t in (tq, tk, tk, tq))
@@ -566,6 +580,9 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
                         + 4 * b * h * tq)
             bwd_read = 2 * qo + 2 * kv + 4 * b * tk + 8 * b * h * tq
             timing = {"fwd": {}, "dq": {}, "dkv": {}}
+            if keep == 1.0 and case != "ragged":
+                by_shape[case] = flash_backward_times(fa, q, k, v, g, mask,
+                                                      causal)
             if timed:
                 bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
                 lib_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -629,6 +646,22 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
     long["call_ms"] = call_ms(long.pop("call"))
     long["shape"] = [b, h, t, t, d]
     log(f"flash_attention_fwd long source: {long}")
+    # the backward there, checked and timed beside SDPA's
+    g = randn(b, h, t, d)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref_out, _ = fa.flash_forward_reference(*leaves, mask, False)
+    ref_grads = torch.autograd.grad(ref_out, leaves, g)
+    grads = fa.flash_backward(q, k, v, mask, out, lse, g, False)
+    for name, got, want in (("flash_attention_bwd_dq", grads[:1],
+                             ref_grads[:1]),
+                            ("flash_attention_bwd_dkv", grads[1:],
+                             ref_grads[1:])):
+        record(name, max(max_err(a, w) / max(1e-6, float(w.abs().max()))
+                         for a, w in zip(got, want)), 1e-4,
+               ("long source", b, h, t, t, d))
+    by_shape["long source"] = flash_backward_times(fa, q, k, v, g, mask,
+                                                   False)
+    log(f"flash backward by shape: {by_shape}")
 
     # lineage attention: a beam step's self-attention over the K slots'
     # unpermuted caches at the full decode shape, windows 12, 24 and 48
@@ -659,7 +692,46 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
                          + b * beam * lanes))
             record("lineage_attention", max_err(got, ref), 1e-5,
                    (b, h, beam, t, d, f"window {win}"), work=work, **timing)
-    return long
+    return long, by_shape
+
+
+def flash_backward_times(fa, q, k, v, g, mask, causal):
+    """The flash backward at one shape, in device ms: the dq and dkv
+    kernels, the whole backward as the autograd Function runs it (dcap =
+    rowsum(dO * O), dq, dkv: ``backward_ms``) and SDPA's backward (one
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention``),
+    with the bounds of each kernel and of the whole backward (reading q,
+    k, v, the mask, O, dO and lse, writing dq, dk and dv)."""
+    import torch
+    import torch.nn.functional as F
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    out, lse = fa.flash_forward(q, k, v, mask, causal)
+    dcap = (g * out).sum(dim=-1)
+    bwd = (q, k, v, mask, lse, g, dcap, causal)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if causal:  # every key valid, as in the decoder's self-attention
+        lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    else:
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=torch.where(mask > 0, 0.0, -1e9)[:, None,
+                                                                 None, :])
+    pairs = b * h * tq * tk * (0.5 if causal else 1.0)
+    qo, kv = 4 * b * h * tq * d, 4 * b * h * tk * d
+    read = 2 * qo + 2 * kv + 4 * b * tk + 8 * b * h * tq
+    times = {
+        "dq_ms": time_ms(lambda: fa.flash_backward_dq(*bwd)),
+        "dkv_ms": time_ms(lambda: fa.flash_backward_dkv(*bwd)),
+        "backward_ms": time_ms(lambda: fa.flash_backward(
+            q, k, v, mask, out, lse, g, causal)),
+        "sdpa_backward_ms": time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, g, retain_graph=True)),
+        "dq_bound_ms": bound(6 * pairs * d, read + qo)[0],
+        "dkv_bound_ms": bound(8 * pairs * d, read + 2 * kv)[0],
+        "backward_bound_ms": bound(10 * pairs * d, 4 * qo + 4 * kv
+                                   + 4 * b * tk + 4 * b * h * tq)[0],
+        "shape": [b, h, tq, tk, d, bool(causal)]}
+    return times
 
 
 def cudnn_lstm(params, reverse, forget_bias):
@@ -832,12 +904,12 @@ def launch_plans():
         "lstm_scan": cuda_rnn.lstm_scan_plan(BATCH, RNN, 2,
                                              *limits)._asdict(),
         "flash_attention_fwd": {
-            case: fa.flash_forward_plan(*shape)._asdict()
-            for case, shape in (
-                ("encoder", (BATCH, T_HEADS, SRC_LEN, SRC_LEN, T_HEAD_DIM)),
-                ("decoder self", (BATCH, T_HEADS, TGT_LEN, TGT_LEN,
-                                  T_HEAD_DIM)),
-                ("long source", (8, T_HEADS, 512, 512, T_HEAD_DIM)))}}
+            case: fa.flash_forward_plan(*shape[:5])._asdict()
+            for case, shape in FLASH_SHAPES.items()},
+        "flash_attention_bwd": {
+            case: {kernel: launch._asdict() for kernel, launch in
+                   fa.flash_backward_plan(*shape)._asdict().items()}
+            for case, shape in FLASH_SHAPES.items()}}
 
 
 def timings(kernel, plain, library):
@@ -980,7 +1052,7 @@ def run_slice(tmp: str):
     from neuralmonkey_tpu_torch.experiment import Experiment
 
     exp_ini, data_ini = write_inputs(tmp)
-    exp = Experiment(exp_ini)
+    exp = Experiment(exp_ini, train_mode=False)
     exp.build_model()
     ckpt = exp.tf_manager.save(os.path.join(tmp, "params"))
     launches, outputs = serve_through_run(
@@ -1067,7 +1139,8 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
     from neuralmonkey_tpu_torch.models.decoders import beam_search_decoder
 
     dataset = run.load_data_config(data_ini)[0].subset(0, N_PARITY)
-    cpu_exp = Experiment(exp_ini, config_changes=['tf_manager.device="cpu"'])
+    cpu_exp = Experiment(exp_ini, train_mode=False,
+                         config_changes=['tf_manager.device="cpu"'])
     cpu_exp.build_model()
     cpu_exp.tf_manager.restore(ckpt)
 
@@ -1700,7 +1773,7 @@ def run_transformer_serving(tmp: str):
     data_ini = os.path.join(tmp, "t_data.ini")
     with open(data_ini, "w") as f:
         f.write(DATA_INI.format(tmp=tmp, prefix="t_"))
-    exp = Experiment(exp_ini)
+    exp = Experiment(exp_ini, train_mode=False)
     exp.build_model()
     ckpt = exp.tf_manager.save(os.path.join(tmp, "t_params"))
     outputs = [os.path.join(tmp, f"t_{name}.txt")
@@ -1740,7 +1813,7 @@ def run_lstm_serving(tmp: str):
     from neuralmonkey_tpu_torch.experiment import Experiment
 
     exp_ini, data_ini = write_inputs(tmp, "LSTM", "lstm_")
-    exp = Experiment(exp_ini)
+    exp = Experiment(exp_ini, train_mode=False)
     exp.build_model()
     ckpt = exp.tf_manager.save(os.path.join(tmp, "lstm_params"))
     outputs = [os.path.join(tmp, f"lstm_{name}.txt")

@@ -63,6 +63,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, int src
                "r"(src_bytes)
                : "memory");
 }
+// 4-byte asynchronous copy (through L1: .cg takes 16 bytes only); zero-fills
+// when `src_bytes` is 0
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -20,49 +20,62 @@
 // bit.
 //
 // What bounds them on the H100: at the Transformer's shapes (T 32-48, head
-// dim 64) the bytes. Each (batch, head) reads q, k, v once (about 17 MB over
-// B 64, H 8 at T 32) against about 2 * T * D flops per byte pair; the score
-// tiles live in shared memory or registers only. All three are
-// FlashAttention-2 on the CUDA cores, every sum in one fixed order (no
+// dim 64) the bytes. Each (batch, head) reads q, k, v (and in the backward
+// dO) once: about 17 MB over B 64, H 8 at T 32, against 2 * T * D flops per
+// byte pair. At a 512-token source the flops bound them instead. All three
+// are FlashAttention-2 on the CUDA cores, every sum in one fixed order (no
 // atomics, deterministic); causal attention skips the key tiles above the
-// diagonal (forward, dq) and the query tiles before it (dkv).
+// diagonal (forward, dq) and the query tiles before it (dkv). Tensor cores
+// are left out on purpose: the port is float32, TF32 products (10-bit
+// mantissas) would break the gradients' 1e-4 tolerance, and at the
+// Transformer's shapes the bytes, not the flops, set the bound. Where the
+// flops bind (a 512-token source), the shared-memory reads that feed the
+// FMAs (a float4 per 4 to 8 FMAs) hold these kernels near a third of the
+// CUDA cores' peak; a product split into three TF32 parts would keep
+// float32 accuracy on the tensor cores there (ROADMAP).
 //
-// The forward: a block of 128 threads owns 32 query rows of one
-// (batch, head) and walks the keys in tiles of 32, loaded with 16-byte
-// cp.async copies, double-buffered when there is more than one tile. Its
-// shared-memory traffic, not its flops, bounded the first design (each FMA
-// read both operands from shared memory), so each thread keeps a register
-// tile: 2 query rows x 4 keys of S, and the same 2 rows x D/8 columns of O.
-// Every q, k and v read is a float4 that feeds 4 to 8 FMAs; the 8 threads of
-// a row sit in one quarter warp, where the q reads broadcast and the k and v
-// reads hit distinct banks, and they reduce the row's max and sum with
-// shuffles and hand each other P with shuffles, so P never enters shared
-// memory. The last tile's loops stop at the keys that exist (groups of 8 in
-// QK, one key in PV). At D 64 a block takes 26 KB (one tile) or 43 KB.
+// One layout for all three: a block of 128 threads owns 32 rows of one
+// (batch, head) -- queries in the forward and dq, keys in dkv -- and walks
+// the other axis in tiles of 32, loaded with 16-byte cp.async copies,
+// double-buffered when there is more than one tile. A design whose FMAs
+// read both operands from shared memory as scalars is bounded by that
+// traffic, not by its flops, so each thread keeps register tiles: 2 of the
+// block's rows x 4 entries of the tile for the scores, and the same 2 rows x
+// D/8 columns of the output. Every shared read is a float4
+// that feeds 4 to 8 FMAs: the 8 threads of a row sit in one quarter warp,
+// where reads of the block's rows broadcast and reads of the tile's rows
+// (row stride W + 4) hit distinct bank groups. The 8 threads reduce a row
+// and hand each other the probabilities with shuffles, so P and dS never
+// enter shared memory. The last tile's loops stop at the entries that exist
+// (groups of 8 in the scores, one entry in the products).
 //
-// The backward kernels: a block owns 32 query rows (dq) or 32 key rows (dkv);
-// 8 threads share a row, each holding D/8 output columns in registers; the
-// block walks the other axis in 64-wide tiles through shared memory with the
-// recomputed P = exp(s - lse).
+// - Forward: S = q kᵀ, online softmax, O += P v. At D 64 a block takes 26 KB
+//   (one tile) or 43 KB.
+// - dq: S = q kᵀ and dP = dO vᵀ in one pass over D, P = exp(S - lse)
+//   recomputed, dS = P (dP·keep/kp - dcap), dq += dS k. At D 64: 34 KB or
+//   51 KB; the encoder's 32 keys are one tile, with no padding key in any
+//   product.
+// - dkv: the same transposed. Sᵀ = k qᵀ and dPᵀ = v dOᵀ with keys as rows,
+//   dV += Pᵀ dO (dropped P) and dK += dSᵀ q (undropped P), the sums over
+//   queries as dq's over keys. Each query tile brings its lse and dcap rows
+//   with it. At D 64: 34 KB or 52 KB.
+// In dq, a warp whose 8 queries all lie past Tq (the second block of a
+// 48-query axis holds 16) only loads and synchronises; the same skip in dkv
+// measured slower.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;                      // backward
+constexpr int kThreads = 128;                      // every kernel
 constexpr int kRowThreads = 8;                     // threads sharing a row
-constexpr int kRows = kThreads / kRowThreads;      // 32 rows per block
-constexpr int kTileKV = 64;                        // key tile (dq)
-constexpr int kKPT = kTileKV / kRowThreads;        // keys per thread (dq)
-constexpr int kQPT = kRows / kRowThreads;          // queries per thread (dkv)
+constexpr int kRows = 32;                          // rows a block owns
+constexpr int kTile = 32;                          // tile of the other axis
+constexpr int kTPT = kTile / kRowThreads;          // 4 tile entries per thread
+constexpr int kRPT = kRows * kRowThreads / kThreads;  // 2 rows per thread
+constexpr int kWarpRows = kRows / (kThreads / 32);    // 8 rows per warp
 constexpr float kMasked = -1e9f;
-
-constexpr int kFwdThreads = 128;                   // forward
-constexpr int kFwdRows = 32;                       // query rows per block
-constexpr int kFwdKeys = 32;                       // key tile
-constexpr int kFwdKPT = kFwdKeys / kRowThreads;    // 4 keys per thread
-constexpr int kFwdQPT = kFwdRows * kRowThreads / kFwdThreads;  // 2 rows per thread
 
 struct Dropout {
   int enabled;
@@ -98,61 +111,89 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// rows x DMAX tile from a (T, D) matrix, zero beyond T and D, row stride ld
-template <int DMAX>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int row0,
-                                          int rows, int T, int D, float scale) {
-  for (int i = threadIdx.x; i < rows * DMAX; i += kThreads) {
-    const int r = i / DMAX, d = i % DMAX;
-    dst[r * ld + d] = (row0 + r < T && d < D) ? src[static_cast<size_t>(row0 + r) * D + d] * scale
-                                              : 0.f;
-  }
+// the value lane `src` of this thread's quarter warp holds
+__device__ __forceinline__ float from_lane(float v, int src) {
+  return __shfl_sync(nm::kFullMask, v, ((threadIdx.x & 31) & ~(kRowThreads - 1)) | src);
 }
 
-template <int DMAX>
-__device__ __forceinline__ float dot_row(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < DMAX; ++d) acc = fmaf(a[d], b[d], acc);
-  return acc;
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
 }
 
-// ------------------------------------------------------------------------ //
-// forward
-// ------------------------------------------------------------------------ //
+// acc[0..3] += w * x
+__device__ __forceinline__ void axpy4(float* acc, float w, float4 x) {
+  acc[0] = fmaf(w, x.x, acc[0]);
+  acc[1] = fmaf(w, x.y, acc[1]);
+  acc[2] = fmaf(w, x.z, acc[2]);
+  acc[3] = fmaf(w, x.w, acc[3]);
+}
+
 // rows x W tile (row stride ld) of a (T, D) matrix, zero beyond T and D:
 // 16-byte cp.async copies (zero-filled past the end) when D % 4 == 0, plain
 // loads otherwise; the caller commits and waits
 template <int W>
-__device__ __forceinline__ void fwd_load_rows(float* dst, int ld, const float* src, int row0,
-                                              int rows, int T, int D) {
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int row0, int rows,
+                                          int T, int D) {
   if ((D & 3) == 0) {
-    for (int i = threadIdx.x; i < rows * (W / 4); i += kFwdThreads) {
+    for (int i = threadIdx.x; i < rows * (W / 4); i += kThreads) {
       const int r = i / (W / 4), d = (i % (W / 4)) * 4;
       const bool in = row0 + r < T && d < D;
       nm::cp_async16(dst + r * ld + d, in ? src + static_cast<size_t>(row0 + r) * D + d : src,
-                 in ? 16 : 0);
+                     in ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * W; i += kFwdThreads) {
+    for (int i = threadIdx.x; i < rows * W; i += kThreads) {
       const int r = i / W, d = i % W;
       dst[r * ld + d] = (row0 + r < T && d < D) ? src[static_cast<size_t>(row0 + r) * D + d] : 0.f;
     }
   }
 }
 
+// n floats of a vector from `first`, zero at or beyond `end`, by 4-byte
+// cp.async copies; the caller commits and waits
+__device__ __forceinline__ void load_vector(float* dst, const float* src, int first, int n,
+                                            int end) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const bool in = first + i < end;
+    nm::cp_async4(dst + i, in ? src + first + i : src, in ? 4 : 0);
+  }
+}
+
+// scale * acc into this thread's columns (n * 8 + kg) * 4 .. + 4 of a row
+template <int NV>
+__device__ __forceinline__ void store_cols(float* out, const float* acc, float scale, int D,
+                                           int kg) {
+#pragma unroll
+  for (int n = 0; n < NV; ++n) {
+    const int d = (n * kRowThreads + kg) * 4;
+    if ((D & 3) == 0) {
+      if (d < D)
+        *reinterpret_cast<float4*>(out + d) =
+            make_float4(acc[4 * n] * scale, acc[4 * n + 1] * scale, acc[4 * n + 2] * scale,
+                        acc[4 * n + 3] * scale);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (d + c < D) out[d + c] = acc[4 * n + c] * scale;
+    }
+  }
+}
+
+// ------------------------------------------------------------------------ //
+// forward
+// ------------------------------------------------------------------------ //
 // floats of one key stage (k, v, mask) and of the whole block
 template <int W>
 __host__ __device__ constexpr int fwd_stage_floats() {
-  return kFwdKeys * (W + 4) + kFwdKeys * W + kFwdKeys;
+  return kTile * (W + 4) + kTile * W + kTile;
 }
 template <int W>
 constexpr size_t fwd_smem(int stages) {
-  return sizeof(float) * (kFwdRows * (W + 4) + stages * fwd_stage_floats<W>());
+  return sizeof(float) * (kRows * (W + 4) + stages * fwd_stage_floats<W>());
 }
 
 template <int W>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ mask,
                  float* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk, int D,
@@ -160,35 +201,35 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int LD = W + 4;              // q and k row stride: 8 keys' float4s hit 8 bank groups
   constexpr int NV = W / (4 * kRowThreads);  // float4 column chunks of O per thread
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // [kFwdRows][LD]
-  float* stages = sq + kFwdRows * LD;           // per stage: k [kFwdKeys][LD], v [kFwdKeys][W], mask
+  float* sq = reinterpret_cast<float*>(smem4);  // [kRows][LD]
+  float* stages = sq + kRows * LD;              // per stage: k [kTile][LD], v [kTile][W], mask
   const int bh = blockIdx.x, b = bh / H;
-  const int q0 = blockIdx.y * kFwdRows;
+  const int q0 = blockIdx.y * kRows;
   const int lane = threadIdx.x & 31, kg = lane & (kRowThreads - 1);
-  const int row0 = ((threadIdx.x >> 5) * 4 + (lane >> 3)) * kFwdQPT;  // this thread's rows
+  const int row0 = ((threadIdx.x >> 5) * 4 + (lane >> 3)) * kRPT;  // this thread's rows
   const size_t kv_off = static_cast<size_t>(bh) * Tk * D;
-  const bool two = Tk > kFwdKeys;  // double-buffered key tiles
-  int n_tiles = (Tk + kFwdKeys - 1) / kFwdKeys;
-  if (causal) n_tiles = min(n_tiles, (q0 + kFwdRows + kFwdKeys - 1) / kFwdKeys);
+  const bool two = Tk > kTile;  // double-buffered key tiles
+  int n_tiles = (Tk + kTile - 1) / kTile;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows + kTile - 1) / kTile);
 
   auto stage = [&](int t) { return stages + (two ? (t & 1) : 0) * fwd_stage_floats<W>(); };
   auto load_tile = [&](int t) {
     float* st = stage(t);
-    const int k0 = t * kFwdKeys;
-    fwd_load_rows<W>(st, LD, k + kv_off, k0, kFwdKeys, Tk, D);
-    fwd_load_rows<W>(st + kFwdKeys * LD, W, v + kv_off, k0, kFwdKeys, Tk, D);
-    float* sm = st + kFwdKeys * (LD + W);
-    for (int c = threadIdx.x; c < kFwdKeys; c += kFwdThreads)
+    const int k0 = t * kTile;
+    load_rows<W>(st, LD, k + kv_off, k0, kTile, Tk, D);
+    load_rows<W>(st + kTile * LD, W, v + kv_off, k0, kTile, Tk, D);
+    float* sm = st + kTile * (LD + W);
+    for (int c = threadIdx.x; c < kTile; c += kThreads)
       sm[c] = k0 + c < Tk ? mask[static_cast<size_t>(b) * Tk + k0 + c] : 0.f;
     nm::cp_async_commit();
   };
 
-  fwd_load_rows<W>(sq, LD, q + static_cast<size_t>(bh) * Tq * D, q0, kFwdRows, Tq, D);
+  load_rows<W>(sq, LD, q + static_cast<size_t>(bh) * Tq * D, q0, kRows, Tq, D);
   load_tile(0);
-  float o[kFwdQPT][4 * NV];
-  float m[kFwdQPT], l[kFwdQPT];
+  float o[kRPT][4 * NV];
+  float m[kRPT], l[kRPT];
 #pragma unroll
-  for (int i = 0; i < kFwdQPT; ++i) {
+  for (int i = 0; i < kRPT; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -204,43 +245,41 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // tile t (and q) visible to every thread
     const float* sk = stage(t);
-    const float* sv = sk + kFwdKeys * LD;
-    const float* sm = sv + kFwdKeys * W;
-    const int k0 = t * kFwdKeys;
-    const int kn = min(kFwdKeys, Tk - k0);          // keys that exist in this tile
+    const float* sv = sk + kTile * LD;
+    const float* sm = sv + kTile * W;
+    const int k0 = t * kTile;
+    const int kn = min(kTile, Tk - k0);          // keys that exist in this tile
     const int groups = (kn + kRowThreads - 1) / kRowThreads;  // warp-uniform
 
     // S = q k^T for 2 rows x 4 keys (key kg + 8 j)
-    float s[kFwdQPT][kFwdKPT];
+    float s[kRPT][kTPT];
 #pragma unroll
-    for (int i = 0; i < kFwdQPT; ++i)
+    for (int i = 0; i < kRPT; ++i)
 #pragma unroll
-      for (int j = 0; j < kFwdKPT; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < kTPT; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < W; d += 4) {
-      float4 qv[kFwdQPT];
+      float4 qv[kRPT];
 #pragma unroll
-      for (int i = 0; i < kFwdQPT; ++i)
+      for (int i = 0; i < kRPT; ++i)
         qv[i] = *reinterpret_cast<const float4*>(sq + (row0 + i) * LD + d);
 #pragma unroll
-      for (int j = 0; j < kFwdKPT; ++j) {
+      for (int j = 0; j < kTPT; ++j) {
         if (j < groups) {
           const float4 kv = *reinterpret_cast<const float4*>(sk + (kg + j * kRowThreads) * LD + d);
 #pragma unroll
-          for (int i = 0; i < kFwdQPT; ++i)
-            s[i][j] = fmaf(qv[i].x, kv.x,
-                           fmaf(qv[i].y, kv.y, fmaf(qv[i].z, kv.z, fmaf(qv[i].w, kv.w, s[i][j]))));
+          for (int i = 0; i < kRPT; ++i) s[i][j] = dot4(qv[i], kv, s[i][j]);
         }
       }
     }
 
     // online softmax; s becomes the (dropped) weights of this tile
 #pragma unroll
-    for (int i = 0; i < kFwdQPT; ++i) {
+    for (int i = 0; i < kRPT; ++i) {
       const int qi = q0 + row0 + i;
       float tile_max = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kFwdKPT; ++j) {
+      for (int j = 0; j < kTPT; ++j) {
         const int c = kg + j * kRowThreads, key = k0 + c;
         float x = s[i][j] * scale;
         if (c >= kn)
@@ -254,7 +293,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float corr = expf(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kFwdKPT; ++j) {
+      for (int j = 0; j < kTPT; ++j) {
         const int c = kg + j * kRowThreads, key = k0 + c;
         const float p = expf(s[i][j] - m_new);
         psum += p;
@@ -272,27 +311,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // O += P v: key c's weights come from lane c % 8 of the row's quarter
     // warp; thread kg holds columns (8 n + kg) * 4 .. + 4
 #pragma unroll
-    for (int j = 0; j < kFwdKPT; ++j) {
+    for (int j = 0; j < kTPT; ++j) {
       if (j >= groups) break;
 #pragma unroll
       for (int src = 0; src < kRowThreads; ++src) {
         const int c = j * kRowThreads + src;
         if (c >= kn) break;
-        float p[kFwdQPT];
+        float p[kRPT];
 #pragma unroll
-        for (int i = 0; i < kFwdQPT; ++i)
-          p[i] = __shfl_sync(nm::kFullMask, s[i][j], (lane & ~(kRowThreads - 1)) | src);
+        for (int i = 0; i < kRPT; ++i) p[i] = from_lane(s[i][j], src);
 #pragma unroll
         for (int n = 0; n < NV; ++n) {
           const float4 vv =
               *reinterpret_cast<const float4*>(sv + c * W + (n * kRowThreads + kg) * 4);
 #pragma unroll
-          for (int i = 0; i < kFwdQPT; ++i) {
-            o[i][4 * n] = fmaf(p[i], vv.x, o[i][4 * n]);
-            o[i][4 * n + 1] = fmaf(p[i], vv.y, o[i][4 * n + 1]);
-            o[i][4 * n + 2] = fmaf(p[i], vv.z, o[i][4 * n + 2]);
-            o[i][4 * n + 3] = fmaf(p[i], vv.w, o[i][4 * n + 3]);
-          }
+          for (int i = 0; i < kRPT; ++i) axpy4(o[i] + 4 * n, p[i], vv);
         }
       }
     }
@@ -300,7 +333,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < kFwdQPT; ++i) {
+  for (int i = 0; i < kRPT; ++i) {
     const int qi = q0 + row0 + i;
     if (qi >= Tq) continue;
     const float denom = fmaxf(l[i], 1e-20f);
@@ -319,86 +352,178 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ------------------------------------------------------------------------ //
 // backward: dq, one block per (batch·head, 32 query rows)
 // ------------------------------------------------------------------------ //
-template <int DMAX>
+// floats of one key stage (k, v, mask) and of the whole block (q, dO, stages)
+template <int W>
+__host__ __device__ constexpr int dq_stage_floats() {
+  return 2 * kTile * (W + 4) + kTile;
+}
+template <int W>
+constexpr size_t dq_smem(int stages) {
+  return sizeof(float) * (2 * kRows * (W + 4) + stages * dq_stage_floats<W>());
+}
+
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ mask,
                     const float* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ dcap, float* __restrict__ dq, int H, int Tq, int Tk,
                     int D, int causal, Dropout drop, float scale) {
-  constexpr int LD = DMAX + 1, LP = kTileKV + 1, DPT = DMAX / kRowThreads;
-  extern __shared__ float smem[];
-  float* sq = smem;                  // [kRows][LD]
-  float* sdo = sq + kRows * LD;      // [kRows][LD]
-  float* sk = sdo + kRows * LD;      // [kTileKV][LD]
-  float* sv = sk + kTileKV * LD;     // [kTileKV][LD]
-  float* sds = sv + kTileKV * LD;    // [kRows][LP]
-  float* sm = sds + kRows * LP;      // [kTileKV]
+  constexpr int LD = W + 4;
+  constexpr int NV = W / (4 * kRowThreads);
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);  // [kRows][LD]
+  float* sdo = sq + kRows * LD;                 // [kRows][LD]
+  float* stages = sdo + kRows * LD;             // per stage: k, v [kTile][LD], mask [kTile]
   const int bh = blockIdx.x, b = bh / H;
   const int q0 = blockIdx.y * kRows;
-  const int row = threadIdx.x / kRowThreads, sub = threadIdx.x % kRowThreads;
-  const int qi = q0 + row;
-  const bool row_ok = qi < Tq;
+  const int lane = threadIdx.x & 31, kg = lane & (kRowThreads - 1);
+  const int row0 = ((threadIdx.x >> 5) * 4 + (lane >> 3)) * kRPT;  // this thread's queries
+  // a warp whose queries all lie beyond Tq only loads and synchronises
+  const bool live = q0 + static_cast<int>(threadIdx.x >> 5) * kWarpRows < Tq;
   const size_t q_off = static_cast<size_t>(bh) * Tq * D, kv_off = static_cast<size_t>(bh) * Tk * D;
-  const float row_lse = row_ok ? lse[static_cast<size_t>(bh) * Tq + qi] : 0.f;
-  const float row_dcap = row_ok ? dcap[static_cast<size_t>(bh) * Tq + qi] : 0.f;
+  const bool two = Tk > kTile;  // double-buffered key tiles
+  int n_tiles = (Tk + kTile - 1) / kTile;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows + kTile - 1) / kTile);
 
-  load_rows<DMAX>(sq, LD, q + q_off, q0, kRows, Tq, D, 1.f);
-  load_rows<DMAX>(sdo, LD, dout + q_off, q0, kRows, Tq, D, 1.f);
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-  int n_tiles = (Tk + kTileKV - 1) / kTileKV;
-  if (causal) n_tiles = min(n_tiles, (q0 + kRows + kTileKV - 1) / kTileKV);
+  auto stage = [&](int t) { return stages + (two ? (t & 1) : 0) * dq_stage_floats<W>(); };
+  auto load_tile = [&](int t) {
+    float* st = stage(t);
+    const int k0 = t * kTile;
+    load_rows<W>(st, LD, k + kv_off, k0, kTile, Tk, D);
+    load_rows<W>(st + kTile * LD, LD, v + kv_off, k0, kTile, Tk, D);
+    load_vector(st + 2 * kTile * LD, mask + static_cast<size_t>(b) * Tk, k0, kTile, Tk);
+    nm::cp_async_commit();
+  };
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTileKV;
-    __syncthreads();
-    load_rows<DMAX>(sk, LD, k + kv_off, k0, kTileKV, Tk, D, 1.f);
-    load_rows<DMAX>(sv, LD, v + kv_off, k0, kTileKV, Tk, D, 1.f);
-    for (int c = threadIdx.x; c < kTileKV; c += kThreads)
-      sm[c] = k0 + c < Tk ? mask[static_cast<size_t>(b) * Tk + k0 + c] : 0.f;
-    __syncthreads();
+  load_rows<W>(sq, LD, q + q_off, q0, kRows, Tq, D);
+  load_rows<W>(sdo, LD, dout + q_off, q0, kRows, Tq, D);
+  load_tile(0);
+  float row_lse[kRPT], row_dcap[kRPT], acc[kRPT][4 * NV];
 #pragma unroll
-    for (int j = 0; j < kKPT; ++j) {
-      const int c = sub + j * kRowThreads, key = k0 + c;
-      float ds = 0.f;
-      if (row_ok && key < Tk) {
-        float s = dot_row<DMAX>(sq + row * LD, sk + c * LD) * scale;
-        if (!(sm[c] > 0.f) || (causal && qi < key)) s = kMasked;
-        const float p = expf(s - row_lse);
-        float dp = dot_row<DMAX>(sdo + row * LD, sv + c * LD);
-        if (drop.enabled)
-          dp = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key) ? dp * drop.inv_keep : 0.f;
-        ds = p * (dp - row_dcap);
-      }
-      sds[row * LP + c] = ds;
-    }
-    __syncthreads();
+  for (int i = 0; i < kRPT; ++i) {
+    const int qi = q0 + row0 + i;
+    row_lse[i] = qi < Tq ? lse[static_cast<size_t>(bh) * Tq + qi] : 0.f;
+    row_dcap[i] = qi < Tq ? dcap[static_cast<size_t>(bh) * Tq + qi] : 0.f;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = sub + i * kRowThreads;
-      float a = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < kTileKV; ++c) a = fmaf(sds[row * LP + c], sk[c * LD + d], a);
-      acc[i] += a;
-    }
+    for (int c = 0; c < 4 * NV; ++c) acc[i][c] = 0.f;
   }
 
-  if (row_ok) {
-    float* out = dq + q_off + static_cast<size_t>(qi) * D;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = sub + i * kRowThreads;
-      if (d < D) out[d] = acc[i] * scale;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (two && t + 1 < n_tiles) {
+      load_tile(t + 1);
+      nm::cp_async_wait<1>();
+    } else {
+      nm::cp_async_wait<0>();
     }
+    __syncthreads();  // tile t (and q, dO) visible to every thread
+    if (!live) {
+      __syncthreads();
+      continue;
+    }
+    const float* sk = stage(t);
+    const float* sv = sk + kTile * LD;
+    const float* sm = sv + kTile * LD;
+    const int k0 = t * kTile;
+    const int kn = min(kTile, Tk - k0);          // keys that exist in this tile
+    const int groups = (kn + kRowThreads - 1) / kRowThreads;  // warp-uniform
+
+    // S = q k^T and dP = dO v^T for 2 rows x 4 keys (key kg + 8 j)
+    float s[kRPT][kTPT], dp[kRPT][kTPT];
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < W; d += 4) {
+      float4 qv[kRPT], gv[kRPT];
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i) {
+        qv[i] = *reinterpret_cast<const float4*>(sq + (row0 + i) * LD + d);
+        gv[i] = *reinterpret_cast<const float4*>(sdo + (row0 + i) * LD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) {
+        if (j < groups) {
+          const int c = kg + j * kRowThreads;
+          const float4 kv = *reinterpret_cast<const float4*>(sk + c * LD + d);
+          const float4 vv = *reinterpret_cast<const float4*>(sv + c * LD + d);
+#pragma unroll
+          for (int i = 0; i < kRPT; ++i) {
+            s[i][j] = dot4(qv[i], kv, s[i][j]);
+            dp[i][j] = dot4(gv[i], vv, dp[i][j]);
+          }
+        }
+      }
+    }
+
+    // dS = P (dP - dcap) with P = exp(s - lse) and dP through the keep
+    // bits; s becomes dS
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i) {
+      const int qi = q0 + row0 + i;
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) {
+        const int c = kg + j * kRowThreads, key = k0 + c;
+        float ds = 0.f;
+        if (c < kn && qi < Tq) {
+          float x = s[i][j] * scale;
+          if (!(sm[c] > 0.f) || (causal && qi < key)) x = kMasked;
+          const float p = expf(x - row_lse[i]);
+          float g = dp[i][j];
+          if (drop.enabled)
+            g = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key) ? g * drop.inv_keep : 0.f;
+          ds = p * (g - row_dcap[i]);
+        }
+        s[i][j] = ds;
+      }
+    }
+
+    // dq += dS k: key c's dS comes from lane c % 8 of the row's quarter warp
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      if (j >= groups) break;
+#pragma unroll
+      for (int src = 0; src < kRowThreads; ++src) {
+        const int c = j * kRowThreads + src;
+        if (c >= kn) break;
+        float w[kRPT];
+#pragma unroll
+        for (int i = 0; i < kRPT; ++i) w[i] = from_lane(s[i][j], src);
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(sk + c * LD + (n * kRowThreads + kg) * 4);
+#pragma unroll
+          for (int i = 0; i < kRPT; ++i) axpy4(acc[i] + 4 * n, w[i], kv);
+        }
+      }
+    }
+    __syncthreads();  // the stage is consumed before the next load refills it
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int qi = q0 + row0 + i;
+    if (qi < Tq) store_cols<NV>(dq + q_off + static_cast<size_t>(qi) * D, acc[i], scale, D, kg);
   }
 }
 
 // ------------------------------------------------------------------------ //
 // backward: dk and dv, one block per (batch·head, 32 key rows)
 // ------------------------------------------------------------------------ //
-template <int DMAX>
+// floats of one query stage (q, dO, lse, dcap) and of the whole block (k, v,
+// stages)
+template <int W>
+__host__ __device__ constexpr int dkv_stage_floats() {
+  return 2 * kTile * (W + 4) + 2 * kTile;
+}
+template <int W>
+constexpr size_t dkv_smem(int stages) {
+  return sizeof(float) * (2 * kRows * (W + 4) + stages * dkv_stage_floats<W>());
+}
+
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ mask,
@@ -406,100 +531,160 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ dcap, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int Tq, int Tk, int D, int causal,
                      Dropout drop, float scale) {
-  constexpr int LD = DMAX + 1, LQ = kRows + 1, DPT = DMAX / kRowThreads;
-  extern __shared__ float smem[];
-  float* sk = smem;                  // [kRows][LD]   this block's keys
-  float* sv = sk + kRows * LD;       // [kRows][LD]
-  float* sq = sv + kRows * LD;       // [kRows][LD]   a tile of queries
-  float* sdo = sq + kRows * LD;      // [kRows][LD]
-  float* spd = sdo + kRows * LD;     // [kRows][LQ]   dropped P, key-major
-  float* sds = spd + kRows * LQ;     // [kRows][LQ]   dS, key-major
-  float* slse = sds + kRows * LQ;    // [kRows]
-  float* sdcap = slse + kRows;       // [kRows]
+  constexpr int LD = W + 4;
+  constexpr int NV = W / (4 * kRowThreads);
+  extern __shared__ float4 smem4[];
+  float* sk = reinterpret_cast<float*>(smem4);  // [kRows][LD] this block's keys
+  float* sv = sk + kRows * LD;                  // [kRows][LD]
+  float* stages = sv + kRows * LD;  // per stage: q, dO [kTile][LD], lse, dcap [kTile]
   const int bh = blockIdx.x, b = bh / H;
   const int kv0 = blockIdx.y * kRows;
-  const int row = threadIdx.x / kRowThreads, sub = threadIdx.x % kRowThreads;
-  const int key = kv0 + row;
-  const bool key_ok = key < Tk;
-  const bool key_valid = key_ok && mask[static_cast<size_t>(b) * Tk + key] > 0.f;
+  const int lane = threadIdx.x & 31, qg = lane & (kRowThreads - 1);
+  const int row0 = ((threadIdx.x >> 5) * 4 + (lane >> 3)) * kRPT;  // this thread's keys
   const size_t q_off = static_cast<size_t>(bh) * Tq * D, kv_off = static_cast<size_t>(bh) * Tk * D;
+  const bool two = Tq > kTile;  // double-buffered query tiles
+  const int n_tiles = (Tq + kTile - 1) / kTile;
+  // causal: the queries before the block's first key see none of its keys
+  const int first = causal ? kv0 / kTile : 0;
 
-  load_rows<DMAX>(sk, LD, k + kv_off, kv0, kRows, Tk, D, 1.f);
-  load_rows<DMAX>(sv, LD, v + kv_off, kv0, kRows, Tk, D, 1.f);
-  float ak[DPT], av[DPT];
+  auto stage = [&](int t) { return stages + (two ? (t & 1) : 0) * dkv_stage_floats<W>(); };
+  auto load_tile = [&](int t) {
+    float* st = stage(t);
+    const int q0 = t * kTile;
+    load_rows<W>(st, LD, q + q_off, q0, kTile, Tq, D);
+    load_rows<W>(st + kTile * LD, LD, dout + q_off, q0, kTile, Tq, D);
+    float* sl = st + 2 * kTile * LD;
+    load_vector(sl, lse + static_cast<size_t>(bh) * Tq, q0, kTile, Tq);
+    load_vector(sl + kTile, dcap + static_cast<size_t>(bh) * Tq, q0, kTile, Tq);
+    nm::cp_async_commit();
+  };
+
+  load_rows<W>(sk, LD, k + kv_off, kv0, kRows, Tk, D);
+  load_rows<W>(sv, LD, v + kv_off, kv0, kRows, Tk, D);
+  load_tile(first);
+  bool key_ok[kRPT], key_valid[kRPT];
+  float ak[kRPT][4 * NV], av[kRPT][4 * NV];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) ak[i] = av[i] = 0.f;
-  const int n_tiles = (Tq + kRows - 1) / kRows;
-  const int first = causal ? kv0 / kRows : 0;
+  for (int i = 0; i < kRPT; ++i) {
+    const int key = kv0 + row0 + i;
+    key_ok[i] = key < Tk;
+    key_valid[i] = key_ok[i] && mask[static_cast<size_t>(b) * Tk + key] > 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) ak[i][c] = av[i][c] = 0.f;
+  }
 
   for (int t = first; t < n_tiles; ++t) {
-    const int q0 = t * kRows;
-    __syncthreads();
-    load_rows<DMAX>(sq, LD, q + q_off, q0, kRows, Tq, D, 1.f);
-    load_rows<DMAX>(sdo, LD, dout + q_off, q0, kRows, Tq, D, 1.f);
-    for (int r = threadIdx.x; r < kRows; r += kThreads) {
-      const bool in = q0 + r < Tq;
-      slse[r] = in ? lse[static_cast<size_t>(bh) * Tq + q0 + r] : 0.f;
-      sdcap[r] = in ? dcap[static_cast<size_t>(bh) * Tq + q0 + r] : 0.f;
+    if (two && t + 1 < n_tiles) {
+      load_tile(t + 1);
+      nm::cp_async_wait<1>();
+    } else {
+      nm::cp_async_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // tile t (and k, v) visible to every thread
+    const float* sq = stage(t);
+    const float* sdo = sq + kTile * LD;
+    const float* slse = sdo + kTile * LD;
+    const float* sdcap = slse + kTile;
+    const int q0 = t * kTile;
+    const int qn = min(kTile, Tq - q0);          // queries that exist in this tile
+    const int groups = (qn + kRowThreads - 1) / kRowThreads;  // warp-uniform
+
+    // S^T = k q^T and dP^T = v dO^T for 2 keys x 4 queries (query qg + 8 j)
+    float s[kRPT][kTPT], dp[kRPT][kTPT];
 #pragma unroll
-    for (int j = 0; j < kQPT; ++j) {
-      const int r = sub + j * kRowThreads, qi = q0 + r;
-      float pd = 0.f, ds = 0.f;
-      if (key_ok && qi < Tq) {
-        float s = dot_row<DMAX>(sq + r * LD, sk + row * LD) * scale;
-        if (!key_valid || (causal && qi < key)) s = kMasked;
-        const float p = expf(s - slse[r]);
-        float dp = dot_row<DMAX>(sdo + r * LD, sv + row * LD);
-        pd = p;
-        if (drop.enabled) {
-          const bool keep = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key);
-          pd = keep ? p * drop.inv_keep : 0.f;
-          dp = keep ? dp * drop.inv_keep : 0.f;
+    for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < W; d += 4) {
+      float4 kv[kRPT], vv[kRPT];
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i) {
+        kv[i] = *reinterpret_cast<const float4*>(sk + (row0 + i) * LD + d);
+        vv[i] = *reinterpret_cast<const float4*>(sv + (row0 + i) * LD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) {
+        if (j < groups) {
+          const int r = qg + j * kRowThreads;
+          const float4 qv = *reinterpret_cast<const float4*>(sq + r * LD + d);
+          const float4 gv = *reinterpret_cast<const float4*>(sdo + r * LD + d);
+#pragma unroll
+          for (int i = 0; i < kRPT; ++i) {
+            s[i][j] = dot4(kv[i], qv, s[i][j]);
+            dp[i][j] = dot4(vv[i], gv, dp[i][j]);
+          }
         }
-        ds = p * (dp - sdcap[r]);
       }
-      spd[row * LQ + r] = pd;
-      sds[row * LQ + r] = ds;
     }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = sub + i * kRowThreads;
-      float a = 0.f, c = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < kRows; ++r) {
-        a = fmaf(spd[row * LQ + r], sdo[r * LD + d], a);
-        c = fmaf(sds[row * LQ + r], sq[r * LD + d], c);
-      }
-      av[i] += a;
-      ak[i] += c;
-    }
-  }
 
-  if (key_ok) {
+    // s becomes the dropped P (for dV), dp becomes dS from the undropped P
+    // (for dK)
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i) {
+      const int key = kv0 + row0 + i;
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) {
+        const int r = qg + j * kRowThreads, qi = q0 + r;
+        float pd = 0.f, ds = 0.f;
+        if (r < qn && key_ok[i]) {
+          float x = s[i][j] * scale;
+          if (!key_valid[i] || (causal && qi < key)) x = kMasked;
+          const float p = expf(x - slse[r]);
+          float g = dp[i][j];
+          pd = p;
+          if (drop.enabled) {
+            const bool keep = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key);
+            pd = keep ? p * drop.inv_keep : 0.f;
+            g = keep ? g * drop.inv_keep : 0.f;
+          }
+          ds = p * (g - sdcap[r]);
+        }
+        s[i][j] = pd;
+        dp[i][j] = ds;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T q: query r's values come from lane r % 8
+    // of the key's quarter warp
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      if (j >= groups) break;
+#pragma unroll
+      for (int src = 0; src < kRowThreads; ++src) {
+        const int r = j * kRowThreads + src;
+        if (r >= qn) break;
+        float wp[kRPT], ws[kRPT];
+#pragma unroll
+        for (int i = 0; i < kRPT; ++i) {
+          wp[i] = from_lane(s[i][j], src);
+          ws[i] = from_lane(dp[i][j], src);
+        }
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const int d = (n * kRowThreads + qg) * 4;
+          const float4 gv = *reinterpret_cast<const float4*>(sdo + r * LD + d);
+          const float4 qv = *reinterpret_cast<const float4*>(sq + r * LD + d);
+#pragma unroll
+          for (int i = 0; i < kRPT; ++i) {
+            axpy4(av[i] + 4 * n, wp[i], gv);
+            axpy4(ak[i] + 4 * n, ws[i], qv);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is consumed before the next load refills it
+  }
+  nm::cp_async_wait<0>();  // no copy in flight where the causal walk is empty
+
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int key = kv0 + row0 + i;
+    if (!key_ok[i]) continue;
     const size_t off = kv_off + static_cast<size_t>(key) * D;
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const int d = sub + i * kRowThreads;
-      if (d < D) {
-        dk[off + d] = ak[i] * scale;
-        dv[off + d] = av[i];
-      }
-    }
+    store_cols<NV>(dk + off, ak[i], scale, D, qg);
+    store_cols<NV>(dv + off, av[i], 1.f, D, qg);
   }
-}
-
-// shared memory of the backward kernels
-template <int DMAX>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * kRows * (DMAX + 1) + 2 * kTileKV * (DMAX + 1) +
-                          kRows * (kTileKV + 1) + kTileKV);
-}
-template <int DMAX>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * kRows * (DMAX + 1) + 2 * kRows * (kRows + 1) + 2 * kRows);
 }
 
 // the shared-memory cap is raised once per kernel and device, not per launch
@@ -517,41 +702,34 @@ Dropout make_dropout(int enabled, int k0, int k1, int thresh, float inv_keep) {
                  static_cast<uint32_t>(thresh), inv_keep};
 }
 
-// the head dimension rounded up to the widths the kernels are built for
-int head_width(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0; }
-// the forward's widths: float4 columns of 8 threads need at least 32
-int fwd_width(int D) { return D <= 32 ? 32 : head_width(D); }
+// the head dimension rounded up to a width the kernels are built for: float4
+// columns of 8 threads need at least 32
+int head_width(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0; }
 
 }  // namespace
 
-#define NM_FLASH_DISPATCH(D, CALL) \
-  switch (head_width(D)) {         \
-    case 16: return CALL(16);      \
-    case 32: return CALL(32);      \
-    case 64: return CALL(64);      \
-    case 128: return CALL(128);    \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
+#define NM_FLASH_DISPATCH(D, CALL)                            \
+  switch (head_width(D)) {                                    \
+    case 32: return CALL(32);                                 \
+    case 64: return CALL(64);                                 \
+    case 128: return CALL(128);                               \
+    default: return static_cast<int>(cudaErrorInvalidValue);  \
   }
 
 NM_EXPORT int nm_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
                            void* out, void* lse, int B, int H, int Tq, int Tk, int D,
                            int causal, int dropout, int k0, int k1, int thresh, float scale,
                            float inv_keep, void* stream) {
-  const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows);
-  const int stages = Tk > kFwdKeys ? 2 : 1;
+  const dim3 grid(B * H, (Tq + kRows - 1) / kRows);
+  const int stages = Tk > kTile ? 2 : 1;
   const Dropout drop = make_dropout(dropout, k0, k1, thresh, inv_keep);
   const auto s = static_cast<cudaStream_t>(stream);
 #define NM_CALL(W)                                                                            \
-  launch(flash_fwd_kernel<W>, kFwdThreads, fwd_smem<W>(stages), grid, s,                      \
+  launch(flash_fwd_kernel<W>, kThreads, fwd_smem<W>(stages), grid, s,                         \
          static_cast<const float*>(q), static_cast<const float*>(k),                          \
          static_cast<const float*>(v), static_cast<const float*>(mask),                       \
          static_cast<float*>(out), static_cast<float*>(lse), H, Tq, Tk, D, causal, drop, scale)
-  switch (fwd_width(D)) {
-    case 32: return NM_CALL(32);
-    case 64: return NM_CALL(64);
-    case 128: return NM_CALL(128);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  NM_FLASH_DISPATCH(D, NM_CALL)
 #undef NM_CALL
 }
 
@@ -561,15 +739,16 @@ NM_EXPORT int nm_flash_bwd_dq(const void* q, const void* k, const void* v, const
                               int k0, int k1, int thresh, float scale, float inv_keep,
                               void* stream) {
   const dim3 grid(B * H, (Tq + kRows - 1) / kRows);
+  const int stages = Tk > kTile ? 2 : 1;
   const Dropout drop = make_dropout(dropout, k0, k1, thresh, inv_keep);
   const auto s = static_cast<cudaStream_t>(stream);
 #define NM_CALL(W)                                                                            \
-  launch(flash_bwd_dq_kernel<W>, kThreads, dq_smem<W>(), grid, s,                           \
+  launch(flash_bwd_dq_kernel<W>, kThreads, dq_smem<W>(stages), grid, s,                       \
          static_cast<const float*>(q), static_cast<const float*>(k),                          \
-         static_cast<const float*>(v),                                                        \
-         static_cast<const float*>(mask), static_cast<const float*>(dout),                    \
-         static_cast<const float*>(lse), static_cast<const float*>(dcap),                     \
-         static_cast<float*>(dq), H, Tq, Tk, D, causal, drop, scale)
+         static_cast<const float*>(v), static_cast<const float*>(mask),                       \
+         static_cast<const float*>(dout), static_cast<const float*>(lse),                     \
+         static_cast<const float*>(dcap), static_cast<float*>(dq), H, Tq, Tk, D, causal, drop, \
+         scale)
   NM_FLASH_DISPATCH(D, NM_CALL)
 #undef NM_CALL
 }
@@ -580,15 +759,16 @@ NM_EXPORT int nm_flash_bwd_dkv(const void* q, const void* k, const void* v, cons
                                int dropout, int k0, int k1, int thresh, float scale,
                                float inv_keep, void* stream) {
   const dim3 grid(B * H, (Tk + kRows - 1) / kRows);
+  const int stages = Tq > kTile ? 2 : 1;
   const Dropout drop = make_dropout(dropout, k0, k1, thresh, inv_keep);
   const auto s = static_cast<cudaStream_t>(stream);
 #define NM_CALL(W)                                                                             \
-  launch(flash_bwd_dkv_kernel<W>, kThreads, dkv_smem<W>(), grid, s,                          \
+  launch(flash_bwd_dkv_kernel<W>, kThreads, dkv_smem<W>(stages), grid, s,                      \
          static_cast<const float*>(q), static_cast<const float*>(k),                           \
-         static_cast<const float*>(v),                                                         \
-         static_cast<const float*>(mask), static_cast<const float*>(dout),                     \
-         static_cast<const float*>(lse), static_cast<const float*>(dcap),                      \
-         static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, D, causal, drop, scale)
+         static_cast<const float*>(v), static_cast<const float*>(mask),                        \
+         static_cast<const float*>(dout), static_cast<const float*>(lse),                      \
+         static_cast<const float*>(dcap), static_cast<float*>(dk), static_cast<float*>(dv), H, \
+         Tq, Tk, D, causal, drop, scale)
   NM_FLASH_DISPATCH(D, NM_CALL)
 #undef NM_CALL
 }

@@ -56,7 +56,7 @@ _MAIN_ARGS = [
 class Experiment:
 
     def __init__(self, config_path: str,
-                 train_mode: bool = False,
+                 train_mode: bool = True,
                  overwrite_output_dir: bool = False,
                  config_changes: Optional[List[str]] = None) -> None:
         self.config_path = config_path

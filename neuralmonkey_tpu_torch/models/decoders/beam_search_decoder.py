@@ -31,6 +31,7 @@ score).
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple
 
 import torch
@@ -79,6 +80,7 @@ class BeamSearchDecoder(ModelPart):
                  use_approx_top_k: bool = False,
                  selection_method: str = "auto",
                  align_logits: bool = False,
+                 lineage: str = "auto",
                  reuse: ModelPart = None,
                  save_checkpoint: str = None,
                  load_checkpoint: str = None) -> None:
@@ -91,6 +93,8 @@ class BeamSearchDecoder(ModelPart):
         if selection_method not in ("auto", "flat", "hierarchical"):
             raise ValueError(
                 f"Unknown selection_method: {selection_method}")
+        if lineage not in ("auto", "on", "off"):
+            raise ValueError(f"Unknown lineage mode: {lineage}")
         if not parent_decoder.lineage_decode:
             raise NotImplementedError(
                 f"beam search over {type(parent_decoder).__name__}: only "
@@ -102,6 +106,24 @@ class BeamSearchDecoder(ModelPart):
         self.max_steps = min(max_steps or parent_decoder.max_output_len,
                              parent_decoder.max_output_len)
         self.selection_method = selection_method
+        self.lineage = lineage
+        self._check_lineage()
+
+    def _check_lineage(self) -> None:
+        """The JAX package's lineage switch: ``lineage``, overridden by
+        ``NM_LINEAGE`` (read at each search, as there). Lineage decoding
+        is the port's only search, so "off" raises."""
+        env = os.environ.get("NM_LINEAGE")
+        if env:
+            mode = "off" if env in ("0", "off") else "on"
+        else:
+            mode = self.lineage
+        if mode == "off":
+            raise NotImplementedError(
+                "lineage='off' (or NM_LINEAGE=0): beam search with the "
+                "physical per-step reorder of the decoder's loop state is "
+                "not ported to neuralmonkey_tpu_torch; lineage decoding is "
+                "its only search (ROADMAP queue C)")
 
     @property
     def vocabulary(self):
@@ -222,6 +244,7 @@ class BeamSearchDecoder(ModelPart):
     # ------------------------------------------------------------------ #
     def search(self, ctx: Context) -> BeamSearchOutput:
         """Single-model beam search."""
+        self._check_lineage()
         parent = self.parent_decoder
         beam = self.beam_size
         vocab = len(parent.vocabulary)

@@ -172,8 +172,17 @@ def _backward_reference(q, k, v, mask, lse, g, dcap, causal: bool,
 # ---------------------------------------------------------------------- #
 # kernel wrappers
 # ---------------------------------------------------------------------- #
-# csrc/flash_attention.cu's forward: threads, query rows and keys a tile
-FWD_THREADS, FWD_ROWS, FWD_KEYS = 128, 32, 32
+# csrc/flash_attention.cu: every kernel runs blocks of THREADS threads,
+# each owning ROWS rows and walking the other axis TILE rows at a time
+THREADS, ROWS, TILE = 128, 32, 32
+
+
+def _width(name: str, head_dim: int) -> int:
+    """The head dimension rounded up to a width the kernels are built
+    for (float4 columns of 8 threads need at least 32)."""
+    if not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {head_dim}")
+    return next(w for w in (32, 64, 128) if head_dim <= w)
 
 
 class FlashForwardPlan(NamedTuple):
@@ -195,15 +204,65 @@ def flash_forward_plan(batch: int, heads: int, q_len: int, kv_len: int,
                        head_dim: int) -> FlashForwardPlan:
     """What ``nm_flash_fwd`` launches for these sizes (the same
     arithmetic as the C entry point)."""
-    if not 0 < head_dim <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_fwd: head dim {head_dim}")
-    width = next(w for w in (32, 64, 128) if head_dim <= w)
-    stages = 2 if kv_len > FWD_KEYS else 1
-    stage = FWD_KEYS * (width + 4) + FWD_KEYS * width + FWD_KEYS
-    smem = 4 * (FWD_ROWS * (width + 4) + stages * stage)
-    return FlashForwardPlan((batch * heads, -(-q_len // FWD_ROWS)),
-                            FWD_THREADS, FWD_ROWS, FWD_KEYS, stages, width,
-                            smem)
+    width = _width("flash_attention_fwd", head_dim)
+    stages = 2 if kv_len > TILE else 1
+    stage = TILE * (width + 4) + TILE * width + TILE
+    smem = 4 * (ROWS * (width + 4) + stages * stage)
+    return FlashForwardPlan((batch * heads, -(-q_len // ROWS)), THREADS,
+                            ROWS, TILE, stages, width, smem)
+
+
+class FlashBackwardLaunch(NamedTuple):
+    """One backward kernel's launch: a (``grid``) of blocks of
+    ``threads``; block (bh, y) owns ``rows`` rows of its axis (queries
+    for dq, keys for dkv) from ``y * rows`` and walks the tiles
+    ``walks[y]`` = [first, end) of the other axis, ``tile`` rows at a
+    time through ``stages`` buffers; the head dimension padded to
+    ``width``; ``smem_bytes`` of shared memory a block."""
+    grid: Tuple[int, int]
+    threads: int
+    rows: int
+    tile: int
+    walks: Tuple[Tuple[int, int], ...]
+    stages: int
+    width: int
+    smem_bytes: int
+
+
+class FlashBackwardPlan(NamedTuple):
+    dq: FlashBackwardLaunch
+    dkv: FlashBackwardLaunch
+
+
+def flash_backward_plan(batch: int, heads: int, q_len: int, kv_len: int,
+                        head_dim: int, causal: bool) -> FlashBackwardPlan:
+    """What ``nm_flash_bwd_dq`` and ``nm_flash_bwd_dkv`` launch for these
+    sizes (the same arithmetic as the C entry points and kernels)."""
+    width = _width("flash_attention_bwd", head_dim)
+
+    def launch(own: int, other: int, vectors: int, walks):
+        # a block holds its rows of two matrices (q and dO, or k and v)
+        # and, a stage, a tile of the other two and ``vectors`` tile-long
+        # vectors (the key mask; lse and dcap)
+        stages = 2 if other > TILE else 1
+        stage = 2 * TILE * (width + 4) + vectors * TILE
+        smem = 4 * (2 * ROWS * (width + 4) + stages * stage)
+        return FlashBackwardLaunch((batch * heads, -(-own // ROWS)),
+                                   THREADS, ROWS, TILE, tuple(walks),
+                                   stages, width, smem)
+
+    key_tiles, query_tiles = -(-kv_len // TILE), -(-q_len // TILE)
+    # causal: dq stops at the key tile holding its last query's diagonal,
+    # dkv starts at the query tile holding its first key
+    dq_walks = [(0, min(key_tiles, (y * ROWS + ROWS + TILE - 1) // TILE)
+                 if causal else key_tiles)
+                for y in range(-(-q_len // ROWS))]
+    dkv_walks = [((y * ROWS) // TILE if causal else 0, query_tiles)
+                 for y in range(-(-kv_len // ROWS))]
+    return FlashBackwardPlan(launch(q_len, kv_len, 1, dq_walks),
+                             launch(kv_len, q_len, 2, dkv_walks))
+
+
 def _dropout_args(key_words: Optional[KeyWords], keep_prob: float):
     """(dropout, k0, k1, threshold, 1/keep_prob) as the kernels take
     them."""

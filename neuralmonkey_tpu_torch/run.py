@@ -46,7 +46,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "ported yet)")
     args = parser.parse_args(argv)
 
-    exp = Experiment(args.config)
+    exp = Experiment(args.config, train_mode=False)
     exp.build_model()
     exp.restore_variables(args.checkpoints)
     for dataset in load_data_config(args.datasets):

@@ -60,9 +60,15 @@ class CUDAManager:
                  per_process_gpu_memory_fraction: float = 1.0,
                  report_gpu_memory_consumption: bool = False,
                  enable_tf_debug: bool = False,
+                 num_model_shards: int = 1,
+                 sequence_sharding: bool = False,
+                 num_pipeline_stages: int = 1,
+                 num_expert_shards: int = 1,
+                 num_context_shards: int = 1,
+                 fsdp: bool = False,
+                 shard_optimizer_state: bool = False,
                  device: str = None,
-                 random_seed: int = None,
-                 num_context_shards: int = 1) -> None:
+                 random_seed: int = None) -> None:
         del (num_threads, gpu_allow_growth,
              per_process_gpu_memory_fraction,
              report_gpu_memory_consumption, enable_tf_debug)
@@ -70,11 +76,25 @@ class CUDAManager:
             raise NotImplementedError(
                 "checkpoint ensembles (num_sessions > 1) are not ported "
                 "to neuralmonkey_tpu_torch yet")
-        if num_context_shards != 1:
-            raise NotImplementedError(
-                "context parallelism (num_context_shards > 1, the ring "
-                "attention) is not ported to neuralmonkey_tpu_torch yet "
-                "(ROADMAP queue A15)")
+        # TPUManager's mesh options, accepted at their defaults
+        for name, value, default, what in (
+                ("num_model_shards", num_model_shards, 1,
+                 "tensor parallelism"),
+                ("sequence_sharding", sequence_sharding, False,
+                 "sequence sharding"),
+                ("num_pipeline_stages", num_pipeline_stages, 1,
+                 "pipeline parallelism"),
+                ("num_expert_shards", num_expert_shards, 1,
+                 "expert parallelism"),
+                ("num_context_shards", num_context_shards, 1,
+                 "context parallelism (the ring attention)"),
+                ("fsdp", fsdp, False, "fully sharded data parallelism"),
+                ("shard_optimizer_state", shard_optimizer_state, False,
+                 "optimizer-state sharding")):
+            if value != default:
+                raise NotImplementedError(
+                    f"{what} ({name}={value!r}) is not ported to "
+                    "neuralmonkey_tpu_torch yet (ROADMAP queue A15)")
         self.device = resolve_device(device)
         self.seed = random_seed or 0
         self.save_n_best = max(save_n_best, 1)

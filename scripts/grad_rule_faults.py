@@ -34,17 +34,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAULTS = {
     "sound": None,
     # dq without its final 1/sqrt(head dim)
-    "dq_scale_dropped": ("if (d < D) out[d] = acc[i] * scale;",
-                         "if (d < D) out[d] = acc[i];"),
+    "dq_scale_dropped": ("acc[i], scale,", "acc[i], 1.f,"),
     # dV from the undropped probabilities
     "dv_undropped_p": ("pd = keep ? p * drop.inv_keep : 0.f;", "pd = p;"),
     # dS, and so dK, from the dropped probabilities
-    "dk_dropped_p": ("ds = p * (dp - sdcap[r]);",
-                     "ds = pd * (dp - sdcap[r]);"),
+    "dk_dropped_p": ("ds = p * (g - sdcap[r]);",
+                     "ds = pd * (g - sdcap[r]);"),
     # dq's keep bits read one hash counter further on
     "dq_hash_shifted": (
-        "dp = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key)",
-        "dp = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key + 1)"),
+        "g = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key)",
+        "g = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key + 1)"),
 }
 
 

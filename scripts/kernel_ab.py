@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of ``lstm_scan`` and the flash forward, with their
-library yardsticks, for the port found under ROOT (by default this
-checkout), so that two versions can be compared on one card in one call:
+"""Device times of the redesigned kernels (``lstm_scan``, the flash
+forward, and the flash backward's dq and dkv), with their library
+yardsticks, for the port found under ROOT (by default this checkout), so
+that two versions can be compared on one card in one call:
 
     python3 scripts/kernel_ab.py [--root DIR] [--sweep]    (GPU)
 
@@ -10,12 +11,18 @@ scan alone at the LSTM encoder's B 64, T 32, H 512, two directions,
 ragged sources, beside cuDNN's ``nn.LSTM``; the flash forward at the
 Transformer encoder's B 64, H 8, 32 x 32, Dh 64 and at a long source
 (B 8, H 8, 512 x 512), both with ragged key masks, beside
-``scaled_dot_product_attention``. ``--sweep`` adds the scan alone at
-other batches and lengths (where a step's time goes). Prints one JSON
-line with the card's name and power limit.
+``scaled_dot_product_attention``; the flash backward (dq, dkv, and the
+whole backward with its dcap row sums) at the encoder, the causal
+decoder (48 x 48), the cross attention (48 x 32) and the long source,
+beside SDPA's backward (``chip_smoke.flash_backward_times``). The
+timing code is this checkout's ``chip_smoke.py`` whatever ROOT is.
+``--sweep`` adds the scan alone at other batches and lengths (where a
+step's time goes). Prints one JSON line with the card's name and power
+limit.
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -30,11 +37,13 @@ def main() -> int:
     parser.add_argument("--sweep", action="store_true")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
-    sys.path.insert(1, REPO)
     import torch
     import torch.nn.functional as F
 
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     from neuralmonkey_tpu_torch.ops import cuda_rnn, nn
     from neuralmonkey_tpu_torch.ops import flash_attention as fa
     from neuralmonkey_tpu_torch.ops import kernel_config
@@ -103,6 +112,13 @@ def main() -> int:
                                                            False)),
             "library_ms": cs.time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias))}
+    # flash backward
+    for case, (b, h, tq, tk, d, causal) in cs.FLASH_SHAPES.items():
+        q, k, v, g = (randn(b, h, t, d) for t in (tq, tk, tk, tq))
+        mask = (torch.ones(b, tk, device=device) if causal else mask_of(
+            torch.randint(1, tk + 1, (b,), generator=gen).tolist(), tk))
+        result[f"flash_backward {case}"] = cs.flash_backward_times(
+            fa, q, k, v, g, mask, causal)
     result["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

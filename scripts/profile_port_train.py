@@ -100,7 +100,7 @@ def decode_steps(args, tmp):
         os.environ["NM_LINEAGE_KERNEL"] = "1"
     if args.decode == "beam-unfused":
         os.environ["NM_FUSED_LOGITS"] = "0"
-    exp = Experiment(exp_ini)
+    exp = Experiment(exp_ini, train_mode=False)
     exp.build_model()
     runner = exp.model.runners[0 if args.decode == "greedy" else 1]
     dataset = run.load_data_config(data_ini)[0].subset(0, chip_smoke.BATCH)

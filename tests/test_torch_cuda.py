@@ -607,6 +607,51 @@ def test_flash_forward_tiles(cuda_device, batch, heads, tq, tk, dim, causal,
         assert torch.equal(kept != 0, want != 0)
 
 
+@pytest.mark.parametrize("batch,heads,tq,tk,dim,causal", [
+    (4, 2, 32, 1, 64, False), (4, 2, 32, 31, 64, False),
+    (4, 2, 32, 32, 64, False), (4, 2, 32, 33, 64, False),
+    (4, 2, 48, 48, 64, False), (4, 2, 32, 64, 64, False),
+    (4, 2, 40, 65, 64, False), (2, 2, 64, 512, 64, False),
+    (2, 2, 100, 32, 64, False), (4, 8, 48, 48, 64, True),
+    (2, 2, 70, 70, 32, True), (2, 3, 33, 70, 6, False),
+    (2, 2, 40, 40, 16, False), (2, 2, 40, 40, 32, False),
+    (2, 2, 40, 40, 128, False)])
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_flash_backward_tiles(cuda_device, batch, heads, tq, tk, dim, causal,
+                              keep):
+    """The register-tiled dq and dkv kernels at key and query lengths
+    around their 32-row tiles, a long source, more queries than keys, the
+    causal decoder and every head width, with and without dropout,
+    against the plain backward on the same forward outputs: dq, dk and dv
+    within 1e-4 of the largest entry (of 1 where the exact gradient is
+    0: at Tk 1, dS = P (dP - dcap) cancels to rounding). Off the causal
+    cases one batch row has every key masked (uniform weights)."""
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator().manual_seed(tq * 1000 + tk)
+    mask = _mask(cuda_device, torch.randint(1, tk + 1, (batch,),
+                                            generator=gen).tolist(), tk)
+    mask[0] = 0.0
+    if causal:
+        mask = torch.ones_like(mask)
+    q = _randn(cuda_device, batch, heads, tq, dim, seed=1)
+    k = _randn(cuda_device, batch, heads, tk, dim, seed=2)
+    v = _randn(cuda_device, batch, heads, tk, dim, seed=3)
+    g = _randn(cuda_device, batch, heads, tq, dim, seed=4)
+    key = (91, -17) if keep < 1.0 else None
+    out, lse = fa.flash_forward(q, k, v, mask, causal, key, keep)
+    kernel_config.reset_launch_counts()
+    grads = fa.flash_backward(q, k, v, mask, out, lse, g, causal, key, keep)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert (counts["flash_attention_bwd_dq"],
+            counts["flash_attention_bwd_dkv"]) == (1, 1)
+    ref = fa.flash_backward_reference(q, k, v, mask, out, lse, g, causal,
+                                      key, keep)
+    for name, got, want in zip("qkv", grads, ref):
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * max(1.0, float(want.abs().max())), (name, err)
+
+
 def test_flash_dropout_mask_equals_the_hash(cuda_device):
     """With one-hot value rows, the context shows which weights the
     kernel dropped: exactly the plain version's keep mask."""

@@ -1,7 +1,7 @@
 """The launch plans of the persistent LSTM scan and the register-tiled
-flash forward, checked on the CPU: which block owns which hidden units,
-what fits an H100's shared memory and SM count, and which layout each
-shape gets. The kernels themselves run only on the card
+flash forward and backward, checked on the CPU: which block owns which
+hidden units, queries or keys, which tiles each block walks, what fits
+an H100's shared memory and SM count, and which layout each shape gets. The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``)."""
 
 import pytest
@@ -127,3 +127,99 @@ def test_flash_forward_plan_leaves_room_for_more_blocks(kv_len,
 def test_flash_forward_plan_rejects_wide_heads():
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_forward_plan(1, 1, 8, 8, 129)
+
+
+# the backward at every forward shape, causal where the query and key
+# lengths match (the decoder's self-attention)
+BACKWARD_CASES = [shape + (causal,) for shape in FLASH_SHAPES
+                  for causal in (False, True)
+                  if not causal or shape[2] == shape[3]]
+
+
+@pytest.mark.parametrize("batch,heads,q_len,kv_len,dim,causal",
+                         BACKWARD_CASES)
+def test_flash_backward_plan_owns_every_row_once(batch, heads, q_len, kv_len,
+                                                 dim, causal):
+    """dq's blocks own every query of a (batch, head) once, dkv's every
+    key; 8 threads a row, 2 rows a thread."""
+    plan = fa.flash_backward_plan(batch, heads, q_len, kv_len, dim, causal)
+    for launch, length in ((plan.dq, q_len), (plan.dkv, kv_len)):
+        assert launch.grid[0] == batch * heads
+        owned = [r for y in range(launch.grid[1])
+                 for r in range(y * launch.rows,
+                                min((y + 1) * launch.rows, length))]
+        assert owned == list(range(length))
+        assert (launch.grid[1] - 1) * launch.rows < length
+        assert len(launch.walks) == launch.grid[1]
+        assert launch.rows * 8 == launch.threads * 2
+
+
+@pytest.mark.parametrize("batch,heads,q_len,kv_len,dim,causal",
+                         BACKWARD_CASES)
+def test_flash_backward_plan_walks_every_visible_pair(batch, heads, q_len,
+                                                      kv_len, dim, causal):
+    """Every (query, key) pair the mask leaves visible lies in a tile
+    that the query's dq block and the key's dkv block walk; under the
+    causal mask no block walks a tile whose pairs are all hidden: dq
+    skips the key tiles above the diagonal, dkv the query tiles before
+    it."""
+    plan = fa.flash_backward_plan(batch, heads, q_len, kv_len, dim, causal)
+    dq, dkv = plan.dq, plan.dkv
+    for query in range(q_len):
+        for key in range(kv_len if not causal else query + 1):
+            first, end = dq.walks[query // dq.rows]
+            assert first <= key // dq.tile < end
+            first, end = dkv.walks[key // dkv.rows]
+            assert first <= query // dkv.tile < end
+    for y, (first, end) in enumerate(dq.walks):
+        assert 0 <= first < end <= -(-kv_len // dq.tile)
+        last_query = min((y + 1) * dq.rows, q_len) - 1
+        assert not causal or (end - 1) * dq.tile <= last_query
+    for y, (first, end) in enumerate(dkv.walks):
+        assert 0 <= first < end <= -(-q_len // dkv.tile)
+        assert not causal or (first + 1) * dkv.tile - 1 >= y * dkv.rows
+
+
+@pytest.mark.parametrize("dim,width", [(6, 32), (16, 32), (32, 32),
+                                       (40, 64), (64, 64), (128, 128)])
+@pytest.mark.parametrize("length", [48, 512])
+def test_flash_backward_plan_fits_the_card(dim, width, length):
+    """Shared memory as the kernels lay it out (their rows of two
+    matrices, and a stage of the other two with the mask, or lse and
+    dcap), within 227 KB, at every width the kernels are built for."""
+    plan = fa.flash_backward_plan(8, 8, length, length, dim, False)
+    for launch, vectors in ((plan.dq, 1), (plan.dkv, 2)):
+        assert launch.width == width
+        row = width + 4  # the padded row stride
+        assert launch.smem_bytes == 4 * (
+            2 * launch.rows * row
+            + launch.stages * (2 * launch.tile * row + vectors * launch.tile))
+        assert launch.smem_bytes <= H100_SMEM
+
+
+@pytest.mark.parametrize("q_len,kv_len", [(32, 1), (32, 31), (32, 32),
+                                          (31, 33), (48, 48), (48, 32),
+                                          (512, 512)])
+def test_flash_backward_plan_double_buffers_past_one_tile(q_len, kv_len):
+    """One stage when the walked axis fits one 32-row tile, two beyond:
+    dq walks the keys, dkv the queries."""
+    plan = fa.flash_backward_plan(2, 2, q_len, kv_len, 64, False)
+    assert plan.dq.stages == (1 if kv_len <= 32 else 2)
+    assert plan.dkv.stages == (1 if q_len <= 32 else 2)
+
+
+def test_flash_backward_plan_at_the_encoder_shape():
+    """B 64, H 8, 32 x 32, Dh 64: one block per (batch, head) for each
+    kernel, one tile of 32, and 34 KB a block, so six blocks share an
+    SM."""
+    plan = fa.flash_backward_plan(64, 8, 32, 32, 64, False)
+    for launch in plan:
+        assert launch.grid == (512, 1) and launch.walks == ((0, 1),)
+        assert launch.stages == 1 and launch.tile == 32
+        assert (228 * 1024) // (launch.smem_bytes + 1024) == 6
+
+
+@pytest.mark.parametrize("dim", [0, 129])
+def test_flash_backward_plan_rejects_wide_heads(dim):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_backward_plan(1, 1, 8, 8, dim, False)

@@ -5,9 +5,11 @@ runs them, from the same numpy inputs.
 K1 gru_scan, K2 fused_bahdanau_step, K3 fused_logits_rowmax_lse and K4
 small_topk at small sizes (batch 3, source 7, width 16, vocabulary 300
 padded to 1024, beam 4); tolerance 1e-5, and exact indices for K4 with
-ties included. Also the kernel build's host-side behaviour.
+ties included. Also the kernel build's host-side behaviour, and the
+source text that scripts/grad_rule_faults.py edits to plant its faults.
 """
 
+import importlib.util
 import os
 import shutil
 
@@ -201,3 +203,25 @@ def test_plain_paths_count_no_launches():
         torch.randn(2, 4), torch.randn(4))
     assert kernel_config.launch_counts() == dict.fromkeys(
         kernel_config.ENTRY_POINTS, 0)
+
+
+def _planted_faults():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "grad_rule_faults.py")
+    spec = importlib.util.spec_from_file_location("grad_rule_faults", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.FAULTS
+
+
+@pytest.mark.parametrize("fault", ["dq_scale_dropped", "dv_undropped_p",
+                                   "dk_dropped_p", "dq_hash_shifted"])
+def test_grad_rule_faults_find_their_text_once(fault):
+    """scripts/grad_rule_faults.py plants each fault by replacing one
+    piece of the flash backward's source: that text must occur exactly
+    once, and the replacement must change it."""
+    old, new = _planted_faults()[fault]
+    with open(os.path.join(kernel_config.CSRC_DIR,
+                           "flash_attention.cu")) as f:
+        assert f.read().count(old) == 1
+    assert new != old

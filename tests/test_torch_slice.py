@@ -154,7 +154,8 @@ def _source_dataset(n):
 def _both_models(ini):
     jax_exp = JaxExperiment(ini, train_mode=False)
     jax_exp.build_model()
-    torch_exp = Experiment(ini, config_changes=['tf_manager.device="cpu"'])
+    torch_exp = Experiment(ini, train_mode=False,
+                           config_changes=['tf_manager.device="cpu"'])
     torch_exp.build_model()
     manager = torch_exp.tf_manager
     manager.params = params_from_jax(
@@ -236,13 +237,14 @@ def test_unported_section_names_itself(tmp_path):
     with open(ini, "w") as f:
         f.write(text)
     with pytest.raises(ConfigBuildException, match="rmsprop"):
-        Experiment(ini).build_model()
+        Experiment(ini, train_mode=False).build_model()
 
 
 def test_compute_dtype_raises(tmp_path):
     ini = _write_experiment(tmp_path, port=True)
     with pytest.raises(ValueError, match="bf16 policy not yet ported"):
-        Experiment(ini, config_changes=['main.compute_dtype="bfloat16"']
+        Experiment(ini, train_mode=False,
+                   config_changes=['main.compute_dtype="bfloat16"']
                    ).build_model()
 
 
