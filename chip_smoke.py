@@ -17,7 +17,10 @@ Phases (any failure raises and the script exits non-zero):
    the shapes the serving and training paths give it and at one ragged
    shape, with median times from CUDA events, the bound of the same work
    on this card and, where one PyTorch call computes the same function,
-   that call's time (cuDNN's LSTM for the LSTM kernels);
+   that call's time (cuDNN's LSTM for the LSTM kernels), and the whole
+   LSTM backward (autograd through the port's scan: ``lstm_bptt``, the
+   recurrent weights' products and the hoisted input's backward) beside
+   the plain scan's and cuDNN's backward of the same function;
 4. slice: the flagship RNN model (bench.py widths: vocabulary 30000,
    embeddings 512, BiGRU 512, attention 512, conditional-GRU decoder)
    with random seeded weights decodes 128 synthetic sentences greedily
@@ -98,8 +101,8 @@ queued behind a spin kernel (``call_ms`` times one call of the wrapper
 alone, with its host cost).
 
 Every phase prints its seconds. Standard output holds the launch plans
-of the redesigned kernels (``lstm_scan``, the flash forward and
-backward) as one JSON line, the card's name and power limit, a JSON object of the
+of the redesigned kernels (``lstm_scan``, ``lstm_bptt``,
+``fused_xent_bwd_dx``, the flash forward and backward) as one JSON line, the card's name and power limit, a JSON object of the
 phases' results, then, on the line before the last, a JSON object with
 one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -128,8 +131,8 @@ TGT_LEN, N_TRAIN, N_VAL, KEEP_PROB = 48, 20 * BATCH, BATCH, 0.8
 SOURCE_WORDS = 2000  # synthetic sources draw from the first 2000 words
 XENT_N, XENT_D = BATCH * TGT_LEN, EMB
 # the H100's published peaks (SXM, 700 W): float32 on the CUDA cores,
-# and HBM3
-F32_PEAK, HBM_RATE = 67e12, 3.35e12
+# TF32 on the tensor cores (dense), and HBM3
+F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
 # a spin of about 50 ms at the H100's clock: long enough for the host to
 # queue every timed call behind it
 SPIN_CYCLES = 100_000_000
@@ -264,11 +267,12 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = F32_PEAK):
     """(ms, what bounds it): the least time this card could take for
-    ``flops`` float32 operations and ``nbytes`` bytes of memory traffic
-    (each input read once, each output written once)."""
-    ops_ms, bytes_ms = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    ``flops`` operations at ``peak`` (by default float32 on the CUDA
+    cores) and ``nbytes`` bytes of memory traffic (each input read once,
+    each output written once)."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
     return ((ops_ms, "operations") if ops_ms >= bytes_ms
             else (bytes_ms, "bytes"))
 
@@ -296,11 +300,11 @@ def check_kernels(device):
     results = {}
 
     def record(name, err, tol, shape, ms=None, plain_ms=None, work=None,
-               library_ms=None, call=None, **extra):
+               library_ms=None, call=None, peak=F32_PEAK, **extra):
         """Check ``err <= tol``; for the timed shape keep the times, the
-        bound of ``work`` = (flops, bytes), ``extra`` times and, given the
-        kernel's wrapper as ``call``, its time alone with the host's
-        cost."""
+        bound of ``work`` = (flops, bytes) at ``peak``, ``extra`` times
+        and, given the kernel's wrapper as ``call``, its time alone with
+        the host's cost."""
         log(f"{name} {shape}: max_abs_err {err:.3g} (tol {tol:g})"
             + ("" if ms is None else f", kernel {ms:.4f} ms, plain "
                f"{plain_ms:.4f} ms"))
@@ -311,7 +315,7 @@ def check_kernels(device):
         if ms is not None:
             entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          call_ms=call_ms(call) if call else None, **extra)
-            entry["bound_ms"], entry["bound_by"] = bound(*work)
+            entry["bound_ms"], entry["bound_by"] = bound(*work, peak)
 
     # K1: the encoder's BiGRU through the wrapper it calls (input
     # projection, weight stacking, direction encoding), against the same
@@ -508,10 +512,17 @@ def check_train_kernels(device, randn, lengths_mask, record):
                 timing = ((time_ms(lambda: fused_xent.xent_bwd_dx(
                     *bwd_args)), time_ms(lambda: fused_xent.bwd_dx_reference(
                         *bwd_args))) if timed else ())
+                # its products run on the tensor cores as three TF32
+                # products each (3xTF32): the bound takes those at the
+                # TF32 peak; the float32 bound beside it
+                dx_bytes = read + 8 * n + 4 * n * d
                 record("fused_xent_bwd_dx", max_err(dx, ref_dx) / max(
                     1e-6, float(ref_dx.abs().max())), 1e-4, case, *timing,
-                    work=(4 * n * d * v + 6 * n * v,
-                          read + 8 * n + 4 * n * d))
+                    work=(3 * 4 * n * d * v, dx_bytes), peak=TF32_PEAK,
+                    **({"bound_peak": "3xTF32 on the tensor cores, 495 "
+                        "TFLOP/s dense", "bound_f32_ms": bound(
+                            4 * n * d * v + 6 * n * v, dx_bytes)[0]}
+                       if timed else {}))
                 dw, db = fused_xent.xent_bwd_dw(*bwd_args)
                 ref_dw, ref_db = fused_xent.bwd_dw_reference(*bwd_args)
                 timing = ((time_ms(lambda: fused_xent.xent_bwd_dw(
@@ -759,6 +770,62 @@ def cudnn_lstm(params, reverse, forget_bias):
     return lstm
 
 
+def lstm_backward_times(cuda_rnn, params, reverse, inputs, mask, lengths,
+                        lstm, gen):
+    """The whole LSTM backward at one shape, in device ms: autograd
+    through ``cuda_rnn.lstm_scan`` (``lstm_bptt``, the dW_h products and
+    the hoisted input's backward: the gradients of the inputs, kernel_x,
+    kernel_h and bias; ``whole_backward_ms``), the same through the plain
+    scan (``whole_backward_plain_ms``) and through cuDNN's ``lstm``, the
+    same function on the packed sources (``cudnn_backward_ms``), with the
+    bound of that work (reading the inputs, weights, mask, saved hoisted
+    inputs and carries and the output gradients once, writing the input
+    and weight gradients once)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+    batch, time_, width = inputs.shape
+    hidden = params[0]["kernel_h"].shape[0]
+    n_dirs = len(reverse)
+    device = inputs.device
+
+    def leaves_of(xs):
+        trees = [{k: v.clone().requires_grad_() for k, v in p.items()}
+                 for p in params]
+        x = xs.clone().requires_grad_()
+        return trees, [x, *(t for tree in trees for t in tree.values())]
+    trees, leaves = leaves_of(inputs)
+    out, final = cuda_rnn.lstm_scan(list(zip(trees, reverse)), leaves[0],
+                                    mask)
+    gout = torch.randn(out.shape, generator=gen).to(device)
+    gfinal = torch.randn(final.shape, generator=gen).to(device)
+    p_trees, p_leaves = leaves_of(inputs)
+    xz = cuda_rnn.lstm_hoisted_inputs(p_trees, p_leaves[0])
+    wh = torch.stack([p["kernel_h"] for p in p_trees])
+    p_out, p_final, _, _ = cuda_rnn.lstm_scan_reference(xz, mask, wh, 1.0,
+                                                        reverse)
+    lib_leaves = [inputs.clone().requires_grad_(), *lstm.parameters()]
+    lib_out = lstm(pack_padded_sequence(
+        lib_leaves[0], torch.tensor(lengths), batch_first=True,
+        enforce_sorted=False))[0].data
+    lib_grad = torch.randn(lib_out.shape, generator=gen).to(device)
+    gates = n_dirs * 4 * hidden
+    flops = (n_dirs * batch * time_ * (16 * hidden * hidden + 40 * hidden)
+             + 2 * batch * time_ * hidden * gates
+             + 4 * batch * time_ * width * gates)
+    nbytes = 4 * (2 * batch * time_ * width + 2 * (width + hidden + 1) * gates
+                  + batch * time_ + batch * time_ * gates
+                  + 3 * batch * time_ * n_dirs * hidden
+                  + batch * n_dirs * hidden)
+    return {
+        "whole_backward_ms": time_ms(lambda: torch.autograd.grad(
+            (out, final), leaves, (gout, gfinal), retain_graph=True)),
+        "whole_backward_plain_ms": time_ms(lambda: torch.autograd.grad(
+            (p_out, p_final), p_leaves, (gout, gfinal), retain_graph=True)),
+        "cudnn_backward_ms": time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_leaves, lib_grad, retain_graph=True)),
+        "whole_backward_bound_ms": bound(flops, nbytes)[0]}
+
+
 def check_lstm_kernels(device, randn, lengths_mask, record):
     """``lstm_scan``, ``lstm_bptt`` and ``rowmax_lse`` against their plain
     versions: the LSTM encoder's shapes with ragged sources, a ragged odd
@@ -862,6 +929,11 @@ def check_lstm_kernels(device, randn, lengths_mask, record):
                 lambda: cuda_rnn.lstm_bptt_reference(*args, reverse),
                 lambda: torch.autograd.grad(lib_out, leaves, lib_grad,
                                             retain_graph=True))
+            # like for like: the whole backward of the same function,
+            # the port's against cuDNN's
+            timing.update(lstm_backward_times(cuda_rnn, params, reverse,
+                                              inputs, mask, lengths, lstm,
+                                              gen))
         record("lstm_bptt", max_err(got, ref) / max(1.0, float(
             ref.abs().max())), 1e-4, shape, work=work, **timing)
 
@@ -898,11 +970,18 @@ def launch_plans():
     on this card."""
     from neuralmonkey_tpu_torch.ops import cuda_rnn
     from neuralmonkey_tpu_torch.ops import flash_attention as fa
-    limits = cuda_rnn.device_limits(0)
+    from neuralmonkey_tpu_torch.ops import fused_xent, kernel_config
+    limits = kernel_config.device_limits(0)
     return {
         "sm_count": limits[0], "smem_per_block_optin": limits[1],
         "lstm_scan": cuda_rnn.lstm_scan_plan(BATCH, RNN, 2,
                                              *limits)._asdict(),
+        "lstm_bptt": cuda_rnn.lstm_bptt_plan(BATCH, RNN, 2,
+                                             *limits)._asdict(),
+        "fused_xent_bwd_dx": {
+            k: v for k, v in fused_xent.dx_plan(
+                XENT_N, XENT_D, VOCAB, *limits)._asdict().items()
+            if k != "walks"},
         "flash_attention_fwd": {
             case: fa.flash_forward_plan(*shape[:5])._asdict()
             for case, shape in FLASH_SHAPES.items()},

@@ -79,6 +79,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Wait until every block of a direction of a persistent, cooperative launch
+// (lstm_scan.cu, lstm_bptt.cu) has arrived. `sync` holds the
+// arrival count and the generation; the last block to arrive resets the
+// count and moves the generation on, so the words are ready for the next
+// barrier and the next launch.
+__device__ __forceinline__ void direction_barrier(unsigned* sync, unsigned blocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = sync + 1;
+    const unsigned g = *gen;
+    __threadfence();  // this block's writes before its arrival
+    if (atomicAdd(sync, 1u) == blocks - 1) {
+      atomicExch(sync, 0u);
+      __threadfence();
+      atomicAdd(sync + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace nm

@@ -14,24 +14,38 @@
 // Columns past V (a vocabulary that is not a multiple of the 128-column tile)
 // are masked out of every sum rather than padded.
 //
-// What bounds it on the H100: the f32 products on the SIMT units (2 N D V flops
-// per logit pass: 94 GFLOP at N = 3072, D = 512, V = 30000), not bytes; the
-// inputs are 3 + 61 MB. The TPU ran one sequential grid with the online
-// log-sum-exp carried in scratch; Hopper blocks run in no order, so:
+// What bounds it on the H100: the products (2 N D V flops per logit pass: 94
+// GFLOP at N = 3072, D = 512, V = 30000), not bytes; the inputs are 3 + 61 MB.
+// The TPU ran one sequential grid with the online log-sum-exp carried in
+// scratch; Hopper blocks run in no order, so:
 //   - xent_fwd: one block per (128-row, 128-column) tile computes the logit tile
 //     (logit_tile.cuh, as K3 does) and writes per-row partials (tile max, sum of
 //     exp(t - max), label logit, logit sum) into (N, R) scratch; a second small
 //     kernel folds the R partials of each row into lse and nll (K3's pattern).
-//   - xent_bwd_dx: one block per (128 rows, 128 columns of D) walks all R vocab
-//     tiles: it recomputes the logit tile, forms dl in shared memory and
-//     accumulates dl W^T for its columns in registers. Each logit tile is
-//     recomputed once per 128 columns of D.
+//   - xent_bwd_dx: a block owns a 128-row tile and every column of D, and walks
+//     a contiguous chunk of the vocabulary tiles. For each vocabulary tile it
+//     computes the logit tile once, turns it into dl and keeps dl in shared
+//     memory (tc::dl_tile); for every two tiles it adds dl W^T to its
+//     partial dx 128 columns of D at a time, each 128 x 128 sum in the
+//     warps' registers, added into the block's own rows of an (S, N, D)
+//     scratch (the chunk's first pair writes, the later ones add). So each logit tile is computed
+//     once, where the first design recomputed it once per 128 columns of D.
+//     Both products run on the tensor cores, mma.sync m16n8k8 in TF32 with
+//     each float32 operand split in two TF32 parts and three products kept
+//     (3xTF32), which holds float32 accuracy; operands arrive by cp.async in
+//     double-buffered 32-deep stages. The vocabulary is cut into S chunks so
+//     that the grid, (row tiles, S), is two blocks for each SM (the plan:
+//     ops/fused_xent.py `dx_plan`); a second small kernel sums the S partials
+//     of each entry in the fixed order 0 .. S-1 (with S = 1 the blocks write
+//     dx itself). No atomics: dx does not change from run to run.
 //   - xent_bwd_dw: one block per (vocab tile, 128 rows of D) walks all row tiles
-//     the same way and accumulates x^T dl, and db for the first D block, in
-//     registers: sums run in one fixed order inside a block, with no atomics,
-//     so dW and db do not change from run to run.
-// Tensor cores (TF32 would change the numerics, bf16 the inputs) and fewer
-// recomputations are left for a later change.
+//     the same way on the CUDA cores (logit_tile.cuh) and accumulates x^T dl,
+//     and db for the first D block, in registers: sums run in one fixed order
+//     inside a block, with no atomics, so dW and db do not change from run to
+//     run. It recomputes each logit tile once per 128 rows of D; tc::dl_tile
+//     gives it the dl step with each logit tile computed once.
+#include <algorithm>
+
 #include "logit_tile.cuh"
 
 namespace {
@@ -159,78 +173,259 @@ __device__ __forceinline__ void tile_dlogits(float (&acc)[kThreadM][kThreadN],
   }
 }
 
-// dx (N, D) for columns d0 .. d0 + 128 of D and rows m0 .. m0 + 128
+// ---------------------------------------------------------------------------
+// xent_bwd_dx on the tensor cores. Every float32 product a * b is taken as
+// three TF32 products, a_lo b_hi + a_hi b_lo + a_hi b_hi, with a_hi = tf32(a)
+// and a_lo = tf32(a - a_hi) (3xTF32: the dropped a_lo b_lo is below float32's
+// rounding), by mma.sync m16n8k8, so the sums keep float32 accuracy.
+namespace tc {
+
+constexpr int kM = 128;          // rows of a block's tile
+constexpr int kN = 128;          // vocabulary columns of a logit tile; D columns a pass
+constexpr int kKC = 32;          // depth of a shared-memory stage
+constexpr int kLdK = kKC + 4;    // an [n][k] operand: rows of 32 along k
+constexpr int kLdN = kN + 8;     // a [k][n] operand: rows of 128 along n
+constexpr int kOperand = kN * kLdK > kKC * kLdN ? kN * kLdK : kKC * kLdN;
+constexpr int kStage = kM * kLdK + kOperand;  // x (or nothing) and a W tile
+constexpr int kPair = 2;         // vocabulary tiles whose dl is added in one pass
+constexpr int kLdDl = kPair * kN + 4;  // dl[m][v] of both tiles
+constexpr size_t kSmem = sizeof(float) * (2 * kStage + kM * kLdDl);
+constexpr int kThreads = 256;    // 8 warps as 2 x 4, each a 64 x 32 warp tile
+
+// v = hi + lo: hi is v rounded to TF32's 10 mantissa bits (integer operations:
+// cvt.rna.tf32 runs on a slow pipe); lo is the exact rest, of which the
+// tensor core reads the top 19 bits
+__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copy rows x cols (cols a multiple of 4) of `src` (row stride lds) into
+// `dst` (row stride ld) with cp.async, zero past rows_ok rows and cols_ok
+// columns; 16-byte copies when `vec` (every row 16-byte aligned, cols_ok a
+// multiple of 4), else 4-byte ones. Commits one group.
+__device__ __forceinline__ void load(float* dst, int ld, const float* __restrict__ src, size_t lds,
+                                     int rows, int cols, int rows_ok, int cols_ok, bool vec) {
+  if (vec) {
+    const int quads = cols / 4;
+    for (int i = threadIdx.x; i < rows * quads; i += kThreads) {
+      const int r = i / quads, c = (i % quads) * 4;
+      const bool ok = r < rows_ok && c < cols_ok;
+      nm::cp_async16(dst + r * ld + c, ok ? src + r * lds + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i % cols;
+      const bool ok = r < rows_ok && c < cols_ok;
+      nm::cp_async4(dst + r * ld + c, ok ? src + r * lds + c : src, ok ? 4 : 0);
+    }
+  }
+  nm::cp_async_commit();
+}
+
+// acc += A B over one stage of `kc` (a multiple of 8) depths for this warp's
+// 64 x 32 tile: A row-major (a[m][k], row stride lda), B stored [n][k] (row
+// stride kLdK) when kBNMajor, else [k][n] (row stride kLdN).
+template <bool kBNMajor>
+__device__ __forceinline__ void warp_product(const float* a, int lda, const float* b, int kc,
+                                             float (&acc)[4][4][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
+  for (int k = 0; k < kc; k += 8) {
+    unsigned ah[4][4], al[4][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      const float* ar = a + (wm + mi * 16 + g) * lda + k + t;
+      split(ar[0], ah[mi][0], al[mi][0]);
+      split(ar[8 * lda], ah[mi][1], al[mi][1]);
+      split(ar[4], ah[mi][2], al[mi][2]);
+      split(ar[8 * lda + 4], ah[mi][3], al[mi][3]);
+    }
+    unsigned bh[4][2], bl[4][2];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int n = wn + ni * 8 + g;
+      split(kBNMajor ? b[n * kLdK + k + t] : b[(k + t) * kLdN + n], bh[ni][0], bl[ni][0]);
+      split(kBNMajor ? b[n * kLdK + k + t + 4] : b[(k + t + 4) * kLdN + n], bh[ni][1],
+            bl[ni][1]);
+    }
+    // the small terms first; each pass walks all 16 sums, so that
+    // consecutive products never wait on one another
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
+  }
+}
+
+// The dl step of the backward: the logit tile t = x W (rows m0.., vocabulary
+// columns n0..) computed once on the tensor cores over depth D, in double-
+// buffered stages, turned into dl = g (softmax - (1 - eps) onehot - eps / V)
+// (tile_dlogits' arithmetic, zero outside N x V) and stored as dls[m][v]
+// (row stride kLdDl): the A operand of dl W^T here, and the B operand of
+// x^T dl for dW. `stages` is free on return; `dls` is complete after the
+// caller's next __syncthreads().
+template <bool kWT>
+__device__ __forceinline__ void dl_tile(const float* __restrict__ x, const float* __restrict__ w,
+                                        const float* __restrict__ bias,
+                                        const int* __restrict__ targets,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ g, int N, int D, int V, int m0,
+                                        int n0, float eps, bool vec, float* stages, float* dls) {
+  float acc[4][4][4] = {};
+  // stage s: x[m0.., k0..] as [m][k], then W(k0.., n0..) as [k][n] or, tied,
+  // [n][k]
+  auto stage_in = [&](int s, int k0) {
+    float* st = stages + s * kStage;
+    load(st, kLdK, x + static_cast<size_t>(m0) * D + k0, D, kM, kKC, N - m0, D - k0, vec);
+    if (kWT)
+      load(st + kM * kLdK, kLdK, w + static_cast<size_t>(n0) * D + k0, D, kN, kKC, V - n0,
+           D - k0, vec);
+    else
+      load(st + kM * kLdK, kLdN, w + static_cast<size_t>(k0) * V + n0, V, kKC, kN, D - k0,
+           V - n0, vec);
+  };
+  const int chunks = (D + kKC - 1) / kKC;
+  stage_in(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage_in((c + 1) & 1, (c + 1) * kKC);
+      nm::cp_async_wait<2>();  // this stage's two groups are in
+    } else {
+      nm::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* st = stages + (c & 1) * kStage;
+    warp_product<kWT>(st, kLdK, st + kM * kLdK, kKC, acc);
+    __syncthreads();  // the stage is consumed before it is loaded again
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm + mi * 16 + lane / 4 + 8 * h, gm = m0 + row;
+      const bool row_ok = gm < N;
+      const int target = row_ok ? targets[gm] : -1;
+      const float l = row_ok ? lse[gm] : 0.f;
+      const float gr = row_ok ? g[gm] : 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = wn + ni * 8 + 2 * (lane % 4) + j, gn = n0 + col;
+          float d = 0.f;
+          if (row_ok && gn < V) {
+            d = expf(acc[mi][ni][2 * h + j] + bias[gn] - l) - (gn == target ? 1.0f - eps : 0.f);
+            if (eps != 0.f) d -= eps / V;
+            d *= gr;
+          }
+          dls[row * kLdDl + col] = d;
+        }
+    }
+}
+
+// The partial dx of rows m0 .. m0 + 128 over vocabulary tiles t0 .. t1, every
+// column of D, into `part` (N, D): each logit tile computed once (dl_tile),
+// two tiles' dl side by side, then dl W^T over both added to the block's
+// own rows of `part`, 128 columns of D at a time, each 128 x 128 sum in the
+// warps' registers, started at 0 by the chunk's first pair and from the
+// partial (loaded before the products) by the later ones: one read and one
+// write of the partial for every two tiles
 template <bool kWT>
 __device__ __forceinline__ void xent_bwd_dx(const float* __restrict__ x,
                                             const float* __restrict__ w,
                                             const float* __restrict__ bias,
                                             const int* __restrict__ targets,
                                             const float* __restrict__ lse,
-                                            const float* __restrict__ g, float* __restrict__ dx,
-                                            int N, int D, int V, float eps, float* smem) {
-  TileStage& st = *reinterpret_cast<TileStage*>(smem);
-  float(*dlt)[kTileLd] = reinterpret_cast<float(*)[kTileLd]>(smem + sizeof(TileStage) / 4);
-  const int tid = threadIdx.x;
-  const int tr = nm::tile_row(), tc = nm::tile_col();
-  const int d0 = blockIdx.x * kTileN;
-  const int m0 = blockIdx.y * kTileM;
-
-  float out[kThreadM][kThreadN];
-  nm::zero(out);
-  float acc[kThreadM][kThreadN];
-  for (int n0 = 0; n0 < V; n0 += kTileN) {
-    nm::logit_tile<kWT>(x, w, N, D, V, m0, n0, st, acc);
-    tile_dlogits(acc, bias, targets, lse, g, N, V, m0, n0, eps);
-    // dl, transposed: dlt[v][m], the A operand of dl W^T
+                                            const float* __restrict__ g,
+                                            float* __restrict__ part, int N, int D, int V,
+                                            int t0, int t1, float eps, bool vec, float* smem) {
+  float* stages = smem;
+  float* dls = smem + 2 * kStage;
+  const int m0 = blockIdx.x * kM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
+  const int passes = (D + kN - 1) / kN;
+  // stage s of pass chunk i: W(d0 .., n0 + v0 ..) as B = W^T, [n = d][k = v]
+  // from W (D, V), or [k = v][n = d] from the tied W^T (V, D)
+  auto stage_in = [&](int s, int i, int n0, int vchunks) {
+    const int d0 = (i / vchunks) * kN, v0 = n0 + (i % vchunks) * kKC;
+    float* st = stages + s * kStage;
+    if (kWT)
+      load(st, kLdN, w + static_cast<size_t>(v0) * D + d0, D, kKC, kN, V - v0, D - d0, vec);
+    else
+      load(st, kLdK, w + static_cast<size_t>(d0) * V + v0, V, kN, kKC, D - d0, V - v0, vec);
+  };
+  for (int tile = t0; tile < t1; tile += kPair) {
+    const int n0 = tile * kN, pair = min(kPair, t1 - tile);
+    for (int h = 0; h < pair; ++h)
+      dl_tile<kWT>(x, w, bias, targets, lse, g, N, D, V, m0, n0 + h * kN, eps, vec, stages,
+                   dls + h * kN);
+    const int vchunks = pair * (kN / kKC);
+    const int chunks = passes * vchunks;
+    stage_in(0, 0, n0, vchunks);
+    float out[4][4][4];
+    for (int i = 0; i < chunks; ++i) {
+      const int d0 = (i / vchunks) * kN, v0 = (i % vchunks) * kKC;
+      if (v0 == 0) {
 #pragma unroll
-    for (int i = 0; i < kThreadM; ++i)
+        for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int j = 0; j < kThreadN; ++j) dlt[tc + 16 * j][tr * kThreadM + i] = acc[i][j];
-    for (int k0 = 0; k0 < kTileN; k0 += kTileK) {
-      // st.b[k][d] = W(d0 + d, n0 + k0 + k), coalesced along W's contiguous axis
+          for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int q = 0; q < kTileK * kTileN / kTileThreads; ++q) {
-        const int e = tid + q * kTileThreads;
-        const int k = kWT ? e / kTileN : e % kTileK;
-        const int d = kWT ? e % kTileN : e / kTileK;
-        const int gv = n0 + k0 + k, gd = d0 + d;
-        float v = 0.f;
-        if (gv < V && gd < D)
-          v = kWT ? w[static_cast<size_t>(gv) * D + gd] : w[static_cast<size_t>(gd) * V + gv];
-        st.b[k][d] = v;
+            for (int e = 0; e < 4; ++e) {
+              const int gm = m0 + wm + mi * 16 + lane / 4 + 8 * (e / 2);
+              const int gd = d0 + wn + ni * 8 + 2 * (lane % 4) + e % 2;
+              out[mi][ni][e] = (tile == t0 || gm >= N || gd >= D)
+                                   ? 0.f
+                                   : part[static_cast<size_t>(gm) * D + gd];
+            }
       }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kTileK; ++k) {
-        float av[kThreadM];
-#pragma unroll
-        for (int i = 0; i < kThreadM; i += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(&dlt[k0 + k][tr * kThreadM + i]);
-          av[i] = a.x;
-          av[i + 1] = a.y;
-          av[i + 2] = a.z;
-          av[i + 3] = a.w;
-        }
-#pragma unroll
-        for (int i = 0; i < kThreadM; ++i)
-#pragma unroll
-          for (int j = 0; j < kThreadN; ++j)
-            out[i][j] = fmaf(av[i], st.b[k][tc + 16 * j], out[i][j]);
+      if (i + 1 < chunks) {
+        stage_in((i + 1) & 1, i + 1, n0, vchunks);
+        nm::cp_async_wait<1>();
+      } else {
+        nm::cp_async_wait<0>();
       }
+      __syncthreads();  // the stage, and at i = 0 dl, complete
+      warp_product<!kWT>(dls + v0, kLdDl, stages + (i & 1) * kStage, kKC, out);
       __syncthreads();
-    }
-  }
+      if (v0 + kKC == pair * kN) {
 #pragma unroll
-  for (int i = 0; i < kThreadM; ++i) {
-    const int gm = m0 + tr * kThreadM + i;
-    if (gm >= N) continue;
+        for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int j = 0; j < kThreadN; ++j) {
-      const int gd = d0 + tc + 16 * j;
-      if (gd < D) dx[static_cast<size_t>(gm) * D + gd] = out[i][j];
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int gm = m0 + wm + mi * 16 + lane / 4 + 8 * (e / 2);
+              const int gd = d0 + wn + ni * 8 + 2 * (lane % 4) + e % 2;
+              if (gm < N && gd < D) part[static_cast<size_t>(gm) * D + gd] = out[mi][ni][e];
+            }
+      }
     }
   }
 }
+
+}  // namespace tc
 
 // dW for vocabulary tile n0 .. n0 + 128 and rows d0 .. d0 + 128 of D; db too
 // when d0 == 0
@@ -316,17 +511,37 @@ __device__ __forceinline__ void xent_bwd_dw(const float* __restrict__ x,
 // shared memory (84 KB)
 constexpr size_t kBwdSmem = sizeof(TileStage) + sizeof(float) * kTileN * kTileLd;
 
-__global__ void __launch_bounds__(kTileThreads)
+// grid (row tiles, S): block (r, s) walks vocabulary tiles s * tiles_per_chunk ..
+// into plane s of `part` (S, N, D)
+__global__ void __launch_bounds__(tc::kThreads, 1)
 xent_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, const int* __restrict__ targets,
                    const float* __restrict__ lse, const float* __restrict__ g,
-                   float* __restrict__ dx, int N, int D, int V, int transposed, float eps) {
+                   float* __restrict__ part, int N, int D, int V, int transposed,
+                   int tiles_per_chunk, float eps) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const int R = (V + tc::kN - 1) / tc::kN;
+  const int t0 = blockIdx.y * tiles_per_chunk, t1 = min(R, t0 + tiles_per_chunk);
+  float* p = part + static_cast<size_t>(blockIdx.y) * N * D;
+  // 16-byte copies need every row of x and W to start 16-byte aligned
+  const bool vec = (D & 3) == 0 && (transposed || (V & 3) == 0) &&
+                   ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15) == 0;
   if (transposed)
-    xent_bwd_dx<true>(x, w, bias, targets, lse, g, dx, N, D, V, eps, smem);
+    tc::xent_bwd_dx<true>(x, w, bias, targets, lse, g, p, N, D, V, t0, t1, eps, vec, smem);
   else
-    xent_bwd_dx<false>(x, w, bias, targets, lse, g, dx, N, D, V, eps, smem);
+    tc::xent_bwd_dx<false>(x, w, bias, targets, lse, g, p, N, D, V, t0, t1, eps, vec, smem);
+}
+
+// dx = the sum of the S partials (S, count), in the order 0 .. S-1
+__global__ void xent_dx_fold_kernel(const float* __restrict__ part, float* __restrict__ dx,
+                                    size_t count, int S) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float sum = part[i];
+    for (int s = 1; s < S; ++s) sum += part[s * count + i];
+    dx[i] = sum;
+  }
 }
 
 __global__ void __launch_bounds__(kTileThreads)
@@ -373,16 +588,35 @@ NM_EXPORT int nm_xent_fwd(const void* x, const void* w, const void* bias, const 
 }
 
 NM_EXPORT int nm_xent_bwd_dx(const void* x, const void* w, const void* bias, const void* targets,
-                             const void* lse, const void* g, void* dx, int N, int D, int V,
-                             int transposed, float eps, void* stream) {
-  const int err = allow_smem(xent_bwd_dx_kernel);
+                             const void* lse, const void* g, void* dx, void* scratch, int N, int D,
+                             int V, int transposed, int splits, int tiles_per_chunk, float eps,
+                             void* stream) {
+  const int R = (V + tc::kN - 1) / tc::kN;
+  if (N < 1 || D < 1 || V < 1 || splits < 1 || tiles_per_chunk < 1 ||
+      (splits - 1) * tiles_per_chunk >= R || splits * tiles_per_chunk < R ||
+      (splits > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      xent_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(tc::kSmem)));
   if (err != 0) return err;
-  const dim3 grid((D + kTileN - 1) / kTileN, (N + kTileM - 1) / kTileM);
-  xent_bwd_dx_kernel<<<grid, kTileThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // with one chunk the blocks write dx itself
+  float* part = splits > 1 ? static_cast<float*>(scratch) : static_cast<float*>(dx);
+  const dim3 grid((N + tc::kM - 1) / tc::kM, splits);
+  xent_bwd_dx_kernel<<<grid, tc::kThreads, tc::kSmem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(targets),
-      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<float*>(dx), N,
-      D, V, transposed, eps);
+      static_cast<const float*>(lse), static_cast<const float*>(g), part, N, D, V, transposed,
+      tiles_per_chunk, eps);
+  const int status = nm::launch_status();
+  if (status != 0 || splits == 1) return status;
+  const size_t count = static_cast<size_t>(N) * D;
+  constexpr int kFoldThreads = 256;
+  const int blocks = static_cast<int>(std::min<size_t>((count + kFoldThreads - 1) / kFoldThreads,
+                                                       size_t{1} << 16));
+  xent_dx_fold_kernel<<<blocks, kFoldThreads, 0, s>>>(part, static_cast<float*>(dx), count,
+                                                      splits);
   return nm::launch_status();
 }
 

@@ -51,28 +51,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Wait until every block of the direction has arrived. `sync` holds the
-// arrival count and the generation; the last block to arrive resets the
-// count and moves the generation on, so the words are ready for the next
-// barrier and the next launch.
-__device__ __forceinline__ void direction_barrier(unsigned* sync, unsigned blocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = sync + 1;
-    const unsigned g = *gen;
-    __threadfence();  // this block's h and c before its arrival
-    if (atomicAdd(sync, 1u) == blocks - 1) {
-      atomicExch(sync, 0u);
-      __threadfence();
-      atomicAdd(sync + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads)
 lstm_scan_kernel(const float* __restrict__ xz,    // (B, T, D * 4H) hoisted inputs
                  const float* __restrict__ mask,  // (B, T)
@@ -227,7 +205,7 @@ lstm_scan_kernel(const float* __restrict__ xz,    // (B, T, D * 4H) hoisted inpu
       }
       __syncthreads();  // the tile's h, mask and sums are consumed
     }
-    if (s + 1 < T) direction_barrier(sync + 2 * dir, NB);
+    if (s + 1 < T) nm::direction_barrier(sync + 2 * dir, NB);
   }
 }
 
@@ -264,6 +242,9 @@ NM_EXPORT int nm_lstm_scan(const void* xz, const void* mask, const void* wh, voi
   const cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(lstm_scan_kernel), dim3(blocks_per_dir * D), dim3(kThreads),
       args, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves the error for the next one
+    return static_cast<int>(err);
+  }
   return nm::launch_status();
 }

@@ -24,7 +24,6 @@ to XLA, ``_gru_scan_bwd``, ``_lstm_scan_bwd``).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -38,8 +37,12 @@ _KERNEL_ROWS = 1
 _SHARED_BYTES = 227 * 1024
 # csrc/gru_bptt.cu keeps eight H-wide f32 vectors of one row in shared memory
 _BPTT_VECTORS = 8
-# csrc/lstm_bptt.cu keeps seven H-wide vectors (h_prev, dz of 4H, dc, dh);
-# csrc/lstm_scan.cu's plan (``lstm_scan_plan``) lays out any size it takes
+# the LSTM kernels (csrc/lstm_scan.cu, csrc/lstm_bptt.cu) are column-split:
+# each block keeps a column slice of W_h, whole or in k tiles, beside a tile
+# of h rows, so their plans (``lstm_scan_plan``, ``lstm_bptt_plan``) lay out
+# any H whose h row (H rounded up to 4, plus 4) fits beside a k tile and the
+# sums; the LSTM path takes H up to the size of seven such rows, the bound
+# the card tests reach (H 8300)
 _LSTM_VECTORS = 7
 
 
@@ -55,8 +58,8 @@ def bptt_fits(hidden: int) -> bool:
 
 
 def lstm_scan_fits(hidden: int) -> bool:
-    """Whether the LSTM kernels, forward and BPTT, take this hidden size:
-    any size whose vectors fit one SM's shared memory (H <= 8300)."""
+    """Whether the LSTM kernels, forward and BPTT, take this hidden size
+    (H <= 8300, seven padded h rows in one SM's shared memory)."""
     return _LSTM_VECTORS * -(-hidden // 4) * 4 * 4 <= _SHARED_BYTES
 
 
@@ -66,13 +69,13 @@ LSTM_SCAN_THREADS = 256
 
 
 class LSTMScanPlan(NamedTuple):
-    """The launch of ``lstm_scan``: ``blocks_per_dir`` blocks for each
-    direction, each owning ``units`` hidden units (the last block of a
-    direction may own fewer); ``rows`` batch rows of h staged per tile;
-    the W_h slice in shared memory ``k_tile`` rows at a time (all of it,
-    ``resident``, when ``k_tile`` covers H rounded up to 4); each 4 x 4
-    tile's sum split over ``k_split`` threads; ``smem_bytes`` of shared
-    memory per block."""
+    """The launch of ``lstm_scan`` or ``lstm_bptt``: ``blocks_per_dir``
+    blocks for each direction, each owning ``units`` hidden units (the
+    last block of a direction may own fewer); ``rows`` batch rows of h
+    staged per tile; the W_h slice in shared memory ``k_tile`` rows at a
+    time (all of it, ``resident``, when ``k_tile`` covers H rounded up to
+    4); each 4 x 4 tile of z's sum split over ``k_split`` threads;
+    ``smem_bytes`` of shared memory per block."""
     blocks_per_dir: int
     units: int
     rows: int
@@ -82,26 +85,29 @@ class LSTMScanPlan(NamedTuple):
     resident: bool
 
 
-def lstm_scan_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
-                   smem_limit: int) -> LSTMScanPlan:
-    """The layout of the persistent scan (csrc/lstm_scan.cu) on a card of
-    ``sm_count`` SMs with ``smem_limit`` bytes of shared memory a block:
-    at most one block per SM, every block resident (the launch is
-    cooperative). The W_h slice stays in shared memory whenever it fits
-    beside a tile of at least min(B, 16) rows of h; otherwise it streams
-    in k tiles of about a quarter of the shared memory. Raises
-    ``ValueError`` where no layout fits."""
+def lstm_bptt_slice_stride(units: int) -> int:
+    """Row stride (floats) of ``lstm_bptt``'s W_h slice: its 4U columns
+    padded to an odd number of float4s, so that the partial product's
+    reads of four slice rows fall in different banks."""
+    return 4 * (units + 1 + units % 2)
+
+
+def _column_split_plan(name: str, batch: int, hidden: int, n_dirs: int,
+                       sm_count: int, smem_limit: int,
+                       stride) -> LSTMScanPlan:
+    """The column-split layout both LSTM kernels share; ``stride(units)``
+    is the row stride of the W_h slice in shared memory."""
     if min(batch, hidden, n_dirs, sm_count) < 1 or sm_count < n_dirs:
-        raise ValueError(f"lstm_scan: no plan for B {batch}, H {hidden}, "
+        raise ValueError(f"{name}: no plan for B {batch}, H {hidden}, "
                          f"{n_dirs} directions on {sm_count} SMs")
     units = -(-hidden // (sm_count // n_dirs))
     blocks = -(-hidden // units)
-    cols = 4 * units
+    cols, w_row = 4 * units, stride(units)
     h4 = -(-hidden // 4) * 4
     row_floats = h4 + 4 + 1  # the h row (padded stride) and its mask
 
     def rows_for(k_tile: int, k_split: int) -> int:
-        free = smem_limit // 4 - k_tile * cols
+        free = smem_limit // 4 - k_tile * w_row
         rows = min(batch, free // (row_floats + k_split * cols))
         return rows if rows >= batch or rows < 4 else rows // 4 * 4
 
@@ -121,20 +127,37 @@ def lstm_scan_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
         k_tile = min(h4, max(4, quarter_rows // 4 * 4))
         rows, k_split = layout(k_tile)
     if rows < 1:
-        raise ValueError(f"lstm_scan: B {batch}, H {hidden} does not fit "
+        raise ValueError(f"{name}: B {batch}, H {hidden} does not fit "
                          f"{smem_limit} bytes of shared memory")
-    smem = 4 * (k_tile * cols + rows * (h4 + 4) + k_split * rows * cols
+    smem = 4 * (k_tile * w_row + rows * (h4 + 4) + k_split * rows * cols
                 + rows)
     return LSTMScanPlan(blocks, units, rows, k_tile, k_split, smem, resident)
 
 
-@functools.lru_cache(maxsize=None)
-def device_limits(index: int) -> Tuple[int, int]:
-    """(SM count, opt-in shared bytes per block) of CUDA device
-    ``index``."""
-    props = torch.cuda.get_device_properties(index)
-    return (props.multi_processor_count,
-            getattr(props, "shared_memory_per_block_optin", _SHARED_BYTES))
+def lstm_scan_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
+                   smem_limit: int) -> LSTMScanPlan:
+    """The layout of the persistent scan (csrc/lstm_scan.cu) on a card of
+    ``sm_count`` SMs with ``smem_limit`` bytes of shared memory a block:
+    at most one block per SM, every block resident (the launch is
+    cooperative). The W_h slice stays in shared memory whenever it fits
+    beside a tile of at least min(B, 16) rows of h; otherwise it streams
+    in k tiles of about a quarter of the shared memory. Raises
+    ``ValueError`` where no layout fits."""
+    return _column_split_plan("lstm_scan", batch, hidden, n_dirs, sm_count,
+                              smem_limit, lambda units: 4 * units)
+
+
+def lstm_bptt_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
+                   smem_limit: int) -> LSTMScanPlan:
+    """The layout of the persistent BPTT (csrc/lstm_bptt.cu): the scan's
+    (:func:`lstm_scan_plan`), with the W_h slice's rows at
+    :func:`lstm_bptt_slice_stride`. The same slice (or k tile) serves
+    both of a step's products, z and the block's part of dz·W_hᵀ; the
+    sums of z take ``k_split`` planes, the first of which then holds dz.
+    Raises ``ValueError`` where no layout fits."""
+    return _column_split_plan("lstm_bptt", batch, hidden, n_dirs, sm_count,
+                              smem_limit, lstm_bptt_slice_stride)
+
 
 
 def hoisted_inputs(directions: Sequence[Params],
@@ -458,8 +481,9 @@ def lstm_bptt(xz: torch.Tensor, mask: torch.Tensor, cprev: torch.Tensor,
               hprev: torch.Tensor, gout: torch.Tensor, gfinal: torch.Tensor,
               wh: torch.Tensor, forget_bias: float,
               reverse_mask: int) -> torch.Tensor:
-    """The LSTM BPTT's serial pass: launches ``lstm_bptt`` for CUDA
-    tensors, runs the plain version otherwise."""
+    """The LSTM BPTT's serial pass: one cooperative launch of
+    ``lstm_bptt``, laid out by :func:`lstm_bptt_plan`, for CUDA tensors;
+    the plain version otherwise."""
     n_dirs, hidden, _ = wh.shape
     if not xz.is_cuda:
         return lstm_bptt_reference(xz, mask, cprev, hprev, gout, gfinal, wh,
@@ -470,14 +494,22 @@ def lstm_bptt(xz: torch.Tensor, mask: torch.Tensor, cprev: torch.Tensor,
                          "the kernel's shared memory")
     batch, time, _ = xz.shape
     gout, gfinal = gout.contiguous(), gfinal.contiguous()
-    wht = wh.transpose(1, 2).contiguous()
     kernel_config.check_cuda_inputs(
         "lstm_bptt", xz=xz, mask=mask, cprev=cprev, hprev=hprev, gout=gout,
-        gfinal=gfinal, wh=wh, wht=wht)
+        gfinal=gfinal, wh=wh)
+    plan = lstm_bptt_plan(batch, hidden, n_dirs,
+                          *kernel_config.tensor_device_limits(xz))
     dxz = torch.empty_like(xz)
+    # the partials of dz·W_hᵀ, two steps' worth, and the carried dc and
+    # direct dh, all written before they are read; the barrier words at 0
+    partial = xz.new_empty(2, n_dirs, plan.blocks_per_dir, batch, hidden)
+    carry = xz.new_empty(2, n_dirs, batch, hidden)
+    sync = torch.zeros(n_dirs, 2, dtype=torch.int32, device=xz.device)
     kernel_config.launch("lstm_bptt", xz, mask, cprev, hprev, gout, gfinal,
-                         wh, wht, dxz, batch, time, hidden, n_dirs,
-                         reverse_mask, float(forget_bias))
+                         wh, dxz, partial, carry, sync, batch, time, hidden,
+                         n_dirs, reverse_mask, plan.blocks_per_dir,
+                         plan.units, plan.rows, plan.k_tile, plan.k_split,
+                         plan.smem_bytes, float(forget_bias))
     return dxz
 
 
@@ -535,9 +567,8 @@ def launch_lstm_scan(xz, mask, wh, out, final, c_car, h_car, scratch, sync,
     plan."""
     batch, time, _ = xz.shape
     n_dirs, hidden, _ = wh.shape
-    index = xz.device.index
-    plan = lstm_scan_plan(batch, hidden, n_dirs, *device_limits(
-        torch.cuda.current_device() if index is None else index))
+    plan = lstm_scan_plan(batch, hidden, n_dirs,
+                          *kernel_config.tensor_device_limits(xz))
     kernel_config.launch("lstm_scan", xz, mask, wh, out, final, c_car, h_car,
                          scratch, sync, batch, time, hidden, n_dirs,
                          reverse_mask, plan.blocks_per_dir, plan.units,

@@ -18,13 +18,67 @@ TPU's ``d % 128`` and ``n % 8`` gates do not apply to the kernels.
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import kernel_config
 
 TILE = 128
+# csrc/fused_xent.cu's dx kernel: threads a block (8 warps, a 64 x 32 warp
+# tile each), the 4 x 4 x 4 sums each thread keeps in registers, and its
+# shared memory: two stages of a 128 x 36 x tile and a W tile (128 x 36 or
+# 32 x 136), and the dl of two vocabulary tiles, 128 x 260; one block an SM
+DX_THREADS, DX_THREAD_SUMS = 256, 64
+DX_SMEM_BYTES = 4 * (2 * (TILE * 36 + max(TILE * 36, 32 * 136))
+                     + TILE * (2 * TILE + 4))
+# the dx grid aims at this many blocks for each SM, in waves
+DX_WAVES = 2
+
+
+class DxPlan(NamedTuple):
+    """The launch of ``fused_xent_bwd_dx``: a ``grid`` of (row tiles,
+    ``splits``) blocks of ``threads``; block (r, s) owns rows
+    ``r·rows ..`` and every column of D (in passes of ``d_tile``), and
+    walks the vocabulary tiles ``walks[s]`` = (first, end), computing
+    each of their logit tiles once; ``smem_bytes`` of shared memory and
+    ``thread_sums`` register sums a thread (the warps' mma tiles). With
+    ``splits`` > 1 the partials go to an (S, N, D) scratch that a second
+    kernel folds."""
+    rows: int
+    vocab_tile: int
+    d_tile: int
+    splits: int
+    tiles_per_chunk: int
+    grid: Tuple[int, int]
+    walks: Tuple[Tuple[int, int], ...]
+    threads: int
+    thread_sums: int
+    smem_bytes: int
+
+
+def dx_plan(n: int, d: int, v: int, sm_count: int,
+            smem_limit: int) -> DxPlan:
+    """The layout of ``fused_xent_bwd_dx`` (csrc/fused_xent.cu) on a card
+    of ``sm_count`` SMs with ``smem_limit`` bytes of shared memory a
+    block: the vocabulary cut into the fewest contiguous chunks that
+    make about ``DX_WAVES`` blocks for each SM, so that the card is full
+    and the (S, N, D) scratch small. Raises ``ValueError`` where the
+    block does not fit."""
+    if min(n, d, v, sm_count) < 1:
+        raise ValueError(f"fused_xent_bwd_dx: no plan for N {n}, D {d}, "
+                         f"V {v} on {sm_count} SMs")
+    if DX_SMEM_BYTES > smem_limit:
+        raise ValueError(f"fused_xent_bwd_dx: {DX_SMEM_BYTES} bytes of "
+                         f"shared memory do not fit {smem_limit}")
+    row_tiles, vocab_tiles = -(-n // TILE), -(-v // TILE)
+    wanted = max(1, round(DX_WAVES * sm_count / row_tiles))
+    per_chunk = -(-vocab_tiles // min(vocab_tiles, wanted))
+    splits = -(-vocab_tiles // per_chunk)
+    walks = tuple((s * per_chunk, min(vocab_tiles, (s + 1) * per_chunk))
+                  for s in range(splits))
+    return DxPlan(TILE, TILE, TILE, splits, per_chunk, (row_tiles, splits),
+                  walks, DX_THREADS, DX_THREAD_SUMS, DX_SMEM_BYTES)
 
 
 def eligible(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -128,14 +182,20 @@ def xent_fwd(x, w, b, targets, eps: float, transposed: bool
 
 def xent_bwd_dx(x, w, b, targets, lse, g, eps: float,
                 transposed: bool) -> torch.Tensor:
+    """dx = dl·Wᵀ: launches ``fused_xent_bwd_dx``, laid out by
+    :func:`dx_plan`, for CUDA tensors; runs the plain version
+    otherwise."""
     if not x.is_cuda:
         return bwd_dx_reference(x, w, b, targets, lse, g, eps, transposed)
     _check("fused_xent_bwd_dx", x, w, b, targets, transposed, lse=lse, g=g)
     dx = torch.empty_like(x)
     n, d = x.shape
     vocab = w.shape[0] if transposed else w.shape[1]
+    plan = dx_plan(n, d, vocab, *kernel_config.tensor_device_limits(x))
+    scratch = x.new_empty(plan.splits, n, d) if plan.splits > 1 else None
     kernel_config.launch("fused_xent_bwd_dx", x, w, b, targets, lse, g, dx,
-                         n, d, vocab, int(transposed), eps)
+                         scratch, n, d, vocab, int(transposed), plan.splits,
+                         plan.tiles_per_chunk, eps)
     return dx
 
 

@@ -26,12 +26,13 @@ kernels (``launch_counts``/``reset_launch_counts``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -70,14 +71,14 @@ _ARGTYPES = {
     "nm_fused_logits": [_PTR] * 7 + [_INT] * 3 + [_PTR],
     "nm_small_topk": [_PTR] * 3 + [_INT] * 3 + [_PTR],
     "nm_xent_fwd": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],
-    "nm_xent_bwd_dx": [_PTR] * 7 + [_INT] * 4 + [_FLOAT, _PTR],
+    "nm_xent_bwd_dx": [_PTR] * 8 + [_INT] * 6 + [_FLOAT, _PTR],
     "nm_xent_bwd_dw": [_PTR] * 8 + [_INT] * 4 + [_FLOAT, _PTR],
     "nm_flash_fwd": [_PTR] * 6 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dq": [_PTR] * 8 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_lineage_attention": [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR],
     "nm_lstm_scan": [_PTR] * 9 + [_INT] * 11 + [_FLOAT, _PTR],
-    "nm_lstm_bptt": [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _PTR],
+    "nm_lstm_bptt": [_PTR] * 11 + [_INT] * 11 + [_FLOAT, _PTR],
     "nm_rowmax_lse": [_PTR] * 4 + [_INT] * 2 + [_PTR],
 }
 
@@ -182,6 +183,22 @@ def library() -> ctypes.CDLL:
             lib.nm_error_string.restype = ctypes.c_char_p
             _LIBRARY = lib
     return _LIBRARY
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> Tuple[int, int]:
+    """(SM count, opt-in shared bytes per block) of CUDA device
+    ``index``, which the persistent kernels' plans read."""
+    props = torch.cuda.get_device_properties(index)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", 227 * 1024))
+
+
+def tensor_device_limits(tensor: torch.Tensor) -> Tuple[int, int]:
+    """:func:`device_limits` of the CUDA device ``tensor`` lies on."""
+    index = tensor.device.index
+    return device_limits(torch.cuda.current_device() if index is None
+                         else index)
 
 
 def check_cuda_inputs(kernel: str, **tensors: torch.Tensor) -> None:

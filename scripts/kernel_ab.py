@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Device times of the redesigned kernels (``lstm_scan``, the flash
-forward, and the flash backward's dq and dkv), with their library
-yardsticks, for the port found under ROOT (by default this checkout), so
-that two versions can be compared on one card in one call:
+"""Device times of the redesigned kernels (``lstm_scan``, ``lstm_bptt``,
+the flash forward, the flash backward's dq and dkv, and
+``fused_xent_bwd_dx``), with their library yardsticks, and of the
+kernels that share their code (K3, ``fused_xent_fwd``,
+``fused_xent_bwd_dw``), for the port found under ROOT (by default this
+checkout), so that two versions can be compared on one card in one call:
 
-    python3 scripts/kernel_ab.py [--root DIR] [--sweep]    (GPU)
+    python3 scripts/kernel_ab.py [--root DIR] [--sweep] [--only ROWS]  (GPU)
 
 Shapes: ``lstm_scan`` through its wrapper (hoisted GEMM and scan) and the
 scan alone at the LSTM encoder's B 64, T 32, H 512, two directions,
-ragged sources, beside cuDNN's ``nn.LSTM``; the flash forward at the
+ragged sources, beside cuDNN's ``nn.LSTM``; ``lstm_bptt`` at the same
+shape, with the whole LSTM backward (autograd through the port's scan)
+beside the plain scan's and cuDNN's backward
+(``chip_smoke.lstm_backward_times``); the flash forward at the
 Transformer encoder's B 64, H 8, 32 x 32, Dh 64 and at a long source
 (B 8, H 8, 512 x 512), both with ragged key masks, beside
 ``scaled_dot_product_attention``; the flash backward (dq, dkv, and the
 whole backward with its dcap row sums) at the encoder, the causal
 decoder (48 x 48), the cross attention (48 x 32) and the long source,
-beside SDPA's backward (``chip_smoke.flash_backward_times``). The
-timing code is this checkout's ``chip_smoke.py`` whatever ROOT is.
-``--sweep`` adds the scan alone at other batches and lengths (where a
-step's time goes). Prints one JSON line with the card's name and power
-limit.
+beside SDPA's backward (``chip_smoke.flash_backward_times``); the three
+fused cross-entropy kernels at N 3072, D 512, V 30000, (D, V), eps 0,
+with the plain dx; K3 at 640 x 512 x 30720. The timing code is this
+checkout's ``chip_smoke.py`` whatever ROOT is. ``--sweep`` adds the scan
+alone and ``lstm_bptt`` at other batches and lengths (where a step's
+time goes);
+``--only`` keeps the rows whose names start with one of the
+comma-separated prefixes. Prints one JSON line with the card's name and
+power limit.
 """
 
 import argparse
@@ -35,6 +44,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=REPO)
     parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--only", default="")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -44,8 +54,9 @@ def main() -> int:
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from neuralmonkey_tpu_torch.ops import cuda_rnn, nn
+    from neuralmonkey_tpu_torch.ops import beam_select, cuda_rnn, nn
     from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    from neuralmonkey_tpu_torch.ops import fused_xent as fx
     from neuralmonkey_tpu_torch.ops import kernel_config
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -66,6 +77,10 @@ def main() -> int:
         return mask.to(device)
 
     result = {"root": os.path.abspath(args.root)}
+    prefixes = tuple(p for p in args.only.split(",") if p)
+
+    def wanted(row):
+        return not prefixes or row.startswith(prefixes)
     # lstm_scan
     batch, time_, width, hidden = cs.BATCH, cs.SRC_LEN, cs.EMB, cs.RNN
     params = [{k: v.to(device) for k, v in
@@ -82,13 +97,23 @@ def main() -> int:
     def cudnn():
         with torch.no_grad():
             return lstm(packed)
-    result["lstm_scan"] = {
-        "ms": cs.time_ms(lambda: cuda_rnn.lstm_scan(directions, inputs,
-                                                    mask)),
-        "scan_ms": cs.time_ms(lambda: cuda_rnn.lstm_scan_forward(
-            xz, mask, wh, 1.0, 2, False)),
-        "library_ms": cs.time_ms(cudnn)}
-    if args.sweep:
+    if wanted("lstm_scan"):
+        result["lstm_scan"] = {
+            "ms": cs.time_ms(lambda: cuda_rnn.lstm_scan(directions, inputs,
+                                                        mask)),
+            "scan_ms": cs.time_ms(lambda: cuda_rnn.lstm_scan_forward(
+                xz, mask, wh, 1.0, 2, False)),
+            "library_ms": cs.time_ms(cudnn)}
+    if wanted("lstm_bptt"):
+        bptt = (xz, mask, randn(batch, time_, 2 * hidden),
+                randn(batch, time_, 2 * hidden, scale=0.5),
+                randn(batch, time_, 2 * hidden), randn(batch, 2 * hidden),
+                wh, 1.0)
+        result["lstm_bptt"] = {
+            "ms": cs.time_ms(lambda: cuda_rnn.lstm_bptt(*bptt, 2)),
+            **cs.lstm_backward_times(cuda_rnn, params, (False, True), inputs,
+                                     mask, lengths, lstm, gen)}
+    if args.sweep and wanted("lstm_scan"):
         sweep = {}
         for b, t in ((1, 32), (8, 32), (16, 32), (32, 32), (64, 32),
                      (64, 8), (64, 16), (128, 32)):
@@ -97,6 +122,41 @@ def main() -> int:
             sweep[f"B{b} T{t}"] = cs.time_ms(
                 lambda: cuda_rnn.lstm_scan_forward(x, m, wh, 1.0, 2, False))
         result["lstm_scan"]["scan_sweep_ms"] = sweep
+    if args.sweep and wanted("lstm_bptt"):
+        sweep = {}
+        for b, t in ((8, 32), (64, 8), (64, 16), (64, 32)):
+            bptt = (randn(b, t, 2 * 4 * hidden, scale=0.5),
+                    torch.ones(b, t, device=device),
+                    *(randn(b, t, 2 * hidden) for _ in range(3)),
+                    randn(b, 2 * hidden), wh, 1.0)
+            sweep[f"B{b} T{t}"] = cs.time_ms(
+                lambda: cuda_rnn.lstm_bptt(*bptt, 2))
+        result["lstm_bptt"]["bptt_sweep_ms"] = sweep
+    # the fused cross-entropy and K3, which share logit_tile.cuh
+    n, d, v = cs.XENT_N, cs.XENT_D, cs.VOCAB
+    x, w, b = randn(n, d, scale=0.5), randn(d, v, scale=d ** -0.5), randn(
+        v, scale=0.1)
+    targets = torch.randint(0, v, (n,), generator=gen,
+                            dtype=torch.int32).to(device)
+    g = torch.rand(n, generator=gen).to(device)
+    _, lse = fx.xent_fwd(x, w, b, targets, 0.0, False)
+    bwd = (x, w, b, targets, lse, g, 0.0, False)
+    for row, fn in (
+            ("fused_xent_fwd", lambda: fx.xent_fwd(x, w, b, targets, 0.0,
+                                                   False)),
+            ("fused_xent_bwd_dx", lambda: fx.xent_bwd_dx(*bwd)),
+            ("fused_xent_bwd_dw", lambda: fx.xent_bwd_dw(*bwd))):
+        if wanted(row):
+            result[row] = {"ms": cs.time_ms(fn)}
+    if wanted("fused_xent_bwd_dx"):
+        result["fused_xent_bwd_dx"]["plain_ms"] = cs.time_ms(
+            lambda: fx.bwd_dx_reference(*bwd))
+    if wanted("fused_logits_rowmax_lse"):
+        vp = -(-v // 1024) * 1024
+        xk, wk = randn(cs.BATCH * cs.BEAM, d), randn(d, vp, scale=d ** -0.5)
+        bk = randn(vp, scale=0.1)
+        result["fused_logits_rowmax_lse"] = {"ms": cs.time_ms(
+            lambda: beam_select.fused_logits_rowmax_lse(xk, wk, bk))}
     # flash forward
     for case, (b, h, t, d) in (("encoder", (cs.BATCH, cs.T_HEADS, cs.SRC_LEN,
                                             cs.T_HEAD_DIM)),
@@ -106,6 +166,8 @@ def main() -> int:
         mask = mask_of(torch.randint(1, t + 1, (b,), generator=gen).tolist(),
                        t)
         bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+        if not wanted("flash_attention_fwd"):
+            continue
         result[f"flash_attention_fwd {case}"] = {
             "ms": cs.time_ms(lambda: fa.flash_forward(q, k, v, mask, False)),
             "call_ms": cs.call_ms(lambda: fa.flash_forward(q, k, v, mask,
@@ -114,6 +176,8 @@ def main() -> int:
                 q, k, v, attn_mask=bias))}
     # flash backward
     for case, (b, h, tq, tk, d, causal) in cs.FLASH_SHAPES.items():
+        if not wanted("flash_backward"):
+            break
         q, k, v, g = (randn(b, h, t, d) for t in (tq, tk, tk, tq))
         mask = (torch.ones(b, tk, device=device) if causal else mask_of(
             torch.randint(1, tk + 1, (b,), generator=gen).tolist(), tk))

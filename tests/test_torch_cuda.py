@@ -262,6 +262,39 @@ def test_fused_xent_kernels(cuda_device, n, d, v, transposed, eps):
     torch.testing.assert_close(db, ref_db, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("n,d,v,splits", [
+    (3072, 512, 30000, 11),  # the decoder's loss tail, bench widths
+    (333, 130, 1000, 8),     # ragged N, D and V
+    (40, 600, 200, 2)])      # D past one 128-column pass, a partial tile
+@pytest.mark.parametrize("transposed", [False, True])
+def test_fused_xent_bwd_dx_plans(cuda_device, n, d, v, splits, transposed):
+    """dx through the vocabulary split into S chunks and folded, against
+    the plain version (1e-4 of its largest entry, the smoke's rule), and
+    bitwise equal across two calls: the S partials are folded in one
+    fixed order."""
+    plan = fused_xent.dx_plan(n, d, v, *kernel_config.device_limits(0))
+    assert plan.splits == splits
+    x = _randn(cuda_device, n, d, scale=0.5)
+    w = _randn(cuda_device, *((v, d) if transposed else (d, v)),
+               scale=d ** -0.5, seed=1)
+    b = _randn(cuda_device, v, scale=0.1, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    targets = torch.randint(0, v, (n,), generator=gen,
+                            dtype=torch.int32).to(cuda_device)
+    g = torch.rand(n, generator=gen).to(cuda_device)
+    _, lse = fused_xent.fwd_reference(x, w, b, targets, 0.1, transposed)
+    args = (x, w, b, targets, lse, g, 0.1, transposed)
+    kernel_config.reset_launch_counts()
+    first = fused_xent.xent_bwd_dx(*args)
+    second = fused_xent.xent_bwd_dx(*args)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["fused_xent_bwd_dx"] == 2
+    assert torch.equal(first, second)
+    ref = fused_xent.bwd_dx_reference(*args)
+    assert float((first - ref).abs().max()) <= 1e-4 * float(
+        ref.abs().max())
+
+
 def _train_pass(device):
     """Loss and flat gradients of one train-mode pass of a small
     flagship model (conditional GRU), dropout off, from fixed
@@ -402,7 +435,7 @@ def test_lstm_scan_persistent_plans(cuda_device, batch, time, hidden,
                 seed=1)
     reverse_mask = sum(1 << d for d, rev in enumerate(reverse) if rev)
     plan = cuda_rnn.lstm_scan_plan(batch, hidden, n_dirs,
-                                   *cuda_rnn.device_limits(0))
+                                   *kernel_config.device_limits(0))
     assert plan.resident == resident
     kernel_config.reset_launch_counts()
     got = cuda_rnn.lstm_scan_forward(xz, mask, wh, 1.0, reverse_mask, True)
@@ -462,6 +495,87 @@ def test_lstm_bptt_kernel(cuda_device, hidden, reverse):
     torch.cuda.synchronize()
     assert kernel_config.launch_counts()["lstm_bptt"] == 1
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def _lstm_bptt_args(device, batch, time, hidden, reverse, lengths):
+    n_dirs = len(reverse)
+    xz = _randn(device, batch, time, n_dirs * 4 * hidden, scale=0.5)
+    mask = _mask(device, lengths, time)
+    cprev = _randn(device, batch, time, n_dirs * hidden, seed=1)
+    hprev = _randn(device, batch, time, n_dirs * hidden, scale=0.5, seed=2)
+    gout = _randn(device, batch, time, n_dirs * hidden, seed=3)
+    gfinal = _randn(device, batch, n_dirs * hidden, seed=4)
+    wh = _randn(device, n_dirs, hidden, 4 * hidden, scale=hidden ** -0.5,
+                seed=5)
+    return xz, mask, cprev, hprev, gout, gfinal, wh, 1.0
+
+
+@pytest.mark.parametrize("batch,time,hidden,reverse,resident", [
+    (64, 32, 512, (False, True), True),    # the encoder's shape
+    (160, 6, 512, (False, True), True),    # rows in several tiles
+    (64, 5, 1024, (False, True), False),   # the slice streamed in k tiles
+    (5, 4, 4099, (True,), False)])         # streamed, H % 4 != 0
+def test_lstm_bptt_persistent_plans(cuda_device, batch, time, hidden,
+                                    reverse, resident):
+    """The persistent BPTT in each of its layouts against the plain
+    version, ragged lengths; the pre-activation gradients grow through
+    the reverse steps, so the tolerance scales with their largest
+    entry."""
+    gen = torch.Generator().manual_seed(batch)
+    lengths = torch.randint(1, time + 1, (batch,), generator=gen).tolist()
+    args = _lstm_bptt_args(cuda_device, batch, time, hidden, reverse,
+                           lengths)
+    reverse_mask = sum(1 << d for d, rev in enumerate(reverse) if rev)
+    plan = cuda_rnn.lstm_bptt_plan(batch, hidden, len(reverse),
+                                   *kernel_config.device_limits(0))
+    assert plan.resident == resident
+    kernel_config.reset_launch_counts()
+    got = cuda_rnn.lstm_bptt(*args, reverse_mask)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["lstm_bptt"] == 1
+    ref = cuda_rnn.lstm_bptt_reference(*args, reverse)
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(got, ref, atol=1e-5 * scale, rtol=1e-5)
+
+
+def test_lstm_bptt_is_deterministic(cuda_device):
+    """Two calls at the encoder's shape give the same bits: the partials
+    of dz·W_hᵀ are summed in one fixed block order."""
+    gen = torch.Generator().manual_seed(7)
+    lengths = torch.randint(1, 33, (64,), generator=gen).tolist()
+    args = _lstm_bptt_args(cuda_device, 64, 32, 512, (False, True), lengths)
+    first = cuda_rnn.lstm_bptt(*args, 2)
+    second = cuda_rnn.lstm_bptt(*args, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_lstm_bptt_refuses_a_grid_that_cannot_be_resident(cuda_device):
+    """A plan for twice the card's SMs, each block asking for all of an
+    SM's shared memory, wants more blocks than can be resident at once:
+    the cooperative launch is refused and raises, without counting a
+    launch or writing anything."""
+    batch, time, hidden = 8, 3, 512
+    args = _lstm_bptt_args(cuda_device, batch, time, hidden, (False, True),
+                           [3] * batch)
+    xz, mask, cprev, hprev, gout, gfinal, wh, _ = args
+    sms, smem = kernel_config.device_limits(0)
+    plan = cuda_rnn.lstm_bptt_plan(batch, hidden, 2, 2 * sms, smem)
+    assert plan.blocks_per_dir * 2 > sms
+    dxz = torch.full_like(xz, float("nan"))
+    partial = xz.new_empty(2, 2, plan.blocks_per_dir, batch, hidden)
+    carry = xz.new_empty(2, 2, batch, hidden)
+    sync = torch.zeros(2, 2, dtype=torch.int32, device=cuda_device)
+    kernel_config.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="lstm_bptt: launch failed"):
+        kernel_config.launch(
+            "lstm_bptt", xz, mask, cprev, hprev, gout, gfinal, wh, dxz,
+            partial, carry, sync, batch, time, hidden, 2, 2,
+            plan.blocks_per_dir, plan.units, plan.rows, plan.k_tile,
+            plan.k_split, smem, 1.0)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["lstm_bptt"] == 0
+    assert torch.isnan(dxz).all()
 
 
 @pytest.mark.parametrize("hidden", [6, 64])

@@ -1,13 +1,15 @@
-"""The launch plans of the persistent LSTM scan and the register-tiled
-flash forward and backward, checked on the CPU: which block owns which
-hidden units, queries or keys, which tiles each block walks, what fits
-an H100's shared memory and SM count, and which layout each shape gets. The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``)."""
+"""The launch plans of the persistent LSTM scan and BPTT, the fused
+cross-entropy's dx and the register-tiled flash forward and backward,
+checked on the CPU: which block owns which hidden units, rows, queries
+or keys, which tiles each block walks, what fits an H100's shared memory
+and SM count, and which layout each shape gets. The kernels themselves
+run only on the card (``tests/test_torch_cuda.py``)."""
 
 import pytest
 
 from neuralmonkey_tpu_torch.ops import cuda_rnn
 from neuralmonkey_tpu_torch.ops import flash_attention as fa
+from neuralmonkey_tpu_torch.ops import fused_xent
 
 H100_SMS, H100_SMEM = 132, 232448  # SMs; opt-in shared bytes a block
 
@@ -91,6 +93,161 @@ def test_lstm_scan_plan_reads_the_card():
 def test_lstm_scan_plan_raises_where_nothing_fits(sms, smem):
     with pytest.raises(ValueError, match="lstm_scan"):
         cuda_rnn.lstm_scan_plan(64, 512, 2, sms, smem)
+
+
+def _bptt_plan(batch, hidden, n_dirs):
+    return cuda_rnn.lstm_bptt_plan(batch, hidden, n_dirs, H100_SMS,
+                                   H100_SMEM)
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs", LSTM_SHAPES)
+def test_lstm_bptt_plan_owns_every_unit_once(batch, hidden, n_dirs):
+    plan = _bptt_plan(batch, hidden, n_dirs)
+    owned = [u for block in range(plan.blocks_per_dir)
+             for u in range(block * plan.units,
+                            min((block + 1) * plan.units, hidden))]
+    assert owned == list(range(hidden))
+    assert (plan.blocks_per_dir - 1) * plan.units < hidden
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs", LSTM_SHAPES)
+def test_lstm_bptt_plan_fits_the_card(batch, hidden, n_dirs):
+    """Shared memory as csrc/lstm_bptt.cu lays it out (the W_h slice or
+    k tile at its padded stride, the h row tile, the z sums whose first
+    plane then holds dz, the mask), within 227 KB; one block per SM at
+    most, so the cooperative launch holds every block; the z product's
+    k split and the partial product's 4 x 4 tasks fit the threads."""
+    plan = _bptt_plan(batch, hidden, n_dirs)
+    cols, h4 = 4 * plan.units, -(-hidden // 4) * 4
+    stride = cuda_rnn.lstm_bptt_slice_stride(plan.units)
+    assert stride >= cols + 4 and (stride // 4) % 2 == 1
+    assert plan.smem_bytes == 4 * (
+        plan.k_tile * stride + plan.rows * (h4 + 4)
+        + plan.k_split * plan.rows * cols + plan.rows)
+    assert plan.smem_bytes <= H100_SMEM
+    assert plan.blocks_per_dir * n_dirs <= H100_SMS
+    assert 1 <= plan.rows <= batch
+    assert plan.rows == batch or plan.rows % 4 == 0
+    assert plan.k_tile % 4 == 0 and 4 <= plan.k_tile <= h4
+    assert plan.resident == (plan.k_tile == h4)
+    tasks = plan.units * -(-plan.rows // 4)
+    assert plan.k_split == 1 or (
+        tasks * plan.k_split <= cuda_rnn.LSTM_SCAN_THREADS
+        and plan.k_split <= 8)
+
+
+def test_lstm_bptt_plan_keeps_w_resident_at_the_encoder_shape():
+    """B 64, H 512, two directions: 64 blocks a direction of 8 units,
+    each holding its slice of W_h (rows of 36 floats) and every row of
+    h_prev, 217 KB."""
+    plan = _bptt_plan(64, 512, 2)
+    assert plan.resident and plan.rows == 64
+    assert (plan.blocks_per_dir, plan.units) == (64, 8)
+    assert plan.k_split == 2 and plan.smem_bytes == 222464
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs,tiles", [
+    (64, 1024, 2, 2), (64, 4096, 2, 8), (64, 8300, 2, 16),
+    (512, 8300, 1, 128)])
+def test_lstm_bptt_plan_streams_what_does_not_fit(batch, hidden, n_dirs,
+                                                 tiles):
+    """Where the slice does not fit beside 16 rows of h, it streams in k
+    tiles (both products walk them), and the rows go in tiles."""
+    plan = _bptt_plan(batch, hidden, n_dirs)
+    assert not plan.resident and plan.k_tile < hidden
+    assert -(-batch // plan.rows) == tiles
+
+
+def test_lstm_bptt_plan_reads_the_card():
+    """Fewer SMs give fewer, wider blocks; less shared memory a stream."""
+    small = cuda_rnn.lstm_bptt_plan(64, 512, 2, 16, H100_SMEM)
+    assert (small.blocks_per_dir, small.units) == (8, 64)
+    assert not small.resident and small.smem_bytes <= H100_SMEM
+    tight = cuda_rnn.lstm_bptt_plan(64, 512, 2, H100_SMS, 100 * 1024)
+    assert not tight.resident and tight.smem_bytes <= 100 * 1024
+
+
+@pytest.mark.parametrize("sms,smem", [(1, H100_SMEM), (132, 2048)])
+def test_lstm_bptt_plan_raises_where_nothing_fits(sms, smem):
+    with pytest.raises(ValueError, match="lstm_bptt"):
+        cuda_rnn.lstm_bptt_plan(64, 512, 2, sms, smem)
+
+
+# (N, D, V): the decoder's loss tail at bench widths, the card tests'
+# shapes, a ragged case, and the edges (one row, one vocabulary column, D
+# past one 128-column pass)
+DX_SHAPES = [(3072, 512, 30000), (333, 130, 1000), (70, 40, 300),
+             (256, 128, 1024), (33, 130, 129), (40, 600, 200), (1, 1, 1),
+             (3072, 512, 1000), (100000, 512, 30000), (128, 64, 129)]
+
+
+def _dx_plan(n, d, v):
+    return fused_xent.dx_plan(n, d, v, H100_SMS, H100_SMEM)
+
+
+@pytest.mark.parametrize("n,d,v", DX_SHAPES)
+def test_dx_plan_visits_every_row_and_column_once(n, d, v):
+    """Every (row, vocabulary column) pair lies in exactly one block's
+    row tile and vocabulary walk, and every column of D in that same
+    block: each logit tile is computed once, where the first design
+    computed it once per 128 columns of D."""
+    plan = _dx_plan(n, d, v)
+    rows_tiles, splits = plan.grid
+    assert splits == plan.splits == len(plan.walks)
+    rows = [r for y in range(rows_tiles)
+            for r in range(y * plan.rows, min((y + 1) * plan.rows, n))]
+    assert rows == list(range(n))
+    columns = [c for first, end in plan.walks
+               for tile in range(first, end)
+               for c in range(tile * plan.vocab_tile,
+                              min((tile + 1) * plan.vocab_tile, v))]
+    assert columns == list(range(v))
+    assert all(end - first <= plan.tiles_per_chunk and end > first
+               for first, end in plan.walks)
+    vocab_tiles = -(-v // plan.vocab_tile)
+    logit_tiles = rows_tiles * sum(end - first for first, end in plan.walks)
+    assert logit_tiles == rows_tiles * vocab_tiles
+    # every block covers all of D in passes of d_tile columns
+    assert plan.d_tile * -(-d // plan.d_tile) >= d
+
+
+@pytest.mark.parametrize("n,d,v", DX_SHAPES)
+def test_dx_plan_fits_the_card(n, d, v):
+    """Two stages of a 128 x 36 x tile and a W tile, and the dl of two
+    vocabulary tiles (128 x 260) in shared memory, one block an SM; 256
+    threads, 8 warps whose 64 x 32 mma tiles keep 64 sums a thread and
+    cover the 128 x 128 tile."""
+    plan = _dx_plan(n, d, v)
+    assert plan.smem_bytes == 4 * (2 * (128 * 36 + 128 * 36)
+                                   + 128 * 260) == 206848
+    assert plan.smem_bytes + 1024 <= 228 * 1024
+    assert plan.threads == 256 and plan.thread_sums == 64
+    assert plan.threads * plan.thread_sums == plan.rows * plan.d_tile
+    assert (plan.threads // 32) * 64 * 32 == plan.rows * plan.vocab_tile
+
+
+def test_dx_plan_fills_the_card_at_the_bench_shape():
+    """N 3072, D 512, V 30000: 24 row tiles x 11 chunks of 22 vocabulary
+    tiles, 264 blocks, two waves on the 132 SMs (the first design had
+    96 blocks)."""
+    plan = _dx_plan(3072, 512, 30000)
+    assert plan.grid == (24, 11) and plan.tiles_per_chunk == 22
+    assert plan.grid[0] * plan.grid[1] >= H100_SMS
+    assert plan.grid[0] * plan.grid[1] == 2 * H100_SMS
+
+
+def test_dx_plan_ragged_and_small():
+    """333 x 130 x 1000: 3 row tiles, 8 chunks of one vocabulary tile;
+    one row tile and one vocabulary tile need no fold (S = 1)."""
+    plan = _dx_plan(333, 130, 1000)
+    assert plan.grid == (3, 8) and plan.walks[-1] == (7, 8)
+    assert _dx_plan(1, 1, 1).splits == 1
+
+
+@pytest.mark.parametrize("sms,smem", [(0, H100_SMEM), (132, 200 * 1024)])
+def test_dx_plan_raises_where_nothing_fits(sms, smem):
+    with pytest.raises(ValueError, match="fused_xent_bwd_dx"):
+        fused_xent.dx_plan(3072, 512, 30000, sms, smem)
 
 
 # (batch, heads, q len, kv len, head dim): the Transformer's encoder,
