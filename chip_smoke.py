@@ -17,10 +17,14 @@ Phases (any failure raises and the script exits non-zero):
    the shapes the serving and training paths give it and at one ragged
    shape, with median times from CUDA events, the bound of the same work
    on this card and, where one PyTorch call computes the same function,
-   that call's time (cuDNN's LSTM for the LSTM kernels), and the whole
+   that call's time (cuDNN's LSTM for the LSTM kernels), the whole
    LSTM backward (autograd through the port's scan: ``lstm_bptt``, the
    recurrent weights' products and the hoisted input's backward) beside
-   the plain scan's and cuDNN's backward of the same function;
+   the plain scan's and cuDNN's backward of the same function, and the
+   whole GRU backward (``gru_bptt``, the r recompute, the recurrent
+   weights' products and the hoisted input's backward) beside the plain
+   scan's (cuDNN's GRU applies r after the recurrent product: another
+   function);
 4. slice: the flagship RNN model (bench.py widths: vocabulary 30000,
    embeddings 512, BiGRU 512, attention 512, conditional-GRU decoder)
    with random seeded weights decodes 128 synthetic sentences greedily
@@ -101,8 +105,9 @@ queued behind a spin kernel (``call_ms`` times one call of the wrapper
 alone, with its host cost).
 
 Every phase prints its seconds. Standard output holds the launch plans
-of the redesigned kernels (``lstm_scan``, ``lstm_bptt``,
-``fused_xent_bwd_dx``, the flash forward and backward) as one JSON line, the card's name and power limit, a JSON object of the
+of the redesigned kernels (``lstm_scan``, ``lstm_bptt``, ``gru_bptt``,
+``fused_xent_bwd_dx`` and ``_dw``, the flash forward and backward) as
+one JSON line, the card's name and power limit, a JSON object of the
 phases' results, then, on the line before the last, a JSON object with
 one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -448,7 +453,7 @@ def check_train_kernels(device, randn, lengths_mask, record):
     """The training path's kernels against their plain versions."""
     import torch
 
-    from neuralmonkey_tpu_torch.ops import cuda_rnn, fused_xent
+    from neuralmonkey_tpu_torch.ops import cuda_rnn, fused_xent, nn
 
     # BPTT: the encoder's BiGRU at bench widths, and a ragged odd shape;
     # the gradients grow through the reverse steps, so the error is
@@ -467,15 +472,25 @@ def check_train_kernels(device, randn, lengths_mask, record):
         got = cuda_rnn.gru_bptt(*args, 2)
         ref = cuda_rnn.gru_bptt_reference(*args, [False, True])
         scale = max(1.0, float(ref.abs().max()))
-        timing = ((time_ms(lambda: cuda_rnn.gru_bptt(*args, 2)),
-                   time_ms(lambda: cuda_rnn.gru_bptt_reference(
-                       *args, [False, True]))) if timed else ())
+        timing = {}
+        if timed:
+            # no one PyTorch call computes it: cuDNN's GRU (nn.GRU) applies
+            # r after the recurrent product, the TF1 GRU before it. Like for
+            # like: the whole GRU backward, the port's against the plain
+            # scan's
+            timing = dict(
+                ms=time_ms(lambda: cuda_rnn.gru_bptt(*args, 2)),
+                plain_ms=time_ms(lambda: cuda_rnn.gru_bptt_reference(
+                    *args, [False, True])),
+                call=lambda: cuda_rnn.gru_bptt(*args, 2),
+                **gru_backward_times(cuda_rnn, nn, device, batch, time_, EMB,
+                                     hidden))
         work = (2 * batch * time_ * (12 * hidden * hidden + 20 * hidden),
                 4 * (2 * batch * time_ * 6 * hidden + batch * time_
                      + 2 * batch * time_ * 2 * hidden + batch * 2 * hidden
                      + 2 * 3 * hidden * hidden))
         record("gru_bptt", max_err(got, ref) / scale, 1e-4,
-               (batch, time_, hidden), *timing, work=work)
+               (batch, time_, hidden), work=work, **timing)
 
     # fused cross-entropy: the decoder's loss tail at bench widths (one
     # batch of 64 x 48 target tokens), both layouts and both label
@@ -532,9 +547,15 @@ def check_train_kernels(device, randn, lengths_mask, record):
                     1e-6, float(ref_dw.abs().max())),
                     max_err(db, ref_db) / max(
                         1e-6, float(ref_db.abs().max())))
+                # 3xTF32 on the tensor cores, as dx: the bound takes its
+                # three TF32 products at the TF32 peak; the f32 bound beside
+                dw_bytes = read + 8 * n + 4 * (d * v + v)
                 record("fused_xent_bwd_dw", err, 1e-4, case, *timing,
-                       work=(4 * n * d * v + 6 * n * v,
-                             read + 8 * n + 4 * (d * v + v)))
+                       work=(3 * 4 * n * d * v, dw_bytes), peak=TF32_PEAK,
+                       **({"bound_peak": "3xTF32 on the tensor cores, 495 "
+                           "TFLOP/s dense", "bound_f32_ms": bound(
+                               4 * n * d * v + 6 * n * v, dw_bytes)[0]}
+                          if timed else {}))
 
 
 def check_transformer_kernels(device, randn, lengths_mask, record):
@@ -743,6 +764,59 @@ def flash_backward_times(fa, q, k, v, g, mask, causal):
                                    + 4 * b * tk + 4 * b * h * tq)[0],
         "shape": [b, h, tq, tk, d, bool(causal)]}
     return times
+
+
+def gru_backward_times(cuda_rnn, nn, device, batch, time_, width, hidden):
+    """The whole GRU backward at the encoder's shape (a BiGRU over full
+    sources), in device ms: autograd through ``cuda_rnn.gru_scan``
+    (``gru_bptt``, the r recompute and the dW_gh and dW_ch products of
+    ``_GRUScan.backward``, and the hoisted input's backward: the
+    gradients of the inputs and of every GRU parameter;
+    ``whole_backward_ms``), and the same through the plain scan
+    (``whole_backward_plain_ms``), with the bound of that work (reading
+    the inputs, weights, mask, saved hoisted inputs and carries and the
+    output gradients once, writing the input and weight gradients
+    once). cuDNN's GRU computes another function (r after the recurrent
+    product), so there is no library row."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+    reverse = (False, True)
+    params = [{k: v.to(device) for k, v in
+               nn.GRUCell(width, hidden).init(gen).items()} for _ in reverse]
+    mask = torch.ones(batch, time_, device=device)
+    inputs = randn(batch, time_, width)
+
+    def leaves_of():
+        trees = [{k: v.clone().requires_grad_() for k, v in p.items()}
+                 for p in params]
+        x = inputs.clone().requires_grad_()
+        return trees, [x, *(t for tree in trees for t in tree.values())]
+    trees, leaves = leaves_of()
+    out, final = cuda_rnn.gru_scan(list(zip(trees, reverse)), leaves[0],
+                                   mask)
+    gout, gfinal = randn(*out.shape), randn(*final.shape)
+    p_trees, p_leaves = leaves_of()
+    x = cuda_rnn.hoisted_inputs(p_trees, p_leaves[0])
+    p_out, p_final, _ = cuda_rnn.gru_scan_reference(
+        x, mask, torch.stack([p["gates_h"] for p in p_trees]),
+        torch.stack([p["cand_h"] for p in p_trees]), reverse)
+    n_dirs, gates = len(reverse), len(reverse) * 3 * hidden
+    flops = (n_dirs * batch * time_ * (12 * hidden * hidden + 20 * hidden)
+             + 2 * batch * time_ * hidden * gates
+             + 4 * batch * time_ * width * gates)
+    nbytes = 4 * (2 * batch * time_ * width + 2 * (width + hidden + 1) * gates
+                  + batch * time_ + batch * time_ * gates
+                  + 2 * batch * time_ * n_dirs * hidden
+                  + batch * n_dirs * hidden)
+    return {
+        "whole_backward_ms": time_ms(lambda: torch.autograd.grad(
+            (out, final), leaves, (gout, gfinal), retain_graph=True)),
+        "whole_backward_plain_ms": time_ms(lambda: torch.autograd.grad(
+            (p_out, p_final), p_leaves, (gout, gfinal), retain_graph=True)),
+        "whole_backward_bound_ms": bound(flops, nbytes)[0]}
 
 
 def cudnn_lstm(params, reverse, forget_bias):
@@ -978,10 +1052,13 @@ def launch_plans():
                                              *limits)._asdict(),
         "lstm_bptt": cuda_rnn.lstm_bptt_plan(BATCH, RNN, 2,
                                              *limits)._asdict(),
-        "fused_xent_bwd_dx": {
-            k: v for k, v in fused_xent.dx_plan(
-                XENT_N, XENT_D, VOCAB, *limits)._asdict().items()
-            if k != "walks"},
+        "gru_bptt": cuda_rnn.gru_bptt_plan(BATCH, RNN, 2,
+                                           *limits)._asdict(),
+        **{name: {k: v for k, v in plan(
+            XENT_N, XENT_D, VOCAB, *limits)._asdict().items()
+            if k != "walks"} for name, plan in (
+                ("fused_xent_bwd_dx", fused_xent.dx_plan),
+                ("fused_xent_bwd_dw", fused_xent.dw_plan))},
         "flash_attention_fwd": {
             case: fa.flash_forward_plan(*shape[:5])._asdict()
             for case, shape in FLASH_SHAPES.items()},

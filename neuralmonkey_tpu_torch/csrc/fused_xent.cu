@@ -38,12 +38,21 @@
 //     ops/fused_xent.py `dx_plan`); a second small kernel sums the S partials
 //     of each entry in the fixed order 0 .. S-1 (with S = 1 the blocks write
 //     dx itself). No atomics: dx does not change from run to run.
-//   - xent_bwd_dw: one block per (vocab tile, 128 rows of D) walks all row tiles
-//     the same way on the CUDA cores (logit_tile.cuh) and accumulates x^T dl,
-//     and db for the first D block, in registers: sums run in one fixed order
-//     inside a block, with no atomics, so dW and db do not change from run to
-//     run. It recomputes each logit tile once per 128 rows of D; tc::dl_tile
-//     gives it the dl step with each logit tile computed once.
+//   - xent_bwd_dw: the same with the roles of rows and vocabulary swapped. A
+//     block owns a 128-column vocabulary tile and every row of D, and walks
+//     a contiguous chunk of the row tiles. For each row tile it computes the
+//     logit tile once and keeps dl in shared memory (tc::dl_tile, the same
+//     routine as dx's, with the dl rows of two row tiles one above the other:
+//     the B operand of x^T dl and the rows of db); for every two tiles it adds
+//     x^T dl to its partial dW 128 rows of D at a time, each 128 x 128 sum in
+//     the warps' registers (3xTF32 mma.sync, x^T staged by cp.async as
+//     [m][d] and read k-major), added into the block's own columns of dW, or
+//     of an (S, dW) scratch when the rows are cut into S chunks (the plan:
+//     ops/fused_xent.py `dw_plan`; a fold sums the S planes in the order
+//     0 .. S-1). db sums the block's columns of dl in one fixed row order. So
+//     each logit tile is computed once, where the first design recomputed it
+//     once per 128 rows of D on the CUDA cores; no atomics: dW and db do not
+//     change from run to run.
 #include <algorithm>
 
 #include "logit_tile.cuh"
@@ -52,8 +61,6 @@ namespace {
 
 using nm::kThreadM;
 using nm::kThreadN;
-using nm::kTileK;
-using nm::kTileLd;
 using nm::kTileM;
 using nm::kTileN;
 using nm::kTileThreads;
@@ -143,38 +150,8 @@ __global__ void xent_fold_kernel(const float* __restrict__ pmax, const float* __
   }
 }
 
-// acc <- dl of the logit tile (rows m0.., columns n0..) held in acc, zero
-// outside the N x V range
-__device__ __forceinline__ void tile_dlogits(float (&acc)[kThreadM][kThreadN],
-                                             const float* __restrict__ bias,
-                                             const int* __restrict__ targets,
-                                             const float* __restrict__ lse,
-                                             const float* __restrict__ g, int N, int V,
-                                             int m0, int n0, float eps) {
-  const int tr = nm::tile_row(), tc = nm::tile_col();
-#pragma unroll
-  for (int i = 0; i < kThreadM; ++i) {
-    const int gm = m0 + tr * kThreadM + i;
-    const bool row_ok = gm < N;
-    const int target = row_ok ? targets[gm] : -1;
-    const float l = row_ok ? lse[gm] : 0.f;
-    const float gr = row_ok ? g[gm] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kThreadN; ++j) {
-      const int gn = n0 + tc + 16 * j;
-      float d = 0.f;
-      if (row_ok && gn < V) {
-        d = expf(acc[i][j] + bias[gn] - l) - (gn == target ? 1.0f - eps : 0.f);
-        if (eps != 0.f) d -= eps / V;
-        d *= gr;
-      }
-      acc[i][j] = d;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// xent_bwd_dx on the tensor cores. Every float32 product a * b is taken as
+// The backward on the tensor cores. Every float32 product a * b is taken as
 // three TF32 products, a_lo b_hi + a_hi b_lo + a_hi b_hi, with a_hi = tf32(a)
 // and a_lo = tf32(a - a_hi) (3xTF32: the dropped a_lo b_lo is below float32's
 // rounding), by mma.sync m16n8k8, so the sums keep float32 accuracy.
@@ -188,8 +165,12 @@ constexpr int kLdN = kN + 8;     // a [k][n] operand: rows of 128 along n
 constexpr int kOperand = kN * kLdK > kKC * kLdN ? kN * kLdK : kKC * kLdN;
 constexpr int kStage = kM * kLdK + kOperand;  // x (or nothing) and a W tile
 constexpr int kPair = 2;         // vocabulary tiles whose dl is added in one pass
-constexpr int kLdDl = kPair * kN + 4;  // dl[m][v] of both tiles
+constexpr int kLdDl = kPair * kN + 4;  // dx: dl[m][v] of both tiles side by side
 constexpr size_t kSmem = sizeof(float) * (2 * kStage + kM * kLdDl);
+// dW: dl[m][v] of two row tiles, one above the other; a row stride of 8 mod
+// 32 puts the B operand's [k][n] reads in distinct banks
+constexpr int kLdDlW = kN + 8;
+constexpr size_t kSmemW = sizeof(float) * (2 * kStage + kPair * kM * kLdDlW);
 constexpr int kThreads = 256;    // 8 warps as 2 x 4, each a 64 x 32 warp tile
 
 // v = hi + lo: hi is v rounded to TF32's 10 mantissa bits (integer operations:
@@ -232,9 +213,10 @@ __device__ __forceinline__ void load(float* dst, int ld, const float* __restrict
 }
 
 // acc += A B over one stage of `kc` (a multiple of 8) depths for this warp's
-// 64 x 32 tile: A row-major (a[m][k], row stride lda), B stored [n][k] (row
-// stride kLdK) when kBNMajor, else [k][n] (row stride kLdN).
-template <bool kBNMajor>
+// 64 x 32 tile: A row-major (a[m][k], row stride lda), or stored [k][m] (row
+// stride lda) when kAKMajor; B stored [n][k] (row stride kLdK) when kBNMajor,
+// else [k][n] (row stride kLdB).
+template <bool kBNMajor, bool kAKMajor = false, int kLdB = kLdN>
 __device__ __forceinline__ void warp_product(const float* a, int lda, const float* b, int kc,
                                              float (&acc)[4][4][4]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -244,18 +226,26 @@ __device__ __forceinline__ void warp_product(const float* a, int lda, const floa
     unsigned ah[4][4], al[4][4];
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
-      const float* ar = a + (wm + mi * 16 + g) * lda + k + t;
-      split(ar[0], ah[mi][0], al[mi][0]);
-      split(ar[8 * lda], ah[mi][1], al[mi][1]);
-      split(ar[4], ah[mi][2], al[mi][2]);
-      split(ar[8 * lda + 4], ah[mi][3], al[mi][3]);
+      if (kAKMajor) {
+        const float* ac = a + (k + t) * lda + wm + mi * 16 + g;
+        split(ac[0], ah[mi][0], al[mi][0]);
+        split(ac[8], ah[mi][1], al[mi][1]);
+        split(ac[4 * lda], ah[mi][2], al[mi][2]);
+        split(ac[4 * lda + 8], ah[mi][3], al[mi][3]);
+      } else {
+        const float* ar = a + (wm + mi * 16 + g) * lda + k + t;
+        split(ar[0], ah[mi][0], al[mi][0]);
+        split(ar[8 * lda], ah[mi][1], al[mi][1]);
+        split(ar[4], ah[mi][2], al[mi][2]);
+        split(ar[8 * lda + 4], ah[mi][3], al[mi][3]);
+      }
     }
     unsigned bh[4][2], bl[4][2];
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int n = wn + ni * 8 + g;
-      split(kBNMajor ? b[n * kLdK + k + t] : b[(k + t) * kLdN + n], bh[ni][0], bl[ni][0]);
-      split(kBNMajor ? b[n * kLdK + k + t + 4] : b[(k + t + 4) * kLdN + n], bh[ni][1],
+      split(kBNMajor ? b[n * kLdK + k + t] : b[(k + t) * kLdB + n], bh[ni][0], bl[ni][0]);
+      split(kBNMajor ? b[n * kLdK + k + t + 4] : b[(k + t + 4) * kLdB + n], bh[ni][1],
             bl[ni][1]);
     }
     // the small terms first; each pass walks all 16 sums, so that
@@ -278,11 +268,10 @@ __device__ __forceinline__ void warp_product(const float* a, int lda, const floa
 // The dl step of the backward: the logit tile t = x W (rows m0.., vocabulary
 // columns n0..) computed once on the tensor cores over depth D, in double-
 // buffered stages, turned into dl = g (softmax - (1 - eps) onehot - eps / V)
-// (tile_dlogits' arithmetic, zero outside N x V) and stored as dls[m][v]
-// (row stride kLdDl): the A operand of dl W^T here, and the B operand of
-// x^T dl for dW. `stages` is free on return; `dls` is complete after the
-// caller's next __syncthreads().
-template <bool kWT>
+// (zero outside N x V) and stored as dls[m][v] (row stride kLd): the A
+// operand of dl W^T for dx, and the B operand of x^T dl for dW. `stages` is
+// free on return; `dls` is complete after the caller's next __syncthreads().
+template <bool kWT, int kLd = kLdDl>
 __device__ __forceinline__ void dl_tile(const float* __restrict__ x, const float* __restrict__ w,
                                         const float* __restrict__ bias,
                                         const int* __restrict__ targets,
@@ -338,7 +327,7 @@ __device__ __forceinline__ void dl_tile(const float* __restrict__ x, const float
             if (eps != 0.f) d -= eps / V;
             d *= gr;
           }
-          dls[row * kLdDl + col] = d;
+          dls[row * kLd + col] = d;
         }
     }
 }
@@ -425,91 +414,103 @@ __device__ __forceinline__ void xent_bwd_dx(const float* __restrict__ x,
   }
 }
 
-}  // namespace tc
-
-// dW for vocabulary tile n0 .. n0 + 128 and rows d0 .. d0 + 128 of D; db too
-// when d0 == 0
+// The partial dW of vocabulary columns n0 .. n0 + 128 over row tiles t0 ..
+// t1, every row of D, into `part` (dW's layout), and the same columns of db
+// into `pdb`: each logit tile computed once (dl_tile), two row tiles' dl one
+// above the other, then x^T dl over both added to the block's own columns of
+// `part`, 128 rows of D at a time, each 128 x 128 sum in the warps'
+// registers, started at 0 by the chunk's first pair and from the partial
+// (loaded before the products) by the later ones: one read and one write of
+// the partial for every two tiles. db sums the block's columns of dl in one
+// fixed row order.
 template <bool kWT>
 __device__ __forceinline__ void xent_bwd_dw(const float* __restrict__ x,
                                             const float* __restrict__ w,
                                             const float* __restrict__ bias,
                                             const int* __restrict__ targets,
                                             const float* __restrict__ lse,
-                                            const float* __restrict__ g, float* __restrict__ dw,
-                                            float* __restrict__ db, int N, int D, int V,
-                                            float eps, float* smem) {
-  TileStage& st = *reinterpret_cast<TileStage*>(smem);
-  float(*dl)[kTileLd] = reinterpret_cast<float(*)[kTileLd]>(smem + sizeof(TileStage) / 4);
-  const int tid = threadIdx.x;
-  const int tr = nm::tile_row(), tc = nm::tile_col();
-  const int n0 = blockIdx.x * kTileN;
-  const int d0 = blockIdx.y * kTileM;
-
-  float out[kThreadM][kThreadN];  // dW(d0 + tr * 8 + i, n0 + tc + 16 j)
-  nm::zero(out);
-  float bsum = 0.f;  // db[n0 + tid] for tid < 128
-  float acc[kThreadM][kThreadN];
-  for (int m0 = 0; m0 < N; m0 += kTileM) {
-    nm::logit_tile<kWT>(x, w, N, D, V, m0, n0, st, acc);
-    tile_dlogits(acc, bias, targets, lse, g, N, V, m0, n0, eps);
-    // dl[m][v], the B operand of x^T dl
+                                            const float* __restrict__ g,
+                                            float* __restrict__ part, float* __restrict__ pdb,
+                                            int N, int D, int V, int t0, int t1, float eps,
+                                            bool vec, float* smem) {
+  float* stages = smem;
+  float* dls = smem + 2 * kStage;
+  const int n0 = blockIdx.x * kN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
+  const int passes = (D + kM - 1) / kM;
+  // db: thread (half, col) sums column col of the pair's tile `half`
+  const int col = threadIdx.x % kN, half = threadIdx.x / kN;
+  float bsum = 0.f;
+  // stage s of pass chunk i: x(m0 + k0 .., d0 ..) as A = x^T, [k = m][m = d]
+  auto stage_in = [&](int s, int i, int m0, int mchunks) {
+    const int d0 = (i / mchunks) * kM, k0 = m0 + (i % mchunks) * kKC;
+    // rows past N are zero-filled; their source stays inside x
+    load(stages + s * kStage, kLdN, k0 < N ? x + static_cast<size_t>(k0) * D + d0 : x, D, kKC,
+         kM, N - k0, D - d0, vec);
+  };
+  for (int tile = t0; tile < t1; tile += kPair) {
+    const int m0 = tile * kM, pair = min(kPair, t1 - tile);
+    for (int h = 0; h < pair; ++h)
+      dl_tile<kWT, kLdDlW>(x, w, bias, targets, lse, g, N, D, V, m0 + h * kM, n0, eps, vec,
+                           stages, dls + h * kM * kLdDlW);
+    const int mchunks = pair * (kM / kKC);
+    const int chunks = passes * mchunks;
+    stage_in(0, 0, m0, mchunks);
+    float out[4][4][4];
+    for (int i = 0; i < chunks; ++i) {
+      const int d0 = (i / mchunks) * kM, k0 = (i % mchunks) * kKC;
+      if (k0 == 0) {
 #pragma unroll
-    for (int i = 0; i < kThreadM; ++i)
+        for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int j = 0; j < kThreadN; ++j) dl[tr * kThreadM + i][tc + 16 * j] = acc[i][j];
-    __syncthreads();
-    if (d0 == 0 && tid < kTileN)
-      for (int m = 0; m < kTileM; ++m) bsum += dl[m][tid];
-    for (int k0 = 0; k0 < kTileM; k0 += kTileK) {
-      // st.a[k][d] = x[m0 + k0 + k][d0 + d], coalesced along d
+          for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int q = 0; q < kTileK * kTileM / kTileThreads; ++q) {
-        const int e = tid + q * kTileThreads;
-        const int k = e / kTileM, d = e % kTileM;
-        const int gm = m0 + k0 + k, gd = d0 + d;
-        st.a[k][d] = (gm < N && gd < D) ? x[static_cast<size_t>(gm) * D + gd] : 0.f;
+            for (int e = 0; e < 4; ++e) {
+              const int gd = d0 + wm + mi * 16 + lane / 4 + 8 * (e / 2);
+              const int gn = n0 + wn + ni * 8 + 2 * (lane % 4) + e % 2;
+              out[mi][ni][e] =
+                  (tile == t0 || gd >= D || gn >= V)
+                      ? 0.f
+                      : part[kWT ? static_cast<size_t>(gn) * D + gd
+                                 : static_cast<size_t>(gd) * V + gn];
+            }
       }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kTileK; ++k) {
-        float av[kThreadM];
-#pragma unroll
-        for (int i = 0; i < kThreadM; i += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(&st.a[k][tr * kThreadM + i]);
-          av[i] = a.x;
-          av[i + 1] = a.y;
-          av[i + 2] = a.z;
-          av[i + 3] = a.w;
-        }
-#pragma unroll
-        for (int i = 0; i < kThreadM; ++i)
-#pragma unroll
-          for (int j = 0; j < kThreadN; ++j)
-            out[i][j] = fmaf(av[i], dl[k0 + k][tc + 16 * j], out[i][j]);
+      if (i + 1 < chunks) {
+        stage_in((i + 1) & 1, i + 1, m0, mchunks);
+        nm::cp_async_wait<1>();
+      } else {
+        nm::cp_async_wait<0>();
       }
+      __syncthreads();  // the stage, and at i = 0 dl, complete
+      if (i == 0 && half < pair)
+        for (int m = 0; m < kM; ++m) bsum += dls[(half * kM + m) * kLdDlW + col];
+      warp_product<false, true, kLdDlW>(stages + (i & 1) * kStage, kLdN, dls + k0 * kLdDlW, kKC,
+                                        out);
       __syncthreads();
+      if (k0 + kKC == pair * kM) {
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int gd = d0 + wm + mi * 16 + lane / 4 + 8 * (e / 2);
+              const int gn = n0 + wn + ni * 8 + 2 * (lane % 4) + e % 2;
+              if (gd < D && gn < V)
+                part[kWT ? static_cast<size_t>(gn) * D + gd : static_cast<size_t>(gd) * V + gn] =
+                    out[mi][ni][e];
+            }
+      }
     }
   }
-#pragma unroll
-  for (int i = 0; i < kThreadM; ++i) {
-    const int gd = d0 + tr * kThreadM + i;
-    if (gd >= D) continue;
-#pragma unroll
-    for (int j = 0; j < kThreadN; ++j) {
-      const int gn = n0 + tc + 16 * j;
-      if (gn >= V) continue;
-      if (kWT)
-        dw[static_cast<size_t>(gn) * D + gd] = out[i][j];
-      else
-        dw[static_cast<size_t>(gd) * V + gn] = out[i][j];
-    }
-  }
-  if (d0 == 0 && tid < kTileN && n0 + tid < V) db[n0 + tid] = bsum;
+  // db: the first tiles' sums, then the second tiles'
+  if (half == 1) stages[col] = bsum;
+  __syncthreads();
+  if (half == 0 && n0 + col < V) pdb[n0 + col] = bsum + stages[col];
 }
 
-// the backward kernels keep one stage and a 128 x 132 dl tile in dynamic
-// shared memory (84 KB)
-constexpr size_t kBwdSmem = sizeof(TileStage) + sizeof(float) * kTileN * kTileLd;
+}  // namespace tc
 
 // grid (row tiles, S): block (r, s) walks vocabulary tiles s * tiles_per_chunk ..
 // into plane s of `part` (S, N, D)
@@ -533,35 +534,54 @@ xent_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
     tc::xent_bwd_dx<false>(x, w, bias, targets, lse, g, p, N, D, V, t0, t1, eps, vec, smem);
 }
 
-// dx = the sum of the S partials (S, count), in the order 0 .. S-1
-__global__ void xent_dx_fold_kernel(const float* __restrict__ part, float* __restrict__ dx,
-                                    size_t count, int S) {
+// grid (vocabulary tiles, S): block (c, s) walks row tiles s * tiles_per_chunk ..
+// into plane s of `part` (S, dW) and of `pdb` (S, V)
+__global__ void __launch_bounds__(tc::kThreads, 1)
+xent_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, const int* __restrict__ targets,
+                   const float* __restrict__ lse, const float* __restrict__ g,
+                   float* __restrict__ part, float* __restrict__ pdb, int N, int D, int V,
+                   int transposed, int tiles_per_chunk, float eps) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int R = (N + tc::kM - 1) / tc::kM;
+  const int t0 = blockIdx.y * tiles_per_chunk, t1 = min(R, t0 + tiles_per_chunk);
+  float* p = part + static_cast<size_t>(blockIdx.y) * D * V;
+  float* pb = pdb + static_cast<size_t>(blockIdx.y) * V;
+  const bool vec = (D & 3) == 0 && (transposed || (V & 3) == 0) &&
+                   ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15) == 0;
+  if (transposed)
+    tc::xent_bwd_dw<true>(x, w, bias, targets, lse, g, p, pb, N, D, V, t0, t1, eps, vec, smem);
+  else
+    tc::xent_bwd_dw<false>(x, w, bias, targets, lse, g, p, pb, N, D, V, t0, t1, eps, vec, smem);
+}
+
+// out = the sum of the S partials (S, count), in the order 0 .. S-1
+__global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ out, size_t count,
+                            int S) {
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < count;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float sum = part[i];
     for (int s = 1; s < S; ++s) sum += part[s * count + i];
-    dx[i] = sum;
+    out[i] = sum;
   }
 }
 
-__global__ void __launch_bounds__(kTileThreads)
-xent_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, const int* __restrict__ targets,
-                   const float* __restrict__ lse, const float* __restrict__ g,
-                   float* __restrict__ dw, float* __restrict__ db, int N, int D, int V,
-                   int transposed, float eps) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  if (transposed)
-    xent_bwd_dw<true>(x, w, bias, targets, lse, g, dw, db, N, D, V, eps, smem);
-  else
-    xent_bwd_dw<false>(x, w, bias, targets, lse, g, dw, db, N, D, V, eps, smem);
+int fold(const float* part, float* out, size_t count, int S, cudaStream_t stream) {
+  constexpr int kFoldThreads = 256;
+  const int blocks = static_cast<int>(std::min<size_t>((count + kFoldThreads - 1) / kFoldThreads,
+                                                       size_t{1} << 16));
+  fold_kernel<<<blocks, kFoldThreads, 0, stream>>>(part, out, count, S);
+  return nm::launch_status();
 }
 
-template <typename Kernel>
-int allow_smem(Kernel kernel) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kBwdSmem)));
+// the shapes and the chunking of the vocabulary (dx) or rows (dW): S chunks
+// of tiles_per_chunk tiles cover the R tiles, none empty
+bool bad_chunks(int N, int D, int V, int R, int splits, int tiles_per_chunk,
+                const void* scratch) {
+  return N < 1 || D < 1 || V < 1 || splits < 1 || tiles_per_chunk < 1 ||
+         (splits - 1) * tiles_per_chunk >= R || splits * tiles_per_chunk < R ||
+         (splits > 1 && scratch == nullptr);
 }
 
 }  // namespace
@@ -591,10 +611,7 @@ NM_EXPORT int nm_xent_bwd_dx(const void* x, const void* w, const void* bias, con
                              const void* lse, const void* g, void* dx, void* scratch, int N, int D,
                              int V, int transposed, int splits, int tiles_per_chunk, float eps,
                              void* stream) {
-  const int R = (V + tc::kN - 1) / tc::kN;
-  if (N < 1 || D < 1 || V < 1 || splits < 1 || tiles_per_chunk < 1 ||
-      (splits - 1) * tiles_per_chunk >= R || splits * tiles_per_chunk < R ||
-      (splits > 1 && scratch == nullptr))
+  if (bad_chunks(N, D, V, (V + tc::kN - 1) / tc::kN, splits, tiles_per_chunk, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = static_cast<int>(cudaFuncSetAttribute(
       xent_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -611,25 +628,33 @@ NM_EXPORT int nm_xent_bwd_dx(const void* x, const void* w, const void* bias, con
       tiles_per_chunk, eps);
   const int status = nm::launch_status();
   if (status != 0 || splits == 1) return status;
-  const size_t count = static_cast<size_t>(N) * D;
-  constexpr int kFoldThreads = 256;
-  const int blocks = static_cast<int>(std::min<size_t>((count + kFoldThreads - 1) / kFoldThreads,
-                                                       size_t{1} << 16));
-  xent_dx_fold_kernel<<<blocks, kFoldThreads, 0, s>>>(part, static_cast<float*>(dx), count,
-                                                      splits);
-  return nm::launch_status();
+  return fold(part, static_cast<float*>(dx), static_cast<size_t>(N) * D, splits, s);
 }
 
 NM_EXPORT int nm_xent_bwd_dw(const void* x, const void* w, const void* bias, const void* targets,
-                             const void* lse, const void* g, void* dw, void* db, int N, int D,
-                             int V, int transposed, float eps, void* stream) {
-  const int err = allow_smem(xent_bwd_dw_kernel);
+                             const void* lse, const void* g, void* dw, void* db, void* scratch,
+                             void* db_scratch, int N, int D, int V, int transposed, int splits,
+                             int tiles_per_chunk, float eps, void* stream) {
+  if (bad_chunks(N, D, V, (N + tc::kM - 1) / tc::kM, splits, tiles_per_chunk, scratch) ||
+      (splits > 1 && db_scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      xent_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(tc::kSmemW)));
   if (err != 0) return err;
-  const dim3 grid((V + kTileN - 1) / kTileN, (D + kTileM - 1) / kTileM);
-  xent_bwd_dw_kernel<<<grid, kTileThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // with one chunk the blocks write dW and db themselves
+  float* part = splits > 1 ? static_cast<float*>(scratch) : static_cast<float*>(dw);
+  float* pdb = splits > 1 ? static_cast<float*>(db_scratch) : static_cast<float*>(db);
+  const dim3 grid((V + tc::kN - 1) / tc::kN, splits);
+  xent_bwd_dw_kernel<<<grid, tc::kThreads, tc::kSmemW, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(targets),
-      static_cast<const float*>(lse), static_cast<const float*>(g), static_cast<float*>(dw),
-      static_cast<float*>(db), N, D, V, transposed, eps);
-  return nm::launch_status();
+      static_cast<const float*>(lse), static_cast<const float*>(g), part, pdb, N, D, V,
+      transposed, tiles_per_chunk, eps);
+  int status = nm::launch_status();
+  if (status != 0 || splits == 1) return status;
+  status = fold(part, static_cast<float*>(dw), static_cast<size_t>(D) * V, splits, s);
+  if (status != 0) return status;
+  return fold(pdb, static_cast<float*>(db), static_cast<size_t>(V), splits, s);
 }

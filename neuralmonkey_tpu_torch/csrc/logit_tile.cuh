@@ -2,9 +2,11 @@
 //
 // Shared by K3 (beam_select.cu) and the fused cross-entropy kernels
 // (fused_xent.cu), which all compute their logits tile by tile in registers
-// and fold reductions into the tile's epilogue. A block of 256 threads owns the
-// tile; thread (tr, tc) = (tid / 16, tid % 16) accumulates rows tr * 8 .. + 8
-// and columns tc + 16 j, j < 8, so one shared-memory read feeds eight FMAs.
+// and fold reductions into the tile's epilogue; the GRU BPTT's prologue
+// (gru_bptt.cu) computes the gates of every step with logit_tile_rows. A
+// block of 256 threads owns the tile; thread (tr, tc) = (tid / 16, tid % 16)
+// accumulates rows tr * 8 .. + 8 and columns tc + 16 j, j < 8, so one
+// shared-memory read feeds eight FMAs.
 // The 16 threads that share tr are 16 consecutive lanes of one warp: a row's
 // reduction over the tile is a shuffle over 16 lanes (row_reduce_*).
 #pragma once
@@ -69,6 +71,57 @@ __device__ __forceinline__ void logit_tile(const float* __restrict__ x,
       if (gk < K && gn < V)
         v = kWTransposed ? w[static_cast<size_t>(gn) * K + gk] : w[static_cast<size_t>(gk) * V + gn];
       st.b[k][n] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kTileK; ++k) {
+      float av[kThreadM];
+#pragma unroll
+      for (int i = 0; i < kThreadM; i += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(&st.a[k][tr * kThreadM + i]);
+        av[i] = a.x;
+        av[i + 1] = a.y;
+        av[i + 2] = a.z;
+        av[i + 3] = a.w;
+      }
+      float bv[kThreadN];
+#pragma unroll
+      for (int j = 0; j < kThreadN; ++j) bv[j] = st.b[k][tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kThreadM; ++i)
+#pragma unroll
+        for (int j = 0; j < kThreadN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// logit_tile's product (W row-major) for x with rows ldx floats apart, which
+// this launch wrote earlier: x is read through L2 (__ldcg), never the
+// read-only path. Ends with a __syncthreads(). Kept apart from logit_tile:
+// one template for both changed the code K3 and xent_fwd compile to (K3 5%
+// slower on the H100).
+__device__ __forceinline__ void logit_tile_rows(const float* x, size_t ldx,
+                                                const float* __restrict__ w, int N, int K,
+                                                int V, int m0, int n0, TileStage& st,
+                                                float (&acc)[kThreadM][kThreadN]) {
+  const int tid = threadIdx.x;
+  const int tr = tile_row(), tc = tile_col();
+  zero(acc);
+  for (int k0 = 0; k0 < K; k0 += kTileK) {
+#pragma unroll
+    for (int q = 0; q < kTileM * kTileK / kTileThreads; ++q) {
+      const int e = tid + q * kTileThreads;
+      const int m = e / kTileK, k = e % kTileK;
+      const int gm = m0 + m, gk = k0 + k;
+      st.a[k][m] = (gm < N && gk < K) ? __ldcg(x + gm * ldx + gk) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kTileK * kTileN / kTileThreads; ++q) {
+      const int e = tid + q * kTileThreads;
+      const int k = e / kTileN, n = e % kTileN;
+      const int gk = k0 + k, gn = n0 + n;
+      st.b[k][n] = (gk < K && gn < V) ? w[static_cast<size_t>(gk) * V + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll

@@ -35,8 +35,6 @@ from .nn import Params
 # (rows, H rounded up to 4) f32 tiles, up to an H100 SM's 227 KiB
 _KERNEL_ROWS = 1
 _SHARED_BYTES = 227 * 1024
-# csrc/gru_bptt.cu keeps eight H-wide f32 vectors of one row in shared memory
-_BPTT_VECTORS = 8
 # the LSTM kernels (csrc/lstm_scan.cu, csrc/lstm_bptt.cu) are column-split:
 # each block keeps a column slice of W_h, whole or in k tiles, beside a tile
 # of h rows, so their plans (``lstm_scan_plan``, ``lstm_bptt_plan``) lay out
@@ -44,6 +42,11 @@ _BPTT_VECTORS = 8
 # sums; the LSTM path takes H up to the size of seven such rows, the bound
 # the card tests reach (H 8300)
 _LSTM_VECTORS = 7
+# csrc/gru_bptt.cu keeps a column slice of W_gh and W_ch, whole or in k
+# tiles, beside a few values of each batch row, so its plan
+# (``gru_bptt_plan``) lays out far larger H; the GRU path takes H up to the
+# bound of the kernel's first design, which the card tests reach
+_GRU_BPTT_MAX_HIDDEN = 7264
 
 
 def scan_fits(hidden: int) -> bool:
@@ -53,8 +56,8 @@ def scan_fits(hidden: int) -> bool:
 
 
 def bptt_fits(hidden: int) -> bool:
-    """The same for the BPTT kernel (H <= 7264)."""
-    return _BPTT_VECTORS * -(-hidden // 4) * 4 * 4 <= _SHARED_BYTES
+    """Whether the GRU BPTT kernel takes this hidden size (H <= 7264)."""
+    return hidden <= _GRU_BPTT_MAX_HIDDEN
 
 
 def lstm_scan_fits(hidden: int) -> bool:
@@ -158,6 +161,67 @@ def lstm_bptt_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
     return _column_split_plan("lstm_bptt", batch, hidden, n_dirs, sm_count,
                               smem_limit, lstm_bptt_slice_stride)
 
+
+# csrc/gru_bptt.cu's prologue tile stage (logit_tile.cuh): two 16 x 132 f32
+# tiles, in the slice's place before the slice is loaded
+_GRU_TILE_STAGE_FLOATS = 2 * 16 * 132
+
+
+class GRUBpttPlan(NamedTuple):
+    """The launch of ``gru_bptt``: ``blocks_per_dir`` blocks for each
+    direction, over which the prologue's GEMM tiles are spread and each
+    of which owns ``units`` hidden units (a multiple of 4; the last block
+    of a direction may own fewer); the slice of those units' three gate
+    columns in shared memory, transposed, ``k_tile`` depths at a time (all
+    of it, ``resident``, when ``k_tile`` covers H rounded up to 4), beside
+    ``rows`` batch rows of a step's dr, du·u(1−u), dxc and mask;
+    ``smem_bytes`` of shared memory per block."""
+    blocks_per_dir: int
+    units: int
+    rows: int
+    k_tile: int
+    smem_bytes: int
+    resident: bool
+
+
+def gru_bptt_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
+                  smem_limit: int) -> GRUBpttPlan:
+    """The layout of the persistent GRU BPTT (csrc/gru_bptt.cu) on a card
+    of ``sm_count`` SMs with ``smem_limit`` bytes of shared memory a
+    block: at most one block per SM, every block resident (the launch is
+    cooperative). The slice (3U floats a depth) stays in shared memory
+    whenever it fits beside at least min(B, 16) rows;
+    otherwise the partial products stream it in the largest k tiles that
+    leave room for those rows. Raises ``ValueError`` where no layout
+    fits."""
+    if min(batch, hidden, n_dirs, sm_count) < 1 or sm_count < n_dirs:
+        raise ValueError(f"gru_bptt: no plan for B {batch}, H {hidden}, "
+                         f"{n_dirs} directions on {sm_count} SMs")
+    units = -(-hidden // (sm_count // n_dirs))
+    units = -(-units // 4) * 4
+    blocks = -(-hidden // units)
+    w_row = 3 * units
+    h4 = -(-hidden // 4) * 4
+    row_floats = 3 * units + 1  # dr, du·u(1−u), dxc and the mask
+    free = smem_limit // 4
+
+    def rows_for(k_tile: int) -> int:
+        left = free - max(k_tile * w_row, _GRU_TILE_STAGE_FLOATS)
+        rows = min(batch, left // row_floats)
+        return rows if rows >= batch or rows < 4 else rows // 4 * 4
+
+    k_tile = h4
+    resident = rows_for(h4) >= min(batch, 16)
+    if not resident:
+        fit = (free - min(batch, 16) * row_floats) // w_row
+        k_tile = min(h4, max(4, fit // 4 * 4))
+    rows = rows_for(k_tile)
+    if rows < 1:
+        raise ValueError(f"gru_bptt: B {batch}, H {hidden} does not fit "
+                         f"{smem_limit} bytes of shared memory")
+    smem = 4 * (max(k_tile * w_row, _GRU_TILE_STAGE_FLOATS)
+                + rows * row_floats)
+    return GRUBpttPlan(blocks, units, rows, k_tile, smem, resident)
 
 
 def hoisted_inputs(directions: Sequence[Params],
@@ -270,8 +334,9 @@ def gru_bptt_reference(x: torch.Tensor, mask: torch.Tensor,
 def gru_bptt(x: torch.Tensor, mask: torch.Tensor, hprev: torch.Tensor,
              gout: torch.Tensor, gfinal: torch.Tensor, wgh: torch.Tensor,
              wch: torch.Tensor, reverse_mask: int) -> torch.Tensor:
-    """The BPTT's serial pass: launches ``gru_bptt`` for CUDA tensors,
-    runs the plain version otherwise."""
+    """The BPTT's serial pass: one cooperative launch of ``gru_bptt``,
+    laid out by :func:`gru_bptt_plan`, for CUDA tensors; the plain
+    version otherwise."""
     n_dirs, hidden, _ = wch.shape
     if not x.is_cuda:
         return gru_bptt_reference(x, mask, hprev, gout, gfinal, wgh, wch,
@@ -281,15 +346,23 @@ def gru_bptt(x: torch.Tensor, mask: torch.Tensor, hprev: torch.Tensor,
                          "the kernel's shared memory")
     batch, time, _ = x.shape
     gout, gfinal = gout.contiguous(), gfinal.contiguous()
-    wght = wgh.transpose(1, 2).contiguous()
-    wcht = wch.transpose(1, 2).contiguous()
     kernel_config.check_cuda_inputs(
         "gru_bptt", x=x, mask=mask, hprev=hprev, gout=gout,
-        gfinal=gfinal, wgh=wgh, wch=wch, wght=wght, wcht=wcht)
+        gfinal=gfinal, wgh=wgh, wch=wch)
+    plan = gru_bptt_plan(batch, hidden, n_dirs,
+                         *kernel_config.tensor_device_limits(x))
     dx = torch.empty_like(x)
+    # r, u, c and r·h_prev of every step (the prologue's), the partials of
+    # dxc·W_chᵀ and of dxg·W_ghᵀ, and the direct part of the carried dh,
+    # all written before they are read; the barrier words at 0
+    gates = x.new_empty(4, batch, time, n_dirs * hidden)
+    partial = x.new_empty(2, n_dirs, plan.blocks_per_dir, batch, hidden)
+    carry = x.new_empty(n_dirs, batch, hidden)
+    sync = torch.zeros(n_dirs, 2, dtype=torch.int32, device=x.device)
     kernel_config.launch("gru_bptt", x, mask, hprev, gout, gfinal, wgh,
-                         wch, wght, wcht, dx, batch, time, hidden, n_dirs,
-                         reverse_mask)
+                         wch, dx, gates, partial, carry, sync, batch, time,
+                         hidden, n_dirs, reverse_mask, plan.blocks_per_dir,
+                         plan.units, plan.rows, plan.k_tile, plan.smem_bytes)
     return dx
 
 

@@ -8,7 +8,8 @@ without writing the (N, V) logits to memory: the forward folds the
 log-sum-exp, the label logit and the real-vocabulary logit sum into the
 logit tiles, and the backward recomputes the tiles and folds
 ``dl = g·(softmax − (1−ε)·onehot − ε/V)`` into ``dx = dl·Wᵀ``,
-``dW = xᵀ·dl`` and ``db = Σ dl`` (``csrc/fused_xent.cu``).
+``dW = xᵀ·dl`` and ``db = Σ dl`` (``csrc/fused_xent.cu``), each logit
+tile computed once, on the tensor cores (3xTF32).
 
 Opt-in, as in the JAX package: the decoders take this path when
 ``NM_FUSED_XENT=1`` (:func:`eligible`), for every float32 shape; the
@@ -34,17 +35,22 @@ DX_SMEM_BYTES = 4 * (2 * (TILE * 36 + max(TILE * 36, 32 * 136))
                      + TILE * (2 * TILE + 4))
 # the dx grid aims at this many blocks for each SM, in waves
 DX_WAVES = 2
+# csrc/fused_xent.cu's dW kernel: dx's threads, sums and stages, and the dl
+# of two row tiles one above the other, 256 x 136
+DW_SMEM_BYTES = 4 * (2 * (TILE * 36 + max(TILE * 36, 32 * 136))
+                     + 2 * TILE * (TILE + 8))
 
 
-class DxPlan(NamedTuple):
-    """The launch of ``fused_xent_bwd_dx``: a ``grid`` of (row tiles,
-    ``splits``) blocks of ``threads``; block (r, s) owns rows
-    ``r·rows ..`` and every column of D (in passes of ``d_tile``), and
-    walks the vocabulary tiles ``walks[s]`` = (first, end), computing
-    each of their logit tiles once; ``smem_bytes`` of shared memory and
-    ``thread_sums`` register sums a thread (the warps' mma tiles). With
-    ``splits`` > 1 the partials go to an (S, N, D) scratch that a second
-    kernel folds."""
+class BackwardPlan(NamedTuple):
+    """The launch of ``fused_xent_bwd_dx`` or ``fused_xent_bwd_dw``: a
+    ``grid`` of (owned tiles, ``splits``) blocks of ``threads``. A dx
+    block owns ``rows`` rows, a dW block ``vocab_tile`` vocabulary
+    columns; either owns every column or row of D (in passes of
+    ``d_tile``) and walks the tiles of the other axis ``walks[s]`` =
+    (first, end), computing each of their logit tiles once, with
+    ``smem_bytes`` of shared memory and ``thread_sums`` register sums a
+    thread. With ``splits`` > 1 the partials go to a scratch of S planes
+    that a second kernel folds."""
     rows: int
     vocab_tile: int
     d_tile: int
@@ -57,28 +63,52 @@ class DxPlan(NamedTuple):
     smem_bytes: int
 
 
+def _backward_plan(name: str, n: int, d: int, v: int, sm_count: int,
+                   smem_limit: int, smem_bytes: int,
+                   owns_rows: bool) -> BackwardPlan:
+    """The tiles of the walked axis cut into the fewest contiguous
+    chunks that make about ``DX_WAVES`` blocks for each SM, so that the
+    card is full and the scratch small."""
+    if min(n, d, v, sm_count) < 1:
+        raise ValueError(f"{name}: no plan for N {n}, D {d}, V {v} on "
+                         f"{sm_count} SMs")
+    if smem_bytes > smem_limit:
+        raise ValueError(f"{name}: {smem_bytes} bytes of shared memory do "
+                         f"not fit {smem_limit}")
+    row_tiles, vocab_tiles = -(-n // TILE), -(-v // TILE)
+    owned, walked = ((row_tiles, vocab_tiles) if owns_rows
+                     else (vocab_tiles, row_tiles))
+    wanted = max(1, round(DX_WAVES * sm_count / owned))
+    per_chunk = -(-walked // min(walked, wanted))
+    splits = -(-walked // per_chunk)
+    walks = tuple((s * per_chunk, min(walked, (s + 1) * per_chunk))
+                  for s in range(splits))
+    return BackwardPlan(TILE, TILE, TILE, splits, per_chunk,
+                        (owned, splits), walks, DX_THREADS, DX_THREAD_SUMS,
+                        smem_bytes)
+
+
 def dx_plan(n: int, d: int, v: int, sm_count: int,
-            smem_limit: int) -> DxPlan:
+            smem_limit: int) -> BackwardPlan:
     """The layout of ``fused_xent_bwd_dx`` (csrc/fused_xent.cu) on a card
     of ``sm_count`` SMs with ``smem_limit`` bytes of shared memory a
     block: the vocabulary cut into the fewest contiguous chunks that
     make about ``DX_WAVES`` blocks for each SM, so that the card is full
     and the (S, N, D) scratch small. Raises ``ValueError`` where the
     block does not fit."""
-    if min(n, d, v, sm_count) < 1:
-        raise ValueError(f"fused_xent_bwd_dx: no plan for N {n}, D {d}, "
-                         f"V {v} on {sm_count} SMs")
-    if DX_SMEM_BYTES > smem_limit:
-        raise ValueError(f"fused_xent_bwd_dx: {DX_SMEM_BYTES} bytes of "
-                         f"shared memory do not fit {smem_limit}")
-    row_tiles, vocab_tiles = -(-n // TILE), -(-v // TILE)
-    wanted = max(1, round(DX_WAVES * sm_count / row_tiles))
-    per_chunk = -(-vocab_tiles // min(vocab_tiles, wanted))
-    splits = -(-vocab_tiles // per_chunk)
-    walks = tuple((s * per_chunk, min(vocab_tiles, (s + 1) * per_chunk))
-                  for s in range(splits))
-    return DxPlan(TILE, TILE, TILE, splits, per_chunk, (row_tiles, splits),
-                  walks, DX_THREADS, DX_THREAD_SUMS, DX_SMEM_BYTES)
+    return _backward_plan("fused_xent_bwd_dx", n, d, v, sm_count,
+                          smem_limit, DX_SMEM_BYTES, owns_rows=True)
+
+
+def dw_plan(n: int, d: int, v: int, sm_count: int,
+            smem_limit: int) -> BackwardPlan:
+    """The layout of ``fused_xent_bwd_dw`` (csrc/fused_xent.cu): dx's
+    (:func:`dx_plan`) with rows and vocabulary swapped, the row tiles cut
+    into the fewest contiguous chunks that make about ``DX_WAVES`` blocks
+    for each SM (one chunk, no scratch, at the decoder's loss tail).
+    Raises ``ValueError`` where the block does not fit."""
+    return _backward_plan("fused_xent_bwd_dw", n, d, v, sm_count,
+                          smem_limit, DW_SMEM_BYTES, owns_rows=False)
 
 
 def eligible(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -201,14 +231,24 @@ def xent_bwd_dx(x, w, b, targets, lse, g, eps: float,
 
 def xent_bwd_dw(x, w, b, targets, lse, g, eps: float, transposed: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW = xᵀ·dl in w's layout, db = Σₙ dl): launches
+    ``fused_xent_bwd_dw``, laid out by :func:`dw_plan`, for CUDA
+    tensors; runs the plain version otherwise."""
     if not x.is_cuda:
         return bwd_dw_reference(x, w, b, targets, lse, g, eps, transposed)
     _check("fused_xent_bwd_dw", x, w, b, targets, transposed, lse=lse, g=g)
     dw, db = torch.empty_like(w), torch.empty_like(b)
     n, d = x.shape
     vocab = w.shape[0] if transposed else w.shape[1]
+    plan = dw_plan(n, d, vocab, *kernel_config.tensor_device_limits(x))
+    scratch = db_scratch = None
+    if plan.splits > 1:
+        scratch = x.new_empty(plan.splits, *w.shape)
+        db_scratch = x.new_empty(plan.splits, vocab)
     kernel_config.launch("fused_xent_bwd_dw", x, w, b, targets, lse, g, dw,
-                         db, n, d, vocab, int(transposed), eps)
+                         db, scratch, db_scratch, n, d, vocab,
+                         int(transposed), plan.splits, plan.tiles_per_chunk,
+                         eps)
     return dw, db
 
 

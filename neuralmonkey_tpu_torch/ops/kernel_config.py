@@ -66,13 +66,13 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # pointers..., sizes and flags..., stream
     "nm_gru_scan": [_PTR] * 7 + [_INT] * 5 + [_PTR],
-    "nm_gru_bptt": [_PTR] * 10 + [_INT] * 5 + [_PTR],
+    "nm_gru_bptt": [_PTR] * 12 + [_INT] * 10 + [_PTR],
     "nm_bahdanau_step": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "nm_fused_logits": [_PTR] * 7 + [_INT] * 3 + [_PTR],
     "nm_small_topk": [_PTR] * 3 + [_INT] * 3 + [_PTR],
     "nm_xent_fwd": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],
     "nm_xent_bwd_dx": [_PTR] * 8 + [_INT] * 6 + [_FLOAT, _PTR],
-    "nm_xent_bwd_dw": [_PTR] * 8 + [_INT] * 4 + [_FLOAT, _PTR],
+    "nm_xent_bwd_dw": [_PTR] * 10 + [_INT] * 6 + [_FLOAT, _PTR],
     "nm_flash_fwd": [_PTR] * 6 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dq": [_PTR] * 8 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Device times of the redesigned kernels (``lstm_scan``, ``lstm_bptt``,
-the flash forward, the flash backward's dq and dkv, and
-``fused_xent_bwd_dx``), with their library yardsticks, and of the
-kernels that share their code (K3, ``fused_xent_fwd``,
-``fused_xent_bwd_dw``), for the port found under ROOT (by default this
-checkout), so that two versions can be compared on one card in one call:
+``gru_bptt``, the flash forward, the flash backward's dq and dkv,
+``fused_xent_bwd_dx`` and ``fused_xent_bwd_dw``), with their library or
+like-for-like yardsticks, and of the kernels that share their code or
+their path (K1 ``gru_scan``, K3, ``fused_xent_fwd``), for the port found
+under ROOT (by default this checkout), so that two versions can be
+compared on one card in one call:
 
     python3 scripts/kernel_ab.py [--root DIR] [--sweep] [--only ROWS]  (GPU)
 
@@ -13,7 +14,10 @@ scan alone at the LSTM encoder's B 64, T 32, H 512, two directions,
 ragged sources, beside cuDNN's ``nn.LSTM``; ``lstm_bptt`` at the same
 shape, with the whole LSTM backward (autograd through the port's scan)
 beside the plain scan's and cuDNN's backward
-(``chip_smoke.lstm_backward_times``); the flash forward at the
+(``chip_smoke.lstm_backward_times``); ``gru_bptt`` at the GRU encoder's
+B 64, T 32, H 512, two directions, full sources, with the whole GRU
+backward beside the plain scan's (``chip_smoke.gru_backward_times``),
+and K1 through its wrapper at that shape; the flash forward at the
 Transformer encoder's B 64, H 8, 32 x 32, Dh 64 and at a long source
 (B 8, H 8, 512 x 512), both with ragged key masks, beside
 ``scaled_dot_product_attention``; the flash backward (dq, dkv, and the
@@ -21,10 +25,10 @@ whole backward with its dcap row sums) at the encoder, the causal
 decoder (48 x 48), the cross attention (48 x 32) and the long source,
 beside SDPA's backward (``chip_smoke.flash_backward_times``); the three
 fused cross-entropy kernels at N 3072, D 512, V 30000, (D, V), eps 0,
-with the plain dx; K3 at 640 x 512 x 30720. The timing code is this
-checkout's ``chip_smoke.py`` whatever ROOT is. ``--sweep`` adds the scan
-alone and ``lstm_bptt`` at other batches and lengths (where a step's
-time goes);
+with the plain dx and dW; K3 at 640 x 512 x 30720. The timing code is
+this checkout's ``chip_smoke.py`` whatever ROOT is. ``--sweep`` adds the
+LSTM scan alone, ``lstm_bptt`` and ``gru_bptt`` at other batches and
+lengths (where a step's time goes);
 ``--only`` keeps the rows whose names start with one of the
 comma-separated prefixes. Prints one JSON line with the card's name and
 power limit.
@@ -132,6 +136,35 @@ def main() -> int:
             sweep[f"B{b} T{t}"] = cs.time_ms(
                 lambda: cuda_rnn.lstm_bptt(*bptt, 2))
         result["lstm_bptt"]["bptt_sweep_ms"] = sweep
+
+    # the GRU BPTT and K1 at the GRU encoder's shape
+    def gru_bptt_args(b, t):
+        return (randn(b, t, 2 * 3 * hidden, scale=0.5),
+                torch.ones(b, t, device=device),
+                randn(b, t, 2 * hidden, scale=0.5), randn(b, t, 2 * hidden),
+                randn(b, 2 * hidden),
+                randn(2, hidden, 2 * hidden, scale=hidden ** -0.5),
+                randn(2, hidden, hidden, scale=hidden ** -0.5))
+    if wanted("gru_bptt"):
+        bptt = gru_bptt_args(batch, time_)
+        result["gru_bptt"] = {
+            "ms": cs.time_ms(lambda: cuda_rnn.gru_bptt(*bptt, 2)),
+            **cs.gru_backward_times(cuda_rnn, nn, device, batch, time_, width,
+                                    hidden)}
+        if args.sweep:
+            sweep = {}
+            for b, t in ((8, 32), (64, 8), (64, 16), (64, 32)):
+                bptt = gru_bptt_args(b, t)
+                sweep[f"B{b} T{t}"] = cs.time_ms(
+                    lambda: cuda_rnn.gru_bptt(*bptt, 2))
+            result["gru_bptt"]["bptt_sweep_ms"] = sweep
+    if wanted("gru_scan"):
+        cells = [{k: v.to(device) for k, v in
+                  nn.GRUCell(width, hidden).init(gen).items()}
+                 for _ in range(2)]
+        full = torch.ones(batch, time_, device=device)
+        result["gru_scan"] = {"ms": cs.time_ms(lambda: cuda_rnn.gru_scan(
+            [(cells[0], False), (cells[1], True)], inputs, full))}
     # the fused cross-entropy and K3, which share logit_tile.cuh
     n, d, v = cs.XENT_N, cs.XENT_D, cs.VOCAB
     x, w, b = randn(n, d, scale=0.5), randn(d, v, scale=d ** -0.5), randn(
@@ -148,9 +181,10 @@ def main() -> int:
             ("fused_xent_bwd_dw", lambda: fx.xent_bwd_dw(*bwd))):
         if wanted(row):
             result[row] = {"ms": cs.time_ms(fn)}
-    if wanted("fused_xent_bwd_dx"):
-        result["fused_xent_bwd_dx"]["plain_ms"] = cs.time_ms(
-            lambda: fx.bwd_dx_reference(*bwd))
+    for row, plain in (("fused_xent_bwd_dx", fx.bwd_dx_reference),
+                       ("fused_xent_bwd_dw", fx.bwd_dw_reference)):
+        if wanted(row):
+            result[row]["plain_ms"] = cs.time_ms(lambda: plain(*bwd))
     if wanted("fused_logits_rowmax_lse"):
         vp = -(-v // 1024) * 1024
         xk, wk = randn(cs.BATCH * cs.BEAM, d), randn(d, vp, scale=d ** -0.5)

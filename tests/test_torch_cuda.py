@@ -151,6 +151,88 @@ def test_gru_bptt_kernel(cuda_device, hidden, reverse):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
+def _gru_bptt_args(device, batch, time, hidden, reverse, lengths):
+    n_dirs = len(reverse)
+    x = _randn(device, batch, time, n_dirs * 3 * hidden, scale=0.5)
+    mask = _mask(device, lengths, time)
+    hprev = _randn(device, batch, time, n_dirs * hidden, scale=0.5, seed=1)
+    gout = _randn(device, batch, time, n_dirs * hidden, seed=2)
+    gfinal = _randn(device, batch, n_dirs * hidden, seed=3)
+    wgh = _randn(device, n_dirs, hidden, 2 * hidden, scale=hidden ** -0.5,
+                 seed=4)
+    wch = _randn(device, n_dirs, hidden, hidden, scale=hidden ** -0.5,
+                 seed=5)
+    return x, mask, hprev, gout, gfinal, wgh, wch
+
+
+@pytest.mark.parametrize("batch,time,hidden,reverse,resident", [
+    (64, 32, 512, (False, True), True),    # the encoder's shape
+    (160, 6, 512, (False, True), True),    # a wide batch
+    (64, 5, 2048, (False, True), False),   # streamed in k tiles, 4 row tiles
+    (5, 4, 4099, (True,), False),          # streamed, H % 4 != 0
+    (3, 3, 7264, (True,), False)])         # the largest H bptt_fits takes
+def test_gru_bptt_persistent_plans(cuda_device, batch, time, hidden,
+                                   reverse, resident):
+    """The persistent GRU BPTT in each of its layouts against the plain
+    version, ragged lengths; the pre-activation gradients grow through
+    the reverse steps, so the tolerance scales with their largest
+    entry."""
+    gen = torch.Generator().manual_seed(batch)
+    lengths = torch.randint(1, time + 1, (batch,), generator=gen).tolist()
+    args = _gru_bptt_args(cuda_device, batch, time, hidden, reverse,
+                          lengths)
+    reverse_mask = sum(1 << d for d, rev in enumerate(reverse) if rev)
+    plan = cuda_rnn.gru_bptt_plan(batch, hidden, len(reverse),
+                                  *kernel_config.device_limits(0))
+    assert plan.resident == resident
+    kernel_config.reset_launch_counts()
+    got = cuda_rnn.gru_bptt(*args, reverse_mask)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["gru_bptt"] == 1
+    ref = cuda_rnn.gru_bptt_reference(*args, reverse)
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(got, ref, atol=1e-5 * scale, rtol=1e-5)
+
+
+def test_gru_bptt_is_deterministic(cuda_device):
+    """Two calls at the encoder's shape give the same bits: the partials
+    of dxc·W_chᵀ and dxg·W_ghᵀ are summed in one fixed block order."""
+    gen = torch.Generator().manual_seed(7)
+    lengths = torch.randint(1, 33, (64,), generator=gen).tolist()
+    args = _gru_bptt_args(cuda_device, 64, 32, 512, (False, True), lengths)
+    first = cuda_rnn.gru_bptt(*args, 2)
+    second = cuda_rnn.gru_bptt(*args, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_gru_bptt_refuses_a_grid_that_cannot_be_resident(cuda_device):
+    """A plan for twice the card's SMs, each block asking for all of an
+    SM's shared memory, wants more blocks than can be resident at once:
+    the cooperative launch is refused and raises, without counting a
+    launch or writing anything."""
+    batch, time, hidden = 8, 3, 512
+    x, mask, hprev, gout, gfinal, wgh, wch = _gru_bptt_args(
+        cuda_device, batch, time, hidden, (False, True), [3] * batch)
+    sms, smem = kernel_config.device_limits(0)
+    plan = cuda_rnn.gru_bptt_plan(batch, hidden, 2, 2 * sms, smem)
+    assert plan.blocks_per_dir * 2 > sms
+    dx = torch.full_like(x, float("nan"))
+    gates = x.new_empty(4, batch, time, 2 * hidden)
+    partial = x.new_empty(2, 2, plan.blocks_per_dir, batch, hidden)
+    carry = x.new_empty(2, batch, hidden)
+    sync = torch.zeros(2, 2, dtype=torch.int32, device=cuda_device)
+    kernel_config.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="gru_bptt: launch failed"):
+        kernel_config.launch(
+            "gru_bptt", x, mask, hprev, gout, gfinal, wgh, wch, dx, gates,
+            partial, carry, sync, batch, time, hidden, 2, 2,
+            plan.blocks_per_dir, plan.units, plan.rows, plan.k_tile, smem)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["gru_bptt"] == 0
+    assert torch.isnan(dx).all()
+
+
 @pytest.mark.parametrize("hidden", [6, 64])
 def test_gru_scan_gradients_match_cpu(cuda_device, hidden):
     """Gradients through the wrapper the encoder calls: K1 saving its
@@ -293,6 +375,42 @@ def test_fused_xent_bwd_dx_plans(cuda_device, n, d, v, splits, transposed):
     ref = fused_xent.bwd_dx_reference(*args)
     assert float((first - ref).abs().max()) <= 1e-4 * float(
         ref.abs().max())
+
+
+@pytest.mark.parametrize("n,d,v,splits", [
+    (3072, 512, 30000, 1),   # the decoder's loss tail, bench widths
+    (333, 130, 1000, 3),     # ragged N, D and V, folded
+    (256, 128, 1024, 2),     # two row tiles in two chunks
+    (40, 600, 200, 1)])      # D past one 128-row pass, a partial tile
+@pytest.mark.parametrize("transposed", [False, True])
+def test_fused_xent_bwd_dw_plans(cuda_device, n, d, v, splits, transposed):
+    """dW and db through the rows cut into S chunks and folded, against
+    the plain version (1e-4 of the largest entry, the smoke's rule), and
+    bitwise equal across two calls: each block sums its rows in one
+    fixed order and the S partials are folded in one fixed order."""
+    plan = fused_xent.dw_plan(n, d, v, *kernel_config.device_limits(0))
+    assert plan.splits == splits
+    x = _randn(cuda_device, n, d, scale=0.5)
+    w = _randn(cuda_device, *((v, d) if transposed else (d, v)),
+               scale=d ** -0.5, seed=1)
+    b = _randn(cuda_device, v, scale=0.1, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    targets = torch.randint(0, v, (n,), generator=gen,
+                            dtype=torch.int32).to(cuda_device)
+    g = torch.rand(n, generator=gen).to(cuda_device)
+    _, lse = fused_xent.fwd_reference(x, w, b, targets, 0.1, transposed)
+    args = (x, w, b, targets, lse, g, 0.1, transposed)
+    kernel_config.reset_launch_counts()
+    first = fused_xent.xent_bwd_dw(*args)
+    second = fused_xent.xent_bwd_dw(*args)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["fused_xent_bwd_dw"] == 2
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    for got, ref in zip(first, fused_xent.bwd_dw_reference(*args)):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 1e-4 * float(
+            ref.abs().max())
 
 
 def _train_pass(device):

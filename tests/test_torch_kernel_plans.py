@@ -1,5 +1,6 @@
-"""The launch plans of the persistent LSTM scan and BPTT, the fused
-cross-entropy's dx and the register-tiled flash forward and backward,
+"""The launch plans of the persistent LSTM scan and BPTT, the persistent
+GRU BPTT, the fused cross-entropy's dx and dW and the register-tiled
+flash forward and backward,
 checked on the CPU: which block owns which hidden units, rows, queries
 or keys, which tiles each block walks, what fits an H100's shared memory
 and SM count, and which layout each shape gets. The kernels themselves
@@ -248,6 +249,161 @@ def test_dx_plan_ragged_and_small():
 def test_dx_plan_raises_where_nothing_fits(sms, smem):
     with pytest.raises(ValueError, match="fused_xent_bwd_dx"):
         fused_xent.dx_plan(3072, 512, 30000, sms, smem)
+
+
+def _dw_plan(n, d, v):
+    return fused_xent.dw_plan(n, d, v, H100_SMS, H100_SMEM)
+
+
+@pytest.mark.parametrize("n,d,v", DX_SHAPES)
+def test_dw_plan_visits_every_row_and_column_once(n, d, v):
+    """Every (row, vocabulary column) pair lies in exactly one block's
+    vocabulary tile and row walk, and every row of D in that same block:
+    each logit tile is computed once, where the first design computed
+    it once per 128 rows of D."""
+    plan = _dw_plan(n, d, v)
+    vocab_tiles, splits = plan.grid
+    assert splits == plan.splits == len(plan.walks)
+    columns = [c for x in range(vocab_tiles)
+               for c in range(x * plan.vocab_tile,
+                              min((x + 1) * plan.vocab_tile, v))]
+    assert columns == list(range(v))
+    rows = [r for first, end in plan.walks for tile in range(first, end)
+            for r in range(tile * plan.rows, min((tile + 1) * plan.rows, n))]
+    assert rows == list(range(n))
+    assert all(end - first <= plan.tiles_per_chunk and end > first
+               for first, end in plan.walks)
+    logit_tiles = vocab_tiles * sum(end - first for first, end in plan.walks)
+    assert logit_tiles == vocab_tiles * -(-n // plan.rows)
+    # every block covers all of D in passes of d_tile rows
+    assert plan.d_tile * -(-d // plan.d_tile) >= d
+
+
+@pytest.mark.parametrize("n,d,v", DX_SHAPES)
+def test_dw_plan_fits_the_card(n, d, v):
+    """Two stages of a 128 x 36 x tile and a W tile, and the dl of two
+    row tiles one above the other (256 x 136) in shared memory, one
+    block an SM; dx's 256 threads and 64 register sums a thread, which
+    cover a 128 x 128 tile of dW."""
+    plan = _dw_plan(n, d, v)
+    assert plan.smem_bytes == 4 * (2 * (128 * 36 + 128 * 36)
+                                   + 256 * 136) == 212992
+    assert plan.smem_bytes + 1024 <= 228 * 1024
+    assert plan.threads == 256 and plan.thread_sums == 64
+    assert plan.threads * plan.thread_sums == plan.d_tile * plan.vocab_tile
+
+
+def test_dw_plan_fills_the_card_at_the_bench_shape():
+    """N 3072, D 512, V 30000: 235 vocabulary tiles, one chunk of all 24
+    row tiles: 235 blocks on the 132 SMs, writing dW itself (no
+    scratch, no fold)."""
+    plan = _dw_plan(3072, 512, 30000)
+    assert plan.grid == (235, 1) and plan.tiles_per_chunk == 24
+    assert plan.walks == ((0, 24),)
+    assert plan.grid[0] * plan.grid[1] >= H100_SMS
+
+
+def test_dw_plan_ragged_and_small():
+    """333 x 130 x 1000: 8 vocabulary tiles, 3 chunks of one row tile,
+    folded; one row tile and one vocabulary tile need no fold (S = 1)."""
+    plan = _dw_plan(333, 130, 1000)
+    assert plan.grid == (8, 3) and plan.walks == ((0, 1), (1, 2), (2, 3))
+    assert _dw_plan(1, 1, 1).splits == 1
+
+
+@pytest.mark.parametrize("sms,smem", [(0, H100_SMEM), (132, 200 * 1024)])
+def test_dw_plan_raises_where_nothing_fits(sms, smem):
+    with pytest.raises(ValueError, match="fused_xent_bwd_dw"):
+        fused_xent.dw_plan(3072, 512, 30000, sms, smem)
+
+
+# (batch, hidden, directions): the smoke's encoder, the card tests'
+# shapes, and the edges of what bptt_fits accepts
+GRU_SHAPES = [(64, 512, 2), (6, 16, 1), (6, 64, 2), (6, 6, 2), (6, 517, 2),
+              (5, 37, 2), (64, 1024, 2), (64, 2048, 2), (5, 4099, 1),
+              (64, 4096, 2), (3, 7264, 1), (64, 7264, 2), (1, 1, 1),
+              (160, 512, 2), (512, 512, 1)]
+
+
+def _gru_plan(batch, hidden, n_dirs):
+    return cuda_rnn.gru_bptt_plan(batch, hidden, n_dirs, H100_SMS,
+                                  H100_SMEM)
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs", GRU_SHAPES)
+def test_gru_bptt_plan_owns_every_unit_once(batch, hidden, n_dirs):
+    """Blocks of a multiple of 4 units cover every unit of a direction
+    once; no block of a direction is left without a unit."""
+    plan = _gru_plan(batch, hidden, n_dirs)
+    assert plan.units % 4 == 0
+    owned = [u for block in range(plan.blocks_per_dir)
+             for u in range(block * plan.units,
+                            min((block + 1) * plan.units, hidden))]
+    assert owned == list(range(hidden))
+    assert (plan.blocks_per_dir - 1) * plan.units < hidden
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs", GRU_SHAPES)
+def test_gru_bptt_plan_fits_the_card(batch, hidden, n_dirs):
+    """Shared memory as csrc/gru_bptt.cu lays it out (the slice of three
+    gate columns a unit, or its k tile, in the place of the prologue's
+    two 16 x 132 tile stages; then a row of dr, du·u(1−u), dxc and the
+    mask for each of the tile's rows) within 227 KB; one block per SM at
+    most, so the cooperative launch holds every block."""
+    plan = _gru_plan(batch, hidden, n_dirs)
+    units, h4 = plan.units, -(-hidden // 4) * 4
+    assert plan.smem_bytes == 4 * (max(plan.k_tile * 3 * units, 2 * 16 * 132)
+                                   + plan.rows * (3 * units + 1))
+    assert plan.smem_bytes <= H100_SMEM
+    assert plan.blocks_per_dir * n_dirs <= H100_SMS
+    assert 1 <= plan.rows <= batch
+    assert plan.rows == batch or plan.rows % 4 == 0
+    assert plan.k_tile % 4 == 0 and 4 <= plan.k_tile <= h4
+    assert plan.resident == (plan.k_tile == h4)
+
+
+def test_gru_bptt_plan_keeps_the_slice_resident_at_the_encoder_shape():
+    """B 64, H 512, two directions: 64 blocks a direction of 8 units,
+    each holding its 24 x 512 slice and the step values of every row:
+    55,552 bytes."""
+    plan = _gru_plan(64, 512, 2)
+    assert plan.resident and plan.rows == 64
+    assert (plan.blocks_per_dir, plan.units) == (64, 8)
+    assert plan.smem_bytes == 55552
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs,tiles", [
+    (64, 2048, 2, 4), (5, 4099, 1, 1), (64, 4096, 2, 4), (3, 7264, 1, 1),
+    (64, 7264, 2, 4)])
+def test_gru_bptt_plan_streams_what_does_not_fit(batch, hidden, n_dirs,
+                                                 tiles):
+    """Where the slice does not fit beside 16 rows, the partial products
+    stream it in k tiles, and the rows go in tiles; H 7264, the largest
+    bptt_fits takes, still fits."""
+    assert cuda_rnn.bptt_fits(hidden)
+    plan = _gru_plan(batch, hidden, n_dirs)
+    assert not plan.resident and plan.k_tile < hidden
+    assert -(-batch // plan.rows) == tiles
+
+
+def test_gru_bptt_takes_what_its_first_design_took():
+    assert cuda_rnn.bptt_fits(7264) and not cuda_rnn.bptt_fits(7265)
+
+
+def test_gru_bptt_plan_reads_the_card():
+    """Fewer SMs give fewer, wider blocks and a stream; less shared
+    memory a stream."""
+    small = cuda_rnn.gru_bptt_plan(64, 512, 2, 16, H100_SMEM)
+    assert (small.blocks_per_dir, small.units) == (8, 64)
+    assert not small.resident and small.smem_bytes <= H100_SMEM
+    tight = cuda_rnn.gru_bptt_plan(64, 512, 2, H100_SMS, 48 * 1024)
+    assert not tight.resident and tight.smem_bytes <= 48 * 1024
+
+
+@pytest.mark.parametrize("sms,smem", [(1, H100_SMEM), (132, 2048)])
+def test_gru_bptt_plan_raises_where_nothing_fits(sms, smem):
+    with pytest.raises(ValueError, match="gru_bptt"):
+        cuda_rnn.gru_bptt_plan(64, 512, 2, sms, smem)
 
 
 # (batch, heads, q len, kv len, head dim): the Transformer's encoder,
