@@ -17,7 +17,10 @@ Phases (any failure raises and the script exits non-zero):
    the shapes the serving and training paths give it and at one ragged
    shape, with median times from CUDA events, the bound of the same work
    on this card and, where one PyTorch call computes the same function,
-   that call's time (cuDNN's LSTM for the LSTM kernels), the whole
+   that call's time (cuDNN's LSTM for the LSTM kernels), K1's scan alone
+   without and with the carries a gradient needs, K3 beside cuBLAS's
+   ``addmm`` of the same shape (a reference for the product alone: no
+   PyTorch call computes K3's whole function), the whole
    LSTM backward (autograd through the port's scan: ``lstm_bptt``, the
    recurrent weights' products and the hoisted input's backward) beside
    the plain scan's and cuDNN's backward of the same function, and the
@@ -105,8 +108,9 @@ queued behind a spin kernel (``call_ms`` times one call of the wrapper
 alone, with its host cost).
 
 Every phase prints its seconds. Standard output holds the launch plans
-of the redesigned kernels (``lstm_scan``, ``lstm_bptt``, ``gru_bptt``,
-``fused_xent_bwd_dx`` and ``_dw``, the flash forward and backward) as
+of the redesigned kernels (K1 ``gru_scan``, ``lstm_scan``, ``lstm_bptt``,
+``gru_bptt``, ``fused_xent_bwd_dx`` and ``_dw``, the flash forward and
+backward) as
 one JSON line, the card's name and power limit, a JSON object of the
 phases' results, then, on the line before the last, a JSON object with
 one entry per kernel; the last line is
@@ -341,16 +345,33 @@ def check_kernels(device):
                                 inputs.cpu(), mask.cpu())
         err = max(max_err(got[0].cpu(), ref[0]),
                   max_err(got[1].cpu(), ref[1]))
-        timing = ()
+        timing = {}
         if timed:
             wgh = torch.stack([fw["gates_h"], bw["gates_h"]])
             wch = torch.stack([fw["cand_h"], bw["cand_h"]])
-            timing = (
-                time_ms(lambda: cuda_rnn.gru_scan(
-                    [(fw, False), (bw, True)], inputs, mask)),
-                time_ms(lambda: cuda_rnn.gru_scan_reference(
+            x = cuda_rnn.hoisted_inputs([fw, bw], inputs)
+            x_grad = x.detach().requires_grad_()
+
+            def scan_alone():
+                with torch.no_grad():
+                    return cuda_rnn._GRUScan.apply(x, mask, wgh, wch, 2)
+
+            def wrapper():
+                return cuda_rnn.gru_scan([(fw, False), (bw, True)], inputs,
+                                         mask)
+            # the wrapper, and its two parts: the persistent scan (with
+            # its scratch), without and with the carries a gradient
+            # needs, and the hoisted input GEMM
+            timing = dict(
+                ms=time_ms(wrapper), call=wrapper,
+                plain_ms=time_ms(lambda: cuda_rnn.gru_scan_reference(
                     cuda_rnn.hoisted_inputs([fw, bw], inputs), mask, wgh,
-                    wch, [False, True])))
+                    wch, [False, True])),
+                scan_ms=time_ms(scan_alone),
+                scan_saved_ms=time_ms(lambda: cuda_rnn._GRUScan.apply(
+                    x_grad, mask, wgh, wch, 2)),
+                hoisted_gemm_ms=time_ms(
+                    lambda: cuda_rnn.hoisted_inputs([fw, bw], inputs)))
         # the wrapper's work: the hoisted input product and the scan
         work = (2 * batch * time_ * width * 6 * hidden
                 + time_ * batch * 12 * hidden * hidden,
@@ -358,8 +379,8 @@ def check_kernels(device):
                      + 2 * 3 * hidden + 2 * 3 * hidden * hidden
                      + batch * time_ + batch * time_ * 2 * hidden
                      + batch * 2 * hidden))
-        record("gru_scan", err, 1e-4, (batch, time_, hidden), *timing,
-               work=work)
+        record("gru_scan", err, 1e-4, (batch, time_, hidden), work=work,
+               **timing)
 
     # K2: greedy attention step; exact masked-softmax constants
     for batch, time_, lengths, timed in (
@@ -412,10 +433,21 @@ def check_kernels(device):
         timing = ((time_ms(lambda: beam_select.fused_logits_rowmax_lse(
             x, w, b)), time_ms(lambda: beam_select.fused_logits_reference(
                 x, w, b))) if timed else ())
-        work = (2 * n * d * vp_ + 3 * n * vp_,
-                4 * (n * d + d * vp_ + vp_ + n * vp_ + n * vp_ // 128 + n))
+        # its product runs on the tensor cores as three TF32 products
+        # (3xTF32): the bound takes those at the TF32 peak; the float32
+        # bound beside it. No one PyTorch call computes the logits with
+        # both reductions: cuBLAS's product alone (addmm) is kept as a
+        # reference for the product, not as a library yardstick
+        k3_bytes = 4 * (n * d + d * vp_ + vp_ + n * vp_ + n * vp_ // 128 + n)
+        extra = ({"bound_peak": "3xTF32 on the tensor cores, 495 TFLOP/s "
+                  "dense", "bound_f32_ms": bound(
+                      2 * n * d * vp_ + 3 * n * vp_, k3_bytes)[0],
+                  "cublas_addmm_ms": time_ms(lambda: torch.addmm(b, x, w))}
+                 if timed else {})
         record("fused_logits_rowmax_lse", max_err(got[2], ref[2]), 1e-4,
-               (n, d, vp_, "lse"), *timing, work=work)
+               (n, d, vp_, "lse"), *timing,
+               work=(3 * 2 * n * d * vp_ + 3 * n * vp_, k3_bytes),
+               peak=TF32_PEAK, **extra)
 
     # K4: both selection stages; rounded inputs force ties, which must
     # go to the lowest index exactly as in the plain version
@@ -1052,6 +1084,8 @@ def launch_plans():
                                              *limits)._asdict(),
         "lstm_bptt": cuda_rnn.lstm_bptt_plan(BATCH, RNN, 2,
                                              *limits)._asdict(),
+        "gru_scan": cuda_rnn.gru_scan_plan(BATCH, RNN, 2,
+                                           *limits)._asdict(),
         "gru_bptt": cuda_rnn.gru_bptt_plan(BATCH, RNN, 2,
                                            *limits)._asdict(),
         **{name: {k: v for k, v in plan(

@@ -7,25 +7,40 @@
 // Vp a multiple of 128, plus rowmax (N, Vp / 128), the maximum of every
 // 128-column group, and lse (N), the log-sum-exp of each whole row.
 //
-// What bounds K3 on the H100: the f32 product (2 N Dm Vp flops, 20 GFLOP at
-// N = 640, Dm = 512, Vp = 30720) on the SIMT units; the logits write (79 MB)
-// is second. The design: a tiled SIMT GEMM whose block tile is 128 rows by
-// exactly 128 columns, so each block's per-row maximum IS one rowmax entry.
-// Each thread accumulates an 8 x 8 tile, so one shared-memory read feeds
-// eight FMAs (on an H100 80GB HBM3 at 700 W, 128-row tiles took 0.65 ms at
-// the serving shape, 64-row tiles with 4 x 8 per thread 0.95 ms).
-// The TPU folded the log-sum-exp across its sequential vocabulary grid; Hopper
-// blocks run in no order, so each block writes a per-row partial sum of
-// exp(logit - rowmax) into an (N, R) scratch and a second small kernel folds
-// the R partials of a row into lse. The logits are written once and never
-// re-read. Tensor cores (wgmma, TF32 or bf16) are left for a later change.
+// What bounds K3 on the H100: the product (2 N Dm Vp flops, 20.1 GFLOP at
+// N = 640, Dm = 512, Vp = 30720); the logits write (79 MB) is second. The
+// first design ran it on the SIMT units (a 128 x 128 tile, 8 x 8 sums a
+// thread), whose float32 peak (0.301 ms) it could not pass: 0.631 ms. The
+// design: the product runs on the tensor cores in 3xTF32 (each float32
+// operand split in two TF32 parts and three products kept, which holds
+// float32 accuracy), with the routine the fused cross-entropy's backward
+// uses (tc_product.cuh: mma.sync m16n8k8, 8 warps as 2 x 4 warp tiles of
+// 64 x 32, cp.async double-buffered 32-deep stages, ragged edges
+// zero-filled). Its bound is the three TF32 products at the TF32 peak,
+// 0.122 ms. A block's tile is 128 rows by exactly 128 columns, so each
+// block's per-row maximum IS one rowmax entry: the epilogue adds the bias,
+// stores the logits two floats a lane, and takes each row's maximum and
+// its sum of exp(logit - max) over the block's columns, the four column
+// warps exchanging theirs through 4 KB of shared memory. Row tiles run in
+// blockIdx.x, so the few blocks that share a W tile start together and W
+// (63 MB, more than the 50 MB L2) leaves device memory about once. Two
+// blocks an SM (128 registers a thread) beat one (146 registers): 0.38
+// against 0.44 ms. The TPU folded the log-sum-exp across its sequential
+// vocabulary grid; Hopper blocks run in no order, so each block writes a
+// per-row partial sum into an (N, R) scratch and a second small kernel
+// folds the R partials of a row into lse, in one fixed order, with no
+// atomics. The logits are written once and never re-read. On an H100 80GB
+// HBM3 at 700.00 W this takes 0.382 ms at the serving shape (chip_smoke.py),
+// where cuBLAS's float32 product alone (addmm) takes 0.445 (the logits store
+// costs under 2%: scripts/kernel_ablation.py). TF32 wgmma, with W laid out
+// K-major once per search, is the step after this one.
 //
 // rowmax_lse replaces `_kernel` (called by `_rowmax_lse_pallas`): for (N, Vp)
 // logits, Vp a multiple of 128, the maximum of every 128-column group and each
 // row's log-sum-exp, in one read of the logits. The beam search runs it when
 // the fused projection is switched off (NM_FUSED_LOGITS=0). What bounds it:
 // the bytes of the logits (77 MB at N = 640, Vp = 30080); it does a few
-// operations per element. The design reuses K3's reductions: one warp per
+// operations per element. The design reuses K3's reductions and fold: one warp per
 // (row, group) reads its 128 columns as one float4 per lane and writes the
 // group's maximum and its sum of exp(x - max); K3's fold kernel then turns the
 // R partials of a row into lse, rescaling each by exp(max_r - M), in one fixed
@@ -40,11 +55,22 @@
 // under the order (value descending, index ascending); a round only considers
 // entries that come after the previous winner in that order, so winners need
 // no knocking out and an index is never picked twice.
-#include "logit_tile.cuh"
+#include "tc_product.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(nm::kTileThreads)
+namespace tc = nm::tc;
+
+// shared memory of a K3 block: the two operand stages of tc::tile_product;
+// the epilogue's per-warp row maxima and sums reuse the first of them
+constexpr size_t kLogitSmem = sizeof(float) * 2 * tc::kStage;
+
+// One 128-row x 128-column tile of logits = x W + b, with its per-row maximum
+// (one rowmax entry) and sum of exp(logit - max) (a partial for lse_fold).
+// Grid (row tiles, column tiles): the blocks that share a W tile are
+// neighbours in launch order, so they run together and W leaves device
+// memory about once.
+__global__ void __launch_bounds__(tc::kThreads, 2)
 fused_logits_kernel(const float* __restrict__ x,     // (N, Dm)
                     const float* __restrict__ w,     // (Dm, Vp)
                     const float* __restrict__ bias,  // (Vp)
@@ -52,42 +78,74 @@ fused_logits_kernel(const float* __restrict__ x,     // (N, Dm)
                     float* __restrict__ rowmax,      // (N, R)
                     float* __restrict__ psum,        // (N, R) scratch
                     int N, int Dm, int Vp) {
-  using namespace nm;
-  __shared__ __align__(16) TileStage st;
-  const int tr = tile_row(), tc = tile_col();
-  const int n0 = blockIdx.x * kTileN;
-  const int m0 = blockIdx.y * kTileM;
-  const int R = Vp / kTileN;
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);
+  const int m0 = blockIdx.x * tc::kM;
+  const int n0 = blockIdx.y * tc::kN;
+  const int R = Vp / tc::kN;
+  // 16-byte copies need every row of x and W to start 16-byte aligned (Vp is
+  // a multiple of 128); otherwise 4-byte ones
+  const bool vec = (Dm & 3) == 0 &&
+                   ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15) == 0;
+  float acc[4][4][4] = {};
+  tc::tile_product<false>(x, w, N, Dm, Vp, m0, n0, vec, stages, acc);
 
-  float acc[kThreadM][kThreadN];
-  logit_tile<false>(x, w, N, Dm, Vp, m0, n0, st, acc);
-
-  float bv[kThreadN];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
+  float* part = stages;  // [kM][4 column warps][max, sum]: the stages are free
+  float bv[4][2];
 #pragma unroll
-  for (int j = 0; j < kThreadN; ++j) bv[j] = bias[n0 + tc + 16 * j];
+  for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-  for (int i = 0; i < kThreadM; ++i) {
-    const int gm = m0 + tr * kThreadM + i;
-    float mx = -INFINITY;
+    for (int j = 0; j < 2; ++j) bv[ni][j] = bias[n0 + wn + ni * 8 + 2 * (lane % 4) + j];
 #pragma unroll
-    for (int j = 0; j < kThreadN; ++j) {
-      acc[i][j] += bv[j];
-      mx = fmaxf(mx, acc[i][j]);
-    }
-    mx = row_reduce_max(mx);
-    float s = 0.f;
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int j = 0; j < kThreadN; ++j) s += expf(acc[i][j] - mx);
-    s = row_reduce_sum(s);
-    if (gm < N) {
-      float* row = logits + static_cast<size_t>(gm) * Vp + n0;
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm + mi * 16 + lane / 4 + 8 * h, gm = m0 + row;
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kThreadN; ++j) row[tc + 16 * j] = acc[i][j];
-      if (tc == 0) {
-        rowmax[static_cast<size_t>(gm) * R + blockIdx.x] = mx;
-        psum[static_cast<size_t>(gm) * R + blockIdx.x] = s;
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          acc[mi][ni][2 * h + j] += bv[ni][j];
+          mx = fmaxf(mx, acc[mi][ni][2 * h + j]);
+        }
+      // the 4 lanes that share a row hold its 32 columns of this warp
+      mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, 2));
+      float s = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) s += expf(acc[mi][ni][2 * h + j] - mx);
+      s += __shfl_xor_sync(nm::kFullMask, s, 1);
+      s += __shfl_xor_sync(nm::kFullMask, s, 2);
+      if (gm < N) {
+        float* out = logits + static_cast<size_t>(gm) * Vp + n0 + wn + 2 * (lane % 4);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          *reinterpret_cast<float2*>(out + ni * 8) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+      if (lane % 4 == 0) {
+        part[(row * 4 + warp % 4) * 2] = mx;
+        part[(row * 4 + warp % 4) * 2 + 1] = s;
       }
     }
+  __syncthreads();
+  // one thread a row: the block's maximum over its 128 columns, and the four
+  // warps' sums rescaled to it, in warp order
+  const int row = threadIdx.x;
+  if (row < tc::kM && m0 + row < N) {
+    const float* p = part + row * 8;
+    const float mx = fmaxf(fmaxf(p[0], p[2]), fmaxf(p[4], p[6]));
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s += p[2 * q + 1] * expf(p[2 * q] - mx);
+    const size_t at = static_cast<size_t>(m0 + row) * R + blockIdx.y;
+    rowmax[at] = mx;
+    psum[at] = s;
   }
 }
 
@@ -211,10 +269,14 @@ small_topk_kernel(const float* __restrict__ x,  // (B, n)
 NM_EXPORT int nm_fused_logits(const void* x, const void* w, const void* bias, void* logits,
                               void* rowmax, void* psum, void* lse, int N, int Dm, int Vp,
                               void* stream) {
+  if (N < 1 || Dm < 1 || Vp < tc::kN || Vp % tc::kN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = nm::allow_max_smem(reinterpret_cast<const void*>(fused_logits_kernel));
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = Vp / nm::kTileN;
-  const dim3 grid(R, (N + nm::kTileM - 1) / nm::kTileM);
-  fused_logits_kernel<<<grid, nm::kTileThreads, 0, s>>>(
+  const int R = Vp / tc::kN;
+  const dim3 grid((N + tc::kM - 1) / tc::kM, R);
+  fused_logits_kernel<<<grid, tc::kThreads, kLogitSmem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(logits),
       static_cast<float*>(rowmax), static_cast<float*>(psum), N, Dm, Vp);

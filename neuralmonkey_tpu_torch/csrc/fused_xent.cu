@@ -19,9 +19,10 @@
 // The TPU ran one sequential grid with the online log-sum-exp carried in
 // scratch; Hopper blocks run in no order, so:
 //   - xent_fwd: one block per (128-row, 128-column) tile computes the logit tile
-//     (logit_tile.cuh, as K3 does) and writes per-row partials (tile max, sum of
-//     exp(t - max), label logit, logit sum) into (N, R) scratch; a second small
-//     kernel folds the R partials of each row into lse and nll (K3's pattern).
+//     on the SIMT units (logit_tile.cuh) and writes per-row partials (tile max,
+//     sum of exp(t - max), label logit, logit sum) into (N, R) scratch; a second
+//     small kernel folds the R partials of each row into lse and nll (K3's
+//     pattern).
 //   - xent_bwd_dx: a block owns a 128-row tile and every column of D, and walks
 //     a contiguous chunk of the vocabulary tiles. For each vocabulary tile it
 //     computes the logit tile once, turns it into dl and keeps dl in shared
@@ -33,8 +34,9 @@
 //     Both products run on the tensor cores, mma.sync m16n8k8 in TF32 with
 //     each float32 operand split in two TF32 parts and three products kept
 //     (3xTF32), which holds float32 accuracy; operands arrive by cp.async in
-//     double-buffered 32-deep stages. The vocabulary is cut into S chunks so
-//     that the grid, (row tiles, S), is two blocks for each SM (the plan:
+//     double-buffered 32-deep stages (tc_product.cuh, shared with K3). The
+//     vocabulary is cut into S chunks so that the grid, (row tiles, S), is
+//     two blocks for each SM (the plan:
 //     ops/fused_xent.py `dx_plan`); a second small kernel sums the S partials
 //     of each entry in the fixed order 0 .. S-1 (with S = 1 the blocks write
 //     dx itself). No atomics: dx does not change from run to run.
@@ -56,6 +58,7 @@
 #include <algorithm>
 
 #include "logit_tile.cuh"
+#include "tc_product.cuh"
 
 namespace {
 
@@ -151,19 +154,11 @@ __global__ void xent_fold_kernel(const float* __restrict__ pmax, const float* __
 }
 
 // ---------------------------------------------------------------------------
-// The backward on the tensor cores. Every float32 product a * b is taken as
-// three TF32 products, a_lo b_hi + a_hi b_lo + a_hi b_hi, with a_hi = tf32(a)
-// and a_lo = tf32(a - a_hi) (3xTF32: the dropped a_lo b_lo is below float32's
-// rounding), by mma.sync m16n8k8, so the sums keep float32 accuracy.
+// The backward on the tensor cores: 3xTF32 mma.sync products (tc_product.cuh).
 namespace tc {
 
-constexpr int kM = 128;          // rows of a block's tile
-constexpr int kN = 128;          // vocabulary columns of a logit tile; D columns a pass
-constexpr int kKC = 32;          // depth of a shared-memory stage
-constexpr int kLdK = kKC + 4;    // an [n][k] operand: rows of 32 along k
-constexpr int kLdN = kN + 8;     // a [k][n] operand: rows of 128 along n
-constexpr int kOperand = kN * kLdK > kKC * kLdN ? kN * kLdK : kKC * kLdN;
-constexpr int kStage = kM * kLdK + kOperand;  // x (or nothing) and a W tile
+using namespace nm::tc;
+
 constexpr int kPair = 2;         // vocabulary tiles whose dl is added in one pass
 constexpr int kLdDl = kPair * kN + 4;  // dx: dl[m][v] of both tiles side by side
 constexpr size_t kSmem = sizeof(float) * (2 * kStage + kM * kLdDl);
@@ -171,103 +166,10 @@ constexpr size_t kSmem = sizeof(float) * (2 * kStage + kM * kLdDl);
 // 32 puts the B operand's [k][n] reads in distinct banks
 constexpr int kLdDlW = kN + 8;
 constexpr size_t kSmemW = sizeof(float) * (2 * kStage + kPair * kM * kLdDlW);
-constexpr int kThreads = 256;    // 8 warps as 2 x 4, each a 64 x 32 warp tile
-
-// v = hi + lo: hi is v rounded to TF32's 10 mantissa bits (integer operations:
-// cvt.rna.tf32 runs on a slow pipe); lo is the exact rest, of which the
-// tensor core reads the top 19 bits
-__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows x cols (cols a multiple of 4) of `src` (row stride lds) into
-// `dst` (row stride ld) with cp.async, zero past rows_ok rows and cols_ok
-// columns; 16-byte copies when `vec` (every row 16-byte aligned, cols_ok a
-// multiple of 4), else 4-byte ones. Commits one group.
-__device__ __forceinline__ void load(float* dst, int ld, const float* __restrict__ src, size_t lds,
-                                     int rows, int cols, int rows_ok, int cols_ok, bool vec) {
-  if (vec) {
-    const int quads = cols / 4;
-    for (int i = threadIdx.x; i < rows * quads; i += kThreads) {
-      const int r = i / quads, c = (i % quads) * 4;
-      const bool ok = r < rows_ok && c < cols_ok;
-      nm::cp_async16(dst + r * ld + c, ok ? src + r * lds + c : src, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-      const int r = i / cols, c = i % cols;
-      const bool ok = r < rows_ok && c < cols_ok;
-      nm::cp_async4(dst + r * ld + c, ok ? src + r * lds + c : src, ok ? 4 : 0);
-    }
-  }
-  nm::cp_async_commit();
-}
-
-// acc += A B over one stage of `kc` (a multiple of 8) depths for this warp's
-// 64 x 32 tile: A row-major (a[m][k], row stride lda), or stored [k][m] (row
-// stride lda) when kAKMajor; B stored [n][k] (row stride kLdK) when kBNMajor,
-// else [k][n] (row stride kLdB).
-template <bool kBNMajor, bool kAKMajor = false, int kLdB = kLdN>
-__device__ __forceinline__ void warp_product(const float* a, int lda, const float* b, int kc,
-                                             float (&acc)[4][4][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
-  for (int k = 0; k < kc; k += 8) {
-    unsigned ah[4][4], al[4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      if (kAKMajor) {
-        const float* ac = a + (k + t) * lda + wm + mi * 16 + g;
-        split(ac[0], ah[mi][0], al[mi][0]);
-        split(ac[8], ah[mi][1], al[mi][1]);
-        split(ac[4 * lda], ah[mi][2], al[mi][2]);
-        split(ac[4 * lda + 8], ah[mi][3], al[mi][3]);
-      } else {
-        const float* ar = a + (wm + mi * 16 + g) * lda + k + t;
-        split(ar[0], ah[mi][0], al[mi][0]);
-        split(ar[8 * lda], ah[mi][1], al[mi][1]);
-        split(ar[4], ah[mi][2], al[mi][2]);
-        split(ar[8 * lda + 4], ah[mi][3], al[mi][3]);
-      }
-    }
-    unsigned bh[4][2], bl[4][2];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = wn + ni * 8 + g;
-      split(kBNMajor ? b[n * kLdK + k + t] : b[(k + t) * kLdB + n], bh[ni][0], bl[ni][0]);
-      split(kBNMajor ? b[n * kLdK + k + t + 4] : b[(k + t + 4) * kLdB + n], bh[ni][1],
-            bl[ni][1]);
-    }
-    // the small terms first; each pass walks all 16 sums, so that
-    // consecutive products never wait on one another
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
-  }
-}
 
 // The dl step of the backward: the logit tile t = x W (rows m0.., vocabulary
-// columns n0..) computed once on the tensor cores over depth D, in double-
-// buffered stages, turned into dl = g (softmax - (1 - eps) onehot - eps / V)
+// columns n0..) computed once on the tensor cores over depth D (tile_product),
+// turned into dl = g (softmax - (1 - eps) onehot - eps / V)
 // (zero outside N x V) and stored as dls[m][v] (row stride kLd): the A
 // operand of dl W^T for dx, and the B operand of x^T dl for dW. `stages` is
 // free on return; `dls` is complete after the caller's next __syncthreads().
@@ -279,32 +181,7 @@ __device__ __forceinline__ void dl_tile(const float* __restrict__ x, const float
                                         const float* __restrict__ g, int N, int D, int V, int m0,
                                         int n0, float eps, bool vec, float* stages, float* dls) {
   float acc[4][4][4] = {};
-  // stage s: x[m0.., k0..] as [m][k], then W(k0.., n0..) as [k][n] or, tied,
-  // [n][k]
-  auto stage_in = [&](int s, int k0) {
-    float* st = stages + s * kStage;
-    load(st, kLdK, x + static_cast<size_t>(m0) * D + k0, D, kM, kKC, N - m0, D - k0, vec);
-    if (kWT)
-      load(st + kM * kLdK, kLdK, w + static_cast<size_t>(n0) * D + k0, D, kN, kKC, V - n0,
-           D - k0, vec);
-    else
-      load(st + kM * kLdK, kLdN, w + static_cast<size_t>(k0) * V + n0, V, kKC, kN, D - k0,
-           V - n0, vec);
-  };
-  const int chunks = (D + kKC - 1) / kKC;
-  stage_in(0, 0);
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      stage_in((c + 1) & 1, (c + 1) * kKC);
-      nm::cp_async_wait<2>();  // this stage's two groups are in
-    } else {
-      nm::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* st = stages + (c & 1) * kStage;
-    warp_product<kWT>(st, kLdK, st + kM * kLdK, kKC, acc);
-    __syncthreads();  // the stage is consumed before it is loaded again
-  }
+  tile_product<kWT>(x, w, N, D, V, m0, n0, vec, stages, acc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4 * 64, wn = warp % 4 * 32;
 #pragma unroll

@@ -1,12 +1,13 @@
 // One 128 x 128 tile of a logit projection, x W, on the SIMT units.
 //
-// Shared by K3 (beam_select.cu) and the fused cross-entropy kernels
-// (fused_xent.cu), which all compute their logits tile by tile in registers
-// and fold reductions into the tile's epilogue; the GRU BPTT's prologue
-// (gru_bptt.cu) computes the gates of every step with logit_tile_rows. A
-// block of 256 threads owns the tile; thread (tr, tc) = (tid / 16, tid % 16)
-// accumulates rows tr * 8 .. + 8 and columns tc + 16 j, j < 8, so one
-// shared-memory read feeds eight FMAs.
+// Used by the fused cross-entropy's forward (fused_xent.cu `xent_fwd_kernel`),
+// which computes its logits tile by tile in registers and folds reductions
+// into the tile's epilogue, and, as logit_tile_rows, by the GRU BPTT's
+// prologue (gru_bptt.cu), which computes the gates of every step. K3 and the
+// cross-entropy's backward run their products on the tensor cores instead
+// (tc_product.cuh). A block of 256 threads owns the tile; thread (tr, tc) =
+// (tid / 16, tid % 16) accumulates rows tr * 8 .. + 8 and columns tc + 16 j,
+// j < 8, so one shared-memory read feeds eight FMAs.
 // The 16 threads that share tr are 16 consecutive lanes of one warp: a row's
 // reduction over the tile is a shuffle over 16 lanes (row_reduce_*).
 #pragma once
@@ -99,8 +100,8 @@ __device__ __forceinline__ void logit_tile(const float* __restrict__ x,
 // logit_tile's product (W row-major) for x with rows ldx floats apart, which
 // this launch wrote earlier: x is read through L2 (__ldcg), never the
 // read-only path. Ends with a __syncthreads(). Kept apart from logit_tile:
-// one template for both changed the code K3 and xent_fwd compile to (K3 5%
-// slower on the H100).
+// one template for both changed the code xent_fwd compiled to (on the H100
+// it moved by 5 to 16%).
 __device__ __forceinline__ void logit_tile_rows(const float* x, size_t ldx,
                                                 const float* __restrict__ w, int N, int K,
                                                 int V, int m0, int n0, TileStage& st,

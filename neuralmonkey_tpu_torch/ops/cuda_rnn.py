@@ -31,8 +31,10 @@ import torch
 from . import kernel_config
 from .nn import Params
 
-# batch rows per block in csrc/gru_scan.cu; its shared memory holds three
-# (rows, H rounded up to 4) f32 tiles, up to an H100 SM's 227 KiB
+# the hidden sizes K1 takes: any whose three padded f32 state rows fit one
+# H100 SM's 227 KiB, the bound of the kernel's first design (one batch row a
+# block), which the card tests reach (H 19368); ``gru_scan_plan`` lays out
+# every such size
 _KERNEL_ROWS = 1
 _SHARED_BYTES = 227 * 1024
 # the LSTM kernels (csrc/lstm_scan.cu, csrc/lstm_bptt.cu) are column-split:
@@ -66,19 +68,21 @@ def lstm_scan_fits(hidden: int) -> bool:
     return _LSTM_VECTORS * -(-hidden // 4) * 4 * 4 <= _SHARED_BYTES
 
 
-# csrc/lstm_scan.cu: threads per block; a thread's tile is 4 rows x 4 gate
-# columns, and the k split parts a tile's sum over at most 8 threads
+# csrc/lstm_scan.cu (and csrc/gru_scan.cu): threads per block; a thread's
+# tile is 4 rows x 4 gate columns, and the k split parts a tile's sum over
+# at most 8 threads (16 in K1's second phase, which has half the columns)
 LSTM_SCAN_THREADS = 256
 
 
-class LSTMScanPlan(NamedTuple):
-    """The launch of ``lstm_scan`` or ``lstm_bptt``: ``blocks_per_dir``
-    blocks for each direction, each owning ``units`` hidden units (the
-    last block of a direction may own fewer); ``rows`` batch rows of h
-    staged per tile; the W_h slice in shared memory ``k_tile`` rows at a
-    time (all of it, ``resident``, when ``k_tile`` covers H rounded up to
-    4); each 4 x 4 tile of z's sum split over ``k_split`` threads;
-    ``smem_bytes`` of shared memory per block."""
+class ColumnSplitPlan(NamedTuple):
+    """The launch of ``lstm_scan``, ``lstm_bptt`` or K1 ``gru_scan``:
+    ``blocks_per_dir`` blocks for each direction, each owning ``units``
+    hidden units (the last block of a direction may own fewer); ``rows``
+    batch rows of h staged per tile; the recurrent weights' slice in
+    shared memory ``k_tile`` rows at a time (all of it, ``resident``,
+    when ``k_tile`` covers H rounded up to 4); each 4 x 4 tile of a sum
+    split over ``k_split`` threads; ``smem_bytes`` of shared memory per
+    block."""
     blocks_per_dir: int
     units: int
     rows: int
@@ -96,16 +100,20 @@ def lstm_bptt_slice_stride(units: int) -> int:
 
 
 def _column_split_plan(name: str, batch: int, hidden: int, n_dirs: int,
-                       sm_count: int, smem_limit: int,
-                       stride) -> LSTMScanPlan:
-    """The column-split layout both LSTM kernels share; ``stride(units)``
-    is the row stride of the W_h slice in shared memory."""
+                       sm_count: int, smem_limit: int, stride,
+                       gates: int = 4, sum_gates: int = 4,
+                       quantum: int = 1) -> ColumnSplitPlan:
+    """The column-split layout the LSTM kernels and K1 share: each block
+    owns ``units`` hidden units (a multiple of ``quantum``) and their
+    ``gates`` gate columns, a slice of ``stride(units)`` floats a depth;
+    its partial sums cover ``sum_gates`` gate columns a unit."""
     if min(batch, hidden, n_dirs, sm_count) < 1 or sm_count < n_dirs:
         raise ValueError(f"{name}: no plan for B {batch}, H {hidden}, "
                          f"{n_dirs} directions on {sm_count} SMs")
     units = -(-hidden // (sm_count // n_dirs))
+    units = -(-units // quantum) * quantum
     blocks = -(-hidden // units)
-    cols, w_row = 4 * units, stride(units)
+    cols, w_row = sum_gates * units, stride(units)
     h4 = -(-hidden // 4) * 4
     row_floats = h4 + 4 + 1  # the h row (padded stride) and its mask
 
@@ -117,7 +125,7 @@ def _column_split_plan(name: str, batch: int, hidden: int, n_dirs: int,
     def layout(k_tile: int):
         for k_split in (8, 4, 2, 1):
             rows = rows_for(k_tile, k_split)
-            tasks = units * -(-max(rows, 1) // 4)
+            tasks = cols // 4 * -(-max(rows, 1) // 4)
             if k_split == 1 or tasks * k_split <= LSTM_SCAN_THREADS:
                 return rows, k_split
         raise AssertionError("unreachable")
@@ -126,7 +134,7 @@ def _column_split_plan(name: str, batch: int, hidden: int, n_dirs: int,
     resident = rows >= min(batch, 16)
     k_tile = h4
     if not resident:
-        quarter_rows = smem_limit // 4 // (4 * cols)
+        quarter_rows = smem_limit // 4 // (4 * gates * units)
         k_tile = min(h4, max(4, quarter_rows // 4 * 4))
         rows, k_split = layout(k_tile)
     if rows < 1:
@@ -134,11 +142,12 @@ def _column_split_plan(name: str, batch: int, hidden: int, n_dirs: int,
                          f"{smem_limit} bytes of shared memory")
     smem = 4 * (k_tile * w_row + rows * (h4 + 4) + k_split * rows * cols
                 + rows)
-    return LSTMScanPlan(blocks, units, rows, k_tile, k_split, smem, resident)
+    return ColumnSplitPlan(blocks, units, rows, k_tile, k_split, smem,
+                           resident)
 
 
 def lstm_scan_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
-                   smem_limit: int) -> LSTMScanPlan:
+                   smem_limit: int) -> ColumnSplitPlan:
     """The layout of the persistent scan (csrc/lstm_scan.cu) on a card of
     ``sm_count`` SMs with ``smem_limit`` bytes of shared memory a block:
     at most one block per SM, every block resident (the launch is
@@ -151,7 +160,7 @@ def lstm_scan_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
 
 
 def lstm_bptt_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
-                   smem_limit: int) -> LSTMScanPlan:
+                   smem_limit: int) -> ColumnSplitPlan:
     """The layout of the persistent BPTT (csrc/lstm_bptt.cu): the scan's
     (:func:`lstm_scan_plan`), with the W_h slice's rows at
     :func:`lstm_bptt_slice_stride`. The same slice (or k tile) serves
@@ -160,6 +169,24 @@ def lstm_bptt_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
     Raises ``ValueError`` where no layout fits."""
     return _column_split_plan("lstm_bptt", batch, hidden, n_dirs, sm_count,
                               smem_limit, lstm_bptt_slice_stride)
+
+
+def gru_scan_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
+                  smem_limit: int) -> ColumnSplitPlan:
+    """The layout of K1's persistent scan (csrc/gru_scan.cu) on a card of
+    ``sm_count`` SMs with ``smem_limit`` bytes of shared memory a block:
+    at most one block per SM, every block resident (the launch is
+    cooperative). A block owns ``units`` hidden units (a multiple of 4)
+    and keeps their three gate columns (r and u of W_gh, c of W_ch), 3U
+    floats a depth, beside a tile of ``rows`` staged rows of h (or r⊙h)
+    and the partial sums of the two gates of phase 1, which the one gate
+    of phase 2 takes in twice as many parts (``k_split`` is phase 1's).
+    The slice stays in shared memory whenever it fits beside at least
+    min(B, 16) rows; otherwise it streams in k tiles of about a quarter
+    of the shared memory. Raises ``ValueError`` where no layout fits."""
+    return _column_split_plan("gru_scan", batch, hidden, n_dirs, sm_count,
+                              smem_limit, lambda units: 3 * units, gates=3,
+                              sum_gates=2, quantum=4)
 
 
 # csrc/gru_bptt.cu's prologue tile stage (logit_tile.cuh): two 16 x 132 f32
@@ -366,6 +393,28 @@ def gru_bptt(x: torch.Tensor, mask: torch.Tensor, hprev: torch.Tensor,
     return dx
 
 
+def launch_gru_scan(x, mask, wgh, wch, out, final, carries,
+                    reverse_mask: int, plan: ColumnSplitPlan) -> None:
+    """One cooperative launch of K1 on checked CUDA tensors, laid out by
+    ``plan`` (:func:`gru_scan_plan`), with its exchange buffers: (3, D,
+    B, H) float32 for the carried h, r⊙h and u, each written before it
+    is read, and a barrier counter a direction at 0, each on its own
+    128-byte line. A refused launch raises with the plan in the
+    message."""
+    batch, time, _ = x.shape
+    n_dirs, hidden, _ = wch.shape
+    scratch = x.new_empty(3, n_dirs, batch, hidden)
+    sync = torch.zeros(n_dirs, 32, dtype=torch.int32, device=x.device)
+    try:
+        kernel_config.launch("gru_scan", x, mask, wgh, wch, out, final,
+                             carries, scratch, sync, batch, time, hidden,
+                             n_dirs, reverse_mask, plan.blocks_per_dir,
+                             plan.units, plan.rows, plan.k_tile,
+                             plan.k_split, plan.smem_bytes)
+    except RuntimeError as err:
+        raise RuntimeError(f"{err}; launch plan {plan}") from err
+
+
 class _GRUScan(torch.autograd.Function):
     """The scan with its hand-written BPTT (``pallas_rnn.gru_scan``'s
     custom VJP): K1 and ``gru_bptt`` on CUDA tensors, their plain
@@ -392,9 +441,10 @@ class _GRUScan(torch.autograd.Function):
             final = x.new_empty(batch, n_dirs * hidden)
             carries = x.new_empty(batch, time, n_dirs * hidden) \
                 if save else None
-            kernel_config.launch("gru_scan", x, mask, wgh, wch, out, final,
-                                 carries, batch, time, hidden, n_dirs,
-                                 reverse_mask)
+            launch_gru_scan(x, mask, wgh, wch, out, final, carries,
+                            reverse_mask, gru_scan_plan(
+                                batch, hidden, n_dirs,
+                                *kernel_config.tensor_device_limits(x)))
         else:
             out, final, carries = gru_scan_reference(
                 x, mask, wgh, wch, _directions(reverse_mask, n_dirs))
@@ -634,7 +684,7 @@ def lstm_scan_scratch(xz: torch.Tensor, n_dirs: int, hidden: int
 
 
 def launch_lstm_scan(xz, mask, wh, out, final, c_car, h_car, scratch, sync,
-                     forget_bias: float, reverse_mask: int) -> LSTMScanPlan:
+                     forget_bias: float, reverse_mask: int) -> ColumnSplitPlan:
     """One cooperative launch of ``lstm_scan`` on checked CUDA tensors,
     laid out by :func:`lstm_scan_plan` for their device; returns the
     plan."""

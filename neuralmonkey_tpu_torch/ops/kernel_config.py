@@ -65,7 +65,7 @@ ENTRY_POINTS = {
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # pointers..., sizes and flags..., stream
-    "nm_gru_scan": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    "nm_gru_scan": [_PTR] * 9 + [_INT] * 11 + [_PTR],
     "nm_gru_bptt": [_PTR] * 12 + [_INT] * 10 + [_PTR],
     "nm_bahdanau_step": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "nm_fused_logits": [_PTR] * 7 + [_INT] * 3 + [_PTR],

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Device times of the redesigned kernels (``lstm_scan``, ``lstm_bptt``,
-``gru_bptt``, the flash forward, the flash backward's dq and dkv,
-``fused_xent_bwd_dx`` and ``fused_xent_bwd_dw``), with their library or
-like-for-like yardsticks, and of the kernels that share their code or
-their path (K1 ``gru_scan``, K3, ``fused_xent_fwd``), for the port found
-under ROOT (by default this checkout), so that two versions can be
-compared on one card in one call:
+"""Device times of the redesigned kernels (K1 ``gru_scan``, K3,
+``lstm_scan``, ``lstm_bptt``, ``gru_bptt``, the flash forward, the flash
+backward's dq and dkv, ``fused_xent_bwd_dx`` and ``fused_xent_bwd_dw``),
+with their library or like-for-like yardsticks, and of the kernels that
+share their code or their path (``rowmax_lse``, ``fused_xent_fwd``), for
+the port found under ROOT (by default this checkout), so that two
+versions can be compared on one card in one call:
 
     python3 scripts/kernel_ab.py [--root DIR] [--sweep] [--only ROWS]  (GPU)
 
@@ -17,7 +17,9 @@ beside the plain scan's and cuDNN's backward
 (``chip_smoke.lstm_backward_times``); ``gru_bptt`` at the GRU encoder's
 B 64, T 32, H 512, two directions, full sources, with the whole GRU
 backward beside the plain scan's (``chip_smoke.gru_backward_times``),
-and K1 through its wrapper at that shape; the flash forward at the
+and K1 at that shape through its wrapper, alone (``scan_ms``) and alone
+saving the carries a gradient needs (``scan_saved_ms``); the flash
+forward at the
 Transformer encoder's B 64, H 8, 32 x 32, Dh 64 and at a long source
 (B 8, H 8, 512 x 512), both with ragged key masks, beside
 ``scaled_dot_product_attention``; the flash backward (dq, dkv, and the
@@ -25,10 +27,14 @@ whole backward with its dcap row sums) at the encoder, the causal
 decoder (48 x 48), the cross attention (48 x 32) and the long source,
 beside SDPA's backward (``chip_smoke.flash_backward_times``); the three
 fused cross-entropy kernels at N 3072, D 512, V 30000, (D, V), eps 0,
-with the plain dx and dW; K3 at 640 x 512 x 30720. The timing code is
+with the plain dx and dW; K3 at 640 x 512 x 30720, beside cuBLAS's
+``addmm`` of the same shape (a reference for the product alone, not a
+library yardstick: no PyTorch call computes K3's whole function);
+``rowmax_lse`` at 640 x 30080. The timing code is
 this checkout's ``chip_smoke.py`` whatever ROOT is. ``--sweep`` adds the
 LSTM scan alone, ``lstm_bptt`` and ``gru_bptt`` at other batches and
-lengths (where a step's time goes);
+lengths, and K1's scan alone at T 8, 16 and 32 (where a step's time
+goes);
 ``--only`` keeps the rows whose names start with one of the
 comma-separated prefixes. Prints one JSON line with the card's name and
 power limit.
@@ -163,9 +169,33 @@ def main() -> int:
                   nn.GRUCell(width, hidden).init(gen).items()}
                  for _ in range(2)]
         full = torch.ones(batch, time_, device=device)
-        result["gru_scan"] = {"ms": cs.time_ms(lambda: cuda_rnn.gru_scan(
-            [(cells[0], False), (cells[1], True)], inputs, full))}
-    # the fused cross-entropy and K3, which share logit_tile.cuh
+        wgh = torch.stack([c["gates_h"] for c in cells])
+        wch = torch.stack([c["cand_h"] for c in cells])
+
+        def scan(x, mask, saved):
+            # K1 alone on the hoisted inputs: without the carries, or
+            # saving them as a training forward does
+            if saved:
+                return cuda_rnn._GRUScan.apply(x, mask, wgh, wch, 2)
+            with torch.no_grad():
+                return cuda_rnn._GRUScan.apply(x, mask, wgh, wch, 2)
+        x = cuda_rnn.hoisted_inputs(cells, inputs)
+        x_grad = x.detach().requires_grad_()
+        result["gru_scan"] = {
+            "ms": cs.time_ms(lambda: cuda_rnn.gru_scan(
+                [(cells[0], False), (cells[1], True)], inputs, full)),
+            "scan_ms": cs.time_ms(lambda: scan(x, full, False)),
+            "scan_saved_ms": cs.time_ms(lambda: scan(x_grad, full, True))}
+        if args.sweep:
+            sweep = {}
+            for t in (8, 16, 32):
+                xt = x[:, :t].contiguous()
+                mt = full[:, :t].contiguous()
+                sweep[f"B{batch} T{t}"] = cs.time_ms(
+                    lambda: scan(xt, mt, False))
+            result["gru_scan"]["scan_sweep_ms"] = sweep
+    # the fused cross-entropy, whose backward shares K3's tensor-core
+    # product (tc_product.cuh), and K3
     n, d, v = cs.XENT_N, cs.XENT_D, cs.VOCAB
     x, w, b = randn(n, d, scale=0.5), randn(d, v, scale=d ** -0.5), randn(
         v, scale=0.1)
@@ -189,8 +219,20 @@ def main() -> int:
         vp = -(-v // 1024) * 1024
         xk, wk = randn(cs.BATCH * cs.BEAM, d), randn(d, vp, scale=d ** -0.5)
         bk = randn(vp, scale=0.1)
-        result["fused_logits_rowmax_lse"] = {"ms": cs.time_ms(
-            lambda: beam_select.fused_logits_rowmax_lse(xk, wk, bk))}
+        # cuBLAS's float32 product of the same shape: a reference for the
+        # product alone, not a yardstick (no PyTorch call computes the
+        # logits with both reductions)
+        result["fused_logits_rowmax_lse"] = {
+            "ms": cs.time_ms(
+                lambda: beam_select.fused_logits_rowmax_lse(xk, wk, bk)),
+            "product_alone_cublas_addmm_ms": cs.time_ms(
+                lambda: torch.addmm(bk, xk, wk))}
+    if wanted("rowmax_lse"):
+        vp = -(-v // 128) * 128
+        logits = torch.full((cs.BATCH * cs.BEAM, vp), -4e9, device=device)
+        logits[:, :v] = randn(cs.BATCH * cs.BEAM, v, scale=4.0)
+        result["rowmax_lse"] = {"ms": cs.time_ms(
+            lambda: beam_select.rowmax_lse(logits))}
     # flash forward
     for case, (b, h, t, d) in (("encoder", (cs.BATCH, cs.T_HEADS, cs.SRC_LEN,
                                             cs.T_HEAD_DIM)),

@@ -262,6 +262,129 @@ def test_gru_scan_gradients_match_cpu(cuda_device, hidden):
         torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
 
 
+def _gru_scan_args(device, batch, time, hidden, reverse, lengths):
+    n_dirs = len(reverse)
+    x = _randn(device, batch, time, n_dirs * 3 * hidden, scale=0.5)
+    mask = _mask(device, lengths, time)
+    wgh = _randn(device, n_dirs, hidden, 2 * hidden, scale=hidden ** -0.5,
+                 seed=1)
+    wch = _randn(device, n_dirs, hidden, hidden, scale=hidden ** -0.5,
+                 seed=2)
+    return x, mask, wgh, wch
+
+
+@pytest.mark.parametrize("batch,time,hidden,reverse,resident,save", [
+    (64, 32, 512, (False, True), True, False),   # the encoder's shape
+    (64, 32, 512, (False, True), True, True),    # ... saving carries
+    (160, 6, 512, (False, True), True, True),    # a wide batch: row tiles
+    (64, 5, 2048, (False, True), False, True),   # streamed, 4 row tiles
+    (5, 4, 4099, (True,), False, True),          # streamed, H % 4 != 0
+    (3, 3, 19368, (True,), False, False)])       # the largest H scan_fits
+def test_gru_scan_persistent_plans(cuda_device, batch, time, hidden,
+                                   reverse, resident, save):
+    """The persistent K1 in each of its layouts against the plain version
+    on the same inputs, ragged lengths: outputs, final states and, when
+    saved, the carries the BPTT reads."""
+    gen = torch.Generator().manual_seed(batch)
+    lengths = torch.randint(1, time + 1, (batch,), generator=gen).tolist()
+    x, mask, wgh, wch = _gru_scan_args(cuda_device, batch, time, hidden,
+                                       reverse, lengths)
+    n_dirs = len(reverse)
+    reverse_mask = sum(1 << d for d, rev in enumerate(reverse) if rev)
+    plan = cuda_rnn.gru_scan_plan(batch, hidden, n_dirs,
+                                  *kernel_config.device_limits(0))
+    assert plan.resident == resident
+    out = x.new_empty(batch, time, n_dirs * hidden)
+    final = x.new_empty(batch, n_dirs * hidden)
+    carries = x.new_empty(batch, time, n_dirs * hidden) if save else None
+    kernel_config.reset_launch_counts()
+    cuda_rnn.launch_gru_scan(x, mask, wgh, wch, out, final, carries,
+                             reverse_mask, plan)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["gru_scan"] == 1
+    ref = cuda_rnn.gru_scan_reference(x, mask, wgh, wch, reverse)
+    got = (out, final, carries) if save else (out, final)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+
+
+def test_gru_scan_is_deterministic(cuda_device):
+    """Two calls at the encoder's shape give the same bits: every sum is
+    taken in one fixed order, with no atomics."""
+    gen = torch.Generator().manual_seed(11)
+    lengths = torch.randint(1, 33, (64,), generator=gen).tolist()
+    args = _gru_scan_args(cuda_device, 64, 32, 512, (False, True), lengths)
+    first = cuda_rnn._GRUScan.apply(*args, 2)
+    second = cuda_rnn._GRUScan.apply(*args, 2)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gru_scan_refuses_a_grid_that_cannot_be_resident(cuda_device):
+    """A plan for twice the card's SMs, each block asking for all of an
+    SM's shared memory, wants more blocks than can be resident at once:
+    the cooperative launch is refused and raises with the plan, without
+    counting a launch or writing anything; the next launch runs."""
+    batch, time, hidden = 8, 3, 512
+    x, mask, wgh, wch = _gru_scan_args(cuda_device, batch, time, hidden,
+                                       (False, True), [3] * batch)
+    sms, smem = kernel_config.device_limits(0)
+    plan = cuda_rnn.gru_scan_plan(batch, hidden, 2, 2 * sms, smem)
+    assert plan.blocks_per_dir * 2 > sms
+    plan = plan._replace(smem_bytes=smem)
+    out = x.new_full((batch, time, 2 * hidden), float("nan"))
+    final = x.new_full((batch, 2 * hidden), float("nan"))
+    kernel_config.reset_launch_counts()
+    with pytest.raises(RuntimeError,
+                       match="gru_scan: launch failed.*launch plan"):
+        cuda_rnn.launch_gru_scan(x, mask, wgh, wch, out, final, None, 2,
+                                 plan)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["gru_scan"] == 0
+    assert torch.isnan(out).all() and torch.isnan(final).all()
+    got = cuda_rnn._GRUScan.apply(x, mask, wgh, wch, 2)
+    ref = cuda_rnn.gru_scan_reference(x, mask, wgh, wch, (False, True))
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("batch,time,hidden", [
+    (64, 32, 512),    # the encoder's shape, the slice resident
+    (64, 5, 2048)])   # both kernels streamed, in row tiles
+def test_gru_bptt_on_the_scans_carries(cuda_device, batch, time, hidden):
+    """Gradients through _GRUScan on the card (K1 saving its carries, then
+    gru_bptt restarting from them) against autograd through the plain
+    scan on the same CUDA inputs; the gradients grow through the reverse
+    steps, so the tolerance scales with their largest entry."""
+    assert cuda_rnn.bptt_fits(hidden)
+    gen = torch.Generator().manual_seed(hidden)
+    lengths = torch.randint(1, time + 1, (batch,), generator=gen).tolist()
+    args = _gru_scan_args(cuda_device, batch, time, hidden, (False, True),
+                          lengths)
+    gout = _randn(cuda_device, batch, time, 2 * hidden, seed=3)
+    gfinal = _randn(cuda_device, batch, 2 * hidden, seed=4)
+    grads = []
+    for kernel in (True, False):
+        x, mask, wgh, wch = (a.clone() for a in args)
+        for leaf in (x, wgh, wch):
+            leaf.requires_grad_()
+        kernel_config.reset_launch_counts()
+        if kernel:
+            out, final = cuda_rnn._GRUScan.apply(x, mask, wgh, wch, 2)
+        else:
+            out, final, _ = cuda_rnn.gru_scan_reference(x, mask, wgh, wch,
+                                                        (False, True))
+        grads.append(torch.autograd.grad((out, final), (x, wgh, wch),
+                                         (gout, gfinal)))
+        torch.cuda.synchronize()
+        counts = kernel_config.launch_counts()
+        assert (counts["gru_scan"], counts["gru_bptt"]) == (
+            (1, 1) if kernel else (0, 0))
+    for g, r in zip(*grads):
+        scale = max(1.0, float(r.abs().max()))
+        torch.testing.assert_close(g, r, atol=1e-4 * scale, rtol=1e-4)
+
+
 def test_bahdanau_kernel(cuda_device):
     batch, time, att, dim = 5, 9, 48, 80
     keys = _randn(cuda_device, batch, time, att)
@@ -307,6 +430,57 @@ def test_fused_logits_kernel(cuda_device):
     ref = beam_select.fused_logits_reference(x, w, b)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+
+
+def _fused_logits_args(device, n, d, vp):
+    """A beam step's projection as the search arms it: the vocabulary
+    padded to vp columns with bias -1e9 on the pad (all of the last
+    group's columns but 28 real when vp is 128)."""
+    v_real = {128: 100, 1024: 1000, 30720: 30000}[vp]
+    x = _randn(device, n, d)
+    w = _randn(device, d, vp, scale=d ** -0.5, seed=1)
+    b = torch.cat([_randn("cpu", v_real, scale=0.1, seed=2),
+                   torch.full((vp - v_real,), -1e9)]).to(device)
+    return (x, w, b), v_real
+
+
+@pytest.mark.parametrize("n", [1, 37, 70, 640])
+@pytest.mark.parametrize("d,vp", [(40, 128), (100, 1024), (130, 1024),
+                                  (512, 30720)])
+def test_fused_logits_ragged(cuda_device, n, d, vp):
+    """K3 on the tensor cores at ragged rows (a partial row tile), depths
+    (a partial 32-deep stage; D 130 has rows that are not 16-byte
+    aligned, so 4-byte copies) and vocabularies, against the plain
+    version: logits and group maxima where the vocabulary is real (at
+    -1e9 the float32 spacing is 64; the pad only has to stay far below),
+    lse everywhere."""
+    args, v_real = _fused_logits_args(cuda_device, n, d, vp)
+    kernel_config.reset_launch_counts()
+    got = beam_select.fused_logits_rowmax_lse(*args)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["fused_logits_rowmax_lse"] == 1
+    ref = beam_select.fused_logits_reference(*args)
+    groups = -(-v_real // 128)
+    for g, r in ((got[0][:, :v_real], ref[0][:, :v_real]),
+                 (got[1][:, :groups], ref[1][:, :groups]), (got[2], ref[2])):
+        scale = max(1.0, float(r.abs().max()))
+        torch.testing.assert_close(g, r, atol=1e-5 * scale, rtol=1e-5)
+    assert float(got[0][:, v_real:].max()) < -1e8
+    # each rowmax entry is the largest of the logits the kernel wrote
+    torch.testing.assert_close(
+        got[1], got[0].reshape(n, vp // 128, 128).amax(dim=2), atol=0,
+        rtol=0)
+
+
+def test_fused_logits_is_deterministic(cuda_device):
+    """Two calls at the serving shape give the same bits: the block sums
+    and the fold of their partials run in one fixed order."""
+    args, _ = _fused_logits_args(cuda_device, 640, 512, 30720)
+    first = beam_select.fused_logits_rowmax_lse(*args)
+    second = beam_select.fused_logits_rowmax_lse(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n,d,v", [(70, 40, 300), (256, 128, 1024),

@@ -1,10 +1,10 @@
 """The launch plans of the persistent LSTM scan and BPTT, the persistent
-GRU BPTT, the fused cross-entropy's dx and dW and the register-tiled
-flash forward and backward,
-checked on the CPU: which block owns which hidden units, rows, queries
-or keys, which tiles each block walks, what fits an H100's shared memory
-and SM count, and which layout each shape gets. The kernels themselves
-run only on the card (``tests/test_torch_cuda.py``)."""
+GRU scan (K1) and BPTT, the fused cross-entropy's dx and dW and the
+register-tiled flash forward and backward, checked on the CPU: which
+block owns which hidden units, rows, queries or keys, which tiles each
+block walks, what fits an H100's shared memory and SM count, and which
+layout each shape gets. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``)."""
 
 import pytest
 
@@ -404,6 +404,114 @@ def test_gru_bptt_plan_reads_the_card():
 def test_gru_bptt_plan_raises_where_nothing_fits(sms, smem):
     with pytest.raises(ValueError, match="gru_bptt"):
         cuda_rnn.gru_bptt_plan(64, 512, 2, sms, smem)
+
+
+# (batch, hidden, directions): the smoke's encoder, the card tests'
+# shapes, and the edges of what scan_fits accepts
+GRU_SCAN_SHAPES = [(64, 512, 2), (6, 16, 1), (6, 64, 2), (6, 1024, 2),
+                   (6, 6, 2), (6, 4099, 1), (5, 24, 2), (4, 8, 1),
+                   (4, 20, 1), (5, 50, 2), (64, 2048, 2), (64, 4099, 2),
+                   (64, 7264, 2), (3, 19368, 1), (64, 19368, 2),
+                   (1, 1, 1), (160, 512, 2), (512, 512, 1), (1, 512, 2)]
+
+
+def _scan_plan(batch, hidden, n_dirs):
+    return cuda_rnn.gru_scan_plan(batch, hidden, n_dirs, H100_SMS,
+                                  H100_SMEM)
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs", GRU_SCAN_SHAPES)
+def test_gru_scan_plan_owns_every_unit_once(batch, hidden, n_dirs):
+    """Blocks of a multiple of 4 units cover every unit of a direction
+    once; no block of a direction is left without a unit."""
+    plan = _scan_plan(batch, hidden, n_dirs)
+    assert plan.units % 4 == 0
+    owned = [u for block in range(plan.blocks_per_dir)
+             for u in range(block * plan.units,
+                            min((block + 1) * plan.units, hidden))]
+    assert owned == list(range(hidden))
+    assert (plan.blocks_per_dir - 1) * plan.units < hidden
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs", GRU_SCAN_SHAPES)
+def test_gru_scan_plan_fits_the_card(batch, hidden, n_dirs):
+    """Shared memory as csrc/gru_scan.cu lays it out (the slice of three
+    gate columns a unit, or its k tile; the staged h or r·h rows of a
+    tile; the partial sums of phase 1's two gates, k_split parts; the
+    mask) within 227 KB; one block per SM at most, so the cooperative
+    launch holds every block; both phases' k splits fit the block's
+    threads (phase 2 has half the columns in twice the parts)."""
+    plan = _scan_plan(batch, hidden, n_dirs)
+    units, h4 = plan.units, -(-hidden // 4) * 4
+    assert plan.smem_bytes == 4 * (
+        plan.k_tile * 3 * units + plan.rows * (h4 + 4)
+        + plan.k_split * plan.rows * 2 * units + plan.rows)
+    assert plan.smem_bytes <= H100_SMEM
+    assert plan.blocks_per_dir * n_dirs <= H100_SMS
+    assert 1 <= plan.rows <= batch
+    # whole tiles of 4 rows, unless fewer than 4 rows fit
+    assert plan.rows == batch or plan.rows % 4 == 0 or plan.rows < 4
+    assert plan.k_tile % 4 == 0 and 4 <= plan.k_tile <= h4
+    assert plan.resident == (plan.k_tile == h4)
+    row_groups = -(-plan.rows // 4)
+    phase1 = (2 * units // 4) * row_groups * plan.k_split
+    phase2 = (units // 4) * row_groups * 2 * plan.k_split
+    assert phase1 == phase2
+    assert plan.k_split == 1 or phase1 <= cuda_rnn.LSTM_SCAN_THREADS
+
+
+def test_gru_scan_plan_keeps_the_slice_resident_at_the_encoder_shape():
+    """B 64, H 512, two directions: 64 blocks a direction of 8 units,
+    each holding its 24 x 512 slice (48 KB) beside all 64 rows of h and
+    four parts of phase 1's sums: 197,888 bytes."""
+    plan = _scan_plan(64, 512, 2)
+    assert plan.resident and plan.rows == 64
+    assert (plan.blocks_per_dir, plan.units, plan.k_split) == (64, 8, 4)
+    assert plan.smem_bytes == 197888
+
+
+@pytest.mark.parametrize("batch,hidden,n_dirs,tiles", [
+    (64, 2048, 2, 4), (64, 4099, 2, 8), (6, 4099, 1, 1), (64, 7264, 2, 16),
+    (3, 19368, 1, 2), (64, 19368, 2, 32)])
+def test_gru_scan_plan_streams_what_does_not_fit(batch, hidden, n_dirs,
+                                                 tiles):
+    """Where the slice does not fit beside 16 rows, it streams in k
+    tiles, and the rows go in tiles; H 19368, the largest scan_fits
+    takes, still fits."""
+    assert cuda_rnn.scan_fits(hidden)
+    plan = _scan_plan(batch, hidden, n_dirs)
+    assert not plan.resident and plan.k_tile < hidden
+    assert -(-batch // plan.rows) == tiles
+
+
+@pytest.mark.parametrize("hidden", [1, 3, 4, 5, 255, 512, 1000, 4100,
+                                    8300, 12345, 16384, 19368])
+@pytest.mark.parametrize("batch,n_dirs", [(1, 1), (64, 2), (256, 2)])
+def test_gru_scan_plan_lays_out_every_size_scan_fits_takes(hidden, batch,
+                                                          n_dirs):
+    assert cuda_rnn.scan_fits(hidden)
+    plan = _scan_plan(batch, hidden, n_dirs)
+    assert plan.smem_bytes <= H100_SMEM and plan.rows >= 1
+    assert plan.blocks_per_dir * plan.units >= hidden
+
+
+def test_gru_scan_plan_reads_the_card():
+    """Fewer SMs give fewer, wider blocks and a stream; less shared
+    memory a stream."""
+    small = cuda_rnn.gru_scan_plan(64, 512, 2, 16, H100_SMEM)
+    assert (small.blocks_per_dir, small.units) == (8, 64)
+    assert not small.resident and small.smem_bytes <= H100_SMEM
+    tight = cuda_rnn.gru_scan_plan(64, 512, 2, H100_SMS, 48 * 1024)
+    assert not tight.resident and tight.smem_bytes <= 48 * 1024
+
+
+@pytest.mark.parametrize("batch,hidden,sms,smem", [
+    (64, 512, 1, H100_SMEM), (64, 512, 132, 2048),
+    (1, 19368, 1, H100_SMEM), (1, 19368, 132, 64 * 1024)])
+def test_gru_scan_plan_raises_where_nothing_fits(batch, hidden, sms, smem):
+    with pytest.raises(ValueError, match="gru_scan"):
+        cuda_rnn.gru_scan_plan(batch, hidden, 2 if sms == 1 else 1, sms,
+                               smem)
 
 
 # (batch, heads, q len, kv len, head dim): the Transformer's encoder,
