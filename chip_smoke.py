@@ -17,7 +17,8 @@ Phases (any failure raises and the script exits non-zero):
    the shapes the serving and training paths give it and at one ragged
    shape, with median times from CUDA events, the bound of the same work
    on this card and, where one PyTorch call computes the same function,
-   that call's time (cuDNN's LSTM for the LSTM kernels), K1's scan alone
+   that call's time (cuDNN's LSTM for the LSTM kernels), K2's time with
+   the L2 cache flushed before each call, K1's scan alone
    without and with the carries a gradient needs, K3 beside cuBLAS's
    ``addmm`` of the same shape (a reference for the product alone: no
    PyTorch call computes K3's whole function), the whole
@@ -108,9 +109,9 @@ queued behind a spin kernel (``call_ms`` times one call of the wrapper
 alone, with its host cost).
 
 Every phase prints its seconds. Standard output holds the launch plans
-of the redesigned kernels (K1 ``gru_scan``, ``lstm_scan``, ``lstm_bptt``,
-``gru_bptt``, ``fused_xent_bwd_dx`` and ``_dw``, the flash forward and
-backward) as
+of the redesigned kernels (K1 ``gru_scan``, K2, ``lstm_scan``,
+``lstm_bptt``, ``gru_bptt``, ``fused_xent_bwd_dx`` and ``_dw``, the flash
+forward and backward) as
 one JSON line, the card's name and power limit, a JSON object of the
 phases' results, then, on the line before the last, a JSON object with
 one entry per kernel; the last line is
@@ -250,6 +251,28 @@ def time_ms(fn, runs: int = 25) -> float:
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b)
                              for a, b in zip(events, events[1:]))
+
+
+def flushed_ms(fn, runs: int = 25) -> float:
+    """Median device milliseconds of one call of ``fn`` with the L2 cache
+    cold: a 64 MB buffer (more than the H100's 50 MB of L2) is written
+    before each call, outside the CUDA events around it, all queued
+    behind a spin kernel as in :func:`time_ms`."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def call_ms(fn, runs: int = 25) -> float:
@@ -395,16 +418,23 @@ def check_kernels(device):
         ref = cuda_attention.bahdanau_reference(keys, states, mask, pq, v)
         record("fused_bahdanau_step", max_err(got[1], ref[1]), 1e-5,
                (batch, time_, "weights"))
-        timing = ((time_ms(lambda: cuda_attention.fused_bahdanau_step(
-            keys, states, mask, pq, v)),
-            time_ms(lambda: cuda_attention.bahdanau_reference(
-                keys, states, mask, pq, v))) if timed else ())
+        timing = {}
+        if timed:
+            def step():
+                return cuda_attention.fused_bahdanau_step(keys, states, mask,
+                                                          pq, v)
+            # back to back the 12.6 MB of keys and states stay in the 50
+            # MB L2; the flushed time reads them from device memory
+            timing = dict(ms=time_ms(step), l2_flushed_ms=flushed_ms(step),
+                          plain_ms=time_ms(
+                              lambda: cuda_attention.bahdanau_reference(
+                                  keys, states, mask, pq, v)))
         dim = 2 * RNN
         work = (batch * time_ * (4 * ATT + 2 * dim),
                 4 * (batch * time_ * (ATT + dim + 2) + batch * ATT + ATT
                      + batch * dim))
         record("fused_bahdanau_step", max_err(got[0], ref[0]), 1e-4,
-               (batch, time_, "context"), *timing, work=work)
+               (batch, time_, "context"), work=work, **timing)
 
     # K3: one beam step's logit projection, vocabulary padded as in the
     # search (multiple of 1024 columns, bias -1e9 on the pad)
@@ -550,9 +580,16 @@ def check_train_kernels(device, randn, lengths_mask, record):
                            time_ms(lambda: fused_xent.fwd_reference(
                                *fwd_args))) if timed else ())
                 read = 4 * (n * d + d * v + v + n)
+                # its product runs on the tensor cores in 3xTF32, as dx's:
+                # the bound takes the three TF32 products at the TF32 peak;
+                # the float32 bound beside it
                 record("fused_xent_fwd", max_err(nll, ref_nll) / max(
                     1.0, float(ref_nll.abs().max())), 1e-5, case, *timing,
-                    work=(2 * n * d * v + 5 * n * v, read + 8 * n))
+                    work=(3 * 2 * n * d * v, read + 8 * n), peak=TF32_PEAK,
+                    **({"bound_peak": "3xTF32 on the tensor cores, 495 "
+                        "TFLOP/s dense", "bound_f32_ms": bound(
+                            2 * n * d * v + 5 * n * v, read + 8 * n)[0]}
+                       if timed else {}))
                 bwd_args = (x, w, b, targets, lse, g, eps, transposed)
                 dx = fused_xent.xent_bwd_dx(*bwd_args)
                 ref_dx = fused_xent.bwd_dx_reference(*bwd_args)
@@ -1074,12 +1111,14 @@ def check_lstm_kernels(device, randn, lengths_mask, record):
 def launch_plans():
     """The launch plans of the redesigned kernels at the smoke's shapes
     on this card."""
-    from neuralmonkey_tpu_torch.ops import cuda_rnn
+    from neuralmonkey_tpu_torch.ops import cuda_attention, cuda_rnn
     from neuralmonkey_tpu_torch.ops import flash_attention as fa
     from neuralmonkey_tpu_torch.ops import fused_xent, kernel_config
     limits = kernel_config.device_limits(0)
     return {
         "sm_count": limits[0], "smem_per_block_optin": limits[1],
+        "fused_bahdanau_step": cuda_attention.bahdanau_plan(
+            BATCH, SRC_LEN, ATT, 2 * RNN, *limits)._asdict(),
         "lstm_scan": cuda_rnn.lstm_scan_plan(BATCH, RNN, 2,
                                              *limits)._asdict(),
         "lstm_bptt": cuda_rnn.lstm_bptt_plan(BATCH, RNN, 2,

@@ -19,10 +19,15 @@
 // The TPU ran one sequential grid with the online log-sum-exp carried in
 // scratch; Hopper blocks run in no order, so:
 //   - xent_fwd: one block per (128-row, 128-column) tile computes the logit tile
-//     on the SIMT units (logit_tile.cuh) and writes per-row partials (tile max,
-//     sum of exp(t - max), label logit, logit sum) into (N, R) scratch; a second
-//     small kernel folds the R partials of each row into lse and nll (K3's
-//     pattern).
+//     on the tensor cores in 3xTF32 with K3's routine (tc::tile_product, see
+//     below; two blocks an SM) and writes per-row partials over the columns
+//     below V (tile max, sum of exp(t - max), label logit, logit sum), the
+//     four column warps meeting in shared memory in a fixed order, into (N, R)
+//     scratch; a second small kernel folds the R partials of each row into lse
+//     and nll (K3's pattern). Row tiles run in blockIdx.x, so the blocks that
+//     share a W tile run together and W (61 MB, more than the 50 MB L2)
+//     leaves device memory about once. The first design computed the tile on
+//     the SIMT units, and was slower than the plain version's cuBLAS product.
 //   - xent_bwd_dx: a block owns a 128-row tile and every column of D, and walks
 //     a contiguous chunk of the vocabulary tiles. For each vocabulary tile it
 //     computes the logit tile once, turns it into dl and keeps dl in shared
@@ -57,73 +62,9 @@
 //     change from run to run.
 #include <algorithm>
 
-#include "logit_tile.cuh"
 #include "tc_product.cuh"
 
 namespace {
-
-using nm::kThreadM;
-using nm::kThreadN;
-using nm::kTileM;
-using nm::kTileN;
-using nm::kTileThreads;
-using nm::TileStage;
-
-// per-row partials of one logit tile, reduced over the tile's columns
-__global__ void __launch_bounds__(kTileThreads)
-xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, const int* __restrict__ targets,
-                float* __restrict__ pmax, float* __restrict__ psum,
-                float* __restrict__ plab, float* __restrict__ plsum,
-                int N, int D, int V, int transposed) {
-  __shared__ __align__(16) TileStage st;
-  const int tr = nm::tile_row(), tc = nm::tile_col();
-  const int n0 = blockIdx.x * kTileN;
-  const int m0 = blockIdx.y * kTileM;
-  const int R = gridDim.x;
-
-  float acc[kThreadM][kThreadN];
-  if (transposed)
-    nm::logit_tile<true>(x, w, N, D, V, m0, n0, st, acc);
-  else
-    nm::logit_tile<false>(x, w, N, D, V, m0, n0, st, acc);
-
-#pragma unroll
-  for (int i = 0; i < kThreadM; ++i) {
-    const int gm = m0 + tr * kThreadM + i;
-    const int target = gm < N ? targets[gm] : -1;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kThreadN; ++j) {
-      const int gn = n0 + tc + 16 * j;
-      if (gn < V) {
-        acc[i][j] += bias[gn];
-        mx = fmaxf(mx, acc[i][j]);
-      }
-    }
-    mx = nm::row_reduce_max(mx);
-    float s = 0.f, lab = 0.f, ls = 0.f;
-#pragma unroll
-    for (int j = 0; j < kThreadN; ++j) {
-      const int gn = n0 + tc + 16 * j;
-      if (gn < V) {
-        s += expf(acc[i][j] - mx);
-        ls += acc[i][j];
-        if (gn == target) lab = acc[i][j];
-      }
-    }
-    s = nm::row_reduce_sum(s);
-    lab = nm::row_reduce_sum(lab);
-    ls = nm::row_reduce_sum(ls);
-    if (gm < N && tc == 0) {
-      const size_t at = static_cast<size_t>(gm) * R + blockIdx.x;
-      pmax[at] = mx;
-      psum[at] = s;
-      plab[at] = lab;
-      plsum[at] = ls;
-    }
-  }
-}
 
 // one warp per row: fold the R partials into lse and nll
 __global__ void xent_fold_kernel(const float* __restrict__ pmax, const float* __restrict__ psum,
@@ -159,6 +100,9 @@ namespace tc {
 
 using namespace nm::tc;
 
+// the forward: the two operand stages of tile_product; the epilogue's per-row
+// partials reuse the first of them
+constexpr size_t kFwdSmem = sizeof(float) * 2 * kStage;
 constexpr int kPair = 2;         // vocabulary tiles whose dl is added in one pass
 constexpr int kLdDl = kPair * kN + 4;  // dx: dl[m][v] of both tiles side by side
 constexpr size_t kSmem = sizeof(float) * (2 * kStage + kM * kLdDl);
@@ -389,6 +333,106 @@ __device__ __forceinline__ void xent_bwd_dw(const float* __restrict__ x,
 
 }  // namespace tc
 
+// The forward's per-row partials of one 128 x 128 logit tile, computed on the
+// tensor cores (tc::tile_product, as K3 does) and reduced over the tile's
+// columns below V: the tile maximum, the sum of exp(t - max), the label logit
+// and the logit sum. Grid (row tiles, vocabulary tiles): the blocks that
+// share a W tile are neighbours in launch order, so they run together and W
+// leaves device memory about once.
+__global__ void __launch_bounds__(tc::kThreads, 2)
+xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, const int* __restrict__ targets,
+                float* __restrict__ pmax, float* __restrict__ psum,
+                float* __restrict__ plab, float* __restrict__ plsum,
+                int N, int D, int V, int transposed) {
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);
+  const int m0 = blockIdx.x * tc::kM;
+  const int n0 = blockIdx.y * tc::kN;
+  const int R = gridDim.y;
+  // 16-byte copies need every row of x and W to start 16-byte aligned
+  const bool vec = (D & 3) == 0 && (transposed || (V & 3) == 0) &&
+                   ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15) == 0;
+  float acc[4][4][4] = {};
+  if (transposed)
+    tc::tile_product<true>(x, w, N, D, V, m0, n0, vec, stages, acc);
+  else
+    tc::tile_product<false>(x, w, N, D, V, m0, n0, vec, stages, acc);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4 * 64, wn = warp % 4 * 32;
+  // [kM][4 column warps][max, sum, label, logit sum]: the stages are free
+  float* part = stages;
+  // this lane's columns are col0 + ni * 8 + j; those below V are valid
+  const int col0 = n0 + wn + 2 * (lane % 4), valid = V - col0;
+  float bv[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bv[ni][j] = ni * 8 + j < valid ? bias[col0 + ni * 8 + j] : 0.f;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm + mi * 16 + lane / 4 + 8 * h, gm = m0 + row;
+      // the label's offset from col0; this lane holds offsets ni * 8 + j, a
+      // row past N none
+      const int label = (gm < N ? targets[gm] : -1) - col0;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          acc[mi][ni][2 * h + j] += bv[ni][j];
+          if (ni * 8 + j < valid) mx = fmaxf(mx, acc[mi][ni][2 * h + j]);
+        }
+      // the 4 lanes that share a row hold its 32 columns of this warp
+      mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, 2));
+      float s = 0.f, lab = 0.f, ls = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float t = acc[mi][ni][2 * h + j];
+          if (ni * 8 + j < valid) {
+            s += expf(t - mx);
+            ls += t;
+            if (label == ni * 8 + j) lab = t;
+          }
+        }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        s += __shfl_xor_sync(nm::kFullMask, s, off);
+        lab += __shfl_xor_sync(nm::kFullMask, lab, off);
+        ls += __shfl_xor_sync(nm::kFullMask, ls, off);
+      }
+      if (lane % 4 == 0)
+        *reinterpret_cast<float4*>(part + (row * 4 + warp % 4) * 4) = make_float4(mx, s, lab, ls);
+    }
+  __syncthreads();
+  // one thread a row: the block's maximum over its columns, and the four
+  // warps' sums (rescaled to it), labels and logit sums, in warp order; a
+  // warp with no column below V has max -inf and adds nothing
+  const int row = threadIdx.x;
+  if (row < tc::kM && m0 + row < N) {
+    const float4* p = reinterpret_cast<const float4*>(part) + row * 4;
+    const float mx = fmaxf(fmaxf(p[0].x, p[1].x), fmaxf(p[2].x, p[3].x));
+    float s = 0.f, lab = 0.f, ls = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (p[q].x != -INFINITY) s += p[q].y * expf(p[q].x - mx);
+      lab += p[q].z;
+      ls += p[q].w;
+    }
+    const size_t at = static_cast<size_t>(m0 + row) * R + blockIdx.y;
+    pmax[at] = mx;
+    psum[at] = s;
+    plab[at] = lab;
+    plsum[at] = ls;
+  }
+}
+
 // grid (row tiles, S): block (r, s) walks vocabulary tiles s * tiles_per_chunk ..
 // into plane s of `part` (S, N, D)
 __global__ void __launch_bounds__(tc::kThreads, 1)
@@ -466,10 +510,14 @@ bool bad_chunks(int N, int D, int V, int R, int splits, int tiles_per_chunk,
 NM_EXPORT int nm_xent_fwd(const void* x, const void* w, const void* bias, const void* targets,
                           void* pmax, void* psum, void* plab, void* plsum, void* lse, void* nll,
                           int N, int D, int V, int transposed, float eps, void* stream) {
+  const int R = (V + tc::kN - 1) / tc::kN;
+  // the vocabulary tiles run in gridDim.y, at most 65535 of them
+  if (N < 1 || D < 1 || V < 1 || R > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = nm::allow_max_smem(reinterpret_cast<const void*>(xent_fwd_kernel));
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = (V + kTileN - 1) / kTileN;
-  const dim3 grid(R, (N + kTileM - 1) / kTileM);
-  xent_fwd_kernel<<<grid, kTileThreads, 0, s>>>(
+  const dim3 grid((N + tc::kM - 1) / tc::kM, R);
+  xent_fwd_kernel<<<grid, tc::kThreads, tc::kFwdSmem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(targets),
       static_cast<float*>(pmax), static_cast<float*>(psum), static_cast<float*>(plab),

@@ -1,15 +1,11 @@
-// One 128 x 128 tile of a logit projection, x W, on the SIMT units.
+// One 128 x 128 tile of a product, x W, on the SIMT units.
 //
-// Used by the fused cross-entropy's forward (fused_xent.cu `xent_fwd_kernel`),
-// which computes its logits tile by tile in registers and folds reductions
-// into the tile's epilogue, and, as logit_tile_rows, by the GRU BPTT's
-// prologue (gru_bptt.cu), which computes the gates of every step. K3 and the
-// cross-entropy's backward run their products on the tensor cores instead
-// (tc_product.cuh). A block of 256 threads owns the tile; thread (tr, tc) =
-// (tid / 16, tid % 16) accumulates rows tr * 8 .. + 8 and columns tc + 16 j,
-// j < 8, so one shared-memory read feeds eight FMAs.
-// The 16 threads that share tr are 16 consecutive lanes of one warp: a row's
-// reduction over the tile is a shuffle over 16 lanes (row_reduce_*).
+// Used, as logit_tile_rows, by the GRU BPTT's prologue (gru_bptt.cu), which
+// computes the gates of every step. The logit projections (K3 and the fused
+// cross-entropy, forward and backward) run their products on the tensor
+// cores instead (tc_product.cuh). A block of 256 threads owns the tile;
+// thread (tr, tc) = (tid / 16, tid % 16) accumulates rows tr * 8 .. + 8 and
+// columns tc + 16 j, j < 8, so one shared-memory read feeds eight FMAs.
 #pragma once
 
 #include "common.cuh"
@@ -41,67 +37,11 @@ __device__ __forceinline__ void zero(float (&acc)[M][N]) {
     for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
 }
 
-// acc[i][j] = sum_{k < K} x[m0 + tr * 8 + i][k] * W(k, n0 + tc + 16 j) for x (N, K)
-// and W (K, V) row-major, or for W given as its transpose (V, K) when
-// kWTransposed (a tied embedding table). Out-of-range rows, columns and depths
-// contribute zero. Ends with a __syncthreads(), so `st` may be reused at once.
-template <bool kWTransposed>
-__device__ __forceinline__ void logit_tile(const float* __restrict__ x,
-                                           const float* __restrict__ w, int N, int K, int V,
-                                           int m0, int n0, TileStage& st,
-                                           float (&acc)[kThreadM][kThreadN]) {
-  const int tid = threadIdx.x;
-  const int tr = tile_row(), tc = tile_col();
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-#pragma unroll
-    for (int q = 0; q < kTileM * kTileK / kTileThreads; ++q) {
-      const int e = tid + q * kTileThreads;
-      const int m = e / kTileK, k = e % kTileK;
-      const int gm = m0 + m, gk = k0 + k;
-      st.a[k][m] = (gm < N && gk < K) ? x[static_cast<size_t>(gm) * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < kTileK * kTileN / kTileThreads; ++q) {
-      const int e = tid + q * kTileThreads;
-      // coalesced along W's contiguous axis
-      const int k = kWTransposed ? e % kTileK : e / kTileN;
-      const int n = kWTransposed ? e / kTileK : e % kTileN;
-      const int gk = k0 + k, gn = n0 + n;
-      float v = 0.f;
-      if (gk < K && gn < V)
-        v = kWTransposed ? w[static_cast<size_t>(gn) * K + gk] : w[static_cast<size_t>(gk) * V + gn];
-      st.b[k][n] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      float av[kThreadM];
-#pragma unroll
-      for (int i = 0; i < kThreadM; i += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(&st.a[k][tr * kThreadM + i]);
-        av[i] = a.x;
-        av[i + 1] = a.y;
-        av[i + 2] = a.z;
-        av[i + 3] = a.w;
-      }
-      float bv[kThreadN];
-#pragma unroll
-      for (int j = 0; j < kThreadN; ++j) bv[j] = st.b[k][tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kThreadM; ++i)
-#pragma unroll
-        for (int j = 0; j < kThreadN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// logit_tile's product (W row-major) for x with rows ldx floats apart, which
-// this launch wrote earlier: x is read through L2 (__ldcg), never the
-// read-only path. Ends with a __syncthreads(). Kept apart from logit_tile:
-// one template for both changed the code xent_fwd compiled to (on the H100
-// it moved by 5 to 16%).
+// acc[i][j] = sum_{k < K} x[m0 + tr * 8 + i][k] * W(k, n0 + tc + 16 j) for W
+// (K, V) row-major and x with rows ldx floats apart, which this launch wrote
+// earlier: x is read through L2 (__ldcg), never the read-only path.
+// Out-of-range rows, columns and depths contribute zero. Ends with a
+// __syncthreads(), so `st` may be reused at once.
 __device__ __forceinline__ void logit_tile_rows(const float* x, size_t ldx,
                                                 const float* __restrict__ w, int N, int K,
                                                 int V, int m0, int n0, TileStage& st,
@@ -146,19 +86,6 @@ __device__ __forceinline__ void logit_tile_rows(const float* x, size_t ldx,
     }
     __syncthreads();
   }
-}
-
-// reductions over the 16 lanes that share a tile row
-__device__ __forceinline__ float row_reduce_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_reduce_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
 }
 
 }  // namespace nm

@@ -2,13 +2,14 @@
 
 Counterpart of the Bahdanau half of
 ``neuralmonkey_tpu/ops/pallas_attention.py`` (``fused_bahdanau_step``).
-The kernel is ``csrc/bahdanau.cu``; it runs inside an autograd
+The kernel is ``csrc/bahdanau.cu``, one thread-block cluster a batch
+row laid out by :func:`bahdanau_plan`; it runs inside an autograd
 Function whose backward recomputes through the plain version.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,6 +35,80 @@ def bahdanau_reference(keys: torch.Tensor, states: torch.Tensor,
     return context, weights
 
 
+# csrc/bahdanau.cu: threads a block, the largest portable cluster, the
+# float4 of the states a thread may hold in registers, and the shared
+# floats beside the energies: the block reductions' scratch and the
+# context's partial sums
+BAHDANAU_THREADS, MAX_CLUSTER, HELD_FLOAT4 = 256, 8, 8
+_RED_FLOATS, _PART_FLOATS = 32, 1024
+
+
+class BahdanauPlan(NamedTuple):
+    """The launch of K2: ``grid`` = B·``cluster`` blocks in clusters of
+    ``cluster`` blocks, one cluster a batch row. Block rank r computes
+    the energies of source positions r·``positions`` up to (r + 1)·
+    ``positions`` and the context of columns r·``columns`` up to
+    (r + 1)·``columns`` (a multiple of 4), both cut at T and D. When
+    ``staged``, the energies' operands (pq, v, the mask row and the
+    block's keys) are copied into shared memory, otherwise read in
+    place; when ``resident``, the block's T × ``columns`` slice of the
+    states is loaded into registers beside them, at most
+    ``HELD_FLOAT4`` float4 a thread, otherwise the context pass reads it
+    from device memory after the softmax. ``smem_bytes`` of shared
+    memory a block."""
+    cluster: int
+    positions: int
+    columns: int
+    staged: bool
+    resident: bool
+    grid: int
+    threads: int
+    smem_bytes: int
+
+
+def _bahdanau_smem(time: int, att: int, positions: int,
+                   staged: bool) -> int:
+    """Bytes of the kernel's layout (``smem_floats`` in the source)."""
+    def round4(n):
+        return -(-n // 4) * 4
+    return 4 * (round4(time) + _RED_FLOATS + _PART_FLOATS
+                + ((2 + positions) * round4(att) + round4(time)
+                   if staged else 0))
+
+
+def bahdanau_plan(batch: int, time: int, att: int, dim: int, sm_count: int,
+                  smem_per_block: int) -> BahdanauPlan:
+    """The layout of K2 (csrc/bahdanau.cu) on a card of ``sm_count`` SMs
+    with ``smem_per_block`` bytes of shared memory a block: the fewest
+    blocks a row, a power of two up to ``MAX_CLUSTER``, that fill the
+    card, but no more than there are source positions or 4-column
+    groups. Positions and columns are cut into contiguous chunks, one a
+    block. The energies' operands are staged whenever they fit beside
+    the energies; the states slice is held in registers whenever D is a
+    multiple of 4 and a thread's share of it, each 4-column unit's T
+    rows split over the threads left to it, is at most ``HELD_FLOAT4``
+    float4. Raises ``ValueError`` where the energies do not fit."""
+    if min(batch, time, att, dim, sm_count) < 1:
+        raise ValueError(f"fused_bahdanau_step: no plan for B {batch}, "
+                         f"T {time}, A {att}, D {dim} on {sm_count} SMs")
+    cluster = 1
+    while cluster < MAX_CLUSTER and batch * cluster < sm_count:
+        cluster *= 2
+    cluster = min(cluster, time, -(-dim // 4))
+    positions = -(-time // cluster)
+    columns = -(-dim // (4 * cluster)) * 4
+    units = columns // 4
+    resident = (dim % 4 == 0 and units <= BAHDANAU_THREADS
+                and time <= HELD_FLOAT4 * (BAHDANAU_THREADS // units))
+    staged = _bahdanau_smem(time, att, positions, True) <= smem_per_block
+    smem = _bahdanau_smem(time, att, positions, staged)
+    if smem > smem_per_block:
+        raise ValueError(f"fused_bahdanau_step: T {time} does not fit "
+                         f"{smem_per_block} bytes of shared memory")
+    return BahdanauPlan(cluster, positions, columns, staged, resident,
+                        batch * cluster, BAHDANAU_THREADS, smem)
+
+
 def _bahdanau_kernel(keys, states, mask, projected_query, similarity_v):
     batch, time, att_dim = keys.shape
     state_dim = states.shape[-1]
@@ -48,14 +123,15 @@ def _bahdanau_kernel(keys, states, mask, projected_query, similarity_v):
             f"{tuple(keys.shape)}, states {tuple(states.shape)}, mask "
             f"{tuple(mask.shape)}, query {tuple(projected_query.shape)}, "
             f"v {tuple(similarity_v.shape)}")
-    if batch == 0 or time == 0 or time * 4 > 48 * 1024:
-        raise ValueError(f"fused_bahdanau_step: unsupported (B, T) = "
-                         f"{(batch, time)}")
+    plan = bahdanau_plan(batch, time, att_dim, state_dim,
+                         *kernel_config.tensor_device_limits(keys))
     context = keys.new_empty(batch, state_dim)
     weights = keys.new_empty(batch, time)
     kernel_config.launch("fused_bahdanau_step", keys, states, mask,
                          projected_query, similarity_v, context, weights,
-                         batch, time, att_dim, state_dim)
+                         batch, time, att_dim, state_dim, plan.cluster,
+                         plan.positions, plan.columns, int(plan.staged),
+                         int(plan.resident), plan.smem_bytes)
     return context, weights
 
 

@@ -67,7 +67,7 @@ _ARGTYPES = {
     # pointers..., sizes and flags..., stream
     "nm_gru_scan": [_PTR] * 9 + [_INT] * 11 + [_PTR],
     "nm_gru_bptt": [_PTR] * 12 + [_INT] * 10 + [_PTR],
-    "nm_bahdanau_step": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    "nm_bahdanau_step": [_PTR] * 7 + [_INT] * 10 + [_PTR],
     "nm_fused_logits": [_PTR] * 7 + [_INT] * 3 + [_PTR],
     "nm_small_topk": [_PTR] * 3 + [_INT] * 3 + [_PTR],
     "nm_xent_fwd": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],

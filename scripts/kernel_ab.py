@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Device times of the redesigned kernels (K1 ``gru_scan``, K3,
+"""Device times of the redesigned kernels (K1 ``gru_scan``, K2, K3,
 ``lstm_scan``, ``lstm_bptt``, ``gru_bptt``, the flash forward, the flash
-backward's dq and dkv, ``fused_xent_bwd_dx`` and ``fused_xent_bwd_dw``),
-with their library or like-for-like yardsticks, and of the kernels that
-share their code or their path (``rowmax_lse``, ``fused_xent_fwd``), for
+backward's dq and dkv, and the three fused cross-entropy kernels), with
+their library or like-for-like yardsticks, and of the kernel that shares
+K3's code (``rowmax_lse``), for
 the port found under ROOT (by default this checkout), so that two
 versions can be compared on one card in one call:
 
@@ -25,9 +25,12 @@ Transformer encoder's B 64, H 8, 32 x 32, Dh 64 and at a long source
 ``scaled_dot_product_attention``; the flash backward (dq, dkv, and the
 whole backward with its dcap row sums) at the encoder, the causal
 decoder (48 x 48), the cross attention (48 x 32) and the long source,
-beside SDPA's backward (``chip_smoke.flash_backward_times``); the three
-fused cross-entropy kernels at N 3072, D 512, V 30000, (D, V), eps 0,
-with the plain dx and dW; K3 at 640 x 512 x 30720, beside cuBLAS's
+beside SDPA's backward (``chip_smoke.flash_backward_times``); K2 at the
+greedy decoder's B 64, T 32, A 512, D 1024, ragged sources, back to back
+and with the L2 cache flushed before each call
+(``chip_smoke.flushed_ms``); the three fused cross-entropy kernels at
+N 3072, D 512, V 30000, (D, V), eps 0, with the plain dx and dW, and the
+forward also in the tied (V, D) layout; K3 at 640 x 512 x 30720, beside cuBLAS's
 ``addmm`` of the same shape (a reference for the product alone, not a
 library yardstick: no PyTorch call computes K3's whole function);
 ``rowmax_lse`` at 640 x 30080. The timing code is
@@ -64,7 +67,8 @@ def main() -> int:
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from neuralmonkey_tpu_torch.ops import beam_select, cuda_rnn, nn
+    from neuralmonkey_tpu_torch.ops import (beam_select, cuda_attention,
+                                            cuda_rnn, nn)
     from neuralmonkey_tpu_torch.ops import flash_attention as fa
     from neuralmonkey_tpu_torch.ops import fused_xent as fx
     from neuralmonkey_tpu_torch.ops import kernel_config
@@ -194,11 +198,24 @@ def main() -> int:
                 sweep[f"B{batch} T{t}"] = cs.time_ms(
                     lambda: scan(xt, mt, False))
             result["gru_scan"]["scan_sweep_ms"] = sweep
-    # the fused cross-entropy, whose backward shares K3's tensor-core
+    # K2 at the greedy decoder's step, back to back and with L2 flushed
+    if wanted("fused_bahdanau_step"):
+        att, dim = cs.ATT, 2 * cs.RNN
+        step_args = (randn(batch, time_, att), randn(batch, time_, dim),
+                     mask_of(torch.randint(1, time_ + 1, (batch,),
+                                           generator=gen).tolist(), time_),
+                     randn(batch, att), randn(att, scale=att ** -0.5))
+
+        def step():
+            return cuda_attention.fused_bahdanau_step(*step_args)
+        result["fused_bahdanau_step"] = {
+            "ms": cs.time_ms(step), "l2_flushed_ms": cs.flushed_ms(step)}
+    # the fused cross-entropy, whose kernels share K3's tensor-core
     # product (tc_product.cuh), and K3
     n, d, v = cs.XENT_N, cs.XENT_D, cs.VOCAB
     x, w, b = randn(n, d, scale=0.5), randn(d, v, scale=d ** -0.5), randn(
         v, scale=0.1)
+    w_tied = w.T.contiguous()
     targets = torch.randint(0, v, (n,), generator=gen,
                             dtype=torch.int32).to(device)
     g = torch.rand(n, generator=gen).to(device)
@@ -207,6 +224,8 @@ def main() -> int:
     for row, fn in (
             ("fused_xent_fwd", lambda: fx.xent_fwd(x, w, b, targets, 0.0,
                                                    False)),
+            ("fused_xent_fwd tied", lambda: fx.xent_fwd(
+                x, w_tied, b, targets, 0.0, True)),
             ("fused_xent_bwd_dx", lambda: fx.xent_bwd_dx(*bwd)),
             ("fused_xent_bwd_dw", lambda: fx.xent_bwd_dw(*bwd))):
         if wanted(row):

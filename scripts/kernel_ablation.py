@@ -13,7 +13,19 @@ neighbouring words, without the products' multiply-adds, without
 the staging's reads from L2 (the copies zero-fill), and with each
 thread's four rows of a product adjacent instead of strided. K3
 (``csrc/beam_select.cu``) at 640 x 512 x 30720: one block an SM instead
-of two (launch bounds), and without the logits store. A variant that
+of two (launch bounds), and without the logits store.
+``fused_xent_fwd`` (``csrc/fused_xent.cu``) at N 3072, D 512, V 30000,
+(D, V), eps 0: one block an SM instead of two. K2
+(``csrc/bahdanau.cu``) at B 64, T 32, A 512, D 1024, full sources: by
+its plan alone, one block a row (clusters of 1) instead of the plan's
+clusters, the states read from device memory after the softmax instead
+of loaded into registers first, and the energies' operands read in
+place instead of staged; by edits, the launch alone (every block
+returns at once; under each plan, and without the cluster attribute),
+tanh from the fast exp and reciprocal instead of CUDA's tanhf, without the
+energies' products, and without the context pass; each
+also with the L2 cache flushed before each call
+(``chip_smoke.flushed_ms``). A variant that
 removes a part computes wrong values; only its time is read. Each
 variant is compiled by nvcc into its own library under
 ``build/kernel_ablation/`` and launched through the kernel's C entry
@@ -50,6 +62,29 @@ K1_VARIANTS = {
         ("if (rg + G * r >= nr) break;", "if (4 * rg + r >= nr) break;"),
         ("(ks * R + rg + G * r)", "(ks * R + 4 * rg + r)")],
 }
+XENT_FWD_VARIANTS = {
+    "source": [],
+    "one block an SM": [("__launch_bounds__(tc::kThreads, 2)\nxent_fwd_kernel",
+                         "__launch_bounds__(tc::kThreads, 1)\nxent_fwd_kernel")],
+}
+K2_VARIANTS = {
+    "source": [],
+    "launch only": [("  const int A4 = round4(A);\n",
+                     "  if (T > 0) return;\n  const int A4 = round4(A);\n")],
+    "launch only, no cluster attribute": [
+        ("  const int A4 = round4(A);\n",
+         "  if (T > 0) return;\n  const int A4 = round4(A);\n"),
+        ("config.numAttrs = 1;", "config.numAttrs = 0;")],
+    # tanh(x) = 1 - 2 / (exp(2x) + 1) from the fast exp and reciprocal
+    "exp-based tanh": [(
+        '#include "common.cuh"\n',
+        '#include "common.cuh"\n#define tanhf(x) (1.f - __fdividef(2.f, '
+        '__expf(2.f * fminf(fmaxf((x), -15.f), 15.f)) + 1.f))\n')],
+    "no energy products": [("for (int a = 4 * lane; a < A; a += 128) {",
+                            "for (int a = 4 * lane; a < 0; a += 128) {")],
+    "no context": [("  if (nc > 0) {\n    float* out",
+                    "  if (nc < 0) {\n    float* out")],
+}
 K3_VARIANTS = {
     "source": [],
     "one block an SM": [("__launch_bounds__(tc::kThreads, 2)",
@@ -71,7 +106,8 @@ def build(kernel_config, source, variants):
             if edited.count(old) < 1:
                 raise ValueError(f"{source} {name}: no '{old}'")
             edited = edited.replace(old, new)
-        tag = f"{source[:-3]}_{name.replace(' ', '_')}"
+        tag = f"{source[:-3]}_" + "".join(
+            c if c.isalnum() else "_" for c in name)
         path = os.path.join(OUT, f"{tag}.cu")
         with open(path, "w") as f:
             f.write(edited)
@@ -94,7 +130,8 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from neuralmonkey_tpu_torch.ops import cuda_rnn, kernel_config
+    from neuralmonkey_tpu_torch.ops import (cuda_attention, cuda_rnn,
+                                            kernel_config)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -169,6 +206,77 @@ def main() -> int:
         for name in libs:
             result["fused_logits_rowmax_lse"].setdefault(name, []).append(
                 cs.time_ms(lambda: k3(name)))
+    # fused_xent_fwd
+    n, d, v = cs.XENT_N, cs.XENT_D, cs.VOCAB
+    xf, wf = randn(n, d, scale=0.5), randn(d, v, scale=d ** -0.5)
+    bf = randn(v, scale=0.1)
+    targets = torch.randint(0, v, (n,), generator=gen,
+                            dtype=torch.int32).to(device)
+    partials = xf.new_empty(4, n, -(-v // 128))
+    lse, nll = xf.new_empty(n), xf.new_empty(n)
+    libs = build(kernel_config, "fused_xent.cu", XENT_FWD_VARIANTS)
+
+    def xent_fwd(name):
+        status = entry(libs[name], "nm_xent_fwd")(
+            xf.data_ptr(), wf.data_ptr(), bf.data_ptr(), targets.data_ptr(),
+            *(p.data_ptr() for p in partials), lse.data_ptr(), nll.data_ptr(),
+            n, d, v, 0, 0.0, stream())
+        if status:
+            raise RuntimeError(f"xent_fwd {name}: CUDA error {status}")
+    result["fused_xent_fwd"] = {}
+    for _ in range(args.turns):
+        for name in libs:
+            result["fused_xent_fwd"].setdefault(name, []).append(
+                cs.time_ms(lambda: xent_fwd(name)))
+    # K2: plans of the source's own library
+    att, dim = cs.ATT, 2 * cs.RNN
+    keys, states = randn(batch, time_, att), randn(batch, time_, dim)
+    pq, sim_v = randn(batch, att), randn(att, scale=att ** -0.5)
+    ctx, weights = keys.new_empty(batch, dim), keys.new_empty(batch, time_)
+    sms, smem = kernel_config.device_limits(0)
+    plan = cuda_attention.bahdanau_plan(batch, time_, att, dim, sms, smem)
+    plans = {
+        "source": plan,
+        # sm_count = B: one block a row fills it
+        "clusters of 1": cuda_attention.bahdanau_plan(batch, time_, att, dim,
+                                                      batch, smem),
+        "states not prefetched": plan._replace(resident=False),
+        "operands not staged": plan._replace(
+            staged=False, smem_bytes=cuda_attention._bahdanau_smem(
+                time_, att, plan.positions, False))}
+    libs = build(kernel_config, "bahdanau.cu", K2_VARIANTS)
+    # the source's library under the plans above, each variant's under
+    # the source's plan
+    runs = {name: (libs["source"], p) for name, p in plans.items()}
+    runs.update((name, (lib, plan)) for name, lib in libs.items()
+                if name != "source")
+    # the launch alone under the other plans' grids and shared memory
+    runs.update((f"launch only, {name}", (libs["launch only"], p))
+                for name, p in plans.items() if name != "source")
+
+    def k2(lib, p):
+        status = entry(lib, "nm_bahdanau_step")(
+            keys.data_ptr(), states.data_ptr(), mask.data_ptr(),
+            pq.data_ptr(), sim_v.data_ptr(), ctx.data_ptr(),
+            weights.data_ptr(), batch, time_, att, dim, p.cluster,
+            p.positions, p.columns, int(p.staged), int(p.resident),
+            p.smem_bytes, stream())
+        if status:
+            raise RuntimeError(f"bahdanau_step {p}: CUDA error {status}")
+    ref = cuda_attention.bahdanau_reference(keys, states, mask, pq, sim_v)
+    result["fused_bahdanau_step"] = {"plan": plan._asdict()}
+    for name, run in runs.items():
+        k2(*run)
+        torch.cuda.synchronize()
+        result["fused_bahdanau_step"][f"{name} max_abs_err"] = float(
+            (ctx - ref[0]).abs().max())
+    for _ in range(args.turns):
+        for name, run in runs.items():
+            result["fused_bahdanau_step"].setdefault(name, []).append(
+                cs.time_ms(lambda: k2(*run)))
+            result["fused_bahdanau_step"].setdefault(
+                f"{name} l2 flushed", []).append(
+                    cs.flushed_ms(lambda: k2(*run)))
     result["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

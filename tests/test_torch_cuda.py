@@ -421,6 +421,65 @@ def test_bahdanau_step_gradients_match_cpu(cuda_device):
         torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
 
 
+def _bahdanau_args(device, batch, time, att, dim, lengths):
+    return (_randn(device, batch, time, att),
+            _randn(device, batch, time, dim, seed=1),
+            _mask(device, lengths, time),
+            _randn(device, batch, att, seed=2),
+            _randn(device, att, scale=att ** -0.5, seed=3))
+
+
+@pytest.mark.parametrize("batch,time,att,dim,lengths,staged,resident", [
+    (64, 32, 512, 1024, [32, 31, 17, 1] * 16, True, True),  # the bench shape
+    (7, 13, 48, 88, [13, 0, 5, 1, 12, 13, 7], True, True),  # a masked row
+    (7, 13, 50, 83, [13, 0, 5, 1, 12, 13, 7], True, False),  # D % 4 = 3
+    (5, 9, 47, 81, [9, 4, 1, 0, 7], True, False),  # 4-byte copies, scalar
+    (1, 32, 512, 1024, [20], True, True),         # B 1: a cluster of 8
+    (64, 1, 512, 1024, [1] * 63 + [0], True, True),  # T 1: no cluster
+    (2, 1000, 64, 1024, [1000, 613], True, False),   # streamed states
+    (3, 3000, 37, 1023, [3000, 0, 2999], True, False),  # streamed, scalar
+    (3, 7, 40000, 6, [7, 3, 0], False, False)])  # operands read in place
+def test_bahdanau_cluster_plans(cuda_device, batch, time, att, dim, lengths,
+                                staged, resident):
+    """K2's clusters against the plain version: one launch, the plan the
+    test names (operands staged or read in place, the states slice in
+    registers or streamed), weights and context within 1e-5, a fully
+    masked row all zeros."""
+    args = _bahdanau_args(cuda_device, batch, time, att, dim, lengths)
+    plan = cuda_attention.bahdanau_plan(
+        batch, time, att, dim, *kernel_config.device_limits(0))
+    assert (plan.staged, plan.resident) == (staged, resident)
+    kernel_config.reset_launch_counts()
+    got = cuda_attention.fused_bahdanau_step(*args)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["fused_bahdanau_step"] == 1
+    ref = cuda_attention.bahdanau_reference(*args)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=0)
+    for row, n in enumerate(lengths):
+        if n == 0:
+            assert not got[0][row].any() and not got[1][row].any()
+
+
+def test_bahdanau_fills_the_card_at_the_bench_shape(cuda_device):
+    """B 64 rows in clusters of 4 cover the card's SMs."""
+    sms, smem = kernel_config.device_limits(0)
+    plan = cuda_attention.bahdanau_plan(64, 32, 512, 1024, sms, smem)
+    assert plan.cluster == 4 and plan.grid >= sms and plan.resident
+
+
+def test_bahdanau_is_deterministic(cuda_device):
+    """Two calls at the bench shape give the same bits: the warp sums,
+    the softmax's block reductions and the context run in fixed
+    orders."""
+    args = _bahdanau_args(cuda_device, 64, 32, 512, 1024, [32, 9] * 32)
+    first = cuda_attention.fused_bahdanau_step(*args)
+    second = cuda_attention.fused_bahdanau_step(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_fused_logits_kernel(cuda_device):
     n, d, vp = 70, 40, 1024
     x = _randn(cuda_device, n, d)
@@ -516,6 +575,50 @@ def test_fused_xent_kernels(cuda_device, n, d, v, transposed, eps):
                                                  eps, transposed)
     torch.testing.assert_close(dw, ref_dw, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(db, ref_db, atol=1e-5, rtol=1e-5)
+
+
+def _xent_fwd_args(device, n, d, v, transposed):
+    x = _randn(device, n, d, scale=0.5)
+    w = _randn(device, *((v, d) if transposed else (d, v)), scale=d ** -0.5,
+               seed=1)
+    b = _randn(device, v, scale=0.1, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    targets = torch.randint(0, v, (n,), generator=gen,
+                            dtype=torch.int32).to(device)
+    return x, w, b, targets
+
+
+@pytest.mark.parametrize("n,d,v", [(3072, 512, 30000), (333, 130, 1000)])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_fused_xent_fwd_tensor_cores(cuda_device, n, d, v, transposed, eps):
+    """The forward's logit tiles on the tensor cores (3xTF32) at the
+    decoder's loss tail (N 3072, D 512, V 30000: a last vocabulary tile
+    of 48 columns) and a ragged shape (4-byte copies at D 130), both
+    layouts, against the plain version: nll within 1e-5 of its largest
+    entry, as in the smoke, and lse within 1e-5 of its own."""
+    x, w, b, targets = _xent_fwd_args(cuda_device, n, d, v, transposed)
+    kernel_config.reset_launch_counts()
+    nll, lse = fused_xent.xent_fwd(x, w, b, targets, eps, transposed)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["fused_xent_fwd"] == 1
+    ref_nll, ref_lse = fused_xent.fwd_reference(x, w, b, targets, eps,
+                                                transposed)
+    for got, ref in ((nll, ref_nll), (lse, ref_lse)):
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) / scale <= 1e-5
+
+
+def test_fused_xent_fwd_is_deterministic(cuda_device):
+    """Two calls at the bench shape give the same bits: each block's
+    column warps meet in a fixed order, and the fold adds the partials
+    of a row in a fixed order, with no atomics."""
+    args = _xent_fwd_args(cuda_device, 3072, 512, 30000, False)
+    first = fused_xent.xent_fwd(*args, 0.1, False)
+    second = fused_xent.xent_fwd(*args, 0.1, False)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n,d,v,splits", [

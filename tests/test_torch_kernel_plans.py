@@ -1,14 +1,15 @@
 """The launch plans of the persistent LSTM scan and BPTT, the persistent
-GRU scan (K1) and BPTT, the fused cross-entropy's dx and dW and the
-register-tiled flash forward and backward, checked on the CPU: which
-block owns which hidden units, rows, queries or keys, which tiles each
-block walks, what fits an H100's shared memory and SM count, and which
-layout each shape gets. The kernels themselves run only on the card
+GRU scan (K1) and BPTT, the fused cross-entropy's dx and dW, the
+register-tiled flash forward and backward and K2's thread-block
+clusters, checked on the CPU: which block owns which hidden units, rows,
+queries, keys, source positions or columns, which tiles each block
+walks, what fits an H100's shared memory and SM count, and which layout
+each shape gets. The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``)."""
 
 import pytest
 
-from neuralmonkey_tpu_torch.ops import cuda_rnn
+from neuralmonkey_tpu_torch.ops import cuda_attention, cuda_rnn
 from neuralmonkey_tpu_torch.ops import flash_attention as fa
 from neuralmonkey_tpu_torch.ops import fused_xent
 
@@ -644,3 +645,126 @@ def test_flash_backward_plan_at_the_encoder_shape():
 def test_flash_backward_plan_rejects_wide_heads(dim):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_backward_plan(1, 1, 8, 8, dim, False)
+
+
+# (batch, time, att, dim): the bench shape, the card tests' shapes (ragged
+# ones with unaligned widths, B 1, T 1, streamed states), the
+# longest source the first design took (T 12288), a beam of 640 rows
+BAHDANAU_SHAPES = [(64, 32, 512, 1024), (5, 9, 48, 80), (5, 9, 47, 81),
+                   (7, 13, 50, 83), (1, 32, 512, 1024), (1, 1, 512, 1024),
+                   (1, 1, 1, 1), (64, 1, 3, 5), (2, 1000, 64, 1024),
+                   (3, 3000, 37, 1023), (64, 12288, 512, 1024),
+                   (640, 32, 512, 1024), (128, 50, 256, 512),
+                   (3, 7, 40000, 6), (7, 13, 48, 88), (64, 64, 512, 1024),
+                   (64, 8, 512, 1024)]
+
+
+def _bahdanau_plan(batch, time, att, dim):
+    return cuda_attention.bahdanau_plan(batch, time, att, dim, H100_SMS,
+                                        H100_SMEM)
+
+
+@pytest.mark.parametrize("batch,time,att,dim", BAHDANAU_SHAPES)
+def test_bahdanau_plan_owns_every_position_and_column_once(batch, time, att,
+                                                           dim):
+    """Each source position's energy is computed by exactly one block of
+    a row's cluster, and each context column by exactly one: the chunks
+    the kernel takes from its rank (r * positions .., r * columns ..)."""
+    plan = _bahdanau_plan(batch, time, att, dim)
+    ranks = range(plan.cluster)
+    positions = [t for r in ranks for t in range(
+        r * plan.positions, min(time, (r + 1) * plan.positions))]
+    columns = [c for r in ranks for c in range(
+        r * plan.columns, min(dim, (r + 1) * plan.columns))]
+    assert positions == list(range(time)) and columns == list(range(dim))
+    assert plan.columns % 4 == 0
+    # the first block owns a position and a 4-column group
+    assert plan.positions >= 1 and plan.columns >= 4
+
+
+@pytest.mark.parametrize("batch,time,att,dim", BAHDANAU_SHAPES)
+def test_bahdanau_plan_fits_the_card(batch, time, att, dim):
+    """Shared memory as the kernel lays it out (energies, reductions,
+    context partials; pq, v, the mask row and the block's keys when
+    staged) within 227 KB; a portable cluster of at most 8 blocks, no
+    more than the positions or 4-column groups; B clusters; the operands
+    staged exactly when they fit; the states slice in registers exactly
+    when D is a multiple of 4 and each thread holds at most 8 float4 of
+    it: a block's 4-column units share its 256 threads, each unit's T
+    rows split over the threads it gets."""
+    plan = _bahdanau_plan(batch, time, att, dim)
+
+    def layout(staged):
+        def round4(n):
+            return -(-n // 4) * 4
+        return 4 * (round4(time) + 32 + 1024
+                    + staged * ((2 + plan.positions) * round4(att)
+                                + round4(time)))
+    assert plan.smem_bytes == layout(plan.staged) <= H100_SMEM
+    assert 1 <= plan.cluster <= 8
+    assert plan.cluster <= min(time, -(-dim // 4))
+    assert plan.grid == batch * plan.cluster and plan.threads == 256
+    assert plan.staged == (layout(True) <= H100_SMEM)
+    units = plan.columns // 4
+    held = -(-time // (256 // units)) if units <= 256 else None
+    assert plan.resident == (dim % 4 == 0 and held is not None
+                             and held <= 8)
+
+
+def test_bahdanau_plan_fills_the_card_at_the_bench_shape():
+    """B 64, T 32, A 512, D 1024: clusters of 4, 256 blocks on the 132
+    SMs (the first design had 64), each with 8 positions, whose 16 KB of
+    keys are staged beside pq, v and the mask, and a 32 KB slice of 256
+    columns of the states in registers, 8 float4 a thread."""
+    plan = _bahdanau_plan(64, 32, 512, 1024)
+    assert plan.cluster == 4 and plan.grid == 256 >= H100_SMS
+    assert (plan.positions, plan.columns) == (8, 256)
+    assert plan.resident and plan.staged
+    assert 32 * 256 == 8 * 4 * plan.threads
+    assert plan.smem_bytes == 4 * (32 + 32 + 1024 + 10 * 512 + 32) == 24960
+
+
+@pytest.mark.parametrize("batch,time,att,dim,cluster", [
+    (1, 32, 512, 1024, 8),   # B 1: the largest portable cluster
+    (1, 1, 512, 1024, 1),    # T 1: one block owns the one position
+    (64, 1, 3, 5, 1),
+    (1, 1, 1, 1, 1),
+    (5, 9, 48, 80, 8),       # T 9 over 8 blocks: chunks of 2, the last empty
+    (128, 50, 256, 512, 2),
+    (640, 32, 512, 1024, 1)])
+def test_bahdanau_plan_cluster_sizes(batch, time, att, dim, cluster):
+    assert _bahdanau_plan(batch, time, att, dim).cluster == cluster
+
+
+@pytest.mark.parametrize("batch,time,att,dim,staged", [
+    (64, 12288, 512, 1024, False),  # the longest source the first design took
+    (2, 1000, 64, 1024, True), (3, 3000, 37, 1023, True),
+    (7, 13, 50, 83, True), (64, 64, 512, 1024, True)])
+def test_bahdanau_plan_streams_long_sources(batch, time, att, dim, staged):
+    """Where a thread's share of the states slice passes 8 float4 (or D
+    is not a multiple of 4), the context pass reads it from device
+    memory; where a block's keys do not fit in shared memory either, the
+    energies read their operands in place."""
+    plan = _bahdanau_plan(batch, time, att, dim)
+    assert not plan.resident and plan.staged == staged
+
+
+@pytest.mark.parametrize("batch,time,att,dim", [
+    (1, 32, 512, 1024), (64, 1, 512, 1024), (7, 13, 48, 88),
+    (64, 8, 512, 1024)])
+def test_bahdanau_plan_holds_short_sources_in_registers(batch, time, att,
+                                                        dim):
+    assert _bahdanau_plan(batch, time, att, dim).resident
+
+
+def test_bahdanau_plan_reads_the_operands_in_place_when_they_do_not_fit():
+    plan = _bahdanau_plan(3, 7, 40000, 6)
+    assert not plan.staged and not plan.resident
+
+
+@pytest.mark.parametrize("batch,time,sms,smem", [
+    (64, 32, 0, H100_SMEM), (0, 32, 132, H100_SMEM),
+    (64, 32, 132, 2048), (1, 60000, 132, H100_SMEM)])
+def test_bahdanau_plan_raises_where_nothing_fits(batch, time, sms, smem):
+    with pytest.raises(ValueError, match="fused_bahdanau_step"):
+        cuda_attention.bahdanau_plan(batch, time, 512, 1024, sms, smem)
