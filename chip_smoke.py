@@ -29,6 +29,15 @@ Phases (any failure raises and the script exits non-zero):
    weights' products and the hoisted input's backward) beside the plain
    scan's (cuDNN's GRU applies r after the recurrent product: another
    function);
+3b. past the kernels' first limits: shapes that the JAX package runs,
+   through the port's entry points on the card against the CPU: a GRU
+   encoder's training step at H 8192 (K1 forward, the plain BPTT past
+   ``bptt_fits``, as the JAX package's plain path), an LSTM's at H 8448
+   (the plain scan past ``lstm_scan_fits``), multi-head attention at head
+   dims 192 and 256 (the flash kernels, which the JAX package pads to any
+   head dim), K4 at beam 64 (k 64 over 15360 entries; k 65 through the
+   plain top-k) and the lineage layout's gate (the kernel to head dim 512,
+   past it the JAX decoder's gate); none may raise;
 4. slice: the flagship RNN model (bench.py widths: vocabulary 30000,
    embeddings 512, BiGRU 512, attention 512, conditional-GRU decoder)
    with random seeded weights decodes 128 synthetic sentences greedily
@@ -69,7 +78,10 @@ Phases (any failure raises and the script exits non-zero):
    dkv) timed beside SDPA's backward at the encoder, decoder, cross and
    long-source shapes (``backward_by_shape``); lineage
    attention at batch 64, 8 heads, beam 10, 48 steps, windows 12, 24
-   and 48, and a ragged shape, to 1e-5;
+   and 48 (each timed), at batch 1 (the lane split, timed), at head dims
+   256 and 512 (timed), and at a ragged shape (63 lanes), to 1e-5, with
+   its time with
+   the L2 cache flushed (``l2_flushed_ms``) and its launch plans;
 9. Transformer serving: bench.py's Transformer (512 wide, FFN 2048, 6 +
    6 layers, 8 heads, vocabulary 30000, tied target embeddings) with
    random seeded weights decodes the 128 sentences greedily and with
@@ -479,10 +491,14 @@ def check_kernels(device):
                work=(3 * 2 * n * d * vp_ + 3 * n * vp_, k3_bytes),
                peak=TF32_PEAK, **extra)
 
-    # K4: both selection stages; rounded inputs force ties, which must
-    # go to the lowest index exactly as in the plain version
+    # K4: both selection stages, a long row (several warps a row) at k 64
+    # and a ragged shape (4-byte loads); rounded inputs force ties, which
+    # must go to the lowest index exactly as in the plain version. Timed
+    # at the group stage, with the candidate stage's time beside it
+    candidates = torch.round(randn(BATCH, BEAM * 128, scale=3.0))
     for batch, n, k, timed in ((BATCH, BEAM * vp // 128, BEAM, True),
                                (BATCH, BEAM * 128, BEAM, False),
+                               (BATCH, 30720, 64, False),
                                (5, 300, 7, False)):
         x = torch.round(randn(batch, n, scale=3.0))
         got = beam_select.small_topk(x, k)
@@ -494,14 +510,20 @@ def check_kernels(device):
         timing = ((time_ms(lambda: beam_select.small_topk(x, k)),
                    time_ms(lambda: beam_select.topk_reference(x, k)))
                   if timed else ())
+        extra = ({"plan": beam_select.topk_plan(batch, n, k)._asdict(),
+                  "candidate_stage_ms": time_ms(
+                      lambda: beam_select.small_topk(candidates, BEAM)),
+                  "candidate_stage_shape": list(candidates.shape)}
+                 if timed else {})
         record("small_topk", 0.0, 0.0, (batch, n, k), *timing,
                work=(batch * n * k, 4 * batch * n + 8 * batch * k),
                library_ms=(time_ms(lambda: torch.topk(x, k, dim=1))
-                           if timed else None))
+                           if timed else None), **extra)
 
     check_train_kernels(device, randn, lengths_mask, record)
-    long, by_shape = check_transformer_kernels(device, randn, lengths_mask,
-                                               record)
+    long, by_shape, lineage_extra = check_transformer_kernels(
+        device, randn, lengths_mask, record)
+    results["lineage_attention"].update(lineage_extra)
     results["flash_attention_fwd"].update(
         {f"long_source_{key}": value for key, value in long.items()})
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
@@ -634,6 +656,7 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
     import torch.nn.functional as F
 
     from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    from neuralmonkey_tpu_torch.ops import kernel_config
     from neuralmonkey_tpu_torch.ops import lineage_attention as la
 
     gen = torch.Generator().manual_seed(SEED + 3)
@@ -766,9 +789,15 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
 
     # lineage attention: a beam step's self-attention over the K slots'
     # unpermuted caches at the full decode shape, windows 12, 24 and 48
-    # positions, and a ragged shape; timed at the full window
+    # positions; at B 1 (the lane split), at head dims 256 and 512, and at a
+    # ragged shape (63 lanes: 4-byte copies); timed at the full window, with
+    # L2 flushed there too, at the other windows, at B 1 and at head dim 512
+    lineage_extra = {}
     for b, h, beam, t, d, windows in (
             (BATCH, T_HEADS, BEAM, TGT_LEN, T_HEAD_DIM, (12, 24, TGT_LEN)),
+            (1, T_HEADS, BEAM, TGT_LEN, T_HEAD_DIM, (12, TGT_LEN)),
+            (8, T_HEADS, BEAM, TGT_LEN, 256, (TGT_LEN,)),
+            (8, T_HEADS, BEAM, TGT_LEN, 512, (TGT_LEN,)),
             (3, 2, 7, 9, 40, (5,))):
         q = randn(b, h, beam, d)
         kq = randn(b, h, d, beam * t)
@@ -780,20 +809,166 @@ def check_transformer_kernels(device, randn, lengths_mask, record):
             bias = la.lineage_bias(anc, win - 1, win, beam, lanes, t)
             got = la.lineage_attention(q, kq, vq, bias)
             ref = la.lineage_attention_reference(q, kq, vq, bias)
+
+            def call():
+                return la.lineage_attention(q, kq, vq, bias)
             timing = {}
-            if (b, win) == (BATCH, TGT_LEN):
+            if (b, d) == (BATCH, T_HEAD_DIM) and win == TGT_LEN:
                 timing = timings(
-                    lambda: la.lineage_attention(q, kq, vq, bias),
+                    call,
                     lambda: la.lineage_attention_reference(q, kq, vq, bias),
                     lambda: F.scaled_dot_product_attention(
                         q, kq[..., :lanes].transpose(-1, -2),
                         vq[:, :, :lanes], attn_mask=bias[:, None]))
+                lineage_extra.update(
+                    l2_flushed_ms=flushed_ms(call),
+                    plan=la.lineage_plan(b, h, beam, d, beam * t, lanes,
+                                         *kernel_config.device_limits(0)
+                                         )._asdict())
+            elif d == T_HEAD_DIM and b in (1, BATCH):
+                lineage_extra[f"B{b} window {win} ms"] = time_ms(call)
+                if b == 1:
+                    lineage_extra[f"B{b} window {win} plan"] = la.lineage_plan(
+                        b, h, beam, d, beam * t, lanes,
+                        *kernel_config.device_limits(0))._asdict()
+            elif d == 512:
+                lineage_extra["B8 head dim 512 ms"] = time_ms(call)
             work = (4 * b * h * beam * lanes * d,
                     4 * (2 * b * h * beam * d + 2 * b * h * lanes * d
                          + b * beam * lanes))
             record("lineage_attention", max_err(got, ref), 1e-5,
                    (b, h, beam, t, d, f"window {win}"), work=work, **timing)
-    return long, by_shape
+    log(f"lineage attention: {lineage_extra}")
+    return long, by_shape, lineage_extra
+
+
+# ---------------------------------------------------------------------- #
+# phase 3b: the shapes past the kernels' limits
+# ---------------------------------------------------------------------- #
+def check_past_limits(device):
+    """Shapes past the kernels' first limits that the JAX package runs,
+    through the port's entry points on the card, each against the same
+    call on the CPU: a GRU encoder's training step at H 8192 (K1
+    forward, the plain BPTT), an LSTM's at H 8448 (the plain scan whole),
+    multi-head attention at head dims 192 and 256 forward and backward
+    (the flash kernels), K4 at beam 64 over the selector's first stage
+    (n 15360, k 64) and k 65 (the plain top-k), and the lineage layout's
+    gate. The training steps are held to phase 7's rule (the loss to
+    1e-5 relative, each gradient to 1e-3 of its largest entry), the
+    attention to 1e-4, the top-k bit for bit."""
+    import torch
+
+    from neuralmonkey_tpu_torch.models.decoders import transformer
+    from neuralmonkey_tpu_torch.ops import (attention, beam_select,
+                                            kernel_config, nn, rnn)
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    report = {}
+
+    def training_rule(name, got, want):
+        (loss, grads), (ref_loss, ref_grads) = got, want
+        err = abs(float(loss) - float(ref_loss)) / max(1e-30,
+                                                       abs(float(ref_loss)))
+        worst = max(float((g - ref_grads[k]).abs().max())
+                    / max(1e-30, float(ref_grads[k].abs().max()))
+                    for k, g in grads.items())
+        report[name] = {"loss_rel_err": err, "grad_rel_err": worst}
+        if not (err <= 1e-5 and worst <= 1e-3):
+            raise AssertionError(f"{name}: loss {err}, gradients {worst}")
+
+    batch, time_, width = 2, 4, 16
+    inputs = torch.randn(batch, time_, width, generator=gen)
+    mask = torch.tensor([[1.0, 1, 1, 1], [1, 1, 0, 0]])
+    for name, cell, kernels in (
+            ("gru H 8192", nn.GRUCell(width, 8192), ("gru_scan",)),
+            ("lstm H 8448", nn.LSTMCell(width, 8448), ())):
+        hidden = cell.hidden_dim
+        g_out = torch.randn(batch, time_, hidden, generator=gen)
+        g_final = torch.randn(batch, hidden, generator=gen)
+        init = cell.init(torch.Generator().manual_seed(SEED))
+
+        def step(dev):
+            params = {k: v.detach().to(dev).requires_grad_()
+                      for k, v in init.items()}
+            x = inputs.detach().to(dev).requires_grad_()
+            out, final = rnn.unidirectional_rnn(cell, params, x, mask.to(dev))
+            loss = ((out * g_out.to(dev)).sum()
+                    + (final * g_final.to(dev)).sum())
+            loss.backward()
+            return loss.detach().cpu(), {
+                **{k: p.grad.cpu() for k, p in params.items()},
+                "inputs": x.grad.cpu()}
+        kernel_config.reset_launch_counts()
+        got = step(device)
+        torch.cuda.synchronize()
+        counts = kernel_config.launch_counts()
+        launched = sorted(k for k, n in counts.items() if n)
+        if launched != sorted(kernels):
+            raise AssertionError(f"{name}: launched {launched}")
+        training_rule(name, got, step(torch.device("cpu")))
+        report[name]["launched"] = launched
+
+    # multi-head attention at head dims 192 and 256: the flash kernels
+    for model_dim in (384, 512):
+        params = attention.mha_init(gen, model_dim, model_dim, model_dim)
+        x = torch.randn(4, 9, model_dim, generator=gen)
+        key_mask = torch.ones(4, 9)
+        key_mask[1, 5:] = 0
+
+        def attend(dev):
+            p = {k: {n: t.detach().to(dev).requires_grad_()
+                     for n, t in v.items()} for k, v in params.items()}
+            xs = x.detach().to(dev).requires_grad_()
+            out = attention.multi_head_attention(
+                p, xs, xs, xs, 2, key_mask=key_mask.to(dev), causal=True)
+            out.square().sum().backward()
+            return [out.detach().cpu(), xs.grad.cpu()] + [
+                t.grad.cpu() for v in p.values() for t in v.values()]
+        kernel_config.reset_launch_counts()
+        got = attend(device)
+        torch.cuda.synchronize()
+        name = f"attention head dim {model_dim // 2}"
+        counts = kernel_config.launch_counts()
+        launched = [counts[f"flash_attention_{k}"]
+                    for k in ("fwd", "bwd_dq", "bwd_dkv")]
+        if launched != [1, 1, 1]:
+            raise AssertionError(f"{name}: flash launches {launched}")
+        err = max(max_err(a, b) / max(1.0, float(b.abs().max()))
+                  for a, b in zip(got, attend(torch.device("cpu"))))
+        report[name] = {"max_rel_err": err, "flash_launches": launched}
+        if not err <= 1e-4:
+            raise AssertionError(f"{name}: error {err}")
+
+    # K4 at beam 64 (the first stage's 64 x 240 groups) and k 65
+    for k in (64, 65):
+        scores = torch.round(torch.randn(BATCH, 64 * 240, generator=gen)
+                             * 3.0).to(device)
+        kernel_config.reset_launch_counts()
+        got = beam_select.small_topk(scores, k)
+        torch.cuda.synchronize()
+        ref = beam_select.topk_reference(scores.cpu(), k)
+        if not (torch.equal(got[0].cpu(), ref[0])
+                and torch.equal(got[1].cpu(), ref[1])):
+            raise AssertionError(f"small_topk k {k}: differs from the CPU")
+        report[f"small_topk k {k}"] = {
+            "launches": kernel_config.launch_counts()["small_topk"]}
+
+    # the lineage layout at beam 10: the kernel's head dims at any cache
+    # length, past them the JAX decoder's gate
+    want = {(192, 48): True, (512, 480): True, (640, 48): True,
+            (520, 48): False, (640, 300): False}
+    os.environ["NM_LINEAGE_KERNEL"] = "1"
+    try:
+        layouts = {(d, t): transformer.lineage_kernel_layout(10, d, t)
+                   for d, t in want}
+    finally:
+        os.environ.pop("NM_LINEAGE_KERNEL")
+    if layouts != want:
+        raise AssertionError(f"lineage kernel layout gate: {layouts}")
+    report["lineage layout"] = {f"head dim {d}, {t} steps": v
+                                for (d, t), v in layouts.items()}
+    log(f"past the kernels' limits: {report}")
+    return report
 
 
 def flash_backward_times(fa, q, k, v, g, mask, causal):
@@ -2136,6 +2311,7 @@ def main() -> int:
         return out
 
     kernels = phase("kernels", check_kernels, device)
+    past_limits = phase("past the kernels' limits", check_past_limits, device)
     plans = launch_plans()
     log(f"launch plans: {plans}")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2209,6 +2385,7 @@ def main() -> int:
                  "training_parity": l_train_parity},
         "lstm_scan_cudnn_max_abs_err": kernels["lstm_scan"][
             "cudnn_max_abs_err"],
+        "past_the_kernels_limits": past_limits,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -48,13 +48,34 @@
 // over).
 //
 // K4 replaces `_topk_kernel` (called by `_topk_pallas`): the k largest values
-// of each short row (k = beam, rows of K * R or K * 128 entries) in
-// descending order, ties to the lowest index like lax.top_k. What bounds it:
-// launch latency and the k serial rounds, not bytes. The design: one block per
-// row holds the row in shared memory and runs k rounds of a block-wide arg-max
-// under the order (value descending, index ascending); a round only considers
-// entries that come after the previous winner in that order, so winners need
-// no knocking out and an index is never picked twice.
+// of each row (k = beam, rows of K * R or K * 128 entries) in descending
+// order, ties to the lowest index like lax.top_k. What bounds it: latency
+// (the launch, a few dependent loads, the serial steps), not bytes (0.6 MB at
+// 64 x 2400). The first design held the row in shared memory (so n <= 12000)
+// and ran k rounds of a block-wide arg-max, each a pass over the row and two
+// block barriers. This design makes one pass over the row
+// (ops/beam_select.topk_plan lays it out):
+// - a warp reads a chunk of 1024 entries, 32 a lane (512 at k > 32), as
+//   float4 where the rows are 16-byte aligned and n a multiple of 4, as
+//   floats otherwise; a row of one chunk is one warp's (4 rows a block, no
+//   block barrier), a longer row's chunks are shared by 2, 4 or 8 warps, the
+//   next chunk's loads issued before the current chunk is scanned;
+// - tau, the k-th best (k <= 32) of the 32 lanes' bests over the first
+//   chunk (a bitonic sort across the warp): k entries rank at or before it,
+//   so nothing after it can be among the k best. The one pass appends the
+//   entries at or before tau to the warp's 256 candidates in shared memory
+//   (a ballot and a prefix count an entry, no serial step), and each
+//   candidate's place in the output is the number of candidates before it
+//   (a lane a candidate, the candidates broadcast from shared memory);
+// - where k > 32 or more than 256 entries pass (rows of ties, sorted rows),
+//   each lane keeps the best KM (16, 32 or 64 >= k) of its entries, sorted,
+//   in registers, inserting the entries that pass one at a time from one
+//   copy of the insertion code, and k rounds of a warp arg-max over the
+//   lists' heads (two redux.sync reductions a round: the best key, then the
+//   lowest index among its ties) pick the winners, the winning lane popping
+//   its head with selects over its list.
+// Where warps share a row, each finds the k best of its chunks so, and one
+// warp merges their k-lists (k rounds of the arg-max) after a block barrier.
 #include "tc_product.cuh"
 
 namespace {
@@ -189,79 +210,282 @@ rowmax_lse_kernel(const float* __restrict__ x,  // (N, Vp)
   }
 }
 
-constexpr int kTopkThreads = 256;
-
 // a ranks before b: larger value first, then lower index
 __device__ __forceinline__ bool ranks_before(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
-__global__ void __launch_bounds__(kTopkThreads)
+// Put (v, i), which ranks before the list's last entry, into its place in the
+// sorted list (best first): it moves down from the head, each entry it
+// passes moving one place on, with selects only (no branch, no dynamic
+// index); the last entry drops out.
+template <int KM>
+__device__ __forceinline__ void list_insert(float (&lv)[KM], int (&li)[KM], float v, int i) {
+#pragma unroll
+  for (int p = 0; p < KM; ++p) {
+    const bool before = ranks_before(v, i, lv[p], li[p]);
+    const float ov = lv[p];
+    const int oi = li[p];
+    lv[p] = before ? v : ov;
+    li[p] = before ? i : oi;
+    v = before ? ov : v;
+    i = before ? oi : i;
+  }
+}
+
+// An unsigned key in the order of the values (a larger value, a larger key);
+// -0.0 keys as +0.0, since the order takes them as equal.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = __float_as_uint(v == 0.f ? 0.f : v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// k rounds of a warp arg-max over the heads of the lanes' sorted lists: the
+// best head's key by one warp reduction (redux.sync), the lowest index among
+// the heads of that key by another; the winning lane (indices are unique)
+// writes the round's value and index to out_v/out_i and pops its head, with
+// selects over its list (no dynamic index).
+template <int KM>
+__device__ __forceinline__ void merge_lists(float (&lv)[KM], int (&li)[KM], int k, float* out_v,
+                                            int* out_i) {
+  for (int r = 0; r < k; ++r) {
+    const unsigned key = order_key(lv[0]);
+    const unsigned top = __reduce_max_sync(nm::kFullMask, key);
+    const int first = __reduce_min_sync(nm::kFullMask, key == top ? li[0] : INT_MAX);
+    const bool won = li[0] == first;
+    if (won) {
+      out_v[r] = lv[0];
+      out_i[r] = li[0];
+    }
+#pragma unroll
+    for (int p = 0; p < KM - 1; ++p) {
+      lv[p] = won ? lv[p + 1] : lv[p];
+      li[p] = won ? li[p + 1] : li[p];
+    }
+    lv[KM - 1] = won ? -INFINITY : lv[KM - 1];
+    li[KM - 1] = won ? INT_MAX : li[KM - 1];
+  }
+}
+
+constexpr int kTopkWarpChunk = 32;   // entries a lane scans a chunk (16 at KM 64)
+constexpr int kTopkListCap = 64;     // a warp's k-list in a long row's merge
+constexpr int kTopkCandidates = 256; // a warp's candidates at or before tau
+constexpr int kTopkWarpFloats = 2 * (kTopkListCap + kTopkCandidates);
+
+template <int KM>
+__host__ __device__ constexpr int topk_chunk() {
+  return KM > 32 ? kTopkWarpChunk / 2 : kTopkWarpChunk;
+}
+
+template <int KM, bool VEC>
+__device__ __forceinline__ void topk_load(float (&buf)[topk_chunk<KM>()], const float* xr, int n,
+                                          int base) {
+  constexpr int V = topk_chunk<KM>();
+  const int lane = threadIdx.x & 31;
+  if (VEC) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const int e = base + 128 * q + 4 * lane;  // n is a multiple of 4
+      const float4 f = e < n ? __ldg(reinterpret_cast<const float4*>(xr + e))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      buf[4 * q] = f.x;
+      buf[4 * q + 1] = f.y;
+      buf[4 * q + 2] = f.z;
+      buf[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int e = base + 32 * j + lane;
+      buf[j] = e < n ? __ldg(xr + e) : 0.f;
+    }
+  }
+}
+
+// the row index of entry j of a lane's chunk that starts at `base`
+template <int KM, bool VEC>
+__device__ __forceinline__ int topk_entry(int base, int j) {
+  const int lane = threadIdx.x & 31;
+  return VEC ? base + 128 * (j / 4) + 4 * lane + j % 4 : base + 32 * j + lane;
+}
+
+// tau: the k-th best (k <= 32) of the lanes' bests over one chunk (a bitonic
+// sort of the 32 bests across the warp, best at lane 0). k entries rank at or
+// before it, so no entry after it is among the k best.
+template <int KM, bool VEC>
+__device__ __forceinline__ void chunk_tau(const float (&buf)[topk_chunk<KM>()], int base, int n,
+                                          int k, float& tv, int& ti) {
+  const int lane = threadIdx.x & 31;
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+#pragma unroll
+  for (int j = 0; j < topk_chunk<KM>(); ++j) {
+    const int e = topk_entry<KM, VEC>(base, j);
+    if (e < n && ranks_before(buf[j], e, bv, bi)) {
+      bv = buf[j];
+      bi = e;
+    }
+  }
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      const float ov = __shfl_xor_sync(nm::kFullMask, bv, stride);
+      const int oi = __shfl_xor_sync(nm::kFullMask, bi, stride);
+      const bool keep_better = ((lane & size) == 0) == ((lane & stride) == 0);
+      if (keep_better == ranks_before(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+  tv = __shfl_sync(nm::kFullMask, bv, k - 1);
+  ti = __shfl_sync(nm::kFullMask, bi, k - 1);
+}
+
+// Grid: blocks of rows_per_block rows, wpr warps a row. Shared memory, a warp
+// each: its k-list (kTopkListCap values, then indices), then its candidates
+// (kTopkCandidates values, then indices).
+template <int KM, bool VEC>
+__global__ void __launch_bounds__(256)
 small_topk_kernel(const float* __restrict__ x,  // (B, n)
                   float* __restrict__ vals,     // (B, k)
                   int* __restrict__ idx,        // (B, k)
-                  int n, int k) {
-  extern __shared__ float row[];  // [n]
-  __shared__ float warp_v[kTopkThreads / 32];
-  __shared__ int warp_i[kTopkThreads / 32];
-  __shared__ float win_v;
-  __shared__ int win_i;
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < n; i += kTopkThreads) row[i] = x[static_cast<size_t>(b) * n + i];
-  __syncthreads();
+                  int B, int n, int k, int wpr) {
+  constexpr int V = topk_chunk<KM>();
+  constexpr int kChunk = 32 * V;  // entries of a warp's chunk
+  extern __shared__ float4 topk_smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int row = blockIdx.x * (warps / wpr) + warp / wpr, part = warp % wpr;
+  float* klist_v = reinterpret_cast<float*>(topk_smem4) + warp * kTopkWarpFloats;
+  int* klist_i = reinterpret_cast<int*>(klist_v + kTopkListCap);
+  float* cand_v = klist_v + 2 * kTopkListCap;
+  int* cand_i = reinterpret_cast<int*>(cand_v + kTopkCandidates);
+  // where this warp's k best go: the row's output, or its k-list when warps
+  // share the row (sentinels where its part holds fewer than k entries)
+  float* out_v = wpr == 1 ? vals + static_cast<size_t>(row) * k : klist_v;
+  int* out_i = wpr == 1 ? idx + static_cast<size_t>(row) * k : klist_i;
+  if (wpr > 1) {
+    for (int r = lane; r < k; r += 32) {
+      klist_v[r] = -INFINITY;
+      klist_i[r] = INT_MAX;
+    }
+    __syncwarp();
+  }
 
-  // every entry comes after the sentinel (+inf, -1)
-  float prev_v = INFINITY;
-  int prev_i = -1;
-  for (int round = 0; round < k; ++round) {
-    float best_v = -INFINITY;
-    int best_i = INT_MAX;
-    for (int i = threadIdx.x; i < n; i += kTopkThreads) {
-      const float v = row[i];
-      if (ranks_before(prev_v, prev_i, v, i) && ranks_before(v, i, best_v, best_i)) {
-        best_v = v;
-        best_i = i;
-      }
+  const int n_chunks = (n + kChunk - 1) / kChunk;
+  const float* xr = x + static_cast<size_t>(row) * n;
+  float tv = -INFINITY;  // tau: keep what ranks at or before it; the
+  int ti = INT_MAX;      // sentinel keeps every entry
+  bool done = row >= B;
+  if (!done && k <= 32) {
+    // one pass: the entries at or before tau appended to the warp's
+    // candidates (a ballot and a prefix count an entry, no serial step)
+    float buf[V], nxt[V];
+    int count = 0;
+    if (part < n_chunks) {
+      topk_load<KM, VEC>(buf, xr, n, part * kChunk);
+      chunk_tau<KM, VEC>(buf, part * kChunk, n, k, tv, ti);
     }
+    for (int c = part; c < n_chunks; c += wpr) {
+      const int base = c * kChunk;
+      if (c + wpr < n_chunks) topk_load<KM, VEC>(nxt, xr, n, (c + wpr) * kChunk);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(nm::kFullMask, best_v, off);
-      const int oi = __shfl_xor_sync(nm::kFullMask, best_i, off);
-      if (ranks_before(ov, oi, best_v, best_i)) {
-        best_v = ov;
-        best_i = oi;
+      for (int j = 0; j < V; ++j) {
+        const int e = topk_entry<KM, VEC>(base, j);
+        const bool keep = e < n && !ranks_before(tv, ti, buf[j], e);
+        const unsigned kept = __ballot_sync(nm::kFullMask, keep);
+        const int at = count + __popc(kept & ((1u << lane) - 1));
+        if (keep && at < kTopkCandidates) {
+          cand_v[at] = buf[j];
+          cand_i[at] = e;
+        }
+        count += __popc(kept);
       }
-    }
-    if (lane == 0) {
-      warp_v[warp] = best_v;
-      warp_i[warp] = best_i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best_v = lane < kTopkThreads / 32 ? warp_v[lane] : -INFINITY;
-      best_i = lane < kTopkThreads / 32 ? warp_i[lane] : INT_MAX;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(nm::kFullMask, best_v, off);
-        const int oi = __shfl_xor_sync(nm::kFullMask, best_i, off);
-        if (ranks_before(ov, oi, best_v, best_i)) {
-          best_v = ov;
-          best_i = oi;
+      for (int j = 0; j < V; ++j) buf[j] = nxt[j];
+    }
+    if (count <= kTopkCandidates) {
+      // each candidate's place is the number of candidates before it
+      __syncwarp();
+      for (int i = lane; i < count; i += 32) {
+        const float v = cand_v[i];
+        const int e = cand_i[i];
+        int place = 0;
+        for (int j = 0; j < count; ++j) place += ranks_before(cand_v[j], cand_i[j], v, e);
+        if (place < k) {
+          out_v[place] = v;
+          out_i[place] = e;
         }
       }
-      if (lane == 0) {
-        vals[static_cast<size_t>(b) * k + round] = best_v;
-        idx[static_cast<size_t>(b) * k + round] = best_i;
-        win_v = best_v;
-        win_i = best_i;
-      }
+      done = true;
     }
-    __syncthreads();
-    prev_v = win_v;
-    prev_i = win_i;
   }
+  if (!done) {
+    // k > 32, or more candidates than the buffer holds (rows of ties or
+    // sorted rows): each lane keeps the best KM of its entries, sorted, in
+    // registers; the entries that pass both thresholds as a chunk starts are
+    // marked in a bit mask and inserted one by one from one copy of the
+    // insertion (the list's last entry rises as entries go in, so each is
+    // checked again); k rounds over the lists' heads follow
+    float lv[KM];
+    int li[KM];
+#pragma unroll
+    for (int p = 0; p < KM; ++p) {  // the sentinel ranks after every entry
+      lv[p] = -INFINITY;
+      li[p] = INT_MAX;
+    }
+    float buf[V], nxt[V];
+    if (part < n_chunks) topk_load<KM, VEC>(buf, xr, n, part * kChunk);
+    for (int c = part; c < n_chunks; c += wpr) {
+      const int base = c * kChunk;
+      if (c + wpr < n_chunks) topk_load<KM, VEC>(nxt, xr, n, (c + wpr) * kChunk);
+      unsigned long long pass = 0;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int e = topk_entry<KM, VEC>(base, j);
+        if (e < n && ranks_before(buf[j], e, lv[KM - 1], li[KM - 1]) &&
+            !ranks_before(tv, ti, buf[j], e))
+          pass |= 1ull << j;
+      }
+      while (pass) {
+        const int e = topk_entry<KM, VEC>(base, __ffsll(pass) - 1);
+        pass &= pass - 1;
+        const float v = __ldg(xr + e);  // in L1: the chunk was just read
+        if (ranks_before(v, e, lv[KM - 1], li[KM - 1])) list_insert<KM>(lv, li, v, e);
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) buf[j] = nxt[j];
+    }
+    merge_lists<KM>(lv, li, k, out_v, out_i);
+  }
+  if (wpr == 1) return;
+  __syncthreads();
+  if (part != 0 || row >= B) return;
+  // the row's k best: lane j < wpr takes warp (warp + j)'s k-list
+  const float* src_v = klist_v + lane * kTopkWarpFloats;
+  const int* src_i = klist_i + lane * kTopkWarpFloats;
+  float lv[KM];
+  int li[KM];
+#pragma unroll
+  for (int p = 0; p < KM; ++p) {
+    const bool live = lane < wpr && p < k;
+    lv[p] = live ? src_v[p] : -INFINITY;
+    li[p] = live ? src_i[p] : INT_MAX;
+  }
+  merge_lists<KM>(lv, li, k, vals + static_cast<size_t>(row) * k,
+                  idx + static_cast<size_t>(row) * k);
+}
+
+template <int KM, bool VEC>
+int launch_topk(const float* x, float* vals, int* idx, int B, int n, int k, int wpr,
+                int rows_per_block, int smem, cudaStream_t stream) {
+  const size_t need = sizeof(float) * static_cast<size_t>(wpr) * rows_per_block * kTopkWarpFloats;
+  if (static_cast<size_t>(smem) != need) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (B + rows_per_block - 1) / rows_per_block;
+  small_topk_kernel<KM, VEC><<<blocks, 32 * wpr * rows_per_block, smem, stream>>>(x, vals, idx, B,
+                                                                                  n, k, wpr);
+  return nm::launch_status();
 }
 
 }  // namespace
@@ -305,12 +529,28 @@ NM_EXPORT int nm_rowmax_lse(const void* x, void* rowmax, void* psum, void* lse, 
   return nm::launch_status();
 }
 
-NM_EXPORT int nm_small_topk(const void* x, void* vals, void* idx, int B, int n, int k,
-                            void* stream) {
-  small_topk_kernel<<<B, kTopkThreads, static_cast<size_t>(n) * sizeof(float),
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(vals), static_cast<int*>(idx), n, k);
-  return nm::launch_status();
+// The launch follows ops/beam_select.topk_plan: lists of `k_max` (16, 32 or
+// 64 >= k) entries, `wpr` warps a row (1, 2, 4 or 8), `rows_per_block` rows a
+// block, 16-byte loads when `vec`, `smem` shared bytes a block (checked).
+NM_EXPORT int nm_small_topk(const void* x, void* vals, void* idx, int B, int n, int k, int k_max,
+                            int wpr, int rows_per_block, int vec, int smem, void* stream) {
+  if (B < 1 || n < 1 || k < 1 || k > n || k > k_max || wpr < 1 || wpr > 8 ||
+      rows_per_block < 1 || 32 * wpr * rows_per_block > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xf = static_cast<const float*>(x);
+  auto* vf = static_cast<float*>(vals);
+  auto* ii = static_cast<int*>(idx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NM_TOPK(KM)                                                                    \
+  return vec ? launch_topk<KM, true>(xf, vf, ii, B, n, k, wpr, rows_per_block, smem, s) \
+             : launch_topk<KM, false>(xf, vf, ii, B, n, k, wpr, rows_per_block, smem, s)
+  switch (k_max) {
+    case 16: NM_TOPK(16);
+    case 32: NM_TOPK(32);
+    case 64: NM_TOPK(64);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef NM_TOPK
 }
 
 NM_EXPORT const char* nm_error_string(int status) {

@@ -59,6 +59,9 @@
 //   dV += Pᵀ dO (dropped P) and dK += dSᵀ q (undropped P), the sums over
 //   queries as dq's over keys. Each query tile brings its lse and dcap rows
 //   with it. At D 64: 34 KB or 52 KB.
+// Head dims up to 256, padded to 32, 64, 128 or 256 (the JAX kernels pad any
+// head dim to the 128-lane; past 256 the wrappers raise). At 256 a block
+// takes 166 KB (forward) to 200 KB (dkv), one block an SM.
 // In dq, a warp whose 8 queries all lie past Tq (the second block of a
 // 48-query axis holds 16) only loads and synchronises; the same skip in dkv
 // measured slower.
@@ -704,7 +707,9 @@ Dropout make_dropout(int enabled, int k0, int k1, int thresh, float inv_keep) {
 
 // the head dimension rounded up to a width the kernels are built for: float4
 // columns of 8 threads need at least 32
-int head_width(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0; }
+int head_width(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
+}
 
 }  // namespace
 
@@ -713,6 +718,7 @@ int head_width(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
     case 32: return CALL(32);                                 \
     case 64: return CALL(64);                                 \
     case 128: return CALL(128);                               \
+    case 256: return CALL(256);                               \
     default: return static_cast<int>(cudaErrorInvalidValue);  \
   }
 

@@ -14,16 +14,65 @@ them over existing logits, in one read, when it does not.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import kernel_config
 
 LANE = 128
-# K4 holds a row in the 48 KiB of shared memory a block gets by default,
-# beside a few hundred bytes of its own
-MAX_TOPK_ROW = 12000
+# K4 (csrc/beam_select.cu): sorted lists of 16, 32 or 64 entries a lane, so
+# k up to 64 (the JAX small_topk runs its reference past that too); a warp
+# reads a row in chunks of TOPK_WARP_SPAN entries (32 a lane), and a row
+# longer than one chunk is shared by a warp a chunk (rounded up to a power
+# of two, at most 8); one-warp rows go 4 to a block
+TOPK_LIST_SIZES = (16, 32, 64)
+TOPK_WARP_SPAN = 1024
+TOPK_ROWS_PER_BLOCK = 4
+# a warp's shared floats: its k-list (64 entries, for a long row's merge)
+# and its candidates (256 entries), values then indices
+_TOPK_WARP_FLOATS = 2 * (64 + 256)
+
+
+def topk_kernel_takes(k: int) -> bool:
+    """Whether K4 takes this k (at most 64): the shape gate of
+    :func:`small_topk`."""
+    return 0 < k <= TOPK_LIST_SIZES[-1]
+
+
+class TopkPlan(NamedTuple):
+    """The launch of K4: per-lane lists of ``k_max`` entries,
+    ``warps_per_row`` warps a row, ``rows_per_block`` rows a block in
+    ``blocks`` blocks, float4 loads when ``vec``, ``smem_bytes`` of
+    shared memory a block (each warp's candidates, and its k-list, which
+    a row's warps merge)."""
+    k_max: int
+    warps_per_row: int
+    rows_per_block: int
+    blocks: int
+    vec: bool
+    smem_bytes: int
+
+
+def topk_plan(batch: int, n: int, k: int, aligned: bool = True
+              ) -> TopkPlan:
+    """Lay out K4 for ``batch`` rows of ``n`` entries: one warp a row up
+    to ``TOPK_WARP_SPAN`` entries, 4 rows a block; past it, a warp per
+    ``TOPK_WARP_SPAN`` entries (2, 4 or 8) and fewer rows a block, so
+    that a long row's chunks are read at once (at 64 x 2400 on an H100,
+    4 warps a row took 0.0090 ms against one warp's 0.0108). Float4
+    loads need ``n`` a multiple of 4 and an ``aligned`` row base."""
+    if not (topk_kernel_takes(k) and batch > 0 and k <= n):
+        raise ValueError(f"small_topk: no plan for k={k} over {batch} rows "
+                         f"of {n} (k at most {TOPK_LIST_SIZES[-1]})")
+    k_max = next(size for size in TOPK_LIST_SIZES if k <= size)
+    warps = 1
+    if n > TOPK_WARP_SPAN:
+        warps = min(8, 1 << (-(-n // TOPK_WARP_SPAN) - 1).bit_length())
+    rows = max(1, TOPK_ROWS_PER_BLOCK // warps)
+    smem = 4 * warps * rows * _TOPK_WARP_FLOATS
+    return TopkPlan(k_max, warps, rows, -(-batch // rows),
+                    aligned and n % 4 == 0, smem)
 
 
 def rowmax_lse_reference(x: torch.Tensor
@@ -112,21 +161,28 @@ def topk_reference(x: torch.Tensor, k: int
 
 def small_topk(x: torch.Tensor, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over the trailing axis of (B, n) f32 for short rows:
-    values (B, k) best first and int32 indices (B, k), ties to the
-    lowest index. Launches K4 for CUDA tensors, runs the plain version
-    otherwise."""
+    """Exact top-k over the trailing axis of (B, n) f32: values (B, k)
+    best first and int32 indices (B, k), ties to the lowest index.
+    Launches K4 for CUDA tensors when it takes k (at most 64), runs the
+    plain version otherwise, as the JAX ``small_topk`` does past its
+    gate."""
     batch, n = x.shape
     if not 1 <= k <= n:
         raise ValueError(f"small_topk: k={k} for rows of {n}")
     if not x.is_cuda:
         return topk_reference(x, k)
-    if batch == 0 or n > MAX_TOPK_ROW:
-        raise ValueError(f"small_topk: unsupported shape {(batch, n)} "
-                         f"(rows up to {MAX_TOPK_ROW} entries)")
+    if not topk_kernel_takes(k):
+        kernel_config.log_plain_path(
+            "small_topk", f"k {k} > {TOPK_LIST_SIZES[-1]}")
+        return topk_reference(x, k)
+    if batch == 0:
+        raise ValueError(f"small_topk: empty x {(batch, n)}")
     x = x.contiguous()
     kernel_config.check_cuda_inputs("small_topk", x=x)
+    plan = topk_plan(batch, n, k, aligned=x.data_ptr() % 16 == 0)
     values = x.new_empty(batch, k)
     indices = torch.empty(batch, k, dtype=torch.int32, device=x.device)
-    kernel_config.launch("small_topk", x, values, indices, batch, n, k)
+    kernel_config.launch("small_topk", x, values, indices, batch, n, k,
+                         plan.k_max, plan.warps_per_row, plan.rows_per_block,
+                         int(plan.vec), plan.smem_bytes)
     return values, indices

@@ -53,18 +53,27 @@ _GRU_BPTT_MAX_HIDDEN = 7264
 
 def scan_fits(hidden: int) -> bool:
     """Whether the kernels take this hidden size: any size whose state
-    tiles fit one SM's shared memory (H <= 19368)."""
+    tiles fit one SM's shared memory (H <= 19368). The GRU's shape gate:
+    past it :func:`gru_scan` runs the plain scan whole, its gradient by
+    autograd, as the JAX package does past its ``fits_vmem``."""
     return 3 * _KERNEL_ROWS * -(-hidden // 4) * 4 * 4 <= _SHARED_BYTES
 
 
 def bptt_fits(hidden: int) -> bool:
-    """Whether the GRU BPTT kernel takes this hidden size (H <= 7264)."""
+    """Whether the GRU BPTT kernel takes this hidden size (H <= 7264).
+    Past it a training call keeps K1 forward and ``_GRUScan.backward``
+    runs the plain BPTT, so that only the part past its kernel's limit
+    leaves the card's kernels (the JAX ``fits_vmem`` gates the forward
+    and the backward together)."""
     return hidden <= _GRU_BPTT_MAX_HIDDEN
 
 
 def lstm_scan_fits(hidden: int) -> bool:
     """Whether the LSTM kernels, forward and BPTT, take this hidden size
-    (H <= 8300, seven padded h rows in one SM's shared memory)."""
+    (H <= 8300, seven padded h rows in one SM's shared memory). The
+    LSTM's shape gate: past it :func:`lstm_scan` runs the plain scan
+    whole, serving and training, as the JAX package does past its
+    ``lstm_fits_vmem``."""
     return _LSTM_VECTORS * -(-hidden // 4) * 4 * 4 <= _SHARED_BYTES
 
 
@@ -459,8 +468,13 @@ class _GRUScan(torch.autograd.Function):
         n_dirs, hidden, _ = wch.shape
         reverse = _directions(ctx.reverse_mask, n_dirs)
         hprev = shift_carries(carries, n_dirs, reverse)
-        dx = gru_bptt(x, mask, hprev, gout, gfinal, wgh, wch,
-                      ctx.reverse_mask)
+        if bptt_fits(hidden):
+            dx = gru_bptt(x, mask, hprev, gout, gfinal, wgh, wch,
+                          ctx.reverse_mask)
+        else:
+            kernel_config.log_plain_path("gru_bptt", f"hidden {hidden}")
+            dx = gru_bptt_reference(x, mask, hprev, gout.contiguous(),
+                                    gfinal.contiguous(), wgh, wch, reverse)
         dwgh, dwch = [], []
         for d in range(n_dirs):
             h = hprev[:, :, d * hidden:(d + 1) * hidden].reshape(-1, hidden)
@@ -491,13 +505,13 @@ def gru_scan(directions: Sequence[Tuple[Params, bool]],
     wgh = torch.stack([p["gates_h"] for p in params])
     wch = torch.stack([p["cand_h"] for p in params])
     mask = mask.to(x.dtype)
-    if x.is_cuda:
-        if not scan_fits(hidden):
-            raise ValueError(f"gru_scan: hidden size {hidden} does not "
-                             "fit the kernel's shared memory")
-        if batch == 0 or time == 0:
-            raise ValueError(
-                f"gru_scan: empty input {tuple(inputs.shape)}")
+    if not scan_fits(hidden):
+        kernel_config.log_plain_path("gru_scan", f"hidden {hidden}")
+        out, final, _ = gru_scan_reference(
+            x, mask, wgh, wch, [rev for _, rev in directions])
+        return out, final
+    if x.is_cuda and (batch == 0 or time == 0):
+        raise ValueError(f"gru_scan: empty input {tuple(inputs.shape)}")
     reverse_mask = sum(1 << d for d, (_, rev) in enumerate(directions)
                        if rev)
     return _GRUScan.apply(x.contiguous(), mask.contiguous(), wgh, wch,
@@ -748,6 +762,12 @@ def lstm_scan(directions: Sequence[Tuple[Params, bool]],
     xz = lstm_hoisted_inputs(params, inputs)
     wh = torch.stack([p["kernel_h"] for p in params])
     mask = mask.to(xz.dtype)
+    hidden = wh.shape[1]
+    if not lstm_scan_fits(hidden):
+        kernel_config.log_plain_path("lstm_scan", f"hidden {hidden}")
+        out, final, _, _ = lstm_scan_reference(
+            xz, mask, wh, forget_bias, [rev for _, rev in directions])
+        return out, final
     reverse_mask = sum(1 << d for d, (_, rev) in enumerate(directions)
                        if rev)
     return _LSTMScan.apply(xz.contiguous(), mask.contiguous(), wh,

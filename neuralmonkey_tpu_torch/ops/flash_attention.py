@@ -40,7 +40,7 @@ from . import kernel_config
 
 NEG_INF = -1e9
 KEEP_BITS = 23
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _U32 = 0xFFFFFFFF
 _MIX1, _MIX2, _GOLD = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9
 
@@ -177,12 +177,20 @@ def _backward_reference(q, k, v, mask, lse, g, dcap, causal: bool,
 THREADS, ROWS, TILE = 128, 32, 32
 
 
+def kernel_takes(head_dim: int) -> bool:
+    """Whether the kernels take this head dim (1 to 256, padded to 32,
+    64, 128 or 256). The JAX flash kernels pad any head dim; past 256 the
+    wrappers raise on CUDA tensors (ROADMAP queue C) and run the plain
+    versions on the CPU."""
+    return 0 < head_dim <= MAX_HEAD_DIM
+
+
 def _width(name: str, head_dim: int) -> int:
     """The head dimension rounded up to a width the kernels are built
     for (float4 columns of 8 threads need at least 32)."""
-    if not 0 < head_dim <= MAX_HEAD_DIM:
+    if not kernel_takes(head_dim):
         raise ValueError(f"{name}: head dim {head_dim}")
-    return next(w for w in (32, 64, 128) if head_dim <= w)
+    return next(w for w in (32, 64, 128, 256) if head_dim <= w)
 
 
 class FlashForwardPlan(NamedTuple):
@@ -279,8 +287,7 @@ def _check(name: str, q, k, v, mask, **more) -> Tuple[int, ...]:
             or mask.shape != (batch, kv_len)):
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, mask {tuple(mask.shape)}")
-    if min(batch, heads, q_len, kv_len, head_dim) == 0 \
-            or head_dim > MAX_HEAD_DIM:
+    if min(batch, heads, q_len, kv_len) == 0 or not kernel_takes(head_dim):
         raise ValueError(f"{name}: unsupported shape q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)} (head dim at most "
                          f"{MAX_HEAD_DIM})")

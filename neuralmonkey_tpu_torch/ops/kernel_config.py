@@ -14,7 +14,15 @@ No switch selects between a kernel and its plain version. Each kernel
 wrapper takes the kernel's plain PyTorch version for a tensor on the CPU
 and launches the kernel for a CUDA tensor. On a CUDA device below
 compute capability 9.0, when the build fails, or when a launch returns a
-CUDA error, the wrapper raises; nothing falls back quietly. The switches
+CUDA error, the wrapper raises; nothing falls back quietly. Only a shape
+that the JAX package sends past its kernel to its plain path takes the
+plain path on the card: each family's gate is a function of shapes,
+decided before any launch (``cuda_rnn.scan_fits``, ``bptt_fits`` and
+``lstm_scan_fits``, ``lineage_attention.layout_takes``,
+``beam_select.topk_kernel_takes``), and :func:`log_plain_path` logs each
+(kernel, reason) once. Where the JAX package runs its kernel at a shape
+the port's kernel does not take (flash attention past head dim 256,
+lineage attention past 512), the card raises. The switches
 that remain choose between two paths of the model, each with its own
 kernels, as in the JAX package (``use_fused_logits``).
 
@@ -32,9 +40,11 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import torch
+
+from ..logging import log
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -69,14 +79,14 @@ _ARGTYPES = {
     "nm_gru_bptt": [_PTR] * 12 + [_INT] * 10 + [_PTR],
     "nm_bahdanau_step": [_PTR] * 7 + [_INT] * 10 + [_PTR],
     "nm_fused_logits": [_PTR] * 7 + [_INT] * 3 + [_PTR],
-    "nm_small_topk": [_PTR] * 3 + [_INT] * 3 + [_PTR],
+    "nm_small_topk": [_PTR] * 3 + [_INT] * 8 + [_PTR],
     "nm_xent_fwd": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],
     "nm_xent_bwd_dx": [_PTR] * 8 + [_INT] * 6 + [_FLOAT, _PTR],
     "nm_xent_bwd_dw": [_PTR] * 10 + [_INT] * 6 + [_FLOAT, _PTR],
     "nm_flash_fwd": [_PTR] * 6 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dq": [_PTR] * 8 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
-    "nm_lineage_attention": [_PTR] * 5 + [_INT] * 6 + [_FLOAT, _PTR],
+    "nm_lineage_attention": [_PTR] * 7 + [_INT] * 15 + [_FLOAT, _PTR],
     "nm_lstm_scan": [_PTR] * 9 + [_INT] * 11 + [_FLOAT, _PTR],
     "nm_lstm_bptt": [_PTR] * 11 + [_INT] * 11 + [_FLOAT, _PTR],
     "nm_rowmax_lse": [_PTR] * 4 + [_INT] * 2 + [_PTR],
@@ -85,6 +95,8 @@ _ARGTYPES = {
 _LOCK = threading.Lock()
 _LIBRARY: Optional[ctypes.CDLL] = None
 _LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRY_POINTS, 0)
+# (kernel, reason) pairs whose plain path has been logged
+_PLAIN_PATHS: Set[Tuple[str, str]] = set()
 
 
 def use_fused_logits() -> bool:
@@ -243,6 +255,16 @@ def launch(kernel: str, *args) -> None:
         raise RuntimeError(f"{kernel}: launch failed with CUDA error "
                            f"{status} ({message})")
     _LAUNCHES[kernel] += 1
+
+
+def log_plain_path(kernel: str, reason: str) -> None:
+    """Log, once per (kernel, reason), that a shape gate sent a call to
+    the kernel's plain path (on the card's tensors too), as the JAX
+    package takes its plain path past a kernel's gate."""
+    if (kernel, reason) not in _PLAIN_PATHS:
+        _PLAIN_PATHS.add((kernel, reason))
+        log(f"{kernel}: {reason}: the kernel does not take this shape; "
+            "the plain PyTorch path runs instead")
 
 
 def launch_counts() -> Dict[str, int]:

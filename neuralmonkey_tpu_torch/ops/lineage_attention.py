@@ -16,22 +16,161 @@ Cache layout (``NM_LINEAGE_KERNEL=1``), time-major interleaved lanes,
 
 so a window of ``win`` positions is the contiguous prefix of
 ``win * K`` lanes, and a step writes K contiguous lanes. The kernel is
-``csrc/lineage_attention.cu``. The TPU kernel's padding of the beam to
-8 rows, its 128-lane window rounding and its VMEM lane budget are TPU
-layout rules: here the kernel takes the K rows and exactly the window's
-lanes.
+``csrc/lineage_attention.cu``, a pipelined stream of lane tiles of the
+caches laid out by :func:`lineage_plan`. The TPU kernel's padding of
+the beam to 8 rows, its 128-lane window rounding and its VMEM lane
+budget are TPU layout rules: here the kernel takes the K rows, exactly
+the window's lanes, any number of them, and head dims up to 512
+(:func:`kernel_takes`). The decoder keeps its caches in the kernel's
+layout wherever the kernel or the JAX decoder's gate takes the shape
+(:func:`layout_takes`), so past 512 the card raises where the JAX
+package runs its kernel, and the einsum form runs where it does not.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import kernel_config
-from .flash_attention import MAX_HEAD_DIM
 
 NEG_INF = -1e9
+# csrc/lineage_attention.cu: head dims up to 512 (padded to 32, 64, 128,
+# 256 or 512); slot rows in tiles of 8, up to 4 tiles a block; stages of 32
+# lanes (16 past a padded 256), each 16-lane tile of a stage a warp's, for
+# each slot tile
+MAX_HEAD_DIM = 512
+HEAD_DIM_PADS = (32, 64, 128, 256, 512)
+SLOT_TILE = 8
+MAX_SLOT_TILES = 4
+# an H100 SM's shared memory (228 KB), 1 KB of it reserved for each block,
+# its thread limit and its registers
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+SM_THREADS = 2048
+SM_REGISTERS = 65536
+# the JAX decoder's gate (its ``lineage_kernel_ok``): at most this many
+# lanes, and a head dim that is a multiple or a divisor of 128
+_JAX_MAX_LANES = 2048
+
+
+def kernel_takes(head_dim: int) -> bool:
+    """Whether the kernel takes this head dim (1 to 512)."""
+    return 0 < head_dim <= MAX_HEAD_DIM
+
+
+def layout_takes(beam: int, head_dim: int, cache_len: int) -> bool:
+    """The shape gate of the decoder's kernel layout: every head dim the
+    kernel takes, and past them the shapes the JAX decoder's gate admits
+    (there the JAX package runs its kernel and the card raises, having
+    none; elsewhere both keep the einsum form)."""
+    return kernel_takes(head_dim) or (
+        beam * cache_len <= _JAX_MAX_LANES
+        and (head_dim % 128 == 0 or 128 % head_dim == 0))
+
+
+def lane_tile(dmax: int) -> int:
+    """Lanes a stage at a padded head dim: 32, or 16 past 256 (two
+    stages of 32 lanes would not fit)."""
+    return 16 if dmax > 256 else 32
+
+
+def thread_registers(dmax: int) -> int:
+    """Registers a thread, as the kernel's launch bounds set them: 128,
+    or 256 from a padded 256 (whose context takes 64 or 128 of them)."""
+    return 256 if dmax >= 256 else 128
+
+
+class LineagePlan(NamedTuple):
+    """The launch of ``lineage_attention``: the head dim padded to
+    ``dmax``; ``slots`` slot rows a block (the beam, or its share of
+    ``groups`` groups, rounded up to the products' 8-wide tiles); a warp
+    for each 16-lane tile of a ``tile``-lane stage and each 8 slots
+    (``threads`` a block); the lanes cut into ``splits`` chunks of
+    ``chunk`` lanes (a multiple of the tile), each block streaming its
+    chunk through a ring of ``stages`` stages, with 16-byte copies when
+    ``vec`` (4-byte otherwise); ``smem_bytes`` of shared memory a block;
+    ``blocks_per_sm`` resident by shared memory, threads and registers."""
+    dmax: int
+    slots: int
+    groups: int
+    tile: int
+    threads: int
+    splits: int
+    chunk: int
+    stages: int
+    vec: bool
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def lineage_smem_bytes(dmax: int, slots: int, tile: int, stages: int) -> int:
+    """A block's shared bytes, as ``csrc/lineage_attention.cu`` lays them
+    out: the ring (a K tile [d][lane] and a V tile [lane][d], rows padded
+    by 8 floats, and a bias tile a stage), q [slot][d] (rows padded by 4),
+    and each warp's 16 x 8 weights."""
+    stage = dmax * (tile + 8) + tile * (dmax + 8) + slots * tile
+    warps = tile // 16 * slots // SLOT_TILE
+    return 4 * (stages * stage + slots * (dmax + 4) + warps * 128)
+
+
+def lineage_plan(batch: int, heads: int, beam: int, head_dim: int,
+                 total: int, lanes: int, sm_count: int, smem_limit: int,
+                 aligned: bool = True) -> LineagePlan:
+    """Lay out one launch over caches of ``total`` lanes, ``lanes`` of
+    them read. Stages: those that keep the most warps resident an SM (a
+    block's warps work in step between its barriers, so resident blocks
+    hide latency where more stages did not), then the most blocks, then
+    the most stages; the most slot tiles a block that fit. Lane split:
+    when ``batch * heads * groups`` blocks do not fill the card twice,
+    chunks of whole tiles, enough that they do where the lanes allow
+    (never an empty chunk). 16-byte copies need the caches'
+    rows and the head dim in multiples of 4 floats and ``aligned``
+    pointers."""
+    if not (kernel_takes(head_dim) and min(batch, heads, beam, sm_count) > 0
+            and 0 < lanes <= total):
+        raise ValueError(
+            f"lineage_attention: no plan for B {batch}, H {heads}, K {beam}"
+            f", Dh {head_dim}, {lanes} of {total} lanes (head dim at most "
+            f"{MAX_HEAD_DIM})")
+    dmax = next(pad for pad in HEAD_DIM_PADS if head_dim <= pad)
+    tile = lane_tile(dmax)
+    best = None
+    # the most slot tiles a block (each K and V tile read by fewer groups)
+    # that fit, wide heads taking fewer
+    for slot_tiles in range(min(MAX_SLOT_TILES, -(-beam // SLOT_TILE)),
+                            0, -1):
+        slots = SLOT_TILE * slot_tiles
+        threads = 32 * tile // 16 * slot_tiles
+        for stages in (2, 3, 4):
+            smem = lineage_smem_bytes(dmax, slots, tile, stages)
+            if smem > smem_limit:
+                break
+            resident = min(
+                SM_THREADS // threads,
+                SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES),
+                SM_REGISTERS // (thread_registers(dmax) * threads))
+            key = (resident * threads, resident, stages)
+            if best is None or key > best[0]:
+                best = (key, slots, threads, stages, smem, resident)
+        if best is not None:
+            break
+    if best is None:
+        raise ValueError(f"lineage_attention: Dh {head_dim} does not fit "
+                         f"{smem_limit} bytes of shared memory")
+    _, slots, threads, stages, smem, resident = best
+    groups = -(-beam // slots)
+    tiles = -(-lanes // tile)
+    blocks = batch * heads * groups
+    chunk_tiles = tiles
+    if blocks < 2 * sm_count:
+        chunk_tiles = max(1, tiles // -(-2 * sm_count // blocks))
+    splits = -(-tiles // chunk_tiles)
+    vec = aligned and total % 4 == 0 and head_dim % 4 == 0
+    return LineagePlan(dmax, slots, groups, tile, threads, splits,
+                       chunk_tiles * tile, stages, vec, smem, resident)
 
 
 def lane_window(win: int, beam: int, total: int) -> int:
@@ -80,15 +219,27 @@ def lineage_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if (k_cache.shape != (batch, heads, head_dim, total)
             or v_cache.shape != (batch, heads, total, head_dim)
             or bias.shape != (batch, beam, lanes) or not 0 < lanes <= total
-            or head_dim > MAX_HEAD_DIM):
+            or not kernel_takes(head_dim)):
         raise ValueError(
             f"lineage_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)}"
             f", v {tuple(v_cache.shape)}, bias {tuple(bias.shape)} (head "
             f"dim at most {MAX_HEAD_DIM})")
     kernel_config.check_cuda_inputs("lineage_attention", q=q, k=k_cache,
                                     v=v_cache, bias=bias)
+    plan = lineage_plan(
+        batch, heads, beam, head_dim, total, lanes,
+        *kernel_config.tensor_device_limits(q),
+        aligned=k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0)
     out = torch.empty_like(q)
+    # each chunk's unnormalised context and its (max, sum) of every row,
+    # written before the fold reads them
+    part_o = part_ml = None
+    if plan.splits > 1:
+        part_o = q.new_empty(plan.splits, batch * heads * beam, head_dim)
+        part_ml = q.new_empty(plan.splits, batch * heads * beam, 2)
     kernel_config.launch("lineage_attention", q, k_cache, v_cache, bias, out,
-                         batch, heads, beam, head_dim, total, lanes,
-                         1.0 / math.sqrt(head_dim))
+                         part_o, part_ml, batch, heads, beam, head_dim, total,
+                         lanes, plan.dmax, plan.tile, plan.slots, plan.groups,
+                         plan.splits, plan.chunk, plan.stages, int(plan.vec),
+                         plan.smem_bytes, 1.0 / math.sqrt(head_dim))
     return out

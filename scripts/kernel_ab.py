@@ -33,7 +33,12 @@ N 3072, D 512, V 30000, (D, V), eps 0, with the plain dx and dW, and the
 forward also in the tied (V, D) layout; K3 at 640 x 512 x 30720, beside cuBLAS's
 ``addmm`` of the same shape (a reference for the product alone, not a
 library yardstick: no PyTorch call computes K3's whole function);
-``rowmax_lse`` at 640 x 30080. The timing code is
+``rowmax_lse`` at 640 x 30080; the lineage attention at the
+Transformer's beam step (B 64, H 8, K 10, 48 steps, Dh 64, the full
+window of 480 lanes), back to back and with the L2 cache flushed, and
+at B 1 (a server's few sentences); K4 at the selector's group stage
+(64 x 2400, k 10) and candidate stage (64 x 1280, k 10), beside
+``torch.topk``. The timing code is
 this checkout's ``chip_smoke.py`` whatever ROOT is. ``--sweep`` adds the
 LSTM scan alone, ``lstm_bptt`` and ``gru_bptt`` at other batches and
 lengths, and K1's scan alone at T 8, 16 and 32 (where a step's time
@@ -252,6 +257,34 @@ def main() -> int:
         logits[:, :v] = randn(cs.BATCH * cs.BEAM, v, scale=4.0)
         result["rowmax_lse"] = {"ms": cs.time_ms(
             lambda: beam_select.rowmax_lse(logits))}
+    # the lineage attention and K4 at the Transformer's beam step
+    if wanted("lineage_attention"):
+        from neuralmonkey_tpu_torch.ops import lineage_attention as la
+        beam, steps, dim = cs.BEAM, cs.TGT_LEN, cs.T_HEAD_DIM
+        for case, b in (("", cs.BATCH), (" B1", 1)):
+            q = randn(b, cs.T_HEADS, beam, dim)
+            kq = randn(b, cs.T_HEADS, dim, beam * steps)
+            vq = randn(b, cs.T_HEADS, beam * steps, dim)
+            anc = torch.randint(0, beam, (b, beam, steps), generator=gen,
+                                dtype=torch.int32).to(device)
+            bias = la.lineage_bias(anc, steps - 1, steps, beam, beam * steps,
+                                   steps)
+
+            def lineage():
+                return la.lineage_attention(q, kq, vq, bias)
+            result[f"lineage_attention{case}"] = {
+                "ms": cs.time_ms(lineage),
+                "l2_flushed_ms": cs.flushed_ms(lineage)}
+    if wanted("small_topk"):
+        vp = -(-v // 1024) * 1024
+        for case, n in (("", cs.BEAM * vp // 128), (" candidates",
+                                                     cs.BEAM * 128)):
+            scores = torch.round(randn(cs.BATCH, n, scale=3.0))
+            result[f"small_topk{case}"] = {
+                "ms": cs.time_ms(lambda: beam_select.small_topk(scores,
+                                                                cs.BEAM)),
+                "library_ms": cs.time_ms(lambda: torch.topk(scores, cs.BEAM,
+                                                            dim=1))}
     # flash forward
     for case, (b, h, t, d) in (("encoder", (cs.BATCH, cs.T_HEADS, cs.SRC_LEN,
                                             cs.T_HEAD_DIM)),

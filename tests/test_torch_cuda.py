@@ -754,7 +754,7 @@ def test_training_step_on_card_matches_cpu(cuda_device, monkeypatch, fused):
 
 
 @pytest.mark.parametrize("batch,n,k", [(3, 32, 4), (64, 2400, 10),
-                                       (2, beam_select.MAX_TOPK_ROW, 1)])
+                                       (2, 12000, 1)])
 def test_small_topk_kernel_ties_to_lowest_index(cuda_device, batch, n, k):
     x = torch.round(_randn(cuda_device, batch, n, scale=2.0))
     got = beam_select.small_topk(x, k)
@@ -762,11 +762,54 @@ def test_small_topk_kernel_ties_to_lowest_index(cuda_device, batch, n, k):
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
-def test_small_topk_rejects_rows_beyond_shared_memory(cuda_device):
-    with pytest.raises(ValueError, match="rows up to"):
-        beam_select.small_topk(
-            torch.zeros(1, beam_select.MAX_TOPK_ROW + 1, device=cuda_device),
-            1)
+def test_small_topk_takes_a_long_row_in_one_launch(cuda_device):
+    """The first design held a row in shared memory and refused rows of
+    more than 12000 entries; the one-pass design takes any row."""
+    x = torch.round(_randn(cuda_device, 3, 12001, scale=2.0))
+    kernel_config.reset_launch_counts()
+    got = beam_select.small_topk(x, 10)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["small_topk"] == 1
+    ref = beam_select.topk_reference(x, 10)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _topk_rows(device, batch, n, kind, seed):
+    """Rows that stress the order: rounded values (ties everywhere),
+    rounded values with -inf entries and one row all -inf, or -1e9
+    entries (the selector's masked hypotheses) among ties."""
+    x = torch.round(_randn(device, batch, n, scale=2.0, seed=seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    spots = (torch.rand(batch, n, generator=gen) < 0.3).to(device)
+    if kind == "-inf":
+        x = torch.where(spots, float("-inf"), x)
+        x[-1] = float("-inf")
+    elif kind == "-1e9":
+        x = torch.where(spots, -1e9, x)
+        x[0] = -1e9
+    return x
+
+
+@pytest.mark.parametrize("n,k", [
+    (n, k) for n in (1, 31, 300, 1280, 2400, 12001, 30720)
+    for k in (1, 10, 16, 17, 64, 65) if k <= n])
+def test_small_topk_one_pass_kernel(cuda_device, n, k):
+    """K4 against the plain version bit for bit at the selector's shapes
+    and past them, on 16-byte aligned rows and on rows one float off
+    (the 4-byte path); k > 64 takes the plain version on the card."""
+    batch = 5
+    for kind in ("ties", "-inf", "-1e9"):
+        base = _topk_rows(cuda_device, batch, n, kind, seed=n + k)
+        flat = torch.empty(batch * n + 1, device=cuda_device)
+        flat[1:] = base.reshape(-1)
+        for x in (base, flat[1:].view(batch, n)):
+            kernel_config.reset_launch_counts()
+            got = beam_select.small_topk(x, k)
+            torch.cuda.synchronize()
+            assert kernel_config.launch_counts()["small_topk"] == (k <= 64)
+            ref = beam_select.topk_reference(x, k)
+            assert torch.equal(got[1], ref[1]), (kind, x.data_ptr() % 16)
+            assert torch.equal(got[0], ref[0]), (kind, x.data_ptr() % 16)
 
 
 @pytest.mark.parametrize("n,vocab,vp", [(640, 30000, 30080), (13, 300, 384),
@@ -1041,6 +1084,8 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     (2, 3, 70, 70, 32, True, [70, 70]),
     (1, 2, 9, 130, 8, False, [100]),
     (2, 2, 40, 40, 128, False, [40, 31]),
+    (2, 2, 33, 70, 192, False, [70, 9]),
+    (2, 2, 40, 40, 256, True, [40, 40]),
 ])
 @pytest.mark.parametrize("keep", [1.0, 0.9])
 def test_flash_kernels(cuda_device, batch, heads, tq, tk, dim, causal,
@@ -1124,7 +1169,8 @@ def test_flash_forward_tiles(cuda_device, batch, heads, tq, tk, dim, causal,
     (2, 2, 100, 32, 64, False), (4, 8, 48, 48, 64, True),
     (2, 2, 70, 70, 32, True), (2, 3, 33, 70, 6, False),
     (2, 2, 40, 40, 16, False), (2, 2, 40, 40, 32, False),
-    (2, 2, 40, 40, 128, False)])
+    (2, 2, 40, 40, 128, False), (2, 2, 40, 40, 192, False),
+    (2, 2, 70, 70, 256, True), (2, 1, 33, 70, 256, False)])
 @pytest.mark.parametrize("keep", [1.0, 0.9])
 def test_flash_backward_tiles(cuda_device, batch, heads, tq, tk, dim, causal,
                               keep):
@@ -1245,6 +1291,159 @@ def test_lineage_kernel(cuda_device, batch, heads, beam, time, dim):
         ref = la.lineage_attention_reference(q, kq, vq, bias)
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5,
                                    msg=f"step {step}")
+
+
+@pytest.mark.parametrize("batch,heads,beam,time,dim", [
+    (1, 8, 10, 48, 64), (64, 8, 10, 48, 64), (2, 4, 1, 48, 64),
+    (3, 2, 7, 9, 40), (2, 4, 17, 20, 64), (4, 2, 10, 48, 128),
+    (1, 8, 10, 48, 256), (16, 8, 10, 48, 256), (8, 1, 7, 48, 40),
+    (2, 2, 10, 48, 384), (1, 8, 10, 48, 512), (8, 1, 7, 9, 512),
+    (4, 2, 17, 12, 512)])
+def test_lineage_kernel_streams_every_shape(cuda_device, batch, heads, beam,
+                                            time, dim):
+    """The pipelined kernel against its plain version within 1e-5: B·H 8
+    (lane split) and 512, K 1, 7, 10 and 17, Dh 40 to 256, caches of 63
+    lanes (4-byte copies), Dh 384 and 512 (16-lane stages); windows of
+    one lane and of 12, 24 and 48 positions, and a step whose rows are
+    all -1e9 (uniform weights)."""
+    from neuralmonkey_tpu_torch.ops import lineage_attention as la
+    gen = torch.Generator().manual_seed(0)
+    total = beam * time
+    q = _randn(cuda_device, batch, heads, beam, dim)
+    kq = _randn(cuda_device, batch, heads, dim, total, seed=1)
+    vq = _randn(cuda_device, batch, heads, total, dim, seed=2)
+    anc = torch.randint(0, beam, (batch, beam, time), generator=gen,
+                        dtype=torch.int32).to(cuda_device)
+    cases = [(min(win, time) - 1, win) for win in (12, 24, 48)]
+    cases.append((-1, min(12, time)))  # no lane is the slot's own yet
+    biases = [la.lineage_bias(anc, step, win, beam,
+                              la.lane_window(win, beam, total), time)
+              for step, win in cases]
+    biases.append(biases[0][..., :1].contiguous())  # one lane
+    for bias in biases:
+        kernel_config.reset_launch_counts()
+        got = la.lineage_attention(q, kq, vq, bias)
+        torch.cuda.synchronize()
+        assert kernel_config.launch_counts()["lineage_attention"] == 1
+        ref = la.lineage_attention_reference(q, kq, vq, bias)
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5,
+                                   msg=f"{bias.shape[-1]} lanes")
+
+
+def test_lineage_kernel_past_512_raises_on_the_card(cuda_device):
+    """Past the kernel's head dims the card raises; no plain path runs."""
+    from neuralmonkey_tpu_torch.ops import lineage_attention as la
+    q = _randn(cuda_device, 1, 1, 2, 640)
+    kq = _randn(cuda_device, 1, 1, 640, 8, seed=1)
+    vq = _randn(cuda_device, 1, 1, 8, 640, seed=2)
+    bias = torch.zeros(1, 2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim at most 512"):
+        la.lineage_attention(q, kq, vq, bias)
+
+
+def _gru_train_step(device, hidden, inputs, mask, g_out, g_final):
+    """Loss and flat gradients of one step of a GRU encoder's scan (one
+    direction) on ``device``."""
+    cell = nn.GRUCell(inputs.shape[-1], hidden)
+    params = {k: v.to(device).requires_grad_()
+              for k, v in cell.init(torch.Generator().manual_seed(5)).items()}
+    x = inputs.detach().to(device).requires_grad_()
+    out, final = rnn.unidirectional_rnn(cell, params, x, mask.to(device))
+    loss = (out * g_out.to(device)).sum() + (final * g_final.to(device)).sum()
+    loss.backward()
+    grads = {k: p.grad.cpu() for k, p in params.items()}
+    return loss.detach().cpu(), {**grads, "inputs": x.grad.cpu()}
+
+
+def _lstm_train_step(device, hidden, inputs, mask, g_out, g_final):
+    cell = nn.LSTMCell(inputs.shape[-1], hidden)
+    params = {k: v.to(device).requires_grad_()
+              for k, v in cell.init(torch.Generator().manual_seed(5)).items()}
+    x = inputs.detach().to(device).requires_grad_()
+    out, final = rnn.unidirectional_rnn(cell, params, x, mask.to(device))
+    loss = (out * g_out.to(device)).sum() + (final * g_final.to(device)).sum()
+    loss.backward()
+    grads = {k: p.grad.cpu() for k, p in params.items()}
+    return loss.detach().cpu(), {**grads, "inputs": x.grad.cpu()}
+
+
+def _assert_training_rule(got, want):
+    """PERF.md's training rule: the loss to 1e-5 relative, each gradient
+    to 1e-3 of its largest entry."""
+    (loss, grads), (ref_loss, ref_grads) = got, want
+    torch.testing.assert_close(loss, ref_loss, atol=0, rtol=1e-5)
+    for key, g in grads.items():
+        scale = float(ref_grads[key].abs().max())
+        assert float((g - ref_grads[key]).abs().max()) <= 1e-3 * scale, key
+
+
+@pytest.mark.parametrize("cell,hidden,kernels", [
+    ("GRU", 8192, {"gru_scan": 1, "gru_bptt": 0}),
+    ("LSTM", 8448, {"lstm_scan": 0, "lstm_bptt": 0})])
+def test_rnn_past_the_kernels_limits_trains_on_card(cuda_device, cell, hidden,
+                                                     kernels):
+    """Queue C: a GRU of H 8192 keeps K1 forward and runs the plain BPTT
+    (past ``bptt_fits``); an LSTM of H 8448 runs the plain scan whole
+    (past ``lstm_scan_fits``); neither raises, and one training step
+    matches the CPU's."""
+    batch, time, width = 2, 4, 16
+    gen = torch.Generator().manual_seed(7)
+    inputs = torch.randn(batch, time, width, generator=gen)
+    mask = torch.tensor([[1.0, 1, 1, 1], [1, 1, 0, 0]])
+    g_out = torch.randn(batch, time, hidden, generator=gen)
+    g_final = torch.randn(batch, hidden, generator=gen)
+    step = _gru_train_step if cell == "GRU" else _lstm_train_step
+    kernel_config.reset_launch_counts()
+    got = step(cuda_device, hidden, inputs, mask, g_out, g_final)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert {name: counts[name] for name in kernels} == kernels, counts
+    _assert_training_rule(got, step(torch.device("cpu"), hidden, inputs,
+                                    mask, g_out, g_final))
+
+
+@pytest.mark.parametrize("model_dim", [384, 512])
+def test_flash_attention_at_wide_head_dims_launches_the_kernels(cuda_device,
+                                                               model_dim):
+    """Queue C: at head dims 192 and 256 (two heads) multi-head attention
+    runs the flash kernels on the card, forward and backward, as the JAX
+    package runs its flash kernels at any head dim, and matches the CPU's
+    within 1e-4 of each tensor's largest entry (of 1 where that is
+    smaller), the rule of the flash backward's card tests and of the
+    smoke's phase 3b."""
+    from neuralmonkey_tpu_torch.ops import attention
+    gen = torch.Generator().manual_seed(0)
+    params = attention.mha_init(gen, model_dim, model_dim, model_dim)
+    x = torch.randn(3, 9, model_dim, generator=gen)
+    mask = torch.ones(3, 9)
+    mask[1, 5:] = 0
+
+    def run(device):
+        p = {k: {n: t.detach().to(device).requires_grad_()
+                 for n, t in v.items()} for k, v in params.items()}
+        xs = x.detach().to(device).requires_grad_()
+        out = attention.multi_head_attention(
+            p, xs, xs, xs, 2, key_mask=mask.to(device), causal=True)
+        out.square().sum().backward()
+        return [out.detach().cpu(), xs.grad.cpu()] + [
+            t.grad.cpu() for v in p.values() for t in v.values()]
+    kernel_config.reset_launch_counts()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert [kernel_config.launch_counts()[f"flash_attention_{name}"]
+            for name in ("fwd", "bwd_dq", "bwd_dkv")] == [1, 1, 1]
+    for i, (g, r) in enumerate(zip(got, run(torch.device("cpu")))):
+        err = float((g - r).abs().max())
+        assert err <= 1e-4 * max(1.0, float(r.abs().max())), (i, err)
+
+
+def test_flash_attention_past_256_raises_on_the_card(cuda_device):
+    """Past the kernels' head dims the card raises; no plain path runs."""
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    q = _randn(cuda_device, 1, 1, 8, 320)
+    mask = torch.ones(1, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim at most 256"):
+        fa.flash_forward(q, q, q, mask, False)
 
 
 def _transformer_pass(device):

@@ -11,6 +11,12 @@
   ValueError.
 - ``CUDAManager`` takes every keyword of the JAX ``TPUManager``: the
   mesh options build at their defaults and raise for any other value.
+- Shapes past a kernel's limit take the plain path, as the JAX package
+  takes its plain path past its gates: each gate is a function of
+  shapes (K1, ``gru_bptt``, the LSTM kernels, flash attention's head
+  dim, the lineage kernel's head dim, K4's k), the shape just inside a
+  limit keeps the kernel, the plain path gives the kernel path's
+  numbers, and each (kernel, reason) is logged once.
 """
 
 import inspect
@@ -45,7 +51,12 @@ from neuralmonkey_tpu_torch.models.attention.feed_forward import Attention
 from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
     BeamSearchDecoder
 from neuralmonkey_tpu_torch.models.decoders.decoder import Decoder
+from neuralmonkey_tpu_torch.models.decoders.transformer import \
+    lineage_kernel_layout
 from neuralmonkey_tpu_torch.models.encoders.recurrent import SentenceEncoder
+from neuralmonkey_tpu_torch.ops import (beam_select, cuda_rnn,
+                                        flash_attention, kernel_config,
+                                        lineage_attention, nn, rnn)
 from neuralmonkey_tpu_torch.runtime import CUDAManager
 from neuralmonkey_tpu_torch.utils.saving import params_from_jax
 from neuralmonkey_tpu_torch.vocabulary import Vocabulary
@@ -253,3 +264,84 @@ def test_mesh_option_off_its_default_raises(option):
     with pytest.raises(NotImplementedError,
                        match=f"{option}=.*ROADMAP queue A15"):
         CUDAManager(device="cpu", **{option: NON_DEFAULT[option]})
+
+
+# ---------------------------------------------------------------------- #
+# queue C: shapes past the kernels' limits take the plain path
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("gate,inside,past", [
+    (cuda_rnn.scan_fits, 19368, 19369),
+    (cuda_rnn.bptt_fits, 7264, 7265),
+    (cuda_rnn.lstm_scan_fits, 8300, 8301),
+    (flash_attention.kernel_takes, 256, 257),
+    (lineage_attention.kernel_takes, 512, 513),
+    (beam_select.topk_kernel_takes, 64, 65),
+], ids=["gru_scan", "gru_bptt", "lstm", "flash", "lineage", "small_topk"])
+def test_gates_keep_the_kernel_to_its_limit(gate, inside, past):
+    assert gate(inside) and gate(1)
+    assert not gate(past)
+
+
+def test_gru_serving_keeps_k1_past_the_bptt_limit():
+    assert cuda_rnn.scan_fits(8192) and not cuda_rnn.bptt_fits(8192)
+    assert cuda_rnn.scan_fits(512) and cuda_rnn.bptt_fits(512)
+
+
+def test_lineage_layout_follows_the_kernels_head_dims(monkeypatch):
+    """The kernel's head dims at any number of lanes; past them the JAX
+    decoder's gate (a multiple or divisor of 128, at most 2048 lanes):
+    its kernel there, where the card raises, the einsum form elsewhere."""
+    assert not lineage_kernel_layout(10, 192, 48)
+    monkeypatch.setenv("NM_LINEAGE_KERNEL", "1")
+    assert lineage_kernel_layout(10, 192, 48)
+    assert lineage_kernel_layout(10, 512, 48)
+    assert lineage_kernel_layout(10, 384, 1000)
+    assert lineage_kernel_layout(10, 640, 48)
+    assert not lineage_kernel_layout(10, 520, 48)
+    assert not lineage_kernel_layout(10, 640, 300)
+
+
+def _rnn_step(cell, hidden):
+    """Loss and gradients of one scan over a ragged batch."""
+    gen = torch.Generator().manual_seed(3)
+    model = cell(5, hidden)
+    params = {k: v.requires_grad_() for k, v in model.init(gen).items()}
+    x = torch.randn(3, 4, 5, generator=gen, requires_grad=True)
+    mask = torch.tensor([[1.0, 1, 1, 1], [1, 1, 0, 0], [1, 0, 0, 0]])
+    out, final = rnn.bidirectional_rnn(model, params, model, params, x,
+                                       mask)
+    loss = out.square().sum() + final.sum()
+    grads = torch.autograd.grad(loss, [x, *params.values()])
+    return loss.detach(), grads
+
+
+@pytest.mark.parametrize("cell,limit,kernel", [
+    (nn.GRUCell, "bptt_fits", "gru_bptt"),
+    (nn.GRUCell, "scan_fits", "gru_scan"),
+    (nn.LSTMCell, "lstm_scan_fits", "lstm_scan"),
+])
+def test_plain_path_past_a_limit_matches_and_logs_once(
+        monkeypatch, capsys, cell, limit, kernel):
+    """With a limit lowered under the hidden size, the call takes the
+    plain path (the BPTT reference, or the plain scan whole under
+    autograd), gives the kernel path's loss and gradients, and logs the
+    plain path once."""
+    want = _rnn_step(cell, 6)
+    monkeypatch.setattr(cuda_rnn, limit, lambda hidden: False)
+    monkeypatch.setattr(kernel_config, "_PLAIN_PATHS", set())
+    for _ in range(2):
+        got = _rnn_step(cell, 6)
+    torch.testing.assert_close(got[0], want[0], atol=1e-6, rtol=1e-6)
+    for g, w in zip(got[1], want[1]):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+    logged = [line for line in capsys.readouterr().out.splitlines()
+              if "plain PyTorch path" in line]
+    assert len(logged) == 1 and f"{kernel}: hidden 6" in logged[0]
+
+
+def test_topk_past_k_64_takes_the_plain_version():
+    x = torch.round(torch.randn(3, 200, generator=torch.Generator()
+                                .manual_seed(0)) * 2)
+    got = beam_select.small_topk(x, 65)
+    ref = beam_select.topk_reference(x, 65)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

@@ -1,17 +1,19 @@
 """The launch plans of the persistent LSTM scan and BPTT, the persistent
 GRU scan (K1) and BPTT, the fused cross-entropy's dx and dW, the
-register-tiled flash forward and backward and K2's thread-block
-clusters, checked on the CPU: which block owns which hidden units, rows,
-queries, keys, source positions or columns, which tiles each block
+register-tiled flash forward and backward, K2's thread-block
+clusters, the lineage attention's pipelined lane chunks and K4's warps,
+checked on the CPU: which block owns which hidden units, rows, queries,
+keys, source positions, columns, lanes or slots, which tiles each block
 walks, what fits an H100's shared memory and SM count, and which layout
 each shape gets. The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``)."""
 
 import pytest
 
-from neuralmonkey_tpu_torch.ops import cuda_attention, cuda_rnn
+from neuralmonkey_tpu_torch.ops import beam_select, cuda_attention, cuda_rnn
 from neuralmonkey_tpu_torch.ops import flash_attention as fa
 from neuralmonkey_tpu_torch.ops import fused_xent
+from neuralmonkey_tpu_torch.ops import lineage_attention as la
 
 H100_SMS, H100_SMEM = 132, 232448  # SMs; opt-in shared bytes a block
 
@@ -521,7 +523,8 @@ def test_gru_scan_plan_raises_where_nothing_fits(batch, hidden, sms, smem):
 FLASH_SHAPES = [(64, 8, 32, 32, 64), (64, 8, 48, 48, 64),
                 (64, 8, 48, 32, 64), (8, 8, 512, 512, 64),
                 (3, 5, 37, 70, 40), (1, 2, 9, 130, 8), (2, 2, 40, 40, 128),
-                (4, 2, 32, 1, 64), (4, 2, 32, 33, 64), (2, 3, 33, 70, 6)]
+                (4, 2, 32, 1, 64), (4, 2, 32, 33, 64), (2, 3, 33, 70, 6),
+                (2, 2, 9, 40, 192), (2, 1, 33, 70, 256)]
 
 
 @pytest.mark.parametrize("batch,heads,q_len,kv_len,dim", FLASH_SHAPES)
@@ -529,7 +532,7 @@ def test_flash_forward_plan_fits_the_card(batch, heads, q_len, kv_len,
                                           dim):
     plan = fa.flash_forward_plan(batch, heads, q_len, kv_len, dim)
     assert plan.grid == (batch * heads, -(-q_len // 32))
-    assert dim <= plan.width and plan.width in (32, 64, 128)
+    assert dim <= plan.width and plan.width in (32, 64, 128, 256)
     assert plan.stages == (2 if kv_len > plan.key_tile else 1)
     assert plan.smem_bytes <= H100_SMEM
     assert plan.threads % 32 == 0
@@ -548,7 +551,7 @@ def test_flash_forward_plan_leaves_room_for_more_blocks(kv_len,
 
 def test_flash_forward_plan_rejects_wide_heads():
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_forward_plan(1, 1, 8, 8, 129)
+        fa.flash_forward_plan(1, 1, 8, 8, 257)
 
 
 # the backward at every forward shape, causal where the query and key
@@ -603,7 +606,8 @@ def test_flash_backward_plan_walks_every_visible_pair(batch, heads, q_len,
 
 
 @pytest.mark.parametrize("dim,width", [(6, 32), (16, 32), (32, 32),
-                                       (40, 64), (64, 64), (128, 128)])
+                                       (40, 64), (64, 64), (128, 128),
+                                       (192, 256), (256, 256)])
 @pytest.mark.parametrize("length", [48, 512])
 def test_flash_backward_plan_fits_the_card(dim, width, length):
     """Shared memory as the kernels lay it out (their rows of two
@@ -641,7 +645,7 @@ def test_flash_backward_plan_at_the_encoder_shape():
         assert (228 * 1024) // (launch.smem_bytes + 1024) == 6
 
 
-@pytest.mark.parametrize("dim", [0, 129])
+@pytest.mark.parametrize("dim", [0, 257])
 def test_flash_backward_plan_rejects_wide_heads(dim):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_backward_plan(1, 1, 8, 8, dim, False)
@@ -768,3 +772,190 @@ def test_bahdanau_plan_reads_the_operands_in_place_when_they_do_not_fit():
 def test_bahdanau_plan_raises_where_nothing_fits(batch, time, sms, smem):
     with pytest.raises(ValueError, match="fused_bahdanau_step"):
         cuda_attention.bahdanau_plan(batch, time, 512, 1024, sms, smem)
+
+
+# ---------------------------------------------------------------------- #
+# the lineage attention
+# ---------------------------------------------------------------------- #
+# (batch, heads, beam, head dim, cache lanes, lanes read): the smoke's beam
+# step at its windows, a server's few sentences, the card tests' shapes,
+# 63 lanes, K past 16, one lane, head dims past 256
+LINEAGE_SHAPES = [(64, 8, 10, 64, 480, 480), (64, 8, 10, 64, 480, 120),
+                  (64, 8, 10, 64, 480, 240), (1, 8, 10, 64, 480, 480),
+                  (1, 8, 10, 64, 480, 1), (2, 4, 1, 64, 96, 96),
+                  (3, 2, 7, 40, 63, 35), (2, 4, 17, 64, 340, 340),
+                  (8, 8, 10, 256, 480, 480), (16, 8, 10, 128, 480, 480),
+                  (4, 2, 33, 16, 99, 99), (1, 1, 1, 16, 1, 1),
+                  (128, 16, 4, 32, 400, 400), (1, 8, 64, 256, 3072, 3000),
+                  (2, 2, 10, 384, 480, 480), (1, 8, 10, 512, 480, 480),
+                  (8, 1, 7, 512, 63, 63), (64, 8, 33, 512, 99, 99)]
+
+
+def _lineage_plan(batch, heads, beam, dim, total, lanes, aligned=True):
+    return la.lineage_plan(batch, heads, beam, dim, total, lanes, H100_SMS,
+                           H100_SMEM, aligned)
+
+
+@pytest.mark.parametrize("batch,heads,beam,dim,total,lanes", LINEAGE_SHAPES)
+def test_lineage_plan_covers_every_lane_and_slot_once(batch, heads, beam,
+                                                      dim, total, lanes):
+    """Each (b, h, slot group) block walks its chunk of the lanes: the
+    chunks tile the W lanes read, none empty, each a whole number of the
+    plan's lane tiles; the groups hold every slot once, in tiles of 8 (at
+    most 4 a block), the beam rounded up to 8 where one group holds it; a
+    warp for each 16-lane tile of a stage and each 8 slots."""
+    plan = _lineage_plan(batch, heads, beam, dim, total, lanes)
+    assert plan.tile == (16 if plan.dmax > 256 else 32)
+    assert plan.chunk % plan.tile == 0
+    chunks = [range(s * plan.chunk, min(lanes, (s + 1) * plan.chunk))
+              for s in range(plan.splits)]
+    assert all(len(c) for c in chunks)
+    assert [lane for c in chunks for lane in c] == list(range(lanes))
+    assert plan.slots % la.SLOT_TILE == 0
+    assert plan.slots <= la.SLOT_TILE * la.MAX_SLOT_TILES
+    slots = [k for g in range(plan.groups)
+             for k in range(g * plan.slots, min(beam, (g + 1) * plan.slots))]
+    assert slots == list(range(beam))
+    if beam <= la.SLOT_TILE * la.MAX_SLOT_TILES and dim <= 128:
+        assert plan.groups == 1 and plan.slots == -(-beam // 8) * 8
+    assert plan.threads == 32 * plan.tile // 16 * plan.slots // 8 <= 512
+    assert plan.dmax == min(pad for pad in la.HEAD_DIM_PADS if pad >= dim)
+
+
+@pytest.mark.parametrize("batch,heads", [(1, 1), (1, 8), (4, 8), (16, 8),
+                                         (32, 8), (33, 8), (64, 8),
+                                         (128, 16)])
+def test_lineage_plan_splits_lanes_where_the_grid_is_small(batch, heads):
+    """Under twice the SM count of (b, h) blocks the lanes split so that
+    the blocks fill the card twice (or a chunk is one tile); at or over
+    it, one chunk."""
+    plan = _lineage_plan(batch, heads, 10, 64, 960, 960)
+    blocks = batch * heads * plan.groups
+    if blocks < 2 * H100_SMS:
+        assert plan.splits > 1
+        assert (blocks * plan.splits >= 2 * H100_SMS
+                or plan.chunk == plan.tile)
+    else:
+        assert plan.splits == 1 and plan.chunk >= 960
+
+
+@pytest.mark.parametrize("dim", [16, 32, 40, 64, 96, 128, 192, 256, 384,
+                                 512])
+@pytest.mark.parametrize("beam", [1, 4, 10, 16, 17, 32, 64])
+def test_lineage_plan_fits_the_card(dim, beam):
+    """Shared memory as the kernel lays it out (a K, a V and a bias tile
+    a stage, q, each warp's weights), within 227 KB; 2-4 stages; the
+    resident blocks an SM that shared memory, threads and the registers
+    of the kernel's launch bounds (128 a thread, 256 from a padded 256)
+    allow; the ring large enough for the warps' partials at the end."""
+    plan = _lineage_plan(64, 8, beam, dim, 480, 480)
+    assert plan.smem_bytes == la.lineage_smem_bytes(plan.dmax, plan.slots,
+                                                    plan.tile, plan.stages)
+    assert plan.smem_bytes <= H100_SMEM and 2 <= plan.stages <= 4
+    registers = 256 if plan.dmax >= 256 else 128
+    assert plan.blocks_per_sm == min(
+        2048 // plan.threads,
+        la.SM_SHARED_BYTES // (plan.smem_bytes + la.BLOCK_RESERVED_BYTES),
+        65536 // (registers * plan.threads))
+    stage = (plan.dmax * (plan.tile + 8) + plan.tile * (plan.dmax + 8)
+             + plan.slots * plan.tile)
+    warps = plan.threads // 32
+    assert plan.stages * stage >= warps * (16 + plan.dmax * 8)
+
+
+def test_lineage_plan_at_the_smoke_shape():
+    """B 64, H 8, K 10, Dh 64, 480 lanes: no lane split, 16 slot rows
+    (two 8-wide tiles), 32-lane stages, 4 warps a block, 2 stages, 4
+    blocks an SM, 16-byte copies."""
+    plan = _lineage_plan(64, 8, 10, 64, 480, 480)
+    assert (plan.splits, plan.slots, plan.groups, plan.tile, plan.threads,
+            plan.stages, plan.blocks_per_sm, plan.vec) == (
+                1, 16, 1, 32, 128, 2, 4, True)
+
+
+@pytest.mark.parametrize("beam,dim", [(10, 64), (10, 256), (4, 32),
+                                      (17, 128), (10, 512), (1, 16)])
+def test_lineage_plan_keeps_the_most_warps_resident(beam, dim):
+    """No other stage count that fits keeps more warps resident an SM
+    (by shared memory, threads and registers) than the plan's, and where
+    registers bind, more stages cost no residency, so the plan takes the
+    most that keep it."""
+    plan = _lineage_plan(64, 8, beam, dim, 480, 480)
+    registers = 256 if plan.dmax >= 256 else 128
+    for stages in (2, 3, 4):
+        smem = la.lineage_smem_bytes(plan.dmax, plan.slots, plan.tile, stages)
+        if smem <= H100_SMEM:
+            resident = min(
+                2048 // plan.threads,
+                la.SM_SHARED_BYTES // (smem + la.BLOCK_RESERVED_BYTES),
+                65536 // (registers * plan.threads))
+            assert resident <= plan.blocks_per_sm
+            assert resident < plan.blocks_per_sm or stages <= plan.stages
+
+
+@pytest.mark.parametrize("dim,total,aligned,vec", [
+    (64, 480, True, True), (40, 63, True, False), (64, 63, True, False),
+    (42, 480, True, False), (64, 480, False, False), (256, 3072, True, True)])
+def test_lineage_plan_takes_4_byte_copies_off_16_bytes(dim, total, aligned,
+                                                      vec):
+    """16-byte copies need the K rows (total lanes) and the V rows (head
+    dim) in multiples of 4 floats and aligned caches; 63 lanes (the
+    smoke's ragged shape) take 4-byte copies."""
+    assert _lineage_plan(3, 2, 7, dim, total, total, aligned).vec == vec
+
+
+@pytest.mark.parametrize("dim,lanes", [(513, 10), (0, 10), (64, 0),
+                                       (64, 481)])
+def test_lineage_plan_refuses_what_the_kernel_does_not_take(dim, lanes):
+    with pytest.raises(ValueError, match="lineage_attention"):
+        _lineage_plan(2, 2, 4, dim, 480, lanes)
+
+
+# ---------------------------------------------------------------------- #
+# K4
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("n", [1, 31, 300, 1280, 2400, 12001, 15360, 16384,
+                               16385, 30720, 100000])
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 32, 33, 64])
+def test_topk_plan_lays_out_every_row(n, k):
+    """Lists of the smallest size that holds k; one warp a row up to the
+    long-row threshold, 4 rows a block; past it 2-8 warps a row (one per
+    warp span or so) and fewer rows a block, at most 8 warps a block;
+    every row in a block; float4 loads where n is a multiple of 4."""
+    if k > n:
+        return
+    plan = beam_select.topk_plan(64, n, k)
+    assert plan.k_max == min(size for size in beam_select.TOPK_LIST_SIZES
+                             if size >= k)
+    if n <= beam_select.TOPK_WARP_SPAN:
+        assert (plan.warps_per_row, plan.rows_per_block) == (
+            1, beam_select.TOPK_ROWS_PER_BLOCK)
+    else:
+        assert 2 <= plan.warps_per_row <= 8
+        span = beam_select.TOPK_WARP_SPAN
+        assert plan.warps_per_row >= min(8, -(-n // span))
+    assert plan.warps_per_row * plan.rows_per_block <= 8
+    assert plan.blocks * plan.rows_per_block >= 64 > (
+        plan.blocks - 1) * plan.rows_per_block
+    assert plan.smem_bytes == 4 * plan.warps_per_row * plan.rows_per_block \
+        * 2 * (64 + 256)
+    assert plan.vec == (n % 4 == 0)
+    assert not beam_select.topk_plan(64, n, k, aligned=False).vec
+
+
+@pytest.mark.parametrize("n,warps,rows,blocks", [
+    (2400, 4, 1, 64), (1280, 2, 2, 32), (1024, 1, 4, 16), (300, 1, 4, 16)])
+def test_topk_plan_spreads_the_smoke_rows(n, warps, rows, blocks):
+    """64 rows of 2400 (the group stage: a warp for each of its three
+    chunks, rounded to 4) and of 1280 (the candidate stage: 2 warps);
+    rows of one chunk: one warp a row, 4 rows a block."""
+    plan = beam_select.topk_plan(64, n, 10)
+    assert (plan.k_max, plan.warps_per_row, plan.rows_per_block,
+            plan.blocks) == (16, warps, rows, blocks)
+
+
+@pytest.mark.parametrize("batch,n,k", [(4, 100, 65), (4, 10, 11),
+                                       (0, 10, 1)])
+def test_topk_plan_refuses_what_the_kernel_does_not_take(batch, n, k):
+    with pytest.raises(ValueError, match="small_topk"):
+        beam_select.topk_plan(batch, n, k)

@@ -288,6 +288,32 @@ def test_transformer_ids_match_jax(tmp_path, jax_pallas, lineage_kernel,
                  jax_pallas)
 
 
+@pytest.mark.parametrize("lineage_kernel", ["0", "1"])
+def test_transformer_head_dim_192_ids_match_jax(tmp_path, jax_pallas,
+                                                lineage_kernel):
+    """Head dim 192, which the JAX flash kernels pad and the JAX lineage
+    kernel's lane rule refuses: the port's attention takes flash
+    attention (its kernels take head dims up to 256), and under
+    NM_LINEAGE_KERNEL=1 its lineage kernel layout (the kernel takes head
+    dims up to 512) gives the ids of the JAX package, whose decoder keeps
+    the einsum form there."""
+    jax_pallas.setenv("NM_LINEAGE_KERNEL", lineage_kernel)
+
+    def build(enc_cls, dec_cls, vocab_cls):
+        vocab = vocab_cls([f"w{i}" for i in range(VOCAB - 4)])
+        enc = enc_cls(name="encoder", vocabulary=vocab, data_id="source",
+                      embedding_size=384, ff_hidden_size=64, depth=1,
+                      n_heads=2, dropout_keep_prob=1.0, max_input_len=SRC)
+        return dec_cls(name="decoder", vocabulary=vocab, data_id="target",
+                       max_output_len=6, encoders=[enc], embedding_size=384,
+                       ff_hidden_size=64, depth=1, n_heads_self=2,
+                       n_heads_enc=2, label_smoothing=0.1,
+                       dropout_keep_prob=1.0)
+    _decode_both(tmp_path, (JaxTransformerEncoder, TransformerEncoder),
+                 (JaxTransformerDecoder, TransformerDecoder), build, 4,
+                 "hierarchical", jax_pallas)
+
+
 def test_lineage_bf16_caches_raise(monkeypatch):
     monkeypatch.setenv("NM_LINEAGE_KERNEL", "1")
     monkeypatch.setenv("NM_LINEAGE_KERNEL_BF16", "1")
