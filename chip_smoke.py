@@ -35,9 +35,14 @@ Phases (any failure raises and the script exits non-zero):
    ``bptt_fits``, as the JAX package's plain path), an LSTM's at H 8448
    (the plain scan past ``lstm_scan_fits``), multi-head attention at head
    dims 192 and 256 (the flash kernels, which the JAX package pads to any
-   head dim), K4 at beam 64 (k 64 over 15360 entries; k 65 through the
-   plain top-k) and the lineage layout's gate (the kernel to head dim 512,
-   past it the JAX decoder's gate); none may raise;
+   head dim) and 320 and 512 (their chunked instances), the lineage
+   attention at head dims 640 and 1024 (its chunked instance), K4 at beam
+   64 (k 64 over 15360 entries; k 65 through the plain top-k) and the
+   lineage layout's switch; none may raise, each chunked instance must
+   launch; each chunked instance is then timed beside its plain version,
+   SDPA (the lineage attention's with its bias as the mask) and its bound
+   (flash at B 8, H 4, 128 x 128, head dims 512 and 320; lineage at B 8,
+   H 2, beam 10, 480 lanes, head dims 1024 and 640);
 4. slice: the flagship RNN model (bench.py widths: vocabulary 30000,
    embeddings 512, BiGRU 512, attention 512, conditional-GRU decoder)
    with random seeded weights decodes 128 synthetic sentences greedily
@@ -115,6 +120,23 @@ Phases (any failure raises and the script exits non-zero):
    unfused cross-entropy); the loss must fall and the LSTM scan, its
    BPTT and K2 must launch;
 16. LSTM training parity: phase 7 from that checkpoint.
+17. server: phase 4's checkpoint behind ``server.ModelService`` and
+   ``ThreadingHTTPServer`` on 127.0.0.1 (window 10 ms): 32 concurrent
+   ``POST /run`` requests of 1-8 of phase 4's sentences; each answer
+   equals phase 4's output, or a greedy answer first differs where the
+   CPU's gap between the two tokens is below 1e-3 and a differing beam
+   answer's sentence passes phase 5's rule; K1-K4 must launch; prints the
+   requests, model calls, p50 and p99 latency, sentences/s and launches;
+18. task heads: the labeler and the word-alignment decoder over the
+   flagship encoder and decoder at full width on phase 6's pairs: one
+   training step's loss and gradients on the card against the CPU by
+   phase 7's rule against phase 12's float64 reference, and the
+   labeler's tags equal to the CPU's or differing
+   only where the CPU's top-two gap is below 1e-3; then labeler.ini,
+   language_model.ini, post_edit.ini, regressor.ini, alignment.ini and
+   str.ini of tests/configs train on the card to the gates of
+   tests/test_capability_inis.py, each with a falling loss and its
+   kernels launched.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -199,7 +221,25 @@ KERNELS = {
                   "neuralmonkey_tpu/ops/pallas_rnn.py:514"),
     "rowmax_lse": ("neuralmonkey_tpu_torch/csrc/beam_select.cu",
                    "neuralmonkey_tpu/ops/beam_select.py:52"),
+    # the chunked instances past the single-pass head dims (the JAX kernels
+    # pad any head dim): the same TPU kernels
+    "flash_attention_fwd_chunked": (
+        "neuralmonkey_tpu_torch/csrc/flash_attention.cu",
+        "neuralmonkey_tpu/ops/pallas_attention.py:85"),
+    "flash_attention_bwd_dq_chunked": (
+        "neuralmonkey_tpu_torch/csrc/flash_attention.cu",
+        "neuralmonkey_tpu/ops/pallas_attention.py:359"),
+    "flash_attention_bwd_dkv_chunked": (
+        "neuralmonkey_tpu_torch/csrc/flash_attention.cu",
+        "neuralmonkey_tpu/ops/pallas_attention.py:425"),
+    "lineage_attention_chunked": (
+        "neuralmonkey_tpu_torch/csrc/lineage_attention.cu",
+        "neuralmonkey_tpu/ops/lineage_attention.py:71"),
 }
+CHUNKED_KERNELS = ("flash_attention_fwd_chunked",
+                   "flash_attention_bwd_dq_chunked",
+                   "flash_attention_bwd_dkv_chunked",
+                   "lineage_attention_chunked")
 # bench.py build_transformer: 512 wide, FFN 2048, 6 + 6 layers, 8 heads
 T_DIM, T_FF, T_DEPTH, T_HEADS = 512, 2048, 6, 8
 T_HEAD_DIM = T_DIM // T_HEADS
@@ -227,10 +267,17 @@ def import_everything() -> None:
     that none of them reaches JAX or the JAX package)."""
     import torch  # noqa: F401
 
-    from neuralmonkey_tpu_torch import experiment, run, train  # noqa: F401
+    from neuralmonkey_tpu_torch import (  # noqa: F401
+        experiment, run, server, train)
     from neuralmonkey_tpu_torch.model import part  # noqa: F401
     from neuralmonkey_tpu_torch.models.decoders import (  # noqa: F401
-        beam_search_decoder, transformer)
+        beam_search_decoder, sequence_labeler, sequence_regressor,
+        transformer, word_alignment_decoder)
+    from neuralmonkey_tpu_torch.models.encoders import \
+        numpy_stateful_filler  # noqa: F401
+    from neuralmonkey_tpu_torch.runners import (  # noqa: F401
+        label_runner, perplexity_runner, regression_runner,
+        word_alignment_runner)
     from neuralmonkey_tpu_torch.models.encoders import \
         transformer as _  # noqa: F401
     from neuralmonkey_tpu_torch.ops import (  # noqa: F401
@@ -851,16 +898,21 @@ def check_past_limits(device):
     call on the CPU: a GRU encoder's training step at H 8192 (K1
     forward, the plain BPTT), an LSTM's at H 8448 (the plain scan whole),
     multi-head attention at head dims 192 and 256 forward and backward
-    (the flash kernels), K4 at beam 64 over the selector's first stage
-    (n 15360, k 64) and k 65 (the plain top-k), and the lineage layout's
-    gate. The training steps are held to phase 7's rule (the loss to
-    1e-5 relative, each gradient to 1e-3 of its largest entry), the
-    attention to 1e-4, the top-k bit for bit."""
+    (the flash kernels) and 320 and 512 (their chunked instances), the
+    lineage attention at head dims 640 and 1024 (its chunked instance),
+    K4 at beam 64 over the selector's first stage (n 15360, k 64) and
+    k 65 (the plain top-k), and the lineage layout's switch. The training
+    steps are held to phase 7's rule (the loss to 1e-5 relative, each
+    gradient to 1e-3 of its largest entry), the attention to 1e-4, the
+    top-k bit for bit. Returns the report and the chunked instances'
+    records (:func:`chunked_kernel_records`), with their launches on
+    this path."""
     import torch
 
     from neuralmonkey_tpu_torch.models.decoders import transformer
     from neuralmonkey_tpu_torch.ops import (attention, beam_select,
-                                            kernel_config, nn, rnn)
+                                            kernel_config, lineage_attention,
+                                            nn, rnn)
 
     gen = torch.Generator().manual_seed(SEED + 11)
     report = {}
@@ -908,8 +960,11 @@ def check_past_limits(device):
         training_rule(name, got, step(torch.device("cpu")))
         report[name]["launched"] = launched
 
-    # multi-head attention at head dims 192 and 256: the flash kernels
-    for model_dim in (384, 512):
+    # multi-head attention at head dims 192 and 256 (the flash kernels)
+    # and 320 and 512 (their chunked instances), forward and backward;
+    # the launches of the chunked instances are this path's
+    chunked_launches = dict.fromkeys(CHUNKED_KERNELS, 0)
+    for model_dim in (384, 512, 640, 1024):
         params = attention.mha_init(gen, model_dim, model_dim, model_dim)
         x = torch.randn(4, 9, model_dim, generator=gen)
         key_mask = torch.ones(4, 9)
@@ -922,20 +977,68 @@ def check_past_limits(device):
             out = attention.multi_head_attention(
                 p, xs, xs, xs, 2, key_mask=key_mask.to(dev), causal=True)
             out.square().sum().backward()
-            return [out.detach().cpu(), xs.grad.cpu()] + [
-                t.grad.cpu() for v in p.values() for t in v.values()]
+            return {"out": out.detach().cpu(), "x": xs.grad.cpu(),
+                    **{f"{k}/{n}": t.grad.cpu() for k, v in p.items()
+                       for n, t in v.items()}}
         kernel_config.reset_launch_counts()
         got = attend(device)
         torch.cuda.synchronize()
-        name = f"attention head dim {model_dim // 2}"
         counts = kernel_config.launch_counts()
-        launched = [counts[f"flash_attention_{k}"]
-                    for k in ("fwd", "bwd_dq", "bwd_dkv")]
+        head_dim = model_dim // 2
+        suffix = "_chunked" if head_dim > 256 else ""
+        names = [f"flash_attention_{k}{suffix}"
+                 for k in ("fwd", "bwd_dq", "bwd_dkv")]
+        launched = [counts[k] for k in names]
         if launched != [1, 1, 1]:
-            raise AssertionError(f"{name}: flash launches {launched}")
-        err = max(max_err(a, b) / max(1.0, float(b.abs().max()))
-                  for a, b in zip(got, attend(torch.device("cpu"))))
-        report[name] = {"max_rel_err": err, "flash_launches": launched}
+            raise AssertionError(f"head dim {head_dim}: launches {launched}")
+        for k in names:
+            if suffix:
+                chunked_launches[k] += counts[k]
+        ref = attend(torch.device("cpu"))
+
+        def scale(key):
+            """The largest entry of the CPU's ``key`` (of 1 where that is
+            smaller); past 256 the key bias, whose exact gradient is 0 (it
+            shifts every score of a row alike), against its key weight's,
+            as phase 12 holds it."""
+            if suffix and key == "k/b":
+                key = "k/w"
+            return max(1.0, float(ref[key].abs().max()))
+        err = max(max_err(g, ref[k]) / scale(k) for k, g in got.items())
+        name = f"attention head dim {head_dim}"
+        report[name] = {"max_rel_err": err, "flash_launches": launched,
+                        "kernels": names}
+        if not err <= 1e-4:
+            raise AssertionError(f"{name}: error {err}")
+
+    # the lineage kernel past 512: its chunked instance at head dims 640
+    # and 1024 (two column blocks each), a beam-10 step over 48 positions,
+    # B 2 (the lane split) and B 8, against the same call on the CPU
+    for b, d in ((2, 640), (8, 1024)):
+        q = torch.randn(b, 2, BEAM, d, generator=gen)
+        kq = torch.randn(b, 2, d, BEAM * TGT_LEN, generator=gen)
+        vq = torch.randn(b, 2, BEAM * TGT_LEN, d, generator=gen)
+        anc = torch.randint(0, BEAM, (b, BEAM, TGT_LEN), generator=gen,
+                            dtype=torch.int32)
+        bias = lineage_attention.lineage_bias(anc, TGT_LEN - 1, TGT_LEN, BEAM,
+                                              BEAM * TGT_LEN, TGT_LEN)
+        kernel_config.reset_launch_counts()
+        got = lineage_attention.lineage_attention(
+            *(t.to(device) for t in (q, kq, vq, bias)))
+        torch.cuda.synchronize()
+        counts = kernel_config.launch_counts()
+        if (counts["lineage_attention_chunked"],
+                counts["lineage_attention"]) != (1, 0):
+            raise AssertionError(f"lineage head dim {d}: launches {counts}")
+        chunked_launches["lineage_attention_chunked"] += 1
+        ref = lineage_attention.lineage_attention(q, kq, vq, bias)
+        err = max_err(got.cpu(), ref) / max(1.0, float(ref.abs().max()))
+        name = f"lineage head dim {d}"
+        report[name] = {"max_rel_err": err, "plan": lineage_attention.
+                        lineage_plan(b, 2, BEAM, d, BEAM * TGT_LEN,
+                                     BEAM * TGT_LEN,
+                                     *kernel_config.device_limits(0)
+                                     )._asdict()}
         if not err <= 1e-4:
             raise AssertionError(f"{name}: error {err}")
 
@@ -953,22 +1056,140 @@ def check_past_limits(device):
         report[f"small_topk k {k}"] = {
             "launches": kernel_config.launch_counts()["small_topk"]}
 
-    # the lineage layout at beam 10: the kernel's head dims at any cache
-    # length, past them the JAX decoder's gate
-    want = {(192, 48): True, (512, 480): True, (640, 48): True,
-            (520, 48): False, (640, 300): False}
+    # the lineage layout: the kernel takes every head dim, so the switch
+    # alone decides
     os.environ["NM_LINEAGE_KERNEL"] = "1"
     try:
-        layouts = {(d, t): transformer.lineage_kernel_layout(10, d, t)
-                   for d, t in want}
+        layout = transformer.lineage_kernel_layout()
     finally:
         os.environ.pop("NM_LINEAGE_KERNEL")
-    if layouts != want:
-        raise AssertionError(f"lineage kernel layout gate: {layouts}")
-    report["lineage layout"] = {f"head dim {d}, {t} steps": v
-                                for (d, t), v in layouts.items()}
+    if not layout or transformer.lineage_kernel_layout():
+        raise AssertionError("lineage kernel layout does not follow "
+                             "NM_LINEAGE_KERNEL")
+    report["lineage layout"] = "NM_LINEAGE_KERNEL=1 at every head dim"
+    chunked = chunked_kernel_records(device, gen)
+    for name, n in chunked_launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} never launched by phase 3b")
+        chunked[name]["launches"] = n
     log(f"past the kernels' limits: {report}")
-    return report
+    return report, chunked
+
+
+def chunked_kernel_records(device, gen):
+    """Each chunked instance against its plain version on the card, timed
+    beside it, beside one PyTorch call of the same function (SDPA; for
+    the lineage attention SDPA with the lineage bias as its mask) and
+    beside its bound: flash at B 8, H 4, 128 x 128 with ragged keys and
+    head dims 512 (the record) and 320 (``head_dim_320``), the lineage
+    attention at B 8, H 2, beam 10, 480 lanes and head dims 1024 (the
+    record) and 640 (``head_dim_640``). Errors: the forward's and the
+    lineage's absolute, the gradients' relative to their largest entry,
+    to phase 8's 1e-5 and 1e-4."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    from neuralmonkey_tpu_torch.ops import kernel_config
+    from neuralmonkey_tpu_torch.ops import lineage_attention as la
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    records = {}
+
+    def keep(name, entry, err, tol):
+        if not err <= tol:
+            raise AssertionError(f"{name}: error {err} > {tol}")
+        prior = records.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(prior["max_abs_err"], err)
+        prior.update(entry)
+
+    b, h, t = 8, 4, 128
+    lengths = torch.randint(1, t + 1, (b,), generator=gen)
+    mask = (torch.arange(t)[None] < lengths[:, None]).float().to(device)
+    attn_bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+    for d in (320, 512):
+        q, k, v, g = (randn(b, h, t, d) for _ in range(4))
+        out, lse = fa.flash_forward(q, k, v, mask, False)
+        ref_out, ref_lse = fa.flash_forward_reference(q, k, v, mask, False)
+        dcap = (g * out).sum(dim=-1)
+        bwd = (q, k, v, mask, lse, g, dcap, False)
+        dq = fa.flash_backward_dq(*bwd)
+        dk, dv = fa.flash_backward_dkv(*bwd)
+        want = fa.flash_backward_reference(q, k, v, mask, ref_out, ref_lse,
+                                           g, False)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_bias)
+        pairs, qo = b * h * t * t, 4 * b * h * t * d
+        read = 4 * qo + 4 * b * t + 8 * b * h * t
+        plain_bwd = time_ms(lambda: fa.flash_backward_reference(
+            q, k, v, mask, out, lse, g, False))
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, g, retain_graph=True))
+        cases = {
+            "flash_attention_fwd_chunked": (
+                max(max_err(out, ref_out), max_err(lse, ref_lse)), 1e-5,
+                lambda: fa.flash_forward(q, k, v, mask, False),
+                time_ms(lambda: fa.flash_forward_reference(
+                    q, k, v, mask, False)),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=attn_bias)),
+                bound(4 * pairs * d, 4 * qo + 4 * b * t + 4 * b * h * t)),
+            "flash_attention_bwd_dq_chunked": (
+                max_err(dq, want[0]) / float(want[0].abs().max()), 1e-4,
+                lambda: fa.flash_backward_dq(*bwd), plain_bwd, lib_bwd,
+                bound(6 * pairs * d, read + qo)),
+            "flash_attention_bwd_dkv_chunked": (
+                max(max_err(dk, want[1]) / float(want[1].abs().max()),
+                    max_err(dv, want[2]) / float(want[2].abs().max())),
+                1e-4, lambda: fa.flash_backward_dkv(*bwd), plain_bwd,
+                lib_bwd, bound(8 * pairs * d, read + 2 * qo))}
+        for name, (err, tol, call, plain, lib, (bms, by)) in cases.items():
+            entry = {"ms": time_ms(call), "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                     "call_ms": call_ms(call), "shape": [b, h, t, t, d],
+                     "plan": (fa.flash_forward_plan(b, h, t, t, d)._asdict()
+                              if "fwd" in name else
+                              fa.flash_backward_plan(b, h, t, t, d, False)
+                              ._asdict()["dq" if "dq" in name else "dkv"]
+                              ._asdict())}
+            if d == 320:
+                entry = {"head_dim_320": entry}
+            log(f"{name} head dim {d}: error {err:.3g}")
+            keep(name, entry, err, tol)
+
+    b, h, lanes = 8, 2, BEAM * TGT_LEN
+    for d in (640, 1024):
+        q = randn(b, h, BEAM, d)
+        kq, vq = randn(b, h, d, lanes), randn(b, h, lanes, d)
+        anc = torch.randint(0, BEAM, (b, BEAM, TGT_LEN), generator=gen,
+                            dtype=torch.int32).to(device)
+        bias = la.lineage_bias(anc, TGT_LEN - 1, TGT_LEN, BEAM, lanes,
+                               TGT_LEN)
+
+        def call():
+            return la.lineage_attention(q, kq, vq, bias)
+        err = max_err(call(), la.lineage_attention_reference(q, kq, vq, bias))
+        bms, by = bound(4 * b * h * BEAM * lanes * d,
+                        4 * (2 * b * h * BEAM * d + 2 * b * h * lanes * d
+                             + b * BEAM * lanes))
+        entry = {"ms": time_ms(call),
+                 "plain_ms": time_ms(lambda: la.lineage_attention_reference(
+                     q, kq, vq, bias)),
+                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                     q, kq.transpose(-1, -2), vq, attn_mask=bias[:, None])),
+                 "bound_ms": bms, "bound_by": by, "call_ms": call_ms(call),
+                 "shape": [b, h, BEAM, lanes, d],
+                 "plan": la.lineage_plan(b, h, BEAM, d, lanes, lanes,
+                                         *kernel_config.device_limits(0)
+                                         )._asdict()}
+        if d == 640:
+            entry = {"head_dim_640": entry}
+        log(f"lineage_attention_chunked head dim {d}: error {err:.3g}")
+        keep("lineage_attention_chunked", entry, err, 1e-5)
+    torch.cuda.synchronize()
+    return records
 
 
 def flash_backward_times(fa, q, k, v, g, mask, causal):
@@ -1534,7 +1755,10 @@ def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix=""):
 # ---------------------------------------------------------------------- #
 # phase 5: CPU (plain versions) against the card (kernels)
 # ---------------------------------------------------------------------- #
-def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
+def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
+                 dataset=None):
+    """Phase 5's rule on the first N_PARITY sentences of ``data_ini``, or
+    on ``dataset``."""
     import torch
 
     from neuralmonkey_tpu_torch import run
@@ -1542,7 +1766,9 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
     from neuralmonkey_tpu_torch.model.part import Context
     from neuralmonkey_tpu_torch.models.decoders import beam_search_decoder
 
-    dataset = run.load_data_config(data_ini)[0].subset(0, N_PARITY)
+    if dataset is None:
+        dataset = run.load_data_config(data_ini)[0].subset(0, N_PARITY)
+    n = len(dataset)
     cpu_exp = Experiment(exp_ini, train_mode=False,
                          config_changes=['tf_manager.device="cpu"'])
     cpu_exp.build_model()
@@ -1593,13 +1819,13 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
     def decode(exp):
         # three padding rows (all-zero masks) ride along, as in the last
         # batch of a dataset
-        batch, _ = exp.tf_manager.build_batch(dataset, N_PARITY + 3)
+        batch, _ = exp.tf_manager.build_batch(dataset, n + 3)
         greedy_runner, beam_runner = exp.model.runners
         with torch.inference_mode():
             ctx = Context(exp.tf_manager.params, batch)
             greedy = greedy_runner.fetches(ctx)["decoded"]
             beam = beam_runner.fetches(ctx)["token_ids"][:, 0]
-        return greedy[:N_PARITY].cpu(), beam[:N_PARITY].cpu()
+        return greedy[:n].cpu(), beam[:n].cpu()
 
     decoder.decode_step = recording_step
     beam_search_decoder.small_topk = recording_topk
@@ -1616,7 +1842,7 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
 
     report = {}
     same = 0
-    for row in range(N_PARITY):
+    for row in range(n):
         diff = (cpu_greedy[row] != gpu_greedy[row]).nonzero()
         if len(diff) == 0:
             same += 1
@@ -1630,7 +1856,7 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
             raise AssertionError(
                 f"greedy ids of sentence {row} differ at step {step}, "
                 f"where the CPU's top-two margin is {margin} >= {MARGIN}")
-    report["greedy"] = f"{same}/{N_PARITY} identical"
+    report["greedy"] = f"{same}/{n} identical"
 
     # a beam search diverges at the first step where the two devices
     # pick a different (parent, token) in some slot j; that must be a
@@ -1643,7 +1869,7 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
         return None
 
     same = diverged = 0
-    for row in range(N_PARITY):
+    for row in range(n):
         first = first_divergence(row)
         ids_same = torch.equal(cpu_beam[row], gpu_beam[row])
         same += ids_same
@@ -1664,10 +1890,172 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
             raise AssertionError(
                 f"beam search of sentence {row} diverges at step {step}, "
                 f"slot {slot}, where the CPU's gap is {gap} >= {MARGIN}")
-    report["beam"] = (f"{same}/{N_PARITY} identical, {diverged} searches "
+    report["beam"] = (f"{same}/{n} identical, {diverged} searches "
                       "diverged at a near-tie")
     log(f"parity: {report}")
     return report
+
+
+# ---------------------------------------------------------------------- #
+# phase 17: the HTTP server at full width
+# ---------------------------------------------------------------------- #
+N_REQUESTS, WINDOW_MS = 32, 10.0
+
+
+def serve_over_http(tmp: str, exp_ini: str, data_ini: str, ckpt: str):
+    """Phase 4's model from its checkpoint behind ``ModelService`` and
+    ``ThreadingHTTPServer`` on 127.0.0.1 (window 10 ms): after one
+    warm-up request, 32 concurrent ``POST /run`` requests of 1-8 of phase
+    4's sentences each, the launch counts set to 0 just before them.
+    Every answer (greedy and beam 10) must equal phase 4's output for its
+    sentence, or: a greedy answer may first differ at a step where the
+    CPU, fed the common prefix, scores the two tokens less than 1e-3
+    apart (:func:`greedy_gap`); a sentence whose beam answer differs is
+    held to phase 5's rule. K1-K4 must have launched. Returns (launches,
+    report)."""
+    import random
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from neuralmonkey_tpu_torch import server
+    from neuralmonkey_tpu_torch.dataset import from_dict
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.ops import kernel_config
+
+    def lines(name):
+        with open(os.path.join(tmp, name)) as f:
+            return f.read().splitlines()
+    sources = lines("source.txt")
+    expected = {"target": [line.split() for line in lines("greedy.txt")],
+                "target_beam": [line.split() for line in lines("beam.txt")]}
+    rng = random.Random(SEED)
+    requests = [rng.sample(range(N_SENTENCES), rng.randint(1, 8))
+                for _ in range(N_REQUESTS)]
+
+    exp = Experiment(exp_ini, train_mode=False)
+    exp.build_model()
+    exp.restore_variables([ckpt])
+    service = server.ModelService(exp, batch_window_ms=WINDOW_MS)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(service))
+    port = httpd.server_address[1]
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+
+    def post(rows):
+        body = json.dumps({"source": [sources[i] for i in rows]}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/run", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return json.loads(resp.read())
+
+    answers, latency, errors = {}, {}, []
+
+    def client(i):
+        start = time.perf_counter()
+        try:
+            answers[i] = post(requests[i])
+        except Exception as exc:  # reported below, the phase fails
+            errors.append(repr(exc))
+        latency[i] = (time.perf_counter() - start) * 1e3
+
+    try:
+        post([0])  # warm-up
+        torch.cuda.synchronize()
+        calls_before = service.stats["model_calls"]
+        kernel_config.reset_launch_counts()
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(N_REQUESTS)]
+        start = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        seconds = time.perf_counter() - start
+        launches = kernel_config.launch_counts()
+        calls = service.stats["model_calls"] - calls_before
+    finally:
+        service.close()
+        httpd.shutdown()
+        httpd.server_close()
+    if errors:
+        raise AssertionError(f"server: requests failed: {errors[:3]}")
+    missing = [k for k in SERVING_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"server: kernels never launched: {missing}")
+    differ = {series: {row: answers[i][series][j]
+                       for i, rows in enumerate(requests)
+                       for j, row in enumerate(rows)
+                       if answers[i][series][j] != want[row]}
+              for series, want in expected.items()}
+    greedy_gaps = {row: greedy_gap(exp_ini, ckpt, sources[row].split(),
+                                   expected["target"][row], got)
+                   for row, got in differ["target"].items()}
+    if any(not gap < MARGIN for gap in greedy_gaps.values()):
+        raise AssertionError(f"server: greedy answers differ from phase 4's "
+                             f"where the CPU's gap is not below {MARGIN}: "
+                             f"{greedy_gaps}")
+    parity = None
+    if differ["target_beam"]:
+        rows = sorted(differ["target_beam"])
+        log(f"server: beam answers of sentences {rows} differ from phase "
+            "4's; holding them to phase 5's rule")
+        parity = check_parity(exp_ini, data_ini, exp, ckpt, from_dict(
+            {"source": [sources[i].split() for i in rows]}))
+    times = sorted(latency.values())
+    sentences = sum(len(rows) for rows in requests)
+    report = {
+        "requests": N_REQUESTS, "sentences": sentences,
+        "model_calls": calls, "batch_window_ms": WINDOW_MS,
+        "p50_latency_ms": statistics.median(times),
+        "p99_latency_ms": times[min(len(times) - 1,
+                                    int(0.99 * len(times)))],
+        "sentences_per_s": sentences / seconds,
+        "greedy_differing_from_phase_4": greedy_gaps,
+        "beam_differing_from_phase_4": sorted(differ["target_beam"]),
+        "beam_parity": parity,
+        "launches": {k: launches[k] for k in SERVING_KERNELS}}
+    print(json.dumps({"server": report}))
+    log(f"server: {report}")
+    return launches, report
+
+
+def greedy_gap(exp_ini: str, ckpt: str, source, want, got) -> float:
+    """Where two greedy decodes of ``source`` first differ, the CPU's
+    logit gap between their two tokens, the decoder fed their common
+    prefix (phase 5's top-two margin at that step when one of them is
+    the CPU's pick)."""
+    import torch
+
+    from neuralmonkey_tpu_torch.dataset import from_dict
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.model.part import Context
+    from neuralmonkey_tpu_torch.vocabulary import (END_TOKEN,
+                                                   START_TOKEN_INDEX)
+
+    step = next(i for i in range(max(len(want), len(got)) + 1)
+                if want[i:i + 1] != got[i:i + 1])
+    exp = Experiment(exp_ini, train_mode=False,
+                     config_changes=['tf_manager.device="cpu"'])
+    exp.build_model()
+    exp.tf_manager.restore(ckpt)
+    decoder = exp.model.runners[0].decoder
+    ids = [decoder.vocabulary.word_to_index[w] for w in want[:step]]
+    batch, _ = exp.tf_manager.build_batch(from_dict({"source": [source]}), 1)
+    with torch.inference_mode():
+        ctx = Context(exp.tf_manager.params, batch)
+        constants = decoder.decode_constants(ctx)
+        state = decoder.decode_initial_state(ctx, constants)
+        for t, prev in enumerate([START_TOKEN_INDEX] + ids):
+            state, logits, _ = decoder.decode_step(
+                constants, state, torch.tensor([prev], dtype=torch.int32), t)
+    pick = [decoder.vocabulary.word_to_index[seq[step]]
+            if step < len(seq) else decoder.vocabulary.word_to_index[
+                END_TOKEN] for seq in (want, got)]
+    return abs(float(logits[0, pick[0]] - logits[0, pick[1]]))
 
 
 # ---------------------------------------------------------------------- #
@@ -2267,6 +2655,229 @@ def check_lstm_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str):
     return report
 
 
+# ---------------------------------------------------------------------- #
+# phase 18: the task heads
+# ---------------------------------------------------------------------- #
+HEADS_INI = """\
+[main]
+name="chip smoke task heads"
+tf_manager=<tf_manager>
+output="{out}"
+batch_size={batch}
+epochs=1
+train_dataset=<train_data>
+trainer=<trainer>
+runners=[<runner>]
+random_seed={seed}
+
+[tf_manager]
+class=tf_manager.TensorFlowManager
+num_sessions=1
+
+[vocabulary]
+class=vocabulary.from_wordlist
+path="{tmp}/words.txt"
+
+[tag_vocabulary]
+class=vocabulary.from_wordlist
+path="{tmp}/tags.txt"
+
+[train_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/train.src"
+s_target="{tmp}/train.tgt"
+s_tags="{tmp}/train.tags"
+s_align="{tmp}/train.align"
+lazy=False
+
+[encoder]
+class=encoders.recurrent.SentenceEncoder
+name="sentence_encoder"
+rnn_size={rnn}
+max_input_len={src_len}
+embedding_size={emb}
+data_id="source"
+vocabulary=<vocabulary>
+
+[attention]
+class=attention.feed_forward.Attention
+name="attention"
+encoder=<encoder>
+state_size={att}
+
+[decoder]
+class=decoders.decoder.Decoder
+name="decoder"
+encoders=[<encoder>]
+attentions=[<attention>]
+rnn_size={rnn}
+embedding_size={emb}
+maxout_size={emb}
+conditional_gru=True
+data_id="target"
+max_output_len={tgt_len}
+vocabulary=<vocabulary>
+
+[labeler]
+class=decoders.sequence_labeler.SequenceLabeler
+name="labeler"
+encoder=<encoder>
+data_id="tags"
+vocabulary=<tag_vocabulary>
+hidden_dim={rnn}
+
+[alignment_decoder]
+class=decoders.word_alignment_decoder.WordAlignmentDecoder
+name="alignment_decoder"
+encoder=<encoder>
+decoder=<decoder>
+data_id="align"
+
+[trainer]
+class=trainers.cross_entropy_trainer.CrossEntropyTrainer
+decoders=[<decoder>, <labeler>, <alignment_decoder>]
+decoder_weights=[1.0, 1.0, 0.5]
+clip_norm=1.0
+optimizer=<adam>
+
+[adam]
+class=tf.train.AdamOptimizer
+learning_rate=0.001
+
+[runner]
+class=runners.label_runner.LabelRunner
+decoder=<labeler>
+output_series="tags"
+"""
+N_TAGS = 16
+# tests/test_capability_inis.py's gates: INI, metric, comparison, limit,
+# and the kernels its model must launch on the card
+INI_GATES = (
+    ("labeler.ini", "tags/Accuracy", ">", 0.5, ("gru_scan", "gru_bptt")),
+    ("language_model.ini", "xents", ">", 0.0, ()),
+    ("post_edit.ini", "edits_out/BLEU-4", ">", 10.0,
+     ("gru_scan", "gru_bptt", "fused_bahdanau_step")),
+    ("regressor.ini", "score/MSE", "<", 0.01, ("gru_scan", "gru_bptt")),
+    ("alignment.ini", "target/BLEU-4", ">", 20.0,
+     ("gru_scan", "gru_bptt", "fused_bahdanau_step")),
+    ("str.ini", "target/MSE", "<", 2.0, ()))
+
+
+def check_task_heads(tmp: str):
+    """The labeler and the word-alignment decoder over the flagship
+    encoder and decoder at full width, on phase 6's synthetic pairs with
+    a tag for each source word (its id modulo 16) and the alignment of
+    each target word to the source word it maps from: the loss and
+    every gradient of one training step on the card against the CPU by
+    phase 7's rule, with phase 12's float64 reference (the labeler's ReLU
+    followed as there), and the
+    labeler's tags on the card equal to the CPU's or different only
+    where the CPU's top-two logit gap is below 1e-3. Then the six
+    task-head INIs of tests/configs train on the card, each to its gate
+    of tests/test_capability_inis.py with a falling loss, launching the
+    kernels its model runs. Returns (the INI runs' launches, report)."""
+    import torch
+
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.model.part import Context
+    from neuralmonkey_tpu_torch.ops import kernel_config
+
+    with open(os.path.join(tmp, "tags.txt"), "w") as f:
+        f.write("\n".join(f"t{i}" for i in range(N_TAGS)) + "\n")
+    with open(os.path.join(tmp, "train.src")) as f:
+        sources = f.read().splitlines()
+    with open(os.path.join(tmp, "train.tags"), "w") as f:
+        f.writelines(" ".join(f"t{int(w[1:]) % N_TAGS}" for w in line.split())
+                     + "\n" for line in sources)
+    # phase 6's target word j maps from source word j, then from j - 32
+    with open(os.path.join(tmp, "train.align"), "w") as f:
+        f.writelines(" ".join(f"{j % SRC_LEN}-{j}"
+                              for j in range(TGT_LEN - 1)) + "\n"
+                     for _ in sources)
+    ini = os.path.join(tmp, "heads.ini")
+    with open(ini, "w") as f:
+        f.write(HEADS_INI.format(
+            tmp=tmp, out=os.path.join(tmp, "heads_out"), batch=BATCH,
+            seed=SEED, rnn=RNN, src_len=SRC_LEN, emb=EMB, att=ATT,
+            tgt_len=TGT_LEN))
+    exp = Experiment(ini, train_mode=True)
+    exp.build_model()
+    ckpt = exp.tf_manager.save(os.path.join(tmp, "heads_params"))
+    del exp
+    # against a float64 CPU step, as phase 12: the attention key bias's
+    # gradient under the alignment loss is a small difference of large
+    # float32 sums (the softmax backward's rows sum to 0)
+    report = {"training_parity": check_train_parity(
+        ini, ckpt, ("encoder", "attention", "decoder", "labeler"),
+        float64=True)}
+
+    def tag_logits(device_change):
+        exp = Experiment(ini, train_mode=False, config_changes=device_change)
+        exp.build_model()
+        exp.tf_manager.restore(ckpt)
+        dataset = exp.model.train_dataset.subset(0, N_PARITY)
+        batch, _ = exp.tf_manager.build_batch(dataset, N_PARITY)
+        labeler = exp.model.runners[0].decoder
+        with torch.inference_mode():
+            ctx = Context(exp.tf_manager.params, batch)
+            return (labeler.logits(ctx).cpu(),
+                    labeler.input_mask(ctx).cpu() > 0)
+    gpu_logits, valid = tag_logits([])
+    cpu_logits, _ = tag_logits(['tf_manager.device="cpu"'])
+    differ = (gpu_logits.argmax(-1) != cpu_logits.argmax(-1)) & valid
+    top2 = cpu_logits.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1])[differ]
+    report["labeler_tags"] = {"positions": int(valid.sum()),
+                              "differing": int(differ.sum()),
+                              "largest_gap_where_differing":
+                                  float(gaps.max()) if len(gaps) else None}
+    if len(gaps) and not float(gaps.max()) < MARGIN:
+        raise AssertionError(f"labeler tags differ where the CPU's top-two "
+                             f"gap is {float(gaps.max())} >= {MARGIN}")
+
+    compare = {">": lambda a, b: a > b, "<": lambda a, b: a < b}
+    launches = None
+    cwd = os.getcwd()
+    os.chdir(REPO)  # the INIs name their data relative to the checkout
+    try:
+        for name, metric, op, limit, kernels in INI_GATES:
+            out = os.path.join(tmp, f"ini_{name}")
+            exp = Experiment(os.path.join(REPO, "tests", "configs", name),
+                             train_mode=True, config_changes=[
+                                 f'main.output="{out}"',
+                                 "main.logging_period=10"])
+            kernel_config.reset_launch_counts()
+            start = time.perf_counter()
+            exp.train()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            counts = kernel_config.launch_counts()
+            launches = counts if launches is None else {
+                k: n + counts[k] for k, n in launches.items()}
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            train = [r for r in records if r["kind"] == "train"]
+            val = [r for r in records if r["kind"] == "val"]
+            value = val[-1][metric]
+            report[name] = {metric: value, "first_loss": train[0]["loss"],
+                            "last_loss": train[-1]["loss"],
+                            "seconds": seconds,
+                            "launches": {k: counts[k] for k in kernels}}
+            log(f"task head {name}: {report[name]}")
+            if not train[-1]["loss"] < train[0]["loss"]:
+                raise AssertionError(f"{name}: the loss did not fall")
+            if not compare[op](value, limit):
+                raise AssertionError(f"{name}: {metric} {value} not {op} "
+                                     f"{limit}")
+            missing = [k for k in kernels if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"{name}: kernels never launched: "
+                                     f"{missing}")
+    finally:
+        os.chdir(cwd)
+    return launches, report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "neuralmonkey_tpu_torch")):
         log("neuralmonkey_tpu_torch not found beside chip_smoke.py: run "
@@ -2311,7 +2922,9 @@ def main() -> int:
         return out
 
     kernels = phase("kernels", check_kernels, device)
-    past_limits = phase("past the kernels' limits", check_past_limits, device)
+    past_limits, chunked = phase("past the kernels' limits",
+                                 check_past_limits, device)
+    kernels.update(chunked)
     plans = launch_plans()
     log(f"launch plans: {plans}")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2369,6 +2982,15 @@ def main() -> int:
         l_train_parity = phase("lstm training parity", check_train_parity,
                                l_train_ini, l_best)
 
+        s_launches, served = phase("server", serve_over_http, tmp,
+                                   os.path.join(tmp, "exp.ini"), data_ini,
+                                   ckpt)
+        launches = {k: n + s_launches[k] for k, n in launches.items()}
+        h_launches, heads = phase("task heads", check_task_heads, tmp)
+        launches = {k: n + h_launches[k] for k, n in launches.items()}
+        for name in CHUNKED_KERNELS:
+            launches[name] += chunked[name].pop("launches")
+
     print(json.dumps({"plans": plans}))
     print(smi)
     print(json.dumps({
@@ -2386,6 +3008,8 @@ def main() -> int:
         "lstm_scan_cudnn_max_abs_err": kernels["lstm_scan"][
             "cudnn_max_abs_err"],
         "past_the_kernels_limits": past_limits,
+        "server": served,
+        "task_heads": heads,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

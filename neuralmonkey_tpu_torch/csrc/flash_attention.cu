@@ -59,9 +59,10 @@
 //   dV += Pᵀ dO (dropped P) and dK += dSᵀ q (undropped P), the sums over
 //   queries as dq's over keys. Each query tile brings its lse and dcap rows
 //   with it. At D 64: 34 KB or 52 KB.
-// Head dims up to 256, padded to 32, 64, 128 or 256 (the JAX kernels pad any
-// head dim to the 128-lane; past 256 the wrappers raise). At 256 a block
-// takes 166 KB (forward) to 200 KB (dkv), one block an SM.
+// Head dims up to 256 in one pass, padded to 32, 64, 128 or 256 (the JAX
+// kernels pad any head dim to the 128-lane). At 256 a block takes 166 KB
+// (forward) to 200 KB (dkv), one block an SM. Past 256 the chunked instances
+// below take any head dim: 97 KB (forward), 163 KB (dq), 195 KB (dkv).
 // In dq, a warp whose 8 queries all lie past Tq (the second block of a
 // 48-query axis holds 16) only loads and synchronises; the same skip in dkv
 // measured slower.
@@ -131,23 +132,25 @@ __device__ __forceinline__ void axpy4(float* acc, float w, float4 x) {
   acc[3] = fmaf(w, x.w, acc[3]);
 }
 
-// rows x W tile (row stride ld) of a (T, D) matrix, zero beyond T and D:
-// 16-byte cp.async copies (zero-filled past the end) when D % 4 == 0, plain
-// loads otherwise; the caller commits and waits
+// rows x W tile (row stride ld) of a (T, D) matrix, its columns c0 .. c0 + W,
+// zero beyond T and D: 16-byte cp.async copies (zero-filled past the end)
+// when D % 4 == 0 (c0 is a multiple of 4), plain loads otherwise; the caller
+// commits and waits
 template <int W>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int row0, int rows,
-                                          int T, int D) {
+                                          int T, int D, int c0 = 0) {
   if ((D & 3) == 0) {
     for (int i = threadIdx.x; i < rows * (W / 4); i += kThreads) {
       const int r = i / (W / 4), d = (i % (W / 4)) * 4;
-      const bool in = row0 + r < T && d < D;
-      nm::cp_async16(dst + r * ld + d, in ? src + static_cast<size_t>(row0 + r) * D + d : src,
-                     in ? 16 : 0);
+      const bool in = row0 + r < T && c0 + d < D;
+      nm::cp_async16(dst + r * ld + d,
+                     in ? src + static_cast<size_t>(row0 + r) * D + c0 + d : src, in ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < rows * W; i += kThreads) {
       const int r = i / W, d = i % W;
-      dst[r * ld + d] = (row0 + r < T && d < D) ? src[static_cast<size_t>(row0 + r) * D + d] : 0.f;
+      dst[r * ld + d] =
+          (row0 + r < T && c0 + d < D) ? src[static_cast<size_t>(row0 + r) * D + c0 + d] : 0.f;
     }
   }
 }
@@ -179,6 +182,280 @@ __device__ __forceinline__ void store_cols(float* out, const float* acc, float s
       for (int c = 0; c < 4; ++c)
         if (d + c < D) out[d + c] = acc[4 * n + c] * scale;
     }
+  }
+}
+
+
+// ------------------------------------------------------------------------ //
+// the pieces every kernel shares
+// ------------------------------------------------------------------------ //
+// s[i][j] += a[row0 + i] . b[kg + 8 j] over the first dn columns of two
+// shared tiles of row stride ld: this thread's 2 rows x 4 entries of the tile
+// (the entries of the last tile's `groups` groups of 8 that exist)
+__device__ __forceinline__ void add_products(float (&s)[kRPT][kTPT], const float* a, const float* b,
+                                             int ld, int dn, int row0, int groups, int kg) {
+#pragma unroll 4
+  for (int d = 0; d < dn; d += 4) {
+    float4 av[kRPT];
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i) av[i] = *reinterpret_cast<const float4*>(a + (row0 + i) * ld + d);
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      if (j < groups) {
+        const float4 bv = *reinterpret_cast<const float4*>(b + (kg + j * kRowThreads) * ld + d);
+#pragma unroll
+        for (int i = 0; i < kRPT; ++i) s[i][j] = dot4(av[i], bv, s[i][j]);
+      }
+    }
+  }
+}
+
+// the same for two products at once: s += a1 b1^T and dp += a2 b2^T (S and dP
+// in dq, S^T and dP^T in dkv)
+__device__ __forceinline__ void add_products2(float (&s)[kRPT][kTPT], float (&dp)[kRPT][kTPT],
+                                              const float* a1, const float* a2, const float* b1,
+                                              const float* b2, int ld, int dn, int row0,
+                                              int groups, int kg) {
+#pragma unroll 4
+  for (int d = 0; d < dn; d += 4) {
+    float4 x1[kRPT], x2[kRPT];
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i) {
+      x1[i] = *reinterpret_cast<const float4*>(a1 + (row0 + i) * ld + d);
+      x2[i] = *reinterpret_cast<const float4*>(a2 + (row0 + i) * ld + d);
+    }
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      if (j < groups) {
+        const int c = kg + j * kRowThreads;
+        const float4 y1 = *reinterpret_cast<const float4*>(b1 + c * ld + d);
+        const float4 y2 = *reinterpret_cast<const float4*>(b2 + c * ld + d);
+#pragma unroll
+        for (int i = 0; i < kRPT; ++i) {
+          s[i][j] = dot4(x1[i], y1, s[i][j]);
+          dp[i][j] = dot4(x2[i], y2, dp[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// acc[i] += sum_c w[i][c] rows[c][this thread's columns]: tile entry c's
+// weight comes from lane c % 8 of the row's quarter warp; thread kg holds
+// columns (8 n + kg) * 4 .. + 4 (O += P v in the forward, dq += dS k)
+template <int NV>
+__device__ __forceinline__ void add_rows(float (&acc)[kRPT][4 * NV], const float (&w)[kRPT][kTPT],
+                                         const float* rows, int ld, int groups, int kn, int kg) {
+#pragma unroll
+  for (int j = 0; j < kTPT; ++j) {
+    if (j >= groups) break;
+#pragma unroll
+    for (int src = 0; src < kRowThreads; ++src) {
+      const int c = j * kRowThreads + src;
+      if (c >= kn) break;
+      float p[kRPT];
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i) p[i] = from_lane(w[i][j], src);
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(rows + c * ld + (n * kRowThreads + kg) * 4);
+#pragma unroll
+        for (int i = 0; i < kRPT; ++i) axpy4(acc[i] + 4 * n, p[i], x);
+      }
+    }
+  }
+}
+
+// the same for two sums at once: dV += P^T dO and dK += dS^T q in dkv
+template <int NV>
+__device__ __forceinline__ void add_rows2(float (&av)[kRPT][4 * NV], float (&ak)[kRPT][4 * NV],
+                                          const float (&wp)[kRPT][kTPT],
+                                          const float (&ws)[kRPT][kTPT], const float* sdo,
+                                          const float* sq, int ld, int groups, int qn, int qg) {
+#pragma unroll
+  for (int j = 0; j < kTPT; ++j) {
+    if (j >= groups) break;
+#pragma unroll
+    for (int src = 0; src < kRowThreads; ++src) {
+      const int r = j * kRowThreads + src;
+      if (r >= qn) break;
+      float p[kRPT], g[kRPT];
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i) {
+        p[i] = from_lane(wp[i][j], src);
+        g[i] = from_lane(ws[i][j], src);
+      }
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const int d = (n * kRowThreads + qg) * 4;
+        const float4 gv = *reinterpret_cast<const float4*>(sdo + r * ld + d);
+        const float4 qv = *reinterpret_cast<const float4*>(sq + r * ld + d);
+#pragma unroll
+        for (int i = 0; i < kRPT; ++i) {
+          axpy4(av[i] + 4 * n, p[i], gv);
+          axpy4(ak[i] + 4 * n, g[i], qv);
+        }
+      }
+    }
+  }
+}
+
+// the forward's online softmax over one key tile: s (the scores of keys
+// k0 + kg + 8 j of queries qrow .. qrow + 1) becomes the tile's (dropped)
+// weights; m, l and the context rescale
+template <int NV>
+__device__ __forceinline__ void softmax_tile(float (&s)[kRPT][kTPT], float (&m)[kRPT],
+                                             float (&l)[kRPT], float (&o)[kRPT][4 * NV],
+                                             const float* sm, int qrow, int k0, int kn, int kg,
+                                             int Tk, int causal, const Dropout& drop, int bh,
+                                             float scale) {
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int qi = qrow + i;
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      const int c = kg + j * kRowThreads, key = k0 + c;
+      float x = s[i][j] * scale;
+      if (c >= kn)
+        x = -INFINITY;
+      else if (!(sm[c] > 0.f) || (causal && qi < key))
+        x = kMasked;
+      s[i][j] = x;
+      tile_max = fmaxf(tile_max, x);
+    }
+    const float m_new = fmaxf(m[i], row_max(tile_max));
+    const float corr = expf(m[i] - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      const int c = kg + j * kRowThreads, key = k0 + c;
+      const float p = expf(s[i][j] - m_new);
+      psum += p;
+      float pv = p;
+      if (drop.enabled && c < kn)
+        pv = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key) ? p * drop.inv_keep : 0.f;
+      s[i][j] = pv;
+    }
+    l[i] = l[i] * corr + row_sum(psum);
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) o[i][c] *= corr;
+  }
+}
+
+// dq's dS = P (dP·keep/kp - dcap) with P = exp(s - lse): s becomes dS
+__device__ __forceinline__ void dq_ds(float (&s)[kRPT][kTPT], const float (&dp)[kRPT][kTPT],
+                                      const float (&row_lse)[kRPT], const float (&row_dcap)[kRPT],
+                                      const float* sm, int qrow, int k0, int kn, int kg, int Tq,
+                                      int Tk, int causal, const Dropout& drop, int bh,
+                                      float scale) {
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int qi = qrow + i;
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      const int c = kg + j * kRowThreads, key = k0 + c;
+      float ds = 0.f;
+      if (c < kn && qi < Tq) {
+        float x = s[i][j] * scale;
+        if (!(sm[c] > 0.f) || (causal && qi < key)) x = kMasked;
+        const float p = expf(x - row_lse[i]);
+        float g = dp[i][j];
+        if (drop.enabled)
+          g = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key) ? g * drop.inv_keep : 0.f;
+        ds = p * (g - row_dcap[i]);
+      }
+      s[i][j] = ds;
+    }
+  }
+}
+
+// dkv's weights: s (S^T of keys krow .. krow + 1 and queries q0 + qg + 8 j)
+// becomes the dropped P (for dV), dp (dP^T) dS from the undropped P (for dK)
+__device__ __forceinline__ void dkv_weights(float (&s)[kRPT][kTPT], float (&dp)[kRPT][kTPT],
+                                            const bool (&key_ok)[kRPT],
+                                            const bool (&key_valid)[kRPT], const float* slse,
+                                            const float* sdcap, int krow, int q0, int qn, int qg,
+                                            int Tk, int causal, const Dropout& drop, int bh,
+                                            float scale) {
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int key = krow + i;
+#pragma unroll
+    for (int j = 0; j < kTPT; ++j) {
+      const int r = qg + j * kRowThreads, qi = q0 + r;
+      float pd = 0.f, ds = 0.f;
+      if (r < qn && key_ok[i]) {
+        float x = s[i][j] * scale;
+        if (!key_valid[i] || (causal && qi < key)) x = kMasked;
+        const float p = expf(x - slse[r]);
+        float g = dp[i][j];
+        pd = p;
+        if (drop.enabled) {
+          const bool keep = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key);
+          pd = keep ? p * drop.inv_keep : 0.f;
+          g = keep ? g * drop.inv_keep : 0.f;
+        }
+        ds = p * (g - sdcap[r]);
+      }
+      s[i][j] = pd;
+      dp[i][j] = ds;
+    }
+  }
+}
+
+// the forward's output: columns c_out .. c_out + W of this thread's rows,
+// and the lse of each row (written by column block 0)
+template <int NV>
+__device__ __forceinline__ void store_out(float* out, float* lse, const float (&o)[kRPT][4 * NV],
+                                          const float (&m)[kRPT], const float (&l)[kRPT], int bh,
+                                          int qrow, int Tq, int D, int c_out, int kg) {
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int qi = qrow + i;
+    if (qi >= Tq) continue;
+    const float denom = fmaxf(l[i], 1e-20f);
+    float* ob = out + (static_cast<size_t>(bh) * Tq + qi) * D + c_out;
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const int d = (n * kRowThreads + kg) * 4;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c_out + d + c < D) ob[d + c] = o[i][4 * n + c] / denom;
+    }
+    if (kg == 0 && c_out == 0) lse[static_cast<size_t>(bh) * Tq + qi] = m[i] + logf(denom);
+  }
+}
+
+// dq's columns c_out .. c_out + W of this thread's rows, times the scale
+template <int NV>
+__device__ __forceinline__ void store_dq(float* dq, const float (&acc)[kRPT][4 * NV], float scale,
+                                         size_t q_off, int qrow, int Tq, int D, int c_out,
+                                         int kg) {
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int qi = qrow + i;
+    if (qi < Tq)
+      store_cols<NV>(dq + q_off + static_cast<size_t>(qi) * D + c_out, acc[i], scale, D - c_out,
+                     kg);
+  }
+}
+
+// dk's (times the scale) and dv's columns c_out .. c_out + W of this
+// thread's keys
+template <int NV>
+__device__ __forceinline__ void store_dkv(float* dk, float* dv, const float (&ak)[kRPT][4 * NV],
+                                          const float (&av)[kRPT][4 * NV],
+                                          const bool (&key_ok)[kRPT], float scale, size_t kv_off,
+                                          int krow, int D, int c_out, int qg) {
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    if (!key_ok[i]) continue;
+    const size_t off = kv_off + static_cast<size_t>(krow + i) * D + c_out;
+    store_cols<NV>(dk + off, ak[i], scale, D - c_out, qg);
+    store_cols<NV>(dv + off, av[i], 1.f, D - c_out, qg);
   }
 }
 
@@ -260,96 +537,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kRPT; ++i)
 #pragma unroll
       for (int j = 0; j < kTPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < W; d += 4) {
-      float4 qv[kRPT];
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(sq + (row0 + i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < kTPT; ++j) {
-        if (j < groups) {
-          const float4 kv = *reinterpret_cast<const float4*>(sk + (kg + j * kRowThreads) * LD + d);
-#pragma unroll
-          for (int i = 0; i < kRPT; ++i) s[i][j] = dot4(qv[i], kv, s[i][j]);
-        }
-      }
-    }
-
+    add_products(s, sq, sk, LD, W, row0, groups, kg);
     // online softmax; s becomes the (dropped) weights of this tile
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i) {
-      const int qi = q0 + row0 + i;
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kTPT; ++j) {
-        const int c = kg + j * kRowThreads, key = k0 + c;
-        float x = s[i][j] * scale;
-        if (c >= kn)
-          x = -INFINITY;
-        else if (!(sm[c] > 0.f) || (causal && qi < key))
-          x = kMasked;
-        s[i][j] = x;
-        tile_max = fmaxf(tile_max, x);
-      }
-      const float m_new = fmaxf(m[i], row_max(tile_max));
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTPT; ++j) {
-        const int c = kg + j * kRowThreads, key = k0 + c;
-        const float p = expf(s[i][j] - m_new);
-        psum += p;
-        float pv = p;
-        if (drop.enabled && c < kn)
-          pv = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key) ? p * drop.inv_keep : 0.f;
-        s[i][j] = pv;
-      }
-      l[i] = l[i] * corr + row_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NV; ++c) o[i][c] *= corr;
-    }
-
-    // O += P v: key c's weights come from lane c % 8 of the row's quarter
-    // warp; thread kg holds columns (8 n + kg) * 4 .. + 4
-#pragma unroll
-    for (int j = 0; j < kTPT; ++j) {
-      if (j >= groups) break;
-#pragma unroll
-      for (int src = 0; src < kRowThreads; ++src) {
-        const int c = j * kRowThreads + src;
-        if (c >= kn) break;
-        float p[kRPT];
-#pragma unroll
-        for (int i = 0; i < kRPT; ++i) p[i] = from_lane(s[i][j], src);
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(sv + c * W + (n * kRowThreads + kg) * 4);
-#pragma unroll
-          for (int i = 0; i < kRPT; ++i) axpy4(o[i] + 4 * n, p[i], vv);
-        }
-      }
-    }
+    softmax_tile<NV>(s, m, l, o, sm, q0 + row0, k0, kn, kg, Tk, causal, drop, bh, scale);
+    // O += P v
+    add_rows<NV>(o, s, sv, W, groups, kn, kg);
     __syncthreads();  // the stage is consumed before the next load refills it
   }
-
-#pragma unroll
-  for (int i = 0; i < kRPT; ++i) {
-    const int qi = q0 + row0 + i;
-    if (qi >= Tq) continue;
-    const float denom = fmaxf(l[i], 1e-20f);
-    float* ob = out + (static_cast<size_t>(bh) * Tq + qi) * D;
-#pragma unroll
-    for (int n = 0; n < NV; ++n) {
-      const int d = (n * kRowThreads + kg) * 4;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (d + c < D) ob[d + c] = o[i][4 * n + c] / denom;
-    }
-    if (kg == 0) lse[static_cast<size_t>(bh) * Tq + qi] = m[i] + logf(denom);
-  }
+  store_out<NV>(out, lse, o, m, l, bh, q0 + row0, Tq, D, 0, kg);
 }
 
 // ------------------------------------------------------------------------ //
@@ -437,79 +632,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kRPT; ++i)
 #pragma unroll
       for (int j = 0; j < kTPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < W; d += 4) {
-      float4 qv[kRPT], gv[kRPT];
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i) {
-        qv[i] = *reinterpret_cast<const float4*>(sq + (row0 + i) * LD + d);
-        gv[i] = *reinterpret_cast<const float4*>(sdo + (row0 + i) * LD + d);
-      }
-#pragma unroll
-      for (int j = 0; j < kTPT; ++j) {
-        if (j < groups) {
-          const int c = kg + j * kRowThreads;
-          const float4 kv = *reinterpret_cast<const float4*>(sk + c * LD + d);
-          const float4 vv = *reinterpret_cast<const float4*>(sv + c * LD + d);
-#pragma unroll
-          for (int i = 0; i < kRPT; ++i) {
-            s[i][j] = dot4(qv[i], kv, s[i][j]);
-            dp[i][j] = dot4(gv[i], vv, dp[i][j]);
-          }
-        }
-      }
-    }
-
-    // dS = P (dP - dcap) with P = exp(s - lse) and dP through the keep
-    // bits; s becomes dS
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i) {
-      const int qi = q0 + row0 + i;
-#pragma unroll
-      for (int j = 0; j < kTPT; ++j) {
-        const int c = kg + j * kRowThreads, key = k0 + c;
-        float ds = 0.f;
-        if (c < kn && qi < Tq) {
-          float x = s[i][j] * scale;
-          if (!(sm[c] > 0.f) || (causal && qi < key)) x = kMasked;
-          const float p = expf(x - row_lse[i]);
-          float g = dp[i][j];
-          if (drop.enabled)
-            g = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key) ? g * drop.inv_keep : 0.f;
-          ds = p * (g - row_dcap[i]);
-        }
-        s[i][j] = ds;
-      }
-    }
-
-    // dq += dS k: key c's dS comes from lane c % 8 of the row's quarter warp
-#pragma unroll
-    for (int j = 0; j < kTPT; ++j) {
-      if (j >= groups) break;
-#pragma unroll
-      for (int src = 0; src < kRowThreads; ++src) {
-        const int c = j * kRowThreads + src;
-        if (c >= kn) break;
-        float w[kRPT];
-#pragma unroll
-        for (int i = 0; i < kRPT; ++i) w[i] = from_lane(s[i][j], src);
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          const float4 kv =
-              *reinterpret_cast<const float4*>(sk + c * LD + (n * kRowThreads + kg) * 4);
-#pragma unroll
-          for (int i = 0; i < kRPT; ++i) axpy4(acc[i] + 4 * n, w[i], kv);
-        }
-      }
-    }
+    add_products2(s, dp, sq, sdo, sk, sv, LD, W, row0, groups, kg);
+    dq_ds(s, dp, row_lse, row_dcap, sm, q0 + row0, k0, kn, kg, Tq, Tk, causal, drop, bh, scale);
+    add_rows<NV>(acc, s, sk, LD, groups, kn, kg);  // dq += dS k
     __syncthreads();  // the stage is consumed before the next load refills it
   }
-
-#pragma unroll
-  for (int i = 0; i < kRPT; ++i) {
-    const int qi = q0 + row0 + i;
-    if (qi < Tq) store_cols<NV>(dq + q_off + static_cast<size_t>(qi) * D, acc[i], scale, D, kg);
-  }
+  store_dq<NV>(dq, acc, scale, q_off, q0 + row0, Tq, D, 0, kg);
 }
 
 // ------------------------------------------------------------------------ //
@@ -524,6 +652,17 @@ __host__ __device__ constexpr int dkv_stage_floats() {
 template <int W>
 constexpr size_t dkv_smem(int stages) {
   return sizeof(float) * (2 * kRows * (W + 4) + stages * dkv_stage_floats<W>());
+}
+
+// which of this thread's keys exist, and which are valid under the mask
+__device__ __forceinline__ void key_flags(bool (&key_ok)[kRPT], bool (&key_valid)[kRPT],
+                                          const float* mask, int b, int krow, int Tk) {
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int key = krow + i;
+    key_ok[i] = key < Tk;
+    key_valid[i] = key_ok[i] && mask[static_cast<size_t>(b) * Tk + key] > 0.f;
+  }
 }
 
 template <int W>
@@ -566,15 +705,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_rows<W>(sv, LD, v + kv_off, kv0, kRows, Tk, D);
   load_tile(first);
   bool key_ok[kRPT], key_valid[kRPT];
+  key_flags(key_ok, key_valid, mask, b, kv0 + row0, Tk);
   float ak[kRPT][4 * NV], av[kRPT][4 * NV];
 #pragma unroll
-  for (int i = 0; i < kRPT; ++i) {
-    const int key = kv0 + row0 + i;
-    key_ok[i] = key < Tk;
-    key_valid[i] = key_ok[i] && mask[static_cast<size_t>(b) * Tk + key] > 0.f;
+  for (int i = 0; i < kRPT; ++i)
 #pragma unroll
     for (int c = 0; c < 4 * NV; ++c) ak[i][c] = av[i][c] = 0.f;
-  }
 
   for (int t = first; t < n_tiles; ++t) {
     if (two && t + 1 < n_tiles) {
@@ -598,96 +734,245 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kRPT; ++i)
 #pragma unroll
       for (int j = 0; j < kTPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < W; d += 4) {
-      float4 kv[kRPT], vv[kRPT];
-#pragma unroll
-      for (int i = 0; i < kRPT; ++i) {
-        kv[i] = *reinterpret_cast<const float4*>(sk + (row0 + i) * LD + d);
-        vv[i] = *reinterpret_cast<const float4*>(sv + (row0 + i) * LD + d);
-      }
-#pragma unroll
-      for (int j = 0; j < kTPT; ++j) {
-        if (j < groups) {
-          const int r = qg + j * kRowThreads;
-          const float4 qv = *reinterpret_cast<const float4*>(sq + r * LD + d);
-          const float4 gv = *reinterpret_cast<const float4*>(sdo + r * LD + d);
-#pragma unroll
-          for (int i = 0; i < kRPT; ++i) {
-            s[i][j] = dot4(kv[i], qv, s[i][j]);
-            dp[i][j] = dot4(vv[i], gv, dp[i][j]);
-          }
-        }
-      }
-    }
-
-    // s becomes the dropped P (for dV), dp becomes dS from the undropped P
-    // (for dK)
-#pragma unroll
-    for (int i = 0; i < kRPT; ++i) {
-      const int key = kv0 + row0 + i;
-#pragma unroll
-      for (int j = 0; j < kTPT; ++j) {
-        const int r = qg + j * kRowThreads, qi = q0 + r;
-        float pd = 0.f, ds = 0.f;
-        if (r < qn && key_ok[i]) {
-          float x = s[i][j] * scale;
-          if (!key_valid[i] || (causal && qi < key)) x = kMasked;
-          const float p = expf(x - slse[r]);
-          float g = dp[i][j];
-          pd = p;
-          if (drop.enabled) {
-            const bool keep = keep_bit(drop, bh, static_cast<uint32_t>(qi) * Tk + key);
-            pd = keep ? p * drop.inv_keep : 0.f;
-            g = keep ? g * drop.inv_keep : 0.f;
-          }
-          ds = p * (g - sdcap[r]);
-        }
-        s[i][j] = pd;
-        dp[i][j] = ds;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T q: query r's values come from lane r % 8
-    // of the key's quarter warp
-#pragma unroll
-    for (int j = 0; j < kTPT; ++j) {
-      if (j >= groups) break;
-#pragma unroll
-      for (int src = 0; src < kRowThreads; ++src) {
-        const int r = j * kRowThreads + src;
-        if (r >= qn) break;
-        float wp[kRPT], ws[kRPT];
-#pragma unroll
-        for (int i = 0; i < kRPT; ++i) {
-          wp[i] = from_lane(s[i][j], src);
-          ws[i] = from_lane(dp[i][j], src);
-        }
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          const int d = (n * kRowThreads + qg) * 4;
-          const float4 gv = *reinterpret_cast<const float4*>(sdo + r * LD + d);
-          const float4 qv = *reinterpret_cast<const float4*>(sq + r * LD + d);
-#pragma unroll
-          for (int i = 0; i < kRPT; ++i) {
-            axpy4(av[i] + 4 * n, wp[i], gv);
-            axpy4(ak[i] + 4 * n, ws[i], qv);
-          }
-        }
-      }
-    }
+    add_products2(s, dp, sk, sv, sq, sdo, LD, W, row0, groups, qg);
+    dkv_weights(s, dp, key_ok, key_valid, slse, sdcap, kv0 + row0, q0, qn, qg, Tk, causal, drop,
+                bh, scale);
+    add_rows2<NV>(av, ak, s, dp, sdo, sq, LD, groups, qn, qg);
     __syncthreads();  // the stage is consumed before the next load refills it
   }
   nm::cp_async_wait<0>();  // no copy in flight where the causal walk is empty
+  store_dkv<NV>(dk, dv, ak, av, key_ok, scale, kv_off, kv0 + row0, D, 0, qg);
+}
 
+// ------------------------------------------------------------------------ //
+// head dims past 256: the chunked instances
+// ------------------------------------------------------------------------ //
+// Past the widest single-pass instance a block owns its 32 rows and one slice
+// of kChunk columns of its output (blockIdx.z, the column block). The scores
+// (and in the backward dP) are summed over the head dim in chunks of kChunk
+// columns, each chunk's operands staged through shared memory by cp.async,
+// one stage; the online softmax, the keep bits (a function of (bh, q, k), so
+// every column block draws the same), the register tiles and the products
+// are the single-pass kernels'. Every column block recomputes the scores over
+// the whole head dim: at D = C * 256 the score products cost C times the
+// single pass's, the context products once (PERF.md).
+constexpr int kChunk = 256;
+
+template <int W>
+constexpr size_t fwd_chunked_smem() {
+  // q and k chunks [32][W + 4], the v slice [32][W], the key mask
+  return sizeof(float) * (2 * kRows * (W + 4) + kTile * W + kTile);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_chunked_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ mask,
+                         float* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
+                         int D, int causal, Dropout drop, float scale) {
+  constexpr int LD = W + 4;
+  constexpr int NV = W / (4 * kRowThreads);
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);  // [kRows][LD] q chunk
+  float* sk = sq + kRows * LD;                  // [kTile][LD] k chunk
+  float* sv = sk + kTile * LD;                  // [kTile][W] v slice
+  float* sm = sv + kTile * W;                   // [kTile] key mask
+  const int bh = blockIdx.x, b = bh / H;
+  const int q0 = blockIdx.y * kRows, c_out = blockIdx.z * W;
+  const int lane = threadIdx.x & 31, kg = lane & (kRowThreads - 1);
+  const int row0 = ((threadIdx.x >> 5) * 4 + (lane >> 3)) * kRPT;
+  const size_t q_off = static_cast<size_t>(bh) * Tq * D, kv_off = static_cast<size_t>(bh) * Tk * D;
+  const int n_chunks = (D + W - 1) / W;
+  int n_tiles = (Tk + kTile - 1) / kTile;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows + kTile - 1) / kTile);
+
+  float o[kRPT][4 * NV];
+  float m[kRPT], l[kRPT];
 #pragma unroll
   for (int i = 0; i < kRPT; ++i) {
-    const int key = kv0 + row0 + i;
-    if (!key_ok[i]) continue;
-    const size_t off = kv_off + static_cast<size_t>(key) * D;
-    store_cols<NV>(dk + off, ak[i], scale, D, qg);
-    store_cols<NV>(dv + off, av[i], 1.f, D, qg);
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) o[i][c] = 0.f;
   }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTile;
+    const int kn = min(kTile, Tk - k0);
+    const int groups = (kn + kRowThreads - 1) / kRowThreads;
+    __syncthreads();  // the last tile's slice, mask and chunk are consumed
+    load_rows<W>(sv, W, v + kv_off, k0, kTile, Tk, D, c_out);
+    for (int c = threadIdx.x; c < kTile; c += kThreads)
+      sm[c] = k0 + c < Tk ? mask[static_cast<size_t>(b) * Tk + k0 + c] : 0.f;
+
+    float s[kRPT][kTPT];
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) s[i][j] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c0 = ch * W;
+      if (ch > 0) __syncthreads();  // the last chunk is consumed
+      load_rows<W>(sq, LD, q + q_off, q0, kRows, Tq, D, c0);
+      load_rows<W>(sk, LD, k + kv_off, k0, kTile, Tk, D, c0);
+      nm::cp_async_commit();
+      nm::cp_async_wait<0>();
+      __syncthreads();
+      add_products(s, sq, sk, LD, min(W, D - c0), row0, groups, kg);
+    }
+    softmax_tile<NV>(s, m, l, o, sm, q0 + row0, k0, kn, kg, Tk, causal, drop, bh, scale);
+    add_rows<NV>(o, s, sv, W, groups, kn, kg);  // O[:, slice] += P v[:, slice]
+  }
+  store_out<NV>(out, lse, o, m, l, bh, q0 + row0, Tq, D, c_out, kg);
+}
+
+template <int W>
+constexpr size_t dq_chunked_smem() {
+  // q, dO, k and v chunks and the k slice [32][W + 4], the key mask
+  return sizeof(float) * (5 * kRows * (W + 4) + kTile);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_chunked_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ mask,
+                            const float* __restrict__ dout, const float* __restrict__ lse,
+                            const float* __restrict__ dcap, float* __restrict__ dq, int H, int Tq,
+                            int Tk, int D, int causal, Dropout drop, float scale) {
+  constexpr int LD = W + 4;
+  constexpr int NV = W / (4 * kRowThreads);
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);  // [kRows][LD] q chunk
+  float* sdo = sq + kRows * LD;                 // [kRows][LD] dO chunk
+  float* sk = sdo + kRows * LD;                 // [kTile][LD] k chunk
+  float* sv = sk + kTile * LD;                  // [kTile][LD] v chunk
+  float* sks = sv + kTile * LD;                 // [kTile][LD] k slice
+  float* sm = sks + kTile * LD;                 // [kTile] key mask
+  const int bh = blockIdx.x, b = bh / H;
+  const int q0 = blockIdx.y * kRows, c_out = blockIdx.z * W;
+  const int lane = threadIdx.x & 31, kg = lane & (kRowThreads - 1);
+  const int row0 = ((threadIdx.x >> 5) * 4 + (lane >> 3)) * kRPT;
+  const size_t q_off = static_cast<size_t>(bh) * Tq * D, kv_off = static_cast<size_t>(bh) * Tk * D;
+  const int n_chunks = (D + W - 1) / W;
+  int n_tiles = (Tk + kTile - 1) / kTile;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows + kTile - 1) / kTile);
+
+  float row_lse[kRPT], row_dcap[kRPT], acc[kRPT][4 * NV];
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int qi = q0 + row0 + i;
+    row_lse[i] = qi < Tq ? lse[static_cast<size_t>(bh) * Tq + qi] : 0.f;
+    row_dcap[i] = qi < Tq ? dcap[static_cast<size_t>(bh) * Tq + qi] : 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTile;
+    const int kn = min(kTile, Tk - k0);
+    const int groups = (kn + kRowThreads - 1) / kRowThreads;
+    __syncthreads();  // the last tile's slice, mask and chunk are consumed
+    load_rows<W>(sks, LD, k + kv_off, k0, kTile, Tk, D, c_out);
+    load_vector(sm, mask + static_cast<size_t>(b) * Tk, k0, kTile, Tk);
+
+    float s[kRPT][kTPT], dp[kRPT][kTPT];
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c0 = ch * W;
+      if (ch > 0) __syncthreads();  // the last chunk is consumed
+      load_rows<W>(sq, LD, q + q_off, q0, kRows, Tq, D, c0);
+      load_rows<W>(sdo, LD, dout + q_off, q0, kRows, Tq, D, c0);
+      load_rows<W>(sk, LD, k + kv_off, k0, kTile, Tk, D, c0);
+      load_rows<W>(sv, LD, v + kv_off, k0, kTile, Tk, D, c0);
+      nm::cp_async_commit();
+      nm::cp_async_wait<0>();
+      __syncthreads();
+      add_products2(s, dp, sq, sdo, sk, sv, LD, min(W, D - c0), row0, groups, kg);
+    }
+    dq_ds(s, dp, row_lse, row_dcap, sm, q0 + row0, k0, kn, kg, Tq, Tk, causal, drop, bh, scale);
+    add_rows<NV>(acc, s, sks, LD, groups, kn, kg);  // dq[:, slice] += dS k[:, slice]
+  }
+  store_dq<NV>(dq, acc, scale, q_off, q0 + row0, Tq, D, c_out, kg);
+}
+
+template <int W>
+constexpr size_t dkv_chunked_smem() {
+  // k and v chunks, q and dO chunks, q and dO slices [32][W + 4], lse, dcap
+  return sizeof(float) * (6 * kRows * (W + 4) + 2 * kTile);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_chunked_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ mask,
+                             const float* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ dcap, float* __restrict__ dk,
+                             float* __restrict__ dv, int H, int Tq, int Tk, int D, int causal,
+                             Dropout drop, float scale) {
+  constexpr int LD = W + 4;
+  constexpr int NV = W / (4 * kRowThreads);
+  extern __shared__ float4 smem4[];
+  float* sk = reinterpret_cast<float*>(smem4);  // [kRows][LD] this block's keys, a chunk
+  float* sv = sk + kRows * LD;                  // [kRows][LD]
+  float* sq = sv + kRows * LD;                  // [kTile][LD] q chunk
+  float* sdo = sq + kTile * LD;                 // [kTile][LD] dO chunk
+  float* sqs = sdo + kTile * LD;                // [kTile][LD] q slice
+  float* sdos = sqs + kTile * LD;               // [kTile][LD] dO slice
+  float* slse = sdos + kTile * LD;              // [kTile]
+  float* sdcap = slse + kTile;                  // [kTile]
+  const int bh = blockIdx.x, b = bh / H;
+  const int kv0 = blockIdx.y * kRows, c_out = blockIdx.z * W;
+  const int lane = threadIdx.x & 31, qg = lane & (kRowThreads - 1);
+  const int row0 = ((threadIdx.x >> 5) * 4 + (lane >> 3)) * kRPT;
+  const size_t q_off = static_cast<size_t>(bh) * Tq * D, kv_off = static_cast<size_t>(bh) * Tk * D;
+  const int n_chunks = (D + W - 1) / W;
+  const int n_tiles = (Tq + kTile - 1) / kTile;
+  const int first = causal ? kv0 / kTile : 0;
+
+  bool key_ok[kRPT], key_valid[kRPT];
+  key_flags(key_ok, key_valid, mask, b, kv0 + row0, Tk);
+  float ak[kRPT][4 * NV], av[kRPT][4 * NV];
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) ak[i][c] = av[i][c] = 0.f;
+
+  for (int t = first; t < n_tiles; ++t) {
+    const int q0 = t * kTile;
+    const int qn = min(kTile, Tq - q0);
+    const int groups = (qn + kRowThreads - 1) / kRowThreads;
+    __syncthreads();  // the last tile's slices, vectors and chunk are consumed
+    load_rows<W>(sqs, LD, q + q_off, q0, kTile, Tq, D, c_out);
+    load_rows<W>(sdos, LD, dout + q_off, q0, kTile, Tq, D, c_out);
+    load_vector(slse, lse + static_cast<size_t>(bh) * Tq, q0, kTile, Tq);
+    load_vector(sdcap, dcap + static_cast<size_t>(bh) * Tq, q0, kTile, Tq);
+
+    float s[kRPT][kTPT], dp[kRPT][kTPT];
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i)
+#pragma unroll
+      for (int j = 0; j < kTPT; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c0 = ch * W;
+      if (ch > 0) __syncthreads();  // the last chunk is consumed
+      load_rows<W>(sk, LD, k + kv_off, kv0, kRows, Tk, D, c0);
+      load_rows<W>(sv, LD, v + kv_off, kv0, kRows, Tk, D, c0);
+      load_rows<W>(sq, LD, q + q_off, q0, kTile, Tq, D, c0);
+      load_rows<W>(sdo, LD, dout + q_off, q0, kTile, Tq, D, c0);
+      nm::cp_async_commit();
+      nm::cp_async_wait<0>();
+      __syncthreads();
+      add_products2(s, dp, sk, sv, sq, sdo, LD, min(W, D - c0), row0, groups, qg);
+    }
+    dkv_weights(s, dp, key_ok, key_valid, slse, sdcap, kv0 + row0, q0, qn, qg, Tk, causal, drop,
+                bh, scale);
+    // dV[:, slice] += P^T dO[:, slice] and dK[:, slice] += dS^T q[:, slice]
+    add_rows2<NV>(av, ak, s, dp, sdos, sqs, LD, groups, qn, qg);
+  }
+  store_dkv<NV>(dk, dv, ak, av, key_ok, scale, kv_off, kv0 + row0, D, c_out, qg);
 }
 
 // the shared-memory cap is raised once per kernel and device, not per launch
@@ -711,15 +996,22 @@ int head_width(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 0;
 }
 
+// the chunked launches' grid: a column block of kChunk columns a z index
+dim3 chunked_grid(int BH, int rows, int D) {
+  return dim3(BH, (rows + kRows - 1) / kRows, (D + kChunk - 1) / kChunk);
+}
+
 }  // namespace
 
-#define NM_FLASH_DISPATCH(D, CALL)                            \
+// the single-pass instances up to head dim 256, the chunked ones (a column
+// block of kChunk columns of the output a grid z index) past it
+#define NM_FLASH_DISPATCH(D, CALL, CHUNKED)                   \
   switch (head_width(D)) {                                    \
     case 32: return CALL(32);                                 \
     case 64: return CALL(64);                                 \
     case 128: return CALL(128);                               \
     case 256: return CALL(256);                               \
-    default: return static_cast<int>(cudaErrorInvalidValue);  \
+    default: return CHUNKED;                                  \
   }
 
 NM_EXPORT int nm_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
@@ -735,7 +1027,14 @@ NM_EXPORT int nm_flash_fwd(const void* q, const void* k, const void* v, const vo
          static_cast<const float*>(q), static_cast<const float*>(k),                          \
          static_cast<const float*>(v), static_cast<const float*>(mask),                       \
          static_cast<float*>(out), static_cast<float*>(lse), H, Tq, Tk, D, causal, drop, scale)
-  NM_FLASH_DISPATCH(D, NM_CALL)
+#define NM_CHUNKED                                                                             \
+  launch(flash_fwd_chunked_kernel<kChunk>, kThreads, fwd_chunked_smem<kChunk>(),               \
+         chunked_grid(B * H, Tq, D), s, static_cast<const float*>(q),                          \
+         static_cast<const float*>(k), static_cast<const float*>(v),                           \
+         static_cast<const float*>(mask), static_cast<float*>(out), static_cast<float*>(lse), H, \
+         Tq, Tk, D, causal, drop, scale)
+  NM_FLASH_DISPATCH(D, NM_CALL, NM_CHUNKED)
+#undef NM_CHUNKED
 #undef NM_CALL
 }
 
@@ -755,7 +1054,15 @@ NM_EXPORT int nm_flash_bwd_dq(const void* q, const void* k, const void* v, const
          static_cast<const float*>(dout), static_cast<const float*>(lse),                     \
          static_cast<const float*>(dcap), static_cast<float*>(dq), H, Tq, Tk, D, causal, drop, \
          scale)
-  NM_FLASH_DISPATCH(D, NM_CALL)
+#define NM_CHUNKED                                                                              \
+  launch(flash_bwd_dq_chunked_kernel<kChunk>, kThreads, dq_chunked_smem<kChunk>(),              \
+         chunked_grid(B * H, Tq, D), s, static_cast<const float*>(q),                           \
+         static_cast<const float*>(k), static_cast<const float*>(v),                            \
+         static_cast<const float*>(mask), static_cast<const float*>(dout),                      \
+         static_cast<const float*>(lse), static_cast<const float*>(dcap),                       \
+         static_cast<float*>(dq), H, Tq, Tk, D, causal, drop, scale)
+  NM_FLASH_DISPATCH(D, NM_CALL, NM_CHUNKED)
+#undef NM_CHUNKED
 #undef NM_CALL
 }
 
@@ -775,6 +1082,14 @@ NM_EXPORT int nm_flash_bwd_dkv(const void* q, const void* k, const void* v, cons
          static_cast<const float*>(dout), static_cast<const float*>(lse),                      \
          static_cast<const float*>(dcap), static_cast<float*>(dk), static_cast<float*>(dv), H, \
          Tq, Tk, D, causal, drop, scale)
-  NM_FLASH_DISPATCH(D, NM_CALL)
+#define NM_CHUNKED                                                                              \
+  launch(flash_bwd_dkv_chunked_kernel<kChunk>, kThreads, dkv_chunked_smem<kChunk>(),            \
+         chunked_grid(B * H, Tk, D), s, static_cast<const float*>(q),                           \
+         static_cast<const float*>(k), static_cast<const float*>(v),                            \
+         static_cast<const float*>(mask), static_cast<const float*>(dout),                      \
+         static_cast<const float*>(lse), static_cast<const float*>(dcap),                       \
+         static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, D, causal, drop, scale)
+  NM_FLASH_DISPATCH(D, NM_CALL, NM_CHUNKED)
+#undef NM_CHUNKED
 #undef NM_CALL
 }

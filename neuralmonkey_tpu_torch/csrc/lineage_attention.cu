@@ -56,9 +56,9 @@
 // - The bias of b is read by the H blocks of its heads, which are neighbours
 //   in launch order: it stays on the L2 path (1.2 MB against the caches'
 //   126 MB at the smoke shape).
-// - Head dims up to 512, padded to 32, 64, 128, 256 or 512: every multiple
-//   of 128 to 512 that the JAX decoder's gate admits, and any other; past 512
-//   the wrapper raises on the card.
+// - Head dims up to 512 in this design, padded to 32, 64, 128, 256 or 512;
+//   past 512 the chunked instance below (lineage_wide_kernel) takes any head
+//   dim, as the JAX decoder's gate admits any multiple of 128.
 // - A lane whose scores are all -1e9 (an early step) gets the plain version's
 //   uniform weights; a warp whose lanes of a tile lie past the chunk keeps
 //   max -inf and adds nothing, never exp(-inf - -inf).
@@ -388,6 +388,142 @@ __global__ void lineage_combine_kernel(const float* __restrict__ part_o,
   }
 }
 
+// ------------------------------------------------------------------------ //
+// head dims past 512: the chunked instance
+// ------------------------------------------------------------------------ //
+// A block owns one beam slot (blockIdx.x: the slots of a (b, h) are
+// neighbours in launch order, so the caches they all read stay in L2), one
+// (b, h), one lane chunk and one column block of kWideCols columns of the
+// context (blockIdx.z = split * column blocks + column block). It walks its
+// chunk kWideLanes lanes at a time: each tile's scores are summed over the
+// whole head dim, warp w taking d = w, w + 4, ...
+// (K's rows at stride L, so a warp reads 32 consecutive lanes of a row), and
+// folded across the four warps through shared memory; warp 0 keeps the
+// online max and sum of the slot and hands the tile's weights to every thread
+// through shared memory; each thread adds them into its kWideCols / 128
+// context columns (V's rows contiguous, so a warp reads 32 consecutive
+// columns). The lane split's partials and their fold are the single-pass
+// kernel's (lineage_combine_kernel). Every column block recomputes the
+// scores, and every slot reads the caches again (through L2): a simple
+// kernel that is right first (PERF.md has its time against its bound).
+constexpr int kWideThreads = 128;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideLanes = 32;
+constexpr int kWideCols = 512;
+
+// shared floats of the chunked instance: q (rounded up to 4), each warp's
+// partial scores of a tile, the tile's weights, and the rescale, max and sum
+inline size_t wide_smem_bytes(int D) {
+  return sizeof(float) * (((D + 3) & ~3) + kWideWarps * kWideLanes + kWideLanes + 4);
+}
+
+__global__ void __launch_bounds__(kWideThreads, 4) lineage_wide_kernel(const Args a, int col_blocks) {
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                                   // [D] this slot's q, pre-scaled
+  float* part = sq + ((a.D + 3) & ~3);                // [warps][lanes] partial scores
+  float* sp = part + kWideWarps * kWideLanes;         // [lanes] the tile's weights
+  float* sstat = sp + kWideLanes;                     // rescale, max, sum
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = blockIdx.x, bh = blockIdx.y, b = bh / a.H;
+  const int split = blockIdx.z / col_blocks, cb = blockIdx.z % col_blocks;
+  const int begin = split * a.chunk, end = min(a.W, begin + a.chunk);
+  const float* kb = a.kc + static_cast<size_t>(bh) * a.D * a.L;
+  const float* vb = a.vc + static_cast<size_t>(bh) * a.L * a.D;
+  const float* brow = a.bias + (static_cast<size_t>(b) * a.K + slot) * a.W;
+  const size_t row = static_cast<size_t>(bh) * a.K + slot;
+  for (int d = threadIdx.x; d < a.D; d += kWideThreads) sq[d] = a.q[row * a.D + d] * a.scale;
+
+  constexpr int kCols = kWideCols / kWideThreads;  // context columns a thread
+  const int c_first = cb * kWideCols + threadIdx.x;
+  float o[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) o[j] = 0.f;
+  float m_run = -INFINITY, l_run = 0.f;  // warp 0's
+  __syncthreads();  // q is in place
+
+  for (int l0 = begin; l0 < end; l0 += kWideLanes) {
+    const int l = l0 + lane;
+    float acc = 0.f;
+    if (l < end) {
+      // unrolled so that the K rows' loads are in flight together
+#pragma unroll 8
+      for (int d = warp; d < a.D; d += kWideWarps)
+        acc = fmaf(sq[d], kb[static_cast<size_t>(d) * a.L + l], acc);
+    }
+    part[warp * kWideLanes + lane] = acc;
+    __syncthreads();  // the partial scores are in place
+    if (warp == 0) {
+      float sc = -INFINITY;
+      if (l < end) {
+        sc = brow[l];
+#pragma unroll
+        for (int w = 0; w < kWideWarps; ++w) sc += part[w * kWideLanes + lane];
+      }
+      // every lane of [begin, end) has a finite score (its bias is 0 or
+      // -1e9), so m_new is finite from the first tile on
+      const float m_new = fmaxf(m_run, nm::warp_max(sc));
+      const float p = expf(sc - m_new);
+      const float corr = expf(m_run - m_new);
+      l_run = l_run * corr + nm::warp_sum(p);
+      m_run = m_new;
+      sp[lane] = p;
+      if (lane == 0) sstat[0] = corr;
+    }
+    __syncthreads();  // the weights and the rescale are in place
+    const float corr = sstat[0];
+    const int n = min(kWideLanes, end - l0);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = c_first + j * kWideThreads;
+      float acc_c = o[j] * corr;
+      if (c < a.D) {
+#pragma unroll 8
+        for (int x = 0; x < n; ++x)
+          acc_c = fmaf(sp[x], vb[static_cast<size_t>(l0 + x) * a.D + c], acc_c);
+      }
+      o[j] = acc_c;
+    }
+    __syncthreads();  // the weights are read before the next tile writes them
+  }
+
+  if (threadIdx.x == 0) {
+    sstat[1] = m_run;
+    sstat[2] = l_run;
+  }
+  __syncthreads();
+  const float M = sstat[1], l = sstat[2];
+  const size_t rows = static_cast<size_t>(gridDim.y) * a.K;
+  const int splits = gridDim.z / col_blocks;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int c = c_first + j * kWideThreads;
+    if (c >= a.D) continue;
+    if (splits == 1)
+      a.out[row * a.D + c] = o[j] / fmaxf(l, 1e-20f);
+    else
+      a.part_o[(split * rows + row) * a.D + c] = o[j];
+  }
+  if (splits > 1 && cb == 0 && threadIdx.x == 0) {
+    a.part_ml[2 * (split * rows + row)] = M;
+    a.part_ml[2 * (split * rows + row) + 1] = l;
+  }
+}
+
+int launch_wide(const Args& a, int BH, int splits, int smem, cudaStream_t stream) {
+  if (static_cast<size_t>(smem) != wide_smem_bytes(a.D) || a.stages != 1 || a.chunk % kWideLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = nm::allow_max_smem(reinterpret_cast<const void*>(lineage_wide_kernel));
+  if (err != 0) return err;
+  const int col_blocks = (a.D + kWideCols - 1) / kWideCols;
+  lineage_wide_kernel<<<dim3(a.K, BH, splits * col_blocks), kWideThreads, smem, stream>>>(
+      a, col_blocks);
+  int status = nm::launch_status();
+  if (status != 0 || splits == 1) return status;
+  lineage_combine_kernel<<<BH * a.K, 64, 0, stream>>>(a.part_o, a.part_ml, a.out, BH * a.K, a.D,
+                                                      splits);
+  return nm::launch_status();
+}
+
 template <int DMAX, int NB, int T>
 int launch(const Args& a, int BH, int groups, int splits, int smem, cudaStream_t stream) {
   using S = Shape<DMAX, NB, T>;
@@ -422,7 +558,8 @@ int launch_slots(const Args& a, int BH, int tile, int slots, int groups, int spl
 }  // namespace
 
 // The launch follows ops/lineage_attention.lineage_plan: `dmax` the head dim
-// padded to 32, 64, 128, 256 or 512; `tile` lanes a stage (checked against
+// padded to 32, 64, 128, 256 or 512 (512, the column block, past 512: then
+// `slots` is 1, `groups` the beam, `tile` 32 and `stages` 1); `tile` lanes a stage (checked against
 // the instance's); `slots` rows a block (8, 16, 24 or 32) in `groups` groups;
 // `splits` lane chunks of `chunk` lanes (a multiple of the tile); `stages`
 // ring stages; `vec` the 16-byte copies; `smem` the block's shared bytes
@@ -433,14 +570,20 @@ NM_EXPORT int nm_lineage_attention(const void* q, const void* k_cache, const voi
                                    int B, int H, int K, int D, int L, int W, int dmax,
                                    int tile, int slots, int groups, int splits, int chunk,
                                    int stages, int vec, int smem, float scale, void* stream) {
-  if (B < 1 || H < 1 || K < 1 || D < 1 || D > dmax || W < 1 || W > L || groups * slots < K ||
-      splits < 1 || (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
+  if (B < 1 || H < 1 || K < 1 || D < 1 || W < 1 || W > L || groups * slots < K || splits < 1 ||
+      (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(q),     static_cast<const float*>(k_cache),
                static_cast<const float*>(v_cache), static_cast<const float*>(bias),
                static_cast<float*>(out),         static_cast<float*>(part_o),
                static_cast<float*>(part_ml),     H, K, D, L, W, chunk, stages, vec, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 512) {  // the chunked instance: a block a slot, 32-lane tiles
+    if (dmax != 512 || tile != kWideLanes || slots != 1 || groups != K)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wide(a, B * H, splits, smem, s);
+  }
+  if (D > dmax) return static_cast<int>(cudaErrorInvalidValue);
   switch (dmax) {
     case 32: return launch_slots<32>(a, B * H, tile, slots, groups, splits, smem, s);
     case 64: return launch_slots<64>(a, B * H, tile, slots, groups, splits, smem, s);

@@ -265,6 +265,13 @@ class Decoder(AutoregressiveDecoder):
         prelogits, _ = self.train_outputs(ctx)
         return self._logits(self._make_constants(ctx), prelogits)
 
+    @tensor
+    def train_attention_weights(self, ctx: Context):
+        """The teacher-forced pass's attention weight histories, one
+        (B, T, T_src) per attention."""
+        _, weights = self.train_outputs(ctx)
+        return weights
+
     def _finish_step(self, constants, state, prev_ids, beam=None):
         embedded_prev = F.embedding(prev_ids, constants["embed_table"])
         new_state, prelogit_in, weights = self._cell_step(
@@ -284,7 +291,9 @@ class Decoder(AutoregressiveDecoder):
     def decode_initial_state(self, ctx: Context, constants):
         return self.initial_state(ctx)
 
-    def decode_step(self, constants, loop_state, prev_ids, step):
+    def decode_step(self, constants: Dict[str, Any],
+                    loop_state: torch.Tensor, prev_ids: torch.Tensor,
+                    step: int):
         del step
         return self._finish_step(constants, loop_state, prev_ids)
 

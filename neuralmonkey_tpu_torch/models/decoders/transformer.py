@@ -38,30 +38,21 @@ from ...ops.attention import (NEG_INF, attention_bias_from_mask,
                               mha_init, multi_head_attention,
                               seeded_dropout, sinusoidal_position_encoding,
                               split_heads)
-from ...ops import kernel_config
-from ...ops.lineage_attention import (lane_window, layout_takes,
-                                      lineage_attention, lineage_bias)
+from ...ops.lineage_attention import (lane_window, lineage_attention,
+                                      lineage_bias)
 from ..encoders.transformer import refuse_unported, run_layer
 from .autoregressive import AutoregressiveDecoder
 
 
-def lineage_kernel_layout(beam: int, head_dim: int, cache_len: int) -> bool:
+def lineage_kernel_layout() -> bool:
     """Whether beam search keeps the caches in the lineage kernel's
-    layout: ``NM_LINEAGE_KERNEL=1`` (opt-in as in the JAX package) and a
-    shape that ``lineage_attention.layout_takes``; elsewhere the einsum
-    form runs, as the JAX decoder's does past its ``lineage_kernel_ok``."""
+    layout: ``NM_LINEAGE_KERNEL=1`` (opt-in as in the JAX package). The
+    kernel takes every shape, so no shape decides."""
     if os.environ.get("NM_LINEAGE_KERNEL_BF16") == "1":
         raise NotImplementedError(
             "NM_LINEAGE_KERNEL_BF16=1: bf16 lineage caches come with the "
             "bf16 policy, which is not ported to neuralmonkey_tpu_torch yet")
-    if os.environ.get("NM_LINEAGE_KERNEL") != "1":
-        return False
-    if not layout_takes(beam, head_dim, cache_len):
-        kernel_config.log_plain_path(
-            "lineage_attention",
-            f"head dim {head_dim}, {beam * cache_len} lanes")
-        return False
-    return True
+    return os.environ.get("NM_LINEAGE_KERNEL") == "1"
 
 
 class TransformerDecoder(AutoregressiveDecoder):
@@ -286,7 +277,7 @@ class TransformerDecoder(AutoregressiveDecoder):
         zeros = state[0]["k"].new_zeros
         heads = self.n_heads_self
         head_dim = self.model_dim // heads
-        if not lineage_kernel_layout(beam, head_dim, self.max_output_len):
+        if not lineage_kernel_layout():
             return tuple({name: zeros(batch * beam, self.max_output_len,
                                       self.model_dim)
                           for name in ("k", "v")}

@@ -8,7 +8,10 @@ are ``csrc/flash_attention.cu``; :class:`_FlashAttention` launches the
 forward on CUDA tensors and saves ``out`` and the per-row log-sum-exp;
 its backward launches the dq and dkv kernels with
 ``dcap = rowsum(dO * O)``. On the CPU the same Function runs the plain
-versions, which repeat the kernels' arithmetic on dense scores.
+versions, which repeat the kernels' arithmetic on dense scores. Every
+head dim runs the kernels, as every head dim runs the JAX ones: one pass
+up to ``MAX_HEAD_DIM``, the chunked instances past it (each counted under
+its own name, ``flash_attention_*_chunked``).
 
 Semantics, as in the TPU kernels: masked scores are -1e9 (not -inf),
 so a query row with no valid key gets uniform weights; the row sum is
@@ -40,7 +43,10 @@ from . import kernel_config
 
 NEG_INF = -1e9
 KEEP_BITS = 23
+# the widest single-pass instance; past it the chunked instances take any
+# head dim, a column block of CHUNK output columns a block
 MAX_HEAD_DIM = 256
+CHUNK = 256
 _U32 = 0xFFFFFFFF
 _MIX1, _MIX2, _GOLD = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9
 
@@ -178,27 +184,41 @@ THREADS, ROWS, TILE = 128, 32, 32
 
 
 def kernel_takes(head_dim: int) -> bool:
-    """Whether the kernels take this head dim (1 to 256, padded to 32,
-    64, 128 or 256). The JAX flash kernels pad any head dim; past 256 the
-    wrappers raise on CUDA tensors (ROADMAP queue C) and run the plain
-    versions on the CPU."""
-    return 0 < head_dim <= MAX_HEAD_DIM
+    """Whether the kernels take this head dim: every positive one, as
+    the JAX flash kernels pad any head dim (one pass up to 256, padded
+    to 32, 64, 128 or 256; the chunked instances past it)."""
+    return head_dim > 0
+
+
+def is_chunked(head_dim: int) -> bool:
+    """Whether this head dim runs the chunked instances: past
+    ``MAX_HEAD_DIM`` a block owns one ``CHUNK``-column slice of its
+    output and sums the scores over the head dim in chunks of CHUNK."""
+    return head_dim > MAX_HEAD_DIM
 
 
 def _width(name: str, head_dim: int) -> int:
-    """The head dimension rounded up to a width the kernels are built
-    for (float4 columns of 8 threads need at least 32)."""
+    """The head dimension rounded up to a width the single-pass kernels
+    are built for (float4 columns of 8 threads need at least 32), or the
+    chunked instances' chunk width."""
     if not kernel_takes(head_dim):
         raise ValueError(f"{name}: head dim {head_dim}")
-    return next(w for w in (32, 64, 128, 256) if head_dim <= w)
+    return next((w for w in (32, 64, 128, 256) if head_dim <= w), CHUNK)
+
+
+def _kernel_name(base: str, head_dim: int) -> str:
+    """The launch counter of the instance family a head dim runs."""
+    return f"{base}_chunked" if is_chunked(head_dim) else base
 
 
 class FlashForwardPlan(NamedTuple):
     """The launch of ``flash_attention_fwd``: a (``grid``) of blocks of
-    ``threads``, each owning ``rows`` queries of one (batch, head) and
-    walking the keys ``key_tile`` at a time through ``stages`` buffers;
-    the head dimension padded to ``width``; ``smem_bytes`` of shared
-    memory a block."""
+    ``threads`` for each of ``column_blocks`` column blocks, each owning
+    ``rows`` queries of one (batch, head) and walking the keys
+    ``key_tile`` at a time through ``stages`` buffers; the head dimension
+    padded to ``width`` (single pass) or summed in ``chunks`` chunks of
+    ``width`` columns, each column block writing ``width`` columns of the
+    output (chunked); ``smem_bytes`` of shared memory a block."""
     grid: Tuple[int, int]
     threads: int
     rows: int
@@ -206,6 +226,8 @@ class FlashForwardPlan(NamedTuple):
     stages: int
     width: int
     smem_bytes: int
+    column_blocks: int = 1
+    chunks: int = 1
 
 
 def flash_forward_plan(batch: int, heads: int, q_len: int, kv_len: int,
@@ -213,20 +235,28 @@ def flash_forward_plan(batch: int, heads: int, q_len: int, kv_len: int,
     """What ``nm_flash_fwd`` launches for these sizes (the same
     arithmetic as the C entry point)."""
     width = _width("flash_attention_fwd", head_dim)
+    grid = (batch * heads, -(-q_len // ROWS))
+    if is_chunked(head_dim):
+        # one stage: q and k chunks, the v slice, the key mask
+        blocks = -(-head_dim // CHUNK)
+        smem = 4 * (2 * ROWS * (CHUNK + 4) + TILE * CHUNK + TILE)
+        return FlashForwardPlan(grid, THREADS, ROWS, TILE, 1, CHUNK, smem,
+                                blocks, blocks)
     stages = 2 if kv_len > TILE else 1
     stage = TILE * (width + 4) + TILE * width + TILE
     smem = 4 * (ROWS * (width + 4) + stages * stage)
-    return FlashForwardPlan((batch * heads, -(-q_len // ROWS)), THREADS,
-                            ROWS, TILE, stages, width, smem)
+    return FlashForwardPlan(grid, THREADS, ROWS, TILE, stages, width, smem)
 
 
 class FlashBackwardLaunch(NamedTuple):
     """One backward kernel's launch: a (``grid``) of blocks of
-    ``threads``; block (bh, y) owns ``rows`` rows of its axis (queries
-    for dq, keys for dkv) from ``y * rows`` and walks the tiles
-    ``walks[y]`` = [first, end) of the other axis, ``tile`` rows at a
-    time through ``stages`` buffers; the head dimension padded to
-    ``width``; ``smem_bytes`` of shared memory a block."""
+    ``threads`` for each of ``column_blocks`` column blocks; block (bh,
+    y) owns ``rows`` rows of its axis (queries for dq, keys for dkv) from
+    ``y * rows`` and walks the tiles ``walks[y]`` = [first, end) of the
+    other axis, ``tile`` rows at a time through ``stages`` buffers; the
+    head dimension padded to ``width``, or summed in ``chunks`` chunks of
+    ``width`` columns with each column block writing ``width`` columns of
+    its gradients; ``smem_bytes`` of shared memory a block."""
     grid: Tuple[int, int]
     threads: int
     rows: int
@@ -235,6 +265,8 @@ class FlashBackwardLaunch(NamedTuple):
     stages: int
     width: int
     smem_bytes: int
+    column_blocks: int = 1
+    chunks: int = 1
 
 
 class FlashBackwardPlan(NamedTuple):
@@ -247,16 +279,24 @@ def flash_backward_plan(batch: int, heads: int, q_len: int, kv_len: int,
     """What ``nm_flash_bwd_dq`` and ``nm_flash_bwd_dkv`` launch for these
     sizes (the same arithmetic as the C entry points and kernels)."""
     width = _width("flash_attention_bwd", head_dim)
+    blocks = -(-head_dim // CHUNK) if is_chunked(head_dim) else 1
 
-    def launch(own: int, other: int, vectors: int, walks):
+    def launch(own: int, other: int, vectors: int, slices: int, walks):
         # a block holds its rows of two matrices (q and dO, or k and v)
         # and, a stage, a tile of the other two and ``vectors`` tile-long
-        # vectors (the key mask; lse and dcap)
+        # vectors (the key mask; lse and dcap); chunked, one stage and
+        # ``slices`` more tiles: its column slice of k (dq), or of q and
+        # dO (dkv)
+        grid = (batch * heads, -(-own // ROWS))
+        if blocks > 1:
+            smem = 4 * ((4 + slices) * ROWS * (width + 4) + vectors * TILE)
+            return FlashBackwardLaunch(grid, THREADS, ROWS, TILE,
+                                       tuple(walks), 1, width, smem,
+                                       blocks, blocks)
         stages = 2 if other > TILE else 1
         stage = 2 * TILE * (width + 4) + vectors * TILE
         smem = 4 * (2 * ROWS * (width + 4) + stages * stage)
-        return FlashBackwardLaunch((batch * heads, -(-own // ROWS)),
-                                   THREADS, ROWS, TILE, tuple(walks),
+        return FlashBackwardLaunch(grid, THREADS, ROWS, TILE, tuple(walks),
                                    stages, width, smem)
 
     key_tiles, query_tiles = -(-kv_len // TILE), -(-q_len // TILE)
@@ -267,8 +307,8 @@ def flash_backward_plan(batch: int, heads: int, q_len: int, kv_len: int,
                 for y in range(-(-q_len // ROWS))]
     dkv_walks = [((y * ROWS) // TILE if causal else 0, query_tiles)
                  for y in range(-(-kv_len // ROWS))]
-    return FlashBackwardPlan(launch(q_len, kv_len, 1, dq_walks),
-                             launch(kv_len, q_len, 2, dkv_walks))
+    return FlashBackwardPlan(launch(q_len, kv_len, 1, 1, dq_walks),
+                             launch(kv_len, q_len, 2, 2, dkv_walks))
 
 
 def _dropout_args(key_words: Optional[KeyWords], keep_prob: float):
@@ -289,8 +329,7 @@ def _check(name: str, q, k, v, mask, **more) -> Tuple[int, ...]:
                          f"v {tuple(v.shape)}, mask {tuple(mask.shape)}")
     if min(batch, heads, q_len, kv_len) == 0 or not kernel_takes(head_dim):
         raise ValueError(f"{name}: unsupported shape q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)} (head dim at most "
-                         f"{MAX_HEAD_DIM})")
+                         f"k {tuple(k.shape)}")
     kernel_config.check_cuda_inputs(name, q=q, k=k, v=v, mask=mask, **more)
     return batch, heads, q_len, kv_len, head_dim
 
@@ -310,8 +349,8 @@ def flash_forward(q, k, v, mask, causal: bool,
     out = torch.empty_like(q)
     lse = q.new_empty(batch, heads, q_len)
     kernel_config.launch(
-        "flash_attention_fwd", q, k, v, mask, out, lse, batch, heads,
-        q_len, kv_len, head_dim, int(causal), *drop[:4],
+        _kernel_name("flash_attention_fwd", head_dim), q, k, v, mask, out,
+        lse, batch, heads, q_len, kv_len, head_dim, int(causal), *drop[:4],
         1.0 / math.sqrt(head_dim), drop[4])
     return out, lse
 
@@ -342,8 +381,8 @@ def flash_backward_dq(q, k, v, mask, lse, g, dcap, causal: bool,
     sizes = _backward_sizes(q, k, v, mask, lse, g, dcap, causal,
                             key_words, keep_prob)
     dq = torch.empty_like(q)
-    kernel_config.launch("flash_attention_bwd_dq", q, k, v, mask, g, lse,
-                         dcap, dq, *sizes)
+    kernel_config.launch(_kernel_name("flash_attention_bwd_dq", sizes[4]),
+                         q, k, v, mask, g, lse, dcap, dq, *sizes)
     return dq
 
 
@@ -359,8 +398,8 @@ def flash_backward_dkv(q, k, v, mask, lse, g, dcap, causal: bool,
     sizes = _backward_sizes(q, k, v, mask, lse, g, dcap, causal,
                             key_words, keep_prob)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    kernel_config.launch("flash_attention_bwd_dkv", q, k, v, mask, g, lse,
-                         dcap, dk, dv, *sizes)
+    kernel_config.launch(_kernel_name("flash_attention_bwd_dkv", sizes[4]),
+                         q, k, v, mask, g, lse, dcap, dk, dv, *sizes)
     return dk, dv
 
 

@@ -18,11 +18,11 @@ CUDA error, the wrapper raises; nothing falls back quietly. Only a shape
 that the JAX package sends past its kernel to its plain path takes the
 plain path on the card: each family's gate is a function of shapes,
 decided before any launch (``cuda_rnn.scan_fits``, ``bptt_fits`` and
-``lstm_scan_fits``, ``lineage_attention.layout_takes``,
-``beam_select.topk_kernel_takes``), and :func:`log_plain_path` logs each
-(kernel, reason) once. Where the JAX package runs its kernel at a shape
-the port's kernel does not take (flash attention past head dim 256,
-lineage attention past 512), the card raises. The switches
+``lstm_scan_fits``, ``beam_select.topk_kernel_takes``), and
+:func:`log_plain_path` logs each (kernel, reason) once. Wherever the JAX
+package runs its kernel the port runs its own: the flash and lineage
+kernels take every head dim (past their single-pass widths in chunked
+instances, counted under their own names). The switches
 that remain choose between two paths of the model, each with its own
 kernels, as in the JAX package (``use_fused_logits``).
 
@@ -68,6 +68,12 @@ ENTRY_POINTS = {
     "flash_attention_bwd_dq": "nm_flash_bwd_dq",
     "flash_attention_bwd_dkv": "nm_flash_bwd_dkv",
     "lineage_attention": "nm_lineage_attention",
+    # the chunked instances past the single-pass head dims: the same entry
+    # points, counted apart
+    "flash_attention_fwd_chunked": "nm_flash_fwd",
+    "flash_attention_bwd_dq_chunked": "nm_flash_bwd_dq",
+    "flash_attention_bwd_dkv_chunked": "nm_flash_bwd_dkv",
+    "lineage_attention_chunked": "nm_lineage_attention",
     "lstm_scan": "nm_lstm_scan",
     "lstm_bptt": "nm_lstm_bptt",
     "rowmax_lse": "nm_rowmax_lse",

@@ -20,11 +20,12 @@ so a window of ``win`` positions is the contiguous prefix of
 caches laid out by :func:`lineage_plan`. The TPU kernel's padding of
 the beam to 8 rows, its 128-lane window rounding and its VMEM lane
 budget are TPU layout rules: here the kernel takes the K rows, exactly
-the window's lanes, any number of them, and head dims up to 512
-(:func:`kernel_takes`). The decoder keeps its caches in the kernel's
-layout wherever the kernel or the JAX decoder's gate takes the shape
-(:func:`layout_takes`), so past 512 the card raises where the JAX
-package runs its kernel, and the einsum form runs where it does not.
+the window's lanes, any number of them, and any head dim
+(:func:`kernel_takes`): up to 512 in one pass, past it a chunked
+instance (a block a slot and 512 context columns, the scores summed
+over the whole head dim; counted as ``lineage_attention_chunked``). So
+the decoder keeps its caches in the kernel's layout wherever it is
+asked to (``NM_LINEAGE_KERNEL=1``).
 """
 
 from __future__ import annotations
@@ -37,11 +38,14 @@ import torch
 from . import kernel_config
 
 NEG_INF = -1e9
-# csrc/lineage_attention.cu: head dims up to 512 (padded to 32, 64, 128,
-# 256 or 512); slot rows in tiles of 8, up to 4 tiles a block; stages of 32
-# lanes (16 past a padded 256), each 16-lane tile of a stage a warp's, for
-# each slot tile
+# csrc/lineage_attention.cu: head dims up to 512 in one pass (padded to 32,
+# 64, 128, 256 or 512); slot rows in tiles of 8, up to 4 tiles a block;
+# stages of 32 lanes (16 past a padded 256), each 16-lane tile of a stage a
+# warp's, for each slot tile. Past 512 the chunked instance: a block of
+# WIDE_THREADS threads a slot, WIDE_LANES lanes a tile, WIDE_COLUMNS
+# context columns a column block
 MAX_HEAD_DIM = 512
+WIDE_THREADS, WIDE_LANES, WIDE_COLUMNS = 128, 32, 512
 HEAD_DIM_PADS = (32, 64, 128, 256, 512)
 SLOT_TILE = 8
 MAX_SLOT_TILES = 4
@@ -51,24 +55,24 @@ SM_SHARED_BYTES = 233472
 BLOCK_RESERVED_BYTES = 1024
 SM_THREADS = 2048
 SM_REGISTERS = 65536
-# the JAX decoder's gate (its ``lineage_kernel_ok``): at most this many
-# lanes, and a head dim that is a multiple or a divisor of 128
-_JAX_MAX_LANES = 2048
 
 
 def kernel_takes(head_dim: int) -> bool:
-    """Whether the kernel takes this head dim (1 to 512)."""
-    return 0 < head_dim <= MAX_HEAD_DIM
+    """Whether the kernel takes this head dim: every positive one."""
+    return head_dim > 0
 
 
-def layout_takes(beam: int, head_dim: int, cache_len: int) -> bool:
-    """The shape gate of the decoder's kernel layout: every head dim the
-    kernel takes, and past them the shapes the JAX decoder's gate admits
-    (there the JAX package runs its kernel and the card raises, having
-    none; elsewhere both keep the einsum form)."""
-    return kernel_takes(head_dim) or (
-        beam * cache_len <= _JAX_MAX_LANES
-        and (head_dim % 128 == 0 or 128 % head_dim == 0))
+def is_chunked(head_dim: int) -> bool:
+    """Whether this head dim runs the chunked instance."""
+    return head_dim > MAX_HEAD_DIM
+
+
+def wide_smem_bytes(head_dim: int) -> int:
+    """The chunked instance's shared bytes: q (rounded up to 4 floats),
+    each warp's partial scores of a tile, the tile's weights, and the
+    rescale, max and sum."""
+    return 4 * (-(-head_dim // 4) * 4 + WIDE_THREADS // 32 * WIDE_LANES
+                + WIDE_LANES + 4)
 
 
 def lane_tile(dmax: int) -> int:
@@ -92,7 +96,10 @@ class LineagePlan(NamedTuple):
     ``chunk`` lanes (a multiple of the tile), each block streaming its
     chunk through a ring of ``stages`` stages, with 16-byte copies when
     ``vec`` (4-byte otherwise); ``smem_bytes`` of shared memory a block;
-    ``blocks_per_sm`` resident by shared memory, threads and registers."""
+    ``blocks_per_sm`` resident by shared memory, threads and registers.
+    Past ``MAX_HEAD_DIM`` (the chunked instance) a block owns one slot
+    (``slots`` 1, ``groups`` the beam) and one of ``column_blocks``
+    blocks of ``dmax`` context columns, in one stage."""
     dmax: int
     slots: int
     groups: int
@@ -104,6 +111,7 @@ class LineagePlan(NamedTuple):
     vec: bool
     smem_bytes: int
     blocks_per_sm: int
+    column_blocks: int = 1
 
 
 def lineage_smem_bytes(dmax: int, slots: int, tile: int, stages: int) -> int:
@@ -114,6 +122,35 @@ def lineage_smem_bytes(dmax: int, slots: int, tile: int, stages: int) -> int:
     stage = dmax * (tile + 8) + tile * (dmax + 8) + slots * tile
     warps = tile // 16 * slots // SLOT_TILE
     return 4 * (stages * stage + slots * (dmax + 4) + warps * 128)
+
+
+def _lane_split(lanes: int, tile: int, blocks: int, sm_count: int):
+    """(splits, chunk): when ``blocks`` do not fill the card twice,
+    chunks of whole tiles, enough that they do where the lanes allow
+    (never an empty chunk)."""
+    tiles = -(-lanes // tile)
+    chunk_tiles = tiles
+    if blocks < 2 * sm_count:
+        chunk_tiles = max(1, tiles // -(-2 * sm_count // blocks))
+    return -(-tiles // chunk_tiles), chunk_tiles * tile
+
+
+def _wide_plan(batch: int, heads: int, beam: int, head_dim: int,
+               lanes: int, sm_count: int, smem_limit: int) -> LineagePlan:
+    """The chunked instance's launch past ``MAX_HEAD_DIM``."""
+    smem = wide_smem_bytes(head_dim)
+    if smem > smem_limit:
+        raise ValueError(f"lineage_attention: Dh {head_dim} does not fit "
+                         f"{smem_limit} bytes of shared memory")
+    column_blocks = -(-head_dim // WIDE_COLUMNS)
+    splits, chunk = _lane_split(
+        lanes, WIDE_LANES, batch * heads * beam * column_blocks, sm_count)
+    resident = min(SM_THREADS // WIDE_THREADS,
+                   SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES),
+                   SM_REGISTERS // (128 * WIDE_THREADS))
+    return LineagePlan(WIDE_COLUMNS, 1, beam, WIDE_LANES, WIDE_THREADS,
+                       splits, chunk, 1, False, smem, resident,
+                       column_blocks)
 
 
 def lineage_plan(batch: int, heads: int, beam: int, head_dim: int,
@@ -133,8 +170,10 @@ def lineage_plan(batch: int, heads: int, beam: int, head_dim: int,
             and 0 < lanes <= total):
         raise ValueError(
             f"lineage_attention: no plan for B {batch}, H {heads}, K {beam}"
-            f", Dh {head_dim}, {lanes} of {total} lanes (head dim at most "
-            f"{MAX_HEAD_DIM})")
+            f", Dh {head_dim}, {lanes} of {total} lanes")
+    if is_chunked(head_dim):
+        return _wide_plan(batch, heads, beam, head_dim, lanes, sm_count,
+                          smem_limit)
     dmax = next(pad for pad in HEAD_DIM_PADS if head_dim <= pad)
     tile = lane_tile(dmax)
     best = None
@@ -162,15 +201,11 @@ def lineage_plan(batch: int, heads: int, beam: int, head_dim: int,
                          f"{smem_limit} bytes of shared memory")
     _, slots, threads, stages, smem, resident = best
     groups = -(-beam // slots)
-    tiles = -(-lanes // tile)
-    blocks = batch * heads * groups
-    chunk_tiles = tiles
-    if blocks < 2 * sm_count:
-        chunk_tiles = max(1, tiles // -(-2 * sm_count // blocks))
-    splits = -(-tiles // chunk_tiles)
+    splits, chunk = _lane_split(lanes, tile, batch * heads * groups,
+                                sm_count)
     vec = aligned and total % 4 == 0 and head_dim % 4 == 0
-    return LineagePlan(dmax, slots, groups, tile, threads, splits,
-                       chunk_tiles * tile, stages, vec, smem, resident)
+    return LineagePlan(dmax, slots, groups, tile, threads, splits, chunk,
+                       stages, vec, smem, resident)
 
 
 def lane_window(win: int, beam: int, total: int) -> int:
@@ -222,8 +257,7 @@ def lineage_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or not kernel_takes(head_dim)):
         raise ValueError(
             f"lineage_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)}"
-            f", v {tuple(v_cache.shape)}, bias {tuple(bias.shape)} (head "
-            f"dim at most {MAX_HEAD_DIM})")
+            f", v {tuple(v_cache.shape)}, bias {tuple(bias.shape)}")
     kernel_config.check_cuda_inputs("lineage_attention", q=q, k=k_cache,
                                     v=v_cache, bias=bias)
     plan = lineage_plan(
@@ -237,7 +271,9 @@ def lineage_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if plan.splits > 1:
         part_o = q.new_empty(plan.splits, batch * heads * beam, head_dim)
         part_ml = q.new_empty(plan.splits, batch * heads * beam, 2)
-    kernel_config.launch("lineage_attention", q, k_cache, v_cache, bias, out,
+    name = ("lineage_attention_chunked" if is_chunked(head_dim)
+            else "lineage_attention")
+    kernel_config.launch(name, q, k_cache, v_cache, bias, out,
                          part_o, part_ml, batch, heads, beam, head_dim, total,
                          lanes, plan.dmax, plan.tile, plan.slots, plan.groups,
                          plan.splits, plan.chunk, plan.stages, int(plan.vec),

@@ -29,6 +29,8 @@ from .utils.saving import (flatten_tree, load_flat, load_meta,
 def _to_device(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, device) for v in tree]
     return tree.to(device)
 
 

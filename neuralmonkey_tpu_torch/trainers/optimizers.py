@@ -18,7 +18,7 @@ Adadelta, RMSProp and Adafactor are not ported yet and raise.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -185,7 +185,7 @@ class AdafactorOptimizer(_NotPorted):
     pass
 
 
-def resolve_optimizer(optimizer) -> Transform:
+def resolve_optimizer(optimizer: Optional[Any]) -> Transform:
     """An Optimizer factory's transform; ``None`` is Adam at 1e-4, the
     JAX package's default."""
     if optimizer is None:

@@ -90,6 +90,8 @@ def params_from_jax(flat: Dict[str, np.ndarray],
         if isinstance(node, dict):
             return {k: rebuild(v, _join(prefix, k))
                     for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [rebuild(v, _join(prefix, i)) for i, v in enumerate(node)]
         return torch.from_numpy(np.array(flat[prefix], dtype=np.float32))
 
     return rebuild(template, "")

@@ -1298,14 +1298,16 @@ def test_lineage_kernel(cuda_device, batch, heads, beam, time, dim):
     (3, 2, 7, 9, 40), (2, 4, 17, 20, 64), (4, 2, 10, 48, 128),
     (1, 8, 10, 48, 256), (16, 8, 10, 48, 256), (8, 1, 7, 48, 40),
     (2, 2, 10, 48, 384), (1, 8, 10, 48, 512), (8, 1, 7, 9, 512),
-    (4, 2, 17, 12, 512)])
+    (4, 2, 17, 12, 512), (2, 2, 10, 48, 640), (1, 2, 10, 48, 1024),
+    (3, 1, 7, 9, 513), (16, 2, 4, 12, 1000)])
 def test_lineage_kernel_streams_every_shape(cuda_device, batch, heads, beam,
                                             time, dim):
     """The pipelined kernel against its plain version within 1e-5: B·H 8
     (lane split) and 512, K 1, 7, 10 and 17, Dh 40 to 256, caches of 63
-    lanes (4-byte copies), Dh 384 and 512 (16-lane stages); windows of
-    one lane and of 12, 24 and 48 positions, and a step whose rows are
-    all -1e9 (uniform weights)."""
+    lanes (4-byte copies), Dh 384 and 512 (16-lane stages), and the
+    chunked instance past 512 (Dh 513, 640, 1000 and 1024, with and
+    without the lane split); windows of one lane and of 12, 24 and 48
+    positions, and a step whose rows are all -1e9 (uniform weights)."""
     from neuralmonkey_tpu_torch.ops import lineage_attention as la
     gen = torch.Generator().manual_seed(0)
     total = beam * time
@@ -1320,25 +1322,35 @@ def test_lineage_kernel_streams_every_shape(cuda_device, batch, heads, beam,
                               la.lane_window(win, beam, total), time)
               for step, win in cases]
     biases.append(biases[0][..., :1].contiguous())  # one lane
+    name = "lineage_attention" + ("_chunked" if dim > 512 else "")
     for bias in biases:
         kernel_config.reset_launch_counts()
         got = la.lineage_attention(q, kq, vq, bias)
         torch.cuda.synchronize()
-        assert kernel_config.launch_counts()["lineage_attention"] == 1
+        assert kernel_config.launch_counts()[name] == 1
         ref = la.lineage_attention_reference(q, kq, vq, bias)
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5,
                                    msg=f"{bias.shape[-1]} lanes")
 
 
-def test_lineage_kernel_past_512_raises_on_the_card(cuda_device):
-    """Past the kernel's head dims the card raises; no plain path runs."""
+def test_lineage_kernel_past_512_runs_the_chunked_kernel(cuda_device):
+    """Past the single-pass head dims the chunked instance runs (as the
+    JAX package runs its kernel at any multiple of 128): a head dim of
+    640 on 8 lanes against the plain version."""
     from neuralmonkey_tpu_torch.ops import lineage_attention as la
     q = _randn(cuda_device, 1, 1, 2, 640)
     kq = _randn(cuda_device, 1, 1, 640, 8, seed=1)
     vq = _randn(cuda_device, 1, 1, 8, 640, seed=2)
     bias = torch.zeros(1, 2, 8, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim at most 512"):
-        la.lineage_attention(q, kq, vq, bias)
+    kernel_config.reset_launch_counts()
+    got = la.lineage_attention(q, kq, vq, bias)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert (counts["lineage_attention_chunked"],
+            counts["lineage_attention"]) == (1, 0)
+    torch.testing.assert_close(
+        got, la.lineage_attention_reference(q, kq, vq, bias), atol=1e-5,
+        rtol=1e-5)
 
 
 def _gru_train_step(device, hidden, inputs, mask, g_out, g_final):
@@ -1437,13 +1449,101 @@ def test_flash_attention_at_wide_head_dims_launches_the_kernels(cuda_device,
         assert err <= 1e-4 * max(1.0, float(r.abs().max())), (i, err)
 
 
-def test_flash_attention_past_256_raises_on_the_card(cuda_device):
-    """Past the kernels' head dims the card raises; no plain path runs."""
+@pytest.mark.parametrize("model_dim", [640, 1024])
+def test_flash_attention_past_256_through_multi_head_attention(cuda_device,
+                                                               model_dim):
+    """At head dims 320 and 512 (two heads) multi-head attention runs the
+    chunked flash instances, forward and backward, and matches the CPU's
+    within 1e-4 of each tensor's largest entry (of 1 where that is
+    smaller); the key bias, whose exact gradient is 0 (it shifts every
+    score of a row alike, so its entries are rounding noise), within
+    1e-4 of its key weight's, as the smoke's phase 12 holds it."""
+    from neuralmonkey_tpu_torch.ops import attention
+    gen = torch.Generator().manual_seed(0)
+    params = attention.mha_init(gen, model_dim, model_dim, model_dim)
+    x = torch.randn(3, 9, model_dim, generator=gen)
+    mask = torch.ones(3, 9)
+    mask[1, 5:] = 0
+
+    def run(device):
+        p = {k: {n: t.detach().to(device).requires_grad_()
+                 for n, t in v.items()} for k, v in params.items()}
+        xs = x.detach().to(device).requires_grad_()
+        out = attention.multi_head_attention(
+            p, xs, xs, xs, 2, key_mask=mask.to(device), causal=True)
+        out.square().sum().backward()
+        return {"out": out.detach().cpu(), "x": xs.grad.cpu(),
+                **{f"{k}/{n}": t.grad.cpu() for k, v in p.items()
+                   for n, t in v.items()}}
+    kernel_config.reset_launch_counts()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert [kernel_config.launch_counts()[f"flash_attention_{name}_chunked"]
+            for name in ("fwd", "bwd_dq", "bwd_dkv")] == [1, 1, 1]
+    ref = run(torch.device("cpu"))
+    for key, g in got.items():
+        scale_key = "k/w" if key == "k/b" else key
+        err = float((g - ref[key]).abs().max())
+        assert err <= 1e-4 * max(1.0, float(ref[scale_key].abs().max())), (
+            key, err)
+
+
+def test_flash_attention_past_256_runs_the_chunked_kernels(cuda_device):
+    """Past the single-pass head dims the chunked instances run, as the
+    JAX flash kernels pad any head dim; no plain path runs."""
     from neuralmonkey_tpu_torch.ops import flash_attention as fa
     q = _randn(cuda_device, 1, 1, 8, 320)
     mask = torch.ones(1, 8, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim at most 256"):
-        fa.flash_forward(q, q, q, mask, False)
+    kernel_config.reset_launch_counts()
+    out, lse = fa.flash_forward(q, q, q, mask, False)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert (counts["flash_attention_fwd_chunked"],
+            counts["flash_attention_fwd"]) == (1, 0)
+    ref_out, ref_lse = fa.flash_forward_reference(q, q, q, mask, False)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("batch,heads,tq,tk,dim,causal,lengths", [
+    (2, 2, 40, 40, 320, True, [40, 40]),
+    (2, 2, 33, 70, 512, False, [70, 9]),
+    (1, 3, 9, 130, 300, False, [100]),
+    (2, 1, 37, 37, 322, True, [37, 20]),
+    (1, 2, 48, 48, 1024, True, [48]),
+])
+@pytest.mark.parametrize("keep", [1.0, 0.9])
+def test_flash_chunked_kernels(cuda_device, batch, heads, tq, tk, dim,
+                               causal, lengths, keep):
+    """The chunked instances past head dim 256 (column blocks of 256, the
+    scores summed over 256-column chunks; 300 leaves a partial chunk,
+    322 takes the loaders' 4-byte path) against the plain versions, with
+    and without the hash dropout, to the single-pass tests' tolerances."""
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+    q = _randn(cuda_device, batch, heads, tq, dim, seed=1)
+    k = _randn(cuda_device, batch, heads, tk, dim, seed=2)
+    v = _randn(cuda_device, batch, heads, tk, dim, seed=3)
+    g = _randn(cuda_device, batch, heads, tq, dim, seed=4)
+    mask = _mask(cuda_device, lengths, tk)
+    key = (123456789, -987654321) if keep < 1.0 else None
+    kernel_config.reset_launch_counts()
+    out, lse = fa.flash_forward(q, k, v, mask, causal, key, keep)
+    grads = fa.flash_backward(q, k, v, mask, out, lse, g, causal, key, keep)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert [counts[f"flash_attention_{n}_chunked"]
+            for n in ("fwd", "bwd_dq", "bwd_dkv")] == [1, 1, 1]
+    assert [counts[f"flash_attention_{n}"]
+            for n in ("fwd", "bwd_dq", "bwd_dkv")] == [0, 0, 0]
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, mask, causal, key,
+                                                  keep)
+    torch.testing.assert_close(out, ref_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    ref = fa.flash_backward_reference(q, k, v, mask, ref_out, ref_lse, g,
+                                      causal, key, keep)
+    for name, got, want in zip("qkv", grads, ref):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4,
+                                   msg=f"d{name}")
 
 
 def _transformer_pass(device):

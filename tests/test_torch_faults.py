@@ -13,10 +13,12 @@
   mesh options build at their defaults and raise for any other value.
 - Shapes past a kernel's limit take the plain path, as the JAX package
   takes its plain path past its gates: each gate is a function of
-  shapes (K1, ``gru_bptt``, the LSTM kernels, flash attention's head
-  dim, the lineage kernel's head dim, K4's k), the shape just inside a
-  limit keeps the kernel, the plain path gives the kernel path's
-  numbers, and each (kernel, reason) is logged once.
+  shapes (K1, ``gru_bptt``, the LSTM kernels, K4's k), the shape just
+  inside a limit keeps the kernel, the plain path gives the kernel
+  path's numbers, and each (kernel, reason) is logged once. Flash
+  attention and the lineage kernel take every positive head dim (their
+  chunked instances past the single-pass widths), so the lineage
+  layout follows ``NM_LINEAGE_KERNEL`` alone.
 """
 
 import inspect
@@ -273,8 +275,8 @@ def test_mesh_option_off_its_default_raises(option):
     (cuda_rnn.scan_fits, 19368, 19369),
     (cuda_rnn.bptt_fits, 7264, 7265),
     (cuda_rnn.lstm_scan_fits, 8300, 8301),
-    (flash_attention.kernel_takes, 256, 257),
-    (lineage_attention.kernel_takes, 512, 513),
+    (flash_attention.kernel_takes, 4096, 0),
+    (lineage_attention.kernel_takes, 4096, 0),
     (beam_select.topk_kernel_takes, 64, 65),
 ], ids=["gru_scan", "gru_bptt", "lstm", "flash", "lineage", "small_topk"])
 def test_gates_keep_the_kernel_to_its_limit(gate, inside, past):
@@ -287,18 +289,21 @@ def test_gru_serving_keeps_k1_past_the_bptt_limit():
     assert cuda_rnn.scan_fits(512) and cuda_rnn.bptt_fits(512)
 
 
-def test_lineage_layout_follows_the_kernels_head_dims(monkeypatch):
-    """The kernel's head dims at any number of lanes; past them the JAX
-    decoder's gate (a multiple or divisor of 128, at most 2048 lanes):
-    its kernel there, where the card raises, the einsum form elsewhere."""
-    assert not lineage_kernel_layout(10, 192, 48)
+@pytest.mark.parametrize("head_dim", [192, 512, 384, 640, 520])
+def test_lineage_layout_follows_the_kernels_head_dims(monkeypatch,
+                                                      head_dim):
+    """The kernel takes every head dim (one pass to 512, the chunked
+    instance past it), so the kernel layout follows the switch alone:
+    ``NM_LINEAGE_KERNEL=1`` at any head dim and cache length, the einsum
+    form without it."""
+    assert lineage_attention.kernel_takes(head_dim)
+    assert not lineage_kernel_layout()
     monkeypatch.setenv("NM_LINEAGE_KERNEL", "1")
-    assert lineage_kernel_layout(10, 192, 48)
-    assert lineage_kernel_layout(10, 512, 48)
-    assert lineage_kernel_layout(10, 384, 1000)
-    assert lineage_kernel_layout(10, 640, 48)
-    assert not lineage_kernel_layout(10, 520, 48)
-    assert not lineage_kernel_layout(10, 640, 300)
+    assert lineage_kernel_layout()
+    plan = lineage_attention.lineage_plan(2, 2, 10, head_dim, 480, 480,
+                                          132, 232448)
+    assert plan.column_blocks == (-(-head_dim // 512) if head_dim > 512
+                                  else 1)
 
 
 def _rnn_step(cell, hidden):

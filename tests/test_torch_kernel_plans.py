@@ -549,9 +549,21 @@ def test_flash_forward_plan_leaves_room_for_more_blocks(kv_len,
     assert (228 * 1024) // (plan.smem_bytes + 1024) == blocks_per_sm
 
 
-def test_flash_forward_plan_rejects_wide_heads():
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_forward_plan(1, 1, 8, 8, 257)
+@pytest.mark.parametrize("dim", [0, 320, 512, 1024])
+def test_flash_forward_plan_rejects_wide_heads(dim):
+    """Head dim 0 has no plan; past 256 the chunked launch: a column
+    block of 256 output columns for each 256 of the head dim, one stage
+    of the q and k chunks, the v slice and the key mask, within 227 KB."""
+    if dim == 0:
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_forward_plan(1, 1, 8, 8, dim)
+        return
+    plan = fa.flash_forward_plan(2, 3, 40, 70, dim)
+    assert plan.grid == (6, 2) and plan.width == fa.CHUNK == 256
+    assert plan.column_blocks == plan.chunks == -(-dim // 256)
+    assert plan.stages == 1
+    assert plan.smem_bytes == 4 * (2 * 32 * 260 + 32 * 256 + 32)
+    assert plan.smem_bytes <= H100_SMEM
 
 
 # the backward at every forward shape, causal where the query and key
@@ -645,10 +657,27 @@ def test_flash_backward_plan_at_the_encoder_shape():
         assert (228 * 1024) // (launch.smem_bytes + 1024) == 6
 
 
-@pytest.mark.parametrize("dim", [0, 257])
+@pytest.mark.parametrize("dim", [0, 257, 320, 512, 1024])
 def test_flash_backward_plan_rejects_wide_heads(dim):
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_backward_plan(1, 1, 8, 8, dim, False)
+    """Head dim 0 has no plan; past 256 the chunked launches: dq holds q,
+    dO, k and v chunks and its k slice, dkv its k and v chunks, q and dO
+    chunks and their slices, one stage each, within 227 KB, walking the
+    tiles the single pass walks, in a column block for each 256 of the
+    head dim."""
+    if dim == 0:
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_backward_plan(1, 1, 8, 8, dim, False)
+        return
+    plan = fa.flash_backward_plan(2, 2, 48, 48, dim, True)
+    narrow = fa.flash_backward_plan(2, 2, 48, 48, 64, True)
+    row = 256 + 4
+    for launch, wide, vectors in ((plan.dq, 5, 1), (plan.dkv, 6, 2)):
+        assert launch.column_blocks == launch.chunks == -(-dim // 256)
+        assert launch.width == 256 and launch.stages == 1
+        assert launch.smem_bytes == 4 * (wide * 32 * row + vectors * 32)
+        assert launch.smem_bytes <= H100_SMEM
+    assert (plan.dq.walks, plan.dkv.walks) == (narrow.dq.walks,
+                                               narrow.dkv.walks)
 
 
 # (batch, time, att, dim): the bench shape, the card tests' shapes (ragged
@@ -904,11 +933,33 @@ def test_lineage_plan_takes_4_byte_copies_off_16_bytes(dim, total, aligned,
     assert _lineage_plan(3, 2, 7, dim, total, total, aligned).vec == vec
 
 
-@pytest.mark.parametrize("dim,lanes", [(513, 10), (0, 10), (64, 0),
+@pytest.mark.parametrize("dim,lanes", [(1024, 0), (0, 10), (64, 0),
                                        (64, 481)])
 def test_lineage_plan_refuses_what_the_kernel_does_not_take(dim, lanes):
     with pytest.raises(ValueError, match="lineage_attention"):
         _lineage_plan(2, 2, 4, dim, 480, lanes)
+
+
+@pytest.mark.parametrize("batch,heads,beam,dim,lanes", [
+    (2, 2, 10, 640, 480), (64, 8, 10, 1024, 480), (1, 1, 1, 513, 1),
+    (3, 1, 7, 1000, 63), (1, 8, 10, 4096, 480)])
+def test_lineage_plan_chunks_wide_heads(batch, heads, beam, dim, lanes):
+    """Past head dim 512 the chunked instance: a block a slot (groups of
+    one), a column block for each 512 context columns, 32-lane tiles,
+    one stage, q and the tile's scores and weights in shared memory; the
+    lanes split as the single pass splits them (chunks of whole tiles
+    that cover every lane once, never empty)."""
+    plan = _lineage_plan(batch, heads, beam, dim, lanes, lanes)
+    assert (plan.slots, plan.groups, plan.tile, plan.stages) == (1, beam,
+                                                                 32, 1)
+    assert plan.dmax == 512 and plan.column_blocks == -(-dim // 512)
+    assert plan.smem_bytes == la.wide_smem_bytes(dim) <= H100_SMEM
+    chunks = [range(s * plan.chunk, min(lanes, (s + 1) * plan.chunk))
+              for s in range(plan.splits)]
+    assert all(len(c) for c in chunks) and plan.chunk % plan.tile == 0
+    assert [lane for c in chunks for lane in c] == list(range(lanes))
+    blocks = batch * heads * beam * plan.column_blocks
+    assert plan.splits == 1 or blocks < 2 * H100_SMS
 
 
 # ---------------------------------------------------------------------- #
