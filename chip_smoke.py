@@ -136,7 +136,27 @@ Phases (any failure raises and the script exits non-zero):
    language_model.ini, post_edit.ini, regressor.ini, alignment.ini and
    str.ini of tests/configs train on the card to the gates of
    tests/test_capability_inis.py, each with a falling loss and its
-   kernels launched.
+   kernels launched;
+19. multimodal: examples/multimodal_mt.ini's model (vocabulary 20000, a
+   BiGRU 512 over the text, a 14 x 14 x 512 map projected to 512, a
+   Bahdanau attention of 512 over each, a hierarchical attention of 512
+   over both, a GRU decoder of 512, 50 output steps) decodes 128
+   synthetic sentences with their maps greedily and with beam 10 through
+   ``run`` (K1-K4 must launch), and examples/captioning.ini's model (the
+   map as it is, attention 512, decoder 512, vocabulary 15000, 24 steps)
+   greedily (K2 must launch); 8 sentences of each against the CPU by
+   phase 5's rule; the MMT model trains 4 steps through ``train`` (K1,
+   the BPTT and K2, and K3 and K4 in its validation, must launch) and
+   one step against the CPU by phase 12's float64 rule; K2 at the image
+   shapes (T 196, A 512, D 512; B 64, and B 640 for the hierarchical
+   children tiled under beam 10) against its plain version, timed beside
+   it and its bound (``image_shapes`` in K2's entry of the kernels line);
+20. self-critical: phase 6's model trains 4 steps through ``train`` with
+   ``ReinforceTrainer`` (self-critical, GLEU rewards on the host,
+   cross-entropy at 0.5, clip 1.0, Adam; K1, the BPTT, K2, K3 and K4 must
+   launch; finite losses), then one step on 8 sentences against the
+   CPU, which replays the card's sampled and greedy ids, by phase 12's
+   float64 rule.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -273,8 +293,11 @@ def import_everything() -> None:
     from neuralmonkey_tpu_torch.models.decoders import (  # noqa: F401
         beam_search_decoder, sequence_labeler, sequence_regressor,
         transformer, word_alignment_decoder)
+    from neuralmonkey_tpu_torch.models.attention import \
+        combination  # noqa: F401
     from neuralmonkey_tpu_torch.models.encoders import \
         numpy_stateful_filler  # noqa: F401
+    from neuralmonkey_tpu_torch.readers import numpy_reader  # noqa: F401
     from neuralmonkey_tpu_torch.runners import (  # noqa: F401
         label_runner, perplexity_runner, regression_runner,
         word_alignment_runner)
@@ -283,8 +306,8 @@ def import_everything() -> None:
     from neuralmonkey_tpu_torch.ops import (  # noqa: F401
         beam_select, cuda_attention, cuda_rnn, flash_attention, fused_xent,
         kernel_config, lineage_attention, nn)
-    from neuralmonkey_tpu_torch.trainers import \
-        delayed_update_trainer  # noqa: F401
+    from neuralmonkey_tpu_torch.trainers import (  # noqa: F401
+        delayed_update_trainer, rl_trainer)
     from neuralmonkey_tpu_torch.utils import saving  # noqa: F401
 
 
@@ -1758,7 +1781,8 @@ def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix=""):
 def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
                  dataset=None):
     """Phase 5's rule on the first N_PARITY sentences of ``data_ini``, or
-    on ``dataset``."""
+    on ``dataset``; the beam part where the model has a second (beam
+    search) runner."""
     import torch
 
     from neuralmonkey_tpu_torch import run
@@ -1816,29 +1840,34 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
             return out
         search._select_hier = select
 
+    has_beam = len(gpu_exp.model.runners) > 1
+
     def decode(exp):
         # three padding rows (all-zero masks) ride along, as in the last
         # batch of a dataset
         batch, _ = exp.tf_manager.build_batch(dataset, n + 3)
-        greedy_runner, beam_runner = exp.model.runners
         with torch.inference_mode():
             ctx = Context(exp.tf_manager.params, batch)
-            greedy = greedy_runner.fetches(ctx)["decoded"]
-            beam = beam_runner.fetches(ctx)["token_ids"][:, 0]
-        return greedy[:n].cpu(), beam[:n].cpu()
+            greedy = exp.model.runners[0].fetches(ctx)["decoded"][:n].cpu()
+            if not has_beam:
+                return greedy, None
+            beam = exp.model.runners[1].fetches(ctx)["token_ids"][:, 0]
+        return greedy, beam[:n].cpu()
 
     decoder.decode_step = recording_step
     beam_search_decoder.small_topk = recording_topk
-    record_picks(cpu_exp, picks["cpu"])
-    record_picks(gpu_exp, picks["gpu"])
+    if has_beam:
+        record_picks(cpu_exp, picks["cpu"])
+        record_picks(gpu_exp, picks["gpu"])
     try:
         cpu_greedy, cpu_beam = decode(cpu_exp)
         gpu_greedy, gpu_beam = decode(gpu_exp)
     finally:
         beam_search_decoder.small_topk = plain_topk
         del decoder.decode_step
-        for exp in (cpu_exp, gpu_exp):
-            del exp.model.runners[1].decoder._select_hier
+        if has_beam:
+            for exp in (cpu_exp, gpu_exp):
+                del exp.model.runners[1].decoder._select_hier
 
     report = {}
     same = 0
@@ -1857,6 +1886,9 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
                 f"greedy ids of sentence {row} differ at step {step}, "
                 f"where the CPU's top-two margin is {margin} >= {MARGIN}")
     report["greedy"] = f"{same}/{n} identical"
+    if not has_beam:
+        log(f"parity: {report}")
+        return report
 
     # a beam search diverges at the first step where the two devices
     # pick a different (parent, token) in some slot j; that must be a
@@ -2183,8 +2215,8 @@ def write_training_inputs(tmp: str, cell: str = "GRU",
         src = rng.randint(0, SOURCE_WORDS, (count, SRC_LEN))
         tgt = (np.concatenate([src, src[:, :TGT_LEN - SRC_LEN - 1]], axis=1)
                * 7919 + 13) % n_words
-        for name, ids in (("src", src), ("tgt", tgt)):
-            with open(os.path.join(tmp, f"{split}.{name}"), "w") as f:
+        for side, ids in (("src", src), ("tgt", tgt)):
+            with open(os.path.join(tmp, f"{split}.{side}"), "w") as f:
                 f.writelines(" ".join(f"w{i}" for i in row) + "\n"
                              for row in ids)
     path = os.path.join(tmp, name)
@@ -2197,12 +2229,15 @@ def write_training_inputs(tmp: str, cell: str = "GRU",
 
 
 def run_training(tmp: str, train_ini: str, fused: bool, name: str = "train",
-                 expected=("gru_scan", "gru_bptt", "fused_bahdanau_step")):
+                 expected=("gru_scan", "gru_bptt", "fused_bahdanau_step"),
+                 data_template: str = None, falling: bool = True):
     """One epoch through the train CLI, then ``run`` from its best
-    checkpoint; returns the launch counts of the training run, its
-    record and the checkpoint. Every kernel in ``expected`` must launch
-    in the training run, the cross-entropy kernels exactly when
-    ``fused``."""
+    checkpoint over the data INI ``data_template`` (by default the
+    validation sources of phase 6); returns the launch counts of the
+    training run, its record and the checkpoint. Every kernel in
+    ``expected`` must launch in the training run, the cross-entropy
+    kernels exactly when ``fused``; with ``falling`` the loss must
+    fall."""
     import torch
 
     from neuralmonkey_tpu_torch import run, train
@@ -2226,7 +2261,7 @@ def run_training(tmp: str, train_ini: str, fused: bool, name: str = "train",
         records = [json.loads(line) for line in f]
     windows = [r for r in records if r["kind"] == "train"]
     losses = [r["loss"] for r in windows]
-    if not losses[-1] < losses[0]:
+    if falling and not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
     xent =("fused_xent_fwd", "fused_xent_bwd_dx", "fused_xent_bwd_dw")
     missing = [k for k in expected if launches[k] == 0]
@@ -2238,7 +2273,7 @@ def run_training(tmp: str, train_ini: str, fused: bool, name: str = "train",
     best = os.path.join(out, "variables.data.best")
     data_ini = os.path.join(tmp, f"{name}_data.ini")
     with open(data_ini, "w") as f:
-        f.write(TRAIN_DATA_INI.format(tmp=tmp, out=out))
+        f.write((data_template or TRAIN_DATA_INI).format(tmp=tmp, out=out))
     if run.main([train_ini, data_ini, best]) != 0:
         raise AssertionError("neuralmonkey_tpu_torch.run failed")
     for output in ("greedy.txt", "beam.txt"):
@@ -2264,7 +2299,8 @@ def run_training(tmp: str, train_ini: str, fused: bool, name: str = "train",
 # ---------------------------------------------------------------------- #
 def check_train_parity(train_ini: str, ckpt: str,
                        parts=("encoder", "attention", "decoder"),
-                       float64: bool = False, check: bool = True):
+                       float64: bool = False, check: bool = True,
+                       hook=None):
     """Loss and every parameter gradient of one step from ``ckpt`` on 8
     sentences, the dropout of ``parts`` off (attention dropout, where a
     part has it, stays on: the keep hash draws the same mask on both
@@ -2287,7 +2323,9 @@ def check_train_parity(train_ini: str, ckpt: str,
     the keys' common part), both devices' rounding is amplified alike.
     The report gives, for each pass, the least spread it would pass
     under (``spread_needed``); ``check=False`` reports without raising
-    (``scripts/grad_rule_faults.py`` reads planted faults so)."""
+    (``scripts/grad_rule_faults.py`` reads planted faults so);
+    ``hook(experiment)`` runs on each pass's model before its step, the
+    card's passes first."""
     import torch
 
     from neuralmonkey_tpu_torch.dataset import BatchingScheme
@@ -2306,6 +2344,8 @@ def check_train_parity(train_ini: str, ckpt: str,
         exp = Experiment(train_ini, train_mode=True,
                          config_changes=changes + device_change)
         exp.build_model()
+        if hook is not None:
+            hook(exp)
         manager = exp.tf_manager
         manager.restore(ckpt)
         manager.params = cast(manager.params, dtype)
@@ -2878,6 +2918,440 @@ def check_task_heads(tmp: str):
     return launches, report
 
 
+# ---------------------------------------------------------------------- #
+# phase 19: multimodal MT and captioning at full width
+# ---------------------------------------------------------------------- #
+MMT_VOCAB, CAP_VOCAB, MMT_OUT, CAP_OUT = 20000, 15000, 50, 24
+IMAGE = (14, 14, 512)
+N_MMT_TRAIN = 4 * BATCH
+MMT_KERNELS = ("gru_scan", "fused_bahdanau_step", "fused_logits_rowmax_lse",
+               "small_topk")
+MMT_TRAINING_KERNELS = ("gru_scan", "gru_bptt", "fused_bahdanau_step",
+                        "fused_logits_rowmax_lse", "small_topk")
+
+# examples/multimodal_mt.ini's model: a BiGRU 512 over the text, a 14 x 14
+# x 512 map projected to 512, a Bahdanau attention of 512 over each and a
+# hierarchical attention of 512 over both, a GRU decoder of 512
+MMT_INI = """\
+[main]
+name="chip smoke multimodal"
+tf_manager=<tf_manager>
+output="{out}"
+overwrite_output_dir=True
+batch_size={batch}
+epochs=1
+train_dataset=<train_data>
+val_dataset=<val_data>
+trainer=<trainer>
+runners=[<runner>, <bs_runner>]
+evaluation=[("target", evaluators.bleu.BLEU)]
+logging_period=2
+validation_period=1000
+random_seed={seed}
+
+[tf_manager]
+class=tf_manager.TensorFlowManager
+num_sessions=1
+
+[vocabulary]
+class=vocabulary.from_wordlist
+path="{tmp}/mmt_words.txt"
+
+[train_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/mmt_train.src"
+s_target="{tmp}/mmt_train.tgt"
+s_feats=("{tmp}/mmt_train_feats.npy", readers.numpy_reader.single_tensor)
+
+[val_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/mmt_val.src"
+s_target="{tmp}/mmt_val.tgt"
+s_feats=("{tmp}/mmt_val_feats.npy", readers.numpy_reader.single_tensor)
+
+[text_encoder]
+class=encoders.recurrent.SentenceEncoder
+name="text_encoder"
+rnn_size={rnn}
+max_input_len=50
+embedding_size={emb}
+dropout_keep_prob=0.8
+data_id="source"
+vocabulary=<vocabulary>
+
+[image_encoder]
+class=encoders.numpy_stateful_filler.SpatialFiller
+name="image_encoder"
+input_shape=[{h}, {w}, {c}]
+projection_dim={att}
+data_id="feats"
+
+[text_attention]
+class=attention.feed_forward.Attention
+name="text_attention"
+encoder=<text_encoder>
+state_size={att}
+
+[image_attention]
+class=attention.feed_forward.Attention
+name="image_attention"
+encoder=<image_encoder>
+state_size={att}
+
+[attention]
+class=attention.combination.HierarchicalMultiAttention
+name="hier_attention"
+attentions=[<text_attention>, <image_attention>]
+attention_state_size={att}
+
+[decoder]
+class=decoders.decoder.Decoder
+name="decoder"
+encoders=[<text_encoder>, <image_encoder>]
+attentions=[<attention>]
+rnn_size={rnn}
+embedding_size={emb}
+dropout_keep_prob=0.8
+data_id="target"
+max_output_len={max_out}
+vocabulary=<vocabulary>
+
+[bs_decoder]
+class=decoders.beam_search_decoder.BeamSearchDecoder
+name="bs_decoder"
+parent_decoder=<decoder>
+beam_size={beam}
+length_normalization=0.6
+
+[trainer]
+class=trainers.cross_entropy_trainer.CrossEntropyTrainer
+decoders=[<decoder>]
+clip_norm=1.0
+optimizer=<adam>
+
+[adam]
+class=tf.train.AdamOptimizer
+learning_rate=0.001
+
+[runner]
+class=runners.runner.GreedyRunner
+decoder=<decoder>
+output_series="target"
+
+[bs_runner]
+class=runners.beam_search_runner.BeamSearchRunner
+decoder=<bs_decoder>
+output_series="target_beam"
+"""
+
+MMT_DATA_INI = """\
+[main]
+test_datasets=[<test_data>]
+
+[test_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/mmt_{split}.src"
+s_feats=("{tmp}/mmt_{split}_feats.npy", readers.numpy_reader.single_tensor)
+s_target_out="{out}/greedy.txt"
+s_target_beam_out="{out}/beam.txt"
+"""
+
+# examples/captioning.ini's model: the 14 x 14 x 512 map as it is, a
+# Bahdanau attention of 512, a GRU decoder of 512, greedy
+CAPTIONING_INI = """\
+[main]
+name="chip smoke captioning"
+tf_manager=<tf_manager>
+output="{tmp}/cap_out"
+batch_size={batch}
+runners=[<runner>]
+random_seed={seed}
+
+[tf_manager]
+class=tf_manager.TensorFlowManager
+num_sessions=1
+
+[vocabulary]
+class=vocabulary.from_wordlist
+path="{tmp}/cap_words.txt"
+
+[encoder]
+class=encoders.numpy_stateful_filler.SpatialFiller
+name="encoder"
+data_id="feats"
+input_shape=[{h}, {w}, {c}]
+
+[attention]
+class=attention.feed_forward.Attention
+name="attention"
+encoder=<encoder>
+state_size={att}
+
+[decoder]
+class=decoders.decoder.Decoder
+name="decoder"
+vocabulary=<vocabulary>
+data_id="caption"
+max_output_len={max_out}
+rnn_size={rnn}
+embedding_size={emb}
+encoders=[<encoder>]
+attentions=[<attention>]
+
+[runner]
+class=runners.runner.GreedyRunner
+decoder=<decoder>
+output_series="caption"
+"""
+
+CAPTIONING_DATA_INI = """\
+[main]
+test_datasets=[<test_data>]
+
+[test_data]
+class=dataset.load_dataset_from_files
+s_feats=("{tmp}/mmt_test_feats.npy", readers.numpy_reader.single_tensor)
+s_caption_out="{tmp}/caption.txt"
+"""
+
+
+def write_multimodal_inputs(tmp: str):
+    """Synthetic multimodal data from the seed: the 20000- and 15000-word
+    vocabularies; 128 test, 256 training and 64 validation sentences of
+    32 words from the first 2000, each with a 14 x 14 x 512 map of
+    uniform features in [0, 1) and, for training, the target of phase 6
+    (the source and its first 15 words through a fixed map); the INIs.
+    Returns (the MMT INI, its serving data INI, the captioning INI, its
+    data INI)."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 19)
+    for name, size in (("mmt_words.txt", MMT_VOCAB),
+                       ("cap_words.txt", CAP_VOCAB)):
+        with open(os.path.join(tmp, name), "w") as f:
+            f.write("\n".join(f"w{i}" for i in range(size - 4)) + "\n")
+    for split, count in (("test", N_SENTENCES), ("train", N_MMT_TRAIN),
+                         ("val", N_VAL)):
+        src = rng.randint(0, SOURCE_WORDS, (count, SRC_LEN))
+        tgt = (np.concatenate([src, src[:, :TGT_LEN - SRC_LEN - 1]], axis=1)
+               * 7919 + 13) % (MMT_VOCAB - 4)
+        for name, ids in (("src", src), ("tgt", tgt)):
+            with open(os.path.join(tmp, f"mmt_{split}.{name}"), "w") as f:
+                f.writelines(" ".join(f"w{i}" for i in row) + "\n"
+                             for row in ids)
+        np.save(os.path.join(tmp, f"mmt_{split}_feats.npy"),
+                rng.rand(count, *IMAGE).astype(np.float32))
+    os.makedirs(os.path.join(tmp, "mmt_serve"), exist_ok=True)
+    widths = dict(tmp=tmp, batch=BATCH, seed=SEED, rnn=RNN, emb=EMB,
+                  att=ATT, beam=BEAM, h=IMAGE[0], w=IMAGE[1], c=IMAGE[2])
+    paths = []
+    for name, text in (
+            ("mmt.ini", MMT_INI.format(out=os.path.join(tmp, "mmt_out"),
+                                       max_out=MMT_OUT, **widths)),
+            ("mmt_data.ini", MMT_DATA_INI.format(
+                tmp=tmp, split="test", out=os.path.join(tmp, "mmt_serve"))),
+            ("cap.ini", CAPTIONING_INI.format(max_out=CAP_OUT, **widths)),
+            ("cap_data.ini", CAPTIONING_DATA_INI.format(tmp=tmp))):
+        paths.append(os.path.join(tmp, name))
+        with open(paths[-1], "w") as f:
+            f.write(text)
+    return paths
+
+
+def image_attention_records(device):
+    """K2 at the image shapes against its plain version: T 196 (14 x 14),
+    A 512, D 512 at B 64 (greedy) and B 640 (the hierarchical children's
+    constants tiled to B·K rows under beam 10): weights to 1e-5 and the
+    context to 1e-4, each timed back to back, with the L2 cache flushed,
+    beside its plain version and its bound."""
+    import torch
+
+    from neuralmonkey_tpu_torch.ops import cuda_attention, kernel_config
+
+    gen = torch.Generator().manual_seed(SEED + 190)
+    records = {}
+    time_, dim = IMAGE[0] * IMAGE[1], ATT
+    for batch in (BATCH, BATCH * BEAM):
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen) * scale).to(device)
+        args = (randn(batch, time_, ATT), randn(batch, time_, dim),
+                torch.ones(batch, time_, device=device), randn(batch, ATT),
+                randn(ATT, scale=ATT ** -0.5))
+        got = cuda_attention.fused_bahdanau_step(*args)
+        ref = cuda_attention.bahdanau_reference(*args)
+        errs = (max_err(got[1], ref[1]), max_err(got[0], ref[0]))
+        log(f"fused_bahdanau_step image ({batch}, {time_}, {ATT}, {dim}): "
+            f"max_abs_err weights {errs[0]:.3g}, context {errs[1]:.3g}")
+        if not (errs[0] <= 1e-5 and errs[1] <= 1e-4):
+            raise AssertionError(f"fused_bahdanau_step at the image shape "
+                                 f"B {batch}: errors {errs}")
+
+        def step():
+            return cuda_attention.fused_bahdanau_step(*args)
+        bound_ms, bound_by = bound(
+            batch * time_ * (4 * ATT + 2 * dim),
+            4 * (batch * time_ * (ATT + dim + 2) + batch * ATT + ATT
+                 + batch * dim))
+        records[f"B{batch}_T{time_}_A{ATT}_D{dim}"] = {
+            "max_abs_err": max(errs), "ms": time_ms(step),
+            "l2_flushed_ms": flushed_ms(step),
+            "plain_ms": time_ms(
+                lambda: cuda_attention.bahdanau_reference(*args)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": cuda_attention.bahdanau_plan(
+                batch, time_, ATT, dim,
+                *kernel_config.device_limits(device.index or 0))._asdict()}
+        log(f"fused_bahdanau_step image B {batch}: "
+            f"{records[f'B{batch}_T{time_}_A{ATT}_D{dim}']}")
+    return records
+
+
+def check_multimodal(tmp: str, device):
+    """Phase 19. The MMT model decodes the 128 test sentences greedily
+    and with beam 10 through ``run``, the captioning model greedily; the
+    MMT model trains 4 steps through ``train`` (one epoch, one validation,
+    ``run`` from its checkpoint); each run must launch its kernels. 8
+    sentences of each serving model against the CPU by phase 5's rule,
+    one training step of the MMT model by phase 12's float64 rule, and
+    K2 at the image shapes against its plain version. Returns (the
+    launches of the runs, the report, K2's records)."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.models.attention import feed_forward
+
+    mmt_ini, mmt_data_ini, cap_ini, cap_data_ini = write_multimodal_inputs(
+        tmp)
+    report = {}
+    launches = None
+    # K2's launches in the runs below by (B, T): each call of its wrapper
+    # on the card's tensors is one launch
+    by_shape = {}
+    plain_step = feed_forward.fused_bahdanau_step
+
+    def tallied_step(keys, *args):
+        shape = "B{}_T{}".format(*keys.shape[:2])
+        by_shape[shape] = by_shape.get(shape, 0) + 1
+        return plain_step(keys, *args)
+    for label, ini, data_ini, expected, outputs in (
+            ("multimodal", mmt_ini, mmt_data_ini, MMT_KERNELS,
+             ("mmt_serve/greedy.txt", "mmt_serve/beam.txt")),
+            ("captioning", cap_ini, cap_data_ini, ("fused_bahdanau_step",),
+             ("caption.txt",))):
+        exp = Experiment(ini, train_mode=False)
+        exp.build_model()
+        ckpt = exp.tf_manager.save(os.path.join(tmp, f"{label}_params"))
+        feed_forward.fused_bahdanau_step = tallied_step
+        try:
+            counts, lines = serve_through_run(
+                ini, data_ini, ckpt, expected,
+                [os.path.join(tmp, name) for name in outputs], label)
+        finally:
+            feed_forward.fused_bahdanau_step = plain_step
+        launches = counts if launches is None else {
+            k: n + counts[k] for k, n in launches.items()}
+        report[label] = {
+            "mean_output_tokens": mean_lengths(lines),
+            "speed": serving_speed(exp, ckpt, data_ini, exp.model.runners),
+            "launches": {k: counts[k] for k in expected}}
+        report[label]["parity"] = check_parity(ini, data_ini, exp, ckpt)
+        log(f"{label}: {report[label]}")
+        del exp
+    feed_forward.fused_bahdanau_step = tallied_step
+    try:
+        counts, record, best = run_training(
+            tmp, mmt_ini, False, "mmt_train", MMT_TRAINING_KERNELS,
+            MMT_DATA_INI.replace("{split}", "val"))
+    finally:
+        feed_forward.fused_bahdanau_step = plain_step
+    launches = {k: n + counts[k] for k, n in launches.items()}
+    report["training"] = record
+    report["fused_bahdanau_step_launches_by_shape"] = by_shape
+    log(f"multimodal: K2 launches by shape {by_shape}")
+    report["training_parity"] = check_train_parity(
+        mmt_ini, best, ("text_encoder", "decoder"), float64=True)
+    return launches, report, image_attention_records(device)
+
+
+# ---------------------------------------------------------------------- #
+# phase 20: self-critical training of the flagship model
+# ---------------------------------------------------------------------- #
+N_SC_TRAIN = 4 * BATCH
+SC_TRAINER = """\
+[trainer]
+class=trainers.rl_trainer.ReinforceTrainer
+decoders=[<decoder>]
+self_critical=True
+xent_weight=0.5
+clip_norm=1.0
+optimizer=<adam>
+"""
+
+
+def sampling_replay():
+    """A ``check_train_parity`` hook: the first pass (the card's) records
+    the decoder's sampled and greedy ids; every later pass takes those
+    ids instead of drawing or decoding its own, so each device scores
+    the same sequences."""
+    recorded = {}
+
+    def hook(exp):
+        decoder = exp.model.trainer.objectives[0].decoder
+        if not recorded:
+            draws, plain_draw = [], decoder.draw_samples
+            plain_greedy = decoder.greedy_ids
+
+            def draw(log_probs, generator):
+                ids = plain_draw(log_probs, generator)
+                draws.append(ids.cpu())
+                return ids
+
+            def greedy(ctx):
+                recorded["greedy"] = plain_greedy(ctx).cpu()
+                return recorded["greedy"].to(ctx.batch[
+                    decoder.target_ids_key].device)
+            recorded["draws"] = draws
+            decoder.draw_samples, decoder.greedy_ids = draw, greedy
+            return
+        columns = iter(recorded["draws"])
+        decoder.draw_samples = lambda log_probs, generator: next(
+            columns).to(log_probs.device)
+        decoder.greedy_ids = lambda ctx: recorded["greedy"].to(
+            ctx.batch[decoder.target_ids_key].device)
+    return hook
+
+
+def check_self_critical(tmp: str):
+    """Phase 20. The flagship model of phase 6 trains 4 steps through
+    ``train`` with ``ReinforceTrainer`` (self-critical, the greedy decode
+    as baseline, GLEU rewards on the host, cross-entropy at 0.5, clip
+    1.0, Adam) on the first 256 of phase 6's pairs, with one validation
+    and ``run`` from its checkpoint, launching K1, the BPTT, K2, K3 and
+    K4; its losses must be finite. Then one step on 8 sentences against
+    the CPU, the card's sampled and greedy ids replayed there, by phase
+    12's float64 rule. Returns (the training's launches, report)."""
+    import math
+
+    for name in ("src", "tgt"):
+        with open(os.path.join(tmp, f"train.{name}")) as f:
+            lines = f.readlines()[:N_SC_TRAIN]
+        with open(os.path.join(tmp, f"sc_train.{name}"), "w") as f:
+            f.writelines(lines)
+    with open(os.path.join(tmp, "train.ini")) as f:
+        text = f.read()
+    trainer = text[text.index("[trainer]"):text.index("[adam]")]
+    text = (text.replace(trainer, SC_TRAINER + "\n")
+            .replace(f'"{tmp}/train.', f'"{tmp}/sc_train.')
+            .replace("logging_period=5", "logging_period=2"))
+    sc_ini = os.path.join(tmp, "sc_train.ini")
+    with open(sc_ini, "w") as f:
+        f.write(text)
+    launches, record, best = run_training(
+        tmp, sc_ini, False, "sc_train", MMT_TRAINING_KERNELS, falling=False)
+    if not all(math.isfinite(loss) for loss in record["losses"]):
+        raise AssertionError(f"self-critical losses {record['losses']}")
+    report = {"training": record, "training_parity": check_train_parity(
+        sc_ini, best, float64=True, hook=sampling_replay())}
+    return launches, report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "neuralmonkey_tpu_torch")):
         log("neuralmonkey_tpu_torch not found beside chip_smoke.py: run "
@@ -2988,6 +3462,13 @@ def main() -> int:
         launches = {k: n + s_launches[k] for k, n in launches.items()}
         h_launches, heads = phase("task heads", check_task_heads, tmp)
         launches = {k: n + h_launches[k] for k, n in launches.items()}
+        m_launches, multimodal, image_k2 = phase(
+            "multimodal", check_multimodal, tmp, device)
+        launches = {k: n + m_launches[k] for k, n in launches.items()}
+        kernels["fused_bahdanau_step"]["image_shapes"] = image_k2
+        r_launches, self_critical = phase("self-critical",
+                                          check_self_critical, tmp)
+        launches = {k: n + r_launches[k] for k, n in launches.items()}
         for name in CHUNKED_KERNELS:
             launches[name] += chunked[name].pop("launches")
 
@@ -3010,6 +3491,8 @@ def main() -> int:
         "past_the_kernels_limits": past_limits,
         "server": served,
         "task_heads": heads,
+        "multimodal": multimodal,
+        "self_critical": self_critical,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

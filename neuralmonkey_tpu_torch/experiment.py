@@ -21,6 +21,7 @@ from .learning_utils import (evaluation, normalize_evaluation,
                              training_loop)
 from .logging import Logging, log
 from .runtime import CUDAManager
+from .trainers.multitask_trainer import MultitaskTrainer
 
 # the JAX package's [main] arguments (neuralmonkey_tpu/experiment.py
 # _TRAIN_ARGS): (name, required when training, default)
@@ -142,11 +143,8 @@ class Experiment:
         model = self.model
         trainer = model.trainer
         if isinstance(trainer, list):
-            if len(trainer) > 1:
-                raise NotImplementedError(
-                    "several trainers (MultitaskTrainer) are not ported "
-                    "to neuralmonkey_tpu_torch yet")
-            trainer = trainer[0]
+            trainer = (MultitaskTrainer(trainer) if len(trainer) > 1
+                       else trainer[0])
         if model.visualize_embeddings:
             raise NotImplementedError(
                 "visualize_embeddings is not ported to "

@@ -4,18 +4,19 @@
 An attention splits into ``precompute(ctx) -> constants`` (everything
 derived once per sentence from the attended encoder: states, mask,
 projected keys) and ``step(params, constants, query)`` for one decoder
-step. The query dimension is registered by the decoder at construction
+step. Spatial (conv-map) inputs are flattened to a T = H·W temporal
+view. The query dimension is registered by the decoder at construction
 (``register_query_dim``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ...model.part import Context, ModelPart
-from ...model.stateful import TemporalStateful
+from ...model.stateful import SpatialStateful, TemporalStateful
 
 
 class AttentionConstants(NamedTuple):
@@ -28,15 +29,22 @@ class AttentionConstants(NamedTuple):
 def get_attention_states(ctx: Context, encoder) -> torch.Tensor:
     if isinstance(encoder, TemporalStateful):
         return encoder.temporal_states(ctx)
-    raise TypeError(f"Cannot attend over {encoder!r}: not TemporalStateful "
-                    "(spatial attention is not ported yet)")
+    if isinstance(encoder, SpatialStateful):
+        spatial = encoder.spatial_states(ctx)
+        b, h, w, d = spatial.shape
+        return spatial.reshape(b, h * w, d)
+    raise TypeError(
+        f"Cannot attend over {encoder!r}: not Temporal/SpatialStateful")
 
 
 def get_attention_mask(ctx: Context, encoder) -> torch.Tensor:
     if isinstance(encoder, TemporalStateful):
         return encoder.temporal_mask(ctx)
-    raise TypeError(f"Cannot attend over {encoder!r}: not TemporalStateful "
-                    "(spatial attention is not ported yet)")
+    if isinstance(encoder, SpatialStateful):
+        mask = encoder.spatial_mask(ctx)
+        return mask.reshape(mask.shape[0], -1)
+    raise TypeError(
+        f"Cannot attend over {encoder!r}: not Temporal/SpatialStateful")
 
 
 def masked_softmax(scores: torch.Tensor,
@@ -81,6 +89,11 @@ class BaseAttention(ModelPart):
         return AttentionConstants(
             *(x.repeat_interleave(k, dim=0) for x in constants))
 
+    # Attentions that drop their softmax weights in training (scaled
+    # dot-product) set this: the decoder's teacher-forced pass then gives
+    # their ``step`` a generator of each step's own seed.
+    weights_dropout = False
+
     # Attentions whose constants are beam-invariant serve all K beams
     # from one copy under lineage beam decoding (``step_beamed``), so
     # the encoder keys and states are read once per step, not K times.
@@ -101,6 +114,14 @@ class BaseAttention(ModelPart):
         raise NotImplementedError
 
     def step(self, params: Dict[str, Any], constants: AttentionConstants,
-             query: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(context (B, d), weights (B, T)) for one decoder step."""
+             query: torch.Tensor,
+             dropout_gen: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(context (B, d), weights (B, T)) for one decoder step.
+
+        ``dropout_gen`` is a generator of this step's own seed, which the
+        decoder's teacher-forced pass gives when training with
+        ``dropout_keep_prob < 1``; attentions whose reference semantics
+        drop the softmax weights (scaled dot-product) draw from it, the
+        others ignore it. Inference passes None."""
         raise NotImplementedError

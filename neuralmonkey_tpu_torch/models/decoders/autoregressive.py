@@ -287,11 +287,14 @@ class AutoregressiveDecoder(ModelPart):
         logits[..., UNK_TOKEN_INDEX] = torch.finfo(logits.dtype).min
         return logits
 
-    @tensor
-    def greedy_ids(self, ctx: Context) -> torch.Tensor:
-        """Greedy decode, ids only: (B, max_output_len) int32, PAD
-        after a sentence's </s>; stops early once every sentence has
-        finished (checked every FINISHED_CHECK_PERIOD steps)."""
+    def _decode_loop(self, ctx: Context, pick: Callable, early_exit: bool):
+        """The decode loop of greedy decoding and sampling: ``pick(logits,
+        aux)`` -> (ids, kept) chooses each step's ids from its logits
+        (UNK masked) and what to keep of the step. A finished sentence
+        emits PAD. Returns (ids (B, steps), what each step kept, the
+        finished-before-each-step masks); with ``early_exit`` the loop
+        stops once every sentence has finished (checked every
+        FINISHED_CHECK_PERIOD steps)."""
         constants = self.decode_constants(ctx)
         state = self.decode_initial_state(ctx, constants)
         batch = self._batch_size(ctx)
@@ -299,21 +302,86 @@ class AutoregressiveDecoder(ModelPart):
         prev_ids = torch.full((batch,), START_TOKEN_INDEX,
                               dtype=torch.int32, device=device)
         finished = torch.zeros(batch, dtype=torch.bool, device=device)
-        decoded = torch.full((batch, self.max_output_len),
-                             PAD_TOKEN_INDEX, dtype=torch.int32,
-                             device=device)
+        ids, kept, finished_before = [], [], []
         for step in range(self.max_output_len):
-            if step and step % FINISHED_CHECK_PERIOD == 0 \
+            if early_exit and step and step % FINISHED_CHECK_PERIOD == 0 \
                     and bool(finished.all()):
                 break
-            state, logits, _ = self.decode_step(constants, state,
-                                                prev_ids, step)
-            new_ids = self._mask_unk(logits).argmax(dim=-1).to(torch.int32)
+            state, logits, aux = self.decode_step(constants, state,
+                                                  prev_ids, step)
+            new_ids, step_kept = pick(self._mask_unk(logits), aux)
             new_ids = torch.where(finished, PAD_TOKEN_INDEX, new_ids)
-            decoded[:, step] = new_ids
+            ids.append(new_ids)
+            kept.append(step_kept)
+            finished_before.append(finished)
             finished = finished | (new_ids == END_TOKEN_INDEX)
             prev_ids = new_ids
-        return decoded
+        return torch.stack(ids, dim=1), kept, finished_before
+
+    def _pad_steps(self, ids: torch.Tensor) -> torch.Tensor:
+        """(B, steps) ids padded with PAD to (B, max_output_len)."""
+        return torch.nn.functional.pad(
+            ids, (0, self.max_output_len - ids.shape[1]),
+            value=PAD_TOKEN_INDEX)
+
+    @tensor
+    def greedy_ids(self, ctx: Context) -> torch.Tensor:
+        """Greedy decode, ids only: (B, max_output_len) int32, PAD
+        after a sentence's </s>; stops early once every sentence has
+        finished."""
+        ids, _, _ = self._decode_loop(
+            ctx, lambda logits, aux: (logits.argmax(dim=-1).to(torch.int32),
+                                      None), early_exit=True)
+        return self._pad_steps(ids)
+
+    @tensor
+    def greedy_outputs(self, ctx: Context
+                       ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+        """Greedy decode over all ``max_output_len`` steps: (logits (B,
+        L, V), ids (B, L), aux with each step's entries stacked on a
+        leading time axis, as the JAX scan stacks them)."""
+        def pick(logits, aux):
+            return logits.argmax(dim=-1).to(torch.int32), (logits, aux)
+
+        def stack(steps):
+            if isinstance(steps[0], (tuple, list)):
+                return tuple(stack(list(s)) for s in zip(*steps))
+            return torch.stack(steps, dim=0)
+        ids, kept, _ = self._decode_loop(ctx, pick, early_exit=False)
+        auxes = [aux for _, aux in kept]
+        return (torch.stack([logits for logits, _ in kept], dim=1), ids,
+                {key: stack([aux[key] for aux in auxes])
+                 for key in auxes[0]})
+
+    def draw_samples(self, log_probs: torch.Tensor,
+                     generator: torch.Generator) -> torch.Tensor:
+        """One id per row drawn from ``exp(log_probs)`` (B, V), int32."""
+        return torch.multinomial(log_probs.detach().exp(), 1,
+                                 generator=generator)[:, 0].to(torch.int32)
+
+    @tensor
+    def sample_outputs(self, ctx: Context
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Ancestral sampling decode, the self-critical and REINFORCE
+        path: (sampled ids (B, L), summed log-probs of the sampled
+        tokens (B,), differentiable). Each step draws from the full
+        ``log_softmax`` of its logits (``draw_samples``) with a
+        generator seeded from the pass's (decoder, "sampling") seed;
+        after END a sentence emits PAD and its log-prob terms are 0.
+        Stops early once every sentence has finished, which changes
+        neither output."""
+        generator = ctx.make_rng(self, "sampling", self._device(ctx))
+
+        def pick(logits, aux):
+            del aux
+            log_probs = torch.log_softmax(logits, dim=-1)
+            new_ids = self.draw_samples(log_probs, generator)
+            return new_ids, log_probs.gather(-1, new_ids.long()[:, None])
+        ids, chosen, finished = self._decode_loop(ctx, pick,
+                                                  early_exit=True)
+        log_prob = sum(torch.where(done, 0.0, lp[:, 0])
+                       for lp, done in zip(chosen, finished))
+        return self._pad_steps(ids), log_prob
 
     @tensor
     def decoded(self, ctx: Context):

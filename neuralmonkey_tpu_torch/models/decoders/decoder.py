@@ -4,17 +4,22 @@
 Supports the RNNsearch step (attention queried with the previous state,
 the cell fed ``[prev_emb, context]``) and the Nematus-style conditional
 GRU (cell1 -> attention -> cell2), the output projections maxout / mlp
-/ linear, and the initial state projected from the encoder outputs.
+/ linear, the initial state projected from the encoder outputs, and any
+number of attentions, the multi-source combinators among them.
+
+The loop state is the (B, H) recurrent state; with a stateful attention
+(coverage) it is ``(state, attention states)``, one (B, T) coverage for
+each stateful attention and None for the others.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ...model.part import Context, ModelPart, tensor
+from ...model.part import Context, ModelPart, fold_seed, tensor
 from ...model.stateful import Stateful
 from ...ops import nn
 from .autoregressive import AutoregressiveDecoder
@@ -69,10 +74,8 @@ class Decoder(AutoregressiveDecoder):
                 "Decoder: rnn_cell 'LSTM' is not supported (the decoder "
                 "state is a single (B, H) tensor); LSTM cells serve the "
                 "encoders")
-        for att in self.attentions:
-            if getattr(att, "stateful_attention", False):
-                raise NotImplementedError(
-                    f"stateful attention ({att.name}) is not ported yet")
+        self._stateful = any(getattr(att, "stateful_attention", False)
+                             for att in self.attentions)
 
         if rnn_size is None:
             if not self.encoders:
@@ -144,26 +147,53 @@ class Decoder(AutoregressiveDecoder):
             "att_params": tuple(ctx.get_params(a) for a in self.attentions),
             "att_constants": tuple(a.precompute(ctx)
                                    for a in self.attentions),
+            # per attention that drops its softmax weights in training,
+            # the seed its teacher-forced steps fold their step into
+            "att_dropout_seeds": tuple(
+                ctx.site_seed(a, "attention_dropout")
+                if ctx.train and getattr(a, "weights_dropout", False)
+                and a.dropout_keep_prob < 1.0 else None
+                for a in self.attentions),
             "embed_table": ctx.get_params(self.embeddings)["embeddings"],
         }
 
-    def _attend_all(self, constants, query, beam=None):
-        """Every attention for one step: (contexts, weights). With
-        ``beam`` set (lineage beam decoding), beam-sharing attentions
-        get their untiled constants and fold the beam axis in."""
-        contexts, weights = [], []
-        for att, p, c in zip(self.attentions, constants["att_params"],
-                             constants["att_constants"]):
-            if beam is not None and att.beam_shared_constants:
+    def _att_initial_states(self, constants) -> Tuple:
+        """Zero coverage for each stateful attention, None for others."""
+        return tuple(
+            torch.zeros_like(c.mask)
+            if getattr(att, "stateful_attention", False) else None
+            for att, c in zip(self.attentions, constants["att_constants"]))
+
+    def _attend_all(self, constants, query, att_states, beam=None,
+                    dropout_gens=None):
+        """Every attention for one step: (contexts, weights, new
+        attention states). With ``beam`` set (lineage beam decoding),
+        beam-sharing attentions get their untiled constants and fold the
+        beam axis in. ``dropout_gens`` (teacher-forced training only)
+        holds this step's generator for each attention, or None."""
+        contexts, weights, new_states = [], [], []
+        for i, (att, p, c) in enumerate(zip(
+                self.attentions, constants["att_params"],
+                constants["att_constants"])):
+            new_state = None
+            if getattr(att, "stateful_attention", False):
+                context, w, new_state = att.step_with_coverage(
+                    p, c, query, att_states[i])
+            elif beam is not None and att.beam_shared_constants:
                 context, w = att.step_beamed(p, c, query, beam)
             else:
-                context, w = att.step(p, c, query)
+                context, w = att.step(
+                    p, c, query,
+                    dropout_gen=dropout_gens[i] if dropout_gens else None)
             contexts.append(context)
             weights.append(w)
-        return contexts, weights
+            new_states.append(new_state)
+        return contexts, weights, tuple(new_states)
 
-    def _cell_step(self, constants, state, embedded_prev, beam=None):
-        """One decoder cell step: (new_state, prelogit_input, weights)."""
+    def _cell_step(self, constants, state, att_states, embedded_prev,
+                   beam=None, dropout_gens=None):
+        """One decoder cell step: (new_state, prelogit_input, weights,
+        new attention states)."""
         params = constants["params"]
         weights: List[torch.Tensor] = []
         context_cat = None
@@ -171,15 +201,16 @@ class Decoder(AutoregressiveDecoder):
             new_state, _ = self._cell1(params["cell1"], state,
                                        embedded_prev)
             if self.attentions:
-                contexts, weights = self._attend_all(constants, new_state,
-                                                     beam)
+                contexts, weights, att_states = self._attend_all(
+                    constants, new_state, att_states, beam, dropout_gens)
                 context_cat = torch.cat(contexts, dim=-1)
                 new_state, _ = self._cell2(params["cell2"], new_state,
                                            context_cat)
         else:
             cell_in = embedded_prev
             if self.attentions:
-                contexts, weights = self._attend_all(constants, state, beam)
+                contexts, weights, att_states = self._attend_all(
+                    constants, state, att_states, beam, dropout_gens)
                 context_cat = torch.cat(contexts, dim=-1)
                 cell_in = torch.cat([embedded_prev, context_cat], dim=-1)
             new_state, _ = self._cell1(params["cell1"], state, cell_in)
@@ -187,7 +218,7 @@ class Decoder(AutoregressiveDecoder):
         pieces = [new_state, embedded_prev]
         if context_cat is not None:
             pieces.append(context_cat)
-        return new_state, torch.cat(pieces, dim=-1), weights
+        return new_state, torch.cat(pieces, dim=-1), weights, att_states
 
     def _prelogit(self, params, prelogit_in):
         if self.output_projection == "maxout":
@@ -227,10 +258,18 @@ class Decoder(AutoregressiveDecoder):
         embedded = ctx.dropout(self, embedded, self.dropout_keep_prob,
                                "embedding_dropout")
         state = self.initial_state(ctx)
+        att_states = self._att_initial_states(constants)
+        seeds = constants["att_dropout_seeds"]
         prelogit_in, weights = [], []
         for t in range(embedded.shape[1]):
-            state, step_in, step_weights = self._cell_step(
-                constants, state, embedded[:, t])
+            # a fresh attention-dropout draw every step
+            gens = (tuple(None if s is None else torch.Generator(
+                device=embedded.device).manual_seed(fold_seed(s, t))
+                for s in seeds) if any(s is not None for s in seeds)
+                else None)
+            state, step_in, step_weights, att_states = self._cell_step(
+                constants, state, att_states, embedded[:, t],
+                dropout_gens=gens)
             prelogit_in.append(step_in)
             weights.append(step_weights)
         prelogit_in = ctx.dropout(self, torch.stack(prelogit_in, dim=1),
@@ -272,15 +311,24 @@ class Decoder(AutoregressiveDecoder):
         _, weights = self.train_outputs(ctx)
         return weights
 
-    def _finish_step(self, constants, state, prev_ids, beam=None):
+    def _finish_step(self, constants, loop_state, prev_ids, beam=None):
+        state, att_states = self._split_state(loop_state, constants)
         embedded_prev = F.embedding(prev_ids, constants["embed_table"])
-        new_state, prelogit_in, weights = self._cell_step(
-            constants, state, embedded_prev, beam=beam)
+        new_state, prelogit_in, weights, att_states = self._cell_step(
+            constants, state, att_states, embedded_prev, beam=beam)
         prelogit = self._prelogit(constants["params"], prelogit_in)
         logits, sel_aux = self._step_logits(
             constants, prelogit, lambda: self._logits(constants, prelogit))
-        return new_state, logits, {"attention_weights": tuple(weights),
-                                   **sel_aux}
+        return (self._join_state(new_state, att_states), logits,
+                {"attention_weights": tuple(weights), **sel_aux})
+
+    def _split_state(self, loop_state, constants):
+        if self._stateful:
+            return loop_state
+        return loop_state, (None,) * len(constants["att_constants"])
+
+    def _join_state(self, state, att_states):
+        return (state, att_states) if self._stateful else state
 
     # ------------------------------------------------------------------ #
     # decode contract
@@ -289,10 +337,11 @@ class Decoder(AutoregressiveDecoder):
         return self._make_constants(ctx)
 
     def decode_initial_state(self, ctx: Context, constants):
-        return self.initial_state(ctx)
+        return self._join_state(self.initial_state(ctx),
+                                self._att_initial_states(constants))
 
     def decode_step(self, constants: Dict[str, Any],
-                    loop_state: torch.Tensor, prev_ids: torch.Tensor,
+                    loop_state: Any, prev_ids: torch.Tensor,
                     step: int):
         del step
         return self._finish_step(constants, loop_state, prev_ids)
@@ -325,5 +374,19 @@ class Decoder(AutoregressiveDecoder):
         parents = anc[:, :, max(step - 1, 0)].long()
         rows = (torch.arange(batch, device=parents.device)[:, None] * beam
                 + parents).reshape(-1)
-        return self._finish_step(constants, loop_state.index_select(0, rows),
-                                 prev_ids, beam=beam)
+        return self._finish_step(
+            constants, self._map_state(
+                loop_state, lambda x: x.index_select(0, rows)),
+            prev_ids, beam=beam)
+
+    def tile_decode_state(self, state: Any, beam: int) -> Any:
+        return self._map_state(
+            state, lambda x: x.repeat_interleave(beam, dim=0))
+
+    def _map_state(self, loop_state, fn):
+        """``fn`` on every tensor of the loop state (the coverage too)."""
+        if not self._stateful:
+            return fn(loop_state)
+        state, att_states = loop_state
+        return fn(state), tuple(None if s is None else fn(s)
+                                for s in att_states)

@@ -3,19 +3,19 @@
 nm/encoders/numpy_stateful_filler.py).
 
 :class:`StatefulFiller` injects a dataset series of precomputed vectors
-into the model as a Stateful part. ``SpatialFiller`` (feature maps as a
-SpatialStateful part) comes with the multimodal inputs.
+into the model as a Stateful part, :class:`SpatialFiller` a series of
+feature maps as a SpatialStateful part.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from ...model.part import Context, ModelPart, tensor
-from ...model.stateful import Stateful
+from ...model.stateful import SpatialStatefulWithOutput, Stateful
 from ...ops import nn
 
 
@@ -69,13 +69,77 @@ class StatefulFiller(ModelPart, Stateful):
         return vec
 
 
-class SpatialFiller(ModelPart):
-    """A dataset series of (H, W, C) feature maps as a SpatialStateful
-    part: not ported yet (it comes with the multimodal inputs and the
-    spatial attention)."""
+class SpatialFiller(ModelPart, SpatialStatefulWithOutput):
+    """A dataset series of (H, W, C) feature maps (conv maps from an
+    offline CNN) as a SpatialStateful part: optionally through a tanh
+    feed-forward layer (``ff_hidden_dim``) and a linear projection
+    (``projection_dim``); every grid position is valid, and the output
+    is the mean over the grid."""
 
-    def __init__(self, name: str, *args, **kwargs) -> None:
-        del args, kwargs
-        raise NotImplementedError(
-            f"SpatialFiller ({name}) is not ported to neuralmonkey_tpu_torch "
-            "yet (ROADMAP queue A10, multimodal inputs)")
+    def __init__(self, name: str,
+                 input_shape: List[int],
+                 data_id: str,
+                 projection_dim: int = None,
+                 ff_hidden_dim: int = None,
+                 reuse: ModelPart = None,
+                 save_checkpoint: str = None,
+                 load_checkpoint: str = None) -> None:
+        ModelPart.__init__(self, name, reuse, save_checkpoint,
+                           load_checkpoint)
+        if len(input_shape) != 3:
+            raise ValueError("input_shape must be (height, width, depth)")
+        self.data_id = data_id
+        self.input_shape = tuple(input_shape)
+        self.projection_dim = projection_dim
+        self.ff_hidden_dim = ff_hidden_dim
+
+    @property
+    def state_dim(self) -> int:
+        return self.projection_dim or self.input_shape[2]
+
+    @property
+    def output_dim(self) -> int:
+        return self.state_dim
+
+    def init_params(self, gen: torch.Generator) -> Dict[str, Any]:
+        params = {}
+        if self.projection_dim:
+            depth = self.input_shape[2]
+            if self.ff_hidden_dim:
+                params["ff"] = nn.linear_init(gen, depth, self.ff_hidden_dim)
+                depth = self.ff_hidden_dim
+            params["project"] = nn.linear_init(gen, depth,
+                                               self.projection_dim)
+        return params
+
+    def featurize(self, dataset, train: bool = False
+                  ) -> Dict[str, np.ndarray]:
+        if not dataset.has_series(self.data_id):
+            return {}
+        maps = np.stack([np.asarray(m, np.float32)
+                         for m in dataset.get_series(self.data_id)])
+        if maps.shape[1:] != self.input_shape:
+            raise ValueError(
+                f"Series '{self.data_id}' maps have shape "
+                f"{maps.shape[1:]}, expected {self.input_shape}")
+        return {f"{self.name}.spatial": maps}
+
+    @tensor
+    def spatial_states(self, ctx: Context):
+        states = ctx.batch[f"{self.name}.spatial"]
+        params = ctx.get_params(self)
+        if "ff" in params:
+            states = torch.tanh(nn.linear(params["ff"], states))
+        if "project" in params:
+            states = nn.linear(params["project"], states)
+        return states
+
+    @tensor
+    def spatial_mask(self, ctx: Context):
+        states = ctx.batch[f"{self.name}.spatial"]
+        return states.new_ones(states.shape[:3])
+
+    @tensor
+    def output(self, ctx: Context):
+        """The mean over the spatial grid."""
+        return self.spatial_states(ctx).mean(dim=(1, 2))

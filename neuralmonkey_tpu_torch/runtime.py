@@ -21,6 +21,7 @@ from .logging import log, warn
 from .model.part import (Context, ModelPart, collect_parts, fold_seed,
                          init_all_params)
 from .runners.base_runner import ExecutionResult, reduce_execution_results
+from .trainers.multitask_trainer import MultitaskTrainer
 from .utils.batching import pad_batch
 from .utils.saving import (flatten_tree, load_flat, load_meta,
                            params_from_jax, save_tree)
@@ -229,7 +230,10 @@ class CUDAManager:
         clipping and the in-place update (``_get_train_fn``'s step).
         The returned losses, gradient norm and ``target_tokens`` stay
         on the device; the training loop syncs them once per logging
-        window."""
+        window. A ``MultitaskTrainer`` hands the step to its child for
+        this global step."""
+        if isinstance(trainer, MultitaskTrainer):
+            trainer = trainer.select(self.global_step)
         _, update, state = self._optimizer(trainer)
         flat = flatten_tree(self.params)
         for p in flat.values():

@@ -438,7 +438,11 @@ def _bahdanau_args(device, batch, time, att, dim, lengths):
     (64, 1, 512, 1024, [1] * 63 + [0], True, True),  # T 1: no cluster
     (2, 1000, 64, 1024, [1000, 613], True, False),   # streamed states
     (3, 3000, 37, 1023, [3000, 0, 2999], True, False),  # streamed, scalar
-    (3, 7, 40000, 6, [7, 3, 0], False, False)])  # operands read in place
+    (3, 7, 40000, 6, [7, 3, 0], False, False),  # operands read in place
+    # a 14 x 14 image map: greedy over B 64, and the hierarchical
+    # attention's children tiled to B·K rows under beam 10
+    (64, 196, 512, 512, [196] * 64, True, False),
+    (640, 196, 512, 512, [196] * 640, False, False)])
 def test_bahdanau_cluster_plans(cuda_device, batch, time, att, dim, lengths,
                                 staged, resident):
     """K2's clusters against the plain version: one launch, the plan the
@@ -751,6 +755,53 @@ def test_training_step_on_card_matches_cpu(cuda_device, monkeypatch, fused):
     for key, g in grads.items():
         torch.testing.assert_close(g, ref_grads[key], atol=1e-5, rtol=1e-4,
                                    msg=key)
+
+
+def test_sampled_decode_on_the_card_scores_as_on_the_cpu(cuda_device,
+                                                         monkeypatch):
+    """``sample_outputs`` on the card (K1, K2 each step, the draws from
+    a generator on the card): valid ids, PAD after END; the same ids
+    forced through the CPU's plain steps give the same summed log-probs
+    (1e-4) and the same ids back."""
+    from neuralmonkey_tpu_torch.vocabulary import (END_TOKEN_INDEX,
+                                                   PAD_TOKEN_INDEX)
+    vocab = Vocabulary([f"w{i}" for i in range(60)])
+    enc = SentenceEncoder(name="encoder", vocabulary=vocab, data_id="source",
+                          embedding_size=16, rnn_size=24, max_input_len=7)
+    att = Attention(name="attention", encoder=enc, state_size=20)
+    dec = Decoder(name="decoder", vocabulary=vocab, data_id="target",
+                  max_output_len=12, rnn_size=24, encoders=[enc],
+                  attentions=[att], embedding_size=16, conditional_gru=True)
+    params = init_all_params(collect_parts([dec]), seed=3)
+    params["decoder"]["logit"]["b"][END_TOKEN_INDEX] = 2.0
+    gen = torch.Generator().manual_seed(0)
+    mask = torch.ones(8, 7)
+    mask[1, 5:] = 0
+    batch = {"encoder_input.ids": torch.randint(4, 64, (8, 7), generator=gen,
+                                                dtype=torch.int32),
+             "encoder_input.mask": mask}
+
+    def on(device, tree):
+        if isinstance(tree, dict):
+            return {k: on(device, v) for k, v in tree.items()}
+        return tree.to(device)
+    kernel_config.reset_launch_counts()
+    ids, logprob = dec.sample_outputs(Context(
+        on(cuda_device, params), on(cuda_device, batch), rng=1))
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert counts["gru_scan"] == 1 and counts["fused_bahdanau_step"] > 0
+    ids, logprob = ids.cpu(), logprob.cpu()
+    assert bool(((ids >= 0) & (ids < len(vocab))).all())
+    ended = (ids == END_TOKEN_INDEX).int().cumsum(1)
+    after = torch.cat([torch.zeros(8, 1, dtype=torch.int32),
+                       ended[:, :-1]], dim=1) > 0
+    assert bool((ids[after] == PAD_TOKEN_INDEX).all())
+    columns = iter(ids.unbind(1))
+    monkeypatch.setattr(dec, "draw_samples", lambda lp, g: next(columns))
+    ref_ids, ref_logprob = dec.sample_outputs(Context(params, batch, rng=1))
+    assert torch.equal(ref_ids, ids)
+    torch.testing.assert_close(logprob, ref_logprob, atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.parametrize("batch,n,k", [(3, 32, 4), (64, 2400, 10),

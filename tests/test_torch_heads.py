@@ -271,8 +271,12 @@ def test_stateful_filler_featurizes_as_jax():
 
 
 def test_spatial_filler_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        SpatialFiller("maps", input_shape=[2, 2, 3], data_id="maps")
+    """Its queue item (A10) is done: the filler builds, and refuses a
+    shape that is not (height, width, depth)."""
+    assert SpatialFiller("maps", input_shape=[2, 2, 3],
+                         data_id="maps").state_dim == 3
+    with pytest.raises(ValueError, match="height, width, depth"):
+        SpatialFiller("maps", input_shape=[2, 3], data_id="maps")
 
 
 def test_regressor_outputs_loss_and_gradients_match_jax():

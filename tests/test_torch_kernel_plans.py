@@ -744,6 +744,22 @@ def test_bahdanau_plan_fits_the_card(batch, time, att, dim):
                              and held <= 8)
 
 
+@pytest.mark.parametrize("batch,cluster,staged", [(64, 4, True),
+                                                  (640, 1, False)])
+def test_bahdanau_plan_at_the_image_shapes(batch, cluster, staged):
+    """A 14 x 14 x 512 image map projected to 512, attention 512: greedy
+    at B 64 takes clusters of 4, 49 positions a block, the operands
+    staged; the hierarchical children under beam 10 (B 640) take one
+    block a row, the 2 + 196 operand rows of 512 read in place (405 KB
+    would not fit). The states are streamed at both (T 196 is past what
+    a thread holds)."""
+    plan = _bahdanau_plan(batch, 196, 512, 512)
+    assert (plan.cluster, plan.staged, plan.resident) == (cluster, staged,
+                                                          False)
+    assert plan.positions == 196 // cluster and plan.grid == batch * cluster
+    assert plan.smem_bytes <= H100_SMEM
+
+
 def test_bahdanau_plan_fills_the_card_at_the_bench_shape():
     """B 64, T 32, A 512, D 1024: clusters of 4, 256 blocks on the 132
     SMs (the first design had 64), each with 8 positions, whose 16 KB of
