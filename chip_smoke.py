@@ -156,7 +156,43 @@ Phases (any failure raises and the script exits non-zero):
    cross-entropy at 0.5, clip 1.0, Adam; K1, the BPTT, K2, K3 and K4 must
    launch; finite losses), then one step on 8 sentences against the
    CPU, which replays the card's sampled and greedy ids, by phase 12's
-   float64 rule.
+   float64 rule;
+21. CNN: the flagship model with ``SentenceCNNEncoder`` as its encoder at
+   the widths of Lee, Cho & Hofmann (2017: filter widths 1-8 with 200,
+   200, 250, 250, 300, 300, 300 and 300 filters, 4 highway layers) under
+   a BiGRU of 512 decodes the 128 sentences greedily and with beam 10
+   through ``run`` (K1-K4 must launch), 8 of them against the CPU by
+   phase 5's rule; it trains 4 steps through ``train`` (K1, the BPTT and
+   K2 must launch) and one step against the CPU by phase 12's float64
+   rule; Kim's (2014) classifier (``SequenceCNNEncoder``, embeddings
+   300, widths 3, 4 and 5 with 100 filters each, ``Classifier`` at
+   keep-prob 0.5, 30000 words) labels 64 sentences on the card as on
+   the CPU (differing only where the CPU's top-two gap is below 1e-3);
+   one ``CNNEncoder`` forward over 64 images of 224 x 224 x 3 (two 3 x 3
+   convolutions of 64, a 2 x 2 max-pool, a strided 3 x 3 convolution of
+   128, instance norm) against the CPU; sentence_cnn.ini and
+   classifier.ini train on the card to their gates;
+22. MoE: bench.py's Transformer with 8 experts, top-2 routing at capacity
+   factor 1.5 in every FFN, decodes the 128 sentences greedily and with
+   beam 10 through ``run`` in both lineage forms, 8 of them against the
+   CPU by phase 5's rule in each form; it trains 8 steps of
+   ``DelayedUpdateTrainer`` (k = 2, noam, router noise 0.01, z-loss
+   0.001) through ``train`` with a falling loss, and one step with the
+   noise off against the CPU by phase 12's float64 rule; the flash
+   kernels, K3, K4 and the lineage attention must launch; moe.ini trains
+   on the card to its gate;
+23. speech: ``RawRNNEncoder`` (a BiGRU of 512) over 40 log-mel-sized
+   features under ``CTCDecoder`` (a 32-symbol vocabulary), batch 32 of
+   400 frames, decodes 128 synthetic utterances greedily and with the
+   prefix beam search at beam 8 through ``run`` (K1 must launch); 32 of
+   them on the card and the CPU: equal greedy ids, or a first differing
+   frame where the CPU's top-two gap is below 1e-3, and the beam's best
+   prefixes equal, or the searches first choosing differently where the
+   CPU's gap to the next candidate is below 1e-3; it trains 4 steps
+   through ``train`` (K1 and the BPTT must launch) and one step against
+   the CPU by phase 12's float64 rule; ctc.ini (WER < 0.8) and
+   audio_classifier.ini (AccuracySeqLevel > 0.5) train on the card on
+   the WAVs of tests/data to their gates.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -291,21 +327,24 @@ def import_everything() -> None:
         experiment, run, server, train)
     from neuralmonkey_tpu_torch.model import part  # noqa: F401
     from neuralmonkey_tpu_torch.models.decoders import (  # noqa: F401
-        beam_search_decoder, sequence_labeler, sequence_regressor,
-        transformer, word_alignment_decoder)
+        beam_search_decoder, classifier, ctc_decoder, sequence_labeler,
+        sequence_regressor, transformer, word_alignment_decoder)
     from neuralmonkey_tpu_torch.models.attention import \
         combination  # noqa: F401
-    from neuralmonkey_tpu_torch.models.encoders import \
-        numpy_stateful_filler  # noqa: F401
-    from neuralmonkey_tpu_torch.readers import numpy_reader  # noqa: F401
+    from neuralmonkey_tpu_torch.models.encoders import (  # noqa: F401
+        cnn_encoder, numpy_stateful_filler, raw_rnn_encoder,
+        sentence_cnn_encoder, sequence_cnn_encoder)
+    from neuralmonkey_tpu_torch.readers import (  # noqa: F401
+        audio_reader, numpy_reader)
     from neuralmonkey_tpu_torch.runners import (  # noqa: F401
-        label_runner, perplexity_runner, regression_runner,
+        label_runner, perplexity_runner, plain_runner, regression_runner,
         word_alignment_runner)
+    from neuralmonkey_tpu_torch.evaluators import wer  # noqa: F401
     from neuralmonkey_tpu_torch.models.encoders import \
         transformer as _  # noqa: F401
     from neuralmonkey_tpu_torch.ops import (  # noqa: F401
         beam_select, cuda_attention, cuda_rnn, flash_attention, fused_xent,
-        kernel_config, lineage_attention, nn)
+        kernel_config, lineage_attention, moe, nn)
     from neuralmonkey_tpu_torch.trainers import (  # noqa: F401
         delayed_update_trainer, rl_trainer)
     from neuralmonkey_tpu_torch.utils import saving  # noqa: F401
@@ -1751,9 +1790,12 @@ def mean_lengths(outputs):
             for name, lines in outputs.items()}
 
 
-def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix=""):
+def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix="",
+                  batch: int = BATCH, warm_up: bool = True):
     """Sentences/s and peak memory of each runner over the test data on
-    ``exp``'s model restored from ``ckpt``, after a warm-up pass."""
+    ``exp``'s model restored from ``ckpt`` in batches of ``batch``, after
+    a warm-up pass (``warm_up=False`` where a ``run`` of the same runners
+    in this process has just warmed them)."""
     import torch
 
     from neuralmonkey_tpu_torch import run
@@ -1762,11 +1804,12 @@ def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix=""):
     dataset = run.load_data_config(data_ini)[0]
     speed = {}
     for runner in runners:
-        exp.tf_manager.execute(dataset, [runner], BATCH)  # warm-up
+        if warm_up:
+            exp.tf_manager.execute(dataset, [runner], batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         start = time.perf_counter()
-        exp.tf_manager.execute(dataset, [runner], BATCH)
+        exp.tf_manager.execute(dataset, [runner], batch)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         speed[runner.output_series + suffix] = {
@@ -2300,7 +2343,7 @@ def run_training(tmp: str, train_ini: str, fused: bool, name: str = "train",
 def check_train_parity(train_ini: str, ckpt: str,
                        parts=("encoder", "attention", "decoder"),
                        float64: bool = False, check: bool = True,
-                       hook=None):
+                       hook=None, changes=()):
     """Loss and every parameter gradient of one step from ``ckpt`` on 8
     sentences, the dropout of ``parts`` off (attention dropout, where a
     part has it, stays on: the keep hash draws the same mask on both
@@ -2325,14 +2368,16 @@ def check_train_parity(train_ini: str, ckpt: str,
     under (``spread_needed``); ``check=False`` reports without raising
     (``scripts/grad_rule_faults.py`` reads planted faults so);
     ``hook(experiment)`` runs on each pass's model before its step, the
-    card's passes first."""
+    card's passes first; ``changes`` are further configuration changes of
+    every pass."""
     import torch
 
     from neuralmonkey_tpu_torch.dataset import BatchingScheme
     from neuralmonkey_tpu_torch.experiment import Experiment
     from neuralmonkey_tpu_torch.utils.saving import flatten_tree
 
-    changes = [f"{part}.dropout_keep_prob=1.0" for part in parts]
+    changes = [f"{part}.dropout_keep_prob=1.0" for part in parts] + list(
+        changes)
     plain_relu = torch.relu
 
     def cast(tree, dtype):
@@ -2820,7 +2865,6 @@ def check_task_heads(tmp: str):
 
     from neuralmonkey_tpu_torch.experiment import Experiment
     from neuralmonkey_tpu_torch.model.part import Context
-    from neuralmonkey_tpu_torch.ops import kernel_config
 
     with open(os.path.join(tmp, "tags.txt"), "w") as f:
         f.write("\n".join(f"t{i}" for i in range(N_TAGS)) + "\n")
@@ -2875,12 +2919,27 @@ def check_task_heads(tmp: str):
         raise AssertionError(f"labeler tags differ where the CPU's top-two "
                              f"gap is {float(gaps.max())} >= {MARGIN}")
 
-    compare = {">": lambda a, b: a > b, "<": lambda a, b: a < b}
+    return train_to_gates(tmp, INI_GATES, report), report
+
+
+def train_to_gates(tmp: str, gates, report):
+    """Train each INI of tests/configs in ``gates`` (INI, metric,
+    comparison, limit, kernels) on the card with the launch counts set to
+    0 just before it: a falling loss, its last validation's metric past
+    the limit, every kernel named launched. Adds each run's record to
+    ``report``; returns the runs' summed launches."""
+    import torch
+
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.ops import kernel_config
+
+    compare = {">": lambda a, b: a > b, "<": lambda a, b: a < b,
+               ">=": lambda a, b: a >= b}
     launches = None
     cwd = os.getcwd()
     os.chdir(REPO)  # the INIs name their data relative to the checkout
     try:
-        for name, metric, op, limit, kernels in INI_GATES:
+        for name, metric, op, limit, kernels in gates:
             out = os.path.join(tmp, f"ini_{name}")
             exp = Experiment(os.path.join(REPO, "tests", "configs", name),
                              train_mode=True, config_changes=[
@@ -2915,7 +2974,7 @@ def check_task_heads(tmp: str):
                                      f"{missing}")
     finally:
         os.chdir(cwd)
-    return launches, report
+    return launches
 
 
 # ---------------------------------------------------------------------- #
@@ -3351,6 +3410,671 @@ def check_self_critical(tmp: str):
         sc_ini, best, float64=True, hook=sampling_replay())}
     return launches, report
 
+# ---------------------------------------------------------------------- #
+# phases 21-23: the CNN encoders, the MoE Transformer and CTC speech
+# ---------------------------------------------------------------------- #
+def swap_section(text: str, name: str, section: str) -> str:
+    """``text`` with its INI section ``[name]`` replaced by ``section``."""
+    start = text.index(f"[{name}]\n")
+    end = text.find("\n[", start)
+    return text[:start] + section + (text[end + 1:] if end >= 0 else "")
+
+
+def first_lines(tmp: str, names, count: int, prefix: str) -> None:
+    """Copy the first ``count`` lines of each file ``names`` under ``tmp``
+    to ``{prefix}{name}``."""
+    for name in names:
+        with open(os.path.join(tmp, name)) as f:
+            lines = f.readlines()[:count]
+        with open(os.path.join(tmp, prefix + name), "w") as f:
+            f.writelines(lines)
+
+
+def timed(seconds, key: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds stored as
+    ``seconds[key]``."""
+    start = time.perf_counter()
+    out = fn(*args, **kwargs)
+    seconds[key] = time.perf_counter() - start
+    return out
+
+
+def add_launches(total, counts):
+    return counts if total is None else {k: n + counts[k]
+                                         for k, n in total.items()}
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def relative_err(got, ref) -> float:
+    return max_err(got, ref) / max(float(ref.abs().max()), 1e-30)
+
+
+# Lee, Cho & Hofmann (2017): filter widths 1-8, 2100 filters in all
+LEE_FILTERS = [(1, 200), (2, 200), (3, 250), (4, 250), (5, 300), (6, 300),
+               (7, 300), (8, 300)]
+CNN_TRAINING_KERNELS = ("gru_scan", "gru_bptt", "fused_bahdanau_step")
+CNN_ENCODER = """\
+[encoder]
+class=encoders.sentence_cnn_encoder.SentenceCNNEncoder
+name="sentence_encoder"
+filters={filters}
+highway_depth=4
+rnn_size={rnn}
+max_input_len={src_len}
+embedding_size={emb}
+dropout_keep_prob={keep}
+data_id="source"
+vocabulary=<vocabulary>
+
+"""
+N_KIM_LABELS = 5
+# Kim (2014): embeddings 300, widths 3, 4 and 5 with 100 filters each,
+# dropout 0.5 before the softmax
+KIM_INI = """\
+[main]
+name="chip smoke classifier"
+tf_manager=<tf_manager>
+output="{tmp}/kim_out"
+batch_size={batch}
+runners=[<runner>]
+random_seed={seed}
+
+[tf_manager]
+class=tf_manager.TensorFlowManager
+num_sessions=1
+
+[vocabulary]
+class=vocabulary.from_wordlist
+path="{tmp}/words.txt"
+
+[labels]
+class=vocabulary.from_wordlist
+path="{tmp}/kim_labels.txt"
+
+[encoder]
+class=encoders.sequence_cnn_encoder.SequenceCNNEncoder
+name="encoder"
+embedding_size=300
+filters=[(3, 100), (4, 100), (5, 100)]
+max_input_len={src_len}
+data_id="source"
+vocabulary=<vocabulary>
+
+[classifier]
+class=decoders.classifier.Classifier
+name="classifier"
+encoders=[<encoder>]
+data_id="label"
+vocabulary=<labels>
+dropout_keep_prob=0.5
+
+[runner]
+class=runners.plain_runner.PlainRunner
+decoder=<classifier>
+output_series="label"
+"""
+# a VGG-style stack over 224 x 224 x 3 images
+CNN_IMAGE, CNN_SPEC = (224, 224, 3), [("C", 3, 1, 64), ("C", 3, 1, 64),
+                                      ("M", 2, 2), ("C", 3, 2, 128)]
+
+
+def kim_labels(tmp: str):
+    """Kim's classifier over phase 4's first 64 sentences: the labels on
+    the card equal to the CPU's, or different only where the CPU's
+    top-two logit gap is below 1e-3."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.model.part import Context
+
+    with open(os.path.join(tmp, "kim_labels.txt"), "w") as f:
+        f.write("\n".join(f"l{i}" for i in range(N_KIM_LABELS)) + "\n")
+    ini = os.path.join(tmp, "kim.ini")
+    with open(ini, "w") as f:
+        f.write(KIM_INI.format(tmp=tmp, batch=BATCH, seed=SEED,
+                               src_len=SRC_LEN))
+    dataset = run.load_data_config(os.path.join(tmp, "data.ini"))[0].subset(
+        0, BATCH)
+    ckpt = None
+
+    def logits(change):
+        nonlocal ckpt
+        exp = Experiment(ini, train_mode=False, config_changes=change)
+        exp.build_model()
+        if ckpt is None:
+            ckpt = exp.tf_manager.save(os.path.join(tmp, "kim_params"))
+        exp.tf_manager.restore(ckpt)
+        batch, _ = exp.tf_manager.build_batch(dataset, BATCH)
+        classifier = exp.model.runners[0].decoder
+        with torch.inference_mode():
+            return classifier.logits(Context(exp.tf_manager.params,
+                                             batch)).cpu()
+    gpu, cpu = logits([]), logits(['tf_manager.device="cpu"'])
+    differ = gpu.argmax(-1) != cpu.argmax(-1)
+    top2 = cpu.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1])[differ]
+    report = {"sentences": BATCH, "differing": int(differ.sum()),
+              "logits_max_abs_err": max_err(gpu, cpu),
+              "largest_gap_where_differing":
+                  float(gaps.max()) if len(gaps) else None}
+    log(f"kim classifier: {report}")
+    if len(gaps) and not float(gaps.max()) < MARGIN:
+        raise AssertionError(f"Kim classifier labels differ where the CPU's "
+                             f"top-two gap is {float(gaps.max())}")
+    return report
+
+
+def cnn_images_forward(device):
+    """One ``CNNEncoder`` forward over 64 images of 224 x 224 x 3 on the
+    card against the CPU: the states and the pooled output within 1e-4
+    of their largest entry; the card's forward timed."""
+    import torch
+
+    from neuralmonkey_tpu_torch.model.part import (Context, collect_parts,
+                                                   init_all_params)
+    from neuralmonkey_tpu_torch.models.encoders.cnn_encoder import CNNEncoder
+
+    enc = CNNEncoder(name="cnn", data_id="images", convolutions=CNN_SPEC,
+                     image_height=CNN_IMAGE[0], image_width=CNN_IMAGE[1],
+                     pixel_dim=CNN_IMAGE[2], batch_normalize=True)
+    params = init_all_params(collect_parts([enc]), seed=SEED)
+    images = torch.rand(BATCH, *CNN_IMAGE,
+                        generator=torch.Generator().manual_seed(SEED + 21))
+
+    def forward(dev_params, dev_images):
+        with torch.inference_mode():
+            ctx = Context(dev_params, {"cnn.images": dev_images})
+            return enc.spatial_states(ctx), enc.output(ctx)
+    gpu_params = to_device(params, device)
+    gpu_images = images.to(device)
+    states, out = forward(gpu_params, gpu_images)
+    ref_states, ref_out = forward(params, images)
+    errs = {"spatial_states": relative_err(states.cpu(), ref_states),
+            "output": relative_err(out.cpu(), ref_out)}
+    report = {"images": list((BATCH, *CNN_IMAGE)),
+              "states": list(states.shape), "relative_err": errs,
+              "ms": time_ms(lambda: forward(gpu_params, gpu_images), runs=5)}
+    log(f"cnn encoder forward: {report}")
+    if not max(errs.values()) <= 1e-4:
+        raise AssertionError(f"CNNEncoder on the card differs from the CPU: "
+                             f"{errs}")
+    return report
+
+
+def check_cnn(tmp: str, device):
+    """Phase 21. Returns (the launches of its runs, report)."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    widths = dict(rnn=RNN, src_len=SRC_LEN, emb=EMB, filters=LEE_FILTERS)
+    with open(os.path.join(tmp, "exp.ini")) as f:
+        text = f.read()
+    exp_ini = os.path.join(tmp, "cnn_exp.ini")
+    with open(exp_ini, "w") as f:
+        f.write(swap_section(text, "encoder",
+                             CNN_ENCODER.format(keep=1.0, **widths)))
+    data_ini = os.path.join(tmp, "cnn_data.ini")
+    with open(data_ini, "w") as f:
+        f.write(DATA_INI.format(tmp=tmp, prefix="cnn_"))
+    seconds = {}
+    exp = Experiment(exp_ini, train_mode=False)
+    exp.build_model()
+    ckpt = exp.tf_manager.save(os.path.join(tmp, "cnn_params"))
+    launches, lines = timed(
+        seconds, "run", serve_through_run, exp_ini, data_ini, ckpt,
+        SERVING_KERNELS,
+        [os.path.join(tmp, f"cnn_{name}.txt") for name in ("greedy", "beam")],
+        "cnn serving")
+    report = {"seconds": seconds, "serving": {
+        "mean_output_tokens": mean_lengths(lines),
+        "speed": serving_speed(exp, ckpt, data_ini, exp.model.runners,
+                               warm_up=False),
+        "launches": {k: launches[k] for k in SERVING_KERNELS}}}
+    report["parity"] = timed(seconds, "parity", check_parity, exp_ini,
+                             data_ini, exp, ckpt)
+    del exp
+
+    first_lines(tmp, ("train.src", "train.tgt"), 4 * BATCH, "cnn_")
+    with open(os.path.join(tmp, "train.ini")) as f:
+        text = f.read()
+    text = (swap_section(text, "encoder",
+                         CNN_ENCODER.format(keep=KEEP_PROB, **widths))
+            .replace(f'"{tmp}/train.', f'"{tmp}/cnn_train.')
+            .replace("logging_period=5", "logging_period=2"))
+    train_ini = os.path.join(tmp, "cnn_train.ini")
+    with open(train_ini, "w") as f:
+        f.write(text)
+    counts, report["training"], best = timed(
+        seconds, "training", run_training, tmp, train_ini, False,
+        "cnn_train", CNN_TRAINING_KERNELS)
+    launches = add_launches(launches, counts)
+    report["training_parity"] = timed(seconds, "training_parity",
+                                      check_train_parity, train_ini, best,
+                                      float64=True)
+    report["kim_classifier"] = timed(seconds, "kim", kim_labels, tmp)
+    report["cnn_encoder_images"] = timed(seconds, "cnn_encoder",
+                                         cnn_images_forward, device)
+    gates = (("sentence_cnn.ini", "target/BLEU-4", ">=", 0.0,
+              CNN_TRAINING_KERNELS),
+             ("classifier.ini", "label/AccuracySeqLevel", ">=", 0.0, ()))
+    launches = add_launches(launches, timed(
+        seconds, "gates", train_to_gates, tmp, gates, report))
+    return launches, report
+
+
+MOE_EXPERTS, MOE_TRAIN_STEPS = 8, 8
+MOE_OPTIONS = """\
+moe_experts={experts}
+moe_top_k=2
+moe_capacity_factor=1.5
+moe_router_noise={noise}
+moe_z_loss_weight=0.001
+"""
+
+
+def write_moe_ini(tmp: str, name: str, main_section: str, keep: float,
+                  att_keep: float, noise: float) -> str:
+    """bench.py's Transformer (``write_transformer_ini``) with a mixture
+    of 8 experts, top-2 at capacity factor 1.5, in every FFN."""
+    path = write_transformer_ini(tmp, name, main_section, keep, att_keep)
+    with open(path) as f:
+        text = f.read()
+    options = MOE_OPTIONS.format(experts=MOE_EXPERTS, noise=noise)
+    for key in ("n_heads", "n_heads_self"):
+        line = f"\n{key}={T_HEADS}\n"
+        if text.count(line) != 1:
+            raise AssertionError(f"{name}: no single {line.strip()}")
+        text = text.replace(line, line + options)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def check_moe(tmp: str):
+    """Phase 22. Returns (the launches of its runs, report)."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    exp_ini = write_moe_ini(tmp, "moe_exp.ini", T_SERVING_MAIN, 1.0, 1.0, 0.0)
+    data_ini = os.path.join(tmp, "moe_data.ini")
+    with open(data_ini, "w") as f:
+        f.write(DATA_INI.format(tmp=tmp, prefix="moe_"))
+    seconds = {}
+    exp = Experiment(exp_ini, train_mode=False)
+    exp.build_model()
+    ckpt = exp.tf_manager.save(os.path.join(tmp, "moe_params"))
+    outputs = [os.path.join(tmp, f"moe_{name}.txt")
+               for name in ("greedy", "beam")]
+    launches, einsum_out = timed(
+        seconds, "run", serve_through_run, exp_ini, data_ini, ckpt,
+        T_SERVING_KERNELS, outputs, "moe serving")
+    speed = serving_speed(exp, ckpt, data_ini, exp.model.runners,
+                          warm_up=False)
+    parity = {"einsum": timed(seconds, "parity", check_parity, exp_ini,
+                              data_ini, exp, ckpt)}
+    os.environ["NM_LINEAGE_KERNEL"] = "1"
+    try:
+        counts, kernel_out = timed(
+            seconds, "run_lineage_kernel", serve_through_run, exp_ini,
+            data_ini, ckpt, T_SERVING_KERNELS + ("lineage_attention",),
+            outputs, "moe serving, NM_LINEAGE_KERNEL=1")
+        speed.update(serving_speed(exp, ckpt, data_ini,
+                                   exp.model.runners[1:],
+                                   " (lineage kernel)", warm_up=False))
+        parity["lineage_kernel"] = timed(
+            seconds, "parity_lineage_kernel", check_parity, exp_ini,
+            data_ini, exp, ckpt)
+    finally:
+        os.environ.pop("NM_LINEAGE_KERNEL")
+    launches = add_launches(launches, counts)
+    same = sum(a == b for a, b in zip(einsum_out["moe_beam.txt"],
+                                      kernel_out["moe_beam.txt"]))
+    report = {"experts": MOE_EXPERTS, "seconds": seconds, "serving": {
+        "mean_output_tokens": mean_lengths(einsum_out), "speed": speed,
+        "beam_forms_identical": f"{same}/{N_SENTENCES}"}, "parity": parity}
+    del exp
+
+    first_lines(tmp, ("train.src", "train.tgt"), MOE_TRAIN_STEPS * BATCH,
+                "moe_")
+    train_ini = write_moe_ini(tmp, "moe_train.ini", T_TRAINING_MAIN, 0.9,
+                              T_ATT_KEEP, 0.01)
+    with open(train_ini) as f:
+        text = f.read()
+    with open(train_ini, "w") as f:
+        f.write(text.replace(f'"{tmp}/train.', f'"{tmp}/moe_train.')
+                .replace("logging_period=5", "logging_period=2"))
+    counts, report["training"], best = timed(
+        seconds, "training", run_training, tmp, train_ini, False,
+        "moe_train", FLASH_KERNELS)
+    launches = add_launches(launches, counts)
+    # the router noise off: each framework draws its own numbers
+    report["training_parity"] = timed(
+        seconds, "training_parity", check_train_parity, train_ini, best,
+        ("encoder", "decoder"), True,
+        changes=[f"{part}.moe_router_noise=0.0"
+                 for part in ("encoder", "decoder")])
+    gates = (("moe.ini", "target/BLEU-4", ">=", 0.0, FLASH_KERNELS),)
+    launches = add_launches(launches, timed(
+        seconds, "gates", train_to_gates, tmp, gates, report))
+    return launches, report
+
+
+S_FEATS, S_FRAMES, S_BATCH, S_BEAM, S_CHARS = 40, 400, 32, 8, 28
+S_LABELS = 40  # symbols in each transcript
+SPEECH_KERNELS = ("gru_scan", "gru_bptt")
+SPEECH_INI = """\
+[main]
+name="chip smoke speech"
+tf_manager=<tf_manager>
+output="{tmp}/speech_out"
+overwrite_output_dir=True
+batch_size={batch}
+epochs=1
+train_dataset=<train_data>
+val_dataset=<val_data>
+trainer=<trainer>
+runners=[<runner>, <bs_runner>]
+evaluation=[("transcript", evaluators.wer.WER)]
+logging_period=2
+validation_period=1000
+random_seed={seed}
+
+[tf_manager]
+class=tf_manager.TensorFlowManager
+num_sessions=1
+minimize_metric=True
+
+[vocabulary]
+class=vocabulary.from_wordlist
+path="{tmp}/chars.txt"
+
+[train_data]
+class=dataset.load_dataset_from_files
+s_speech=("{tmp}/speech_train.npy", readers.numpy_reader.single_tensor)
+s_transcript="{tmp}/speech_train.txt"
+lazy=False
+
+[val_data]
+class=dataset.load_dataset_from_files
+s_speech=("{tmp}/speech_val.npy", readers.numpy_reader.single_tensor)
+s_transcript="{tmp}/speech_val.txt"
+
+[encoder]
+class=encoders.raw_rnn_encoder.RawRNNEncoder
+name="encoder"
+data_id="speech"
+input_size={feats}
+rnn_size={rnn}
+
+[decoder]
+class=decoders.ctc_decoder.CTCDecoder
+name="decoder"
+encoder=<encoder>
+vocabulary=<vocabulary>
+data_id="transcript"
+
+[bs_decoder]
+class=decoders.ctc_decoder.CTCDecoder
+name="bs_decoder"
+reuse=<decoder>
+encoder=<encoder>
+vocabulary=<vocabulary>
+data_id="transcript"
+beam_width={beam}
+
+[trainer]
+class=trainers.cross_entropy_trainer.CrossEntropyTrainer
+decoders=[<decoder>]
+clip_norm=1.0
+optimizer=<adam>
+
+[adam]
+class=tf.train.AdamOptimizer
+learning_rate=0.005
+
+[runner]
+class=runners.plain_runner.PlainRunner
+decoder=<decoder>
+output_series="transcript"
+
+[bs_runner]
+class=runners.plain_runner.PlainRunner
+decoder=<bs_decoder>
+output_series="transcript_beam"
+"""
+SPEECH_DATA_INI = """\
+[main]
+test_datasets=[<test_data>]
+
+[test_data]
+class=dataset.load_dataset_from_files
+s_speech=("{tmp}/speech_{split}.npy", readers.numpy_reader.single_tensor)
+s_transcript_out="{out}/greedy.txt"
+s_transcript_beam_out="{out}/beam.txt"
+"""
+
+
+def write_speech_inputs(tmp: str):
+    """Synthetic utterances from the seed: 400 frames of 40 standard
+    normal features each (4 s at a 10 ms hop, log-mel-sized), 128 to
+    decode, 128 to train on (4 steps) and 64 to validate on, the latter
+    two with transcripts of 40 symbols of 28 (one length, so that the
+    batches' losses compare); the INI and the serving data INI."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 23)
+    with open(os.path.join(tmp, "chars.txt"), "w") as f:
+        f.write("\n".join(f"c{i}" for i in range(S_CHARS)) + "\n")
+    for split, count in (("test", N_SENTENCES), ("train", 4 * S_BATCH),
+                         ("val", N_VAL)):
+        np.save(os.path.join(tmp, f"speech_{split}.npy"),
+                rng.randn(count, S_FRAMES, S_FEATS).astype(np.float32))
+        with open(os.path.join(tmp, f"speech_{split}.txt"), "w") as f:
+            f.writelines(" ".join(f"c{i}" for i in rng.randint(
+                0, S_CHARS, S_LABELS)) + "\n" for _ in range(count))
+    ini = os.path.join(tmp, "speech.ini")
+    with open(ini, "w") as f:
+        f.write(SPEECH_INI.format(tmp=tmp, batch=S_BATCH, seed=SEED,
+                                  feats=S_FEATS, rnn=RNN, beam=S_BEAM))
+    os.makedirs(os.path.join(tmp, "speech_serve"), exist_ok=True)
+    data_ini = os.path.join(tmp, "speech_data.ini")
+    with open(data_ini, "w") as f:
+        f.write(SPEECH_DATA_INI.format(tmp=tmp, split="test", out=os.path.join(
+            tmp, "speech_serve")))
+    return ini, data_ini
+
+
+class SortLog:
+    """Stands in for ``torch`` in the CTC decoder's module and keeps the
+    values and indices of every sort over rows of ``width`` entries (the
+    prefix beam search's candidates), on the host."""
+
+    def __init__(self, width: int) -> None:
+        import torch
+        self._torch, self.width, self.log = torch, width, []
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def sort(self, x, *args, **kwargs):
+        out = self._torch.sort(x, *args, **kwargs)
+        if x.dim() == 2 and x.shape[1] == self.width:
+            self.log.append((out.values.cpu(), out.indices.cpu()))
+        return out
+
+
+def check_speech_parity(ini: str, data_ini: str, gpu_exp, ckpt: str):
+    """The first 32 utterances on the card and the CPU: greedy ids equal,
+    or their first differing frame argmax a near-tie on the CPU (top-two
+    gap below 1e-3); the beam's best prefixes equal, or the searches
+    first choosing differently (a valid frame, slot j) where the CPU's
+    gap between its candidates j and j + 1 is below 1e-3."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.model.part import Context
+    from neuralmonkey_tpu_torch.models.decoders import ctc_decoder
+
+    dataset = run.load_data_config(data_ini)[0].subset(0, S_BATCH)
+    cpu_exp = Experiment(ini, train_mode=False,
+                         config_changes=['tf_manager.device="cpu"'])
+    cpu_exp.build_model()
+    cpu_exp.tf_manager.restore(ckpt)
+    width = S_BEAM * (1 + S_CHARS + 4)
+
+    def decode(exp):
+        batch, _ = exp.tf_manager.build_batch(dataset, S_BATCH)
+        greedy, beam = (r.decoder for r in exp.model.runners)
+        sorts = SortLog(width)
+        ctc_decoder.torch = sorts
+        try:
+            with torch.inference_mode():
+                ctx = Context(exp.tf_manager.params, batch)
+                out = (greedy.logits(ctx), greedy.decoded(ctx),
+                       beam.beam_search(ctx)[0][:, 0],
+                       greedy.encoder.temporal_mask(ctx) > 0)
+                out = tuple(x.cpu() for x in out)
+        finally:
+            ctc_decoder.torch = torch
+        return out + (sorts.log,)
+    gpu = decode(gpu_exp)
+    cpu = decode(cpu_exp)
+    (cpu_logits, cpu_greedy, cpu_best, valid, cpu_sorts) = cpu
+    (gpu_logits, gpu_greedy, gpu_best, _, gpu_sorts) = gpu
+    report = {"utterances": S_BATCH,
+              "logits_max_abs_err": max_err(gpu_logits, cpu_logits)}
+    same = 0
+    for row in range(S_BATCH):
+        if torch.equal(cpu_greedy[row], gpu_greedy[row]):
+            same += 1
+            continue
+        frames = ((cpu_logits[row].argmax(-1) != gpu_logits[row].argmax(-1))
+                  & valid[row]).nonzero()
+        if not len(frames):
+            raise AssertionError(f"greedy CTC ids of utterance {row} differ "
+                                 "though every frame's argmax is the same")
+        frame = int(frames[0])
+        top2 = cpu_logits[row, frame].topk(2).values
+        gap = float(top2[0] - top2[1])
+        log(f"speech parity greedy: utterance {row} first differs at frame "
+            f"{frame}; CPU top-two gap {gap:.3g}")
+        if not gap < MARGIN:
+            raise AssertionError(f"greedy CTC ids of utterance {row} differ at "
+                                 f"frame {frame}, CPU gap {gap} >= {MARGIN}")
+    report["greedy"] = f"{same}/{S_BATCH} identical"
+    same = diverged = 0
+    for row in range(S_BATCH):
+        ids_same = torch.equal(cpu_best[row], gpu_best[row])
+        same += ids_same
+        first = next(((t, int((c[1][row, :S_BEAM] != g[1][row, :S_BEAM])
+                               .nonzero()[0]))
+                      for t, (c, g) in enumerate(zip(cpu_sorts, gpu_sorts))
+                      if valid[row, t] and not torch.equal(
+                          c[1][row, :S_BEAM], g[1][row, :S_BEAM])), None)
+        if first is None:
+            if not ids_same:
+                raise AssertionError(
+                    f"beam prefixes of utterance {row} differ though every "
+                    "frame chose the same candidates")
+            continue
+        diverged += 1
+        frame, slot = first
+        values = cpu_sorts[frame][0][row]
+        gap = float(values[slot] - values[slot + 1])
+        log(f"speech parity beam: utterance {row}: the searches first choose "
+            f"differently at frame {frame}, slot {slot}; CPU gap {gap:.3g}; "
+            f"best prefixes {'identical' if ids_same else 'differ'}")
+        if not gap < MARGIN:
+            raise AssertionError(
+                f"beam search of utterance {row} diverges at frame {frame}, "
+                f"slot {slot}, where the CPU's gap is {gap} >= {MARGIN}")
+    report["beam"] = (f"{same}/{S_BATCH} identical, {diverged} searches "
+                      "diverged at a near-tie")
+    log(f"speech parity: {report}")
+    return report
+
+
+def beam_ops_per_frame(exp, data_ini: str) -> float:
+    """Tensor operations a frame of the prefix beam search on one batch
+    of the card: a count of the dispatched operations (views included)
+    over the search, divided by its frames."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.model.part import Context
+    from neuralmonkey_tpu_torch.models.decoders import ctc_decoder
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            return func(*args, **(kwargs or {}))
+    dataset = run.load_data_config(data_ini)[0].subset(0, S_BATCH)
+    batch, _ = exp.tf_manager.build_batch(dataset, S_BATCH)
+    decoder = exp.model.runners[1].decoder
+    with torch.inference_mode():
+        ctx = Context(exp.tf_manager.params, batch)
+        log_probs = torch.log_softmax(decoder.logits(ctx), dim=-1)
+        valid = decoder.encoder.temporal_mask(ctx) > 0
+        count = Count()
+        with count:
+            ctc_decoder.ctc_beam_search(log_probs, valid, S_BEAM)
+    return count.ops / log_probs.shape[1]
+
+
+def check_speech(tmp: str):
+    """Phase 23. Returns (the launches of its runs, report)."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    seconds = {}
+    ini, data_ini = write_speech_inputs(tmp)
+    exp = Experiment(ini, train_mode=False)
+    exp.build_model()
+    ckpt = exp.tf_manager.save(os.path.join(tmp, "speech_params"))
+    launches, lines = timed(
+        seconds, "run", serve_through_run, ini, data_ini, ckpt, ("gru_scan",),
+        [os.path.join(tmp, "speech_serve", name)
+         for name in ("greedy.txt", "beam.txt")], "speech serving")
+    speed = serving_speed(exp, ckpt, data_ini, exp.model.runners,
+                          batch=S_BATCH, warm_up=False)
+    report = {"batch": S_BATCH, "frames": S_FRAMES, "features": S_FEATS,
+              "beam": S_BEAM, "seconds": seconds, "serving": {
+                  "mean_output_symbols": mean_lengths(lines),
+                  "utterances_per_s": {k: v["sentences_per_s"]
+                                       for k, v in speed.items()},
+                  "speed": speed}}
+    report["parity"] = timed(seconds, "parity", check_speech_parity, ini,
+                             data_ini, exp, ckpt)
+    report["serving"]["beam_ops_per_frame"] = beam_ops_per_frame(exp,
+                                                                 data_ini)
+    del exp
+    counts, report["training"], best = timed(
+        seconds, "training", run_training, tmp, ini, False, "speech_train",
+        SPEECH_KERNELS, SPEECH_DATA_INI.replace("{split}", "val"))
+    launches = add_launches(launches, counts)
+    with open(os.path.join(tmp, "speech_train_plain", "metrics.jsonl")) as f:
+        windows = [w for w in map(json.loads, f) if w["kind"] == "train"]
+    report["training"]["train_frames_per_sec"] = statistics.mean(
+        w["examples_per_sec"] * S_FRAMES for w in windows[1:])
+    report["training_parity"] = timed(seconds, "training_parity",
+                                      check_train_parity, ini, best,
+                                      ("encoder",), float64=True)
+    gates = (("ctc.ini", "transcript/WER", "<", 0.8, SPEECH_KERNELS),
+             ("audio_classifier.ini", "label/AccuracySeqLevel", ">", 0.5,
+              SPEECH_KERNELS))
+    launches = add_launches(launches, timed(
+        seconds, "gates", train_to_gates, tmp, gates, report))
+    log(f"speech: {report}")
+    return launches, report
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "neuralmonkey_tpu_torch")):
@@ -3469,6 +4193,12 @@ def main() -> int:
         r_launches, self_critical = phase("self-critical",
                                           check_self_critical, tmp)
         launches = {k: n + r_launches[k] for k, n in launches.items()}
+        c_launches, cnn = phase("cnn", check_cnn, tmp, device)
+        launches = add_launches(launches, c_launches)
+        e_launches, moe = phase("moe", check_moe, tmp)
+        launches = add_launches(launches, e_launches)
+        a_launches, speech = phase("speech", check_speech, tmp)
+        launches = add_launches(launches, a_launches)
         for name in CHUNKED_KERNELS:
             launches[name] += chunked[name].pop("launches")
 
@@ -3493,6 +4223,9 @@ def main() -> int:
         "task_heads": heads,
         "multimodal": multimodal,
         "self_critical": self_critical,
+        "cnn": cnn,
+        "moe": moe,
+        "speech": speech,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -16,7 +16,13 @@ slot writes its own rows, and the self-attention resolves the ancestry
 or, under ``NM_LINEAGE_KERNEL=1``, through the lineage attention kernel
 on caches in its layout (``ops/lineage_attention.py``).
 
-Not ported yet: mixture-of-experts FFNs (A12), pipeline stages (A15),
+With ``moe_experts > 1`` every FFN is a mixture of experts
+(``ops/moe.py``): teacher-forced layers route the target tokens with
+their capacity, padding masked out; every decode step (greedy, and both
+lineage forms) routes its rows as one group without dropping a token,
+the padding rows of a batch masked out (``row_valid``).
+
+Not ported yet: pipeline stages (A15),
 bf16 lineage caches (``NM_LINEAGE_KERNEL_BF16``, with the bf16 policy)
 and the attention map of the decode steps; each raises or is absent.
 """
@@ -33,14 +39,14 @@ import torch.nn.functional as F
 from ...model.part import Context, ModelPart, tensor
 from ...ops import nn
 from ...ops.attention import (NEG_INF, attention_bias_from_mask,
-                              dot_product_attention, ffn, ffn_init,
+                              dot_product_attention, ffn,
                               layer_norm, layer_norm_init, merge_heads,
                               mha_init, multi_head_attention,
                               seeded_dropout, sinusoidal_position_encoding,
                               split_heads)
 from ...ops.lineage_attention import (lane_window, lineage_attention,
                                       lineage_bias)
-from ..encoders.transformer import refuse_unported, run_layer
+from ..encoders.transformer import MoESettings, refuse_unported, run_layer
 from .autoregressive import AutoregressiveDecoder
 
 
@@ -96,9 +102,11 @@ class TransformerDecoder(AutoregressiveDecoder):
             label_smoothing=label_smoothing, supress_unk=supress_unk,
             reuse=reuse, save_checkpoint=save_checkpoint,
             load_checkpoint=load_checkpoint)
-        del (pipeline_microbatches, moe_top_k, moe_capacity_factor,
-             moe_aux_weight, moe_router_noise, moe_z_loss_weight)
-        refuse_unported(name, moe_experts, pipeline_stages)
+        del pipeline_microbatches
+        refuse_unported(name, pipeline_stages)
+        self.moe = MoESettings(moe_experts, moe_top_k, moe_capacity_factor,
+                               moe_aux_weight, moe_router_noise,
+                               moe_z_loss_weight)
         if encoders is None:
             encoders = [encoder] if encoder is not None else []
         self.encoders = encoders
@@ -124,7 +132,8 @@ class TransformerDecoder(AutoregressiveDecoder):
                 "self_att": mha_init(gen, self.model_dim, self.model_dim,
                                      self.model_dim),
                 "ln_ff": layer_norm_init(self.model_dim),
-                "ff": ffn_init(gen, self.model_dim, self.ff_hidden_size),
+                "ff": self.moe.ffn_init(gen, self.model_dim,
+                                        self.ff_hidden_size),
             }
             for e, enc in enumerate(self.encoders):
                 layer[f"ln_cross_{e}"] = layer_norm_init(self.model_dim)
@@ -147,9 +156,11 @@ class TransformerDecoder(AutoregressiveDecoder):
     # ------------------------------------------------------------------ #
     # teacher-forced training
     # ------------------------------------------------------------------ #
-    def _train_layer_fn(self, layer, x, all_keys_mask, enc_data, seeds):
+    def _train_layer_fn(self, layer, x, all_keys_mask, enc_data, seeds,
+                        moe_mask=None):
         """One decoder layer (self-attention, cross-attentions, FFN);
-        ``seeds`` holds the dropout seeds of its sites."""
+        ``seeds`` holds the dropout and router noise seeds of its sites.
+        With MoE FFNs it also returns the layer's auxiliary losses."""
         keep = self.dropout_keep_prob
         normed = layer_norm(layer["ln_self"], x)
         att = multi_head_attention(
@@ -165,6 +176,9 @@ class TransformerDecoder(AutoregressiveDecoder):
                 self.n_heads_enc, key_mask=enc_mask)
             x = x + seeded_dropout(cross, keep, seeds["res_cross"][e])
         normed = layer_norm(layer["ln_ff"], x)
+        if self.moe.on:
+            ff_out, aux = self.moe(layer["ff"], normed, moe_mask, seeds)
+            return x + seeded_dropout(ff_out, keep, seeds["res_ff"]), aux
         return x + seeded_dropout(ffn(layer["ff"], normed), keep,
                                   seeds["res_ff"])
 
@@ -180,7 +194,9 @@ class TransformerDecoder(AutoregressiveDecoder):
                 "res_self": seed(f"res_self_{i}", res_drop),
                 "res_cross": [seed(f"res_cross_{i}_{e}", res_drop)
                               for e in range(n_enc)],
-                "res_ff": seed(f"res_ff_{i}", res_drop)}
+                "res_ff": seed(f"res_ff_{i}", res_drop),
+                "moe_noise": seed(f"moe_noise_{i}",
+                                  self.moe.noisy(ctx.train))}
 
     @tensor
     def train_prelogit_states(self, ctx: Context):
@@ -197,10 +213,19 @@ class TransformerDecoder(AutoregressiveDecoder):
         enc_data = [(enc.temporal_states(ctx),
                      enc.temporal_mask(ctx).to(torch.float32))
                     for enc in self.encoders]
+        # padding tokens take no expert capacity and stay out of the
+        # auxiliary losses
+        moe_mask = self.train_mask(ctx) if self.moe.on else None
+        auxes = []
         for i in range(self.depth):
             x = run_layer(self._train_layer_fn, self.remat and ctx.train,
                           params[f"layer_{i}"], x, all_keys_mask, enc_data,
-                          self._train_layer_seeds(ctx, i, len(enc_data)))
+                          self._train_layer_seeds(ctx, i, len(enc_data)),
+                          moe_mask)
+            if self.moe.on:
+                x, aux = x
+                auxes.append(aux)
+        self.moe.add_losses(self, ctx, auxes)
         return layer_norm(params["ln_out"], x)
 
     @tensor
@@ -230,7 +255,9 @@ class TransformerDecoder(AutoregressiveDecoder):
         """Parameters, the embedding table, the position table, and per
         encoder and layer the cross-attention keys and values, projected
         once per sentence and split into heads (B, H, S, Dh), with the
-        source's additive bias (B, 1, 1, S)."""
+        source's additive bias (B, 1, 1, S); with MoE FFNs the validity
+        of each batch row (``row_valid``, (B,): a padding row has an
+        all-zero source mask)."""
         params = ctx.get_params(self)
         table = ctx.get_params(self.embeddings)["embeddings"]
         constants: Dict[str, Any] = {
@@ -251,6 +278,13 @@ class TransformerDecoder(AutoregressiveDecoder):
             constants["enc_kv"].append(per_layer)
             constants["enc_bias"].append(
                 attention_bias_from_mask(enc.temporal_mask(ctx)))
+        if self.moe.on:
+            if self.encoders:
+                constants["row_valid"] = self.encoders[0].temporal_mask(
+                    ctx).amax(dim=1).to(torch.float32)
+            else:  # a language model cannot tell its padding rows
+                constants["row_valid"] = table.new_ones(
+                    self._batch_size(ctx))
         return constants
 
     def tile_decode_constants_lineage(self, constants, k: int):
@@ -296,7 +330,8 @@ class TransformerDecoder(AutoregressiveDecoder):
     def _cross_ffn(self, layer, x, constants, i: int, beam: int = 1):
         """A decode layer's cross-attention(s) and FFN. With ``beam`` the
         rows are (sentence, slot) pairs and the K slots of a sentence
-        share its keys: the slots fold into the query axis."""
+        share its keys: the slots fold into the query axis, and a MoE
+        FFN takes each sentence's validity for its K rows."""
         heads = self.n_heads_enc
         rows = x.shape[0]
         for e in range(len(self.encoders)):
@@ -308,7 +343,11 @@ class TransformerDecoder(AutoregressiveDecoder):
                                           constants["enc_bias"][e])
             x = x + nn.linear(att_p["o"],
                               merge_heads(cross).reshape(rows, 1, -1))
-        return x + ffn(layer["ff"], layer_norm(layer["ln_ff"], x))
+        normed = layer_norm(layer["ln_ff"], x)
+        if self.moe.on:
+            row_valid = constants["row_valid"].repeat_interleave(beam)
+            return x + self.moe.decode(layer["ff"], normed, row_valid)
+        return x + ffn(layer["ff"], normed)
 
     def _finish(self, constants, x):
         x = layer_norm(constants["params"]["ln_out"], x)[:, 0, :]

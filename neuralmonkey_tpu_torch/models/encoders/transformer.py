@@ -9,8 +9,11 @@ layer runs under ``torch.utils.checkpoint`` in training; the layer
 takes its dropout seeds as arguments, drawn outside it, so the
 recomputation replays the same masks.
 
-Mixture-of-experts FFNs and pipeline stages are not ported yet (queues
-A12 and A15 of ROADMAP.md): setting them raises.
+With ``moe_experts > 1`` every FFN is a mixture of experts
+(``ops/moe.py``); in training the layers' load-balance and router
+z-losses, each averaged over the layers, join the objective as
+auxiliary losses. Pipeline stages are not ported yet (queue A15 of
+ROADMAP.md): setting them raises.
 """
 
 from __future__ import annotations
@@ -26,18 +29,14 @@ from ...model.stateful import TemporalStatefulWithOutput
 from ...ops.attention import (ffn, ffn_init, layer_norm, layer_norm_init,
                               mha_init, multi_head_attention,
                               seeded_dropout, sinusoidal_position_encoding)
+from ...ops.moe import moe_ffn, moe_init
 from ...vocabulary import Vocabulary
 
 _POSITION_TYPES = ("sinusoidal", "learned", "none")
 
 
-def refuse_unported(name: str, moe_experts: int,
-                    pipeline_stages: int) -> None:
+def refuse_unported(name: str, pipeline_stages: int) -> None:
     """Raise for the Transformer options the port does not have yet."""
-    if moe_experts > 1:
-        raise NotImplementedError(
-            f"{name}: mixture-of-experts FFNs (moe_experts > 1) are not "
-            "ported to neuralmonkey_tpu_torch yet (ROADMAP queue A12)")
     if pipeline_stages > 1:
         raise NotImplementedError(
             f"{name}: pipeline stages (pipeline_stages > 1) are not "
@@ -50,6 +49,71 @@ def run_layer(layer_fn, remat: bool, *args):
     if remat and torch.is_grad_enabled():
         return checkpoint(layer_fn, *args, use_reentrant=False)
     return layer_fn(*args)
+
+
+class MoESettings:
+    """The ``moe_*`` options of a Transformer part: with ``experts > 1``
+    every FFN of the part is a mixture of experts (``ops/moe.py``)."""
+
+    def __init__(self, experts: int, top_k: int, capacity_factor: float,
+                 aux_weight: float, router_noise: float,
+                 z_loss_weight: float) -> None:
+        self.experts = experts
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.aux_weight = aux_weight
+        self.router_noise = router_noise
+        self.z_loss_weight = z_loss_weight
+
+    @property
+    def on(self) -> bool:
+        return self.experts > 1
+
+    def noisy(self, train: bool) -> bool:
+        """Whether a training pass draws router noise."""
+        return train and self.on and self.router_noise > 0.0
+
+    def ffn_init(self, gen: torch.Generator, model_dim: int,
+                 hidden_dim: int) -> Dict[str, Any]:
+        if self.on:
+            return moe_init(gen, model_dim, hidden_dim, self.experts)
+        return ffn_init(gen, model_dim, hidden_dim)
+
+    def __call__(self, params: Dict[str, Any], x: torch.Tensor,
+                 mask: Optional[torch.Tensor], seeds: Dict[str, Any],
+                 dropout_keep_prob: float = 1.0):
+        """A training layer's mixture-of-experts FFN: (output, losses)."""
+        return moe_ffn(params, x, mask=mask, top_k=self.top_k,
+                       capacity_factor=self.capacity_factor,
+                       dropout_seed=seeds.get("ff"),
+                       dropout_keep_prob=dropout_keep_prob,
+                       router_noise=self.router_noise,
+                       noise_seed=seeds["moe_noise"])
+
+    def decode(self, params: Dict[str, Any], normed: torch.Tensor,
+               row_valid: torch.Tensor) -> torch.Tensor:
+        """An incremental decode step's FFN over (rows, 1, D): one group
+        of all rows routed without dropping a token (capacity = rows), so
+        that a sentence's output does not depend on the other rows of
+        its batch; ``row_valid`` (rows,) keeps the padding rows out."""
+        k = min(self.top_k, self.experts)
+        out, _ = moe_ffn(params, normed.transpose(0, 1),
+                         mask=row_valid[None, :], top_k=self.top_k,
+                         capacity_factor=self.experts / k)
+        return out.transpose(0, 1)
+
+    def add_losses(self, part: ModelPart, ctx: Context, auxes) -> None:
+        """The layers' balance and z-losses, each averaged over the
+        layers and weighted, as the auxiliary losses of a training
+        pass."""
+        if not (self.on and ctx.train):
+            return
+        depth = len(auxes)
+        ctx.add_aux_loss(part, "moe_balance", self.aux_weight * sum(
+            a["balance"] for a in auxes) / depth)
+        if self.z_loss_weight > 0.0:
+            ctx.add_aux_loss(part, "moe_z", self.z_loss_weight * sum(
+                a["z"] for a in auxes) / depth)
 
 
 class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
@@ -81,9 +145,8 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
                  load_checkpoint: str = None) -> None:
         ModelPart.__init__(self, name, reuse, save_checkpoint,
                            load_checkpoint)
-        del (pipeline_microbatches, moe_top_k, moe_capacity_factor,
-             moe_aux_weight, moe_router_noise, moe_z_loss_weight)
-        refuse_unported(name, moe_experts, pipeline_stages)
+        del pipeline_microbatches
+        refuse_unported(name, pipeline_stages)
         if input_sequence is None:
             if vocabulary is None or data_id is None \
                     or embedding_size is None:
@@ -112,6 +175,9 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         self.position_encoding = position_encoding
         self.max_position = max_position
         self.remat = remat
+        self.moe = MoESettings(moe_experts, moe_top_k, moe_capacity_factor,
+                               moe_aux_weight, moe_router_noise,
+                               moe_z_loss_weight)
 
     @property
     def state_dim(self) -> int:
@@ -132,7 +198,8 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
                 "att": mha_init(gen, self.model_dim, self.model_dim,
                                 self.model_dim),
                 "ln_ff": layer_norm_init(self.model_dim),
-                "ff": ffn_init(gen, self.model_dim, self.ff_hidden_size),
+                "ff": self.moe.ffn_init(gen, self.model_dim,
+                                        self.ff_hidden_size),
             }
         params["ln_out"] = layer_norm_init(self.model_dim)
         return params
@@ -152,8 +219,9 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         return states
 
     def _layer_fn(self, layer, states, mask, seeds):
-        """One encoder layer; ``seeds`` holds the dropout seeds of its
-        sites (None outside training)."""
+        """One encoder layer; ``seeds`` holds the dropout and router
+        noise seeds of its sites (None outside training). Returns the
+        states, and with MoE FFNs also the layer's auxiliary losses."""
         keep = self.dropout_keep_prob
         normed = layer_norm(layer["ln_att"], states)
         att_out = multi_head_attention(
@@ -163,6 +231,10 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
             key_mask=mask)
         states = states + seeded_dropout(att_out, keep, seeds["res_att"])
         normed = layer_norm(layer["ln_ff"], states)
+        if self.moe.on:
+            ff_out, aux = self.moe(layer["ff"], normed, mask, seeds,
+                                   dropout_keep_prob=keep)
+            return states + seeded_dropout(ff_out, keep, seeds["res_ff"]), aux
         ff_out = ffn(layer["ff"], normed, dropout_seed=seeds["ff"],
                      dropout_keep_prob=keep)
         return states + seeded_dropout(ff_out, keep, seeds["res_ff"])
@@ -178,7 +250,9 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         return {"att": seed(f"att_drop_{i}", att_drop),
                 "ff": seed(f"ff_drop_{i}", res_drop),
                 "res_att": seed(f"res_drop_att_{i}", res_drop),
-                "res_ff": seed(f"res_drop_ff_{i}", res_drop)}
+                "res_ff": seed(f"res_drop_ff_{i}", res_drop),
+                "moe_noise": seed(f"moe_noise_{i}",
+                                  self.moe.noisy(ctx.train))}
 
     @tensor
     def temporal_states(self, ctx: Context):
@@ -188,10 +262,15 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         states = self._add_positions(params, states)
         states = ctx.dropout(self, states, self.dropout_keep_prob,
                              "input_dropout")
+        auxes = []
         for i in range(self.depth):
             states = run_layer(self._layer_fn, self.remat and ctx.train,
                                params[f"layer_{i}"], states, mask,
                                self._layer_seeds(ctx, i))
+            if self.moe.on:
+                states, aux = states
+                auxes.append(aux)
+        self.moe.add_losses(self, ctx, auxes)
         states = layer_norm(params["ln_out"], states)
         # padding positions are zero for clean downstream pooling
         return states * mask[..., None]

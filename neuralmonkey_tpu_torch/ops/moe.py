@@ -1,0 +1,156 @@
+"""Mixture-of-experts FFN on one device (counterpart of
+``neuralmonkey_tpu/ops/moe.py``).
+
+A Transformer FFN becomes E expert FFNs and a learned router; each token
+goes to its top-k experts within a fixed capacity per expert. Routing is
+GShard's grouped dense dispatch: tokens are grouped (one group per batch
+row), the dispatch and combine tensors are one-hots ``(G, S, E, C)``,
+and the expert FFNs are einsums over them, as in the JAX package, which
+computes all of it outside any Pallas kernel.
+
+Routing is the JAX package's choice for choice: float32 router logits,
+top-k with the lowest expert index winning a tie (a stable sort), and
+the capacity positions from a slot-major cumulative sum, so that every
+token's first choice ranks before any token's second choice. A token
+past an expert's capacity gets nothing from it; the caller's residual
+connection carries it. The auxiliary losses are Switch Transformer's
+load balance, E · sum_e(load_e · mean_prob_e) (1 at perfect balance),
+and the router z-loss, the mean of logsumexp(logits)².
+
+Expert parallelism (the JAX package's ``enable_expert_sharding``,
+``constrain_dispatch`` and partition specs) is not ported (ROADMAP queue
+A15).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from . import nn
+from .attention import seeded_dropout
+
+
+def moe_init(gen: torch.Generator, model_dim: int, hidden_dim: int,
+             n_experts: int) -> Dict:
+    """The router and E stacked expert FFNs (leading axis = expert)."""
+    def stack_linear(in_dim, out_dim):
+        return {"w": torch.stack([nn.glorot_uniform(gen, (in_dim, out_dim))
+                                  for _ in range(n_experts)]),
+                "b": torch.zeros(n_experts, out_dim)}
+
+    return {"router": nn.linear_init(gen, model_dim, n_experts,
+                                     use_bias=False),
+            "in": stack_linear(model_dim, hidden_dim),
+            "out": stack_linear(hidden_dim, model_dim)}
+
+
+def moe_capacity(group_size: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Per-expert capacity of a token group."""
+    return max(1, min(group_size, int(math.ceil(
+        capacity_factor * top_k * group_size / n_experts))))
+
+
+def moe_combine_stats(stats: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """The balance and z losses from the routing sums (linear in the
+    tokens: the JAX package's pipeline adds them over microbatches
+    before combining)."""
+    count = stats["count"].clamp_min(1.0)
+    load = stats["top1_sum"] / count
+    prob_mean = stats["prob_sum"] / count
+    n_experts = stats["top1_sum"].shape[-1]
+    return {"balance": n_experts * (load * prob_mean).sum(),
+            "z": stats["z_sum"] / count}
+
+
+def top_k_lowest_index(x: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the k largest values, the
+    lowest index first among equal ones."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def moe_ffn(params: Dict, x: torch.Tensor,
+            mask: Optional[torch.Tensor] = None,
+            top_k: int = 2,
+            capacity_factor: float = 1.5,
+            activation: Optional[Callable] = None,
+            dropout_seed: Optional[int] = None,
+            dropout_keep_prob: float = 1.0,
+            router_noise: float = 0.0,
+            noise_seed: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mixture-of-experts position-wise FFN.
+
+    ``x`` is (G, S, D), group-major; ``mask`` (G, S) keeps padding
+    tokens out of dispatch and out of the losses. ``router_noise`` is
+    multiplicative jitter on the router input, uniform in [1 - eps,
+    1 + eps], drawn from ``noise_seed`` when one is given (training).
+    ``activation`` is the experts' hidden nonlinearity, ReLU when None.
+    Returns (output (G, S, D), {"balance", "z"} float32 scalars)."""
+    g, s, _ = x.shape
+    w_in, b_in = params["in"]["w"], params["in"]["b"]
+    w_out, b_out = params["out"]["w"], params["out"]["b"]
+    n_experts = w_in.shape[0]
+    k = min(top_k, n_experts)
+    cap = moe_capacity(s, n_experts, k, capacity_factor)
+
+    router_in = x.float()
+    if noise_seed is not None and router_noise > 0.0:
+        gen = torch.Generator(device=x.device).manual_seed(noise_seed)
+        router_in = router_in * torch.empty_like(router_in).uniform_(
+            1.0 - router_noise, 1.0 + router_noise, generator=gen)
+    logits = torch.einsum("gsd,de->gse", router_in,
+                          params["router"]["w"].float())
+    probs = torch.softmax(logits, dim=-1)
+
+    gate_vals, gate_idx = top_k_lowest_index(probs, k)      # (G, S, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    # one-hots by comparison: F.one_hot checks its indices on the host
+    experts = torch.arange(n_experts, device=x.device)
+    sel = (gate_idx[..., None] == experts).float()         # (G, S, k, E)
+    if mask is not None:
+        sel = sel * mask[..., None, None].float()
+
+    # capacity positions in slot-major order
+    sel_flat = sel.transpose(1, 2).reshape(g, k * s, n_experts)
+    pos = torch.cumsum(sel_flat, dim=1) - sel_flat
+    kept = sel_flat * (pos < cap)
+    # a position past the capacity has an all-zero one-hot
+    pos_oh = (pos.long()[..., None] == torch.arange(
+        cap, device=x.device)).float()
+    dispatch_flat = kept[..., None] * pos_oh                # (G, kS, E, C)
+    gates_flat = gate_vals.transpose(1, 2).reshape(g, k * s)
+    combine_flat = gates_flat[..., None, None] * dispatch_flat
+    # the k slots fold back onto the token axis
+    dispatch = dispatch_flat.reshape(g, k, s, n_experts, cap).sum(1)
+    combine = combine_flat.reshape(g, k, s, n_experts, cap).sum(1)
+
+    dispatch = dispatch.to(x.dtype)
+    combine = combine.to(x.dtype)
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
+    hidden = (activation or torch.relu)(
+        torch.einsum("egcd,edh->egch", expert_in, w_in)
+        + b_in[:, None, None, :])
+    hidden = seeded_dropout(hidden, dropout_keep_prob, dropout_seed)
+    expert_out = (torch.einsum("egch,ehd->egcd", hidden, w_out)
+                  + b_out[:, None, None, :])
+    y = torch.einsum("gsec,egcd->gsd", combine, expert_out)
+
+    top1 = sel[:, :, 0, :]                                  # (G, S, E)
+    z_sq = torch.logsumexp(logits, dim=-1) ** 2             # (G, S)
+    if mask is not None:
+        m = mask.float()
+        stats = {"top1_sum": top1.sum((0, 1)),
+                 "prob_sum": (probs * m[..., None]).sum((0, 1)),
+                 "count": m.sum(), "z_sum": (z_sq * m).sum()}
+    else:
+        stats = {"top1_sum": top1.sum((0, 1)), "prob_sum": probs.sum((0, 1)),
+                 "count": logits.new_tensor(float(g * s)),
+                 "z_sum": z_sq.sum()}
+    return y.to(x.dtype), moe_combine_stats(stats)

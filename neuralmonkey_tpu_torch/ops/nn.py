@@ -79,6 +79,23 @@ def maxout(params: Params, x: torch.Tensor,
     return y.amax(dim=-1)
 
 
+def highway_init(gen: torch.Generator, dim: int) -> Dict[str, Params]:
+    return {
+        "h": linear_init(gen, dim, dim),
+        # gate bias -1 leans the layer towards carrying its input
+        "t": {"w": glorot_uniform(gen, (dim, dim)),
+              "b": torch.full((dim,), -1.0)},
+    }
+
+
+def highway(params: Dict[str, Params], x: torch.Tensor,
+            activation: Callable = torch.tanh) -> torch.Tensor:
+    """Highway layer: ``h·t + x·(1 - t)`` with the transform gate ``t``."""
+    h = activation(linear(params["h"], x))
+    t = torch.sigmoid(linear(params["t"], x))
+    return h * t + x * (1.0 - t)
+
+
 def dropout(x: torch.Tensor, keep_prob: float,
             generator: torch.Generator, train: bool) -> torch.Tensor:
     """Inverted dropout: keeps each entry with probability

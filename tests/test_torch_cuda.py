@@ -1655,3 +1655,201 @@ def test_transformer_training_step_on_card_matches_cpu(cuda_device):
     for key, g in grads.items():
         torch.testing.assert_close(g, ref_grads[key], atol=1e-5, rtol=1e-4,
                                    msg=key)
+
+
+# ---------------------------------------------------------------------- #
+# the CNN encoders, the mixture-of-experts Transformer and CTC speech
+# ---------------------------------------------------------------------- #
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device).requires_grad_()
+
+
+def _loss_and_grads(part, loss_fn, batch, device, seed=3):
+    """Loss and flat gradients of ``loss_fn(ctx)`` of one train-mode
+    pass of ``part`` (dropout off) on ``device``, with the launches of
+    that pass."""
+    params = _to_device(init_all_params(collect_parts([part]), seed=seed),
+                        device)
+    leaves = flatten_tree(params)
+    kernel_config.reset_launch_counts()
+    ctx = Context(params, {k: v.to(device) for k, v in batch.items()},
+                  train=True, rng=0)
+    loss = loss_fn(ctx)
+    loss.backward()
+    counts = kernel_config.launch_counts()
+    return (loss.detach().cpu(), {k: p.grad.cpu() for k, p in leaves.items()},
+            counts)
+
+
+def _assert_step_matches_cpu(part, loss_fn, batch, device, kernels):
+    loss, grads, counts = _loss_and_grads(part, loss_fn, batch, device)
+    for name in kernels:
+        assert counts[name] > 0, counts
+    ref_loss, ref_grads, _ = _loss_and_grads(part, loss_fn, batch,
+                                             torch.device("cpu"))
+    torch.testing.assert_close(loss, ref_loss, atol=1e-5, rtol=1e-5)
+    for key, g in grads.items():
+        torch.testing.assert_close(g, ref_grads[key], atol=1e-5, rtol=1e-4,
+                                   msg=key)
+
+
+def test_sentence_cnn_model_step_on_card_matches_cpu(cuda_device):
+    """sentence_cnn.ini's model: K1 forward, the GRU BPTT and K2 on the
+    card; the convolutions are cuDNN's (TF32 off)."""
+    from neuralmonkey_tpu_torch.models.encoders.sentence_cnn_encoder import \
+        SentenceCNNEncoder
+    vocab = Vocabulary([f"w{i}" for i in range(60)])
+    enc = SentenceCNNEncoder(name="encoder", vocabulary=vocab,
+                             data_id="source", embedding_size=24,
+                             filters=[(2, 16), (3, 16), (4, 8)],
+                             highway_depth=2, rnn_size=32)
+    att = Attention(name="attention", encoder=enc, state_size=32)
+    dec = Decoder(name="decoder", encoders=[enc], attentions=[att],
+                  rnn_size=32, embedding_size=24, data_id="target",
+                  max_output_len=6, vocabulary=vocab)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"encoder_input.ids": torch.randint(4, 64, (4, 9), generator=gen,
+                                                dtype=torch.int32),
+             "encoder_input.mask": _mask("cpu", [9, 6, 2, 0], 9),
+             "decoder.train_inputs": torch.randint(1, 64, (4, 6),
+                                                   generator=gen,
+                                                   dtype=torch.int32),
+             "decoder.train_targets": torch.randint(2, 64, (4, 6),
+                                                    generator=gen,
+                                                    dtype=torch.int32),
+             "decoder.train_mask": _mask("cpu", [6, 4, 1, 0], 6)}
+    _assert_step_matches_cpu(dec, dec.train_loss, batch, cuda_device,
+                             ("gru_scan", "gru_bptt", "fused_bahdanau_step"))
+
+
+def _moe_transformer(max_out=6):
+    from neuralmonkey_tpu_torch.models.decoders.transformer import \
+        TransformerDecoder
+    from neuralmonkey_tpu_torch.models.encoders.transformer import \
+        TransformerEncoder
+    vocab = Vocabulary([f"w{i}" for i in range(296)])
+    moe_args = dict(moe_experts=4, moe_top_k=2, moe_z_loss_weight=0.001,
+                    dropout_keep_prob=1.0)
+    enc = TransformerEncoder(name="encoder", vocabulary=vocab,
+                             data_id="source", embedding_size=64,
+                             ff_hidden_size=128, depth=2, n_heads=2,
+                             **moe_args)
+    return TransformerDecoder(name="decoder", vocabulary=vocab,
+                              data_id="target", max_output_len=max_out,
+                              encoders=[enc], embedding_size=64,
+                              ff_hidden_size=128, depth=2, n_heads_self=2,
+                              n_heads_enc=2, label_smoothing=0.1,
+                              **moe_args)
+
+
+def _transformer_batch():
+    gen = torch.Generator().manual_seed(0)
+    return {"encoder_input.ids": torch.randint(4, 300, (4, 7), generator=gen,
+                                               dtype=torch.int32),
+            "encoder_input.mask": _mask("cpu", [7, 5, 2, 0], 7),
+            "decoder.train_inputs": torch.randint(1, 300, (4, 6),
+                                                  generator=gen,
+                                                  dtype=torch.int32),
+            "decoder.train_targets": torch.randint(2, 300, (4, 6),
+                                                   generator=gen,
+                                                   dtype=torch.int32),
+            "decoder.train_mask": _mask("cpu", [6, 4, 1, 0], 6)}
+
+
+def test_moe_transformer_step_on_card_matches_cpu(cuda_device):
+    """The loss with both auxiliary losses and every gradient; the MoE
+    is einsums, the attention the flash kernels."""
+    dec = _moe_transformer()
+
+    def total(ctx):
+        return dec.train_loss(ctx) + sum(ctx.aux_losses.values())
+    _assert_step_matches_cpu(dec, total, _transformer_batch(), cuda_device,
+                             ("flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv"))
+
+
+@pytest.mark.parametrize("lineage_kernel", ["0", "1"])
+def test_moe_transformer_decodes_on_card_like_cpu(cuda_device, monkeypatch,
+                                                  lineage_kernel):
+    """Greedy and beam-4 ids of a batch with a padding row; K3 and K4
+    launch, and the lineage attention under NM_LINEAGE_KERNEL=1."""
+    from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
+        BeamSearchDecoder
+    monkeypatch.setenv("NM_LINEAGE_KERNEL", lineage_kernel)
+    dec = _moe_transformer(max_out=8)
+    # hierarchical selection arms K3 at this small vocabulary too
+    search = BeamSearchDecoder(name="bs", parent_decoder=dec, beam_size=4,
+                               selection_method="hierarchical")
+    params = init_all_params(collect_parts([dec]), seed=5)
+    batch = {k: v for k, v in _transformer_batch().items()
+             if k.startswith("encoder")}
+
+    def decode(device):
+        ctx = Context(_to_device(params, device) if device.type == "cuda"
+                      else params, {k: v.to(device) for k, v in batch.items()})
+        with torch.inference_mode():
+            return dec.decoded(ctx).cpu(), search.search(ctx).token_ids.cpu()
+    kernel_config.reset_launch_counts()
+    greedy, beam = decode(cuda_device)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    expected = ["fused_logits_rowmax_lse", "small_topk"]
+    if lineage_kernel == "1":
+        expected.append("lineage_attention")
+    for name in expected:
+        assert counts[name] > 0, counts
+    ref_greedy, ref_beam = decode(torch.device("cpu"))
+    assert torch.equal(greedy[:3], ref_greedy[:3])
+    assert torch.equal(beam[:3], ref_beam[:3])
+
+
+def _ctc_model(beam):
+    from neuralmonkey_tpu_torch.models.decoders.ctc_decoder import CTCDecoder
+    from neuralmonkey_tpu_torch.models.encoders.raw_rnn_encoder import \
+        RawRNNEncoder
+    enc = RawRNNEncoder(name="encoder", data_id="speech", input_size=13,
+                        rnn_size=32)
+    return CTCDecoder(name="decoder", encoder=enc,
+                      vocabulary=Vocabulary(list("abcdefghij")),
+                      data_id="text", beam_width=beam)
+
+
+def _speech_batch():
+    gen = torch.Generator().manual_seed(2)
+    return {"encoder.seq": torch.randn(4, 40, 13, generator=gen),
+            "encoder.seq_mask": _mask("cpu", [40, 31, 9, 0], 40),
+            "decoder.labels": torch.randint(4, 14, (4, 6), generator=gen,
+                                            dtype=torch.int32),
+            "decoder.labels_mask": _mask("cpu", [6, 4, 2, 0], 6)}
+
+
+def test_ctc_model_step_on_card_matches_cpu(cuda_device):
+    """The CTC loss (F.ctc_loss) over a BiGRU: K1 forward and the GRU
+    BPTT on the card."""
+    dec = _ctc_model(1)
+    _assert_step_matches_cpu(dec, dec.train_loss, _speech_batch(),
+                             cuda_device, ("gru_scan", "gru_bptt"))
+
+
+@pytest.mark.parametrize("beam", [1, 8])
+def test_ctc_decoding_on_card_matches_cpu(cuda_device, beam):
+    """Greedy collapse and the prefix beam search on the card against the
+    CPU on the same logits: equal prefixes, scores to 1e-4."""
+    from neuralmonkey_tpu_torch.models.decoders import ctc_decoder
+    logits = torch.randn(4, 40, 14, generator=torch.Generator().manual_seed(3))
+    mask = _mask("cpu", [40, 31, 9, 0], 40)
+    if beam == 1:
+        got = ctc_decoder.ctc_greedy(logits.to(cuda_device),
+                                     mask.to(cuda_device))
+        assert torch.equal(got.cpu(), ctc_decoder.ctc_greedy(logits, mask))
+        return
+    lp = torch.log_softmax(logits, dim=-1)
+    prefixes, scores = ctc_decoder.ctc_beam_search(
+        lp.to(cuda_device), mask.to(cuda_device) > 0, beam)
+    ref_prefixes, ref_scores = ctc_decoder.ctc_beam_search(lp, mask > 0, beam)
+    assert torch.equal(prefixes.cpu(), ref_prefixes)
+    torch.testing.assert_close(scores.cpu(), ref_scores, atol=1e-4, rtol=0)

@@ -481,7 +481,18 @@ def test_context_parallel_settings_raise():
 
 @pytest.mark.parametrize("option", ["moe_experts", "pipeline_stages"])
 def test_unported_transformer_options_raise(option):
+    """Pipeline stages raise. Mixture-of-experts FFNs are ported
+    (tests/test_torch_moe.py); what of them is not, their expert
+    sharding over a mesh, raises in the manager."""
     vocab = Vocabulary(["a", "b"])
+    if option == "moe_experts":
+        encoder = TransformerEncoder(name="enc", vocabulary=vocab,
+                                     data_id="source", embedding_size=8,
+                                     n_heads=2, moe_experts=2)
+        assert encoder.moe.on
+        with pytest.raises(NotImplementedError, match="expert parallelism"):
+            CUDAManager(device="cpu", num_expert_shards=2)
+        return
     with pytest.raises(NotImplementedError, match=option):
         TransformerEncoder(name="enc", vocabulary=vocab, data_id="source",
                            embedding_size=8, n_heads=2, **{option: 2})
