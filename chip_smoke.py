@@ -192,7 +192,31 @@ Phases (any failure raises and the script exits non-zero):
    through ``train`` (K1 and the BPTT must launch) and one step against
    the CPU by phase 12's float64 rule; ctc.ini (WER < 0.8) and
    audio_classifier.ini (AccuracySeqLevel > 0.5) train on the card on
-   the WAVs of tests/data to their gates.
+   the WAVs of tests/data to their gates;
+24. bf16 policy: ``NM_COMPUTE_DTYPE=bfloat16`` over phase 4's and phase
+   9's models and phases 6's and 11's training INIs: the RNN decodes the
+   128 sentences greedily and with beam 10 through ``run`` (K1-K4 launch;
+   K3 on the bf16 table widened to float32, as the JAX package arms it),
+   8 against the CPU under the policy by phase 5's rule at
+   ``BF16_MARGIN`` (0.1: a value on a bf16 rounding boundary may round
+   apart on the two devices), its beam scores within 0.05 plus 0.5% of
+   float32's;
+   it trains 20 steps through ``train``, one step's loss within 2^-8
+   (relative) of the CPU's and 5% of float32's; the Transformer decodes
+   with beam 10 in both lineage forms (the lineage attention's bf16
+   instance, never its float32 one, in the kernel form), the kernel form
+   against the CPU at ``BF16_MARGIN`` and its scores against float32;
+   it trains 20 steps with ``NM_FUSED_XENT=1`` (the bf16-W cross-entropy
+   kernels, never the float32 ones) and one fused step against the CPU
+   and float32; K3 launches on a bf16 W (widened) and matches its plain
+   version within 1e-4.
+   The float32 and bf16 rates of the same paths print side by side. The
+   kernels phase holds the bf16 instances against their plain versions:
+   the lineage attention on bf16 caches (one bf16 ulp of a weight times
+   the largest value, and at most 1% of the rows more than 2^-16 of it
+   apart, a rule that must reject the plain version with a rounding
+   point left out) and the three fused cross-entropy kernels reading
+   a bf16 W (1e-5, 1e-4 as their float32 instances).
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -233,6 +257,8 @@ XENT_N, XENT_D = BATCH * TGT_LEN, EMB
 # the H100's published peaks (SXM, 700 W): float32 on the CUDA cores,
 # TF32 on the tensor cores (dense), and HBM3
 F32_PEAK, TF32_PEAK, HBM_RATE = 67e12, 495e12, 3.35e12
+# bf16 on the tensor cores (dense)
+BF16_PEAK = 989e12
 # a spin of about 50 ms at the H100's clock: long enough for the host to
 # queue every timed call behind it
 SPIN_CYCLES = 100_000_000
@@ -291,6 +317,17 @@ KERNELS = {
     "lineage_attention_chunked": (
         "neuralmonkey_tpu_torch/csrc/lineage_attention.cu",
         "neuralmonkey_tpu/ops/lineage_attention.py:71"),
+    # the bf16 instances (the bf16 compute policy, phase 24): the lineage
+    # attention on bf16 caches, the fused cross-entropy reading a bf16 W
+    "lineage_attention_bf16": (
+        "neuralmonkey_tpu_torch/csrc/lineage_attention.cu",
+        "neuralmonkey_tpu/ops/lineage_attention.py:71"),
+    "fused_xent_fwd_bf16w": ("neuralmonkey_tpu_torch/csrc/fused_xent.cu",
+                             "neuralmonkey_tpu/ops/fused_xent.py:166"),
+    "fused_xent_bwd_dx_bf16w": ("neuralmonkey_tpu_torch/csrc/fused_xent.cu",
+                                "neuralmonkey_tpu/ops/fused_xent.py:290"),
+    "fused_xent_bwd_dw_bf16w": ("neuralmonkey_tpu_torch/csrc/fused_xent.cu",
+                                "neuralmonkey_tpu/ops/fused_xent.py:316"),
 }
 CHUNKED_KERNELS = ("flash_attention_fwd_chunked",
                    "flash_attention_bwd_dq_chunked",
@@ -316,6 +353,28 @@ LSTM_SERVING_KERNELS = ("lstm_scan", "fused_bahdanau_step",
                         "fused_logits_rowmax_lse", "small_topk")
 LSTM_UNFUSED_KERNELS = ("lstm_scan", "rowmax_lse", "small_topk")
 LSTM_TRAINING_KERNELS = ("lstm_scan", "lstm_bptt", "fused_bahdanau_step")
+# the bf16 compute policy (phase 24). Card against CPU: both compute the
+# same function with float32 sums in another order, so a value that lands
+# within a few float32 ulps of a bf16 rounding boundary may round to either
+# side, moving one input of a later product by one bf16 ulp (2^-8 of it);
+# where that input is a layer-norm row's scale or a cache entry, every
+# logit after it moves (on the CPU the JAX package's own compiled and
+# op-by-op programs differ so by 0.04 in a logit at width 32:
+# tests/test_torch_precision.py). So ids may first differ where the CPU's
+# gap is below BF16_MARGIN, not 1e-3; one step's loss agrees to one bf16
+# ulp (2^-8) relative. bf16 against float32: losses within 5%, as the JAX
+# package's tests/test_precision_policy.py holds them; beam scores within
+# 0.05 there too, for a width-6 RNN over 5 steps, where a score is a few
+# units. Phase 9's random 30000-word Transformer scores its 48 tokens at
+# over 100 (on an H100 up to 0.147 apart, 0.13% of a score; the RNN's
+# up to 2.9e-4), so scores take 0.5% of a score beside the 0.05: about
+# four times the largest share seen, where a misrounded layer moves a
+# score by percents
+BF16_MARGIN = 0.1
+BF16_LOSS_RTOL = 2.0 ** -8
+BF16_TRACKS_RTOL, BF16_SCORES_ATOL, BF16_SCORES_RTOL = 0.05, 0.05, 0.005
+BF16_KERNELS = ("lineage_attention_bf16", "fused_xent_fwd_bf16w",
+                "fused_xent_bwd_dx_bf16w", "fused_xent_bwd_dw_bf16w")
 
 
 def import_everything() -> None:
@@ -344,7 +403,7 @@ def import_everything() -> None:
         transformer as _  # noqa: F401
     from neuralmonkey_tpu_torch.ops import (  # noqa: F401
         beam_select, cuda_attention, cuda_rnn, flash_attention, fused_xent,
-        kernel_config, lineage_attention, moe, nn)
+        kernel_config, lineage_attention, moe, nn, policy)
     from neuralmonkey_tpu_torch.trainers import (  # noqa: F401
         delayed_update_trainer, rl_trainer)
     from neuralmonkey_tpu_torch.utils import saving  # noqa: F401
@@ -638,8 +697,202 @@ def check_kernels(device):
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         results[name]["backward_by_shape"] = by_shape
     check_lstm_kernels(device, randn, lengths_mask, record)
+    check_bf16_kernels(device, randn, record)
     torch.cuda.synchronize()
     return results
+
+
+def lineage_bf16_apart(got, ref, vmax: float):
+    """(rows apart, rows allowed) of the bf16 lineage instance's context
+    ``got`` against its plain version ``ref``, both (B, H, K, Dh): a
+    (b, h, slot) row is apart when any entry differs by more than 2^-16
+    ``vmax``; at most 1% of the rows, and at least 2, may be (one bf16
+    rounding tie of a large weight moves a whole row)."""
+    apart = ((got - ref).abs() > 2.0 ** -16 * vmax).any(dim=-1)
+    return int(apart.sum()), max(2, apart.numel() // 100)
+
+
+def lineage_bf16_mutants(q, k_cache, v_cache, bias):
+    """The plain bf16 lineage version with one rounding point left out,
+    each a fault that ``lineage_bf16_apart`` must reject: the normalised
+    weights kept float32 before the context product, the unnormalised
+    weights rounded (the online softmax's form), and q scaled in float32
+    after its rounding."""
+    import math
+
+    import torch
+
+    from neuralmonkey_tpu_torch.ops.nn import scalar
+    bf16 = torch.bfloat16
+    lanes = bias.shape[-1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    k = k_cache[..., :lanes].float()
+    v = v_cache[:, :, :lanes].float()
+
+    def weights(q_scaled):
+        s = torch.matmul(q_scaled, k) + bias[:, None]
+        return torch.exp(s - s.amax(dim=-1, keepdim=True))
+
+    p = weights((q.to(bf16) * scalar(scale, bf16)).float())
+    total = p.sum(dim=-1, keepdim=True)
+    wide_q = weights(q.to(bf16).float() * scale)
+    return {
+        "float32 weights": torch.matmul(p / total, v),
+        "unnormalised weights rounded":
+            torch.matmul(p.to(bf16).float(), v) / total,
+        "q scaled in float32": torch.matmul(
+            (wide_q / wide_q.sum(dim=-1, keepdim=True)).to(bf16).float(),
+            v)}
+
+
+def check_bf16_kernels(device, randn, record):
+    """The bf16 compute policy's kernel instances against their plain
+    versions on the card: the lineage attention on bf16 caches at the
+    Transformer's beam step (B 64, H 8, beam 10, 48 steps, head dim 64;
+    windows 12 and 48), at B 1 (the lane split) and at head dims 32, 512
+    and 640 (256 context columns a block), timed at the full window with
+    its plain version and SDPA over the same bf16 operands (the lineage
+    bias as its mask); the three fused cross-entropy kernels reading a
+    bf16 W at the Transformer's loss tail (the tied (V, D) table, label
+    smoothing 0.1, 3072 x 512 x 30000) and at a ragged shape, timed at
+    the first. The lineage tolerance (``lineage_bf16_apart``): a
+    normalised weight on a bf16 rounding tie may round either way (the
+    sums' order differs from cuBLAS's), moving the entries of its row by
+    one bf16 ulp of that weight times the value, at most 2^-8 max |v|;
+    such ties are rare, so at most 1% of the (b, h, slot) rows (and at
+    least 2) may hold an entry more than 2^-16 max |v| off. Every shape
+    also checks that the rule rejects the plain version with a rounding
+    point left out (``lineage_bf16_mutants``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuralmonkey_tpu_torch.ops import fused_xent
+    from neuralmonkey_tpu_torch.ops import lineage_attention as la
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    for b, h, beam, t, d, windows in (
+            (BATCH, T_HEADS, BEAM, TGT_LEN, T_HEAD_DIM, (12, TGT_LEN)),
+            (1, T_HEADS, BEAM, TGT_LEN, T_HEAD_DIM, (TGT_LEN,)),
+            (4, 2, BEAM, TGT_LEN, 32, (TGT_LEN,)),
+            (4, 2, BEAM, TGT_LEN, 512, (TGT_LEN,)),
+            (2, 2, BEAM, 12, 640, (12,))):
+        q = randn(b, h, beam, d)
+        kq = randn(b, h, d, beam * t).to(bf16)
+        vq = randn(b, h, beam * t, d).to(bf16)
+        for win in windows:
+            anc = torch.randint(0, beam, (b, beam, t), generator=gen,
+                                dtype=torch.int32).to(device)
+            lanes = la.lane_window(win, beam, beam * t)
+            bias = la.lineage_bias(anc, win - 1, win, beam, lanes, t)
+            got = la.lineage_attention(q, kq, vq, bias)
+            ref = la.lineage_attention_reference(q, kq, vq, bias)
+            vmax = float(vq[:, :, :lanes].float().abs().max())
+            tol = 2.0 ** -8 * vmax
+            rows_apart, allowed = lineage_bf16_apart(got, ref, vmax)
+            if rows_apart > allowed:
+                raise AssertionError(
+                    f"lineage_attention_bf16 {(b, h, beam, t, d, win)}: "
+                    f"{rows_apart} rows more than 2^-16 max|v| apart, "
+                    f"allowed {allowed}")
+            mutants = {}
+            for mutant, out in lineage_bf16_mutants(q, kq, vq,
+                                                    bias).items():
+                if torch.equal(out, ref):
+                    continue  # 1/sqrt(d) a power of two: q's scaling exact
+                mutants[mutant] = lineage_bf16_apart(out, ref, vmax)[0]
+                if mutants[mutant] <= allowed:
+                    raise AssertionError(
+                        f"lineage_attention_bf16: the rule accepts the "
+                        f"plain version with {mutant} ({mutants[mutant]} "
+                        f"rows apart, allowed {allowed})")
+            log(f"lineage_attention_bf16 {(b, h, beam, t, d, win)}: "
+                f"{rows_apart} of {b * h * beam} rows apart (allowed "
+                f"{allowed}); mutants' rows apart {mutants}")
+
+            def call():
+                return la.lineage_attention(q, kq, vq, bias)
+            timing = {}
+            if (b, d, win) == (BATCH, T_HEAD_DIM, TGT_LEN):
+                qb = q.to(bf16)
+                timing = timings(
+                    call,
+                    lambda: la.lineage_attention_reference(q, kq, vq, bias),
+                    lambda: F.scaled_dot_product_attention(
+                        qb, kq[..., :lanes].transpose(-1, -2),
+                        vq[:, :, :lanes], attn_mask=bias[:, None].to(bf16)))
+                timing.update(l2_flushed_ms=flushed_ms(call),
+                              mean_abs_err=float((got - ref).abs().mean()),
+                              tolerance=tol, rows_apart=rows_apart,
+                              rows_allowed=allowed,
+                              mutants_rows_apart=mutants, plan=la.lineage_bf16_plan(
+                                  b, h, beam, d, lanes, torch.cuda.
+                                  get_device_properties(device).
+                                  multi_processor_count)._asdict())
+            # the bf16 caches' bytes (2 a value), q, the bias and the
+            # float32 context; both products at the bf16 tensor-core peak
+            work = (4 * b * h * beam * lanes * d,
+                    2 * 2 * b * h * lanes * d + 4 * (
+                        2 * b * h * beam * d + b * beam * lanes))
+            record("lineage_attention_bf16", max_err(got, ref), tol,
+                   (b, h, beam, t, d, f"window {win}"), work=work,
+                   peak=BF16_PEAK, **timing)
+
+    for n, d, v, transposed, eps in ((XENT_N, XENT_D, VOCAB, True, 0.1),
+                                     (333, 130, 1000, False, 0.0)):
+        timed = n == XENT_N
+        x = randn(n, d, scale=0.5)
+        w = randn(*((v, d) if transposed else (d, v)),
+                  scale=d ** -0.5).to(bf16)
+        wide = w.float()
+        b = randn(v, scale=0.1)
+        targets = torch.randint(0, v, (n,), generator=gen,
+                                dtype=torch.int32).to(device)
+        g = torch.rand(n, generator=gen).to(device)
+        case = (n, d, v, "tied" if transposed else "plain", eps, "bf16 W")
+        # W's bytes are bf16 (2 a value); every product with W takes two
+        # TF32 passes (a bf16 value has no low TF32 part), dW's xᵀ·dl three
+        read = 4 * (n * d + v + n) + 2 * d * v
+        fwd_args = (x, w, b, targets, eps, transposed)
+        nll, lse = fused_xent.xent_fwd(*fwd_args)
+        ref_nll, _ = fused_xent.fwd_reference(x, wide, b, targets, eps,
+                                              transposed)
+        timing = (kernel_times(lambda: fused_xent.xent_fwd(*fwd_args),
+                               lambda: fused_xent.fwd_reference(
+                                   x, wide, b, targets, eps, transposed))
+                  if timed else {})
+        extra = {"bound_peak": "2 TF32 passes on the tensor cores, 495 "
+                 "TFLOP/s dense"} if timed else {}
+        record("fused_xent_fwd_bf16w", max_err(nll, ref_nll) / max(
+            1.0, float(ref_nll.abs().max())), 1e-5, case,
+            work=(2 * 2 * n * d * v, read + 8 * n), peak=TF32_PEAK,
+            **timing, **extra)
+        bwd_args = (x, w, b, targets, lse, g, eps, transposed)
+        plain_args = (x, wide, b, targets, lse, g, eps, transposed)
+        dx = fused_xent.xent_bwd_dx(*bwd_args)
+        ref_dx = fused_xent.bwd_dx_reference(*plain_args)
+        timing = (kernel_times(lambda: fused_xent.xent_bwd_dx(*bwd_args),
+                               lambda: fused_xent.bwd_dx_reference(
+                                   *plain_args)) if timed else {})
+        record("fused_xent_bwd_dx_bf16w", max_err(dx, ref_dx) / max(
+            1e-6, float(ref_dx.abs().max())), 1e-4, case,
+            work=(2 * 4 * n * d * v, read + 8 * n + 4 * n * d),
+            peak=TF32_PEAK, **timing, **extra)
+        dw, db = fused_xent.xent_bwd_dw(*bwd_args)
+        ref_dw, ref_db = fused_xent.bwd_dw_reference(*plain_args)
+        timing = (kernel_times(lambda: fused_xent.xent_bwd_dw(*bwd_args),
+                               lambda: fused_xent.bwd_dw_reference(
+                                   *plain_args)) if timed else {})
+        err = max(max_err(dw, ref_dw) / max(1e-6, float(ref_dw.abs().max())),
+                  max_err(db, ref_db) / max(1e-6, float(ref_db.abs().max())))
+        # dW is written float32 (the autograd Function rounds it to
+        # bf16); its xᵀ·dl product has no bf16 operand: three passes
+        if timed:
+            extra["bound_peak"] = ("2 TF32 passes for x·W, 3 for xᵀ·dl, on "
+                                   "the tensor cores, 495 TFLOP/s dense")
+        record("fused_xent_bwd_dw_bf16w", err, 1e-4, case,
+               work=(2 * 5 * n * d * v, read + 8 * n + 4 * (d * v + v)),
+               peak=TF32_PEAK, **timing, **extra)
 
 
 def check_train_kernels(device, randn, lengths_mask, record):
@@ -1607,6 +1860,11 @@ def timings(kernel, plain, library):
                 library_ms=time_ms(library), call=kernel)
 
 
+def kernel_times(kernel, plain):
+    """``timings`` where no one PyTorch call computes the function."""
+    return dict(ms=time_ms(kernel), plain_ms=time_ms(plain), call=kernel)
+
+
 def check_dropout_mask(q, k, mask, causal, key_words, keep, shape):
     """With one-hot value rows the context shows which weights the
     forward kernel kept: they must be the hash's keep mask wherever a
@@ -1822,10 +2080,11 @@ def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix="",
 # phase 5: CPU (plain versions) against the card (kernels)
 # ---------------------------------------------------------------------- #
 def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
-                 dataset=None):
+                 dataset=None, margin: float = MARGIN):
     """Phase 5's rule on the first N_PARITY sentences of ``data_ini``, or
     on ``dataset``; the beam part where the model has a second (beam
-    search) runner."""
+    search) runner; ``margin`` the gap below which the devices may
+    choose apart (``BF16_MARGIN`` under the bf16 policy)."""
     import torch
 
     from neuralmonkey_tpu_torch import run
@@ -1921,13 +2180,13 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
             continue
         # greedy diverges exactly where its ids do
         step = int(diff[0])
-        margin = float(greedy_margins[step][row])
+        top_gap = float(greedy_margins[step][row])
         log(f"parity greedy: sentence {row} first differs at step {step}; "
-            f"CPU top-two margin {margin:.3g}")
-        if not margin < MARGIN:
+            f"CPU top-two margin {top_gap:.3g}")
+        if not top_gap < margin:
             raise AssertionError(
                 f"greedy ids of sentence {row} differ at step {step}, "
-                f"where the CPU's top-two margin is {margin} >= {MARGIN}")
+                f"where the CPU's top-two margin is {top_gap} >= {margin}")
     report["greedy"] = f"{same}/{n} identical"
     if not has_beam:
         log(f"parity: {report}")
@@ -1961,10 +2220,10 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
             f"differently at step {step}, slot {slot}; CPU gap to the "
             f"next candidate {gap:.3g}; best ids "
             f"{'identical' if ids_same else 'differ'}")
-        if not gap < MARGIN:
+        if not gap < margin:
             raise AssertionError(
                 f"beam search of sentence {row} diverges at step {step}, "
-                f"slot {slot}, where the CPU's gap is {gap} >= {MARGIN}")
+                f"slot {slot}, where the CPU's gap is {gap} >= {margin}")
     report["beam"] = (f"{same}/{n} identical, {diverged} searches "
                       "diverged at a near-tie")
     log(f"parity: {report}")
@@ -2271,16 +2530,20 @@ def write_training_inputs(tmp: str, cell: str = "GRU",
     return path
 
 
+XENT_KERNELS = ("fused_xent_fwd", "fused_xent_bwd_dx", "fused_xent_bwd_dw")
+
+
 def run_training(tmp: str, train_ini: str, fused: bool, name: str = "train",
                  expected=("gru_scan", "gru_bptt", "fused_bahdanau_step"),
-                 data_template: str = None, falling: bool = True):
+                 data_template: str = None, falling: bool = True,
+                 xent=XENT_KERNELS):
     """One epoch through the train CLI, then ``run`` from its best
     checkpoint over the data INI ``data_template`` (by default the
     validation sources of phase 6); returns the launch counts of the
     training run, its record and the checkpoint. Every kernel in
     ``expected`` must launch in the training run, the cross-entropy
-    kernels exactly when ``fused``; with ``falling`` the loss must
-    fall."""
+    kernels ``xent`` exactly when ``fused``; with ``falling`` the loss
+    must fall."""
     import torch
 
     from neuralmonkey_tpu_torch import run, train
@@ -2306,7 +2569,6 @@ def run_training(tmp: str, train_ini: str, fused: bool, name: str = "train",
     losses = [r["loss"] for r in windows]
     if falling and not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
-    xent =("fused_xent_fwd", "fused_xent_bwd_dx", "fused_xent_bwd_dw")
     missing = [k for k in expected if launches[k] == 0]
     wrong = [k for k in xent if (launches[k] > 0) != fused]
     if missing or wrong:
@@ -4076,6 +4338,209 @@ def check_speech(tmp: str):
     return launches, report
 
 
+# ---------------------------------------------------------------------- #
+# phase 24: the bf16 compute policy
+# ---------------------------------------------------------------------- #
+def bf16_step_losses(train_ini: str, ckpt: str, parts, fused: bool):
+    """One step's loss from ``ckpt`` on 8 sentences, the dropout of
+    ``parts`` off: on the card and on the CPU under the bf16 policy, and
+    on the card in float32 (``NM_COMPUTE_DTYPE`` read at each step)."""
+    import torch
+
+    from neuralmonkey_tpu_torch.dataset import BatchingScheme
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    changes = [f"{part}.dropout_keep_prob=1.0" for part in parts]
+    losses = {}
+    for label, device_change, dtype in (
+            ("card", [], "bfloat16"),
+            ("cpu", ['tf_manager.device="cpu"'], "bfloat16"),
+            ("card float32", [], "float32")):
+        os.environ["NM_COMPUTE_DTYPE"] = dtype
+        if fused:
+            os.environ["NM_FUSED_XENT"] = "1"
+        try:
+            exp = Experiment(train_ini, train_mode=True,
+                             config_changes=changes + device_change)
+            exp.build_model()
+            manager = exp.tf_manager
+            manager.restore(ckpt)
+            dataset = next(exp.model.train_dataset.batches(
+                BatchingScheme(batch_size=N_PARITY), shuffled=False))
+            batch = manager.build_batch(dataset, N_PARITY, train=True)[0]
+            with torch.no_grad():
+                total, _ = exp.model.trainer.total_loss(manager.params,
+                                                        batch, rng=0)
+            losses[label] = total.item()
+        finally:
+            os.environ.pop("NM_FUSED_XENT", None)
+            os.environ["NM_COMPUTE_DTYPE"] = "bfloat16"
+    err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    tracks = (abs(losses["card"] - losses["card float32"])
+              / abs(losses["card float32"]))
+    if not err <= BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 step loss: card {losses['card']} "
+                             f"against CPU {losses['cpu']} ({err:.3g} > "
+                             f"{BF16_LOSS_RTOL:.3g} relative)")
+    if not tracks <= BF16_TRACKS_RTOL:
+        raise AssertionError(f"bf16 step loss {losses['card']} against "
+                             f"float32 {losses['card float32']}")
+    return {**losses, "card_cpu_relative": err,
+            "bf16_float32_relative": tracks}
+
+
+def bf16_beam_scores(exp, ckpt: str, data_ini: str):
+    """The beam runner's scores of the first N_PARITY sentences on the
+    card under the bf16 policy and in float32: their largest difference,
+    held to ``BF16_SCORES_ATOL`` plus ``BF16_SCORES_RTOL`` of the float32
+    score."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.model.part import Context
+
+    exp.tf_manager.restore(ckpt)
+    dataset = run.load_data_config(data_ini)[0].subset(0, N_PARITY)
+    batch, _ = exp.tf_manager.build_batch(dataset, N_PARITY)
+    scores = {}
+    for dtype in ("float32", "bfloat16"):
+        os.environ["NM_COMPUTE_DTYPE"] = dtype
+        with torch.inference_mode():
+            scores[dtype] = exp.model.runners[1].fetches(Context(
+                exp.tf_manager.params, batch))["scores"].float().cpu()
+    excess = ((scores["bfloat16"] - scores["float32"]).abs()
+              - BF16_SCORES_RTOL * scores["float32"].abs())
+    diff = float((scores["bfloat16"] - scores["float32"]).abs().max())
+    if not float(excess.max()) <= BF16_SCORES_ATOL:
+        raise AssertionError(f"bf16 beam scores differ from float32's by "
+                             f"up to {diff}: past {BF16_SCORES_ATOL} + "
+                             f"{BF16_SCORES_RTOL} of a score")
+    return {"max_abs_diff": diff,
+            "max_relative_diff": float(
+                ((scores["bfloat16"] - scores["float32"]).abs()
+                 / scores["float32"].abs()).max())}
+
+
+def check_bf16_policy(tmp: str, rnn, transformer):
+    """Phase 24: the bf16 compute policy (``NM_COMPUTE_DTYPE=bfloat16``)
+    through the entry points at full width. ``rnn`` and ``transformer``
+    are (experiment INI, data INI, checkpoint, training INI, trained
+    checkpoint) of phases 4-6 and 9-11. The RNN: 128 sentences greedily
+    and with beam 10 through ``run`` (K1-K4 launch; K3 on the bf16 table
+    widened to float32, as the JAX package arms it), 8 against the CPU
+    under the policy by phase 5's rule at ``BF16_MARGIN``, beam scores
+    against float32, a training epoch (20 steps) through ``train``, one
+    step's loss against the CPU and float32; the Transformer: beam 10 in
+    both lineage forms (the lineage attention's bf16 instance in the
+    kernel form, never its float32 one), the kernel form against the CPU,
+    beam scores against float32, 20 training steps with
+    ``NM_FUSED_XENT=1`` (the bf16-W cross-entropy kernels, never the
+    float32 ones), one fused step's loss against the CPU and float32.
+    K3 launches on a bf16 W (widened exactly) and matches its plain
+    version. Returns (the launches of the main-path runs, the report)."""
+    import torch
+
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.ops import beam_select, kernel_config, policy
+
+    launches = dict.fromkeys(kernel_config.launch_counts(), 0)
+    report = {}
+    os.environ["NM_COMPUTE_DTYPE"] = "bfloat16"
+    try:
+        exp_ini, data_ini, ckpt, train_ini, trained = rnn
+        run_launches, _ = serve_through_run(
+            exp_ini, data_ini, ckpt, SERVING_KERNELS,
+            [os.path.join(tmp, name) for name in ("greedy.txt", "beam.txt")],
+            "bf16 slice")
+        launches = add_launches(launches, run_launches)
+        exp = Experiment(exp_ini, train_mode=False)
+        exp.build_model()
+        if policy.compute_dtype() != torch.bfloat16:
+            raise AssertionError("NM_COMPUTE_DTYPE=bfloat16 did not set "
+                                 "the policy")
+        rnn_report = {"speed": serving_speed(exp, ckpt, data_ini,
+                                             exp.model.runners,
+                                             warm_up=False)}
+        rnn_report["parity"] = check_parity(exp_ini, data_ini, exp, ckpt,
+                                            margin=BF16_MARGIN)
+        rnn_report["beam_scores_bf16_against_float32"] = bf16_beam_scores(
+            exp, ckpt, data_ini)
+        del exp
+        train_launches, rnn_report["training"], _ = run_training(
+            tmp, train_ini, False, "bf16_train")
+        launches = add_launches(launches, train_launches)
+        rnn_report["step_loss"] = bf16_step_losses(
+            train_ini, trained, ("encoder", "attention", "decoder"), False)
+        report["rnn"] = rnn_report
+
+        t_ini, t_data_ini, t_ckpt, t_train_ini, t_trained = transformer
+        outputs = [os.path.join(tmp, f"t_{name}.txt")
+                   for name in ("greedy", "beam")]
+        run_launches, _ = serve_through_run(
+            t_ini, t_data_ini, t_ckpt, T_SERVING_KERNELS, outputs,
+            "bf16 transformer serving")
+        launches = add_launches(launches, run_launches)
+        t_exp = Experiment(t_ini, train_mode=False)
+        t_exp.build_model()
+        t_report = {"speed": serving_speed(t_exp, t_ckpt, t_data_ini,
+                                           t_exp.model.runners[1:])}
+        os.environ["NM_LINEAGE_KERNEL"] = "1"
+        try:
+            run_launches, _ = serve_through_run(
+                t_ini, t_data_ini, t_ckpt,
+                T_SERVING_KERNELS + ("lineage_attention_bf16",), outputs,
+                "bf16 transformer serving, NM_LINEAGE_KERNEL=1")
+            if run_launches["lineage_attention"]:
+                raise AssertionError("the float32 lineage attention ran on "
+                                     "bf16 caches")
+            launches = add_launches(launches, run_launches)
+            t_report["speed"].update(serving_speed(
+                t_exp, t_ckpt, t_data_ini, t_exp.model.runners[1:],
+                " (lineage kernel)", warm_up=False))
+            t_report["parity"] = check_parity(t_ini, t_data_ini, t_exp,
+                                              t_ckpt, margin=BF16_MARGIN)
+            t_report["beam_scores_bf16_against_float32"] = \
+                bf16_beam_scores(t_exp, t_ckpt, t_data_ini)
+        finally:
+            os.environ.pop("NM_LINEAGE_KERNEL")
+        del t_exp
+        train_launches, t_report["training"], _ = run_training(
+            tmp, t_train_ini, True, "bf16_t_train", FLASH_KERNELS,
+            xent=BF16_KERNELS[1:])
+        if any(train_launches[k] for k in XENT_KERNELS):
+            raise AssertionError("the float32 cross-entropy kernels ran on "
+                                 "the bf16 table")
+        launches = add_launches(launches, train_launches)
+        t_report["step_loss"] = bf16_step_losses(
+            t_train_ini, t_trained, ("encoder", "decoder"), True)
+        report["transformer"] = t_report
+
+        # K3 computes in float32: a bf16 W is widened and K3 launches
+        gen = torch.Generator().manual_seed(SEED)
+        x = torch.randn(BATCH, EMB, generator=gen).cuda()
+        w = torch.randn(EMB, 1024, generator=gen).to(torch.bfloat16).cuda()
+        bias = torch.zeros(1024, device="cuda")
+        before = kernel_config.launch_counts()["fused_logits_rowmax_lse"]
+        got = beam_select.fused_logits_rowmax_lse(x, w, bias)
+        if (kernel_config.launch_counts()["fused_logits_rowmax_lse"]
+                != before + 1):
+            raise AssertionError("K3 did not launch on a bf16 W")
+        ref = beam_select.fused_logits_reference(x, w.float(), bias)
+        err = max(max_err(g, r) / max(float(r.abs().max()), 1.0)
+                  for g, r in zip(got, ref))
+        if not err <= 1e-4:
+            raise AssertionError(f"K3 on a bf16 W: relative error {err}")
+        report["k3_bf16_w"] = f"K3 launched, relative error {err:.3g}"
+    finally:
+        os.environ.pop("NM_COMPUTE_DTYPE", None)
+        policy.set_compute_dtype(None)
+    missing = [k for k in BF16_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"bf16 policy: never launched {missing}")
+    log(f"bf16 policy: {report}")
+    return launches, report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "neuralmonkey_tpu_torch")):
         log("neuralmonkey_tpu_torch not found beside chip_smoke.py: run "
@@ -4199,6 +4664,28 @@ def main() -> int:
         launches = add_launches(launches, e_launches)
         a_launches, speech = phase("speech", check_speech, tmp)
         launches = add_launches(launches, a_launches)
+        b_launches, bf16 = phase(
+            "bf16 policy", check_bf16_policy, tmp,
+            (os.path.join(tmp, "exp.ini"), data_ini, ckpt, train_ini, best),
+            (t_ini, t_data_ini, t_ckpt, t_train_ini, t_best))
+        launches = add_launches(launches, b_launches)
+        # the rates of the same paths in float32 (phases 4, 6, 9, 11) and
+        # under the bf16 policy (phase 24), from this run
+        bf16["rates"] = {
+            "rnn serving": {"float32": speed,
+                            "bfloat16": bf16["rnn"]["speed"]},
+            "rnn train tokens/s": {
+                "float32": training[0]["train_tokens_per_sec"],
+                "bfloat16": bf16["rnn"]["training"][
+                    "train_tokens_per_sec"]},
+            "transformer serving": {
+                "float32": t_serving["speed"],
+                "bfloat16": bf16["transformer"]["speed"]},
+            "transformer train tokens/s": {
+                "float32 (unfused)": t_record["train_tokens_per_sec"],
+                "bfloat16 (NM_FUSED_XENT=1)": bf16["transformer"][
+                    "training"]["train_tokens_per_sec"]}}
+        log(f"float32 and bf16 rates: {bf16['rates']}")
         for name in CHUNKED_KERNELS:
             launches[name] += chunked[name].pop("launches")
 
@@ -4226,6 +4713,7 @@ def main() -> int:
         "cnn": cnn,
         "moe": moe,
         "speech": speech,
+        "bf16_policy": bf16,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -60,6 +60,13 @@
 //     each logit tile is computed once, where the first design recomputed it
 //     once per 128 rows of D on the CUDA cores; no atomics: dW and db do not
 //     change from run to run.
+// The bf16-W instances (nm_xent_*_bf16w: the bf16 compute policy, where the
+// JAX package widens the bf16 use-site table beside float32 states and runs
+// its float32 kernels) compute the same function with W read as bf16, half
+// its bytes: each W tile is widened as it is staged (tc::load_widen), and
+// every product with W takes two TF32 passes, not three, since a bf16 value
+// has no low TF32 part. x, dx, dW (rounded to bf16 by the wrapper) and db
+// stay float32.
 #include <algorithm>
 
 #include "tc_product.cuh"
@@ -117,15 +124,15 @@ constexpr size_t kSmemW = sizeof(float) * (2 * kStage + kPair * kM * kLdDlW);
 // (zero outside N x V) and stored as dls[m][v] (row stride kLd): the A
 // operand of dl W^T for dx, and the B operand of x^T dl for dW. `stages` is
 // free on return; `dls` is complete after the caller's next __syncthreads().
-template <bool kWT, int kLd = kLdDl>
-__device__ __forceinline__ void dl_tile(const float* __restrict__ x, const float* __restrict__ w,
+template <bool kWT, int kLd = kLdDl, typename TW = float>
+__device__ __forceinline__ void dl_tile(const float* __restrict__ x, const TW* __restrict__ w,
                                         const float* __restrict__ bias,
                                         const int* __restrict__ targets,
                                         const float* __restrict__ lse,
                                         const float* __restrict__ g, int N, int D, int V, int m0,
                                         int n0, float eps, bool vec, float* stages, float* dls) {
   float acc[4][4][4] = {};
-  tile_product<kWT>(x, w, N, D, V, m0, n0, vec, stages, acc);
+  tile_product<kWT, TW>(x, w, N, D, V, m0, n0, vec, stages, acc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4 * 64, wn = warp % 4 * 32;
 #pragma unroll
@@ -160,9 +167,9 @@ __device__ __forceinline__ void dl_tile(const float* __restrict__ x, const float
 // warps' registers, started at 0 by the chunk's first pair and from the
 // partial (loaded before the products) by the later ones: one read and one
 // write of the partial for every two tiles
-template <bool kWT>
+template <bool kWT, typename TW>
 __device__ __forceinline__ void xent_bwd_dx(const float* __restrict__ x,
-                                            const float* __restrict__ w,
+                                            const TW* __restrict__ w,
                                             const float* __restrict__ bias,
                                             const int* __restrict__ targets,
                                             const float* __restrict__ lse,
@@ -181,15 +188,15 @@ __device__ __forceinline__ void xent_bwd_dx(const float* __restrict__ x,
     const int d0 = (i / vchunks) * kN, v0 = n0 + (i % vchunks) * kKC;
     float* st = stages + s * kStage;
     if (kWT)
-      load(st, kLdN, w + static_cast<size_t>(v0) * D + d0, D, kKC, kN, V - v0, D - d0, vec);
+      load_w(st, kLdN, w + static_cast<size_t>(v0) * D + d0, D, kKC, kN, V - v0, D - d0, vec);
     else
-      load(st, kLdK, w + static_cast<size_t>(d0) * V + v0, V, kN, kKC, D - d0, V - v0, vec);
+      load_w(st, kLdK, w + static_cast<size_t>(d0) * V + v0, V, kN, kKC, D - d0, V - v0, vec);
   };
   for (int tile = t0; tile < t1; tile += kPair) {
     const int n0 = tile * kN, pair = min(kPair, t1 - tile);
     for (int h = 0; h < pair; ++h)
-      dl_tile<kWT>(x, w, bias, targets, lse, g, N, D, V, m0, n0 + h * kN, eps, vec, stages,
-                   dls + h * kN);
+      dl_tile<kWT, kLdDl, TW>(x, w, bias, targets, lse, g, N, D, V, m0, n0 + h * kN, eps, vec,
+                              stages, dls + h * kN);
     const int vchunks = pair * (kN / kKC);
     const int chunks = passes * vchunks;
     stage_in(0, 0, n0, vchunks);
@@ -217,7 +224,8 @@ __device__ __forceinline__ void xent_bwd_dx(const float* __restrict__ x,
         nm::cp_async_wait<0>();
       }
       __syncthreads();  // the stage, and at i = 0 dl, complete
-      warp_product<!kWT>(dls + v0, kLdDl, stages + (i & 1) * kStage, kKC, out);
+      warp_product<!kWT, false, kLdN, !std::is_same<TW, float>::value>(
+          dls + v0, kLdDl, stages + (i & 1) * kStage, kKC, out);
       __syncthreads();
       if (v0 + kKC == pair * kN) {
 #pragma unroll
@@ -244,9 +252,9 @@ __device__ __forceinline__ void xent_bwd_dx(const float* __restrict__ x,
 // (loaded before the products) by the later ones: one read and one write of
 // the partial for every two tiles. db sums the block's columns of dl in one
 // fixed row order.
-template <bool kWT>
+template <bool kWT, typename TW>
 __device__ __forceinline__ void xent_bwd_dw(const float* __restrict__ x,
-                                            const float* __restrict__ w,
+                                            const TW* __restrict__ w,
                                             const float* __restrict__ bias,
                                             const int* __restrict__ targets,
                                             const float* __restrict__ lse,
@@ -273,8 +281,8 @@ __device__ __forceinline__ void xent_bwd_dw(const float* __restrict__ x,
   for (int tile = t0; tile < t1; tile += kPair) {
     const int m0 = tile * kM, pair = min(kPair, t1 - tile);
     for (int h = 0; h < pair; ++h)
-      dl_tile<kWT, kLdDlW>(x, w, bias, targets, lse, g, N, D, V, m0 + h * kM, n0, eps, vec,
-                           stages, dls + h * kM * kLdDlW);
+      dl_tile<kWT, kLdDlW, TW>(x, w, bias, targets, lse, g, N, D, V, m0 + h * kM, n0, eps,
+                               vec, stages, dls + h * kM * kLdDlW);
     const int mchunks = pair * (kM / kKC);
     const int chunks = passes * mchunks;
     stage_in(0, 0, m0, mchunks);
@@ -339,8 +347,9 @@ __device__ __forceinline__ void xent_bwd_dw(const float* __restrict__ x,
 // and the logit sum. Grid (row tiles, vocabulary tiles): the blocks that
 // share a W tile are neighbours in launch order, so they run together and W
 // leaves device memory about once.
+template <typename TW>
 __global__ void __launch_bounds__(tc::kThreads, 2)
-xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+xent_fwd_kernel(const float* __restrict__ x, const TW* __restrict__ w,
                 const float* __restrict__ bias, const int* __restrict__ targets,
                 float* __restrict__ pmax, float* __restrict__ psum,
                 float* __restrict__ plab, float* __restrict__ plsum,
@@ -355,9 +364,9 @@ xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15) == 0;
   float acc[4][4][4] = {};
   if (transposed)
-    tc::tile_product<true>(x, w, N, D, V, m0, n0, vec, stages, acc);
+    tc::tile_product<true, TW>(x, w, N, D, V, m0, n0, vec, stages, acc);
   else
-    tc::tile_product<false>(x, w, N, D, V, m0, n0, vec, stages, acc);
+    tc::tile_product<false, TW>(x, w, N, D, V, m0, n0, vec, stages, acc);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4 * 64, wn = warp % 4 * 32;
@@ -435,8 +444,9 @@ xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 // grid (row tiles, S): block (r, s) walks vocabulary tiles s * tiles_per_chunk ..
 // into plane s of `part` (S, N, D)
+template <typename TW>
 __global__ void __launch_bounds__(tc::kThreads, 1)
-xent_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
+xent_bwd_dx_kernel(const float* __restrict__ x, const TW* __restrict__ w,
                    const float* __restrict__ bias, const int* __restrict__ targets,
                    const float* __restrict__ lse, const float* __restrict__ g,
                    float* __restrict__ part, int N, int D, int V, int transposed,
@@ -450,15 +460,16 @@ xent_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const bool vec = (D & 3) == 0 && (transposed || (V & 3) == 0) &&
                    ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15) == 0;
   if (transposed)
-    tc::xent_bwd_dx<true>(x, w, bias, targets, lse, g, p, N, D, V, t0, t1, eps, vec, smem);
+    tc::xent_bwd_dx<true, TW>(x, w, bias, targets, lse, g, p, N, D, V, t0, t1, eps, vec, smem);
   else
-    tc::xent_bwd_dx<false>(x, w, bias, targets, lse, g, p, N, D, V, t0, t1, eps, vec, smem);
+    tc::xent_bwd_dx<false, TW>(x, w, bias, targets, lse, g, p, N, D, V, t0, t1, eps, vec, smem);
 }
 
 // grid (vocabulary tiles, S): block (c, s) walks row tiles s * tiles_per_chunk ..
 // into plane s of `part` (S, dW) and of `pdb` (S, V)
+template <typename TW>
 __global__ void __launch_bounds__(tc::kThreads, 1)
-xent_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
+xent_bwd_dw_kernel(const float* __restrict__ x, const TW* __restrict__ w,
                    const float* __restrict__ bias, const int* __restrict__ targets,
                    const float* __restrict__ lse, const float* __restrict__ g,
                    float* __restrict__ part, float* __restrict__ pdb, int N, int D, int V,
@@ -472,9 +483,11 @@ xent_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const bool vec = (D & 3) == 0 && (transposed || (V & 3) == 0) &&
                    ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(w)) & 15) == 0;
   if (transposed)
-    tc::xent_bwd_dw<true>(x, w, bias, targets, lse, g, p, pb, N, D, V, t0, t1, eps, vec, smem);
+    tc::xent_bwd_dw<true, TW>(x, w, bias, targets, lse, g, p, pb, N, D, V, t0, t1, eps, vec,
+                              smem);
   else
-    tc::xent_bwd_dw<false>(x, w, bias, targets, lse, g, p, pb, N, D, V, t0, t1, eps, vec, smem);
+    tc::xent_bwd_dw<false, TW>(x, w, bias, targets, lse, g, p, pb, N, D, V, t0, t1, eps, vec,
+                               smem);
 }
 
 // out = the sum of the S partials (S, count), in the order 0 .. S-1
@@ -505,20 +518,18 @@ bool bad_chunks(int N, int D, int V, int R, int splits, int tiles_per_chunk,
          (splits > 1 && scratch == nullptr);
 }
 
-}  // namespace
-
-NM_EXPORT int nm_xent_fwd(const void* x, const void* w, const void* bias, const void* targets,
-                          void* pmax, void* psum, void* plab, void* plsum, void* lse, void* nll,
-                          int N, int D, int V, int transposed, float eps, void* stream) {
+template <typename TW>
+int xent_fwd(const void* x, const void* w, const void* bias, const void* targets, void* pmax,
+             void* psum, void* plab, void* plsum, void* lse, void* nll, int N, int D, int V,
+             int transposed, float eps, cudaStream_t s) {
   const int R = (V + tc::kN - 1) / tc::kN;
   // the vocabulary tiles run in gridDim.y, at most 65535 of them
   if (N < 1 || D < 1 || V < 1 || R > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = nm::allow_max_smem(reinterpret_cast<const void*>(xent_fwd_kernel));
+  const int err = nm::allow_max_smem(reinterpret_cast<const void*>(xent_fwd_kernel<TW>));
   if (err != 0) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + tc::kM - 1) / tc::kM, R);
-  xent_fwd_kernel<<<grid, tc::kThreads, tc::kFwdSmem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
+  xent_fwd_kernel<TW><<<grid, tc::kThreads, tc::kFwdSmem, s>>>(
+      static_cast<const float*>(x), static_cast<const TW*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(targets),
       static_cast<float*>(pmax), static_cast<float*>(psum), static_cast<float*>(plab),
       static_cast<float*>(plsum), N, D, V, transposed);
@@ -532,22 +543,21 @@ NM_EXPORT int nm_xent_fwd(const void* x, const void* w, const void* bias, const 
   return nm::launch_status();
 }
 
-NM_EXPORT int nm_xent_bwd_dx(const void* x, const void* w, const void* bias, const void* targets,
-                             const void* lse, const void* g, void* dx, void* scratch, int N, int D,
-                             int V, int transposed, int splits, int tiles_per_chunk, float eps,
-                             void* stream) {
+template <typename TW>
+int xent_bwd_dx(const void* x, const void* w, const void* bias, const void* targets,
+                const void* lse, const void* g, void* dx, void* scratch, int N, int D, int V,
+                int transposed, int splits, int tiles_per_chunk, float eps, cudaStream_t s) {
   if (bad_chunks(N, D, V, (V + tc::kN - 1) / tc::kN, splits, tiles_per_chunk, scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = static_cast<int>(cudaFuncSetAttribute(
-      xent_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xent_bwd_dx_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(tc::kSmem)));
   if (err != 0) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   // with one chunk the blocks write dx itself
   float* part = splits > 1 ? static_cast<float*>(scratch) : static_cast<float*>(dx);
   const dim3 grid((N + tc::kM - 1) / tc::kM, splits);
-  xent_bwd_dx_kernel<<<grid, tc::kThreads, tc::kSmem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
+  xent_bwd_dx_kernel<TW><<<grid, tc::kThreads, tc::kSmem, s>>>(
+      static_cast<const float*>(x), static_cast<const TW*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(targets),
       static_cast<const float*>(lse), static_cast<const float*>(g), part, N, D, V, transposed,
       tiles_per_chunk, eps);
@@ -556,24 +566,24 @@ NM_EXPORT int nm_xent_bwd_dx(const void* x, const void* w, const void* bias, con
   return fold(part, static_cast<float*>(dx), static_cast<size_t>(N) * D, splits, s);
 }
 
-NM_EXPORT int nm_xent_bwd_dw(const void* x, const void* w, const void* bias, const void* targets,
-                             const void* lse, const void* g, void* dw, void* db, void* scratch,
-                             void* db_scratch, int N, int D, int V, int transposed, int splits,
-                             int tiles_per_chunk, float eps, void* stream) {
+template <typename TW>
+int xent_bwd_dw(const void* x, const void* w, const void* bias, const void* targets,
+                const void* lse, const void* g, void* dw, void* db, void* scratch,
+                void* db_scratch, int N, int D, int V, int transposed, int splits,
+                int tiles_per_chunk, float eps, cudaStream_t s) {
   if (bad_chunks(N, D, V, (N + tc::kM - 1) / tc::kM, splits, tiles_per_chunk, scratch) ||
       (splits > 1 && db_scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = static_cast<int>(cudaFuncSetAttribute(
-      xent_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      xent_bwd_dw_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(tc::kSmemW)));
   if (err != 0) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   // with one chunk the blocks write dW and db themselves
   float* part = splits > 1 ? static_cast<float*>(scratch) : static_cast<float*>(dw);
   float* pdb = splits > 1 ? static_cast<float*>(db_scratch) : static_cast<float*>(db);
   const dim3 grid((V + tc::kN - 1) / tc::kN, splits);
-  xent_bwd_dw_kernel<<<grid, tc::kThreads, tc::kSmemW, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
+  xent_bwd_dw_kernel<TW><<<grid, tc::kThreads, tc::kSmemW, s>>>(
+      static_cast<const float*>(x), static_cast<const TW*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(targets),
       static_cast<const float*>(lse), static_cast<const float*>(g), part, pdb, N, D, V,
       transposed, tiles_per_chunk, eps);
@@ -582,4 +592,59 @@ NM_EXPORT int nm_xent_bwd_dw(const void* x, const void* w, const void* bias, con
   status = fold(part, static_cast<float*>(dw), static_cast<size_t>(D) * V, splits, s);
   if (status != 0) return status;
   return fold(pdb, static_cast<float*>(db), static_cast<size_t>(V), splits, s);
+}
+
+}  // namespace
+
+// The C entry points: W float32, and W bf16 (the _bf16w instances), with the
+// same arguments; dW is float32 in both (the wrapper rounds it to bf16).
+NM_EXPORT int nm_xent_fwd(const void* x, const void* w, const void* bias, const void* targets,
+                          void* pmax, void* psum, void* plab, void* plsum, void* lse, void* nll,
+                          int N, int D, int V, int transposed, float eps, void* stream) {
+  return xent_fwd<float>(x, w, bias, targets, pmax, psum, plab, plsum, lse, nll, N, D, V,
+                         transposed, eps, static_cast<cudaStream_t>(stream));
+}
+
+NM_EXPORT int nm_xent_fwd_bf16w(const void* x, const void* w, const void* bias,
+                                const void* targets, void* pmax, void* psum, void* plab,
+                                void* plsum, void* lse, void* nll, int N, int D, int V,
+                                int transposed, float eps, void* stream) {
+  return xent_fwd<__nv_bfloat16>(x, w, bias, targets, pmax, psum, plab, plsum, lse, nll, N, D,
+                                 V, transposed, eps, static_cast<cudaStream_t>(stream));
+}
+
+NM_EXPORT int nm_xent_bwd_dx(const void* x, const void* w, const void* bias, const void* targets,
+                             const void* lse, const void* g, void* dx, void* scratch, int N, int D,
+                             int V, int transposed, int splits, int tiles_per_chunk, float eps,
+                             void* stream) {
+  return xent_bwd_dx<float>(x, w, bias, targets, lse, g, dx, scratch, N, D, V, transposed,
+                            splits, tiles_per_chunk, eps, static_cast<cudaStream_t>(stream));
+}
+
+NM_EXPORT int nm_xent_bwd_dx_bf16w(const void* x, const void* w, const void* bias,
+                                   const void* targets, const void* lse, const void* g, void* dx,
+                                   void* scratch, int N, int D, int V, int transposed, int splits,
+                                   int tiles_per_chunk, float eps, void* stream) {
+  return xent_bwd_dx<__nv_bfloat16>(x, w, bias, targets, lse, g, dx, scratch, N, D, V,
+                                    transposed, splits, tiles_per_chunk, eps,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+NM_EXPORT int nm_xent_bwd_dw(const void* x, const void* w, const void* bias, const void* targets,
+                             const void* lse, const void* g, void* dw, void* db, void* scratch,
+                             void* db_scratch, int N, int D, int V, int transposed, int splits,
+                             int tiles_per_chunk, float eps, void* stream) {
+  return xent_bwd_dw<float>(x, w, bias, targets, lse, g, dw, db, scratch, db_scratch, N, D, V,
+                            transposed, splits, tiles_per_chunk, eps,
+                            static_cast<cudaStream_t>(stream));
+}
+
+NM_EXPORT int nm_xent_bwd_dw_bf16w(const void* x, const void* w, const void* bias,
+                                   const void* targets, const void* lse, const void* g, void* dw,
+                                   void* db, void* scratch, void* db_scratch, int N, int D, int V,
+                                   int transposed, int splits, int tiles_per_chunk, float eps,
+                                   void* stream) {
+  return xent_bwd_dw<__nv_bfloat16>(x, w, bias, targets, lse, g, dw, db, scratch, db_scratch,
+                                    N, D, V, transposed, splits, tiles_per_chunk, eps,
+                                    static_cast<cudaStream_t>(stream));
 }

@@ -62,6 +62,26 @@
 // - A lane whose scores are all -1e9 (an early step) gets the plain version's
 //   uniform weights; a warp whose lanes of a tile lie past the chunk keeps
 //   max -inf and adds nothing, never exp(-inf - -inf).
+//
+// The bf16 instance (nm_lineage_attention_bf16, at the end of this file)
+// takes bf16 caches, as the JAX kernel does under the bf16 compute policy, and
+// rounds where it rounds (`_kernel`, lineage_attention.py:71-86): q to bf16,
+// then q times the scale (itself rounded to bf16) to bf16 again; the scores
+// and the softmax in float32; the NORMALISED weights to bf16 before the
+// context product; a float32 context. Both products run on mma.sync
+// m16n8k16 in bf16 with float32 sums, one pass each (a product of two bf16
+// values is exact in float32). Normalising before rounding needs each row's
+// max and sum before any weight, so it is two kernels and not the online
+// softmax above: lineage_bf16_scores_kernel writes the biased scores of
+// every (row, lane) to a float32 scratch; lineage_bf16_context_kernel reads a
+// row's scores twice for its max and sum, then streams V's lane tiles,
+// rounds each weight exp(s - max) / sum to bf16 and adds V^T w^T on the
+// tensor cores. Any head dim: the scores sum over the head dim in 256-wide
+// chunks, the context takes 256 columns a block.
+#include <cuda_bf16.h>
+
+#include <algorithm>
+
 #include "tc_product.cuh"
 
 namespace {
@@ -555,6 +575,265 @@ int launch_slots(const Args& a, int BH, int tile, int slots, int groups, int spl
   }
 }
 
+// ------------------------------------------------------------------------ //
+// the bf16 instance
+// ------------------------------------------------------------------------ //
+constexpr int kB16Threads = 128;  // 4 warps in both kernels
+constexpr int kB16ScoreLanes = 64;  // lanes a scores block: 16 a warp
+constexpr int kB16DChunk = 256;     // head-dim columns a shared stage of the scores
+constexpr int kB16ScoreSlots = 64;  // slot rows a scores block, in tiles of 8
+constexpr int kB16CtxLanes = 64;    // lanes a context step: four m16n8k16 depths
+constexpr int kB16CtxCols = 256;    // context columns a block: 4 16-row tiles a warp
+constexpr int kB16LdV = kB16CtxLanes + 8;  // V^T [d][lane] rows, bf16
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two consecutive bf16 of shared memory as one mma operand register
+__device__ __forceinline__ unsigned pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+struct B16Args {
+  const float* q;
+  const __nv_bfloat16* kc;
+  const __nv_bfloat16* vc;
+  const float* bias;
+  float* out;
+  float* scores;  // (B*H*K, W) biased scores
+  float* part_o;  // (S, B*H*K, D) normalised partial contexts of the lane split
+  int H, K, D, L, W, chunk, col_blocks;
+  int vec;   // V's rows 16-byte aligned (D a multiple of 8): 16-byte loads
+  int kvec;  // K's rows 16-byte aligned (L a multiple of 8): 16-byte loads
+  int ld;    // the scores kernel's shared rows: the head-dim chunk (to 16) + 8
+  float scale;
+};
+
+// scores[row, l] = (bf16(bf16(q) * bf16(scale)) . K[:, l]) + bias: block
+// (b, h), 64 lanes, 64 slot rows; warp w owns lanes 16 w .. 16 w + 15 and all
+// slot tiles, its sums scores^T = K^T qs^T (16 lanes x 8 slots a tile) on
+// mma.sync m16n8k16. The K tile is staged [lane][d] (16-byte loads along the
+// lanes where K's rows allow) and q [slot][d], so every operand register is
+// two neighbouring bf16 of one shared row; the rows are as long as the head
+// dim's chunk needs (a.ld), so that small head dims keep many blocks an SM.
+__global__ void __launch_bounds__(kB16Threads) lineage_bf16_scores_kernel(const B16Args a) {
+  extern __shared__ __align__(16) unsigned char smem_b16[];
+  const int ld = a.ld;
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_b16);  // [64][ld]
+  __nv_bfloat16* sq = sk + kB16ScoreLanes * ld;                    // [64][ld]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / a.H;
+  const int l0 = blockIdx.y * kB16ScoreLanes;
+  const int k0 = blockIdx.z * kB16ScoreSlots;
+  const int slots = min(kB16ScoreSlots, a.K - k0);
+  const int n_tiles = (slots + 7) / 8;
+  const __nv_bfloat16* kb = a.kc + static_cast<size_t>(bh) * a.D * a.L;
+  const __nv_bfloat16 scale = __float2bfloat16_rn(a.scale);
+  float acc[kB16ScoreSlots / 8][4];
+#pragma unroll
+  for (int n = 0; n < kB16ScoreSlots / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int d0 = 0; d0 < a.D; d0 += kB16DChunk) {
+    const int dw = min(kB16DChunk, (a.D - d0 + 15) / 16 * 16);  // columns, to 16
+    __syncthreads();  // the last chunk's operands are read
+    // K (D, L): neighbouring threads read neighbouring lanes of a row, 8 a
+    // thread where the row allows 16-byte loads and the 8 lanes lie below W
+    for (int i = threadIdx.x; i < dw * (kB16ScoreLanes / 8); i += kB16Threads) {
+      const int d = i / (kB16ScoreLanes / 8), j = (i % (kB16ScoreLanes / 8)) * 8;
+      const int gd = d0 + d, gl = l0 + j;
+      if (a.kvec && gd < a.D && gl + 8 <= a.W) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(kb + static_cast<size_t>(gd) * a.L + gl);
+        const __nv_bfloat16* k8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sk[(j + e) * ld + d] = k8[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          sk[(j + e) * ld + d] = (gd < a.D && gl + e < a.W)
+                                     ? kb[static_cast<size_t>(gd) * a.L + gl + e]
+                                     : __float2bfloat16_rn(0.f);
+      }
+    }
+    for (int i = threadIdx.x; i < n_tiles * 8 * dw; i += kB16Threads) {
+      const int r = i / dw, d = i % dw, gd = d0 + d;
+      __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+      if (r < slots && gd < a.D) {
+        const float qv = a.q[(static_cast<size_t>(bh) * a.K + k0 + r) * a.D + gd];
+        v = __float2bfloat16_rn(__bfloat162float(__float2bfloat16_rn(qv)) *
+                                __bfloat162float(scale));
+      }
+      sq[r * ld + d] = v;
+    }
+    __syncthreads();
+    const __nv_bfloat16* ka = sk + (warp * 16 + g) * ld + 2 * t;
+    for (int ks = 0; ks < dw; ks += 16) {
+      const unsigned av[4] = {pair(ka + ks), pair(ka + 8 * ld + ks), pair(ka + ks + 8),
+                              pair(ka + 8 * ld + ks + 8)};
+#pragma unroll
+      for (int n = 0; n < kB16ScoreSlots / 8; ++n) {
+        if (n < n_tiles) {
+          const __nv_bfloat16* qb = sq + (n * 8 + g) * ld + ks + 2 * t;
+          mma_bf16(acc[n], av, pair(qb), pair(qb + 8));
+        }
+      }
+    }
+  }
+  // acc[n][2h + j]: lane l0 + 16 warp + g + 8 h, slot k0 + 8 n + 2 t + j
+#pragma unroll
+  for (int n = 0; n < kB16ScoreSlots / 8; ++n) {
+    if (n >= n_tiles) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int l = l0 + warp * 16 + g + 8 * (e / 2), k = k0 + n * 8 + 2 * t + e % 2;
+      if (l < a.W && k < a.K)
+        a.scores[(static_cast<size_t>(bh) * a.K + k) * a.W + l] =
+            acc[n][e] + a.bias[(static_cast<size_t>(b) * a.K + k) * a.W + l];
+    }
+  }
+}
+
+// context[row] = sum_l bf16(exp(s_l - max) / max(sum, 1e-20)) V[l]: block (b, h),
+// 8 slot rows, one lane chunk and one block of 256 context columns
+// (blockIdx.z = split * col_blocks + column block). Each warp folds two rows'
+// max and sum over all W scores (the normalisation is the whole row's, whatever
+// the chunk), then the block walks its chunk 64 lanes at a time: the weights
+// [slot][lane] and the V tile transposed to [d][lane] (16-byte loads along d
+// where V's rows allow) in shared memory, and warp w adds V^T w^T for the
+// 16-row tiles of d w, w + 4, ... on mma.sync m16n8k16, four depth steps a
+// tile. With S > 1 chunks the block writes its normalised partial to part_o
+// and lineage_bf16_fold_kernel adds the S partials in order.
+__global__ void __launch_bounds__(kB16Threads) lineage_bf16_context_kernel(const B16Args a) {
+  __shared__ __align__(16) __nv_bfloat16 sw[8 * kB16LdV];
+  // [columns][kB16LdV]: as many columns as the head dim needs, up to 256, so
+  // that small head dims keep many blocks an SM
+  extern __shared__ __align__(16) __nv_bfloat16 sv[];
+  __shared__ float s_max[8], s_sum[8];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, k0 = blockIdx.y * 8;
+  const int split = blockIdx.z / a.col_blocks, c0 = (blockIdx.z % a.col_blocks) * kB16CtxCols;
+  const int cw = min(kB16CtxCols, (a.D - c0 + 15) / 16 * 16);  // columns, to 16
+  const int begin = split * a.chunk, end = min(a.W, begin + a.chunk);
+  const __nv_bfloat16* vb = a.vc + static_cast<size_t>(bh) * a.L * a.D;
+  const float* srow = a.scores + (static_cast<size_t>(bh) * a.K + k0) * a.W;
+
+  for (int r = 2 * warp; r < 2 * warp + 2; ++r) {
+    float mx = -INFINITY, sum = 0.f;
+    if (k0 + r < a.K) {
+      // unrolled so that a lane's loads of the row are in flight together
+#pragma unroll 4
+      for (int l = lane; l < a.W; l += 32) mx = fmaxf(mx, srow[r * a.W + l]);
+      mx = nm::warp_max(mx);
+#pragma unroll 4
+      for (int l = lane; l < a.W; l += 32) sum += expf(srow[r * a.W + l] - mx);
+      sum = nm::warp_sum(sum);
+    }
+    if (lane == 0) {
+      s_max[r] = mx;
+      s_sum[r] = fmaxf(sum, 1e-20f);
+    }
+  }
+  float acc[kB16CtxCols / 64][4];
+#pragma unroll
+  for (int i = 0; i < kB16CtxCols / 64; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int l0 = begin; l0 < end; l0 += kB16CtxLanes) {
+    __syncthreads();  // the row statistics are in place; the last tile is read
+    for (int i = threadIdx.x; i < 8 * kB16CtxLanes; i += kB16Threads) {
+      const int r = i / kB16CtxLanes, j = i % kB16CtxLanes;
+      const int l = l0 + j;
+      float w = 0.f;
+      if (k0 + r < a.K && l < end) w = expf(srow[r * a.W + l] - s_max[r]) / s_sum[r];
+      sw[r * kB16LdV + j] = __float2bfloat16_rn(w);
+    }
+    // V (L, D): neighbouring threads read neighbouring columns of a row
+    if (a.vec) {
+      const int octs = cw / 8;
+      for (int i = threadIdx.x; i < kB16CtxLanes * octs; i += kB16Threads) {
+        const int j = i / octs, d = (i % octs) * 8;
+        const int l = l0 + j;
+        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+        if (l < end && c0 + d < a.D)
+          raw = *reinterpret_cast<const uint4*>(vb + static_cast<size_t>(l) * a.D + c0 + d);
+        const __nv_bfloat16* v8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sv[(d + e) * kB16LdV + j] = v8[e];
+      }
+    } else {
+      for (int i = threadIdx.x; i < kB16CtxLanes * cw; i += kB16Threads) {
+        const int j = i / cw, d = i % cw;
+        const int l = l0 + j, gd = c0 + d;
+        sv[d * kB16LdV + j] = (l < end && gd < a.D) ? vb[static_cast<size_t>(l) * a.D + gd]
+                                                    : __float2bfloat16_rn(0.f);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kB16CtxLanes; ks += 16) {
+      const unsigned b0 = pair(sw + g * kB16LdV + ks + 2 * t);
+      const unsigned b1 = pair(sw + g * kB16LdV + ks + 2 * t + 8);
+#pragma unroll
+      for (int i = 0; i < kB16CtxCols / 64; ++i) {
+        const int m0 = (warp + 4 * i) * 16;
+        if (m0 < cw) {
+          const __nv_bfloat16* va = sv + (m0 + g) * kB16LdV + ks + 2 * t;
+          const unsigned av[4] = {pair(va), pair(va + 8 * kB16LdV), pair(va + 8),
+                                  pair(va + 8 * kB16LdV + 8)};
+          mma_bf16(acc[i], av, b0, b1);
+        }
+      }
+    }
+  }
+  // acc[i][2h + j]: column c0 + (warp + 4 i) 16 + g + 8 h, slot k0 + 2 t + j
+  const size_t rows = static_cast<size_t>(gridDim.x) * a.K;
+#pragma unroll
+  for (int i = 0; i < kB16CtxCols / 64; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = c0 + (warp + 4 * i) * 16 + g + 8 * (e / 2), k = k0 + 2 * t + e % 2;
+      if (d >= c0 + cw || d >= a.D || k >= a.K) continue;
+      const size_t row = static_cast<size_t>(bh) * a.K + k;
+      if (gridDim.z == static_cast<unsigned>(a.col_blocks))
+        a.out[row * a.D + d] = acc[i][e];
+      else
+        a.part_o[(split * rows + row) * a.D + d] = acc[i][e];
+    }
+  }
+}
+
+// out = the sum of the S normalised partials, in the order 0 .. S-1
+__global__ void lineage_bf16_fold_kernel(const float* __restrict__ part_o,
+                                         float* __restrict__ out, size_t count, int S) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float sum = part_o[i];
+    for (int s = 1; s < S; ++s) sum += part_o[s * count + i];
+    out[i] = sum;
+  }
+}
+
+// the scores kernel's shared row length for head dim D: its widest chunk,
+// rounded up to 16, plus 8 (conflict-free operand reads), and its bytes
+inline int b16_scores_ld(int D) { return std::min(kB16DChunk, (D + 15) / 16 * 16) + 8; }
+// the context kernel's shared V tile for head dim D: its widest column block,
+// rounded up to 16, by kB16LdV
+inline size_t b16_context_smem(int D) {
+  return sizeof(__nv_bfloat16) * std::min(kB16CtxCols, (D + 15) / 16 * 16) * kB16LdV;
+}
+inline size_t b16_scores_smem(int D) {
+  return sizeof(__nv_bfloat16) * 2 * kB16ScoreLanes * b16_scores_ld(D);
+}
+
 }  // namespace
 
 // The launch follows ops/lineage_attention.lineage_plan: `dmax` the head dim
@@ -592,4 +871,47 @@ NM_EXPORT int nm_lineage_attention(const void* q, const void* k_cache, const voi
     case 512: return launch_slots<512>(a, B * H, tile, slots, groups, splits, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The bf16 instance: caches k_cache (B, H, D, L) and v_cache (B, H, L, D) in
+// bf16, q, bias and out float32. `scores` is scratch of (B*H*K, W) floats;
+// `splits` lane chunks of `chunk` lanes (a multiple of 16), `part_o` scratch of
+// (splits, B*H*K, D) floats when splits > 1
+// (ops/lineage_attention.lineage_bf16_plan).
+NM_EXPORT int nm_lineage_attention_bf16(const void* q, const void* k_cache, const void* v_cache,
+                                        const void* bias, void* out, void* scores, void* part_o,
+                                        int B, int H, int K, int D, int L, int W, int splits,
+                                        int chunk, float scale, void* stream) {
+  if (B < 1 || H < 1 || K < 1 || D < 1 || W < 1 || W > L || splits < 1 || chunk < 1 ||
+      chunk % kB16CtxLanes || (splits - 1) * chunk >= W || splits * chunk < W ||
+      scores == nullptr || (splits > 1 && part_o == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int col_blocks = (D + kB16CtxCols - 1) / kB16CtxCols;
+  const B16Args a{static_cast<const float*>(q),
+                  static_cast<const __nv_bfloat16*>(k_cache),
+                  static_cast<const __nv_bfloat16*>(v_cache),
+                  static_cast<const float*>(bias),
+                  static_cast<float*>(out),
+                  static_cast<float*>(scores),
+                  static_cast<float*>(part_o),
+                  H, K, D, L, W, chunk, col_blocks,
+                  D % 8 == 0 && reinterpret_cast<size_t>(v_cache) % 16 == 0,
+                  L % 8 == 0 && reinterpret_cast<size_t>(k_cache) % 16 == 0,
+                  b16_scores_ld(D), scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = nm::allow_max_smem(reinterpret_cast<const void*>(lineage_bf16_scores_kernel));
+  if (err != 0) return err;
+  const dim3 score_grid(B * H, (W + kB16ScoreLanes - 1) / kB16ScoreLanes,
+                        (K + kB16ScoreSlots - 1) / kB16ScoreSlots);
+  lineage_bf16_scores_kernel<<<score_grid, kB16Threads, b16_scores_smem(D), s>>>(a);
+  int status = nm::launch_status();
+  if (status != 0) return status;
+  lineage_bf16_context_kernel<<<dim3(B * H, (K + 7) / 8, splits * col_blocks), kB16Threads,
+                                b16_context_smem(D), s>>>(a);
+  status = nm::launch_status();
+  if (status != 0 || splits == 1) return status;
+  const size_t count = static_cast<size_t>(B) * H * K * D;
+  const int blocks = static_cast<int>(std::min<size_t>((count + 255) / 256, size_t{1} << 16));
+  lineage_bf16_fold_kernel<<<blocks, 256, 0, s>>>(a.part_o, a.out, count, splits);
+  return nm::launch_status();
 }

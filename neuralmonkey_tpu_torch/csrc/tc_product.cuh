@@ -10,7 +10,17 @@
 // tile of 4 x 4 m16n8 fragments. Operands arrive by cp.async in
 // double-buffered 32-deep stages, so the next stage's loads overlap this
 // stage's products.
+//
+// A bf16 W (the fused cross-entropy under the bf16 compute policy) is read as
+// bf16 and widened to float32 as its tiles are stored in shared memory
+// (load_widen: plain loads, not cp.async), so the shared layout and the
+// products stay the float32 ones. A bf16 value is exact in TF32, so its low
+// part is zero and its products take two passes, not three (kBExact).
 #pragma once
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -65,11 +75,54 @@ __device__ __forceinline__ void load(float* dst, int ld, const float* __restrict
   nm::cp_async_commit();
 }
 
+// Copy rows x cols of a bf16 `src` (row stride lds) into the float32 `dst`
+// (row stride ld), widened, zero past rows_ok rows and cols_ok columns, with
+// plain loads (8 bytes a thread when `vec`: every row 8-byte aligned, cols_ok
+// a multiple of 4). Commits one (empty) group of copies, as load() commits
+// one, so the callers' counts of groups in flight hold.
+__device__ __forceinline__ void load_widen(float* dst, int ld, const __nv_bfloat16* __restrict__ src,
+                                           size_t lds, int rows, int cols, int rows_ok,
+                                           int cols_ok, bool vec) {
+  if (vec) {
+    const int quads = cols / 4;
+    for (int i = threadIdx.x; i < rows * quads; i += kThreads) {
+      const int r = i / quads, c = (i % quads) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows_ok && c < cols_ok) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(src + r * lds + c);
+        v = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                        __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+      }
+      *reinterpret_cast<float4*>(dst + r * ld + c) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i % cols;
+      dst[r * ld + c] =
+          (r < rows_ok && c < cols_ok) ? __bfloat162float(src[r * lds + c]) : 0.f;
+    }
+  }
+  nm::cp_async_commit();
+}
+
+// load() for a float32 operand, load_widen() for a bf16 one
+__device__ __forceinline__ void load_w(float* dst, int ld, const float* __restrict__ src,
+                                       size_t lds, int rows, int cols, int rows_ok, int cols_ok,
+                                       bool vec) {
+  load(dst, ld, src, lds, rows, cols, rows_ok, cols_ok, vec);
+}
+__device__ __forceinline__ void load_w(float* dst, int ld, const __nv_bfloat16* __restrict__ src,
+                                       size_t lds, int rows, int cols, int rows_ok, int cols_ok,
+                                       bool vec) {
+  load_widen(dst, ld, src, lds, rows, cols, rows_ok, cols_ok, vec);
+}
+
 // acc += A B over one stage of `kc` (a multiple of 8) depths for this warp's
 // 64 x 32 tile: A row-major (a[m][k], row stride lda), or stored [k][m] (row
 // stride lda) when kAKMajor; B stored [n][k] (row stride kLdK) when kBNMajor,
-// else [k][n] (row stride kLdB).
-template <bool kBNMajor, bool kAKMajor = false, int kLdB = kLdN>
+// else [k][n] (row stride kLdB). kBExact: every B value is exact in TF32 (a
+// widened bf16), so the a_hi b_lo pass adds nothing and is left out.
+template <bool kBNMajor, bool kAKMajor = false, int kLdB = kLdN, bool kBExact = false>
 __device__ __forceinline__ void warp_product(const float* a, int lda, const float* b, int kc,
                                              float (&acc)[4][4][4]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -107,10 +160,12 @@ __device__ __forceinline__ void warp_product(const float* a, int lda, const floa
     for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
+    if (!kBExact) {
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+      for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
+        for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
+    }
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -120,27 +175,28 @@ __device__ __forceinline__ void warp_product(const float* a, int lda, const floa
 
 // acc += the 128 x 128 tile of x W at rows m0.., columns n0.., over all D
 // depths, for x (N, D) and W (D, V) row-major, or W given as its transpose
-// (V, D) when kWT (a tied embedding table). Rows, columns and depths out of
+// (V, D) when kWT (a tied embedding table); W float32 or bf16 (TW), the
+// latter widened as it is staged and multiplied in two passes. Rows, columns and depths out of
 // range contribute zero. Stage s of `stages` (2 kStage floats) holds x[m0..,
 // k0..] as [m][k], then W(k0.., n0..) as [k][n] or, tied, [n][k]; stage c + 1
 // is in flight while stage c is multiplied. Ends with a __syncthreads(), so
 // `stages` is free on return. Warp w's sums are rows w / 4 * 64 + mi * 16 +
 // lane / 4 + 8 (e / 2), columns w % 4 * 32 + ni * 8 + 2 (lane % 4) + e % 2 of
 // acc[mi][ni][e].
-template <bool kWT>
+template <bool kWT, typename TW = float>
 __device__ __forceinline__ void tile_product(const float* __restrict__ x,
-                                             const float* __restrict__ w, int N, int D, int V,
+                                             const TW* __restrict__ w, int N, int D, int V,
                                              int m0, int n0, bool vec, float* stages,
                                              float (&acc)[4][4][4]) {
   auto stage_in = [&](int s, int k0) {
     float* st = stages + s * kStage;
     load(st, kLdK, x + static_cast<size_t>(m0) * D + k0, D, kM, kKC, N - m0, D - k0, vec);
     if (kWT)
-      load(st + kM * kLdK, kLdK, w + static_cast<size_t>(n0) * D + k0, D, kN, kKC, V - n0,
-           D - k0, vec);
+      load_w(st + kM * kLdK, kLdK, w + static_cast<size_t>(n0) * D + k0, D, kN, kKC, V - n0,
+             D - k0, vec);
     else
-      load(st + kM * kLdK, kLdN, w + static_cast<size_t>(k0) * V + n0, V, kKC, kN, D - k0,
-           V - n0, vec);
+      load_w(st + kM * kLdK, kLdN, w + static_cast<size_t>(k0) * V + n0, V, kKC, kN, D - k0,
+             V - n0, vec);
   };
   const int chunks = (D + kKC - 1) / kKC;
   stage_in(0, 0);
@@ -153,7 +209,8 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ x,
     }
     __syncthreads();
     const float* st = stages + (c & 1) * kStage;
-    warp_product<kWT>(st, kLdK, st + kM * kLdK, kKC, acc);
+    warp_product<kWT, false, kLdN, !std::is_same<TW, float>::value>(st, kLdK, st + kM * kLdK,
+                                                                     kKC, acc);
     __syncthreads();  // the stage is consumed before it is loaded again
   }
 }

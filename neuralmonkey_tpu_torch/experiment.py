@@ -20,6 +20,7 @@ from .learning_utils import (evaluation, normalize_evaluation,
                              print_final_evaluation, run_on_dataset,
                              training_loop)
 from .logging import Logging, log
+from .ops.policy import set_compute_dtype
 from .runtime import CUDAManager
 from .trainers.multitask_trainer import MultitaskTrainer
 
@@ -115,8 +116,9 @@ class Experiment:
             return
         self.config.build_model(warn_unused=self.train_mode)
         model = self.config.model
-        if getattr(model, "compute_dtype", None) is not None:
-            raise ValueError("bf16 policy not yet ported")
+        # the compute-precision policy (ops/policy.py): the INI's key, or
+        # NM_COMPUTE_DTYPE when the INI has none
+        set_compute_dtype(getattr(model, "compute_dtype", None))
         seed = getattr(model, "random_seed", None) or 2574600
         random.seed(seed)
         np.random.seed(seed)

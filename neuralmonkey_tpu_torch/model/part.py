@@ -27,6 +27,7 @@ import torch
 
 from ..logging import debug
 from ..ops.nn import dropout as nn_dropout
+from ..ops.policy import cast_params_for_compute, compute_dtype
 
 
 class Context:
@@ -59,7 +60,16 @@ class Context:
             raise KeyError(
                 f"No parameters for part '{key}' (have "
                 f"{sorted(self.params.keys())})")
-        return self.params[key]
+        # under the bf16 policy the matrix parameters are cast at use
+        # (ops/policy.py), once per part and pass; the float32 masters
+        # get their gradients through the cast
+        if compute_dtype() is None:
+            return self.params[key]
+        cache_key = (id(part), "__compute_params__")
+        if cache_key not in self._cache:
+            self._cache[cache_key] = cast_params_for_compute(
+                self.params[key])
+        return self._cache[cache_key]
 
     def add_aux_loss(self, part: "ModelPart", name: str, value) -> None:
         """Register an auxiliary loss term (already weighted by the

@@ -5,13 +5,13 @@ the embeddings of several aligned series (words and their factors)."""
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.nn import depth_scale
 from ..vocabulary import Vocabulary
 from .part import Context, ModelPart, tensor
 from .stateful import TemporalStateful
@@ -100,7 +100,8 @@ class EmbeddedSequence(ModelPart, TemporalStateful):
         feeding back their own predictions)."""
         embedded = F.embedding(ids, ctx.get_params(self)["embeddings"])
         if self.scale_embeddings_by_depth:
-            embedded = embedded * math.sqrt(self.embedding_size)
+            embedded = embedded * depth_scale(self.embedding_size,
+                                              embedded)
         return embedded
 
     @tensor

@@ -230,7 +230,7 @@ class Decoder(AutoregressiveDecoder):
     def _logits(self, constants, prelogit):
         params = constants["params"]
         if self.tie_embeddings:
-            return prelogit @ constants["embed_table"].T \
+            return nn.dot(prelogit, constants["embed_table"].T) \
                 + params["logit_bias"]
         return nn.linear(params["logit"], prelogit)
 

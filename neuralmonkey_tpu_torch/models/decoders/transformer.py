@@ -22,9 +22,13 @@ their capacity, padding masked out; every decode step (greedy, and both
 lineage forms) routes its rows as one group without dropping a token,
 the padding rows of a batch masked out (``row_valid``).
 
-Not ported yet: pipeline stages (A15),
-bf16 lineage caches (``NM_LINEAGE_KERNEL_BF16``, with the bf16 policy)
-and the attention map of the decode steps; each raises or is absent.
+Under the bf16 compute policy (``ops/policy.py``) the decode caches and
+the projected cross-attention keys and values are bf16 (``_cache_dtype``);
+``NM_LINEAGE_KERNEL_BF16=1`` keeps the lineage kernel's caches in bf16
+under either policy, as in the JAX package.
+
+Not ported yet: pipeline stages (A15) and the attention map of the
+decode steps; the first raises, the second is absent.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from ...ops.attention import (NEG_INF, attention_bias_from_mask,
                               split_heads)
 from ...ops.lineage_attention import (lane_window, lineage_attention,
                                       lineage_bias)
+from ...ops.policy import compute_dtype
 from ..encoders.transformer import MoESettings, refuse_unported, run_layer
 from .autoregressive import AutoregressiveDecoder
 
@@ -54,11 +59,16 @@ def lineage_kernel_layout() -> bool:
     """Whether beam search keeps the caches in the lineage kernel's
     layout: ``NM_LINEAGE_KERNEL=1`` (opt-in as in the JAX package). The
     kernel takes every shape, so no shape decides."""
-    if os.environ.get("NM_LINEAGE_KERNEL_BF16") == "1":
-        raise NotImplementedError(
-            "NM_LINEAGE_KERNEL_BF16=1: bf16 lineage caches come with the "
-            "bf16 policy, which is not ported to neuralmonkey_tpu_torch yet")
     return os.environ.get("NM_LINEAGE_KERNEL") == "1"
+
+
+def cache_dtype(table: torch.Tensor) -> torch.dtype:
+    """The decode caches' dtype (``_cache_dtype``): the compute
+    policy's, float32 without one; a float64 model (a reference check on
+    the CPU) keeps float64."""
+    if table.dtype == torch.float64:
+        return torch.float64
+    return compute_dtype() or torch.float32
 
 
 class TransformerDecoder(AutoregressiveDecoder):
@@ -150,7 +160,7 @@ class TransformerDecoder(AutoregressiveDecoder):
 
     def _logits_from_states(self, params, embed_table, states):
         if self.tie_embeddings:
-            return states @ embed_table.T + params["logit_bias"]
+            return nn.dot(states, embed_table.T) + params["logit_bias"]
         return nn.linear(params["logit"], states)
 
     # ------------------------------------------------------------------ #
@@ -209,7 +219,7 @@ class TransformerDecoder(AutoregressiveDecoder):
         x = x + sinusoidal_position_encoding(
             time, self.model_dim, x.dtype, x.device)[None]
         x = ctx.dropout(self, x, self.dropout_keep_prob, "input_dropout")
-        all_keys_mask = x.new_ones(batch, time)
+        all_keys_mask = x.new_ones(batch, time, dtype=nn.widened(x.dtype))
         enc_data = [(enc.temporal_states(ctx),
                      enc.temporal_mask(ctx).to(torch.float32))
                     for enc in self.encoders]
@@ -255,7 +265,8 @@ class TransformerDecoder(AutoregressiveDecoder):
         """Parameters, the embedding table, the position table, and per
         encoder and layer the cross-attention keys and values, projected
         once per sentence and split into heads (B, H, S, Dh), with the
-        source's additive bias (B, 1, 1, S); with MoE FFNs the validity
+        source's additive bias (B, 1, 1, S), the keys and values in the
+        caches' dtype (``cache_dtype``); with MoE FFNs the validity
         of each batch row (``row_valid``, (B,): a padding row has an
         all-zero source mask)."""
         params = ctx.get_params(self)
@@ -272,8 +283,8 @@ class TransformerDecoder(AutoregressiveDecoder):
             for i in range(self.depth):
                 att_p = params[f"layer_{i}"][f"cross_att_{e}"]
                 per_layer.append(tuple(
-                    split_heads(nn.linear(att_p[p], states),
-                                self.n_heads_enc).contiguous()
+                    split_heads(nn.linear(att_p[p], states).to(
+                        cache_dtype(table)), self.n_heads_enc).contiguous()
                     for p in ("k", "v")))
             constants["enc_kv"].append(per_layer)
             constants["enc_bias"].append(
@@ -293,12 +304,13 @@ class TransformerDecoder(AutoregressiveDecoder):
         return dict(constants)
 
     def decode_initial_state(self, ctx: Context, constants):
-        """Per layer, zero (B, max_output_len, D) key and value caches."""
+        """Per layer, zero (B, max_output_len, D) key and value caches in
+        the policy's dtype (``cache_dtype``)."""
         batch = self._batch_size(ctx)
         table = constants["embed_table"]
         return tuple(
             {name: table.new_zeros(batch, self.max_output_len,
-                                   self.model_dim)
+                                   self.model_dim, dtype=cache_dtype(table))
              for name in ("k", "v")}
             for _ in range(self.depth))
 
@@ -306,7 +318,8 @@ class TransformerDecoder(AutoregressiveDecoder):
         """Caches for B·K beam rows: (B·K, T, D) rows for the einsum
         lineage step, or under ``NM_LINEAGE_KERNEL=1`` the lineage
         kernel's layout, ``kq`` (B, H, Dh, K·T) and ``vq`` (B, H, K·T,
-        Dh) with lane ``t·K + j`` (``tile_decode_state`` :579-614)."""
+        Dh) with lane ``t·K + j`` (``tile_decode_state`` :579-614), in
+        the state's dtype, or bf16 under ``NM_LINEAGE_KERNEL_BF16=1``."""
         batch = state[0]["k"].shape[0]
         zeros = state[0]["k"].new_zeros
         heads = self.n_heads_self
@@ -317,14 +330,20 @@ class TransformerDecoder(AutoregressiveDecoder):
                           for name in ("k", "v")}
                          for _ in range(self.depth))
         lanes = beam * self.max_output_len
-        return tuple({"kq": zeros(batch, heads, head_dim, lanes),
-                      "vq": zeros(batch, heads, lanes, head_dim)}
+        dtype = state[0]["k"].dtype
+        if os.environ.get("NM_LINEAGE_KERNEL_BF16") == "1":
+            dtype = torch.bfloat16
+        return tuple({"kq": zeros(batch, heads, head_dim, lanes,
+                                  dtype=dtype),
+                      "vq": zeros(batch, heads, lanes, head_dim,
+                                  dtype=dtype)}
                      for _ in range(self.depth))
 
     def _embed_step(self, constants, prev_ids, step: int):
         """(rows, 1, D) embedded previous tokens at position ``step``."""
         x = F.embedding(prev_ids.long(), constants["embed_table"])
-        x = x * math.sqrt(self.model_dim) + constants["positions"][step]
+        x = (x * nn.depth_scale(self.model_dim, x)
+             + constants["positions"][step])
         return x[:, None, :]
 
     def _cross_ffn(self, layer, x, constants, i: int, beam: int = 1):
@@ -409,7 +428,7 @@ class TransformerDecoder(AutoregressiveDecoder):
             # one-hot lineage (B, K, J, W), shared by every layer
             lineage = (anc[:, :, None, :win] == torch.arange(
                 beam, device=anc.device)[None, None, :, None]).to(
-                    constants["embed_table"].dtype)
+                    nn.widened(constants["embed_table"].dtype))
 
         x = self._embed_step(constants, prev_ids, step)
         for i, cache in enumerate(loop_state):
@@ -437,12 +456,19 @@ class TransformerDecoder(AutoregressiveDecoder):
                                                  head_dim)
                 vh = cache["v"][:, :win].reshape(batch, beam, win, heads,
                                                  head_dim)
-                s_full = torch.einsum("bkhd,bjthd->bhkjt", q, kh) \
-                    * (1.0 / math.sqrt(head_dim))
+                # bf16 caches (the policy): q takes their dtype, the
+                # scores, softmax and context sums are float32 and the
+                # weights are rounded to the values' dtype
+                wide = lineage.dtype
+                s_full = torch.einsum(
+                    "bkhd,bjthd->bhkjt", q.to(kh.dtype).to(wide),
+                    kh.to(wide)) * (1.0 / math.sqrt(head_dim))
                 s = torch.einsum("bhkjt,bkjt->bhkt", s_full, lineage)
                 weights = torch.softmax(s + cache_bias, dim=-1)
                 w_slot = torch.einsum("bhkt,bkjt->bhkjt", weights, lineage)
-                att = torch.einsum("bhkjt,bjthd->bkhd", w_slot, vh)
+                att = torch.einsum("bhkjt,bjthd->bkhd",
+                                   w_slot.to(vh.dtype).to(wide),
+                                   vh.to(wide))
             x = x + nn.linear(att_p["o"], att.reshape(rows, 1, -1))
             x = self._cross_ffn(layer, x, constants, i, beam)
         logits, sel_aux = self._finish(constants, x)

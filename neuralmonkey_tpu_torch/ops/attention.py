@@ -31,11 +31,15 @@ NEG_INF = -1e9
 def sinusoidal_position_encoding(length: int, dim: int,
                                  dtype=torch.float32,
                                  device=None) -> torch.Tensor:
-    """(length, dim) Transformer position signal (Vaswani et al.)."""
+    """(length, dim) Transformer position signal (Vaswani et al.),
+    computed in ``dtype`` step by step as the JAX package computes it
+    (its Python constants rounded to ``dtype`` first): under the bf16
+    policy a bf16 signal."""
     positions = torch.arange(length, dtype=dtype, device=device)[:, None]
     half = dim // 2
-    freqs = torch.exp(-math.log(10000.0)
-                      * torch.arange(half, dtype=dtype, device=device) / half)
+    freqs = torch.exp(nn.scalar(-math.log(10000.0), dtype)
+                      * torch.arange(half, dtype=dtype, device=device)
+                      / nn.scalar(half, dtype))
     angles = positions * freqs[None, :]
     encoding = torch.cat([torch.sin(angles), torch.cos(angles)], dim=1)
     if encoding.shape[1] < dim:  # odd dims
@@ -51,11 +55,30 @@ def layer_norm_init(dim: int) -> Dict[str, torch.Tensor]:
 def layer_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
                epsilon: float = 1e-6) -> torch.Tensor:
     """Layer norm with the biased variance and epsilon inside the
-    square root, as the JAX package computes it."""
+    square root, as the JAX package computes it. A bf16 ``x`` (the
+    embedded states under the bf16 policy) is normalised in bf16, each
+    step computed in float32 and rounded as the JAX package's bf16
+    steps are (PyTorch's bf16 ``rsqrt`` is not rounded correctly); the
+    float32 scale then makes the output float32."""
+    if x.dtype == torch.bfloat16:
+        return _layer_norm_bf16(params, x, epsilon)
     mean = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
     return ((x - mean) * torch.rsqrt(var + epsilon) * params["scale"]
             + params["bias"])
+
+
+def _layer_norm_bf16(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                     epsilon: float) -> torch.Tensor:
+    bf16 = torch.bfloat16
+    wide = x.float()
+    mean = wide.mean(dim=-1, keepdim=True).to(bf16)
+    var = wide.var(dim=-1, keepdim=True, unbiased=False).to(bf16)
+    centered = (wide - mean.float()).to(bf16)
+    inv = torch.rsqrt(
+        (var.float() + nn.scalar(epsilon, bf16)).to(bf16).float()).to(bf16)
+    normed = (centered.float() * inv.float()).to(bf16)
+    return normed.float() * params["scale"] + params["bias"]
 
 
 def mha_init(gen: torch.Generator, query_dim: int, kv_dim: int,
@@ -86,9 +109,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                           dropout_seed: Optional[int] = None,
                           dropout_keep_prob: float = 1.0) -> torch.Tensor:
     """Dense attention (B, H, Tq, Dh) x (B, H, Tk, Dh) -> (B, H, Tq, Dh)
-    with an additive bias and dropout after the softmax."""
+    with an additive bias and dropout after the softmax. Under the bf16
+    policy (bf16 decode caches) q takes the keys' dtype, the scores and
+    the softmax are float32, the weights take the values' dtype and the
+    context, summed in float32, is returned in the values' dtype, as in
+    the JAX package."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    scores = nn.dot(q.to(k.dtype), k.transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias
     weights = torch.softmax(scores, dim=-1)
@@ -96,7 +123,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
         gen = torch.Generator(device=weights.device).manual_seed(
             dropout_seed)
         weights = nn.dropout(weights, dropout_keep_prob, gen, True)
-    return torch.matmul(weights, v)
+    return nn.dot(weights.to(v.dtype), v).to(v.dtype)
 
 
 def attention_bias_from_mask(mask: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from . import kernel_config
+from . import kernel_config, nn
 
 LANE = 128
 # K4 (csrc/beam_select.cu): sorted lists of 16, 32 or 64 entries a lane, so
@@ -111,8 +111,8 @@ def fused_logits_reference(x: torch.Tensor, w: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Plain version of K3: (logits (N, Vp), rowmax (N, Vp/128),
-    lse (N,)) of ``x @ w + b``."""
-    logits = torch.matmul(x, w) + b
+    lse (N,)) of ``x @ w + b``, float32 (a bf16 operand widened)."""
+    logits = nn.dot(x, w) + b
     return (logits, *rowmax_lse_reference(logits))
 
 
@@ -125,7 +125,11 @@ def fused_logits_rowmax_lse(x: torch.Tensor, w: torch.Tensor,
     re-read. ``x`` (N, D) prelogit rows, ``w`` (D, Vp) with Vp a
     multiple of 128, ``b`` (1, Vp) or (Vp,) bias (pad columns carry a
     large negative bias). Launches K3 for CUDA tensors, runs the plain
-    version otherwise."""
+    version otherwise. K3 computes in float32: a bf16 x or w is widened
+    first, exactly, so it computes the plain version's float32 logits;
+    any other dtype raises. The beam search arms it with a float32 w
+    under either policy (the bf16 table widened,
+    ``prepare_selection_fusion``), as the JAX package does."""
     b = b.reshape(-1)
     n, d = x.shape
     vp = w.shape[1]
@@ -136,6 +140,7 @@ def fused_logits_rowmax_lse(x: torch.Tensor, w: torch.Tensor,
             f"multiple of {LANE}")
     if not x.is_cuda:
         return fused_logits_reference(x, w, b)
+    x, w = (t.float() if t.dtype == torch.bfloat16 else t for t in (x, w))
     if n == 0 or d == 0:
         raise ValueError(f"fused_logits_rowmax_lse: empty x {(n, d)}")
     kernel_config.check_cuda_inputs("fused_logits_rowmax_lse",

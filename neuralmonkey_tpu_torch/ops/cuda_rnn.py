@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from . import kernel_config
+from . import kernel_config, nn
 from .nn import Params
 
 # the hidden sizes K1 takes: any whose three padded f32 state rows fit one
@@ -262,13 +262,15 @@ def gru_bptt_plan(batch: int, hidden: int, n_dirs: int, sm_count: int,
 
 def hoisted_inputs(directions: Sequence[Params],
                    inputs: torch.Tensor) -> torch.Tensor:
-    """(B, T, D·3H): per direction ``[x @ gates_x + gates_b |
-    x @ cand_x + cand_b]``, from one matmul."""
+    """(B, T, D·3H) float32: per direction ``[x @ gates_x + gates_b |
+    x @ cand_x + cand_b]``, from one matmul. Under the bf16 policy bf16
+    inputs and weights multiply with float32 sums and output
+    (``pallas_rnn._hoisted_inputs_tm``)."""
     w = torch.cat([torch.cat([p["gates_x"], p["cand_x"]], dim=1)
                    for p in directions], dim=1)
     b = torch.cat([torch.cat([p["gates_b"], p["cand_b"]])
                    for p in directions])
-    return torch.matmul(inputs, w) + b
+    return nn.dot(inputs, w) + b
 
 
 def _directions(reverse_mask: int, n_dirs: int):
@@ -502,8 +504,11 @@ def gru_scan(directions: Sequence[Tuple[Params, bool]],
     hidden = params[0]["cand_h"].shape[0]
     batch, time, _ = inputs.shape
     x = hoisted_inputs(params, inputs)
-    wgh = torch.stack([p["gates_h"] for p in params])
-    wch = torch.stack([p["cand_h"] for p in params])
+    # the kernels compute in float32 with the recurrent weights as the
+    # policy rounded them (widened from bf16); their gradients are rounded
+    # back to bf16 through the widening, as ``pallas_rnn.py:420`` does
+    wgh = torch.stack([p["gates_h"] for p in params]).to(x.dtype)
+    wch = torch.stack([p["cand_h"] for p in params]).to(x.dtype)
     mask = mask.to(x.dtype)
     if not scan_fits(hidden):
         kernel_config.log_plain_path("gru_scan", f"hidden {hidden}")
@@ -523,11 +528,12 @@ def gru_scan(directions: Sequence[Tuple[Params, bool]],
 # ---------------------------------------------------------------------- #
 def lstm_hoisted_inputs(directions: Sequence[Params],
                         inputs: torch.Tensor) -> torch.Tensor:
-    """(B, T, D·4H): per direction ``x @ kernel_x + bias``, gates in
-    i, j, f, o order, from one matmul."""
+    """(B, T, D·4H) float32: per direction ``x @ kernel_x + bias``, gates
+    in i, j, f, o order, from one matmul (bf16 operands under the policy,
+    float32 sums and output)."""
     w = torch.cat([p["kernel_x"] for p in directions], dim=1)
     b = torch.cat([p["bias"] for p in directions])
-    return torch.matmul(inputs, w) + b
+    return nn.dot(inputs, w) + b
 
 
 def _lstm_gates(z: torch.Tensor, forget_bias: float):
@@ -760,7 +766,8 @@ def lstm_scan(directions: Sequence[Tuple[Params, bool]],
     runs the plain versions otherwise."""
     params = [p for p, _ in directions]
     xz = lstm_hoisted_inputs(params, inputs)
-    wh = torch.stack([p["kernel_h"] for p in params])
+    # float32 kernels on the policy's rounded weights (see gru_scan)
+    wh = torch.stack([p["kernel_h"] for p in params]).to(xz.dtype)
     mask = mask.to(xz.dtype)
     hidden = wh.shape[1]
     if not lstm_scan_fits(hidden):

@@ -12,8 +12,14 @@ logit tiles, and the backward recomputes the tiles and folds
 tile computed once, on the tensor cores (3xTF32).
 
 Opt-in, as in the JAX package: the decoders take this path when
-``NM_FUSED_XENT=1`` (:func:`eligible`), for every float32 shape; the
-TPU's ``d % 128`` and ``n % 8`` gates do not apply to the kernels.
+``NM_FUSED_XENT=1`` (:func:`eligible`), for float32 and bf16 operands of
+every shape; the TPU's ``d % 128`` and ``n % 8`` gates do not apply to
+the kernels. Under the bf16 compute policy the projection is the bf16
+use-site table beside float32 states: the JAX package widens such a
+mixed pair and runs its float32 kernels, and so do these, reading W as
+bf16 (the ``*_bf16w`` instances, half W's bytes); dW is returned rounded
+to bf16, W's dtype, as the JAX custom VJP's cotangent is. A bf16 x is
+widened (exact); its dx is returned in bf16.
 """
 
 from __future__ import annotations
@@ -111,12 +117,15 @@ def dw_plan(n: int, d: int, v: int, sm_count: int,
                           smem_limit, DW_SMEM_BYTES, owns_rows=False)
 
 
+FLOATS = (torch.float32, torch.bfloat16)
+
+
 def eligible(x: torch.Tensor, w: torch.Tensor) -> bool:
     """Whether the fused path is switched on (``NM_FUSED_XENT=1``) and
-    takes these operands (float32)."""
+    takes these operands (float32 or bf16 each)."""
     if os.environ.get("NM_FUSED_XENT") not in ("1", "true", "True"):
         return False
-    return x.dtype == torch.float32 and w.dtype == torch.float32
+    return x.dtype in FLOATS and w.dtype in FLOATS
 
 
 def xent_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -176,6 +185,16 @@ def bwd_dw_reference(x, w, b, targets, lse, g, eps: float,
     return dw, dl.sum(dim=0)
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand widened to float32 (exactly); others as they are."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _instance(name: str, w: torch.Tensor) -> str:
+    """The kernel that takes ``w``: ``name``, or its bf16-W instance."""
+    return f"{name}_bf16w" if w.dtype == torch.bfloat16 else name
+
+
 def _check(name: str, x, w, b, targets, transposed: bool, **more) -> None:
     n, d = x.shape
     v = w.shape[0] if transposed else w.shape[1]
@@ -190,21 +209,25 @@ def _check(name: str, x, w, b, targets, transposed: bool, **more) -> None:
     if not targets.is_cuda or targets.device != x.device:
         raise ValueError(f"{name}: targets on {targets.device}, x on "
                          f"{x.device}")
-    kernel_config.check_cuda_inputs(name, x=x, w=w, b=b, **more)
+    w_dtype = (torch.bfloat16 if name.endswith("_bf16w")
+               else torch.float32)
+    kernel_config.check_cuda_inputs(name, x=x, w=w, b=b, **more,
+                                    dtypes={"w": w_dtype})
 
 
 def xent_fwd(x, w, b, targets, eps: float, transposed: bool
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(nll, lse): launches ``fused_xent_fwd`` for CUDA tensors, runs
-    the plain version otherwise."""
+    """(nll, lse): launches ``fused_xent_fwd`` (its bf16-W instance for
+    a bf16 ``w``) for CUDA tensors, runs the plain version otherwise."""
     if not x.is_cuda:
-        return fwd_reference(x, w, b, targets, eps, transposed)
-    _check("fused_xent_fwd", x, w, b, targets, transposed)
+        return fwd_reference(x, _wide(w), b, targets, eps, transposed)
+    name = _instance("fused_xent_fwd", w)
+    _check(name, x, w, b, targets, transposed)
     n = x.shape[0]
     vocab = w.shape[0] if transposed else w.shape[1]
     partials = x.new_empty(4, n, -(-vocab // TILE))
     lse, nll = x.new_empty(n), x.new_empty(n)
-    kernel_config.launch("fused_xent_fwd", x, w, b, targets, partials[0],
+    kernel_config.launch(name, x, w, b, targets, partials[0],
                          partials[1], partials[2], partials[3], lse, nll,
                          n, x.shape[1], vocab, int(transposed), eps)
     return nll, lse
@@ -212,18 +235,20 @@ def xent_fwd(x, w, b, targets, eps: float, transposed: bool
 
 def xent_bwd_dx(x, w, b, targets, lse, g, eps: float,
                 transposed: bool) -> torch.Tensor:
-    """dx = dl·Wᵀ: launches ``fused_xent_bwd_dx``, laid out by
-    :func:`dx_plan`, for CUDA tensors; runs the plain version
-    otherwise."""
+    """dx = dl·Wᵀ: launches ``fused_xent_bwd_dx`` (its bf16-W instance
+    for a bf16 ``w``), laid out by :func:`dx_plan`, for CUDA tensors;
+    runs the plain version otherwise."""
     if not x.is_cuda:
-        return bwd_dx_reference(x, w, b, targets, lse, g, eps, transposed)
-    _check("fused_xent_bwd_dx", x, w, b, targets, transposed, lse=lse, g=g)
+        return bwd_dx_reference(x, _wide(w), b, targets, lse, g, eps,
+                                transposed)
+    name = _instance("fused_xent_bwd_dx", w)
+    _check(name, x, w, b, targets, transposed, lse=lse, g=g)
     dx = torch.empty_like(x)
     n, d = x.shape
     vocab = w.shape[0] if transposed else w.shape[1]
     plan = dx_plan(n, d, vocab, *kernel_config.tensor_device_limits(x))
     scratch = x.new_empty(plan.splits, n, d) if plan.splits > 1 else None
-    kernel_config.launch("fused_xent_bwd_dx", x, w, b, targets, lse, g, dx,
+    kernel_config.launch(name, x, w, b, targets, lse, g, dx,
                          scratch, n, d, vocab, int(transposed), plan.splits,
                          plan.tiles_per_chunk, eps)
     return dx
@@ -231,13 +256,17 @@ def xent_bwd_dx(x, w, b, targets, lse, g, eps: float,
 
 def xent_bwd_dw(x, w, b, targets, lse, g, eps: float, transposed: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dW = xᵀ·dl in w's layout, db = Σₙ dl): launches
-    ``fused_xent_bwd_dw``, laid out by :func:`dw_plan`, for CUDA
-    tensors; runs the plain version otherwise."""
+    """(dW = xᵀ·dl in w's layout, float32, db = Σₙ dl): launches
+    ``fused_xent_bwd_dw`` (its bf16-W instance for a bf16 ``w``), laid
+    out by :func:`dw_plan`, for CUDA tensors; runs the plain version
+    otherwise."""
     if not x.is_cuda:
-        return bwd_dw_reference(x, w, b, targets, lse, g, eps, transposed)
-    _check("fused_xent_bwd_dw", x, w, b, targets, transposed, lse=lse, g=g)
-    dw, db = torch.empty_like(w), torch.empty_like(b)
+        return bwd_dw_reference(x, _wide(w), b, targets, lse, g, eps,
+                                transposed)
+    name = _instance("fused_xent_bwd_dw", w)
+    _check(name, x, w, b, targets, transposed, lse=lse, g=g)
+    dw = torch.empty(w.shape, device=w.device)
+    db = torch.empty_like(b)
     n, d = x.shape
     vocab = w.shape[0] if transposed else w.shape[1]
     plan = dw_plan(n, d, vocab, *kernel_config.tensor_device_limits(x))
@@ -245,7 +274,7 @@ def xent_bwd_dw(x, w, b, targets, lse, g, eps: float, transposed: bool
     if plan.splits > 1:
         scratch = x.new_empty(plan.splits, *w.shape)
         db_scratch = x.new_empty(plan.splits, vocab)
-    kernel_config.launch("fused_xent_bwd_dw", x, w, b, targets, lse, g, dw,
+    kernel_config.launch(name, x, w, b, targets, lse, g, dw,
                          db, scratch, db_scratch, n, d, vocab,
                          int(transposed), plan.splits, plan.tiles_per_chunk,
                          eps)
@@ -254,10 +283,13 @@ def xent_bwd_dw(x, w, b, targets, lse, g, eps: float, transposed: bool
 
 class _FusedXent(torch.autograd.Function):
     """``fused_xent._fused``'s custom VJP: the forward keeps only the
-    per-row log-sum-exp; the backward recomputes the logits."""
+    per-row log-sum-exp; the backward recomputes the logits. A bf16 x
+    is widened (exactly); dx and dW come back in x's and w's dtypes."""
 
     @staticmethod
     def forward(ctx, x, w, b, targets, eps: float, transposed: bool):
+        ctx.x_dtype = x.dtype
+        x = _wide(x)
         nll, lse = xent_fwd(x, w, b, targets, eps, transposed)
         ctx.save_for_backward(x, w, b, targets, lse)
         ctx.eps, ctx.transposed = eps, transposed
@@ -270,10 +302,11 @@ class _FusedXent(torch.autograd.Function):
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             dx = xent_bwd_dx(x, w, b, targets, lse, g, ctx.eps,
-                             ctx.transposed)
+                             ctx.transposed).to(ctx.x_dtype)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw, db = xent_bwd_dw(x, w, b, targets, lse, g, ctx.eps,
                                  ctx.transposed)
+            dw = dw.to(w.dtype)
         return dx, dw, db, None, None, None
 
 
@@ -283,8 +316,9 @@ def fused_softmax_xent(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Per-token label-smoothed cross-entropy (N,) of
     ``logits = x @ w + b`` without materialized logits on the card.
 
-    x: (N, D) f32; w: (V, D) when ``transposed`` (a tied embedding
-    table) else (D, V); b: (V,); targets: (N,) ints in [0, V)."""
+    x: (N, D) f32 or bf16; w: (V, D) when ``transposed`` (a tied
+    embedding table) else (D, V), f32 or bf16; b: (V,) f32; targets:
+    (N,) ints in [0, V)."""
     return _FusedXent.apply(x.contiguous(), w.contiguous(), b.contiguous(),
                             targets.to(torch.int32).contiguous(),
                             float(eps or 0.0), bool(transposed))

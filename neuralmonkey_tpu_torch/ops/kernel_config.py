@@ -74,6 +74,12 @@ ENTRY_POINTS = {
     "flash_attention_bwd_dq_chunked": "nm_flash_bwd_dq",
     "flash_attention_bwd_dkv_chunked": "nm_flash_bwd_dkv",
     "lineage_attention_chunked": "nm_lineage_attention",
+    # the bf16 instances (the bf16 compute policy): lineage attention on bf16
+    # caches, the fused cross-entropy reading a bf16 W
+    "lineage_attention_bf16": "nm_lineage_attention_bf16",
+    "fused_xent_fwd_bf16w": "nm_xent_fwd_bf16w",
+    "fused_xent_bwd_dx_bf16w": "nm_xent_bwd_dx_bf16w",
+    "fused_xent_bwd_dw_bf16w": "nm_xent_bwd_dw_bf16w",
     "lstm_scan": "nm_lstm_scan",
     "lstm_bptt": "nm_lstm_bptt",
     "rowmax_lse": "nm_rowmax_lse",
@@ -93,6 +99,10 @@ _ARGTYPES = {
     "nm_flash_bwd_dq": [_PTR] * 8 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_lineage_attention": [_PTR] * 7 + [_INT] * 15 + [_FLOAT, _PTR],
+    "nm_lineage_attention_bf16": [_PTR] * 7 + [_INT] * 8 + [_FLOAT, _PTR],
+    "nm_xent_fwd_bf16w": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],
+    "nm_xent_bwd_dx_bf16w": [_PTR] * 8 + [_INT] * 6 + [_FLOAT, _PTR],
+    "nm_xent_bwd_dw_bf16w": [_PTR] * 10 + [_INT] * 6 + [_FLOAT, _PTR],
     "nm_lstm_scan": [_PTR] * 9 + [_INT] * 11 + [_FLOAT, _PTR],
     "nm_lstm_bptt": [_PTR] * 11 + [_INT] * 11 + [_FLOAT, _PTR],
     "nm_rowmax_lse": [_PTR] * 4 + [_INT] * 2 + [_PTR],
@@ -219,17 +229,24 @@ def tensor_device_limits(tensor: torch.Tensor) -> Tuple[int, int]:
                          else index)
 
 
-def check_cuda_inputs(kernel: str, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor on one
-    CUDA device of compute capability >= 9.0."""
+def check_cuda_inputs(kernel: str,
+                      dtypes: Optional[Dict[str, torch.dtype]] = None,
+                      **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous tensor on one CUDA
+    device of compute capability >= 9.0, of the dtype its kernel takes:
+    ``dtypes[name]`` where given (the bf16 instances' bf16 operands),
+    float32 otherwise. So a bf16 operand that reaches a float32 kernel
+    raises."""
+    dtypes = dtypes or {}
     device = None
     for name, tensor in tensors.items():
         if not tensor.is_cuda:
             raise ValueError(f"{kernel}: '{name}' is on {tensor.device}, "
                              "expected the CUDA device of the others")
-        if tensor.dtype != torch.float32:
+        expected = dtypes.get(name, torch.float32)
+        if tensor.dtype != expected:
             raise ValueError(f"{kernel}: '{name}' is {tensor.dtype}, "
-                             "expected torch.float32")
+                             f"expected {expected}")
         if not tensor.is_contiguous():
             raise ValueError(f"{kernel}: '{name}' is not contiguous")
         if device is None:

@@ -26,6 +26,14 @@ instance (a block a slot and 512 context columns, the scores summed
 over the whole head dim; counted as ``lineage_attention_chunked``). So
 the decoder keeps its caches in the kernel's layout wherever it is
 asked to (``NM_LINEAGE_KERNEL=1``).
+
+Caches in bf16 (the bf16 compute policy, or ``NM_LINEAGE_KERNEL_BF16=1``)
+take the kernel's bf16 instance (counted as ``lineage_attention_bf16``
+at every head dim: its context kernel takes 256 columns a block), which
+rounds
+where the JAX kernel rounds: q to bf16 and then scaled in bf16, the
+scores and the softmax in float32, the normalised weights to bf16, a
+float32 output; its launch is :func:`lineage_bf16_plan`.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from . import kernel_config
+from .nn import scalar
 
 NEG_INF = -1e9
 # csrc/lineage_attention.cu: head dims up to 512 in one pass (padded to 32,
@@ -208,6 +217,39 @@ def lineage_plan(batch: int, heads: int, beam: int, head_dim: int,
                        stages, vec, smem, resident)
 
 
+# csrc/lineage_attention.cu's bf16 instance: its context kernel steps 64
+# lanes at a time and takes 256 context columns a block
+BF16_CTX_LANES, BF16_CTX_COLS = 64, 256
+
+
+class LineageBf16Plan(NamedTuple):
+    """The bf16 instance's context launch: ``slot_tiles`` tiles of 8
+    slot rows, ``column_blocks`` blocks of 256 context columns, the
+    lanes cut into ``splits`` chunks of ``chunk`` lanes (a multiple of
+    64) when the blocks would not fill the card twice."""
+    slot_tiles: int
+    column_blocks: int
+    splits: int
+    chunk: int
+
+
+def lineage_bf16_plan(batch: int, heads: int, beam: int, head_dim: int,
+                      lanes: int, sm_count: int) -> LineageBf16Plan:
+    """Lay out the bf16 instance's context launch over ``lanes``
+    lanes (its scores launch is a block a (b, h), 64 lanes and 64
+    slots)."""
+    if min(batch, heads, beam, head_dim, lanes, sm_count) < 1:
+        raise ValueError(
+            f"lineage_attention: no bf16 plan for B {batch}, H {heads}, K "
+            f"{beam}, Dh {head_dim}, {lanes} lanes")
+    slot_tiles = -(-beam // 8)
+    column_blocks = -(-head_dim // BF16_CTX_COLS)
+    splits, chunk = _lane_split(
+        lanes, BF16_CTX_LANES, batch * heads * slot_tiles * column_blocks,
+        sm_count)
+    return LineageBf16Plan(slot_tiles, column_blocks, splits, chunk)
+
+
 def lane_window(win: int, beam: int, total: int) -> int:
     """Lanes to read for a ``win``-position window: ``win * beam``,
     capped at the ``total`` lanes of the cache."""
@@ -232,13 +274,24 @@ def lineage_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
                                 bias: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernel on the same operands: q (B, H, K,
     Dh), the caches, bias (B, K, W) -> (B, H, K, Dh), reading the first
-    W lanes of the caches (one softmax per slot over the flat lanes)."""
+    W lanes of the caches (one softmax per slot over the flat lanes).
+    bf16 caches (``lineage_attention_reference`` of the JAX package):
+    q rounded to bf16 and then scaled in bf16, float32 scores and
+    softmax, the normalised weights rounded to bf16, a float32 context
+    (bf16 operands widened: their products are exact in float32)."""
     lanes = bias.shape[-1]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(q * scale, k_cache[..., :lanes]) + bias[:, None]
+    k, v = k_cache[..., :lanes], v_cache[:, :, :lanes]
+    if k_cache.dtype == torch.bfloat16:
+        q_s = q.to(torch.bfloat16) * scalar(scale, torch.bfloat16)
+        s = torch.matmul(q_s.float(), k.float()) + bias[:, None]
+    else:
+        s = torch.matmul(q * scale, k) + bias[:, None]
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
-    return torch.matmul(w, v_cache[:, :, :lanes])
+    if v_cache.dtype == torch.bfloat16:
+        return torch.matmul(w.to(torch.bfloat16).float(), v.float())
+    return torch.matmul(w, v)
 
 
 def lineage_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -258,6 +311,8 @@ def lineage_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(
             f"lineage_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)}"
             f", v {tuple(v_cache.shape)}, bias {tuple(bias.shape)}")
+    if k_cache.dtype == torch.bfloat16:
+        return _lineage_attention_bf16(q, k_cache, v_cache, bias)
     kernel_config.check_cuda_inputs("lineage_attention", q=q, k=k_cache,
                                     v=v_cache, bias=bias)
     plan = lineage_plan(
@@ -278,4 +333,27 @@ def lineage_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          lanes, plan.dmax, plan.tile, plan.slots, plan.groups,
                          plan.splits, plan.chunk, plan.stages, int(plan.vec),
                          plan.smem_bytes, 1.0 / math.sqrt(head_dim))
+    return out
+
+
+def _lineage_attention_bf16(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor,
+                            bias: torch.Tensor) -> torch.Tensor:
+    """The kernel's bf16 instance on bf16 caches; float32 out."""
+    batch, heads, beam, head_dim = q.shape
+    total, lanes = k_cache.shape[-1], bias.shape[-1]
+    name = "lineage_attention_bf16"
+    kernel_config.check_cuda_inputs(
+        name, q=q, k=k_cache, v=v_cache, bias=bias,
+        dtypes={"k": torch.bfloat16, "v": torch.bfloat16})
+    plan = lineage_bf16_plan(batch, heads, beam, head_dim, lanes,
+                             kernel_config.tensor_device_limits(q)[0])
+    out = torch.empty_like(q)
+    scores = q.new_empty(batch * heads * beam, lanes)
+    part_o = None
+    if plan.splits > 1:
+        part_o = q.new_empty(plan.splits, batch * heads * beam, head_dim)
+    kernel_config.launch(name, q, k_cache, v_cache, bias, out, scores,
+                         part_o, batch, heads, beam, head_dim, total, lanes,
+                         plan.splits, plan.chunk, 1.0 / math.sqrt(head_dim))
     return out

@@ -75,6 +75,15 @@ def top_k_lowest_index(x: torch.Tensor, k: int
     return values[..., :k], indices[..., :k]
 
 
+def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` of two operands under its promotion: the bf16
+    expert weights of the compute policy beside float32 tokens are
+    widened (their products are exact in float32)."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    wide = nn.widened(dtype)
+    return torch.einsum(spec, a.to(wide), b.to(wide)).to(dtype)
+
+
 def moe_ffn(params: Dict, x: torch.Tensor,
             mask: Optional[torch.Tensor] = None,
             top_k: int = 2,
@@ -135,10 +144,10 @@ def moe_ffn(params: Dict, x: torch.Tensor,
     combine = combine.to(x.dtype)
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
     hidden = (activation or torch.relu)(
-        torch.einsum("egcd,edh->egch", expert_in, w_in)
+        _einsum("egcd,edh->egch", expert_in, w_in)
         + b_in[:, None, None, :])
     hidden = seeded_dropout(hidden, dropout_keep_prob, dropout_seed)
-    expert_out = (torch.einsum("egch,ehd->egcd", hidden, w_out)
+    expert_out = (_einsum("egch,ehd->egcd", hidden, w_out)
                   + b_out[:, None, None, :])
     y = torch.einsum("gsec,egcd->gsd", combine, expert_out)
 

@@ -58,8 +58,80 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
     return params
 
 
+class _Bf16MatmulF32(torch.autograd.Function):
+    """``a @ b`` of bf16 ``a`` (..., K) and ``b`` (K, N) on the card:
+    cuBLAS's bf16 product with float32 sums and a float32 output
+    (``torch.mm(..., out_dtype=torch.float32)``, which has no gradient
+    of its own). The backward takes the JAX package's transposes: float32
+    products of the float32 cotangent with the widened other operand,
+    rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                       out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().T).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.reshape(-1, a.shape[-1]).float().T
+                  @ g.reshape(-1, g.shape[-1])).to(b.dtype)
+        return ga, gb
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` under the JAX package's rules for
+    ``jnp.dot(..., preferred_element_type=float32)``: operands of one
+    float type multiply as they are; a bf16 operand beside a wider one
+    is widened; two bf16 operands give float32 sums and a float32
+    output: on the card cuBLAS's bf16 product (a (K, N) ``b``), on the
+    CPU both widened (their products are exact in float32, so that
+    computes the same function)."""
+    if a.dtype == b.dtype and a.dtype != torch.bfloat16:
+        return torch.matmul(a, b)
+    if (a.dtype == b.dtype == torch.bfloat16 and a.is_cuda
+            and b.dim() == 2):
+        return _Bf16MatmulF32.apply(a, b)
+    dtype = widened(torch.promote_types(a.dtype, b.dtype))
+    return torch.matmul(a.to(dtype), b.to(dtype))
+
+
+def widened(dtype: torch.dtype) -> torch.dtype:
+    """The dtype that sums and masks take beside ``dtype``: float32 for
+    bf16, ``dtype`` itself otherwise."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def pdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Parameter product under the compute-precision policy
+    (``ops/policy.py``): a bf16 weight takes the activation to bf16 too,
+    and the sums and the output stay float32 (``nn.pdot``)."""
+    if w.dtype == torch.bfloat16 and x.dtype != torch.bfloat16:
+        x = x.to(torch.bfloat16)
+    return dot(x, w)
+
+
+def scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as the JAX package's weak-typed
+    Python scalars are before they meet a tensor of that dtype; a bf16
+    tensor times the result rounds as a bf16 product does."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def depth_scale(dim: int, like: torch.Tensor) -> float:
+    """``sqrt(dim)`` computed in ``like``'s dtype, as
+    ``jnp.sqrt(jnp.asarray(dim, like.dtype))`` (the embeddings' scale)."""
+    return torch.tensor(float(dim), dtype=like.dtype).sqrt().item()
+
+
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, params["w"])
+    y = pdot(x, params["w"])
     if "b" in params:
         y = y + params["b"]
     return y
@@ -104,9 +176,11 @@ def dropout(x: torch.Tensor, keep_prob: float,
     ``generator``, which must live on ``x``'s device."""
     if not train or keep_prob >= 1.0:
         return x
+    # a bf16 x draws its keeps as a float32 one does, and takes the scale
+    # rounded to bf16 first, as the JAX package's weak-typed scalar is
     keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < keep_prob
-    return torch.where(keep, x / keep_prob, 0.0)
+                      dtype=widened(x.dtype)) < keep_prob
+    return torch.where(keep, x / scalar(keep_prob, x.dtype), 0.0)
 
 
 # ---------------------------------------------------------------------- #
@@ -135,10 +209,12 @@ class GRUCell:
 
     def __call__(self, params: Params, h: torch.Tensor, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        gates = torch.sigmoid(x @ params["gates_x"] + h @ params["gates_h"]
+        gates = torch.sigmoid(pdot(x, params["gates_x"])
+                              + pdot(h, params["gates_h"])
                               + params["gates_b"])
         r, u = gates.chunk(2, dim=-1)
-        cand = torch.tanh(x @ params["cand_x"] + (r * h) @ params["cand_h"]
+        cand = torch.tanh(pdot(x, params["cand_x"])
+                          + pdot(r * h, params["cand_h"])
                           + params["cand_b"])
         new_h = u * h + (1.0 - u) * cand
         return new_h, new_h  # (new_state, output)
@@ -172,7 +248,8 @@ class LSTMCell:
                  state: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor
                  ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
         c, h = state
-        z = x @ params["kernel_x"] + h @ params["kernel_h"] + params["bias"]
+        z = (pdot(x, params["kernel_x"]) + pdot(h, params["kernel_h"])
+             + params["bias"])
         i, j, f, o = z.chunk(4, dim=-1)
         new_c = (c * torch.sigmoid(f + self.forget_bias)
                  + torch.sigmoid(i) * torch.tanh(j))

@@ -10,6 +10,8 @@ without the JAX-configuring conftest:
 ``chip_smoke.py`` makes the same comparisons at the serving shapes.
 """
 
+from typing import Tuple
+
 import pytest
 import torch
 
@@ -1853,3 +1855,288 @@ def test_ctc_decoding_on_card_matches_cpu(cuda_device, beam):
     ref_prefixes, ref_scores = ctc_decoder.ctc_beam_search(lp, mask > 0, beam)
     assert torch.equal(prefixes.cpu(), ref_prefixes)
     torch.testing.assert_close(scores.cpu(), ref_scores, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------- #
+# the bf16 compute policy: the bf16 kernel instances and the gates
+# ---------------------------------------------------------------------- #
+def _bf16_weight_tolerance(v: torch.Tensor) -> float:
+    """A normalised weight near a bf16 rounding tie may round either way
+    when its float32 value differs in the last bits (the scores' and the
+    sums' order differ between the kernel and cuBLAS), which moves a
+    context entry by at most one bf16 ulp of that weight (2^-8 of it, a
+    weight being at most 1) times the value: 2^-8 · max |v|."""
+    return 2.0 ** -8 * float(v.float().abs().max())
+
+
+def _bf16_rows_apart(got: torch.Tensor, ref: torch.Tensor,
+                     v: torch.Tensor) -> Tuple[int, int]:
+    """(rows apart, rows allowed): a (b, h, slot) row of the context is
+    apart when any entry differs by more than 2^-16 · max |v|. Such
+    rounding ties are rare, so at most 1% of the rows, and at least 2,
+    may be; the plain version with a rounding point left out (float32
+    weights, unnormalised weights rounded, q scaled in float32) leaves
+    nearly every row apart."""
+    apart = ((got - ref).abs()
+             > 2.0 ** -16 * float(v.float().abs().max())).any(dim=-1)
+    return int(apart.sum()), max(2, apart.numel() // 100)
+
+
+@pytest.mark.parametrize("batch,heads,beam,time,dim", [
+    (4, 8, 10, 48, 64), (64, 8, 10, 48, 64), (1, 8, 10, 48, 64),
+    (3, 2, 3, 5, 32), (2, 4, 17, 20, 40), (2, 2, 70, 6, 16),
+    (2, 2, 10, 48, 512), (2, 2, 10, 48, 640), (1, 2, 10, 12, 1000)])
+def test_lineage_kernel_bf16_caches(cuda_device, batch, heads, beam, time,
+                                    dim):
+    """The bf16 instance on bf16 caches against its plain version (q
+    rounded and then scaled in bf16, float32 softmax, the normalised
+    weights rounded to bf16, a float32 context): the smoke's shape (B 64,
+    H 8, beam 10, 48 steps, Dh 64), the lane split (B·H 8), head dims 16
+    to 1000 (256 context columns a block), beams 3 to 70; windows of 12,
+    24 and 48 positions and of one lane. Tolerance: one bf16 ulp of a
+    weight times the largest value (``_bf16_weight_tolerance``), and at
+    most 1% of the rows more than 2^-16 of it apart
+    (``_bf16_rows_apart``)."""
+    from neuralmonkey_tpu_torch.ops import lineage_attention as la
+    gen = torch.Generator().manual_seed(0)
+    total = beam * time
+    q = _randn(cuda_device, batch, heads, beam, dim)
+    kq = _randn(cuda_device, batch, heads, dim, total, seed=1).to(
+        torch.bfloat16)
+    vq = _randn(cuda_device, batch, heads, total, dim, seed=2).to(
+        torch.bfloat16)
+    anc = torch.randint(0, beam, (batch, beam, time), generator=gen,
+                        dtype=torch.int32).to(cuda_device)
+    biases = [la.lineage_bias(anc, min(win, time) - 1, win, beam,
+                              la.lane_window(win, beam, total), time)
+              for win in (12, 24, 48)]
+    biases.append(biases[0][..., :1].contiguous())
+    name = "lineage_attention_bf16"
+    for bias in biases:
+        kernel_config.reset_launch_counts()
+        got = la.lineage_attention(q, kq, vq, bias)
+        torch.cuda.synchronize()
+        counts = kernel_config.launch_counts()
+        assert counts[name] == 1 and counts["lineage_attention"] == 0, counts
+        assert got.dtype == torch.float32
+        ref = la.lineage_attention_reference(q, kq, vq, bias)
+        lanes = bias.shape[-1]
+        tol = _bf16_weight_tolerance(vq[:, :, :lanes])
+        torch.testing.assert_close(got, ref, atol=tol, rtol=0,
+                                   msg=f"{lanes} lanes")
+        apart, allowed = _bf16_rows_apart(got, ref, vq[:, :, :lanes])
+        assert apart <= allowed, f"{lanes} lanes: {apart} rows apart"
+
+
+def test_lineage_kernel_refuses_mixed_caches(cuda_device):
+    """A bf16 key cache beside a float32 value cache reaches neither
+    instance: the dtype check raises."""
+    from neuralmonkey_tpu_torch.ops import lineage_attention as la
+    q = _randn(cuda_device, 1, 1, 2, 32)
+    kq = _randn(cuda_device, 1, 1, 32, 8, seed=1).to(torch.bfloat16)
+    vq = _randn(cuda_device, 1, 1, 8, 32, seed=2)
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        la.lineage_attention(q, kq, vq, torch.zeros(1, 2, 8,
+                                                    device=cuda_device))
+
+
+@pytest.mark.parametrize("n,d,v", [(70, 40, 300), (256, 128, 1024),
+                                   (33, 130, 129), (640, 512, 30000)])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_fused_xent_bf16_w_kernels(cuda_device, n, d, v, transposed, eps):
+    """The bf16-W instances of the three B7 kernels (W read as bf16,
+    widened in the tile load, two TF32 passes) against the plain
+    versions on the widened W, within 1e-5 as the float32 instances;
+    dW comes back float32 from the kernel (the autograd Function rounds
+    it to bf16)."""
+    x = _randn(cuda_device, n, d, scale=0.3)
+    w = _randn(cuda_device, *((v, d) if transposed else (d, v)),
+               scale=0.05, seed=1).to(torch.bfloat16)
+    b = _randn(cuda_device, v, scale=0.1, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    targets = torch.randint(0, v, (n,), generator=gen,
+                            dtype=torch.int32).to(cuda_device)
+    g = _randn(cuda_device, n, seed=4)
+    kernel_config.reset_launch_counts()
+    nll, lse = fused_xent.xent_fwd(x, w, b, targets, eps, transposed)
+    dx = fused_xent.xent_bwd_dx(x, w, b, targets, lse, g, eps, transposed)
+    dw, db = fused_xent.xent_bwd_dw(x, w, b, targets, lse, g, eps,
+                                    transposed)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    for k in ("fused_xent_fwd", "fused_xent_bwd_dx", "fused_xent_bwd_dw"):
+        assert (counts[k + "_bf16w"], counts[k]) == (1, 0), counts
+    wide = w.float()
+    ref_nll, ref_lse = fused_xent.fwd_reference(x, wide, b, targets, eps,
+                                                transposed)
+    torch.testing.assert_close(nll, ref_nll, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dx, fused_xent.bwd_dx_reference(
+        x, wide, b, targets, lse, g, eps, transposed), atol=1e-5, rtol=1e-5)
+    ref_dw, ref_db = fused_xent.bwd_dw_reference(x, wide, b, targets, lse, g,
+                                                 eps, transposed)
+    assert dw.dtype == torch.float32
+    torch.testing.assert_close(dw, ref_dw, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(db, ref_db, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_xent_autograd_rounds_dw_to_bf16(cuda_device):
+    """Through the autograd Function a bf16 W gets a bf16 dW (the float32
+    kernel result rounded once) and a float32 x its float32 dx."""
+    x = _randn(cuda_device, 48, 64, scale=0.3).requires_grad_()
+    w = _randn(cuda_device, 500, 64, scale=0.05, seed=1).to(
+        torch.bfloat16).requires_grad_()
+    b = _randn(cuda_device, 500, scale=0.1, seed=2).requires_grad_()
+    targets = torch.arange(48, dtype=torch.int32, device=cuda_device) * 7
+    fused_xent.fused_softmax_xent(x, w, b, targets, 0.1, True).sum().backward()
+    assert (x.grad.dtype, w.grad.dtype, b.grad.dtype) == (
+        torch.float32, torch.bfloat16, torch.float32)
+    lse = fused_xent.fwd_reference(x.detach(), w.detach().float(), b.detach(),
+                                   targets, 0.1, True)[1]
+    ref_dw, _ = fused_xent.bwd_dw_reference(
+        x.detach(), w.detach().float(), b.detach(), targets, lse,
+        torch.ones(48, device=cuda_device), 0.1, True)
+    torch.testing.assert_close(w.grad.float(), ref_dw.to(torch.bfloat16).float(),
+                               atol=2.0 ** -8 * float(ref_dw.abs().max()),
+                               rtol=0)
+
+
+def test_fused_logits_widens_a_bf16_w(cuda_device):
+    """K3 computes in float32: a bf16 w is widened (exactly) and K3
+    launches, within 1e-4 of the plain version on the widened table,
+    as the float32 K3 check; a float16 w raises."""
+    x = _randn(cuda_device, 40, 64)
+    w = _randn(cuda_device, 64, 1024, scale=0.1, seed=1).to(torch.bfloat16)
+    b = _randn(cuda_device, 1024, seed=2)
+    kernel_config.reset_launch_counts()
+    got = beam_select.fused_logits_rowmax_lse(x, w, b)
+    assert kernel_config.launch_counts()["fused_logits_rowmax_lse"] == 1
+    ref = beam_select.fused_logits_reference(x, w.float(), b)
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        beam_select.fused_logits_rowmax_lse(x, w.half(), b)
+
+
+def test_float32_kernels_refuse_bf16_operands(cuda_device):
+    """A bf16 operand that reaches a float32-only kernel raises."""
+    x = _randn(cuda_device, 8, 32).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        beam_select.small_topk(x, 2)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        fused_xent.xent_fwd(x, _randn(cuda_device, 32, 128), torch.zeros(
+            128, device=cuda_device), torch.zeros(8, dtype=torch.int32,
+                                                  device=cuda_device),
+            0.0, False)
+
+
+def test_fused_xent_refuses_a_float16_w(cuda_device):
+    """The cross-entropy kernels take a float32 or a bf16 W: a float16 W
+    raises in each of the three wrappers instead of being read as
+    float32."""
+    x = _randn(cuda_device, 8, 32)
+    w = _randn(cuda_device, 32, 128).half()
+    b = torch.zeros(128, device=cuda_device)
+    targets = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    ones = torch.ones(8, device=cuda_device)
+    kernel_config.reset_launch_counts()
+    with pytest.raises(ValueError, match="'w' is torch.float16"):
+        fused_xent.xent_fwd(x, w, b, targets, 0.0, False)
+    with pytest.raises(ValueError, match="'w' is torch.float16"):
+        fused_xent.xent_bwd_dx(x, w, b, targets, ones, ones, 0.0, False)
+    with pytest.raises(ValueError, match="'w' is torch.float16"):
+        fused_xent.xent_bwd_dw(x, w, b, targets, ones, ones, 0.0, False)
+    assert not any(kernel_config.launch_counts().values())
+
+
+def _bf16_transformer(max_out=6):
+    from neuralmonkey_tpu_torch.models.decoders.transformer import \
+        TransformerDecoder
+    from neuralmonkey_tpu_torch.models.encoders.transformer import \
+        TransformerEncoder
+    vocab = Vocabulary([f"w{i}" for i in range(296)])
+    enc = TransformerEncoder(name="encoder", vocabulary=vocab,
+                             data_id="source", embedding_size=64,
+                             ff_hidden_size=128, depth=2, n_heads=2,
+                             dropout_keep_prob=1.0)
+    return TransformerDecoder(name="decoder", vocabulary=vocab,
+                              data_id="target", max_output_len=max_out,
+                              encoders=[enc], embedding_size=64,
+                              ff_hidden_size=128, depth=2, n_heads_self=2,
+                              n_heads_enc=2, label_smoothing=0.1,
+                              dropout_keep_prob=1.0)
+
+
+@pytest.fixture
+def bf16_policy():
+    from neuralmonkey_tpu_torch.ops import policy
+    policy.set_compute_dtype("bfloat16")
+    try:
+        yield
+    finally:
+        policy.set_compute_dtype(None)
+
+
+def test_bf16_transformer_step_on_card_matches_cpu(cuda_device, monkeypatch,
+                                                   bf16_policy):
+    """Under the bf16 policy with NM_FUSED_XENT=1: the loss and every
+    gradient on the card against the CPU's (flash kernels, the bf16-W
+    fused cross-entropy); the gradients of the bf16 use-site weights are
+    rounded to bf16, so one bf16 ulp of the largest entry apart where a
+    float32 sum sits on a rounding tie."""
+    monkeypatch.setenv("NM_FUSED_XENT", "1")
+    dec = _bf16_transformer()
+    loss, grads, counts = _loss_and_grads(dec, dec.train_loss,
+                                          _transformer_batch(), cuda_device)
+    for name in ("flash_attention_fwd", "fused_xent_fwd_bf16w",
+                 "fused_xent_bwd_dx_bf16w", "fused_xent_bwd_dw_bf16w"):
+        assert counts[name] > 0, counts
+    ref_loss, ref_grads, _ = _loss_and_grads(dec, dec.train_loss,
+                                             _transformer_batch(),
+                                             torch.device("cpu"))
+    torch.testing.assert_close(loss, ref_loss, atol=1e-4, rtol=1e-4)
+    for key, g in grads.items():
+        assert g.dtype == torch.float32, key
+        torch.testing.assert_close(
+            g, ref_grads[key], rtol=0,
+            atol=1e-5 + 2.0 ** -7 * float(ref_grads[key].abs().max()),
+            msg=key)
+
+
+@pytest.mark.parametrize("lineage_kernel", ["0", "1"])
+def test_bf16_transformer_decodes_on_card_like_cpu(cuda_device, monkeypatch,
+                                                   bf16_policy,
+                                                   lineage_kernel):
+    """Greedy and beam-4 ids under the bf16 policy: bf16 caches, the
+    lineage attention's bf16 instance under NM_LINEAGE_KERNEL=1, K3 on
+    the widened table and K4."""
+    from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
+        BeamSearchDecoder
+    monkeypatch.setenv("NM_LINEAGE_KERNEL", lineage_kernel)
+    dec = _bf16_transformer(max_out=8)
+    search = BeamSearchDecoder(name="bs", parent_decoder=dec, beam_size=4,
+                               selection_method="hierarchical")
+    params = init_all_params(collect_parts([dec]), seed=5)
+    batch = {k: v for k, v in _transformer_batch().items()
+             if k.startswith("encoder")}
+
+    def decode(device):
+        ctx = Context(_to_device(params, device) if device.type == "cuda"
+                      else params, {k: v.to(device) for k, v in batch.items()})
+        with torch.inference_mode():
+            return dec.decoded(ctx).cpu(), search.search(ctx).token_ids.cpu()
+    kernel_config.reset_launch_counts()
+    greedy, beam = decode(cuda_device)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    expected = ["fused_logits_rowmax_lse", "small_topk"]
+    if lineage_kernel == "1":
+        expected.append("lineage_attention_bf16")
+    for name in expected:
+        assert counts[name] > 0, counts
+    assert counts["lineage_attention"] == 0, counts
+    ref_greedy, ref_beam = decode(torch.device("cpu"))
+    assert torch.equal(greedy[:3], ref_greedy[:3])
+    assert torch.equal(beam[:3], ref_beam[:3])

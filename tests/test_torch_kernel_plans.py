@@ -1026,3 +1026,22 @@ def test_topk_plan_spreads_the_smoke_rows(n, warps, rows, blocks):
 def test_topk_plan_refuses_what_the_kernel_does_not_take(batch, n, k):
     with pytest.raises(ValueError, match="small_topk"):
         beam_select.topk_plan(batch, n, k)
+
+
+@pytest.mark.parametrize("batch,heads,beam,dim,lanes", [
+    (64, 8, 10, 64, 480), (1, 8, 10, 64, 480), (2, 2, 70, 16, 420),
+    (4, 2, 10, 512, 480), (2, 2, 10, 640, 120), (1, 1, 1, 32, 1)])
+def test_lineage_bf16_plan_covers_every_lane_slot_and_column(batch, heads,
+                                                             beam, dim, lanes):
+    """The bf16 instance's context launch: slot tiles of 8 cover the
+    beam, blocks of 256 context columns the head dim, and chunks of whole
+    64-lane steps every lane once, none empty; the lanes split only where
+    the (b, h, slot tile, column block) blocks would not fill 132 SMs
+    twice."""
+    plan = la.lineage_bf16_plan(batch, heads, beam, dim, lanes, 132)
+    assert 8 * plan.slot_tiles >= beam > 8 * (plan.slot_tiles - 1)
+    assert 256 * plan.column_blocks >= dim > 256 * (plan.column_blocks - 1)
+    assert plan.chunk % 64 == 0
+    assert (plan.splits - 1) * plan.chunk < lanes <= plan.splits * plan.chunk
+    blocks = batch * heads * plan.slot_tiles * plan.column_blocks
+    assert (plan.splits > 1) == (blocks < 2 * 132 and lanes > 64)

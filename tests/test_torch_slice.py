@@ -14,13 +14,17 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from neuralmonkey_tpu.experiment import Experiment as JaxExperiment
 from neuralmonkey_tpu.model.part import Context as JaxContext
+from neuralmonkey_tpu.ops import kernel_config as jax_kernel_config
+from neuralmonkey_tpu.ops import policy as jax_policy
 from neuralmonkey_tpu.utils.saving import flatten_tree as jax_flatten
+from neuralmonkey_tpu.utils.saving import restore_into as jax_restore
 
 from neuralmonkey_tpu_torch import run as torch_run
 from neuralmonkey_tpu_torch import runtime
@@ -28,6 +32,7 @@ from neuralmonkey_tpu_torch.config.exceptions import ConfigBuildException
 from neuralmonkey_tpu_torch.dataset import Dataset
 from neuralmonkey_tpu_torch.experiment import Experiment
 from neuralmonkey_tpu_torch.model.part import Context
+from neuralmonkey_tpu_torch.ops import policy
 from neuralmonkey_tpu_torch.utils.saving import params_from_jax
 
 torch.set_num_threads(1)
@@ -134,12 +139,12 @@ s_target_beam_out="{out}/beam.txt"
 
 
 def _write_experiment(tmp_path, selection="hierarchical", decoder_extra="",
-                      port=False):
+                      port=False, batch=BATCH):
     """The INI for the JAX package, or with ``port`` the port's copy,
     which asks for the CPU."""
     path = tmp_path / f"exp_{selection}{'_port' if port else ''}.ini"
     path.write_text(EXPERIMENT_INI.format(
-        out=tmp_path / "out", batch=BATCH, data=DATA, selection=selection,
+        out=tmp_path / "out", batch=batch, data=DATA, selection=selection,
         decoder_extra=decoder_extra,
         manager_extra='device="cpu"' if port else ""))
     return str(path)
@@ -151,11 +156,13 @@ def _source_dataset(n):
     return Dataset("val", {"source": sentences})
 
 
-def _both_models(ini):
-    jax_exp = JaxExperiment(ini, train_mode=False)
+def _both_models(ini, changes=()):
+    jax_exp = JaxExperiment(ini, train_mode=False,
+                            config_changes=list(changes))
     jax_exp.build_model()
     torch_exp = Experiment(ini, train_mode=False,
-                           config_changes=['tf_manager.device="cpu"'])
+                           config_changes=['tf_manager.device="cpu"',
+                                           *changes])
     torch_exp.build_model()
     manager = torch_exp.tf_manager
     manager.params = params_from_jax(
@@ -163,17 +170,30 @@ def _both_models(ini):
     return jax_exp, torch_exp
 
 
-def _fetch_both(jax_exp, torch_exp, dataset):
-    jax_batch, _ = jax_exp.tf_manager.build_batch(dataset, BATCH)
-    jax_ctx = JaxContext(jax_exp.tf_manager.params, jax_batch)
-    torch_batch, _ = torch_exp.tf_manager.build_batch(dataset, BATCH)
+def _fetch_both(jax_exp, torch_exp, dataset, exact_rounding=False,
+                batch=BATCH):
+    """Each runner's fetches from both packages on one batch.
+    ``exact_rounding`` compiles the JAX side with XLA's excess precision
+    off, so that it rounds after every bf16 operation as the port does
+    (tests/test_torch_precision.py)."""
+    jax_batch, _ = jax_exp.tf_manager.build_batch(dataset, batch)
+    jax_params = jax_exp.tf_manager.params
+    torch_batch, _ = torch_exp.tf_manager.build_batch(dataset, batch)
+
+    def jax_fetches(runner):
+        def fetch(params):
+            return runner.fetches(JaxContext(params, jax_batch))
+        if not exact_rounding:
+            return fetch(jax_params)
+        return jax.jit(fetch).lower(jax_params).compile(
+            {"xla_allow_excess_precision": False})(jax_params)
     with torch.inference_mode():
         torch_ctx = Context(torch_exp.tf_manager.params, torch_batch)
         fetched = []
         for jax_runner, torch_runner in zip(jax_exp.model.runners,
                                             torch_exp.model.runners):
             jax_out = {k: np.asarray(v)
-                       for k, v in jax_runner.fetches(jax_ctx).items()}
+                       for k, v in jax_fetches(jax_runner).items()}
             torch_out = {k: v.numpy()
                          for k, v in torch_runner.fetches(torch_ctx).items()}
             fetched.append((jax_out, torch_out))
@@ -240,12 +260,49 @@ def test_unported_section_names_itself(tmp_path):
         Experiment(ini, train_mode=False).build_model()
 
 
-def test_compute_dtype_raises(tmp_path):
-    ini = _write_experiment(tmp_path, port=True)
-    with pytest.raises(ValueError, match="bf16 policy not yet ported"):
-        Experiment(ini, train_mode=False,
-                   config_changes=['main.compute_dtype="bfloat16"']
-                   ).build_model()
+def test_compute_dtype_raises(tmp_path, monkeypatch):
+    """``[main] compute_dtype="bfloat16"`` no longer raises: both
+    packages build under the bf16 policy, and the port's greedy ids, beam
+    ids and beam scores equal the JAX package's (its GRU scan through its
+    Pallas kernel in interpret mode, whose float32 carries the port's
+    scan keeps, rounding after every bf16 operation: ``exact_rounding``;
+    scores to 1e-4); an unknown dtype raises JAX's ValueError."""
+    monkeypatch.setenv("NM_USE_PALLAS", "1")
+    jax_kernel_config._use_pallas_cached.cache_clear()
+    # a batch of 8 divides the tests' 8-device CPU mesh, so that the JAX
+    # manager runs its GRU scan through the Pallas kernel on each shard
+    # (on a batch it cannot split it takes its XLA scan, whose recurrent
+    # products round h to bf16 where the kernel keeps float32)
+    ini = _write_experiment(tmp_path, batch=8)
+    try:
+        jax_exp, torch_exp = _both_models(
+            ini, ['main.compute_dtype="bfloat16"'])
+        assert policy.compute_dtype() == torch.bfloat16
+        # weights off their initial values, so that no two beam
+        # candidates lie within bf16 rounding of one another
+        rng = np.random.RandomState(0)
+        flat = {k: (np.asarray(v) + rng.randn(*v.shape) * 0.3).astype(
+            np.float32) for k, v in jax_flatten(
+                jax_exp.tf_manager.params).items()}
+        jax_exp.tf_manager.params_list[0] = jax_restore(
+            jax_exp.tf_manager.params, flat)
+        torch_exp.tf_manager.params = params_from_jax(
+            flat, torch_exp.tf_manager.params)
+        (jg, tg), (jb, tb) = _fetch_both(jax_exp, torch_exp,
+                                         _source_dataset(8),
+                                         exact_rounding=True, batch=8)
+        np.testing.assert_array_equal(tg["decoded"], jg["decoded"])
+        np.testing.assert_array_equal(tb["token_ids"], jb["token_ids"])
+        np.testing.assert_allclose(tb["scores"], jb["scores"], atol=1e-4)
+        with pytest.raises(ValueError, match="compute_dtype must be one"):
+            Experiment(_write_experiment(tmp_path, port=True),
+                       train_mode=False,
+                       config_changes=['main.compute_dtype="float16"']
+                       ).build_model()
+    finally:
+        jax_policy.set_compute_dtype(None)
+        policy.set_compute_dtype(None)
+        jax_kernel_config._use_pallas_cached.cache_clear()
 
 
 _NO_JAX_CHECK = (

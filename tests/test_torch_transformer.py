@@ -244,7 +244,11 @@ def test_remat_matches_the_plain_pass_with_dropout_on():
 # decoding from one shared checkpoint
 # ---------------------------------------------------------------------- #
 def _decode_both(tmp_path, enc_cls_pair, dec_cls_pair, build, beam,
-                 selection, monkeypatch):
+                 selection, monkeypatch, exact_rounding=False):
+    """Greedy and beam ids of both packages from one shared ``.npz``.
+    ``exact_rounding`` compiles the JAX side with XLA's excess precision
+    off, so that it rounds after every bf16 operation as the port does
+    (tests/test_torch_precision.py)."""
     jax_dec = build(enc_cls_pair[0], dec_cls_pair[0], JaxVocabulary)
     port_dec = build(enc_cls_pair[1], dec_cls_pair[1], Vocabulary)
     template, flat = _jax_params(jax_dec, seed=4, scale=0.3)
@@ -258,9 +262,17 @@ def _decode_both(tmp_path, enc_cls_pair, dec_cls_pair, build, beam,
                            beam_size=beam, selection_method=selection)
     port_bs = BeamSearchDecoder(name="bs", parent_decoder=port_dec,
                                 beam_size=beam, selection_method=selection)
-    jax_ctx = _jax_ctx(jax_restore(template, flat), batch)
-    ref_greedy = np.asarray(jax_dec.decoded(jax_ctx))
-    ref = jax_bs.search(jax_ctx)
+    jax_params = jax_restore(template, flat)
+    if exact_rounding:
+        def run(fn):
+            return jax.jit(fn).lower(jax_params).compile(
+                {"xla_allow_excess_precision": False})(jax_params)
+    else:
+        def run(fn):
+            return fn(jax_params)
+    ref_greedy = np.asarray(run(lambda p: jax_dec.decoded(_jax_ctx(p,
+                                                                   batch))))
+    ref = run(lambda p: jax_bs.search(_jax_ctx(p, batch)))
     with torch.inference_mode():
         ctx = _port_ctx(params, batch)
         greedy = port_dec.decoded(ctx).numpy()
@@ -314,16 +326,30 @@ def test_transformer_head_dim_192_ids_match_jax(tmp_path, jax_pallas,
                  "hierarchical", jax_pallas)
 
 
-def test_lineage_bf16_caches_raise(monkeypatch):
-    monkeypatch.setenv("NM_LINEAGE_KERNEL", "1")
-    monkeypatch.setenv("NM_LINEAGE_KERNEL_BF16", "1")
+def test_lineage_bf16_caches_raise(tmp_path, jax_pallas):
+    """``NM_LINEAGE_KERNEL_BF16=1`` no longer raises: under the float32
+    policy the lineage kernel layout keeps its caches in bf16 (the
+    kernel's bf16 instance on the card, its plain version here), and the
+    greedy and beam-10 ids equal the JAX package's on its interpreted
+    kernel over bf16 caches (scores to 1e-4), the JAX side rounding after
+    every bf16 operation (``exact_rounding``)."""
+    jax_pallas.setenv("NM_LINEAGE_KERNEL", "1")
+    jax_pallas.setenv("NM_LINEAGE_KERNEL_BF16", "1")
+    # one device: a JAX manager built earlier in this process leaves its
+    # 8-device mesh registered, and its sharded kernels sum in another
+    # order
+    jax_pallas.setattr(jax_kernel_config, "_ACTIVE_MESH", None)
     dec = _build(TransformerEncoder, TransformerDecoder, Vocabulary)
-    bs = BeamSearchDecoder(name="bs", parent_decoder=dec, beam_size=4)
-    params = init_all_params(collect_parts([dec]), seed=0)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        with torch.inference_mode():
-            bs.search(_port_ctx(params, _batch(np.random.RandomState(0),
-                                               targets=False)))
+    state = dec.tile_decode_state(dec.decode_initial_state(
+        _port_ctx(init_all_params(collect_parts([dec]), seed=0),
+                  _batch(np.random.RandomState(0), targets=False)),
+        {"embed_table": torch.zeros(1, 32)}), 4)
+    assert {c.dtype for layer in state for c in layer.values()} == {
+        torch.bfloat16}
+    _decode_both(tmp_path, (JaxTransformerEncoder, TransformerEncoder),
+                 (JaxTransformerDecoder, TransformerDecoder),
+                 lambda e, d, v: _build(e, d, v, max_out=9), 10,
+                 "hierarchical", jax_pallas, exact_rounding=True)
 
 
 def _build_rnn(enc_cls, dec_cls, vocab_cls):
