@@ -328,6 +328,14 @@ KERNELS = {
                                 "neuralmonkey_tpu/ops/fused_xent.py:290"),
     "fused_xent_bwd_dw_bf16w": ("neuralmonkey_tpu_torch/csrc/fused_xent.cu",
                                 "neuralmonkey_tpu/ops/fused_xent.py:316"),
+    # the bf16-W backward where W's bf16 rows are not 16-byte aligned (PR
+    # 15's design, W widened as it is staged; phase 3b's shapes)
+    "fused_xent_bwd_dx_bf16w_widened": (
+        "neuralmonkey_tpu_torch/csrc/fused_xent.cu",
+        "neuralmonkey_tpu/ops/fused_xent.py:290"),
+    "fused_xent_bwd_dw_bf16w_widened": (
+        "neuralmonkey_tpu_torch/csrc/fused_xent.cu",
+        "neuralmonkey_tpu/ops/fused_xent.py:316"),
 }
 CHUNKED_KERNELS = ("flash_attention_fwd_chunked",
                    "flash_attention_bwd_dq_chunked",
@@ -375,6 +383,8 @@ BF16_LOSS_RTOL = 2.0 ** -8
 BF16_TRACKS_RTOL, BF16_SCORES_ATOL, BF16_SCORES_RTOL = 0.05, 0.05, 0.005
 BF16_KERNELS = ("lineage_attention_bf16", "fused_xent_fwd_bf16w",
                 "fused_xent_bwd_dx_bf16w", "fused_xent_bwd_dw_bf16w")
+WIDENED_KERNELS = ("fused_xent_bwd_dx_bf16w_widened",
+                   "fused_xent_bwd_dw_bf16w_widened")
 
 
 def import_everything() -> None:
@@ -766,7 +776,7 @@ def check_bf16_kernels(device, randn, record):
     import torch
     import torch.nn.functional as F
 
-    from neuralmonkey_tpu_torch.ops import fused_xent
+    from neuralmonkey_tpu_torch.ops import fused_xent, kernel_config
     from neuralmonkey_tpu_torch.ops import lineage_attention as la
 
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -838,9 +848,17 @@ def check_bf16_kernels(device, randn, record):
                    (b, h, beam, t, d, f"window {win}"), work=work,
                    peak=BF16_PEAK, **timing)
 
-    for n, d, v, transposed, eps in ((XENT_N, XENT_D, VOCAB, True, 0.1),
-                                     (333, 130, 1000, False, 0.0)):
-        timed = n == XENT_N
+    # the bf16-W cross-entropy: the timed shape (the tied table, as phase 24
+    # trains), where the backward runs on warpgroup products, timed beside
+    # PR 15's design on the same operands; D 510, which W's rows send to
+    # PR 15's instances (timed); and untimed ragged shapes of both
+    limits = kernel_config.device_limits(0)
+    for n, d, v, transposed, eps, timed in (
+            (XENT_N, XENT_D, VOCAB, True, 0.1, True),
+            (XENT_N, XENT_D - 2, VOCAB, True, 0.1, True),
+            (333, 130, 1000, False, 0.0, False),
+            (333, 130, 1000, True, 0.0, False),
+            (333, 128, 1001, False, 0.1, False)):
         x = randn(n, d, scale=0.5)
         w = randn(*((v, d) if transposed else (d, v)),
                   scale=d ** -0.5).to(bf16)
@@ -850,49 +868,101 @@ def check_bf16_kernels(device, randn, record):
                                 dtype=torch.int32).to(device)
         g = torch.rand(n, generator=gen).to(device)
         case = (n, d, v, "tied" if transposed else "plain", eps, "bf16 W")
-        # W's bytes are bf16 (2 a value); every product with W takes two
-        # TF32 passes (a bf16 value has no low TF32 part), dW's xᵀ·dl three
+        wgmma = fused_xent.wgmma_takes(d, v, transposed)
+        # W's bytes are bf16 (2 a value)
         read = 4 * (n * d + v + n) + 2 * d * v
         fwd_args = (x, w, b, targets, eps, transposed)
         nll, lse = fused_xent.xent_fwd(*fwd_args)
         ref_nll, _ = fused_xent.fwd_reference(x, wide, b, targets, eps,
                                               transposed)
+        # the forward is timed at D 512 only; every product with W takes
+        # two TF32 passes (a bf16 value has no low TF32 part)
+        fwd_timed = timed and d == XENT_D
         timing = (kernel_times(lambda: fused_xent.xent_fwd(*fwd_args),
                                lambda: fused_xent.fwd_reference(
                                    x, wide, b, targets, eps, transposed))
-                  if timed else {})
+                  if fwd_timed else {})
         extra = {"bound_peak": "2 TF32 passes on the tensor cores, 495 "
-                 "TFLOP/s dense"} if timed else {}
+                 "TFLOP/s dense"} if fwd_timed else {}
         record("fused_xent_fwd_bf16w", max_err(nll, ref_nll) / max(
             1.0, float(ref_nll.abs().max())), 1e-5, case,
             work=(2 * 2 * n * d * v, read + 8 * n), peak=TF32_PEAK,
             **timing, **extra)
         bwd_args = (x, w, b, targets, lse, g, eps, transposed)
         plain_args = (x, wide, b, targets, lse, g, eps, transposed)
+        dx_bytes = read + 8 * n + 4 * n * d
+        dw_bytes = read + 8 * n + 4 * (d * v + v)
         dx = fused_xent.xent_bwd_dx(*bwd_args)
         ref_dx = fused_xent.bwd_dx_reference(*plain_args)
+        dx_err = max_err(dx, ref_dx) / max(1e-6, float(ref_dx.abs().max()))
+        dw, db = fused_xent.xent_bwd_dw(*bwd_args)
+        ref_dw, ref_db = fused_xent.bwd_dw_reference(*plain_args)
+        dw_err = max(
+            max_err(dw, ref_dw) / max(1e-6, float(ref_dw.abs().max())),
+            max_err(db, ref_db) / max(1e-6, float(ref_db.abs().max())))
+        if not wgmma:
+            # PR 15's design: two TF32 passes for a product with W, three
+            # for x^T dl
+            names = WIDENED_KERNELS
+            dx_work, dw_work, peak = (2 * 4 * n * d * v, dx_bytes), (
+                2 * 5 * n * d * v, dw_bytes), TF32_PEAK
+            dx_extra = dw_extra = {}
+            if timed:
+                dx_extra = {"bound_peak": "2 TF32 passes for x·W and dl·Wᵀ, "
+                            "495 TFLOP/s dense"}
+                dw_extra = {"bound_peak": "2 TF32 passes for x·W, 3 for "
+                            "xᵀ·dl, 495 TFLOP/s dense"}
+        else:
+            # three bf16 passes for x·W and for dl·Wᵀ; six for xᵀ·dl (both
+            # operands split), all on wgmma at the bf16 peak
+            names = ("fused_xent_bwd_dx_bf16w", "fused_xent_bwd_dw_bf16w")
+            dx_work, dw_work, peak = (2 * 6 * n * d * v, dx_bytes), (
+                2 * 9 * n * d * v, dw_bytes), BF16_PEAK
+            dx_extra = dw_extra = {}
+            if timed:
+                again = (fused_xent.xent_bwd_dx(*bwd_args),
+                         *fused_xent.xent_bwd_dw(*bwd_args))
+                equal = all(torch.equal(a, c)
+                            for a, c in zip((dx, dw, db), again))
+                if not equal:
+                    raise AssertionError("bf16-W backward: a second call "
+                                         "differs from the first")
+                plans = {k: plan(n, d, v, *limits)._asdict() for k, plan in (
+                    ("dx", fused_xent.wgmma_dx_plan),
+                    ("dw", fused_xent.wgmma_dw_plan))}
+                dx_extra = {
+                    "bound_peak": "3 bf16 passes for x·W and for dl·Wᵀ on "
+                    "wgmma, 989 TFLOP/s dense",
+                    "pr15_bound_ms": bound(2 * 4 * n * d * v, dx_bytes,
+                                           TF32_PEAK)[0],
+                    "pr15_design_ms": time_ms(
+                        lambda: fused_xent.launch_bwd_dx(
+                            WIDENED_KERNELS[0], *bwd_args)),
+                    "rerun_bitwise_equal": equal,
+                    **{f"plan_{k}": val for k, val in plans["dx"].items()
+                       if k != "walks"}}
+                dw_extra = {
+                    "bound_peak": "3 bf16 passes for x·W, 6 for xᵀ·dl (the "
+                    "time of 3 TF32 passes) on wgmma, 989 TFLOP/s dense",
+                    "pr15_bound_ms": bound(2 * 5 * n * d * v, dw_bytes,
+                                           TF32_PEAK)[0],
+                    "pr15_design_ms": time_ms(
+                        lambda: fused_xent.launch_bwd_dw(
+                            WIDENED_KERNELS[1], *bwd_args)),
+                    "rerun_bitwise_equal": equal,
+                    **{f"plan_{k}": val for k, val in plans["dw"].items()
+                       if k != "walks"}}
         timing = (kernel_times(lambda: fused_xent.xent_bwd_dx(*bwd_args),
                                lambda: fused_xent.bwd_dx_reference(
                                    *plain_args)) if timed else {})
-        record("fused_xent_bwd_dx_bf16w", max_err(dx, ref_dx) / max(
-            1e-6, float(ref_dx.abs().max())), 1e-4, case,
-            work=(2 * 4 * n * d * v, read + 8 * n + 4 * n * d),
-            peak=TF32_PEAK, **timing, **extra)
-        dw, db = fused_xent.xent_bwd_dw(*bwd_args)
-        ref_dw, ref_db = fused_xent.bwd_dw_reference(*plain_args)
+        record(names[0], dx_err, 1e-4, case, work=dx_work, peak=peak,
+               **timing, **dx_extra)
+        # dW is written float32 (the autograd Function rounds it to bf16)
         timing = (kernel_times(lambda: fused_xent.xent_bwd_dw(*bwd_args),
                                lambda: fused_xent.bwd_dw_reference(
                                    *plain_args)) if timed else {})
-        err = max(max_err(dw, ref_dw) / max(1e-6, float(ref_dw.abs().max())),
-                  max_err(db, ref_db) / max(1e-6, float(ref_db.abs().max())))
-        # dW is written float32 (the autograd Function rounds it to
-        # bf16); its xᵀ·dl product has no bf16 operand: three passes
-        if timed:
-            extra["bound_peak"] = ("2 TF32 passes for x·W, 3 for xᵀ·dl, on "
-                                   "the tensor cores, 495 TFLOP/s dense")
-        record("fused_xent_bwd_dw_bf16w", err, 1e-4, case,
-               work=(2 * 5 * n * d * v, read + 8 * n + 4 * (d * v + v)),
-               peak=TF32_PEAK, **timing, **extra)
+        record(names[1], dw_err, 1e-4, case, work=dw_work, peak=peak,
+               **timing, **dw_extra)
 
 
 def check_train_kernels(device, randn, lengths_mask, record):
@@ -1219,15 +1289,17 @@ def check_past_limits(device):
     k 65 (the plain top-k), and the lineage layout's switch. The training
     steps are held to phase 7's rule (the loss to 1e-5 relative, each
     gradient to 1e-3 of its largest entry), the attention to 1e-4, the
-    top-k bit for bit. Returns the report and the chunked instances'
-    records (:func:`chunked_kernel_records`), with their launches on
-    this path."""
+    top-k bit for bit; the fused cross-entropy on a bf16 W whose rows are
+    not 16-byte aligned (PR 15's instances) to 1e-5 (loss), 1e-4 (dx, db)
+    and one bf16 ulp of dW's largest entry. Returns the report (with the
+    launches of PR 15's instances) and the chunked instances' records
+    (:func:`chunked_kernel_records`), with their launches on this path."""
     import torch
 
     from neuralmonkey_tpu_torch.models.decoders import transformer
     from neuralmonkey_tpu_torch.ops import (attention, beam_select,
-                                            kernel_config, lineage_attention,
-                                            nn, rnn)
+                                            fused_xent, kernel_config,
+                                            lineage_attention, nn, rnn)
 
     gen = torch.Generator().manual_seed(SEED + 11)
     report = {}
@@ -1370,6 +1442,52 @@ def check_past_limits(device):
             raise AssertionError(f"small_topk k {k}: differs from the CPU")
         report[f"small_topk k {k}"] = {
             "launches": kernel_config.launch_counts()["small_topk"]}
+
+    # the fused cross-entropy on a bf16 W whose rows are not 16-byte
+    # aligned (tied D 130, untied V 1001): PR 15's instances, through the
+    # autograd Function forward and backward, against the CPU (dW is
+    # rounded to bf16 on both, so it may differ by one bf16 ulp of its
+    # largest entry); their launches are this path's
+    widened = dict.fromkeys(WIDENED_KERNELS, 0)
+    for n, d, v, transposed in ((333, 130, 1000, True),
+                                (333, 128, 1001, False)):
+        x = torch.randn(n, d, generator=gen) * 0.5
+        w = (torch.randn(*((v, d) if transposed else (d, v)), generator=gen)
+             * d ** -0.5).to(torch.bfloat16)
+        b = torch.randn(v, generator=gen) * 0.1
+        targets = torch.randint(0, v, (n,), generator=gen)
+
+        def xent(dev):
+            xs, ws, bs = (t.detach().to(dev).requires_grad_()
+                          for t in (x, w, b))
+            loss = fused_xent.fused_softmax_xent(
+                xs, ws, bs, targets.to(dev), 0.1, transposed).sum()
+            loss.backward()
+            return loss.detach().cpu(), {"x": xs.grad.cpu(),
+                                         "b": bs.grad.cpu(),
+                                         "w": ws.grad.float().cpu()}
+        kernel_config.reset_launch_counts()
+        (loss, grads) = xent(device)
+        torch.cuda.synchronize()
+        counts = kernel_config.launch_counts()
+        launched = sorted(k for k, c in counts.items() if c)
+        if launched != sorted(("fused_xent_fwd_bf16w",) + WIDENED_KERNELS):
+            raise AssertionError(f"bf16 W {(d, v, transposed)}: launched "
+                                 f"{launched}")
+        for k in WIDENED_KERNELS:
+            widened[k] += counts[k]
+        ref_loss, ref_grads = xent(torch.device("cpu"))
+        errs = {k: max_err(g, ref_grads[k]) / max(
+            1e-30, float(ref_grads[k].abs().max())) for k, g in grads.items()}
+        errs["loss"] = abs(float(loss) - float(ref_loss)) / abs(
+            float(ref_loss))
+        layout = "tied" if transposed else "plain"
+        name = f"fused xent bf16 W {(n, d, v, layout)}"
+        report[name] = {"rel_errs": errs, "launched": launched}
+        if not (errs["loss"] <= 1e-5 and errs["x"] <= 1e-4
+                and errs["b"] <= 1e-4 and errs["w"] <= 2.0 ** -8):
+            raise AssertionError(f"{name}: {errs}")
+    report["widened launches"] = widened
 
     # the lineage layout: the kernel takes every head dim, so the switch
     # alone decides
@@ -1842,7 +1960,9 @@ def launch_plans():
             XENT_N, XENT_D, VOCAB, *limits)._asdict().items()
             if k != "walks"} for name, plan in (
                 ("fused_xent_bwd_dx", fused_xent.dx_plan),
-                ("fused_xent_bwd_dw", fused_xent.dw_plan))},
+                ("fused_xent_bwd_dw", fused_xent.dw_plan),
+                ("fused_xent_bwd_dx_bf16w", fused_xent.wgmma_dx_plan),
+                ("fused_xent_bwd_dw_bf16w", fused_xent.wgmma_dw_plan))},
         "flash_attention_fwd": {
             case: fa.flash_forward_plan(*shape[:5])._asdict()
             for case, shape in FLASH_SHAPES.items()},
@@ -4688,6 +4808,8 @@ def main() -> int:
         log(f"float32 and bf16 rates: {bf16['rates']}")
         for name in CHUNKED_KERNELS:
             launches[name] += chunked[name].pop("launches")
+        for name in WIDENED_KERNELS:
+            launches[name] += past_limits["widened launches"][name]
 
     print(json.dumps({"plans": plans}))
     print(smi)

@@ -60,16 +60,50 @@
 //     each logit tile is computed once, where the first design recomputed it
 //     once per 128 rows of D on the CUDA cores; no atomics: dW and db do not
 //     change from run to run.
-// The bf16-W instances (nm_xent_*_bf16w: the bf16 compute policy, where the
-// JAX package widens the bf16 use-site table beside float32 states and runs
-// its float32 kernels) compute the same function with W read as bf16, half
-// its bytes: each W tile is widened as it is staged (tc::load_widen), and
-// every product with W takes two TF32 passes, not three, since a bf16 value
-// has no low TF32 part. x, dx, dW (rounded to bf16 by the wrapper) and db
-// stay float32.
+// The bf16-W instances (the bf16 compute policy, where the JAX package widens
+// the bf16 use-site table beside float32 states and runs its float32
+// kernels) compute the same function with W read as bf16, half its bytes.
+// x, dx, dW (rounded to bf16 by the wrapper) and db stay float32.
+//   - nm_xent_fwd_bf16w, and the backward's PR 15 instances
+//     (nm_xent_bwd_{dx,dw}_bf16w_widened, kept for a W whose bf16 rows do not
+//     start on 16-byte boundaries: D % 8 != 0 tied, V % 8 != 0 untied; the
+//     wrapper's shape gate, ops/fused_xent.py `wgmma_takes`): the float32
+//     designs above with each W tile widened as it is staged
+//     (tc::load_widen, plain loads) and two TF32 passes for a product with W.
+//   - nm_xent_bwd_dx_bf16w and nm_xent_bwd_dw_bf16w: products on Hopper's
+//     warpgroup instructions (wgmma_xent.cuh). W reaches shared memory as
+//     bf16, as it lies, by TMA copies into a ring of stages (4 for dx, 6 for
+//     dW) shared with x's bf16 parts (a first small kernel splits x into
+//     three bf16 planes, exactly). A block is three warpgroups: two run the
+//     products, reading both operands from shared memory (wgmma.mma_async,
+//     float32 sums in registers), and one thread of the third issues the
+//     copies, a stage's "full" mbarrier telling the products it has landed
+//     and its "empty" one telling the copier the products are done with it.
+//     x W and dl W^T take three bf16 passes each (0.75 of two TF32 passes'
+//     time), x^T dl six (three TF32 passes' time); each stage's products
+//     run while the next one's are issued, one group behind.
+//       dx: a block owns 64 rows and 512 columns of D (a warpgroup each 256,
+//       64 x 256 sums in registers for the whole walk) and walks a chunk of
+//       128-column vocabulary tiles. For each: the logit tile, each
+//       warpgroup 64 of its columns (64 x 64 sums), over D in 64-deep
+//       stages; dl, split in three bf16 parts, into shared memory; then dl
+//       W^T over the tile's 128 vocabulary rows in 32-row stages of W (32 x
+//       512). The chunk's partial goes to the block's rows of an (S, N, D)
+//       scratch (dx itself when S = 1), folded in the order 0 .. S-1.
+//       dW: a block owns 64 vocabulary columns and 512 rows of D (a
+//       warpgroup each 256: dW^T's 64 x 256 sums in registers) and walks a
+//       chunk of 128-row tiles: the logit tile, each warpgroup 64 of its
+//       rows, over D in 32-deep stages; dl's parts into shared memory, and
+//       db's column sums in registers; then dl^T x over the tile's rows, a
+//       stage one 16-row slice of one of x's parts (16 x 512). Partials of
+//       S chunks go to an (S, dW) scratch and are folded as dx's.
+//     Either kernel computes each logit tile once for each 512 columns of D
+//     (once at D <= 512); no atomics, so dx, dW and db do not change from
+//     run to run.
 #include <algorithm>
 
 #include "tc_product.cuh"
+#include "wgmma_xent.cuh"
 
 namespace {
 
@@ -594,10 +628,621 @@ int xent_bwd_dw(const void* x, const void* w, const void* bias, const void* targ
   return fold(pdb, static_cast<float*>(db), static_cast<size_t>(V), splits, s);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16-W backward on warpgroup products (wgmma_xent.cuh): x's bf16
+// parts and W's tiles through a cp.async ring, both operands of every
+// product read from shared memory.
+namespace wgk {
+
+namespace wg = nm::wg;
+using wg::bf16;
+constexpr int kThreads = wg::kThreads;     // the product threads
+constexpr int kBlock = kThreads + 128;     // and the copying warpgroup
+constexpr int kDPass = 512;  // columns (dx) or rows (dW) of D a block owns, 256 a warpgroup
+// dx: a block's rows, a vocabulary tile's columns, a logit stage's depth, a
+// product stage's vocabulary rows (and the byte rows of their K-major
+// tiles), and the ring's stages (bf16 elements each: x's three 64 x 64
+// parts and W's 128 x 64 tile, or W's 32 x 512)
+constexpr int kDxRows = 64;
+constexpr int kDxVTile = 128;
+constexpr int kDxKC = 64;
+constexpr int kDxVC = 32;
+constexpr int kDxKR = 2 * kDxKC, kDxVR = 2 * kDxVC;
+constexpr int kDxStages = 4;
+constexpr int kDxStage = 3 * kDxRows * kDxKC + kDxVTile * kDxKC;
+constexpr int kDxDl = kDxRows * kDxVTile;  // one of dl's parts
+// (+ 1024: the ring starts on a 1024-byte boundary, as the swizzle needs;
+// + 128: a slot's two barriers)
+constexpr size_t kDxSmem = sizeof(bf16) * (kDxStages * kDxStage + 3 * kDxDl) + 1024 + 128;
+// dW: a row tile's rows, a block's vocabulary columns, a logit stage's depth
+// and the ring's stages (x's three 128 x 32 parts and W's 64 x 32 tile, or
+// one of x's parts, 16 x 512)
+constexpr int kDwRows = 128;
+constexpr int kDwVTile = 64;
+constexpr int kDwKC = 32;
+constexpr int kDwStages = 6;
+constexpr int kDwStage = 3 * kDwRows * kDwKC + kDwVTile * kDwKC;
+constexpr int kDwDl = kDwRows * kDwVTile;
+constexpr size_t kDwSmem = sizeof(bf16) * (kDwStages * kDwStage + 3 * kDwDl) + 1024 + 128;
+static_assert(kDxVC * kDPass <= kDxStage, "a dx product stage fits a stage");
+static_assert(16 * kDPass <= kDwStage, "a dW product stage fits a stage");
+
+// x (N, D) float32 as its three bf16 parts, planes of (N, Dp), the columns
+// past D zero (Dp: D rounded up to 8, so that every row is 16-byte aligned)
+__global__ void split_x_kernel(const float* __restrict__ x, unsigned* __restrict__ parts, int N,
+                               int D, int Dp) {
+  const size_t pairs = static_cast<size_t>(N) * Dp / 2;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < pairs;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int n = static_cast<int>(2 * i / Dp), d = static_cast<int>(2 * i % Dp);
+    const float* row = x + static_cast<size_t>(n) * D;
+    unsigned p[3];
+    wg::split3(d < D ? row[d] : 0.f, d + 1 < D ? row[d + 1] : 0.f, p);
+    parts[i] = p[0];
+    parts[pairs + i] = p[1];
+    parts[2 * pairs + i] = p[2];
+  }
+}
+
+// The dynamic shared memory from its first 1024-byte boundary
+__device__ __forceinline__ bf16* aligned_ring() {
+  extern __shared__ float4 smem4[];
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(smem4));
+  return reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem4) + ((1024 - (at & 1023)) & 1023));
+}
+
+// dl = g (exp(t + b - lse) - (1 - eps) [v == y] - eps / V) of one logit, 0
+// outside N x V
+__device__ __forceinline__ float dlogit(float t, bool ok, float b, float l, float gr, bool label,
+                                        float eps, int V) {
+  if (!ok) return 0.f;
+  float d = expf(t + b - l) - (label ? 1.0f - eps : 0.f);
+  if (eps != 0.f) d -= eps / V;
+  return d * gr;
+}
+
+// grid (row tiles of 64, S, passes of 512 columns of D): block (r, s, p)
+// walks vocabulary tiles [s T / S, (s + 1) T / S) into plane s of `part`
+// (S, N, D), columns 512 p ..
+template <bool kWT>
+__global__ void __launch_bounds__(kBlock, 1)
+xent_bwd_dx_wg_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap_l,
+                      const __grid_constant__ CUtensorMap wmap_p, const float* __restrict__ bias,
+                      const int* __restrict__ targets, const float* __restrict__ lse,
+                      const float* __restrict__ g, float* __restrict__ part, int N, int D, int Dp,
+                      int V, int splits, float eps) {
+  bf16* ring = aligned_ring();
+  bf16* dls = ring + kDxStages * kDxStage;  // dl's three parts, 64 x 128 each
+  // a slot's barriers: its stage has landed; the product warps are done with it
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + 3 * kDxDl);
+  uint64_t* empty = full + kDxStages;
+  const int half = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * kDxRows, d0 = blockIdx.z * kDPass;
+  const int tiles = (V + kDxVTile - 1) / kDxVTile;
+  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.y) * tiles / splits);
+  const int t1 = static_cast<int>(static_cast<long long>(blockIdx.y + 1) * tiles / splits);
+  const int kch = (Dp + kDxKC - 1) / kDxKC;           // logit stages of a tile
+  const int per_tile = kch + kDxVTile / kDxVC;        // and its product stages
+  const int count = (t1 - t0) * per_tile;
+
+  // stage i of vocabulary tile `tile` into ring slot `slot`
+  auto load = [&](int slot, int tile, int i) {
+    bf16* st = ring + slot * kDxStage;
+    uint64_t* bar = &full[slot];
+    const int v0 = tile * kDxVTile;
+    if (i < kch) {
+      // x's three parts [n][d] in one box (128-byte rows) and W's 128 x 64:
+      // tied [v][d] (128-byte rows), untied [d][v] (two 64-column blocks)
+      const int k0 = i * kDxKC;
+      bf16* wt = st + 3 * kDxRows * kDxKC;
+      wg::bar_expect(bar, kDxStage * sizeof(bf16));
+      wg::tma3d(st, xmap, k0, m0, 0, bar);
+      if (kWT) {
+        wg::tma2d(wt, wmap_l, k0, v0, bar);
+      } else {
+        for (int c = 0; c < kDxVTile; c += 64) wg::tma2d(wt + c * kDxKC, wmap_l, v0 + c, k0, bar);
+      }
+    } else {
+      // W's 32 vocabulary rows by the block's 512 columns of D: tied [v][d]
+      // in 64-column blocks, untied [d][v] in two boxes of 256 rows
+      const int vc = v0 + (i - kch) * kDxVC;
+      wg::bar_expect(bar, kDxVC * kDPass * sizeof(bf16));
+      if (kWT) {
+        for (int c = 0; c < kDPass; c += 64) wg::tma2d(st + c * kDxVC, wmap_p, d0 + c, vc, bar);
+      } else {
+        for (int r = 0; r < kDPass; r += 256) wg::tma2d(st + r * kDxVC, wmap_p, vc, d0 + r, bar);
+      }
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < kDxStages; ++slot) {
+      wg::bar_init(&full[slot], 1);
+      wg::bar_init(&empty[slot], kThreads / 32);
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kThreads) {
+    // the copying warpgroup: one thread keeps the ring full, refilling a
+    // slot once the product warps have released it
+    wg::registers_down<40>();
+    if (threadIdx.x == kThreads)
+      for (int q = 0, tile = t0, i = 0; q < count; ++q) {
+        if (q >= kDxStages) wg::bar_wait(&empty[q % kDxStages], (q / kDxStages - 1) & 1);
+        load(q % kDxStages, tile, i);
+        if (++i == per_tile) i = 0, ++tile;
+      }
+    return;
+  }
+  wg::registers_up<232>();
+
+  // this thread's rows (of the logit tile and of dx) and column offset
+  const int r_lo = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  float row_lse[2], row_g[2];
+  int row_y[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = m0 + r_lo + 8 * h;
+    row_lse[h] = n < N ? lse[n] : 0.f;
+    row_g[h] = n < N ? g[n] : 0.f;
+    row_y[h] = n < N ? targets[n] : -1;
+  }
+  float acc[128];  // dx: columns d0 + 256 half + 8 j + col (+1)
+#pragma unroll
+  for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+  float s[32];     // the logit tile: columns 64 half + 8 j + col (+1)
+
+  for (int q = 0; q < count; ++q) {
+    wg::bar_wait(&full[q % kDxStages], q / kDxStages & 1);  // stage q is in
+    const bf16* st = ring + (q % kDxStages) * kDxStage;
+    const int i = q % per_tile;
+    if (i < kch) {
+      // t += x W over 64 depths: x's smallest part first; a tile's first
+      // product starts the sums
+      const bf16* wt = st + 3 * kDxRows * kDxKC;
+      wg::fence_operand(s);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < kDxKC; kk += 16) {
+        const uint64_t b = kWT ? wg::kslice<kDxKR>(wt, kDxVTile, 64 * half, kk)
+                               : wg::mnslice<128>(wt, kDxKC, 64 * half, kk);
+#pragma unroll
+        for (int p = 2; p >= 0; --p)
+          wg::mma64<0, kWT ? 0 : 1>(
+              s, wg::kslice<kDxKR>(st + p * kDxRows * kDxKC, kDxRows, 0, kk), b,
+              i != 0 || kk != 0 || p != 2);
+      }
+      wg::fence_operand(s);
+    } else {
+      // dx += dl W^T over 32 vocabulary rows: dl's smallest part first
+      const int k0 = (i - kch) * kDxVC;
+      wg::fence_operand(acc);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < kDxVC; kk += 16) {
+        const uint64_t b = kWT ? wg::mnslice<128>(st, kDxVC, 256 * half, kk)
+                               : wg::kslice<kDxVR>(st, kDPass, 256 * half, kk);
+#pragma unroll
+        for (int p = 2; p >= 0; --p)
+          wg::mma256<0, kWT ? 1 : 0>(acc, wg::kslice<128>(dls + p * kDxDl, kDxRows, 0, k0 + kk),
+                                     b, 1);
+      }
+      wg::fence_operand(acc);
+    }
+    wg::commit();
+    wg::wait<1>();
+    // this warp's products of stage q - 1 are done: release its slot
+    if (q > 0 && lane == 0) wg::bar_arrive(&empty[(q - 1) % kDxStages]);
+    if (i == kch - 1) {
+      // the logit tile is complete: dl's parts into shared memory, once
+      // both warpgroups have finished reading the previous tile's
+      wg::wait<0>();
+      wg::fence_operand(s);
+      wg::sync_products();
+      const int v0 = (t0 + q / per_tile) * kDxVTile;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * half + 8 * j + col, v = v0 + c;
+        const float b0 = v < V ? bias[v] : 0.f, b1 = v + 1 < V ? bias[v + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool row_ok = m0 + r_lo + 8 * h < N;
+          unsigned parts[3];
+          wg::split3(dlogit(s[4 * j + 2 * h], row_ok && v < V, b0, row_lse[h], row_g[h],
+                        v == row_y[h], eps, V),
+                 dlogit(s[4 * j + 2 * h + 1], row_ok && v + 1 < V, b1, row_lse[h], row_g[h],
+                        v + 1 == row_y[h], eps, V),
+                 parts);
+          const int off = wg::at<128>(r_lo + 8 * h, c, kDxRows);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) *reinterpret_cast<unsigned*>(dls + p * kDxDl + off) = parts[p];
+        }
+      }
+      wg::fence_shared();
+      wg::sync_products();
+    }
+  }
+  wg::wait<0>();
+  wg::fence_operand(acc);
+  float* out = part + static_cast<size_t>(blockIdx.y) * N * D;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = m0 + r_lo + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = d0 + 256 * half + 8 * j + col + e;
+        if (n < N && d < D) out[static_cast<size_t>(n) * D + d] = acc[4 * j + 2 * h + e];
+      }
+    }
+}
+
+// grid (vocabulary blocks of 64, S, passes of 512 rows of D): block (c, s,
+// p) walks row tiles [s T / S, (s + 1) T / S) into plane s of `part` (S,
+// dW) and, for p = 0, of `pdb` (S, V)
+template <bool kWT>
+__global__ void __launch_bounds__(kBlock, 1)
+xent_bwd_dw_wg_kernel(const __grid_constant__ CUtensorMap xmap_l,
+                      const __grid_constant__ CUtensorMap xmap_p,
+                      const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+                      const int* __restrict__ targets, const float* __restrict__ lse,
+                      const float* __restrict__ g, float* __restrict__ part,
+                      float* __restrict__ pdb, int N, int D, int Dp, int V, int splits,
+                      float eps) {
+  bf16* ring = aligned_ring();
+  bf16* dls = ring + kDwStages * kDwStage;  // dl's three parts, 128 x 64 each
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + 3 * kDwDl);
+  uint64_t* empty = full + kDwStages;
+  const int half = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int v0 = blockIdx.x * kDwVTile, d0 = blockIdx.z * kDPass;
+  const int tiles = (N + kDwRows - 1) / kDwRows;
+  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.y) * tiles / splits);
+  const int t1 = static_cast<int>(static_cast<long long>(blockIdx.y + 1) * tiles / splits);
+  const int kch = (Dp + kDwKC - 1) / kDwKC;               // logit stages of a tile
+  const int per_tile = kch + 3 * (kDwRows / 16);          // and its product stages
+  const int count = (t1 - t0) * per_tile;
+
+  // stage i of row tile `tile` into ring slot `slot`; product stage j of a
+  // tile: rows 16 (j / 3) .. of x's part 2 - j % 3 (the smallest first)
+  auto load = [&](int slot, int tile, int i) {
+    bf16* st = ring + slot * kDwStage;
+    uint64_t* bar = &full[slot];
+    const int m0 = tile * kDwRows;
+    if (i < kch) {
+      // x's three parts [n][d] in one box (64-byte rows) and W's 64 x 32:
+      // tied [v][d] (64-byte rows), untied [d][v] (a 64-column block)
+      const int k0 = i * kDwKC;
+      wg::bar_expect(bar, (3 * kDwRows * kDwKC + kDwVTile * kDwKC) * sizeof(bf16));
+      wg::tma3d(st, xmap_l, k0, m0, 0, bar);
+      if (kWT) {
+        wg::tma2d(st + 3 * kDwRows * kDwKC, wmap, k0, v0, bar);
+      } else {
+        wg::tma2d(st + 3 * kDwRows * kDwKC, wmap, v0, k0, bar);
+      }
+    } else {
+      // one part of x, 16 rows by the block's 512 columns of D, in
+      // 64-column blocks
+      const int j = i - kch;
+      wg::bar_expect(bar, 16 * kDPass * sizeof(bf16));
+      for (int c = 0; c < kDPass; c += 64)
+        wg::tma3d(st + c * 16, xmap_p, d0 + c, m0 + 16 * (j / 3), 2 - j % 3, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < kDwStages; ++slot) {
+      wg::bar_init(&full[slot], 1);
+      wg::bar_init(&empty[slot], kThreads / 32);
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kThreads) {
+    // the copying warpgroup: one thread keeps the ring full, refilling a
+    // slot once the product warps have released it
+    wg::registers_down<40>();
+    if (threadIdx.x == kThreads)
+      for (int q = 0, tile = t0, i = 0; q < count; ++q) {
+        if (q >= kDwStages) wg::bar_wait(&empty[q % kDwStages], (q / kDwStages - 1) & 1);
+        load(q % kDwStages, tile, i);
+        if (++i == per_tile) i = 0, ++tile;
+      }
+    return;
+  }
+  wg::registers_up<232>();
+
+  // this thread's rows of the logit tile (64 half + r_lo (+8)), its vocabulary
+  // columns v0 + 8 j + col (+1), and dW^T's rows v0 + r_lo (+8)
+  const int r_lo = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  float bv[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int v = v0 + 8 * j + col + e;
+      bv[j][e] = v < V ? bias[v] : 0.f;
+    }
+  float dbs[8][2] = {};  // db: this thread's columns over its rows
+  float acc[128];        // dW^T: columns d0 + 256 half + 8 j + col (+1)
+#pragma unroll
+  for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+  float s[32];
+
+  for (int q = 0; q < count; ++q) {
+    wg::bar_wait(&full[q % kDwStages], q / kDwStages & 1);  // stage q is in
+    const bf16* st = ring + (q % kDwStages) * kDwStage;
+    const int i = q % per_tile;
+    if (i < kch) {
+      // t += x W over 32 depths, rows 64 half ..: x's smallest part first;
+      // a tile's first product starts the sums
+      const bf16* wt = st + 3 * kDwRows * kDwKC;
+      uint64_t a[2][3], b[2];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        b[kk] = kWT ? wg::kslice<64>(wt, kDwVTile, 0, 16 * kk)
+                    : wg::mnslice<128>(wt, kDwKC, 0, 16 * kk);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          a[kk][p] = wg::kslice<64>(st + p * kDwRows * kDwKC, kDwRows, 64 * half, 16 * kk);
+      }
+      wg::fence_operand(s);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int p = 2; p >= 0; --p)
+          wg::mma64<0, kWT ? 0 : 1>(s, a[kk][p], b[kk], i != 0 || kk != 0 || p != 2);
+      wg::fence_operand(s);
+    } else {
+      // dW^T += dl^T x over 16 rows, x's part q against dl's parts p <= 2 - q
+      const int j = i - kch, xq = 2 - j % 3;
+      const uint64_t b = wg::mnslice<128>(st, 16, 256 * half, 0);
+      uint64_t a[3];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) a[p] = wg::mnslice<128>(dls + p * kDwDl, kDwRows, 0, 16 * (j / 3));
+      wg::fence_operand(acc);
+      wg::fence();
+      if (xq == 0) wg::mma256<1, 1>(acc, a[2], b, 1);
+      if (xq <= 1) wg::mma256<1, 1>(acc, a[1], b, 1);
+      wg::mma256<1, 1>(acc, a[0], b, 1);
+      wg::fence_operand(acc);
+    }
+    wg::commit();
+    wg::wait<1>();
+    // this warp's products of stage q - 1 are done: release its slot
+    if (q > 0 && lane == 0) wg::bar_arrive(&empty[(q - 1) % kDwStages]);
+    if (i == kch - 1) {
+      wg::wait<0>();
+      wg::fence_operand(s);
+      wg::sync_products();
+      const int m0 = (t0 + q / per_tile) * kDwRows + 64 * half;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = m0 + r_lo + 8 * h;
+        const bool row_ok = n < N;
+        const float l = row_ok ? lse[n] : 0.f, gr = row_ok ? g[n] : 0.f;
+        const int y = row_ok ? targets[n] : -1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int v = v0 + 8 * j + col;
+          const float a = dlogit(s[4 * j + 2 * h], row_ok && v < V, bv[j][0], l, gr, v == y, eps, V);
+          const float b =
+              dlogit(s[4 * j + 2 * h + 1], row_ok && v + 1 < V, bv[j][1], l, gr, v + 1 == y, eps, V);
+          dbs[j][0] += a;
+          dbs[j][1] += b;
+          unsigned parts[3];
+          wg::split3(a, b, parts);
+          const int off = wg::at<128>(64 * half + r_lo + 8 * h, 8 * j + col, kDwRows);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) *reinterpret_cast<unsigned*>(dls + p * kDwDl + off) = parts[p];
+        }
+      }
+      wg::fence_shared();
+      wg::sync_products();
+    }
+  }
+  wg::wait<0>();
+  wg::fence_operand(acc);
+  float* out = part + static_cast<size_t>(blockIdx.y) * D * V;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = v0 + r_lo + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = d0 + 256 * half + 8 * j + col + e;
+        if (v < V && d < D)
+          out[kWT ? static_cast<size_t>(v) * D + d : static_cast<size_t>(d) * V + v] =
+              acc[4 * j + 2 * h + e];
+      }
+    }
+  if (blockIdx.z != 0) return;
+  // db: each column's sums over the 8 lanes that share it, then over the
+  // 8 warps, in one fixed order
+  wg::sync_products();  // the ring is free
+  float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = dbs[j][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(nm::kFullMask, v, off);
+      if (lane < 4) red[(threadIdx.x / 32) * kDwVTile + 8 * j + col + e] = v;
+    }
+  wg::sync_products();
+  if (threadIdx.x < kDwVTile && v0 + threadIdx.x < V) {
+    float sum = 0.f;
+    for (int wi = 0; wi < kThreads / 32; ++wi) sum += red[wi * kDwVTile + threadIdx.x];
+    pdb[static_cast<size_t>(blockIdx.y) * V + v0 + threadIdx.x] = sum;
+  }
+}
+
+int split_x(const void* x, void* xs, int N, int D, int Dp, cudaStream_t s) {
+  constexpr int kSplitThreads = 256;
+  const size_t pairs = static_cast<size_t>(N) * Dp / 2;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((pairs + kSplitThreads - 1) / kSplitThreads, size_t{1} << 14));
+  split_x_kernel<<<blocks, kSplitThreads, 0, s>>>(static_cast<const float*>(x),
+                                                  static_cast<unsigned*>(xs), N, D, Dp);
+  return nm::launch_status();
+}
+
+// The driver's tensor-map encoder, reached through the runtime (no link to
+// the driver library); null where the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+                       cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of the bf16 matrix `base`: `rank` dimensions (innermost
+// first), byte strides of the outer ones, a box (innermost first) with the
+// swizzle of its inner extent (32, 64 or 128 bytes); reads past the matrix
+// fill zeros
+int tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const CUtensorMapSwizzle swizzle = box[0] == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box[0] == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x's three parts (3, N, Dp) with a box of `cols` x `rows` x `planes`
+int parts_map(CUtensorMap* map, const void* xs, int N, int Dp, unsigned cols, unsigned rows,
+              unsigned planes) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(N), 3};
+  const cuuint64_t strides[2] = {2ull * Dp, 2ull * Dp * N};
+  const cuuint32_t box[3] = {cols, rows, planes};
+  return tensor_map(map, xs, 3, dims, strides, box);
+}
+
+// W, (V, D) tied or (D, V), with a box of `cols` x `rows`
+int w_map(CUtensorMap* map, const void* w, int D, int V, int transposed, unsigned cols,
+          unsigned rows) {
+  const int inner = transposed ? D : V, outer = transposed ? V : D;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {2ull * inner};
+  const cuuint32_t box[2] = {cols, rows};
+  return tensor_map(map, w, 2, dims, strides, box);
+}
+
+// what the wgmma kernels take: W's bf16 rows 16-byte aligned (D % 8 == 0
+// tied, V % 8 == 0 untied: ops/fused_xent.py `wgmma_takes`), W and the parts
+// 16-byte aligned, S chunks of the walked tiles none empty, the grid's y and
+// z within 65535
+bool bad_wg(const void* w, const void* xs, int N, int D, int V, int transposed, int walked,
+            int splits, const void* scratch) {
+  const int passes = (D + kDPass - 1) / kDPass;
+  return N < 1 || D < 1 || V < 1 || splits < 1 || splits > walked || splits > 65535 ||
+         passes > 65535 || (transposed ? D % 8 : V % 8) != 0 || xs == nullptr ||
+         ((reinterpret_cast<size_t>(w) | reinterpret_cast<size_t>(xs)) & 15) != 0 ||
+         (splits > 1 && scratch == nullptr);
+}
+
+int xent_bwd_dx_wg(const void* x, const void* w, const void* bias, const void* targets,
+                   const void* lse, const void* g, void* dx, void* scratch, void* xs, int N, int D,
+                   int V, int transposed, int splits, float eps, cudaStream_t s) {
+  if (bad_wg(w, xs, N, D, V, transposed, (V + kDxVTile - 1) / kDxVTile, splits, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Dp = (D + 7) / 8 * 8;
+  int status = split_x(x, xs, N, D, Dp, s);
+  if (status != 0) return status;
+  // x's parts 64 rows x 64 deep, all three at once; W 128 x 64 (tied [v][d])
+  // or 64 x 64 ([d][v]) for the logits, 32 x 64 ([v][d]) or 256 x 32 ([d][v])
+  // for dl W^T
+  CUtensorMap xmap, wmap_l, wmap_p;
+  status = parts_map(&xmap, xs, N, Dp, kDxKC, kDxRows, 3);
+  if (status == 0)
+    status = transposed ? w_map(&wmap_l, w, D, V, 1, kDxKC, kDxVTile)
+                        : w_map(&wmap_l, w, D, V, 0, 64, kDxKC);
+  if (status == 0)
+    status = transposed ? w_map(&wmap_p, w, D, V, 1, 64, kDxVC)
+                        : w_map(&wmap_p, w, D, V, 0, kDxVC, 256);
+  if (status != 0) return status;
+  auto kernel = transposed ? xent_bwd_dx_wg_kernel<true> : xent_bwd_dx_wg_kernel<false>;
+  status = static_cast<int>(cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kDxSmem)));
+  if (status != 0) return status;
+  // with one chunk the blocks write dx itself
+  float* part = splits > 1 ? static_cast<float*>(scratch) : static_cast<float*>(dx);
+  const dim3 grid((N + kDxRows - 1) / kDxRows, splits, (D + kDPass - 1) / kDPass);
+  kernel<<<grid, kBlock, kDxSmem, s>>>(
+      xmap, wmap_l, wmap_p, static_cast<const float*>(bias), static_cast<const int*>(targets),
+      static_cast<const float*>(lse), static_cast<const float*>(g), part, N, D, Dp, V, splits,
+      eps);
+  status = nm::launch_status();
+  if (status != 0 || splits == 1) return status;
+  return fold(part, static_cast<float*>(dx), static_cast<size_t>(N) * D, splits, s);
+}
+
+int xent_bwd_dw_wg(const void* x, const void* w, const void* bias, const void* targets,
+                   const void* lse, const void* g, void* dw, void* db, void* scratch,
+                   void* db_scratch, void* xs, int N, int D, int V, int transposed, int splits,
+                   float eps, cudaStream_t s) {
+  if (bad_wg(w, xs, N, D, V, transposed, (N + kDwRows - 1) / kDwRows, splits, scratch) ||
+      (splits > 1 && db_scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Dp = (D + 7) / 8 * 8;
+  int status = split_x(x, xs, N, D, Dp, s);
+  if (status != 0) return status;
+  // x's parts 128 rows x 32 deep (all three) for the logits, 16 x 64 (one)
+  // for dl^T x; W 64 x 32 (tied [v][d]) or 32 x 64 ([d][v])
+  CUtensorMap xmap_l, xmap_p, wmap;
+  status = parts_map(&xmap_l, xs, N, Dp, kDwKC, kDwRows, 3);
+  if (status == 0) status = parts_map(&xmap_p, xs, N, Dp, 64, 16, 1);
+  if (status == 0)
+    status = transposed ? w_map(&wmap, w, D, V, 1, kDwKC, kDwVTile)
+                        : w_map(&wmap, w, D, V, 0, kDwVTile, kDwKC);
+  if (status != 0) return status;
+  auto kernel = transposed ? xent_bwd_dw_wg_kernel<true> : xent_bwd_dw_wg_kernel<false>;
+  status = static_cast<int>(cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kDwSmem)));
+  if (status != 0) return status;
+  // with one chunk the blocks write dW and db themselves
+  float* part = splits > 1 ? static_cast<float*>(scratch) : static_cast<float*>(dw);
+  float* pdb = splits > 1 ? static_cast<float*>(db_scratch) : static_cast<float*>(db);
+  const dim3 grid((V + kDwVTile - 1) / kDwVTile, splits, (D + kDPass - 1) / kDPass);
+  kernel<<<grid, kBlock, kDwSmem, s>>>(
+      xmap_l, xmap_p, wmap, static_cast<const float*>(bias), static_cast<const int*>(targets),
+      static_cast<const float*>(lse), static_cast<const float*>(g), part, pdb, N, D, Dp, V, splits,
+      eps);
+  status = nm::launch_status();
+  if (status != 0 || splits == 1) return status;
+  status = fold(part, static_cast<float*>(dw), static_cast<size_t>(D) * V, splits, s);
+  if (status != 0) return status;
+  return fold(pdb, static_cast<float*>(db), static_cast<size_t>(V), splits, s);
+}
+
+}  // namespace wgk
+
 }  // namespace
 
-// The C entry points: W float32, and W bf16 (the _bf16w instances), with the
-// same arguments; dW is float32 in both (the wrapper rounds it to bf16).
+// The C entry points: W float32, and W bf16 (the _bf16w instances: the
+// forward and the _widened backward with the float32 ones' arguments, the
+// wgmma backward with x's parts' scratch and no tiles_per_chunk); dW is
+// float32 in all (the wrapper rounds it to bf16).
 NM_EXPORT int nm_xent_fwd(const void* x, const void* w, const void* bias, const void* targets,
                           void* pmax, void* psum, void* plab, void* plsum, void* lse, void* nll,
                           int N, int D, int V, int transposed, float eps, void* stream) {
@@ -623,8 +1268,17 @@ NM_EXPORT int nm_xent_bwd_dx(const void* x, const void* w, const void* bias, con
 
 NM_EXPORT int nm_xent_bwd_dx_bf16w(const void* x, const void* w, const void* bias,
                                    const void* targets, const void* lse, const void* g, void* dx,
-                                   void* scratch, int N, int D, int V, int transposed, int splits,
-                                   int tiles_per_chunk, float eps, void* stream) {
+                                   void* scratch, void* xs, int N, int D, int V, int transposed,
+                                   int splits, float eps, void* stream) {
+  return wgk::xent_bwd_dx_wg(x, w, bias, targets, lse, g, dx, scratch, xs, N, D, V, transposed,
+                             splits, eps, static_cast<cudaStream_t>(stream));
+}
+
+NM_EXPORT int nm_xent_bwd_dx_bf16w_widened(const void* x, const void* w, const void* bias,
+                                           const void* targets, const void* lse, const void* g,
+                                           void* dx, void* scratch, int N, int D, int V,
+                                           int transposed, int splits, int tiles_per_chunk,
+                                           float eps, void* stream) {
   return xent_bwd_dx<__nv_bfloat16>(x, w, bias, targets, lse, g, dx, scratch, N, D, V,
                                     transposed, splits, tiles_per_chunk, eps,
                                     static_cast<cudaStream_t>(stream));
@@ -641,9 +1295,18 @@ NM_EXPORT int nm_xent_bwd_dw(const void* x, const void* w, const void* bias, con
 
 NM_EXPORT int nm_xent_bwd_dw_bf16w(const void* x, const void* w, const void* bias,
                                    const void* targets, const void* lse, const void* g, void* dw,
-                                   void* db, void* scratch, void* db_scratch, int N, int D, int V,
-                                   int transposed, int splits, int tiles_per_chunk, float eps,
+                                   void* db, void* scratch, void* db_scratch, void* xs, int N,
+                                   int D, int V, int transposed, int splits, float eps,
                                    void* stream) {
+  return wgk::xent_bwd_dw_wg(x, w, bias, targets, lse, g, dw, db, scratch, db_scratch, xs, N, D,
+                             V, transposed, splits, eps, static_cast<cudaStream_t>(stream));
+}
+
+NM_EXPORT int nm_xent_bwd_dw_bf16w_widened(const void* x, const void* w, const void* bias,
+                                           const void* targets, const void* lse, const void* g,
+                                           void* dw, void* db, void* scratch, void* db_scratch,
+                                           int N, int D, int V, int transposed, int splits,
+                                           int tiles_per_chunk, float eps, void* stream) {
   return xent_bwd_dw<__nv_bfloat16>(x, w, bias, targets, lse, g, dw, db, scratch, db_scratch,
                                     N, D, V, transposed, splits, tiles_per_chunk, eps,
                                     static_cast<cudaStream_t>(stream));

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ...model.part import Context, ModelPart, tensor
 from ...model.stateful import SpatialStatefulWithOutput, TemporalStateful
-from ...ops import nn
+from ...ops import nn, policy
 from .sentence_cnn_encoder import same_padding
 
 
@@ -158,6 +158,15 @@ class CNNEncoder(ModelPart, SpatialStatefulWithOutput):
 
     @tensor
     def spatial_states(self, ctx: Context):
+        if (policy.compute_dtype() == torch.bfloat16
+                and any(spec[0] == "C" for spec in self.convolutions)):
+            # the JAX package's convolution takes the float32 images beside
+            # the bf16 kernels and raises a TypeError: refuse it by name
+            raise ValueError(
+                f"CNNEncoder '{self.name}' does not run under the bfloat16 "
+                "compute policy (compute_dtype / NM_COMPUTE_DTYPE): its "
+                "convolutions would take float32 images beside bf16 "
+                "kernels, which the reference refuses")
         params = ctx.get_params(self)
         x = ctx.batch[f"{self.name}.images"]
         for i, spec in enumerate(self.convolutions):

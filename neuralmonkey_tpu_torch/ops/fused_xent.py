@@ -20,6 +20,12 @@ mixed pair and runs its float32 kernels, and so do these, reading W as
 bf16 (the ``*_bf16w`` instances, half W's bytes); dW is returned rounded
 to bf16, W's dtype, as the JAX custom VJP's cotangent is. A bf16 x is
 widened (exact); its dx is returned in bf16.
+
+The bf16-W backward runs on Hopper's warpgroup products (laid out by
+:func:`wgmma_dx_plan` and :func:`wgmma_dw_plan`) wherever W's bf16 rows
+start on 16-byte boundaries (:func:`wgmma_takes`); the other strides go
+to the design that widens W as it stages it (the ``*_bf16w_widened``
+instances), decided from the shapes before any launch.
 """
 
 from __future__ import annotations
@@ -117,6 +123,137 @@ def dw_plan(n: int, d: int, v: int, sm_count: int,
                           smem_limit, DW_SMEM_BYTES, owns_rows=False)
 
 
+# csrc/fused_xent.cu's bf16-W backward on warpgroup products (namespace
+# wgk; csrc/wgmma_xent.cuh): two warpgroups of 128 threads for the products
+# and a third whose first thread issues the TMA copies (384 threads; the
+# third gives its registers to the other two). A block owns 512 columns
+# (dx) or rows (dW) of D, 256 a warpgroup, as 64 x 256 float32 sums in
+# registers beside the 64 x 64 logit sums (160 a product thread), and walks
+# tiles of the other axis through a ring of stages. dx: 64 rows, 128
+# vocabulary columns a walked tile, 4 stages of 40960 bytes (x's three bf16
+# parts, 64 x 64, and W's 128 x 64; or W's 32 x 512) and dl's three parts,
+# 64 x 128. dW: 64 vocabulary columns, 128 rows a walked tile, 6 stages of
+# 28672 bytes (x's parts, 128 x 32, and W's 64 x 32; or one part of x,
+# 16 x 512) and dl's parts, 128 x 64. Both take 1024 bytes more, so that
+# the ring starts on the 1024-byte boundary its swizzled tiles need, and
+# 128 for the stages' mbarriers. One block an SM.
+WGMMA_THREADS, WGMMA_THREAD_SUMS, WGMMA_D_PASS = 384, 160, 512
+WGMMA_DX_ROWS, WGMMA_DX_VOCAB_TILE = 64, 128
+WGMMA_DX_STAGES, WGMMA_DX_STAGE_BYTES = 4, 2 * (3 * 64 * 64 + 128 * 64)
+WGMMA_DX_SMEM_BYTES = (WGMMA_DX_STAGES * WGMMA_DX_STAGE_BYTES
+                       + 2 * 3 * 64 * 128 + 1024 + 128)
+WGMMA_DW_ROWS, WGMMA_DW_VOCAB_TILE = 128, 64
+WGMMA_DW_STAGES, WGMMA_DW_STAGE_BYTES = 6, 2 * (3 * 128 * 32 + 64 * 32)
+WGMMA_DW_SMEM_BYTES = (WGMMA_DW_STAGES * WGMMA_DW_STAGE_BYTES
+                       + 2 * 3 * 128 * 64 + 1024 + 128)
+# the S split: the fewest chunks whose grid keeps this share of its waves'
+# SMs busy
+WGMMA_FILL = 0.85
+
+
+class WgmmaPlan(NamedTuple):
+    """The launch of a bf16-W backward kernel on warpgroup products: a
+    ``grid`` of (owned tiles, ``splits``, ``d_passes``) blocks of
+    ``threads``. A dx block owns ``rows`` rows and walks vocabulary tiles
+    of ``vocab_tile`` columns; a dW block owns ``vocab_tile`` columns and
+    walks row tiles of ``rows`` rows; either owns ``d_pass`` columns or
+    rows of D (pass p of ``d_passes``) and walks ``walks[s]`` = (first,
+    end), computing each logit tile once a pass, with ``stages`` ring
+    stages of ``stage_bytes``, ``smem_bytes`` of shared memory in all,
+    ``blocks_per_sm`` blocks an SM and ``thread_sums`` register sums a
+    thread. With ``splits`` > 1 the partials go to a scratch of S planes
+    that a second kernel folds in the order 0 .. S-1."""
+    rows: int
+    vocab_tile: int
+    d_pass: int
+    d_passes: int
+    splits: int
+    grid: Tuple[int, int, int]
+    walks: Tuple[Tuple[int, int], ...]
+    stages: int
+    stage_bytes: int
+    threads: int
+    thread_sums: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def wgmma_takes(d: int, v: int, transposed: bool) -> bool:
+    """Whether the bf16-W backward runs on warpgroup products: W's bf16
+    rows (D values tied, V untied) start on 16-byte boundaries, as its
+    16-byte copies (and a TMA descriptor) need. Other strides take the
+    instances that widen W as they stage it (``*_bf16w_widened``)."""
+    return (d if transposed else v) % 8 == 0
+
+
+def _split_count(owned: int, walked: int, passes: int, sm_count: int) -> int:
+    """The fewest chunks of the ``walked`` tiles whose grid of ``owned``
+    x S x ``passes`` blocks (one an SM) fills the card and keeps
+    ``WGMMA_FILL`` of its waves' SMs busy; else the best-filling S."""
+    best, best_fill = 1, -1.0
+    for splits in range(1, walked + 1):
+        blocks = owned * splits * passes
+        fill = blocks / (-(-blocks // sm_count) * sm_count)
+        if blocks >= sm_count and fill >= WGMMA_FILL:
+            return splits
+        if fill > best_fill:
+            best, best_fill = splits, fill
+        if blocks >= 4 * sm_count:
+            break
+    return best
+
+
+def _wgmma_plan(name: str, n: int, d: int, v: int, sm_count: int,
+                smem_limit: int, owns_rows: bool) -> WgmmaPlan:
+    if min(n, d, v, sm_count) < 1:
+        raise ValueError(f"{name}: no plan for N {n}, D {d}, V {v} on "
+                         f"{sm_count} SMs")
+    if owns_rows:
+        rows, vocab_tile = WGMMA_DX_ROWS, WGMMA_DX_VOCAB_TILE
+        stages, stage_bytes = WGMMA_DX_STAGES, WGMMA_DX_STAGE_BYTES
+        smem_bytes = WGMMA_DX_SMEM_BYTES
+        owned, walked = -(-n // rows), -(-v // vocab_tile)
+    else:
+        rows, vocab_tile = WGMMA_DW_ROWS, WGMMA_DW_VOCAB_TILE
+        stages, stage_bytes = WGMMA_DW_STAGES, WGMMA_DW_STAGE_BYTES
+        smem_bytes = WGMMA_DW_SMEM_BYTES
+        owned, walked = -(-v // vocab_tile), -(-n // rows)
+    if smem_bytes > smem_limit:
+        raise ValueError(f"{name}: {smem_bytes} bytes of shared memory do "
+                         f"not fit {smem_limit}")
+    passes = -(-d // WGMMA_D_PASS)
+    splits = _split_count(owned, walked, passes, sm_count)
+    walks = tuple((s * walked // splits, (s + 1) * walked // splits)
+                  for s in range(splits))
+    return WgmmaPlan(rows, vocab_tile, WGMMA_D_PASS, passes, splits,
+                     (owned, splits, passes), walks, stages, stage_bytes,
+                     WGMMA_THREADS, WGMMA_THREAD_SUMS, smem_bytes,
+                     smem_limit // smem_bytes)
+
+
+def wgmma_dx_plan(n: int, d: int, v: int, sm_count: int,
+                  smem_limit: int) -> WgmmaPlan:
+    """The layout of ``fused_xent_bwd_dx_bf16w`` (csrc/fused_xent.cu,
+    ``wgk::xent_bwd_dx_wg_kernel``) on a card of ``sm_count`` SMs with
+    ``smem_limit`` bytes of shared memory a block: 64-row blocks, the
+    vocabulary tiles cut into the fewest balanced chunks that fill the
+    card (:func:`_split_count`). Raises ``ValueError`` where the block
+    does not fit."""
+    return _wgmma_plan("fused_xent_bwd_dx_bf16w", n, d, v, sm_count,
+                       smem_limit, owns_rows=True)
+
+
+def wgmma_dw_plan(n: int, d: int, v: int, sm_count: int,
+                  smem_limit: int) -> WgmmaPlan:
+    """The layout of ``fused_xent_bwd_dw_bf16w`` (``wgk::
+    xent_bwd_dw_wg_kernel``): 64-column vocabulary blocks, the row tiles
+    cut into the fewest balanced chunks that fill the card (one chunk, no
+    scratch, at the decoder's loss tail). Raises ``ValueError`` where the
+    block does not fit."""
+    return _wgmma_plan("fused_xent_bwd_dw_bf16w", n, d, v, sm_count,
+                       smem_limit, owns_rows=False)
+
+
 FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -190,9 +327,29 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t.float() if t.dtype == torch.bfloat16 else t
 
 
-def _instance(name: str, w: torch.Tensor) -> str:
-    """The kernel that takes ``w``: ``name``, or its bf16-W instance."""
-    return f"{name}_bf16w" if w.dtype == torch.bfloat16 else name
+def _instance(name: str, w: torch.Tensor, transposed: bool) -> str:
+    """The kernel that takes ``w``: ``name``, or its bf16-W instance; for
+    the backward, the one on warpgroup products where :func:`wgmma_takes`
+    W's layout, else the one that widens W."""
+    if w.dtype != torch.bfloat16:
+        return name
+    if name == "fused_xent_fwd":
+        return f"{name}_bf16w"
+    d, v = w.shape[::-1] if transposed else w.shape
+    return (f"{name}_bf16w" if wgmma_takes(d, v, transposed)
+            else f"{name}_bf16w_widened")
+
+
+def _parts(x: torch.Tensor) -> torch.Tensor:
+    """The scratch of x's three bf16 parts, (3, N, D rounded up to 8)."""
+    n, d = x.shape
+    return torch.empty(3, n, -(-d // 8) * 8, dtype=torch.bfloat16,
+                       device=x.device)
+
+
+def _aligned(w: torch.Tensor) -> torch.Tensor:
+    """``w``, or a copy of it that starts on a 16-byte boundary."""
+    return w if w.data_ptr() % 16 == 0 else w.clone()
 
 
 def _check(name: str, x, w, b, targets, transposed: bool, **more) -> None:
@@ -209,8 +366,7 @@ def _check(name: str, x, w, b, targets, transposed: bool, **more) -> None:
     if not targets.is_cuda or targets.device != x.device:
         raise ValueError(f"{name}: targets on {targets.device}, x on "
                          f"{x.device}")
-    w_dtype = (torch.bfloat16 if name.endswith("_bf16w")
-               else torch.float32)
+    w_dtype = torch.bfloat16 if "_bf16w" in name else torch.float32
     kernel_config.check_cuda_inputs(name, x=x, w=w, b=b, **more,
                                     dtypes={"w": w_dtype})
 
@@ -221,7 +377,7 @@ def xent_fwd(x, w, b, targets, eps: float, transposed: bool
     a bf16 ``w``) for CUDA tensors, runs the plain version otherwise."""
     if not x.is_cuda:
         return fwd_reference(x, _wide(w), b, targets, eps, transposed)
-    name = _instance("fused_xent_fwd", w)
+    name = _instance("fused_xent_fwd", w, transposed)
     _check(name, x, w, b, targets, transposed)
     n = x.shape[0]
     vocab = w.shape[0] if transposed else w.shape[1]
@@ -235,18 +391,35 @@ def xent_fwd(x, w, b, targets, eps: float, transposed: bool
 
 def xent_bwd_dx(x, w, b, targets, lse, g, eps: float,
                 transposed: bool) -> torch.Tensor:
-    """dx = dl·Wᵀ: launches ``fused_xent_bwd_dx`` (its bf16-W instance
-    for a bf16 ``w``), laid out by :func:`dx_plan`, for CUDA tensors;
-    runs the plain version otherwise."""
+    """dx = dl·Wᵀ: launches ``fused_xent_bwd_dx`` (for a bf16 ``w`` its
+    bf16-W instance on warpgroup products where :func:`wgmma_takes` W's
+    layout, else the widening one) for CUDA tensors
+    (:func:`launch_bwd_dx`); runs the plain version otherwise."""
     if not x.is_cuda:
         return bwd_dx_reference(x, _wide(w), b, targets, lse, g, eps,
                                 transposed)
-    name = _instance("fused_xent_bwd_dx", w)
+    return launch_bwd_dx(_instance("fused_xent_bwd_dx", w, transposed), x,
+                         w, b, targets, lse, g, eps, transposed)
+
+
+def launch_bwd_dx(name: str, x, w, b, targets, lse, g, eps: float,
+                  transposed: bool) -> torch.Tensor:
+    """dx by the CUDA instance ``name`` (``fused_xent_bwd_dx``, its
+    ``_bf16w`` instance, laid out by :func:`wgmma_dx_plan`, or its
+    ``_bf16w_widened`` one), laid out by :func:`dx_plan` otherwise."""
     _check(name, x, w, b, targets, transposed, lse=lse, g=g)
     dx = torch.empty_like(x)
     n, d = x.shape
     vocab = w.shape[0] if transposed else w.shape[1]
-    plan = dx_plan(n, d, vocab, *kernel_config.tensor_device_limits(x))
+    limits = kernel_config.tensor_device_limits(x)
+    if name == "fused_xent_bwd_dx_bf16w":
+        plan = wgmma_dx_plan(n, d, vocab, *limits)
+        scratch = x.new_empty(plan.splits, n, d) if plan.splits > 1 else None
+        kernel_config.launch(name, x, _aligned(w), b, targets, lse, g, dx,
+                             scratch, _parts(x), n, d, vocab,
+                             int(transposed), plan.splits, eps)
+        return dx
+    plan = dx_plan(n, d, vocab, *limits)
     scratch = x.new_empty(plan.splits, n, d) if plan.splits > 1 else None
     kernel_config.launch(name, x, w, b, targets, lse, g, dx,
                          scratch, n, d, vocab, int(transposed), plan.splits,
@@ -257,23 +430,39 @@ def xent_bwd_dx(x, w, b, targets, lse, g, eps: float,
 def xent_bwd_dw(x, w, b, targets, lse, g, eps: float, transposed: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dW = xᵀ·dl in w's layout, float32, db = Σₙ dl): launches
-    ``fused_xent_bwd_dw`` (its bf16-W instance for a bf16 ``w``), laid
-    out by :func:`dw_plan`, for CUDA tensors; runs the plain version
-    otherwise."""
+    ``fused_xent_bwd_dw`` (for a bf16 ``w`` its bf16-W instance on
+    warpgroup products where :func:`wgmma_takes` W's layout, else the
+    widening one) for CUDA tensors (:func:`launch_bwd_dw`); runs the plain
+    version otherwise."""
     if not x.is_cuda:
         return bwd_dw_reference(x, _wide(w), b, targets, lse, g, eps,
                                 transposed)
-    name = _instance("fused_xent_bwd_dw", w)
+    return launch_bwd_dw(_instance("fused_xent_bwd_dw", w, transposed), x,
+                         w, b, targets, lse, g, eps, transposed)
+
+
+def launch_bwd_dw(name: str, x, w, b, targets, lse, g, eps: float,
+                  transposed: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dW, db) by the CUDA instance ``name`` (``fused_xent_bwd_dw``, its
+    ``_bf16w`` instance, laid out by :func:`wgmma_dw_plan`, or its
+    ``_bf16w_widened`` one), laid out by :func:`dw_plan` otherwise."""
     _check(name, x, w, b, targets, transposed, lse=lse, g=g)
     dw = torch.empty(w.shape, device=w.device)
     db = torch.empty_like(b)
     n, d = x.shape
     vocab = w.shape[0] if transposed else w.shape[1]
-    plan = dw_plan(n, d, vocab, *kernel_config.tensor_device_limits(x))
+    limits = kernel_config.tensor_device_limits(x)
+    wgmma = name == "fused_xent_bwd_dw_bf16w"
+    plan = (wgmma_dw_plan if wgmma else dw_plan)(n, d, vocab, *limits)
     scratch = db_scratch = None
     if plan.splits > 1:
         scratch = x.new_empty(plan.splits, *w.shape)
         db_scratch = x.new_empty(plan.splits, vocab)
+    if wgmma:
+        kernel_config.launch(name, x, _aligned(w), b, targets, lse, g, dw,
+                             db, scratch, db_scratch, _parts(x), n, d,
+                             vocab, int(transposed), plan.splits, eps)
+        return dw, db
     kernel_config.launch(name, x, w, b, targets, lse, g, dw,
                          db, scratch, db_scratch, n, d, vocab,
                          int(transposed), plan.splits, plan.tiles_per_chunk,

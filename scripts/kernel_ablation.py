@@ -37,14 +37,22 @@ products. K4
 8 rows a block at a warp a row, and 2, 4 and 8 warps a row; by edits,
 the launch alone, the path past 256 candidates (the candidates' pass,
 then the per-lane lists' pass and merge), and without the places'
-counts (the loads, tau and the appends alone). A variant that
+counts (the loads, tau and the appends alone). The bf16-W cross-entropy
+backward (``fused_xent_bwd_dx_bf16w`` and ``_dw_bf16w``, ``csrc/fused_xent.cu``
+on warpgroup products) at N 3072, D 512, V 30000, tied, eps 0.1: without
+the products (every ``wgmma`` skipped), without the copies (every TMA
+copy skipped, the stages' barriers completing at once), without both,
+with the products waited for each stage (no group in flight across
+stages), and PR 15's design (``_bf16w_widened``, W widened as it is
+staged) from the source's library on the same operands. A variant that
 removes a part computes wrong values; only its time is read. Each
 variant is compiled by nvcc into its own library under
 ``build/kernel_ablation/`` and launched through the kernel's C entry
 point on the inputs of the source's own launch. ``--only`` keeps the
 kernels whose names start with one of the comma-separated prefixes
 (``gru_scan``, ``fused_logits_rowmax_lse``, ``fused_xent_fwd``,
-``fused_bahdanau_step``, ``lineage_attention``, ``small_topk``). Prints
+``fused_xent_bwd``, ``fused_bahdanau_step``, ``lineage_attention``,
+``small_topk``). Prints
 one JSON line with the card's name and power limit.
 """
 
@@ -81,6 +89,19 @@ XENT_FWD_VARIANTS = {
     "source": [],
     "one block an SM": [("__launch_bounds__(tc::kThreads, 2)\nxent_fwd_kernel",
                          "__launch_bounds__(tc::kThreads, 1)\nxent_fwd_kernel")],
+}
+NO_PRODUCTS = [("wg::mma64<", "if (false) wg::mma64<"),
+               ("wg::mma256<", "if (false) wg::mma256<")]
+NO_COPIES = [("wg::tma2d(", "if (false) wg::tma2d("),
+             ("wg::tma3d(", "if (false) wg::tma3d("),
+             ("wg::bar_expect(bar, ", "wg::bar_expect(bar, 0 * ")]
+XENT_BWD_VARIANTS = {
+    "source": [],
+    "no products": NO_PRODUCTS,
+    "no copies": NO_COPIES,
+    "no products, no copies": NO_PRODUCTS + NO_COPIES,
+    "products waited each stage": [("    wg::wait<1>();",
+                                    "    wg::wait<0>();")],
 }
 K2_VARIANTS = {
     "source": [],
@@ -276,6 +297,62 @@ def main() -> int:
             for name in libs:
                 result["fused_xent_fwd"].setdefault(name, []).append(
                     cs.time_ms(lambda: xent_fwd(name)))
+    # the bf16-W backward on warpgroup products, and PR 15's design
+    if wanted("fused_xent_bwd"):
+        from neuralmonkey_tpu_torch.ops import fused_xent
+        n, d, v, eps = cs.XENT_N, cs.XENT_D, cs.VOCAB, 0.1
+        xb = randn(n, d, scale=0.5)
+        wb = randn(v, d, scale=d ** -0.5).to(torch.bfloat16)
+        bb = randn(v, scale=0.1)
+        targets = torch.randint(0, v, (n,), generator=gen,
+                                dtype=torch.int32).to(device)
+        g = torch.rand(n, generator=gen).to(device)
+        lse = fused_xent.fwd_reference(xb, wb.float(), bb, targets, eps,
+                                       True)[1]
+        pdx = fused_xent.wgmma_dx_plan(n, d, v, sms, smem)
+        pdw = fused_xent.wgmma_dw_plan(n, d, v, sms, smem)
+        old_dx = fused_xent.dx_plan(n, d, v, sms, smem)
+        old_dw = fused_xent.dw_plan(n, d, v, sms, smem)
+        parts = torch.empty(3, n, d, dtype=torch.bfloat16, device=device)
+        dxo, dwo, dbo = xb.new_empty(n, d), xb.new_empty(v, d), bb.new_empty(v)
+        scratch = xb.new_empty(max(pdx.splits, old_dx.splits), n, d)
+        wscratch = xb.new_empty(max(pdw.splits, old_dw.splits), v, d)
+        dbscratch = xb.new_empty(max(pdw.splits, old_dw.splits), v)
+        libs = build(kernel_config, "fused_xent.cu", XENT_BWD_VARIANTS)
+        common = (xb.data_ptr(), wb.data_ptr(), bb.data_ptr(),
+                  targets.data_ptr(), lse.data_ptr(), g.data_ptr())
+
+        def bwd(lib, which, widened):
+            name = f"nm_xent_bwd_{which}_bf16w" + ("_widened" if widened
+                                                   else "")
+            if which == "dx":
+                args = (dxo.data_ptr(), scratch.data_ptr())
+                plan = old_dx if widened else pdx
+            else:
+                args = (dwo.data_ptr(), dbo.data_ptr(), wscratch.data_ptr(),
+                        dbscratch.data_ptr())
+                plan = old_dw if widened else pdw
+            tail = ((n, d, v, 1, plan.splits, plan.tiles_per_chunk)
+                    if widened else (parts.data_ptr(), n, d, v, 1,
+                                     plan.splits))
+            status = entry(lib, name)(*common, *args, *tail, eps, stream())
+            if status:
+                raise RuntimeError(f"{name}: CUDA error {status}")
+        ref = fused_xent.bwd_dx_reference(xb, wb.float(), bb, targets, lse,
+                                          g, eps, True)
+        bwd(libs["source"], "dx", False)
+        torch.cuda.synchronize()
+        row = result["fused_xent_bwd"] = {
+            "source_dx_rel_err": float((dxo - ref).abs().max()
+                                       / ref.abs().max())}
+        runs = {(name, which): (lib, which, False)
+                for name, lib in libs.items() for which in ("dx", "dw")}
+        runs.update((("PR 15's design", which), (libs["source"], which, True))
+                    for which in ("dx", "dw"))
+        for _ in range(args.turns):
+            for (name, which), run in runs.items():
+                row.setdefault(f"{which} {name}", []).append(
+                    cs.time_ms(lambda: bwd(*run)))
     # K2: plans of the source's own library
     if wanted("fused_bahdanau_step"):
         att, dim = cs.ATT, 2 * cs.RNN

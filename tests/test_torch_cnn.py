@@ -41,6 +41,7 @@ from neuralmonkey_tpu.models.decoders.decoder import Decoder as JaxDecoder
 from neuralmonkey_tpu.models.encoders import cnn_encoder as jax_cnn
 from neuralmonkey_tpu.models.encoders import sentence_cnn_encoder as jax_scnn
 from neuralmonkey_tpu.ops import kernel_config as jax_kernel_config
+from neuralmonkey_tpu.ops import policy as jax_policy
 from neuralmonkey_tpu.runners.plain_runner import \
     PlainRunner as JaxPlainRunner
 from neuralmonkey_tpu.utils.saving import flatten_tree as jax_flatten
@@ -57,6 +58,7 @@ from neuralmonkey_tpu_torch.models.encoders import cnn_encoder
 from neuralmonkey_tpu_torch.models.encoders import sentence_cnn_encoder
 from neuralmonkey_tpu_torch.models.encoders.sequence_cnn_encoder import \
     SequenceCNNEncoder
+from neuralmonkey_tpu_torch.ops import policy
 from neuralmonkey_tpu_torch.runners.plain_runner import PlainRunner
 from neuralmonkey_tpu_torch.utils.saving import flatten_tree, params_from_jax
 from neuralmonkey_tpu_torch.vocabulary import Vocabulary
@@ -408,6 +410,28 @@ def test_cnn_encoder_gradients_match_jax(batch_normalize):
                   lambda c: (enc.output(c) ** 2).sum()
                   + enc.spatial_states(c).sum(),
                   jax_params, params, batch)
+
+
+def test_cnn_encoder_refuses_the_bf16_policy():
+    """Under the bf16 compute policy both packages refuse the CNN
+    encoder: the JAX package's convolution raises a TypeError on the
+    float32 images beside the bf16 kernels, the port a ValueError that
+    names the policy, before any convolution runs."""
+    jax_enc, enc, jax_params, params, batch = _cnn_case(False, None)
+    jax_policy.set_compute_dtype("bfloat16")
+    policy.set_compute_dtype("bfloat16")
+    try:
+        with pytest.raises(TypeError):
+            _jax_outputs(jax_enc.spatial_states, jax_params, batch)
+        ctx = _contexts(jax_params, params, batch)[1]
+        with pytest.raises(ValueError, match="bfloat16 compute policy"):
+            enc.spatial_states(ctx)
+    finally:
+        jax_policy.set_compute_dtype(None)
+        policy.set_compute_dtype(None)
+    # float32 again: the same encoder runs
+    assert enc.spatial_states(_contexts(jax_params, params, batch)[1]
+                              ).dtype == torch.float32
 
 
 def test_cnn_encoder_refuses_other_images():

@@ -1941,15 +1941,20 @@ def test_lineage_kernel_refuses_mixed_caches(cuda_device):
 
 
 @pytest.mark.parametrize("n,d,v", [(70, 40, 300), (256, 128, 1024),
-                                   (33, 130, 129), (640, 512, 30000)])
+                                   (33, 130, 129), (640, 512, 30000),
+                                   (200, 40, 129), (333, 130, 30000),
+                                   (100, 600, 520)])
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("eps", [0.0, 0.1])
 def test_fused_xent_bf16_w_kernels(cuda_device, n, d, v, transposed, eps):
-    """The bf16-W instances of the three B7 kernels (W read as bf16,
-    widened in the tile load, two TF32 passes) against the plain
-    versions on the widened W, within 1e-5 as the float32 instances;
-    dW comes back float32 from the kernel (the autograd Function rounds
-    it to bf16)."""
+    """The bf16-W instances of the three B7 kernels against the plain
+    versions on the widened W, within 1e-5 as the float32 instances; dW
+    comes back float32 from the kernel (the autograd Function rounds it
+    to bf16). The backward runs on warpgroup products where W's bf16
+    rows are 16-byte aligned (D % 8 == 0 tied, V % 8 == 0 untied), else
+    on the instances that widen W as they stage it; the shapes cross the
+    new kernels' tile edges (N not a multiple of 64 or 128, V 129, D past
+    one 512-column pass)."""
     x = _randn(cuda_device, n, d, scale=0.3)
     w = _randn(cuda_device, *((v, d) if transposed else (d, v)),
                scale=0.05, seed=1).to(torch.bfloat16)
@@ -1965,8 +1970,13 @@ def test_fused_xent_bf16_w_kernels(cuda_device, n, d, v, transposed, eps):
                                     transposed)
     torch.cuda.synchronize()
     counts = kernel_config.launch_counts()
-    for k in ("fused_xent_fwd", "fused_xent_bwd_dx", "fused_xent_bwd_dw"):
-        assert (counts[k + "_bf16w"], counts[k]) == (1, 0), counts
+    assert (counts["fused_xent_fwd_bf16w"], counts["fused_xent_fwd"]) == (
+        1, 0), counts
+    widened = not fused_xent.wgmma_takes(d, v, transposed)
+    assert widened == ((d if transposed else v) % 8 != 0)
+    for k in ("fused_xent_bwd_dx", "fused_xent_bwd_dw"):
+        assert (counts[k + "_bf16w"], counts[k + "_bf16w_widened"],
+                counts[k]) == ((0, 1, 0) if widened else (1, 0, 0)), counts
     wide = w.float()
     ref_nll, ref_lse = fused_xent.fwd_reference(x, wide, b, targets, eps,
                                                 transposed)
@@ -1979,6 +1989,38 @@ def test_fused_xent_bf16_w_kernels(cuda_device, n, d, v, transposed, eps):
     assert dw.dtype == torch.float32
     torch.testing.assert_close(dw, ref_dw, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(db, ref_db, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,v,transposed", [(640, 512, 30000, True),
+                                               (333, 130, 1000, False),
+                                               (100, 600, 520, True)])
+def test_fused_xent_bf16_w_backward_is_deterministic(cuda_device, n, d, v,
+                                                    transposed):
+    """Two calls of the bf16-W backward on warpgroup products give
+    bitwise-equal dx, dW and db: the vocabulary and row chunks' partials
+    fold in one fixed order, and no atomics."""
+    x = _randn(cuda_device, n, d, scale=0.3)
+    w = _randn(cuda_device, *((v, d) if transposed else (d, v)),
+               scale=0.05, seed=1).to(torch.bfloat16)
+    b = _randn(cuda_device, v, scale=0.1, seed=2)
+    targets = torch.arange(n, dtype=torch.int32, device=cuda_device) * 7 % v
+    g = _randn(cuda_device, n, seed=4)
+    assert fused_xent.wgmma_takes(d, v, transposed)
+    lse = fused_xent.xent_fwd(x, w, b, targets, 0.1, transposed)[1]
+    kernel_config.reset_launch_counts()
+    first = (fused_xent.xent_bwd_dx(x, w, b, targets, lse, g, 0.1,
+                                    transposed),
+             *fused_xent.xent_bwd_dw(x, w, b, targets, lse, g, 0.1,
+                                     transposed))
+    second = (fused_xent.xent_bwd_dx(x, w, b, targets, lse, g, 0.1,
+                                     transposed),
+              *fused_xent.xent_bwd_dw(x, w, b, targets, lse, g, 0.1,
+                                      transposed))
+    counts = kernel_config.launch_counts()
+    assert (counts["fused_xent_bwd_dx_bf16w"],
+            counts["fused_xent_bwd_dw_bf16w"]) == (2, 2), counts
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 def test_fused_xent_autograd_rounds_dw_to_bf16(cuda_device):

@@ -1,7 +1,8 @@
 """The launch plans of the persistent LSTM scan and BPTT, the persistent
 GRU scan (K1) and BPTT, the fused cross-entropy's dx and dW, the
 register-tiled flash forward and backward, K2's thread-block
-clusters, the lineage attention's pipelined lane chunks and K4's warps,
+clusters, the lineage attention's pipelined lane chunks, K4's warps and
+the bf16-W cross-entropy backward's warpgroup launches and shape gate,
 checked on the CPU: which block owns which hidden units, rows, queries,
 keys, source positions, columns, lanes or slots, which tiles each block
 walks, what fits an H100's shared memory and SM count, and which layout
@@ -318,6 +319,121 @@ def test_dw_plan_ragged_and_small():
 def test_dw_plan_raises_where_nothing_fits(sms, smem):
     with pytest.raises(ValueError, match="fused_xent_bwd_dw"):
         fused_xent.dw_plan(3072, 512, 30000, sms, smem)
+
+
+# the bf16-W backward on warpgroup products: the card tests' shapes (N
+# not a multiple of 64 or 128, V 129, D past one 512-column pass) beside
+# dx's and dW's
+WGMMA_SHAPES = DX_SHAPES + [(200, 40, 129), (333, 130, 30000),
+                            (100, 600, 520), (640, 512, 30000)]
+
+
+def _wgmma_plans(n, d, v):
+    return (fused_xent.wgmma_dx_plan(n, d, v, H100_SMS, H100_SMEM),
+            fused_xent.wgmma_dw_plan(n, d, v, H100_SMS, H100_SMEM))
+
+
+@pytest.mark.parametrize("n,d,v", WGMMA_SHAPES)
+def test_wgmma_plans_visit_every_tile_once(n, d, v):
+    """In each pass over D, every (row tile, vocabulary tile) pair lies
+    in exactly one block: dx's blocks own row tiles and walk balanced,
+    contiguous chunks of the vocabulary tiles, dW's the other way round;
+    the passes cover D, 512 columns each."""
+    for plan, owns_rows in zip(_wgmma_plans(n, d, v), (True, False)):
+        row_tiles, vocab_tiles = -(-n // plan.rows), -(-v // plan.vocab_tile)
+        owned, walked = ((row_tiles, vocab_tiles) if owns_rows
+                         else (vocab_tiles, row_tiles))
+        assert plan.grid == (owned, plan.splits, plan.d_passes)
+        assert len(plan.walks) == plan.splits
+        visits = [(o, t) for o in range(owned) for first, end in plan.walks
+                  for t in range(first, end)]
+        assert sorted(visits) == [(o, t) for o in range(owned)
+                                  for t in range(walked)]
+        assert all(end > first for first, end in plan.walks)
+        sizes = [end - first for first, end in plan.walks]
+        assert max(sizes) - min(sizes) <= 1
+        # the kernels' own chunk bounds: s T / S .. (s + 1) T / S
+        assert plan.walks == tuple(
+            (s * walked // plan.splits, (s + 1) * walked // plan.splits)
+            for s in range(plan.splits))
+        assert plan.d_pass == 512 and plan.d_passes == -(-d // 512)
+        assert plan.d_pass * (plan.d_passes - 1) < d <= (
+            plan.d_pass * plan.d_passes)
+
+
+@pytest.mark.parametrize("n,d,v", WGMMA_SHAPES)
+def test_wgmma_plans_fit_the_card(n, d, v):
+    """The ring (dx: 4 stages of x's three 64 x 64 bf16 parts and W's 128
+    x 64; dW: 6 stages of x's 128 x 32 parts and W's 64 x 32, or one part
+    of 16 x 512) and dl's three bf16 parts, with 1024 bytes to put the
+    ring on a 1024-byte boundary and 128 for the stages' mbarriers, fit
+    the 227 KB a block may take, one block an SM; two warpgroups, 128 +
+    32 register sums a thread: 64 x 256 of dx or dW^T and 64 x 64 of the
+    logit tile; a third warpgroup issues the copies."""
+    dx, dw = _wgmma_plans(n, d, v)
+    assert dx.stage_bytes == 2 * (3 * 64 * 64 + 128 * 64) == 40960
+    assert dx.smem_bytes == 4 * 40960 + 2 * 3 * 64 * 128 + 1152 == 214144
+    assert dw.stage_bytes == 2 * (3 * 128 * 32 + 64 * 32) == 28672
+    assert 2 * 16 * 512 <= dw.stage_bytes
+    assert dw.smem_bytes == 6 * 28672 + 2 * 3 * 128 * 64 + 1152 == 222336
+    for plan in (dx, dw):
+        assert plan.stages >= 3
+        assert plan.smem_bytes <= H100_SMEM == 227 * 1024
+        assert plan.blocks_per_sm == 1
+        # two product warpgroups and the copying one
+        assert plan.threads == 3 * 128 and plan.thread_sums == 160
+        # each product warpgroup: 64 x 256 sums of its half of the pass
+        assert (plan.threads - 128) * (plan.thread_sums - 32) == (
+            64 * plan.d_pass)
+    # a dx product stage (W's 32 x 512) fits a stage
+    assert 2 * 32 * 512 <= dx.stage_bytes
+
+
+def test_wgmma_plans_fill_the_card_at_the_bench_shape():
+    """N 3072, D 512, V 30000: dx has 48 row tiles x 5 chunks of 47
+    vocabulary tiles, 240 blocks, two waves on the 132 SMs with 91% of
+    them busy (3 chunks would leave the second wave 55% busy); dW has
+    469 vocabulary blocks walking all 24 row tiles, 89% of four waves,
+    writing dW itself (no scratch, no fold)."""
+    dx, dw = _wgmma_plans(3072, 512, 30000)
+    assert dx.grid == (48, 5, 1)
+    assert {end - first for first, end in dx.walks} == {47}
+    assert dw.grid == (469, 1, 1) and dw.walks == ((0, 24),)
+    for plan in (dx, dw):
+        blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+        waves = -(-blocks // H100_SMS)
+        assert blocks >= H100_SMS
+        assert blocks / (waves * H100_SMS) >= fused_xent.WGMMA_FILL
+
+
+@pytest.mark.parametrize("sms,smem", [(0, H100_SMEM), (132, 160 * 1024)])
+def test_wgmma_plans_raise_where_nothing_fits(sms, smem):
+    with pytest.raises(ValueError, match="fused_xent_bwd_dx_bf16w"):
+        fused_xent.wgmma_dx_plan(3072, 512, 30000, sms, smem)
+    with pytest.raises(ValueError, match="fused_xent_bwd_dw_bf16w"):
+        fused_xent.wgmma_dw_plan(3072, 512, 30000, sms, smem)
+
+
+@pytest.mark.parametrize("d", [1, 8, 40, 129, 130, 512, 510, 600])
+@pytest.mark.parametrize("v", [1, 129, 520, 1000, 30000, 29999])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_wgmma_gate_sends_unaligned_strides_to_the_widening_instances(
+        d, v, transposed):
+    """The shape gate sends exactly the W layouts whose bf16 rows do not
+    start on 16-byte boundaries (a TMA descriptor's stride rule too): D
+    % 8 != 0 for the tied (V, D) table, V % 8 != 0 for an untied (D, V)
+    W, to PR 15's instances; x's parts are padded to 8 columns, so D
+    does not gate an untied W. float32 W never reaches either."""
+    import torch
+    stride = d if transposed else v
+    assert fused_xent.wgmma_takes(d, v, transposed) == (stride % 8 == 0)
+    w = torch.empty((v, d) if transposed else (d, v), dtype=torch.bfloat16)
+    for kernel in ("fused_xent_bwd_dx", "fused_xent_bwd_dw"):
+        want = kernel + ("_bf16w" if stride % 8 == 0 else "_bf16w_widened")
+        assert fused_xent._instance(kernel, w, transposed) == want
+        assert fused_xent._instance(kernel, w.float(), transposed) == kernel
+    assert fused_xent._instance("fused_xent_fwd", w, transposed) == (
+        "fused_xent_fwd_bf16w")
 
 
 # (batch, hidden, directions): the smoke's encoder, the card tests'
