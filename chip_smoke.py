@@ -37,8 +37,12 @@ Phases (any failure raises and the script exits non-zero):
    dims 192 and 256 (the flash kernels, which the JAX package pads to any
    head dim) and 320 and 512 (their chunked instances), the lineage
    attention at head dims 640 and 1024 (its chunked instance), K4 at beam
-   64 (k 64 over 15360 entries; k 65 through the plain top-k) and the
-   lineage layout's switch; none may raise, each chunked instance must
+   64 (k 64 over 15360 entries; k 65 through the plain top-k), the
+   lineage layout's switch, and the kept designs of the bf16 instances,
+   kept for the shapes their gates refuse: the bf16 lineage attention at
+   head dim 320 and at 90 lanes (its scratch design) and the bf16-W
+   cross-entropy at tied D 130 and untied V 1001 (its widened forward and
+   backward); none may raise, each chunked and kept instance must
    launch; each chunked instance is then timed beside its plain version,
    SDPA (the lineage attention's with its bias as the mask) and its bound
    (flash at B 8, H 4, 128 x 128, head dims 512 and 320; lineage at B 8,
@@ -216,7 +220,10 @@ Phases (any failure raises and the script exits non-zero):
    the largest value, and at most 1% of the rows more than 2^-16 of it
    apart, a rule that must reject the plain version with a rounding
    point left out) and the three fused cross-entropy kernels reading
-   a bf16 W (1e-5, 1e-4 as their float32 instances).
+   a bf16 W (1e-5, 1e-4 as their float32 instances), each timed beside
+   the kept design on the same operands (``pr15_design_ms``), the forward's
+   second call bitwise equal to its first; phase 24 must never launch
+   the kept designs.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -328,8 +335,17 @@ KERNELS = {
                                 "neuralmonkey_tpu/ops/fused_xent.py:290"),
     "fused_xent_bwd_dw_bf16w": ("neuralmonkey_tpu_torch/csrc/fused_xent.cu",
                                 "neuralmonkey_tpu/ops/fused_xent.py:316"),
-    # the bf16-W backward where W's bf16 rows are not 16-byte aligned (PR
-    # 15's design, W widened as it is staged; phase 3b's shapes)
+    # the earlier designs of the bf16 instances, kept for the shapes their
+    # gates refuse (phase 3b's): the lineage attention through a float32
+    # scores scratch (odd lane counts, head dims past 256), the
+    # cross-entropy where W's bf16 rows are not 16-byte aligned (W widened
+    # as it is staged)
+    "lineage_attention_bf16_scratch": (
+        "neuralmonkey_tpu_torch/csrc/lineage_attention.cu",
+        "neuralmonkey_tpu/ops/lineage_attention.py:71"),
+    "fused_xent_fwd_bf16w_widened": (
+        "neuralmonkey_tpu_torch/csrc/fused_xent.cu",
+        "neuralmonkey_tpu/ops/fused_xent.py:166"),
     "fused_xent_bwd_dx_bf16w_widened": (
         "neuralmonkey_tpu_torch/csrc/fused_xent.cu",
         "neuralmonkey_tpu/ops/fused_xent.py:290"),
@@ -383,8 +399,10 @@ BF16_LOSS_RTOL = 2.0 ** -8
 BF16_TRACKS_RTOL, BF16_SCORES_ATOL, BF16_SCORES_RTOL = 0.05, 0.05, 0.005
 BF16_KERNELS = ("lineage_attention_bf16", "fused_xent_fwd_bf16w",
                 "fused_xent_bwd_dx_bf16w", "fused_xent_bwd_dw_bf16w")
-WIDENED_KERNELS = ("fused_xent_bwd_dx_bf16w_widened",
+WIDENED_KERNELS = ("fused_xent_fwd_bf16w_widened",
+                   "fused_xent_bwd_dx_bf16w_widened",
                    "fused_xent_bwd_dw_bf16w_widened")
+LINEAGE_SCRATCH = "lineage_attention_bf16_scratch"
 
 
 def import_everything() -> None:
@@ -707,7 +725,8 @@ def check_kernels(device):
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         results[name]["backward_by_shape"] = by_shape
     check_lstm_kernels(device, randn, lengths_mask, record)
-    check_bf16_kernels(device, randn, record)
+    lineage_b1 = check_bf16_kernels(device, randn, record)
+    results["lineage_attention_bf16"].update(lineage_b1)
     torch.cuda.synchronize()
     return results
 
@@ -759,20 +778,27 @@ def check_bf16_kernels(device, randn, record):
     """The bf16 compute policy's kernel instances against their plain
     versions on the card: the lineage attention on bf16 caches at the
     Transformer's beam step (B 64, H 8, beam 10, 48 steps, head dim 64;
-    windows 12 and 48), at B 1 (the lane split) and at head dims 32, 512
-    and 640 (256 context columns a block), timed at the full window with
-    its plain version and SDPA over the same bf16 operands (the lineage
-    bias as its mask); the three fused cross-entropy kernels reading a
-    bf16 W at the Transformer's loss tail (the tied (V, D) table, label
-    smoothing 0.1, 3072 x 512 x 30000) and at a ragged shape, timed at
-    the first. The lineage tolerance (``lineage_bf16_apart``): a
-    normalised weight on a bf16 rounding tie may round either way (the
-    sums' order differs from cuBLAS's), moving the entries of its row by
-    one bf16 ulp of that weight times the value, at most 2^-8 max |v|;
-    such ties are rare, so at most 1% of the (b, h, slot) rows (and at
-    least 2) may hold an entry more than 2^-16 max |v| off. Every shape
-    also checks that the rule rejects the plain version with a rounding
-    point left out (``lineage_bf16_mutants``)."""
+    windows 12 and 48), at B 1 (the lane split: a cluster of 8) and at
+    head dims 32, 512 and 640, each launching the instance its shape gate
+    names (the one-pass kernel, or the scratch design past it: head
+    dims 512 and 640), timed at the full window with its plain version,
+    SDPA over the same bf16 operands (the lineage bias as its mask) and
+    the scratch design on the same operands (``pr15_design_ms``; also at
+    B 1);
+    the three fused cross-entropy kernels reading a bf16 W at the
+    Transformer's loss tail (the tied (V, D) table, label smoothing 0.1,
+    3072 x 512 x 30000), where all three run on warpgroup products, timed
+    beside the widened designs on the same operands, at D 510, which W's
+    rows send to the widened designs (timed), and at ragged shapes. The lineage
+    tolerance (``lineage_bf16_apart``): a normalised weight on a bf16
+    rounding tie may round either way (the sums' order differs from
+    cuBLAS's), moving the entries of its row by one bf16 ulp of that
+    weight times the value, at most 2^-8 max |v|; such ties are rare, so
+    at most 1% of the (b, h, slot) rows (and at least 2) may hold an
+    entry more than 2^-16 max |v| off. Every shape also checks that the
+    rule rejects the plain version with a rounding point left out
+    (``lineage_bf16_mutants``). Returns the lineage attention's times at
+    B 1, the one-pass kernel's and the scratch design's."""
     import torch
     import torch.nn.functional as F
 
@@ -781,6 +807,8 @@ def check_bf16_kernels(device, randn, record):
 
     gen = torch.Generator().manual_seed(SEED + 7)
     bf16 = torch.bfloat16
+    limits = kernel_config.device_limits(0)
+    b1 = {}  # the one-pass kernel and the scratch design at B 1
     for b, h, beam, t, d, windows in (
             (BATCH, T_HEADS, BEAM, TGT_LEN, T_HEAD_DIM, (12, TGT_LEN)),
             (1, T_HEADS, BEAM, TGT_LEN, T_HEAD_DIM, (TGT_LEN,)),
@@ -795,14 +823,24 @@ def check_bf16_kernels(device, randn, record):
                                 dtype=torch.int32).to(device)
             lanes = la.lane_window(win, beam, beam * t)
             bias = la.lineage_bias(anc, win - 1, win, beam, lanes, t)
+            plan = la.lineage_bf16_pass_plan(b, h, beam, d, beam * t, lanes,
+                                             *limits)
+            name = ("lineage_attention_bf16" if plan is not None
+                    else LINEAGE_SCRATCH)
+            kernel_config.reset_launch_counts()
             got = la.lineage_attention(q, kq, vq, bias)
+            counts = kernel_config.launch_counts()
+            if counts[name] != 1 or sum(counts.values()) != 1:
+                raise AssertionError(
+                    f"lineage bf16 {(b, h, beam, t, d, win)}: launched "
+                    f"{ {k: n for k, n in counts.items() if n} }, not {name}")
             ref = la.lineage_attention_reference(q, kq, vq, bias)
             vmax = float(vq[:, :, :lanes].float().abs().max())
             tol = 2.0 ** -8 * vmax
             rows_apart, allowed = lineage_bf16_apart(got, ref, vmax)
             if rows_apart > allowed:
                 raise AssertionError(
-                    f"lineage_attention_bf16 {(b, h, beam, t, d, win)}: "
+                    f"{name} {(b, h, beam, t, d, win)}: "
                     f"{rows_apart} rows more than 2^-16 max|v| apart, "
                     f"allowed {allowed}")
             mutants = {}
@@ -813,46 +851,66 @@ def check_bf16_kernels(device, randn, record):
                 mutants[mutant] = lineage_bf16_apart(out, ref, vmax)[0]
                 if mutants[mutant] <= allowed:
                     raise AssertionError(
-                        f"lineage_attention_bf16: the rule accepts the "
+                        f"{name}: the rule accepts the "
                         f"plain version with {mutant} ({mutants[mutant]} "
                         f"rows apart, allowed {allowed})")
-            log(f"lineage_attention_bf16 {(b, h, beam, t, d, win)}: "
+            log(f"{name} {(b, h, beam, t, d, win)}: "
                 f"{rows_apart} of {b * h * beam} rows apart (allowed "
                 f"{allowed}); mutants' rows apart {mutants}")
 
             def call():
                 return la.lineage_attention(q, kq, vq, bias)
-            timing = {}
-            if (b, d, win) == (BATCH, T_HEAD_DIM, TGT_LEN):
-                qb = q.to(bf16)
-                timing = timings(
-                    call,
-                    lambda: la.lineage_attention_reference(q, kq, vq, bias),
-                    lambda: F.scaled_dot_product_attention(
-                        qb, kq[..., :lanes].transpose(-1, -2),
-                        vq[:, :, :lanes], attn_mask=bias[:, None].to(bf16)))
-                timing.update(l2_flushed_ms=flushed_ms(call),
-                              mean_abs_err=float((got - ref).abs().mean()),
-                              tolerance=tol, rows_apart=rows_apart,
-                              rows_allowed=allowed,
-                              mutants_rows_apart=mutants, plan=la.lineage_bf16_plan(
-                                  b, h, beam, d, lanes, torch.cuda.
-                                  get_device_properties(device).
-                                  multi_processor_count)._asdict())
+
+            def scratch():
+                return la.launch_bf16(LINEAGE_SCRATCH, q, kq, vq, bias)
             # the bf16 caches' bytes (2 a value), q, the bias and the
             # float32 context; both products at the bf16 tensor-core peak
             work = (4 * b * h * beam * lanes * d,
                     2 * 2 * b * h * lanes * d + 4 * (
                         2 * b * h * beam * d + b * beam * lanes))
-            record("lineage_attention_bf16", max_err(got, ref), tol,
+            timing = {}
+            if b == 1:
+                b1 = {"b1_ms": time_ms(call), "b1_pr15_design_ms":
+                      time_ms(scratch), "b1_plan": plan and plan._asdict()}
+            if (b, d, win) == (BATCH, T_HEAD_DIM, TGT_LEN):
+                qb = q.to(bf16)
+                library = (lambda: F.scaled_dot_product_attention(
+                    qb, kq[..., :lanes].transpose(-1, -2), vq[:, :, :lanes],
+                    attn_mask=bias[:, None].to(bf16)))
+
+                def plain():
+                    return la.lineage_attention_reference(q, kq, vq, bias)
+                timing = timings(call, plain, library)
+                old = scratch()
+                old_apart = lineage_bf16_apart(old, ref, vmax)[0]
+                if old_apart > allowed:
+                    raise AssertionError(f"{LINEAGE_SCRATCH}: {old_apart} "
+                                         f"rows apart, allowed {allowed}")
+                scratch_timing = timings(scratch, plain, library)
+                timing.update(l2_flushed_ms=flushed_ms(call),
+                              mean_abs_err=float((got - ref).abs().mean()),
+                              tolerance=tol, rows_apart=rows_apart,
+                              rows_allowed=allowed,
+                              mutants_rows_apart=mutants,
+                              pr15_design_ms=scratch_timing["ms"],
+                              pr15_bound_ms=bound(*work, BF16_PEAK)[0],
+                              plan=plan._asdict())
+                # the scratch design on the same operands: its own row
+                record(LINEAGE_SCRATCH, max_err(old, ref), tol,
+                       (b, h, beam, t, d, f"window {win}"), work=work,
+                       peak=BF16_PEAK, rows_apart=old_apart,
+                       l2_flushed_ms=flushed_ms(scratch),
+                       plan=la.lineage_bf16_plan(
+                           b, h, beam, d, lanes, limits[0])._asdict(),
+                       **scratch_timing)
+            record(name, max_err(got, ref), tol,
                    (b, h, beam, t, d, f"window {win}"), work=work,
                    peak=BF16_PEAK, **timing)
 
     # the bf16-W cross-entropy: the timed shape (the tied table, as phase 24
-    # trains), where the backward runs on warpgroup products, timed beside
-    # PR 15's design on the same operands; D 510, which W's rows send to
-    # PR 15's instances (timed); and untimed ragged shapes of both
-    limits = kernel_config.device_limits(0)
+    # trains), where all three kernels run on warpgroup products, each timed
+    # beside the widened design on the same operands; D 510, which W's rows
+    # send to the widened instances (timed); and untimed ragged shapes of both
     for n, d, v, transposed, eps, timed in (
             (XENT_N, XENT_D, VOCAB, True, 0.1, True),
             (XENT_N, XENT_D - 2, VOCAB, True, 0.1, True),
@@ -875,19 +933,44 @@ def check_bf16_kernels(device, randn, record):
         nll, lse = fused_xent.xent_fwd(*fwd_args)
         ref_nll, _ = fused_xent.fwd_reference(x, wide, b, targets, eps,
                                               transposed)
-        # the forward is timed at D 512 only; every product with W takes
-        # two TF32 passes (a bf16 value has no low TF32 part)
-        fwd_timed = timed and d == XENT_D
+        fwd_err = max_err(nll, ref_nll) / max(1.0,
+                                              float(ref_nll.abs().max()))
         timing = (kernel_times(lambda: fused_xent.xent_fwd(*fwd_args),
                                lambda: fused_xent.fwd_reference(
                                    x, wide, b, targets, eps, transposed))
-                  if fwd_timed else {})
-        extra = {"bound_peak": "2 TF32 passes on the tensor cores, 495 "
-                 "TFLOP/s dense"} if fwd_timed else {}
-        record("fused_xent_fwd_bf16w", max_err(nll, ref_nll) / max(
-            1.0, float(ref_nll.abs().max())), 1e-5, case,
-            work=(2 * 2 * n * d * v, read + 8 * n), peak=TF32_PEAK,
-            **timing, **extra)
+                  if timed else {})
+        fwd_tf32 = (2 * 2 * n * d * v, read + 8 * n)
+        if wgmma:
+            # x·W in three bf16 passes on wgmma, at the bf16 peak
+            fwd_work, fwd_peak, extra = (
+                (2 * 3 * n * d * v, read + 8 * n), BF16_PEAK, {})
+            if timed:
+                again = fused_xent.xent_fwd(*fwd_args)
+                equal = all(torch.equal(a, c) for a, c in zip((nll, lse),
+                                                               again))
+                if not equal:
+                    raise AssertionError("bf16-W forward: a second call "
+                                         "differs from the first")
+                extra = {
+                    "bound_peak": "3 bf16 passes for x·W on wgmma, 989 "
+                    "TFLOP/s dense",
+                    "pr15_bound_ms": bound(*fwd_tf32, TF32_PEAK)[0],
+                    "pr15_design_ms": time_ms(
+                        lambda: fused_xent.launch_fwd(WIDENED_KERNELS[0],
+                                                      *fwd_args)),
+                    "rerun_bitwise_equal": equal,
+                    **{f"plan_{k}": val for k, val in fused_xent.
+                       wgmma_fwd_plan(n, d, v, *limits)._asdict().items()
+                       if k != "walks"}}
+        else:
+            # the widened design: every product with W takes two TF32 passes
+            # (a bf16 value has no low TF32 part)
+            fwd_work, fwd_peak = fwd_tf32, TF32_PEAK
+            extra = {"bound_peak": "2 TF32 passes on the tensor cores, 495 "
+                     "TFLOP/s dense"} if timed else {}
+        record("fused_xent_fwd_bf16w" if wgmma else WIDENED_KERNELS[0],
+               fwd_err, 1e-5, case, work=fwd_work, peak=fwd_peak, **timing,
+               **extra)
         bwd_args = (x, w, b, targets, lse, g, eps, transposed)
         plain_args = (x, wide, b, targets, lse, g, eps, transposed)
         dx_bytes = read + 8 * n + 4 * n * d
@@ -903,7 +986,7 @@ def check_bf16_kernels(device, randn, record):
         if not wgmma:
             # PR 15's design: two TF32 passes for a product with W, three
             # for x^T dl
-            names = WIDENED_KERNELS
+            names = WIDENED_KERNELS[1:]
             dx_work, dw_work, peak = (2 * 4 * n * d * v, dx_bytes), (
                 2 * 5 * n * d * v, dw_bytes), TF32_PEAK
             dx_extra = dw_extra = {}
@@ -937,7 +1020,7 @@ def check_bf16_kernels(device, randn, record):
                                            TF32_PEAK)[0],
                     "pr15_design_ms": time_ms(
                         lambda: fused_xent.launch_bwd_dx(
-                            WIDENED_KERNELS[0], *bwd_args)),
+                            WIDENED_KERNELS[1], *bwd_args)),
                     "rerun_bitwise_equal": equal,
                     **{f"plan_{k}": val for k, val in plans["dx"].items()
                        if k != "walks"}}
@@ -948,7 +1031,7 @@ def check_bf16_kernels(device, randn, record):
                                            TF32_PEAK)[0],
                     "pr15_design_ms": time_ms(
                         lambda: fused_xent.launch_bwd_dw(
-                            WIDENED_KERNELS[1], *bwd_args)),
+                            WIDENED_KERNELS[2], *bwd_args)),
                     "rerun_bitwise_equal": equal,
                     **{f"plan_{k}": val for k, val in plans["dw"].items()
                        if k != "walks"}}
@@ -963,6 +1046,7 @@ def check_bf16_kernels(device, randn, record):
                                    *plain_args)) if timed else {})
         record(names[1], dw_err, 1e-4, case, work=dw_work, peak=peak,
                **timing, **dw_extra)
+    return b1
 
 
 def check_train_kernels(device, randn, lengths_mask, record):
@@ -1291,8 +1375,10 @@ def check_past_limits(device):
     gradient to 1e-3 of its largest entry), the attention to 1e-4, the
     top-k bit for bit; the fused cross-entropy on a bf16 W whose rows are
     not 16-byte aligned (PR 15's instances) to 1e-5 (loss), 1e-4 (dx, db)
-    and one bf16 ulp of dW's largest entry. Returns the report (with the
-    launches of PR 15's instances) and the chunked instances' records
+    and one bf16 ulp of dW's largest entry, the bf16 lineage attention
+    past its one-pass gate (the scratch design) by the kernel phase's
+    row rule. Returns the report (with the launches of the kept designs)
+    and the chunked instances' records
     (:func:`chunked_kernel_records`), with their launches on this path."""
     import torch
 
@@ -1429,6 +1515,41 @@ def check_past_limits(device):
         if not err <= 1e-4:
             raise AssertionError(f"{name}: error {err}")
 
+    # the bf16 lineage instance past its one-pass gate: head dim 320 (past
+    # the tiles' 256) and an odd lane count (beam 10 over 9 positions with
+    # a cache of 9 positions: 90 lanes, not a TMA stride) take the scratch
+    # design, against the CPU by the kernel phase's row rule;
+    # their launches are this path's
+    scratch_launches = 0
+    for b, d, t in ((2, 320, TGT_LEN), (4, T_HEAD_DIM, 9)):
+        q = torch.randn(b, 2, BEAM, d, generator=gen)
+        kq = torch.randn(b, 2, d, BEAM * t, generator=gen).to(torch.bfloat16)
+        vq = torch.randn(b, 2, BEAM * t, d, generator=gen).to(torch.bfloat16)
+        anc = torch.randint(0, BEAM, (b, BEAM, t), generator=gen,
+                            dtype=torch.int32)
+        bias = lineage_attention.lineage_bias(anc, t - 1, t, BEAM, BEAM * t,
+                                              t)
+        kernel_config.reset_launch_counts()
+        got = lineage_attention.lineage_attention(
+            *(x.to(device) for x in (q, kq, vq, bias)))
+        torch.cuda.synchronize()
+        counts = kernel_config.launch_counts()
+        launched = sorted(k for k, c in counts.items() if c)
+        if launched != [LINEAGE_SCRATCH]:
+            raise AssertionError(f"lineage bf16 head dim {d}, {BEAM * t} "
+                                 f"lanes: launched {launched}")
+        scratch_launches += counts[LINEAGE_SCRATCH]
+        ref = lineage_attention.lineage_attention(q, kq, vq, bias)
+        vmax = float(vq.float().abs().max())
+        apart, allowed = lineage_bf16_apart(got.cpu(), ref, vmax)
+        name = f"lineage bf16 head dim {d}, {BEAM * t} lanes"
+        report[name] = {"rows_apart": apart, "rows_allowed": allowed,
+                        "launched": launched}
+        if apart > allowed:
+            raise AssertionError(f"{name}: {apart} rows apart, allowed "
+                                 f"{allowed}")
+    report["scratch launches"] = scratch_launches
+
     # K4 at beam 64 (the first stage's 64 x 240 groups) and k 65
     for k in (64, 65):
         scores = torch.round(torch.randn(BATCH, 64 * 240, generator=gen)
@@ -1444,7 +1565,8 @@ def check_past_limits(device):
             "launches": kernel_config.launch_counts()["small_topk"]}
 
     # the fused cross-entropy on a bf16 W whose rows are not 16-byte
-    # aligned (tied D 130, untied V 1001): PR 15's instances, through the
+    # aligned (tied D 130, untied V 1001): the widened instances (forward
+    # and backward), through the
     # autograd Function forward and backward, against the CPU (dW is
     # rounded to bf16 on both, so it may differ by one bf16 ulp of its
     # largest entry); their launches are this path's
@@ -1471,7 +1593,7 @@ def check_past_limits(device):
         torch.cuda.synchronize()
         counts = kernel_config.launch_counts()
         launched = sorted(k for k, c in counts.items() if c)
-        if launched != sorted(("fused_xent_fwd_bf16w",) + WIDENED_KERNELS):
+        if launched != sorted(WIDENED_KERNELS):
             raise AssertionError(f"bf16 W {(d, v, transposed)}: launched "
                                  f"{launched}")
         for k in WIDENED_KERNELS:
@@ -4613,6 +4735,9 @@ def check_bf16_policy(tmp: str, rnn, transformer):
             if run_launches["lineage_attention"]:
                 raise AssertionError("the float32 lineage attention ran on "
                                      "bf16 caches")
+            if run_launches[LINEAGE_SCRATCH]:
+                raise AssertionError("the beam step's bf16 caches took the "
+                                     "scratch lineage design")
             launches = add_launches(launches, run_launches)
             t_report["speed"].update(serving_speed(
                 t_exp, t_ckpt, t_data_ini, t_exp.model.runners[1:],
@@ -4630,6 +4755,9 @@ def check_bf16_policy(tmp: str, rnn, transformer):
         if any(train_launches[k] for k in XENT_KERNELS):
             raise AssertionError("the float32 cross-entropy kernels ran on "
                                  "the bf16 table")
+        if any(train_launches[k] for k in WIDENED_KERNELS):
+            raise AssertionError("the bf16 table took the widened "
+                                 "cross-entropy designs")
         launches = add_launches(launches, train_launches)
         t_report["step_loss"] = bf16_step_losses(
             t_train_ini, t_trained, ("encoder", "decoder"), True)
@@ -4810,6 +4938,7 @@ def main() -> int:
             launches[name] += chunked[name].pop("launches")
         for name in WIDENED_KERNELS:
             launches[name] += past_limits["widened launches"][name]
+        launches[LINEAGE_SCRATCH] += past_limits["scratch launches"]
 
     print(json.dumps({"plans": plans}))
     print(smi)

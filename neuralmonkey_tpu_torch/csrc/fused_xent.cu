@@ -64,12 +64,28 @@
 // the bf16 use-site table beside float32 states and runs its float32
 // kernels) compute the same function with W read as bf16, half its bytes.
 // x, dx, dW (rounded to bf16 by the wrapper) and db stay float32.
-//   - nm_xent_fwd_bf16w, and the backward's PR 15 instances
-//     (nm_xent_bwd_{dx,dw}_bf16w_widened, kept for a W whose bf16 rows do not
+//   - the widened instances (nm_xent_fwd_bf16w_widened and
+//     nm_xent_bwd_{dx,dw}_bf16w_widened, kept for a W whose bf16 rows do not
 //     start on 16-byte boundaries: D % 8 != 0 tied, V % 8 != 0 untied; the
 //     wrapper's shape gate, ops/fused_xent.py `wgmma_takes`): the float32
 //     designs above with each W tile widened as it is staged
 //     (tc::load_widen, plain loads) and two TF32 passes for a product with W.
+//   - nm_xent_fwd_bf16w: the logit tiles of the backward below, with the
+//     forward's partials in their epilogue. A block owns 128 rows (a
+//     product warpgroup 64, as 64 x 256 float32 sums) and walks a chunk of
+//     256-column vocabulary tiles, each tile over D in 32-deep stages of x's
+//     three parts (128 x 32) and W (256 x 32) through a 5-stage TMA ring;
+//     x W in three bf16 passes. With no dl W^T stage, a block has the
+//     registers for 128 rows and 256 columns, so each W tile is read by 24
+//     row blocks at the smoke's N, and each stage's 40 KB feed 6.3 MFLOP,
+//     twice what a stage of the dx kernel's 64 x 128 logit tile feeds: half
+//     the L2 traffic a flop. Each thread keeps the running max,
+//     rescaled sum, label logit and logit sum of its two rows over its
+//     columns; the four lanes of a row meet once, at the end, and write one
+//     partial per (row, chunk), folded by xent_fold_kernel. The chunks: the
+//     plan (ops/fused_xent.py `wgmma_fwd_plan`) takes the fewest that give
+//     the shortest walk in waves of one block an SM; no atomics, so the
+//     forward does not change from run to run.
 //   - nm_xent_bwd_dx_bf16w and nm_xent_bwd_dw_bf16w: products on Hopper's
 //     warpgroup instructions (wgmma_xent.cuh). W reaches shared memory as
 //     bf16, as it lies, by TMA copies into a ring of stages (4 for dx, 6 for
@@ -103,6 +119,7 @@
 #include <algorithm>
 
 #include "tc_product.cuh"
+#include "tma.cuh"
 #include "wgmma_xent.cuh"
 
 namespace {
@@ -664,6 +681,15 @@ constexpr int kDwStages = 6;
 constexpr int kDwStage = 3 * kDwRows * kDwKC + kDwVTile * kDwKC;
 constexpr int kDwDl = kDwRows * kDwVTile;
 constexpr size_t kDwSmem = sizeof(bf16) * (kDwStages * kDwStage + 3 * kDwDl) + 1024 + 128;
+// the forward: a block's rows (64 a product warpgroup), a vocabulary tile's
+// columns, a stage's depth, and the ring's stages (x's three 128 x 32 parts
+// and W's 256 x 32 tile)
+constexpr int kFwRows = 128;
+constexpr int kFwVTile = 256;
+constexpr int kFwKC = 32;
+constexpr int kFwStages = 5;
+constexpr int kFwStage = 3 * kFwRows * kFwKC + kFwVTile * kFwKC;
+constexpr size_t kFwSmem = sizeof(bf16) * kFwStages * kFwStage + 1024 + 128;
 static_assert(kDxVC * kDPass <= kDxStage, "a dx product stage fits a stage");
 static_assert(16 * kDPass <= kDwStage, "a dW product stage fits a stage");
 
@@ -1080,6 +1106,173 @@ xent_bwd_dw_wg_kernel(const __grid_constant__ CUtensorMap xmap_l,
   }
 }
 
+// grid (row tiles of 128, S): block (r, s) walks vocabulary tiles [s T / S,
+// (s + 1) T / S) of 256 columns and writes its rows' partials over them
+// (the max, the sum of exp(t - max), the label logit and the logit sum of
+// the columns below V) to column s of the (N, S) partials, which
+// xent_fold_kernel folds. Warpgroup `half` owns rows 64 half .. of the
+// block and every column of a tile: 64 x 256 float32 sums, the tile's
+// logits over D in 32-deep stages (x's three parts against W), then the
+// epilogue folds them into each thread's running partials of its two rows
+// over its 64 columns of each tile; the four lanes that share a row meet
+// once, at the end.
+template <bool kWT>
+__global__ void __launch_bounds__(kBlock, 1)
+xent_fwd_wg_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap, const float* __restrict__ bias,
+                   const int* __restrict__ targets, float* __restrict__ pmax,
+                   float* __restrict__ psum, float* __restrict__ plab,
+                   float* __restrict__ plsum, int N, int Dp, int V, int splits) {
+  bf16* ring = aligned_ring();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kFwStages * kFwStage);
+  uint64_t* empty = full + kFwStages;
+  const int half = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * kFwRows;
+  const int tiles = (V + kFwVTile - 1) / kFwVTile;
+  const int t0 = static_cast<int>(static_cast<long long>(blockIdx.y) * tiles / splits);
+  const int t1 = static_cast<int>(static_cast<long long>(blockIdx.y + 1) * tiles / splits);
+  const int kch = (Dp + kFwKC - 1) / kFwKC;  // stages of a tile
+  const int count = (t1 - t0) * kch;
+
+  // stage q of the walk into ring slot `slot`: x's three parts [n][d] in one
+  // box (64-byte rows) and W's 256 x 32: tied [v][d] (64-byte rows), untied
+  // [d][v] (four 64-column blocks)
+  auto load = [&](int slot, int q) {
+    bf16* st = ring + slot * kFwStage;
+    uint64_t* bar = &full[slot];
+    const int k0 = q % kch * kFwKC, v0 = (t0 + q / kch) * kFwVTile;
+    bf16* wt = st + 3 * kFwRows * kFwKC;
+    wg::bar_expect(bar, kFwStage * sizeof(bf16));
+    wg::tma3d(st, xmap, k0, m0, 0, bar);
+    if (kWT) {
+      wg::tma2d(wt, wmap, k0, v0, bar);
+    } else {
+      for (int c = 0; c < kFwVTile; c += 64) wg::tma2d(wt + c * kFwKC, wmap, v0 + c, k0, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < kFwStages; ++slot) {
+      wg::bar_init(&full[slot], 1);
+      wg::bar_init(&empty[slot], kThreads / 32);
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kThreads) {
+    // the copying warpgroup: one thread keeps the ring full, refilling a
+    // slot once the product warps have released it
+    wg::registers_down<40>();
+    if (threadIdx.x == kThreads)
+      for (int q = 0; q < count; ++q) {
+        if (q >= kFwStages) wg::bar_wait(&empty[q % kFwStages], (q / kFwStages - 1) & 1);
+        load(q % kFwStages, q);
+      }
+    return;
+  }
+  wg::registers_up<232>();
+
+  // this thread's rows 64 half + r_lo (+ 8) and columns 8 j + col (+ 1) of
+  // each tile, and its running partials of the two rows over its columns
+  const int r_lo = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  int row_y[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = m0 + 64 * half + r_lo + 8 * h;
+    row_y[h] = n < N ? targets[n] : -1;
+  }
+  float run_max[2] = {-INFINITY, -INFINITY}, run_sum[2] = {0.f, 0.f};
+  float run_lab[2] = {0.f, 0.f}, run_ls[2] = {0.f, 0.f};
+  float acc[128];
+
+  for (int q = 0; q < count; ++q) {
+    wg::bar_wait(&full[q % kFwStages], q / kFwStages & 1);  // stage q is in
+    const bf16* st = ring + (q % kFwStages) * kFwStage;
+    const bf16* wt = st + 3 * kFwRows * kFwKC;
+    const int i = q % kch;
+    // t += x W over 32 depths: x's smallest part first; a tile's first
+    // product starts the sums
+    wg::fence_operand(acc);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kFwKC; kk += 16) {
+      const uint64_t b = kWT ? wg::kslice<64>(wt, kFwVTile, 0, kk)
+                             : wg::mnslice<128>(wt, kFwKC, 0, kk);
+#pragma unroll
+      for (int p = 2; p >= 0; --p)
+        wg::mma256<0, kWT ? 0 : 1>(
+            acc, wg::kslice<64>(st + p * kFwRows * kFwKC, kFwRows, 64 * half, kk), b,
+            i != 0 || kk != 0 || p != 2);
+    }
+    wg::fence_operand(acc);
+    wg::commit();
+    wg::wait<1>();
+    // this warp's products of stage q - 1 are done: release its slot
+    if (q > 0 && lane == 0) wg::bar_arrive(&empty[(q - 1) % kFwStages]);
+    if (i == kch - 1) {
+      // the logit tile is complete: fold it into the running partials
+      wg::wait<0>();
+      wg::fence_operand(acc);
+      const int v0 = (t0 + q / kch) * kFwVTile;
+      float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int v = v0 + 8 * j + col + e;
+          const bool ok = v < V;
+          const float bv = ok ? __ldg(bias + v) : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& t = acc[4 * j + 2 * h + e];
+            t = ok ? t + bv : -INFINITY;
+            tile_max[h] = fmaxf(tile_max[h], t);
+            if (ok) {
+              run_ls[h] += t;
+              if (v == row_y[h]) run_lab[h] = t;
+            }
+          }
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(run_max[h], tile_max[h]);
+        // none of this thread's columns so far lies below V: nothing to add
+        if (m_new == -INFINITY) continue;
+        float sum = run_sum[h] * expf(run_max[h] - m_new);
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) sum += expf(acc[4 * j + 2 * h + e] - m_new);
+        run_sum[h] = sum;
+        run_max[h] = m_new;
+      }
+    }
+  }
+  // the four lanes of a row: the row's max, their sums rescaled to it, the
+  // label and logit sums, in one fixed order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = run_max[h];
+    mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, 2));
+    float s = run_max[h] == -INFINITY ? 0.f : run_sum[h] * expf(run_max[h] - mx);
+    float lab = run_lab[h], ls = run_ls[h];
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      s += __shfl_xor_sync(nm::kFullMask, s, off);
+      lab += __shfl_xor_sync(nm::kFullMask, lab, off);
+      ls += __shfl_xor_sync(nm::kFullMask, ls, off);
+    }
+    const int n = m0 + 64 * half + r_lo + 8 * h;
+    if (lane % 4 == 0 && n < N) {
+      const size_t at = static_cast<size_t>(n) * splits + blockIdx.y;
+      pmax[at] = mx;
+      psum[at] = s;
+      plab[at] = lab;
+      plsum[at] = ls;
+    }
+  }
+}
+
 int split_x(const void* x, void* xs, int N, int D, int Dp, cudaStream_t s) {
   constexpr int kSplitThreads = 256;
   const size_t pairs = static_cast<size_t>(N) * Dp / 2;
@@ -1090,50 +1283,13 @@ int split_x(const void* x, void* xs, int N, int D, int Dp, cudaStream_t s) {
   return nm::launch_status();
 }
 
-// The driver's tensor-map encoder, reached through the runtime (no link to
-// the driver library); null where the driver has none
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-                       cudaSuccess &&
-                   found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A tensor map of the bf16 matrix `base`: `rank` dimensions (innermost
-// first), byte strides of the outer ones, a box (innermost first) with the
-// swizzle of its inner extent (32, 64 or 128 bytes); reads past the matrix
-// fill zeros
-int tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const CUtensorMapSwizzle swizzle = box[0] == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : box[0] == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 // x's three parts (3, N, Dp) with a box of `cols` x `rows` x `planes`
 int parts_map(CUtensorMap* map, const void* xs, int N, int Dp, unsigned cols, unsigned rows,
               unsigned planes) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(N), 3};
   const cuuint64_t strides[2] = {2ull * Dp, 2ull * Dp * N};
   const cuuint32_t box[3] = {cols, rows, planes};
-  return tensor_map(map, xs, 3, dims, strides, box);
+  return nm::tma::tensor_map(map, xs, 3, dims, strides, box);
 }
 
 // W, (V, D) tied or (D, V), with a box of `cols` x `rows`
@@ -1143,7 +1299,7 @@ int w_map(CUtensorMap* map, const void* w, int D, int V, int transposed, unsigne
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
   const cuuint64_t strides[1] = {2ull * inner};
   const cuuint32_t box[2] = {cols, rows};
-  return tensor_map(map, w, 2, dims, strides, box);
+  return nm::tma::tensor_map(map, w, 2, dims, strides, box);
 }
 
 // what the wgmma kernels take: W's bf16 rows 16-byte aligned (D % 8 == 0
@@ -1157,6 +1313,43 @@ bool bad_wg(const void* w, const void* xs, int N, int D, int V, int transposed, 
          passes > 65535 || (transposed ? D % 8 : V % 8) != 0 || xs == nullptr ||
          ((reinterpret_cast<size_t>(w) | reinterpret_cast<size_t>(xs)) & 15) != 0 ||
          (splits > 1 && scratch == nullptr);
+}
+
+int xent_fwd_wg(const void* x, const void* w, const void* bias, const void* targets, void* pmax,
+                void* psum, void* plab, void* plsum, void* lse, void* nll, void* xs, int N, int D,
+                int V, int transposed, int splits, float eps, cudaStream_t s) {
+  if (bad_wg(w, xs, N, D, V, transposed, (V + kFwVTile - 1) / kFwVTile, splits, pmax) ||
+      psum == nullptr || plab == nullptr || plsum == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Dp = (D + 7) / 8 * 8;
+  int status = split_x(x, xs, N, D, Dp, s);
+  if (status != 0) return status;
+  // x's parts 128 rows x 32 deep, all three at once; W 256 x 32 (tied
+  // [v][d]) or 64 x 32 ([d][v], four boxes a stage)
+  CUtensorMap xmap, wmap;
+  status = parts_map(&xmap, xs, N, Dp, kFwKC, kFwRows, 3);
+  if (status == 0)
+    status = transposed ? w_map(&wmap, w, D, V, 1, kFwKC, kFwVTile)
+                        : w_map(&wmap, w, D, V, 0, 64, kFwKC);
+  if (status != 0) return status;
+  auto kernel = transposed ? xent_fwd_wg_kernel<true> : xent_fwd_wg_kernel<false>;
+  status = static_cast<int>(cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kFwSmem)));
+  if (status != 0) return status;
+  const dim3 grid((N + kFwRows - 1) / kFwRows, splits);
+  kernel<<<grid, kBlock, kFwSmem, s>>>(
+      xmap, wmap, static_cast<const float*>(bias), static_cast<const int*>(targets),
+      static_cast<float*>(pmax), static_cast<float*>(psum), static_cast<float*>(plab),
+      static_cast<float*>(plsum), N, Dp, V, splits);
+  status = nm::launch_status();
+  if (status != 0) return status;
+  constexpr int kRowsPerBlock = 8;
+  xent_fold_kernel<<<(N + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, s>>>(
+      static_cast<const float*>(pmax), static_cast<const float*>(psum),
+      static_cast<const float*>(plab), static_cast<const float*>(plsum),
+      static_cast<float*>(lse), static_cast<float*>(nll), N, splits, V, eps);
+  return nm::launch_status();
 }
 
 int xent_bwd_dx_wg(const void* x, const void* w, const void* bias, const void* targets,
@@ -1240,9 +1433,9 @@ int xent_bwd_dw_wg(const void* x, const void* w, const void* bias, const void* t
 }  // namespace
 
 // The C entry points: W float32, and W bf16 (the _bf16w instances: the
-// forward and the _widened backward with the float32 ones' arguments, the
-// wgmma backward with x's parts' scratch and no tiles_per_chunk); dW is
-// float32 in all (the wrapper rounds it to bf16).
+// _widened ones with the float32 ones' arguments, the wgmma ones with x's
+// parts' scratch, the chunks S and no tiles_per_chunk); dW is float32 in all
+// (the wrapper rounds it to bf16).
 NM_EXPORT int nm_xent_fwd(const void* x, const void* w, const void* bias, const void* targets,
                           void* pmax, void* psum, void* plab, void* plsum, void* lse, void* nll,
                           int N, int D, int V, int transposed, float eps, void* stream) {
@@ -1252,8 +1445,17 @@ NM_EXPORT int nm_xent_fwd(const void* x, const void* w, const void* bias, const 
 
 NM_EXPORT int nm_xent_fwd_bf16w(const void* x, const void* w, const void* bias,
                                 const void* targets, void* pmax, void* psum, void* plab,
-                                void* plsum, void* lse, void* nll, int N, int D, int V,
-                                int transposed, float eps, void* stream) {
+                                void* plsum, void* lse, void* nll, void* xs, int N, int D,
+                                int V, int transposed, int splits, float eps, void* stream) {
+  return wgk::xent_fwd_wg(x, w, bias, targets, pmax, psum, plab, plsum, lse, nll, xs, N, D, V,
+                          transposed, splits, eps, static_cast<cudaStream_t>(stream));
+}
+
+NM_EXPORT int nm_xent_fwd_bf16w_widened(const void* x, const void* w, const void* bias,
+                                        const void* targets, void* pmax, void* psum,
+                                        void* plab, void* plsum, void* lse, void* nll, int N,
+                                        int D, int V, int transposed, float eps,
+                                        void* stream) {
   return xent_fwd<__nv_bfloat16>(x, w, bias, targets, pmax, psum, plab, plsum, lse, nll, N, D,
                                  V, transposed, eps, static_cast<cudaStream_t>(stream));
 }

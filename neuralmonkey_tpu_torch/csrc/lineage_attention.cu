@@ -71,21 +71,49 @@
 // context product; a float32 context. Both products run on mma.sync
 // m16n8k16 in bf16 with float32 sums, one pass each (a product of two bf16
 // values is exact in float32). Normalising before rounding needs each row's
-// max and sum before any weight, so it is two kernels and not the online
-// softmax above: lineage_bf16_scores_kernel writes the biased scores of
-// every (row, lane) to a float32 scratch; lineage_bf16_context_kernel reads a
-// row's scores twice for its max and sum, then streams V's lane tiles,
-// rounds each weight exp(s - max) / sum to bf16 and adds V^T w^T on the
-// tensor cores. Any head dim: the scores sum over the head dim in 256-wide
-// chunks, the context takes 256 columns a block.
+// max and sum before any weight, so no online softmax. What bounds it: the
+// bf16 caches' bytes (63 MB at B 64, H 8, 480 lanes, D 64), read once.
+//   - lineage_bf16_pass_kernel: a block owns one (b, h) and 16 slot rows
+//     (the beam; a beam past 16 takes several groups) and, at the lane split,
+//     a chunk of the window as one rank of a thread-block cluster (when B * H
+//     blocks do not fill the card, or one block's shared memory cannot hold
+//     the window's scores). Thread 0 streams the chunk's K tiles, then its V
+//     tiles, by TMA into a ring of 2-4 stages (64 lanes a tile, copied as
+//     they lie with the 128-byte swizzle: K as its D rows of 64 lanes, V as
+//     64 rows in column blocks of 64; lanes past the window and rows past D
+//     zero-filled), each stage's "full" mbarrier telling the warps it has
+//     landed and its "empty" one telling thread 0 the warps are done with it.
+//     The scores (16 slots x the chunk, float32) stay in shared memory: q K
+//     with q as A and the K tile read transposed by ldmatrix.trans as B;
+//     then each row's max and sum over the whole window (the cluster's
+//     blocks exchange their rows' partial maxima, then sums, through
+//     distributed shared memory, each adding them in rank order), the
+//     normalised weights rounded to bf16 over the scores; then the context w
+//     V, the V tile read transposed as B. At the lane split each block's
+//     partial context goes to its ring and each block sums a share of the
+//     entries over the cluster's partials in rank order: no scratch, no
+//     second kernel, no atomics. The shape gate (ops/lineage_attention.
+//     lineage_bf16_pass_plan): L and D multiples of 8 and 16-byte aligned
+//     caches (TMA's row strides), D up to 256, the chunk's scores within a
+//     block's shared memory at clusters of up to 8.
+//   - the shapes past it take the scratch design (nm_lineage_attention_
+//     bf16_scratch, counted as lineage_attention_bf16_scratch), any head dim:
+//     lineage_bf16_scores_kernel writes the biased scores of every (row,
+//     lane) to a float32 scratch; lineage_bf16_context_kernel reads a row's
+//     scores twice for its max and sum, then streams V's lane tiles, rounds
+//     each weight exp(s - max) / sum to bf16 and adds V^T w^T on the tensor
+//     cores, 256 columns a block; a fold adds the lane split's partials.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 #include <algorithm>
 
 #include "tc_product.cuh"
+#include "tma.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 namespace tc = nm::tc;
 
 struct Args {
@@ -834,6 +862,365 @@ inline size_t b16_scores_smem(int D) {
   return sizeof(__nv_bfloat16) * 2 * kB16ScoreLanes * b16_scores_ld(D);
 }
 
+// ------------------------------------------------------------------------ //
+// the bf16 instance in one pass over the caches
+// ------------------------------------------------------------------------ //
+constexpr int kPassThreads = 256;  // 8 warps
+constexpr int kPassSlots = 16;     // slot rows a block: one m16 tile
+constexpr int kPassLanes = 64;     // lanes a tile: 128-byte rows of K
+constexpr int kPassMaxStages = 4;
+constexpr int kPassMaxCluster = 8;
+
+// A block's shared bytes (ops/lineage_attention.bf16_pass_smem_bytes): 1024
+// to put the ring on a 1024-byte boundary (TMA's 128-byte swizzle), the
+// ring of `stages` tiles of 64 x DMAX bf16 (K's DMAX rows of 64 lanes, or
+// V's 64 lanes in column blocks of 64), q [16][DMAX + 8] bf16, the scores
+// [rows][chunk + 4] float of the block's slot rows (rows = min(16, K): first
+// the bias, then the biased scores, then exp(s - max), then each row's bf16
+// weights in its first half), the 8 warps' row maxima, each row's partial
+// max and sum, and a full and an empty mbarrier a stage
+inline size_t pass_smem_bytes(int dmax, int chunk, int stages, int rows) {
+  return 1024 + sizeof(__nv_bfloat16) * (static_cast<size_t>(stages) * kPassLanes * dmax +
+                                         kPassSlots * (dmax + 8)) +
+         sizeof(float) * (static_cast<size_t>(rows) * (chunk + 4) + 10 * kPassSlots) +
+         2 * sizeof(uint64_t) * stages;
+}
+
+struct PassArgs {
+  const float* q;
+  const float* bias;
+  float* out;
+  int H, K, D, W, chunk, stages;
+  float scale;
+};
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(nm::tma::smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_trans(unsigned& r0, unsigned& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(nm::tma::smem_addr(p))
+               : "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r of a tile of 128-byte rows, as
+// TMA's 128-byte swizzle lays it out
+__device__ __forceinline__ int swz128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// grid (B * H * C, slot groups) in clusters of C: cluster (b, h) of group
+// blockIdx.y, rank r owning lanes r * chunk .. of the window; 8 warps, so
+// that each warp's share of a block's phases (two slot rows of the softmax)
+// is short
+template <int DMAX>
+__global__ void __launch_bounds__(kPassThreads)
+    lineage_bf16_pass_kernel(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, const PassArgs a) {
+  constexpr int kStage = kPassLanes * DMAX;  // bf16 values a tile
+  constexpr int kLdQ = DMAX + 8;
+  constexpr int kWarps = kPassThreads / 32;
+  constexpr int kWarpCols = DMAX / kWarps;  // context columns a warp
+  constexpr int kWarpLanes = kPassLanes / kWarps;  // score lanes a warp a tile
+  extern __shared__ __align__(16) unsigned char smem_pass[];
+  unsigned char* base =
+      smem_pass + ((1024 - (nm::tma::smem_addr(smem_pass) & 1023)) & 1023);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(base);
+  __nv_bfloat16* sq = ring + a.stages * kStage;
+  const int ld = a.chunk + 4;
+  float* ss = reinterpret_cast<float*>(sq + kPassSlots * kLdQ);
+  float* wmax = ss + min(kPassSlots, a.K) * ld;  // [warp][row]
+  float* pmax = wmax + kWarps * kPassSlots;
+  float* psum = pmax + kPassSlots;
+  uint64_t* full = reinterpret_cast<uint64_t*>(psum + kPassSlots);
+  uint64_t* empty = full + a.stages;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / C, b = bh / a.H;
+  const int k0 = blockIdx.y * kPassSlots, slots = min(kPassSlots, a.K - k0);
+  const int begin = rank * a.chunk, lanes = min(a.W, begin + a.chunk) - begin;
+  const int tiles = (lanes + kPassLanes - 1) / kPassLanes;
+  const int count = 2 * tiles;  // K's tiles, then V's
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // tile i of the walk into ring slot `slot`, as it lies: K's DMAX rows of
+  // 64 lanes (rows past D, lanes past W zero-filled), or V's 64 lanes in
+  // column blocks of 64
+  auto load = [&](int slot, int i) {
+    __nv_bfloat16* st = ring + slot * kStage;
+    uint64_t* bar = &full[slot];
+    nm::tma::bar_expect(bar, kStage * sizeof(__nv_bfloat16));
+    if (i < tiles) {
+      nm::tma::tma3d(st, kmap, begin + i * kPassLanes, 0, bh, bar);
+    } else {
+      const int l0 = begin + (i - tiles) * kPassLanes;
+      for (int c = 0; c < DMAX; c += 64) nm::tma::tma3d(st + c * kPassLanes, vmap, c, l0, bh, bar);
+    }
+  };
+  // a slot refilled once its tile's products are done: each warp arrives on
+  // its "empty" barrier and thread 0 waits there, then issues the copy
+  auto release = [&](int i) {
+    __syncwarp();
+    const int slot = i % a.stages;
+    if (lane == 0) nm::tma::bar_arrive(&empty[slot]);
+    if (threadIdx.x == 0 && i + a.stages < count) {
+      nm::tma::bar_wait(&empty[slot], (i / a.stages) & 1);
+      load(slot, i + a.stages);
+    }
+    __syncwarp();
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      nm::tma::bar_init(&full[s], 1);
+      nm::tma::bar_init(&empty[s], kWarps);
+    }
+    nm::tma::bar_init_fence();
+  }
+  // the bias rows of the block's slots over the chunk, into the scores'
+  // rows (the epilogue below adds the products to them), by coalesced
+  // asynchronous copies issued ahead of the first tiles' (every block's
+  // first tiles reach device memory at once; the bias does not queue behind
+  // them) and awaited at the first tile's epilogue
+  const float* bb = a.bias + (static_cast<size_t>(b) * a.K + k0) * a.W + begin;
+  for (int r = 0; r < slots; ++r)
+    for (int l = threadIdx.x; l < lanes; l += kPassThreads)
+      nm::cp_async4(ss + r * ld + l, bb + static_cast<size_t>(r) * a.W + l, 4);
+  nm::cp_async_commit();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < min(a.stages, count); ++i) load(i, i);
+  // q rounded to bf16, then times the scale rounded to bf16, in bf16
+  const __nv_bfloat16 scale = __float2bfloat16_rn(a.scale);
+  for (int i = threadIdx.x; i < kPassSlots * DMAX; i += kPassThreads) {
+    const int r = i / DMAX, d = i % DMAX;
+    __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+    if (r < slots && d < a.D) {
+      const float qv = a.q[(static_cast<size_t>(bh) * a.K + k0 + r) * a.D + d];
+      v = __float2bfloat16_rn(__bfloat162float(__float2bfloat16_rn(qv)) *
+                              __bfloat162float(scale));
+    }
+    sq[r * kLdQ + d] = v;
+  }
+  __syncthreads();
+
+  // 1. the biased scores over the chunk: warp w the lanes kWarpLanes w ..
+  // of each tile, m16n8k16 with q's rows as A and K's tile, read transposed
+  // from its rows, as B; each thread's running max of its two slot rows
+  constexpr int kTileN = kWarpLanes / 8;
+  const int ksteps = (a.D + 15) / 16;
+  float run_max[2] = {-INFINITY, -INFINITY};
+  for (int i = 0; i < tiles; ++i) {
+    const int slot = i % a.stages;
+    nm::tma::bar_wait(&full[slot], (i / a.stages) & 1);
+    const unsigned char* kt = reinterpret_cast<const unsigned char*>(ring + slot * kStage);
+    float acc[kTileN][4] = {};
+    for (int ks = 0; ks < ksteps; ++ks) {
+      unsigned af[4];
+      ldsm_x4(af, sq + (lane % 8 + 8 * (lane / 8 % 2)) * kLdQ + 16 * ks + 8 * (lane / 16));
+#pragma unroll
+      for (int nt = 0; nt < kTileN; ++nt) {
+        unsigned b0, b1;
+        ldsm_x2_trans(b0, b1, kt + swz128(16 * ks + lane % 16, kTileN * warp + nt));
+        mma_bf16(acc[nt], af, b0, b1);
+      }
+    }
+    release(i);
+    if (i == 0) {
+      nm::cp_async_wait<0>();
+      __syncthreads();  // the bias is in place
+    }
+    // acc[nt][2 h + e]: slot g + 8 h, lane l + e; lanes past the window
+    // score -inf
+#pragma unroll
+    for (int nt = 0; nt < kTileN; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h;
+        const int l = kPassLanes * i + kWarpLanes * warp + 8 * nt + 2 * t;
+        if (r < slots) {
+          float2* at = reinterpret_cast<float2*>(ss + r * ld + l);
+          const float2 bias = *at;
+          const float s0 = l < lanes ? acc[nt][2 * h] + bias.x : -INFINITY;
+          const float s1 = l + 1 < lanes ? acc[nt][2 * h + 1] + bias.y : -INFINITY;
+          run_max[h] = fmaxf(run_max[h], fmaxf(s0, s1));
+          *at = make_float2(s0, s1);
+        }
+      }
+  }
+  // each row's max: over the four lanes that share it, then over the warps
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = run_max[h];
+    mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(nm::kFullMask, mx, 2));
+    if (t == 0) wmax[warp * kPassSlots + g + 8 * h] = mx;
+  }
+  __syncthreads();  // every warp's scores and maxima are in place
+  if (threadIdx.x < kPassSlots) {
+    float mx = wmax[threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wmax[w * kPassSlots + threadIdx.x]);
+    pmax[threadIdx.x] = mx;
+  }
+  // 2. the softmax of each slot row over the whole window, warp w rows w,
+  // w + 8: at the lane split the cluster's blocks read each other's row
+  // maxima, then sums, through distributed shared memory, each adding them
+  // in rank order
+  if (C > 1)
+    cluster.sync();  // every block's maxima
+  else
+    __syncthreads();
+  float row_sum[kPassSlots / kWarps];
+#pragma unroll
+  for (int j = 0; j < kPassSlots / kWarps; ++j) {
+    const int r = warp + kWarps * j;
+    float sum = 0.f;
+    if (r < slots) {
+      float mx = pmax[r];
+      for (int c = 0; c < C; ++c)
+        if (c != rank) mx = fmaxf(mx, cluster.map_shared_rank(pmax, c)[r]);
+      // exp(s - max) over the scores: the weights' numerators
+      float* srow = ss + r * ld;
+#pragma unroll 4
+      for (int l = lane; l < lanes; l += 32) {
+        const float p = expf(srow[l] - mx);
+        srow[l] = p;
+        sum += p;
+      }
+      sum = nm::warp_sum(sum);
+    }
+    row_sum[j] = sum;
+    if (lane == 0) psum[r] = sum;
+  }
+  if (C > 1) cluster.sync();  // every block's sums
+  // the normalised weights, rounded to bf16, over each row's first half
+  // (lanes past the window 0; a numerator 0, a lane the bias masks, skips
+  // its division): a warp reads 128 numerators before it writes their
+  // weights, which lie over numerators it has read
+#pragma unroll
+  for (int j = 0; j < kPassSlots / kWarps; ++j) {
+    const int r = warp + kWarps * j;
+    if (r >= slots) continue;
+    float total = row_sum[j];
+    if (C > 1) {
+      total = 0.f;
+      for (int c = 0; c < C; ++c) total += cluster.map_shared_rank(psum, c)[r];
+    }
+    const float denom = fmaxf(total, 1e-20f);
+    float* srow = ss + r * ld;
+    __nv_bfloat16* wrow = reinterpret_cast<__nv_bfloat16*>(srow);
+    for (int l0 = 0; l0 < kPassLanes * tiles; l0 += 128) {
+      float sv[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int l = l0 + 32 * m + lane;
+        sv[m] = l < lanes ? srow[l] : 0.f;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int l = l0 + 32 * m + lane;
+        if (l < kPassLanes * tiles)
+          wrow[l] = __float2bfloat16_rn(sv[m] != 0.f ? sv[m] / denom : 0.f);
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();  // every row's weights are in place
+
+  // 3. the context w V over the chunk: warp w the columns kWarpCols w .. ,
+  // m16n8k16 with the weights as A (rows past the beam read the last
+  // slot's: their sums are never written) and V's tile, read transposed
+  // from its rows, as B
+  const unsigned char* sw = reinterpret_cast<const unsigned char*>(
+      ss + min(lane % 8 + 8 * (lane / 8 % 2), slots - 1) * ld);
+  const int c_base = kWarpCols * warp;
+  float o[kWarpCols / 8][4] = {};
+  for (int j = 0; j < tiles; ++j) {
+    const int i = tiles + j, slot = i % a.stages;
+    nm::tma::bar_wait(&full[slot], (i / a.stages) & 1);
+    const unsigned char* vt = reinterpret_cast<const unsigned char*>(ring + slot * kStage);
+#pragma unroll
+    for (int ks = 0; ks < kPassLanes / 16; ++ks) {
+      unsigned af[4];
+      ldsm_x4(af, sw + 2 * (kPassLanes * j + 16 * ks + 8 * (lane / 16)));
+#pragma unroll
+      for (int nt = 0; nt < kWarpCols / 8; ++nt) {
+        const int d = c_base + 8 * nt;
+        if (d < a.D) {
+          unsigned b0, b1;
+          ldsm_x2_trans(b0, b1, vt + d / 64 * (kPassLanes * 128) +
+                                    swz128(16 * ks + lane % 16, d % 64 / 8));
+          mma_bf16(o[nt], af, b0, b1);
+        }
+      }
+    }
+    release(i);
+  }
+
+  // o[nt][2 h + e]: slot g + 8 h, column c_base + 8 nt + 2 t + e
+  const size_t row0 = static_cast<size_t>(bh) * a.K + k0;
+  if (C == 1) {
+#pragma unroll
+    for (int nt = 0; nt < kWarpCols / 8; ++nt) {
+      const int d = c_base + 8 * nt + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (d < a.D && g + 8 * h < slots)
+          *reinterpret_cast<float2*>(a.out + (row0 + g + 8 * h) * a.D + d) =
+              make_float2(o[nt][2 * h], o[nt][2 * h + 1]);
+    }
+    return;
+  }
+  // the lane split: each block's partial context into its ring (every warp
+  // is done with it), then each block sums its share of the entries over
+  // the cluster's partials in rank order
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(ring);  // [16][DMAX]
+#pragma unroll
+  for (int nt = 0; nt < kWarpCols / 8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(part + (g + 8 * h) * DMAX + c_base + 8 * nt + 2 * t) =
+          make_float2(o[nt][2 * h], o[nt][2 * h + 1]);
+  cluster.sync();  // every block's partial context
+  for (int e = rank * kPassThreads + threadIdx.x; e < slots * a.D; e += C * kPassThreads) {
+    const int r = e / a.D, d = e % a.D;
+    float sum = 0.f;
+    for (int c = 0; c < C; ++c) sum += cluster.map_shared_rank(part, c)[r * DMAX + d];
+    a.out[(row0 + r) * a.D + d] = sum;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+template <int DMAX>
+int launch_pass(const PassArgs& a, const CUtensorMap& kmap, const CUtensorMap& vmap, int BH,
+                int groups, int cluster, int smem, cudaStream_t stream) {
+  const int err =
+      nm::allow_max_smem(reinterpret_cast<const void*>(lineage_bf16_pass_kernel<DMAX>));
+  if (err != 0) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(BH * cluster, groups);
+  config.blockDim = dim3(kPassThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = cluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  const cudaError_t status =
+      cudaLaunchKernelEx(&config, lineage_bf16_pass_kernel<DMAX>, kmap, vmap, a);
+  const int last = nm::launch_status();  // also clears a refusal
+  return status != cudaSuccess ? static_cast<int>(status) : last;
+}
+
 }  // namespace
 
 // The launch follows ops/lineage_attention.lineage_plan: `dmax` the head dim
@@ -873,15 +1260,65 @@ NM_EXPORT int nm_lineage_attention(const void* q, const void* k_cache, const voi
   }
 }
 
-// The bf16 instance: caches k_cache (B, H, D, L) and v_cache (B, H, L, D) in
+// The bf16 instance in one pass: caches k_cache (B, H, D, L) and v_cache
+// (B, H, L, D) in bf16, q, bias and out float32
+// (ops/lineage_attention.lineage_bf16_pass_plan): `dmax` the head dim padded
+// to 64, 128 or 256, clusters of `cluster` blocks a (b, h) and slot group,
+// rank r owning lanes r * chunk .. (a multiple of 64, every rank some lanes
+// of the window), a ring of `stages` tiles, `smem` the block's shared bytes
+// (checked against the layout). The shape gate: L and D multiples of 8 and
+// the caches 16-byte aligned, as TMA's row strides need.
+NM_EXPORT int nm_lineage_attention_bf16(const void* q, const void* k_cache, const void* v_cache,
+                                        const void* bias, void* out, int B, int H, int K, int D,
+                                        int L, int W, int dmax, int cluster, int chunk,
+                                        int stages, int smem, float scale, void* stream) {
+  const long long groups = (K + kPassSlots - 1) / kPassSlots;
+  if (B < 1 || H < 1 || K < 1 || D < 1 || W < 1 || W > L || L % 8 != 0 || D % 8 != 0 ||
+      D > dmax || cluster < 1 || cluster > kPassMaxCluster || chunk < kPassLanes ||
+      chunk % kPassLanes != 0 || static_cast<long long>(cluster - 1) * chunk >= W ||
+      static_cast<long long>(cluster) * chunk < W || stages < 1 || stages > kPassMaxStages ||
+      groups > 65535 || static_cast<long long>(B) * H * cluster > INT_MAX ||
+      ((reinterpret_cast<size_t>(k_cache) | reinterpret_cast<size_t>(v_cache)) & 15) != 0 ||
+      smem < 0 ||
+      static_cast<size_t>(smem) != pass_smem_bytes(dmax, chunk, stages, std::min(K, kPassSlots)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // K as (B*H, D, L) read over its first W lanes in boxes of 64 lanes by
+  // dmax rows; V as (B*H, L, D) over its first W rows in boxes of 64 rows by
+  // 64 columns
+  const cuuint64_t BH = static_cast<cuuint64_t>(B) * H;
+  const cuuint64_t kdims[3] = {static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(D), BH};
+  const cuuint64_t kstrides[2] = {2ull * L, 2ull * L * D};
+  const cuuint32_t kbox[3] = {kPassLanes, static_cast<cuuint32_t>(dmax), 1};
+  const cuuint64_t vdims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(W), BH};
+  const cuuint64_t vstrides[2] = {2ull * D, 2ull * L * D};
+  const cuuint32_t vbox[3] = {64, kPassLanes, 1};
+  CUtensorMap kmap, vmap;
+  int status = nm::tma::tensor_map(&kmap, k_cache, 3, kdims, kstrides, kbox);
+  if (status == 0) status = nm::tma::tensor_map(&vmap, v_cache, 3, vdims, vstrides, vbox);
+  if (status != 0) return status;
+  const PassArgs a{static_cast<const float*>(q), static_cast<const float*>(bias),
+                   static_cast<float*>(out), H, K, D, W, chunk, stages, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int g = static_cast<int>(groups);
+  switch (dmax) {
+    case 64: return launch_pass<64>(a, kmap, vmap, B * H, g, cluster, smem, s);
+    case 128: return launch_pass<128>(a, kmap, vmap, B * H, g, cluster, smem, s);
+    case 256: return launch_pass<256>(a, kmap, vmap, B * H, g, cluster, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 instance's scratch design, kept for the shapes the one-pass kernel
+// does not take: caches k_cache (B, H, D, L) and v_cache (B, H, L, D) in
 // bf16, q, bias and out float32. `scores` is scratch of (B*H*K, W) floats;
 // `splits` lane chunks of `chunk` lanes (a multiple of 16), `part_o` scratch of
 // (splits, B*H*K, D) floats when splits > 1
 // (ops/lineage_attention.lineage_bf16_plan).
-NM_EXPORT int nm_lineage_attention_bf16(const void* q, const void* k_cache, const void* v_cache,
-                                        const void* bias, void* out, void* scores, void* part_o,
-                                        int B, int H, int K, int D, int L, int W, int splits,
-                                        int chunk, float scale, void* stream) {
+NM_EXPORT int nm_lineage_attention_bf16_scratch(const void* q, const void* k_cache,
+                                                const void* v_cache, const void* bias, void* out,
+                                                void* scores, void* part_o, int B, int H, int K,
+                                                int D, int L, int W, int splits, int chunk,
+                                                float scale, void* stream) {
   if (B < 1 || H < 1 || K < 1 || D < 1 || W < 1 || W > L || splits < 1 || chunk < 1 ||
       chunk % kB16CtxLanes || (splits - 1) * chunk >= W || splits * chunk < W ||
       scores == nullptr || (splits > 1 && part_o == nullptr))

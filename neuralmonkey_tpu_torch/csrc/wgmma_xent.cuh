@@ -50,11 +50,14 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace nm {
 namespace wg {
 
 using bf16 = __nv_bfloat16;
+// the mbarriers and bulk tensor copies (tma.cuh): wg::bar_wait, wg::tma2d, ...
+using namespace nm::tma;
 
 constexpr int kThreads = 256;  // two warpgroups of four warps: the products
 
@@ -105,52 +108,6 @@ __device__ __forceinline__ uint64_t mnslice(const bf16* tile, int rows, int mn0,
   const char* p =
       reinterpret_cast<const char*>(tile) + mn0 / (R / 2) * rows * R + k0 / 8 * 8 * R;
   return descriptor(p, rows * R, 8 * R, kSwizzle<R>);
-}
-
-// mbarriers and bulk tensor copies (TMA)
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void bar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// one arrival that also expects `bytes` of copies to complete the phase
-__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void tma2d(void* dst, const CUtensorMap& map, int c0, int c1,
-                                      uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma3d(void* dst, const CUtensorMap& map, int c0, int c1, int c2,
-                                      uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
 }
 
 // the register budget of this warpgroup's threads: the copying warpgroup

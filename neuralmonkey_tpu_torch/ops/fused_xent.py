@@ -21,11 +21,12 @@ bf16 (the ``*_bf16w`` instances, half W's bytes); dW is returned rounded
 to bf16, W's dtype, as the JAX custom VJP's cotangent is. A bf16 x is
 widened (exact); its dx is returned in bf16.
 
-The bf16-W backward runs on Hopper's warpgroup products (laid out by
-:func:`wgmma_dx_plan` and :func:`wgmma_dw_plan`) wherever W's bf16 rows
-start on 16-byte boundaries (:func:`wgmma_takes`); the other strides go
-to the design that widens W as it stages it (the ``*_bf16w_widened``
-instances), decided from the shapes before any launch.
+The bf16-W kernels run on Hopper's warpgroup products (laid out by
+:func:`wgmma_fwd_plan`, :func:`wgmma_dx_plan` and :func:`wgmma_dw_plan`)
+wherever W's bf16 rows start on 16-byte boundaries (:func:`wgmma_takes`);
+the other strides go to the design that widens W as it stages it (the
+``*_bf16w_widened`` instances), decided from the shapes before any
+launch.
 """
 
 from __future__ import annotations
@@ -149,6 +150,14 @@ WGMMA_DW_SMEM_BYTES = (WGMMA_DW_STAGES * WGMMA_DW_STAGE_BYTES
 # the S split: the fewest chunks whose grid keeps this share of its waves'
 # SMs busy
 WGMMA_FILL = 0.85
+# the forward (wgk::xent_fwd_wg_kernel): 128 rows a block (64 a product
+# warpgroup, as 64 x 256 sums: 128 a product thread), 256 vocabulary columns
+# a walked tile, 5 stages of 40960 bytes (x's three bf16 parts, 128 x 32,
+# and W's 256 x 32), 1024 + 128 bytes more as the backward's; one block an SM
+WGMMA_FWD_ROWS, WGMMA_FWD_VOCAB_TILE, WGMMA_FWD_THREAD_SUMS = 128, 256, 128
+WGMMA_FWD_STAGES = 5
+WGMMA_FWD_STAGE_BYTES = 2 * (3 * 128 * 32 + 256 * 32)
+WGMMA_FWD_SMEM_BYTES = WGMMA_FWD_STAGES * WGMMA_FWD_STAGE_BYTES + 1024 + 128
 
 
 class WgmmaPlan(NamedTuple):
@@ -254,6 +263,48 @@ def wgmma_dw_plan(n: int, d: int, v: int, sm_count: int,
                        smem_limit, owns_rows=False)
 
 
+def _fwd_split_count(owned: int, walked: int, sm_count: int) -> int:
+    """The chunks of the ``walked`` tiles that give the shortest walk:
+    waves of ``owned`` x S blocks (one an SM) times the longest chunk's
+    tiles; the fewest chunks among equals (the fewest partials)."""
+    best, best_cost = 1, None
+    for splits in range(1, walked + 1):
+        waves = -(-owned * splits // sm_count)
+        cost = waves * -(-walked // splits)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = splits, cost
+    return best
+
+
+def wgmma_fwd_plan(n: int, d: int, v: int, sm_count: int,
+                   smem_limit: int) -> WgmmaPlan:
+    """The layout of ``fused_xent_fwd_bf16w`` (csrc/fused_xent.cu,
+    ``wgk::xent_fwd_wg_kernel``) on a card of ``sm_count`` SMs with
+    ``smem_limit`` bytes of shared memory a block: 128-row blocks, each
+    summing over all of D (``d_pass``: D rounded up to 8, one pass) and
+    walking a balanced, contiguous chunk of 256-column vocabulary tiles;
+    the chunks S by :func:`_fwd_split_count`, each writing one partial a
+    row that a second kernel folds. Raises ``ValueError`` where the
+    block does not fit."""
+    name = "fused_xent_fwd_bf16w"
+    if min(n, d, v, sm_count) < 1:
+        raise ValueError(f"{name}: no plan for N {n}, D {d}, V {v} on "
+                         f"{sm_count} SMs")
+    if WGMMA_FWD_SMEM_BYTES > smem_limit:
+        raise ValueError(f"{name}: {WGMMA_FWD_SMEM_BYTES} bytes of shared "
+                         f"memory do not fit {smem_limit}")
+    owned = -(-n // WGMMA_FWD_ROWS)
+    walked = -(-v // WGMMA_FWD_VOCAB_TILE)
+    splits = _fwd_split_count(owned, walked, sm_count)
+    walks = tuple((s * walked // splits, (s + 1) * walked // splits)
+                  for s in range(splits))
+    return WgmmaPlan(WGMMA_FWD_ROWS, WGMMA_FWD_VOCAB_TILE, -(-d // 8) * 8, 1,
+                     splits, (owned, splits, 1), walks, WGMMA_FWD_STAGES,
+                     WGMMA_FWD_STAGE_BYTES, WGMMA_THREADS,
+                     WGMMA_FWD_THREAD_SUMS, WGMMA_FWD_SMEM_BYTES,
+                     smem_limit // WGMMA_FWD_SMEM_BYTES)
+
+
 FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -328,13 +379,11 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
 
 
 def _instance(name: str, w: torch.Tensor, transposed: bool) -> str:
-    """The kernel that takes ``w``: ``name``, or its bf16-W instance; for
-    the backward, the one on warpgroup products where :func:`wgmma_takes`
-    W's layout, else the one that widens W."""
+    """The kernel that takes ``w``: ``name``, or its bf16-W instance: the
+    one on warpgroup products where :func:`wgmma_takes` W's layout, else
+    the one that widens W."""
     if w.dtype != torch.bfloat16:
         return name
-    if name == "fused_xent_fwd":
-        return f"{name}_bf16w"
     d, v = w.shape[::-1] if transposed else w.shape
     return (f"{name}_bf16w" if wgmma_takes(d, v, transposed)
             else f"{name}_bf16w_widened")
@@ -373,19 +422,39 @@ def _check(name: str, x, w, b, targets, transposed: bool, **more) -> None:
 
 def xent_fwd(x, w, b, targets, eps: float, transposed: bool
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(nll, lse): launches ``fused_xent_fwd`` (its bf16-W instance for
-    a bf16 ``w``) for CUDA tensors, runs the plain version otherwise."""
+    """(nll, lse): launches ``fused_xent_fwd`` (for a bf16 ``w`` its
+    bf16-W instance on warpgroup products where :func:`wgmma_takes` W's
+    layout, else the widening one) for CUDA tensors
+    (:func:`launch_fwd`); runs the plain version otherwise."""
     if not x.is_cuda:
         return fwd_reference(x, _wide(w), b, targets, eps, transposed)
-    name = _instance("fused_xent_fwd", w, transposed)
+    return launch_fwd(_instance("fused_xent_fwd", w, transposed), x, w, b,
+                      targets, eps, transposed)
+
+
+def launch_fwd(name: str, x, w, b, targets, eps: float, transposed: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nll, lse) by the CUDA instance ``name`` (``fused_xent_fwd``, its
+    ``_bf16w`` instance, laid out by :func:`wgmma_fwd_plan`, or its
+    ``_bf16w_widened`` one): per-row partials of each chunk of the
+    vocabulary (a 128-column tile's, or a plan's chunk's), then a fold."""
     _check(name, x, w, b, targets, transposed)
-    n = x.shape[0]
+    n, d = x.shape
     vocab = w.shape[0] if transposed else w.shape[1]
-    partials = x.new_empty(4, n, -(-vocab // TILE))
     lse, nll = x.new_empty(n), x.new_empty(n)
+    if name == "fused_xent_fwd_bf16w":
+        plan = wgmma_fwd_plan(n, d, vocab,
+                              *kernel_config.tensor_device_limits(x))
+        partials = x.new_empty(4, n, plan.splits)
+        kernel_config.launch(name, x, _aligned(w), b, targets, partials[0],
+                             partials[1], partials[2], partials[3], lse, nll,
+                             _parts(x), n, d, vocab, int(transposed),
+                             plan.splits, eps)
+        return nll, lse
+    partials = x.new_empty(4, n, -(-vocab // TILE))
     kernel_config.launch(name, x, w, b, targets, partials[0],
                          partials[1], partials[2], partials[3], lse, nll,
-                         n, x.shape[1], vocab, int(transposed), eps)
+                         n, d, vocab, int(transposed), eps)
     return nll, lse
 
 

@@ -20,8 +20,9 @@ plain path on the card: each family's gate is a function of shapes,
 decided before any launch (``cuda_rnn.scan_fits``, ``bptt_fits`` and
 ``lstm_scan_fits``, ``beam_select.topk_kernel_takes``), and
 :func:`log_plain_path` logs each (kernel, reason) once. The bf16-W
-cross-entropy backward has a gate between two kernels, no plain path
-(``fused_xent.wgmma_takes``). Wherever the JAX
+cross-entropy (``fused_xent.wgmma_takes``) and the bf16 lineage attention
+(``lineage_attention.lineage_bf16_pass_plan``) have gates between two
+kernels, no plain path. Wherever the JAX
 package runs its kernel the port runs its own: the flash and lineage
 kernels take every head dim (past their single-pass widths in chunked
 instances, counted under their own names). The switches
@@ -82,8 +83,12 @@ ENTRY_POINTS = {
     "fused_xent_fwd_bf16w": "nm_xent_fwd_bf16w",
     "fused_xent_bwd_dx_bf16w": "nm_xent_bwd_dx_bf16w",
     "fused_xent_bwd_dw_bf16w": "nm_xent_bwd_dw_bf16w",
-    # the bf16-W backward where W's bf16 rows are not 16-byte aligned: the
-    # float32 design with W widened as it is staged
+    # the earlier designs, kept for the shapes the bf16 instances' gates
+    # refuse: the lineage attention through a float32 scores scratch, and
+    # the cross-entropy where W's bf16 rows are not 16-byte aligned (the
+    # float32 design with W widened as it is staged)
+    "lineage_attention_bf16_scratch": "nm_lineage_attention_bf16_scratch",
+    "fused_xent_fwd_bf16w_widened": "nm_xent_fwd_bf16w_widened",
     "fused_xent_bwd_dx_bf16w_widened": "nm_xent_bwd_dx_bf16w_widened",
     "fused_xent_bwd_dw_bf16w_widened": "nm_xent_bwd_dw_bf16w_widened",
     "lstm_scan": "nm_lstm_scan",
@@ -105,8 +110,11 @@ _ARGTYPES = {
     "nm_flash_bwd_dq": [_PTR] * 8 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_flash_bwd_dkv": [_PTR] * 9 + [_INT] * 10 + [_FLOAT] * 2 + [_PTR],
     "nm_lineage_attention": [_PTR] * 7 + [_INT] * 15 + [_FLOAT, _PTR],
-    "nm_lineage_attention_bf16": [_PTR] * 7 + [_INT] * 8 + [_FLOAT, _PTR],
-    "nm_xent_fwd_bf16w": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],
+    "nm_lineage_attention_bf16": [_PTR] * 5 + [_INT] * 11 + [_FLOAT, _PTR],
+    "nm_lineage_attention_bf16_scratch": [_PTR] * 7 + [_INT] * 8 + [_FLOAT,
+                                                                   _PTR],
+    "nm_xent_fwd_bf16w": [_PTR] * 11 + [_INT] * 5 + [_FLOAT, _PTR],
+    "nm_xent_fwd_bf16w_widened": [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR],
     "nm_xent_bwd_dx_bf16w": [_PTR] * 9 + [_INT] * 5 + [_FLOAT, _PTR],
     "nm_xent_bwd_dw_bf16w": [_PTR] * 11 + [_INT] * 5 + [_FLOAT, _PTR],
     "nm_xent_bwd_dx_bf16w_widened": [_PTR] * 8 + [_INT] * 6 + [_FLOAT, _PTR],

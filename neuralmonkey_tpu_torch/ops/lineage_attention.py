@@ -28,18 +28,21 @@ the decoder keeps its caches in the kernel's layout wherever it is
 asked to (``NM_LINEAGE_KERNEL=1``).
 
 Caches in bf16 (the bf16 compute policy, or ``NM_LINEAGE_KERNEL_BF16=1``)
-take the kernel's bf16 instance (counted as ``lineage_attention_bf16``
-at every head dim: its context kernel takes 256 columns a block), which
-rounds
-where the JAX kernel rounds: q to bf16 and then scaled in bf16, the
-scores and the softmax in float32, the normalised weights to bf16, a
-float32 output; its launch is :func:`lineage_bf16_plan`.
+take the kernel's bf16 instance, which rounds where the JAX kernel
+rounds: q to bf16 and then scaled in bf16, the scores and the softmax in
+float32, the normalised weights to bf16, a float32 output. It reads the
+caches once, keeping the scores in shared memory, with the lane split
+across a thread-block cluster (``lineage_attention_bf16``, laid out by
+:func:`lineage_bf16_pass_plan`), wherever TMA takes the caches' rows and
+the window's scores fit (the plan's shape gate); other shapes, any head
+dim among them, take the two-kernel design through a float32 scores scratch
+(``lineage_attention_bf16_scratch``, :func:`lineage_bf16_plan`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -217,13 +220,14 @@ def lineage_plan(batch: int, heads: int, beam: int, head_dim: int,
                        stages, vec, smem, resident)
 
 
-# csrc/lineage_attention.cu's bf16 instance: its context kernel steps 64
-# lanes at a time and takes 256 context columns a block
+# csrc/lineage_attention.cu's bf16 scratch design:
+# its context kernel steps 64 lanes at a time and takes 256 context columns
+# a block
 BF16_CTX_LANES, BF16_CTX_COLS = 64, 256
 
 
 class LineageBf16Plan(NamedTuple):
-    """The bf16 instance's context launch: ``slot_tiles`` tiles of 8
+    """The scratch design's context launch: ``slot_tiles`` tiles of 8
     slot rows, ``column_blocks`` blocks of 256 context columns, the
     lanes cut into ``splits`` chunks of ``chunk`` lanes (a multiple of
     64) when the blocks would not fill the card twice."""
@@ -235,7 +239,7 @@ class LineageBf16Plan(NamedTuple):
 
 def lineage_bf16_plan(batch: int, heads: int, beam: int, head_dim: int,
                       lanes: int, sm_count: int) -> LineageBf16Plan:
-    """Lay out the bf16 instance's context launch over ``lanes``
+    """Lay out the scratch design's context launch over ``lanes``
     lanes (its scores launch is a block a (b, h), 64 lanes and 64
     slots)."""
     if min(batch, heads, beam, head_dim, lanes, sm_count) < 1:
@@ -248,6 +252,99 @@ def lineage_bf16_plan(batch: int, heads: int, beam: int, head_dim: int,
         lanes, BF16_CTX_LANES, batch * heads * slot_tiles * column_blocks,
         sm_count)
     return LineageBf16Plan(slot_tiles, column_blocks, splits, chunk)
+
+
+# csrc/lineage_attention.cu's one-pass bf16 kernel: 8 warps, 16 slot rows a
+# block (beams past 16 in groups), 64-lane tiles, head dims padded to 64, 128
+# or 256, clusters of up to 8 blocks at the lane split, rings of 2-4 stages
+BF16_PASS_THREADS, BF16_PASS_SLOTS, BF16_PASS_LANES = 256, 16, 64
+BF16_PASS_HEAD_DIMS = (64, 128, 256)
+BF16_PASS_MAX_CLUSTER = 8
+BF16_PASS_STAGES = (2, 3, 4)
+
+
+def bf16_pass_smem_bytes(dmax: int, chunk: int, stages: int,
+                         rows: int) -> int:
+    """The one-pass kernel's shared bytes, as the kernel lays them out:
+    1024 to align the ring to the swizzle's 1024 bytes, the ring of
+    64 x ``dmax`` bf16 tiles, q (16 rows of ``dmax`` + 8 bf16), the
+    scores of the block's ``rows`` slot rows (``chunk`` + 4 floats each),
+    eight warps' row maxima, each row's partial max and sum, and two
+    mbarriers a stage."""
+    return (1024 + 2 * (stages * BF16_PASS_LANES * dmax
+                        + BF16_PASS_SLOTS * (dmax + 8))
+            + 4 * (rows * (chunk + 4) + 10 * BF16_PASS_SLOTS) + 16 * stages)
+
+
+class LineageBf16PassPlan(NamedTuple):
+    """The launch of the one-pass bf16 instance: the head dim padded to
+    ``dmax``; ``groups`` groups of 16 slot rows; clusters of ``cluster``
+    blocks a (b, h) and group, rank r owning lanes ``r * chunk`` ..
+    (``chunk`` a multiple of 64, every rank some lanes of the window);
+    a ring of ``stages`` 64-lane tiles; ``smem_bytes`` of shared memory a
+    block; ``blocks_per_sm`` resident by shared memory and threads."""
+    dmax: int
+    groups: int
+    cluster: int
+    chunk: int
+    stages: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def lineage_bf16_pass_plan(batch: int, heads: int, beam: int,
+                           head_dim: int, total: int, lanes: int,
+                           sm_count: int, smem_limit: int,
+                           aligned: bool = True
+                           ) -> Optional[LineageBf16PassPlan]:
+    """Lay out the one-pass bf16 instance over caches of ``total`` lanes,
+    ``lanes`` of them read; None where it does not take the shape (the
+    shape gate: the scratch design takes it). TMA needs the caches' rows in
+    16-byte strides (``total`` and ``head_dim`` multiples of 8) and
+    ``aligned`` caches; the tiles take head dims up to 256. The lane
+    split: when ``batch * heads * groups`` blocks do not fill the card,
+    clusters of enough blocks that they do (at most 8 and one 64-lane
+    tile a block); more where one block's shared memory cannot hold its
+    chunk's scores. Stages: the fewest waves of resident blocks (a
+    block's phases wait on one another, so the blocks of one wave run
+    them together and a second wave adds a block's whole time), then the
+    most 64-lane tiles in flight an SM (resident blocks times stages),
+    then the most blocks."""
+    if not (aligned and min(batch, heads, beam, sm_count) > 0
+            and 0 < head_dim <= BF16_PASS_HEAD_DIMS[-1]
+            and head_dim % 8 == 0 and total % 8 == 0
+            and 0 < lanes <= total):
+        return None
+    dmax = next(pad for pad in BF16_PASS_HEAD_DIMS if head_dim <= pad)
+    groups = -(-beam // BF16_PASS_SLOTS)
+    blocks = batch * heads * groups
+    tiles = -(-lanes // BF16_PASS_LANES)
+    fill = 1 if blocks >= sm_count else -(-sm_count // blocks)
+    rows = min(BF16_PASS_SLOTS, beam)
+    for cluster in range(min(fill, BF16_PASS_MAX_CLUSTER, tiles),
+                         min(BF16_PASS_MAX_CLUSTER, tiles) + 1):
+        chunk_tiles = -(-tiles // cluster)
+        ranks = -(-tiles // chunk_tiles)
+        best = None
+        for stages in BF16_PASS_STAGES:
+            if stages > max(BF16_PASS_STAGES[0], 2 * chunk_tiles):
+                break
+            smem = bf16_pass_smem_bytes(dmax, BF16_PASS_LANES * chunk_tiles,
+                                        stages, rows)
+            if smem > smem_limit:
+                break
+            resident = min(SM_THREADS // BF16_PASS_THREADS,
+                           SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES))
+            waves = -(-blocks * ranks // (resident * sm_count))
+            key = (-waves, resident * stages, resident)
+            if best is None or key > best[0]:
+                best = (key, stages, smem, resident)
+        if best is not None:
+            _, stages, smem, resident = best
+            return LineageBf16PassPlan(dmax, groups, ranks,
+                                       BF16_PASS_LANES * chunk_tiles, stages,
+                                       smem, resident)
+    return None
 
 
 def lane_window(win: int, beam: int, total: int) -> int:
@@ -339,21 +436,57 @@ def lineage_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def _lineage_attention_bf16(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor,
                             bias: torch.Tensor) -> torch.Tensor:
-    """The kernel's bf16 instance on bf16 caches; float32 out."""
+    """The kernel's bf16 instance on bf16 caches; float32 out: the
+    one-pass kernel where :func:`lineage_bf16_pass_plan` takes the shape,
+    else the scratch design."""
+    batch, heads, beam, head_dim = q.shape
+    plan = lineage_bf16_pass_plan(
+        batch, heads, beam, head_dim, k_cache.shape[-1], bias.shape[-1],
+        *kernel_config.tensor_device_limits(q),
+        aligned=_aligned(k_cache, v_cache))
+    return launch_bf16("lineage_attention_bf16" if plan is not None
+                       else "lineage_attention_bf16_scratch",
+                       q, k_cache, v_cache, bias)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def launch_bf16(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The bf16 instance ``name`` on bf16 caches: the one-pass kernel
+    (``lineage_attention_bf16``, laid out by
+    :func:`lineage_bf16_pass_plan`; raises where it takes no plan) or the
+    scratch design (``lineage_attention_bf16_scratch``, laid out by
+    :func:`lineage_bf16_plan`)."""
     batch, heads, beam, head_dim = q.shape
     total, lanes = k_cache.shape[-1], bias.shape[-1]
-    name = "lineage_attention_bf16"
     kernel_config.check_cuda_inputs(
         name, q=q, k=k_cache, v=v_cache, bias=bias,
         dtypes={"k": torch.bfloat16, "v": torch.bfloat16})
-    plan = lineage_bf16_plan(batch, heads, beam, head_dim, lanes,
-                             kernel_config.tensor_device_limits(q)[0])
+    sm_count, smem_limit = kernel_config.tensor_device_limits(q)
     out = torch.empty_like(q)
+    scale = 1.0 / math.sqrt(head_dim)
+    if name == "lineage_attention_bf16":
+        plan = lineage_bf16_pass_plan(batch, heads, beam, head_dim, total,
+                                      lanes, sm_count, smem_limit,
+                                      aligned=_aligned(k_cache, v_cache))
+        if plan is None:
+            raise ValueError(
+                f"{name}: no one-pass plan for q {tuple(q.shape)}, caches "
+                f"of {total} lanes, {lanes} read")
+        kernel_config.launch(name, q, k_cache, v_cache, bias, out, batch,
+                             heads, beam, head_dim, total, lanes, plan.dmax,
+                             plan.cluster, plan.chunk, plan.stages,
+                             plan.smem_bytes, scale)
+        return out
+    plan = lineage_bf16_plan(batch, heads, beam, head_dim, lanes, sm_count)
     scores = q.new_empty(batch * heads * beam, lanes)
     part_o = None
     if plan.splits > 1:
         part_o = q.new_empty(plan.splits, batch * heads * beam, head_dim)
     kernel_config.launch(name, q, k_cache, v_cache, bias, out, scores,
                          part_o, batch, heads, beam, head_dim, total, lanes,
-                         plan.splits, plan.chunk, 1.0 / math.sqrt(head_dim))
+                         plan.splits, plan.chunk, scale)
     return out

@@ -58,6 +58,7 @@ one JSON line with the card's name and power limit.
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -102,6 +103,59 @@ XENT_BWD_VARIANTS = {
     "no products, no copies": NO_PRODUCTS + NO_COPIES,
     "products waited each stage": [("    wg::wait<1>();",
                                     "    wg::wait<0>();")],
+}
+# the bf16 lineage attention: the one-pass kernel and the scratch design
+# (its scores and context kernels) of the same source
+LINEAGE_BF16_VARIANTS = {
+    "source": [],
+    "launch only": [
+        ("  extern __shared__ __align__(16) unsigned char smem_pass[];\n",
+         "  if (a.W > 0) return;\n"
+         "  extern __shared__ __align__(16) unsigned char smem_pass[];\n"),
+        ("  extern __shared__ __align__(16) unsigned char smem_b16[];\n",
+         "  if (a.W > 0) return;\n"
+         "  extern __shared__ __align__(16) unsigned char smem_b16[];\n"),
+        ("  __shared__ __align__(16) __nv_bfloat16 sw[8 * kB16LdV];\n",
+         "  if (a.W > 0) return;\n"
+         "  __shared__ __align__(16) __nv_bfloat16 sw[8 * kB16LdV];\n")],
+    "no copies": [
+        ("nm::tma::tma3d(", "if (false) nm::tma::tma3d("),
+        ("nm::tma::bar_expect(bar, ", "nm::tma::bar_expect(bar, 0 * "),
+        ("const uint4 raw = *reinterpret_cast<const uint4*>(kb + "
+         "static_cast<size_t>(gd) * a.L + gl);",
+         "const uint4 raw = make_uint4(0u, 0u, 0u, 0u);"),
+        ("raw = *reinterpret_cast<const uint4*>(vb + static_cast<size_t>(l) "
+         "* a.D + c0 + d);", "raw = make_uint4(0u, 0u, 0u, 0u);")],
+    "no products": [("mma_bf16(acc[", "if (false) mma_bf16(acc["),
+                    ("mma_bf16(o[", "if (false) mma_bf16(o[")],
+    # the one-pass kernel with 4 warps a block instead of 8, without its
+    # sums' pass, without its weights' pass, without its bias copies
+    # (zero-filled), without its loads of q
+    "4 warps": [("constexpr int kPassThreads = 256;  // 8 warps",
+                 "constexpr int kPassThreads = 128;  // 4 warps")],
+    "no sums pass": [
+        ("for (int l = lane; l < lanes; l += 32) {\n        const float p",
+         "for (int l = lane; l < 0; l += 32) {\n        const float p")],
+    "no weights pass": [
+        ("for (int l0 = 0; l0 < kPassLanes * tiles; l0 += 128) {",
+         "for (int l0 = 0; l0 < 0; l0 += 128) {")],
+    "no bias loads": [("nm::cp_async4(ss + r * ld + l, bb + "
+                       "static_cast<size_t>(r) * a.W + l, 4);",
+                       "nm::cp_async4(ss + r * ld + l, bb, 0);")],
+    "no q loads": [("const float qv = a.q[(static_cast<size_t>(bh) * a.K + "
+                    "k0 + r) * a.D + d];", "const float qv = 1.f;")],
+    # the scratch design: the scores neither written nor read back
+    "no scratch round trip": [("if (l < a.W && k < a.K)\n        a.scores[",
+                               "if (l < 0 && k < a.K)\n        a.scores["),
+                              ("srow[r * a.W + l]", "0.f")],
+}
+# the variants that edit the one-pass kernel alone
+ONE_PASS = ("4 warps", "no sums pass", "no weights pass", "no bias loads",
+            "no q loads")
+XENT_FWD_BF16W_VARIANTS = {
+    "source": [],
+    "no products": NO_PRODUCTS,
+    "no copies": NO_COPIES,
 }
 K2_VARIANTS = {
     "source": [],
@@ -153,20 +207,32 @@ TOPK_VARIANTS = {
 }
 
 
+_BUILT = {}  # (source, variant, edits) -> its loaded library
+
+
 def build(kernel_config, source, variants):
-    """One library per variant of ``source``, all compiled at once."""
+    """One library per variant of ``source``, all compiled at once; a
+    variant built before (the same edits of the same source) is reused,
+    never rewritten while it is loaded."""
     os.makedirs(OUT, exist_ok=True)
     csrc = kernel_config.CSRC_DIR
     text = open(os.path.join(csrc, source)).read()
-    jobs = {}
+    jobs, libs = {}, {}
     for name, edits in variants.items():
+        key = (source, name, tuple(edits))
+        if key in _BUILT:
+            libs[name] = _BUILT[key]
+            continue
         edited = text
         for old, new in edits:
             if edited.count(old) < 1:
                 raise ValueError(f"{source} {name}: no '{old}'")
             edited = edited.replace(old, new)
+        # the edits' digest too: variants of one name in two rows differ
         tag = f"{source[:-3]}_" + "".join(
-            c if c.isalnum() else "_" for c in name)
+            c if c.isalnum() else "_" for c in name) + (
+                "_" + hashlib.sha1(repr(edits).encode()).hexdigest()[:8]
+                if edits else "")
         path = os.path.join(OUT, f"{tag}.cu")
         with open(path, "w") as f:
             f.write(edited)
@@ -175,9 +241,9 @@ def build(kernel_config, source, variants):
                        os.path.join(OUT, f"lib{tag}.so"), path],
                       os.path.join(OUT, f"lib{tag}.so"))
     kernel_config._run_nvcc([cmd for cmd, _ in jobs.values()])
-    libs = {}
     for name, (_, lib) in jobs.items():
-        libs[name] = ctypes.CDLL(lib)
+        libs[name] = _BUILT[(source, name, tuple(variants[name]))] = (
+            ctypes.CDLL(lib))
     return libs
 
 
@@ -353,6 +419,51 @@ def main() -> int:
             for (name, which), run in runs.items():
                 row.setdefault(f"{which} {name}", []).append(
                     cs.time_ms(lambda: bwd(*run)))
+    # the bf16-W forward on warpgroup products, and the widened design
+    if wanted("fused_xent_fwd_bf16w"):
+        from neuralmonkey_tpu_torch.ops import fused_xent
+        n, d, v, eps = cs.XENT_N, cs.XENT_D, cs.VOCAB, 0.1
+        xf = randn(n, d, scale=0.5)
+        wf = randn(v, d, scale=d ** -0.5).to(torch.bfloat16)
+        bf = randn(v, scale=0.1)
+        targets = torch.randint(0, v, (n,), generator=gen,
+                                dtype=torch.int32).to(device)
+        plan = fused_xent.wgmma_fwd_plan(n, d, v, sms, smem)
+        parts = torch.empty(3, n, d, dtype=torch.bfloat16, device=device)
+        new_partials = xf.new_empty(4, n, plan.splits)
+        old_partials = xf.new_empty(4, n, -(-v // 128))
+        lse, nll = xf.new_empty(n), xf.new_empty(n)
+        libs = build(kernel_config, "fused_xent.cu", XENT_FWD_BF16W_VARIANTS)
+
+        def fwd_bf16w(lib, widened):
+            partials = old_partials if widened else new_partials
+            head = (xf.data_ptr(), wf.data_ptr(), bf.data_ptr(),
+                    targets.data_ptr(), *(p.data_ptr() for p in partials),
+                    lse.data_ptr(), nll.data_ptr())
+            if widened:
+                status = entry(lib, "nm_xent_fwd_bf16w_widened")(
+                    *head, n, d, v, 1, eps, stream())
+            else:
+                status = entry(lib, "nm_xent_fwd_bf16w")(
+                    *head, parts.data_ptr(), n, d, v, 1, plan.splits, eps,
+                    stream())
+            if status:
+                raise RuntimeError(f"xent_fwd_bf16w: CUDA error {status}")
+        ref = fused_xent.fwd_reference(xf, wf.float(), bf, targets, eps,
+                                       True)[0]
+        row = result["fused_xent_fwd_bf16w"] = {"plan": {
+            k: val for k, val in plan._asdict().items() if k != "walks"}}
+        runs = {name: (lib, False) for name, lib in libs.items()}
+        runs["widened design"] = (libs["source"], True)
+        for name, run in runs.items():
+            fwd_bf16w(*run)
+            torch.cuda.synchronize()
+            row[f"{name} rel_err"] = float((nll - ref).abs().max()
+                                           / max(1.0, float(ref.abs().max())))
+        for _ in range(args.turns):
+            for name, run in runs.items():
+                row.setdefault(name, []).append(
+                    cs.time_ms(lambda: fwd_bf16w(*run)))
     # K2: plans of the source's own library
     if wanted("fused_bahdanau_step"):
         att, dim = cs.ATT, 2 * cs.RNN
@@ -403,6 +514,68 @@ def main() -> int:
                 result["fused_bahdanau_step"].setdefault(
                     f"{name} l2 flushed", []).append(
                         cs.flushed_ms(lambda: k2(*run)))
+    # the bf16 lineage attention: the one-pass kernel and the scratch design
+    if wanted("lineage_attention_bf16"):
+        from neuralmonkey_tpu_torch.ops import lineage_attention as la
+        libs = build(kernel_config, "lineage_attention.cu",
+                     LINEAGE_BF16_VARIANTS)
+        heads, beam = cs.T_HEADS, cs.BEAM
+        steps, dim = cs.TGT_LEN, cs.T_HEAD_DIM
+        lanes, scale = beam * steps, dim ** -0.5
+        result["lineage_attention_bf16"] = {}
+        for b in (cs.BATCH, 1):
+            q = randn(b, heads, beam, dim)
+            kq = randn(b, heads, dim, lanes).to(torch.bfloat16)
+            vq = randn(b, heads, lanes, dim).to(torch.bfloat16)
+            anc = torch.randint(0, beam, (b, beam, steps), generator=gen,
+                                dtype=torch.int32).to(device)
+            bias = la.lineage_bias(anc, steps - 1, steps, beam, lanes, steps)
+            out = torch.empty_like(q)
+            plan = la.lineage_bf16_pass_plan(b, heads, beam, dim, lanes,
+                                             lanes, sms, smem)
+            old = la.lineage_bf16_plan(b, heads, beam, dim, lanes, sms)
+            scores = q.new_empty(b * heads * beam, lanes)
+            part_o = q.new_empty(old.splits, b * heads * beam, dim)
+
+            def lineage_bf16(lib, p):
+                if p is old:
+                    status = entry(lib, "nm_lineage_attention_bf16_scratch")(
+                        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+                        bias.data_ptr(), out.data_ptr(), scores.data_ptr(),
+                        part_o.data_ptr(), b, heads, beam, dim, lanes, lanes,
+                        old.splits, old.chunk, scale, stream())
+                else:
+                    status = entry(lib, "nm_lineage_attention_bf16")(
+                        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+                        bias.data_ptr(), out.data_ptr(), b, heads, beam,
+                        dim, lanes, lanes, p.dmax, p.cluster, p.chunk,
+                        p.stages, p.smem_bytes, scale, stream())
+                if status:
+                    raise RuntimeError(f"lineage_attention_bf16 {p}: CUDA "
+                                       f"error {status}")
+            runs = {f"scratch design, {name}": (lib, old)
+                    for name, lib in libs.items() if name not in ONE_PASS}
+            runs.update((name, (lib, plan)) for name, lib in libs.items()
+                        if name != "no scratch round trip")
+            if b == 1:
+                runs = {name: run for name, run in runs.items()
+                        if name.endswith("source")}
+            else:
+                runs.update((f"{n} stages", (libs["source"], plan._replace(
+                    stages=n, smem_bytes=la.bf16_pass_smem_bytes(
+                        plan.dmax, plan.chunk, n, min(16, beam)))))
+                    for n in (2, 3) if n != plan.stages)
+            ref = la.lineage_attention_reference(q, kq, vq, bias)
+            row = result["lineage_attention_bf16"][f"B{b}"] = {
+                "plan": plan._asdict(), "scratch_plan": old._asdict()}
+            for name, run in runs.items():
+                lineage_bf16(*run)
+                torch.cuda.synchronize()
+                row[f"{name} max_abs_err"] = float((out - ref).abs().max())
+            for _ in range(args.turns):
+                for name, run in runs.items():
+                    row.setdefault(name, []).append(
+                        cs.time_ms(lambda: lineage_bf16(*run)))
     # the lineage attention
     if wanted("lineage_attention"):
         from neuralmonkey_tpu_torch.ops import beam_select

@@ -1885,15 +1885,21 @@ def _bf16_rows_apart(got: torch.Tensor, ref: torch.Tensor,
 @pytest.mark.parametrize("batch,heads,beam,time,dim", [
     (4, 8, 10, 48, 64), (64, 8, 10, 48, 64), (1, 8, 10, 48, 64),
     (3, 2, 3, 5, 32), (2, 4, 17, 20, 40), (2, 2, 70, 6, 16),
-    (2, 2, 10, 48, 512), (2, 2, 10, 48, 640), (1, 2, 10, 12, 1000)])
+    (2, 2, 10, 48, 512), (2, 2, 10, 48, 640), (1, 2, 10, 12, 1000),
+    (2, 2, 20, 8, 64), (3, 2, 40, 4, 8), (2, 2, 10, 48, 128),
+    (2, 2, 10, 48, 256), (16, 8, 10, 48, 32)])
 def test_lineage_kernel_bf16_caches(cuda_device, batch, heads, beam, time,
                                     dim):
     """The bf16 instance on bf16 caches against its plain version (q
     rounded and then scaled in bf16, float32 softmax, the normalised
     weights rounded to bf16, a float32 context): the smoke's shape (B 64,
-    H 8, beam 10, 48 steps, Dh 64), the lane split (B·H 8), head dims 16
-    to 1000 (256 context columns a block), beams 3 to 70; windows of 12,
-    24 and 48 positions and of one lane. Tolerance: one bf16 ulp of a
+    H 8, beam 10, 48 steps, Dh 64), the lane split (B·H 8, 32 and 128:
+    clusters of 8, 4 and 2 blocks), head dims 8 to 1000, beams 3 to 70
+    (slot groups of 16); windows of 12, 24 and 48 positions and of one
+    lane. Each shape launches the instance the shape gate names: the
+    one-pass kernel where it takes the shape
+    (``lineage_bf16_pass_plan``), the scratch design past it (odd
+    lane counts, head dims past 256). Tolerance: one bf16 ulp of a
     weight times the largest value (``_bf16_weight_tolerance``), and at
     most 1% of the rows more than 2^-16 of it apart
     (``_bf16_rows_apart``)."""
@@ -1911,16 +1917,22 @@ def test_lineage_kernel_bf16_caches(cuda_device, batch, heads, beam, time,
                               la.lane_window(win, beam, total), time)
               for win in (12, 24, 48)]
     biases.append(biases[0][..., :1].contiguous())
-    name = "lineage_attention_bf16"
+    instances = ("lineage_attention_bf16", "lineage_attention_bf16_scratch")
     for bias in biases:
+        lanes = bias.shape[-1]
+        plan = la.lineage_bf16_pass_plan(
+            batch, heads, beam, dim, total, lanes,
+            *kernel_config.device_limits(0))
+        assert (plan is not None) == (total % 8 == 0 and dim <= 256)
+        name = instances[plan is None]
         kernel_config.reset_launch_counts()
         got = la.lineage_attention(q, kq, vq, bias)
         torch.cuda.synchronize()
         counts = kernel_config.launch_counts()
         assert counts[name] == 1 and counts["lineage_attention"] == 0, counts
+        assert sum(counts[k] for k in instances) == 1, counts
         assert got.dtype == torch.float32
         ref = la.lineage_attention_reference(q, kq, vq, bias)
-        lanes = bias.shape[-1]
         tol = _bf16_weight_tolerance(vq[:, :, :lanes])
         torch.testing.assert_close(got, ref, atol=tol, rtol=0,
                                    msg=f"{lanes} lanes")
@@ -1950,11 +1962,11 @@ def test_fused_xent_bf16_w_kernels(cuda_device, n, d, v, transposed, eps):
     """The bf16-W instances of the three B7 kernels against the plain
     versions on the widened W, within 1e-5 as the float32 instances; dW
     comes back float32 from the kernel (the autograd Function rounds it
-    to bf16). The backward runs on warpgroup products where W's bf16
-    rows are 16-byte aligned (D % 8 == 0 tied, V % 8 == 0 untied), else
-    on the instances that widen W as they stage it; the shapes cross the
-    new kernels' tile edges (N not a multiple of 64 or 128, V 129, D past
-    one 512-column pass)."""
+    to bf16). The three run on warpgroup products where W's bf16 rows
+    are 16-byte aligned (D % 8 == 0 tied, V % 8 == 0 untied), else on
+    the instances that widen W as they stage it; the shapes cross the
+    new kernels' tile edges (N not a multiple of 64 or 128, V 129 and
+    520, past one 256-column tile, D past one 512-column pass)."""
     x = _randn(cuda_device, n, d, scale=0.3)
     w = _randn(cuda_device, *((v, d) if transposed else (d, v)),
                scale=0.05, seed=1).to(torch.bfloat16)
@@ -1970,11 +1982,9 @@ def test_fused_xent_bf16_w_kernels(cuda_device, n, d, v, transposed, eps):
                                     transposed)
     torch.cuda.synchronize()
     counts = kernel_config.launch_counts()
-    assert (counts["fused_xent_fwd_bf16w"], counts["fused_xent_fwd"]) == (
-        1, 0), counts
     widened = not fused_xent.wgmma_takes(d, v, transposed)
     assert widened == ((d if transposed else v) % 8 != 0)
-    for k in ("fused_xent_bwd_dx", "fused_xent_bwd_dw"):
+    for k in ("fused_xent_fwd", "fused_xent_bwd_dx", "fused_xent_bwd_dw"):
         assert (counts[k + "_bf16w"], counts[k + "_bf16w_widened"],
                 counts[k]) == ((0, 1, 0) if widened else (1, 0, 0)), counts
     wide = w.float()
@@ -2021,6 +2031,33 @@ def test_fused_xent_bf16_w_backward_is_deterministic(cuda_device, n, d, v,
             counts["fused_xent_bwd_dw_bf16w"]) == (2, 2), counts
     for a, c in zip(first, second):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n,d,v,transposed", [(3072, 512, 30000, True),
+                                               (333, 130, 1000, False),
+                                               (100, 600, 520, True)])
+def test_fused_xent_bf16_w_forward_is_deterministic(cuda_device, n, d, v,
+                                                   transposed):
+    """Two calls of the bf16-W forward on warpgroup products give
+    bitwise-equal nll and lse (each row's chunk partials fold in one
+    fixed order, no atomics), within 1e-5 of the widened design on the same
+    operands."""
+    x = _randn(cuda_device, n, d, scale=0.3)
+    w = _randn(cuda_device, *((v, d) if transposed else (d, v)),
+               scale=0.05, seed=1).to(torch.bfloat16)
+    b = _randn(cuda_device, v, scale=0.1, seed=2)
+    targets = torch.arange(n, dtype=torch.int32, device=cuda_device) * 7 % v
+    assert fused_xent.wgmma_takes(d, v, transposed)
+    kernel_config.reset_launch_counts()
+    first = fused_xent.xent_fwd(x, w, b, targets, 0.1, transposed)
+    second = fused_xent.xent_fwd(x, w, b, targets, 0.1, transposed)
+    assert kernel_config.launch_counts()["fused_xent_fwd_bf16w"] == 2
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    old = fused_xent.launch_fwd("fused_xent_fwd_bf16w_widened", x, w, b,
+                                targets, 0.1, transposed)
+    for a, c in zip(first, old):
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-5)
 
 
 def test_fused_xent_autograd_rounds_dw_to_bf16(cuda_device):

@@ -9,6 +9,8 @@ walks, what fits an H100's shared memory and SM count, and which layout
 each shape gets. The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``)."""
 
+import math
+
 import pytest
 
 from neuralmonkey_tpu_torch.ops import beam_select, cuda_attention, cuda_rnn
@@ -422,18 +424,83 @@ def test_wgmma_gate_sends_unaligned_strides_to_the_widening_instances(
     """The shape gate sends exactly the W layouts whose bf16 rows do not
     start on 16-byte boundaries (a TMA descriptor's stride rule too): D
     % 8 != 0 for the tied (V, D) table, V % 8 != 0 for an untied (D, V)
-    W, to PR 15's instances; x's parts are padded to 8 columns, so D
-    does not gate an untied W. float32 W never reaches either."""
+    W, to the widened instances, the forward's as the backward's; x's parts
+    are padded to 8 columns, so D does not gate an untied W. float32 W
+    never reaches either."""
     import torch
     stride = d if transposed else v
     assert fused_xent.wgmma_takes(d, v, transposed) == (stride % 8 == 0)
     w = torch.empty((v, d) if transposed else (d, v), dtype=torch.bfloat16)
-    for kernel in ("fused_xent_bwd_dx", "fused_xent_bwd_dw"):
+    for kernel in ("fused_xent_fwd", "fused_xent_bwd_dx",
+                   "fused_xent_bwd_dw"):
         want = kernel + ("_bf16w" if stride % 8 == 0 else "_bf16w_widened")
         assert fused_xent._instance(kernel, w, transposed) == want
         assert fused_xent._instance(kernel, w.float(), transposed) == kernel
-    assert fused_xent._instance("fused_xent_fwd", w, transposed) == (
-        "fused_xent_fwd_bf16w")
+
+
+@pytest.mark.parametrize("n,d,v", WGMMA_SHAPES)
+def test_wgmma_fwd_plan_visits_every_tile_once(n, d, v):
+    """The bf16-W forward on warpgroup products: every (128-row tile,
+    256-column vocabulary tile) pair lies in exactly one block, whose
+    chunk of the vocabulary tiles is balanced and contiguous, as the
+    kernel computes it (s T / S .. (s + 1) T / S); each block sums over
+    all of D (padded to 8) in one pass, and the tiles cover N and V."""
+    plan = fused_xent.wgmma_fwd_plan(n, d, v, H100_SMS, H100_SMEM)
+    row_tiles, vocab_tiles = -(-n // 128), -(-v // 256)
+    assert (plan.rows, plan.vocab_tile) == (128, 256)
+    assert (row_tiles - 1) * 128 < n <= row_tiles * 128
+    assert (vocab_tiles - 1) * 256 < v <= vocab_tiles * 256
+    assert plan.grid == (row_tiles, plan.splits, 1)
+    visits = [(o, t) for o in range(row_tiles) for first, end in plan.walks
+              for t in range(first, end)]
+    assert sorted(visits) == [(o, t) for o in range(row_tiles)
+                              for t in range(vocab_tiles)]
+    sizes = [end - first for first, end in plan.walks]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert plan.walks == tuple(
+        (s * vocab_tiles // plan.splits, (s + 1) * vocab_tiles // plan.splits)
+        for s in range(plan.splits))
+    assert plan.d_passes == 1 and plan.d_pass == -(-d // 8) * 8 >= d
+
+
+@pytest.mark.parametrize("n,d,v", WGMMA_SHAPES)
+def test_wgmma_fwd_plan_fits_the_card(n, d, v):
+    """The ring (5 stages of x's three 128 x 32 bf16 parts and W's 256 x
+    32), with 1024 bytes to put it on a 1024-byte boundary and 128 for
+    the stages' mbarriers, fits the 227 KB a block may take, one block an
+    SM; two product warpgroups, each 64 x 256 sums of the block's
+    128 x 256 logit tile (128 a thread), and the copying warpgroup."""
+    plan = fused_xent.wgmma_fwd_plan(n, d, v, H100_SMS, H100_SMEM)
+    assert plan.stage_bytes == 2 * (3 * 128 * 32 + 256 * 32) == 40960
+    assert plan.smem_bytes == 5 * 40960 + 1152 == 205952 <= H100_SMEM
+    assert plan.stages == 5 and plan.blocks_per_sm == 1
+    assert plan.threads == 3 * 128 and plan.thread_sums == 128
+    assert (plan.threads - 128) * plan.thread_sums == (
+        plan.rows * plan.vocab_tile)
+
+
+def test_wgmma_fwd_plan_fills_the_card_at_the_bench_shape():
+    """N 3072, D 512, V 30000: 24 row tiles x 11 chunks of 10-11 of the
+    118 vocabulary tiles, 264 blocks, two full waves on the 132 SMs; no
+    other split walks fewer tiles in its waves, and any with as few has
+    more chunks (more partials)."""
+    plan = fused_xent.wgmma_fwd_plan(3072, 512, 30000, H100_SMS, H100_SMEM)
+    assert plan.grid == (24, 11, 1)
+    assert {end - first for first, end in plan.walks} == {10, 11}
+    blocks = plan.grid[0] * plan.grid[1]
+    assert blocks == 2 * H100_SMS
+
+    def walk(splits):
+        return -(-24 * splits // H100_SMS) * -(-118 // splits)
+    assert walk(11) == 22
+    assert all(walk(s) >= 22 for s in range(1, 119))
+    assert all(walk(s) > 22 for s in range(1, 11))
+
+
+@pytest.mark.parametrize("sms,smem", [(0, H100_SMEM), (132, 200 * 1024)])
+def test_wgmma_fwd_plan_raises_where_nothing_fits(sms, smem):
+    with pytest.raises(ValueError, match="fused_xent_fwd_bf16w"):
+        fused_xent.wgmma_fwd_plan(3072, 512, 30000, sms, smem)
 
 
 # (batch, hidden, directions): the smoke's encoder, the card tests'
@@ -1161,3 +1228,174 @@ def test_lineage_bf16_plan_covers_every_lane_slot_and_column(batch, heads,
     assert (plan.splits - 1) * plan.chunk < lanes <= plan.splits * plan.chunk
     blocks = batch * heads * plan.slot_tiles * plan.column_blocks
     assert (plan.splits > 1) == (blocks < 2 * 132 and lanes > 64)
+
+
+# ---------------------------------------------------------------------- #
+# the bf16 lineage instance in one pass
+# ---------------------------------------------------------------------- #
+# (batch, heads, beam, head dim, total lanes, lanes read): the smoke's beam
+# step at windows 48, 12 and 24 and of one lane, its B 1 and head dim 32,
+# examples/transformer_bpe.ini's (beam 10 x 64 steps), the card tests'
+# beams past 16, head dims 8 to 256, and windows past one block's shared
+# memory
+PASS_SHAPES = [(64, 8, 10, 64, 480, 480), (64, 8, 10, 64, 480, 120),
+               (64, 8, 10, 64, 480, 240), (64, 8, 10, 64, 480, 1),
+               (1, 8, 10, 64, 480, 480), (4, 2, 10, 32, 480, 480),
+               (64, 8, 10, 64, 640, 640), (4, 8, 10, 64, 480, 480),
+               (2, 2, 20, 64, 160, 160), (2, 4, 17, 128, 160, 100),
+               (3, 2, 70, 256, 560, 560), (1, 1, 1, 8, 8, 8),
+               (16, 8, 10, 64, 480, 480), (64, 8, 10, 64, 20000, 20000),
+               (2, 2, 4, 248, 4000, 3999)]
+
+
+def _pass_plan(batch, heads, beam, dim, total, lanes, aligned=True):
+    return la.lineage_bf16_pass_plan(batch, heads, beam, dim, total, lanes,
+                                     H100_SMS, H100_SMEM, aligned)
+
+
+@pytest.mark.parametrize("batch,heads,beam,dim,total,lanes", PASS_SHAPES)
+def test_lineage_bf16_pass_plan_owns_every_lane_once(batch, heads, beam,
+                                                     dim, total, lanes):
+    """The cluster's ranks own chunks of whole 64-lane tiles that cover
+    the window's lanes once, none empty (the kernel's own bounds: rank r
+    lanes r * chunk .. min(W, (r + 1) * chunk)); slot groups of 16 cover
+    the beam; the head dim pads to 64, 128 or 256."""
+    plan = _pass_plan(batch, heads, beam, dim, total, lanes)
+    assert plan is not None
+    assert plan.chunk % 64 == 0 and 1 <= plan.cluster <= 8
+    ranks = [range(r * plan.chunk, min(lanes, (r + 1) * plan.chunk))
+             for r in range(plan.cluster)]
+    assert all(len(chunk) for chunk in ranks)
+    assert [lane for chunk in ranks for lane in chunk] == list(range(lanes))
+    assert 16 * plan.groups >= beam > 16 * (plan.groups - 1)
+    assert plan.dmax == min(pad for pad in (64, 128, 256) if dim <= pad)
+
+
+@pytest.mark.parametrize("batch,heads,beam,dim,total,lanes", PASS_SHAPES)
+def test_lineage_bf16_pass_plan_fits_shared_memory(batch, heads, beam, dim,
+                                                   total, lanes):
+    """A block holds its ring of 64 x dmax bf16 tiles, q, its chunk's
+    scores (a row of chunk + 4 floats for each of its slots, at most 16)
+    and the rows' partials within the 227 KB a block may take: the
+    window's scores fit one block, or the cluster's blocks together; 2-4
+    stages, no more than the chunk's K and V tiles; the stages the fewest
+    waves of resident blocks, then the most tiles in flight an SM."""
+    plan = _pass_plan(batch, heads, beam, dim, total, lanes)
+    rows = min(16, beam)
+    assert plan.smem_bytes == la.bf16_pass_smem_bytes(plan.dmax, plan.chunk,
+                                                      plan.stages, rows)
+    assert plan.smem_bytes == (1024 + 2 * plan.stages * 64 * plan.dmax
+                               + 2 * 16 * (plan.dmax + 8)
+                               + 4 * rows * (plan.chunk + 4) + 4 * 160
+                               + 16 * plan.stages)
+    assert plan.smem_bytes <= H100_SMEM
+    assert plan.cluster * plan.chunk >= lanes
+    assert 2 <= plan.stages <= max(2, min(4, 2 * plan.chunk // 64))
+    resident = min(2048 // 256,
+                   la.SM_SHARED_BYTES // (plan.smem_bytes + 1024))
+    assert plan.blocks_per_sm == resident
+    blocks = batch * heads * plan.groups * plan.cluster
+
+    def waves(per_sm):
+        return -(-blocks // (per_sm * H100_SMS))
+    for stages in range(2, max(2, min(4, 2 * plan.chunk // 64)) + 1):
+        smem = la.bf16_pass_smem_bytes(plan.dmax, plan.chunk, stages, rows)
+        other = min(8, la.SM_SHARED_BYTES // (smem + 1024))
+        assert smem > H100_SMEM or (waves(other), -other * stages) >= (
+            waves(resident), -resident * plan.stages)
+
+
+def test_lineage_bf16_pass_plan_at_the_smoke_shape():
+    """B 64, H 8, beam 10, 480 lanes, Dh 64: one block a (b, h), no
+    cluster, the window's 480 lanes in 8 tiles, 3 stages, 48 KB, 4 blocks
+    an SM: the 512 blocks in one wave on 132 SMs (4 stages would leave 3
+    blocks an SM, two waves)."""
+    plan = _pass_plan(64, 8, 10, 64, 480, 480)
+    assert plan == la.LineageBf16PassPlan(64, 1, 1, 512, 3, 49232, 4)
+    assert 512 <= plan.blocks_per_sm * H100_SMS
+
+
+@pytest.mark.parametrize("batch,heads,cluster", [
+    (64, 8, 1), (17, 8, 1), (16, 8, 2), (8, 8, 3), (4, 8, 4), (2, 8, 8),
+    (1, 8, 8), (4, 2, 8), (1, 1, 8)])
+def test_lineage_bf16_pass_plan_clusters_only_at_the_lane_split(
+        batch, heads, cluster):
+    """Over the smoke's 480 lanes (8 tiles), whose scores fit one block:
+    a cluster only where the (b, h) blocks do not fill the 132 SMs, its
+    ranks chunks of whole tiles, as many as fill the card (at most 8):
+    8 / n tiles each, rounded up, for n = 132 / blocks, rounded up."""
+    plan = _pass_plan(batch, heads, 10, 64, 480, 480)
+    blocks = batch * heads
+    assert plan.cluster == cluster
+    assert (plan.cluster > 1) == (blocks < H100_SMS)
+    if plan.cluster > 1:
+        assert plan.chunk == 64 * -(-8 // min(8, -(-H100_SMS // blocks)))
+
+
+@pytest.mark.parametrize("lanes,cluster", [(5248, 1), (5249, 2),
+                                           (20000, 4), (41984, 8),
+                                           (41985, None), (60000, None)])
+def test_lineage_bf16_pass_plan_splits_what_one_block_cannot_hold(lanes,
+                                                                   cluster):
+    """At B 64, H 8 (blocks that fill the card) a window whose scores do
+    not fit one block's shared memory takes the fewest ranks whose chunks
+    fit; past 8 ranks the one-pass kernel does not take it."""
+    plan = _pass_plan(64, 8, 10, 64, -(-lanes // 8) * 8, lanes)
+    assert (plan and plan.cluster) == cluster
+
+
+@pytest.mark.parametrize("batch,heads,beam,dim,total,lanes,aligned,takes", [
+    (64, 8, 10, 64, 480, 480, True, True),    # the smoke's beam step
+    (64, 8, 10, 64, 480, 120, True, True),    # its window of 12
+    (1, 8, 10, 64, 480, 480, True, True),     # its B 1
+    (4, 2, 10, 32, 480, 480, True, True),     # its head dim 32
+    (64, 8, 10, 64, 640, 640, True, True),    # transformer_bpe.ini
+    (8, 4, 4, 8, 80, 80, True, True),         # transformer.ini's head dim
+    (4, 2, 10, 512, 480, 480, True, False),   # the smoke's head dim 512
+    (2, 2, 10, 640, 120, 120, True, False),   # and 640
+    (1, 2, 10, 1000, 120, 120, True, False),  # the card tests' 1000
+    (2, 2, 10, 264, 480, 480, True, False),   # past the tiles' 256
+    (3, 2, 3, 32, 15, 15, True, False),       # odd L (the card tests')
+    (2, 4, 17, 40, 340, 340, True, False),
+    (2, 2, 70, 16, 420, 420, True, False),
+    (4, 2, 10, 42, 480, 480, True, False),    # Dh % 8 != 0
+    (4, 2, 10, 12, 480, 480, True, False),
+    (64, 8, 10, 64, 480, 480, False, False)])  # caches not 16-byte aligned
+def test_lineage_bf16_gate_sends_each_shape_to_its_instance(
+        monkeypatch, batch, heads, beam, dim, total, lanes, aligned, takes):
+    """The shape gate (a plan or None, from shapes and alignment alone)
+    and the wrapper's routing on it: the one-pass kernel
+    (``lineage_attention_bf16``) with the plan's launch where it takes
+    the shape, else the scratch design (``lineage_attention_bf16_scratch``)
+    with its own. The launch is recorded, not run (CPU tensors)."""
+    import torch
+
+    from neuralmonkey_tpu_torch.ops import kernel_config
+    plan = _pass_plan(batch, heads, beam, dim, total, lanes, aligned)
+    assert (plan is not None) == takes
+    launched = []
+    monkeypatch.setattr(kernel_config, "check_cuda_inputs",
+                        lambda *args, **kwargs: None)
+    monkeypatch.setattr(kernel_config, "tensor_device_limits",
+                        lambda tensor: (H100_SMS, H100_SMEM))
+    monkeypatch.setattr(kernel_config, "launch",
+                        lambda name, *args: launched.append((name, args)))
+    monkeypatch.setattr(la, "_aligned", lambda *tensors: aligned)
+    q = torch.zeros(batch, heads, beam, dim)
+    kq = torch.zeros(batch, heads, dim, total, dtype=torch.bfloat16)
+    vq = torch.zeros(batch, heads, total, dim, dtype=torch.bfloat16)
+    bias = torch.zeros(batch, beam, lanes)
+    la._lineage_attention_bf16(q, kq, vq, bias)
+    [(name, args)] = launched
+    sizes = (batch, heads, beam, dim, total, lanes)
+    if takes:
+        assert name == "lineage_attention_bf16"
+        assert args[5:] == sizes + (plan.dmax, plan.cluster, plan.chunk,
+                                    plan.stages, plan.smem_bytes,
+                                    1.0 / math.sqrt(dim))
+    else:
+        scratch = la.lineage_bf16_plan(batch, heads, beam, dim, lanes,
+                                       H100_SMS)
+        assert name == "lineage_attention_bf16_scratch"
+        assert args[7:] == sizes + (scratch.splits, scratch.chunk,
+                                    1.0 / math.sqrt(dim))

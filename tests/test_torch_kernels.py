@@ -195,7 +195,8 @@ def test_every_kernel_has_an_entry_point_in_the_sources():
         "flash_attention_bwd_dkv_chunked", "lineage_attention_chunked",
         "lineage_attention_bf16", "fused_xent_fwd_bf16w",
         "fused_xent_bwd_dx_bf16w", "fused_xent_bwd_dw_bf16w",
-        "fused_xent_bwd_dx_bf16w_widened", "fused_xent_bwd_dw_bf16w_widened"}
+        "fused_xent_bwd_dx_bf16w_widened", "fused_xent_bwd_dw_bf16w_widened",
+        "fused_xent_fwd_bf16w_widened", "lineage_attention_bf16_scratch"}
     for entry in kernel_config.ENTRY_POINTS.values():
         assert f"NM_EXPORT int {entry}(" in sources
 
