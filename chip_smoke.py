@@ -223,7 +223,25 @@ Phases (any failure raises and the script exits non-zero):
    a bf16 W (1e-5, 1e-4 as their float32 instances), each timed beside
    the kept design on the same operands (``pr15_design_ms``), the forward's
    second call bitwise equal to its first; phase 24 must never launch
-   the kept designs.
+   the kept designs;
+25. ensembles, averaging and grid decoding: phase 4's model and a second
+   member initialised from another seed decode the 128 sentences through
+   ``run`` as a logit ensemble (greedy and beam 10): K1, K2 and K4 must
+   launch, K3 and ``rowmax_lse`` never (the selector takes the averaged
+   log-probs); 8 of them against the CPU's ensemble by phase 5's rule,
+   the greedy margins taken on the CPU's averaged log-probs. The two
+   checkpoints averaged by ``utils.average_checkpoints`` must equal the
+   numpy mean bitwise, and ``run --average`` must decode the ids of
+   ``run`` on that file. Phase 9's Transformer with a second member
+   decodes as an ensemble by default and under ``NM_LINEAGE_KERNEL=1``
+   (the same ids in both): the flash forward and K4 must launch, the
+   lineage attention (any instance), K3 and ``rowmax_lse`` never; 8
+   sentences against the CPU by phase 5's rule. Phase 18's labeler
+   (``max_input_len`` 32, alone) labels 128 sentences of 80-200 words
+   through ``run --grid``: K1 must launch and each output line must have
+   its sentence's length. The ensemble, ``--average`` and grid rates and
+   the hand-written kernels' launches per decode step print beside phase
+   4's single-model rates.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -434,7 +452,8 @@ def import_everything() -> None:
         kernel_config, lineage_attention, moe, nn, policy)
     from neuralmonkey_tpu_torch.trainers import (  # noqa: F401
         delayed_update_trainer, rl_trainer)
-    from neuralmonkey_tpu_torch.utils import saving  # noqa: F401
+    from neuralmonkey_tpu_torch.utils import (  # noqa: F401
+        average_checkpoints, saving)
 
 
 def log(message: str) -> None:
@@ -2252,20 +2271,23 @@ def run_slice(tmp: str):
     return launches, lengths, speed, exp, ckpt, data_ini
 
 
-def serve_through_run(exp_ini: str, data_ini: str, ckpt: str, expected,
-                      outputs, label: str):
-    """One ``run`` CLI pass from ``ckpt`` with the launch counts set to 0
-    just before it: (its launches, the lines of each output file). Every
-    kernel in ``expected`` must have launched."""
+def serve_through_run(exp_ini: str, data_ini: str, ckpt, expected,
+                      outputs, label: str, flags=(), forbidden=()):
+    """One ``run`` CLI pass from ``ckpt`` (a path, or a list of them: an
+    ensemble, or averaged with ``flags`` ``("--average",)``) with the
+    launch counts set to 0 just before it: (its launches, the lines of
+    each output file). Every kernel in ``expected`` must have launched,
+    none in ``forbidden``."""
     import torch
 
     from neuralmonkey_tpu_torch import run
     from neuralmonkey_tpu_torch.ops import kernel_config
 
+    ckpts = [ckpt] if isinstance(ckpt, str) else list(ckpt)
     kernel_config.reset_launch_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    if run.main([exp_ini, data_ini, ckpt]) != 0:
+    if run.main([exp_ini, data_ini, *ckpts, *flags]) != 0:
         raise AssertionError(f"{label}: neuralmonkey_tpu_torch.run failed")
     torch.cuda.synchronize()
     run_seconds = time.perf_counter() - start
@@ -2275,6 +2297,10 @@ def serve_through_run(exp_ini: str, data_ini: str, ckpt: str, expected,
     if missing:
         raise AssertionError(f"{label}: kernels never launched by the run: "
                              f"{missing}")
+    wrong = [k for k in forbidden if launches[k]]
+    if wrong:
+        raise AssertionError(f"{label}: kernels that this path must not "
+                             f"launch were launched: {wrong}")
     lines = {}
     for path in outputs:
         with open(path) as f:
@@ -2321,17 +2347,18 @@ def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix="",
 # ---------------------------------------------------------------------- #
 # phase 5: CPU (plain versions) against the card (kernels)
 # ---------------------------------------------------------------------- #
-def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
+def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
                  dataset=None, margin: float = MARGIN):
     """Phase 5's rule on the first N_PARITY sentences of ``data_ini``, or
     on ``dataset``; the beam part where the model has a second (beam
     search) runner; ``margin`` the gap below which the devices may
-    choose apart (``BF16_MARGIN`` under the bf16 policy)."""
+    choose apart (``BF16_MARGIN`` under the bf16 policy). With a list of
+    checkpoints (``gpu_exp`` restored from the same), the ensemble's:
+    the greedy margins are the gaps of the CPU's averaged log-probs."""
     import torch
 
     from neuralmonkey_tpu_torch import run
     from neuralmonkey_tpu_torch.experiment import Experiment
-    from neuralmonkey_tpu_torch.model.part import Context
     from neuralmonkey_tpu_torch.models.decoders import beam_search_decoder
 
     if dataset is None:
@@ -2349,11 +2376,17 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
     greedy_margins, beam_gaps = [], []
     picks = {"cpu": [], "gpu": []}
     decoder = cpu_exp.model.runners[0].decoder
-    plain_step = decoder.decode_step
+    # a single model's greedy step gives its logits; an ensemble's models
+    # each take the step, and the averaged log-probs reach ``_mask_unk``
+    # once a step
+    hooked = ("_mask_unk" if len(cpu_exp.tf_manager.params_list) > 1
+              else "decode_step")
+    plain_step = getattr(decoder, hooked)
 
-    def recording_step(constants, state, prev_ids, step):
-        out = plain_step(constants, state, prev_ids, step)
-        top2 = out[1].topk(2, dim=-1).values
+    def recording_step(*args):
+        out = plain_step(*args)
+        scores = out if hooked == "_mask_unk" else out[1]
+        top2 = scores.topk(2, dim=-1).values
         greedy_margins.append(top2[:, 0] - top2[:, 1])
         return out
 
@@ -2378,8 +2411,8 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
         search = exp.model.runners[1].decoder
         plain_select = search._select_hier
 
-        def select(x, state, batch, precomputed=None):
-            out = plain_select(x, state, batch, precomputed=precomputed)
+        def select(x, state, batch, **kwargs):
+            out = plain_select(x, state, batch, **kwargs)
             log.append(torch.stack(out[:2], dim=-1).cpu())
             return out
         search._select_hier = select
@@ -2391,14 +2424,14 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
         # batch of a dataset
         batch, _ = exp.tf_manager.build_batch(dataset, n + 3)
         with torch.inference_mode():
-            ctx = Context(exp.tf_manager.params, batch)
-            greedy = exp.model.runners[0].fetches(ctx)["decoded"][:n].cpu()
-            if not has_beam:
-                return greedy, None
-            beam = exp.model.runners[1].fetches(ctx)["token_ids"][:, 0]
-        return greedy, beam[:n].cpu()
+            fetched = exp.tf_manager.fetch(
+                exp.model.runners[:1 + has_beam], batch)
+        greedy = fetched[0]["decoded"][:n].cpu()
+        if not has_beam:
+            return greedy, None
+        return greedy, fetched[1]["token_ids"][:n, 0].cpu()
 
-    decoder.decode_step = recording_step
+    setattr(decoder, hooked, recording_step)
     beam_search_decoder.small_topk = recording_topk
     if has_beam:
         record_picks(cpu_exp, picks["cpu"])
@@ -2408,7 +2441,7 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt: str,
         gpu_greedy, gpu_beam = decode(gpu_exp)
     finally:
         beam_search_decoder.small_topk = plain_topk
-        del decoder.decode_step
+        delattr(decoder, hooked)
         if has_beam:
             for exp in (cpu_exp, gpu_exp):
                 del exp.model.runners[1].decoder._select_hier
@@ -4789,6 +4822,252 @@ def check_bf16_policy(tmp: str, rnn, transformer):
     return launches, report
 
 
+# ---------------------------------------------------------------------- #
+# phase 25: checkpoint ensembles, averaging and grid decoding
+# ---------------------------------------------------------------------- #
+ENSEMBLE_SEED = SEED + 25
+ENSEMBLE_KERNELS = ("gru_scan", "fused_bahdanau_step", "small_topk")
+T_ENSEMBLE_KERNELS = ("flash_attention_fwd", "small_topk")
+# an ensemble selects on averaged log-probs: the fused logit projection
+# is never armed and the selector reduces no raw logits; its loop states
+# stay plainly row-tiled, never in the lineage kernel's layout
+NOT_IN_ENSEMBLES = ("fused_logits_rowmax_lse", "rowmax_lse")
+LINEAGE_KERNELS = ("lineage_attention", "lineage_attention_chunked",
+                   "lineage_attention_bf16", LINEAGE_SCRATCH)
+GRID_LENGTHS = (80, 200)
+GRID_KERNELS = ("gru_scan",)
+
+GRID_TRAINER = """\
+[trainer]
+class=trainers.cross_entropy_trainer.CrossEntropyTrainer
+decoders=[<labeler>]
+clip_norm=1.0
+optimizer=<adam>
+
+"""
+GRID_DATA_INI = """\
+[main]
+test_datasets=[<grid_data>]
+
+[grid_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/grid.src"
+s_tags_out="{tmp}/grid.tags"
+"""
+
+
+def second_checkpoint(exp_ini: str, tmp: str, name: str) -> str:
+    """The model of ``exp_ini`` initialised from ``ENSEMBLE_SEED``,
+    saved under ``tmp``: the ensemble's second member."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    exp = Experiment(exp_ini, train_mode=False, config_changes=[
+        f"main.random_seed={ENSEMBLE_SEED}"])
+    exp.build_model()
+    return exp.tf_manager.save(os.path.join(tmp, name))
+
+
+def launches_per_step(exp, ckpt, data_ini: str):
+    """One pass of each runner of ``exp`` over the first batch of
+    ``data_ini``'s data from ``ckpt`` (a list: an ensemble), with the
+    hand-written kernels' launches counted from 0 and the decode steps
+    counted at the step's selection (greedy: ``_mask_unk``, once a step
+    for one model or an ensemble; beam: the selector)."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.ops import kernel_config
+
+    exp.tf_manager.restore(ckpt)
+    dataset = run.load_data_config(data_ini)[0].subset(0, BATCH)
+    report = {}
+    for runner in exp.model.runners:
+        search = runner.decoder
+        name = ("_select_hier" if hasattr(search, "beam_size")
+                else "_mask_unk")
+        plain = getattr(search, name)
+        steps = []
+
+        def counting(*args, **kwargs):
+            steps.append(1)
+            return plain(*args, **kwargs)
+        setattr(search, name, counting)
+        try:
+            kernel_config.reset_launch_counts()
+            exp.tf_manager.execute(dataset, [runner], BATCH)
+            torch.cuda.synchronize()
+            counts = kernel_config.launch_counts()
+        finally:
+            delattr(search, name)
+        report[runner.output_series] = {
+            "steps": len(steps),
+            "launches_per_step": sum(counts.values()) / len(steps),
+            "by_kernel": {k: n for k, n in counts.items() if n}}
+    return report
+
+
+def check_ensembles(tmp: str, data_ini: str, ckpt: str, t_ini: str,
+                    t_ckpt: str, single_speed):
+    """Phase 25. The RNN of phase 4 with a second member initialised
+    from another seed: both through ``run`` as a logit ensemble (greedy
+    and beam 10; K1, K2 and K4 launch, K3 and ``rowmax_lse`` never), 8
+    sentences against the CPU's ensemble by phase 5's rule; the
+    checkpoints averaged by ``utils.average_checkpoints`` (bitwise the
+    numpy mean on the host), ``run --average`` giving the ids of ``run``
+    on that file. Phase 9's Transformer with a second member: beam 10 as
+    an ensemble by default and under ``NM_LINEAGE_KERNEL=1`` (the flash
+    forward and K4 launch, the lineage attention never), 8 sentences
+    against the CPU. Phase 18's labeler (``max_input_len`` 32) labels
+    128 sentences of 80-200 words through ``run --grid`` (K1 launches),
+    each output line as long as its sentence. The rates and the launches
+    per decode step beside phase 4's single model. Returns (the main-path
+    runs' launches, report)."""
+    import numpy as np
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.ops import kernel_config
+    from neuralmonkey_tpu_torch.utils import average_checkpoints
+    from neuralmonkey_tpu_torch.utils.saving import load_flat
+
+    report = {}
+    exp_ini = os.path.join(tmp, "exp.ini")
+    ckpts = [ckpt, second_checkpoint(exp_ini, tmp, "params_b")]
+    e_data = os.path.join(tmp, "e_data.ini")
+    with open(e_data, "w") as f:
+        f.write(DATA_INI.format(tmp=tmp, prefix="e_"))
+    outputs = [os.path.join(tmp, f"e_{n}.txt") for n in ("greedy", "beam")]
+    launches, _ = serve_through_run(
+        exp_ini, e_data, ckpts, ENSEMBLE_KERNELS, outputs, "rnn ensemble",
+        forbidden=NOT_IN_ENSEMBLES)
+    exp = Experiment(exp_ini, train_mode=False)
+    exp.build_model()
+    exp.tf_manager.restore(ckpts)
+    rnn = {"parity": check_parity(exp_ini, e_data, exp, ckpts),
+           "speed": serving_speed(exp, ckpts, e_data, exp.model.runners,
+                                  " (ensemble of 2)"),
+           "single model speed (phase 4)": single_speed,
+           "launches_per_step": launches_per_step(exp, ckpts, e_data),
+           "single model launches_per_step": launches_per_step(
+               exp, ckpt, e_data)}
+
+    # --average: one parameter set, the checkpoints' mean
+    averaged = os.path.join(tmp, "params_avg.npz")
+    if average_checkpoints.main([averaged, *ckpts]) != 0:
+        raise AssertionError("utils.average_checkpoints failed")
+    flats = [load_flat(path) for path in ckpts]
+    written = load_flat(averaged)
+    if set(written) != set(flats[0]):
+        raise AssertionError("the averaged checkpoint's keys differ")
+    for key, value in written.items():
+        host = np.mean(np.stack([flat[key] for flat in flats]), axis=0,
+                       dtype=np.float32).astype(flats[0][key].dtype)
+        if value.dtype != host.dtype or not np.array_equal(value, host):
+            raise AssertionError(f"averaged '{key}' is not the numpy mean")
+    a_launches, from_flag = serve_through_run(
+        exp_ini, e_data, ckpts, SERVING_KERNELS, outputs, "rnn --average",
+        flags=("--average",))
+    f_launches, from_file = serve_through_run(
+        exp_ini, e_data, averaged, SERVING_KERNELS, outputs,
+        "rnn on the averaged checkpoint")
+    if from_flag != from_file:
+        raise AssertionError("run --average and run on the averaged "
+                             "checkpoint decode differently")
+    launches = add_launches(add_launches(launches, a_launches), f_launches)
+    rnn["average"] = {"bitwise_numpy_mean": True,
+                      "ids_equal_single_run_on_file": True,
+                      "speed": serving_speed(exp, averaged, e_data,
+                                             exp.model.runners,
+                                             " (--average)")}
+    report["rnn"] = rnn
+    del exp
+
+    # the Transformer: plain caches in both lineage forms
+    t_ckpts = [t_ckpt, second_checkpoint(t_ini, tmp, "t_params_b")]
+    t_data = os.path.join(tmp, "te_data.ini")
+    with open(t_data, "w") as f:
+        f.write(DATA_INI.format(tmp=tmp, prefix="te_"))
+    t_outputs = [os.path.join(tmp, f"te_{n}.txt")
+                 for n in ("greedy", "beam")]
+    beams = {}
+    for form in ("einsum", "NM_LINEAGE_KERNEL=1"):
+        if form != "einsum":
+            os.environ["NM_LINEAGE_KERNEL"] = "1"
+        try:
+            t_launches, out = serve_through_run(
+                t_ini, t_data, t_ckpts, T_ENSEMBLE_KERNELS, t_outputs,
+                f"transformer ensemble ({form})",
+                forbidden=NOT_IN_ENSEMBLES + LINEAGE_KERNELS)
+        finally:
+            os.environ.pop("NM_LINEAGE_KERNEL", None)
+        launches = add_launches(launches, t_launches)
+        beams[form] = out["te_beam.txt"]
+    if beams["einsum"] != beams["NM_LINEAGE_KERNEL=1"]:
+        raise AssertionError("the Transformer ensemble's beam ids depend "
+                             "on NM_LINEAGE_KERNEL (both forms must run the "
+                             "same plain caches)")
+    t_exp = Experiment(t_ini, train_mode=False)
+    t_exp.build_model()
+    t_exp.tf_manager.restore(t_ckpts)
+    report["transformer"] = {
+        "parity": check_parity(t_ini, t_data, t_exp, t_ckpts),
+        "speed": serving_speed(t_exp, t_ckpts, t_data, t_exp.model.runners,
+                               " (ensemble of 2)"),
+        "launches_per_step": launches_per_step(t_exp, t_ckpts, t_data),
+        "single model launches_per_step": launches_per_step(
+            t_exp, t_ckpt, t_data)}
+    del t_exp
+
+    # --grid: phase 18's labeler over sentences longer than its windows,
+    # alone (the alignment decoder would ask the windows for alignments)
+    heads_ini = os.path.join(tmp, "grid.ini")
+    text = HEADS_INI.format(
+        tmp=tmp, out=os.path.join(tmp, "grid_out"), batch=BATCH, seed=SEED,
+        rnn=RNN, src_len=SRC_LEN, emb=EMB, att=ATT, tgt_len=TGT_LEN)
+    for name in ("attention", "decoder", "alignment_decoder"):
+        text = swap_section(text, name, "")
+    with open(heads_ini, "w") as f:
+        f.write(swap_section(text, "trainer", GRID_TRAINER))
+    h_exp = Experiment(heads_ini, train_mode=False)
+    h_exp.build_model()
+    h_ckpt = h_exp.tf_manager.save(os.path.join(tmp, "grid_params"))
+    rng = np.random.RandomState(SEED + 26)
+    lengths = rng.randint(GRID_LENGTHS[0], GRID_LENGTHS[1] + 1, N_SENTENCES)
+    with open(os.path.join(tmp, "grid.src"), "w") as f:
+        f.writelines(" ".join(f"w{i}" for i in rng.randint(
+            0, VOCAB - 4, n)) + "\n" for n in lengths)
+    grid_data = os.path.join(tmp, "grid_data.ini")
+    with open(grid_data, "w") as f:
+        f.write(GRID_DATA_INI.format(tmp=tmp))
+    g_launches, tags = serve_through_run(
+        heads_ini, grid_data, h_ckpt, GRID_KERNELS,
+        [os.path.join(tmp, "grid.tags")], "labeler --grid",
+        flags=("--grid",))
+    launches = add_launches(launches, g_launches)
+    short = [i for i, (line, n) in enumerate(zip(tags["grid.tags"], lengths))
+             if len(line.split()) != n]
+    if short:
+        raise AssertionError(f"grid decoding: sentences {short[:5]} got "
+                             "labels not as many as their words")
+    dataset = run.load_data_config(grid_data)[0]
+    run.grid_decode(h_exp, dataset)  # warm-up
+    kernel_config.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run.grid_decode(h_exp, dataset)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    report["grid"] = {"sentences": N_SENTENCES,
+                      "words": int(lengths.sum()),
+                      "window": SRC_LEN,
+                      "sentences_per_s": N_SENTENCES / seconds,
+                      "k1_launches_a_pass": kernel_config.launch_counts()[
+                          "gru_scan"]}
+    log(f"ensembles, --average and --grid: {report}")
+    return launches, report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "neuralmonkey_tpu_torch")):
         log("neuralmonkey_tpu_torch not found beside chip_smoke.py: run "
@@ -4917,6 +5196,10 @@ def main() -> int:
             (os.path.join(tmp, "exp.ini"), data_ini, ckpt, train_ini, best),
             (t_ini, t_data_ini, t_ckpt, t_train_ini, t_best))
         launches = add_launches(launches, b_launches)
+        n_launches, ensembles = phase(
+            "ensembles", check_ensembles, tmp, data_ini, ckpt, t_ini,
+            t_ckpt, speed)
+        launches = add_launches(launches, n_launches)
         # the rates of the same paths in float32 (phases 4, 6, 9, 11) and
         # under the bf16 policy (phase 24), from this run
         bf16["rates"] = {
@@ -4965,6 +5248,7 @@ def main() -> int:
         "moe": moe,
         "speech": speech,
         "bf16_policy": bf16,
+        "ensembles": ensembles,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

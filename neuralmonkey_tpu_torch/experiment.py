@@ -188,8 +188,10 @@ class Experiment:
             output_dir=self.output_dir)
 
     # ------------------------------------------------------------------ #
-    def restore_variables(self, paths: Optional[List[str]] = None) -> None:
-        """Load one checkpoint; with no path, the newest
+    def restore_variables(self, paths: Optional[List[str]] = None,
+                          average: bool = False) -> None:
+        """Load checkpoints (several: a logit ensemble, or with
+        ``average`` their averaged parameters); with no path, the newest
         ``variables.data*`` of the output directory."""
         self.build_model()
         if not paths:
@@ -198,7 +200,7 @@ class Experiment:
                 raise FileNotFoundError(
                     f"No checkpoint found in {self.output_dir}")
             paths = [latest]
-        self.tf_manager.restore(paths)
+        self.tf_manager.restore(paths, average=average)
 
     def _latest_checkpoint(self) -> Optional[str]:
         if not self.output_dir or not os.path.isdir(self.output_dir):

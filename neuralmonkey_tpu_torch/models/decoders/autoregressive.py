@@ -19,7 +19,7 @@ wait on the device every step.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -187,6 +187,17 @@ class AutoregressiveDecoder(ModelPart):
     def cost(self, ctx: Context):
         return self.train_loss(ctx)
 
+    @tensor
+    def runtime_loss(self, ctx: Context):
+        """Cross-entropy of the greedy path's logits against the
+        reference targets (the batch must carry them)."""
+        logits, _, _ = self.greedy_outputs(ctx)
+        targets = self.train_targets(ctx)
+        time = min(logits.shape[1], targets.shape[1])
+        mask = self.train_mask(ctx)[:, :time]
+        nll = self._xent(logits[:, :time], targets[:, :time], mask)
+        return nll.sum() / mask.sum().clamp_min(1.0)
+
     # ------------------------------------------------------------------ #
     # subclass contract
     # ------------------------------------------------------------------ #
@@ -287,16 +298,47 @@ class AutoregressiveDecoder(ModelPart):
         logits[..., UNK_TOKEN_INDEX] = torch.finfo(logits.dtype).min
         return logits
 
-    def _decode_loop(self, ctx: Context, pick: Callable, early_exit: bool):
+    def _stepper(self, ctx: Context) -> Callable:
+        """``step(prev_ids, step)`` -> (logits, aux): one model's decode
+        steps, its loop state kept between calls."""
+        constants = self.decode_constants(ctx)
+        state = self.decode_initial_state(ctx, constants)
+
+        def step_fn(prev_ids, step):
+            nonlocal state
+            state, logits, aux = self.decode_step(constants, state,
+                                                  prev_ids, step)
+            return logits, aux
+        return step_fn
+
+    def _ensemble_stepper(self, contexts: List[Context]) -> Callable:
+        """Like ``_stepper`` for the models of ``contexts`` (one a
+        parameter set): each step's float32 log-probs averaged as
+        probabilities, ``logsumexp`` over the models minus ``log n``,
+        and no aux."""
+        steppers = [self._stepper(c) for c in contexts]
+        log_n = torch.tensor(float(len(contexts))).log().to(
+            self._device(contexts[0]))
+
+        def step_fn(prev_ids, step):
+            log_probs = torch.stack([
+                torch.log_softmax(s(prev_ids, step)[0].float(), dim=-1)
+                for s in steppers])
+            return torch.logsumexp(log_probs, dim=0) - log_n, {}
+        return step_fn
+
+    def _decode_loop(self, ctx: Context, pick: Callable, early_exit: bool,
+                     step_fn: Callable = None):
         """The decode loop of greedy decoding and sampling: ``pick(logits,
         aux)`` -> (ids, kept) chooses each step's ids from its logits
         (UNK masked) and what to keep of the step. A finished sentence
         emits PAD. Returns (ids (B, steps), what each step kept, the
         finished-before-each-step masks); with ``early_exit`` the loop
         stops once every sentence has finished (checked every
-        FINISHED_CHECK_PERIOD steps)."""
-        constants = self.decode_constants(ctx)
-        state = self.decode_initial_state(ctx, constants)
+        FINISHED_CHECK_PERIOD steps). ``step_fn`` makes each step's
+        logits (default: this model's ``_stepper``)."""
+        if step_fn is None:
+            step_fn = self._stepper(ctx)
         batch = self._batch_size(ctx)
         device = self._device(ctx)
         prev_ids = torch.full((batch,), START_TOKEN_INDEX,
@@ -307,8 +349,7 @@ class AutoregressiveDecoder(ModelPart):
             if early_exit and step and step % FINISHED_CHECK_PERIOD == 0 \
                     and bool(finished.all()):
                 break
-            state, logits, aux = self.decode_step(constants, state,
-                                                  prev_ids, step)
+            logits, aux = step_fn(prev_ids, step)
             new_ids, step_kept = pick(self._mask_unk(logits), aux)
             new_ids = torch.where(finished, PAD_TOKEN_INDEX, new_ids)
             ids.append(new_ids)
@@ -352,6 +393,27 @@ class AutoregressiveDecoder(ModelPart):
         return (torch.stack([logits for logits, _ in kept], dim=1), ids,
                 {key: stack([aux[key] for aux in auxes])
                  for key in auxes[0]})
+
+    def ensemble_greedy_outputs(self, contexts: List[Context]
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Greedy decode of the models of ``contexts`` over all
+        ``max_output_len`` steps, their distributions averaged at every
+        step (``_ensemble_stepper``), UNK masked after the average:
+        (averaged log-probs (B, L, V), ids (B, L))."""
+        ids, kept, _ = self._decode_loop(
+            contexts[0], lambda avg, aux: (
+                avg.argmax(dim=-1).to(torch.int32), avg),
+            early_exit=False, step_fn=self._ensemble_stepper(contexts))
+        return torch.stack(kept, dim=1), ids
+
+    def ensemble_greedy_ids(self, contexts: List[Context]) -> torch.Tensor:
+        """The ids of ``ensemble_greedy_outputs``, (B, max_output_len),
+        from a loop that stops early and keeps no log-probs."""
+        ids, _, _ = self._decode_loop(
+            contexts[0], lambda avg, aux: (
+                avg.argmax(dim=-1).to(torch.int32), None),
+            early_exit=True, step_fn=self._ensemble_stepper(contexts))
+        return self._pad_steps(ids)
 
     def draw_samples(self, log_probs: torch.Tensor,
                      generator: torch.Generator) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Beam search (counterpart of
-``neuralmonkey_tpu/models/decoders/beam_search_decoder.py``,
-single-model search).
+``neuralmonkey_tpu/models/decoders/beam_search_decoder.py``): one
+model's search, or a checkpoint ensemble's (``ensemble_search``).
 
 Batch and beam are flattened to one leading axis so the parent
 decoder's step runs all beams at once. Each step scores candidates
@@ -27,12 +27,19 @@ The loop asks the device whether every hypothesis has finished only
 every ``FINISHED_CHECK_PERIOD`` steps: a finished hypothesis is a fixed
 point of the step (it emits PAD at zero cost and keeps its length and
 score).
+
+An ensemble's models each take the step on their own loop state, tiled
+plainly row by row (never a kernel layout, as the JAX package stacks
+them), and the search selects on their float32 log-probs averaged as
+probabilities: ``logsumexp`` over the models minus ``log n``. Those are
+normalised scores, so the selectors skip their own normalisation, and
+the fused logit projection is never armed.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, NamedTuple
+from typing import Any, List, NamedTuple
 
 import torch
 
@@ -68,6 +75,18 @@ def length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:
 def _gather(arr: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``take_along_axis(arr, index, axis=1)`` with any index dtype."""
     return torch.gather(arr, 1, index.long())
+
+
+def _tile_beam(tree: Any, beam: int) -> Any:
+    """Every tensor of ``tree`` with its rows repeated K times: (B, ...)
+    -> (B·K, ...), row ``b·K + k``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.repeat_interleave(beam, dim=0)
+    if isinstance(tree, dict):
+        return {k: _tile_beam(v, beam) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tile_beam(v, beam) for v in tree)
+    return tree
 
 
 class BeamSearchDecoder(ModelPart):
@@ -137,18 +156,20 @@ class BeamSearchDecoder(ModelPart):
                 else "hierarchical")
 
     # ------------------------------------------------------------------ #
-    # per-step candidate selection. Both selectors take raw logits
-    # ``x`` (B·K, V) and the SearchState and return (parents (B, K),
-    # tokens (B, K), new unnormalized logprob sums (B, K), normalized
+    # per-step candidate selection. Both selectors take scores ``x``
+    # (B·K, V), raw logits or, with ``normalized``, log-probs (an
+    # ensemble's average), and the SearchState and return (parents (B,
+    # K), tokens (B, K), new unnormalized logprob sums (B, K), normalized
     # scores (B, K)), best first. A finished beam contributes exactly
     # one candidate: PAD at zero incremental cost.
     # ------------------------------------------------------------------ #
     def _select_flat(self, x, search: SearchState, batch: int,
-                     precomputed=None):
+                     precomputed=None, normalized: bool = False):
         del precomputed
         beam = self.beam_size
         vocab = x.shape[-1]
-        logprobs = torch.log_softmax(x.float(), dim=-1).reshape(
+        logprobs = (x if normalized
+                    else torch.log_softmax(x.float(), dim=-1)).reshape(
             batch, beam, vocab)
         pad_only = torch.full((vocab,), NEG_INF, device=x.device)
         pad_only[PAD_TOKEN_INDEX] = 0.0
@@ -168,11 +189,12 @@ class BeamSearchDecoder(ModelPart):
         return parents, tokens, new_logprob, top_scores
 
     def _select_hier(self, x, search: SearchState, batch: int,
-                     precomputed=None):
+                     precomputed=None, normalized: bool = False):
         """Exact two-stage selection without (B, K, V) intermediates;
         ``precomputed`` carries (rowmax, lse) from the fused logit
         projection when the decode step emitted them, and ``rowmax_lse``
-        computes them otherwise."""
+        computes them otherwise. Normalised scores take a plain maximum
+        over each column group and an lse of exactly 0."""
         beam = self.beam_size
         vocab = x.shape[-1]
         rows_per_beam = -(-vocab // LANE)
@@ -183,7 +205,11 @@ class BeamSearchDecoder(ModelPart):
             x = torch.nn.functional.pad(x, (0, vp - vocab),
                                         value=4 * NEG_INF)
         x = x.float()
-        if precomputed is not None \
+        if normalized:
+            rowmax2 = x.reshape(batch * beam, rows_per_beam, LANE).amax(
+                dim=2)
+            lse2 = x.new_zeros(batch, beam)
+        elif precomputed is not None \
                 and precomputed[0].shape[-1] == rows_per_beam:
             rowmax2, lse2 = precomputed
         else:
@@ -246,20 +272,43 @@ class BeamSearchDecoder(ModelPart):
         """Single-model beam search."""
         self._check_lineage()
         parent = self.parent_decoder
-        beam = self.beam_size
-        vocab = len(parent.vocabulary)
         constants = parent.decode_constants(ctx)
         state = parent.decode_initial_state(ctx, constants)
-        batch = parent._batch_size(ctx)
-        device = parent._device(ctx)
-        method = self._method()
-        select_fn = (self._select_hier if method == "hierarchical"
-                     else self._select_flat)
-        if method == "hierarchical":
+        if self._method() == "hierarchical":
             # a no-op under NM_FUSED_LOGITS=0
             constants = parent.prepare_selection_fusion(constants)
-        constants = parent.tile_decode_constants_lineage(constants, beam)
-        state = parent.tile_decode_state(state, beam)
+        return self._search_impl(
+            ctx, [constants], [parent.tile_decode_state(state,
+                                                         self.beam_size)])
+
+    def ensemble_search(self, contexts: List[Context]) -> BeamSearchOutput:
+        """Beam search of the models of ``contexts`` (one a parameter
+        set), their distributions averaged at every step."""
+        self._check_lineage()
+        parent = self.parent_decoder
+        constants = [parent.decode_constants(c) for c in contexts]
+        states = [_tile_beam(parent.decode_initial_state(c, k),
+                             self.beam_size)
+                  for c, k in zip(contexts, constants)]
+        return self._search_impl(contexts[0], constants, states)
+
+    def _search_impl(self, ctx: Context, constants_list: List[Any],
+                     states: List[Any]) -> BeamSearchOutput:
+        """The search over the models' untiled constants and beam-tiled
+        loop states; ``ctx`` gives the batch size and the device."""
+        parent = self.parent_decoder
+        beam = self.beam_size
+        vocab = len(parent.vocabulary)
+        batch = parent._batch_size(ctx)
+        device = parent._device(ctx)
+        select_fn = (self._select_hier if self._method() == "hierarchical"
+                     else self._select_flat)
+        constants_list = [parent.tile_decode_constants_lineage(c, beam)
+                          for c in constants_list]
+        ensemble = len(constants_list) > 1
+        if ensemble:
+            log_n = torch.tensor(float(len(constants_list))).log().to(
+                device)
 
         # beam 0 live, the others dead (standard first-step trick)
         logprob0 = torch.full((batch, beam), NEG_INF, device=device)
@@ -287,13 +336,24 @@ class BeamSearchDecoder(ModelPart):
             if step and step % FINISHED_CHECK_PERIOD == 0 \
                     and bool(search.finished.all()):
                 break
-            state, x, aux = parent.decode_step_lineage(
-                constants, state, prev_ids, step, anc, beam,
-                window=step + 1)
-            sel = ((aux["sel_rowmax"], aux["sel_lse"])
-                   if "sel_rowmax" in aux else None)
+            if ensemble:
+                log_probs = []
+                for i, constants in enumerate(constants_list):
+                    states[i], logits, _ = parent.decode_step_lineage(
+                        constants, states[i], prev_ids, step, anc, beam,
+                        window=step + 1)
+                    log_probs.append(torch.log_softmax(logits.float(),
+                                                       dim=-1))
+                x = torch.logsumexp(torch.stack(log_probs), dim=0) - log_n
+                sel = None
+            else:
+                states[0], x, aux = parent.decode_step_lineage(
+                    constants_list[0], states[0], prev_ids, step, anc,
+                    beam, window=step + 1)
+                sel = ((aux["sel_rowmax"], aux["sel_lse"])
+                       if "sel_rowmax" in aux else None)
             parents, tokens, new_logprob, _ = select_fn(
-                x, search, batch, precomputed=sel)
+                x, search, batch, precomputed=sel, normalized=ensemble)
             # the state is never reordered; compose the ancestry: written
             # positions inherit the parent's lineage, later ones stay the
             # identity. Column ``step`` holds the parents either way, and
@@ -334,7 +394,3 @@ class BeamSearchDecoder(ModelPart):
             lengths=torch.gather(search.lengths, 1, order),
             scores=torch.gather(final_scores, 1, order))
 
-    def ensemble_search(self, contexts: List[Context]) -> BeamSearchOutput:
-        raise NotImplementedError(
-            "checkpoint ensembles (n_models > 1) are not ported to "
-            "neuralmonkey_tpu_torch yet")

@@ -5,7 +5,7 @@ maps ids to tokens."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 
@@ -37,7 +37,15 @@ class BeamSearchRunner(BaseRunner):
         return [self.decoder, self.decoder.parent_decoder]
 
     def fetches(self, ctx: Context) -> Dict:
-        output = self.decoder.search(ctx)
+        return self._outputs(self.decoder.search(ctx))
+
+    def ensemble_fetches(self, contexts: List[Context]) -> Dict:
+        """The search of the models of ``contexts`` (one a parameter
+        set), their distributions averaged at every step."""
+        return self._outputs(self.decoder.ensemble_search(contexts))
+
+    @staticmethod
+    def _outputs(output) -> Dict:
         return {"token_ids": output.token_ids,
                 "scores": output.scores,
                 "lengths": output.lengths}

@@ -22,6 +22,7 @@ from .model.part import (Context, ModelPart, collect_parts, fold_seed,
                          init_all_params)
 from .runners.base_runner import ExecutionResult, reduce_execution_results
 from .trainers.multitask_trainer import MultitaskTrainer
+from .utils.average_checkpoints import average_flat
 from .utils.batching import pad_batch
 from .utils.saving import (flatten_tree, load_flat, load_meta,
                            params_from_jax, save_tree)
@@ -33,6 +34,15 @@ def _to_device(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, (list, tuple)):
         return [_to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+def _host_array(value: torch.Tensor) -> np.ndarray:
+    """A fetched tensor on the host; bf16 (which numpy lacks) widened
+    to float32."""
+    value = value.detach().cpu()
+    if value.dtype == torch.bfloat16:
+        value = value.float()
+    return value.numpy()
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -75,10 +85,9 @@ class CUDAManager:
         del (num_threads, gpu_allow_growth,
              per_process_gpu_memory_fraction,
              report_gpu_memory_consumption, enable_tf_debug)
-        if num_sessions != 1:
-            raise NotImplementedError(
-                "checkpoint ensembles (num_sessions > 1) are not ported "
-                "to neuralmonkey_tpu_torch yet")
+        if num_sessions < 1:
+            raise ValueError("num_sessions must be >= 1")
+        self.num_sessions = num_sessions
         # TPUManager's mesh options, accepted at their defaults
         for name, value, default, what in (
                 ("num_model_shards", num_model_shards, 1,
@@ -104,7 +113,9 @@ class CUDAManager:
         self.max_to_keep = max(max_to_keep, self.save_n_best)
         self.minimize_metric = minimize_metric
         self.parts: List[ModelPart] = []
-        self.params: Dict[str, Any] = {}
+        # the parameter sets: several after restoring several checkpoints
+        # (a logit ensemble); training and saving use the first
+        self.params_list: List[Dict[str, Any]] = [{}]
         self.global_step = 0
         self.epoch = 0
         self.best_score: Optional[float] = None
@@ -123,6 +134,14 @@ class CUDAManager:
                 if self.device.type == "cuda" else "host")
         log(f"CUDAManager: device {self.device} [{name}]")
 
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self.params_list[0]
+
+    @params.setter
+    def params(self, value: Dict[str, Any]) -> None:
+        self.params_list[0] = value
+
     # ------------------------------------------------------------------ #
     # model lifecycle
     # ------------------------------------------------------------------ #
@@ -134,26 +153,34 @@ class CUDAManager:
         if seed is not None:
             self.seed = seed
         params = init_all_params(self.parts, self.seed)
-        self.params = _to_device(params, self.device)
+        self.params_list = [_to_device(params, self.device)]
         total = sum(v.numel() for v in flatten_tree(self.params).values())
         log(f"Initialized {len(self.parts)} model parts, "
             f"{total:,} parameters")
 
-    def restore(self, paths: Union[str, Sequence[str]]) -> None:
-        """Load parameters from one ``.npz`` checkpoint, written by
-        either package; its meta, when present, sets the step."""
+    def restore(self, paths: Union[str, Sequence[str]],
+                average: bool = False) -> None:
+        """Load parameters from ``.npz`` checkpoints, written by either
+        package: one parameter set a checkpoint (several make a logit
+        ensemble), or with ``average`` one set, the checkpoints'
+        parameters averaged (``utils.average_checkpoints.average_flat``:
+        float32 sums, each leaf cast back to its dtype). The first
+        checkpoint's meta, when present, sets the step."""
         if isinstance(paths, str):
             paths = [paths]
-        if len(paths) != 1:
-            raise NotImplementedError(
-                "checkpoint ensembles (several checkpoints) are not "
-                "ported to neuralmonkey_tpu_torch yet")
-        params = params_from_jax(load_flat(paths[0]), self.params)
-        self.params = _to_device(params, self.device)
+        flats = [load_flat(path) for path in paths]
+        if average and len(flats) > 1:
+            flats = [average_flat(flats)]
+            log(f"Averaged {len(paths)} checkpoints into one parameter "
+                "set")
+        template = self.params
+        self.params_list = [
+            _to_device(params_from_jax(flat, template), self.device)
+            for flat in flats]
         meta = load_meta(paths[0])
         if meta:
             self.global_step = meta.get("step", self.global_step)
-        log(f"Restored variables from {paths[0]}")
+        log(f"Restored variables from {', '.join(paths)}")
 
     def restore_best_vars(self, output_dir: str,
                           link_name: str = "variables.data.best") -> None:
@@ -261,15 +288,26 @@ class CUDAManager:
     # ------------------------------------------------------------------ #
     # inference
     # ------------------------------------------------------------------ #
+    def fetch(self, runners, batch: Dict[str, torch.Tensor]
+              ) -> List[Dict[str, torch.Tensor]]:
+        """Every runner's fetches on a device-resident batch: with
+        several parameter sets, a runner that has ``ensemble_fetches``
+        gets a context of each, every other runner the first set's."""
+        contexts = [Context(params, batch, train=False)
+                    for params in self.params_list]
+        return [runner.ensemble_fetches(contexts)
+                if len(contexts) > 1 and hasattr(runner, "ensemble_fetches")
+                else runner.fetches(contexts[0])
+                for runner in runners]
+
     def run_on_batch(self, runners, dataset_batch, batch_size: int
                      ) -> List[ExecutionResult]:
         """Every runner's fetches on one batch, collected on the host."""
         batch, real_size = self.build_batch(dataset_batch, batch_size)
         with torch.inference_mode():
-            ctx = Context(self.params, batch, train=False)
-            fetched = [runner.fetches(ctx) for runner in runners]
+            fetched = self.fetch(runners, batch)
         return [runner.collect_results(
-                    {k: v.cpu().numpy() for k, v in out.items()}, real_size)
+                    {k: _host_array(v) for k, v in out.items()}, real_size)
                 for runner, out in zip(runners, fetched)]
 
     def execute(self, dataset, runners, batch_size: int,

@@ -31,8 +31,11 @@ an error that ends the worker fails every pending request; no request
 waits forever and no error is swallowed. ``close()`` joins the worker.
 
 Usage: python -m neuralmonkey_tpu_torch.server --configuration exp.ini
-           [checkpoint] [--port 5000] [--batch-window-ms 10]
-           [--max-batch 256]
+           [checkpoint ...] [--average] [--port 5000]
+           [--batch-window-ms 10] [--max-batch 256]
+
+Several checkpoints serve as a logit ensemble, or with ``--average`` as
+their averaged parameters.
 """
 
 from __future__ import annotations
@@ -298,11 +301,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--port", type=int, default=5000)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("checkpoints", nargs="*",
-                        help="checkpoint path (one; ensembles are not "
-                             "ported yet)")
+                        help="checkpoint path(s); several = ensemble")
     parser.add_argument("--average", action="store_true",
-                        help="average several checkpoints (not ported "
-                             "yet)")
+                        help="average the checkpoints into one "
+                             "parameter set instead of a logit "
+                             "ensemble")
     parser.add_argument("--batch-window-ms", type=float, default=10.0,
                         help="how long to wait for more requests after "
                              "the first pending one (0: no wait, still "
@@ -310,14 +313,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--max-batch", type=int, default=256,
                         help="most merged sentences a model call")
     args = parser.parse_args(argv)
-    if args.average or len(args.checkpoints) > 1:
-        raise NotImplementedError(
-            "several checkpoints (an ensemble or --average) are not ported "
-            "to neuralmonkey_tpu_torch yet (ROADMAP queue A14)")
 
     exp = Experiment(args.configuration, train_mode=False)
     exp.build_model()
-    exp.restore_variables(args.checkpoints or None)
+    exp.restore_variables(args.checkpoints, average=args.average)
     service = ModelService(exp, batch_window_ms=args.batch_window_ms,
                            max_batch=args.max_batch)
     server = ThreadingHTTPServer((args.host, args.port),

@@ -2219,3 +2219,69 @@ def test_bf16_transformer_decodes_on_card_like_cpu(cuda_device, monkeypatch,
     ref_greedy, ref_beam = decode(torch.device("cpu"))
     assert torch.equal(greedy[:3], ref_greedy[:3])
     assert torch.equal(beam[:3], ref_beam[:3])
+
+
+def _ensemble_rnn():
+    vocab = Vocabulary([f"w{i}" for i in range(296)])
+    enc = SentenceEncoder(name="encoder", vocabulary=vocab, data_id="source",
+                          embedding_size=16, rnn_size=24, max_input_len=7)
+    att = Attention(name="attention", encoder=enc, state_size=20)
+    return Decoder(name="decoder", vocabulary=vocab, data_id="target",
+                   max_output_len=8, rnn_size=24, encoders=[enc],
+                   attentions=[att], embedding_size=16, conditional_gru=True)
+
+
+@pytest.mark.parametrize("model", ["rnn", "transformer"])
+@pytest.mark.parametrize("lineage_kernel", ["0", "1"])
+def test_ensemble_beam_on_card_like_cpu(cuda_device, monkeypatch, model,
+                                        lineage_kernel):
+    """Two parameter sets as a logit ensemble, greedy and beam 4
+    (hierarchical selection on the averaged log-probs): K4 launches (and
+    K1 and K2 in the RNN), K3, ``rowmax_lse`` and the lineage attention
+    never, even under NM_LINEAGE_KERNEL=1; the ids equal the CPU's and
+    the scores are within 1e-4."""
+    from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
+        BeamSearchDecoder
+    monkeypatch.setenv("NM_LINEAGE_KERNEL", lineage_kernel)
+    dec = _ensemble_rnn() if model == "rnn" else _moe_transformer(max_out=8)
+    search = BeamSearchDecoder(name="bs", parent_decoder=dec, beam_size=4,
+                               selection_method="hierarchical")
+    sets = [init_all_params(collect_parts([dec]), seed=seed)
+            for seed in (5, 6)]
+    if model == "rnn":
+        gen = torch.Generator().manual_seed(0)
+        mask = torch.ones(4, 7)
+        mask[1, 5:] = 0
+        mask[3, :] = 0
+        batch = {"encoder_input.ids": torch.randint(
+                     4, 300, (4, 7), generator=gen, dtype=torch.int32),
+                 "encoder_input.mask": mask}
+    else:
+        batch = {k: v for k, v in _transformer_batch().items()
+                 if k.startswith("encoder")}
+
+    def decode(device):
+        contexts = [Context(_to_device(p, device) if device.type == "cuda"
+                            else p,
+                            {k: v.to(device) for k, v in batch.items()})
+                    for p in sets]
+        with torch.inference_mode():
+            out = search.ensemble_search(contexts)
+            return (dec.ensemble_greedy_ids(contexts).cpu(),
+                    out.token_ids.cpu(), out.scores.cpu())
+    kernel_config.reset_launch_counts()
+    greedy, beam, scores = decode(cuda_device)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    expected = (["gru_scan", "fused_bahdanau_step"] if model == "rnn"
+                else ["flash_attention_fwd"]) + ["small_topk"]
+    for name in expected:
+        assert counts[name] > 0, counts
+    for name in ("fused_logits_rowmax_lse", "rowmax_lse",
+                 "lineage_attention", "lineage_attention_bf16"):
+        assert counts[name] == 0, counts
+    ref_greedy, ref_beam, ref_scores = decode(torch.device("cpu"))
+    assert torch.equal(greedy[:3], ref_greedy[:3])
+    assert torch.equal(beam[:3], ref_beam[:3])
+    torch.testing.assert_close(scores[:3], ref_scores[:3], atol=1e-4,
+                               rtol=0)

@@ -8,8 +8,10 @@ stays up; an error in a model call reaches its client as a 400 with the
 message; concurrent requests merge into fewer model calls and each
 answer equals its own request's alone (identically on the CPU); a crash
 of the worker fails every pending request; ``close()`` joins the
-worker; and the port's ``ModelService`` gives the JAX package's greedy
-ids on the same checkpoint.
+worker; the port's ``ModelService`` gives the JAX package's greedy
+ids on the same checkpoint, and on two checkpoints as a logit ensemble;
+``server.main`` takes several checkpoints (an ensemble) and
+``--average``.
 """
 
 import json
@@ -248,11 +250,87 @@ def test_close_joins_the_worker(tmp_path, checkpoint):
         service.run({"source": ["one"]})
 
 
-def test_main_refuses_several_checkpoints(checkpoint):
-    with pytest.raises(NotImplementedError, match="A14"):
-        server.main(["--configuration", CONFIG, checkpoint, checkpoint])
-    with pytest.raises(NotImplementedError, match="A14"):
-        server.main(["--configuration", CONFIG, "--average", checkpoint])
+def _second_checkpoint(tmp_path, checkpoint):
+    """Another draw of small.ini's parameters, as a second ``.npz``."""
+    rng = np.random.RandomState(1)
+    with np.load(checkpoint) as first:
+        flat = {k: (rng.randn(*first[k].shape) * 0.3).astype(np.float32)
+                for k in first.files}
+    path = str(tmp_path / "variables2.npz")
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+    return path
+
+
+def test_main_refuses_several_checkpoints(tmp_path, monkeypatch,
+                                          checkpoint):
+    """``server.main`` no longer refuses several checkpoints: it serves
+    them as a logit ensemble (two parameter sets) or, with
+    ``--average``, as their averaged parameters (one set)."""
+    second = _second_checkpoint(tmp_path, checkpoint)
+    config = tmp_path / "small_cpu.ini"
+    config.write_text(open(CONFIG).read().replace(
+        "[tf_manager]", '[tf_manager]\ndevice="cpu"'))
+    services = []
+
+    class Recording(server.ModelService):
+        def __init__(self, exp, **kwargs):
+            super().__init__(exp, **kwargs)
+            services.append(self)
+
+    class NoServing:
+        def __init__(self, address, handler):
+            del address, handler
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+    monkeypatch.setattr(server, "ModelService", Recording)
+    monkeypatch.setattr(server, "ThreadingHTTPServer", NoServing)
+    assert server.main(["--configuration", str(config), checkpoint,
+                        second]) == 0
+    assert server.main(["--configuration", str(config), "--average",
+                        checkpoint, second]) == 0
+    ensemble, averaged = (s.experiment.tf_manager for s in services)
+    assert len(ensemble.params_list) == 2
+    assert len(averaged.params_list) == 1
+    firsts = [flatten_tree(p) for p in ensemble.params_list]
+    for key, value in flatten_tree(averaged.params).items():
+        torch.testing.assert_close(
+            value, (firsts[0][key] + firsts[1][key]) / 2, rtol=0,
+            atol=1e-7)
+    assert not any(s._worker.is_alive() for s in services)
+
+
+def test_ensemble_ids_match_the_jax_service(tmp_path, checkpoint):
+    """Two checkpoints of small.ini's model: the port's service and the
+    JAX package's run the logit ensemble to the same greedy decodes."""
+    from neuralmonkey_tpu.experiment import Experiment as JaxExperiment
+    from neuralmonkey_tpu.server import ModelService as JaxModelService
+    paths = [checkpoint, _second_checkpoint(tmp_path, checkpoint)]
+    jax_exp = JaxExperiment(CONFIG, train_mode=False, config_changes=[
+        f'main.output="{tmp_path / "jax"}"'])
+    jax_exp.build_model()
+    jax_exp.restore_variables(paths)
+    jax_service = JaxModelService(jax_exp, batch_window_ms=0.0)
+    exp = _experiment(tmp_path)
+    exp.build_model()
+    exp.restore_variables(paths)
+    service = server.ModelService(exp, batch_window_ms=0.0)
+    try:
+        payload = {"source": SENTENCES}
+        answer = service.run(payload)
+        assert answer == jax_service.run(payload)
+        single = _service(tmp_path, checkpoint, batch_window_ms=0.0)
+        try:
+            assert answer != single.run(payload)
+        finally:
+            single.close()
+    finally:
+        service.close()
+        jax_service.close()
 
 
 def test_greedy_ids_match_the_jax_service(tmp_path, checkpoint):
