@@ -242,6 +242,27 @@ Phases (any failure raises and the script exits non-zero):
    its sentence's length. The ensemble, ``--average`` and grid rates and
    the hand-written kernels' launches per decode step print beside phase
    4's single-model rates.
+26. the model and trainer long tail: phase 6's flagship trains 8 steps
+   through ``train`` (the prefetch worker on) with a LayerNormGRU encoder
+   and Adafactor, a NoisyGRU encoder and RMSProp, and a NoisyGRU encoder
+   and Adadelta: K2 must launch, K1 and ``gru_bptt`` never (the step
+   scan runs these cells); attention maps are written as PNGs; one step
+   of each against the CPU by phase 7's rule with phase 12's float64
+   reference (the card's noise draws replayed on the CPU), and the first
+   update against the CPU's from the same gradients (``UPDATE_ERR``). A
+   run resumed from a checkpoint and its ``.opt`` must continue the
+   uninterrupted card run's losses (1e-5); phase 6's model warm-starts
+   its decoder by part (the file's tensors exactly). Phase 4's model
+   decodes the 128 sentences through ``run`` under ``align_logits`` (K3
+   on the table aligned to 30080 columns) and ``use_approx_top_k`` (the
+   flat selector: K3, ``rowmax_lse`` and K4 never), 8 of them against
+   the CPU by phase 5's rule (the flat selector's gaps from its sort);
+   its greedy and beam-10 attention maps within 1e-5 of the CPU's where
+   the ids agree. Prints each run's train tokens/s beside the GRU's over
+   the same steps, each optimizer's ms per update over the flagship's
+   parameters, the GRU's tokens/s with and without the prefetch worker
+   in turns, and beam-10 sentences/s under ``align_logits`` beside the
+   default in turns.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -260,6 +281,7 @@ one entry per kernel; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -453,7 +475,9 @@ def import_everything() -> None:
     from neuralmonkey_tpu_torch.trainers import (  # noqa: F401
         delayed_update_trainer, rl_trainer)
     from neuralmonkey_tpu_torch.utils import (  # noqa: F401
-        average_checkpoints, saving)
+        average_checkpoints, png, saving)
+    from neuralmonkey_tpu_torch.nn import (  # noqa: F401
+        highway, mlp, noisy_gru_cell, ortho_gru_cell, projection, utils)
 
 
 def log(message: str) -> None:
@@ -2407,17 +2431,38 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
             left_out.append(top[:, k])
         return plain_topk(x, k)
 
-    def record_picks(exp, log):
+    def record_picks(exp, log, gaps=False):
+        """Record each step's picks of the beam search; with ``gaps``
+        (the CPU's flat selector) also the gaps between neighbours among
+        its top K+1 candidates, from the sort it selects by."""
         search = exp.model.runners[1].decoder
-        plain_select = search._select_hier
+        plain_select = getattr(search, selector)
 
         def select(x, state, batch, **kwargs):
-            out = plain_select(x, state, batch, **kwargs)
+            plain_sort, sorted_scores = torch.sort, []
+
+            def recording_sort(*args, **sort_kwargs):
+                out = plain_sort(*args, **sort_kwargs)
+                sorted_scores.append(out.values)
+                return out
+            if gaps:
+                torch.sort = recording_sort
+            try:
+                out = plain_select(x, state, batch, **kwargs)
+            finally:
+                torch.sort = plain_sort
+            if gaps:
+                top = sorted_scores[0][:, :search.beam_size + 1]
+                beam_gaps.append(top[:, :-1] - top[:, 1:])
             log.append(torch.stack(out[:2], dim=-1).cpu())
             return out
-        search._select_hier = select
+        setattr(search, selector, select)
 
     has_beam = len(gpu_exp.model.runners) > 1
+    # the hierarchical selector's gaps come from its two K4 stages, the
+    # flat one's (``use_approx_top_k``, small vocabularies) from its sort
+    flat = has_beam and gpu_exp.model.runners[1].decoder._method() == "flat"
+    selector = "_select_flat" if flat else "_select_hier"
 
     def decode(exp):
         # three padding rows (all-zero masks) ride along, as in the last
@@ -2434,7 +2479,7 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
     setattr(decoder, hooked, recording_step)
     beam_search_decoder.small_topk = recording_topk
     if has_beam:
-        record_picks(cpu_exp, picks["cpu"])
+        record_picks(cpu_exp, picks["cpu"], gaps=flat)
         record_picks(gpu_exp, picks["gpu"])
     try:
         cpu_greedy, cpu_beam = decode(cpu_exp)
@@ -2444,7 +2489,7 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
         delattr(decoder, hooked)
         if has_beam:
             for exp in (cpu_exp, gpu_exp):
-                del exp.model.runners[1].decoder._select_hier
+                delattr(exp.model.runners[1].decoder, selector)
 
     report = {}
     same = 0
@@ -5068,6 +5113,505 @@ def check_ensembles(tmp: str, data_ini: str, ckpt: str, t_ini: str,
     return launches, report
 
 
+# ---------------------------------------------------------------------- #
+# phase 26: the model and trainer long tail
+# ---------------------------------------------------------------------- #
+N_LT_TRAIN = 8 * BATCH  # the training pairs of each long-tail run
+# the step-scanned encoders never reach the GRU kernels
+NOT_IN_STEP_SCANS = ("gru_scan", "gru_bptt")
+LT_TRAINING_KERNELS = ("fused_bahdanau_step",)
+APPROX_KERNELS = ("gru_scan", "fused_bahdanau_step")
+# the flat selector arms no fused projection and reduces nothing itself
+NOT_IN_FLAT = ("fused_logits_rowmax_lse", "rowmax_lse", "small_topk")
+LT_OPTIMIZERS = {
+    "adam": "[optimizer]\nclass=tf.train.AdamOptimizer\nlearning_rate=0.001"
+            "\n\n",
+    # without a rate Adafactor steps by the parameters' own scale, which
+    # throws the random-weight model far off in 8 steps (a loss of 13
+    # from 9.7), where one step's parity is ill-conditioned on both devices
+    "adafactor": "[optimizer]\nclass=trainers.optimizers.AdafactorOptimizer"
+                 "\nlearning_rate=0.01\n\n",
+    "rmsprop": "[optimizer]\nclass=tf.train.RMSPropOptimizer\n"
+               "learning_rate=0.001\n\n",
+    "adadelta": "[optimizer]\nclass=tf.train.AdadeltaOptimizer\n\n",
+}
+# (encoder cell, optimizer, which runner writes attention maps)
+LT_RUNS = (("LayerNormGRU", "adafactor", "runner"),
+           ("NoisyGRU", "rmsprop", "bs_runner"),
+           ("NoisyGRU", "adadelta", None))
+# the first update on the card against the CPU's from the card's
+# gradients: each updated parameter within one float32 spacing of the
+# CPU's (the rounding of p + u), or within this share of the update's
+# largest entry
+UPDATE_ERR = 1e-4
+# attention maps on the card against the CPU's where the ids agree
+ATTENTION_ERR = 1e-5
+
+
+def write_long_tail_ini(tmp: str, cell: str, optimizer: str,
+                        attention_runner) -> str:
+    """Phase 6's training INI over the first ``N_LT_TRAIN`` pairs, logging
+    every 2 steps, the encoder's cell ``cell``,
+    ``LT_OPTIMIZERS[optimizer]``, and ``visualize_attention`` on
+    ``attention_runner`` (the beam runner validates only then)."""
+    first_lines(tmp, ("train.src", "train.tgt"), N_LT_TRAIN, "lt_")
+    with open(os.path.join(tmp, "train.ini")) as f:
+        text = f.read()
+    text = swap_section(text.replace("optimizer=<adam>",
+                                     "optimizer=<optimizer>"),
+                        "adam", LT_OPTIMIZERS[optimizer])
+    text = text.replace(f'{tmp}/train.', f'{tmp}/lt_train.').replace(
+        'rnn_cell="GRU"', f'rnn_cell="{cell}"').replace(
+        "logging_period=5", "logging_period=2")
+    if attention_runner != "bs_runner":
+        text = text.replace("runners=[<runner>, <bs_runner>]",
+                            "runners=[<runner>]")
+    if attention_runner is not None:
+        text = text.replace(f"[{attention_runner}]\n",
+                            f"[{attention_runner}]\nvisualize_attention=True\n")
+    path = os.path.join(tmp, f"lt_{cell}_{optimizer}.ini")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def train_through_cli(train_ini: str, out: str, label: str):
+    """One epoch through the train CLI with the launch counts set to 0
+    just before it: (its launches, its record with the rate of the
+    logging windows after the first, the best checkpoint)."""
+    import torch
+
+    from neuralmonkey_tpu_torch import train
+    from neuralmonkey_tpu_torch.ops import kernel_config
+
+    kernel_config.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    if train.main([train_ini, f'main.output="{out}"']) != 0:
+        raise AssertionError(f"{label}: neuralmonkey_tpu_torch.train failed")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = kernel_config.launch_counts()
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        windows = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    losses = [r["loss"] for r in windows]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    rates = [r["tokens_per_sec"] for r in windows]
+    record = {"steps": windows[-1]["step"], "seconds": seconds,
+              "losses": losses, "tokens_per_sec_windows": rates,
+              "train_tokens_per_sec": statistics.mean(rates[1:]),
+              "launches": {k: n for k, n in launches.items() if n}}
+    log(f"{label}: {record}")
+    return launches, record, os.path.join(out, "variables.data.best")
+
+
+def noise_replay():
+    """A ``check_train_parity`` hook: the first card pass records the
+    noise every noisy-activation cell draws, and the CPU's passes replay
+    it (the card's generator draws other numbers than the CPU's)."""
+    from neuralmonkey_tpu_torch.ops.nn import NoisyGRUCell
+
+    drawn = []
+
+    def hook(exp):
+        cells = [cell for part in exp.tf_manager.parts
+                 for pair in getattr(part, "_cells", ())
+                 for cell in pair if isinstance(cell, NoisyGRUCell)]
+        on_cpu = exp.tf_manager.device.type == "cpu"
+        record, replay = not on_cpu and not drawn, iter(list(drawn))
+        for cell in cells:
+            plain = cell.draw_noise
+
+            def draw(steps, batch, generator, device, plain=plain):
+                if on_cpu:
+                    return next(replay).to(device)
+                out = plain(steps, batch, generator, device)
+                if record:
+                    drawn.append(out.cpu())
+                return out
+            cell.draw_noise = draw
+    hook.drawn = drawn
+    return hook
+
+
+def check_first_update(train_ini: str, ckpt: str):
+    """The trainer's first update of one step from ``ckpt`` (8
+    sentences, dropout off): applied on the card to the card's gradients
+    and on the CPU, by the optimizer's plain arithmetic, to the same
+    gradients; every updated parameter within one float32 spacing of
+    the CPU's, or ``UPDATE_ERR`` of its update's largest entry."""
+    import torch
+
+    from neuralmonkey_tpu_torch.dataset import BatchingScheme
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.utils.saving import flatten_tree
+
+    exp = Experiment(train_ini, train_mode=True, config_changes=[
+        f"{part}.dropout_keep_prob=1.0"
+        for part in ("encoder", "attention", "decoder")])
+    exp.build_model()
+    manager = exp.tf_manager
+    manager.restore(ckpt)
+    dataset = next(exp.model.train_dataset.batches(
+        BatchingScheme(batch_size=N_PARITY), shuffled=False))
+    batch = manager.build_batch(dataset, N_PARITY, train=True)[0]
+    flat = flatten_tree(manager.params)
+    for p in flat.values():
+        p.requires_grad_(True)
+    trainer = exp.model.trainer
+    total, _ = trainer.total_loss(manager.params, batch, rng=0)
+    total.backward()
+    grads = {k: p.grad.detach() for k, p in flat.items()}
+    before = {k: p.detach().to("cpu", copy=True) for k, p in flat.items()}
+    params = {k: p.detach() for k, p in flat.items()}
+    card = trainer.make_update()
+    card.apply(params, grads, card.init(params))
+    cpu_params = {k: v.clone() for k, v in before.items()}
+    cpu = trainer.make_update()
+    cpu.apply(cpu_params, {k: g.cpu() for k, g in grads.items()},
+              cpu.init(cpu_params))
+    def err(key):
+        """The worst entry's distance beyond one spacing, over the
+        update's largest entry."""
+        ref = cpu_params[key]
+        spacing = torch.nextafter(ref.abs(), torch.tensor(math.inf)) \
+            - ref.abs()
+        beyond = ((params[key].cpu() - ref).abs() - spacing).clamp_min(0)
+        return float(beyond.max()) / max(
+            float((ref - before[key]).abs().max()), 1e-30)
+    errs = {k: err(k) for k in flat}
+    worst = max(errs, key=errs.get)
+    log(f"first update: the card's {errs[worst]:.3g} of the largest "
+        f"update entry beyond one spacing from the CPU's at {worst}")
+    if not errs[worst] <= UPDATE_ERR:
+        raise AssertionError(f"the first update on the card differs from "
+                             f"the CPU's: {errs[worst]} at {worst}")
+    return {"max_rel_err": errs[worst], "at": worst}
+
+
+def check_opt_resume(train_ini: str, tmp: str, ckpt: str):
+    """From ``ckpt``: six steps on the card over fixed batches, saving
+    (parameters and ``.opt``) after the third; a fresh model restored
+    from that checkpoint and ``.opt`` must continue with the same
+    losses (1e-5 relative)."""
+    from neuralmonkey_tpu_torch.dataset import BatchingScheme
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    def model():
+        exp = Experiment(train_ini, train_mode=True)
+        exp.build_model()
+        return exp
+    exp = model()
+    manager = exp.tf_manager
+    batches = list(exp.model.train_dataset.batches(
+        BatchingScheme(batch_size=BATCH), shuffled=False))[:6]
+    manager.restore(ckpt)
+
+    def steps(exp, some):
+        return [exp.tf_manager.train_on_batch(exp.model.trainer, b,
+                                              BATCH)["loss"] for b in some]
+    losses = steps(exp, batches[:3])
+    base = os.path.join(tmp, "lt_resume")
+    saved = manager.save(base)
+    losses += steps(exp, batches[3:])
+    resumed = model()
+    resumed.tf_manager.restore(saved)
+    resumed.tf_manager.load_optimizer_state(base)
+    continued = steps(resumed, batches[3:])
+    err = max(abs(a - b) / abs(b) for a, b in zip(continued, losses[3:]))
+    log(f"resume from .opt: uninterrupted {losses}, continued {continued}")
+    if not err <= 1e-5:
+        raise AssertionError(f"the resumed run's losses {continued} leave "
+                             f"the uninterrupted run's {losses[3:]}")
+    return {"uninterrupted": losses, "continued": continued,
+            "max_rel_err": err}
+
+
+def check_warm_start(train_ini: str, ckpt: str):
+    """Phase 6's model (GRU encoder) with its decoder warm-started from
+    ``ckpt`` by part: the decoder's tensors equal the file's, the
+    encoder's keep their initialization."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.utils.saving import flatten_tree, load_flat
+
+    exp = Experiment(train_ini, train_mode=True, config_changes=[
+        f'decoder.load_checkpoint="{ckpt}"'])
+    exp.build_model()
+    saved = load_flat(ckpt)
+    params = exp.tf_manager.params
+    decoder = flatten_tree(params["decoder"])
+    differ = [k for k, v in decoder.items()
+              if not (v.cpu().numpy() == saved[f"decoder/{k}"]).all()]
+    if differ or not decoder:
+        raise AssertionError(f"warm start: decoder tensors {differ} differ "
+                             "from the checkpoint's")
+    encoder = flatten_tree(params["sentence_encoder"])
+    if all(f"sentence_encoder/{k}" in saved
+           and (v.cpu().numpy() == saved[f"sentence_encoder/{k}"]).all()
+           for k, v in encoder.items()):
+        raise AssertionError("warm start: the encoder was restored too")
+    return {"decoder_tensors_equal_file": len(decoder)}
+
+
+def optimizer_update_ms(exp_ini: str, ckpt: str):
+    """Milliseconds (wall, synchronized) of one clipped update of each
+    optimizer over the flagship's parameters on the card, with random
+    gradients: the median of 10 after 3 warm-up updates."""
+    import torch
+
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.trainers import optimizers
+    from neuralmonkey_tpu_torch.trainers.generic_trainer import Update
+    from neuralmonkey_tpu_torch.utils.saving import flatten_tree
+
+    exp = Experiment(exp_ini, train_mode=False)
+    exp.build_model()
+    exp.tf_manager.restore(ckpt)
+    flat = {k: v.clone() for k, v in flatten_tree(exp.tf_manager.params)
+            .items()}
+    device = exp.tf_manager.device
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    grads = {k: torch.randn(v.shape, generator=gen, device=device) * 1e-3
+             for k, v in flat.items()}
+    report = {"parameters": sum(v.numel() for v in flat.values())}
+    for name, factory in (
+            ("adam", optimizers.AdamOptimizer(1e-3)),
+            ("adadelta", optimizers.AdadeltaOptimizer()),
+            ("rmsprop", optimizers.RMSPropOptimizer()),
+            ("adafactor", optimizers.AdafactorOptimizer())):
+        update = Update(factory.make(), 1.0)
+        state = update.init(flat)
+        times = []
+        for i in range(13):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            update.apply(flat, grads, state)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append((time.perf_counter() - start) * 1e3)
+        report[f"{name}_ms"] = statistics.median(times)
+    log(f"ms per update: {report}")
+    return report
+
+
+def sync_batches(manager, dataset, batching_scheme, batch_size,
+                 train=False, shuffled=None, prefetch_depth=2):
+    """The training loop's batches without the prefetch worker: each one
+    built on the consumer's thread when it is needed (the loop before
+    the worker)."""
+    del prefetch_depth
+    for dataset_batch in dataset.batches(
+            batching_scheme, shuffled=train if shuffled is None else shuffled):
+        yield manager.build_batch(dataset_batch, batch_size, train=train)
+
+
+def attention_maps(exp_ini: str, data_ini: str, ckpt: str, tmp: str):
+    """Phase 4's model with ``visualize_attention`` on both runners: 8
+    sentences' greedy and beam-10 maps on the card against the CPU's,
+    where the devices decode the same ids, and the card's written as
+    PNGs by the training loop's writer."""
+    import numpy as np
+    import torch
+
+    from neuralmonkey_tpu_torch import learning_utils, run
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    with open(exp_ini) as f:
+        text = f.read()
+    path = os.path.join(tmp, "lt_attention.ini")
+    with open(path, "w") as f:
+        f.write(text.replace("output_series=", "visualize_attention=True\n"
+                             "output_series="))
+    dataset = run.load_data_config(data_ini)[0].subset(0, N_PARITY)
+    results = {}
+    for device, changes in (("cuda", []),
+                            ("cpu", ['tf_manager.device="cpu"'])):
+        exp = Experiment(path, train_mode=False, config_changes=changes)
+        exp.build_model()
+        exp.tf_manager.restore(ckpt)
+        results[device] = exp.tf_manager.run_on_batch(
+            exp.model.runners, dataset, N_PARITY)
+    report = {}
+    for i, kind in enumerate(("greedy", "beam")):
+        card, cpu = results["cuda"][i], results["cpu"][i]
+        same = [row for row in range(N_PARITY)
+                if card.outputs[row] == cpu.outputs[row]]
+        err = max((float(np.abs(np.asarray(card.aux["attention"][row])
+                                - np.asarray(cpu.aux["attention"][row]))
+                         .max()) for row in same), default=0.0)
+        if not same or not err <= ATTENTION_ERR:
+            raise AssertionError(f"{kind} attention maps: {err} apart over "
+                                 f"the sentences {same}")
+        out = os.path.join(tmp, f"lt_maps_{kind}")
+        learning_utils._write_attention_maps([card], out, step=0)
+        pngs = os.listdir(os.path.join(out, "attention_maps"))
+        if len(pngs) != 3:
+            raise AssertionError(f"{kind}: PNG maps written: {pngs}")
+        report[kind] = {"sentences_compared": len(same), "max_abs_err": err,
+                        "shape": list(np.shape(card.aux["attention"][0])),
+                        "pngs": len(pngs)}
+    log(f"attention maps: {report}")
+    return report
+
+
+def check_long_tail(tmp: str, exp_ini: str, data_ini: str, ckpt: str,
+                    gru_record):
+    """Phase 26. Phase 6's flagship trains 8 steps through ``train`` with
+    the encoder's cell and optimizer of each ``LT_RUNS`` entry (the
+    prefetch worker on): K2 must launch, K1 and ``gru_bptt`` never; one
+    step from its checkpoint against the CPU by phase 7's rule with phase
+    12's float64 reference (the NoisyGRU's noise drawn on the card and
+    replayed on the CPU), and the first update against the CPU's from
+    the same gradients. From the NoisyGRU and RMSProp checkpoint a
+    resumed run (parameters and ``.opt``) must continue the
+    uninterrupted card run's losses, and phase 6's model must warm-start
+    its decoder by part. Phase 4's model decodes the 128 sentences
+    through ``run`` under ``align_logits`` (K3 launches on the aligned
+    table) and under ``use_approx_top_k`` (the flat selector: K3,
+    ``rowmax_lse`` and K4 never), 8 of them against the CPU by phase 5's
+    rule; with ``visualize_attention`` its greedy and beam maps against
+    the CPU's. Rates: each run's train tokens/s beside phase 6's GRU,
+    each optimizer's ms per update, phase 6's training with the prefetch
+    worker beside the loop without it, beam 10 under ``align_logits``
+    beside the default. Returns (the main-path runs' launches,
+    report)."""
+    import torch
+
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.models.decoders import autoregressive
+    from neuralmonkey_tpu_torch.runtime import CUDAManager
+
+    launches, report = None, {"runs": {}}
+    checkpoints = {}
+    for cell, optimizer, maps in LT_RUNS:
+        label = f"{cell} + {optimizer}"
+        ini = write_long_tail_ini(tmp, cell, optimizer, maps)
+        out = os.path.join(tmp, f"lt_{cell}_{optimizer}_out")
+        run_launches, record, best = train_through_cli(ini, out, label)
+        missing = [k for k in LT_TRAINING_KERNELS if not run_launches[k]]
+        wrong = [k for k in NOT_IN_STEP_SCANS if run_launches[k]]
+        if missing or wrong:
+            raise AssertionError(f"{label}: never launched {missing}, "
+                                 f"launched {wrong}")
+        launches = add_launches(launches, run_launches)
+        if maps is not None:
+            pngs = os.listdir(os.path.join(out, "attention_maps"))
+            if not pngs:
+                raise AssertionError(f"{label}: no attention maps written")
+            record["attention_pngs"] = len(pngs)
+        hook = noise_replay()
+        record["parity"] = check_train_parity(ini, best, float64=True,
+                                              hook=hook)
+        if cell == "NoisyGRU" and not hook.drawn:
+            raise AssertionError(f"{label}: no noise drawn in training")
+        record["noise_draws_replayed"] = len(hook.drawn)
+        record["first_update"] = check_first_update(ini, best)
+        report["runs"][label] = record
+        checkpoints[(cell, optimizer)] = (ini, best)
+    report["gru_train_tokens_per_sec (phase 6)"] = gru_record[
+        "train_tokens_per_sec"]
+
+    ini, best = checkpoints[("NoisyGRU", "rmsprop")]
+    report["resume"] = check_opt_resume(ini, tmp, best)
+    report["warm_start"] = check_warm_start(
+        os.path.join(tmp, "train.ini"), best)
+    report["ms_per_update"] = optimizer_update_ms(exp_ini, ckpt)
+
+    # phase 6's model (GRU, Adam) over the same 8 steps with and without
+    # the prefetch worker, in turns
+    gru_ini = write_long_tail_ini(tmp, "GRU", "adam", None)
+    plain_iter = CUDAManager.iter_prepared_batches
+    prefetch = {"with the worker": [], "without": []}
+    for turn in ("with the worker", "without", "without",
+                 "with the worker"):
+        if turn == "without":
+            CUDAManager.iter_prepared_batches = sync_batches
+        try:
+            gru_launches, record, _ = train_through_cli(
+                gru_ini, os.path.join(tmp, f"lt_prefetch_{len(prefetch[turn])}_"
+                                      + turn.replace(" ", "_")),
+                f"phase 6's model, {turn}")
+        finally:
+            CUDAManager.iter_prepared_batches = plain_iter
+        launches = add_launches(launches, gru_launches)
+        prefetch[turn].append(record["train_tokens_per_sec"])
+    report["train_tokens_per_sec_prefetch"] = prefetch
+    gru_rate = statistics.mean(prefetch["with the worker"])
+    for record in report["runs"].values():
+        record["vs GRU + Adam, same steps"] = (
+            record["train_tokens_per_sec"] / gru_rate)
+
+    # serving: align_logits and use_approx_top_k on phase 4's model
+    with open(exp_ini) as f:
+        text = f.read()
+    serving = {}
+    for knob, expected, forbidden in (
+            ("align_logits", SERVING_KERNELS, ()),
+            ("use_approx_top_k", APPROX_KERNELS, NOT_IN_FLAT)):
+        path = os.path.join(tmp, f"lt_{knob}.ini")
+        with open(path, "w") as f:
+            f.write(text.replace("length_normalization=0.6\n",
+                                 f"length_normalization=0.6\n{knob}=True\n"))
+        knob_data = os.path.join(tmp, f"lt_{knob}_data.ini")
+        with open(knob_data, "w") as f:
+            f.write(DATA_INI.format(tmp=tmp, prefix=f"lt_{knob}_"))
+        widths = {"aligned": set(), "K3": set()}
+        plain_align = autoregressive.AutoregressiveDecoder \
+            .align_logits_for_selection
+        plain_k3 = autoregressive.fused_logits_rowmax_lse
+
+        def aligning(self, constants, *args):
+            out = plain_align(self, constants, *args)
+            widths["aligned"].add(out["params"]["logit"]["w"].shape[1])
+            return out
+
+        def k3(x, w, b):
+            widths["K3"].add(w.shape[1])
+            return plain_k3(x, w, b)
+        autoregressive.AutoregressiveDecoder.align_logits_for_selection = \
+            aligning
+        autoregressive.fused_logits_rowmax_lse = k3
+        try:
+            knob_launches, _ = serve_through_run(
+                path, knob_data, ckpt, expected,
+                [os.path.join(tmp, f"lt_{knob}_{name}.txt")
+                 for name in ("greedy", "beam")], knob, forbidden=forbidden)
+        finally:
+            autoregressive.AutoregressiveDecoder \
+                .align_logits_for_selection = plain_align
+            autoregressive.fused_logits_rowmax_lse = plain_k3
+        launches = add_launches(launches, knob_launches)
+        if knob == "align_logits" and widths["aligned"] != {
+                -(-VOCAB // 128) * 128}:
+            raise AssertionError(f"align_logits: tables {widths}")
+        exp = Experiment(path, train_mode=False)
+        exp.build_model()
+        exp.tf_manager.restore(ckpt)
+        serving[knob] = {
+            "table_widths": {k: sorted(v) for k, v in widths.items()},
+            "launches": {k: n for k, n in knob_launches.items() if n},
+            "parity": check_parity(path, knob_data, exp, ckpt)}
+        serving[knob]["exp"] = exp
+    # beam 10 under align_logits beside the default, in turns
+    default = Experiment(exp_ini, train_mode=False)
+    default.build_model()
+    rates = {"default": [], "align_logits": []}
+    for name in ("default", "align_logits", "align_logits", "default") * 2:
+        exp = default if name == "default" else serving[name]["exp"]
+        rates[name].append(serving_speed(
+            exp, ckpt, data_ini, exp.model.runners[1:])[
+                "target_beam"]["sentences_per_s"])
+    for knob in serving:
+        del serving[knob]["exp"]
+    serving["beam10_sentences_per_s"] = rates
+    report["serving"] = serving
+    report["attention_maps"] = attention_maps(exp_ini, data_ini, ckpt, tmp)
+    torch.cuda.synchronize()
+    log(f"long tail: {report}")
+    return launches, report
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "neuralmonkey_tpu_torch")):
         log("neuralmonkey_tpu_torch not found beside chip_smoke.py: run "
@@ -5200,6 +5744,10 @@ def main() -> int:
             "ensembles", check_ensembles, tmp, data_ini, ckpt, t_ini,
             t_ckpt, speed)
         launches = add_launches(launches, n_launches)
+        lt_launches, long_tail = phase(
+            "long tail", check_long_tail, tmp, os.path.join(tmp, "exp.ini"),
+            data_ini, ckpt, training[0])
+        launches = add_launches(launches, lt_launches)
         # the rates of the same paths in float32 (phases 4, 6, 9, 11) and
         # under the bf16 policy (phase 24), from this run
         bf16["rates"] = {
@@ -5249,6 +5797,7 @@ def main() -> int:
         "speech": speech,
         "bf16_policy": bf16,
         "ensembles": ensembles,
+        "long_tail": long_tail,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

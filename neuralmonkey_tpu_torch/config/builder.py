@@ -37,6 +37,8 @@ MODULE_ALIASES = {
     "dataset": f"{_PORT}.dataset",
     "vocabulary": f"{_PORT}.vocabulary",
     "functions": f"{_PORT}.functions",
+    # the reference's per-file nn/ layout over ops/nn.py
+    "nn": f"{_PORT}.nn",
     "tf_manager": f"{_PORT}.runtime",
     "config": f"{_PORT}.config",
 }

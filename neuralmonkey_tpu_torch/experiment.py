@@ -19,7 +19,7 @@ from .dataset import BatchingScheme, Dataset
 from .learning_utils import (evaluation, normalize_evaluation,
                              print_final_evaluation, run_on_dataset,
                              training_loop)
-from .logging import Logging, log
+from .logging import Logging, log, warn
 from .ops.policy import set_compute_dtype
 from .runtime import CUDAManager
 from .trainers.multitask_trainer import MultitaskTrainer
@@ -147,10 +147,6 @@ class Experiment:
         if isinstance(trainer, list):
             trainer = (MultitaskTrainer(trainer) if len(trainer) > 1
                        else trainer[0])
-        if model.visualize_embeddings:
-            raise NotImplementedError(
-                "visualize_embeddings is not ported to "
-                "neuralmonkey_tpu_torch yet")
         if self.cont_index > 0:
             latest = self._latest_checkpoint()
             if latest:
@@ -186,6 +182,38 @@ class Experiment:
             validation_period=model.validation_period,
             postprocess=model.postprocess,
             output_dir=self.output_dir)
+
+        if model.visualize_embeddings:
+            self._write_embedding_projections(model.visualize_embeddings)
+
+    def _write_embedding_projections(self, sequences) -> None:
+        """``[main] visualize_embeddings``: for each embedded sequence,
+        ``<output>/<name>_embeddings.tsv`` (one vector a row) and
+        ``<name>_metadata.tsv`` (the vocabulary's tokens), the files
+        TensorBoard's embedding projector loads; the same files as the
+        JAX package's."""
+        sequences = (sequences if isinstance(sequences, list)
+                     else [sequences])
+        params = self.tf_manager.params
+        for seq in sequences:
+            table = params.get(seq.param_key, {}).get("embeddings")
+            if table is None:
+                warn(f"visualize_embeddings: part '{seq.name}' has no "
+                     "embeddings table; skipped")
+                continue
+            table = table.detach().float().cpu().numpy()
+            vec_path = os.path.join(self.output_dir,
+                                    f"{seq.name}_embeddings.tsv")
+            meta_path = os.path.join(self.output_dir,
+                                     f"{seq.name}_metadata.tsv")
+            with open(vec_path, "w", encoding="utf-8") as f:
+                for row in table:
+                    f.write("\t".join(f"{x:.6g}" for x in row) + "\n")
+            with open(meta_path, "w", encoding="utf-8") as f:
+                for token in seq.vocabulary.index_to_word:
+                    f.write(token + "\n")
+            log(f"Embedding projection for '{seq.name}' written to "
+                f"{vec_path}")
 
     # ------------------------------------------------------------------ #
     def restore_variables(self, paths: Optional[List[str]] = None,

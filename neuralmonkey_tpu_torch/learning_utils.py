@@ -3,7 +3,8 @@
 
 ``training_loop`` runs epochs of train steps with periodic logging and
 validation: every runner over the validation set(s), postprocessing,
-evaluators, the best-checkpoint link. Metrics go to
+evaluators, the best-checkpoint link and, for runners with
+``visualize_attention``, attention maps at each new best. Metrics go to
 ``<output>/metrics.jsonl`` and a TensorBoard events file."""
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from .dataset import BatchingScheme, Dataset
 from .logging import log, log_print, warn
 from .runners.base_runner import ExecutionResult
+from .utils.png import png_bytes, write_png
 
 _TIME_PERIOD = re.compile(r"^(\d+(\.\d+)?)([smhd])$")
 _UNIT_SECONDS = {"s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
@@ -70,11 +72,21 @@ class MetricsWriter:
         record.update({k: float(v) for k, v in values.items()})
         with open(self.path, "a", encoding="utf-8") as f:
             f.write(json.dumps(record) + "\n")
+        self._event_writer().add_scalars(
+            step, {f"{kind}/{k}": float(v) for k, v in values.items()})
+
+    def _event_writer(self):
         if self._events is None:
             from .utils.tensorboard import EventFileWriter
             self._events = EventFileWriter(self.output_dir)
-        self._events.add_scalars(
-            step, {f"{kind}/{k}": float(v) for k, v in values.items()})
+        return self._events
+
+    def write_image(self, step: int, tag: str, matrix) -> None:
+        """A 2-D array as a TensorBoard image summary (a PNG heatmap)."""
+        if self.output_dir is None:
+            return
+        data, height, width = png_bytes(np.asarray(matrix))
+        self._event_writer().add_image(step, tag, data, height, width)
 
 
 def normalize_evaluation(evaluation: Optional[Sequence]
@@ -232,6 +244,8 @@ def training_loop(tf_manager,
                 continue
             if tf_manager.validation_hook(score, step, epoch, var_path):
                 _log_examples(val_dataset, outputs, evaluators)
+                _write_attention_maps(results, output_dir, step,
+                                      metrics=metrics)
 
     step_losses: List[Dict[str, torch.Tensor]] = []
     window_start = time.time()
@@ -323,6 +337,31 @@ def _log_examples(dataset: Dataset, outputs: Dict[str, List],
             i, " ".join(hyp) if isinstance(hyp, list) else hyp))
         log_print("      ref: {}".format(
             " ".join(ref) if isinstance(ref, list) else ref))
+
+
+def _write_attention_maps(results: List[ExecutionResult],
+                          output_dir: Optional[str], step: int,
+                          limit: int = 3,
+                          metrics: Optional[MetricsWriter] = None) -> None:
+    """The first examples' attention maps of the first runner that
+    fetched them (``visualize_attention``), as PNG heatmaps in
+    ``<output>/attention_maps/step<step>_ex<i>.png`` and, with
+    ``metrics``, as image summaries in the events file."""
+    if output_dir is None:
+        return
+    for result in results:
+        maps = (result.aux or {}).get("attention")
+        if maps is None:
+            continue
+        directory = os.path.join(output_dir, "attention_maps")
+        os.makedirs(directory, exist_ok=True)
+        for i, matrix in enumerate(maps[:limit]):
+            write_png(os.path.join(directory, f"step{step}_ex{i}.png"),
+                      np.asarray(matrix))
+            if metrics is not None:
+                metrics.write_image(step, f"attention/ex{i}", matrix)
+        log(f"Attention maps written to {directory}")
+        break
 
 
 def print_final_evaluation(name: str,

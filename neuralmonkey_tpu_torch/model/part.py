@@ -134,12 +134,17 @@ class ModelPart:
                  load_checkpoint: str = None) -> None:
         if not name:
             raise ValueError("Model part name cannot be empty")
-        if save_checkpoint or load_checkpoint:
-            raise NotImplementedError(
-                f"per-part checkpoints ({name}) are not ported to "
-                "neuralmonkey_tpu_torch yet")
+        if save_checkpoint is not None:
+            # the JAX package stores it and never writes the file
+            raise ValueError(
+                f"Model part '{name}': save_checkpoint is not supported "
+                "(the reference ignores it; parts are saved with the "
+                "whole model)")
         self.name = name
         self.reuse = reuse
+        # a checkpoint this part's parameters start from (a warm start,
+        # CUDAManager.load_part_checkpoint)
+        self.load_checkpoint = load_checkpoint
 
     @property
     def param_key(self) -> str:

@@ -272,6 +272,39 @@ class AutoregressiveDecoder(ModelPart):
         constants["fused_logit"] = (w, b[None, :])
         return constants
 
+    def align_logits_for_selection(self, constants: Dict[str, Any],
+                                   lane: int = 128) -> Dict[str, Any]:
+        """Decode constants whose logit projection is padded to a
+        multiple of ``lane`` columns (the tied embedding table's rows
+        and ``logit_bias``, or the output projection's ``w`` and ``b``),
+        the pad at bias -1e9, so the decode steps emit lane-aligned
+        logits and the hierarchical selector has no pad pass to make.
+        The pad columns are never selected (and the search clamps the
+        emitted ids). Unchanged when the vocabulary is aligned."""
+        vocab = len(self.vocabulary)
+        pad = (-vocab) % lane
+        if pad == 0:
+            return constants
+        constants = dict(constants)
+        params = dict(constants["params"])
+        if self.tie_embeddings:
+            constants["embed_table"] = torch.nn.functional.pad(
+                constants["embed_table"], (0, 0, 0, pad))
+            bias = params["logit_bias"]
+            params["logit_bias"] = torch.cat(
+                [bias, bias.new_full((pad,), -1e9)])
+        else:
+            logit = dict(params["logit"])
+            w = logit["w"]
+            logit["w"] = torch.nn.functional.pad(w, (0, pad))
+            bias = logit.get("b")
+            if bias is None:
+                bias = w.new_zeros(vocab, dtype=torch.float32)
+            logit["b"] = torch.cat([bias, bias.new_full((pad,), -1e9)])
+            params["logit"] = logit
+        constants["params"] = params
+        return constants
+
     def _step_logits(self, constants: Dict[str, Any],
                      prelogit: torch.Tensor,
                      plain: Callable[[], torch.Tensor]

@@ -14,7 +14,17 @@ with the Wu et al. (2016) length penalty and keeps the best K:
   search, or under ``NM_FUSED_LOGITS=0`` from ``rowmax_lse`` over the
   plain logits padded to whole 128-column groups. Exact: a column group
   holding a top-K element ranks in the top K groups by its maximum;
-- ``flat`` selection takes the top K over the whole (B, K·V) matrix.
+- ``flat`` selection takes the top K over the whole (B, K·V) matrix
+  (a stable sort; it is also ``use_approx_top_k``'s selector: the JAX
+  package's ``lax.approx_max_k`` is exact off the TPU).
+
+``align_logits`` pads the single-model hierarchical search's logit
+projection to whole 128-column groups once per search
+(``align_logits_for_selection``), so that the selector never pads the
+logits; the fused projection then runs on the padded table.
+``search(ctx, with_attention=True)`` also returns each final
+hypothesis's first-attention weights at every step (single model only),
+moved with the hypotheses as the search selects them.
 
 The parent decoder must support lineage decoding (the RNN and
 Transformer decoders do): its beam-invariant constants stay untiled,
@@ -39,7 +49,7 @@ the fused logit projection is never armed.
 from __future__ import annotations
 
 import os
-from typing import Any, List, NamedTuple
+from typing import Any, List, NamedTuple, Optional
 
 import torch
 
@@ -63,6 +73,8 @@ class BeamSearchOutput(NamedTuple):
     token_ids: torch.Tensor     # (B, K, L) sorted best first
     lengths: torch.Tensor       # (B, K)
     scores: torch.Tensor        # (B, K) length-normalized
+    # (B, K, L, T_src): with_attention and a parent emitting weights
+    attention: Optional[torch.Tensor] = None
 
 
 def length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -105,10 +117,6 @@ class BeamSearchDecoder(ModelPart):
                  load_checkpoint: str = None) -> None:
         ModelPart.__init__(self, name, reuse, save_checkpoint,
                            load_checkpoint)
-        if use_approx_top_k or align_logits:
-            raise NotImplementedError(
-                "use_approx_top_k and align_logits are not ported to "
-                "neuralmonkey_tpu_torch yet")
         if selection_method not in ("auto", "flat", "hierarchical"):
             raise ValueError(
                 f"Unknown selection_method: {selection_method}")
@@ -125,6 +133,8 @@ class BeamSearchDecoder(ModelPart):
         self.max_steps = min(max_steps or parent_decoder.max_output_len,
                              parent_decoder.max_output_len)
         self.selection_method = selection_method
+        self.use_approx_top_k = use_approx_top_k
+        self.align_logits = align_logits
         self.lineage = lineage
         self._check_lineage()
 
@@ -153,7 +163,7 @@ class BeamSearchDecoder(ModelPart):
             return self.selection_method
         # hierarchical wins once full-vocabulary passes dominate
         return ("flat" if len(self.vocabulary) < 2048
-                else "hierarchical")
+                or self.use_approx_top_k else "hierarchical")
 
     # ------------------------------------------------------------------ #
     # per-step candidate selection. Both selectors take scores ``x``
@@ -268,18 +278,23 @@ class BeamSearchDecoder(ModelPart):
         return parents, tokens, new_logprob, top_scores
 
     # ------------------------------------------------------------------ #
-    def search(self, ctx: Context) -> BeamSearchOutput:
-        """Single-model beam search."""
+    def search(self, ctx: Context,
+               with_attention: bool = False) -> BeamSearchOutput:
+        """Single-model beam search; ``with_attention`` records the
+        attention weights of the final hypotheses."""
         self._check_lineage()
         parent = self.parent_decoder
         constants = parent.decode_constants(ctx)
         state = parent.decode_initial_state(ctx, constants)
         if self._method() == "hierarchical":
+            if self.align_logits:
+                constants = parent.align_logits_for_selection(constants)
             # a no-op under NM_FUSED_LOGITS=0
             constants = parent.prepare_selection_fusion(constants)
         return self._search_impl(
             ctx, [constants], [parent.tile_decode_state(state,
-                                                         self.beam_size)])
+                                                         self.beam_size)],
+            with_attention=with_attention)
 
     def ensemble_search(self, contexts: List[Context]) -> BeamSearchOutput:
         """Beam search of the models of ``contexts`` (one a parameter
@@ -293,9 +308,12 @@ class BeamSearchDecoder(ModelPart):
         return self._search_impl(contexts[0], constants, states)
 
     def _search_impl(self, ctx: Context, constants_list: List[Any],
-                     states: List[Any]) -> BeamSearchOutput:
+                     states: List[Any],
+                     with_attention: bool = False) -> BeamSearchOutput:
         """The search over the models' untiled constants and beam-tiled
-        loop states; ``ctx`` gives the batch size and the device."""
+        loop states; ``ctx`` gives the batch size and the device. With
+        ``with_attention`` (one model) the first attention's weights of
+        each step are kept, moved with the hypotheses they extend."""
         parent = self.parent_decoder
         beam = self.beam_size
         vocab = len(parent.vocabulary)
@@ -331,6 +349,7 @@ class BeamSearchDecoder(ModelPart):
             None, :, None].expand(batch, beam, cache_len)
         anc = anc0 if parent.reads_ancestry else anc0.clone()
         positions = torch.arange(cache_len, device=device)
+        history = None
 
         for step in range(self.max_steps):
             if step and step % FINISHED_CHECK_PERIOD == 0 \
@@ -354,6 +373,17 @@ class BeamSearchDecoder(ModelPart):
                        if "sel_rowmax" in aux else None)
             parents, tokens, new_logprob, _ = select_fn(
                 x, search, batch, precomputed=sel, normalized=ensemble)
+            weights = () if ensemble else aux.get("attention_weights", ())
+            if with_attention and weights:
+                w = weights[0].float().reshape(batch, beam, -1)
+                if history is None:
+                    history = w.new_zeros(batch, beam, self.max_steps,
+                                          w.shape[-1])
+                index = parents.long()
+                history = torch.gather(history, 1, index[..., None, None]
+                                       .expand_as(history))
+                history[:, :, step] = torch.gather(
+                    w, 1, index[..., None].expand_as(w))
             # the state is never reordered; compose the ancestry: written
             # positions inherit the parent's lineage, later ones stay the
             # identity. Column ``step`` holds the parents either way, and
@@ -392,5 +422,7 @@ class BeamSearchDecoder(ModelPart):
                 search.token_ids, 1,
                 order[..., None].expand_as(search.token_ids)),
             lengths=torch.gather(search.lengths, 1, order),
-            scores=torch.gather(final_scores, 1, order))
+            scores=torch.gather(final_scores, 1, order),
+            attention=None if history is None else torch.gather(
+                history, 1, order[..., None, None].expand_as(history)))
 

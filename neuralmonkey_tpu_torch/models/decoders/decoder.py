@@ -74,6 +74,8 @@ class Decoder(AutoregressiveDecoder):
                 "Decoder: rnn_cell 'LSTM' is not supported (the decoder "
                 "state is a single (B, H) tensor); LSTM cells serve the "
                 "encoders")
+        if conditional_gru and rnn_cell not in ("GRU", "OrthoGRU"):
+            raise ValueError("conditional_gru requires a GRU cell")
         self._stateful = any(getattr(att, "stateful_attention", False)
                              for att in self.attentions)
 
@@ -191,9 +193,11 @@ class Decoder(AutoregressiveDecoder):
         return contexts, weights, tuple(new_states)
 
     def _cell_step(self, constants, state, att_states, embedded_prev,
-                   beam=None, dropout_gens=None):
+                   beam=None, dropout_gens=None, noise=None):
         """One decoder cell step: (new_state, prelogit_input, weights,
-        new attention states)."""
+        new attention states). ``noise`` (teacher-forced training of a
+        noisy-activation cell, which a conditional GRU never has) is this
+        step's noise draw."""
         params = constants["params"]
         weights: List[torch.Tensor] = []
         context_cat = None
@@ -213,7 +217,9 @@ class Decoder(AutoregressiveDecoder):
                     constants, state, att_states, beam, dropout_gens)
                 context_cat = torch.cat(contexts, dim=-1)
                 cell_in = torch.cat([embedded_prev, context_cat], dim=-1)
-            new_state, _ = self._cell1(params["cell1"], state, cell_in)
+            new_state, _ = self._cell1(
+                params["cell1"], state, cell_in,
+                **({} if noise is None else {"noise": noise}))
 
         pieces = [new_state, embedded_prev]
         if context_cat is not None:
@@ -260,6 +266,13 @@ class Decoder(AutoregressiveDecoder):
         state = self.initial_state(ctx)
         att_states = self._att_initial_states(constants)
         seeds = constants["att_dropout_seeds"]
+        # a noisy-activation cell draws fresh noise every step
+        noise = (self._cell1.draw_noise(
+            embedded.shape[1], embedded.shape[0],
+            ctx.make_rng(self, "cell_noise", embedded.device),
+            embedded.device)
+            if ctx.train and isinstance(self._cell1, nn.NoisyGRUCell)
+            else None)
         prelogit_in, weights = [], []
         for t in range(embedded.shape[1]):
             # a fresh attention-dropout draw every step
@@ -269,7 +282,8 @@ class Decoder(AutoregressiveDecoder):
                 else None)
             state, step_in, step_weights, att_states = self._cell_step(
                 constants, state, att_states, embedded[:, t],
-                dropout_gens=gens)
+                dropout_gens=gens,
+                noise=None if noise is None else noise[t])
             prelogit_in.append(step_in)
             weights.append(step_weights)
         prelogit_in = ctx.dropout(self, torch.stack(prelogit_in, dim=1),

@@ -6,7 +6,8 @@ any TemporalStateful input; ``SentenceEncoder`` owns its own
 ``EmbeddedSequence``, ``FactoredEncoder`` an ``EmbeddedFactorSequence``,
 and ``DeepSentenceEncoder`` stacks layers of equal size. GRU layers run
 the fused GRU scan (kernel K1) on the GPU, LSTM layers the fused LSTM
-scan, both directions of a layer in one launch (``ops/rnn.py``).
+scan, both directions of a layer in one launch; the layer-normalized and
+noisy-activation GRUs run the step scan (``ops/rnn.py``).
 """
 
 from __future__ import annotations
@@ -94,14 +95,19 @@ class RecurrentEncoder(ModelPart, TemporalStatefulWithOutput):
                              "input_dropout")
         final = None
         for i, (fw, bw) in enumerate(self._cells):
+            # noisy-activation cells draw their noise in training only
+            noise = (ctx.make_rng(self, f"cell_noise_{i}", states.device)
+                     if ctx.train and isinstance(fw, nn.NoisyGRUCell)
+                     else None)
             if bw is not None:
                 states, final = bidirectional_rnn(
                     fw, params[f"layer_{i}_fw"],
-                    bw, params[f"layer_{i}_bw"], states, mask)
+                    bw, params[f"layer_{i}_bw"], states, mask,
+                    noise=noise)
             else:
                 states, final = unidirectional_rnn(
                     fw, params[f"layer_{i}_fw"], states, mask,
-                    reverse=self.rnn_direction == "backward")
+                    reverse=self.rnn_direction == "backward", noise=noise)
             if i < len(self._cells) - 1:
                 states = ctx.dropout(self, states, self.dropout_keep_prob,
                                      f"layer_{i}_dropout")

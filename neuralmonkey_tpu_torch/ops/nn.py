@@ -1,7 +1,6 @@
-"""NN primitives: initializers, projections, dropout, GRU and LSTM cells.
+"""NN primitives: initializers, projections, dropout, recurrent cells.
 
-Counterpart of ``neuralmonkey_tpu/ops/nn.py`` for the parts the RNN
-translation path uses. Parameters are plain dicts of tensors with the
+Counterpart of ``neuralmonkey_tpu/ops/nn.py``. Parameters are plain dicts of tensors with the
 JAX package's names and layouts (a linear ``w`` is ``(in, out)``), so
 a JAX checkpoint loads without transposes. Initializers draw from an
 explicit ``torch.Generator`` on the CPU.
@@ -11,13 +10,15 @@ multiplies ``h`` *before* the candidate's recurrent product, and the
 gate bias starts at 1.0. ``torch.nn.GRU`` and cuDNN apply the reset
 gate after that product, so they cannot stand in for it. The LSTM
 follows TF1 too (``tf.nn.rnn_cell.BasicLSTMCell``): one ``z`` of gates
-in i, j, f, o order, with ``forget_bias`` added to f.
+in i, j, f, o order, with ``forget_bias`` added to f. The layer-normalized
+and the noisy-activation GRUs have no kernel; ``ops/rnn.py`` scans them
+step by step, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -137,6 +138,11 @@ def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def nonlinear(params: Params, x: torch.Tensor,
+              activation: Callable = torch.tanh) -> torch.Tensor:
+    return activation(linear(params, x))
+
+
 def maxout_init(gen: torch.Generator, in_dim: int, out_dim: int,
                 pool_size: int = 2) -> Params:
     return linear_init(gen, in_dim, out_dim * pool_size)
@@ -149,6 +155,28 @@ def maxout(params: Params, x: torch.Tensor,
     y = linear(params, x)
     y = y.reshape(y.shape[:-1] + (y.shape[-1] // pool_size, pool_size))
     return y.amax(dim=-1)
+
+
+def multilayer_projection_init(gen: torch.Generator, in_dim: int,
+                               layer_sizes: Sequence[int]) -> List[Params]:
+    layers = []
+    for size in layer_sizes:
+        layers.append(linear_init(gen, in_dim, size))
+        in_dim = size
+    return layers
+
+
+def multilayer_projection(layers: List[Params], x: torch.Tensor,
+                          activation: Callable = torch.tanh,
+                          dropout_fn: Optional[Callable] = None
+                          ) -> torch.Tensor:
+    """A stack of linear layers, each followed by ``activation`` and,
+    when given, ``dropout_fn``."""
+    for layer in layers:
+        x = activation(linear(layer, x))
+        if dropout_fn is not None:
+            x = dropout_fn(x)
+    return x
 
 
 def highway_init(gen: torch.Generator, dim: int) -> Dict[str, Params]:
@@ -181,6 +209,15 @@ def dropout(x: torch.Tensor, keep_prob: float,
     keep = torch.rand(x.shape, generator=generator, device=x.device,
                       dtype=widened(x.dtype)) < keep_prob
     return torch.where(keep, x / scalar(keep_prob, x.dtype), 0.0)
+
+
+def maybe_dropout(x: torch.Tensor, keep_prob: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout iff the caller drew a generator for this site
+    (it draws one exactly when ``Context.dropout`` would apply)."""
+    if generator is None:
+        return x
+    return dropout(x, keep_prob, generator, True)
 
 
 # ---------------------------------------------------------------------- #
@@ -227,6 +264,112 @@ class OrthoGRUCell(GRUCell):
         super().__init__(input_dim, hidden_dim, recurrent_init=orthogonal)
 
 
+class LayerNormGRUCell(GRUCell):
+    """GRU with layer normalization (eps 1e-6) of the gate and candidate
+    pre-activations; ``gates_b`` and ``cand_b`` are the normalizations'
+    biases, ``ln_gates_scale`` and ``ln_cand_scale`` their scales."""
+
+    def init(self, gen: torch.Generator) -> Params:
+        params = super().init(gen)
+        h = self.hidden_dim
+        params["ln_gates_scale"] = torch.ones(2 * h)
+        params["ln_cand_scale"] = torch.ones(h)
+        return params
+
+    @staticmethod
+    def _ln(x: torch.Tensor, scale: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, unbiased=False, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + 1e-6) * scale + bias
+
+    def __call__(self, params: Params, h: torch.Tensor, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        gates = torch.sigmoid(self._ln(
+            pdot(x, params["gates_x"]) + pdot(h, params["gates_h"]),
+            params["ln_gates_scale"], params["gates_b"]))
+        r, u = gates.chunk(2, dim=-1)
+        cand = torch.tanh(self._ln(
+            pdot(x, params["cand_x"]) + pdot(r * h, params["cand_h"]),
+            params["ln_cand_scale"], params["cand_b"]))
+        new_h = u * h + (1.0 - u) * cand
+        return new_h, new_h
+
+
+class NoisyGRUCell(GRUCell):
+    """Noisy-activation GRU (Gulcehre et al., 2016): hard sigmoid and
+    hard tanh; in training, when the caller passes ``noise`` (standard
+    normal draws, see :meth:`draw_noise`), half-normal noise enters the
+    saturated regions:
+
+        y = a·h(x) + (1 - a)·u(x) + d(x)·s(x)·|xi|
+
+    with ``h`` the hard function, ``u`` its linearization, ``s(x) =
+    C·(sigmoid(h - u) - 1/2)^2`` and ``d(x) = sgn(x)·sgn(a - 1)``.
+
+    The JAX cell stores ``training`` and never reads it (the noise is on
+    exactly when a training pass threads it in), so the port refuses
+    ``training=True`` rather than ignore it."""
+
+    ALPHA = 1.15
+    C = 0.5
+
+    def __init__(self, input_dim: int, hidden_dim: int,
+                 training: bool = False) -> None:
+        if training:
+            raise ValueError(
+                "NoisyGRUCell(training=True): the reference stores the "
+                "flag and never reads it; noise is drawn in every "
+                "training pass and never at inference")
+        super().__init__(input_dim, hidden_dim)
+
+    def draw_noise(self, steps: int, batch: int,
+                   generator: torch.Generator,
+                   device: torch.device) -> torch.Tensor:
+        """Standard normal draws for ``steps`` steps of ``batch`` rows,
+        (steps, batch, 3H): each step's gates read the first 2H columns
+        of its row, the candidate the last H."""
+        return torch.randn((steps, batch, 3 * self.hidden_dim),
+                           generator=generator, device=device)
+
+    @staticmethod
+    def _hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(0.25 * x + 0.5, 0.0, 1.0)
+
+    @staticmethod
+    def _hard_tanh(x: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(x, -1.0, 1.0)
+
+    @classmethod
+    def _noisy(cls, hard_value: torch.Tensor, linear_value: torch.Tensor,
+               x: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+        delta = hard_value - linear_value
+        sigma = cls.C * torch.square(torch.sigmoid(delta) - 0.5)
+        d = torch.sign(x) * math.copysign(1.0, cls.ALPHA - 1.0)
+        return (cls.ALPHA * hard_value
+                + (1.0 - cls.ALPHA) * linear_value
+                + d * sigma * xi.abs())
+
+    def __call__(self, params: Params, h: torch.Tensor, x: torch.Tensor,
+                 noise: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        gates_pre = (pdot(x, params["gates_x"]) + pdot(h, params["gates_h"])
+                     + params["gates_b"])
+        gates = self._hard_sigmoid(gates_pre)
+        if noise is not None:
+            gates = self._noisy(gates, 0.25 * gates_pre + 0.5, gates_pre,
+                                noise[..., :2 * self.hidden_dim])
+        r, u = gates.chunk(2, dim=-1)
+        cand_pre = (pdot(x, params["cand_x"])
+                    + pdot(r * h, params["cand_h"]) + params["cand_b"])
+        cand = self._hard_tanh(cand_pre)
+        if noise is not None:
+            cand = self._noisy(cand, cand_pre, cand_pre,
+                               noise[..., 2 * self.hidden_dim:])
+        new_h = u * h + (1.0 - u) * cand
+        return new_h, new_h
+
+
 class LSTMCell:
     """TF1-convention LSTM. State: (c, h), each (B, H); output h."""
 
@@ -262,12 +405,18 @@ class LSTMCell:
 
 
 Cell = Union[GRUCell, LSTMCell]
-CELL_TYPES = {"GRU": GRUCell, "OrthoGRU": OrthoGRUCell, "LSTM": LSTMCell}
+CELL_TYPES = {
+    "GRU": GRUCell,
+    "OrthoGRU": OrthoGRUCell,
+    "LayerNormGRU": LayerNormGRUCell,
+    "NoisyGRU": NoisyGRUCell,
+    "LSTM": LSTMCell,
+}
 
 
 def make_cell(cell_type: str, input_dim: int, hidden_dim: int) -> Cell:
     if cell_type not in CELL_TYPES:
         raise ValueError(
-            f"rnn_cell '{cell_type}' is not ported to neuralmonkey_tpu_torch "
-            f"(ported: {sorted(CELL_TYPES)})")
+            f"Unknown rnn_cell '{cell_type}' "
+            f"(choose from {sorted(CELL_TYPES)})")
     return CELL_TYPES[cell_type](input_dim, hidden_dim)

@@ -31,15 +31,24 @@ def reduce_execution_results(results: List[ExecutionResult]
     outputs: List[Any] = []
     total = 0
     loss_sums: Dict[str, float] = {}
+    aux_items: Dict[str, List[Any]] = {}
     for result in results:
         outputs.extend(result.outputs)
         total += result.size
         for name, value in result.losses.items():
             loss_sums[name] = loss_sums.get(name, 0.0) \
                 + float(value) * result.size
+        for name, value in (result.aux or {}).items():
+            aux_items.setdefault(name, []).append(value)
     losses = {name: value / max(total, 1)
               for name, value in loss_sums.items()}
-    return ExecutionResult(outputs=outputs, losses=losses, size=total)
+    # aux arrays may have batch-dependent trailing shapes (bucketed time
+    # axes), so they stay lists of per-example rows
+    aux = ({name: [row for chunk in chunks for row in chunk]
+            for name, chunks in aux_items.items()}
+           if aux_items else None)
+    return ExecutionResult(outputs=outputs, losses=losses, size=total,
+                           aux=aux)
 
 
 class BaseRunner:

@@ -25,19 +25,24 @@ class BeamSearchRunner(BaseRunner):
             raise ValueError(
                 f"Rank must be in [1, beam_size={decoder.beam_size}], "
                 f"got {rank}")
-        if visualize_attention:
-            raise NotImplementedError(
-                "visualize_attention is not ported to "
-                "neuralmonkey_tpu_torch yet")
         self.rank = rank
         self.postprocess = postprocess
+        # the search records the first attention's weights of the final
+        # hypotheses (single model only); the training loop writes the
+        # rank-th hypothesis's map as a PNG
+        self.visualize_attention = visualize_attention
 
     @property
     def all_parts(self):
         return [self.decoder, self.decoder.parent_decoder]
 
     def fetches(self, ctx: Context) -> Dict:
-        return self._outputs(self.decoder.search(ctx))
+        output = self.decoder.search(
+            ctx, with_attention=self.visualize_attention)
+        out = self._outputs(output)
+        if output.attention is not None:
+            out["attention"] = output.attention
+        return out
 
     def ensemble_fetches(self, contexts: List[Context]) -> Dict:
         """The search of the models of ``contexts`` (one a parameter
@@ -59,7 +64,17 @@ class BeamSearchRunner(BaseRunner):
             sentences = self.postprocess(sentences)
         scores = np.asarray(fetched["scores"])[:num_examples,
                                                self.rank - 1]
+        aux = None
+        if "attention" in fetched:
+            # (B, K, T_out, T_src) -> the rank-th hypothesis's map, cut
+            # to its emitted length
+            att = np.asarray(fetched["attention"])[:num_examples,
+                                                   self.rank - 1]
+            lengths = np.asarray(fetched["lengths"])[:num_examples,
+                                                     self.rank - 1]
+            aux = {"attention": [m[:int(n)] if int(n) > 0 else m
+                                 for m, n in zip(att, lengths)]}
         return ExecutionResult(
             outputs=sentences,
             losses={"beam_score": float(np.mean(scores))},
-            size=num_examples)
+            size=num_examples, aux=aux)

@@ -11,6 +11,8 @@ to TensorFlow sessions are ignored, as in the JAX package.
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -157,6 +159,23 @@ class CUDAManager:
         total = sum(v.numel() for v in flatten_tree(self.params).values())
         log(f"Initialized {len(self.parts)} model parts, "
             f"{total:,} parameters")
+        for part in self.parts:
+            if part.load_checkpoint:
+                self.load_part_checkpoint(part, part.load_checkpoint)
+
+    def load_part_checkpoint(self, part: ModelPart, path: str) -> None:
+        """Warm-start ``part``'s parameters from the ``.npz`` at
+        ``path``: its ``<param_key>/...`` entries, or, when it has none,
+        the whole file as the part's own flat keys. Every key and shape
+        of the part must match."""
+        flat = load_flat(path)
+        key = part.param_key
+        prefix = f"{key}/"
+        sub = {k[len(prefix):]: v for k, v in flat.items()
+               if k.startswith(prefix)}
+        self.params[key] = _to_device(
+            params_from_jax(sub or flat, self.params[key]), self.device)
+        log(f"Part '{part.name}' warm-started from {path}")
 
     def restore(self, paths: Union[str, Sequence[str]],
                 average: bool = False) -> None:
@@ -193,21 +212,113 @@ class CUDAManager:
                     ) -> Tuple[Dict[str, torch.Tensor], int]:
         """Featurize all parts, pad to bucketed shapes, move to the
         device. Returns (batch, real_size)."""
-        features: Dict[str, np.ndarray] = {}
-        for part in self.parts:
-            features.update(part.featurize(dataset, train=train))
-        padded, real_size = pad_batch(features, batch_size)
+        padded, real_size = self._host_batch(dataset, batch_size, train)
         batch = {key: torch.from_numpy(value).to(self.device)
                  for key, value in padded.items()}
         return batch, real_size
 
+    def _host_batch(self, dataset, batch_size: int, train: bool
+                    ) -> Tuple[Dict[str, np.ndarray], int]:
+        """Every part's features of ``dataset``, padded on the host."""
+        features: Dict[str, np.ndarray] = {}
+        for part in self.parts:
+            features.update(part.featurize(dataset, train=train))
+        return pad_batch(features, batch_size)
+
+    def _prepare_batch(self, dataset, batch_size: int, train: bool,
+                       stream: Optional["torch.cuda.Stream"]):
+        """``build_batch`` for the prefetch worker: on the card the host
+        arrays are copied from pinned buffers on the worker's own
+        ``stream``, and an event recorded there marks the copies' end.
+        Returns (batch, real_size, event or None)."""
+        if stream is None:
+            batch, real_size = self.build_batch(dataset, batch_size, train)
+            return batch, real_size, None
+        padded, real_size = self._host_batch(dataset, batch_size, train)
+        with torch.cuda.stream(stream):
+            batch = {key: torch.from_numpy(value).pin_memory().to(
+                         self.device, non_blocking=True)
+                     for key, value in padded.items()}
+            event = torch.cuda.Event()
+            event.record(stream)
+        return batch, real_size, event
+
     def iter_prepared_batches(self, dataset, batching_scheme,
-                              batch_size: int, train: bool = False):
-        """(batch, real_size) for every batch of ``dataset``, shuffled
-        when training."""
-        for dataset_batch in dataset.batches(batching_scheme,
-                                             shuffled=train):
-            yield self.build_batch(dataset_batch, batch_size, train=train)
+                              batch_size: int, train: bool = False,
+                              shuffled: bool = None,
+                              prefetch_depth: int = 2):
+        """(batch, real_size) for every batch of ``dataset`` (shuffled
+        when training, unless ``shuffled`` says otherwise), prepared
+        ``prefetch_depth`` batches ahead by a worker thread: it
+        featurizes and pads, and on the card copies each batch to the
+        device on a side stream of its own, whose event the consumer's
+        stream waits on (``record_stream`` keeps the caching allocator
+        from reusing a block before the consumer's work on it is done).
+
+        The consumer may leave at any point (break, exception, close):
+        the ``finally`` signals the worker, drains the queue so a worker
+        blocked in ``put`` wakes, and joins it. An exception in the
+        worker is raised in the consumer."""
+        sentinel = object()
+        out_queue: "queue.Queue" = queue.Queue(maxsize=prefetch_depth)
+        stop = threading.Event()
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def put(item) -> bool:
+            """A bounded put that re-checks ``stop``, so the worker never
+            waits in ``put`` after the consumer has left."""
+            while not stop.is_set():
+                try:
+                    out_queue.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for dataset_batch in dataset.batches(
+                        batching_scheme,
+                        shuffled=train if shuffled is None else shuffled):
+                    if stop.is_set():
+                        return
+                    if not put(self._prepare_batch(
+                            dataset_batch, batch_size, train, stream)):
+                        return
+            except BaseException as exc:  # raised again in the consumer
+                put(exc)
+                return
+            put(sentinel)
+
+        thread = threading.Thread(target=worker, name="nm-prefetch",
+                                  daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = out_queue.get()
+                if item is sentinel:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                batch, real_size, event = item
+                if event is not None:
+                    consumer = torch.cuda.current_stream(self.device)
+                    consumer.wait_event(event)
+                    for tensor in batch.values():
+                        tensor.record_stream(consumer)
+                yield batch, real_size
+        finally:
+            stop.set()
+            try:
+                while True:
+                    out_queue.get_nowait()
+            except queue.Empty:
+                pass
+            thread.join(timeout=60.0)
+            if thread.is_alive():
+                warn("prefetch worker did not stop within 60s; "
+                     "a copy to the device may still be in flight")
 
     # ------------------------------------------------------------------ #
     # training

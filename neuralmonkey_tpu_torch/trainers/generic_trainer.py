@@ -40,14 +40,19 @@ class Objective:
 class Update:
     """Clip by global norm (when ``clip_norm`` is set), then apply the
     optimizer's rule in place: ``optax.chain(clip_by_global_norm(c),
-    tx)`` of the JAX trainer's ``make_optax``."""
+    tx)`` of the JAX trainer's ``make_optax``. A transform with optax's
+    state keys finds them under the chain's ``1/`` when clipped, as in
+    the JAX package's ``.opt`` files."""
 
     def __init__(self, transform, clip_norm: float = None) -> None:
         self.transform = transform
         self.clip_norm = clip_norm
+        self.prefix = ("1/" if clip_norm and transform.optax_keys
+                       else "")
 
     def init(self, params: Flat) -> Flat:
-        return self.transform.init(params)
+        return {self.prefix + k: v
+                for k, v in self.transform.init(params).items()}
 
     @torch.no_grad()
     def apply(self, params: Flat, grads: Flat, state: Flat
@@ -57,7 +62,10 @@ class Update:
         norm = global_norm(grads)
         if self.clip_norm:
             grads = clip_by_global_norm(grads, self.clip_norm, norm)
-        self.transform.apply(params, grads, state)
+        # the transform updates the state's tensors in place, so a view
+        # without the prefix shares them
+        self.transform.apply(params, grads, {
+            k[len(self.prefix):]: v for k, v in state.items()})
         return norm
 
 

@@ -2285,3 +2285,102 @@ def test_ensemble_beam_on_card_like_cpu(cuda_device, monkeypatch, model,
     assert torch.equal(beam[:3], ref_beam[:3])
     torch.testing.assert_close(scores[:3], ref_scores[:3], atol=1e-4,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------- #
+# the long tail: the step-scanned cells, the prefetch worker, align_logits
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("cell_type", ["LayerNormGRU", "NoisyGRU"])
+def test_step_scanned_encoder_on_card_matches_cpu(cuda_device, cell_type):
+    """The layer-normalized and noisy-activation GRU encoders (both
+    directions, two layers, padding; inference) on the card equal the
+    CPU's within 1e-5, and K1 never launches for them."""
+    vocab = Vocabulary([f"w{i}" for i in range(60)])
+    enc = SentenceEncoder(name="encoder", vocabulary=vocab, data_id="source",
+                          embedding_size=32, rnn_size=48, rnn_cell=cell_type,
+                          num_layers=2, max_input_len=9)
+    params = init_all_params(collect_parts([enc]), seed=4)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"encoder_input.ids": torch.randint(4, 64, (6, 9), generator=gen,
+                                                dtype=torch.int32),
+             "encoder_input.mask": _mask(torch.device("cpu"),
+                                         [9, 7, 5, 3, 1, 0], 9)}
+
+    def run(device):
+        ctx = Context(_to_device(params, device) if device.type == "cuda"
+                      else params, {k: v.to(device) for k, v in batch.items()})
+        with torch.inference_mode():
+            return (enc.temporal_states(ctx).cpu(), enc.output(ctx).cpu())
+    kernel_config.reset_launch_counts()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert counts["gru_scan"] == 0 and counts["gru_bptt"] == 0, counts
+    for g, r in zip(got, run(torch.device("cpu"))):
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=0)
+
+
+def test_prefetched_cuda_batches_equal_synchronous(cuda_device):
+    """The prefetch worker's batches, copied on its own stream from pinned
+    buffers, equal ``build_batch``'s on the consumer's stream."""
+    import random
+
+    from neuralmonkey_tpu_torch.dataset import BatchingScheme, Dataset
+    from neuralmonkey_tpu_torch.runtime import CUDAManager
+    dec = _ensemble_rnn()
+    rng = random.Random(0)
+    words = [f"w{i}" for i in range(296)]
+    ds = Dataset("toy", {
+        "source": [rng.choices(words, k=rng.randint(1, 7))
+                   for _ in range(100)],
+        "target": [rng.choices(words, k=rng.randint(1, 8))
+                   for _ in range(100)]})
+    manager = CUDAManager(device="cuda")
+    manager.initialize_model_parts([dec], seed=0)
+    scheme = BatchingScheme(batch_size=16)
+    random.seed(3)
+    sync = [manager.build_batch(b, 16, train=True)
+            for b in ds.batches(scheme, shuffled=True)]
+    random.seed(3)
+    prefetched = list(manager.iter_prepared_batches(ds, scheme, 16,
+                                                    train=True))
+    torch.cuda.synchronize()
+    assert len(prefetched) == len(sync) == 7
+    for (got, got_real), (ref, ref_real) in zip(prefetched, sync):
+        assert got_real == ref_real and set(got) == set(ref)
+        for key in ref:
+            assert got[key].is_cuda
+            assert torch.equal(got[key], ref[key]), key
+
+
+def test_align_logits_beam_on_card_matches_cpu(cuda_device):
+    """Beam 4 under ``align_logits`` (hierarchical, 300 ids padded to
+    384): K3 launches on the aligned table, and the ids equal the CPU's
+    with scores within 1e-4."""
+    from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
+        BeamSearchDecoder
+    dec = _ensemble_rnn()
+    search = BeamSearchDecoder(name="bs", parent_decoder=dec, beam_size=4,
+                               selection_method="hierarchical",
+                               align_logits=True)
+    params = init_all_params(collect_parts([dec]), seed=5)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"encoder_input.ids": torch.randint(4, 300, (4, 7), generator=gen,
+                                                dtype=torch.int32),
+             "encoder_input.mask": _mask(torch.device("cpu"), [7, 5, 3, 1], 7)}
+
+    def decode(device):
+        ctx = Context(_to_device(params, device) if device.type == "cuda"
+                      else params, {k: v.to(device) for k, v in batch.items()})
+        with torch.inference_mode():
+            out = search.search(ctx)
+        return out.token_ids.cpu(), out.scores.cpu()
+    kernel_config.reset_launch_counts()
+    ids, scores = decode(cuda_device)
+    torch.cuda.synchronize()
+    counts = kernel_config.launch_counts()
+    assert counts["fused_logits_rowmax_lse"] > 0, counts
+    assert counts["rowmax_lse"] == 0, counts
+    ref_ids, ref_scores = decode(torch.device("cpu"))
+    assert torch.equal(ids, ref_ids)
+    torch.testing.assert_close(scores, ref_scores, atol=1e-4, rtol=0)

@@ -245,18 +245,18 @@ def test_run_cli_writes_jax_outputs(tmp_path):
 
 def test_unported_section_names_itself(tmp_path):
     """A config section whose class the port lacks (here an optimizer
-    not ported yet) raises a ConfigBuildException naming that
+    that neither package has) raises a ConfigBuildException naming that
     section."""
     ini = _write_experiment(tmp_path, port=True)
     text = open(ini).read().replace(
         "random_seed=1234",
         "random_seed=1234\ntrainer=<trainer>") + (
         "\n[trainer]\nclass=trainers.cross_entropy_trainer."
-        "CrossEntropyTrainer\ndecoders=[<decoder>]\noptimizer=<rmsprop>\n"
-        "\n[rmsprop]\nclass=tf.train.RMSPropOptimizer\n")
+        "CrossEntropyTrainer\ndecoders=[<decoder>]\noptimizer=<ftrl>\n"
+        "\n[ftrl]\nclass=tf.train.FtrlOptimizer\n")
     with open(ini, "w") as f:
         f.write(text)
-    with pytest.raises(ConfigBuildException, match="rmsprop"):
+    with pytest.raises(ConfigBuildException, match="ftrl"):
         Experiment(ini, train_mode=False).build_model()
 
 

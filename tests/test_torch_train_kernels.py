@@ -357,8 +357,18 @@ def test_clip_by_global_norm_matches_optax(scale):
 @pytest.mark.parametrize("name", ["AdadeltaOptimizer", "RMSPropOptimizer",
                                   "AdafactorOptimizer"])
 def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        getattr(optimizers, name)(learning_rate=0.1)
+    """The optimizers that raised until they were ported take the JAX
+    factories' arguments and defaults, and their transforms keep optax's
+    state keys (``tests/test_torch_optimizers.py`` holds their
+    arithmetic)."""
+    import inspect
+
+    from neuralmonkey_tpu.trainers import optimizers as jax_optimizers
+    port_params = inspect.signature(getattr(optimizers, name)).parameters
+    jax_params = inspect.signature(getattr(jax_optimizers, name)).parameters
+    assert [(p.name, p.default) for p in port_params.values()] == \
+        [(p.name, p.default) for p in jax_params.values()]
+    assert getattr(optimizers, name)(learning_rate=0.1).make().optax_keys
 
 
 def test_schedules_match_jax():
