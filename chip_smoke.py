@@ -292,6 +292,24 @@ Phases (any failure raises and the script exits non-zero):
    its sentences both ways with equal ``(ids, mask)``, sentences/s of
    each, and 4 processes building the library into one fresh
    ``NM_NATIVE_CACHE`` at once, each loading it.
+28. data parallelism (``parallel/``): phase 6's model with dropout off
+   trains 4 steps (batch 64) through the train CLI's ``main`` in this
+   process, with no process group; then (a) in a process of its own that
+   joins a process group of one over NCCL from the ``NM_*`` environment,
+   the same 4 steps replicated, under ``shard_optimizer_state`` (ZeRO-1)
+   and under ``fsdp``, each within 1e-5 of the first run's losses; (b)
+   two processes sharing the card (both ``cuda:0``, gloo) train the same
+   64 global rows a step under the three modes: both ranks' losses
+   equal, within 1e-5 of (a)'s, K1, ``gru_bptt`` and K2 launched by
+   each rank, only rank 0 writing checkpoints and metrics; each rank
+   restores rank 0's checkpoint and ``.opt`` and takes one step more,
+   holding at rest under ZeRO-1 and FSDP at most 0.55 of the replicated
+   optimizer (and FSDP parameter) bytes; one process continues FSDP's
+   checkpoint as the two ranks do (1e-5); the two ranks decode phase 4's
+   128 sentences under fsdp, greedily and with beam 10 (K1-K4 launched
+   by each rank), to phase 4's ids by phase 5's rule. Prints each rank's
+   memory peak, its bytes at rest and the tokens/s of (a) and of (b),
+   the latter two ranks time-sharing one card (not scaling).
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -312,6 +330,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2319,6 +2338,11 @@ def run_slice(tmp: str):
         [os.path.join(tmp, name) for name in ("greedy.txt", "beam.txt")],
         "slice")
     lengths = mean_lengths(outputs)
+    # phase 24 decodes into the same files under the bf16 policy; phase 28
+    # holds its decode against these
+    for name in ("greedy", "beam"):
+        shutil.copyfile(os.path.join(tmp, f"{name}.txt"),
+                        os.path.join(tmp, f"phase4_{name}.txt"))
     speed = serving_speed(exp, ckpt, data_ini, exp.model.runners)
     log(f"slice: mean output tokens {lengths}, {speed}")
     return launches, lengths, speed, exp, ckpt, data_ini
@@ -2401,13 +2425,16 @@ def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix="",
 # phase 5: CPU (plain versions) against the card (kernels)
 # ---------------------------------------------------------------------- #
 def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
-                 dataset=None, margin: float = MARGIN):
+                 dataset=None, margin: float = MARGIN, card=None):
     """Phase 5's rule on the first N_PARITY sentences of ``data_ini``, or
     on ``dataset``; the beam part where the model has a second (beam
     search) runner; ``margin`` the gap below which the devices may
     choose apart (``BF16_MARGIN`` under the bf16 policy). With a list of
     checkpoints (``gpu_exp`` restored from the same), the ensemble's:
-    the greedy margins are the gaps of the CPU's averaged log-probs."""
+    the greedy margins are the gaps of the CPU's averaged log-probs.
+    With ``card`` in place of ``gpu_exp`` (None), the beam part alone,
+    held against a search already run on the card: ``card`` is (each
+    row's picks, a (K, 2) tensor a step; each row's best ids)."""
     import torch
 
     from neuralmonkey_tpu_torch import run
@@ -2487,10 +2514,11 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
             return out
         setattr(search, selector, select)
 
-    has_beam = len(gpu_exp.model.runners) > 1
+    exps = [e for e in (cpu_exp, gpu_exp) if e is not None]
+    has_beam = len(exps[-1].model.runners) > 1
     # the hierarchical selector's gaps come from its two K4 stages, the
     # flat one's (``use_approx_top_k``, small vocabularies) from its sort
-    flat = has_beam and gpu_exp.model.runners[1].decoder._method() == "flat"
+    flat = has_beam and exps[-1].model.runners[1].decoder._method() == "flat"
     selector = "_select_flat" if flat else "_select_hier"
 
     def decode(exp):
@@ -2509,20 +2537,22 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
     beam_search_decoder.small_topk = recording_topk
     if has_beam:
         record_picks(cpu_exp, picks["cpu"], gaps=flat)
-        record_picks(gpu_exp, picks["gpu"])
+        if gpu_exp is not None:
+            record_picks(gpu_exp, picks["gpu"])
     try:
         cpu_greedy, cpu_beam = decode(cpu_exp)
-        gpu_greedy, gpu_beam = decode(gpu_exp)
+        if gpu_exp is not None:
+            gpu_greedy, gpu_beam = decode(gpu_exp)
     finally:
         beam_search_decoder.small_topk = plain_topk
         delattr(decoder, hooked)
         if has_beam:
-            for exp in (cpu_exp, gpu_exp):
+            for exp in exps:
                 delattr(exp.model.runners[1].decoder, selector)
 
     report = {}
     same = 0
-    for row in range(n):
+    for row in range(n if gpu_exp is not None else 0):
         diff = (cpu_greedy[row] != gpu_greedy[row]).nonzero()
         if len(diff) == 0:
             same += 1
@@ -2536,7 +2566,8 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
             raise AssertionError(
                 f"greedy ids of sentence {row} differ at step {step}, "
                 f"where the CPU's top-two margin is {top_gap} >= {margin}")
-    report["greedy"] = f"{same}/{n} identical"
+    if gpu_exp is not None:
+        report["greedy"] = f"{same}/{n} identical"
     if not has_beam:
         log(f"parity: {report}")
         return report
@@ -2544,17 +2575,31 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
     # a beam search diverges at the first step where the two devices
     # pick a different (parent, token) in some slot j; that must be a
     # near-tie on the CPU between its candidates j and j + 1
+    if card is None:
+        card_picks = [[p[row] for p in picks["gpu"]] for row in range(n)]
+    else:
+        card_picks, card_ids = card
+        vocabulary = cpu_exp.model.runners[1].decoder.vocabulary
+
     def first_divergence(row):
-        for step, (c, g) in enumerate(zip(picks["cpu"], picks["gpu"])):
-            slots = (c[row] != g[row]).any(-1).nonzero()
+        for step, (c, g) in enumerate(zip(picks["cpu"], card_picks[row])):
+            slots = (c[row] != g).any(-1).nonzero()
             if len(slots):
                 return step, int(slots[0, 0])
         return None
 
+    def same_ids(row):
+        if card is None:
+            return torch.equal(cpu_beam[row], gpu_beam[row])
+        # the card's ids as its runner collected them: the words to the
+        # first </s>
+        return (vocabulary.vectors_to_sentences(cpu_beam[row:row + 1])
+                == vocabulary.vectors_to_sentences(card_ids[row][None]))
+
     same = diverged = 0
     for row in range(n):
         first = first_divergence(row)
-        ids_same = torch.equal(cpu_beam[row], gpu_beam[row])
+        ids_same = same_ids(row)
         same += ids_same
         if first is None:
             if not ids_same:
@@ -6273,6 +6318,436 @@ def check_image_tail(tmp: str, device, t_ini: str, t_data_ini: str,
     return launches, report
 
 
+# ---------------------------------------------------------------------- #
+# phase 28: data parallelism, ZeRO-1 and FSDP on the card
+# ---------------------------------------------------------------------- #
+DP_STEPS = 4
+DP_KERNELS = ("gru_scan", "gru_bptt", "fused_bahdanau_step")
+DP_MODES = {"replicated": (), "zero1": ("tf_manager.shard_optimizer_state"
+                                        "=True",),
+            "fsdp": ("tf_manager.fsdp=True",)}
+DP_TIMEOUT = 420.0
+DP_LOSS_ATOL = 1e-5
+# ZeRO-1's optimizer state and FSDP's parameters and state on each of two
+# ranks, as a share of the replicated bytes
+DP_AT_REST_SHARE = 0.55
+
+
+def write_dp_inputs(tmp: str):
+    """Phase 6's model for DP_STEPS steps: its first DP_STEPS * BATCH
+    training pairs, dropout off (so two ranks compute one process's
+    function), a loss logged every step, no validation (phase 28 decodes
+    on its own)."""
+    first_lines(tmp, ("train.src", "train.tgt"), DP_STEPS * BATCH, "dp_")
+    with open(os.path.join(tmp, "train.ini")) as f:
+        text = f.read()
+    text = text.replace(f'"{tmp}/train.src"', f'"{tmp}/dp_train.src"')
+    text = text.replace(f'"{tmp}/train.tgt"', f'"{tmp}/dp_train.tgt"')
+    text = text.replace(f"dropout_keep_prob={KEEP_PROB}",
+                        "dropout_keep_prob=1.0")
+    text = text.replace("logging_period=5", "logging_period=1")
+    text = text.replace("val_dataset=<val_data>\n", "")
+    dp_ini = os.path.join(tmp, "dp_train.ini")
+    with open(dp_ini, "w") as f:
+        f.write(text)
+    data_ini = os.path.join(tmp, "dp_data.ini")
+    with open(data_ini, "w") as f:
+        f.write(DATA_INI.format(tmp=tmp, prefix="dp_"))
+    return dp_ini, data_ini
+
+
+def card_settings() -> None:
+    """A rank's process takes the smoke's settings: float32 products
+    without TF32."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def at_rest_bytes(manager) -> dict:
+    """The bytes of this rank's parameters and optimizer state."""
+    from neuralmonkey_tpu_torch.utils.saving import flatten_tree
+    return {"params": sum(v.numel() * v.element_size() for v in
+                          flatten_tree(manager.params).values()),
+            "optimizer": sum(v.numel() * v.element_size()
+                             for state in manager._opt_states.values()
+                             for v in state.values())}
+
+
+def dp_train(dp_ini: str, out: str, extra) -> dict:
+    """DP_STEPS steps of ``dp_ini`` through the train CLI's ``main``, the
+    launch counts and the card's memory peak set to 0 just before, what
+    earlier runs of the process left collected first: every step's loss
+    (as this rank computed it), launches, the bytes allocated before the
+    run and its peak, seconds, and train tokens/s: the global batch's
+    target tokens of steps 2 to DP_STEPS over the time from the end of
+    step 1 to the end of the last (the first step holds the warm-up)."""
+    import gc
+
+    import torch
+
+    from neuralmonkey_tpu_torch import runtime, train
+    from neuralmonkey_tpu_torch.ops import kernel_config
+
+    losses, tokens, ends = [], [], []
+    step = runtime.CUDAManager.train_on_prepared
+
+    def recording(self, trainer, batch):
+        out_ = step(self, trainer, batch)
+        losses.append(out_["loss"])
+        tokens.append(out_["target_tokens"])
+        # the loop reads every step's loss (logging_period=1) anyway
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out_
+
+    runtime.CUDAManager.train_on_prepared = recording
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernel_config.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        if train.main([dp_ini, f'main.output="{out}"', *extra]) != 0:
+            raise AssertionError("neuralmonkey_tpu_torch.train failed")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    finally:
+        runtime.CUDAManager.train_on_prepared = step
+    return {"losses": [float(v) for v in losses], "seconds": seconds,
+            "launches": kernel_config.launch_counts(),
+            "allocated_before": allocated,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "train_tokens_per_sec": (float(sum(tokens[1:]))
+                                     / (ends[-1] - ends[0])),
+            "written": sorted(os.listdir(out))}
+
+
+def dp_continue(dp_ini: str, ckpt_dir: str, extra) -> dict:
+    """A manager of ``dp_ini`` (with ``extra`` overrides) restored from
+    ``ckpt_dir``'s checkpoint of step DP_STEPS and its optimizer state:
+    the loss of one more step on the first BATCH pairs, and the bytes
+    it holds at rest after it."""
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    exp = Experiment(dp_ini, config_changes=list(extra))
+    exp.build_model()
+    path = os.path.join(ckpt_dir, "variables.data")
+    exp.tf_manager.restore(f"{path}-{DP_STEPS}")
+    exp.tf_manager.load_optimizer_state(path)
+    batch = exp.model.train_dataset.subset(0, BATCH)
+    loss = exp.tf_manager.train_on_batch(exp.model.trainer, batch,
+                                         BATCH)["loss"]
+    return {"loss": loss, "at_rest_bytes": at_rest_bytes(exp.tf_manager)}
+
+
+def dp_nccl_rank(tmp: str, dp_ini: str, port: int, result: str) -> None:
+    """Phase 28 (a): one rank over NCCL, joined by the train CLI from the
+    NM_* environment; DP_STEPS steps under each of DP_MODES."""
+    card_settings()
+    os.environ.update({"NM_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                       "NM_NUM_PROCESSES": "1", "NM_PROCESS_ID": "0"})
+    report = {}
+    for mode, extra in DP_MODES.items():
+        report[mode] = dp_train(dp_ini, os.path.join(tmp, f"dp_a_{mode}"),
+                                extra)
+    import torch.distributed as dist
+    report["backend"] = dist.get_backend()
+    report["world"] = dist.get_world_size()
+    dist.destroy_process_group()
+    with open(result, "w") as f:
+        json.dump(report, f)
+
+
+def dp_gloo_rank(rank: int, tmp: str, dp_ini: str, port: int, exp_ini: str,
+                 data_ini: str, ckpt: str, result: str) -> None:
+    """Phase 28 (b): rank ``rank`` of two sharing the card over gloo:
+    DP_STEPS steps under each of DP_MODES (each rank into its own output
+    directory, so that what it writes shows), one step more from rank
+    0's checkpoint, then phase 4's 128 sentences decoded under fsdp."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.ops import kernel_config
+    from neuralmonkey_tpu_torch.parallel import distributed
+
+    card_settings()
+    distributed.maybe_initialize(f"127.0.0.1:{port}", 2, rank,
+                                 backend="gloo")
+    on_card = ['tf_manager.device="cuda:0"']
+    report = {}
+    for mode, extra in DP_MODES.items():
+        record = dp_train(dp_ini, os.path.join(tmp, f"dp_b_{mode}_r{rank}"),
+                          on_card + list(extra))
+        record["continued"] = dp_continue(
+            dp_ini, os.path.join(tmp, f"dp_b_{mode}_r0"),
+            on_card + list(extra) + [
+                f'main.output="{tmp}/dp_b_{mode}_cont_r{rank}"'])
+        report[mode] = record
+    exp = Experiment(exp_ini, train_mode=False,
+                     config_changes=on_card + ["tf_manager.fsdp=True"])
+    exp.build_model()
+    exp.restore_variables([ckpt])
+    picks, ids = record_beam(exp)
+    kernel_config.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for dataset in run.load_data_config(data_ini):
+        exp.run_model(dataset, write_out=True)
+    torch.cuda.synchronize()
+    report["decode"] = {"seconds": time.perf_counter() - start,
+                        "launches": kernel_config.launch_counts()}
+    torch.save({"picks": picks, "ids": ids},
+               os.path.join(tmp, f"dp_beam_r{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    with open(result, "w") as f:
+        json.dump(report, f)
+
+
+def record_beam(exp):
+    """Hook ``exp``'s beam search to record, a batch each, the picks of
+    this rank's rows (its selector's (parent, token), a (rows, K, 2)
+    tensor a step) and the best hypotheses' ids of the whole batch as
+    its runner collects them (every rank's rows gathered)."""
+    import numpy as np
+    import torch
+
+    manager, runner = exp.tf_manager, exp.model.runners[1]
+    search = runner.decoder
+    selector = ("_select_flat" if search._method() == "flat"
+                else "_select_hier")
+    plain_select = getattr(search, selector)
+    plain_run, plain_collect = manager.run_on_batch, runner.collect_results
+    picks, ids = [], []
+
+    def select(*args, **kwargs):
+        out = plain_select(*args, **kwargs)
+        picks[-1].append(torch.stack(out[:2], dim=-1).cpu())
+        return out
+
+    def run_on_batch(*args, **kwargs):
+        picks.append([])
+        return plain_run(*args, **kwargs)
+
+    def collect_results(fetched, num_examples):
+        ids.append(np.asarray(fetched["token_ids"])[:num_examples, 0])
+        return plain_collect(fetched, num_examples)
+
+    setattr(search, selector, select)
+    manager.run_on_batch = run_on_batch
+    runner.collect_results = collect_results
+    return picks, ids
+
+
+def run_ranks(targets, timeout: float = DP_TIMEOUT):
+    """Start each (function, args) of ``targets`` as a process of its
+    own (spawn) and wait for all; a process that fails, or any left
+    after ``timeout`` seconds, kills the others and raises."""
+    import multiprocessing
+
+    context = multiprocessing.get_context("spawn")
+    procs = [context.Process(target=fn, args=args) for fn, args in targets]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if (any(p.exitcode not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.1)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=60)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"data-parallel ranks exited with {codes} "
+                             f"(a rank failed, or the group outlived "
+                             f"{timeout:.0f} s and was killed)")
+
+
+def check_data_parallel(tmp: str, exp_ini: str, data_ini: str, ckpt: str,
+                        smi: str):
+    """Phase 28. Returns (the launches of its main-path runs, report)."""
+    import numpy as np
+    import torch
+
+    from neuralmonkey_tpu_torch.dataset import from_dict
+
+    seconds = {}
+    report = {"seconds": seconds, "device": smi}
+    dp_ini, dp_data_ini = write_dp_inputs(tmp)
+    base = timed(seconds, "one process", dp_train, dp_ini,
+                 os.path.join(tmp, "dp_base"), ())
+    result_a = os.path.join(tmp, "dp_a.json")
+    timed(seconds, "(a) nccl world 1", run_ranks, [
+        (dp_nccl_rank, (tmp, dp_ini, free_port(), result_a))])
+    with open(result_a) as f:
+        nccl = json.load(f)
+    port = free_port()
+    results_b = [os.path.join(tmp, f"dp_b{r}.json") for r in range(2)]
+    timed(seconds, "(b) two gloo ranks on one card", run_ranks, [
+        (dp_gloo_rank, (r, tmp, dp_ini, port, exp_ini, dp_data_ini, ckpt,
+                        results_b[r])) for r in range(2)])
+    ranks = []
+    for path in results_b:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    one_rank = timed(seconds, "fsdp checkpoint in one process",
+                     dp_continue, dp_ini, os.path.join(tmp, "dp_b_fsdp_r0"),
+                     [f'main.output="{tmp}/dp_one_cont"'])
+
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    def close(a, b) -> bool:
+        return len(a) == len(b) and all(
+            abs(x - y) <= DP_LOSS_ATOL for x, y in zip(a, b))
+
+    check(nccl["backend"] == "nccl" and nccl["world"] == 1,
+          f"(a) ran {nccl['backend']} at world {nccl['world']}")
+    check(len(base["losses"]) == DP_STEPS, f"one process: {base['losses']}")
+    for mode in DP_MODES:
+        a, b0, b1 = nccl[mode], ranks[0][mode], ranks[1][mode]
+        check(close(a["losses"], base["losses"]),
+              f"(a) {mode}: losses {a['losses']} against one process's "
+              f"{base['losses']}")
+        check(b0["losses"] == b1["losses"],
+              f"(b) {mode}: the ranks' losses differ: {b0['losses']}, "
+              f"{b1['losses']}")
+        check(close(b0["losses"], a["losses"]),
+              f"(b) {mode}: losses {b0['losses']} against (a)'s "
+              f"{a['losses']}")
+        for label, record in (("(a)", a), ("(b) rank 0", b0),
+                              ("(b) rank 1", b1)):
+            missing = [k for k in DP_KERNELS if not record["launches"][k]]
+            check(not missing, f"{label} {mode}: never launched {missing}")
+        check(any(n.startswith("variables.data-") for n in b0["written"])
+              and "variables.data.opt" in b0["written"],
+              f"(b) {mode}: rank 0 wrote {b0['written']}")
+        check(b1["written"] == ["experiment.log.p1"],
+              f"(b) {mode}: rank 1 wrote {b1['written']}")
+    for rank, result in enumerate(ranks):
+        replicated = result["replicated"]["continued"]["at_rest_bytes"]
+        zero1 = result["zero1"]["continued"]["at_rest_bytes"]
+        fsdp = result["fsdp"]["continued"]["at_rest_bytes"]
+        check(zero1["optimizer"] <= DP_AT_REST_SHARE
+              * replicated["optimizer"]
+              and zero1["params"] == replicated["params"],
+              f"(b) rank {rank} ZeRO-1 at rest {zero1} against {replicated}")
+        check(all(fsdp[k] <= DP_AT_REST_SHARE * replicated[k]
+                  for k in replicated),
+              f"(b) rank {rank} FSDP at rest {fsdp} against {replicated}")
+        decode = result["decode"]["launches"]
+        missing = [k for k in SERVING_KERNELS if not decode[k]]
+        check(not missing, f"(b) rank {rank} decode: never launched "
+                           f"{missing}")
+    fsdp_cont = [r["fsdp"]["continued"]["loss"] for r in ranks]
+    check(fsdp_cont[0] == fsdp_cont[1]
+          and abs(one_rank["loss"] - fsdp_cont[0]) <= DP_LOSS_ATOL,
+          f"FSDP checkpoint: one process continues at {one_rank['loss']}, "
+          f"two ranks at {fsdp_cont}")
+
+    # the two-rank decode against phase 4's by phase 5's rule
+    with open(os.path.join(tmp, "source.txt")) as f:
+        sources = f.read().splitlines()
+    differ = {}
+    for name in ("greedy", "beam"):
+        with open(os.path.join(tmp, f"phase4_{name}.txt")) as f:
+            want = f.read().splitlines()
+        with open(os.path.join(tmp, f"dp_{name}.txt")) as f:
+            got = f.read().splitlines()
+        check(len(got) == len(want) == N_SENTENCES,
+              f"decode: {len(got)} {name} lines")
+        differ[name] = {i: (w, g) for i, (w, g) in enumerate(zip(want, got))
+                        if w != g}
+    greedy_gaps = {i: greedy_gap(exp_ini, ckpt, sources[i].split(),
+                                 w.split(), g.split())
+                   for i, (w, g) in differ["greedy"].items()}
+    check(all(gap < MARGIN for gap in greedy_gaps.values()),
+          f"decode: greedy ids differ from phase 4's where the CPU's gap "
+          f"is not below {MARGIN}: {greedy_gaps}")
+    # the beam: where the two-rank search's best ids differ from phase
+    # 4's, the CPU's gap where that search first picks apart from the
+    # CPU's (each rank's picks of its rows as it recorded them, the ids
+    # every rank collected)
+    logs = [torch.load(os.path.join(tmp, f"dp_beam_r{r}.pt"),
+                       weights_only=False) for r in range(2)]
+    check(len(logs[0]["ids"]) == len(logs[1]["ids"]) and all(
+        np.array_equal(a, b) for a, b in zip(logs[0]["ids"],
+                                              logs[1]["ids"])),
+          "decode: the ranks collected different beam ids")
+    beam_parity = None
+    if differ["beam"] and not failures:
+        rows = sorted(differ["beam"])
+        half = BATCH // 2
+        card_picks, card_ids = [], []
+        for i in rows:
+            j, within = divmod(i, BATCH)
+            rank, local = divmod(within, half)
+            card_picks.append([p[local] for p in logs[rank]["picks"][j]])
+            card_ids.append(logs[0]["ids"][j][within])
+        beam_parity = check_parity(
+            exp_ini, data_ini, None, ckpt,
+            from_dict({"source": [sources[i].split() for i in rows]}),
+            card=(card_picks, card_ids))
+    if failures:
+        raise AssertionError("data parallel: " + "; ".join(failures))
+
+    launches = add_launches(add_launches(base["launches"], ranks[0][
+        "decode"]["launches"]), ranks[1]["decode"]["launches"])
+    for result in ranks:
+        for mode in DP_MODES:
+            launches = add_launches(launches, result[mode]["launches"])
+    for mode in DP_MODES:
+        launches = add_launches(launches, nccl[mode]["launches"])
+    report.update({
+        "steps": DP_STEPS, "batch": BATCH,
+        "one_process_losses": base["losses"],
+        "a_nccl_world_1": {mode: {k: nccl[mode][k] for k in (
+            "losses", "train_tokens_per_sec", "allocated_before",
+            "max_memory_allocated")} for mode in DP_MODES},
+        "b_two_gloo_ranks_on_one_card": [{mode: {
+            "losses": r[mode]["losses"],
+            "allocated_before": r[mode]["allocated_before"],
+            "max_memory_allocated": r[mode]["max_memory_allocated"],
+            "at_rest_bytes": r[mode]["continued"]["at_rest_bytes"],
+            "continued_loss": r[mode]["continued"]["loss"],
+            "train_tokens_per_sec": r[mode]["train_tokens_per_sec"]}
+            for mode in DP_MODES} for r in ranks],
+        "fsdp_checkpoint_one_process_continued_loss": one_rank["loss"],
+        "train_tokens_per_sec": {
+            "one process": base["train_tokens_per_sec"],
+            **{f"(a) nccl world 1, {mode}":
+               nccl[mode]["train_tokens_per_sec"] for mode in DP_MODES},
+            **{f"(b) two ranks time-sharing one card (not scaling), "
+               f"{mode}": ranks[0][mode]["train_tokens_per_sec"]
+               for mode in DP_MODES}},
+        "decode": {"seconds": [r["decode"]["seconds"] for r in ranks],
+                   "greedy_differing_from_phase_4": greedy_gaps,
+                   "beam_differing_from_phase_4": sorted(differ["beam"]),
+                   "beam_parity": beam_parity},
+    })
+    log(f"data parallel ({smi}; (b) is two ranks time-sharing one card, "
+        f"not scaling): {report}")
+    return launches, report
+
+
 def torch_equal(a, b) -> bool:
     import torch
     return bool(torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b)))
@@ -6418,6 +6893,10 @@ def main() -> int:
             "host and image tail", check_image_tail, tmp, device, t_ini,
             t_data_ini, t_ckpt)
         launches = add_launches(launches, it_launches)
+        dp_launches, data_parallel = phase(
+            "data parallel", check_data_parallel, tmp,
+            os.path.join(tmp, "exp.ini"), data_ini, ckpt, smi)
+        launches = add_launches(launches, dp_launches)
         # the rates of the same paths in float32 (phases 4, 6, 9, 11) and
         # under the bf16 policy (phase 24), from this run
         bf16["rates"] = {
@@ -6469,6 +6948,7 @@ def main() -> int:
         "ensembles": ensembles,
         "long_tail": long_tail,
         "host_and_image_tail": image_tail,
+        "data_parallel": data_parallel,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -20,6 +20,7 @@ from .learning_utils import (evaluation, normalize_evaluation,
                              print_final_evaluation, run_on_dataset,
                              training_loop)
 from .logging import Logging, log, warn
+from .parallel import distributed
 from .ops.policy import set_compute_dtype
 from .runtime import CUDAManager
 from .trainers.multitask_trainer import MultitaskTrainer
@@ -82,8 +83,10 @@ class Experiment:
     def _setup_output_dir(self) -> None:
         """Make the output directory, or index a continuation run's
         artifacts (``*.cont-N``) when it holds variables and may not be
-        overwritten; copy the INI there and log to
-        ``experiment.log``."""
+        overwritten; copy the INI there and log to ``experiment.log``.
+        In a process group every rank reads the directory before
+        process 0 writes the INI copies; rank ``i > 0`` logs to
+        ``experiment.log.p<i>``."""
         if os.path.isdir(self.output_dir):
             has_vars = any(name.startswith("variables.data")
                            for name in os.listdir(self.output_dir))
@@ -97,18 +100,23 @@ class Experiment:
                     self.cont_index += 1
         else:
             os.makedirs(self.output_dir, exist_ok=True)
+        distributed.sync_processes("nm_output_dir")
         suffix = f".cont-{self.cont_index}" if self.cont_index > 0 else ""
-        ini_copy = os.path.join(self.output_dir, f"experiment.ini{suffix}")
-        if self.config_changes:
-            # the effective config, with the command line's overrides
-            from .config.parsing import write_file
-            write_file(self.config.raw_config, ini_copy)
-            shutil.copyfile(self.config_path, os.path.join(
-                self.output_dir, f"experiment.orig.ini{suffix}"))
-        else:
-            shutil.copyfile(self.config_path, ini_copy)
-        Logging.set_log_file(
-            os.path.join(self.output_dir, f"experiment.log{suffix}"))
+        if distributed.is_main_process():
+            ini_copy = os.path.join(self.output_dir,
+                                    f"experiment.ini{suffix}")
+            if self.config_changes:
+                # the effective config, with the command line's overrides
+                from .config.parsing import write_file
+                write_file(self.config.raw_config, ini_copy)
+                shutil.copyfile(self.config_path, os.path.join(
+                    self.output_dir, f"experiment.orig.ini{suffix}"))
+            else:
+                shutil.copyfile(self.config_path, ini_copy)
+        rank = distributed.process_index()
+        Logging.set_log_file(os.path.join(
+            self.output_dir,
+            f"experiment.log{suffix}" + (f".p{rank}" if rank else "")))
 
     # ------------------------------------------------------------------ #
     def build_model(self) -> None:
@@ -191,10 +199,15 @@ class Experiment:
         ``<output>/<name>_embeddings.tsv`` (one vector a row) and
         ``<name>_metadata.tsv`` (the vocabulary's tokens), the files
         TensorBoard's embedding projector loads; the same files as the
-        JAX package's."""
+        JAX package's. Written by process 0 (under fsdp every rank
+        gathers the tables)."""
         sequences = (sequences if isinstance(sequences, list)
                      else [sequences])
-        params = self.tf_manager.params
+        manager = self.tf_manager
+        params = (manager.whole_params() if getattr(manager, "fsdp", False)
+                  else manager.params)
+        if not distributed.is_main_process():
+            return
         for seq in sequences:
             table = params.get(seq.param_key, {}).get("embeddings")
             if table is None:

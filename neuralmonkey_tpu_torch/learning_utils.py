@@ -5,7 +5,9 @@
 validation: every runner over the validation set(s), postprocessing,
 evaluators, the best-checkpoint link and, for runners with
 ``visualize_attention``, attention maps at each new best. Metrics go to
-``<output>/metrics.jsonl`` and a TensorBoard events file."""
+``<output>/metrics.jsonl`` and a TensorBoard events file. In a process
+group every rank trains and validates (validation reaches collectives);
+process 0 alone writes the metrics, outputs and maps."""
 
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import torch
 
 from .dataset import BatchingScheme, Dataset
 from .logging import log, log_print, warn
+from .parallel.distributed import (broadcast_flags, is_main_process,
+                                   process_count)
 from .runners.base_runner import ExecutionResult
 from .utils.png import png_bytes, write_png
 
@@ -66,7 +70,7 @@ class MetricsWriter:
 
     def write(self, kind: str, step: int, values: Dict[str, float]
               ) -> None:
-        if self.path is None:
+        if self.path is None or not is_main_process():
             return
         record = {"kind": kind, "step": step, "time": time.time()}
         record.update({k: float(v) for k, v in values.items()})
@@ -83,7 +87,7 @@ class MetricsWriter:
 
     def write_image(self, step: int, tag: str, matrix) -> None:
         """A 2-D array as a TensorBoard image summary (a PNG heatmap)."""
-        if self.output_dir is None:
+        if self.output_dir is None or not is_main_process():
             return
         data, height, width = png_bytes(np.asarray(matrix))
         self._event_writer().add_image(step, tag, data, height, width)
@@ -136,7 +140,7 @@ def run_on_dataset(tf_manager, runners, dataset: Dataset,
         else:
             outputs[series_name] = function(source)
 
-    if write_out:
+    if write_out and is_main_process():
         for series_name, data in outputs.items():
             if series_name not in dataset.series_outputs:
                 log(f"No output file for series '{series_name}'")
@@ -220,6 +224,14 @@ def training_loop(tf_manager,
     val_steps, val_seconds = _parse_period(validation_period)
     last_log_time = last_val_time = time.time()
     interrupted = False
+    # wall-clock periods differ between processes, and validation
+    # reaches collectives: process 0's decisions are broadcast each step
+    # (step periods agree everywhere on their own)
+    sync_periods = process_count() > 1 and bool(log_seconds or val_seconds)
+    if sync_periods:
+        warn("Time-based logging/validation periods under multi-process "
+             "execution broadcast process 0's decision every step; "
+             "prefer step-count periods")
     log(f"Starting training: {epochs} epochs, main metric: "
         f"{main_metric or 'loss'}")
 
@@ -288,15 +300,19 @@ def training_loop(tf_manager,
                 step = tf_manager.global_step
                 window_examples += real_size
                 now = time.time()
-                if ((log_steps and step % log_steps == 0)
-                        or (log_seconds
-                            and now - last_log_time > log_seconds)):
+                should_log = bool(
+                    (log_steps and step % log_steps == 0)
+                    or (log_seconds and now - last_log_time > log_seconds))
+                should_val = bool(
+                    (val_steps and step % val_steps == 0)
+                    or (val_seconds and now - last_val_time > val_seconds))
+                if sync_periods:
+                    should_log, should_val = broadcast_flags(
+                        (should_log, should_val))
+                if should_log:
                     flush_log_window(epoch, step)
                     last_log_time = time.time()
-                if val_datasets and (
-                        (val_steps and step % val_steps == 0)
-                        or (val_seconds
-                            and now - last_val_time > val_seconds)):
+                if val_datasets and should_val:
                     validate(step, epoch)
                     last_val_time = time.time()
     except KeyboardInterrupt:
@@ -347,7 +363,7 @@ def _write_attention_maps(results: List[ExecutionResult],
     fetched them (``visualize_attention``), as PNG heatmaps in
     ``<output>/attention_maps/step<step>_ex<i>.png`` and, with
     ``metrics``, as image summaries in the events file."""
-    if output_dir is None:
+    if output_dir is None or not is_main_process():
         return
     for result in results:
         maps = (result.aux or {}).get("attention")

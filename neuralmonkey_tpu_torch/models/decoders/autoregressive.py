@@ -28,6 +28,7 @@ from ...model.part import Context, ModelPart, tensor
 from ...model.sequence import EmbeddedSequence
 from ...ops import fused_xent, kernel_config
 from ...ops.beam_select import fused_logits_rowmax_lse
+from ...parallel.distributed import global_sum
 from ...vocabulary import (END_TOKEN_INDEX, PAD_TOKEN_INDEX,
                            START_TOKEN_INDEX, UNK_TOKEN_INDEX, Vocabulary)
 
@@ -179,9 +180,10 @@ class AutoregressiveDecoder(ModelPart):
 
     @tensor
     def train_loss(self, ctx: Context):
-        """Mean per-token cross-entropy: the training objective."""
-        return (self.train_token_nll(ctx).sum()
-                / self.train_mask(ctx).sum().clamp_min(1.0))
+        """Mean per-token cross-entropy over the global batch: the
+        training objective."""
+        return (global_sum(self.train_token_nll(ctx).sum())
+                / global_sum(self.train_mask(ctx).sum()).clamp_min(1.0))
 
     # the reference's name for the decoder's objective value
     def cost(self, ctx: Context):
@@ -196,7 +198,7 @@ class AutoregressiveDecoder(ModelPart):
         time = min(logits.shape[1], targets.shape[1])
         mask = self.train_mask(ctx)[:, :time]
         nll = self._xent(logits[:, :time], targets[:, :time], mask)
-        return nll.sum() / mask.sum().clamp_min(1.0)
+        return global_sum(nll.sum()) / global_sum(mask.sum()).clamp_min(1.0)
 
     # ------------------------------------------------------------------ #
     # subclass contract

@@ -13,6 +13,7 @@ import torch
 from ...model.part import Context, ModelPart, tensor
 from ...model.stateful import Stateful
 from ...ops import nn
+from ...parallel.distributed import global_sum
 from ...vocabulary import Vocabulary
 
 
@@ -89,7 +90,8 @@ class Classifier(ModelPart):
             weights = logits.new_ones(labels.shape)
         nll = -torch.log_softmax(logits, dim=-1).gather(
             -1, labels[:, None])[:, 0]
-        return (nll * weights).sum() / weights.sum().clamp_min(1.0)
+        return (global_sum((nll * weights).sum())
+                / global_sum(weights.sum()).clamp_min(1.0))
 
     def cost(self, ctx: Context):
         return self.train_loss(ctx)

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ...model.part import Context, ModelPart, tensor
 from ...model.stateful import TemporalStateful
 from ...ops import nn
+from ...parallel.distributed import global_mean
 from ...vocabulary import PAD_TOKEN_INDEX, Vocabulary
 
 BLANK = PAD_TOKEN_INDEX  # = 0
@@ -213,10 +214,10 @@ class CTCDecoder(ModelPart):
 
     @tensor
     def train_loss(self, ctx: Context):
-        return ctc_loss_per_sequence(
+        return global_mean(ctc_loss_per_sequence(
             self.logits(ctx), self.encoder.temporal_mask(ctx),
             ctx.batch[self.labels_key],
-            ctx.batch[self.labels_mask_key]).mean()
+            ctx.batch[self.labels_mask_key]))
 
     def cost(self, ctx: Context):
         return self.train_loss(ctx)

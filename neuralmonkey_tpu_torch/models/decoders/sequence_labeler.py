@@ -13,6 +13,7 @@ import torch
 from ...model.part import Context, ModelPart, tensor
 from ...model.stateful import TemporalStateful
 from ...ops import nn
+from ...parallel.distributed import global_sum
 from ...vocabulary import Vocabulary
 
 
@@ -86,7 +87,8 @@ class SequenceLabeler(ModelPart):
         nll = -log_probs.gather(
             -1, labels[:, :time].long()[..., None])[..., 0]
         nll = nll * mask[:, :time]
-        return nll.sum() / mask[:, :time].sum().clamp_min(1.0)
+        return (global_sum(nll.sum())
+                / global_sum(mask[:, :time].sum()).clamp_min(1.0))
 
     def cost(self, ctx: Context):
         return self.train_loss(ctx)

@@ -13,6 +13,7 @@ import torch
 from ...model.part import Context, ModelPart, tensor
 from ...model.stateful import Stateful
 from ...ops import nn
+from ...parallel.distributed import global_sum
 
 
 class SequenceRegressor(ModelPart):
@@ -85,7 +86,8 @@ class SequenceRegressor(ModelPart):
         targets = ctx.batch[self.target_key]
         weights = ctx.batch[self.weight_key]
         per_example = ((predictions - targets) ** 2).mean(dim=-1)
-        return (per_example * weights).sum() / weights.sum().clamp_min(1.0)
+        return (global_sum((per_example * weights).sum())
+                / global_sum(weights.sum()).clamp_min(1.0))
 
     def cost(self, ctx: Context):
         return self.train_loss(ctx)

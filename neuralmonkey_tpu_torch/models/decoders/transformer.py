@@ -36,7 +36,8 @@ request (``with_attention_maps``: the greedy runner's and the beam
 runner's ``visualize_attention``), and a step without it runs the same
 operations as it would without the map.
 
-Not ported yet: pipeline stages (A15), which raise.
+Not ported yet: pipeline stages (ROADMAP queue A15, part 2), which
+raise.
 """
 
 from __future__ import annotations

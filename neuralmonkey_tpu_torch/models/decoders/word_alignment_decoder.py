@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ...model.part import Context, ModelPart, tensor
+from ...parallel.distributed import global_sum
 from ...processors.alignment import WordAlignmentPreprocessor
 
 
@@ -67,7 +68,8 @@ class WordAlignmentDecoder(ModelPart):
         weights = weights[:, :tq, :tk]
         target = target[:, :tq, :tk]
         xent = -target * torch.log(weights.clamp_min(1e-9))
-        return xent.sum() / target.sum().clamp_min(1.0)
+        return (global_sum(xent.sum())
+                / global_sum(target.sum()).clamp_min(1.0))
 
     def cost(self, ctx: Context):
         return self.train_loss(ctx)

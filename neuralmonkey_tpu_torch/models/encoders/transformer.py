@@ -12,8 +12,10 @@ recomputation replays the same masks.
 With ``moe_experts > 1`` every FFN is a mixture of experts
 (``ops/moe.py``); in training the layers' load-balance and router
 z-losses, each averaged over the layers, join the objective as
-auxiliary losses. Pipeline stages are not ported yet (queue A15 of
-ROADMAP.md): setting them raises.
+auxiliary losses; on a batch split over data-parallel ranks their
+routing sums are the global batch's (``ops/moe.py``). Pipeline stages
+are not ported yet (ROADMAP queue A15, part 2: the model axes): setting
+them raises.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ...ops.attention import (ffn, ffn_init, layer_norm, layer_norm_init,
                               mha_init, multi_head_attention,
                               seeded_dropout, sinusoidal_position_encoding)
 from ...ops.moe import moe_ffn, moe_init
+from ...parallel.distributed import sharded_batch
 from ...vocabulary import Vocabulary
 
 _POSITION_TYPES = ("sinusoidal", "learned", "none")
@@ -40,7 +43,8 @@ def refuse_unported(name: str, pipeline_stages: int) -> None:
     if pipeline_stages > 1:
         raise NotImplementedError(
             f"{name}: pipeline stages (pipeline_stages > 1) are not "
-            "ported to neuralmonkey_tpu_torch yet (ROADMAP queue A15)")
+            "ported to neuralmonkey_tpu_torch yet (ROADMAP queue A15, "
+            "part 2)")
 
 
 def run_layer(layer_fn, remat: bool, *args):
@@ -97,9 +101,12 @@ class MoESettings:
         that a sentence's output does not depend on the other rows of
         its batch; ``row_valid`` (rows,) keeps the padding rows out."""
         k = min(self.top_k, self.experts)
-        out, _ = moe_ffn(params, normed.transpose(0, 1),
-                         mask=row_valid[None, :], top_k=self.top_k,
-                         capacity_factor=self.experts / k)
+        # the step's routing sums are dropped, and the ranks' decode
+        # loops may end at different steps: no collective here
+        with sharded_batch(False):
+            out, _ = moe_ffn(params, normed.transpose(0, 1),
+                             mask=row_valid[None, :], top_k=self.top_k,
+                             capacity_factor=self.experts / k)
         return out.transpose(0, 1)
 
     def add_losses(self, part: ModelPart, ctx: Context, auxes) -> None:

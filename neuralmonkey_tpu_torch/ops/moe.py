@@ -17,9 +17,13 @@ connection carries it. The auxiliary losses are Switch Transformer's
 load balance, E · sum_e(load_e · mean_prob_e) (1 at perfect balance),
 and the router z-loss, the mean of logsumexp(logits)².
 
+On a batch split over data-parallel ranks the routing sums are summed
+over the ranks before they fold into the losses, as the JAX package
+adds them over its pipeline's microbatches; a group's capacity depends
+on its own size alone, so splitting the batch drops the same tokens.
 Expert parallelism (the JAX package's ``enable_expert_sharding``,
 ``constrain_dispatch`` and partition specs) is not ported (ROADMAP queue
-A15).
+A15, part 2).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from . import nn
 from .attention import seeded_dropout
+from ..parallel.distributed import global_sum
 
 
 def moe_init(gen: torch.Generator, model_dim: int, hidden_dim: int,
@@ -162,4 +167,5 @@ def moe_ffn(params: Dict, x: torch.Tensor,
         stats = {"top1_sum": top1.sum((0, 1)), "prob_sum": probs.sum((0, 1)),
                  "count": logits.new_tensor(float(g * s)),
                  "z_sum": z_sq.sum()}
+    stats = {key: global_sum(value) for key, value in stats.items()}
     return y.to(x.dtype), moe_combine_stats(stats)

@@ -15,6 +15,9 @@ NVIDIA card the model runs there, through the hand-written kernels.
 longer than the encoder's ``max_input_len``: each input is cut into
 half-overlapping windows, each window is decoded, and every position
 takes its label from the window whose center is nearest.
+
+Under the launch contract of ``parallel/distributed.py`` every process
+decodes its rows of each batch and process 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from .logging import log
 from .config.configuration import Configuration
 from .dataset import Dataset
 from .experiment import Experiment
+from .parallel import distributed
 
 
 def load_data_config(path: str) -> List:
@@ -61,6 +65,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "logit ensemble (1 forward pass vs K)")
     args = parser.parse_args(argv)
 
+    # a process of a data-parallel run joins its group before anything
+    # touches a device (a no-op without NM_COORDINATOR_ADDRESS or
+    # NM_DISTRIBUTED)
+    distributed.maybe_initialize()
     exp = Experiment(args.config, train_mode=False)
     exp.build_model()
     exp.restore_variables(args.checkpoints, average=args.average)

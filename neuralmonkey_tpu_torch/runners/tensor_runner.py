@@ -51,6 +51,12 @@ class TensorRunner(BaseRunner):
             return node
         return getattr(part, rest or "output")(ctx)
 
+    @property
+    def fetch_batch_dims(self) -> Dict[str, int]:
+        """Each fetch's batch axis, along which a batch split over
+        data-parallel ranks is gathered."""
+        return dict(zip(self.tensor_names, self.batch_dims))
+
     def fetches(self, ctx: Context) -> Dict:
         return {name: self._resolve(ctx, name)
                 for name in self.tensor_names}

@@ -1,11 +1,18 @@
-"""Runtime manager for one CUDA device (counterpart of
+"""Runtime manager for one CUDA device a process (counterpart of
 ``neuralmonkey_tpu/runtime.py`` ``TPUManager``).
 
-Owns the model parts, their parameters and optimizer state on one
-device, batch building, the train step, batched execution of runners
-and checkpoints. The reference's ``[tf_manager]`` keyword arguments are
+Owns the model parts, their parameters and optimizer state, batch
+building, the train step, batched execution of runners and
+checkpoints. The reference's ``[tf_manager]`` keyword arguments are
 accepted so existing INI files load; the ones that only meant something
 to TensorFlow sessions are ignored, as in the JAX package.
+
+In a process group (``parallel/distributed.py``) each process runs one
+device: a batch whose size the ranks divide splits into their rows, the
+gradients are reduced in one buffer in a fixed order, and with
+``shard_optimizer_state`` (ZeRO-1) or ``fsdp`` the optimizer state, or
+the parameters too, are divided among the ranks by the JAX package's
+rule (``parallel/zero.py``), and the divided gradients reduce-scattered.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from .dataset import BatchingScheme
 from .logging import log, warn
 from .model.part import (Context, ModelPart, collect_parts, fold_seed,
                          init_all_params)
+from .parallel import distributed, zero
 from .runners.base_runner import ExecutionResult, reduce_execution_results
 from .trainers.multitask_trainer import MultitaskTrainer
 from .utils.average_checkpoints import average_flat
@@ -38,6 +46,17 @@ def _to_device(tree: Any, device: torch.device) -> Any:
     return tree.to(device)
 
 
+def _map_leaves(fn, tree: Any, prefix: str = "") -> Any:
+    """``tree`` with each leaf replaced by ``fn(flat name, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
 def _host_array(value: torch.Tensor) -> np.ndarray:
     """A fetched tensor on the host; bf16 (which numpy lacks) widened
     to float32."""
@@ -48,22 +67,39 @@ def _host_array(value: torch.Tensor) -> np.ndarray:
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
-    """``device``, or the CUDA card when none is named. Without a
-    visible card that raises: the port runs on the CPU only when asked
-    (``[tf_manager] device="cpu"``)."""
-    if device is None:
+    """``device``, or the CUDA card when none is named (in a process
+    group, ``cuda:<local rank>``). Without a visible card that raises:
+    the port runs on the CPU only when asked (``[tf_manager]
+    device="cpu"``)."""
+    if device is None or device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is visible; to run on the CPU, ask for it "
                 'with [tf_manager] device="cpu"')
+        if distributed.is_initialized():
+            return torch.device("cuda", distributed.local_device_index())
         device = "cuda"
     return torch.device(device)
 
 
+class LocalBatch(dict):
+    """A featurized batch's tensors on this process's device; ``split``
+    when they are its rows of a batch divided among the ranks (else the
+    whole batch)."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor],
+                 split: bool = False) -> None:
+        super().__init__(tensors)
+        self.split = split
+
+
 class CUDAManager:
-    """Parameters, optimizer state and execution on one device:
-    ``device`` (default ``cuda``; ``cpu`` runs every kernel's plain
-    PyTorch version)."""
+    """Parameters, optimizer state and execution on one device a
+    process: ``device`` (default ``cuda``, in a process group
+    ``cuda:<local rank>``; ``cpu`` runs every kernel's plain PyTorch
+    version). In a process group ``shard_optimizer_state`` divides the
+    optimizer state among the ranks (ZeRO-1) and ``fsdp`` the
+    parameters too."""
 
     def __init__(self,
                  num_sessions: int = 1,
@@ -90,7 +126,12 @@ class CUDAManager:
         if num_sessions < 1:
             raise ValueError("num_sessions must be >= 1")
         self.num_sessions = num_sessions
-        # TPUManager's mesh options, accepted at their defaults
+        if fsdp and num_pipeline_stages > 1:
+            raise ValueError(
+                "fsdp cannot combine with num_pipeline_stages: the "
+                "pipeline's stages hold their layers' parameters whole "
+                "(use shard_optimizer_state=True for the ZeRO-1 part)")
+        # TPUManager's model axes, accepted at their defaults
         for name, value, default, what in (
                 ("num_model_shards", num_model_shards, 1,
                  "tensor parallelism"),
@@ -101,14 +142,20 @@ class CUDAManager:
                 ("num_expert_shards", num_expert_shards, 1,
                  "expert parallelism"),
                 ("num_context_shards", num_context_shards, 1,
-                 "context parallelism (the ring attention)"),
-                ("fsdp", fsdp, False, "fully sharded data parallelism"),
-                ("shard_optimizer_state", shard_optimizer_state, False,
-                 "optimizer-state sharding")):
+                 "context parallelism (the ring attention)")):
             if value != default:
                 raise NotImplementedError(
                     f"{what} ({name}={value!r}) is not ported to "
-                    "neuralmonkey_tpu_torch yet (ROADMAP queue A15)")
+                    "neuralmonkey_tpu_torch yet (ROADMAP queue A15, "
+                    "part 2: the model axes)")
+        # ZeRO over the data-parallel ranks: fsdp divides the parameters
+        # (gathered for each step and decode), shard_optimizer_state the
+        # optimizer state alone; the moments follow their parameters, so
+        # fsdp implies the latter
+        self.fsdp = fsdp
+        self.shard_optimizer_state = shard_optimizer_state or fsdp
+        self.world = distributed.process_count()
+        self.rank = distributed.process_index()
         self.device = resolve_device(device)
         self.seed = random_seed or 0
         self.save_n_best = max(save_n_best, 1)
@@ -116,16 +163,23 @@ class CUDAManager:
         self.minimize_metric = minimize_metric
         self.parts: List[ModelPart] = []
         # the parameter sets: several after restoring several checkpoints
-        # (a logit ensemble); training and saving use the first
+        # (a logit ensemble); training and saving use the first. Under
+        # fsdp each holds this rank's parts (_rest_plan)
         self.params_list: List[Dict[str, Any]] = [{}]
+        # the parameters' whole shapes and dtypes (meta tensors), and
+        # how each divides at rest (fsdp)
+        self._meta: Dict[str, torch.Tensor] = {}
+        self._rest_plan: Dict[str, zero.Shard] = {}
         self.global_step = 0
         self.epoch = 0
         self.best_score: Optional[float] = None
         self.best_score_step = 0
         self.best_score_epoch = 0
-        # per trainer: its Update and optimizer state, by stable label
+        # per trainer: its Update, optimizer state (this rank's parts)
+        # and how the parameters divide for its update, by stable label
         self._updates: Dict[str, Any] = {}
         self._opt_states: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._update_plans: Dict[str, Dict[str, zero.Shard]] = {}
         # optimizer state read from disk before its trainer's first step
         self._pending_opt_flat: Optional[Dict[str, np.ndarray]] = None
         self._checkpoint_paths: List[str] = []
@@ -134,7 +188,12 @@ class CUDAManager:
         self._protected_paths: List[str] = []
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "host")
-        log(f"CUDAManager: device {self.device} [{name}]")
+        where = ""
+        if distributed.is_initialized():
+            mode = ("fsdp" if fsdp else "ZeRO-1"
+                    if self.shard_optimizer_state else "replicated")
+            where = f", rank {self.rank} of {self.world} ({mode})"
+        log(f"CUDAManager: device {self.device} [{name}]{where}")
 
     @property
     def params(self) -> Dict[str, Any]:
@@ -150,18 +209,68 @@ class CUDAManager:
     def initialize_model_parts(self, roots: Sequence[Any],
                                seed: int = None) -> None:
         """Collect the parts reachable from the trainers and runners and
-        initialize their parameters from ``seed``."""
+        initialize their parameters from ``seed`` (the same on every
+        rank; under fsdp each keeps its parts)."""
         self.parts = collect_parts(roots)
         if seed is not None:
             self.seed = seed
         params = init_all_params(self.parts, self.seed)
-        self.params_list = [_to_device(params, self.device)]
-        total = sum(v.numel() for v in flatten_tree(self.params).values())
+        self._meta = {name: torch.empty(value.shape, dtype=value.dtype,
+                                        device="meta")
+                      for name, value in flatten_tree(params).items()}
+        self._rest_plan = (
+            zero.slice_plan({n: m.shape for n, m in self._meta.items()},
+                            self.world)
+            if self.fsdp else {n: zero.Shard() for n in self._meta})
+        self.params_list = [self._to_rest(_to_device(params, self.device))]
+        total = sum(m.numel() for m in self._meta.values())
         log(f"Initialized {len(self.parts)} model parts, "
             f"{total:,} parameters")
         for part in self.parts:
             if part.load_checkpoint:
                 self.load_part_checkpoint(part, part.load_checkpoint)
+
+    # ------------------------------------------------------------------ #
+    # parameters whole and at rest (fsdp: each rank's parts)
+    # ------------------------------------------------------------------ #
+    def _template(self) -> Any:
+        """The parameter tree with whole shapes (for ``params_from_jax``)."""
+        return _map_leaves(lambda name, _: self._meta[name], self.params)
+
+    def _sharded_params(self) -> bool:
+        return any(not s.replicated for s in self._rest_plan.values())
+
+    def _to_rest(self, tree: Any, prefix: str = "") -> Any:
+        """Whole parameters (of the part ``prefix``, or all) as this rank
+        keeps them: its parts under fsdp, else as they are."""
+        if not self._sharded_params():
+            return tree
+
+        def cut(name, value):
+            shard = self._rest_plan[name]
+            if shard.replicated:
+                return value
+            return zero.region(value, shard, self.rank,
+                               self.world).contiguous().clone()
+        return _map_leaves(cut, tree, prefix)
+
+    def _whole(self, tree: Any) -> Any:
+        """A parameter set with every parameter whole: under fsdp every
+        rank's parts all-gathered into new tensors (a collective), else
+        ``tree`` itself."""
+        if not self._sharded_params():
+            return tree
+        rest = flatten_tree(tree)
+        whole = {name: (value if self._rest_plan[name].replicated else
+                        value.new_empty(self._meta[name].shape))
+                 for name, value in rest.items()}
+        zero.gather_into(whole, self._rest_plan, rest)
+        return _map_leaves(lambda name, _: whole[name], tree)
+
+    def whole_params(self) -> Dict[str, Any]:
+        """The first parameter set with every parameter whole (under fsdp
+        a collective: every rank calls it)."""
+        return self._whole(self.params)
 
     def load_part_checkpoint(self, part: ModelPart, path: str) -> None:
         """Warm-start ``part``'s parameters from the ``.npz`` at
@@ -173,18 +282,21 @@ class CUDAManager:
         prefix = f"{key}/"
         sub = {k[len(prefix):]: v for k, v in flat.items()
                if k.startswith(prefix)}
-        self.params[key] = _to_device(
-            params_from_jax(sub or flat, self.params[key]), self.device)
+        whole = params_from_jax(sub or flat, self._template()[key])
+        self.params[key] = self._to_rest(_to_device(whole, self.device),
+                                         key)
         log(f"Part '{part.name}' warm-started from {path}")
 
     def restore(self, paths: Union[str, Sequence[str]],
                 average: bool = False) -> None:
         """Load parameters from ``.npz`` checkpoints, written by either
-        package: one parameter set a checkpoint (several make a logit
-        ensemble), or with ``average`` one set, the checkpoints'
-        parameters averaged (``utils.average_checkpoints.average_flat``:
-        float32 sums, each leaf cast back to its dtype). The first
-        checkpoint's meta, when present, sets the step."""
+        package on any number of processes: one parameter set a
+        checkpoint (several make a logit ensemble), or with ``average``
+        one set, the checkpoints' parameters averaged
+        (``utils.average_checkpoints.average_flat``: float32 sums, each
+        leaf cast back to its dtype). Under fsdp each rank keeps its
+        parts. The first checkpoint's meta, when present, sets the
+        step."""
         if isinstance(paths, str):
             paths = [paths]
         flats = [load_flat(path) for path in paths]
@@ -192,9 +304,10 @@ class CUDAManager:
             flats = [average_flat(flats)]
             log(f"Averaged {len(paths)} checkpoints into one parameter "
                 "set")
-        template = self.params
+        template = self._template()
         self.params_list = [
-            _to_device(params_from_jax(flat, template), self.device)
+            self._to_rest(_to_device(params_from_jax(flat, template),
+                                     self.device))
             for flat in flats]
         meta = load_meta(paths[0])
         if meta:
@@ -209,21 +322,29 @@ class CUDAManager:
     # batches
     # ------------------------------------------------------------------ #
     def build_batch(self, dataset, batch_size: int, train: bool = False
-                    ) -> Tuple[Dict[str, torch.Tensor], int]:
-        """Featurize all parts, pad to bucketed shapes, move to the
-        device. Returns (batch, real_size)."""
+                    ) -> Tuple[LocalBatch, int]:
+        """Featurize all parts, pad to bucketed shapes, move this rank's
+        rows to the device: its contiguous share when the ranks divide
+        ``batch_size``, else all of them. Returns (batch, real_size of
+        the whole batch)."""
         padded, real_size = self._host_batch(dataset, batch_size, train)
-        batch = {key: torch.from_numpy(value).to(self.device)
-                 for key, value in padded.items()}
+        split = distributed.split_rows(batch_size)
+        batch = LocalBatch({key: torch.from_numpy(value).to(self.device)
+                            for key, value in padded.items()}, split)
         return batch, real_size
 
     def _host_batch(self, dataset, batch_size: int, train: bool
                     ) -> Tuple[Dict[str, np.ndarray], int]:
-        """Every part's features of ``dataset``, padded on the host."""
+        """Every part's features of ``dataset``, padded on the host, this
+        rank's rows of them (see ``build_batch``)."""
         features: Dict[str, np.ndarray] = {}
         for part in self.parts:
             features.update(part.featurize(dataset, train=train))
-        return pad_batch(features, batch_size)
+        padded, real_size = pad_batch(features, batch_size)
+        if distributed.split_rows(batch_size):
+            padded = {key: distributed.local_rows(value)
+                      for key, value in padded.items()}
+        return padded, real_size
 
     def _prepare_batch(self, dataset, batch_size: int, train: bool,
                        stream: Optional["torch.cuda.Stream"]):
@@ -236,9 +357,11 @@ class CUDAManager:
             return batch, real_size, None
         padded, real_size = self._host_batch(dataset, batch_size, train)
         with torch.cuda.stream(stream):
-            batch = {key: torch.from_numpy(value).pin_memory().to(
-                         self.device, non_blocking=True)
-                     for key, value in padded.items()}
+            batch = LocalBatch(
+                {key: torch.from_numpy(value).pin_memory().to(
+                    self.device, non_blocking=True)
+                 for key, value in padded.items()},
+                distributed.split_rows(batch_size))
             event = torch.cuda.Event()
             event.record(stream)
         return batch, real_size, event
@@ -334,26 +457,77 @@ class CUDAManager:
 
     def _optimizer(self, trainer):
         """(label, Update, state) of ``trainer``; made at its first
-        step, from staged state on disk when there is some."""
+        step, from staged state on disk when there is some. Under ZeRO
+        the state holds this rank's parts: an elementwise rule's state
+        divides as its parameter does, Adafactor's (whose update reduces
+        over whole parameters) stays whole on each parameter's owner
+        rank (``_update_plans``)."""
         label = self._trainer_label(trainer)
         if label not in self._updates:
             update = trainer.make_update()
-            state = update.init(flatten_tree(self.params))
+            meta = self._meta
+            shapes = {name: m.shape for name, m in meta.items()}
+            if not self.shard_optimizer_state:
+                plan = {name: zero.Shard() for name in shapes}
+            elif update.transform.elementwise:
+                plan = zero.slice_plan(shapes, self.world)
+            else:
+                plan = zero.owner_plan(shapes, self.world)
+            local = {}
+            for name, m in meta.items():
+                shape = zero.region_shape(m.shape, plan[name], self.rank,
+                                          self.world)
+                if shape is not None:
+                    # init reads shapes, dtypes and devices alone
+                    local[name] = torch.empty(shape, dtype=m.dtype,
+                                              device=self.device)
+            state = update.init(local)
             if self._pending_opt_flat is not None:
                 prefix = f"{label}/"
                 staged = {k[len(prefix):]: v
                           for k, v in self._pending_opt_flat.items()
                           if k.startswith(prefix)}
-                if set(staged) == set(state):
-                    state = {k: torch.from_numpy(np.array(staged[k])).to(
-                        v.device) for k, v in state.items()}
+                if set(staged) == set(update.init(meta)):
+                    state_plan = self._state_plan(update, meta, plan)
+                    state = {k: self._state_part(staged[k], state_plan[k]
+                                                 ).to(v.device)
+                             for k, v in state.items()}
                     log(f"Optimizer state restored for trainer '{label}'")
                 else:
                     warn(f"No matching optimizer state for trainer "
                          f"'{label}' in the checkpoint; reinitializing")
             self._updates[label] = update
             self._opt_states[label] = state
+            self._update_plans[label] = plan
         return label, self._updates[label], self._opt_states[label]
+
+    @staticmethod
+    def _state_plan(update, meta: Dict[str, torch.Tensor],
+                    plan: Dict[str, "zero.Shard"]
+                    ) -> Dict[str, "zero.Shard"]:
+        """How each optimizer-state entry divides: as the parameter it
+        belongs to (the entries ``init`` adds for that parameter alone),
+        the rule's own scalars whole on every rank."""
+        base = update.init({})
+        state_plan = {key: zero.Shard() for key in base}
+        for name, m in meta.items():
+            for key, leaf in update.init({name: m}).items():
+                if key in base:
+                    continue
+                shard = plan[name]
+                if shard.dim is not None and leaf.shape != m.shape:
+                    raise ValueError(
+                        f"optimizer state '{key}' is not shaped as its "
+                        f"parameter '{name}', so it cannot divide as it")
+                state_plan[key] = shard
+        return state_plan
+
+    def _state_part(self, value: np.ndarray, shard: "zero.Shard"
+                    ) -> torch.Tensor:
+        """This rank's part of a whole optimizer-state entry."""
+        whole = torch.from_numpy(np.array(value))
+        return zero.region(whole, shard, self.rank,
+                           self.world).contiguous().clone()
 
     def train_on_batch(self, trainer, dataset_batch,
                        batch_size: int) -> Dict[str, float]:
@@ -365,36 +539,101 @@ class CUDAManager:
     def train_on_prepared(self, trainer, batch: Dict[str, torch.Tensor]
                           ) -> Dict[str, torch.Tensor]:
         """One training step on a device-resident batch: loss, backward,
-        clipping and the in-place update (``_get_train_fn``'s step).
-        The returned losses, gradient norm and ``target_tokens`` stay
-        on the device; the training loop syncs them once per logging
-        window. A ``MultitaskTrainer`` hands the step to its child for
-        this global step."""
+        the gradients reduced over the ranks, clipping and the in-place
+        update (``_get_train_fn``'s step). On a split batch
+        (``LocalBatch.split``) the losses are the global batch's (every
+        batch-level sum goes through ``distributed.global_sum``) and the
+        ranks' gradients are summed; on a batch every rank holds whole,
+        averaged. The returned losses, gradient norm and
+        ``target_tokens`` stay on the device; the training loop syncs
+        them once per logging window. A ``MultitaskTrainer`` hands the
+        step to its child for this global step."""
         if isinstance(trainer, MultitaskTrainer):
             trainer = trainer.select(self.global_step)
-        _, update, state = self._optimizer(trainer)
-        flat = flatten_tree(self.params)
+        label, update, state = self._optimizer(trainer)
+        params = self._whole(self.params)
+        flat = flatten_tree(params)
         for p in flat.values():
             p.grad = None
             p.requires_grad_(True)
         rng = fold_seed(self.seed, self.global_step)
-        total, losses = trainer.total_loss(self.params, batch, rng)
+        if self.world > 1:
+            # each rank draws its own dropout masks for its rows
+            rng = fold_seed(rng, self.rank)
+        split = getattr(batch, "split", False)
+        mask_keys = [k for k in batch if k.endswith("train_mask")]
+        with distributed.sharded_batch(split):
+            total, losses = trainer.total_loss(params, batch, rng)
+            tokens = (distributed.global_sum(
+                sum(batch[k].sum() for k in mask_keys))
+                if mask_keys else None)
         total.backward()
         grads = {name: (p.grad if p.grad is not None and
                         trainer.is_trainable(name)
                         else torch.zeros_like(p))
                  for name, p in flat.items()}
-        norm = update.apply(flat, grads, state)
         for p in flat.values():
             p.grad = None
+        norm = self._update(update, state, self._update_plans[label], flat,
+                            grads, split)
         out = {name: value.detach() for name, value in losses.items()}
         out["loss"] = total.detach()
         out["grad_norm"] = norm
-        mask_keys = [k for k in batch if k.endswith("train_mask")]
-        if mask_keys:
-            out["target_tokens"] = sum(batch[k].sum() for k in mask_keys)
+        if tokens is not None:
+            out["target_tokens"] = tokens
         self.global_step += 1
         return out
+
+    @torch.no_grad()
+    def _update(self, update, state, plan, flat, grads, split
+                ) -> torch.Tensor:
+        """Reduce the gradients over the ranks (``grads`` is emptied),
+        clip by their global norm and update this rank's parts of the
+        whole parameters ``flat``; then give every rank its parameters:
+        the updated parts all-gathered (ZeRO-1), or its parts at rest
+        (fsdp). Returns the norm."""
+        if distributed.is_initialized():
+            grads = self._reduce_gradients(grads, plan, split)
+        targets = {}
+        for name, value in flat.items():
+            part = zero.region(value, plan[name], self.rank, self.world)
+            if part is not None:
+                targets[name] = part
+        norm = update.apply(targets, grads, state, norm_of=lambda t: (
+            zero.sharded_norm(t, plan, self.device)))
+        # the reduced gradients go before the gather's buffers come
+        del grads
+        if self._sharded_params() and plan == self._rest_plan:
+            rest = flatten_tree(self.params)
+            for name, part in targets.items():
+                if not plan[name].replicated:
+                    rest[name].copy_(part)
+            return norm
+        if any(not s.replicated for s in plan.values()):
+            zero.gather_into(flat, plan, targets)
+        if self._sharded_params():
+            for name, value in flatten_tree(self.params).items():
+                shard = self._rest_plan[name]
+                if not shard.replicated:
+                    value.copy_(zero.region(flat[name], shard, self.rank,
+                                            self.world))
+        return norm
+
+    def _reduce_gradients(self, grads, plan, split):
+        """This rank's parts (by ``plan``) of the gradients summed over
+        the ranks, each in one buffer in sorted name order: the divided
+        ones reduce-scattered, the whole ones all-reduced (so every rank
+        holds the same sums). On a batch every rank holds whole, their
+        mean. Empties ``grads``: each gradient is let go once packed, so
+        a buffer never sits beside all of them."""
+        whole = {name: grads.pop(name) for name in sorted(grads)
+                 if plan[name].replicated}
+        reduced = zero.reduce_scatter(grads, plan)
+        reduced.update(zero.all_reduce(whole))
+        if not split:
+            reduced = {name: part / self.world
+                       for name, part in reduced.items()}
+        return reduced
 
     # ------------------------------------------------------------------ #
     # inference
@@ -403,23 +642,34 @@ class CUDAManager:
               ) -> List[Dict[str, torch.Tensor]]:
         """Every runner's fetches on a device-resident batch: with
         several parameter sets, a runner that has ``ensemble_fetches``
-        gets a context of each, every other runner the first set's."""
-        contexts = [Context(params, batch, train=False)
+        gets a context of each, every other runner the first set's.
+        Under fsdp each set is gathered whole for the pass. On a split
+        batch a batch-level loss among the fetches is the global
+        batch's."""
+        contexts = [Context(self._whole(params), batch, train=False)
                     for params in self.params_list]
-        return [runner.ensemble_fetches(contexts)
-                if len(contexts) > 1 and hasattr(runner, "ensemble_fetches")
-                else runner.fetches(contexts[0])
-                for runner in runners]
+        with distributed.sharded_batch(getattr(batch, "split", False)):
+            return [runner.ensemble_fetches(contexts)
+                    if len(contexts) > 1
+                    and hasattr(runner, "ensemble_fetches")
+                    else runner.fetches(contexts[0])
+                    for runner in runners]
 
     def run_on_batch(self, runners, dataset_batch, batch_size: int
                      ) -> List[ExecutionResult]:
-        """Every runner's fetches on one batch, collected on the host."""
+        """Every runner's fetches on one batch, collected on the host;
+        on a split batch each rank decodes its rows and every rank
+        collects all of them (``distributed.fetch_to_host``)."""
         batch, real_size = self.build_batch(dataset_batch, batch_size)
         with torch.inference_mode():
             fetched = self.fetch(runners, batch)
-        return [runner.collect_results(
-                    {k: _host_array(v) for k, v in out.items()}, real_size)
-                for runner, out in zip(runners, fetched)]
+            host = [distributed.fetch_to_host(
+                        out, getattr(runner, "fetch_batch_dims", None))
+                    if batch.split else
+                    {k: _host_array(v) for k, v in out.items()}
+                    for runner, out in zip(runners, fetched)]
+        return [runner.collect_results(out, real_size)
+                for runner, out in zip(runners, host)]
 
     def execute(self, dataset, runners, batch_size: int,
                 batching_scheme: Optional[BatchingScheme] = None
@@ -440,10 +690,19 @@ class CUDAManager:
     def save(self, path: str, step: int = None) -> str:
         """Write ``<path>-<step>`` (and its meta), keep the newest
         ``max_to_keep`` (the ``.best`` target stays until the link moves
-        on), and write the optimizer state to ``<path>.opt``."""
+        on), and write the optimizer state to ``<path>.opt``. In a
+        process group every rank gathers the whole tensors and process 0
+        alone writes, in the layout of one process; then a barrier."""
         step = step if step is not None else self.global_step
         ckpt_path = f"{path}-{step}"
-        save_tree(ckpt_path, self.params,
+        host = zero.gather_to_host(flatten_tree(self.params),
+                                   self._rest_plan, self._meta, self.device)
+        params = _map_leaves(lambda name, _: host[name], self.params)
+        combined = self._gather_optimizer_state()
+        if not distributed.is_main_process():
+            distributed.sync_processes("nm_checkpoint")
+            return ckpt_path
+        save_tree(ckpt_path, params,
                   meta={"step": step, "epoch": self.epoch,
                         "best_score": self.best_score})
         self._checkpoint_paths.append(ckpt_path)
@@ -468,22 +727,43 @@ class CUDAManager:
             if not is_best_target(stale):
                 remove(stale)
                 self._protected_paths.remove(stale)
-        self.save_optimizer_state(path)
+        self._write_optimizer_state(path, combined)
         log(f"Checkpoint saved to {ckpt_path}")
+        distributed.sync_processes("nm_checkpoint")
         return ckpt_path
 
-    def save_optimizer_state(self, path: str) -> None:
-        """Every trainer's optimizer state, in the port's own keys
-        (``<trainer label>/<state>/<parameter>``), to ``<path>.opt``."""
-        combined = {f"{label}/{name}": value.detach().cpu().numpy()
-                    for label, state in self._opt_states.items()
-                    for name, value in state.items()}
+    def _gather_optimizer_state(self) -> Dict[str, np.ndarray]:
+        """Every trainer's optimizer state, whole, in the port's own keys
+        (``<trainer label>/<state>/<parameter>``) on the host; under
+        ZeRO every rank's parts all-gathered (collectives)."""
+        combined: Dict[str, np.ndarray] = {}
+        for label, state in self._opt_states.items():
+            update = self._updates[label]
+            whole_meta = update.init(self._meta)
+            host = zero.gather_to_host(
+                state, self._state_plan(update, self._meta,
+                                        self._update_plans[label]),
+                whole_meta, self.device)
+            for key in whole_meta:
+                combined[f"{label}/{key}"] = host[key].numpy()
+        return combined
+
+    @staticmethod
+    def _write_optimizer_state(path: str,
+                               combined: Dict[str, np.ndarray]) -> None:
         if not combined:
             return
         opt_path = f"{path}.opt"
         with open(opt_path + ".tmp", "wb") as f:
             np.savez(f, **combined)
         os.replace(opt_path + ".tmp", opt_path)
+
+    def save_optimizer_state(self, path: str) -> None:
+        """Every trainer's optimizer state, whole, to ``<path>.opt``
+        (gathered by every rank, written by process 0)."""
+        combined = self._gather_optimizer_state()
+        if distributed.is_main_process():
+            self._write_optimizer_state(path, combined)
 
     def load_optimizer_state(self, path: str) -> None:
         """Stage ``<path>.opt`` for the trainers' first steps."""
@@ -509,11 +789,13 @@ class CUDAManager:
             self.best_score_epoch = epoch
             ckpt_path = self.save(path, step=step)
             link = path + ".best"
-            tmp_link = link + ".tmp"
-            if os.path.lexists(tmp_link):
-                os.remove(tmp_link)
-            os.symlink(os.path.basename(ckpt_path), tmp_link)
-            os.replace(tmp_link, link)
+            if distributed.is_main_process():
+                tmp_link = link + ".tmp"
+                if os.path.lexists(tmp_link):
+                    os.remove(tmp_link)
+                os.symlink(os.path.basename(ckpt_path), tmp_link)
+                os.replace(tmp_link, link)
+            distributed.sync_processes("nm_best_link")
             log(f"New best score {score:.4g}; {link} -> {ckpt_path}",
                 color="green")
         return is_better

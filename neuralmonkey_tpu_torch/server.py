@@ -35,7 +35,8 @@ Usage: python -m neuralmonkey_tpu_torch.server --configuration exp.ini
            [--batch-window-ms 10] [--max-batch 256]
 
 Several checkpoints serve as a logit ensemble, or with ``--average`` as
-their averaged parameters.
+their averaged parameters. The server runs in one process: in a process
+group (``parallel/distributed.py``) ``ModelService`` raises.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ import torch
 from .dataset import from_dict
 from .experiment import Experiment
 from .logging import log, warn
+from .parallel import distributed
 
 
 class _PendingRequest:
@@ -76,6 +78,12 @@ class ModelService:
     def __init__(self, experiment: Experiment,
                  batch_window_ms: float = 10.0,
                  max_batch: int = 256) -> None:
+        if distributed.is_initialized():
+            raise ValueError(
+                "the server runs in one process: a process group would "
+                "make every request a collective that all ranks must "
+                "join, and only one process answers HTTP (start it "
+                "without NM_COORDINATOR_ADDRESS and NM_DISTRIBUTED)")
         self.experiment = experiment
         self.batch_window_ms = batch_window_ms
         self.max_batch = max_batch

@@ -6,6 +6,11 @@ Trains on the CUDA card through the hand-written kernels, or on the CPU
 through their plain versions when the INI asks for it
 (``[tf_manager] device="cpu"``). ``--profile DIR`` writes a
 ``torch.profiler`` trace of the run to ``DIR/trace.json``.
+
+Data parallelism: one process per device, each started with
+``NM_COORDINATOR_ADDRESS=host:port NM_NUM_PROCESSES=N NM_PROCESS_ID=i``
+(or under ``torchrun`` with ``NM_DISTRIBUTED=auto``); see
+``parallel/distributed.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from .experiment import Experiment
 from .logging import log
+from .parallel import distributed
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -35,6 +41,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "Perfetto JSON) to DIR/trace.json")
     args = parser.parse_args(argv)
 
+    # a process of a data-parallel run joins its group before anything
+    # touches a device (a no-op without NM_COORDINATOR_ADDRESS or
+    # NM_DISTRIBUTED)
+    distributed.maybe_initialize()
     exp = Experiment(args.config, train_mode=True,
                      overwrite_output_dir=args.overwrite,
                      config_changes=args.overrides)

@@ -12,7 +12,7 @@ schedule such as noam, advances once per real update.
 
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List
 
 import torch
 
@@ -35,12 +35,13 @@ class DelayedUpdate(Update):
         return state
 
     @torch.no_grad()
-    def apply(self, params: Flat, grads: Flat, state: Flat
+    def apply(self, params: Flat, grads: Flat, state: Flat,
+              norm_of: Callable[[Flat], torch.Tensor] = global_norm
               ) -> torch.Tensor:
         """Accumulate ``grads``; on every k-th call update ``params`` in
         place from the average and reset it. Returns the global norm of
-        this batch's gradients."""
-        norm = global_norm(grads)
+        this batch's gradients (``norm_of``, as ``Update.apply``)."""
+        norm = norm_of(grads)
         mini = int(state["mini_step"])
         acc = {name: state[f"acc/{name}"] for name in params}
         for name, g in grads.items():
@@ -49,7 +50,7 @@ class DelayedUpdate(Update):
             average = dict(acc)
             if self.clip_norm:
                 average = clip_by_global_norm(average, self.clip_norm,
-                                              global_norm(average))
+                                              norm_of(average))
             self.transform.apply(params, average, state)
             for a in acc.values():
                 a.zero_()

@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, List
 import torch
 
 from ..model.part import Context
+from ..parallel.distributed import param_term
 from ..utils.saving import flatten_tree
 from .optimizers import (Flat, clip_by_global_norm, global_norm,
                          resolve_optimizer)
@@ -55,11 +56,14 @@ class Update:
                 for k, v in self.transform.init(params).items()}
 
     @torch.no_grad()
-    def apply(self, params: Flat, grads: Flat, state: Flat
+    def apply(self, params: Flat, grads: Flat, state: Flat,
+              norm_of: Callable[[Flat], torch.Tensor] = global_norm
               ) -> torch.Tensor:
         """Update ``params`` and ``state`` in place; returns the
-        gradients' global norm before clipping."""
-        norm = global_norm(grads)
+        gradients' global norm before clipping. ``norm_of`` takes the
+        global norm of gradient-shaped tensors (under ZeRO, of each
+        rank's parts: ``parallel.zero.sharded_norm``)."""
+        norm = norm_of(grads)
         if self.clip_norm:
             grads = clip_by_global_norm(grads, self.clip_norm, norm)
         # the transform updates the state's tensors in place, so a view
@@ -103,14 +107,16 @@ class GenericTrainer:
         for key, value in ctx.aux_losses.items():
             total = total + value
             losses[f"aux/{key}"] = value
+        # terms of the parameters alone enter the ranks' summed gradient
+        # once (distributed.param_term)
         if self.l1_weight or self.l2_weight:
             leaves = list(flatten_tree(self._trainable(params)).values())
             if self.l1_weight:
-                total = total + self.l1_weight * sum(
-                    x.abs().sum() for x in leaves)
+                total = total + param_term(self.l1_weight * sum(
+                    x.abs().sum() for x in leaves))
             if self.l2_weight:
-                total = total + self.l2_weight * sum(
-                    x.square().sum() for x in leaves)
+                total = total + param_term(self.l2_weight * sum(
+                    x.square().sum() for x in leaves))
         return total, losses
 
     def _trainable(self, params):

@@ -57,9 +57,12 @@ def _learning_rate(schedule: Schedule, count: int) -> float:
 class Transform:
     """An optimizer's state layout and in-place update. With
     ``optax_keys`` the state's keys are those of the optax
-    transformation's flattened state tree."""
+    transformation's flattened state tree. An ``elementwise`` rule
+    updates each entry of a parameter from the same entries of its
+    gradient and state alone, so ZeRO may divide them in any slices."""
 
     optax_keys = False
+    elementwise = True
 
     def init(self, params: Flat) -> Flat:
         raise NotImplementedError
@@ -240,6 +243,9 @@ class _Adafactor(Transform):
     ``v`` for the other layout."""
 
     optax_keys = True
+    # the factored moments, the block-RMS clip and the parameter scale
+    # reduce over whole parameters
+    elementwise = False
     MIN_DIM_SIZE_TO_FACTOR = 128
     DECAY_RATE = 0.8
     EPS = 1e-30

@@ -21,6 +21,7 @@ import torch
 from ..evaluators.bleu import BLEUEvaluator
 from ..evaluators.gleu import gleu_sentence
 from ..model.part import Context
+from ..parallel.distributed import global_mean
 from ..vocabulary import END_TOKEN_INDEX, PAD_TOKEN_INDEX
 from .generic_trainer import Objective
 
@@ -86,7 +87,7 @@ def self_critical_objective(decoder,
         sampled_reward, greedy_reward = _rewards(reward_function, targets,
                                                  sampled, greedy)
         advantage = sampled_reward - greedy_reward
-        return -(advantage * sampled_logprob).mean()
+        return -global_mean(advantage * sampled_logprob)
 
     return Objective(
         name=name or f"{decoder.name} - self-critical",
@@ -107,8 +108,9 @@ def reinforce_objective(decoder,
         sampled, sampled_logprob = decoder.sample_outputs(ctx)
         (reward,) = _rewards(reward_function, targets, sampled)
         if subtract_baseline:
-            reward = reward - reward.mean()
-        return -(reward * sampled_logprob).mean()
+            # the global batch's mean reward
+            reward = reward - global_mean(reward)
+        return -global_mean(reward * sampled_logprob)
 
     return Objective(
         name=name or f"{decoder.name} - reinforce",

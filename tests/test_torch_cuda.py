@@ -2384,3 +2384,82 @@ def test_align_logits_beam_on_card_matches_cpu(cuda_device):
     ref_ids, ref_scores = decode(torch.device("cpu"))
     assert torch.equal(ids, ref_ids)
     torch.testing.assert_close(scores, ref_scores, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------- #
+# data parallelism: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------- #
+def zero1_card_step(directory):
+    """One ZeRO-1 step (SGD with momentum, whose trace divides among the
+    ranks) of a width-16 GRU model on ``cuda:0``, 16 sentences a batch:
+    the loss, the parameters after it, the kernels' launches and, in a
+    process group, the device of every tensor its collectives took."""
+    import torch.distributed as dist
+
+    from neuralmonkey_tpu_torch.dataset import Dataset
+    from neuralmonkey_tpu_torch.runtime import CUDAManager
+    from neuralmonkey_tpu_torch.trainers.cross_entropy_trainer import \
+        CrossEntropyTrainer
+    from neuralmonkey_tpu_torch.trainers.optimizers import MomentumOptimizer
+
+    del directory
+    devices = []
+    if dist.is_initialized():
+        for name in ("all_reduce", "all_gather_into_tensor",
+                     "reduce_scatter_tensor", "broadcast"):
+            def recorded(*args, _collective=getattr(dist, name), **kwargs):
+                devices.extend(a.device.type for a in args
+                               if isinstance(a, torch.Tensor))
+                return _collective(*args, **kwargs)
+            setattr(dist, name, recorded)
+    vocab = Vocabulary([f"w{i}" for i in range(40)])
+    enc = SentenceEncoder(name="encoder", vocabulary=vocab, data_id="source",
+                          embedding_size=16, rnn_size=16, max_input_len=9)
+    att = Attention(name="attention", encoder=enc, state_size=16)
+    dec = Decoder(name="decoder", vocabulary=vocab, data_id="target",
+                  max_output_len=8, rnn_size=16, encoders=[enc],
+                  attentions=[att], embedding_size=16, conditional_gru=True)
+    trainer = CrossEntropyTrainer(decoders=[dec], clip_norm=1.0,
+                                  optimizer=MomentumOptimizer(0.1, 0.9))
+    manager = CUDAManager(device="cuda:0", shard_optimizer_state=True)
+    manager.initialize_model_parts([trainer], seed=3)
+    data = Dataset("toy", {
+        "source": [[f"w{(3 * j + i) % 40}" for i in range(j % 7 + 2)]
+                   for j in range(16)],
+        "target": [[f"w{(5 * j + i) % 40}" for i in range(j % 5 + 1)]
+                   for j in range(16)]})
+    kernel_config.reset_launch_counts()
+    loss = manager.train_on_batch(trainer, data, 16)["loss"]
+    torch.cuda.synchronize()
+    return {"loss": loss, "devices": devices,
+            "launches": kernel_config.launch_counts(),
+            "trace": {k: tuple(v.shape) for k, v in
+                      next(iter(manager._opt_states.values())).items()},
+            "params": {k: v.detach().cpu() for k, v in
+                       flatten_tree(manager.params).items()}}
+
+
+def test_zero1_step_of_two_ranks_on_the_card_equals_one_rank(cuda_device,
+                                                             tmp_path):
+    """Two processes on ``cuda:0`` over gloo take one ZeRO-1 step of the
+    batch split between them, every collective on CUDA tensors, with K1,
+    the GRU BPTT and K2 launched by each: the loss and parameters of the
+    same step in one process (1e-5), the momentum trace halved."""
+    import test_torch_parallel as workers
+    del cuda_device
+    ranks = workers.run_ranks(str(tmp_path), ["zero1_card_step"],
+                              module="test_torch_cuda")
+    want = zero1_card_step(str(tmp_path))
+    assert not want["devices"]
+    for rank in ranks:
+        got = rank["zero1_card_step"]
+        assert got["devices"] and set(got["devices"]) == {"cuda"}
+        for kernel in ("gru_scan", "gru_bptt", "fused_bahdanau_step"):
+            assert got["launches"][kernel] > 0, got["launches"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-5
+        for key, value in want["params"].items():
+            torch.testing.assert_close(got["params"][key], value, atol=1e-5,
+                                       rtol=0, msg=key)
+        halved = [k for k, shape in got["trace"].items()
+                  if shape != want["trace"][k]]
+        assert halved and all(k.startswith("trace/") for k in halved)

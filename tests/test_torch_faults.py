@@ -46,6 +46,7 @@ from neuralmonkey_tpu.utils.saving import restore_into as jax_restore
 from neuralmonkey_tpu.vocabulary import Vocabulary as JaxVocabulary
 
 from neuralmonkey_tpu_torch import run as torch_run
+from neuralmonkey_tpu_torch.dataset import BatchingScheme
 from neuralmonkey_tpu_torch.experiment import Experiment
 from neuralmonkey_tpu_torch.model.part import (Context, collect_parts,
                                                init_all_params)
@@ -60,7 +61,8 @@ from neuralmonkey_tpu_torch.ops import (beam_select, cuda_rnn,
                                         flash_attention, kernel_config,
                                         lineage_attention, nn, rnn)
 from neuralmonkey_tpu_torch.runtime import CUDAManager
-from neuralmonkey_tpu_torch.utils.saving import params_from_jax
+from neuralmonkey_tpu_torch.utils.saving import (flatten_tree,
+                                                 params_from_jax)
 from neuralmonkey_tpu_torch.vocabulary import Vocabulary
 
 torch.set_num_threads(1)
@@ -261,11 +263,49 @@ def test_mesh_option_at_its_default_builds(tmp_path, monkeypatch, option):
     assert exp.tf_manager.device.type == "cpu"
 
 
-@pytest.mark.parametrize("option", sorted(NON_DEFAULT))
+# the ZeRO options are ported (parallel/); the model axes are not
+ZERO_OPTIONS = ("fsdp", "shard_optimizer_state")
+NOT_PORTED = {k: v for k, v in NON_DEFAULT.items() if k not in ZERO_OPTIONS}
+
+
+@pytest.mark.parametrize("option", sorted(NOT_PORTED))
 def test_mesh_option_off_its_default_raises(option):
     with pytest.raises(NotImplementedError,
                        match=f"{option}=.*ROADMAP queue A15"):
-        CUDAManager(device="cpu", **{option: NON_DEFAULT[option]})
+        CUDAManager(device="cpu", **{option: NOT_PORTED[option]})
+
+
+def _small_step(tmp_path, *extra):
+    """small.ini built on the CPU with ``extra`` overrides: its first
+    training step's losses and the parameters after it."""
+    exp = Experiment(os.path.join(CONFIGS, "small.ini"),
+                     config_changes=_on_cpu(tmp_path, *extra))
+    exp.build_model()
+    batch = next(exp.model.train_dataset.batches(
+        exp.model.batching_scheme or BatchingScheme(
+            batch_size=exp.model.batch_size), shuffled=False))
+    losses = exp.tf_manager.train_on_batch(exp.model.trainer, batch,
+                                           exp.model.batch_size)
+    params = {k: v.detach().clone()
+              for k, v in flatten_tree(exp.tf_manager.params).items()}
+    return exp.tf_manager, losses, params
+
+
+@pytest.mark.parametrize("option", ZERO_OPTIONS)
+def test_zero_option_builds_and_trains(tmp_path, monkeypatch, option):
+    """In one process ``fsdp`` and ``shard_optimizer_state`` build
+    small.ini and leave its step as it is: the same losses and the same
+    parameters after the step as without the option."""
+    monkeypatch.chdir(REPO)
+    _, plain_losses, plain = _small_step(tmp_path / "plain")
+    manager, losses, params = _small_step(tmp_path / "zero",
+                                          f"tf_manager.{option}=True")
+    assert manager.shard_optimizer_state
+    assert manager.fsdp == (option == "fsdp")
+    assert losses == plain_losses
+    assert set(params) == set(plain)
+    for key, value in params.items():
+        torch.testing.assert_close(value, plain[key], rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------- #
