@@ -519,7 +519,9 @@ def import_everything() -> None:
         transformer as _  # noqa: F401
     from neuralmonkey_tpu_torch.ops import (  # noqa: F401
         beam_select, cuda_attention, cuda_rnn, flash_attention, fused_xent,
-        kernel_config, lineage_attention, moe, nn, policy)
+        kernel_config, lineage_attention, moe, nn, policy, sharding)
+    from neuralmonkey_tpu_torch.parallel import (  # noqa: F401
+        distributed, mesh, ring_attention, tensor, zero)
     from neuralmonkey_tpu_torch.trainers import (  # noqa: F401
         delayed_update_trainer, rl_trainer)
     from neuralmonkey_tpu_torch.utils import (  # noqa: F401
@@ -3317,6 +3319,10 @@ def run_transformer_serving(tmp: str):
     launches, einsum_out = serve_through_run(
         exp_ini, data_ini, ckpt, T_SERVING_KERNELS, outputs,
         "transformer serving")
+    # phase 29 holds its tensor-parallel decode against these
+    for name, lines in einsum_out.items():
+        with open(os.path.join(tmp, f"phase9_{name}"), "w") as f:
+            f.writelines(line + "\n" for line in lines)
     os.environ["NM_LINEAGE_KERNEL"] = "1"
     try:
         lineage_launches, kernel_out = serve_through_run(
@@ -6748,6 +6754,427 @@ def check_data_parallel(tmp: str, exp_ini: str, data_ini: str, ckpt: str,
     return launches, report
 
 
+# ---------------------------------------------------------------------- #
+# phase 29: tensor, sequence and context parallelism on the card
+# ---------------------------------------------------------------------- #
+MA_STEPS = 4
+MA_TIMEOUT = 240.0
+MA_LOCAL_HEADS = T_HEADS // 2
+MA_TRAIN_KERNELS = FLASH_KERNELS
+MA_DECODE_KERNELS = ("flash_attention_fwd", "small_topk")
+# each rank's parameter bytes at rest, as a share of one process's
+MA_AT_REST_SHARE = 0.6
+# Adam's epsilon raised from 1e-9: the key biases' exact gradient is 0,
+# and a small epsilon turns their rounding noise into steps of the
+# learning rate, which a comparison of the parameters after a step to
+# 1e-5 would count
+MA_MAIN = """\
+[main]
+name="chip smoke model axes"
+tf_manager=<tf_manager>
+output="{tmp}/ma_out"
+overwrite_output_dir=True
+batch_size={batch}
+epochs=1
+train_dataset=<train_data>
+trainer=<trainer>
+runners=[<runner>, <bs_runner>]
+random_seed={seed}
+
+[train_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/train.src"
+s_target="{tmp}/train.tgt"
+lazy=False
+
+[trainer]
+class=trainers.cross_entropy_trainer.CrossEntropyTrainer
+decoders=[<decoder>]
+clip_norm=1.0
+optimizer=<adam>
+
+[adam]
+class=tf.train.AdamOptimizer
+learning_rate=1.0e-4
+epsilon=1.0e-4
+
+"""
+MA_DATA_INI = """\
+[main]
+test_datasets=[<test_data>]
+
+[test_data]
+class=dataset.load_dataset_from_files
+s_source="{tmp}/ma_source.txt"
+s_target_out="{tmp}/ma_greedy.txt"
+s_target_beam_out="{tmp}/ma_beam.txt"
+"""
+
+
+_MA_REF = {}
+
+
+def ma_train(ini: str, changes, ref: str = None, peak_without_sp=False):
+    """MA_STEPS steps of ``ini``'s model on its first MA_STEPS batches,
+    the launch counts set to 0 just before: every step's loss and peak
+    bytes, the bytes at rest, train tokens/s of steps 2 to MA_STEPS, and
+    after step 1 the parameters' largest gap to ``ref``'s (one process's,
+    saved there), or with no ``ref`` saved there. With
+    ``peak_without_sp`` one more step with the sequence split off, its
+    peak. Returns (the record, the experiment)."""
+    import torch
+
+    from neuralmonkey_tpu_torch.experiment import Experiment
+    from neuralmonkey_tpu_torch.ops import kernel_config
+    from neuralmonkey_tpu_torch.utils.saving import flatten_tree
+
+    exp = Experiment(ini, config_changes=list(changes))
+    exp.build_model()
+    manager, trainer = exp.tf_manager, exp.model.trainer
+    data = exp.model.train_dataset
+    batches = [data.subset(i * BATCH, BATCH) for i in range(MA_STEPS + 1)]
+    losses, peaks, tokens, ends = [], [], [], []
+    gap = None
+    kernel_config.reset_launch_counts()
+    for step, batch in enumerate(batches[:MA_STEPS]):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = manager.train_on_batch(trainer, batch, BATCH)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        losses.append(out["loss"])
+        tokens.append(out["target_tokens"])
+        peaks.append(torch.cuda.max_memory_allocated())
+        if step == 0:
+            whole = {k: v.detach().cpu() for k, v in
+                     flatten_tree(manager.whole_params()).items()}
+            if ref is None:
+                torch.save(whole, ref_path(ini))
+            else:
+                if ref not in _MA_REF:
+                    _MA_REF[ref] = torch.load(ref, weights_only=True)
+                want = _MA_REF[ref]
+                gap = max(float((whole[k] - want[k]).abs().max())
+                          for k in want)
+            del whole
+    launches = kernel_config.launch_counts()
+    record = {"losses": losses, "peak_bytes": peaks,
+              "at_rest_bytes": at_rest_bytes(manager),
+              "train_tokens_per_sec": float(sum(tokens[1:]))
+              / (ends[-1] - ends[0]),
+              "param_gap_after_step_1": gap, "launches": launches}
+    if peak_without_sp:
+        manager.mesh.sequence = False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        manager.train_on_batch(trainer, batches[MA_STEPS], BATCH)
+        torch.cuda.synchronize()
+        record["peak_bytes_without_sp"] = torch.cuda.max_memory_allocated()
+    return record, exp
+
+
+def ref_path(ini: str) -> str:
+    return os.path.join(os.path.dirname(ini), "ma_ref_params.pt")
+
+
+def ma_rank(rank: int, tmp: str, ini: str, port: int, t_ini: str,
+            t_ckpt: str, result: str) -> None:
+    """Phase 29 on rank ``rank`` of two sharing the card over gloo: (a)
+    MA_STEPS steps under TP 2 with sequence sharding (and one without,
+    for its peak), (b) phase 9's first batch decoded (greedy and beam
+    10) under TP 2 from its checkpoint (phase 9's model, restored into
+    (a)'s), (c) MA_STEPS steps under CP 2."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.ops import kernel_config
+    from neuralmonkey_tpu_torch.parallel import distributed
+
+    card_settings()
+    distributed.maybe_initialize(f"127.0.0.1:{port}", 2, rank,
+                                 backend="gloo")
+    on_card = ['tf_manager.device="cuda:0"']
+    ref = ref_path(ini)
+    report = {}
+    report["tp_sp"], exp = ma_train(
+        ini, on_card + ["tf_manager.num_model_shards=2",
+                        "tf_manager.sequence_sharding=True"],
+        ref, peak_without_sp=True)
+    # the sequence split stays off for the decode (TP 2 alone)
+    exp.tf_manager.restore(t_ckpt)
+    picks, ids = record_beam(exp)
+    kernel_config.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    data_ini = os.path.join(tmp, "ma_data.ini")
+    for dataset in run.load_data_config(data_ini):
+        exp.run_model(dataset, write_out=True)
+    torch.cuda.synchronize()
+    report["decode"] = {"seconds": time.perf_counter() - start,
+                        "launches": kernel_config.launch_counts(),
+                        "heads": exp.tf_manager.params["decoder"]["layer_0"][
+                            "self_att"]["q"]["w"].shape[1] // T_HEAD_DIM}
+    torch.save({"picks": picks, "ids": ids},
+               os.path.join(tmp, f"ma_beam_r{rank}.pt"))
+    del exp
+    gc_card()
+    report["cp"], _ = ma_train(
+        ini, on_card + ["tf_manager.num_context_shards=2"], ref)
+    torch.distributed.destroy_process_group()
+    with open(result, "w") as f:
+        json.dump(report, f)
+
+
+def local_heads_records(device):
+    """Flash attention's forward, dq and dkv at a rank's 4 of the 8
+    heads (the encoder's, the decoder's causal and the cross-attention's
+    shapes) and K4 at the beam selection's, against their plain versions;
+    the encoder shape timed beside its plain version."""
+    import torch
+
+    from neuralmonkey_tpu_torch.ops import beam_select
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED + 29)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    records = {name: {"shapes": []} for name in MA_TRAIN_KERNELS}
+    for case, tq, tk, causal in (("encoder", SRC_LEN, SRC_LEN, False),
+                                 ("decoder self", TGT_LEN, TGT_LEN, True),
+                                 ("cross", TGT_LEN, SRC_LEN, False)):
+        b, h, d = BATCH, MA_LOCAL_HEADS, T_HEAD_DIM
+        lengths = torch.randint(1, tk + 1, (b,), generator=gen)
+        mask = (torch.arange(tk)[None] < lengths[:, None]).float().to(device)
+        if causal:
+            mask = torch.ones(b, tk, device=device)
+        q, k, v, g = (randn(b, h, t, d) for t in (tq, tk, tk, tq))
+        out, lse = fa.flash_forward(q, k, v, mask, causal)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_out, _ = fa.flash_forward_reference(*leaves, mask, causal)
+        ref_dq, ref_dk, ref_dv = torch.autograd.grad(ref_out, leaves, g)
+        bwd = (q, k, v, mask, lse, g, (g * out).sum(dim=-1), causal)
+        dq = fa.flash_backward_dq(*bwd)
+        dk, dv = fa.flash_backward_dkv(*bwd)
+        ref_out = ref_out.detach()
+        errs = {"flash_attention_fwd": max_err(out, ref_out),
+                "flash_attention_bwd_dq": max_err(dq, ref_dq),
+                "flash_attention_bwd_dkv": max(max_err(dk, ref_dk),
+                                               max_err(dv, ref_dv))}
+        for name, err in errs.items():
+            if err > 2e-4:
+                raise AssertionError(f"{name} at B {b}, H {h}, Tq {tq}, Tk "
+                                     f"{tk} ({case}): max_abs_err {err}")
+            entry = {"case": case, "shape": [b, h, tq, tk, d, causal],
+                     "max_abs_err": err}
+            if case == "encoder":
+                entry.update(local_heads_times(name, q, k, v, g, mask, out,
+                                               lse, bwd))
+            records[name]["shapes"].append(entry)
+    # K4 at the beam selection's group stage over the gathered vocabulary
+    vp = -(-VOCAB // 128) * 128
+    x = torch.round(randn(BATCH, BEAM * vp // 128) * 3.0)
+    got = beam_select.small_topk(x, BEAM)
+    want = beam_select.topk_reference(x, BEAM)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("small_topk at the decode's group stage: "
+                             "differs from the plain version")
+    ms, by = bound(x.shape[0] * x.shape[1] * BEAM,
+                   4 * x.numel() + 8 * x.shape[0] * BEAM)
+    records["small_topk"] = {"shapes": [{
+        "shape": list(x.shape) + [BEAM], "max_abs_err": 0.0,
+        "ms": time_ms(lambda: beam_select.small_topk(x, BEAM), 10),
+        "plain_ms": time_ms(lambda: beam_select.topk_reference(x, BEAM),
+                            10),
+        "bound_ms": ms, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.topk(x, BEAM, dim=1), 10)}]}
+    return records
+
+
+def local_heads_times(name, q, k, v, g, mask, out, lse, bwd):
+    """Device ms of one flash kernel at a rank's heads (the encoder's
+    shape), of its plain version and of SDPA's same function, and its
+    bound (as ``check_transformer_kernels`` counts them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuralmonkey_tpu_torch.ops import flash_attention as fa
+
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    pairs = b * h * tq * tk
+    qo, kv = 4 * b * h * tq * d, 4 * b * h * tk * d
+    bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+    if name == "flash_attention_fwd":
+        work = (4 * pairs * d, 2 * qo + 2 * kv + 4 * b * tk + 4 * b * h * tq)
+        kernel = lambda: fa.flash_forward(q, k, v, mask, False)  # noqa: E731
+        plain = lambda: fa.flash_forward_reference(  # noqa: E731
+            q, k, v, mask, False)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=bias)
+    else:
+        read = 2 * qo + 2 * kv + 4 * b * tk + 8 * b * h * tq
+        work = ((6 * pairs * d, read + qo) if name.endswith("dq")
+                else (8 * pairs * d, read + 2 * kv))
+        kernel = ((lambda: fa.flash_backward_dq(*bwd))
+                  if name.endswith("dq")
+                  else (lambda: fa.flash_backward_dkv(*bwd)))
+        # the plain backward and SDPA's each compute dq, dk and dv at once
+        plain = lambda: fa.flash_backward_reference(  # noqa: E731
+            q, k, v, mask, out, lse, g, False)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, leaves, g, retain_graph=True)
+    ms, by = bound(*work)
+    return {"ms": time_ms(kernel, 10), "plain_ms": time_ms(plain, 10),
+            "library_ms": time_ms(library, 10), "bound_ms": ms,
+            "bound_by": by}
+
+
+def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
+    """Phase 29. Returns (the launches of its main-path runs, report)."""
+    import numpy as np
+    import torch
+
+    from neuralmonkey_tpu_torch.dataset import from_dict
+
+    del device
+    seconds = {}
+    report = {"seconds": seconds, "device": smi}
+    ini = write_transformer_ini(tmp, "ma_train.ini", MA_MAIN, 1.0, 1.0)
+    first_lines(tmp, ("source.txt", "phase9_t_greedy.txt",
+                      "phase9_t_beam.txt"), BATCH, "ma_")
+    with open(os.path.join(tmp, "ma_data.ini"), "w") as f:
+        f.write(MA_DATA_INI.format(tmp=tmp))
+    base, exp = timed(seconds, "one process", ma_train, ini,
+                      ['tf_manager.device="cuda:0"'])
+    del exp
+    gc_card()
+    port = free_port()
+    results = [os.path.join(tmp, f"ma{r}.json") for r in range(2)]
+    timed(seconds, "two gloo ranks on one card", run_ranks, [
+        (ma_rank, (r, tmp, ini, port, t_ini, t_ckpt, results[r]))
+        for r in range(2)], MA_TIMEOUT)
+    ranks = []
+    for path in results:
+        with open(path) as f:
+            ranks.append(json.load(f))
+
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    for name in ("tp_sp", "cp"):
+        for rank, result in enumerate(ranks):
+            got = result[name]
+            check(abs(got["losses"][0] - base["losses"][0]) <= DP_LOSS_ATOL,
+                  f"{name} rank {rank}: step-1 loss {got['losses'][0]} "
+                  f"against one process's {base['losses'][0]}")
+            check(got["param_gap_after_step_1"] <= DP_LOSS_ATOL,
+                  f"{name} rank {rank}: parameters after step 1 "
+                  f"{got['param_gap_after_step_1']} from one process's")
+            check(all(np.isfinite(got["losses"])), f"{name}: {got['losses']}")
+        check(ranks[0][name]["losses"] == ranks[1][name]["losses"],
+              f"{name}: the ranks' losses differ")
+    for rank, result in enumerate(ranks):
+        missing = [k for k in MA_TRAIN_KERNELS
+                   if not result["tp_sp"]["launches"][k]]
+        check(not missing, f"rank {rank} TP: never launched {missing}")
+        missing = [k for k in MA_DECODE_KERNELS
+                   if not result["decode"]["launches"][k]]
+        check(not missing, f"rank {rank} decode: never launched {missing}")
+        check(result["decode"]["launches"]["fused_logits_rowmax_lse"] == 0,
+              f"rank {rank} decode: K3 launched under a model axis")
+        check(result["decode"]["heads"] == MA_LOCAL_HEADS,
+              f"rank {rank} decode: {result['decode']['heads']} heads")
+        check(result["tp_sp"]["at_rest_bytes"]["params"]
+              <= MA_AT_REST_SHARE * base["at_rest_bytes"]["params"],
+              f"rank {rank} TP at rest {result['tp_sp']['at_rest_bytes']} "
+              f"against {base['at_rest_bytes']}")
+
+    # the decode against phase 9's by phase 5's rule
+    with open(os.path.join(tmp, "ma_source.txt")) as f:
+        sources = f.read().splitlines()
+    differ = {}
+    for name in ("greedy", "beam"):
+        with open(os.path.join(tmp, f"ma_phase9_t_{name}.txt")) as f:
+            want = f.read().splitlines()
+        with open(os.path.join(tmp, f"ma_{name}.txt")) as f:
+            got = f.read().splitlines()
+        check(len(got) == len(want) == BATCH,
+              f"decode: {len(got)} {name} lines")
+        differ[name] = {i: (w, g) for i, (w, g) in enumerate(zip(want, got))
+                        if w != g}
+    greedy_gaps = {i: greedy_gap(t_ini, t_ckpt, sources[i].split(),
+                                 w.split(), g.split())
+                   for i, (w, g) in differ["greedy"].items()}
+    check(all(gap < MARGIN for gap in greedy_gaps.values()),
+          f"decode: greedy ids differ from phase 9's where the CPU's gap "
+          f"is not below {MARGIN}: {greedy_gaps}")
+    logs = [torch.load(os.path.join(tmp, f"ma_beam_r{r}.pt"),
+                       weights_only=False) for r in range(2)]
+    beam_parity = None
+    if differ["beam"] and not failures:
+        rows = sorted(differ["beam"])
+        beam_parity = check_parity(
+            t_ini, None, None, t_ckpt,
+            from_dict({"source": [sources[i].split() for i in rows]}),
+            card=([[p[i] for p in logs[0]["picks"][0]] for i in rows],
+                  [logs[0]["ids"][0][i] for i in rows]))
+    if failures:
+        raise AssertionError("model axes: " + "; ".join(failures))
+
+    launches = None
+    for result in ranks:
+        for name in ("tp_sp", "cp", "decode"):
+            launches = add_launches(launches, result[name]["launches"])
+    launches = add_launches(launches, base["launches"])
+    launches_by_kernel = {name: sum(
+        r[key]["launches"][name] for r in ranks
+        for key in ("tp_sp", "cp", "decode"))
+        for name in MA_TRAIN_KERNELS + ("small_topk",)}
+    keys = ("losses", "peak_bytes", "at_rest_bytes", "train_tokens_per_sec",
+            "param_gap_after_step_1")
+    report.update({
+        "steps": MA_STEPS, "batch": BATCH, "source": SRC_LEN,
+        "target": TGT_LEN,
+        "one_process": {k: base[k] for k in keys if k in base},
+        "tp2_sp": [{**{k: r["tp_sp"][k] for k in keys},
+                    "peak_bytes_without_sp":
+                    r["tp_sp"]["peak_bytes_without_sp"],
+                    "loss_gaps_steps_2_to_4": [
+                        abs(a - b) for a, b in zip(r["tp_sp"]["losses"][1:],
+                                                   base["losses"][1:])]}
+                   for r in ranks],
+        "cp2": [{**{k: r["cp"][k] for k in keys},
+                 "loss_gaps_steps_2_to_4": [
+                     abs(a - b) for a, b in zip(r["cp"]["losses"][1:],
+                                                base["losses"][1:])]}
+                for r in ranks],
+        "train_tokens_per_sec_note": "two ranks time-sharing one card: "
+                                     "not scaling",
+        "decode": {"seconds": [r["decode"]["seconds"] for r in ranks],
+                   "greedy_differing_from_phase_9": greedy_gaps,
+                   "beam_differing_from_phase_9": sorted(differ["beam"]),
+                   "beam_parity": beam_parity}})
+    report["launches_on_the_ranks"] = launches_by_kernel
+    log(f"model axes ({smi}; two ranks time-sharing one card, not "
+        f"scaling): {report}")
+    return launches, report
+
+
+def gc_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def torch_equal(a, b) -> bool:
     import torch
     return bool(torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b)))
@@ -6797,6 +7224,11 @@ def main() -> int:
         return out
 
     kernels = phase("kernels", check_kernels, device)
+    # the kernels phase 29's ranks launch, at a rank's heads
+    local_heads = phase("kernels at a rank's heads", local_heads_records,
+                        device)
+    for name, record in local_heads.items():
+        kernels[name]["local_heads"] = record
     past_limits, chunked = phase("past the kernels' limits",
                                  check_past_limits, device)
     kernels.update(chunked)
@@ -6897,6 +7329,11 @@ def main() -> int:
             "data parallel", check_data_parallel, tmp,
             os.path.join(tmp, "exp.ini"), data_ini, ckpt, smi)
         launches = add_launches(launches, dp_launches)
+        ma_launches, model_axes = phase(
+            "model axes", check_model_axes, tmp, t_ini, t_ckpt, smi, device)
+        launches = add_launches(launches, ma_launches)
+        for name, count in model_axes["launches_on_the_ranks"].items():
+            local_heads[name]["launches_in_phase_29"] = count
         # the rates of the same paths in float32 (phases 4, 6, 9, 11) and
         # under the bf16 policy (phase 24), from this run
         bf16["rates"] = {
@@ -6949,6 +7386,7 @@ def main() -> int:
         "long_tail": long_tail,
         "host_and_image_tail": image_tail,
         "data_parallel": data_parallel,
+        "model_axes": model_axes,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -199,13 +199,15 @@ class Experiment:
         ``<output>/<name>_embeddings.tsv`` (one vector a row) and
         ``<name>_metadata.tsv`` (the vocabulary's tokens), the files
         TensorBoard's embedding projector loads; the same files as the
-        JAX package's. Written by process 0 (under fsdp every rank
-        gathers the tables)."""
+        JAX package's. Written by process 0 (under fsdp or model shards
+        every rank gathers the tables)."""
         sequences = (sequences if isinstance(sequences, list)
                      else [sequences])
         manager = self.tf_manager
-        params = (manager.whole_params() if getattr(manager, "fsdp", False)
-                  else manager.params)
+        split = (getattr(manager, "fsdp", False)
+                 or getattr(manager, "mesh", None) is not None
+                 and manager.mesh.size("model") > 1)
+        params = manager.whole_params() if split else manager.params
         if not distributed.is_main_process():
             return
         for seq in sequences:

@@ -159,6 +159,16 @@ class ModelPart:
         del gen
         return {}
 
+    def param_partition_specs(self) -> Dict[str, tuple]:
+        """Declarative model-axis sharding: '/'-joined paths (relative to
+        this part's parameter subtree) mapped to per-dimension axis
+        tuples, e.g. ``{"embeddings": ("model", None)}``. The manager
+        splits those dims over its model axis; a declared dim the axis
+        does not divide stays whole with a warning, and a declared path
+        absent from the tree is skipped (tied embeddings). Default:
+        none."""
+        return {}
+
     def featurize(self, dataset, train: bool = False
                   ) -> Dict[str, np.ndarray]:
         """Build input arrays for a dataset batch. Default: none."""

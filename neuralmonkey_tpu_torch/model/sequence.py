@@ -9,9 +9,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ops.nn import depth_scale
+from ..parallel import tensor as tp
 from ..vocabulary import Vocabulary
 from .part import Context, ModelPart, tensor
 from .stateful import TemporalStateful
@@ -77,6 +77,10 @@ class EmbeddedSequence(ModelPart, TemporalStateful):
             table = torch.randn(shape, generator=gen) * 0.01
         return {"embeddings": table}
 
+    def param_partition_specs(self) -> Dict[str, tuple]:
+        # the vocabulary's rows split over the model axis
+        return {"embeddings": ("model", None)}
+
     def featurize(self, dataset, train: bool = False
                   ) -> Dict[str, np.ndarray]:
         if self.table_only or not dataset.has_series(self.data_id):
@@ -98,7 +102,7 @@ class EmbeddedSequence(ModelPart, TemporalStateful):
     def embed(self, ctx: Context, ids: torch.Tensor) -> torch.Tensor:
         """Embed any id tensor with this sequence's table (decoders
         feeding back their own predictions)."""
-        embedded = F.embedding(ids, ctx.get_params(self)["embeddings"])
+        embedded = tp.embedding(ids, ctx.get_params(self)["embeddings"])
         if self.scale_embeddings_by_depth:
             embedded = embedded * depth_scale(self.embedding_size,
                                               embedded)
@@ -153,6 +157,10 @@ class EmbeddedFactorSequence(ModelPart, TemporalStateful):
                 for i, (vocab, size) in enumerate(
                     zip(self.vocabularies, self.embedding_sizes))}
 
+    def param_partition_specs(self) -> Dict[str, tuple]:
+        return {f"embeddings_{i}": ("model", None)
+                for i in range(len(self.vocabularies))}
+
     def featurize(self, dataset, train: bool = False
                   ) -> Dict[str, np.ndarray]:
         """Each factor's ids; the mask of the longest factor."""
@@ -179,6 +187,6 @@ class EmbeddedFactorSequence(ModelPart, TemporalStateful):
         params = ctx.get_params(self)
         time = ctx.batch[self.mask_key].shape[1]
         return torch.cat(
-            [F.embedding(ctx.batch[self._ids_key(i)][:, :time],
-                         params[f"embeddings_{i}"])
+            [tp.embedding(ctx.batch[self._ids_key(i)][:, :time],
+                          params[f"embeddings_{i}"])
              for i in range(len(self.data_ids))], dim=-1)

@@ -19,15 +19,16 @@ wait on the device every step.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...model.part import Context, ModelPart, tensor
 from ...model.sequence import EmbeddedSequence
-from ...ops import fused_xent, kernel_config
+from ...ops import fused_xent, kernel_config, sharding
 from ...ops.beam_select import fused_logits_rowmax_lse
+from ...parallel import tensor as tp
 from ...parallel.distributed import global_sum
 from ...vocabulary import (END_TOKEN_INDEX, PAD_TOKEN_INDEX,
                            START_TOKEN_INDEX, UNK_TOKEN_INDEX, Vocabulary)
@@ -123,17 +124,67 @@ class AutoregressiveDecoder(ModelPart):
     def train_mask(self, ctx: Context):
         return ctx.batch[self.target_mask_key]
 
-    def train_logits(self, ctx: Context):
-        """(B, T, V) teacher-forced logits."""
+    def param_partition_specs(self) -> Dict[str, tuple]:
+        # the vocabulary-sized output projection splits its columns over
+        # the model axis (a tied table's own declaration covers it)
+        return {"logit/w": (None, "model"),
+                "logit/b": ("model",),
+                "logit_bias": ("model",)}
+
+    def train_split_logits(self, ctx: Context):
+        """(B, T, V) teacher-forced logits, this rank's part of them: of
+        the vocabulary where the output projection is split
+        (``vocab_split``), of the time axis where ``train_time_axis``
+        says so."""
         raise NotImplementedError
+
+    def train_time_axis(self, ctx: Context) -> Optional[str]:
+        """The axis the teacher-forced pass splits its time axis over
+        (context parallelism), or None."""
+        del ctx
+        return None
+
+    def vocab_split(self, params: Dict[str, Any],
+                    table: torch.Tensor) -> bool:
+        """Whether the logits' vocabulary is split over the model axis:
+        the output projection's columns (or the tied table's rows)
+        are."""
+        if self.tie_embeddings:
+            return tp.split_dim(table) == 0
+        return tp.split_dim(params["logit"]["w"]) == 1
+
+    def _vocab_split_ctx(self, ctx: Context) -> bool:
+        return self.vocab_split(
+            ctx.get_params(self),
+            ctx.get_params(self.embeddings)["embeddings"])
+
+    @tensor
+    def train_logits(self, ctx: Context):
+        """(B, T, V) teacher-forced logits, whole."""
+        logits = self.train_split_logits(ctx)
+        if self._vocab_split_ctx(ctx):
+            logits = tp.gather_from(logits, -1)
+        return sharding.gather_sequence(logits, self.train_time_axis(ctx))
+
+    def _train_slice(self, ctx: Context, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a (B, T) target tensor."""
+        axis = self.train_time_axis(ctx)
+        if axis is None:
+            return x
+        return x[:, sharding.time_slice(x.shape[1], axis)]
 
     # ------------------------------------------------------------------ #
     # losses
     # ------------------------------------------------------------------ #
     def _xent(self, logits: torch.Tensor, targets: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
+              mask: torch.Tensor, vocab_split: bool = False
+              ) -> torch.Tensor:
         """Per-token masked cross-entropy (B, T), label-smoothed when
-        the decoder says so."""
+        the decoder says so; of logits whose vocabulary is split over
+        the model axis when ``vocab_split``."""
+        if vocab_split:
+            return tp.vocab_parallel_nll(
+                logits, targets, self.label_smoothing or 0.0) * mask
         log_probs = torch.log_softmax(logits, dim=-1)
         target_ll = log_probs.gather(
             -1, targets.long()[..., None])[..., 0]
@@ -159,31 +210,42 @@ class AutoregressiveDecoder(ModelPart):
         bsz, time, dim = states.shape
         nll = fused_xent.fused_softmax_xent(
             states.reshape(bsz * time, dim), w, b,
-            self.train_targets(ctx).reshape(bsz * time),
+            self._train_slice(ctx, self.train_targets(ctx)).reshape(
+                bsz * time),
             eps=self.label_smoothing or 0.0, transposed=transposed)
         return nll.reshape(bsz, time)
 
     @tensor
     def train_token_nll(self, ctx: Context):
-        """(B, T) masked per-token cross-entropy, fused when eligible."""
-        mask = self.train_mask(ctx)
+        """(B, T) masked per-token cross-entropy, fused when eligible;
+        this rank's slice of the time axis where it is split."""
+        mask = self._train_slice(ctx, self.train_mask(ctx))
         fused = self._fused_token_nll(ctx)
         if fused is not None:
             return fused * mask
-        return self._xent(self.train_logits(ctx), self.train_targets(ctx),
-                          mask)
+        return self._xent(self.train_split_logits(ctx),
+                          self._train_slice(ctx, self.train_targets(ctx)),
+                          mask, self._vocab_split_ctx(ctx))
+
+    def _time_sum(self, ctx: Context, x: torch.Tensor) -> torch.Tensor:
+        """A sum over this rank's slice of the time axis, summed over the
+        slices."""
+        axis = self.train_time_axis(ctx)
+        return tp.reduce_from(x, axis) if axis else x
 
     @tensor
     def train_xents(self, ctx: Context):
         """Per-sentence summed cross-entropy (B,)."""
-        return self.train_token_nll(ctx).sum(dim=1)
+        return self._time_sum(ctx, self.train_token_nll(ctx).sum(dim=1))
 
     @tensor
     def train_loss(self, ctx: Context):
         """Mean per-token cross-entropy over the global batch: the
         training objective."""
-        return (global_sum(self.train_token_nll(ctx).sum())
-                / global_sum(self.train_mask(ctx).sum()).clamp_min(1.0))
+        mask = self._train_slice(ctx, self.train_mask(ctx))
+        return (global_sum(self._time_sum(
+            ctx, self.train_token_nll(ctx).sum()))
+            / global_sum(self._time_sum(ctx, mask.sum())).clamp_min(1.0))
 
     # the reference's name for the decoder's objective value
     def cost(self, ctx: Context):
@@ -270,6 +332,7 @@ class AutoregressiveDecoder(ModelPart):
         if not kernel_config.use_fused_logits():
             return constants
         params = constants["params"]
+        split = self.vocab_split(params, constants["embed_table"])
         if self.tie_embeddings:
             w = constants["embed_table"].T
             b = params["logit_bias"]
@@ -278,6 +341,11 @@ class AutoregressiveDecoder(ModelPart):
             b = params["logit"].get("b")
             if b is None:
                 b = w.new_zeros(w.shape[1])
+        if split:
+            # the vocabulary's parts gathered whole: K3's shape gate
+            # then takes its plain path (the model axis is on)
+            w = tp.all_gather(w, 1, "model")
+            b = tp.all_gather(b, 0, "model")
         pad = (-w.shape[1]) % FUSED_LOGIT_ALIGN
         w = torch.nn.functional.pad(w.float(), (0, pad)).contiguous()
         b = torch.cat([b.float(), b.new_full((pad,), -1e9)])
@@ -293,10 +361,12 @@ class AutoregressiveDecoder(ModelPart):
         the pad at bias -1e9, so the decode steps emit lane-aligned
         logits and the hierarchical selector has no pad pass to make.
         The pad columns are never selected (and the search clamps the
-        emitted ids). Unchanged when the vocabulary is aligned."""
+        emitted ids). Unchanged when the vocabulary is aligned, or split
+        over the model axis (its logits are gathered whole, unpadded)."""
         vocab = len(self.vocabulary)
         pad = (-vocab) % lane
-        if pad == 0:
+        if pad == 0 or self.vocab_split(constants["params"],
+                                        constants["embed_table"]):
             return constants
         constants = dict(constants)
         params = dict(constants["params"])
@@ -328,7 +398,11 @@ class AutoregressiveDecoder(ModelPart):
         decoder's plain projection and no aux."""
         fused = constants.get("fused_logit")
         if fused is None:
-            return plain(), {}
+            logits = plain()
+            if self.vocab_split(constants["params"],
+                                constants["embed_table"]):
+                logits = tp.gather_from(logits, -1)
+            return logits, {}
         w, b = fused
         logits, rowmax, lse = fused_logits_rowmax_lse(
             prelogit.float().contiguous(), w, b)

@@ -17,11 +17,11 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ...model.part import Context, ModelPart, fold_seed, tensor
 from ...model.stateful import Stateful
 from ...ops import nn
+from ...parallel import tensor as tp
 from .autoregressive import AutoregressiveDecoder
 
 _OUTPUT_PROJECTIONS = ("maxout", "mlp", "nonlinear", "linear")
@@ -234,7 +234,11 @@ class Decoder(AutoregressiveDecoder):
         return prelogit_in
 
     def _logits(self, constants, prelogit):
+        """Logits of ``prelogit``: this rank's part of the vocabulary
+        where the projection is split (``vocab_split``)."""
         params = constants["params"]
+        if self.vocab_split(params, constants["embed_table"]):
+            prelogit = tp.copy_to(prelogit)
         if self.tie_embeddings:
             return nn.dot(prelogit, constants["embed_table"].T) \
                 + params["logit_bias"]
@@ -314,7 +318,7 @@ class Decoder(AutoregressiveDecoder):
         return logit["w"], b, False
 
     @tensor
-    def train_logits(self, ctx: Context):
+    def train_split_logits(self, ctx: Context):
         prelogits, _ = self.train_outputs(ctx)
         return self._logits(self._make_constants(ctx), prelogits)
 
@@ -327,7 +331,7 @@ class Decoder(AutoregressiveDecoder):
 
     def _finish_step(self, constants, loop_state, prev_ids, beam=None):
         state, att_states = self._split_state(loop_state, constants)
-        embedded_prev = F.embedding(prev_ids, constants["embed_table"])
+        embedded_prev = tp.embedding(prev_ids, constants["embed_table"])
         new_state, prelogit_in, weights, att_states = self._cell_step(
             constants, state, att_states, embedded_prev, beam=beam)
         prelogit = self._prelogit(constants["params"], prelogit_in)

@@ -1,7 +1,9 @@
 """Per-token sequence labeler (counterpart of
 ``neuralmonkey_tpu/models/decoders/sequence_labeler.py``, reference
 nm/decoders/sequence_labeler.py): a projection over a TemporalStateful
-encoder, one tag per input token."""
+encoder, one tag per input token. Under tensor parallelism the
+projection's label columns split over the model axis: the loss is the
+vocabulary-parallel cross-entropy, the logits are gathered whole."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from ...model.part import Context, ModelPart, tensor
 from ...model.stateful import TemporalStateful
 from ...ops import nn
+from ...parallel import tensor as tp
 from ...parallel.distributed import global_sum
 from ...vocabulary import Vocabulary
 
@@ -62,9 +65,19 @@ class SequenceLabeler(ModelPart):
             dataset.get_series(self.data_id), train_mode=train)
         return {self.labels_key: ids, self.mask_key: mask}
 
+    def param_partition_specs(self) -> Dict[str, tuple]:
+        # the label vocabulary's projection splits its columns over the
+        # model axis
+        return {"logit/w": (None, "model"), "logit/b": ("model",)}
+
     # ------------------------------------------------------------------ #
+    def _vocab_split(self, ctx: Context) -> bool:
+        return tp.split_dim(ctx.get_params(self)["logit"]["w"]) == 1
+
     @tensor
-    def logits(self, ctx: Context):
+    def split_logits(self, ctx: Context):
+        """The logits, this rank's part of the labels where the
+        projection is split over the model axis."""
         params = ctx.get_params(self)
         states = self.encoder.temporal_states(ctx)
         states = ctx.dropout(self, states, self.dropout_keep_prob,
@@ -73,19 +86,29 @@ class SequenceLabeler(ModelPart):
             # ReLU by default, as the JAX package's jax.nn.relu
             activation = self.activation or torch.relu
             states = activation(nn.linear(params["hidden"], states))
+        if self._vocab_split(ctx):
+            states = tp.copy_to(states)
         return nn.linear(params["logit"], states)
+
+    @tensor
+    def logits(self, ctx: Context):
+        logits = self.split_logits(ctx)
+        return tp.gather_from(logits, -1) if self._vocab_split(ctx) else logits
 
     @tensor
     def train_loss(self, ctx: Context):
         """Mean per-token cross-entropy over the labels' mask; the
         logits' bucket-padded time axis is cut to the labels'."""
-        logits = self.logits(ctx)
+        logits = self.split_logits(ctx)
         labels = ctx.batch[self.labels_key]
         mask = ctx.batch[self.mask_key]
         time = min(logits.shape[1], labels.shape[1])
-        log_probs = torch.log_softmax(logits[:, :time], dim=-1)
-        nll = -log_probs.gather(
-            -1, labels[:, :time].long()[..., None])[..., 0]
+        if self._vocab_split(ctx):
+            nll = tp.vocab_parallel_nll(logits[:, :time], labels[:, :time])
+        else:
+            log_probs = torch.log_softmax(logits[:, :time], dim=-1)
+            nll = -log_probs.gather(
+                -1, labels[:, :time].long()[..., None])[..., 0]
         nll = nll * mask[:, :time]
         return (global_sum(nll.sum())
                 / global_sum(mask[:, :time].sum()).clamp_min(1.0))

@@ -36,7 +36,20 @@ request (``with_attention_maps``: the greedy runner's and the beam
 runner's ``visualize_attention``), and a step without it runs the same
 operations as it would without the map.
 
-Not ported yet: pipeline stages (ROADMAP queue A15, part 2), which
+Under tensor parallelism (``param_partition_specs``) every layer's
+attention and FFN weights hold this rank's heads and hidden columns and
+the output projection its part of the vocabulary: teacher forcing and
+every decode step run on the local heads (the KV caches, in both
+lineage forms, hold this rank's heads) and a step's logits are gathered
+whole. Under sequence sharding the teacher-forced residual stream
+splits its time axis over the model axis between the blocks; under
+context parallelism over the context axis, the self-attention through
+the causal zigzag ring and the cross-attention through the contiguous
+ring where the encoder's stream is split too, and the loss is summed
+over the slices. Decode steps (one query) are never split: they run on
+the whole time axis, as at one device.
+
+Not ported yet: pipeline stages (ROADMAP queue A15, part 3), which
 raise.
 """
 
@@ -47,20 +60,22 @@ import os
 from typing import Any, Dict, List, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ...model.part import Context, ModelPart, tensor
-from ...ops import nn
+from ...ops import nn, sharding
 from ...ops.attention import (NEG_INF, attend, attention_bias_from_mask,
-                              attention_weights, dot_product_attention, ffn,
-                              layer_norm, layer_norm_init, merge_heads,
-                              mha_init, multi_head_attention,
-                              seeded_dropout, sinusoidal_position_encoding,
-                              split_heads)
+                              attention_weights, column_projection,
+                              dot_product_attention, ffn, layer_norm,
+                              layer_norm_init, merge_heads, mha_init,
+                              mha_partition_specs, multi_head_attention,
+                              row_projection, seeded_dropout,
+                              sinusoidal_position_encoding, split_heads)
+from ...parallel import tensor as tp
 from ...ops.lineage_attention import (lane_window, lineage_attention,
                                       lineage_bias)
 from ...ops.policy import compute_dtype
-from ..encoders.transformer import MoESettings, refuse_unported, run_layer
+from ..encoders.transformer import (MoESettings, layer_params_on_slice,
+                                    refuse_unported, run_layer)
 from .autoregressive import AutoregressiveDecoder
 
 
@@ -167,7 +182,23 @@ class TransformerDecoder(AutoregressiveDecoder):
                                              len(self.vocabulary))
         return params
 
+    def param_partition_specs(self) -> Dict[str, tuple]:
+        """The base class's vocabulary specs, and each layer's self- and
+        cross-attention and FFN split Megatron-style over the model
+        axis (``ops/attention.mha_partition_specs``)."""
+        specs = dict(super().param_partition_specs())
+        for i in range(self.depth):
+            specs.update(mha_partition_specs(f"layer_{i}/self_att"))
+            for e in range(len(self.encoders)):
+                specs.update(mha_partition_specs(f"layer_{i}/cross_att_{e}"))
+            specs.update(self.moe.partition_specs(f"layer_{i}/ff"))
+        return specs
+
     def _logits_from_states(self, params, embed_table, states):
+        """Logits of ``states``: this rank's part of the vocabulary where
+        the projection is split."""
+        if self.vocab_split(params, embed_table):
+            states = tp.copy_to(states)
         if self.tie_embeddings:
             return nn.dot(states, embed_table.T) + params["logit_bias"]
         return nn.linear(params["logit"], states)
@@ -176,30 +207,41 @@ class TransformerDecoder(AutoregressiveDecoder):
     # teacher-forced training
     # ------------------------------------------------------------------ #
     def _train_layer_fn(self, layer, x, all_keys_mask, enc_data, seeds,
-                        moe_mask=None):
+                        moe_mask=None, stream=None):
         """One decoder layer (self-attention, cross-attentions, FFN);
-        ``seeds`` holds the dropout and router noise seeds of its sites.
-        With MoE FFNs it also returns the layer's auxiliary losses."""
+        ``seeds`` holds the dropout and router noise seeds of its sites,
+        ``enc_data`` each encoder's (states, mask, whether they are this
+        rank's ring slice), ``stream`` the axis the residual stream is
+        split over. With MoE FFNs it also returns the layer's auxiliary
+        losses."""
         keep = self.dropout_keep_prob
+        layer = layer_params_on_slice(layer, stream, self.moe.on)
         normed = layer_norm(layer["ln_self"], x)
         att = multi_head_attention(
             layer["self_att"], normed, normed, normed, self.n_heads_self,
             dropout_seed=seeds["self_att"],
             dropout_keep_prob=self.attention_dropout_keep_prob,
-            key_mask=all_keys_mask, causal=True)
-        x = x + seeded_dropout(att, keep, seeds["res_self"])
-        for e, (enc_states, enc_mask) in enumerate(enc_data):
+            key_mask=all_keys_mask, causal=True, stream=stream,
+            ring=stream == "context")
+        x = x + seeded_dropout(att, keep,
+                               sharding.shard_seed(seeds["res_self"],
+                                                   (stream,)))
+        for e, (enc_states, enc_mask, enc_ring) in enumerate(enc_data):
             normed = layer_norm(layer[f"ln_cross_{e}"], x)
             cross = multi_head_attention(
                 layer[f"cross_att_{e}"], normed, enc_states, enc_states,
-                self.n_heads_enc, key_mask=enc_mask)
-            x = x + seeded_dropout(cross, keep, seeds["res_cross"][e])
+                self.n_heads_enc, key_mask=enc_mask, stream=stream,
+                ring=enc_ring)
+            x = x + seeded_dropout(cross, keep, sharding.shard_seed(
+                seeds["res_cross"][e], (stream,)))
         normed = layer_norm(layer["ln_ff"], x)
+        res_ff = sharding.shard_seed(seeds["res_ff"], (stream,))
         if self.moe.on:
-            ff_out, aux = self.moe(layer["ff"], normed, moe_mask, seeds)
-            return x + seeded_dropout(ff_out, keep, seeds["res_ff"]), aux
-        return x + seeded_dropout(ffn(layer["ff"], normed), keep,
-                                  seeds["res_ff"])
+            ff_out, aux = self.moe(layer["ff"], normed, moe_mask, seeds,
+                                   stream=stream)
+            return x + seeded_dropout(ff_out, keep, res_ff), aux
+        return x + seeded_dropout(ffn(layer["ff"], normed, stream=stream),
+                                  keep, res_ff)
 
     def _train_layer_seeds(self, ctx: Context, i: int, n_enc: int):
         """Per-layer dropout seeds at the JAX package's sites
@@ -217,21 +259,47 @@ class TransformerDecoder(AutoregressiveDecoder):
                 "moe_noise": seed(f"moe_noise_{i}",
                                   self.moe.noisy(ctx.train))}
 
+    def train_time_axis(self, ctx: Context) -> Optional[str]:
+        """``context`` where the teacher-forced stream splits its time
+        axis over the context axis (its logits and loss are then this
+        rank's slice's)."""
+        axis = sharding.stream_axis(self.train_inputs(ctx).shape[1])
+        return axis if axis == "context" else None
+
+    def _encoder_data(self, ctx: Context, stream: Optional[str]):
+        """Each encoder's (states, float32 mask, ring): under context
+        parallelism, where its stream is split too, this rank's slice
+        for the ring; else the whole states."""
+        data = []
+        for enc in self.encoders:
+            split = getattr(enc, "split_temporal_states", None)
+            if stream == "context" and split is not None:
+                states, mask, axis = split(ctx)
+                if axis == "context":
+                    data.append((states, mask, True))
+                    continue
+            data.append((enc.temporal_states(ctx),
+                         enc.temporal_mask(ctx).to(torch.float32), False))
+        return data
+
     @tensor
     def train_prelogit_states(self, ctx: Context):
         """(B, T, D) teacher-forced states after the output layer norm:
         everything in :meth:`train_logits` but the vocabulary
-        projection (the fused cross-entropy's input)."""
+        projection (the fused cross-entropy's input); this rank's slice
+        of the time axis under context parallelism."""
         params = ctx.get_params(self)
         x = self.embeddings.embed(ctx, self.train_inputs(ctx))
         batch, time = x.shape[:2]
         x = x + sinusoidal_position_encoding(
             time, self.model_dim, x.dtype, x.device)[None]
         x = ctx.dropout(self, x, self.dropout_keep_prob, "input_dropout")
-        all_keys_mask = x.new_ones(batch, time, dtype=nn.widened(x.dtype))
-        enc_data = [(enc.temporal_states(ctx),
-                     enc.temporal_mask(ctx).to(torch.float32))
-                    for enc in self.encoders]
+        stream = sharding.stream_axis(time)
+        x = sharding.constrain_sequence(x, stream)
+        all_keys_mask = x.new_ones(
+            batch, x.shape[1] if stream == "context" else time,
+            dtype=nn.widened(x.dtype))
+        enc_data = self._encoder_data(ctx, stream)
         # padding tokens take no expert capacity and stay out of the
         # auxiliary losses
         moe_mask = self.train_mask(ctx) if self.moe.on else None
@@ -240,18 +308,29 @@ class TransformerDecoder(AutoregressiveDecoder):
             x = run_layer(self._train_layer_fn, self.remat and ctx.train,
                           params[f"layer_{i}"], x, all_keys_mask, enc_data,
                           self._train_layer_seeds(ctx, i, len(enc_data)),
-                          moe_mask)
+                          moe_mask, stream)
             if self.moe.on:
                 x, aux = x
                 auxes.append(aux)
         self.moe.add_losses(self, ctx, auxes)
-        return layer_norm(params["ln_out"], x)
+        if stream == "model":
+            x, stream = sharding.gather_sequence(x, stream), None
+        return layer_norm(sharding.slice_params(params["ln_out"], stream),
+                          x)
 
     @tensor
-    def train_logits(self, ctx: Context):
+    def train_split_logits(self, ctx: Context):
         table = ctx.get_params(self.embeddings)["embeddings"]
-        return self._logits_from_states(
-            ctx.get_params(self), table, self.train_prelogit_states(ctx))
+        params = ctx.get_params(self)
+        axis = self.train_time_axis(ctx)
+        if axis:
+            params = dict(params)
+            for key in ("logit", "logit_bias"):
+                if key in params:
+                    params[key] = sharding.slice_params(params[key], axis)
+            table = sharding.slice_params(table, axis)
+        return self._logits_from_states(params, table,
+                                        self.train_prelogit_states(ctx))
 
     def train_logit_projection(self, ctx: Context):
         """(w, b, transposed) of the output projection in its own
@@ -291,9 +370,13 @@ class TransformerDecoder(AutoregressiveDecoder):
             per_layer = []
             for i in range(self.depth):
                 att_p = params[f"layer_{i}"][f"cross_att_{e}"]
+                heads = tp.local_heads(att_p["k"]["w"], self.n_heads_enc)
+                enc_in = sharding.enter_block(
+                    states, tp.is_split(att_p["k"]["w"]), None)
                 per_layer.append(tuple(
-                    split_heads(nn.linear(att_p[p], states).to(
-                        cache_dtype(table)), self.n_heads_enc).contiguous()
+                    split_heads(column_projection(
+                        att_p[p], enc_in, self.n_heads_enc).to(
+                            cache_dtype(table)), heads).contiguous()
                     for p in ("k", "v")))
             constants["enc_kv"].append(per_layer)
             constants["enc_bias"].append(
@@ -312,14 +395,24 @@ class TransformerDecoder(AutoregressiveDecoder):
         every beam: one copy per sentence, shared by the K beams."""
         return dict(constants)
 
+    def _self_heads(self, params) -> int:
+        """The self-attention heads this rank holds (all of them unless
+        its weights are split and the heads divide the model axis)."""
+        return tp.local_heads(params["layer_0"]["self_att"]["k"]["w"],
+                              self.n_heads_self) if self.depth else \
+            self.n_heads_self
+
     def decode_initial_state(self, ctx: Context, constants):
         """Per layer, zero (B, max_output_len, D) key and value caches in
-        the policy's dtype (``cache_dtype``)."""
+        the policy's dtype (``cache_dtype``); D is this rank's heads'
+        width under tensor parallelism."""
         batch = self._batch_size(ctx)
         table = constants["embed_table"]
+        width = (self.model_dim // self.n_heads_self
+                 * self._self_heads(ctx.get_params(self)))
         return tuple(
-            {name: table.new_zeros(batch, self.max_output_len,
-                                   self.model_dim, dtype=cache_dtype(table))
+            {name: table.new_zeros(batch, self.max_output_len, width,
+                                   dtype=cache_dtype(table))
              for name in ("k", "v")}
             for _ in range(self.depth))
 
@@ -331,11 +424,12 @@ class TransformerDecoder(AutoregressiveDecoder):
         the state's dtype, or bf16 under ``NM_LINEAGE_KERNEL_BF16=1``."""
         batch = state[0]["k"].shape[0]
         zeros = state[0]["k"].new_zeros
-        heads = self.n_heads_self
-        head_dim = self.model_dim // heads
+        head_dim = self.model_dim // self.n_heads_self
+        # this rank's heads (the caches' width says how many)
+        heads = state[0]["k"].shape[-1] // head_dim
         if not lineage_kernel_layout():
             return tuple({name: zeros(batch * beam, self.max_output_len,
-                                      self.model_dim)
+                                      heads * head_dim)
                           for name in ("k", "v")}
                          for _ in range(self.depth))
         lanes = beam * self.max_output_len
@@ -350,7 +444,7 @@ class TransformerDecoder(AutoregressiveDecoder):
 
     def _embed_step(self, constants, prev_ids, step: int):
         """(rows, 1, D) embedded previous tokens at position ``step``."""
-        x = F.embedding(prev_ids.long(), constants["embed_table"])
+        x = tp.embedding(prev_ids.long(), constants["embed_table"])
         x = (x * nn.depth_scale(self.model_dim, x)
              + constants["positions"][step])
         return x[:, None, :]
@@ -370,25 +464,32 @@ class TransformerDecoder(AutoregressiveDecoder):
         layer's first cross-attention averaged over the heads, (rows,
         T_src) in float32, from the weights the context is computed
         with."""
-        heads = self.n_heads_enc
         rows = x.shape[0]
         att_map = None
         for e in range(len(self.encoders)):
             att_p = layer[f"cross_att_{e}"]
-            q = nn.linear(att_p["q"], layer_norm(layer[f"ln_cross_{e}"], x))
+            heads = tp.local_heads(att_p["q"]["w"], self.n_heads_enc)
+            q = column_projection(att_p["q"], sharding.enter_block(
+                layer_norm(layer[f"ln_cross_{e}"], x),
+                tp.is_split(att_p["q"]["w"]), None), self.n_heads_enc)
             q = q.reshape(rows // beam, beam, heads, -1).transpose(1, 2)
             k_enc, v_enc = constants["enc_kv"][e][i]
             if (e == 0 and i == self.depth - 1
                     and constants.get("attention_maps")):
                 weights = attention_weights(q, k_enc,
                                             constants["enc_bias"][e])
-                att_map = weights.mean(dim=1).reshape(rows, -1).float()
+                # the mean over every head, this rank's summed with the
+                # others'
+                att_map = (tp.reduce_from(weights.sum(dim=1))
+                           / self.n_heads_enc if heads < self.n_heads_enc
+                           else weights.mean(dim=1))
+                att_map = att_map.reshape(rows, -1).float()
                 cross = attend(weights, v_enc)
             else:
                 cross = dot_product_attention(q, k_enc, v_enc,
                                               constants["enc_bias"][e])
-            x = x + nn.linear(att_p["o"],
-                              merge_heads(cross).reshape(rows, 1, -1))
+            x = x + row_projection(att_p["o"],
+                                   merge_heads(cross).reshape(rows, 1, -1))
         normed = layer_norm(layer["ln_ff"], x)
         if self.moe.on:
             row_valid = constants["row_valid"].repeat_interleave(beam)
@@ -413,16 +514,20 @@ class TransformerDecoder(AutoregressiveDecoder):
         for i, cache in enumerate(loop_state):
             layer = params[f"layer_{i}"]
             att_p = layer["self_att"]
-            normed = layer_norm(layer["ln_self"], x)
-            q, k_t, v_t = (nn.linear(att_p[p], normed) for p in "qkv")
+            normed = sharding.enter_block(
+                layer_norm(layer["ln_self"], x),
+                tp.is_split(att_p["q"]["w"]), None)
+            q, k_t, v_t = (column_projection(att_p[p], normed,
+                                             self.n_heads_self)
+                           for p in "qkv")
             cache["k"][:, step] = k_t[:, 0]
             cache["v"][:, step] = v_t[:, 0]
-            heads = self.n_heads_self
+            heads = tp.local_heads(att_p["q"]["w"], self.n_heads_self)
             att = dot_product_attention(
                 split_heads(q, heads),
                 split_heads(cache["k"][:, :step + 1], heads),
                 split_heads(cache["v"][:, :step + 1], heads))
-            x = x + nn.linear(att_p["o"], merge_heads(att))
+            x = x + row_projection(att_p["o"], merge_heads(att))
             x, att_map = self._cross_ffn(layer, x, constants, i)
         logits, sel_aux = self._finish(constants, x, att_map)
         return loop_state, logits, sel_aux
@@ -447,8 +552,8 @@ class TransformerDecoder(AutoregressiveDecoder):
         batch = rows // beam
         length = self.max_output_len
         win = length if window is None else min(window, length)
-        heads = self.n_heads_self
-        head_dim = self.model_dim // heads
+        heads = self._self_heads(params)
+        head_dim = self.model_dim // self.n_heads_self
         kernel_layout = "kq" in loop_state[0]
         if kernel_layout:
             lanes = lane_window(win, beam, beam * length)
@@ -466,10 +571,13 @@ class TransformerDecoder(AutoregressiveDecoder):
         for i, cache in enumerate(loop_state):
             layer = params[f"layer_{i}"]
             att_p = layer["self_att"]
-            normed = layer_norm(layer["ln_self"], x)
+            normed = sharding.enter_block(
+                layer_norm(layer["ln_self"], x),
+                tp.is_split(att_p["q"]["w"]), None)
             q, k_t, v_t = (
-                nn.linear(att_p[p], normed).reshape(batch, beam, heads,
-                                                    head_dim)
+                column_projection(att_p[p], normed,
+                                  self.n_heads_self).reshape(
+                                      batch, beam, heads, head_dim)
                 for p in "qkv")
             if kernel_layout:
                 # each step writes K contiguous lanes t·K + j
@@ -501,7 +609,7 @@ class TransformerDecoder(AutoregressiveDecoder):
                 att = torch.einsum("bhkjt,bjthd->bkhd",
                                    w_slot.to(vh.dtype).to(wide),
                                    vh.to(wide))
-            x = x + nn.linear(att_p["o"], att.reshape(rows, 1, -1))
+            x = x + row_projection(att_p["o"], att.reshape(rows, 1, -1))
             x, att_map = self._cross_ffn(layer, x, constants, i, beam)
         logits, sel_aux = self._finish(constants, x, att_map)
         return loop_state, logits, sel_aux

@@ -13,9 +13,19 @@ With ``moe_experts > 1`` every FFN is a mixture of experts
 (``ops/moe.py``); in training the layers' load-balance and router
 z-losses, each averaged over the layers, join the objective as
 auxiliary losses; on a batch split over data-parallel ranks their
-routing sums are the global batch's (``ops/moe.py``). Pipeline stages
-are not ported yet (ROADMAP queue A15, part 2: the model axes): setting
-them raises.
+routing sums are the global batch's (``ops/moe.py``).
+
+The model axes (``param_partition_specs``): the attention and FFN
+weights split Megatron-style over the model axis, the embedding table
+its vocabulary. Under sequence sharding the residual stream's time axis
+is split over the model axis between the blocks, under context
+parallelism over the context axis, where the self-attention rides the
+ring (``ops/sharding.py``); each layer's parameters then sum their
+gradients over the slices. The positions are added to the whole stream
+before it splits, so each slice carries its global offsets (the ring's
+zigzag exchanges and returns its chunks inside the attention). Pipeline
+stages are not ported yet (ROADMAP queue A15, part 3): setting them
+raises.
 """
 
 from __future__ import annotations
@@ -28,10 +38,12 @@ from torch.utils.checkpoint import checkpoint
 from ...model.part import Context, ModelPart, tensor
 from ...model.sequence import EmbeddedSequence
 from ...model.stateful import TemporalStatefulWithOutput
-from ...ops.attention import (ffn, ffn_init, layer_norm, layer_norm_init,
-                              mha_init, multi_head_attention,
-                              seeded_dropout, sinusoidal_position_encoding)
-from ...ops.moe import moe_ffn, moe_init
+from ...ops import sharding
+from ...ops.attention import (ffn, ffn_init, ffn_partition_specs, layer_norm,
+                              layer_norm_init, mha_init, mha_partition_specs,
+                              multi_head_attention, seeded_dropout,
+                              sinusoidal_position_encoding)
+from ...ops.moe import moe_ffn, moe_init, moe_partition_specs
 from ...parallel.distributed import sharded_batch
 from ...vocabulary import Vocabulary
 
@@ -44,7 +56,25 @@ def refuse_unported(name: str, pipeline_stages: int) -> None:
         raise NotImplementedError(
             f"{name}: pipeline stages (pipeline_stages > 1) are not "
             "ported to neuralmonkey_tpu_torch yet (ROADMAP queue A15, "
-            "part 2)")
+            "part 3)")
+
+
+def layer_params_on_slice(layer: Dict[str, Any], stream: Optional[str],
+                          moe: bool = False) -> Dict[str, Any]:
+    """A layer's parameters as a rank uses them on its slice of a split
+    stream, their gradients summed over the slices: under context
+    parallelism all of them (but a MoE FFN's, which runs on the whole
+    stream), under sequence sharding the layer norms (the output
+    biases in ``ops/attention.row_projection``)."""
+    if stream == "context":
+        return {name: (value if moe and name == "ff" else
+                       sharding.slice_params(value, stream))
+                for name, value in layer.items()}
+    if stream == "model":
+        return {name: (sharding.slice_params(value, stream)
+                       if name.startswith("ln_") else value)
+                for name, value in layer.items()}
+    return layer
 
 
 def run_layer(layer_fn, remat: bool, *args):
@@ -83,16 +113,26 @@ class MoESettings:
             return moe_init(gen, model_dim, hidden_dim, self.experts)
         return ffn_init(gen, model_dim, hidden_dim)
 
+    def partition_specs(self, prefix: str) -> Dict[str, tuple]:
+        if self.on:
+            return moe_partition_specs(prefix)
+        return ffn_partition_specs(prefix)
+
     def __call__(self, params: Dict[str, Any], x: torch.Tensor,
                  mask: Optional[torch.Tensor], seeds: Dict[str, Any],
-                 dropout_keep_prob: float = 1.0):
-        """A training layer's mixture-of-experts FFN: (output, losses)."""
-        return moe_ffn(params, x, mask=mask, top_k=self.top_k,
-                       capacity_factor=self.capacity_factor,
-                       dropout_seed=seeds.get("ff"),
-                       dropout_keep_prob=dropout_keep_prob,
-                       router_noise=self.router_noise,
-                       noise_seed=seeds["moe_noise"])
+                 dropout_keep_prob: float = 1.0,
+                 stream: Optional[str] = None):
+        """A training layer's mixture-of-experts FFN: (output, losses).
+        Its token groups are whole sentences, so a stream split over
+        time is gathered for it and split again after it."""
+        x = sharding.gather_sequence(x, stream)
+        out, aux = moe_ffn(params, x, mask=mask, top_k=self.top_k,
+                           capacity_factor=self.capacity_factor,
+                           dropout_seed=seeds.get("ff"),
+                           dropout_keep_prob=dropout_keep_prob,
+                           router_noise=self.router_noise,
+                           noise_seed=seeds["moe_noise"])
+        return sharding.constrain_sequence(out, stream), aux
 
     def decode(self, params: Dict[str, Any], normed: torch.Tensor,
                row_valid: torch.Tensor) -> torch.Tensor:
@@ -211,6 +251,15 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         params["ln_out"] = layer_norm_init(self.model_dim)
         return params
 
+    def param_partition_specs(self) -> Dict[str, tuple]:
+        """Tensor-parallel layer specs (the input sequence's table
+        declares its own)."""
+        specs: Dict[str, tuple] = {}
+        for i in range(self.depth):
+            specs.update(mha_partition_specs(f"layer_{i}/att"))
+            specs.update(self.moe.partition_specs(f"layer_{i}/ff"))
+        return specs
+
     # ------------------------------------------------------------------ #
     @tensor
     def temporal_mask(self, ctx: Context):
@@ -225,26 +274,34 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
             return states + params["position_emb"][None, :time]
         return states
 
-    def _layer_fn(self, layer, states, mask, seeds):
+    def _layer_fn(self, layer, states, mask, seeds, stream=None,
+                  att_mask=None):
         """One encoder layer; ``seeds`` holds the dropout and router
-        noise seeds of its sites (None outside training). Returns the
-        states, and with MoE FFNs also the layer's auxiliary losses."""
+        noise seeds of its sites (None outside training), ``stream`` the
+        axis its residual stream is split over and ``att_mask`` the
+        attention's key mask (the keys' slice of ``mask`` under context
+        parallelism). Returns the states, and with MoE FFNs also the
+        layer's auxiliary losses."""
+        att_mask = mask if att_mask is None else att_mask
         keep = self.dropout_keep_prob
+        layer = layer_params_on_slice(layer, stream, self.moe.on)
         normed = layer_norm(layer["ln_att"], states)
         att_out = multi_head_attention(
             layer["att"], normed, normed, normed, self.n_heads,
             dropout_seed=seeds["att"],
             dropout_keep_prob=self.attention_dropout_keep_prob,
-            key_mask=mask)
-        states = states + seeded_dropout(att_out, keep, seeds["res_att"])
+            key_mask=att_mask, stream=stream, ring=stream == "context")
+        states = states + seeded_dropout(
+            att_out, keep, sharding.shard_seed(seeds["res_att"], (stream,)))
         normed = layer_norm(layer["ln_ff"], states)
+        res_ff = sharding.shard_seed(seeds["res_ff"], (stream,))
         if self.moe.on:
             ff_out, aux = self.moe(layer["ff"], normed, mask, seeds,
-                                   dropout_keep_prob=keep)
-            return states + seeded_dropout(ff_out, keep, seeds["res_ff"]), aux
+                                   dropout_keep_prob=keep, stream=stream)
+            return states + seeded_dropout(ff_out, keep, res_ff), aux
         ff_out = ffn(layer["ff"], normed, dropout_seed=seeds["ff"],
-                     dropout_keep_prob=keep)
-        return states + seeded_dropout(ff_out, keep, seeds["res_ff"])
+                     dropout_keep_prob=keep, stream=stream)
+        return states + seeded_dropout(ff_out, keep, res_ff)
 
     def _layer_seeds(self, ctx: Context, i: int) -> Dict[str, Optional[int]]:
         """Per-layer dropout seeds at the JAX package's sites
@@ -262,25 +319,42 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
                                   self.moe.noisy(ctx.train))}
 
     @tensor
-    def temporal_states(self, ctx: Context):
+    def split_temporal_states(self, ctx: Context):
+        """(states, mask, axis): the final states and source mask of this
+        rank's slice of the time axis, and the axis the stream is split
+        over (the states whole and ``axis`` None where it is not, or
+        where it is split over the model axis, which gathers it before
+        the output layer norm)."""
         params = ctx.get_params(self)
         states = self.input_sequence.temporal_states(ctx)
         mask = self.input_sequence.temporal_mask(ctx).to(torch.float32)
         states = self._add_positions(params, states)
         states = ctx.dropout(self, states, self.dropout_keep_prob,
                              "input_dropout")
+        stream = sharding.stream_axis(states.shape[1])
+        states = sharding.constrain_sequence(states, stream)
+        att_mask = (mask[:, sharding.time_slice(mask.shape[1], stream)]
+                    if stream == "context" else mask)
         auxes = []
         for i in range(self.depth):
             states = run_layer(self._layer_fn, self.remat and ctx.train,
                                params[f"layer_{i}"], states, mask,
-                               self._layer_seeds(ctx, i))
+                               self._layer_seeds(ctx, i), stream, att_mask)
             if self.moe.on:
                 states, aux = states
                 auxes.append(aux)
         self.moe.add_losses(self, ctx, auxes)
-        states = layer_norm(params["ln_out"], states)
+        if stream == "model":
+            states, stream = sharding.gather_sequence(states, stream), None
+        states = layer_norm(sharding.slice_params(params["ln_out"], stream),
+                            states)
         # padding positions are zero for clean downstream pooling
-        return states * mask[..., None]
+        return states * att_mask[..., None], att_mask, stream
+
+    @tensor
+    def temporal_states(self, ctx: Context):
+        states, _, stream = self.split_temporal_states(ctx)
+        return sharding.gather_sequence(states, stream)
 
     @tensor
     def output(self, ctx: Context):

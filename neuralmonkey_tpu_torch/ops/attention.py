@@ -3,15 +3,26 @@
 
 Used by the Transformer encoder and decoder. Parameters keep the JAX
 package's names and (in, out) layouts, so its checkpoints load without
-transposes. :func:`multi_head_attention` sends a key mask with no
-additive bias to flash attention (``ops/flash_attention.py``: the
-hand-written kernels on CUDA tensors, their plain version on the CPU);
-an additive bias takes the dense path here, and so does attention
-dropout under ``NM_FLASH_DROPOUT=0`` on CPU tensors (on CUDA tensors
-the switch raises: attention dropout on the card rides inside the flash
-kernels). The JAX package's ring (context-parallel)
-and sharded branches need a device mesh, which the port does not have:
-``CUDAManager`` raises when an INI asks for context parallelism.
+transposes. :func:`multi_head_attention` dispatches as the JAX
+package does: first the ring (``parallel/ring_attention.py``) when its
+queries and keys are this rank's slices of a context-parallel time
+axis; else flash attention for a key mask with no additive bias
+(``ops/flash_attention.py``: the hand-written kernels on CUDA tensors,
+their plain version on the CPU) on this rank's heads; else the dense
+path, which also takes attention dropout under ``NM_FLASH_DROPOUT=0``
+on CPU tensors (on CUDA tensors the switch raises: attention dropout on
+the card rides inside the flash kernels).
+
+Under tensor parallelism (``mha_partition_specs``,
+``ffn_partition_specs``) the q, k, v and FFN-in weights hold this
+rank's output columns (so its heads) and the o and FFN-out weights the
+matching rows: each rank attends over its heads, one all-reduce
+follows the output projection and its bias is added after it
+(``ops/sharding.enter_block`` and ``exit_block``, which under sequence
+sharding gather and reduce-scatter the time axis instead). Where the
+heads do not divide the model axis the split columns are gathered and
+the attention runs whole, as the JAX package's sharded flash gate sends
+such shapes to its dense path.
 """
 
 from __future__ import annotations
@@ -22,7 +33,8 @@ from typing import Dict, Optional
 
 import torch
 
-from . import nn
+from ..parallel import mesh, tensor
+from . import nn, sharding
 from .flash_attention import dropout_key_words, flash_attention
 
 NEG_INF = -1e9
@@ -89,6 +101,29 @@ def mha_init(gen: torch.Generator, query_dim: int, kv_dim: int,
             "k": nn.linear_init(gen, kv_dim, model_dim),
             "v": nn.linear_init(gen, kv_dim, model_dim),
             "o": nn.linear_init(gen, model_dim, out_dim)}
+
+
+def mha_partition_specs(prefix: str) -> Dict[str, tuple]:
+    """Megatron tensor-parallel specs of an ``mha_init`` subtree: the q,
+    k and v projections split their output columns over the model axis
+    (whole heads stay on one rank, ``split_heads`` being head-major),
+    the output projection its input rows; the ``o`` bias is whole,
+    added after the all-reduce."""
+    specs: Dict[str, tuple] = {}
+    for p in ("q", "k", "v"):
+        specs[f"{prefix}/{p}/w"] = (None, "model")
+        specs[f"{prefix}/{p}/b"] = ("model",)
+    specs[f"{prefix}/o/w"] = ("model", None)
+    return specs
+
+
+def ffn_partition_specs(prefix: str) -> Dict[str, tuple]:
+    """Tensor-parallel specs of an ``ffn_init`` subtree: the hidden
+    columns split, the output rows split (one all-reduce after
+    ``out``)."""
+    return {f"{prefix}/in/w": (None, "model"),
+            f"{prefix}/in/b": ("model",),
+            f"{prefix}/out/w": ("model", None)}
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -169,6 +204,49 @@ def flash_dropout_enabled(on_cuda: bool) -> bool:
     return False
 
 
+def column_projection(params: Dict, x: torch.Tensor,
+                      n_heads: int) -> torch.Tensor:
+    """A q, k or v projection of a block input: this rank's heads when
+    the weights are split and the heads divide the model axis, else
+    every head (split columns gathered)."""
+    y = nn.linear(params, x)
+    if tensor.is_split(params["w"]) and not tensor.heads_split(
+            params["w"], n_heads):
+        y = tensor.gather_from(y, -1)
+    return y
+
+
+def row_projection(params: Dict, x: torch.Tensor,
+                   axis: Optional[str] = None) -> torch.Tensor:
+    """The output projection of a block onto the stream: with split rows
+    this rank's partial product (of its columns of ``x``, taken here
+    when ``x`` is whole), summed over the model axis (reduce-scattered
+    over time under sequence sharding), then the bias."""
+    w = params["w"]
+    if not tensor.is_split(w):
+        return sharding.exit_block(nn.linear(params, x), False, axis)
+    if x.shape[-1] != w.shape[0]:
+        x = tensor.scatter_to(x, -1)
+    y = sharding.exit_block(nn.pdot(x, w), True, axis)
+    if "b" in params:
+        y = y + sharding.slice_params(params["b"],
+                                      "model" if axis == "model" else None)
+    return y
+
+
+def attention_dropout_seed(seed: Optional[int]) -> Optional[int]:
+    """The attention-dropout seed of this rank's heads: under tensor
+    parallelism ``data_index * model + model_index`` folded in, as the
+    JAX package folds it into the sharded flash kernel's key, so that
+    each shard draws its own mask (the step's seed already differs
+    between data ranks)."""
+    if seed is None or mesh.size("model") == 1:
+        return seed
+    from ..model.part import fold_seed
+    return fold_seed(seed, mesh.index("data") * mesh.size("model")
+                     + mesh.index("model"))
+
+
 def multi_head_attention(params: Dict,
                          queries: torch.Tensor,
                          keys: torch.Tensor,
@@ -178,31 +256,49 @@ def multi_head_attention(params: Dict,
                          dropout_seed: Optional[int] = None,
                          dropout_keep_prob: float = 1.0,
                          key_mask: Optional[torch.Tensor] = None,
-                         causal: bool = False) -> torch.Tensor:
+                         causal: bool = False,
+                         stream: Optional[str] = None,
+                         ring: bool = False) -> torch.Tensor:
     """Project, attend, merge, output-project.
 
     ``dropout_seed`` (an int, or None outside training) seeds attention
     dropout: two key words drawn from it for the flash path's keep
-    hash, or a generator on the device for the dense path."""
-    q = split_heads(nn.linear(params["q"], queries), n_heads)
-    k = split_heads(nn.linear(params["k"], keys), n_heads)
-    v = split_heads(nn.linear(params["v"], values), n_heads)
+    hash, or a generator on the device for the dense path, or the
+    ring's blockwise masks. ``stream`` is the axis the queries' residual
+    stream is split over (``ops/sharding.stream_axis``); ``ring`` says
+    that the queries, keys and values are this rank's slices of a
+    context-parallel time axis (and ``key_mask`` the keys' slice)."""
+    split = tensor.is_split(params["q"]["w"])
+    q_in = sharding.enter_block(queries, split, stream)
+    kv_in = q_in if keys is queries else (
+        tensor.copy_to(keys) if split else keys)
+    v_in = kv_in if values is keys else (
+        tensor.copy_to(values) if split else values)
+    heads = tensor.local_heads(params["q"]["w"], n_heads)
+    q = split_heads(column_projection(params["q"], q_in, n_heads), heads)
+    k = split_heads(column_projection(params["k"], kv_in, n_heads), heads)
+    v = split_heads(column_projection(params["v"], v_in, n_heads), heads)
     dropout = dropout_seed is not None and dropout_keep_prob < 1.0
-    if key_mask is not None and bias is None \
+    seed = attention_dropout_seed(dropout_seed) if dropout else None
+    if ring and key_mask is not None and bias is None:
+        from ..parallel.ring_attention import ring_attention
+        out = ring_attention(q, k, v, key_mask, causal, seed,
+                             dropout_keep_prob)
+    elif key_mask is not None and bias is None \
             and (not dropout or flash_dropout_enabled(q.is_cuda)):
         out = flash_attention(
             q, k, v, key_mask, causal,
-            dropout_key_words(dropout_seed) if dropout else None,
+            dropout_key_words(seed) if dropout else None,
             dropout_keep_prob if dropout else 1.0)
     else:
         if bias is None and key_mask is not None:
             bias = attention_bias_from_mask(key_mask)
             if causal:
                 bias = bias + causal_bias(
-                    keys.shape[1], keys.device)[:, :, :queries.shape[1], :]
-        out = dot_product_attention(q, k, v, bias, dropout_seed,
+                    k.shape[2], keys.device)[:, :, :q.shape[2], :]
+        out = dot_product_attention(q, k, v, bias, seed,
                                     dropout_keep_prob)
-    return nn.linear(params["o"], merge_heads(out))
+    return row_projection(params["o"], merge_heads(out), stream)
 
 
 def ffn_init(gen: torch.Generator, model_dim: int,
@@ -212,11 +308,19 @@ def ffn_init(gen: torch.Generator, model_dim: int,
 
 
 def ffn(params: Dict, x: torch.Tensor, dropout_seed: Optional[int] = None,
-        dropout_keep_prob: float = 1.0) -> torch.Tensor:
-    """ReLU feed-forward block with dropout on the hidden layer."""
-    hidden = torch.relu(nn.linear(params["in"], x))
-    hidden = seeded_dropout(hidden, dropout_keep_prob, dropout_seed)
-    return nn.linear(params["out"], hidden)
+        dropout_keep_prob: float = 1.0,
+        stream: Optional[str] = None) -> torch.Tensor:
+    """ReLU feed-forward block with dropout on the hidden layer; its
+    hidden columns split over the model axis where its weights are
+    (each part drawing its own dropout mask), ``stream`` as in
+    :func:`multi_head_attention`."""
+    split = tensor.is_split(params["in"]["w"])
+    hidden = torch.relu(nn.linear(params["in"],
+                                  sharding.enter_block(x, split, stream)))
+    hidden = seeded_dropout(hidden, dropout_keep_prob, sharding.shard_seed(
+        dropout_seed, ("model" if split else None,
+                       "context" if stream == "context" else None)))
+    return row_projection(params["out"], hidden, stream)
 
 
 def seeded_dropout(x: torch.Tensor, keep_prob: float,

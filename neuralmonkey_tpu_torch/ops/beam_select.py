@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..parallel import mesh
 from . import kernel_config, nn
 
 LANE = 128
@@ -125,7 +126,8 @@ def fused_logits_rowmax_lse(x: torch.Tensor, w: torch.Tensor,
     re-read. ``x`` (N, D) prelogit rows, ``w`` (D, Vp) with Vp a
     multiple of 128, ``b`` (1, Vp) or (Vp,) bias (pad columns carry a
     large negative bias). Launches K3 for CUDA tensors, runs the plain
-    version otherwise. K3 computes in float32: a bf16 x or w is widened
+    version otherwise, and under a model axis (its shape gate, as the
+    JAX package's). K3 computes in float32: a bf16 x or w is widened
     first, exactly, so it computes the plain version's float32 logits;
     any other dtype raises. The beam search arms it with a float32 w
     under either policy (the bf16 table widened,
@@ -138,6 +140,12 @@ def fused_logits_rowmax_lse(x: torch.Tensor, w: torch.Tensor,
             f"fused_logits_rowmax_lse: x {tuple(x.shape)}, w "
             f"{tuple(w.shape)}, b {tuple(b.shape)}; Vp must be a "
             f"multiple of {LANE}")
+    if mesh.size("model") > 1:
+        # under tensor parallelism the JAX package keeps K3 on its
+        # reference (its vocabulary would split over the model axis)
+        kernel_config.log_plain_path(
+            "fused_logits_rowmax_lse", "a model axis is on")
+        return fused_logits_reference(x, w, b)
     if not x.is_cuda:
         return fused_logits_reference(x, w, b)
     x, w = (t.float() if t.dtype == torch.bfloat16 else t for t in (x, w))

@@ -36,6 +36,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..parallel import mesh
 from . import kernel_config
 
 TILE = 128
@@ -310,8 +311,15 @@ FLOATS = (torch.float32, torch.bfloat16)
 
 def eligible(x: torch.Tensor, w: torch.Tensor) -> bool:
     """Whether the fused path is switched on (``NM_FUSED_XENT=1``) and
-    takes these operands (float32 or bf16 each)."""
+    takes these operands (float32 or bf16 each), with no model axis
+    (the shape gate of tensor parallelism)."""
     if os.environ.get("NM_FUSED_XENT") not in ("1", "true", "True"):
+        return False
+    if mesh.size("model") > 1:
+        # the vocabulary splits over the model axis: the plain path, as
+        # the JAX package keeps its reference there
+        kernel_config.log_plain_path(
+            "fused_xent", "the vocabulary is split over the model axis")
         return False
     return x.dtype in FLOATS and w.dtype in FLOATS
 

@@ -21,9 +21,14 @@ On a batch split over data-parallel ranks the routing sums are summed
 over the ranks before they fold into the losses, as the JAX package
 adds them over its pipeline's microbatches; a group's capacity depends
 on its own size alone, so splitting the batch drops the same tokens.
-Expert parallelism (the JAX package's ``enable_expert_sharding``,
-``constrain_dispatch`` and partition specs) is not ported (ROADMAP queue
-A15, part 2).
+
+Tensor parallelism takes the ``model`` dims of ``moe_partition_specs``:
+each rank holds its hidden columns of every expert, the router stays
+whole; the experts' outputs are summed over the model axis before they
+are combined, so the gates' gradients are whole on every rank. Expert
+parallelism (the ``expert`` axis, the JAX package's
+``enable_expert_sharding`` and ``constrain_dispatch``) is not ported
+(ROADMAP queue A15, part 3): the manager drops that axis of the specs.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from . import nn
+from . import nn, sharding
 from .attention import seeded_dropout
+from ..parallel import tensor as tp
 from ..parallel.distributed import global_sum
 
 
@@ -50,6 +56,16 @@ def moe_init(gen: torch.Generator, model_dim: int, hidden_dim: int,
                                      use_bias=False),
             "in": stack_linear(model_dim, hidden_dim),
             "out": stack_linear(hidden_dim, model_dim)}
+
+
+def moe_partition_specs(prefix: str) -> Dict[str, tuple]:
+    """The specs of a ``moe_init`` subtree: the experts' leading axis
+    over ``expert``, their hidden dim Megatron-style over ``model``
+    (in-columns, out-rows); the router whole."""
+    return {f"{prefix}/in/w": ("expert", None, "model"),
+            f"{prefix}/in/b": ("expert", "model"),
+            f"{prefix}/out/w": ("expert", "model", None),
+            f"{prefix}/out/b": ("expert", None)}
 
 
 def moe_capacity(group_size: int, n_experts: int, top_k: int,
@@ -147,13 +163,21 @@ def moe_ffn(params: Dict, x: torch.Tensor,
 
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
+    split = tp.is_split(w_in)
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch,
+                             tp.copy_to(x) if split else x)
     hidden = (activation or torch.relu)(
         _einsum("egcd,edh->egch", expert_in, w_in)
         + b_in[:, None, None, :])
-    hidden = seeded_dropout(hidden, dropout_keep_prob, dropout_seed)
-    expert_out = (_einsum("egch,ehd->egcd", hidden, w_out)
-                  + b_out[:, None, None, :])
+    hidden = seeded_dropout(hidden, dropout_keep_prob, sharding.shard_seed(
+        dropout_seed, ("model" if split else None,)))
+    if split:
+        expert_out = (tp.reduce_from(_einsum("egch,ehd->egcd", hidden,
+                                             w_out))
+                      + b_out[:, None, None, :])
+    else:
+        expert_out = (_einsum("egch,ehd->egcd", hidden, w_out)
+                      + b_out[:, None, None, :])
     y = torch.einsum("gsec,egcd->gsd", combine, expert_out)
 
     top1 = sel[:, :, 0, :]                                  # (G, S, E)

@@ -21,6 +21,8 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel import tensor
+
 _EXPLICIT: Optional[str] = None
 _VALID = ("float32", "bfloat16")
 
@@ -55,5 +57,6 @@ def cast_params_for_compute(tree: Any) -> Any:
         return type(tree)(cast_params_for_compute(v) for v in tree)
     if (isinstance(tree, torch.Tensor) and tree.dtype == torch.float32
             and tree.dim() >= 2):
-        return tree.to(dtype)
+        # a tensor-parallel shard stays marked as one
+        return tensor.keep_split(tree, tree.to(dtype))
     return tree

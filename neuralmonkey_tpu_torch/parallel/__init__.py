@@ -1,16 +1,23 @@
-"""Data parallelism over processes, one device each (counterpart of
+"""Parallelism over processes, one device each (counterpart of
 ``neuralmonkey_tpu/parallel``): the process group and its collectives
-(``distributed.py``) and the ZeRO-1 and FSDP layouts (``zero.py``).
-The model axes (tensor, sequence, expert, pipeline and context
-parallelism, the ring attention) are not ported yet (ROADMAP queue
-A15, part 2)."""
+(``distributed.py``), the rank grid of the JAX package's mesh axes
+(``mesh.py``), the ZeRO-1 and FSDP layouts over the data axis
+(``zero.py``), tensor parallelism's collectives over the model axis and
+the time axis's gathers and scatters (``tensor.py``), and the ring
+attention of context parallelism (``ring_attention.py``). Pipeline and
+expert parallelism are not ported yet (ROADMAP queue A15, part 3)."""
 
-from .distributed import (broadcast_flags, fetch_to_host, is_main_process,
-                          local_rows, maybe_initialize, process_count,
-                          process_index, sync_processes)
+from .distributed import (broadcast_flags, data_count, data_index,
+                          fetch_to_host, is_main_process, local_rows,
+                          maybe_initialize, process_count, process_index,
+                          sync_processes)
+from .mesh import Mesh
 
 __all__ = [
+    "Mesh",
     "broadcast_flags",
+    "data_count",
+    "data_index",
     "fetch_to_host",
     "is_main_process",
     "local_rows",

@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..logging import log
+from . import mesh
 
 # whether the current pass runs on this rank's rows of a batch split
 # over the ranks (set by the manager around a step or a fetch)
@@ -116,6 +117,17 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def data_count() -> int:
+    """The ranks a batch splits over: the mesh's ``data`` axis (the
+    world when no model axis is set)."""
+    return mesh.size("data")
+
+
+def data_index() -> int:
+    """This rank's place on the ``data`` axis."""
+    return mesh.index("data")
+
+
 def is_main_process() -> bool:
     """True on the process that owns the host's side effects
     (checkpoints, the ``.best`` link, metrics and output files)."""
@@ -160,17 +172,20 @@ def broadcast_flags(flags: Sequence[bool]) -> tuple:
 
 
 def split_rows(batch_size: int) -> bool:
-    """Whether a batch of ``batch_size`` rows splits over the ranks (it
-    divides their number); otherwise every rank holds all of it, as the
-    JAX package replicates a batch its mesh does not divide."""
-    return dist.is_initialized() and batch_size % process_count() == 0
+    """Whether a batch of ``batch_size`` rows splits over the data ranks
+    (there are several and they divide it); otherwise every rank holds
+    all of it, as the JAX package replicates a batch its mesh does not
+    divide. The ranks of one model or context group hold the same
+    rows."""
+    return (dist.is_initialized() and data_count() > 1
+            and batch_size % data_count() == 0)
 
 
 def local_rows(value: np.ndarray) -> np.ndarray:
     """This rank's contiguous rows of a global host batch
     (``make_global_array``'s data-sharded placement)."""
-    rows = value.shape[0] // process_count()
-    start = process_index() * rows
+    rows = value.shape[0] // data_count()
+    start = data_index() * rows
     return value[start:start + rows]
 
 
@@ -196,7 +211,7 @@ class _GlobalSum(torch.autograd.Function):
     def forward(ctx, x):  # pylint: disable=arguments-differ
         del ctx
         total = x.detach().clone()
-        dist.all_reduce(total)
+        dist.all_reduce(total, group=mesh.group("data"))
         return total
 
     @staticmethod
@@ -208,7 +223,7 @@ class _GlobalSum(torch.autograd.Function):
 def global_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the ranks' rows of a split batch (inside
     :func:`sharded_batch`), differentiably; ``x`` itself otherwise."""
-    if not _SPLIT.get():
+    if not _SPLIT.get() or data_count() == 1:
         return x
     return _GlobalSum.apply(x)
 
@@ -235,30 +250,37 @@ def param_term(x: torch.Tensor) -> torch.Tensor:
     every rank computes whole: its value unchanged, its gradient divided
     by the ranks on a split batch, so that it enters their summed
     gradient once."""
-    if not _SPLIT.get():
+    if not _SPLIT.get() or data_count() == 1:
         return x
-    return _ParamTerm.apply(x, 1.0 / process_count())
+    return _ParamTerm.apply(x, 1.0 / data_count())
 
 
 def all_reduce_(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum ``tensor`` over the ranks in place."""
-    dist.all_reduce(tensor)
+    """Sum ``tensor`` over the data ranks in place."""
+    if data_count() > 1:
+        dist.all_reduce(tensor, group=mesh.group("data"))
     return tensor
 
 
 def all_gather_flat(local: torch.Tensor) -> torch.Tensor:
-    """Every rank's flat ``local`` (all of one size), concatenated in
-    rank order."""
-    out = local.new_empty(local.numel() * process_count())
-    dist.all_gather_into_tensor(out, local.contiguous())
+    """Every data rank's flat ``local`` (all of one size), concatenated
+    in rank order."""
+    if data_count() == 1:
+        return local.reshape(-1).clone()
+    out = local.new_empty(local.numel() * data_count())
+    dist.all_gather_into_tensor(out, local.detach().contiguous(),
+                                group=mesh.group("data"))
     return out
 
 
 def reduce_scatter_flat(full: torch.Tensor) -> torch.Tensor:
-    """This rank's segment of ``full`` (rank-major, equal segments)
-    summed over the ranks."""
-    out = full.new_empty(full.numel() // process_count())
-    dist.reduce_scatter_tensor(out, full.contiguous())
+    """This rank's segment of ``full`` (data-rank-major, equal segments)
+    summed over the data ranks."""
+    if data_count() == 1:
+        return full.reshape(-1).clone()
+    out = full.new_empty(full.numel() // data_count())
+    dist.reduce_scatter_tensor(out, full.detach().contiguous(),
+                               group=mesh.group("data"))
     return out
 
 
@@ -270,12 +292,12 @@ def _host(value: torch.Tensor) -> np.ndarray:
 
 
 def _gather_rows(value: torch.Tensor, dim: int) -> torch.Tensor:
-    """Every rank's ``value`` concatenated along ``dim``; the ranks'
+    """Every data rank's ``value`` concatenated along ``dim``; the ranks'
     other dims padded with zeros to the largest first (decodes that
     stopped at different lengths)."""
     device = value.device
     shape = torch.tensor(value.shape, dtype=torch.int64, device=device)
-    shapes = all_gather_flat(shape).view(process_count(), -1).tolist()
+    shapes = all_gather_flat(shape).view(data_count(), -1).tolist()
     largest = [max(s[i] for s in shapes) for i in range(value.dim())]
     pads = []
     for i in reversed(range(value.dim())):
@@ -283,9 +305,9 @@ def _gather_rows(value: torch.Tensor, dim: int) -> torch.Tensor:
     wide = value.to(torch.uint8) if value.dtype == torch.bool else value
     padded = torch.nn.functional.pad(wide, pads)
     gathered = all_gather_flat(padded.reshape(-1)).view(
-        process_count(), *largest)
+        data_count(), *largest)
     parts = [gathered[r].narrow(dim, 0, shapes[r][dim])
-             for r in range(process_count())]
+             for r in range(data_count())]
     out = torch.cat(parts, dim=dim)
     return out.bool() if value.dtype == torch.bool else out
 

@@ -2,12 +2,15 @@
 ``TPUManager._add_data_axis``, ``_param_shardings`` and
 ``_opt_state_shardings`` in ``neuralmonkey_tpu/runtime.py``).
 
-A :class:`Shard` says how one tensor divides among the ranks: in equal
-chunks along one dim (the JAX package's rule: the largest dim the
-number of ranks divides, the first of equal ones), whole on one owner
-rank, or whole on every rank (a tensor with no such dim, a scalar).
-Chunks and owners go in sorted name order into one flat buffer a rank,
-so every collective moves one buffer in an order fixed on all ranks.
+A :class:`Shard` says how one tensor divides among the ranks of the
+``data`` axis: in equal chunks along one dim (the JAX package's rule:
+the largest dim the number of ranks divides, the first of equal ones,
+never the dim a tensor is split on over the ``model`` axis), whole on
+one owner rank, or whole on every rank (a tensor with no such dim, a
+scalar). Chunks and owners go in sorted name order into one flat buffer
+a rank, so every collective moves one buffer in an order fixed on all
+ranks. The tensors here are a rank's model shards: their collectives
+run over its data group (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
-from . import distributed
+from . import distributed, tensor
 
 Flat = Dict[str, torch.Tensor]
 
@@ -30,21 +33,26 @@ class Shard(NamedTuple):
         return self.dim is None and self.owner is None
 
 
-def data_axis(shape: Sequence[int], world: int) -> Optional[int]:
+def data_axis(shape: Sequence[int], world: int,
+              skip: Optional[int] = None) -> Optional[int]:
     """``_add_data_axis``: the largest dim that ``world`` divides (the
-    first of equal ones), or None (the tensor stays whole)."""
+    first of equal ones) other than ``skip`` (the dim a tensor is split
+    on over the model axis), or None (the tensor stays whole)."""
     if world <= 1:
         return None
     best = None
     for i, size in enumerate(shape):
-        if size % world == 0 and (best is None or size > shape[best]):
+        if i != skip and size % world == 0 and (
+                best is None or size > shape[best]):
             best = i
     return best
 
 
-def slice_plan(shapes: Dict[str, Sequence[int]], world: int
+def slice_plan(shapes: Dict[str, Sequence[int]], world: int,
+               skip: Optional[Dict[str, Optional[int]]] = None
                ) -> Dict[str, Shard]:
-    return {name: Shard(dim=data_axis(shape, world))
+    skip = skip or {}
+    return {name: Shard(dim=data_axis(shape, world, skip.get(name)))
             for name, shape in shapes.items()}
 
 
@@ -120,7 +128,7 @@ def gather_into(targets: Flat, plan: Dict[str, Shard], local: Flat) -> None:
     """Fill every divided whole tensor of ``targets`` from the ranks'
     parts (``local`` holds this rank's): one all-gather of one buffer a
     rank. Replicated tensors are left as they are."""
-    world, rank = distributed.process_count(), distributed.process_index()
+    world, rank = distributed.data_count(), distributed.data_index()
     shapes = {n: t.shape for n, t in targets.items()}
     names, per_rank, size = _layout(shapes, plan, world)
     if not names:
@@ -143,26 +151,41 @@ HOST_GATHER_BYTES = 1 << 26
 
 def gather_to_host(parts: Flat, plan: Dict[str, Shard],
                    meta: Dict[str, torch.Tensor], device: torch.device,
-                   limit: int = HOST_GATHER_BYTES) -> Flat:
-    """Every tensor of ``meta`` (whole shapes and dtypes) whole on the
-    host, from the ranks' ``parts`` (this rank's, on ``device``): the
-    replicated ones copied; the divided ones all-gathered in sorted name
-    order, in groups of at most ``limit`` bytes of whole float32 tensors
-    (a larger tensor alone), each group on the host before the next is
-    gathered, so that the device never holds all of them whole."""
+                   limit: int = HOST_GATHER_BYTES,
+                   model_dims: Optional[Dict[str, Optional[int]]] = None
+                   ) -> Flat:
+    """Every tensor of ``meta`` (this rank's model shards' shapes and
+    dtypes) whole on the host, from the ranks' ``parts`` (this rank's,
+    on ``device``): the ones ``plan`` keeps whole over the data axis
+    copied, the divided ones all-gathered over it, and those split
+    along ``model_dims[name]`` over the model axis then gathered over
+    that; in sorted name order, in groups of at most ``limit`` bytes of
+    whole float32 tensors (a larger tensor alone), each group on the
+    host before the next is gathered, so that the device never holds
+    all of them whole."""
+    model_dims = model_dims or {}
+    split = {name for name in meta if model_dims.get(name) is not None}
     host = {name: parts[name].detach().cpu() for name in meta
-            if plan[name].replicated}
-    names = sorted(name for name in meta if not plan[name].replicated)
+            if plan[name].replicated and name not in split}
+    names = sorted(name for name in meta
+                   if not plan[name].replicated or name in split)
+    models = distributed.mesh.size("model")
     group, size = [], 0
     for i, name in enumerate(names):
         group.append(name)
-        size += 4 * meta[name].numel()
+        size += 4 * meta[name].numel() * (models if name in split else 1)
         if size < limit and i < len(names) - 1:
             continue
-        whole = {n: torch.empty(meta[n].shape, dtype=meta[n].dtype,
-                                device=device) for n in group}
+        whole = {n: (parts[n] if plan[n].replicated else torch.empty(
+            meta[n].shape, dtype=meta[n].dtype, device=device))
+            for n in group}
         gather_into(whole, plan, parts)
-        host.update((n, t.cpu()) for n, t in whole.items())
+        for n in group:
+            value = whole[n]
+            if n in split:
+                value = tensor.all_gather(value.to(device), model_dims[n],
+                                          "model")
+            host[n] = value.detach().cpu()
         group, size = [], 0
     return host
 
@@ -171,7 +194,7 @@ def reduce_scatter(full: Flat, plan: Dict[str, Shard]) -> Flat:
     """Each divided tensor's part for this rank, summed over the ranks'
     whole ``full`` tensors: one reduce-scatter of one buffer. Each
     divided tensor is popped from ``full`` once its parts are packed."""
-    world, rank = distributed.process_count(), distributed.process_index()
+    world, rank = distributed.data_count(), distributed.data_index()
     shapes = {n: t.shape for n, t in full.items()}
     names, per_rank, size = _layout(shapes, plan, world)
     if not names:
@@ -225,19 +248,26 @@ def all_reduce(tensors: Flat) -> Flat:
 
 
 def sharded_norm(tensors: Flat, plan: Dict[str, Shard],
-                 device: torch.device) -> torch.Tensor:
-    """The global L2 norm of tensors held as ``plan`` divides them
-    (each rank holding its parts, on ``device``): the divided parts'
-    squares summed over the ranks, the replicated ones' counted once.
-    With nothing divided, ``optax.global_norm``'s sum on this rank."""
-    if all(shard.replicated for shard in plan.values()):
+                 device: torch.device,
+                 model_split: Optional[Sequence[str]] = None
+                 ) -> torch.Tensor:
+    """The global L2 norm of tensors held as ``plan`` divides them over
+    the data axis and ``model_split`` names the ones split over the
+    model axis (each rank holding its parts, on ``device``): each
+    tensor's squares summed over the ranks it is divided among, and
+    counted once where it is whole on several. With nothing divided,
+    ``optax.global_norm``'s sum on this rank."""
+    model_split = set(model_split or ())
+    if all(shard.replicated for shard in plan.values()) \
+            and not model_split:
         return torch.sqrt(sum(t.square().sum() for t in tensors.values()))
-    divided = torch.zeros((), device=device)
+    # [data and model, data alone, model alone, neither]
+    sums = [torch.zeros((), device=device) for _ in range(4)]
     for name, t in tensors.items():
-        if not plan[name].replicated:
-            divided = divided + t.square().sum()
-    total = distributed.all_reduce_(divided)
-    for name, t in tensors.items():
-        if plan[name].replicated:
-            total = total + t.square().sum()
-    return torch.sqrt(total)
+        slot = ((0 if name in model_split else 1)
+                if not plan[name].replicated
+                else (2 if name in model_split else 3))
+        sums[slot] = sums[slot] + t.square().sum()
+    over_data = tensor.all_reduce(torch.stack(sums[:2]), "data")
+    over_model = tensor.all_reduce(over_data[0] + sums[2], "model")
+    return torch.sqrt(over_model + over_data[1] + sums[3])

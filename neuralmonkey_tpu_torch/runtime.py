@@ -8,11 +8,21 @@ accepted so existing INI files load; the ones that only meant something
 to TensorFlow sessions are ignored, as in the JAX package.
 
 In a process group (``parallel/distributed.py``) each process runs one
-device: a batch whose size the ranks divide splits into their rows, the
-gradients are reduced in one buffer in a fixed order, and with
+device, placed on the JAX package's mesh axes (``parallel/mesh.py``):
+``num_model_shards`` ranks a model group, ``num_context_shards`` a
+context group, the rest data replicas. A batch whose size the data
+ranks divide splits into their rows, the gradients are reduced over the
+data group in one buffer in a fixed order, and with
 ``shard_optimizer_state`` (ZeRO-1) or ``fsdp`` the optimizer state, or
-the parameters too, are divided among the ranks by the JAX package's
-rule (``parallel/zero.py``), and the divided gradients reduce-scattered.
+the parameters too, are divided among the data ranks by the JAX
+package's rule (``parallel/zero.py``), and the divided gradients
+reduce-scattered. The parts' declared ``param_partition_specs`` split
+parameters over the model group (tensor parallelism,
+``parallel/tensor.py``); ``sequence_sharding`` splits the Transformer's
+residual stream over it, ``num_context_shards`` over the context group
+with the ring attention (``ops/sharding.py``,
+``parallel/ring_attention.py``). Checkpoints hold whole tensors in one
+process's layout.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ from .dataset import BatchingScheme
 from .logging import log, warn
 from .model.part import (Context, ModelPart, collect_parts, fold_seed,
                          init_all_params)
-from .parallel import distributed, zero
+from .parallel import distributed, tensor, zero
+from .parallel import mesh as mesh_lib
 from .runners.base_runner import ExecutionResult, reduce_execution_results
 from .trainers.multitask_trainer import MultitaskTrainer
 from .utils.average_checkpoints import average_flat
@@ -97,8 +108,11 @@ class CUDAManager:
     """Parameters, optimizer state and execution on one device a
     process: ``device`` (default ``cuda``, in a process group
     ``cuda:<local rank>``; ``cpu`` runs every kernel's plain PyTorch
-    version). In a process group ``shard_optimizer_state`` divides the
-    optimizer state among the ranks (ZeRO-1) and ``fsdp`` the
+    version). In a process group ``num_model_shards`` and
+    ``num_context_shards`` lay the ranks out on the model and context
+    axes (``sequence_sharding`` splits the residual stream over the
+    model axis too), and ``shard_optimizer_state`` divides the
+    optimizer state among the data ranks (ZeRO-1) and ``fsdp`` the
     parameters too."""
 
     def __init__(self,
@@ -131,31 +145,51 @@ class CUDAManager:
                 "fsdp cannot combine with num_pipeline_stages: the "
                 "pipeline's stages hold their layers' parameters whole "
                 "(use shard_optimizer_state=True for the ZeRO-1 part)")
-        # TPUManager's model axes, accepted at their defaults
-        for name, value, default, what in (
-                ("num_model_shards", num_model_shards, 1,
-                 "tensor parallelism"),
-                ("sequence_sharding", sequence_sharding, False,
-                 "sequence sharding"),
-                ("num_pipeline_stages", num_pipeline_stages, 1,
+        if sequence_sharding:
+            # where the JAX manager warns and ignores the knob
+            if num_pipeline_stages > 1:
+                raise ValueError(
+                    "sequence_sharding=True cannot combine with "
+                    "num_pipeline_stages (the residual stream's split "
+                    "would sit inside the pipeline's stages)")
+            if num_context_shards > 1:
+                raise ValueError(
+                    "sequence_sharding=True is redundant under "
+                    "num_context_shards (the ring attention already "
+                    "splits the residual stream's time axis over the "
+                    "context axis)")
+            if num_model_shards <= 1:
+                raise ValueError(
+                    "sequence_sharding=True requires num_model_shards > 1")
+        for name, value, what in (
+                ("num_pipeline_stages", num_pipeline_stages,
                  "pipeline parallelism"),
-                ("num_expert_shards", num_expert_shards, 1,
-                 "expert parallelism"),
-                ("num_context_shards", num_context_shards, 1,
-                 "context parallelism (the ring attention)")):
-            if value != default:
+                ("num_expert_shards", num_expert_shards,
+                 "expert parallelism")):
+            if value != 1:
                 raise NotImplementedError(
                     f"{what} ({name}={value!r}) is not ported to "
                     "neuralmonkey_tpu_torch yet (ROADMAP queue A15, "
-                    "part 2: the model axes)")
+                    "part 3)")
+        # the rank grid: model groups innermost, then context groups,
+        # data replicas outermost (a world the axes do not divide
+        # raises the JAX package's error)
+        self.mesh = mesh_lib.Mesh(
+            distributed.process_count(), distributed.process_index(),
+            {"context": num_context_shards, "model": num_model_shards},
+            sequence=sequence_sharding)
+        self.mesh.build_groups()
+        mesh_lib.enable(self.mesh)
         # ZeRO over the data-parallel ranks: fsdp divides the parameters
         # (gathered for each step and decode), shard_optimizer_state the
         # optimizer state alone; the moments follow their parameters, so
         # fsdp implies the latter
         self.fsdp = fsdp
         self.shard_optimizer_state = shard_optimizer_state or fsdp
-        self.world = distributed.process_count()
-        self.rank = distributed.process_index()
+        # the data axis: the ranks a batch splits over and ZeRO divides
+        # among
+        self.world = self.mesh.size("data")
+        self.rank = self.mesh.index("data")
         self.device = resolve_device(device)
         self.seed = random_seed or 0
         self.save_n_best = max(save_n_best, 1)
@@ -166,9 +200,13 @@ class CUDAManager:
         # (a logit ensemble); training and saving use the first. Under
         # fsdp each holds this rank's parts (_rest_plan)
         self.params_list: List[Dict[str, Any]] = [{}]
-        # the parameters' whole shapes and dtypes (meta tensors), and
-        # how each divides at rest (fsdp)
+        # the parameters' whole shapes and dtypes (meta tensors), the
+        # dim each is split along over the model axis (or None), this
+        # rank's model shards' shapes, and how each shard divides at
+        # rest over the data axis (fsdp)
         self._meta: Dict[str, torch.Tensor] = {}
+        self._model_dims: Dict[str, Optional[int]] = {}
+        self._local_meta: Dict[str, torch.Tensor] = {}
         self._rest_plan: Dict[str, zero.Shard] = {}
         self.global_step = 0
         self.epoch = 0
@@ -192,7 +230,8 @@ class CUDAManager:
         if distributed.is_initialized():
             mode = ("fsdp" if fsdp else "ZeRO-1"
                     if self.shard_optimizer_state else "replicated")
-            where = f", rank {self.rank} of {self.world} ({mode})"
+            where = (f", rank {self.mesh.rank} of {self.mesh.world}, mesh "
+                     f"{self.mesh.shape} ({mode})")
         log(f"CUDAManager: device {self.device} [{name}]{where}")
 
     @property
@@ -218,9 +257,18 @@ class CUDAManager:
         self._meta = {name: torch.empty(value.shape, dtype=value.dtype,
                                         device="meta")
                       for name, value in flatten_tree(params).items()}
+        self._model_dims = self._model_split_dims()
+        models = self.mesh.size("model")
+        self._local_meta = {}
+        for name, m in self._meta.items():
+            shape = list(m.shape)
+            if self._model_dims[name] is not None:
+                shape[self._model_dims[name]] //= models
+            self._local_meta[name] = torch.empty(shape, dtype=m.dtype,
+                                                 device="meta")
         self._rest_plan = (
-            zero.slice_plan({n: m.shape for n, m in self._meta.items()},
-                            self.world)
+            zero.slice_plan({n: m.shape for n, m in self._local_meta.items()},
+                            self.world, self._model_dims)
             if self.fsdp else {n: zero.Shard() for n in self._meta})
         self.params_list = [self._to_rest(_to_device(params, self.device))]
         total = sum(m.numel() for m in self._meta.values())
@@ -230,8 +278,46 @@ class CUDAManager:
             if part.load_checkpoint:
                 self.load_part_checkpoint(part, part.load_checkpoint)
 
+    def _model_split_dims(self) -> Dict[str, Optional[int]]:
+        """For each parameter, the dim its part declares on the model
+        axis (``param_partition_specs``, as ``_declared_partition_specs``
+        and ``_declared_axes`` collect them), or None: undeclared, a spec
+        of another rank, or a dim the model axis does not divide (kept
+        whole on every rank, with the JAX package's warning; its layer
+        then runs whole). Axes this mesh lacks are dropped."""
+        models = self.mesh.size("model")
+        dims: Dict[str, Optional[int]] = {n: None for n in self._meta}
+        if models == 1:
+            return dims
+        declared: Dict[str, tuple] = {}
+        for part in self.parts:
+            for rel, axes in (part.param_partition_specs() or {}).items():
+                declared[f"{part.param_key}/{rel}"] = tuple(axes)
+        for name, m in self._meta.items():
+            axes = declared.get(name)
+            if axes is None:
+                continue
+            if len(axes) != m.dim():
+                warn(f"Param '{name}' declares partition {axes} but "
+                     f"has rank {m.dim()}; replicating")
+                continue
+            if "model" not in axes:
+                continue
+            dim = axes.index("model")
+            if m.shape[dim] % models:
+                warn(f"Param '{name}' dim {m.shape[dim]} not divisible by "
+                     f"mesh axis model={models}; replicating")
+                continue
+            dims[name] = dim
+        if not any(d is not None for d in dims.values()):
+            warn("mesh has a model axis but no parameter declares a "
+                 "matching partition (param_partition_specs); everything "
+                 "replicates")
+        return dims
+
     # ------------------------------------------------------------------ #
-    # parameters whole and at rest (fsdp: each rank's parts)
+    # parameters whole and at rest (this rank's model shards; under fsdp
+    # each data rank's parts of them)
     # ------------------------------------------------------------------ #
     def _template(self) -> Any:
         """The parameter tree with whole shapes (for ``params_from_jax``)."""
@@ -240,37 +326,61 @@ class CUDAManager:
     def _sharded_params(self) -> bool:
         return any(not s.replicated for s in self._rest_plan.values())
 
+    def _model_split(self) -> List[str]:
+        return [n for n, d in self._model_dims.items() if d is not None]
+
+    def _model_part(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """This rank's model shard of a whole tensor of parameter
+        ``name`` (the tensor itself where it is whole)."""
+        dim = self._model_dims.get(name)
+        if dim is None:
+            return value
+        return tensor.own_part(value, dim, "model")
+
     def _to_rest(self, tree: Any, prefix: str = "") -> Any:
         """Whole parameters (of the part ``prefix``, or all) as this rank
-        keeps them: its parts under fsdp, else as they are."""
-        if not self._sharded_params():
-            return tree
-
+        keeps them: its model shards, under fsdp its data parts of
+        those; each marked with the dim it is split along over the
+        model axis."""
         def cut(name, value):
+            value = self._model_part(name, value)
             shard = self._rest_plan[name]
-            if shard.replicated:
-                return value
-            return zero.region(value, shard, self.rank,
-                               self.world).contiguous().clone()
+            if not shard.replicated:
+                value = zero.region(value, shard, self.rank, self.world)
+            if value is not None and (
+                    not shard.replicated
+                    or self._model_dims.get(name) is not None):
+                value = value.contiguous().clone()
+            return tensor.mark_split(value, self._model_dims.get(name))
         return _map_leaves(cut, tree, prefix)
 
     def _whole(self, tree: Any) -> Any:
-        """A parameter set with every parameter whole: under fsdp every
-        rank's parts all-gathered into new tensors (a collective), else
-        ``tree`` itself."""
+        """A parameter set with every parameter's model shard whole over
+        the data axis: under fsdp every data rank's parts all-gathered
+        into new tensors (a collective), else ``tree`` itself."""
         if not self._sharded_params():
             return tree
         rest = flatten_tree(tree)
         whole = {name: (value if self._rest_plan[name].replicated else
-                        value.new_empty(self._meta[name].shape))
+                        value.new_empty(self._local_meta[name].shape))
                  for name, value in rest.items()}
         zero.gather_into(whole, self._rest_plan, rest)
-        return _map_leaves(lambda name, _: whole[name], tree)
+        return _map_leaves(lambda name, _: tensor.mark_split(
+            whole[name], self._model_dims.get(name)), tree)
 
     def whole_params(self) -> Dict[str, Any]:
-        """The first parameter set with every parameter whole (under fsdp
-        a collective: every rank calls it)."""
-        return self._whole(self.params)
+        """The first parameter set with every parameter whole, in one
+        process's shapes (over data and model ranks a collective: every
+        rank calls it)."""
+        params = self._whole(self.params)
+        if not self._model_split():
+            return params
+
+        def gather(name, value):
+            dim = self._model_dims.get(name)
+            return value if dim is None else tensor.all_gather(value, dim,
+                                                                "model")
+        return _map_leaves(gather, params)
 
     def load_part_checkpoint(self, part: ModelPart, path: str) -> None:
         """Warm-start ``part``'s parameters from the ``.npz`` at
@@ -465,12 +575,19 @@ class CUDAManager:
         label = self._trainer_label(trainer)
         if label not in self._updates:
             update = trainer.make_update()
-            meta = self._meta
+            if self._model_split() and not update.transform.elementwise:
+                raise NotImplementedError(
+                    "an optimizer whose update reduces over whole "
+                    "parameters (Adafactor) under num_model_shards > 1 is "
+                    "not ported to neuralmonkey_tpu_torch yet (ROADMAP "
+                    "queue A15, part 3)")
+            # this rank's model shards are what the update divides
+            meta = self._local_meta
             shapes = {name: m.shape for name, m in meta.items()}
             if not self.shard_optimizer_state:
                 plan = {name: zero.Shard() for name in shapes}
             elif update.transform.elementwise:
-                plan = zero.slice_plan(shapes, self.world)
+                plan = zero.slice_plan(shapes, self.world, self._model_dims)
             else:
                 plan = zero.owner_plan(shapes, self.world)
             local = {}
@@ -489,8 +606,9 @@ class CUDAManager:
                           if k.startswith(prefix)}
                 if set(staged) == set(update.init(meta)):
                     state_plan = self._state_plan(update, meta, plan)
-                    state = {k: self._state_part(staged[k], state_plan[k]
-                                                 ).to(v.device)
+                    dims = self._state_model_dims(update)
+                    state = {k: self._state_part(staged[k], state_plan[k],
+                                                 dims[k]).to(v.device)
                              for k, v in state.items()}
                     log(f"Optimizer state restored for trainer '{label}'")
                 else:
@@ -522,10 +640,23 @@ class CUDAManager:
                 state_plan[key] = shard
         return state_plan
 
-    def _state_part(self, value: np.ndarray, shard: "zero.Shard"
-                    ) -> torch.Tensor:
-        """This rank's part of a whole optimizer-state entry."""
+    def _state_model_dims(self, update) -> Dict[str, Optional[int]]:
+        """The model-axis split dim of each optimizer-state entry: its
+        parameter's, for the entries shaped as it (the elementwise
+        rules', the only ones ported under model shards)."""
+        dims = {key: None for key in update.init({})}
+        for name, m in self._local_meta.items():
+            for key in update.init({name: m}):
+                dims.setdefault(key, self._model_dims.get(name))
+        return dims
+
+    def _state_part(self, value: np.ndarray, shard: "zero.Shard",
+                    model_dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's part of a whole optimizer-state entry: its model
+        shard, then its data part."""
         whole = torch.from_numpy(np.array(value))
+        if model_dim is not None:
+            whole = tensor.own_part(whole, model_dim, "model")
         return zero.region(whole, shard, self.rank,
                            self.world).contiguous().clone()
 
@@ -558,7 +689,10 @@ class CUDAManager:
             p.requires_grad_(True)
         rng = fold_seed(self.seed, self.global_step)
         if self.world > 1:
-            # each rank draws its own dropout masks for its rows
+            # each data rank draws its own dropout masks for its rows; the
+            # ranks of a model or context group hold the same rows and
+            # draw the same masks (a split tensor folds in its part,
+            # ops/sharding.shard_seed)
             rng = fold_seed(rng, self.rank)
         split = getattr(batch, "split", False)
         mask_keys = [k for k in batch if k.endswith("train_mask")]
@@ -600,7 +734,7 @@ class CUDAManager:
             if part is not None:
                 targets[name] = part
         norm = update.apply(targets, grads, state, norm_of=lambda t: (
-            zero.sharded_norm(t, plan, self.device)))
+            zero.sharded_norm(t, plan, self.device, self._model_split())))
         # the reduced gradients go before the gather's buffers come
         del grads
         if self._sharded_params() and plan == self._rest_plan:
@@ -696,7 +830,8 @@ class CUDAManager:
         step = step if step is not None else self.global_step
         ckpt_path = f"{path}-{step}"
         host = zero.gather_to_host(flatten_tree(self.params),
-                                   self._rest_plan, self._meta, self.device)
+                                   self._rest_plan, self._local_meta,
+                                   self.device, model_dims=self._model_dims)
         params = _map_leaves(lambda name, _: host[name], self.params)
         combined = self._gather_optimizer_state()
         if not distributed.is_main_process():
@@ -735,16 +870,18 @@ class CUDAManager:
     def _gather_optimizer_state(self) -> Dict[str, np.ndarray]:
         """Every trainer's optimizer state, whole, in the port's own keys
         (``<trainer label>/<state>/<parameter>``) on the host; under
-        ZeRO every rank's parts all-gathered (collectives)."""
+        ZeRO or model shards every rank's parts all-gathered
+        (collectives)."""
         combined: Dict[str, np.ndarray] = {}
         for label, state in self._opt_states.items():
             update = self._updates[label]
-            whole_meta = update.init(self._meta)
+            local_meta = update.init(self._local_meta)
             host = zero.gather_to_host(
-                state, self._state_plan(update, self._meta,
+                state, self._state_plan(update, self._local_meta,
                                         self._update_plans[label]),
-                whole_meta, self.device)
-            for key in whole_meta:
+                local_meta, self.device,
+                model_dims=self._state_model_dims(update))
+            for key in local_meta:
                 combined[f"{label}/{key}"] = host[key].numpy()
         return combined
 

@@ -7,10 +7,13 @@ through their plain versions when the INI asks for it
 (``[tf_manager] device="cpu"``). ``--profile DIR`` writes a
 ``torch.profiler`` trace of the run to ``DIR/trace.json``.
 
-Data parallelism: one process per device, each started with
+Parallel training: one process per device, each started with
 ``NM_COORDINATOR_ADDRESS=host:port NM_NUM_PROCESSES=N NM_PROCESS_ID=i``
 (or under ``torchrun`` with ``NM_DISTRIBUTED=auto``); see
-``parallel/distributed.py``.
+``parallel/distributed.py``. The INI's ``[tf_manager]`` lays the
+processes out: ``num_model_shards`` (tensor parallelism, with
+``sequence_sharding``), ``num_context_shards`` (the ring attention),
+the rest data replicas (``shard_optimizer_state``, ``fsdp``).
 """
 
 from __future__ import annotations

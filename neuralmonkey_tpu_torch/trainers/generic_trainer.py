@@ -15,6 +15,7 @@ import torch
 
 from ..model.part import Context
 from ..parallel.distributed import param_term
+from ..parallel.tensor import whole_sum
 from ..utils.saving import flatten_tree
 from .optimizers import (Flat, clip_by_global_norm, global_norm,
                          resolve_optimizer)
@@ -110,13 +111,15 @@ class GenericTrainer:
         # terms of the parameters alone enter the ranks' summed gradient
         # once (distributed.param_term)
         if self.l1_weight or self.l2_weight:
+            # (a tensor-parallel shard's sum is summed over the model
+            # axis: tensor.whole_sum)
             leaves = list(flatten_tree(self._trainable(params)).values())
             if self.l1_weight:
                 total = total + param_term(self.l1_weight * sum(
-                    x.abs().sum() for x in leaves))
+                    whole_sum(x, x.abs().sum()) for x in leaves))
             if self.l2_weight:
                 total = total + param_term(self.l2_weight * sum(
-                    x.square().sum() for x in leaves))
+                    whole_sum(x, x.square().sum()) for x in leaves))
         return total, losses
 
     def _trainable(self, params):

@@ -2463,3 +2463,93 @@ def test_zero1_step_of_two_ranks_on_the_card_equals_one_rank(cuda_device,
         halved = [k for k, shape in got["trace"].items()
                   if shape != want["trace"][k]]
         assert halved and all(k.startswith("trace/") for k in halved)
+
+
+# ---------------------------------------------------------------------- #
+# tensor parallelism: two model ranks sharing the card over gloo
+# ---------------------------------------------------------------------- #
+def tp_card_step(directory):
+    """One step of a width-64, 4-head Transformer split over the ranks'
+    model axis (one process: whole) on ``cuda:0``, then a beam-4 decode:
+    the loss, the parameters after the step (gathered whole), the ids and
+    the kernels' launches (each rank attends over its 2 heads)."""
+    import torch.distributed as dist
+
+    from neuralmonkey_tpu_torch.dataset import Dataset
+    from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
+        BeamSearchDecoder
+    from neuralmonkey_tpu_torch.models.decoders.transformer import \
+        TransformerDecoder
+    from neuralmonkey_tpu_torch.models.encoders.transformer import \
+        TransformerEncoder
+    from neuralmonkey_tpu_torch.runners.beam_search_runner import \
+        BeamSearchRunner
+    from neuralmonkey_tpu_torch.runtime import CUDAManager
+    from neuralmonkey_tpu_torch.trainers.cross_entropy_trainer import \
+        CrossEntropyTrainer
+    from neuralmonkey_tpu_torch.trainers.optimizers import AdamOptimizer
+
+    del directory
+    shards = dist.get_world_size() if dist.is_initialized() else 1
+    # 2048 entries: beam search's hierarchical selector, through K4
+    vocab = Vocabulary([f"w{i}" for i in range(2044)])
+    enc = TransformerEncoder(name="encoder", vocabulary=vocab,
+                             data_id="source", embedding_size=64,
+                             ff_hidden_size=128, depth=2, n_heads=4,
+                             dropout_keep_prob=1.0)
+    dec = TransformerDecoder(name="decoder", vocabulary=vocab,
+                             data_id="target", encoders=[enc],
+                             embedding_size=64, ff_hidden_size=128, depth=2,
+                             n_heads_self=4, n_heads_enc=4,
+                             max_output_len=10, tie_embeddings=False,
+                             dropout_keep_prob=1.0)
+    trainer = CrossEntropyTrainer(decoders=[dec], clip_norm=1.0,
+                                  optimizer=AdamOptimizer(1e-3,
+                                                          epsilon=1e-4))
+    search = BeamSearchRunner(output_series="beam", decoder=BeamSearchDecoder(
+        name="search", parent_decoder=dec, beam_size=4))
+    manager = CUDAManager(device="cuda:0", num_model_shards=shards)
+    manager.initialize_model_parts([trainer, search], seed=3)
+    data = Dataset("toy", {
+        "source": [[f"w{(3 * j + i) % 56}" for i in range(j % 7 + 2)]
+                   for j in range(16)],
+        "target": [[f"w{(5 * j + i) % 56}" for i in range(j % 5 + 1)]
+                   for j in range(16)]})
+    kernel_config.reset_launch_counts()
+    loss = manager.train_on_batch(trainer, data, 16)["loss"]
+    ids = manager.run_on_batch([search], data, 16)[0].outputs
+    torch.cuda.synchronize()
+    return {"loss": loss, "ids": ids,
+            "launches": kernel_config.launch_counts(),
+            "heads": manager.params["decoder"]["layer_0"]["self_att"]["q"][
+                "w"].shape[1] // 16,
+            "params": {k: v.detach().cpu() for k, v in
+                       flatten_tree(manager.whole_params()).items()}}
+
+
+def test_tp_step_of_two_ranks_on_the_card_equals_one_rank(cuda_device,
+                                                          tmp_path):
+    """Two processes on ``cuda:0`` over gloo take one step of a
+    Transformer split over their model axis, flash attention's forward
+    and backward kernels on each rank's 2 of 4 heads, then decode with
+    beam search through K4 over the gathered vocabulary: the loss and
+    parameters of the same step in one process (1e-5), its ids."""
+    import test_torch_parallel as workers
+    del cuda_device
+    ranks = workers.run_ranks(str(tmp_path), ["tp_card_step"],
+                              module="test_torch_cuda")
+    want = tp_card_step(str(tmp_path))
+    assert want["heads"] == 4
+    for rank in ranks:
+        got = rank["tp_card_step"]
+        assert got["heads"] == 2
+        for kernel in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv", "small_topk"):
+            assert got["launches"][kernel] > 0, got["launches"]
+        # under a model axis K3 keeps its plain path, as in the JAX package
+        assert got["launches"]["fused_logits_rowmax_lse"] == 0
+        assert abs(got["loss"] - want["loss"]) <= 1e-5
+        for key, value in want["params"].items():
+            torch.testing.assert_close(got["params"][key], value, atol=1e-5,
+                                       rtol=0, msg=key)
+        assert got["ids"] == want["ids"]

@@ -335,7 +335,11 @@ def test_resolver_builds_port_modules_only():
         WordpiecePreprocessor
     assert resolve_class_symbol(
         "processors.wordpiece.WordpiecePreprocessor") is WordpiecePreprocessor
-    # the parallel/ modules stay unported (queue A15)
+    # the pipeline stays unported (queue A15, part 3); the ring is ported
     with pytest.raises(ImportError, match="not ported"):
-        resolve_class_symbol("neuralmonkey_tpu.parallel.ring_attention."
-                             "ring_attention")
+        resolve_class_symbol("neuralmonkey_tpu.parallel.pipeline."
+                             "gpipe_apply")
+    from neuralmonkey_tpu_torch.parallel.ring_attention import \
+        ring_attention
+    assert resolve_class_symbol("neuralmonkey_tpu.parallel.ring_attention."
+                                "ring_attention") is ring_attention

@@ -414,20 +414,21 @@ def ensemble(directory):
                         manager.run_on_batch([runner, search], ds, 16)]}
 
 
-def train_cli(directory):
-    """small.ini through the train CLI, each rank into its own output
-    directory, logging every step."""
+def train_cli(directory, extra=(), name="train", config="small.ini"):
+    """small.ini (or another INI of tests/configs) through the train CLI
+    with ``extra`` overrides, each rank into its own output directory,
+    logging every step."""
     rank = distributed.process_index()
-    out = os.path.join(directory, f"train{rank}")
+    out = os.path.join(directory, f"{name}{rank}")
     cwd = os.getcwd()
     os.chdir(REPO)  # small.ini's data paths
     try:
         code = torch_train.main([
-            os.path.join(REPO, "tests", "configs", "small.ini"),
+            os.path.join(REPO, "tests", "configs", config),
             'tf_manager.device="cpu"', f'main.output="{out}"',
             "main.epochs=1", "main.logging_period=1",
             "main.validation_period=1000", "encoder.dropout_keep_prob=1.0",
-            "decoder.dropout_keep_prob=1.0"])
+            "decoder.dropout_keep_prob=1.0", *extra])
     finally:
         os.chdir(cwd)
     records = []
@@ -449,8 +450,11 @@ CASE_WORDS = 30
 
 def case_series(kind):
     """Four sentences: the first two long, the last two short, so that
-    the halves the two ranks hold have different token counts."""
-    lengths = (7, 6, 2, 1)
+    the halves the two ranks hold have different token counts. The
+    ``transformer`` case's (``test_torch_model_axes_transformer_jax.py``)
+    longest source and target (with its start) are 8, so that two model
+    or context ranks divide their time axes."""
+    lengths = (8, 6, 2, 1) if kind == "transformer" else (7, 6, 2, 1)
     rng = np.random.RandomState(3)
     source = [[f"w{i}" for i in rng.randint(0, CASE_WORDS, n)]
               for n in lengths]
@@ -493,6 +497,18 @@ def build_case(kind, package):
             max_output_len=7, encoders=[enc], embedding_size=16,
             ff_hidden_size=24, depth=1, n_heads_self=2, n_heads_enc=2,
             **moe)
+        return xent_trainer(decoders=[dec], optimizer=sgd)
+    if kind == "transformer":
+        enc = cls("models.encoders.transformer", "TransformerEncoder")(
+            name="encoder", vocabulary=vocab, data_id="source",
+            embedding_size=16, ff_hidden_size=32, depth=2, n_heads=4,
+            max_input_len=8, dropout_keep_prob=1.0)
+        dec = cls("models.decoders.transformer", "TransformerDecoder")(
+            name="decoder", vocabulary=vocab, data_id="target",
+            max_output_len=8, encoders=[enc], embedding_size=16,
+            ff_hidden_size=32, depth=2, n_heads_self=4, n_heads_enc=4,
+            tie_embeddings=False, label_smoothing=0.1,
+            dropout_keep_prob=1.0)
         return xent_trainer(decoders=[dec], optimizer=sgd)
     enc = cls("models.encoders.recurrent", "SentenceEncoder")(
         name="encoder", vocabulary=vocab, data_id="source",
@@ -897,6 +913,10 @@ def test_parallel_imports_no_jax():
     code = ("import sys\n"
             "import neuralmonkey_tpu_torch.parallel.distributed\n"
             "import neuralmonkey_tpu_torch.parallel.zero\n"
+            "import neuralmonkey_tpu_torch.parallel.mesh\n"
+            "import neuralmonkey_tpu_torch.parallel.tensor\n"
+            "import neuralmonkey_tpu_torch.parallel.ring_attention\n"
+            "import neuralmonkey_tpu_torch.ops.sharding\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith(('jax.', 'neuralmonkey_tpu.')) or "
             "k == 'neuralmonkey_tpu']\n"
@@ -912,6 +932,14 @@ def test_parallel_imports_no_jax():
 def test_data_axis_is_the_jax_rule(shape, world, dim):
     """The largest dim the ranks divide, the first of equal ones."""
     assert zero.data_axis(shape, world) == dim
+
+
+@pytest.mark.parametrize("shape,skip,dim", [
+    ((64, 32), 0, 1), ((32, 64), 1, 0), ((64, 7), 0, None)])
+def test_data_axis_skips_the_model_split_dim(shape, skip, dim):
+    """Under a model axis the data axis takes the largest dim still free
+    (``_add_data_axis``), never the one split over the model axis."""
+    assert zero.data_axis(shape, 2, skip) == dim
 
 
 def test_fsdp_with_pipeline_stages_raises():

@@ -13,7 +13,10 @@ gradients are summed). Loss and updated parameters agree within 1e-5
 for the cross-entropy, its l2 term, the labeler, CTC, the self-critical
 objective (the port's sampler replays the JAX package's draws) and a
 MoE Transformer's balance and z terms; the cross-entropy also under
-ZeRO-1 and FSDP. The ranks are started from ``test_torch_parallel``.
+ZeRO-1 and FSDP. The ranks are started from ``test_torch_parallel``;
+``test_torch_model_axes_jax.py`` and
+``test_torch_model_axes_transformer_jax.py`` hold the cases under the
+model and context axes.
 """
 
 import jax
@@ -75,23 +78,31 @@ def _reference(kind):
                                           for k, v in new.items()}
 
 
-@pytest.fixture(scope="module")
-def steps(tmp_path_factory):
-    references = {kind: _reference(kind) for kind in workers.CASES}
+def run_cases(tmp_path_factory, runs):
+    """The JAX references of ``runs``' cases, and the two ranks' steps of
+    every run."""
+    kinds = sorted({kind for _, kind, _ in runs})
+    references = {kind: _reference(kind) for kind in kinds}
     for flat, batch, _, _, _ in references.values():
         # the halves differ in their tokens
         masks = [v for k, v in batch.items() if k.endswith("mask")]
         assert masks and masks[0][:2].sum() != masks[0][2:].sum()
     cases = [(name, kind, *references[kind][:3], kwargs)
-             for name, kind, kwargs in RUNS]
+             for name, kind, kwargs in runs]
     ranks = workers.run_ranks(str(tmp_path_factory.mktemp("global")),
                               ["global_losses"], (cases,))
     return references, [r["global_losses"] for r in ranks]
 
 
-@pytest.mark.parametrize("name,kind", [(name, kind)
-                                       for name, kind, _ in RUNS])
-def test_two_ranks_take_the_jax_one_device_step(steps, name, kind):
+@pytest.fixture(scope="module")
+def steps(tmp_path_factory):
+    return run_cases(tmp_path_factory, RUNS)
+
+
+def check_step(steps, name, kind):
+    """Every rank's losses and updated parameters of run ``name``: the
+    JAX package's one-device step of ``kind`` (1e-5); both ranks
+    computed the global loss."""
     references, ranks = steps
     _, _, _, want_losses, want_params = references[kind]
     for rank in ranks:
@@ -104,6 +115,12 @@ def test_two_ranks_take_the_jax_one_device_step(steps, name, kind):
                                        rtol=0, err_msg=f"{name}: {key}")
     # every rank computed the global loss
     assert ranks[0][name]["losses"] == ranks[1][name]["losses"]
+
+
+@pytest.mark.parametrize("name,kind", [(name, kind)
+                                       for name, kind, _ in RUNS])
+def test_two_ranks_take_the_jax_one_device_step(steps, name, kind):
+    check_step(steps, name, kind)
 
 
 def test_moe_case_has_balance_and_z_terms(steps):

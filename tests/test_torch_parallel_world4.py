@@ -1,0 +1,147 @@
+"""The model, context and data axes together at four gloo ranks on the
+CPU: data parallelism over two replicas of a model split over two model
+ranks (DP 2 x TP 2) under ZeRO-1 and under FSDP, then a model split
+over two model ranks and two context ranks (TP 2 x CP 2, the ring on
+the heads each rank holds). The one group of four ranks of the tier-1
+tests; every run is one process's (losses, norms and parameters after
+two steps to 1e-5, greedy and beam ids equal). The model is
+``test_torch_tensor_parallel``'s Transformer on sentences of 6 and 3
+words (time axes of 8 after bucketing, so both context ranks hold 4
+steps).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from neuralmonkey_tpu_torch.parallel import distributed, ring_attention
+from neuralmonkey_tpu_torch.runtime import CUDAManager
+from neuralmonkey_tpu_torch.utils.saving import load_flat
+
+import test_torch_parallel as harness
+import test_torch_tensor_parallel as tp_tests
+
+torch.set_num_threads(1)
+
+ATOL = 1e-5
+WORLD = 4
+MODES = {"dp_tp_zero1": {"num_model_shards": 2,
+                         "shard_optimizer_state": True},
+         "dp_tp_fsdp": {"num_model_shards": 2, "fsdp": True},
+         "tp_cp": {"num_model_shards": 2, "num_context_shards": 2}}
+
+
+def run(directory=None, **kwargs):
+    """Two steps and both decodes; with ``kwargs`` on the ranks, alone
+    the one-process run; with a ``directory`` the checkpoint after them
+    (rank 0 writes)."""
+    calls = {"n": 0}
+    real = ring_attention.ring_attention
+
+    def counted(*args, **kw):
+        calls["n"] += 1
+        return real(*args, **kw)
+    ring_attention.ring_attention = counted
+    try:
+        trainer, runner, search = tp_tests.build("w4")
+        manager = CUDAManager(device="cpu", random_seed=0, **kwargs)
+        manager.initialize_model_parts([trainer, runner, search], seed=0)
+        ds = tp_tests.dataset(src=6, tgt=3)
+        out = [manager.train_on_batch(trainer, ds, 16) for _ in range(2)]
+        decodes = manager.run_on_batch([runner, search], ds, 16)
+        ckpt = (manager.save(os.path.join(
+            directory, f"ck{distributed.process_index()}", "variables.data"))
+            if directory else None)
+    finally:
+        ring_attention.ring_attention = real
+    return {"losses": [o["loss"] for o in out],
+            "norms": [o["grad_norm"] for o in out],
+            "params": tp_tests.whole(manager),
+            "greedy": decodes[0].outputs, "beam": decodes[1].outputs,
+            "ring_calls": calls["n"], "ckpt": ckpt,
+            "mesh": manager.mesh.shape,
+            "emb": tuple(manager.params["w4_src_input"]["embeddings"].shape),
+            "ff_in": tuple(manager.params["w4_src"]["layer_0"]["ff"]["in"][
+                "w"].shape)}
+
+
+def world4(directory):
+    assert distributed.process_count() == WORLD
+    return {mode: run(os.path.join(directory, mode) if "fsdp" in kwargs
+                      else None, **kwargs)
+            for mode, kwargs in MODES.items()}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    return [r["world4"] for r in harness.run_ranks(
+        str(tmp_path_factory.mktemp("world4")), ["world4"],
+        module=__name__, world=WORLD)]
+
+
+@pytest.fixture(scope="module")
+def single(tmp_path_factory):
+    assert not distributed.is_initialized()
+    return run(str(tmp_path_factory.mktemp("world4_single")))
+
+
+def _same_run(got, want):
+    np.testing.assert_allclose(got["losses"], want["losses"], atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(got["norms"], want["norms"], atol=ATOL,
+                               rtol=0)
+    assert set(got["params"]) == set(want["params"])
+    for key, value in want["params"].items():
+        np.testing.assert_allclose(got["params"][key].numpy(), value.numpy(),
+                                   atol=ATOL, rtol=0, err_msg=key)
+    assert got["greedy"] == want["greedy"]
+    assert got["beam"] == want["beam"]
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_four_ranks_match_one_process(ranks, single, mode):
+    """Each layout of four ranks trains and decodes as one process; the
+    ring runs only where a context axis is."""
+    for result in ranks:
+        got = result[mode]
+        _same_run(got, single)
+        assert (got["ring_calls"] > 0) == (mode == "tp_cp")
+
+
+def test_four_rank_layouts(ranks):
+    """The meshes, and the shards each rank holds at rest: the embedding
+    table's vocabulary halved over the model axis (and under FSDP its
+    free dim over the data axis), the FFN's hidden columns halved over
+    the model axis (and its rows over the data axis under FSDP)."""
+    for result in ranks:
+        assert result["dp_tp_zero1"]["mesh"] == {"data": 2, "model": 2}
+        assert result["tp_cp"]["mesh"] == {"data": 1, "context": 2,
+                                           "model": 2}
+        assert result["dp_tp_zero1"]["emb"] == (16, 16)
+        assert result["dp_tp_fsdp"]["emb"] == (16, 8)
+        assert result["dp_tp_zero1"]["ff_in"] == (16, 16)
+        assert result["dp_tp_fsdp"]["ff_in"] == (8, 16)
+
+
+def test_dp_tp_fsdp_checkpoint_is_one_process_layout(ranks, single):
+    """Parameters split over both the model and the data axes gather into
+    rank 0's checkpoint and its optimizer state with one process's keys,
+    shapes and (after the same two steps) values."""
+    want = load_flat(single["ckpt"])
+    want_opt = load_flat(os.path.join(os.path.dirname(single["ckpt"]),
+                                      "variables.data.opt"))
+    path = ranks[0]["dp_tp_fsdp"]["ckpt"]
+    got = load_flat(path)
+    got_opt = load_flat(os.path.join(os.path.dirname(path),
+                                     "variables.data.opt"))
+    for reference, flat in ((want, got), (want_opt, got_opt)):
+        assert list(flat) == list(reference)
+        for key, value in reference.items():
+            assert flat[key].shape == value.shape, key
+            np.testing.assert_allclose(flat[key], value, atol=ATOL, rtol=0,
+                                       err_msg=key)
+    for rank in ranks[1:]:
+        written = os.path.dirname(rank["dp_tp_fsdp"]["ckpt"])
+        assert not os.path.isdir(written) or not os.listdir(written)

@@ -501,7 +501,11 @@ def test_transformer_bpe_example_through_the_clis(tmp_path):
 
 
 def test_context_parallel_settings_raise():
-    with pytest.raises(NotImplementedError, match="context parallelism"):
+    """Context parallelism is ported (tests/test_torch_context_parallel.py);
+    in one process a context axis of 2 does not divide the world: the
+    JAX package's error."""
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible by context=2"):
         CUDAManager(device="cpu", num_context_shards=2)
 
 
