@@ -176,9 +176,9 @@ Phases (any failure raises and the script exits non-zero):
    convolutions of 64, a 2 x 2 max-pool, a strided 3 x 3 convolution of
    128, instance norm) against the CPU; sentence_cnn.ini and
    classifier.ini train on the card to their gates;
-22. MoE: bench.py's Transformer with 8 experts, top-2 routing at capacity
-   factor 1.5 in every FFN, decodes the 128 sentences greedily and with
-   beam 10 through ``run`` in both lineage forms, 8 of them against the
+22. MoE: bench.py's Transformer cut to 2 + 2 layers with 8 experts,
+   top-2 routing at capacity factor 1.5 in every FFN, decodes the 128
+   sentences greedily and with beam 10 through ``run`` in both lineage forms, 8 of them against the
    CPU by phase 5's rule in each form; it trains 8 steps of
    ``DelayedUpdateTrainer`` (k = 2, noam, router noise 0.01, z-loss
    0.001) through ``train`` with a falling loss, and one step with the
@@ -310,6 +310,26 @@ Phases (any failure raises and the script exits non-zero):
    by each rank), to phase 4's ids by phase 5's rule. Prints each rank's
    memory peak, its bytes at rest and the tokens/s of (a) and of (b),
    the latter two ranks time-sharing one card (not scaling).
+29. the model axes: phase 11's Transformer with dropout off, 4 steps
+   (batch 64) in one process and on two ranks sharing the card over
+   gloo, under TP 2 with sequence sharding and under CP 2 (step-1 loss
+   and parameters within 1e-5 of one process's), and phase 9's first
+   batch decoded under TP 2 by phase 5's rule; the flash kernels and K4
+   checked at a rank's 4 heads just after phase 3.
+30. the pipe and expert axes: phase 11's Transformer with its layers
+   stacked for 2 pipeline stages and 4 microbatches, and phase 22's
+   Transformer with 8 experts (router noise and dropout off), 4 steps
+   (batch 64) each in one process and on two ranks sharing the card
+   over gloo, over a pipe axis of 2 and over an expert axis of 2:
+   step-1 loss and parameters within 1e-5 of one process's, both ranks'
+   losses equal, the flash kernels launched by each rank, 3 layers a
+   stage and 4 experts a rank at rest; phase 9's checkpoint in the
+   stacked layout decodes phase 9's first batch over the pipe axis
+   (greedy and beam 10, the flash forward, K3 and K4 launched by each
+   rank) to phase 9's ids by phase 5's rule. Prints each rank's bytes
+   at rest and peak and their share of one process's, tokens/s (two
+   ranks time-sharing one card: not scaling) and the kernels' launches
+   on the ranks.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -3287,14 +3307,15 @@ warmup_steps=10
 
 
 def write_transformer_ini(tmp: str, name: str, main_section: str,
-                          keep: float, att_keep: float) -> str:
+                          keep: float, att_keep: float,
+                          depth: int = T_DEPTH) -> str:
     """bench.py's Transformer (``build_transformer``) as an INI over the
     smoke's 30000 words: 512 wide, FFN 2048, 6 + 6 layers, 8 heads,
     tied target embeddings, label smoothing 0.1, beam 10 with length
     normalisation 0.6, 48 output steps."""
     path = os.path.join(tmp, name)
     sizes = dict(tmp=tmp, batch=BATCH, seed=SEED, dim=T_DIM, ff=T_FF,
-                 depth=T_DEPTH, heads=T_HEADS, src_len=SRC_LEN,
+                 depth=depth, heads=T_HEADS, src_len=SRC_LEN,
                  max_out=MAX_OUT, beam=BEAM, keep=keep, att_keep=att_keep)
     with open(path, "w") as f:
         f.write(main_section.format(**sizes) + T_MODEL_INI.format(**sizes))
@@ -4334,7 +4355,9 @@ def check_cnn(tmp: str, device):
     return launches, report
 
 
-MOE_EXPERTS, MOE_TRAIN_STEPS = 8, 8
+# the MoE Transformer's depth cut from bench.py's 6 + 6 to keep the
+# smoke's time (its width and experts as they are)
+MOE_EXPERTS, MOE_TRAIN_STEPS, MOE_DEPTH = 8, 8, 2
 MOE_OPTIONS = """\
 moe_experts={experts}
 moe_top_k=2
@@ -4346,16 +4369,24 @@ moe_z_loss_weight=0.001
 
 def write_moe_ini(tmp: str, name: str, main_section: str, keep: float,
                   att_keep: float, noise: float) -> str:
-    """bench.py's Transformer (``write_transformer_ini``) with a mixture
-    of 8 experts, top-2 at capacity factor 1.5, in every FFN."""
-    path = write_transformer_ini(tmp, name, main_section, keep, att_keep)
+    """bench.py's Transformer (``write_transformer_ini``) at MOE_DEPTH
+    layers a part with a mixture of 8 experts, top-2 at capacity factor
+    1.5, in every FFN."""
+    path = write_transformer_ini(tmp, name, main_section, keep, att_keep,
+                                 MOE_DEPTH)
+    return add_part_options(path, MOE_OPTIONS.format(experts=MOE_EXPERTS,
+                                                     noise=noise))
+
+
+def add_part_options(path: str, options: str) -> str:
+    """Add ``options`` (INI lines) to both Transformer parts of the INI at
+    ``path``."""
     with open(path) as f:
         text = f.read()
-    options = MOE_OPTIONS.format(experts=MOE_EXPERTS, noise=noise)
     for key in ("n_heads", "n_heads_self"):
         line = f"\n{key}={T_HEADS}\n"
         if text.count(line) != 1:
-            raise AssertionError(f"{name}: no single {line.strip()}")
+            raise AssertionError(f"{path}: no single {line.strip()}")
         text = text.replace(line, line + options)
     with open(path, "w") as f:
         f.write(text)
@@ -6874,7 +6905,8 @@ def ma_train(ini: str, changes, ref: str = None, peak_without_sp=False):
 
 
 def ref_path(ini: str) -> str:
-    return os.path.join(os.path.dirname(ini), "ma_ref_params.pt")
+    """Where one process's parameters after step 1 of ``ini`` are kept."""
+    return os.path.splitext(ini)[0] + "_ref_params.pt"
 
 
 def ma_rank(rank: int, tmp: str, ini: str, port: int, t_ini: str,
@@ -7033,12 +7065,58 @@ def local_heads_times(name, q, k, v, g, mask, out, lse, bwd):
             "bound_by": by}
 
 
-def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
-    """Phase 29. Returns (the launches of its main-path runs, report)."""
+def phase9_decode(tmp: str, prefix: str, t_ini: str, t_ckpt: str,
+                  failures) -> dict:
+    """Two ranks' decode of phase 9's first batch (``{prefix}greedy.txt``,
+    ``{prefix}beam.txt`` and each rank's ``{prefix}beam_r<r>.pt``)
+    against phase 9's by phase 5's rule; each fault appended to
+    ``failures``. Returns the rows that differ and the beam's parity."""
     import numpy as np
     import torch
 
     from neuralmonkey_tpu_torch.dataset import from_dict
+
+    with open(os.path.join(tmp, f"{prefix}source.txt")) as f:
+        sources = f.read().splitlines()
+    differ = {}
+    for name in ("greedy", "beam"):
+        with open(os.path.join(tmp, f"{prefix}phase9_t_{name}.txt")) as f:
+            want = f.read().splitlines()
+        with open(os.path.join(tmp, f"{prefix}{name}.txt")) as f:
+            got = f.read().splitlines()
+        if not len(got) == len(want) == BATCH:
+            failures.append(f"decode: {len(got)} {name} lines")
+        differ[name] = {i: (w, g) for i, (w, g) in enumerate(zip(want, got))
+                        if w != g}
+    greedy_gaps = {i: greedy_gap(t_ini, t_ckpt, sources[i].split(),
+                                 w.split(), g.split())
+                   for i, (w, g) in differ["greedy"].items()}
+    if not all(gap < MARGIN for gap in greedy_gaps.values()):
+        failures.append(f"decode: greedy ids differ from phase 9's where "
+                        f"the CPU's gap is not below {MARGIN}: "
+                        f"{greedy_gaps}")
+    logs = [torch.load(os.path.join(tmp, f"{prefix}beam_r{r}.pt"),
+                       weights_only=False) for r in range(2)]
+    if not (len(logs[0]["ids"]) == len(logs[1]["ids"]) and all(
+            np.array_equal(a, b) for a, b in zip(logs[0]["ids"],
+                                                  logs[1]["ids"]))):
+        failures.append("decode: the ranks collected different beam ids")
+    beam_parity = None
+    if differ["beam"] and not failures:
+        rows = sorted(differ["beam"])
+        beam_parity = check_parity(
+            t_ini, None, None, t_ckpt,
+            from_dict({"source": [sources[i].split() for i in rows]}),
+            card=([[p[i] for p in logs[0]["picks"][0]] for i in rows],
+                  [logs[0]["ids"][0][i] for i in rows]))
+    return {"greedy_differing_from_phase_9": greedy_gaps,
+            "beam_differing_from_phase_9": sorted(differ["beam"]),
+            "beam_parity": beam_parity}
+
+
+def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
+    """Phase 29. Returns (the launches of its main-path runs, report)."""
+    import numpy as np
 
     del device
     seconds = {}
@@ -7096,35 +7174,7 @@ def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
               f"rank {rank} TP at rest {result['tp_sp']['at_rest_bytes']} "
               f"against {base['at_rest_bytes']}")
 
-    # the decode against phase 9's by phase 5's rule
-    with open(os.path.join(tmp, "ma_source.txt")) as f:
-        sources = f.read().splitlines()
-    differ = {}
-    for name in ("greedy", "beam"):
-        with open(os.path.join(tmp, f"ma_phase9_t_{name}.txt")) as f:
-            want = f.read().splitlines()
-        with open(os.path.join(tmp, f"ma_{name}.txt")) as f:
-            got = f.read().splitlines()
-        check(len(got) == len(want) == BATCH,
-              f"decode: {len(got)} {name} lines")
-        differ[name] = {i: (w, g) for i, (w, g) in enumerate(zip(want, got))
-                        if w != g}
-    greedy_gaps = {i: greedy_gap(t_ini, t_ckpt, sources[i].split(),
-                                 w.split(), g.split())
-                   for i, (w, g) in differ["greedy"].items()}
-    check(all(gap < MARGIN for gap in greedy_gaps.values()),
-          f"decode: greedy ids differ from phase 9's where the CPU's gap "
-          f"is not below {MARGIN}: {greedy_gaps}")
-    logs = [torch.load(os.path.join(tmp, f"ma_beam_r{r}.pt"),
-                       weights_only=False) for r in range(2)]
-    beam_parity = None
-    if differ["beam"] and not failures:
-        rows = sorted(differ["beam"])
-        beam_parity = check_parity(
-            t_ini, None, None, t_ckpt,
-            from_dict({"source": [sources[i].split() for i in rows]}),
-            card=([[p[i] for p in logs[0]["picks"][0]] for i in rows],
-                  [logs[0]["ids"][0][i] for i in rows]))
+    decode = phase9_decode(tmp, "ma_", t_ini, t_ckpt, failures)
     if failures:
         raise AssertionError("model axes: " + "; ".join(failures))
 
@@ -7158,12 +7208,235 @@ def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
         "train_tokens_per_sec_note": "two ranks time-sharing one card: "
                                      "not scaling",
         "decode": {"seconds": [r["decode"]["seconds"] for r in ranks],
-                   "greedy_differing_from_phase_9": greedy_gaps,
-                   "beam_differing_from_phase_9": sorted(differ["beam"]),
-                   "beam_parity": beam_parity}})
+                   **decode}})
     report["launches_on_the_ranks"] = launches_by_kernel
     log(f"model axes ({smi}; two ranks time-sharing one card, not "
         f"scaling): {report}")
+    return launches, report
+
+
+# ---------------------------------------------------------------------- #
+# phase 30: the pipe and expert axes
+# ---------------------------------------------------------------------- #
+PE_STAGES, PE_MICROBATCHES, PE_EXPERT_SHARDS = 2, 4, 2
+PE_TIMEOUT = 300.0
+PE_DECODE_KERNELS = ("flash_attention_fwd", "fused_logits_rowmax_lse",
+                     "small_topk")
+# each rank's parameter bytes at rest, as a share of one process's: the
+# two 30000 x 512 embedding tables stay whole on every rank
+PE_AT_REST_SHARE = 0.75
+PE_MAIN = MA_MAIN.replace("chip smoke model axes",
+                          "chip smoke pipe and expert axes").replace(
+                              "ma_out", "pe_out")
+PE_DATA_INI = MA_DATA_INI.replace("ma_", "pe_")
+PP_OPTIONS = """\
+pipeline_stages={stages}
+pipeline_microbatches={micro}
+"""
+
+
+def stack_checkpoint(src: str, dst: str) -> str:
+    """Phase 9's checkpoint in the pipeline's stacked layout: each part's
+    ``layer_<i>/<leaf>`` stacked into ``layers/<leaf>`` (the JAX package's
+    keys for ``pipeline_stages``)."""
+    import re
+
+    import numpy as np
+
+    from neuralmonkey_tpu_torch.utils.saving import load_flat
+
+    flat = load_flat(src)
+    stacked, layers = {}, {}
+    for key, value in flat.items():
+        match = re.fullmatch(r"(.+)/layer_(\d+)/(.+)", key)
+        if match is None:
+            stacked[key] = value
+        else:
+            part, index, leaf = match.groups()
+            layers.setdefault(f"{part}/layers/{leaf}", {})[int(index)] = value
+    for key, by_index in layers.items():
+        stacked[key] = np.stack([by_index[i] for i in sorted(by_index)])
+    with open(dst, "wb") as f:
+        np.savez(f, **stacked)
+    return dst
+
+
+def split_bytes(manager) -> int:
+    """The bytes of this rank's parts of the parameters split over the
+    pipe or expert axis."""
+    from neuralmonkey_tpu_torch.utils.saving import flatten_tree
+    return sum(v.numel() * v.element_size() for name, v in
+               flatten_tree(manager.params).items()
+               if manager._split[name])
+
+
+def pe_rank(rank: int, tmp: str, pp_ini: str, moe_ini: str, port: int,
+            stacked_ckpt: str, result: str) -> None:
+    """Phase 30 on rank ``rank`` of two sharing the card over gloo: (a)
+    MA_STEPS steps of the stacked Transformer over a pipe axis of two,
+    (b) phase 9's first batch decoded (greedy and beam 10) by it from
+    phase 9's checkpoint in the stacked layout, (c) MA_STEPS steps of the
+    MoE Transformer over an expert axis of two."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.ops import kernel_config
+    from neuralmonkey_tpu_torch.parallel import distributed
+
+    card_settings()
+    distributed.maybe_initialize(f"127.0.0.1:{port}", 2, rank,
+                                 backend="gloo")
+    on_card = ['tf_manager.device="cuda:0"']
+    report = {}
+    report["pp"], exp = ma_train(
+        pp_ini, on_card + [f"tf_manager.num_pipeline_stages={PE_STAGES}"],
+        ref_path(pp_ini))
+    report["pp"]["layers_at_rest"] = exp.tf_manager.params["encoder"][
+        "layers"]["att"]["q"]["w"].shape[0]
+    report["pp"]["split_bytes"] = split_bytes(exp.tf_manager)
+    exp.tf_manager.restore(stacked_ckpt)
+    picks, ids = record_beam(exp)
+    kernel_config.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for dataset in run.load_data_config(os.path.join(tmp, "pe_data.ini")):
+        exp.run_model(dataset, write_out=True)
+    torch.cuda.synchronize()
+    report["decode"] = {"seconds": time.perf_counter() - start,
+                        "launches": kernel_config.launch_counts()}
+    torch.save({"picks": picks, "ids": ids},
+               os.path.join(tmp, f"pe_beam_r{rank}.pt"))
+    del exp
+    gc_card()
+    report["ep"], exp = ma_train(
+        moe_ini, on_card + [f"tf_manager.num_expert_shards="
+                            f"{PE_EXPERT_SHARDS}"], ref_path(moe_ini))
+    report["ep"]["experts_at_rest"] = exp.tf_manager.params["encoder"][
+        "layer_0"]["ff"]["in"]["w"].shape[0]
+    report["ep"]["split_bytes"] = split_bytes(exp.tf_manager)
+    del exp
+    torch.distributed.destroy_process_group()
+    with open(result, "w") as f:
+        json.dump(report, f)
+
+
+def check_pipe_and_expert_axes(tmp: str, t_ini: str, t_ckpt: str,
+                               smi: str):
+    """Phase 30. Returns (the launches of its main-path runs, report)."""
+    import numpy as np
+
+    seconds = {}
+    report = {"seconds": seconds, "device": smi}
+    pp_ini = add_part_options(
+        write_transformer_ini(tmp, "pe_pp.ini", PE_MAIN, 1.0, 1.0),
+        PP_OPTIONS.format(stages=PE_STAGES, micro=PE_MICROBATCHES))
+    moe_ini = write_moe_ini(tmp, "pe_moe.ini", PE_MAIN, 1.0, 1.0, 0.0)
+    stacked = stack_checkpoint(t_ckpt, os.path.join(tmp, "pe_stacked.npz"))
+    first_lines(tmp, ("source.txt", "phase9_t_greedy.txt",
+                      "phase9_t_beam.txt"), BATCH, "pe_")
+    with open(os.path.join(tmp, "pe_data.ini"), "w") as f:
+        f.write(PE_DATA_INI.format(tmp=tmp))
+    base = {}
+    for name, ini in (("pp", pp_ini), ("ep", moe_ini)):
+        base[name], exp = timed(seconds, f"one process ({name})", ma_train,
+                                ini, ['tf_manager.device="cuda:0"'])
+        del exp
+        gc_card()
+    port = free_port()
+    results = [os.path.join(tmp, f"pe{r}.json") for r in range(2)]
+    timed(seconds, "two gloo ranks on one card", run_ranks, [
+        (pe_rank, (r, tmp, pp_ini, moe_ini, port, stacked, results[r]))
+        for r in range(2)], PE_TIMEOUT)
+    ranks = []
+    for path in results:
+        with open(path) as f:
+            ranks.append(json.load(f))
+
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+
+    for name in ("pp", "ep"):
+        for rank, result in enumerate(ranks):
+            got = result[name]
+            check(abs(got["losses"][0] - base[name]["losses"][0])
+                  <= DP_LOSS_ATOL,
+                  f"{name} rank {rank}: step-1 loss {got['losses'][0]} "
+                  f"against one process's {base[name]['losses'][0]}")
+            check(got["param_gap_after_step_1"] <= DP_LOSS_ATOL,
+                  f"{name} rank {rank}: parameters after step 1 "
+                  f"{got['param_gap_after_step_1']} from one process's")
+            check(all(np.isfinite(got["losses"])), f"{name}: {got['losses']}")
+            missing = [k for k in FLASH_KERNELS if not got["launches"][k]]
+            check(not missing, f"{name} rank {rank}: never launched "
+                               f"{missing}")
+            # the split parameters halved, the rest whole
+            check(got["at_rest_bytes"]["params"] + got["split_bytes"]
+                  == base[name]["at_rest_bytes"]["params"]
+                  and got["at_rest_bytes"]["params"] <= PE_AT_REST_SHARE
+                  * base[name]["at_rest_bytes"]["params"],
+                  f"{name} rank {rank}: at rest {got['at_rest_bytes']}, "
+                  f"split {got['split_bytes']}, against "
+                  f"{base[name]['at_rest_bytes']}")
+        check(ranks[0][name]["losses"] == ranks[1][name]["losses"],
+              f"{name}: the ranks' losses differ")
+    for rank, result in enumerate(ranks):
+        check(result["pp"]["layers_at_rest"] == T_DEPTH // PE_STAGES,
+              f"rank {rank}: {result['pp']['layers_at_rest']} layers")
+        check(result["ep"]["experts_at_rest"]
+              == MOE_EXPERTS // PE_EXPERT_SHARDS,
+              f"rank {rank}: {result['ep']['experts_at_rest']} experts")
+        missing = [k for k in PE_DECODE_KERNELS
+                   if not result["decode"]["launches"][k]]
+        check(not missing, f"rank {rank} decode: never launched {missing}")
+
+    decode = phase9_decode(tmp, "pe_", t_ini, t_ckpt, failures)
+    if failures:
+        raise AssertionError("pipe and expert axes: " + "; ".join(failures))
+
+    launches = None
+    for result in ranks:
+        for name in ("pp", "ep", "decode"):
+            launches = add_launches(launches, result[name]["launches"])
+    for record in base.values():
+        launches = add_launches(launches, record["launches"])
+    launches_by_kernel = {name: sum(
+        r[key]["launches"][name] for r in ranks
+        for key in ("pp", "ep", "decode"))
+        for name in FLASH_KERNELS + PE_DECODE_KERNELS[1:]}
+    keys = ("losses", "peak_bytes", "at_rest_bytes", "train_tokens_per_sec",
+            "param_gap_after_step_1")
+
+    def share(rank_record, name, key):
+        return (rank_record[key]["params"] / base[name][key]["params"]
+                if key == "at_rest_bytes"
+                else max(rank_record[key]) / max(base[name][key]))
+    report.update({
+        "steps": MA_STEPS, "batch": BATCH, "source": SRC_LEN,
+        "target": TGT_LEN, "stages": PE_STAGES,
+        "microbatches": PE_MICROBATCHES, "experts": MOE_EXPERTS,
+        "expert_shards": PE_EXPERT_SHARDS,
+        "one_process": {name: {k: record[k] for k in keys if k in record}
+                        for name, record in base.items()},
+        **{f"{name}2": [{**{k: r[name][k] for k in keys},
+                         "params_at_rest_share": share(
+                             r[name], name, "at_rest_bytes"),
+                         "peak_share": share(r[name], name, "peak_bytes"),
+                         "loss_gaps_steps_2_to_4": [
+                             abs(a - b) for a, b in zip(
+                                 r[name]["losses"][1:],
+                                 base[name]["losses"][1:])]}
+                        for r in ranks]
+           for name in ("pp", "ep")},
+        "train_tokens_per_sec_note": "two ranks time-sharing one card: "
+                                     "not scaling",
+        "decode": {"seconds": [r["decode"]["seconds"] for r in ranks],
+                   **decode}})
+    report["launches_on_the_ranks"] = launches_by_kernel
+    log(f"pipe and expert axes ({smi}; two ranks time-sharing one card, "
+        f"not scaling): {report}")
     return launches, report
 
 
@@ -7334,6 +7607,12 @@ def main() -> int:
         launches = add_launches(launches, ma_launches)
         for name, count in model_axes["launches_on_the_ranks"].items():
             local_heads[name]["launches_in_phase_29"] = count
+        pe_launches, pipe_expert = phase(
+            "pipe and expert axes", check_pipe_and_expert_axes, tmp, t_ini,
+            t_ckpt, smi)
+        launches = add_launches(launches, pe_launches)
+        for name, count in pipe_expert["launches_on_the_ranks"].items():
+            kernels[name]["launches_in_phase_30"] = count
         # the rates of the same paths in float32 (phases 4, 6, 9, 11) and
         # under the bf16 policy (phase 24), from this run
         bf16["rates"] = {
@@ -7387,6 +7666,7 @@ def main() -> int:
         "host_and_image_tail": image_tail,
         "data_parallel": data_parallel,
         "model_axes": model_axes,
+        "pipe_and_expert_axes": pipe_expert,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

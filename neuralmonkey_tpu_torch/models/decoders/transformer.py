@@ -49,8 +49,13 @@ ring where the encoder's stream is split too, and the loss is summed
 over the slices. Decode steps (one query) are never split: they run on
 the whole time axis, as at one device.
 
-Not ported yet: pipeline stages (ROADMAP queue A15, part 3), which
-raise.
+With ``pipeline_stages`` the layers stack on a leading layer axis as in
+the encoder (``stacked_partition_specs``): the teacher-forced pass runs
+them through the GPipe executor (``parallel/pipeline.py``), the encoder
+states and masks travelling with each microbatch, or one after another
+where the executor does not apply; the incremental decode reads the
+stacked layers one by one, gathered whole over the pipe group once a
+decode (``decode_constants``).
 """
 
 from __future__ import annotations
@@ -70,12 +75,14 @@ from ...ops.attention import (NEG_INF, attend, attention_bias_from_mask,
                               mha_partition_specs, multi_head_attention,
                               row_projection, seeded_dropout,
                               sinusoidal_position_encoding, split_heads)
+from ...parallel import pipeline
 from ...parallel import tensor as tp
 from ...ops.lineage_attention import (lane_window, lineage_attention,
                                       lineage_bias)
 from ...ops.policy import compute_dtype
-from ..encoders.transformer import (MoESettings, layer_params_on_slice,
-                                    refuse_unported, run_layer)
+from ..encoders.transformer import (MoESettings, check_pipeline,
+                                    layer_params_on_slice, run_layer,
+                                    stacked_partition_specs)
 from .autoregressive import AutoregressiveDecoder
 
 
@@ -136,8 +143,10 @@ class TransformerDecoder(AutoregressiveDecoder):
             label_smoothing=label_smoothing, supress_unk=supress_unk,
             reuse=reuse, save_checkpoint=save_checkpoint,
             load_checkpoint=load_checkpoint)
-        del pipeline_microbatches
-        refuse_unported(name, pipeline_stages)
+        check_pipeline(depth, pipeline_stages, pipeline_microbatches)
+        # GPipe for the teacher-forced pass (see TransformerEncoder)
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
         self.moe = MoESettings(moe_experts, moe_top_k, moe_capacity_factor,
                                moe_aux_weight, moe_router_noise,
                                moe_z_loss_weight)
@@ -160,7 +169,8 @@ class TransformerDecoder(AutoregressiveDecoder):
     # ------------------------------------------------------------------ #
     def init_params(self, gen: torch.Generator) -> Dict[str, Any]:
         params: Dict[str, Any] = {}
-        for i in range(self.depth):
+        layers = []
+        for _ in range(self.depth):
             layer = {
                 "ln_self": layer_norm_init(self.model_dim),
                 "self_att": mha_init(gen, self.model_dim, self.model_dim,
@@ -173,7 +183,12 @@ class TransformerDecoder(AutoregressiveDecoder):
                 layer[f"ln_cross_{e}"] = layer_norm_init(self.model_dim)
                 layer[f"cross_att_{e}"] = mha_init(
                     gen, self.model_dim, enc.state_dim, self.model_dim)
-            params[f"layer_{i}"] = layer
+            layers.append(layer)
+        if self.pipeline_stages > 1:
+            params["layers"] = pipeline.stack_layers(layers)
+        else:
+            for i, layer in enumerate(layers):
+                params[f"layer_{i}"] = layer
         params["ln_out"] = layer_norm_init(self.model_dim)
         if self.tie_embeddings:
             params["logit_bias"] = torch.zeros(len(self.vocabulary))
@@ -185,14 +200,30 @@ class TransformerDecoder(AutoregressiveDecoder):
     def param_partition_specs(self) -> Dict[str, tuple]:
         """The base class's vocabulary specs, and each layer's self- and
         cross-attention and FFN split Megatron-style over the model
-        axis (``ops/attention.mha_partition_specs``)."""
+        axis (``ops/attention.mha_partition_specs``); with pipeline
+        stages the stacked layers' (``stacked_partition_specs``)."""
         specs = dict(super().param_partition_specs())
+        if self.pipeline_stages > 1:
+            n_enc = len(self.encoders)
+            specs.update(stacked_partition_specs(
+                ["ln_self", "ln_ff"] + [f"ln_cross_{e}" for e in range(n_enc)],
+                ["self_att"] + [f"cross_att_{e}" for e in range(n_enc)],
+                self.moe.on))
+            return specs
         for i in range(self.depth):
             specs.update(mha_partition_specs(f"layer_{i}/self_att"))
             for e in range(len(self.encoders)):
                 specs.update(mha_partition_specs(f"layer_{i}/cross_att_{e}"))
             specs.update(self.moe.partition_specs(f"layer_{i}/ff"))
         return specs
+
+    def _layer_params(self, params, i: int):
+        """Layer ``i``'s parameters under either layout (per-layer dicts,
+        or the pipeline's stacked leading axis: a decode's constants hold
+        them whole)."""
+        if self.pipeline_stages > 1:
+            return pipeline.layer_params(params["layers"], i)
+        return params[f"layer_{i}"]
 
     def _logits_from_states(self, params, embed_table, states):
         """Logits of ``states``: this rank's part of the vocabulary where
@@ -207,7 +238,7 @@ class TransformerDecoder(AutoregressiveDecoder):
     # teacher-forced training
     # ------------------------------------------------------------------ #
     def _train_layer_fn(self, layer, x, all_keys_mask, enc_data, seeds,
-                        moe_mask=None, stream=None):
+                        moe_mask=None, stream=None, stats=False):
         """One decoder layer (self-attention, cross-attentions, FFN);
         ``seeds`` holds the dropout and router noise seeds of its sites,
         ``enc_data`` each encoder's (states, mask, whether they are this
@@ -238,7 +269,7 @@ class TransformerDecoder(AutoregressiveDecoder):
         res_ff = sharding.shard_seed(seeds["res_ff"], (stream,))
         if self.moe.on:
             ff_out, aux = self.moe(layer["ff"], normed, moe_mask, seeds,
-                                   stream=stream)
+                                   stream=stream, stats=stats)
             return x + seeded_dropout(ff_out, keep, res_ff), aux
         return x + seeded_dropout(ffn(layer["ff"], normed, stream=stream),
                                   keep, res_ff)
@@ -303,16 +334,30 @@ class TransformerDecoder(AutoregressiveDecoder):
         # padding tokens take no expert capacity and stay out of the
         # auxiliary losses
         moe_mask = self.train_mask(ctx) if self.moe.on else None
-        auxes = []
-        for i in range(self.depth):
-            x = run_layer(self._train_layer_fn, self.remat and ctx.train,
-                          params[f"layer_{i}"], x, all_keys_mask, enc_data,
-                          self._train_layer_seeds(ctx, i, len(enc_data)),
-                          moe_mask, stream)
-            if self.moe.on:
-                x, aux = x
-                auxes.append(aux)
-        self.moe.add_losses(self, ctx, auxes)
+        remat = self.remat and ctx.train
+        if self.pipeline_stages > 1:
+            # the encoder states and masks travel with each microbatch
+            x = self.moe.run_layers(
+                self, ctx, lambda layer, h, aux, seeds, stats: run_layer(
+                    self._train_layer_fn, remat, layer, h, aux["mask"],
+                    aux["enc"], seeds, aux["moe_mask"], stream, stats),
+                params, x,
+                lambda i: self._train_layer_seeds(ctx, i, len(enc_data)),
+                {"mask": all_keys_mask, "enc": enc_data,
+                 "moe_mask": moe_mask},
+                self.pipeline_stages, self.pipeline_microbatches)
+        else:
+            auxes = []
+            for i in range(self.depth):
+                x = run_layer(self._train_layer_fn, remat,
+                              params[f"layer_{i}"], x, all_keys_mask,
+                              enc_data,
+                              self._train_layer_seeds(ctx, i, len(enc_data)),
+                              moe_mask, stream)
+                if self.moe.on:
+                    x, aux = x
+                    auxes.append(aux)
+            self.moe.add_losses(self, ctx, auxes)
         if stream == "model":
             x, stream = sharding.gather_sequence(x, stream), None
         return layer_norm(sharding.slice_params(params["ln_out"], stream),
@@ -358,6 +403,10 @@ class TransformerDecoder(AutoregressiveDecoder):
         of each batch row (``row_valid``, (B,): a padding row has an
         all-zero source mask)."""
         params = ctx.get_params(self)
+        if self.pipeline_stages > 1:
+            # every layer on every rank for the decode's steps
+            params = {**params,
+                      "layers": pipeline.whole_stack(params["layers"])}
         table = ctx.get_params(self.embeddings)["embeddings"]
         constants: Dict[str, Any] = {
             "params": params, "embed_table": table,
@@ -369,7 +418,7 @@ class TransformerDecoder(AutoregressiveDecoder):
             states = enc.temporal_states(ctx)
             per_layer = []
             for i in range(self.depth):
-                att_p = params[f"layer_{i}"][f"cross_att_{e}"]
+                att_p = self._layer_params(params, i)[f"cross_att_{e}"]
                 heads = tp.local_heads(att_p["k"]["w"], self.n_heads_enc)
                 enc_in = sharding.enter_block(
                     states, tp.is_split(att_p["k"]["w"]), None)
@@ -398,9 +447,9 @@ class TransformerDecoder(AutoregressiveDecoder):
     def _self_heads(self, params) -> int:
         """The self-attention heads this rank holds (all of them unless
         its weights are split and the heads divide the model axis)."""
-        return tp.local_heads(params["layer_0"]["self_att"]["k"]["w"],
-                              self.n_heads_self) if self.depth else \
-            self.n_heads_self
+        return tp.local_heads(
+            self._layer_params(params, 0)["self_att"]["k"]["w"],
+            self.n_heads_self) if self.depth else self.n_heads_self
 
     def decode_initial_state(self, ctx: Context, constants):
         """Per layer, zero (B, max_output_len, D) key and value caches in
@@ -512,7 +561,7 @@ class TransformerDecoder(AutoregressiveDecoder):
         params = constants["params"]
         x = self._embed_step(constants, prev_ids, step)
         for i, cache in enumerate(loop_state):
-            layer = params[f"layer_{i}"]
+            layer = self._layer_params(params, i)
             att_p = layer["self_att"]
             normed = sharding.enter_block(
                 layer_norm(layer["ln_self"], x),
@@ -569,7 +618,7 @@ class TransformerDecoder(AutoregressiveDecoder):
 
         x = self._embed_step(constants, prev_ids, step)
         for i, cache in enumerate(loop_state):
-            layer = params[f"layer_{i}"]
+            layer = self._layer_params(params, i)
             att_p = layer["self_att"]
             normed = sharding.enter_block(
                 layer_norm(layer["ln_self"], x),

@@ -23,9 +23,17 @@ parallelism over the context axis, where the self-attention rides the
 ring (``ops/sharding.py``); each layer's parameters then sum their
 gradients over the slices. The positions are added to the whole stream
 before it splits, so each slice carries its global offsets (the ring's
-zigzag exchanges and returns its chunks inside the attention). Pipeline
-stages are not ported yet (ROADMAP queue A15, part 3): setting them
-raises.
+zigzag exchanges and returns its chunks inside the attention).
+
+With ``pipeline_stages = S > 1`` the layers' parameters stack on a
+leading layer axis (``layers/...``, declared ``('pipe', ...)`` with the
+Megatron ``model`` dims kept) and the layer loop runs through the GPipe
+executor (``parallel/pipeline.py``) over the manager's pipe group in
+``pipeline_microbatches`` microbatches (S by default). Without a pipe
+mesh, or for a batch the microbatches or the data ranks do not divide,
+the stacked layers run one after another (the JAX package's fallback),
+gathered whole over the pipe group where they are split over it: the
+same function.
 """
 
 from __future__ import annotations
@@ -43,20 +51,49 @@ from ...ops.attention import (ffn, ffn_init, ffn_partition_specs, layer_norm,
                               layer_norm_init, mha_init, mha_partition_specs,
                               multi_head_attention, seeded_dropout,
                               sinusoidal_position_encoding)
-from ...ops.moe import moe_ffn, moe_init, moe_partition_specs
+from ...ops.moe import (moe_combine_stats, moe_ffn, moe_init,
+                        moe_partition_specs, moe_stacked_partition_specs)
+from ...parallel import pipeline
 from ...parallel.distributed import sharded_batch
 from ...vocabulary import Vocabulary
 
 _POSITION_TYPES = ("sinusoidal", "learned", "none")
 
 
-def refuse_unported(name: str, pipeline_stages: int) -> None:
-    """Raise for the Transformer options the port does not have yet."""
-    if pipeline_stages > 1:
-        raise NotImplementedError(
-            f"{name}: pipeline stages (pipeline_stages > 1) are not "
-            "ported to neuralmonkey_tpu_torch yet (ROADMAP queue A15, "
-            "part 3)")
+def check_pipeline(depth: int, stages: int, microbatches: int) -> None:
+    """The JAX package's checks of a part's pipeline options."""
+    if stages > 1 and depth % stages:
+        raise ValueError(
+            f"depth {depth} not divisible by {stages} pipeline stages")
+    if microbatches and microbatches < stages:
+        raise ValueError(
+            f"pipeline_microbatches={microbatches} must be >= "
+            f"pipeline_stages={stages}")
+
+
+def stacked_partition_specs(norms, attentions, moe: bool
+                            ) -> Dict[str, tuple]:
+    """The specs of a pipelined part's stacked layers: the leading layer
+    axis over ``pipe``, the trailing dims in the Megatron ``model``
+    pattern (the layer norms whole), a MoE FFN's experts over
+    ``expert`` (the JAX package's stacked specs)."""
+    specs: Dict[str, tuple] = {}
+    for norm in norms:
+        for leaf in ("scale", "bias"):
+            specs[f"layers/{norm}/{leaf}"] = ("pipe", None)
+    subs = [(att, ("q", "k", "v"), ("o",)) for att in attentions]
+    if not moe:
+        subs.append(("ff", ("in",), ("out",)))
+    for sub, cols, rows in subs:
+        for p in cols:
+            specs[f"layers/{sub}/{p}/w"] = ("pipe", None, "model")
+            specs[f"layers/{sub}/{p}/b"] = ("pipe", "model")
+        for p in rows:
+            specs[f"layers/{sub}/{p}/w"] = ("pipe", "model", None)
+            specs[f"layers/{sub}/{p}/b"] = ("pipe", None)
+    if moe:
+        specs.update(moe_stacked_partition_specs("layers/ff"))
+    return specs
 
 
 def layer_params_on_slice(layer: Dict[str, Any], stream: Optional[str],
@@ -87,7 +124,9 @@ def run_layer(layer_fn, remat: bool, *args):
 
 class MoESettings:
     """The ``moe_*`` options of a Transformer part: with ``experts > 1``
-    every FFN of the part is a mixture of experts (``ops/moe.py``)."""
+    every FFN of the part is a mixture of experts (``ops/moe.py``), whose
+    losses the part's layer loops fold (``run_layers`` for the stacked
+    layers of pipeline stages)."""
 
     def __init__(self, experts: int, top_k: int, capacity_factor: float,
                  aux_weight: float, router_noise: float,
@@ -121,17 +160,19 @@ class MoESettings:
     def __call__(self, params: Dict[str, Any], x: torch.Tensor,
                  mask: Optional[torch.Tensor], seeds: Dict[str, Any],
                  dropout_keep_prob: float = 1.0,
-                 stream: Optional[str] = None):
-        """A training layer's mixture-of-experts FFN: (output, losses).
-        Its token groups are whole sentences, so a stream split over
-        time is gathered for it and split again after it."""
+                 stream: Optional[str] = None, stats: bool = False):
+        """A training layer's mixture-of-experts FFN: (output, losses;
+        with ``stats`` the routing sums behind them). Its token groups
+        are whole sentences, so a stream split over time is gathered for
+        it and split again after it."""
         x = sharding.gather_sequence(x, stream)
         out, aux = moe_ffn(params, x, mask=mask, top_k=self.top_k,
                            capacity_factor=self.capacity_factor,
                            dropout_seed=seeds.get("ff"),
                            dropout_keep_prob=dropout_keep_prob,
                            router_noise=self.router_noise,
-                           noise_seed=seeds["moe_noise"])
+                           noise_seed=seeds["moe_noise"],
+                           return_stats=stats)
         return sharding.constrain_sequence(out, stream), aux
 
     def decode(self, params: Dict[str, Any], normed: torch.Tensor,
@@ -153,14 +194,62 @@ class MoESettings:
         """The layers' balance and z-losses, each averaged over the
         layers and weighted, as the auxiliary losses of a training
         pass."""
+        if auxes:
+            self.add_totals(part, ctx, {
+                key: sum(a[key] for a in auxes) for key in ("balance", "z")},
+                len(auxes))
+
+    def add_totals(self, part: ModelPart, ctx: Context,
+                   totals: Dict[str, torch.Tensor], depth: int) -> None:
+        """``add_losses`` from the layers' balance and z-losses summed
+        (the pipeline's totals)."""
         if not (self.on and ctx.train):
             return
-        depth = len(auxes)
-        ctx.add_aux_loss(part, "moe_balance", self.aux_weight * sum(
-            a["balance"] for a in auxes) / depth)
+        ctx.add_aux_loss(part, "moe_balance",
+                         self.aux_weight * totals["balance"] / depth)
         if self.z_loss_weight > 0.0:
-            ctx.add_aux_loss(part, "moe_z", self.z_loss_weight * sum(
-                a["z"] for a in auxes) / depth)
+            ctx.add_aux_loss(part, "moe_z",
+                             self.z_loss_weight * totals["z"] / depth)
+
+    def run_layers(self, part: ModelPart, ctx: Context, layer_fn, params,
+                   x: torch.Tensor, seeds, mb_aux: Dict[str, Any],
+                   stages: int, microbatches: int) -> torch.Tensor:
+        """A pipelined part's stacked layers ``params["layers"]`` on
+        ``x``: through the GPipe executor, or one after another where it
+        does not apply (logged once). ``layer_fn(layer, x, aux, seeds,
+        stats)`` is one layer (with MoE FFNs, ``(x, losses)``, or with
+        ``stats`` ``(x, routing sums)``); ``seeds`` gives layer i's;
+        ``mb_aux`` the tensors each microbatch takes its rows of."""
+        depth = pipeline.stacked_depth(params["layers"])
+        # M: the part's own, else the pipe axis's size (the part's stage
+        # count without a pipe mesh)
+        grid = pipeline.pipeline_mesh()
+        n_micro = microbatches or (grid.size("pipe") if grid is not None
+                                   else stages)
+        reason = pipeline.takes(x.shape[0], n_micro)
+        if reason is not None:
+            if pipeline.pipeline_mesh() is not None:
+                pipeline.log_fallback(part.name, reason)
+            stack = pipeline.whole_stack(params["layers"])
+            auxes = []
+            for i in range(depth):
+                x = layer_fn(pipeline.layer_params(stack, i), x, mb_aux,
+                             seeds(i), False)
+                if self.on:
+                    x, aux = x
+                    auxes.append(aux)
+            self.add_losses(part, ctx, auxes)
+            return x
+        out = pipeline.gpipe_apply(
+            lambda layer, layer_seeds, h, aux: layer_fn(
+                layer, h, aux, layer_seeds, self.on),
+            params["layers"], [seeds(i) for i in range(depth)], x, mb_aux,
+            n_microbatches=n_micro,
+            aux_fn=moe_combine_stats if self.on else None)
+        if self.on:
+            out, totals = out
+            self.add_totals(part, ctx, totals, depth)
+        return out
 
 
 class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
@@ -192,8 +281,11 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
                  load_checkpoint: str = None) -> None:
         ModelPart.__init__(self, name, reuse, save_checkpoint,
                            load_checkpoint)
-        del pipeline_microbatches
-        refuse_unported(name, pipeline_stages)
+        check_pipeline(depth, pipeline_stages, pipeline_microbatches)
+        # GPipe over the pipe axis (parallel/pipeline.py): the layers'
+        # parameters stack on a leading axis declared ('pipe', ...)
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches
         if input_sequence is None:
             if vocabulary is None or data_id is None \
                     or embedding_size is None:
@@ -239,21 +331,28 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         if self.position_encoding == "learned":
             params["position_emb"] = torch.randn(
                 self.max_position, self.model_dim, generator=gen) * 0.01
-        for i in range(self.depth):
-            params[f"layer_{i}"] = {
-                "ln_att": layer_norm_init(self.model_dim),
-                "att": mha_init(gen, self.model_dim, self.model_dim,
-                                self.model_dim),
-                "ln_ff": layer_norm_init(self.model_dim),
-                "ff": self.moe.ffn_init(gen, self.model_dim,
-                                        self.ff_hidden_size),
-            }
+        layers = [{"ln_att": layer_norm_init(self.model_dim),
+                   "att": mha_init(gen, self.model_dim, self.model_dim,
+                                   self.model_dim),
+                   "ln_ff": layer_norm_init(self.model_dim),
+                   "ff": self.moe.ffn_init(gen, self.model_dim,
+                                           self.ff_hidden_size)}
+                  for _ in range(self.depth)]
+        if self.pipeline_stages > 1:
+            params["layers"] = pipeline.stack_layers(layers)
+        else:
+            for i, layer in enumerate(layers):
+                params[f"layer_{i}"] = layer
         params["ln_out"] = layer_norm_init(self.model_dim)
         return params
 
     def param_partition_specs(self) -> Dict[str, tuple]:
         """Tensor-parallel layer specs (the input sequence's table
-        declares its own)."""
+        declares its own); with pipeline stages the stacked layers'
+        (``stacked_partition_specs``)."""
+        if self.pipeline_stages > 1:
+            return stacked_partition_specs(("ln_att", "ln_ff"), ("att",),
+                                           self.moe.on)
         specs: Dict[str, tuple] = {}
         for i in range(self.depth):
             specs.update(mha_partition_specs(f"layer_{i}/att"))
@@ -275,13 +374,13 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         return states
 
     def _layer_fn(self, layer, states, mask, seeds, stream=None,
-                  att_mask=None):
+                  att_mask=None, stats=False):
         """One encoder layer; ``seeds`` holds the dropout and router
         noise seeds of its sites (None outside training), ``stream`` the
         axis its residual stream is split over and ``att_mask`` the
         attention's key mask (the keys' slice of ``mask`` under context
         parallelism). Returns the states, and with MoE FFNs also the
-        layer's auxiliary losses."""
+        layer's auxiliary losses (with ``stats`` their routing sums)."""
         att_mask = mask if att_mask is None else att_mask
         keep = self.dropout_keep_prob
         layer = layer_params_on_slice(layer, stream, self.moe.on)
@@ -297,7 +396,8 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         res_ff = sharding.shard_seed(seeds["res_ff"], (stream,))
         if self.moe.on:
             ff_out, aux = self.moe(layer["ff"], normed, mask, seeds,
-                                   dropout_keep_prob=keep, stream=stream)
+                                   dropout_keep_prob=keep, stream=stream,
+                                   stats=stats)
             return states + seeded_dropout(ff_out, keep, res_ff), aux
         ff_out = ffn(layer["ff"], normed, dropout_seed=seeds["ff"],
                      dropout_keep_prob=keep, stream=stream)
@@ -335,15 +435,26 @@ class TransformerEncoder(ModelPart, TemporalStatefulWithOutput):
         states = sharding.constrain_sequence(states, stream)
         att_mask = (mask[:, sharding.time_slice(mask.shape[1], stream)]
                     if stream == "context" else mask)
-        auxes = []
-        for i in range(self.depth):
-            states = run_layer(self._layer_fn, self.remat and ctx.train,
-                               params[f"layer_{i}"], states, mask,
-                               self._layer_seeds(ctx, i), stream, att_mask)
-            if self.moe.on:
-                states, aux = states
-                auxes.append(aux)
-        self.moe.add_losses(self, ctx, auxes)
+        remat = self.remat and ctx.train
+        if self.pipeline_stages > 1:
+            states = self.moe.run_layers(
+                self, ctx, lambda layer, h, aux, seeds, stats: run_layer(
+                    self._layer_fn, remat, layer, h, aux["mask"], seeds,
+                    stream, aux["att_mask"], stats),
+                params, states, lambda i: self._layer_seeds(ctx, i),
+                {"mask": mask, "att_mask": att_mask},
+                self.pipeline_stages, self.pipeline_microbatches)
+        else:
+            auxes = []
+            for i in range(self.depth):
+                states = run_layer(self._layer_fn, remat,
+                                   params[f"layer_{i}"], states, mask,
+                                   self._layer_seeds(ctx, i), stream,
+                                   att_mask)
+                if self.moe.on:
+                    states, aux = states
+                    auxes.append(aux)
+            self.moe.add_losses(self, ctx, auxes)
         if stream == "model":
             states, stream = sharding.gather_sequence(states, stream), None
         states = layer_norm(sharding.slice_params(params["ln_out"], stream),

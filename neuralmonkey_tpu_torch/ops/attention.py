@@ -33,7 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..parallel import mesh, tensor
+from ..parallel import mesh, pipeline, tensor
 from . import nn, sharding
 from .flash_attention import dropout_key_words, flash_attention
 
@@ -239,10 +239,19 @@ def attention_dropout_seed(seed: Optional[int]) -> Optional[int]:
     parallelism ``data_index * model + model_index`` folded in, as the
     JAX package folds it into the sharded flash kernel's key, so that
     each shard draws its own mask (the step's seed already differs
-    between data ranks)."""
-    if seed is None or mesh.size("model") == 1:
+    between data ranks); inside a pipelined layer the microbatch's
+    ordinal is folded in first."""
+    if seed is None:
         return seed
     from ..model.part import fold_seed
+    mb = pipeline.current_microbatch()
+    if mb is not None:
+        # the keep bits hash a position inside one kernel call: a
+        # microbatch folds its ordinal in, as the JAX pipeline folds it
+        # into the key
+        seed = fold_seed(seed, mb.index)
+    if mesh.size("model") == 1:
+        return seed
     return fold_seed(seed, mesh.index("data") * mesh.size("model")
                      + mesh.index("model"))
 
@@ -324,12 +333,19 @@ def ffn(params: Dict, x: torch.Tensor, dropout_seed: Optional[int] = None,
 
 
 def seeded_dropout(x: torch.Tensor, keep_prob: float,
-                   seed: Optional[int]) -> torch.Tensor:
+                   seed: Optional[int], batch_dim: int = 0) -> torch.Tensor:
     """Inverted dropout from a generator on ``x``'s device seeded with
     ``seed``; the identity when ``seed`` is None or ``keep_prob >= 1``.
     The seed, not a generator, crosses a recomputed (checkpointed)
-    layer's boundary, so the recomputation draws the same mask."""
+    layer's boundary, so the recomputation draws the same mask. Inside
+    a pipelined layer the mask is the microbatch's rows (along
+    ``batch_dim``) of the whole batch's (``pipeline.batch_rows``)."""
     if seed is None or keep_prob >= 1.0:
         return x
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    return nn.dropout(x, keep_prob, gen, True)
+    shape, rows = pipeline.batch_rows(x.shape, batch_dim)
+    if shape == tuple(x.shape):
+        return nn.dropout(x, keep_prob, gen, True)
+    keep = rows(torch.rand(shape, generator=gen, device=x.device,
+                           dtype=nn.widened(x.dtype))) < keep_prob
+    return torch.where(keep, x / nn.scalar(keep_prob, x.dtype), 0.0)

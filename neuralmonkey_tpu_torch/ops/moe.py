@@ -25,10 +25,21 @@ on its own size alone, so splitting the batch drops the same tokens.
 Tensor parallelism takes the ``model`` dims of ``moe_partition_specs``:
 each rank holds its hidden columns of every expert, the router stays
 whole; the experts' outputs are summed over the model axis before they
-are combined, so the gates' gradients are whole on every rank. Expert
-parallelism (the ``expert`` axis, the JAX package's
-``enable_expert_sharding`` and ``constrain_dispatch``) is not ported
-(ROADMAP queue A15, part 3): the manager drops that axis of the specs.
+are combined, so the gates' gradients are whole on every rank.
+
+Expert parallelism takes the ``expert`` dim (``CUDAManager(
+num_expert_shards=S)`` registers the mesh: :func:`enable_expert_sharding`):
+each rank of an expert group holds E/S experts. The batch splits over
+the data axis alone, so the ranks of an expert group hold the same rows
+and route them the same way, whole; each runs its own experts on the
+tokens dispatched to them (:func:`constrain_dispatch`, the counterpart
+of the JAX package's sharding constraint) and the partial outputs are
+summed over the expert group. The tokens and the combine weights enter
+the experts through Megatron's f over the expert axis, so their
+gradients (and the router's, through the gates) are summed over the
+group's experts; the routing sums are not, as every rank computed them
+whole. A pipelined part's stacked experts declare ``('pipe', 'expert',
+...)`` (:func:`moe_stacked_partition_specs`).
 """
 
 from __future__ import annotations
@@ -40,8 +51,37 @@ import torch
 
 from . import nn, sharding
 from .attention import seeded_dropout
+from ..parallel import mesh, pipeline
 from ..parallel import tensor as tp
 from ..parallel.distributed import global_sum
+
+_EXPERT_MESH: Optional[mesh.Mesh] = None
+
+
+def enable_expert_sharding(grid: mesh.Mesh) -> None:
+    """Register the mesh whose ``expert`` axis the experts split over
+    (the manager does this when ``num_expert_shards > 1``)."""
+    global _EXPERT_MESH
+    _EXPERT_MESH = grid
+
+
+def disable_expert_sharding() -> None:
+    global _EXPERT_MESH
+    _EXPERT_MESH = None
+
+
+def expert_sharding_mesh() -> Optional[mesh.Mesh]:
+    return _EXPERT_MESH
+
+
+def constrain_dispatch(x: torch.Tensor, expert_axis: int = 0
+                       ) -> torch.Tensor:
+    """This rank's experts of an intermediate indexed by every expert
+    along ``expert_axis`` (the dispatch and combine one-hots), where an
+    expert mesh is registered; ``x`` itself without one."""
+    if _EXPERT_MESH is None:
+        return x
+    return tp.own_part(x, expert_axis, "expert")
 
 
 def moe_init(gen: torch.Generator, model_dim: int, hidden_dim: int,
@@ -66,6 +106,16 @@ def moe_partition_specs(prefix: str) -> Dict[str, tuple]:
             f"{prefix}/in/b": ("expert", "model"),
             f"{prefix}/out/w": ("expert", "model", None),
             f"{prefix}/out/b": ("expert", None)}
+
+
+def moe_stacked_partition_specs(prefix: str) -> Dict[str, tuple]:
+    """The specs of a pipelined part's stacked ``moe_init`` subtree (EP x
+    PP): the leading layer axis over ``pipe``, then
+    :func:`moe_partition_specs`'s; the router declared too, so that its
+    stacked layers follow their stage."""
+    out = {k: ("pipe",) + v for k, v in moe_partition_specs(prefix).items()}
+    out[f"{prefix}/router/w"] = ("pipe", None, None)
+    return out
 
 
 def moe_capacity(group_size: int, n_experts: int, top_k: int,
@@ -113,7 +163,8 @@ def moe_ffn(params: Dict, x: torch.Tensor,
             dropout_seed: Optional[int] = None,
             dropout_keep_prob: float = 1.0,
             router_noise: float = 0.0,
-            noise_seed: Optional[int] = None
+            noise_seed: Optional[int] = None,
+            return_stats: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mixture-of-experts position-wise FFN.
 
@@ -122,19 +173,27 @@ def moe_ffn(params: Dict, x: torch.Tensor,
     multiplicative jitter on the router input, uniform in [1 - eps,
     1 + eps], drawn from ``noise_seed`` when one is given (training).
     ``activation`` is the experts' hidden nonlinearity, ReLU when None.
-    Returns (output (G, S, D), {"balance", "z"} float32 scalars)."""
+    Returns (output (G, S, D), {"balance", "z"} float32 scalars); with
+    ``return_stats`` the routing sums behind them instead (``top1_sum``,
+    ``prob_sum`` (E,), ``count``, ``z_sum``), linear in the tokens, for
+    :func:`moe_combine_stats` after a pipeline adds them over its
+    microbatches."""
     g, s, _ = x.shape
     w_in, b_in = params["in"]["w"], params["in"]["b"]
     w_out, b_out = params["out"]["w"], params["out"]["b"]
-    n_experts = w_in.shape[0]
+    experts_split = tp.axis_dim(w_in, "expert") is not None
+    n_experts = w_in.shape[0] * (mesh.size("expert") if experts_split
+                                 else 1)
     k = min(top_k, n_experts)
     cap = moe_capacity(s, n_experts, k, capacity_factor)
 
     router_in = x.float()
     if noise_seed is not None and router_noise > 0.0:
         gen = torch.Generator(device=x.device).manual_seed(noise_seed)
-        router_in = router_in * torch.empty_like(router_in).uniform_(
-            1.0 - router_noise, 1.0 + router_noise, generator=gen)
+        # a pipelined microbatch's rows of the whole batch's draw
+        shape, rows = pipeline.batch_rows(router_in.shape)
+        router_in = router_in * rows(router_in.new_empty(shape).uniform_(
+            1.0 - router_noise, 1.0 + router_noise, generator=gen))
     logits = torch.einsum("gsd,de->gse", router_in,
                           params["router"]["w"].float())
     probs = torch.softmax(logits, dim=-1)
@@ -164,13 +223,19 @@ def moe_ffn(params: Dict, x: torch.Tensor,
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
     split = tp.is_split(w_in)
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch,
-                             tp.copy_to(x) if split else x)
+    x_in = tp.copy_to(x) if split else x
+    if experts_split:
+        # this rank's experts: the tokens and gates enter them through f
+        x_in = tp.copy_to(x_in, "expert")
+        dispatch = constrain_dispatch(dispatch, 2)
+        combine = constrain_dispatch(tp.copy_to(combine, "expert"), 2)
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x_in)
     hidden = (activation or torch.relu)(
         _einsum("egcd,edh->egch", expert_in, w_in)
         + b_in[:, None, None, :])
     hidden = seeded_dropout(hidden, dropout_keep_prob, sharding.shard_seed(
-        dropout_seed, ("model" if split else None,)))
+        dropout_seed, ("model" if split else None,
+                       "expert" if experts_split else None)), batch_dim=1)
     if split:
         expert_out = (tp.reduce_from(_einsum("egch,ehd->egcd", hidden,
                                              w_out))
@@ -179,6 +244,8 @@ def moe_ffn(params: Dict, x: torch.Tensor,
         expert_out = (_einsum("egch,ehd->egcd", hidden, w_out)
                       + b_out[:, None, None, :])
     y = torch.einsum("gsec,egcd->gsd", combine, expert_out)
+    if experts_split:
+        y = tp.reduce_from(y, "expert")
 
     top1 = sel[:, :, 0, :]                                  # (G, S, E)
     z_sq = torch.logsumexp(logits, dim=-1) ** 2             # (G, S)
@@ -192,4 +259,6 @@ def moe_ffn(params: Dict, x: torch.Tensor,
                  "count": logits.new_tensor(float(g * s)),
                  "z_sum": z_sq.sum()}
     stats = {key: global_sum(value) for key, value in stats.items()}
+    if return_stats:
+        return y.to(x.dtype), stats
     return y.to(x.dtype), moe_combine_stats(stats)

@@ -3,9 +3,10 @@
 (``distributed.py``), the rank grid of the JAX package's mesh axes
 (``mesh.py``), the ZeRO-1 and FSDP layouts over the data axis
 (``zero.py``), tensor parallelism's collectives over the model axis and
-the time axis's gathers and scatters (``tensor.py``), and the ring
-attention of context parallelism (``ring_attention.py``). Pipeline and
-expert parallelism are not ported yet (ROADMAP queue A15, part 3)."""
+the time axis's gathers and scatters (``tensor.py``), the ring
+attention of context parallelism (``ring_attention.py``) and the GPipe
+executor of pipeline parallelism (``pipeline.py``); expert parallelism
+splits the MoE FFN's experts (``ops/moe.py``)."""
 
 from .distributed import (broadcast_flags, data_count, data_index,
                           fetch_to_host, is_main_process, local_rows,

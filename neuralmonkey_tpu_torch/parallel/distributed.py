@@ -201,6 +201,12 @@ def sharded_batch(split: bool) -> Iterator[None]:
         _SPLIT.reset(token)
 
 
+def batch_is_split() -> bool:
+    """Whether the current pass runs on this rank's rows of a batch
+    split over the data ranks (inside :func:`sharded_batch`)."""
+    return _SPLIT.get() and data_count() > 1
+
+
 class _GlobalSum(torch.autograd.Function):
     """All-reduce sum forward; the gradient passes through unchanged.
     Every rank computes the same function of the global sums, so each

@@ -5,15 +5,17 @@ package's mesh axes (counterpart of ``TPUManager``'s mesh construction in
 The axes run major to minor: ``data``, ``pipe``, ``expert``,
 ``context``, ``model``. So the model group (tensor and sequence
 parallelism) holds neighbouring ranks, the context group (the ring
-attention) the next, and ``data = world / span`` replicas of the model
-split along the outermost axis. Rank ``r`` has the coordinates of
-``r`` written in that mixed radix.
+attention) the next, then the expert group (expert parallelism) and
+the pipe group (the pipeline's stages), and ``data = world / span``
+replicas of the model split along the outermost axis. Rank ``r`` has
+the coordinates of ``r`` written in that mixed radix.
 
 Every rank builds one ``torch.distributed`` group for each model group,
-each context group and each data group, all of them, in one fixed
-order (``new_group`` is a collective over the whole world: a rank that
-skipped one would hang the others). A data group that is the whole
-world is the default group. Groups are built once per layout and kept.
+each context group, each expert group, each pipe group and each data
+group, all of them, in one fixed order (``new_group`` is a collective
+over the whole world: a rank that skipped one would hang the others).
+An axis that is the whole world has the default group. Groups are
+built once per layout and kept.
 
 ``CUDAManager`` registers its mesh with :func:`enable`; the model code
 asks :func:`current` for the groups and this rank's coordinates. With
@@ -100,9 +102,9 @@ class Mesh:
         return groups
 
     def build_groups(self) -> None:
-        """Create the model, context and data groups on every rank (a
-        collective over the world); a size-1 axis has none, a data axis
-        that is the whole world the default group."""
+        """Create the model, context, expert, pipe and data groups on
+        every rank (a collective over the world); a size-1 axis has none,
+        an axis that is the whole world the default group."""
         if not dist.is_initialized() or self.world == 1:
             return
         key = (id(dist.group.WORLD), self.world,
@@ -111,7 +113,7 @@ class Mesh:
             self._groups = _GROUP_CACHE[key]
             return
         groups: Dict[str, object] = {}
-        for axis in ("model", "context", "data"):
+        for axis in ("model", "context", "expert", "pipe", "data"):
             if self.sizes[axis] == 1:
                 continue
             if self.sizes[axis] == self.world:

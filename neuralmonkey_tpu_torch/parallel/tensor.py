@@ -6,8 +6,10 @@ out as ``torch.autograd.Function``s (as ``distributed._GlobalSum`` is).
 Every rank of a model group computes the same function of the same
 rows: a tensor is either whole on each of them (replicated) or split
 in equal parts along one dim. The manager marks each parameter it
-splits with that dim (:func:`mark_split`); the model code asks
-:func:`split_dim` whether a layer's weights are split, and takes the
+splits with its dim on each axis it is split over (:func:`mark_axes`:
+the model axis here, the pipe and expert axes of the pipeline's stacked
+layers and a MoE FFN's experts); the model code asks :func:`split_dim`
+whether a layer's weights are split over the model axis, and takes the
 collectives below only then. Gradients follow Megatron's rule: a rank's
 gradient of a replicated tensor is the whole gradient, so
 
@@ -38,7 +40,7 @@ next and previous never block on a send.
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,26 +48,39 @@ import torch.nn.functional as F
 
 from . import mesh
 
-_SPLIT_ATTR = "_nm_model_split_dim"
+_SPLIT_ATTR = "_nm_split_dims"
 
 
 # ---------------------------------------------------------------------- #
 # which tensors are split
 # ---------------------------------------------------------------------- #
-def mark_split(tensor: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-    """Record that ``tensor`` is this rank's part of a tensor split along
-    ``dim`` over the model axis (None: whole)."""
-    if dim is None:
-        if hasattr(tensor, _SPLIT_ATTR):
-            delattr(tensor, _SPLIT_ATTR)
-    else:
-        setattr(tensor, _SPLIT_ATTR, int(dim))
+def mark_axes(tensor: torch.Tensor, dims: Optional[Dict[str, int]]
+              ) -> torch.Tensor:
+    """Record the dim ``tensor`` is split along over each mesh axis of
+    ``dims`` (``model``, ``pipe``, ``expert``; this rank's part of each);
+    empty or None: whole."""
+    dims = {axis: int(dim) for axis, dim in (dims or {}).items()
+            if dim is not None}
+    if dims:
+        setattr(tensor, _SPLIT_ATTR, dims)
+    elif hasattr(tensor, _SPLIT_ATTR):
+        delattr(tensor, _SPLIT_ATTR)
     return tensor
+
+
+def split_axes(tensor: Any) -> Dict[str, int]:
+    """The dims ``tensor`` is split along, by mesh axis."""
+    return dict(getattr(tensor, _SPLIT_ATTR, {}))
+
+
+def axis_dim(tensor: Any, axis: str) -> Optional[int]:
+    """The dim ``tensor`` is split along over ``axis``, or None."""
+    return getattr(tensor, _SPLIT_ATTR, {}).get(axis)
 
 
 def split_dim(tensor: Any) -> Optional[int]:
     """The dim ``tensor`` is split along over the model axis, or None."""
-    return getattr(tensor, _SPLIT_ATTR, None)
+    return axis_dim(tensor, "model")
 
 
 def is_split(tensor: Any) -> bool:
@@ -74,7 +89,15 @@ def is_split(tensor: Any) -> bool:
 
 def keep_split(like: torch.Tensor, tensor: torch.Tensor) -> torch.Tensor:
     """``tensor`` (a cast or copy of ``like``) marked as ``like`` is."""
-    return mark_split(tensor, split_dim(like))
+    return mark_axes(tensor, split_axes(like))
+
+
+def index_layer(stacked: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked leaf (leading layer axis), marked with the
+    dims of its other axes' splits (each one less)."""
+    dims = {axis: dim - 1 for axis, dim in split_axes(stacked).items()
+            if axis != "pipe" and dim > 0}
+    return mark_axes(stacked[i], dims)
 
 
 # ---------------------------------------------------------------------- #

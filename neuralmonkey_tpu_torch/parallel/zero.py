@@ -5,21 +5,26 @@
 A :class:`Shard` says how one tensor divides among the ranks of the
 ``data`` axis: in equal chunks along one dim (the JAX package's rule:
 the largest dim the number of ranks divides, the first of equal ones,
-never the dim a tensor is split on over the ``model`` axis), whole on
+never a dim a tensor is split on over the model, expert or pipe axes), whole on
 one owner rank, or whole on every rank (a tensor with no such dim, a
 scalar). Chunks and owners go in sorted name order into one flat buffer
 a rank, so every collective moves one buffer in an order fixed on all
-ranks. The tensors here are a rank's model shards: their collectives
-run over its data group (``parallel/mesh.py``).
+ranks. The tensors here are a rank's shards over the other axes: their
+collectives run over its data group (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import (Collection, Dict, List, NamedTuple, Optional, Sequence,
+                    Union)
 
 import torch
 
-from . import distributed, tensor
+from . import distributed, mesh, tensor
+
+# the axes besides ``data`` a tensor's parts may be split over, in the
+# order their groups reduce and gather
+AXES = ("model", "expert", "pipe")
 
 Flat = Dict[str, torch.Tensor]
 
@@ -34,15 +39,18 @@ class Shard(NamedTuple):
 
 
 def data_axis(shape: Sequence[int], world: int,
-              skip: Optional[int] = None) -> Optional[int]:
+              skip: Union[None, int, Collection[int]] = None
+              ) -> Optional[int]:
     """``_add_data_axis``: the largest dim that ``world`` divides (the
-    first of equal ones) other than ``skip`` (the dim a tensor is split
-    on over the model axis), or None (the tensor stays whole)."""
+    first of equal ones) other than those of ``skip`` (the dims a tensor
+    is split on over the model, expert or pipe axes), or None (the
+    tensor stays whole)."""
     if world <= 1:
         return None
+    skip = {skip} if isinstance(skip, int) else set(skip or ())
     best = None
     for i, size in enumerate(shape):
-        if i != skip and size % world == 0 and (
+        if i not in skip and size % world == 0 and (
                 best is None or size > shape[best]):
             best = i
     return best
@@ -152,28 +160,30 @@ HOST_GATHER_BYTES = 1 << 26
 def gather_to_host(parts: Flat, plan: Dict[str, Shard],
                    meta: Dict[str, torch.Tensor], device: torch.device,
                    limit: int = HOST_GATHER_BYTES,
-                   model_dims: Optional[Dict[str, Optional[int]]] = None
+                   split_dims: Optional[Dict[str, Dict[str, int]]] = None
                    ) -> Flat:
-    """Every tensor of ``meta`` (this rank's model shards' shapes and
-    dtypes) whole on the host, from the ranks' ``parts`` (this rank's,
-    on ``device``): the ones ``plan`` keeps whole over the data axis
-    copied, the divided ones all-gathered over it, and those split
-    along ``model_dims[name]`` over the model axis then gathered over
-    that; in sorted name order, in groups of at most ``limit`` bytes of
-    whole float32 tensors (a larger tensor alone), each group on the
-    host before the next is gathered, so that the device never holds
-    all of them whole."""
-    model_dims = model_dims or {}
-    split = {name for name in meta if model_dims.get(name) is not None}
+    """Every tensor of ``meta`` (this rank's shards' shapes and dtypes)
+    whole on the host, from the ranks' ``parts`` (this rank's, on
+    ``device``): the ones ``plan`` keeps whole over the data axis
+    copied, the divided ones all-gathered over it, and those split along
+    ``split_dims[name][axis]`` over the model, expert or pipe axes then
+    gathered over those; in sorted name order, in groups of at most
+    ``limit`` bytes of whole float32 tensors (a larger tensor alone),
+    each group on the host before the next is gathered, so that the
+    device never holds all of them whole."""
+    split_dims = split_dims or {}
+    split = {name for name in meta if split_dims.get(name)}
     host = {name: parts[name].detach().cpu() for name in meta
             if plan[name].replicated and name not in split}
     names = sorted(name for name in meta
                    if not plan[name].replicated or name in split)
-    models = distributed.mesh.size("model")
     group, size = [], 0
     for i, name in enumerate(names):
         group.append(name)
-        size += 4 * meta[name].numel() * (models if name in split else 1)
+        count = 1
+        for axis in split_dims.get(name, {}):
+            count *= mesh.size(axis)
+        size += 4 * meta[name].numel() * count
         if size < limit and i < len(names) - 1:
             continue
         whole = {n: (parts[n] if plan[n].replicated else torch.empty(
@@ -182,9 +192,11 @@ def gather_to_host(parts: Flat, plan: Dict[str, Shard],
         gather_into(whole, plan, parts)
         for n in group:
             value = whole[n]
-            if n in split:
-                value = tensor.all_gather(value.to(device), model_dims[n],
-                                          "model")
+            dims = split_dims.get(n, {})
+            for axis in AXES:
+                if axis in dims:
+                    value = tensor.all_gather(value.to(device), dims[axis],
+                                              axis)
             host[n] = value.detach().cpu()
         group, size = [], 0
     return host
@@ -249,25 +261,33 @@ def all_reduce(tensors: Flat) -> Flat:
 
 def sharded_norm(tensors: Flat, plan: Dict[str, Shard],
                  device: torch.device,
-                 model_split: Optional[Sequence[str]] = None
+                 split: Optional[Dict[str, Collection[str]]] = None
                  ) -> torch.Tensor:
     """The global L2 norm of tensors held as ``plan`` divides them over
-    the data axis and ``model_split`` names the ones split over the
-    model axis (each rank holding its parts, on ``device``): each
-    tensor's squares summed over the ranks it is divided among, and
-    counted once where it is whole on several. With nothing divided,
-    ``optax.global_norm``'s sum on this rank."""
-    model_split = set(model_split or ())
-    if all(shard.replicated for shard in plan.values()) \
-            and not model_split:
+    the data axis and ``split`` names the axes each is split over besides
+    (each rank holding its parts, on ``device``): each tensor's squares
+    summed over the ranks it is divided among, and counted once where it
+    is whole on several. With nothing divided, ``optax.global_norm``'s
+    sum on this rank."""
+    split = {name: set(axes) for name, axes in (split or {}).items()
+             if axes}
+    if all(shard.replicated for shard in plan.values()) and not split:
         return torch.sqrt(sum(t.square().sum() for t in tensors.values()))
-    # [data and model, data alone, model alone, neither]
-    sums = [torch.zeros((), device=device) for _ in range(4)]
+
+    def axes_of(name):
+        axes = set(split.get(name, ()))
+        if not plan[name].replicated:
+            axes.add("data")
+        return tuple(a for a in ("data",) + AXES if a in axes)
+    # one sum per set of axes, the sets fixed by the plan on every rank
+    keys = sorted({axes_of(name) for name in plan})
+    sums = [torch.zeros((), device=device) for _ in keys]
     for name, t in tensors.items():
-        slot = ((0 if name in model_split else 1)
-                if not plan[name].replicated
-                else (2 if name in model_split else 3))
+        slot = keys.index(axes_of(name))
         sums[slot] = sums[slot] + t.square().sum()
-    over_data = tensor.all_reduce(torch.stack(sums[:2]), "data")
-    over_model = tensor.all_reduce(over_data[0] + sums[2], "model")
-    return torch.sqrt(over_model + over_data[1] + sums[3])
+    total = torch.stack(sums)
+    for axis in ("data",) + AXES:
+        over = torch.tensor([axis in key for key in keys], device=device)
+        if mesh.size(axis) > 1 and bool(over.any()):
+            total = torch.where(over, tensor.all_reduce(total, axis), total)
+    return torch.sqrt(total.sum())

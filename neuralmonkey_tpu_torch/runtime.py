@@ -21,8 +21,11 @@ parameters over the model group (tensor parallelism,
 ``parallel/tensor.py``); ``sequence_sharding`` splits the Transformer's
 residual stream over it, ``num_context_shards`` over the context group
 with the ring attention (``ops/sharding.py``,
-``parallel/ring_attention.py``). Checkpoints hold whole tensors in one
-process's layout.
+``parallel/ring_attention.py``). ``num_pipeline_stages`` lays ranks out
+on the pipe axis, where a pipelined part's stacked layers split their
+layer axis (``parallel/pipeline.py``), and ``num_expert_shards`` on the
+expert axis, where the experts of a MoE FFN split (``ops/moe.py``).
+Checkpoints hold whole tensors in one process's layout.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ from .dataset import BatchingScheme
 from .logging import log, warn
 from .model.part import (Context, ModelPart, collect_parts, fold_seed,
                          init_all_params)
+from .ops.moe import disable_expert_sharding, enable_expert_sharding
 from .parallel import distributed, tensor, zero
 from .parallel import mesh as mesh_lib
+from .parallel.pipeline import disable_pipeline, enable_pipeline
 from .runners.base_runner import ExecutionResult, reduce_execution_results
 from .trainers.multitask_trainer import MultitaskTrainer
 from .utils.average_checkpoints import average_flat
@@ -108,12 +113,13 @@ class CUDAManager:
     """Parameters, optimizer state and execution on one device a
     process: ``device`` (default ``cuda``, in a process group
     ``cuda:<local rank>``; ``cpu`` runs every kernel's plain PyTorch
-    version). In a process group ``num_model_shards`` and
-    ``num_context_shards`` lay the ranks out on the model and context
-    axes (``sequence_sharding`` splits the residual stream over the
-    model axis too), and ``shard_optimizer_state`` divides the
-    optimizer state among the data ranks (ZeRO-1) and ``fsdp`` the
-    parameters too."""
+    version). In a process group ``num_model_shards``,
+    ``num_context_shards``, ``num_expert_shards`` and
+    ``num_pipeline_stages`` lay the ranks out on the model, context,
+    expert and pipe axes (``sequence_sharding`` splits the residual
+    stream over the model axis too), and ``shard_optimizer_state``
+    divides the optimizer state among the data ranks (ZeRO-1) and
+    ``fsdp`` the parameters too."""
 
     def __init__(self,
                  num_sessions: int = 1,
@@ -161,25 +167,24 @@ class CUDAManager:
             if num_model_shards <= 1:
                 raise ValueError(
                     "sequence_sharding=True requires num_model_shards > 1")
-        for name, value, what in (
-                ("num_pipeline_stages", num_pipeline_stages,
-                 "pipeline parallelism"),
-                ("num_expert_shards", num_expert_shards,
-                 "expert parallelism")):
-            if value != 1:
-                raise NotImplementedError(
-                    f"{what} ({name}={value!r}) is not ported to "
-                    "neuralmonkey_tpu_torch yet (ROADMAP queue A15, "
-                    "part 3)")
-        # the rank grid: model groups innermost, then context groups,
-        # data replicas outermost (a world the axes do not divide
-        # raises the JAX package's error)
+        # a previous manager's registries go first (the JAX package's
+        # rule), then this one's are set
+        disable_pipeline()
+        disable_expert_sharding()
+        # the rank grid: model groups innermost, then context, expert and
+        # pipe groups, data replicas outermost (a world the axes do not
+        # divide raises the JAX package's error)
         self.mesh = mesh_lib.Mesh(
             distributed.process_count(), distributed.process_index(),
-            {"context": num_context_shards, "model": num_model_shards},
+            {"pipe": num_pipeline_stages, "expert": num_expert_shards,
+             "context": num_context_shards, "model": num_model_shards},
             sequence=sequence_sharding)
         self.mesh.build_groups()
         mesh_lib.enable(self.mesh)
+        if num_expert_shards > 1:
+            enable_expert_sharding(self.mesh)
+        if num_pipeline_stages > 1:
+            enable_pipeline(self.mesh)
         # ZeRO over the data-parallel ranks: fsdp divides the parameters
         # (gathered for each step and decode), shard_optimizer_state the
         # optimizer state alone; the moments follow their parameters, so
@@ -201,11 +206,11 @@ class CUDAManager:
         # fsdp each holds this rank's parts (_rest_plan)
         self.params_list: List[Dict[str, Any]] = [{}]
         # the parameters' whole shapes and dtypes (meta tensors), the
-        # dim each is split along over the model axis (or None), this
-        # rank's model shards' shapes, and how each shard divides at
-        # rest over the data axis (fsdp)
+        # dims each is split along over the model, expert and pipe axes,
+        # this rank's shards' shapes, and how each shard divides at rest
+        # over the data axis (fsdp)
         self._meta: Dict[str, torch.Tensor] = {}
-        self._model_dims: Dict[str, Optional[int]] = {}
+        self._split: Dict[str, Dict[str, int]] = {}
         self._local_meta: Dict[str, torch.Tensor] = {}
         self._rest_plan: Dict[str, zero.Shard] = {}
         self.global_step = 0
@@ -257,18 +262,18 @@ class CUDAManager:
         self._meta = {name: torch.empty(value.shape, dtype=value.dtype,
                                         device="meta")
                       for name, value in flatten_tree(params).items()}
-        self._model_dims = self._model_split_dims()
-        models = self.mesh.size("model")
+        self._split = self._split_dims()
         self._local_meta = {}
         for name, m in self._meta.items():
             shape = list(m.shape)
-            if self._model_dims[name] is not None:
-                shape[self._model_dims[name]] //= models
+            for axis, dim in self._split[name].items():
+                shape[dim] //= self.mesh.size(axis)
             self._local_meta[name] = torch.empty(shape, dtype=m.dtype,
                                                  device="meta")
         self._rest_plan = (
             zero.slice_plan({n: m.shape for n, m in self._local_meta.items()},
-                            self.world, self._model_dims)
+                            self.world, {n: set(d.values())
+                                         for n, d in self._split.items()})
             if self.fsdp else {n: zero.Shard() for n in self._meta})
         self.params_list = [self._to_rest(_to_device(params, self.device))]
         total = sum(m.numel() for m in self._meta.values())
@@ -278,16 +283,17 @@ class CUDAManager:
             if part.load_checkpoint:
                 self.load_part_checkpoint(part, part.load_checkpoint)
 
-    def _model_split_dims(self) -> Dict[str, Optional[int]]:
-        """For each parameter, the dim its part declares on the model
-        axis (``param_partition_specs``, as ``_declared_partition_specs``
-        and ``_declared_axes`` collect them), or None: undeclared, a spec
-        of another rank, or a dim the model axis does not divide (kept
-        whole on every rank, with the JAX package's warning; its layer
-        then runs whole). Axes this mesh lacks are dropped."""
-        models = self.mesh.size("model")
-        dims: Dict[str, Optional[int]] = {n: None for n in self._meta}
-        if models == 1:
+    def _split_dims(self) -> Dict[str, Dict[str, int]]:
+        """For each parameter, the dim its part declares on each of the
+        model, expert and pipe axes (``param_partition_specs``, as
+        ``_declared_partition_specs`` and ``_declared_axes`` collect
+        them), by axis: none where it is undeclared, of another rank, or
+        has a dim its axis does not divide (kept whole on every rank,
+        with the JAX package's warning). Axes this mesh lacks are
+        dropped."""
+        sizes = {axis: self.mesh.size(axis) for axis in zero.AXES}
+        dims: Dict[str, Dict[str, int]] = {n: {} for n in self._meta}
+        if all(size == 1 for size in sizes.values()):
             return dims
         declared: Dict[str, tuple] = {}
         for part in self.parts:
@@ -301,18 +307,20 @@ class CUDAManager:
                 warn(f"Param '{name}' declares partition {axes} but "
                      f"has rank {m.dim()}; replicating")
                 continue
-            if "model" not in axes:
+            chosen = {axis: i for i, axis in enumerate(axes)
+                      if sizes.get(axis, 1) > 1}
+            undivided = [(axis, i) for axis, i in chosen.items()
+                         if m.shape[i] % sizes[axis]]
+            if undivided:
+                axis, i = undivided[0]
+                warn(f"Param '{name}' dim {m.shape[i]} not divisible by "
+                     f"mesh axis {axis}={sizes[axis]}; replicating")
                 continue
-            dim = axes.index("model")
-            if m.shape[dim] % models:
-                warn(f"Param '{name}' dim {m.shape[dim]} not divisible by "
-                     f"mesh axis model={models}; replicating")
-                continue
-            dims[name] = dim
-        if not any(d is not None for d in dims.values()):
-            warn("mesh has a model axis but no parameter declares a "
-                 "matching partition (param_partition_specs); everything "
-                 "replicates")
+            dims[name] = chosen
+        if not any(dims.values()):
+            warn("mesh has a model, expert or pipe axis but no parameter "
+                 "declares a matching partition (param_partition_specs); "
+                 "everything replicates")
         return dims
 
     # ------------------------------------------------------------------ #
@@ -326,16 +334,25 @@ class CUDAManager:
     def _sharded_params(self) -> bool:
         return any(not s.replicated for s in self._rest_plan.values())
 
-    def _model_split(self) -> List[str]:
-        return [n for n, d in self._model_dims.items() if d is not None]
+    def _split_names(self) -> List[str]:
+        return [n for n, d in self._split.items() if d]
 
-    def _model_part(self, name: str, value: torch.Tensor) -> torch.Tensor:
-        """This rank's model shard of a whole tensor of parameter
-        ``name`` (the tensor itself where it is whole)."""
-        dim = self._model_dims.get(name)
-        if dim is None:
-            return value
-        return tensor.own_part(value, dim, "model")
+    def _own_part(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole tensor of parameter ``name`` over
+        the axes it is split along (the tensor itself where it is
+        whole)."""
+        for axis, dim in self._split.get(name, {}).items():
+            value = tensor.own_part(value, dim, axis)
+        return value
+
+    def _gather_whole(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from this rank's shard ``value`` of parameter
+        ``name`` (collectives over its axes' groups)."""
+        dims = self._split.get(name, {})
+        for axis in zero.AXES:
+            if axis in dims:
+                value = tensor.all_gather(value, dims[axis], axis)
+        return value
 
     def _to_rest(self, tree: Any, prefix: str = "") -> Any:
         """Whole parameters (of the part ``prefix``, or all) as this rank
@@ -343,15 +360,14 @@ class CUDAManager:
         those; each marked with the dim it is split along over the
         model axis."""
         def cut(name, value):
-            value = self._model_part(name, value)
+            value = self._own_part(name, value)
             shard = self._rest_plan[name]
             if not shard.replicated:
                 value = zero.region(value, shard, self.rank, self.world)
-            if value is not None and (
-                    not shard.replicated
-                    or self._model_dims.get(name) is not None):
+            if value is not None and (not shard.replicated
+                                      or self._split.get(name)):
                 value = value.contiguous().clone()
-            return tensor.mark_split(value, self._model_dims.get(name))
+            return tensor.mark_axes(value, self._split.get(name))
         return _map_leaves(cut, tree, prefix)
 
     def _whole(self, tree: Any) -> Any:
@@ -365,22 +381,17 @@ class CUDAManager:
                         value.new_empty(self._local_meta[name].shape))
                  for name, value in rest.items()}
         zero.gather_into(whole, self._rest_plan, rest)
-        return _map_leaves(lambda name, _: tensor.mark_split(
-            whole[name], self._model_dims.get(name)), tree)
+        return _map_leaves(lambda name, _: tensor.mark_axes(
+            whole[name], self._split.get(name)), tree)
 
     def whole_params(self) -> Dict[str, Any]:
         """The first parameter set with every parameter whole, in one
         process's shapes (over data and model ranks a collective: every
         rank calls it)."""
         params = self._whole(self.params)
-        if not self._model_split():
+        if not self._split_names():
             return params
-
-        def gather(name, value):
-            dim = self._model_dims.get(name)
-            return value if dim is None else tensor.all_gather(value, dim,
-                                                                "model")
-        return _map_leaves(gather, params)
+        return _map_leaves(self._gather_whole, params)
 
     def load_part_checkpoint(self, part: ModelPart, path: str) -> None:
         """Warm-start ``part``'s parameters from the ``.npz`` at
@@ -571,23 +582,20 @@ class CUDAManager:
         the state holds this rank's parts: an elementwise rule's state
         divides as its parameter does, Adafactor's (whose update reduces
         over whole parameters) stays whole on each parameter's owner
-        rank (``_update_plans``)."""
+        rank (``_update_plans``) and, for a parameter split over the
+        model, expert or pipe axes, whole over them too: the update runs
+        on the parameter gathered whole (``_update``)."""
         label = self._trainer_label(trainer)
         if label not in self._updates:
             update = trainer.make_update()
-            if self._model_split() and not update.transform.elementwise:
-                raise NotImplementedError(
-                    "an optimizer whose update reduces over whole "
-                    "parameters (Adafactor) under num_model_shards > 1 is "
-                    "not ported to neuralmonkey_tpu_torch yet (ROADMAP "
-                    "queue A15, part 3)")
-            # this rank's model shards are what the update divides
-            meta = self._local_meta
-            shapes = {name: m.shape for name, m in meta.items()}
+            # this rank's shards are what the update divides
+            shapes = {name: m.shape for name, m in self._local_meta.items()}
+            meta = self._update_meta(update)
             if not self.shard_optimizer_state:
                 plan = {name: zero.Shard() for name in shapes}
             elif update.transform.elementwise:
-                plan = zero.slice_plan(shapes, self.world, self._model_dims)
+                plan = zero.slice_plan(shapes, self.world, {
+                    n: set(d.values()) for n, d in self._split.items()})
             else:
                 plan = zero.owner_plan(shapes, self.world)
             local = {}
@@ -606,7 +614,7 @@ class CUDAManager:
                           if k.startswith(prefix)}
                 if set(staged) == set(update.init(meta)):
                     state_plan = self._state_plan(update, meta, plan)
-                    dims = self._state_model_dims(update)
+                    dims = self._state_split_dims(update)
                     state = {k: self._state_part(staged[k], state_plan[k],
                                                  dims[k]).to(v.device)
                              for k, v in state.items()}
@@ -640,23 +648,33 @@ class CUDAManager:
                 state_plan[key] = shard
         return state_plan
 
-    def _state_model_dims(self, update) -> Dict[str, Optional[int]]:
-        """The model-axis split dim of each optimizer-state entry: its
-        parameter's, for the entries shaped as it (the elementwise
-        rules', the only ones ported under model shards)."""
-        dims = {key: None for key in update.init({})}
-        for name, m in self._local_meta.items():
+    def _update_meta(self, update) -> Dict[str, torch.Tensor]:
+        """The parameters' shapes the update and its state take: this
+        rank's shards for an elementwise rule, the whole parameters for
+        one that reduces over them."""
+        return self._local_meta if update.transform.elementwise \
+            else self._meta
+
+    def _state_split_dims(self, update) -> Dict[str, Dict[str, int]]:
+        """The split dims of each optimizer-state entry: its parameter's,
+        for an elementwise rule's entries (shaped as it); none for a rule
+        whose state is whole."""
+        dims: Dict[str, Dict[str, int]] = {
+            key: {} for key in update.init({})}
+        meta = self._update_meta(update)
+        for name, m in meta.items():
             for key in update.init({name: m}):
-                dims.setdefault(key, self._model_dims.get(name))
+                dims.setdefault(key, self._split.get(name, {})
+                                if update.transform.elementwise else {})
         return dims
 
     def _state_part(self, value: np.ndarray, shard: "zero.Shard",
-                    model_dim: Optional[int] = None) -> torch.Tensor:
-        """This rank's part of a whole optimizer-state entry: its model
-        shard, then its data part."""
+                    dims: Optional[Dict[str, int]] = None) -> torch.Tensor:
+        """This rank's part of a whole optimizer-state entry: its shard
+        over the axes of ``dims``, then its data part."""
         whole = torch.from_numpy(np.array(value))
-        if model_dim is not None:
-            whole = tensor.own_part(whole, model_dim, "model")
+        for axis, dim in (dims or {}).items():
+            whole = tensor.own_part(whole, dim, axis)
         return zero.region(whole, shard, self.rank,
                            self.world).contiguous().clone()
 
@@ -733,8 +751,26 @@ class CUDAManager:
             part = zero.region(value, plan[name], self.rank, self.world)
             if part is not None:
                 targets[name] = part
+        split = {name: set(dims) for name, dims in self._split.items()}
+        whole_update = (not update.transform.elementwise
+                        and self._split_names())
+        if whole_update:
+            # a rule that reduces over whole parameters updates the split
+            # ones gathered whole (every rank of their groups the same),
+            # then each rank keeps its shard
+            parts = targets
+            targets = {name: self._gather_whole(name, part)
+                       for name, part in parts.items()}
+            grads = {name: self._gather_whole(name, grad)
+                     for name, grad in grads.items()}
+            split = {}
         norm = update.apply(targets, grads, state, norm_of=lambda t: (
-            zero.sharded_norm(t, plan, self.device, self._model_split())))
+            zero.sharded_norm(t, plan, self.device, split)))
+        if whole_update:
+            for name, part in parts.items():
+                if self._split[name]:
+                    part.copy_(self._own_part(name, targets[name]))
+            targets = parts
         # the reduced gradients go before the gather's buffers come
         del grads
         if self._sharded_params() and plan == self._rest_plan:
@@ -831,7 +867,7 @@ class CUDAManager:
         ckpt_path = f"{path}-{step}"
         host = zero.gather_to_host(flatten_tree(self.params),
                                    self._rest_plan, self._local_meta,
-                                   self.device, model_dims=self._model_dims)
+                                   self.device, split_dims=self._split)
         params = _map_leaves(lambda name, _: host[name], self.params)
         combined = self._gather_optimizer_state()
         if not distributed.is_main_process():
@@ -875,12 +911,13 @@ class CUDAManager:
         combined: Dict[str, np.ndarray] = {}
         for label, state in self._opt_states.items():
             update = self._updates[label]
-            local_meta = update.init(self._local_meta)
+            meta = self._update_meta(update)
+            local_meta = update.init(meta)
             host = zero.gather_to_host(
-                state, self._state_plan(update, self._local_meta,
+                state, self._state_plan(update, meta,
                                         self._update_plans[label]),
                 local_meta, self.device,
-                model_dims=self._state_model_dims(update))
+                split_dims=self._state_split_dims(update))
             for key in local_meta:
                 combined[f"{label}/{key}"] = host[key].numpy()
         return combined

@@ -155,8 +155,8 @@ def test_context_parallel_ini_driven(ranks, single):
 
 def test_context_mesh_shapes_and_rejections():
     """The rank grid: data outermost, context, model innermost; a world
-    the axes do not divide raises the JAX package's error; CP x PP and
-    CP x EP still raise, naming part 3."""
+    the axes do not divide raises the JAX package's error, also for CP
+    beside a pipe or expert axis in one process."""
     assert Mesh(8, 0, {"context": 4}).shape == {"data": 2, "context": 4}
     grid = Mesh(8, 5, {"context": 2, "model": 2})
     assert grid.shape == {"data": 2, "context": 2, "model": 2}
@@ -168,8 +168,10 @@ def test_context_mesh_shapes_and_rejections():
     with pytest.raises(ValueError, match="8 devices not divisible by "
                        "context=3"):
         Mesh(8, 0, {"context": 3})
-    for other in ("num_pipeline_stages", "num_expert_shards"):
-        with pytest.raises(NotImplementedError, match="A15, part 3"):
+    for other, axis in (("num_pipeline_stages", "pipe"),
+                        ("num_expert_shards", "expert")):
+        with pytest.raises(ValueError, match=f"1 devices not divisible by "
+                           rf"{axis}=2\*context=2"):
             CUDAManager(device="cpu", num_context_shards=2, **{other: 2})
     with pytest.raises(ValueError, match="1 devices not divisible by "
                        "context=2"):

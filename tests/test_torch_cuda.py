@@ -2553,3 +2553,92 @@ def test_tp_step_of_two_ranks_on_the_card_equals_one_rank(cuda_device,
             torch.testing.assert_close(got["params"][key], value, atol=1e-5,
                                        rtol=0, msg=key)
         assert got["ids"] == want["ids"]
+
+
+# ---------------------------------------------------------------------- #
+# pipeline and expert parallelism: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------- #
+def pe_card_step(directory):
+    """One step of a width-64, 4-head Transformer with its 2 + 2 layers
+    stacked for 2 pipeline stages and MoE FFNs of 4 experts, over the
+    ranks' pipe axis (one process: the stacked layers one after another)
+    on ``cuda:0``, then a beam-4 decode: the loss, the parameters after
+    the step (gathered whole), the ids, the kernels' launches and the
+    layers a stage holds."""
+    import torch.distributed as dist
+
+    from neuralmonkey_tpu_torch.dataset import Dataset
+    from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
+        BeamSearchDecoder
+    from neuralmonkey_tpu_torch.models.decoders.transformer import \
+        TransformerDecoder
+    from neuralmonkey_tpu_torch.models.encoders.transformer import \
+        TransformerEncoder
+    from neuralmonkey_tpu_torch.runners.beam_search_runner import \
+        BeamSearchRunner
+    from neuralmonkey_tpu_torch.runtime import CUDAManager
+    from neuralmonkey_tpu_torch.trainers.cross_entropy_trainer import \
+        CrossEntropyTrainer
+    from neuralmonkey_tpu_torch.trainers.optimizers import AdamOptimizer
+
+    del directory
+    stages = dist.get_world_size() if dist.is_initialized() else 1
+    vocab = Vocabulary([f"w{i}" for i in range(2044)])
+    more = {"pipeline_stages": 2, "moe_experts": 4,
+            "dropout_keep_prob": 1.0}
+    enc = TransformerEncoder(name="encoder", vocabulary=vocab,
+                             data_id="source", embedding_size=64,
+                             ff_hidden_size=128, depth=2, n_heads=4, **more)
+    dec = TransformerDecoder(name="decoder", vocabulary=vocab,
+                             data_id="target", encoders=[enc],
+                             embedding_size=64, ff_hidden_size=128, depth=2,
+                             n_heads_self=4, n_heads_enc=4,
+                             max_output_len=10, tie_embeddings=False, **more)
+    trainer = CrossEntropyTrainer(decoders=[dec], clip_norm=1.0,
+                                  optimizer=AdamOptimizer(1e-3,
+                                                          epsilon=1e-4))
+    search = BeamSearchRunner(output_series="beam", decoder=BeamSearchDecoder(
+        name="search", parent_decoder=dec, beam_size=4))
+    manager = CUDAManager(device="cuda:0", num_pipeline_stages=stages)
+    manager.initialize_model_parts([trainer, search], seed=3)
+    data = Dataset("toy", {
+        "source": [[f"w{(3 * j + i) % 56}" for i in range(j % 7 + 2)]
+                   for j in range(16)],
+        "target": [[f"w{(5 * j + i) % 56}" for i in range(j % 5 + 1)]
+                   for j in range(16)]})
+    kernel_config.reset_launch_counts()
+    loss = manager.train_on_batch(trainer, data, 16)["loss"]
+    ids = manager.run_on_batch([search], data, 16)[0].outputs
+    torch.cuda.synchronize()
+    return {"loss": loss, "ids": ids,
+            "launches": kernel_config.launch_counts(),
+            "layers": manager.params["decoder"]["layers"]["self_att"]["q"][
+                "w"].shape[0],
+            "params": {k: v.detach().cpu() for k, v in
+                       flatten_tree(manager.whole_params()).items()}}
+
+
+def test_pp_step_of_two_ranks_on_the_card_equals_one_rank(cuda_device,
+                                                          tmp_path):
+    """Two processes on ``cuda:0`` over gloo take one step of a stacked
+    MoE Transformer through the pipeline, each stage's layers through
+    flash attention's forward and backward kernels, then decode with
+    beam search (K4) with every layer gathered: the loss and parameters
+    of the same step in one process (1e-5), its ids."""
+    import test_torch_parallel as workers
+    del cuda_device
+    ranks = workers.run_ranks(str(tmp_path), ["pe_card_step"],
+                              module="test_torch_cuda")
+    want = pe_card_step(str(tmp_path))
+    assert want["layers"] == 2
+    for rank in ranks:
+        got = rank["pe_card_step"]
+        assert got["layers"] == 1
+        for kernel in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv", "small_topk"):
+            assert got["launches"][kernel] > 0, got["launches"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-5
+        for key, value in want["params"].items():
+            torch.testing.assert_close(got["params"][key], value, atol=1e-5,
+                                       rtol=0, msg=key)
+        assert got["ids"] == want["ids"]

@@ -263,17 +263,16 @@ def test_mesh_option_at_its_default_builds(tmp_path, monkeypatch, option):
     assert exp.tf_manager.device.type == "cpu"
 
 
-# the ZeRO options and the model and context axes are ported (parallel/);
-# pipeline stages and expert shards are not. In one process a model or
-# context axis of 2 does not divide the world: the JAX package's error.
-# sequence_sharding raises where the JAX manager warns and ignores it.
+# the ZeRO options and the model, context, pipe and expert axes are
+# ported (parallel/). In one process an axis of 2 or 4 does not divide
+# the world: the JAX package's error. sequence_sharding raises where the
+# JAX manager warns and ignores it.
 ZERO_OPTIONS = ("fsdp", "shard_optimizer_state")
 OFF_DEFAULT = {
-    "num_pipeline_stages": ({"num_pipeline_stages": 2}, NotImplementedError,
-                            "num_pipeline_stages=.*ROADMAP queue A15, "
-                            "part 3"),
-    "num_expert_shards": ({"num_expert_shards": 4}, NotImplementedError,
-                          "num_expert_shards=.*ROADMAP queue A15, part 3"),
+    "num_pipeline_stages": ({"num_pipeline_stages": 2}, ValueError,
+                            "1 devices not divisible by pipe=2"),
+    "num_expert_shards": ({"num_expert_shards": 4}, ValueError,
+                          "1 devices not divisible by expert=4"),
     "num_model_shards": ({"num_model_shards": 2}, ValueError,
                          "1 devices not divisible by model=2"),
     "num_context_shards": ({"num_context_shards": 2}, ValueError,

@@ -7,8 +7,9 @@ packages from one numpy draw of their parameters; two gloo ranks take
 the port's step, each holding the whole batch, the parameters the parts
 declare split over the two model ranks: the RNN's embedding tables and
 output projection (with the l2 term, whose sums over the split leaves
-are summed over the ranks, and the self-critical objective, whose
-sampled steps gather their logits whole) and the labeler's projection.
+are summed over the ranks, the self-critical objective, whose sampled
+steps gather their logits whole, and Adafactor, whose update runs on
+the split leaves gathered whole) and the labeler's projection.
 Loss and updated parameters agree with the JAX step within 1e-5.
 ``test_torch_model_axes_transformer_jax.py`` holds the Transformer's
 cases.
@@ -16,32 +17,39 @@ cases.
 
 import pytest
 
-from neuralmonkey_tpu_torch.parallel import ring_attention, tensor
+from neuralmonkey_tpu_torch.ops import moe
+from neuralmonkey_tpu_torch.parallel import pipeline, ring_attention, tensor
 
 import test_torch_parallel as workers
 import test_torch_parallel_jax as dp_jax
 
 RUNS = [(f"{kind}_tp", kind, {"num_model_shards": 2})
-        for kind in ("xent", "l2", "labeler", "self_critical")]
+        for kind in ("xent", "l2", "labeler", "self_critical",
+                     "adafactor")]
+
+
+# the calls counted in each case: the ring, the sequence split's
+# reduce-scatter, the pipeline and the experts' split dispatch
+COUNTED = {"ring": (ring_attention, "ring_attention"),
+           "reduce_scatter": (tensor, "reduce_scatter"),
+           "gpipe": (pipeline, "gpipe_apply"),
+           "dispatch": (moe, "constrain_dispatch")}
+NONE = {name: 0 for name in COUNTED}
 
 
 def counted_losses(directory, cases):
-    """``global_losses`` of ``cases``, and per case the calls of the
-    ring and of the sequence split's reduce-scatter."""
-    calls = {"ring": 0, "reduce_scatter": 0}
-    real_ring, real_scatter = ring_attention.ring_attention, \
-        tensor.reduce_scatter
+    """``global_losses`` of ``cases``, and per case the calls of
+    ``COUNTED``."""
+    calls = dict(NONE)
+    reals = {name: getattr(*where) for name, where in COUNTED.items()}
 
-    def ring(*args, **kwargs):
-        calls["ring"] += 1
-        return real_ring(*args, **kwargs)
-
-    def scatter(*args, **kwargs):
-        calls["reduce_scatter"] += 1
-        return real_scatter(*args, **kwargs)
-
-    ring_attention.ring_attention = ring
-    tensor.reduce_scatter = scatter
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return reals[name](*args, **kwargs)
+        return call
+    for name, (module, attr) in COUNTED.items():
+        setattr(module, attr, counting(name))
     counts = {}
     try:
         out = {}
@@ -50,8 +58,8 @@ def counted_losses(directory, cases):
             out.update(workers.global_losses(directory, [case]))
             counts[case[0]] = {k: calls[k] - before[k] for k in calls}
     finally:
-        ring_attention.ring_attention = real_ring
-        tensor.reduce_scatter = real_scatter
+        for name, (module, attr) in COUNTED.items():
+            setattr(module, attr, reals[name])
     return {"losses": out, "counts": counts}
 
 
@@ -79,5 +87,5 @@ def steps(tmp_path_factory):
 def test_model_axes_take_the_jax_one_device_step(steps, name, kind):
     references, ranks, counts = steps
     dp_jax.check_step((references, ranks), name, kind)
-    for rank in counts:  # neither the sequence split nor the ring ran
-        assert rank[name] == {"ring": 0, "reduce_scatter": 0}
+    for rank in counts:  # none of the counted calls ran
+        assert rank[name] == NONE

@@ -335,10 +335,10 @@ def test_resolver_builds_port_modules_only():
         WordpiecePreprocessor
     assert resolve_class_symbol(
         "processors.wordpiece.WordpiecePreprocessor") is WordpiecePreprocessor
-    # the pipeline stays unported (queue A15, part 3); the ring is ported
-    with pytest.raises(ImportError, match="not ported"):
-        resolve_class_symbol("neuralmonkey_tpu.parallel.pipeline."
-                             "gpipe_apply")
+    # the pipeline and the ring resolve to the port's
+    from neuralmonkey_tpu_torch.parallel.pipeline import gpipe_apply
+    assert resolve_class_symbol("neuralmonkey_tpu.parallel.pipeline."
+                                "gpipe_apply") is gpipe_apply
     from neuralmonkey_tpu_torch.parallel.ring_attention import \
         ring_attention
     assert resolve_class_symbol("neuralmonkey_tpu.parallel.ring_attention."

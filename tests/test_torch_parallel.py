@@ -454,7 +454,8 @@ def case_series(kind):
     ``transformer`` case's (``test_torch_model_axes_transformer_jax.py``)
     longest source and target (with its start) are 8, so that two model
     or context ranks divide their time axes."""
-    lengths = (8, 6, 2, 1) if kind == "transformer" else (7, 6, 2, 1)
+    lengths = (8, 6, 2, 1) if kind in ("transformer", "pipeline") \
+        else (7, 6, 2, 1)
     rng = np.random.RandomState(3)
     source = [[f"w{i}" for i in rng.randint(0, CASE_WORDS, n)]
               for n in lengths]
@@ -483,6 +484,10 @@ def build_case(kind, package):
     vocab = cls("vocabulary", "Vocabulary")(
         [f"w{i}" for i in range(CASE_WORDS)])
     sgd = cls("trainers.optimizers", "GradientDescentOptimizer")(0.1)
+    if kind == "adafactor":
+        # the cross-entropy case's model under Adafactor, whose update
+        # reduces over whole parameters
+        sgd = cls("trainers.optimizers", "AdafactorOptimizer")(0.01)
     xent_trainer = cls("trainers.cross_entropy_trainer",
                        "CrossEntropyTrainer")
     if kind == "moe":
@@ -498,17 +503,20 @@ def build_case(kind, package):
             ff_hidden_size=24, depth=1, n_heads_self=2, n_heads_enc=2,
             **moe)
         return xent_trainer(decoders=[dec], optimizer=sgd)
-    if kind == "transformer":
+    if kind in ("transformer", "pipeline"):
+        # "pipeline": the stacked layers of two pipeline stages
+        stages = 2 if kind == "pipeline" else 0
         enc = cls("models.encoders.transformer", "TransformerEncoder")(
             name="encoder", vocabulary=vocab, data_id="source",
             embedding_size=16, ff_hidden_size=32, depth=2, n_heads=4,
-            max_input_len=8, dropout_keep_prob=1.0)
+            max_input_len=8, dropout_keep_prob=1.0,
+            pipeline_stages=stages)
         dec = cls("models.decoders.transformer", "TransformerDecoder")(
             name="decoder", vocabulary=vocab, data_id="target",
             max_output_len=8, encoders=[enc], embedding_size=16,
             ff_hidden_size=32, depth=2, n_heads_self=4, n_heads_enc=4,
             tie_embeddings=False, label_smoothing=0.1,
-            dropout_keep_prob=1.0)
+            dropout_keep_prob=1.0, pipeline_stages=stages)
         return xent_trainer(decoders=[dec], optimizer=sgd)
     enc = cls("models.encoders.recurrent", "SentenceEncoder")(
         name="encoder", vocabulary=vocab, data_id="source",

@@ -62,15 +62,16 @@ def _reference(kind):
     sampled = None
     if kind == "self_critical":
         decoder = trainer.objectives[0].decoder
-        sampled = np.asarray(decoder.sample_outputs(JaxContext(
-            params, arrays, train=True, rng=KEY))[0])
+        sampled = np.asarray(jax.jit(lambda p, a: decoder.sample_outputs(
+            JaxContext(p, a, train=True, rng=KEY))[0])(params, arrays))
 
     def loss_fn(p):
         return trainer.total_loss(p, arrays, KEY)
-    (total, losses), grads = jax.value_and_grad(loss_fn, has_aux=True)(
-        params)
+    # compiled once: faster than the op-by-op dispatch of the eager step
+    (total, losses), grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(params)
     tx = trainer.make_optax()
-    updates, _ = tx.update(grads, tx.init(params), params)
+    updates, _ = jax.jit(tx.update)(grads, tx.init(params), params)
     new = jax_flatten(optax.apply_updates(params, updates))
     losses = {k: float(v) for k, v in losses.items()}
     losses["loss"] = float(total)

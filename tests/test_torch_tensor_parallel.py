@@ -68,17 +68,22 @@ def dataset(n=16, src=3, tgt=2):
 
 
 def build(name="tp", keep=1.0, width=16, ff=32, heads=4, words=28,
-          clip_norm=1.0, att_keep=1.0, tie=False):
+          clip_norm=1.0, att_keep=1.0, tie=False, stages=0, experts=0,
+          depth=2):
+    """The model; ``stages`` pipeline stages (the stacked layers) and
+    ``experts`` MoE FFNs in both parts, each of ``depth`` layers."""
+    more = {"pipeline_stages": stages, "moe_experts": experts}
     enc = TransformerEncoder(
         name=f"{name}_src", vocabulary=vocab(words), data_id="source",
-        embedding_size=width, ff_hidden_size=ff, depth=2, n_heads=heads,
-        dropout_keep_prob=keep, attention_dropout_keep_prob=att_keep)
+        embedding_size=width, ff_hidden_size=ff, depth=depth,
+        n_heads=heads, dropout_keep_prob=keep,
+        attention_dropout_keep_prob=att_keep, **more)
     dec = TransformerDecoder(
         name=f"{name}_tgt", vocabulary=vocab(words), data_id="target",
-        encoders=[enc], embedding_size=width, ff_hidden_size=ff, depth=2,
-        n_heads_self=heads, n_heads_enc=heads, max_output_len=6,
-        tie_embeddings=tie, dropout_keep_prob=keep,
-        attention_dropout_keep_prob=att_keep)
+        encoders=[enc], embedding_size=width, ff_hidden_size=ff,
+        depth=depth, n_heads_self=heads, n_heads_enc=heads,
+        max_output_len=6, tie_embeddings=tie, dropout_keep_prob=keep,
+        attention_dropout_keep_prob=att_keep, **more)
     # Adam's epsilon raised from 1e-8, as in test_torch_parallel: the key
     # biases' exact gradient is 0 and their rounding noise would otherwise
     # take steps of the learning rate

@@ -511,18 +511,27 @@ def test_context_parallel_settings_raise():
 
 @pytest.mark.parametrize("option", ["moe_experts", "pipeline_stages"])
 def test_unported_transformer_options_raise(option):
-    """Pipeline stages raise. Mixture-of-experts FFNs are ported
-    (tests/test_torch_moe.py); what of them is not, their expert
-    sharding over a mesh, raises in the manager."""
+    """Both options are ported (tests/test_torch_moe.py,
+    tests/test_torch_pipeline.py, tests/test_torch_expert_parallel.py);
+    what raises is what the JAX package refuses: an expert or pipe axis
+    one process cannot hold, and pipeline options the depth does not
+    divide."""
     vocab = Vocabulary(["a", "b"])
     if option == "moe_experts":
         encoder = TransformerEncoder(name="enc", vocabulary=vocab,
                                      data_id="source", embedding_size=8,
                                      n_heads=2, moe_experts=2)
         assert encoder.moe.on
-        with pytest.raises(NotImplementedError, match="expert parallelism"):
+        with pytest.raises(ValueError,
+                           match="1 devices not divisible by expert=2"):
             CUDAManager(device="cpu", num_expert_shards=2)
         return
-    with pytest.raises(NotImplementedError, match=option):
+    encoder = TransformerEncoder(name="enc", vocabulary=vocab,
+                                 data_id="source", embedding_size=8,
+                                 n_heads=2, **{option: 2})
+    assert encoder.pipeline_stages == 2
+    with pytest.raises(ValueError, match="depth 6 not divisible by 4"):
         TransformerEncoder(name="enc", vocabulary=vocab, data_id="source",
-                           embedding_size=8, n_heads=2, **{option: 2})
+                           embedding_size=8, n_heads=2, **{option: 4})
+    with pytest.raises(ValueError, match="1 devices not divisible by pipe=2"):
+        CUDAManager(device="cpu", num_pipeline_stages=2)
