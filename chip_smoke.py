@@ -4985,6 +4985,9 @@ def check_bf16_policy(tmp: str, rnn, transformer):
 # phase 25: checkpoint ensembles, averaging and grid decoding
 # ---------------------------------------------------------------------- #
 ENSEMBLE_SEED = SEED + 25
+# the Transformer ensemble's members have 2 + 2 layers (as phase 22's MoE
+# model), which keeps the smoke within its time
+ENSEMBLE_DEPTH = 2
 ENSEMBLE_KERNELS = ("gru_scan", "fused_bahdanau_step", "small_topk")
 T_ENSEMBLE_KERNELS = ("flash_attention_fwd", "small_topk")
 # an ensemble selects on averaged log-probs: the fused logit projection
@@ -5097,16 +5100,16 @@ def launches_per_step(exp, ckpt, data_ini: str, count_ops: bool = False):
     return report
 
 
-def check_ensembles(tmp: str, data_ini: str, ckpt: str, t_ini: str,
-                    t_ckpt: str, single_speed):
+def check_ensembles(tmp: str, data_ini: str, ckpt: str, single_speed):
     """Phase 25. The RNN of phase 4 with a second member initialised
     from another seed: both through ``run`` as a logit ensemble (greedy
     and beam 10; K1, K2 and K4 launch, K3 and ``rowmax_lse`` never), 8
     sentences against the CPU's ensemble by phase 5's rule; the
     checkpoints averaged by ``utils.average_checkpoints`` (bitwise the
     numpy mean on the host), ``run --average`` giving the ids of ``run``
-    on that file. Phase 9's Transformer with a second member: beam 10 as
-    an ensemble by default and under ``NM_LINEAGE_KERNEL=1`` (the flash
+    on that file. Phase 9's Transformer at ENSEMBLE_DEPTH layers a side,
+    two members from two seeds: beam 10 as an ensemble by default and
+    under ``NM_LINEAGE_KERNEL=1`` (the flash
     forward and K4 launch, the lineage attention never), 8 sentences
     against the CPU. Phase 18's labeler (``max_input_len`` 32) labels
     128 sentences of 80-200 words through ``run --grid`` (K1 launches),
@@ -5175,7 +5178,13 @@ def check_ensembles(tmp: str, data_ini: str, ckpt: str, t_ini: str,
     del exp
 
     # the Transformer: plain caches in both lineage forms
-    t_ckpts = [t_ckpt, second_checkpoint(t_ini, tmp, "t_params_b")]
+    t_ini = write_transformer_ini(tmp, "te_exp.ini", T_SERVING_MAIN, 1.0,
+                                  1.0, ENSEMBLE_DEPTH)
+    t_exp = Experiment(t_ini, train_mode=False)
+    t_exp.build_model()
+    t_ckpt = t_exp.tf_manager.save(os.path.join(tmp, "te_params_a"))
+    del t_exp
+    t_ckpts = [t_ckpt, second_checkpoint(t_ini, tmp, "te_params_b")]
     t_data = os.path.join(tmp, "te_data.ini")
     with open(t_data, "w") as f:
         f.write(DATA_INI.format(tmp=tmp, prefix="te_"))
@@ -6694,6 +6703,13 @@ def check_data_parallel(tmp: str, exp_ini: str, data_ini: str, ckpt: str,
         missing = [k for k in SERVING_KERNELS if not decode[k]]
         check(not missing, f"(b) rank {rank} decode: never launched "
                            f"{missing}")
+        # FSDP gathers at use: the whole tree and all its gradients never
+        # live at once, so each rank's peak falls below ZeRO-1's
+        check(result["fsdp"]["max_memory_allocated"]
+              < result["zero1"]["max_memory_allocated"],
+              f"(b) rank {rank}: FSDP peak "
+              f"{result['fsdp']['max_memory_allocated']} not below ZeRO-1's "
+              f"{result['zero1']['max_memory_allocated']}")
     fsdp_cont = [r["fsdp"]["continued"]["loss"] for r in ranks]
     check(fsdp_cont[0] == fsdp_cont[1]
           and abs(one_rank["loss"] - fsdp_cont[0]) <= DP_LOSS_ATOL,
@@ -6767,6 +6783,9 @@ def check_data_parallel(tmp: str, exp_ini: str, data_ini: str, ckpt: str,
             "continued_loss": r[mode]["continued"]["loss"],
             "train_tokens_per_sec": r[mode]["train_tokens_per_sec"]}
             for mode in DP_MODES} for r in ranks],
+        "b_peak_bytes_per_rank": [{mode: r[mode]["max_memory_allocated"]
+                                   for mode in ("zero1", "fsdp")}
+                                  for r in ranks],
         "fsdp_checkpoint_one_process_continued_loss": one_rank["loss"],
         "train_tokens_per_sec": {
             "one process": base["train_tokens_per_sec"],
@@ -6789,7 +6808,11 @@ def check_data_parallel(tmp: str, exp_ini: str, data_ini: str, ckpt: str,
 # phase 29: tensor, sequence and context parallelism on the card
 # ---------------------------------------------------------------------- #
 MA_STEPS = 4
-MA_TIMEOUT = 240.0
+MA_TIMEOUT = 420.0
+# (d): the full-width Transformer over two data ranks
+MA_ZERO_STEPS = 2
+MA_ZERO_MODES = {"zero1": "tf_manager.shard_optimizer_state=True",
+                 "fsdp": "tf_manager.fsdp=True"}
 MA_LOCAL_HEADS = T_HEADS // 2
 MA_TRAIN_KERNELS = FLASH_KERNELS
 MA_DECODE_KERNELS = ("flash_attention_fwd", "small_topk")
@@ -6845,10 +6868,11 @@ s_target_beam_out="{tmp}/ma_beam.txt"
 _MA_REF = {}
 
 
-def ma_train(ini: str, changes, ref: str = None, peak_without_sp=False):
-    """MA_STEPS steps of ``ini``'s model on its first MA_STEPS batches,
+def ma_train(ini: str, changes, ref: str = None, peak_without_sp=False,
+             steps: int = MA_STEPS):
+    """``steps`` steps of ``ini``'s model on its first ``steps`` batches,
     the launch counts set to 0 just before: every step's loss and peak
-    bytes, the bytes at rest, train tokens/s of steps 2 to MA_STEPS, and
+    bytes, the bytes at rest, train tokens/s of steps 2 on, and
     after step 1 the parameters' largest gap to ``ref``'s (one process's,
     saved there), or with no ``ref`` saved there. With
     ``peak_without_sp`` one more step with the sequence split off, its
@@ -6863,11 +6887,11 @@ def ma_train(ini: str, changes, ref: str = None, peak_without_sp=False):
     exp.build_model()
     manager, trainer = exp.tf_manager, exp.model.trainer
     data = exp.model.train_dataset
-    batches = [data.subset(i * BATCH, BATCH) for i in range(MA_STEPS + 1)]
+    batches = [data.subset(i * BATCH, BATCH) for i in range(steps + 1)]
     losses, peaks, tokens, ends = [], [], [], []
     gap = None
     kernel_config.reset_launch_counts()
-    for step, batch in enumerate(batches[:MA_STEPS]):
+    for step, batch in enumerate(batches[:steps]):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out = manager.train_on_batch(trainer, batch, BATCH)
@@ -6898,7 +6922,7 @@ def ma_train(ini: str, changes, ref: str = None, peak_without_sp=False):
         manager.mesh.sequence = False
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        manager.train_on_batch(trainer, batches[MA_STEPS], BATCH)
+        manager.train_on_batch(trainer, batches[steps], BATCH)
         torch.cuda.synchronize()
         record["peak_bytes_without_sp"] = torch.cuda.max_memory_allocated()
     return record, exp
@@ -6915,7 +6939,10 @@ def ma_rank(rank: int, tmp: str, ini: str, port: int, t_ini: str,
     MA_STEPS steps under TP 2 with sequence sharding (and one without,
     for its peak), (b) phase 9's first batch decoded (greedy and beam
     10) under TP 2 from its checkpoint (phase 9's model, restored into
-    (a)'s), (c) MA_STEPS steps under CP 2."""
+    (a)'s), (c) MA_STEPS steps under CP 2, (d) MA_ZERO_STEPS steps over
+    two data ranks under ZeRO-1 and under FSDP, then under FSDP phase
+    9's first batch decoded (greedy and beam 10) from its checkpoint,
+    each step gathering the decoder's layers."""
     import torch
 
     from neuralmonkey_tpu_torch import run
@@ -6950,8 +6977,32 @@ def ma_rank(rank: int, tmp: str, ini: str, port: int, t_ini: str,
                os.path.join(tmp, f"ma_beam_r{rank}.pt"))
     del exp
     gc_card()
-    report["cp"], _ = ma_train(
+    report["cp"], exp = ma_train(
         ini, on_card + ["tf_manager.num_context_shards=2"], ref)
+    del exp
+    gc_card()
+    # (d) ZeRO-1 and FSDP over two data ranks, FSDP gathering each
+    # layer's unit at use
+    for mode, extra in MA_ZERO_MODES.items():
+        report[mode], exp = ma_train(ini, on_card + [extra], ref,
+                                     steps=MA_ZERO_STEPS)
+        if mode == "fsdp":
+            exp.tf_manager.restore(t_ckpt)
+            picks, ids = record_beam(exp)
+            kernel_config.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for dataset in run.load_data_config(
+                    os.path.join(tmp, "mf_data.ini")):
+                exp.run_model(dataset, write_out=True)
+            torch.cuda.synchronize()
+            report["fsdp_decode"] = {
+                "seconds": time.perf_counter() - start,
+                "launches": kernel_config.launch_counts()}
+            torch.save({"picks": picks, "ids": ids},
+                       os.path.join(tmp, f"mf_beam_r{rank}.pt"))
+        del exp
+        gc_card()
     torch.distributed.destroy_process_group()
     with open(result, "w") as f:
         json.dump(report, f)
@@ -7122,10 +7173,14 @@ def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
     seconds = {}
     report = {"seconds": seconds, "device": smi}
     ini = write_transformer_ini(tmp, "ma_train.ini", MA_MAIN, 1.0, 1.0)
-    first_lines(tmp, ("source.txt", "phase9_t_greedy.txt",
-                      "phase9_t_beam.txt"), BATCH, "ma_")
-    with open(os.path.join(tmp, "ma_data.ini"), "w") as f:
-        f.write(MA_DATA_INI.format(tmp=tmp))
+    # phase 9's first batch, decoded under TP 2 (``ma_``) and FSDP
+    # (``mf_``)
+    for prefix in ("ma_", "mf_"):
+        first_lines(tmp, ("source.txt", "phase9_t_greedy.txt",
+                          "phase9_t_beam.txt"), BATCH, prefix)
+        with open(os.path.join(tmp, f"{prefix}data.ini"), "w") as f:
+            f.write(MA_DATA_INI.format(tmp=tmp).replace("/ma_",
+                                                        f"/{prefix}"))
     base, exp = timed(seconds, "one process", ma_train, ini,
                       ['tf_manager.device="cuda:0"'])
     del exp
@@ -7146,7 +7201,7 @@ def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
         if not ok:
             failures.append(what)
 
-    for name in ("tp_sp", "cp"):
+    for name in ("tp_sp", "cp") + tuple(MA_ZERO_MODES):
         for rank, result in enumerate(ranks):
             got = result[name]
             check(abs(got["losses"][0] - base["losses"][0]) <= DP_LOSS_ATOL,
@@ -7159,12 +7214,21 @@ def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
         check(ranks[0][name]["losses"] == ranks[1][name]["losses"],
               f"{name}: the ranks' losses differ")
     for rank, result in enumerate(ranks):
-        missing = [k for k in MA_TRAIN_KERNELS
-                   if not result["tp_sp"]["launches"][k]]
-        check(not missing, f"rank {rank} TP: never launched {missing}")
-        missing = [k for k in MA_DECODE_KERNELS
-                   if not result["decode"]["launches"][k]]
-        check(not missing, f"rank {rank} decode: never launched {missing}")
+        for name in ("tp_sp",) + tuple(MA_ZERO_MODES):
+            missing = [k for k in MA_TRAIN_KERNELS
+                       if not result[name]["launches"][k]]
+            check(not missing, f"rank {rank} {name}: never launched "
+                               f"{missing}")
+        peaks = {mode: max(result[mode]["peak_bytes"])
+                 for mode in MA_ZERO_MODES}
+        check(peaks["fsdp"] < peaks["zero1"],
+              f"rank {rank}: the Transformer's FSDP peak {peaks['fsdp']} "
+              f"not below ZeRO-1's {peaks['zero1']}")
+        for name in ("decode", "fsdp_decode"):
+            missing = [k for k in MA_DECODE_KERNELS
+                       if not result[name]["launches"][k]]
+            check(not missing, f"rank {rank} {name}: never launched "
+                               f"{missing}")
         check(result["decode"]["launches"]["fused_logits_rowmax_lse"] == 0,
               f"rank {rank} decode: K3 launched under a model axis")
         check(result["decode"]["heads"] == MA_LOCAL_HEADS,
@@ -7175,17 +7239,18 @@ def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
               f"against {base['at_rest_bytes']}")
 
     decode = phase9_decode(tmp, "ma_", t_ini, t_ckpt, failures)
+    fsdp_decode = phase9_decode(tmp, "mf_", t_ini, t_ckpt, failures)
     if failures:
         raise AssertionError("model axes: " + "; ".join(failures))
 
+    runs = ("tp_sp", "cp", "decode", "fsdp_decode") + tuple(MA_ZERO_MODES)
     launches = None
     for result in ranks:
-        for name in ("tp_sp", "cp", "decode"):
+        for name in runs:
             launches = add_launches(launches, result[name]["launches"])
     launches = add_launches(launches, base["launches"])
     launches_by_kernel = {name: sum(
-        r[key]["launches"][name] for r in ranks
-        for key in ("tp_sp", "cp", "decode"))
+        r[key]["launches"][name] for r in ranks for key in runs)
         for name in MA_TRAIN_KERNELS + ("small_topk",)}
     keys = ("losses", "peak_bytes", "at_rest_bytes", "train_tokens_per_sec",
             "param_gap_after_step_1")
@@ -7205,10 +7270,18 @@ def check_model_axes(tmp: str, t_ini: str, t_ckpt: str, smi: str, device):
                      abs(a - b) for a, b in zip(r["cp"]["losses"][1:],
                                                 base["losses"][1:])]}
                 for r in ranks],
+        "zero1_fsdp": [{mode: {
+            **{k: r[mode][k] for k in keys},
+            "peak": max(r[mode]["peak_bytes"]),
+            "flash_launches": {k: r[mode]["launches"][k]
+                               for k in MA_TRAIN_KERNELS}}
+            for mode in MA_ZERO_MODES} for r in ranks],
         "train_tokens_per_sec_note": "two ranks time-sharing one card: "
                                      "not scaling",
         "decode": {"seconds": [r["decode"]["seconds"] for r in ranks],
-                   **decode}})
+                   **decode},
+        "fsdp_decode": {"seconds": [r["fsdp_decode"]["seconds"]
+                                    for r in ranks], **fsdp_decode}})
     report["launches_on_the_ranks"] = launches_by_kernel
     log(f"model axes ({smi}; two ranks time-sharing one card, not "
         f"scaling): {report}")
@@ -7587,8 +7660,7 @@ def main() -> int:
             (t_ini, t_data_ini, t_ckpt, t_train_ini, t_best))
         launches = add_launches(launches, b_launches)
         n_launches, ensembles = phase(
-            "ensembles", check_ensembles, tmp, data_ini, ckpt, t_ini,
-            t_ckpt, speed)
+            "ensembles", check_ensembles, tmp, data_ini, ckpt, speed)
         launches = add_launches(launches, n_launches)
         lt_launches, long_tail = phase(
             "long tail", check_long_tail, tmp, os.path.join(tmp, "exp.ini"),

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import functools
 import zlib
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,6 +28,10 @@ import torch
 from ..logging import debug
 from ..ops.nn import dropout as nn_dropout
 from ..ops.policy import cast_params_for_compute, compute_dtype
+from ..parallel.distributed import on_every_rank, param_term
+from ..parallel.fsdp import AtUse, PartView, Pins
+from ..parallel.tensor import whole_sum
+from ..utils.saving import flatten_tree
 
 
 class Context:
@@ -35,10 +39,13 @@ class Context:
     generators. ``rng`` is the pass's integer seed (the run seed folded
     with the step, see :func:`fold_seed`); train-mode dropout draws
     from a generator per (part, site) seeded from it, as the JAX
-    ``Context.make_rng`` folds its key."""
+    ``Context.make_rng`` folds its key. ``params`` is the parameter
+    tree, or under FSDP an :class:`~..parallel.fsdp.AtUse` whose units
+    the pass gathers as it reads them."""
 
-    def __init__(self, params: Dict[str, Any], batch: Dict[str, Any],
-                 train: bool = False, rng: Optional[int] = None) -> None:
+    def __init__(self, params: Union[Dict[str, Any], AtUse],
+                 batch: Dict[str, Any], train: bool = False,
+                 rng: Optional[int] = None) -> None:
         self.params = params
         self.batch = batch
         self.train = train
@@ -47,11 +54,22 @@ class Context:
         # auxiliary losses parts register during the forward pass;
         # GenericTrainer.total_loss folds them into the objective
         self.aux_losses: Dict[str, Any] = {}
+        # under FSDP: the units the pass keeps gathered, by the parts
+        # whose memoized methods are running
+        self._at_use = params if isinstance(params, AtUse) else None
+        self._pins = Pins() if self._at_use is not None else None
 
     def cached(self, part: "ModelPart", attr: str, fn: Callable) -> Any:
         key = (id(part), attr)
         if key not in self._cache:
-            self._cache[key] = fn(part, self)
+            if self._pins is None:
+                self._cache[key] = fn(part, self)
+            else:
+                self._pins.enter(part)
+                try:
+                    self._cache[key] = fn(part, self)
+                finally:
+                    self._pins.leave()
         return self._cache[key]
 
     def is_cached(self, part: "ModelPart", attr: str) -> bool:
@@ -59,10 +77,19 @@ class Context:
 
     def get_params(self, part: "ModelPart") -> Any:
         key = part.param_key
-        if key not in self.params:
+        params = self.params if self._at_use is None else self._at_use.rest
+        if key not in params:
             raise KeyError(
                 f"No parameters for part '{key}' (have "
-                f"{sorted(self.params.keys())})")
+                f"{sorted(params.keys())})")
+        if self._at_use is not None:
+            # gathered at use, cast under the bf16 policy unit by unit
+            # (parallel/fsdp.py)
+            cache_key = (id(part), "__part_view__")
+            if cache_key not in self._cache:
+                self._cache[cache_key] = PartView(self._at_use, key,
+                                                  self._pins)
+            return self._cache[cache_key]
         # under the bf16 policy the matrix parameters are cast at use
         # (ops/policy.py), once per part and pass; the float32 masters
         # get their gradients through the cast
@@ -73,6 +100,32 @@ class Context:
             self._cache[cache_key] = cast_params_for_compute(
                 self.params[key])
         return self._cache[cache_key]
+
+    def param_sum(self, fn: Callable[[torch.Tensor], torch.Tensor],
+                  scopes: Optional[Sequence[str]] = None) -> torch.Tensor:
+        """The sum of ``fn`` (a sum over a tensor's elements) over the
+        parameters of the parts in ``scopes`` (or all): a loss term of
+        the parameters alone (l1, l2), which enters the ranks' summed
+        gradient once. Computed whole on every rank, its gradient divided
+        among them (``distributed.param_term``); under FSDP on each
+        rank's parts (``AtUse.leaf_sum``). A tensor-parallel shard's sum
+        is summed over the model axis (``tensor.whole_sum``)."""
+        if self._at_use is not None:
+            return self._at_use.leaf_sum(fn, scopes)
+        leaves = [value for key, sub in self.params.items()
+                  if not scopes or key in scopes
+                  for value in flatten_tree(sub, key).values()]
+        return param_term(sum(whole_sum(x, fn(x)) for x in leaves))
+
+    def all_finished(self, finished: torch.Tensor) -> bool:
+        """Whether a decode loop may stop: every row of ``finished``
+        done. Under FSDP on every data rank, since each step gathers the
+        decoder's layers over the data group (on a split batch the
+        ranks otherwise end at their own step)."""
+        done = bool(finished.all())
+        if self._at_use is None:
+            return done
+        return on_every_rank(done)
 
     def add_aux_loss(self, part: "ModelPart", name: str, value) -> None:
         """Register an auxiliary loss term (already weighted by the

@@ -30,6 +30,7 @@ from ...ops import fused_xent, kernel_config, sharding
 from ...ops.beam_select import fused_logits_rowmax_lse
 from ...parallel import tensor as tp
 from ...parallel.distributed import global_sum
+from ...parallel.fsdp import replace_items
 from ...vocabulary import (END_TOKEN_INDEX, PAD_TOKEN_INDEX,
                            START_TOKEN_INDEX, UNK_TOKEN_INDEX, Vocabulary)
 
@@ -369,13 +370,13 @@ class AutoregressiveDecoder(ModelPart):
                                         constants["embed_table"]):
             return constants
         constants = dict(constants)
-        params = dict(constants["params"])
+        params = constants["params"]
         if self.tie_embeddings:
             constants["embed_table"] = torch.nn.functional.pad(
                 constants["embed_table"], (0, 0, 0, pad))
             bias = params["logit_bias"]
-            params["logit_bias"] = torch.cat(
-                [bias, bias.new_full((pad,), -1e9)])
+            replaced = {"logit_bias": torch.cat(
+                [bias, bias.new_full((pad,), -1e9)])}
         else:
             logit = dict(params["logit"])
             w = logit["w"]
@@ -384,8 +385,9 @@ class AutoregressiveDecoder(ModelPart):
             if bias is None:
                 bias = w.new_zeros(vocab, dtype=torch.float32)
             logit["b"] = torch.cat([bias, bias.new_full((pad,), -1e9)])
-            params["logit"] = logit
-        constants["params"] = params
+            replaced = {"logit": logit}
+        # (under FSDP a copy of the part's view that gathers no layer)
+        constants["params"] = replace_items(params, replaced)
         return constants
 
     def _step_logits(self, constants: Dict[str, Any],
@@ -471,7 +473,7 @@ class AutoregressiveDecoder(ModelPart):
         ids, kept, finished_before = [], [], []
         for step in range(self.max_output_len):
             if early_exit and step and step % FINISHED_CHECK_PERIOD == 0 \
-                    and bool(finished.all()):
+                    and ctx.all_finished(finished):
                 break
             logits, aux = step_fn(prev_ids, step)
             new_ids, step_kept = pick(self._mask_unk(logits), aux)

@@ -357,7 +357,7 @@ class BeamSearchDecoder(ModelPart):
 
         for step in range(self.max_steps):
             if step and step % FINISHED_CHECK_PERIOD == 0 \
-                    and bool(search.finished.all()):
+                    and ctx.all_finished(search.finished):
                 break
             if ensemble:
                 log_probs = []

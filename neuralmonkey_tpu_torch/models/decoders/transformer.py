@@ -77,6 +77,7 @@ from ...ops.attention import (NEG_INF, attend, attention_bias_from_mask,
                               sinusoidal_position_encoding, split_heads)
 from ...parallel import pipeline
 from ...parallel import tensor as tp
+from ...parallel.fsdp import replace_items
 from ...ops.lineage_attention import (lane_window, lineage_attention,
                                       lineage_bias)
 from ...ops.policy import compute_dtype
@@ -369,10 +370,10 @@ class TransformerDecoder(AutoregressiveDecoder):
         params = ctx.get_params(self)
         axis = self.train_time_axis(ctx)
         if axis:
-            params = dict(params)
-            for key in ("logit", "logit_bias"):
-                if key in params:
-                    params[key] = sharding.slice_params(params[key], axis)
+            # (under FSDP a copy of the part's view that gathers no layer)
+            params = replace_items(params, {
+                key: sharding.slice_params(params[key], axis)
+                for key in ("logit", "logit_bias") if key in params})
             table = sharding.slice_params(table, axis)
         return self._logits_from_states(params, table,
                                         self.train_prelogit_states(ctx))
@@ -427,6 +428,7 @@ class TransformerDecoder(AutoregressiveDecoder):
                         att_p[p], enc_in, self.n_heads_enc).to(
                             cache_dtype(table)), heads).contiguous()
                     for p in ("k", "v")))
+                del att_p
             constants["enc_kv"].append(per_layer)
             constants["enc_bias"].append(
                 attention_bias_from_mask(enc.temporal_mask(ctx)))
@@ -578,6 +580,9 @@ class TransformerDecoder(AutoregressiveDecoder):
                 split_heads(cache["v"][:, :step + 1], heads))
             x = x + row_projection(att_p["o"], merge_heads(att))
             x, att_map = self._cross_ffn(layer, x, constants, i)
+            # under FSDP a layer's gathered unit goes before the next
+            # layer's is gathered (parallel/fsdp.py)
+            del layer, att_p
         logits, sel_aux = self._finish(constants, x, att_map)
         return loop_state, logits, sel_aux
 
@@ -601,9 +606,12 @@ class TransformerDecoder(AutoregressiveDecoder):
         batch = rows // beam
         length = self.max_output_len
         win = length if window is None else min(window, length)
-        heads = self._self_heads(params)
         head_dim = self.model_dim // self.n_heads_self
         kernel_layout = "kq" in loop_state[0]
+        # this rank's heads, as the caches hold them (``_self_heads``,
+        # without reading a layer's parameters)
+        heads = (loop_state[0]["kq"].shape[1] if kernel_layout
+                 else loop_state[0]["k"].shape[-1] // head_dim)
         if kernel_layout:
             lanes = lane_window(win, beam, beam * length)
             # one bias per step, shared by every layer and head
@@ -660,5 +668,6 @@ class TransformerDecoder(AutoregressiveDecoder):
                                    vh.to(wide))
             x = x + row_projection(att_p["o"], att.reshape(rows, 1, -1))
             x, att_map = self._cross_ffn(layer, x, constants, i, beam)
+            del layer, att_p
         logits, sel_aux = self._finish(constants, x, att_map)
         return loop_state, logits, sel_aux

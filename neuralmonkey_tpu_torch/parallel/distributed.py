@@ -171,6 +171,17 @@ def broadcast_flags(flags: Sequence[bool]) -> tuple:
     return tuple(bool(v) for v in values.tolist())
 
 
+def on_every_rank(flag: bool) -> bool:
+    """Whether ``flag`` holds on every data rank: one int all-reduced to
+    its minimum over the data group; in one rank ``flag`` itself."""
+    if data_count() == 1:
+        return bool(flag)
+    value = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                         device=_comm_device())
+    dist.all_reduce(value, op=dist.ReduceOp.MIN, group=mesh.group("data"))
+    return bool(value.item())
+
+
 def split_rows(batch_size: int) -> bool:
     """Whether a batch of ``batch_size`` rows splits over the data ranks
     (there are several and they divide it); otherwise every rank holds
@@ -226,10 +237,15 @@ class _GlobalSum(torch.autograd.Function):
         return grad
 
 
-def global_sum(x: torch.Tensor) -> torch.Tensor:
+def global_sum(x: torch.Tensor, split: Optional[bool] = None
+               ) -> torch.Tensor:
     """``x`` summed over the ranks' rows of a split batch (inside
-    :func:`sharded_batch`), differentiably; ``x`` itself otherwise."""
-    if not _SPLIT.get() or data_count() == 1:
+    :func:`sharded_batch`), differentiably; ``x`` itself otherwise.
+    ``split=True`` sums whatever the batch (a sum over the ranks' parts
+    of a divided parameter, ``parallel/fsdp.py``)."""
+    if split is None:
+        split = _SPLIT.get()
+    if not split or data_count() == 1:
         return x
     return _GlobalSum.apply(x)
 

@@ -15,8 +15,8 @@ collectives run over its data group (``parallel/mesh.py``).
 
 from __future__ import annotations
 
-from typing import (Collection, Dict, List, NamedTuple, Optional, Sequence,
-                    Union)
+from typing import (Callable, Collection, Dict, List, NamedTuple, Optional,
+                    Sequence, Union)
 
 import torch
 
@@ -157,35 +157,50 @@ def gather_into(targets: Flat, plan: Dict[str, Shard], local: Flat) -> None:
 HOST_GATHER_BYTES = 1 << 26
 
 
-def gather_to_host(parts: Flat, plan: Dict[str, Shard],
-                   meta: Dict[str, torch.Tensor], device: torch.device,
-                   limit: int = HOST_GATHER_BYTES,
-                   split_dims: Optional[Dict[str, Dict[str, int]]] = None
-                   ) -> Flat:
+def _groups(names: Sequence[str], size: Callable[[str], int],
+            limit: int) -> List[List[str]]:
+    """``names`` in order, in runs of at most ``limit`` bytes (``size``
+    of each; a larger tensor alone)."""
+    groups: List[List[str]] = []
+    total = limit
+    for name in names:
+        bytes_ = size(name)
+        if total + bytes_ > limit:
+            groups.append([])
+            total = 0
+        groups[-1].append(name)
+        total += bytes_
+    return groups
+
+
+def gather_whole(parts: Flat, plan: Dict[str, Shard],
+                 meta: Dict[str, torch.Tensor], device: torch.device,
+                 limit: int = HOST_GATHER_BYTES,
+                 split_dims: Optional[Dict[str, Dict[str, int]]] = None,
+                 keep: Callable[[torch.Tensor], torch.Tensor] = lambda v: v
+                 ) -> Flat:
     """Every tensor of ``meta`` (this rank's shards' shapes and dtypes)
-    whole on the host, from the ranks' ``parts`` (this rank's, on
-    ``device``): the ones ``plan`` keeps whole over the data axis
-    copied, the divided ones all-gathered over it, and those split along
-    ``split_dims[name][axis]`` over the model, expert or pipe axes then
-    gathered over those; in sorted name order, in groups of at most
-    ``limit`` bytes of whole float32 tensors (a larger tensor alone),
-    each group on the host before the next is gathered, so that the
-    device never holds all of them whole."""
+    whole, from the ranks' ``parts`` (this rank's, on ``device``), each
+    passed through ``keep`` (``gather_to_host``: to the host): the ones
+    ``plan`` keeps whole over the data axis as they are, the divided ones
+    all-gathered over it, and those split along ``split_dims[name][axis]``
+    over the model, expert or pipe axes then gathered over those; in
+    sorted name order, in groups of at most ``limit`` bytes of whole
+    float32 tensors (a larger tensor alone), each group kept before the
+    next is gathered."""
     split_dims = split_dims or {}
     split = {name for name in meta if split_dims.get(name)}
-    host = {name: parts[name].detach().cpu() for name in meta
-            if plan[name].replicated and name not in split}
+    out = {name: keep(parts[name]) for name in meta
+           if plan[name].replicated and name not in split}
     names = sorted(name for name in meta
                    if not plan[name].replicated or name in split)
-    group, size = [], 0
-    for i, name in enumerate(names):
-        group.append(name)
+
+    def whole_bytes(name: str) -> int:
         count = 1
         for axis in split_dims.get(name, {}):
             count *= mesh.size(axis)
-        size += 4 * meta[name].numel() * count
-        if size < limit and i < len(names) - 1:
-            continue
+        return 4 * meta[name].numel() * count
+    for group in _groups(names, whole_bytes, limit):
         whole = {n: (parts[n] if plan[n].replicated else torch.empty(
             meta[n].shape, dtype=meta[n].dtype, device=device))
             for n in group}
@@ -197,9 +212,70 @@ def gather_to_host(parts: Flat, plan: Dict[str, Shard],
                 if axis in dims:
                     value = tensor.all_gather(value.to(device), dims[axis],
                                               axis)
-            host[n] = value.detach().cpu()
-        group, size = [], 0
-    return host
+            out[n] = keep(value)
+    return out
+
+
+def gather_to_host(parts: Flat, plan: Dict[str, Shard],
+                   meta: Dict[str, torch.Tensor], device: torch.device,
+                   limit: int = HOST_GATHER_BYTES,
+                   split_dims: Optional[Dict[str, Dict[str, int]]] = None
+                   ) -> Flat:
+    """``gather_whole`` onto the host, a group at a time, so that the
+    device never holds all of the tensors whole."""
+    return gather_whole(parts, plan, meta, device, limit, split_dims,
+                        keep=lambda v: v.detach().cpu())
+
+
+def _owner_groups(owners: Dict[str, Shard], meta: Dict[str, torch.Tensor],
+                  limit: int) -> List[List[str]]:
+    """The names of each owner rank's tensors in sorted order, owner by
+    owner, in groups of at most ``limit`` bytes: a group never holds
+    more than one rank's share."""
+    by_owner: Dict[int, List[str]] = {}
+    for name in sorted(meta):
+        by_owner.setdefault(owners[name].owner, []).append(name)
+    return [group for owner in sorted(by_owner)
+            for group in _groups(by_owner[owner],
+                                 lambda n: 4 * meta[n].numel(), limit)]
+
+
+def owner_gather(parts: Flat, plan: Dict[str, Shard],
+                 owners: Dict[str, Shard], meta: Dict[str, torch.Tensor],
+                 limit: int = HOST_GATHER_BYTES) -> Flat:
+    """The whole tensors this rank owns under ``owners`` (an
+    ``owner_plan``), from the ranks' ``parts`` held as ``plan`` divides
+    them: one owner's group at a time all-gathered (see
+    ``_owner_groups``), each rank keeping what it owns, so no rank ever
+    holds more than one group of the others' tensors."""
+    rank = distributed.data_index()
+    mine: Flat = {}
+    for group in _owner_groups(owners, meta, limit):
+        whole = {n: (parts[n] if plan[n].replicated
+                     else parts[n].new_empty(meta[n].shape)) for n in group}
+        gather_into(whole, plan, parts)
+        mine.update({n: whole[n].clone() if plan[n].replicated
+                     else whole[n] for n in group
+                     if owners[n].owner == rank})
+    return mine
+
+
+def owner_scatter(owned: Flat, owners: Dict[str, Shard],
+                  plan: Dict[str, Shard], targets: Flat,
+                  meta: Dict[str, torch.Tensor],
+                  limit: int = HOST_GATHER_BYTES) -> None:
+    """Copy into each of this rank's ``targets`` (its parts as ``plan``
+    divides them) its part of the whole tensor its owner holds in
+    ``owned`` (``owners``: an ``owner_plan``): one owner's group at a
+    time all-gathered, as ``owner_gather``."""
+    world, rank = distributed.data_count(), distributed.data_index()
+    for group in _owner_groups(owners, meta, limit):
+        whole = {n: owned[n] if n in owned else torch.empty(
+            meta[n].shape, dtype=meta[n].dtype, device=targets[n].device)
+            for n in group}
+        gather_into(whole, owners, owned)
+        for n in group:
+            targets[n].copy_(region(whole[n], plan[n], rank, world))
 
 
 def reduce_scatter(full: Flat, plan: Dict[str, Shard]) -> Flat:

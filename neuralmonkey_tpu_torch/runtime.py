@@ -16,20 +16,24 @@ data group in one buffer in a fixed order, and with
 ``shard_optimizer_state`` (ZeRO-1) or ``fsdp`` the optimizer state, or
 the parameters too, are divided among the data ranks by the JAX
 package's rule (``parallel/zero.py``), and the divided gradients
-reduce-scattered. The parts' declared ``param_partition_specs`` split
-parameters over the model group (tensor parallelism,
-``parallel/tensor.py``); ``sequence_sharding`` splits the Transformer's
-residual stream over it, ``num_context_shards`` over the context group
-with the ring attention (``ops/sharding.py``,
-``parallel/ring_attention.py``). ``num_pipeline_stages`` lays ranks out
-on the pipe axis, where a pipelined part's stacked layers split their
-layer axis (``parallel/pipeline.py``), and ``num_expert_shards`` on the
-expert axis, where the experts of a MoE FFN split (``ops/moe.py``).
+reduce-scattered; under ``fsdp`` a pass gathers the parameters unit by
+unit as it reads them and reduces each unit's gradients as the backward
+completes them (``parallel/fsdp.py``). The parts' declared
+``param_partition_specs`` split parameters over the model group
+(tensor parallelism, ``parallel/tensor.py``); ``sequence_sharding``
+splits the Transformer's residual stream over it,
+``num_context_shards`` over the context group with the ring attention
+(``ops/sharding.py``, ``parallel/ring_attention.py``).
+``num_pipeline_stages`` lays ranks out on the pipe axis, where a
+pipelined part's stacked layers split their layer axis
+(``parallel/pipeline.py``), and ``num_expert_shards`` on the expert
+axis, where the experts of a MoE FFN split (``ops/moe.py``).
 Checkpoints hold whole tensors in one process's layout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -44,13 +48,14 @@ from .model.part import (Context, ModelPart, collect_parts, fold_seed,
                          init_all_params)
 from .ops.moe import disable_expert_sharding, enable_expert_sharding
 from .parallel import distributed, tensor, zero
+from .parallel import fsdp as fsdp_units
 from .parallel import mesh as mesh_lib
 from .parallel.pipeline import disable_pipeline, enable_pipeline
 from .runners.base_runner import ExecutionResult, reduce_execution_results
 from .trainers.multitask_trainer import MultitaskTrainer
 from .utils.average_checkpoints import average_flat
 from .utils.batching import pad_batch
-from .utils.saving import (flatten_tree, load_flat, load_meta,
+from .utils.saving import (flatten_tree, load_flat, load_meta, map_leaves,
                            params_from_jax, save_tree)
 
 
@@ -60,17 +65,6 @@ def _to_device(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, (list, tuple)):
         return [_to_device(v, device) for v in tree]
     return tree.to(device)
-
-
-def _map_leaves(fn, tree: Any, prefix: str = "") -> Any:
-    """``tree`` with each leaf replaced by ``fn(flat name, leaf)``."""
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map_leaves(fn, v, f"{prefix}/{i}" if prefix else str(i))
-                for i, v in enumerate(tree)]
-    return fn(prefix, tree)
 
 
 def _host_array(value: torch.Tensor) -> np.ndarray:
@@ -186,11 +180,13 @@ class CUDAManager:
         if num_pipeline_stages > 1:
             enable_pipeline(self.mesh)
         # ZeRO over the data-parallel ranks: fsdp divides the parameters
-        # (gathered for each step and decode), shard_optimizer_state the
+        # (gathered at use, unit by unit), shard_optimizer_state the
         # optimizer state alone; the moments follow their parameters, so
         # fsdp implies the latter
         self.fsdp = fsdp
         self.shard_optimizer_state = shard_optimizer_state or fsdp
+        # what fsdp's gathers at use did (parallel/fsdp.Stats)
+        self.fsdp_stats = fsdp_units.Stats()
         # the data axis: the ranks a batch splits over and ZeRO divides
         # among
         self.world = self.mesh.size("data")
@@ -329,7 +325,7 @@ class CUDAManager:
     # ------------------------------------------------------------------ #
     def _template(self) -> Any:
         """The parameter tree with whole shapes (for ``params_from_jax``)."""
-        return _map_leaves(lambda name, _: self._meta[name], self.params)
+        return map_leaves(lambda name, _: self._meta[name], self.params)
 
     def _sharded_params(self) -> bool:
         return any(not s.replicated for s in self._rest_plan.values())
@@ -368,30 +364,26 @@ class CUDAManager:
                                       or self._split.get(name)):
                 value = value.contiguous().clone()
             return tensor.mark_axes(value, self._split.get(name))
-        return _map_leaves(cut, tree, prefix)
+        return map_leaves(cut, tree, prefix)
 
-    def _whole(self, tree: Any) -> Any:
-        """A parameter set with every parameter's model shard whole over
-        the data axis: under fsdp every data rank's parts all-gathered
-        into new tensors (a collective), else ``tree`` itself."""
-        if not self._sharded_params():
-            return tree
-        rest = flatten_tree(tree)
-        whole = {name: (value if self._rest_plan[name].replicated else
-                        value.new_empty(self._local_meta[name].shape))
-                 for name, value in rest.items()}
-        zero.gather_into(whole, self._rest_plan, rest)
-        return _map_leaves(lambda name, _: tensor.mark_axes(
-            whole[name], self._split.get(name)), tree)
+    def _at_use(self, params: Dict[str, Any], **kwargs) -> fsdp_units.AtUse:
+        """A parameter set at rest under fsdp as a pass reads it: unit by
+        unit, each gathered at use (``parallel/fsdp.py``; ``kwargs`` a
+        training pass's)."""
+        return fsdp_units.AtUse(params, self._rest_plan, self._local_meta,
+                                self._split, self.fsdp_stats, **kwargs)
 
     def whole_params(self) -> Dict[str, Any]:
         """The first parameter set with every parameter whole, in one
         process's shapes (over data and model ranks a collective: every
-        rank calls it)."""
-        params = self._whole(self.params)
-        if not self._split_names():
+        rank calls it; gathered a group of at most 64 MiB at a time)."""
+        params = self.params
+        if not self._sharded_params() and not self._split_names():
             return params
-        return _map_leaves(self._gather_whole, params)
+        whole = zero.gather_whole(flatten_tree(params), self._rest_plan,
+                                  self._local_meta, self.device,
+                                  split_dims=self._split)
+        return map_leaves(lambda name, _: whole[name], params)
 
     def load_part_checkpoint(self, part: ModelPart, path: str) -> None:
         """Warm-start ``part``'s parameters from the ``.npz`` at
@@ -584,7 +576,7 @@ class CUDAManager:
         over whole parameters) stays whole on each parameter's owner
         rank (``_update_plans``) and, for a parameter split over the
         model, expert or pipe axes, whole over them too: the update runs
-        on the parameter gathered whole (``_update``)."""
+        on the parameter gathered whole (``_apply``)."""
         label = self._trainer_label(trainer)
         if label not in self._updates:
             update = trainer.make_update()
@@ -693,15 +685,17 @@ class CUDAManager:
         (``LocalBatch.split``) the losses are the global batch's (every
         batch-level sum goes through ``distributed.global_sum``) and the
         ranks' gradients are summed; on a batch every rank holds whole,
-        averaged. The returned losses, gradient norm and
-        ``target_tokens`` stay on the device; the training loop syncs
-        them once per logging window. A ``MultitaskTrainer`` hands the
-        step to its child for this global step."""
+        averaged. Under fsdp the pass gathers the parameters at use and
+        the backward reduces each unit's gradients (``parallel/fsdp.py``).
+        The returned losses, gradient norm and ``target_tokens`` stay on
+        the device; the training loop syncs them once per logging
+        window. A ``MultitaskTrainer`` hands the step to its child for
+        this global step."""
         if isinstance(trainer, MultitaskTrainer):
             trainer = trainer.select(self.global_step)
         label, update, state = self._optimizer(trainer)
-        params = self._whole(self.params)
-        flat = flatten_tree(params)
+        plan = self._update_plans[label]
+        flat = flatten_tree(self.params)
         for p in flat.values():
             p.grad = None
             p.requires_grad_(True)
@@ -714,20 +708,30 @@ class CUDAManager:
             rng = fold_seed(rng, self.rank)
         split = getattr(batch, "split", False)
         mask_keys = [k for k in batch if k.endswith("train_mask")]
-        with distributed.sharded_batch(split):
-            total, losses = trainer.total_loss(params, batch, rng)
+        at_use = (self._at_use(self.params, grad_plan=plan,
+                               split_batch=split,
+                               trainable=trainer.is_trainable)
+                  if self._sharded_params() else None)
+        saving = (at_use.saving() if at_use is not None
+                  else contextlib.nullcontext())
+        with saving, distributed.sharded_batch(split):
+            total, losses = trainer.total_loss(
+                self.params if at_use is None else at_use, batch, rng)
             tokens = (distributed.global_sum(
                 sum(batch[k].sum() for k in mask_keys))
                 if mask_keys else None)
         total.backward()
-        grads = {name: (p.grad if p.grad is not None and
-                        trainer.is_trainable(name)
-                        else torch.zeros_like(p))
-                 for name, p in flat.items()}
-        for p in flat.values():
-            p.grad = None
-        norm = self._update(update, state, self._update_plans[label], flat,
-                            grads, split)
+        if at_use is not None:
+            norm = self._update_parts(update, state, plan,
+                                      at_use.gradients())
+        else:
+            grads = {name: (p.grad if p.grad is not None and
+                            trainer.is_trainable(name)
+                            else torch.zeros_like(p))
+                     for name, p in flat.items()}
+            for p in flat.values():
+                p.grad = None
+            norm = self._update(update, state, plan, flat, grads, split)
         out = {name: value.detach() for name, value in losses.items()}
         out["loss"] = total.detach()
         out["grad_norm"] = norm
@@ -741,9 +745,8 @@ class CUDAManager:
                 ) -> torch.Tensor:
         """Reduce the gradients over the ranks (``grads`` is emptied),
         clip by their global norm and update this rank's parts of the
-        whole parameters ``flat``; then give every rank its parameters:
-        the updated parts all-gathered (ZeRO-1), or its parts at rest
-        (fsdp). Returns the norm."""
+        whole parameters ``flat``; then give every rank the updated parts
+        all-gathered (ZeRO-1). Returns the norm."""
         if distributed.is_initialized():
             grads = self._reduce_gradients(grads, plan, split)
         targets = {}
@@ -751,6 +754,37 @@ class CUDAManager:
             part = zero.region(value, plan[name], self.rank, self.world)
             if part is not None:
                 targets[name] = part
+        norm = self._apply(update, state, plan, targets, grads)
+        # the reduced gradients go before the gather's buffers come
+        del grads
+        if any(not s.replicated for s in plan.values()):
+            zero.gather_into(flat, plan, targets)
+        return norm
+
+    @torch.no_grad()
+    def _update_parts(self, update, state, plan, grads) -> torch.Tensor:
+        """The update under fsdp, from ``grads``, this rank's parts of
+        the reduced gradients under ``plan``: an elementwise rule updates
+        the parts at rest in place; under Adafactor's owner plan each
+        parameter is gathered whole to its owner, updated there, and its
+        parts copied back to the ranks (``zero.owner_gather`` and
+        ``owner_scatter``, one owner's group at a time). Returns the
+        norm."""
+        rest = flatten_tree(self.params)
+        if plan == self._rest_plan:
+            return self._apply(update, state, plan, rest, grads)
+        owned = zero.owner_gather(rest, self._rest_plan, plan,
+                                  self._local_meta)
+        norm = self._apply(update, state, plan, owned, grads)
+        del grads
+        zero.owner_scatter(owned, plan, self._rest_plan, rest,
+                           self._local_meta)
+        return norm
+
+    def _apply(self, update, state, plan, targets, grads) -> torch.Tensor:
+        """Clip ``grads`` by their global norm (``plan`` says how they
+        divide) and update ``targets`` in place, this rank's parts of
+        the parameters under ``plan``. Returns the norm."""
         split = {name: set(dims) for name, dims in self._split.items()}
         whole_update = (not update.transform.elementwise
                         and self._split_names())
@@ -770,23 +804,6 @@ class CUDAManager:
             for name, part in parts.items():
                 if self._split[name]:
                     part.copy_(self._own_part(name, targets[name]))
-            targets = parts
-        # the reduced gradients go before the gather's buffers come
-        del grads
-        if self._sharded_params() and plan == self._rest_plan:
-            rest = flatten_tree(self.params)
-            for name, part in targets.items():
-                if not plan[name].replicated:
-                    rest[name].copy_(part)
-            return norm
-        if any(not s.replicated for s in plan.values()):
-            zero.gather_into(flat, plan, targets)
-        if self._sharded_params():
-            for name, value in flatten_tree(self.params).items():
-                shard = self._rest_plan[name]
-                if not shard.replicated:
-                    value.copy_(zero.region(flat[name], shard, self.rank,
-                                            self.world))
         return norm
 
     def _reduce_gradients(self, grads, plan, split):
@@ -813,10 +830,13 @@ class CUDAManager:
         """Every runner's fetches on a device-resident batch: with
         several parameter sets, a runner that has ``ensemble_fetches``
         gets a context of each, every other runner the first set's.
-        Under fsdp each set is gathered whole for the pass. On a split
-        batch a batch-level loss among the fetches is the global
-        batch's."""
-        contexts = [Context(self._whole(params), batch, train=False)
+        Under fsdp each set is gathered at use, unit by unit: an
+        encoder's units go once its states are computed, a decoder's
+        layers are gathered at each step that reads them and its other
+        unit kept for the search (``fsdp.Pins``). On a split batch
+        a batch-level loss among the fetches is the global batch's."""
+        contexts = [Context(self._at_use(params) if self._sharded_params()
+                            else params, batch, train=False)
                     for params in self.params_list]
         with distributed.sharded_batch(getattr(batch, "split", False)):
             return [runner.ensemble_fetches(contexts)
@@ -868,7 +888,7 @@ class CUDAManager:
         host = zero.gather_to_host(flatten_tree(self.params),
                                    self._rest_plan, self._local_meta,
                                    self.device, split_dims=self._split)
-        params = _map_leaves(lambda name, _: host[name], self.params)
+        params = map_leaves(lambda name, _: host[name], self.params)
         combined = self._gather_optimizer_state()
         if not distributed.is_main_process():
             distributed.sync_processes("nm_checkpoint")

@@ -14,9 +14,6 @@ from typing import Any, Callable, Dict, List
 import torch
 
 from ..model.part import Context
-from ..parallel.distributed import param_term
-from ..parallel.tensor import whole_sum
-from ..utils.saving import flatten_tree
 from .optimizers import (Flat, clip_by_global_norm, global_norm,
                          resolve_optimizer)
 
@@ -108,24 +105,14 @@ class GenericTrainer:
         for key, value in ctx.aux_losses.items():
             total = total + value
             losses[f"aux/{key}"] = value
-        # terms of the parameters alone enter the ranks' summed gradient
-        # once (distributed.param_term)
-        if self.l1_weight or self.l2_weight:
-            # (a tensor-parallel shard's sum is summed over the model
-            # axis: tensor.whole_sum)
-            leaves = list(flatten_tree(self._trainable(params)).values())
-            if self.l1_weight:
-                total = total + param_term(self.l1_weight * sum(
-                    whole_sum(x, x.abs().sum()) for x in leaves))
-            if self.l2_weight:
-                total = total + param_term(self.l2_weight * sum(
-                    whole_sum(x, x.square().sum()) for x in leaves))
+        # terms of the parameters alone, over the trainable ones
+        if self.l1_weight:
+            total = total + self.l1_weight * ctx.param_sum(
+                lambda x: x.abs().sum(), self.var_scopes)
+        if self.l2_weight:
+            total = total + self.l2_weight * ctx.param_sum(
+                lambda x: x.square().sum(), self.var_scopes)
         return total, losses
-
-    def _trainable(self, params):
-        if not self.var_scopes:
-            return params
-        return {k: v for k, v in params.items() if k in self.var_scopes}
 
     def is_trainable(self, name: str) -> bool:
         """Whether the flat parameter ``name`` (``part/...``) is

@@ -30,6 +30,18 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+def map_leaves(fn, tree: Any, prefix: str = "") -> Any:
+    """``tree`` with each leaf replaced by ``fn(flat name, leaf)``
+    (lists and tuples become lists)."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, _join(prefix, k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_leaves(fn, v, _join(prefix, i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
 def _join(prefix: str, key: Any) -> str:
     return f"{prefix}/{key}" if prefix else str(key)
 

@@ -14,6 +14,8 @@ package writes; batch <= 4, time <= 9, hidden <= 8.
   at inference; in training with the noise both packages draw replaced
   by one shared set of draws (the JAX scan run eagerly under
   ``jax.disable_jit`` so that each step reads its own draws).
+- The same encoders under both packages' bf16 compute policy, at
+  inference: states and final output to 1e-5.
 - A ``Decoder`` with a noisy cell: its teacher-forced loss in training,
   with shared draws, to 1e-5 relative.
 - Routing: these cells never reach ``gru_scan`` (K1), and a plain GRU,
@@ -48,6 +50,8 @@ from neuralmonkey_tpu_torch.models.encoders.recurrent import SentenceEncoder
 from neuralmonkey_tpu_torch.ops import nn, rnn
 from neuralmonkey_tpu_torch.utils.saving import load_flat, params_from_jax
 from neuralmonkey_tpu_torch.vocabulary import Vocabulary
+
+import test_torch_precision as precision
 
 torch.set_num_threads(1)
 
@@ -218,6 +222,37 @@ def test_encoder_matches_jax(tmp_path, monkeypatch, cell_type, direction,
     assert len(drawn) == (len(enc._cells) * (2 if direction ==
                                              "bidirectional" else 1)
                           if noisy else 0)
+
+
+@pytest.mark.parametrize("cell_type,direction,layers", ENCODER_CASES)
+def test_encoder_bf16_matches_jax(tmp_path, cell_type, direction, layers):
+    """Under both packages' bf16 compute policy (the JAX program compiled
+    with every bf16 rounding kept, ``test_torch_precision``): the
+    encoder's states and final output at inference to 1e-5, as in
+    float32; the policy changes the states."""
+    jax_enc, enc = _encoders(cell_type, direction, layers)
+    jax_params = jax_init(jax_collect_parts([jax_enc]),
+                          jax.random.PRNGKey(3))
+    params = params_from_jax(_shared_npz(tmp_path, jax_params),
+                             init_all_params(collect_parts([enc]), seed=0))
+    batch = _encoder_batch(4)
+    jax_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def port(name):
+        with precision.both_policies(name):
+            ctx = Context(params, {k: torch.from_numpy(v)
+                                   for k, v in batch.items()})
+            return enc.temporal_states(ctx), enc.output(ctx)
+    with precision.both_policies(precision.BF16):
+        refs = precision._compiled(lambda p: (
+            jax_enc.temporal_states(JaxContext(p, jax_batch)),
+            jax_enc.output(JaxContext(p, jax_batch))), jax_params)
+    got, got32 = port(precision.BF16), port(None)
+    for value, ref, name in zip(got, refs, ("temporal_states", "output")):
+        np.testing.assert_allclose(value.detach().float().numpy(),
+                                   np.asarray(ref, np.float32), atol=1e-5,
+                                   err_msg=name)
+    assert not torch.equal(got[0].float(), got32[0])
 
 
 def _decoders(cell_type):

@@ -63,6 +63,8 @@ from neuralmonkey_tpu_torch.runners.plain_runner import PlainRunner
 from neuralmonkey_tpu_torch.utils.saving import flatten_tree, params_from_jax
 from neuralmonkey_tpu_torch.vocabulary import Vocabulary
 
+import test_torch_precision as precision
+
 torch.set_num_threads(1)
 BATCH, SRC, WIDTH, VOCAB = 3, 7, 16, 40
 LENGTHS = [7, 4, 2]
@@ -270,6 +272,86 @@ def test_sentence_cnn_model_loss_gradients_and_ids_match_jax():
                   jit=True)
 
 
+def _bf16_grads(fn_jax, fn_port, jax_params, port_params, batch):
+    """The gradients of ``fn_jax(ctx)`` and ``fn_port(ctx)`` (train-mode
+    passes, dropout off) under both packages' bf16 policy, the JAX
+    program compiled with every bf16 rounding kept: within float32 sum
+    order and a bf16 rounding of the largest
+    (``test_torch_precision._assert_grads``)."""
+    jax_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    flat = flatten_tree(port_params)
+    for leaf in flat.values():
+        leaf.requires_grad_(True)
+    with precision.both_policies(precision.BF16):
+        ref = jax_flatten(precision._compiled(jax.grad(
+            lambda p: fn_jax(JaxContext(p, jax_batch, train=True,
+                                        rng=jax.random.PRNGKey(1)))),
+            jax_params))
+        fn_port(Context(port_params, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()},
+                        train=True, rng=1)).backward()
+    assert set(ref) == set(flat)
+    precision._assert_grads(
+        {k: (torch.zeros(v.shape) if flat[k].grad is None else flat[k].grad)
+         for k, v in ref.items()}, ref)
+
+
+def _bf16_outputs(fn_jax, fn_port, jax_params, port_params, batch):
+    """``fn_jax(ctx)`` and ``fn_port(ctx)`` of inference passes under
+    both packages' bf16 policy (the JAX program compiled with every bf16
+    rounding kept), and the port's under float32."""
+    jax_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def port(name):
+        with precision.both_policies(name), torch.inference_mode():
+            return fn_port(Context(port_params, {
+                k: torch.from_numpy(v) for k, v in batch.items()}))
+    with precision.both_policies(precision.BF16):
+        ref = precision._compiled(lambda p: fn_jax(JaxContext(p, jax_batch)),
+                                  jax_params)
+    return ref, port(precision.BF16), port(None)
+
+
+@pytest.mark.parametrize("rnn_size", [None, 8])
+def test_sentence_cnn_encoder_bf16_matches_jax(jax_pallas, rnn_size):
+    """Under both packages' bf16 policy: the states, the output and the
+    mask (1e-5), and the policy changes the states."""
+    jax_enc = _sentence_cnn(jax_scnn.SentenceCNNEncoder, JaxVocabulary,
+                            rnn_size)
+    enc = _sentence_cnn(sentence_cnn_encoder.SentenceCNNEncoder, Vocabulary,
+                        rnn_size)
+    jax_params, params = _shared(jax_enc, enc, seed=1)
+    batch = _source(np.random.RandomState(2), "encoder_input")
+    ref, got, got32 = _bf16_outputs(
+        lambda c: (jax_enc.temporal_states(c), jax_enc.output(c),
+                   jax_enc.temporal_mask(c)),
+        lambda c: (enc.temporal_states(c), enc.output(c),
+                   enc.temporal_mask(c)), jax_params, params, batch)
+    for value, want in zip(got, ref):
+        _close(value.float(), want)
+    assert not torch.equal(got[0].float(), got32[0])
+
+
+def test_sentence_cnn_model_bf16_matches_jax(jax_pallas):
+    """sentence_cnn.ini's model under both packages' bf16 policy: the
+    loss (1e-5), the greedy ids (equal) and the gradients."""
+    jax_dec = _cnn_model(jax_scnn.SentenceCNNEncoder, JaxAttention,
+                         JaxDecoder, JaxVocabulary)
+    dec = _cnn_model(sentence_cnn_encoder.SentenceCNNEncoder, Attention,
+                     Decoder, Vocabulary)
+    jax_params, params = _shared(jax_dec, dec, seed=4, scale=0.2)
+    batch = _decoder_batch(np.random.RandomState(5))
+    ref, got, got32 = _bf16_outputs(
+        lambda c: (jax_dec.train_loss(c), jax_dec.decoded(c)),
+        lambda c: (dec.train_loss(c), dec.decoded(c)), jax_params, params,
+        batch)
+    _close(got[0], ref[0])
+    assert got[0].item() != got32[0].item()
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    _bf16_grads(lambda c: jax_dec.train_loss(c),
+                lambda c: dec.train_loss(c), jax_params, params, batch)
+
+
 # ---------------------------------------------------------------------- #
 # the sequence-CNN encoder and the classifier
 # ---------------------------------------------------------------------- #
@@ -322,6 +404,23 @@ def test_classifier_loss_labels_and_gradients_match_jax():
         == pytest.approx(cls.train_loss(ctx).item(), abs=0)
     _assert_grads(lambda c: jax_cls.train_loss(c),
                   lambda c: cls.train_loss(c), jax_params, params, batch)
+
+
+def test_classifier_bf16_matches_jax():
+    """The classifier under both packages' bf16 policy: logits and loss
+    (1e-5), labels (equal) and the gradients."""
+    jax_cls, cls, jax_params, params, batch = _classifier_case()
+    ref, got, got32 = _bf16_outputs(
+        lambda c: (jax_cls.logits(c), jax_cls.train_loss(c),
+                   jax_cls.decoded(c)),
+        lambda c: (cls.logits(c), cls.train_loss(c), cls.decoded(c)),
+        jax_params, params, batch)
+    _close(got[0].float(), ref[0])
+    _close(got[1], ref[1])
+    assert got[1].item() != got32[1].item()
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+    _bf16_grads(lambda c: jax_cls.train_loss(c),
+                lambda c: cls.train_loss(c), jax_params, params, batch)
 
 
 def test_classifier_dropout_and_alias():

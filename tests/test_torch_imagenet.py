@@ -39,6 +39,7 @@ from neuralmonkey_tpu.models.decoders.beam_search_decoder import \
     BeamSearchDecoder as JaxBeamSearch
 from neuralmonkey_tpu.models.decoders.decoder import Decoder as JaxDecoder
 from neuralmonkey_tpu.models.encoders import imagenet_encoder as jax_inet
+from neuralmonkey_tpu.ops import policy as jax_policy
 from neuralmonkey_tpu.utils import convert_imagenet as jax_convert
 from neuralmonkey_tpu.utils.saving import flatten_tree as jax_flatten
 from neuralmonkey_tpu.utils.saving import restore_into as jax_restore
@@ -454,8 +455,21 @@ def test_imagenet_refusals(monkeypatch):
     ctx = Context(params, {"img.images": torch.zeros(1, 32, 32, 3)})
     with pytest.raises(ValueError, match="conv9_9"):
         enc.spatial_states(ctx)
+    # under the bf16 compute policy (both packages read the variable) the
+    # JAX package's convolution raises a TypeError on the float32 images
+    # beside the bf16 kernels, the port a ValueError that names the
+    # policy, before any convolution runs
+    jax_enc = jax_inet.ImageNet(name="img", data_id="images")
+    jax_params = jax.tree_util.tree_map(
+        lambda leaf: jnp.zeros(leaf.shape, leaf.dtype),
+        jax.eval_shape(lambda: jax_init(jax_collect_parts([jax_enc]),
+                                        jax.random.PRNGKey(0))))
     monkeypatch.setenv("NM_COMPUTE_DTYPE", "bfloat16")
     assert policy.compute_dtype() == torch.bfloat16
+    assert jax_policy.compute_dtype() == jnp.bfloat16
+    with pytest.raises(TypeError):
+        jax.jit(lambda p: jax_enc.output(JaxContext(
+            p, {"img.images": jnp.zeros((1, 32, 32, 3))})))(jax_params)
     ctx = Context(params, {"img.images": torch.zeros(1, 32, 32, 3)})
     with pytest.raises(ValueError, match="bfloat16"):
         enc.output(ctx)

@@ -81,6 +81,8 @@ from neuralmonkey_tpu_torch.readers import numpy_reader
 from neuralmonkey_tpu_torch.utils.saving import flatten_tree, params_from_jax
 from neuralmonkey_tpu_torch.vocabulary import Vocabulary
 
+import test_torch_precision as precision
+
 torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 CONFIG_DIR = os.path.join(TESTS, "configs")
@@ -507,6 +509,61 @@ def test_model_greedy_and_beam_ids_match_jax(kind, conditional_gru):
                                 beam_size=BEAM).search(ctx)
     want = JaxBeamSearch(name="bs", parent_decoder=jax_dec,
                          beam_size=BEAM).search(jax_ctx)
+    np.testing.assert_array_equal(got.token_ids.numpy(),
+                                  np.asarray(want.token_ids))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),
+                               atol=1e-4)
+
+
+jax_pallas = precision.jax_pallas
+
+
+@pytest.mark.parametrize("kind,conditional_gru", CASES)
+def test_model_bf16_matches_jax(jax_pallas, kind, conditional_gru):
+    """Under the bf16 compute policy of both packages (the JAX program
+    compiled with every bf16 rounding kept and its Pallas GRU in
+    interpret mode, whose carries stay float32 as the port's do;
+    ``test_torch_precision``): the teacher-forced loss (1e-5) and the
+    gradient of every float32 master parameter (within float32 sum
+    order and a bf16 rounding of the largest), the greedy ids, and the
+    beam-3 ids (equal) and scores (1e-4)."""
+    jax_dec, dec, jax_params, params, batch = _model_case(kind,
+                                                          conditional_gru)
+    jax_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    flat = flatten_tree(params)
+    for leaf in flat.values():
+        leaf.requires_grad_(True)
+    search = BeamSearchDecoder(name="bs", parent_decoder=dec,
+                               beam_size=BEAM)
+    jax_search = JaxBeamSearch(name="bs", parent_decoder=jax_dec,
+                               beam_size=BEAM)
+    with precision.both_policies(precision.BF16):
+        jax_loss, jax_grads = precision._compiled(jax.value_and_grad(
+            lambda p: jax_dec.train_loss(JaxContext(p, jax_batch))),
+            jax_params)
+        jax_greedy, want = precision._compiled(lambda p: (
+            jax_dec.greedy_ids(JaxContext(p, jax_batch)),
+            jax_search.search(JaxContext(p, jax_batch))), jax_params)
+        loss = dec.train_loss(Context(params, {
+            k: torch.from_numpy(v) for k, v in batch.items()}))
+        loss.backward()
+        with torch.inference_mode():
+            ctx = Context(params, {k: torch.from_numpy(v)
+                                   for k, v in batch.items()})
+            greedy = dec.greedy_ids(ctx)
+            got = search.search(ctx)
+    with torch.no_grad():
+        loss32 = dec.train_loss(Context(params, {
+            k: torch.from_numpy(v) for k, v in batch.items()}))
+    # the policy changes the numbers
+    assert loss.item() != loss32.item()
+    _close(loss, jax_loss)
+    jax_grads = jax_flatten(jax_grads)
+    assert set(jax_grads) == set(flat)
+    precision._assert_grads(
+        {k: (torch.zeros(v.shape) if flat[k].grad is None else flat[k].grad)
+         for k, v in jax_grads.items()}, jax_grads)
+    np.testing.assert_array_equal(greedy.numpy(), np.asarray(jax_greedy))
     np.testing.assert_array_equal(got.token_ids.numpy(),
                                   np.asarray(want.token_ids))
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores),

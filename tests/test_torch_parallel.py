@@ -36,6 +36,7 @@ from neuralmonkey_tpu_torch.models.decoders.transformer import \
 from neuralmonkey_tpu_torch.models.encoders.transformer import \
     TransformerEncoder
 from neuralmonkey_tpu_torch.parallel import distributed, zero
+from neuralmonkey_tpu_torch.parallel import fsdp as fsdp_units
 from neuralmonkey_tpu_torch.runners.beam_search_runner import \
     BeamSearchRunner
 from neuralmonkey_tpu_torch.runners.runner import GreedyRunner
@@ -48,7 +49,7 @@ from neuralmonkey_tpu_torch.trainers.delayed_update_trainer import \
 from neuralmonkey_tpu_torch.trainers.optimizers import (AdafactorOptimizer,
                                                         AdamOptimizer)
 from neuralmonkey_tpu_torch.utils.saving import flatten_tree, load_flat
-from neuralmonkey_tpu_torch.vocabulary import Vocabulary
+from neuralmonkey_tpu_torch.vocabulary import END_TOKEN_INDEX, Vocabulary
 
 torch.set_num_threads(1)
 
@@ -146,7 +147,7 @@ def _dataset(n=16):
 
 
 def _build(optimizer=None, keep=1.0, delayed=False, width=32,
-           clip_norm=1.0):
+           clip_norm=1.0, l2=0.0, max_len=6):
     enc = TransformerEncoder(
         name="fs_src", vocabulary=_vocab(), data_id="source",
         embedding_size=width, ff_hidden_size=2 * width, depth=2, n_heads=4,
@@ -155,7 +156,7 @@ def _build(optimizer=None, keep=1.0, delayed=False, width=32,
         name="fs_tgt", vocabulary=_vocab(), data_id="target",
         encoders=[enc], embedding_size=width, ff_hidden_size=2 * width,
         depth=2,
-        n_heads_self=4, n_heads_enc=4, max_output_len=6,
+        n_heads_self=4, n_heads_enc=4, max_output_len=max_len,
         tie_embeddings=False, dropout_keep_prob=keep)
     # Adam's epsilon raised from 1e-8: the attention's key biases have an
     # exact gradient of 0, and at 1e-8 Adam turns their rounding noise
@@ -166,19 +167,20 @@ def _build(optimizer=None, keep=1.0, delayed=False, width=32,
     if delayed:
         trainer = DelayedUpdateTrainer(batches_per_update=2, decoders=[dec],
                                        clip_norm=clip_norm,
-                                       optimizer=optimizer)
+                                       optimizer=optimizer, l2_weight=l2)
     else:
         trainer = CrossEntropyTrainer(decoders=[dec], clip_norm=clip_norm,
-                                      optimizer=optimizer)
+                                      optimizer=optimizer, l2_weight=l2)
     return trainer, GreedyRunner(output_series="target", decoder=dec)
 
 
-def _search(runner, beam=3):
-    """A beam-search runner over ``runner``'s decoder."""
+def _search(runner, beam=3, name="fs_bs", **kwargs):
+    """A beam-search runner over ``runner``'s decoder (``kwargs`` the
+    search's)."""
     return BeamSearchRunner(output_series="target_beam",
                             decoder=BeamSearchDecoder(
-                                name="fs_bs", parent_decoder=runner.decoder,
-                                beam_size=beam))
+                                name=name, parent_decoder=runner.decoder,
+                                beam_size=beam, **kwargs))
 
 
 def _manager(trainer, runner, *more, **kwargs):
@@ -193,10 +195,10 @@ def _whole(manager):
 
 
 def _run(n_steps=3, batch_size=16, optimizer=None, delayed=False,
-         width=32, clip_norm=1.0, **kwargs):
+         width=32, clip_norm=1.0, l2=0.0, **kwargs):
     ds = _dataset(batch_size)
     trainer, runner = _build(optimizer, delayed=delayed, width=width,
-                             clip_norm=clip_norm)
+                             clip_norm=clip_norm, l2=l2)
     manager = _manager(trainer, runner, **kwargs)
     steps = [manager.train_on_batch(trainer, ds, batch_size)
              for _ in range(n_steps)]
@@ -342,11 +344,11 @@ def delayed_plain(directory):
 # clipping: the layouts then compute bit-equal updates (the clip's norm
 # sums in another order under ZeRO, and Adafactor's normalised steps of
 # the key biases, whose exact gradient is 0, follow their rounding noise)
-def adafactor(directory, fsdp_too=False):
+def adafactor(directory):
     del directory
     manager, result = _run(optimizer=AdafactorOptimizer(learning_rate=1e-2),
                            width=128, clip_norm=None,
-                           shard_optimizer_state=True, fsdp=fsdp_too)
+                           shard_optimizer_state=True)
     result["opt"] = _opt_shapes(manager)
     return result
 
@@ -361,7 +363,141 @@ adafactor_replicated = adafactor_plain
 
 
 def adafactor_fsdp(directory):
-    return adafactor(directory, fsdp_too=True)
+    """``adafactor`` under fsdp, recording each gather its training steps
+    make (the units' and the updates': the whole bytes each fills of
+    the divided tensors) beside the bytes of the whole tree, of each
+    rank's owned parameters and of the largest unit."""
+    del directory
+    gathered, real = [], zero.gather_into
+    step = CUDAManager.train_on_prepared
+
+    def counted(targets, plan, local):
+        gathered.append(sum(4 * t.numel() for n, t in targets.items()
+                            if not plan[n].replicated))
+        return real(targets, plan, local)
+
+    def counting(self, *args):
+        zero.gather_into = counted
+        try:
+            return step(self, *args)
+        finally:
+            zero.gather_into = real
+    CUDAManager.train_on_prepared = counting
+    try:
+        manager, result = _run(
+            optimizer=AdafactorOptimizer(learning_rate=1e-2), width=128,
+            clip_norm=None, shard_optimizer_state=True, fsdp=True)
+    finally:
+        CUDAManager.train_on_prepared = step
+    result["opt"] = _opt_shapes(manager)
+    plan = next(iter(manager._update_plans.values()))
+    meta = manager._local_meta
+    result["gathered"] = gathered
+    result["tree_bytes"] = sum(4 * m.numel() for m in meta.values())
+    result["owned_bytes"] = [sum(4 * meta[n].numel() for n, s in
+                                 plan.items() if s.owner == r)
+                             for r in range(WORLD)]
+    result["unit_bytes"] = max(
+        sum(4 * meta[n].numel() for n in names)
+        for names in fsdp_units.unit_names(manager.params).values())
+    result["owners"] = {n: s.owner for n, s in plan.items()}
+    return result
+
+
+def fsdp_at_use(directory):
+    """One FSDP step, then a greedy, a beam-3 and a hierarchical beam-3
+    decode with its logits aligned (``align_logits``, which replaces the
+    output projection in the decoder's parameters) of the split batch,
+    the gathers' record reset before each: the collectives this rank
+    posted, the most bytes the gathers' tensors held alive at once, what
+    they held before and after (freed by reference counts alone, no
+    cycle collection), and how many of the passes' ``AtUse`` objects
+    outlived them; and the units with their leaves and whole bytes."""
+    del directory
+    import weakref
+    ds = _dataset()
+    trainer, runner = _build()
+    search = _search(runner)
+    aligned = _search(runner, name="fs_bs_aligned",
+                      selection_method="hierarchical", align_logits=True)
+    manager = _manager(trainer, runner, search, aligned, fsdp=True)
+    manager.fsdp_stats.record = True
+    made, at_use = [], manager._at_use
+
+    def recording(params, **kwargs):
+        made_now = at_use(params, **kwargs)
+        made.append(weakref.ref(made_now))
+        return made_now
+    manager._at_use = recording
+    phases = {}
+    for phase, call in (
+            ("step", lambda: manager.train_on_batch(trainer, ds, 16)),
+            ("greedy", lambda: manager.run_on_batch([runner], ds, 16)),
+            ("beam", lambda: manager.run_on_batch([search], ds, 16)),
+            ("beam_aligned",
+             lambda: manager.run_on_batch([aligned], ds, 16))):
+        stats = manager.fsdp_stats
+        stats.reset()
+        before = stats.alive
+        call()
+        phases[phase] = {"events": list(stats.events),
+                         "peak": stats.peak - before, "before": before,
+                         "after": stats.alive,
+                         "passes_alive": sum(r() is not None for r in made)}
+    units = fsdp_units.unit_names(manager.params)
+    meta = manager._local_meta
+    return {"phases": phases, "units": units,
+            "unit_bytes": {u: sum(4 * meta[n].numel() for n in names)
+                           for u, names in units.items()},
+            "leaves": sorted(meta)}
+
+
+def fsdp_early_end(directory):
+    """Greedy and beam-3 decodes under fsdp of a split batch whose rows
+    all end at the first step on rank 0 (END's logit raised there) and
+    never on rank 1 (lowered), by a decoder of 12 steps, past the loops'
+    first look at the finished rows: each decode's collectives on this
+    rank, and the sentences of both ranks."""
+    del directory
+    ds = _dataset()
+    trainer, runner = _build(max_len=12)
+    search = _search(runner)
+    manager = _manager(trainer, runner, search, fsdp=True)
+    decoder = runner.decoder
+    finish = decoder._finish
+    shift = 1e4 if distributed.data_index() == 0 else -1e4
+
+    def ending(constants, x, att_map):
+        logits, aux = finish(constants, x, att_map)
+        logits = logits.clone()
+        logits[..., END_TOKEN_INDEX] += shift
+        return logits, aux
+    decoder._finish = ending
+    stats = manager.fsdp_stats
+    stats.record = True
+    result = {}
+    for name, run in (("greedy", runner), ("beam", search)):
+        stats.reset()
+        result[name] = manager.run_on_batch([run], ds, 16)[0].outputs
+        result[f"{name}_events"] = list(stats.events)
+    return result
+
+
+def fsdp_l2(directory):
+    del directory
+    return _run(l2=0.01, fsdp=True)[1]
+
+
+def l2_plain(directory):
+    del directory
+    return _run(l2=0.01)[1]
+
+
+def fsdp_delayed(directory):
+    del directory
+    manager, result = _run(n_steps=4, delayed=True, fsdp=True)
+    result["opt"] = _opt_shapes(manager)
+    return result
 
 
 def whole_batch(directory):
@@ -584,7 +720,8 @@ def global_losses(directory, cases):
 # ---------------------------------------------------------------------- #
 SCENARIOS = ("helpers", "build_batch", "replicated", "zero1", "fsdp",
              "continued", "delayed", "adafactor", "adafactor_fsdp",
-             "adafactor_replicated",
+             "adafactor_replicated", "fsdp_at_use", "fsdp_early_end",
+             "fsdp_l2", "fsdp_delayed",
              "whole_batch", "dropout_masks", "beam", "ensemble",
              "train_cli")
 
@@ -606,7 +743,7 @@ def single(tmp_path_factory):
     assert not distributed.is_initialized()
     return {name: globals()[name](directory) for name in (
         "replicated", "continued", "delayed_plain", "adafactor_plain",
-        "whole_batch", "beam", "ensemble", "train_cli")}
+        "l2_plain", "whole_batch", "beam", "ensemble", "train_cli")}
 
 
 def _close(got, want, atol=ATOL):
@@ -845,6 +982,137 @@ def test_adafactor_under_zero_matches_replicated(ranks, single, mode):
     whole = results[0][mode]["opt"][1]
     assert any(k.startswith("0/v_row/") and whole[k] != (1,)
                for k in keys[0] | keys[1])
+
+
+def test_adafactor_under_fsdp_updates_on_the_owners(ranks):
+    """Under fsdp Adafactor's update gathers each parameter whole to its
+    owner alone, one owner's group at a time: no gather of the steps
+    (the units' and the update's) fills more than the larger of the
+    largest unit and the largest rank's owned share, which is less than
+    the whole tree, and the owners part the parameters between the
+    ranks."""
+    results, _ = ranks
+    for result in results:
+        got = result["adafactor_fsdp"]
+        bound = max(got["unit_bytes"], max(got["owned_bytes"]))
+        assert bound < got["tree_bytes"]
+        assert got["gathered"] and max(got["gathered"]) <= bound
+        assert sorted(set(got["owners"].values())) == list(range(WORLD))
+
+
+def test_fsdp_gathers_each_unit_at_use(ranks):
+    """The units are each part's ``layer_<i>`` sub-trees and its other
+    leaves, together every leaf once. In the step's forward each unit is
+    gathered once; the backward reduces each once, in the reverse order
+    of those gathers, and gathers a unit again at most once; the greedy
+    and beam decodes (the aligned hierarchical one too) gather units
+    only."""
+    results, _ = ranks
+    got = results[0]["fsdp_at_use"]
+    units = got["units"]
+    parts = ("fs_src", "fs_src_input", "fs_tgt", "fs_tgt_embeddings")
+    assert set(units) == set(parts) | {
+        f"{part}/layer_{i}" for part in ("fs_src", "fs_tgt")
+        for i in range(2)}
+    leaves = [leaf for names in units.values() for leaf in names]
+    assert sorted(leaves) == got["leaves"]
+    for unit, names in units.items():
+        if "/layer_" in unit:
+            assert all(n.startswith(unit + "/") for n in names)
+        else:
+            assert all("/layer_" not in n for n in names)
+    events = got["phases"]["step"]["events"]
+    gathers = [u for kind, u in events if kind == "gather"]
+    reduces = [u for kind, u in events if kind == "reduce"]
+    regathers = [u for kind, u in events if kind == "regather"]
+    assert sorted(gathers) == sorted(units)
+    assert reduces == gathers[::-1]
+    assert len(set(regathers)) == len(regathers)
+    assert set(regathers) <= set(units)
+    # every gather of the forward comes before the first reduction
+    assert events.index(("reduce", reduces[0])) > max(
+        events.index(("gather", u)) for u in gathers)
+    for phase in ("greedy", "beam", "beam_aligned"):
+        kinds = {kind for kind, _ in got["phases"][phase]["events"]}
+        assert kinds == {"gather"}, phase
+
+
+@pytest.mark.parametrize("phase", ["step", "greedy", "beam",
+                                   "beam_aligned"])
+def test_fsdp_gathered_bytes_stay_within_two_units(ranks, phase):
+    """The gathered tensors alive at once never exceed the two largest
+    units' whole bytes together (a part's other unit, a decoder's
+    table, may stay while a layer's is gathered; the whole tree, as a
+    gather of it at the step's start held, is far more), and none stays
+    alive after the step or the decode, nor the pass that gathered them
+    (no reference cycle holds it)."""
+    results, _ = ranks
+    for result in results:
+        got = result["fsdp_at_use"]
+        sizes = sorted(got["unit_bytes"].values())
+        record = got["phases"][phase]
+        assert record["before"] == 0 and record["after"] == 0
+        assert record["passes_alive"] == 0
+        assert 0 < record["peak"] <= sizes[-1] + sizes[-2]
+        assert sizes[-1] + sizes[-2] < sum(sizes)
+
+
+def test_fsdp_ranks_post_the_same_collectives_in_order(ranks):
+    results, _ = ranks
+    for phase in ("step", "greedy", "beam", "beam_aligned"):
+        first, second = (r["fsdp_at_use"]["phases"][phase]["events"]
+                         for r in results)
+        assert first and first == second, phase
+
+
+def test_fsdp_decodes_end_on_every_rank_together(ranks):
+    """Where one rank's rows all end at the first step and the other's
+    never, both ranks run every step of the greedy and beam decodes
+    (each step gathers the decoder's layers over the data group), post
+    the same collectives, and collect both ranks' sentences: rank 0's
+    rows empty, rank 1's of all 12 steps."""
+    results, _ = ranks
+    got = [r["fsdp_early_end"] for r in results]
+    for name in ("greedy", "beam"):
+        events = got[0][f"{name}_events"]
+        assert events and events == got[1][f"{name}_events"], name
+        # once a step, and for the decode's reads outside the loop
+        layer_gathers = [u for kind, u in events
+                         if kind == "gather" and u == "fs_tgt/layer_0"]
+        assert len(layer_gathers) >= 12, name
+        for result in got:
+            sentences = result[name]
+            assert len(sentences) == 16
+            assert all(s == [] for s in sentences[:8]), name
+            assert all(len(s) == 12 for s in sentences[8:]), name
+
+
+def test_fsdp_l2_term_matches_replicated(ranks, single):
+    """The l2 term on each rank's parts, its sum over the ranks, its
+    gradient each rank's own: one process's losses and parameters."""
+    results, _ = ranks
+    want = single["l2_plain"]
+    assert want["losses"] != pytest.approx(single["replicated"]["losses"],
+                                           abs=1e-4)
+    for result in results:
+        got = result["fsdp_l2"]
+        _close(got["losses"], want["losses"])
+        _close(got["norms"], want["norms"])
+        _params_close(got["params"], want["params"])
+        assert got["outputs"] == want["outputs"]
+
+
+def test_fsdp_composes_with_delayed_update(ranks, single):
+    results, _ = ranks
+    want = single["delayed_plain"]
+    for result in results:
+        got = result["fsdp_delayed"]
+        _close(got["losses"], want["losses"])
+        _close(got["norms"], want["norms"])
+        _params_close(got["params"], want["params"])
+        local, whole = got["opt"]
+        acc = [k for k in local if k.startswith("acc/")]
+        assert acc and any(local[k] != whole[k] for k in acc)
 
 
 def test_batch_the_ranks_do_not_divide_averages(ranks, single):

@@ -13,7 +13,8 @@ gradients are summed). Loss and updated parameters agree within 1e-5
 for the cross-entropy, its l2 term, the labeler, CTC, the self-critical
 objective (the port's sampler replays the JAX package's draws) and a
 MoE Transformer's balance and z terms; the cross-entropy also under
-ZeRO-1 and FSDP. The ranks are started from ``test_torch_parallel``;
+ZeRO-1 and FSDP, and under FSDP (which gathers at use) the l2 term and
+a 2 + 2-layer Transformer, whose layers are gather units of their own. The ranks are started from ``test_torch_parallel``;
 ``test_torch_model_axes_jax.py`` and
 ``test_torch_model_axes_transformer_jax.py`` hold the cases under the
 model and context axes.
@@ -40,7 +41,9 @@ KEY = jax.random.PRNGKey(5)
 # (name, case, manager keywords)
 RUNS = [(kind, kind, {}) for kind in workers.CASES] + [
     ("xent_zero1", "xent", {"shard_optimizer_state": True}),
-    ("xent_fsdp", "xent", {"fsdp": True})]
+    ("xent_fsdp", "xent", {"fsdp": True}),
+    ("l2_fsdp", "l2", {"fsdp": True}),
+    ("transformer_fsdp", "transformer", {"fsdp": True})]
 
 
 def _reference(kind):

@@ -1,6 +1,8 @@
 """The mesh axes together at four gloo ranks on the CPU: data
 parallelism over two replicas of a model split over two model ranks
-(DP 2 x TP 2) under ZeRO-1 and under FSDP, a model split over two model
+(DP 2 x TP 2) under ZeRO-1 and under FSDP (also with the sequence
+split over the model ranks), FSDP over two replicas of a model whose
+sequence splits over two context ranks (DP 2 x CP 2), a model split over two model
 ranks and two context ranks (TP 2 x CP 2, the ring on the heads each
 rank holds), the stacked layers of two pipeline stages or 4 MoE experts
 over two ranks beside two model or context ranks (PP x TP, EP x TP,
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from neuralmonkey_tpu_torch.ops import moe
-from neuralmonkey_tpu_torch.parallel import (distributed, pipeline,
+from neuralmonkey_tpu_torch.parallel import (distributed, fsdp, pipeline,
                                              ring_attention)
 from neuralmonkey_tpu_torch.runtime import CUDAManager
 from neuralmonkey_tpu_torch.utils.saving import load_flat
@@ -35,6 +37,9 @@ WORLD = 4
 MODES = {"dp_tp_zero1": {"num_model_shards": 2,
                          "shard_optimizer_state": True},
          "dp_tp_fsdp": {"num_model_shards": 2, "fsdp": True},
+         "dp_tp_sp_fsdp": {"num_model_shards": 2, "sequence_sharding": True,
+                           "fsdp": True},
+         "dp_cp_fsdp": {"num_context_shards": 2, "fsdp": True},
          "tp_cp": {"num_model_shards": 2, "num_context_shards": 2},
          "pp_tp": {"num_pipeline_stages": 2, "num_model_shards": 2},
          "ep_tp": {"num_expert_shards": 2, "num_model_shards": 2},
@@ -78,7 +83,13 @@ def run(directory=None, model="plain", **kwargs):
         manager = CUDAManager(device="cpu", random_seed=0, **kwargs)
         manager.initialize_model_parts([trainer, runner, search], seed=0)
         ds = tp_tests.dataset(src=6, tgt=3)
-        out = [manager.train_on_batch(trainer, ds, 16) for _ in range(2)]
+        # each step's unit collectives (under fsdp)
+        manager.fsdp_stats.record = True
+        out, events = [], []
+        for _ in range(2):
+            manager.fsdp_stats.reset()
+            out.append(manager.train_on_batch(trainer, ds, 16))
+            events.append(list(manager.fsdp_stats.events))
         decodes = manager.run_on_batch([runner, search], ds, 16)
         ckpt = (manager.save(os.path.join(
             directory, f"ck{distributed.process_index()}", "variables.data"))
@@ -90,7 +101,8 @@ def run(directory=None, model="plain", **kwargs):
             "norms": [o["grad_norm"] for o in out],
             "params": tp_tests.whole(manager),
             "greedy": decodes[0].outputs, "beam": decodes[1].outputs,
-            "calls": calls, "ckpt": ckpt,
+            "calls": calls, "ckpt": ckpt, "fsdp_events": events,
+            "units": sorted(fsdp.unit_names(manager.params)),
             "mesh": manager.mesh.shape,
             "emb": tuple(manager.params["w4_src_input"]["embeddings"].shape),
             "opt_q": {k: tuple(v.shape) for state in
@@ -159,6 +171,23 @@ def test_four_ranks_match_one_process(ranks, singles, mode):
             "num_pipeline_stages" in kwargs)
         assert (got["calls"]["constrain_dispatch"] > 0) == (
             "num_expert_shards" in kwargs)
+
+
+@pytest.mark.parametrize("mode", ["dp_tp_fsdp", "dp_tp_sp_fsdp",
+                                  "dp_cp_fsdp"])
+def test_fsdp_beside_other_axes_gathers_each_unit_once_a_step(ranks, mode):
+    """Under FSDP beside TP, SP or CP (whose logits come from the output
+    projection sliced along the time axis out of the decoder's
+    parameters) each step's forward gathers each unit once, and the
+    backward reduces each once, in the reverse order: no unit's gradient
+    waits for the step's end."""
+    for result in ranks:
+        got = result[mode]
+        for events in got["fsdp_events"]:
+            gathers = [u for kind, u in events if kind == "gather"]
+            reduces = [u for kind, u in events if kind == "reduce"]
+            assert sorted(gathers) == got["units"]
+            assert reduces == gathers[::-1]
 
 
 def test_four_rank_layouts(ranks):

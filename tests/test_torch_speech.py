@@ -63,6 +63,8 @@ from neuralmonkey_tpu_torch.runners.plain_runner import PlainRunner
 from neuralmonkey_tpu_torch.utils.saving import flatten_tree, params_from_jax
 from neuralmonkey_tpu_torch.vocabulary import Vocabulary
 
+import test_torch_precision as precision
+
 torch.set_num_threads(1)
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 FEATS, FRAMES, LENGTHS = 5, 9, [9, 6, 3]
@@ -391,6 +393,58 @@ def test_ctc_runner_transcripts_match_jax(jax_pallas, beam):
     ctx = Context(params, {k: torch.from_numpy(v) for k, v in batch.items()})
     got = runner.collect_results(
         {k: v.numpy() for k, v in runner.fetches(ctx).items()}, 3)
+    assert got.outputs == want.outputs and len(got.outputs) == 3
+
+
+def test_ctc_model_bf16_loss_and_gradients_match_jax(jax_pallas):
+    """Under the bf16 compute policy of both packages (the JAX program
+    compiled with every bf16 rounding kept, ``test_torch_precision``):
+    the CTC loss of the BiGRU model and the gradient of every float32
+    master parameter, by ``test_torch_precision``'s rules (the loss to
+    1e-5 relative as in float32; the gradients within float32 sum order
+    and a bf16 rounding of the largest)."""
+    jax_dec, dec, jax_params, params, batch = _ctc_case()
+    jax_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    leaves = flatten_tree(params)
+    for leaf in leaves.values():
+        leaf.requires_grad_(True)
+    with precision.both_policies(precision.BF16):
+        ref_loss, ref_grads = precision._compiled(jax.value_and_grad(
+            lambda p: jax_dec.train_loss(JaxContext(
+                p, jax_batch, train=True, rng=jax.random.PRNGKey(1)))),
+            jax_params)
+        loss = dec.train_loss(Context(params, {
+            k: torch.from_numpy(v) for k, v in batch.items()}, train=True,
+            rng=1))
+        loss.backward()
+    with torch.no_grad():
+        loss32 = dec.train_loss(Context(params, {
+            k: torch.from_numpy(v) for k, v in batch.items()}, train=True,
+            rng=1))
+    # the policy changes the numbers
+    assert loss.dtype == torch.float32 and loss.item() != loss32.item()
+    _close(loss, ref_loss, rtol=1e-5)
+    precision._assert_grads({k: leaf.grad for k, leaf in leaves.items()},
+                            jax_flatten(ref_grads))
+
+
+@pytest.mark.parametrize("beam", [1, 4])
+def test_ctc_runner_bf16_transcripts_match_jax(jax_pallas, beam):
+    """The greedy and beam-4 transcripts under both packages' bf16
+    policy: equal."""
+    jax_dec, dec, jax_params, params, batch = _ctc_case(beam)
+    jax_runner = JaxPlainRunner("text", jax_dec)
+    runner = PlainRunner("text", dec)
+    jax_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    with precision.both_policies(precision.BF16):
+        want = jax_runner.collect_results(
+            {k: np.asarray(v) for k, v in precision._compiled(
+                lambda p: jax_runner.fetches(JaxContext(p, jax_batch)),
+                jax_params).items()}, 3)
+        ctx = Context(params, {k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+        got = runner.collect_results(
+            {k: v.numpy() for k, v in runner.fetches(ctx).items()}, 3)
     assert got.outputs == want.outputs and len(got.outputs) == 3
 
 
