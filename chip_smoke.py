@@ -18,7 +18,9 @@ Phases (any failure raises and the script exits non-zero):
    shape, with median times from CUDA events, the bound of the same work
    on this card and, where one PyTorch call computes the same function,
    that call's time (cuDNN's LSTM for the LSTM kernels), K2's time with
-   the L2 cache flushed before each call, K1's scan alone
+   the L2 cache flushed before each call, K2 also at phase 31's B·K 640
+   rows (``beam_rows`` in K2's entry of the kernels line), K1's scan
+   alone
    without and with the carries a gradient needs, K3 beside cuBLAS's
    ``addmm`` of the same shape (a reference for the product alone: no
    PyTorch call computes K3's whole function), the whole
@@ -330,6 +332,15 @@ Phases (any failure raises and the script exits non-zero):
    at rest and peak and their share of one process's, tokens/s (two
    ranks time-sharing one card: not scaling) and the kernels' launches
    on the ranks.
+31. the physical reorder: ``NM_LINEAGE=0`` over phase 4's first batch
+   of 64 sentences through ``run``, greedy and beam 10: phase 4's RNN
+   (K2 must launch at B·K 640 rows, K3 and K4 too), then phase 9's
+   Transformer, by default and under ``NM_LINEAGE_KERNEL=1`` (K3 and K4
+   must launch); no run may launch the lineage attention. The beam
+   searches of the first 8 sentences are held to phases 5's and 10's
+   CPU searches by phase 5's rule (the CPU's lineage search: the same
+   picks, step by step). Prints each model's beam-10 sentences/s over
+   that batch in both forms, the median of 3 passes each.
 
 Kernel times are device times: CUDA events between back-to-back calls
 queued behind a spin kernel (``call_ms`` times one call of the wrapper
@@ -756,6 +767,8 @@ def check_kernels(device):
                      + batch * dim))
         record("fused_bahdanau_step", max_err(got[0], ref[0]), 1e-4,
                (batch, time_, "context"), work=work, **timing)
+    results["fused_bahdanau_step"]["beam_rows"] = bahdanau_beam_rows(
+        cuda_attention, randn, record)
 
     # K3: one beam step's logit projection, vocabulary padded as in the
     # search (multiple of 1024 columns, bias -1e9 on the pad)
@@ -842,6 +855,42 @@ def check_kernels(device):
     results["lineage_attention_bf16"].update(lineage_b1)
     torch.cuda.synchronize()
     return results
+
+
+def bahdanau_beam_rows(cuda_attention, randn, record) -> dict:
+    """K2 at the physical beam search's rows (``NM_LINEAGE=0``, phase
+    31): B·K = 640 rows of T 32, A 512, D 1024, weights to 1e-5 and the
+    context to 1e-4 against the plain version, timed back to back and
+    with the L2 cache flushed, beside its plain version and its bound
+    (130 MB of keys and states: more than the L2 either way)."""
+    from neuralmonkey_tpu_torch.ops import kernel_config
+
+    rows, dim = BATCH * BEAM, 2 * RNN
+    keys, states = randn(rows, SRC_LEN, ATT), randn(rows, SRC_LEN, dim)
+    mask = keys.new_ones(rows, SRC_LEN)
+    pq, v = randn(rows, ATT), randn(ATT, scale=ATT ** -0.5)
+    got = cuda_attention.fused_bahdanau_step(keys, states, mask, pq, v)
+    ref = cuda_attention.bahdanau_reference(keys, states, mask, pq, v)
+    errs = (max_err(got[1], ref[1]), max_err(got[0], ref[0]))
+    record("fused_bahdanau_step", errs[0], 1e-5, (rows, SRC_LEN, "weights"))
+    record("fused_bahdanau_step", errs[1], 1e-4, (rows, SRC_LEN, "context"))
+
+    def step():
+        return cuda_attention.fused_bahdanau_step(keys, states, mask, pq, v)
+    bound_ms, bound_by = bound(
+        rows * SRC_LEN * (4 * ATT + 2 * dim),
+        4 * (rows * SRC_LEN * (ATT + dim + 2) + rows * ATT + ATT
+             + rows * dim))
+    out = {"shape": [rows, SRC_LEN, ATT, dim], "max_abs_err": max(errs),
+           "ms": time_ms(step), "l2_flushed_ms": flushed_ms(step),
+           "plain_ms": time_ms(lambda: cuda_attention.bahdanau_reference(
+               keys, states, mask, pq, v)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "plan": cuda_attention.bahdanau_plan(
+               rows, SRC_LEN, ATT, dim, *kernel_config.device_limits(
+                   keys.device.index or 0))._asdict()}
+    log(f"fused_bahdanau_step beam rows: {out}")
+    return out
 
 
 def lineage_bf16_apart(got, ref, vmax: float):
@@ -2371,18 +2420,21 @@ def run_slice(tmp: str):
 
 
 def serve_through_run(exp_ini: str, data_ini: str, ckpt, expected,
-                      outputs, label: str, flags=(), forbidden=()):
+                      outputs, label: str, flags=(), forbidden=(),
+                      sentences: int = None):
     """One ``run`` CLI pass from ``ckpt`` (a path, or a list of them: an
     ensemble, or averaged with ``flags`` ``("--average",)``) with the
     launch counts set to 0 just before it: (its launches, the lines of
-    each output file). Every kernel in ``expected`` must have launched,
-    none in ``forbidden``."""
+    each output file, ``sentences`` each, by default N_SENTENCES). Every
+    kernel in ``expected``
+    must have launched, none in ``forbidden``."""
     import torch
 
     from neuralmonkey_tpu_torch import run
     from neuralmonkey_tpu_torch.ops import kernel_config
 
     ckpts = [ckpt] if isinstance(ckpt, str) else list(ckpt)
+    sentences = sentences or N_SENTENCES
     kernel_config.reset_launch_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -2404,9 +2456,9 @@ def serve_through_run(exp_ini: str, data_ini: str, ckpt, expected,
     for path in outputs:
         with open(path) as f:
             lines[os.path.basename(path)] = f.read().splitlines()
-        if len(lines[os.path.basename(path)]) != N_SENTENCES:
+        if len(lines[os.path.basename(path)]) != sentences:
             raise AssertionError(f"{label}: {path} does not hold "
-                                 f"{N_SENTENCES} lines")
+                                 f"{sentences} lines")
     return launches, lines
 
 
@@ -2447,7 +2499,8 @@ def serving_speed(exp, ckpt: str, data_ini: str, runners, suffix="",
 # phase 5: CPU (plain versions) against the card (kernels)
 # ---------------------------------------------------------------------- #
 def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
-                 dataset=None, margin: float = MARGIN, card=None):
+                 dataset=None, margin: float = MARGIN, card=None,
+                 keep=None):
     """Phase 5's rule on the first N_PARITY sentences of ``data_ini``, or
     on ``dataset``; the beam part where the model has a second (beam
     search) runner; ``margin`` the gap below which the devices may
@@ -2456,7 +2509,9 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
     the greedy margins are the gaps of the CPU's averaged log-probs.
     With ``card`` in place of ``gpu_exp`` (None), the beam part alone,
     held against a search already run on the card: ``card`` is (each
-    row's picks, a (K, 2) tensor a step; each row's best ids)."""
+    row's picks, a (K, 2) tensor a step; each row's best ids). ``keep``
+    (a dict) receives the CPU's beam record for :func:`hold_beam`: each
+    step's picks and gaps, and each row's best ids."""
     import torch
 
     from neuralmonkey_tpu_torch import run
@@ -2594,34 +2649,51 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
         log(f"parity: {report}")
         return report
 
-    # a beam search diverges at the first step where the two devices
-    # pick a different (parent, token) in some slot j; that must be a
-    # near-tie on the CPU between its candidates j and j + 1
+    if keep is not None:
+        keep.update(picks=picks["cpu"], gaps=beam_gaps, ids=cpu_beam)
     if card is None:
         card_picks = [[p[row] for p in picks["gpu"]] for row in range(n)]
+
+        def same_ids(row):
+            return torch.equal(cpu_beam[row], gpu_beam[row])
     else:
         card_picks, card_ids = card
         vocabulary = cpu_exp.model.runners[1].decoder.vocabulary
 
+        def same_ids(row):
+            # the card's ids as its runner collected them: the words to
+            # the first </s>
+            return (vocabulary.vectors_to_sentences(cpu_beam[row:row + 1])
+                    == vocabulary.vectors_to_sentences(card_ids[row][None]))
+    report["beam"] = hold_beam(picks["cpu"], beam_gaps, card_picks,
+                               same_ids, margin)
+    log(f"parity: {report}")
+    return report
+
+
+def hold_beam(cpu_picks, gaps, card_picks, same_ids,
+              margin: float = MARGIN) -> str:
+    """Phase 5's beam rule: a search on the card that first picks a
+    different (parent, token) than the CPU's at some step and slot j
+    must do so at a near-tie of the CPU's, its gap between candidates j
+    and j + 1 below ``margin``; one that never does must give the CPU's
+    best ids. ``cpu_picks`` and ``gaps`` hold a (rows, K, 2) and a
+    (rows, K) tensor a step, ``card_picks`` each row's (K, 2) picks a
+    step, ``same_ids(row)`` whether a row's best ids agree."""
     def first_divergence(row):
-        for step, (c, g) in enumerate(zip(picks["cpu"], card_picks[row])):
+        # the steps both searches ran (a finished hypothesis is a fixed
+        # point of the step, so a batch may run on past another's end)
+        for step, (c, g) in enumerate(zip(cpu_picks, card_picks[row])):
             slots = (c[row] != g).any(-1).nonzero()
             if len(slots):
                 return step, int(slots[0, 0])
         return None
 
-    def same_ids(row):
-        if card is None:
-            return torch.equal(cpu_beam[row], gpu_beam[row])
-        # the card's ids as its runner collected them: the words to the
-        # first </s>
-        return (vocabulary.vectors_to_sentences(cpu_beam[row:row + 1])
-                == vocabulary.vectors_to_sentences(card_ids[row][None]))
-
+    n = len(card_picks)
     same = diverged = 0
     for row in range(n):
         first = first_divergence(row)
-        ids_same = same_ids(row)
+        ids_same = bool(same_ids(row))
         same += ids_same
         if first is None:
             if not ids_same:
@@ -2631,7 +2703,7 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
             continue
         diverged += 1
         step, slot = first
-        gap = float(beam_gaps[step][row, slot])
+        gap = float(gaps[step][row, slot])
         log(f"parity beam: sentence {row}: the searches first pick "
             f"differently at step {step}, slot {slot}; CPU gap to the "
             f"next candidate {gap:.3g}; best ids "
@@ -2640,10 +2712,8 @@ def check_parity(exp_ini: str, data_ini: str, gpu_exp, ckpt,
             raise AssertionError(
                 f"beam search of sentence {row} diverges at step {step}, "
                 f"slot {slot}, where the CPU's gap is {gap} >= {margin}")
-    report["beam"] = (f"{same}/{n} identical, {diverged} searches "
-                      "diverged at a near-tie")
-    log(f"parity: {report}")
-    return report
+    return (f"{same}/{n} identical, {diverged} searches diverged at a "
+            "near-tie")
 
 
 # ---------------------------------------------------------------------- #
@@ -7513,6 +7583,160 @@ def check_pipe_and_expert_axes(tmp: str, t_ini: str, t_ckpt: str,
     return launches, report
 
 
+# ---------------------------------------------------------------------- #
+# phase 31: beam search by the physical per-step reorder (NM_LINEAGE=0)
+# ---------------------------------------------------------------------- #
+PHYSICAL_KERNELS = ("fused_logits_rowmax_lse", "small_topk")
+LINEAGE_KERNELS = ("lineage_attention", "lineage_attention_chunked",
+                   "lineage_attention_bf16", LINEAGE_SCRATCH)
+# each model's runs: (label, checkpoint's INI key, extra environment)
+PHYSICAL_RUNS = (("rnn", "rnn", {}),
+                 ("transformer", "transformer", {}),
+                 ("transformer, NM_LINEAGE_KERNEL=1", "transformer",
+                  {"NM_LINEAGE_KERNEL": "1"}))
+
+
+def physical_run(tmp: str, exp_ini: str, ckpt: str, label: str, env,
+                 expected):
+    """One ``run`` pass over phase 4's first batch (``phys_data.ini``)
+    under ``NM_LINEAGE=0`` and ``env``, the launch counts set to 0 just
+    before it: (its launches, K2's launches by (B, T), each step's
+    (parent, token) picks of the beam search, (B, K, 2) a step, and its
+    best ids, (B, L)). Every kernel of ``expected`` must launch, no
+    lineage attention."""
+    import numpy as np
+    import torch
+
+    from neuralmonkey_tpu_torch.models.attention import feed_forward
+    from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
+        BeamSearchDecoder
+    from neuralmonkey_tpu_torch.runners.beam_search_runner import \
+        BeamSearchRunner
+
+    picks, ids, by_shape = [], [], {}
+    plain = (BeamSearchDecoder._select_hier, BeamSearchDecoder._select_flat,
+             BeamSearchRunner.collect_results,
+             feed_forward.fused_bahdanau_step)
+
+    def recording(select):
+        def select_and_record(self, *args, **kwargs):
+            out = select(self, *args, **kwargs)
+            picks.append(torch.stack(out[:2], dim=-1).cpu())
+            return out
+        return select_and_record
+
+    def collect_results(self, fetched, num_examples):
+        ids.append(np.asarray(fetched["token_ids"])[:num_examples, 0])
+        return plain[2](self, fetched, num_examples)
+
+    def tallied_step(keys, *args):
+        shape = "B{}_T{}".format(*keys.shape[:2])
+        by_shape[shape] = by_shape.get(shape, 0) + 1
+        return plain[3](keys, *args)
+
+    env = {"NM_LINEAGE": "0", **env}
+    os.environ.update(env)
+    BeamSearchDecoder._select_hier = recording(plain[0])
+    BeamSearchDecoder._select_flat = recording(plain[1])
+    BeamSearchRunner.collect_results = collect_results
+    feed_forward.fused_bahdanau_step = tallied_step
+    try:
+        launches, lines = serve_through_run(
+            exp_ini, os.path.join(tmp, "phys_data.ini"), ckpt, expected,
+            [os.path.join(tmp, f"phys_{name}.txt")
+             for name in ("greedy", "beam")], f"physical reorder, {label}",
+            forbidden=LINEAGE_KERNELS, sentences=BATCH)
+    finally:
+        for name in env:
+            os.environ.pop(name)
+        (BeamSearchDecoder._select_hier, BeamSearchDecoder._select_flat,
+         BeamSearchRunner.collect_results,
+         feed_forward.fused_bahdanau_step) = plain
+    if len(ids) != 1:
+        raise AssertionError(f"physical reorder, {label}: {len(ids)} beam "
+                             "batches, not one")
+    del lines
+    return launches, by_shape, picks, ids[0]
+
+
+def beam_rates(exp_ini: str, ckpt: str, data_ini: str) -> dict:
+    """Beam-10 sentences/s over the first batch in both forms of the
+    search, lineage decoding and ``NM_LINEAGE=0``, from one model: the
+    median of 3 timed passes each after a warm-up pass."""
+    import torch
+
+    from neuralmonkey_tpu_torch import run
+    from neuralmonkey_tpu_torch.experiment import Experiment
+
+    exp = Experiment(exp_ini, train_mode=False)
+    exp.build_model()
+    exp.tf_manager.restore(ckpt)
+    dataset = run.load_data_config(data_ini)[0]
+    search = exp.model.runners[1]
+    rates = {}
+    for form, env in (("lineage", None), ("physical", "0")):
+        if env is not None:
+            os.environ["NM_LINEAGE"] = env
+        try:
+            exp.tf_manager.execute(dataset, [search], BATCH)
+            seconds = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                exp.tf_manager.execute(dataset, [search], BATCH)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - start)
+        finally:
+            os.environ.pop("NM_LINEAGE", None)
+        rates[form] = len(dataset) / statistics.median(seconds)
+    del exp
+    gc_card()
+    return rates
+
+
+def check_physical_reorder(tmp: str, models, cpu_records):
+    """Phase 31. ``models`` maps "rnn" and "transformer" to (INI,
+    checkpoint): phase 4's and phase 9's; ``cpu_records`` to the CPU's
+    beam record of phases 5 and 10 (``check_parity``'s ``keep``).
+    Returns (the launches of its runs, report)."""
+    import numpy as np
+
+    first_lines(tmp, ("source.txt",), BATCH, "phys_")
+    with open(os.path.join(tmp, "phys_data.ini"), "w") as f:
+        f.write(MA_DATA_INI.format(tmp=tmp).replace("/ma_", "/phys_"))
+    report, launches = {}, None
+    for label, model, env in PHYSICAL_RUNS:
+        exp_ini, ckpt = models[model]
+        expected = PHYSICAL_KERNELS + (
+            ("fused_bahdanau_step",) if model == "rnn" else ())
+        counts, by_shape, picks, ids = physical_run(
+            tmp, exp_ini, ckpt, label, env, expected)
+        launches = add_launches(launches, counts)
+        beam_rows = f"B{BATCH * BEAM}_"
+        if model == "rnn" and not any(shape.startswith(beam_rows)
+                                      for shape in by_shape):
+            raise AssertionError(f"physical reorder, {label}: K2 never "
+                                 f"launched at {BATCH * BEAM} rows: "
+                                 f"{by_shape}")
+        cpu = cpu_records[model]
+        parity = hold_beam(
+            cpu["picks"], cpu["gaps"],
+            [[p[row] for p in picks] for row in range(N_PARITY)],
+            lambda row: np.array_equal(cpu["ids"][row].numpy(), ids[row]))
+        report[label] = {
+            "launches": {k: counts[k] for k in expected},
+            "lineage_attention_launches": {k: counts[k]
+                                           for k in LINEAGE_KERNELS},
+            "fused_bahdanau_step_launches_by_shape": by_shape,
+            "beam_parity_against_the_cpu": parity}
+        log(f"physical reorder, {label}: {report[label]}")
+    for model in ("rnn", "transformer"):
+        rates = beam_rates(*models[model], os.path.join(tmp, "phys_data.ini"))
+        report[model]["beam10_sentences_per_s"] = rates
+        log(f"physical reorder, {model}: beam-10 sentences/s {rates}")
+    return launches, report
+
+
 def gc_card() -> None:
     import gc
 
@@ -7584,8 +7808,11 @@ def main() -> int:
         # launches: the sum over the main-path runs (each counted from 0)
         launches, lengths, speed, gpu_exp, ckpt, data_ini = phase(
             "slice", run_slice, tmp)
-        parity = phase("parity", check_parity, os.path.join(tmp, "exp.ini"),
-                       data_ini, gpu_exp, ckpt)
+        # the CPU's beam records of phases 5 and 10, for phase 31
+        cpu_records = {"rnn": {}, "transformer": {}}
+        parity = phase("parity", lambda: check_parity(
+            os.path.join(tmp, "exp.ini"), data_ini, gpu_exp, ckpt,
+            keep=cpu_records["rnn"]))
         del gpu_exp
         train_ini = write_training_inputs(tmp)
         training = []
@@ -7606,8 +7833,9 @@ def main() -> int:
         os.environ["NM_LINEAGE_KERNEL"] = "1"
         try:
             t_serving["parity"] = phase(
-                "transformer parity", check_parity, t_ini, t_data_ini, t_exp,
-                t_ckpt)
+                "transformer parity", lambda: check_parity(
+                    t_ini, t_data_ini, t_exp, t_ckpt,
+                    keep=cpu_records["transformer"]))
         finally:
             os.environ.pop("NM_LINEAGE_KERNEL")
         del t_exp
@@ -7685,6 +7913,11 @@ def main() -> int:
         launches = add_launches(launches, pe_launches)
         for name, count in pipe_expert["launches_on_the_ranks"].items():
             kernels[name]["launches_in_phase_30"] = count
+        ph_launches, physical = phase(
+            "physical reorder", check_physical_reorder, tmp,
+            {"rnn": (os.path.join(tmp, "exp.ini"), ckpt),
+             "transformer": (t_ini, t_ckpt)}, cpu_records)
+        launches = add_launches(launches, ph_launches)
         # the rates of the same paths in float32 (phases 4, 6, 9, 11) and
         # under the bf16 policy (phase 24), from this run
         bf16["rates"] = {
@@ -7739,6 +7972,7 @@ def main() -> int:
         "data_parallel": data_parallel,
         "model_axes": model_axes,
         "pipe_and_expert_axes": pipe_expert,
+        "physical_reorder": physical,
     }))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

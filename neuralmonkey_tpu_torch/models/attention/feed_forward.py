@@ -4,7 +4,8 @@
 
 Energies ``e_i = v . tanh(W_q s + W_k h_i + b)``; masked softmax;
 context = sum_i a_i h_i. The key projection ``W_k h_i`` is computed once
-per sentence in ``precompute``. ``step`` (greedy decoding) runs the
+per sentence in ``precompute``. ``step`` (greedy decoding, and beam
+search's physical reorder over constants tiled to B·K rows) runs the
 fused step, kernel K2; ``step_beamed`` (lineage beam search) folds the
 beam axis into one shared copy of keys and states. The coverage step
 stays plain PyTorch, as the JAX package computes it outside any Pallas

@@ -7,7 +7,15 @@ Subclass contract, used by greedy decoding and beam search:
   (attention keys, embedding table, parameters);
 - ``decode_initial_state(ctx, constants)`` -> loop state;
 - ``decode_step(constants, loop_state, prev_ids, step)`` ->
-  ``(new_loop_state, logits (B, V), aux dict)``.
+  ``(new_loop_state, logits (B, V), aux dict)``;
+- for beam search: ``tile_decode_constants(constants, k)`` -> the
+  constants for B·K rows (``b·K + j``), where the batch-dimensioned
+  ones are repeated K times and parameters and tables stay as they
+  are; ``tile_decode_state(state, k, lineage)`` -> the loop state for
+  B·K rows. The physical reorder steps ``decode_step`` over those rows
+  and gathers every tensor of the state by the chosen parents after
+  each step. Decoders with lineage decoding also implement
+  ``decode_step_lineage`` and ``tile_decode_constants_lineage`` (below).
 
 The decode loops are Python loops over device tensors. They ask the
 device whether every sentence has finished only once every
@@ -287,17 +295,18 @@ class AutoregressiveDecoder(ModelPart):
                             ) -> Dict[str, Any]:
         return constants
 
-    # Decoders that support lineage beam decoding (the only beam search
-    # ported) implement these two: beam search then never reorders the
-    # loop state after a step. ``decode_step_lineage`` takes the composed
-    # ancestry ``anc`` (B, K, max_output_len): ``anc[b, k, t]`` is the
-    # slot whose step t lies on hypothesis k's lineage (its own slot for
-    # positions not written yet), so ``anc[:, :, step - 1]`` are the
-    # previous step's parents; ``window`` bounds the positions a cache
-    # read needs (``step + 1`` is exact). A decoder that reads no more of
-    # ``anc`` than column ``step - 1`` sets ``reads_ancestry`` False: the
-    # search then writes each step's parents into that column instead of
-    # composing the whole ancestry every step.
+    # Decoders that support lineage beam decoding implement these two:
+    # beam search then never reorders the loop state after a step.
+    # ``decode_step_lineage`` takes the composed ancestry ``anc`` (B, K,
+    # max_output_len): ``anc[b, k, t]`` is the slot whose step t lies on
+    # hypothesis k's lineage (its own slot for positions not written
+    # yet), so ``anc[:, :, step - 1]`` are the previous step's parents;
+    # ``window`` bounds the positions a cache read needs (``step + 1`` is
+    # exact). A decoder that reads no more of ``anc`` than column
+    # ``step - 1`` sets ``reads_ancestry`` False: the search then writes
+    # each step's parents into that column instead of composing the
+    # whole ancestry every step. Without lineage decoding (or with it
+    # switched off) beam search takes the physical reorder.
     lineage_decode = False
     reads_ancestry = True
 
@@ -310,10 +319,16 @@ class AutoregressiveDecoder(ModelPart):
     def tile_decode_constants_lineage(self, constants, k: int):
         raise NotImplementedError
 
-    def tile_decode_state(self, state: Any, beam: int) -> Any:
+    def tile_decode_constants(self, constants: Dict[str, Any],
+                              k: int) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def tile_decode_state(self, state: Any, beam: int,
+                          lineage: bool = True) -> Any:
         """The loop state for B·K beam rows (row ``b·K + k``) from a
-        (B, ...) tensor; decoders whose state has another layout override
-        this."""
+        (B, ...) tensor, for either form of the search (``lineage``);
+        decoders whose state has another layout override this."""
+        del lineage
         return state.repeat_interleave(beam, dim=0)
 
     # ------------------------------------------------------------------ #

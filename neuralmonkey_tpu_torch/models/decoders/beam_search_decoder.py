@@ -26,13 +26,23 @@ logits; the fused projection then runs on the padded table.
 hypothesis's first-attention weights at every step (single model only),
 moved with the hypotheses as the search selects them.
 
-The parent decoder must support lineage decoding (the RNN and
-Transformer decoders do): its beam-invariant constants stay untiled,
-shared by the K beams, the loop state is never reordered, and the
-search carries the composed ancestry ``anc`` (B, K, T) that each step
-reads: the Transformer resolves its unpermuted caches in score space;
-the RNN gathers its state by the previous parents, column ``step - 1``,
-so for it the search writes only that column.
+The search has two forms, as in the JAX package (``lineage``, which
+``NM_LINEAGE`` overrides, read at each search):
+
+- lineage decoding, the default for a parent that supports it (the RNN
+  and Transformer decoders do): its beam-invariant constants stay
+  untiled, shared by the K beams, the loop state is never reordered,
+  and the search carries the composed ancestry ``anc`` (B, K, T) that
+  each step reads: the Transformer resolves its unpermuted caches in
+  score space; the RNN gathers its state by the previous parents,
+  column ``step - 1``, so for it the search writes only that column;
+- the physical per-step reorder (``lineage="off"``, ``NM_LINEAGE=0``,
+  or "auto" over a parent without lineage decoding): the constants are
+  tiled to B·K rows (``tile_decode_constants``), each step is the
+  parent's plain ``decode_step`` over the B·K rows, and every tensor of
+  the loop state is then gathered by the chosen parents
+  (``_gather_beams``), so that each hypothesis carries its own caches.
+  The JAX package holds lineage decoding to this form.
 The loop asks the device whether every hypothesis has finished only
 every ``FINISHED_CHECK_PERIOD`` steps: a finished hypothesis is a fixed
 point of the step (it emits PAD at zero cost and keeps its length and
@@ -89,16 +99,31 @@ def _gather(arr: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return torch.gather(arr, 1, index.long())
 
 
+def _map_tree(tree: Any, fn) -> Any:
+    """``fn`` on every tensor of ``tree``; None and other leaves pass."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(v, fn) for v in tree)
+    return tree
+
+
 def _tile_beam(tree: Any, beam: int) -> Any:
     """Every tensor of ``tree`` with its rows repeated K times: (B, ...)
     -> (B·K, ...), row ``b·K + k``."""
-    if isinstance(tree, torch.Tensor):
-        return tree.repeat_interleave(beam, dim=0)
-    if isinstance(tree, dict):
-        return {k: _tile_beam(v, beam) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tile_beam(v, beam) for v in tree)
-    return tree
+    return _map_tree(tree, lambda x: x.repeat_interleave(beam, dim=0))
+
+
+def _gather_beams(tree: Any, parents: torch.Tensor, beam: int) -> Any:
+    """The physical reorder: every tensor of the (B·K, ...) ``tree``
+    with row ``b·K + k`` taken from row ``b·K + parents[b, k]``, one
+    ``index_select`` a tensor (fresh tensors, which a step may write in
+    place)."""
+    rows = (torch.arange(parents.shape[0], device=parents.device)[:, None]
+            * beam + parents.long()).reshape(-1)
+    return _map_tree(tree, lambda x: x.index_select(0, rows))
 
 
 class BeamSearchDecoder(ModelPart):
@@ -122,11 +147,6 @@ class BeamSearchDecoder(ModelPart):
                 f"Unknown selection_method: {selection_method}")
         if lineage not in ("auto", "on", "off"):
             raise ValueError(f"Unknown lineage mode: {lineage}")
-        if not parent_decoder.lineage_decode:
-            raise NotImplementedError(
-                f"beam search over {type(parent_decoder).__name__}: only "
-                "decoders with lineage decoding are ported to "
-                "neuralmonkey_tpu_torch")
         self.parent_decoder = parent_decoder
         self.beam_size = beam_size
         self.length_normalization = length_normalization
@@ -136,23 +156,23 @@ class BeamSearchDecoder(ModelPart):
         self.use_approx_top_k = use_approx_top_k
         self.align_logits = align_logits
         self.lineage = lineage
-        self._check_lineage()
 
-    def _check_lineage(self) -> None:
-        """The JAX package's lineage switch: ``lineage``, overridden by
-        ``NM_LINEAGE`` (read at each search, as there). Lineage decoding
-        is the port's only search, so "off" raises."""
+    def _use_lineage(self) -> bool:
+        """The JAX package's switch: ``lineage``, overridden by
+        ``NM_LINEAGE`` (read at each search); lineage decoding where the
+        parent supports it and the mode is not "off", else the physical
+        reorder. "on" over a parent without it raises."""
         env = os.environ.get("NM_LINEAGE")
         if env:
             mode = "off" if env in ("0", "off") else "on"
         else:
             mode = self.lineage
-        if mode == "off":
-            raise NotImplementedError(
-                "lineage='off' (or NM_LINEAGE=0): beam search with the "
-                "physical per-step reorder of the decoder's loop state is "
-                "not ported to neuralmonkey_tpu_torch; lineage decoding is "
-                "its only search (ROADMAP queue C)")
+        supported = getattr(self.parent_decoder, "lineage_decode", False)
+        if mode == "on" and not supported:
+            raise ValueError(
+                f"lineage='on' but {type(self.parent_decoder).__name__} "
+                "does not implement lineage decoding")
+        return mode != "off" and supported
 
     @property
     def vocabulary(self):
@@ -283,7 +303,7 @@ class BeamSearchDecoder(ModelPart):
         """Single-model beam search; ``with_attention`` records the
         attention weights of the final hypotheses, where the parent
         emits them (``emits_attention``)."""
-        self._check_lineage()
+        lineage = self._use_lineage()
         parent = self.parent_decoder
         with_attention = with_attention and parent.emits_attention
         constants = parent.decode_constants(ctx)
@@ -296,28 +316,29 @@ class BeamSearchDecoder(ModelPart):
             # a no-op under NM_FUSED_LOGITS=0
             constants = parent.prepare_selection_fusion(constants)
         return self._search_impl(
-            ctx, [constants], [parent.tile_decode_state(state,
-                                                         self.beam_size)],
+            ctx, [constants], [parent.tile_decode_state(
+                state, self.beam_size, lineage)], lineage,
             with_attention=with_attention)
 
     def ensemble_search(self, contexts: List[Context]) -> BeamSearchOutput:
         """Beam search of the models of ``contexts`` (one a parameter
         set), their distributions averaged at every step."""
-        self._check_lineage()
+        lineage = self._use_lineage()
         parent = self.parent_decoder
         constants = [parent.decode_constants(c) for c in contexts]
         states = [_tile_beam(parent.decode_initial_state(c, k),
                              self.beam_size)
                   for c, k in zip(contexts, constants)]
-        return self._search_impl(contexts[0], constants, states)
+        return self._search_impl(contexts[0], constants, states, lineage)
 
     def _search_impl(self, ctx: Context, constants_list: List[Any],
-                     states: List[Any],
+                     states: List[Any], lineage: bool,
                      with_attention: bool = False) -> BeamSearchOutput:
         """The search over the models' untiled constants and beam-tiled
-        loop states; ``ctx`` gives the batch size and the device. With
-        ``with_attention`` (one model) the first attention's weights of
-        each step are kept, moved with the hypotheses they extend."""
+        loop states, by lineage decoding or, without ``lineage``, by the
+        physical reorder; ``ctx`` gives the batch size and the device.
+        With ``with_attention`` (one model) the first attention's weights
+        of each step are kept, moved with the hypotheses they extend."""
         parent = self.parent_decoder
         beam = self.beam_size
         vocab = len(parent.vocabulary)
@@ -325,8 +346,9 @@ class BeamSearchDecoder(ModelPart):
         device = parent._device(ctx)
         select_fn = (self._select_hier if self._method() == "hierarchical"
                      else self._select_flat)
-        constants_list = [parent.tile_decode_constants_lineage(c, beam)
-                          for c in constants_list]
+        tile = (parent.tile_decode_constants_lineage if lineage
+                else parent.tile_decode_constants)
+        constants_list = [tile(c, beam) for c in constants_list]
         ensemble = len(constants_list) > 1
         if ensemble:
             log_n = torch.tensor(float(len(constants_list))).log().to(
@@ -346,14 +368,23 @@ class BeamSearchDecoder(ModelPart):
                                  device=device))
         prev_ids = torch.full((batch * beam,), START_TOKEN_INDEX,
                               dtype=torch.int32, device=device)
-        # the ancestry starts as the identity: every position of every
-        # slot is (to be) written by that slot itself
-        cache_len = parent.max_output_len
-        anc0 = torch.arange(beam, dtype=torch.int32, device=device)[
-            None, :, None].expand(batch, beam, cache_len)
-        anc = anc0 if parent.reads_ancestry else anc0.clone()
-        positions = torch.arange(cache_len, device=device)
+        anc = None
+        if lineage:
+            # the ancestry starts as the identity: every position of
+            # every slot is (to be) written by that slot itself
+            cache_len = parent.max_output_len
+            anc0 = torch.arange(beam, dtype=torch.int32, device=device)[
+                None, :, None].expand(batch, beam, cache_len)
+            anc = anc0 if parent.reads_ancestry else anc0.clone()
+            positions = torch.arange(cache_len, device=device)
         history = None
+
+        def take_step(constants, state, step):
+            if lineage:
+                return parent.decode_step_lineage(
+                    constants, state, prev_ids, step, anc, beam,
+                    window=step + 1)
+            return parent.decode_step(constants, state, prev_ids, step)
 
         for step in range(self.max_steps):
             if step and step % FINISHED_CHECK_PERIOD == 0 \
@@ -362,17 +393,15 @@ class BeamSearchDecoder(ModelPart):
             if ensemble:
                 log_probs = []
                 for i, constants in enumerate(constants_list):
-                    states[i], logits, _ = parent.decode_step_lineage(
-                        constants, states[i], prev_ids, step, anc, beam,
-                        window=step + 1)
+                    states[i], logits, _ = take_step(constants, states[i],
+                                                     step)
                     log_probs.append(torch.log_softmax(logits.float(),
                                                        dim=-1))
                 x = torch.logsumexp(torch.stack(log_probs), dim=0) - log_n
                 sel = None
             else:
-                states[0], x, aux = parent.decode_step_lineage(
-                    constants_list[0], states[0], prev_ids, step, anc,
-                    beam, window=step + 1)
+                states[0], x, aux = take_step(constants_list[0], states[0],
+                                              step)
                 sel = ((aux["sel_rowmax"], aux["sel_lse"])
                        if "sel_rowmax" in aux else None)
             parents, tokens, new_logprob, _ = select_fn(
@@ -388,11 +417,15 @@ class BeamSearchDecoder(ModelPart):
                                        .expand_as(history))
                 history[:, :, step] = torch.gather(
                     w, 1, index[..., None].expand_as(w))
-            # the state is never reordered; compose the ancestry: written
-            # positions inherit the parent's lineage, later ones stay the
-            # identity. Column ``step`` holds the parents either way, and
-            # it is all a decoder that does not read the ancestry needs.
-            if parent.reads_ancestry:
+            if not lineage:
+                # each model's states move with the hypotheses they carry
+                states = [_gather_beams(s, parents, beam) for s in states]
+            # lineage decoding never reorders the state; it composes the
+            # ancestry: written positions inherit the parent's lineage,
+            # later ones stay the identity. Column ``step`` holds the
+            # parents either way, and it is all a decoder that does not
+            # read the ancestry needs.
+            elif parent.reads_ancestry:
                 inherited = torch.gather(
                     anc, 1, parents.long()[..., None].expand_as(anc))
                 anc = torch.where(positions <= step, inherited, anc0)

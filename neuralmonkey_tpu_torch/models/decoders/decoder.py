@@ -361,8 +361,21 @@ class Decoder(AutoregressiveDecoder):
     def decode_step(self, constants: Dict[str, Any],
                     loop_state: Any, prev_ids: torch.Tensor,
                     step: int):
+        """One step of every row: greedy decoding's, and the physical
+        beam search's over B·K rows, where each attention takes its
+        plain ``step`` on tiled constants (Bahdanau's through K2)."""
         del step
         return self._finish_step(constants, loop_state, prev_ids)
+
+    def tile_decode_constants(self, constants, k: int):
+        """Constants for B·K rows: each attention repeats its
+        batch-dimensioned constants k times (``tile_constants``); the
+        parameters and the embedding table stay as they are."""
+        tiled = dict(constants)
+        tiled["att_constants"] = tuple(
+            att.tile_constants(c, k)
+            for att, c in zip(self.attentions, constants["att_constants"]))
+        return tiled
 
     # ------------------------------------------------------------------ #
     # lineage decoding: the RNN state is one small vector per beam; the
@@ -398,7 +411,11 @@ class Decoder(AutoregressiveDecoder):
                 loop_state, lambda x: x.index_select(0, rows)),
             prev_ids, beam=beam)
 
-    def tile_decode_state(self, state: Any, beam: int) -> Any:
+    def tile_decode_state(self, state: Any, beam: int,
+                          lineage: bool = True) -> Any:
+        """Both forms of the search start from the state's rows, the
+        coverage too, each repeated ``beam`` times."""
+        del lineage
         return self._map_state(
             state, lambda x: x.repeat_interleave(beam, dim=0))
 

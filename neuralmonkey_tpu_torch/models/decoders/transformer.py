@@ -14,13 +14,19 @@ Beam search decodes by lineage: the caches are never reordered, each
 slot writes its own rows, and the self-attention resolves the ancestry
 ``anc`` in score space (``decode_step_lineage``), as einsums by default
 or, under ``NM_LINEAGE_KERNEL=1``, through the lineage attention kernel
-on caches in its layout (``ops/lineage_attention.py``).
+on caches in its layout (``ops/lineage_attention.py``). With lineage
+decoding off (``lineage="off"``, ``NM_LINEAGE=0``) beam search takes the
+physical reorder: the cross-attention constants are tiled to B·K rows
+(``tile_decode_constants``), each step is ``decode_step`` over plain
+(B·K, T, D) caches, whatever ``NM_LINEAGE_KERNEL`` says, and the search
+gathers the caches by the chosen parents after each step.
 
 With ``moe_experts > 1`` every FFN is a mixture of experts
 (``ops/moe.py``): teacher-forced layers route the target tokens with
-their capacity, padding masked out; every decode step (greedy, and both
-lineage forms) routes its rows as one group without dropping a token,
-the padding rows of a batch masked out (``row_valid``).
+their capacity, padding masked out; every decode step (greedy, both
+lineage forms and the physical reorder) routes its rows as one group
+without dropping a token, the padding rows of a batch masked out
+(``row_valid``).
 
 Under the bf16 compute policy (``ops/policy.py``) the decode caches and
 the projected cross-attention keys and values are bf16 (``_cache_dtype``);
@@ -441,6 +447,20 @@ class TransformerDecoder(AutoregressiveDecoder):
                     self._batch_size(ctx))
         return constants
 
+    def tile_decode_constants(self, constants, k: int):
+        """Constants for B·K rows (the physical reorder): the
+        cross-attention keys and values (this rank's heads), the source
+        biases and the MoE FFN's ``row_valid`` repeated k times."""
+        def rep(x):
+            return x.repeat_interleave(k, dim=0)
+        tiled = dict(constants)
+        tiled["enc_kv"] = [[(rep(key), rep(value)) for key, value in layers]
+                           for layers in constants["enc_kv"]]
+        tiled["enc_bias"] = [rep(b) for b in constants["enc_bias"]]
+        if "row_valid" in constants:
+            tiled["row_valid"] = rep(constants["row_valid"])
+        return tiled
+
     def tile_decode_constants_lineage(self, constants, k: int):
         """The cross-attention keys, values and masks are the same for
         every beam: one copy per sentence, shared by the K beams."""
@@ -467,18 +487,19 @@ class TransformerDecoder(AutoregressiveDecoder):
              for name in ("k", "v")}
             for _ in range(self.depth))
 
-    def tile_decode_state(self, state, beam: int):
-        """Caches for B·K beam rows: (B·K, T, D) rows for the einsum
-        lineage step, or under ``NM_LINEAGE_KERNEL=1`` the lineage
-        kernel's layout, ``kq`` (B, H, Dh, K·T) and ``vq`` (B, H, K·T,
-        Dh) with lane ``t·K + j`` (``tile_decode_state`` :579-614), in
-        the state's dtype, or bf16 under ``NM_LINEAGE_KERNEL_BF16=1``."""
+    def tile_decode_state(self, state, beam: int, lineage: bool = True):
+        """Caches for B·K beam rows: (B·K, T, D) rows for the physical
+        reorder and the einsum lineage step, or, for lineage decoding
+        under ``NM_LINEAGE_KERNEL=1``, the lineage kernel's layout,
+        ``kq`` (B, H, Dh, K·T) and ``vq`` (B, H, K·T, Dh) with lane
+        ``t·K + j`` (``tile_decode_state`` :579-614), in the state's
+        dtype, or bf16 under ``NM_LINEAGE_KERNEL_BF16=1``."""
         batch = state[0]["k"].shape[0]
         zeros = state[0]["k"].new_zeros
         head_dim = self.model_dim // self.n_heads_self
         # this rank's heads (the caches' width says how many)
         heads = state[0]["k"].shape[-1] // head_dim
-        if not lineage_kernel_layout():
+        if not (lineage and lineage_kernel_layout()):
             return tuple({name: zeros(batch * beam, self.max_output_len,
                                       heads * head_dim)
                           for name in ("k", "v")}

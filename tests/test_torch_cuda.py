@@ -486,6 +486,67 @@ def test_bahdanau_is_deterministic(cuda_device):
         assert torch.equal(a, b)
 
 
+def test_physical_beam_runs_k2_at_beam_rows_like_cpu(cuda_device):
+    """Beam search's physical reorder (``lineage="off"``) on the card: K2
+    at B·K rows against its plain version (640 rows of T 32, A 512, D
+    1024: the flagship's beam 10 over 64 sentences of 32 words), then a
+    small conditional-GRU model's lineage and physical beam-10 searches
+    through the kernels (the physical one's steps through K2 at B·K
+    rows, K3 and K4) against the CPU's: ids and lengths equal, scores
+    within 1e-4 (phase 5's rule of ``chip_smoke.py`` where no candidate
+    lies near a tie)."""
+    from neuralmonkey_tpu_torch.models.decoders.beam_search_decoder import \
+        BeamSearchDecoder
+    args = _bahdanau_args(cuda_device, 640, 32, 512, 1024,
+                          [32, 31, 17, 1] * 160)
+    kernel_config.reset_launch_counts()
+    got = cuda_attention.fused_bahdanau_step(*args)
+    torch.cuda.synchronize()
+    assert kernel_config.launch_counts()["fused_bahdanau_step"] == 1
+    ref = cuda_attention.bahdanau_reference(*args)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-4, rtol=0)
+
+    vocab = Vocabulary([f"w{i}" for i in range(296)])
+    enc = SentenceEncoder(name="encoder", vocabulary=vocab, data_id="source",
+                          embedding_size=16, rnn_size=24, max_input_len=7)
+    att = Attention(name="attention", encoder=enc, state_size=20)
+    dec = Decoder(name="decoder", vocabulary=vocab, data_id="target",
+                  max_output_len=6, rnn_size=24, encoders=[enc],
+                  attentions=[att], embedding_size=16, conditional_gru=True)
+    params = init_all_params(collect_parts([dec]), seed=3)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"encoder_input.ids": torch.randint(4, 300, (4, 7), generator=gen,
+                                                dtype=torch.int32),
+             "encoder_input.mask": _mask("cpu", [7, 5, 2, 0], 7)}
+
+    def search(lineage, device):
+        ctx = Context({part: {k: (v.to(device) if isinstance(v, torch.Tensor)
+                                  else {kk: vv.to(device)
+                                        for kk, vv in v.items()})
+                              for k, v in tree.items()}
+                       for part, tree in params.items()},
+                      {k: v.to(device) for k, v in batch.items()})
+        with torch.inference_mode():
+            out = BeamSearchDecoder(
+                name="bs", parent_decoder=dec, beam_size=10,
+                selection_method="hierarchical", lineage=lineage).search(ctx)
+        return [t.cpu() for t in out[:3]]
+    for lineage in ("on", "off"):
+        kernel_config.reset_launch_counts()
+        got = search(lineage, cuda_device)
+        torch.cuda.synchronize()
+        counts = kernel_config.launch_counts()
+        for name in ("fused_logits_rowmax_lse", "small_topk") + (
+                ("fused_bahdanau_step",) if lineage == "off" else ()):
+            assert counts[name] > 0, (lineage, counts)
+        assert counts["lineage_attention"] == 0
+        ref = search(lineage, torch.device("cpu"))
+        assert torch.equal(got[0], ref[0]), lineage
+        assert torch.equal(got[1], ref[1]), lineage
+        torch.testing.assert_close(got[2], ref[2], atol=1e-4, rtol=0)
+
+
 def test_fused_logits_kernel(cuda_device):
     n, d, vp = 70, 40, 1024
     x = _randn(cuda_device, n, d)

@@ -5,10 +5,14 @@
   trains, and the ``run`` CLI (which asks for inference mode) decodes
   from what it wrote.
 - ``BeamSearchDecoder`` takes the JAX package's ``lineage`` switch:
-  "auto" and "on" decode the JAX package's beam ids; "off" and
-  ``NM_LINEAGE=0`` ask for the physical per-step reorder, which is not
-  ported, and raise; any other value raises the JAX package's
-  ValueError.
+  "auto" and "on" decode the JAX package's beam ids by lineage; "off"
+  and ``NM_LINEAGE=0`` (read at each search) decode with the physical
+  per-step reorder, the JAX package's ids too; the default resolves as
+  the JAX package's ``test_lineage_default_resolution`` pins it ("on"
+  over a decoder without lineage decoding raises its ValueError, "auto"
+  over one decodes physically); any other value raises the JAX
+  package's ValueError. ``tests/test_torch_beam_physical.py`` holds the
+  physical search case by case.
 - ``CUDAManager`` takes every keyword of the JAX ``TPUManager``: the
   mesh options build at their defaults and raise for any other value.
 - Shapes past a kernel's limit take the plain path, as the JAX package
@@ -167,30 +171,37 @@ def _source_batch():
             "encoder_input.mask": mask}
 
 
-@pytest.mark.parametrize("lineage", ["auto", "on"])
-def test_beam_lineage_modes_decode_jax_ids(lineage):
-    """The port's beam search under ``lineage`` equals the JAX package's
-    under the same setting: ids, lengths and scores (1e-4)."""
-    jax_dec = _rnn_decoder(JaxSentenceEncoder, JaxAttention, JaxDecoder,
-                           JaxVocabulary)
-    port_dec = _port_decoder()
+def _search_both(lineage, jax_dec=None, port_dec=None, env=None,
+                 monkeypatch=None):
+    """(the JAX package's beam search, the port's) of one draw of
+    parameters under ``lineage``; ``env`` sets ``NM_LINEAGE`` after the
+    searches are built, before they run."""
+    jax_dec = jax_dec or _rnn_decoder(JaxSentenceEncoder, JaxAttention,
+                                      JaxDecoder, JaxVocabulary)
+    port_dec = port_dec or _port_decoder()
     rng = np.random.RandomState(4)
     template = jax_init(jax_collect_parts([jax_dec]), jax.random.PRNGKey(0))
     flat = {k: (np.asarray(v) + rng.randn(*v.shape) * 0.3).astype(
         np.float32) for k, v in jax_flatten(template).items()}
     batch = _source_batch()
-    ref = JaxBeamSearch(name="bs", parent_decoder=jax_dec, beam_size=BEAM,
-                        lineage=lineage).search(JaxContext(
-                            jax_restore(template, flat),
-                            {k: jax.numpy.asarray(v)
-                             for k, v in batch.items()}))
+    jax_bs = JaxBeamSearch(name="bs", parent_decoder=jax_dec,
+                           beam_size=BEAM, lineage=lineage)
+    port_bs = BeamSearchDecoder(name="bs", parent_decoder=port_dec,
+                                beam_size=BEAM, lineage=lineage)
+    if env is not None:
+        monkeypatch.setenv("NM_LINEAGE", env)
+    ref = jax_bs.search(JaxContext(
+        jax_restore(template, flat),
+        {k: jax.numpy.asarray(v) for k, v in batch.items()}))
     params = params_from_jax(flat, init_all_params(
         collect_parts([port_dec]), seed=0))
     with torch.inference_mode():
-        got = BeamSearchDecoder(
-            name="bs", parent_decoder=port_dec, beam_size=BEAM,
-            lineage=lineage).search(Context(
-                params, {k: torch.from_numpy(v) for k, v in batch.items()}))
+        got = port_bs.search(Context(
+            params, {k: torch.from_numpy(v) for k, v in batch.items()}))
+    return ref, got
+
+
+def _assert_same_search(got, ref):
     np.testing.assert_array_equal(got.token_ids.numpy(),
                                   np.asarray(ref.token_ids))
     np.testing.assert_array_equal(got.lengths.numpy(),
@@ -199,31 +210,86 @@ def test_beam_lineage_modes_decode_jax_ids(lineage):
                                atol=1e-4)
 
 
+def _count_steps(monkeypatch):
+    """Count the port RNN's plain and lineage decode steps."""
+    counts = {"decode_step": 0, "decode_step_lineage": 0}
+    for name in counts:
+        plain = getattr(Decoder, name)
+
+        def counted(self, *args, _name=name, _plain=plain, **kwargs):
+            counts[_name] += 1
+            return _plain(self, *args, **kwargs)
+        monkeypatch.setattr(Decoder, name, counted)
+    return counts
+
+
+@pytest.mark.parametrize("lineage", ["auto", "on"])
+def test_beam_lineage_modes_decode_jax_ids(lineage):
+    """The port's beam search under ``lineage`` equals the JAX package's
+    under the same setting: ids, lengths and scores (1e-4)."""
+    ref, got = _search_both(lineage)
+    _assert_same_search(got, ref)
+
+
 @pytest.mark.parametrize("lineage,env,when", [
     ("off", None, "build"),
     ("auto", "0", "build"),
     ("auto", "off", "build"),
     ("on", "0", "search")])
 def test_beam_lineage_off_raises(monkeypatch, lineage, env, when):
-    """The physical reorder is not ported: asking for it, in the INI or
-    through ``NM_LINEAGE`` (read at build and at each search), raises
-    instead of being ignored."""
-    dec = _port_decoder()
+    """Asking for the physical reorder, in the INI or through
+    ``NM_LINEAGE`` (set before the search is built, or only before it
+    runs), raises nothing: every step is the plain ``decode_step`` over
+    B·K rows, never the lineage step, and the ids, lengths and scores
+    (1e-4) are the JAX package's under the same setting."""
     if env is not None and when == "build":
         monkeypatch.setenv("NM_LINEAGE", env)
-    if when == "build":
-        with pytest.raises(NotImplementedError, match="physical per-step"):
-            BeamSearchDecoder(name="bs", parent_decoder=dec, beam_size=BEAM,
-                              lineage=lineage)
-        return
-    bs = BeamSearchDecoder(name="bs", parent_decoder=dec, beam_size=BEAM,
-                           lineage=lineage)
-    monkeypatch.setenv("NM_LINEAGE", env)
-    params = init_all_params(collect_parts([dec]), seed=0)
-    batch = {k: torch.from_numpy(v) for k, v in _source_batch().items()}
-    with pytest.raises(NotImplementedError, match="NM_LINEAGE=0"):
-        with torch.inference_mode():
-            bs.search(Context(params, batch))
+    counts = _count_steps(monkeypatch)
+    ref, got = _search_both(lineage, env=env if when == "search" else None,
+                            monkeypatch=monkeypatch)
+    _assert_same_search(got, ref)
+    assert counts["decode_step"] > 0 and counts["decode_step_lineage"] == 0
+
+
+class _NoLineageDecoder(Decoder):
+    lineage_decode = False
+
+
+class _JaxNoLineageDecoder(JaxDecoder):
+    lineage_decode = False
+
+
+def test_lineage_default_resolution_as_jax(monkeypatch):
+    """The JAX package's ``test_lineage_default_resolution``: "auto"
+    resolves to lineage decoding, "off" to the physical reorder, "on"
+    over a decoder without lineage decoding raises the JAX package's
+    ValueError, and "auto" over one decodes physically, the JAX
+    package's ids."""
+    monkeypatch.delenv("NM_LINEAGE", raising=False)
+    for mode, lineage in (("auto", True), ("off", False), ("on", True)):
+        for search_cls, dec in ((JaxBeamSearch, _rnn_decoder(
+                JaxSentenceEncoder, JaxAttention, JaxDecoder,
+                JaxVocabulary)), (BeamSearchDecoder, _port_decoder())):
+            assert search_cls(name="pin", parent_decoder=dec, beam_size=2,
+                              lineage=mode)._use_lineage() is lineage
+    jax_plain = _rnn_decoder(JaxSentenceEncoder, JaxAttention,
+                             _JaxNoLineageDecoder, JaxVocabulary)
+    port_plain = _rnn_decoder(SentenceEncoder, Attention, _NoLineageDecoder,
+                              Vocabulary)
+    errors = []
+    for search_cls, dec in ((JaxBeamSearch, jax_plain),
+                            (BeamSearchDecoder, port_plain)):
+        forced = search_cls(name="pin", parent_decoder=dec, beam_size=2,
+                            lineage="on")
+        with pytest.raises(ValueError) as raised:
+            forced._use_lineage()
+        errors.append(str(raised.value))
+    assert errors[1] == errors[0].replace("_JaxNoLineageDecoder",
+                                          "_NoLineageDecoder")
+    counts = _count_steps(monkeypatch)
+    ref, got = _search_both("auto", jax_plain, port_plain)
+    _assert_same_search(got, ref)
+    assert counts["decode_step"] > 0 and counts["decode_step_lineage"] == 0
 
 
 @pytest.mark.parametrize("lineage", ["sideways", "ON", ""])

@@ -183,6 +183,16 @@ def _search(runner, beam=3, name="fs_bs", **kwargs):
                                 beam_size=beam, **kwargs))
 
 
+def physical_beam(manager, search, data, batch):
+    """The beam search's result under ``NM_LINEAGE=0`` (the physical
+    reorder)."""
+    os.environ["NM_LINEAGE"] = "0"
+    try:
+        return manager.run_on_batch([search], data, batch)[0]
+    finally:
+        del os.environ["NM_LINEAGE"]
+
+
 def _manager(trainer, runner, *more, **kwargs):
     manager = CUDAManager(device="cpu", random_seed=0, **kwargs)
     manager.initialize_model_parts([trainer, runner, *more], seed=0)
@@ -521,7 +531,11 @@ def dropout_masks(directory):
 
 def beam(directory):
     """Greedy and beam-3 decodes of a split batch after one step,
-    replicated and under fsdp: every runner's outputs and losses."""
+    replicated and under fsdp; then, the fsdp model's parameters scaled
+    by 3 (which makes its hypotheses part ways), its beam search by
+    lineage and by the physical reorder (each decoder layer gathered at
+    each step over B·K rows, the states gathered by their parents):
+    every runner's outputs and losses."""
     del directory
     ds = _dataset()
     decodes = {}
@@ -532,6 +546,13 @@ def beam(directory):
         manager.train_on_batch(trainer, ds, 16)
         decodes[mode] = [(r.outputs, r.losses) for r in
                          manager.run_on_batch([runner, search], ds, 16)]
+    with torch.no_grad():
+        for leaf in flatten_tree(manager.params).values():
+            leaf.mul_(3.0)
+    for form, result in (
+            ("lineage", manager.run_on_batch([search], ds, 16)[0]),
+            ("physical", physical_beam(manager, search, ds, 16))):
+        decodes[f"fsdp_scaled_{form}"] = [(result.outputs, result.losses)]
     return decodes
 
 
@@ -1151,6 +1172,17 @@ def test_dp_beam_decode_matches_one_process(ranks, single):
         for mode in ("replicated", "fsdp"):
             assert "beam_score" in result["beam"][mode][1][1]
             _same_decodes(result["beam"][mode], single["beam"][mode])
+
+
+def test_fsdp_physical_beam_matches_one_process(ranks, single):
+    """Under fsdp the beam search by the physical reorder (``NM_LINEAGE=0``)
+    of each rank's rows gives one process's sentences and scores, which
+    are the lineage search's."""
+    results, _ = ranks
+    want = single["beam"]["fsdp_scaled_physical"]
+    _same_decodes(want, single["beam"]["fsdp_scaled_lineage"])
+    for result in results:
+        _same_decodes(result["beam"]["fsdp_scaled_physical"], want)
 
 
 def test_ensemble_through_dp_matches_one_process(ranks, single):

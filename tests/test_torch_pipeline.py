@@ -43,12 +43,13 @@ def _stages() -> int:
 
 def train_and_decode(directory, stages=2, micro=0, rows=16, steps=2,
                      keep=1.0, att_keep=1.0, experts=0, save=False,
-                     **kwargs):
+                     physical=False, **kwargs):
     """``steps`` steps and both decodes of the stacked Transformer (its
     parts' ``pipeline_stages`` and ``pipeline_microbatches``) on ``rows``
-    sentences; on the ranks over a pipe axis of two, alone one
-    process's. Returns the losses, parameters, ids, the pipeline's calls
-    and the stage's shard shapes."""
+    sentences, with ``physical`` also the beam search by the physical
+    reorder (``NM_LINEAGE=0``); on the ranks over a pipe axis of two,
+    alone one process's. Returns the losses, parameters, ids, the
+    pipeline's calls and the stage's shard shapes."""
     calls = {"gpipe": 0}
     real = pipeline.gpipe_apply
 
@@ -68,6 +69,9 @@ def train_and_decode(directory, stages=2, micro=0, rows=16, steps=2,
         out = [manager.train_on_batch(trainer, ds, rows)
                for _ in range(steps)]
         decodes = manager.run_on_batch([runner, search], ds, rows)
+        beam_physical = (harness.physical_beam(manager, search, ds,
+                                               rows).outputs
+                         if physical else None)
         ckpt = (manager.save(os.path.join(
             directory, f"pp{distributed.process_index()}", "variables.data"))
             if save else None)
@@ -79,6 +83,7 @@ def train_and_decode(directory, stages=2, micro=0, rows=16, steps=2,
                     for o in out],
             "params": tp_tests.whole(manager),
             "greedy": decodes[0].outputs, "beam": decodes[1].outputs,
+            "beam_physical": beam_physical,
             "gpipe_calls": calls["gpipe"], "ckpt": ckpt,
             "q_w": tuple(layers["att"]["q"]["w"].shape),
             "ff_in": tuple(layers["ff"]["in"]["w"].shape),
@@ -132,7 +137,7 @@ def executor(directory):
 
 
 def transformer(directory):
-    return train_and_decode(directory, save=True)
+    return train_and_decode(directory, save=True, physical=True)
 
 
 def more_microbatches(directory):
@@ -240,6 +245,7 @@ def _same_run(got, want, decodes=True, params_atol=ATOL):
     if decodes:
         assert got["greedy"] == want["greedy"]
         assert got["beam"] == want["beam"]
+        assert got["beam_physical"] == want["beam_physical"]
 
 
 def test_gpipe_executor_matches_sequential(ranks, single):
@@ -277,6 +283,17 @@ def test_pipelined_transformer_matches_one_process(ranks, single):
         assert got["gpipe_calls"] >= 2 * 2 + 1
     assert single["transformer"]["q_w"] == (4, 16, 16)
     assert single["transformer"]["gpipe_calls"] == 0
+
+
+def test_pipelined_physical_beam_matches_one_process(ranks, single):
+    """The beam search by the physical reorder (``NM_LINEAGE=0``) over
+    the stacked layers (gathered whole for the decode, every step over
+    B·K rows): one process's ids on both stages, which are the lineage
+    search's."""
+    want = single["transformer"]
+    assert want["beam_physical"] == want["beam"]
+    for rank in ranks:
+        assert rank["transformer"]["beam_physical"] == want["beam_physical"]
 
 
 def test_pipelined_checkpoint_is_one_process_layout(ranks, single):

@@ -316,11 +316,12 @@ def decodes(directory):
     """Decodes of untrained models with their vocabularies split: the
     tied Transformer's greedy and beam search with the caches in the
     lineage kernel's layout (``NM_LINEAGE_KERNEL=1``), each rank's
-    heads; the RNN's greedy and hierarchical beam search (the fused
-    logit projection armed over the gathered vocabulary); one RNN step
-    under
-    ``NM_FUSED_XENT=1``; and the plain paths the gates of K3 and of the
-    fused cross-entropy logged."""
+    heads, and its beam search by the physical reorder (plain B·K rows
+    of this rank's heads, the cross-attention constants tiled); the
+    RNN's greedy and hierarchical beam search (the fused logit
+    projection armed over the gathered vocabulary), and its physical
+    beam search; one RNN step under ``NM_FUSED_XENT=1``; and the plain
+    paths the gates of K3 and of the fused cross-entropy logged."""
     del directory
     os.environ["NM_LINEAGE_KERNEL"] = "1"
     try:
@@ -328,6 +329,8 @@ def decodes(directory):
         manager = manager_for([trainer, runner, search])
         lineage = [r.outputs for r in manager.run_on_batch(
             [runner, search], dataset(), 16)]
+        physical = harness.physical_beam(manager, search, dataset(),
+                                            16).outputs
         heads = manager.params["lin_tgt"]["layer_0"]["self_att"]["q"][
             "w"].shape[1] // 4
     finally:
@@ -344,12 +347,14 @@ def decodes(directory):
     data = Dataset("case", harness.case_series("xent"))
     rnn = [r.outputs for r in manager.run_on_batch([runner, search], data,
                                                    4)]
+    rnn_physical = harness.physical_beam(manager, search, data, 4).outputs
     os.environ["NM_FUSED_XENT"] = "1"
     try:
         loss = manager.train_on_batch(trainer, data, 4)["loss"]
     finally:
         del os.environ["NM_FUSED_XENT"]
-    return {"lineage": lineage, "heads": heads, "rnn": rnn, "loss": loss,
+    return {"lineage": lineage, "physical": physical, "heads": heads,
+            "rnn": rnn, "rnn_physical": rnn_physical, "loss": loss,
             "plain_paths": sorted(kernel_config._PLAIN_PATHS)}
 
 
@@ -576,3 +581,18 @@ def test_decodes_over_split_vocabularies_match_one_process(ranks, single):
         paths = dict(got["plain_paths"])
         assert paths.get("fused_logits_rowmax_lse") == "a model axis is on"
         assert "split over the model axis" in paths.get("fused_xent", "")
+
+
+def test_physical_beam_over_split_heads_matches_one_process(ranks, single):
+    """Under ``NM_LINEAGE=0`` the tied Transformer's beam ids (each rank's
+    plain B·K-row caches and tiled cross-attention keys holding its 2 of
+    4 heads) and the RNN's: one process's, which are its lineage
+    searches'."""
+    results, _, _ = ranks
+    want = single["decodes"]
+    assert want["physical"] == want["lineage"][1]
+    assert want["rnn_physical"] == want["rnn"][1]
+    for result in results:
+        got = result["decodes"]
+        assert got["physical"] == want["physical"]
+        assert got["rnn_physical"] == want["rnn_physical"]
